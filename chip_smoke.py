@@ -5,8 +5,9 @@
 Needs one CUDA card, nvcc (CUDA_HOME or /usr/local/cuda) and no network.
 Imports no JAX.  Phases, one line each; any failure exits non-zero:
 
-  1. build    compile csrc/hist.cu (nvcc -Xptxas -v: registers, shared
-              memory, spills);
+  1. build    compile csrc/hist.cu, partition.cu and round.cu, one nvcc
+              each, all started together (nvcc -Xptxas -v: registers,
+              shared memory, spills);
   2. kernels  each histogram kernel against its plain PyTorch version at the
               training path's shapes (1M x 28 x 255, float tile 8, int8 tile
               20) and on a ragged case; timings from CUDA events;
@@ -16,7 +17,24 @@ Imports no JAX.  Phases, one line each; any failure exits non-zero:
               save/reload bitwise, a small run held against the CPU, and
               a torch.profiler window of 5 rounds (device busy share);
   4. int8     the same set with use_quantized_grad=true, 5 rounds;
-  5. device   nvidia-smi's name and power limit.
+  5. epsilon  a seeded Epsilon-shaped set (400k train + 50k held-out rows x
+              2000 dense features, 255 bins) binned once for phases 6-9;
+  6. windowed lgb.train with windowed_growth=true, 255 leaves, 5 rounds:
+              the round megakernel every round, held-out AUC, save/reload,
+              round-driver stats and a torch.profiler window;
+  7. kernels  every kernel of the windowed path against its plain version,
+              bit for bit, on the real bins with phase 6's gradients: the
+              root histogram pass (tile 1, explicit exponents), the
+              partition, the float window pass and the round megakernel
+              (two sets of split options) at the float leaf tile 10, the
+              partition and the int8 window pass at the int8 tile 20, and
+              a ragged case;
+  8. int8     the same with use_quantized_grad=true, 3 rounds: the
+              three-pass round (partition kernel + int8 histogram kernel);
+  9. parity   megakernel=auto against megakernel=0 on 100k of the rows, 2
+              trees: the same nodes, leaf counts and leaf values, and each
+              run's launches counted;
+ 10. device   nvidia-smi's name and power limit.
 
 Then a JSON line with every kernel's numbers, and last the device line
 {"ok": true, "device": {...}}.
@@ -42,6 +60,15 @@ ROUNDS_FLOAT, ROUNDS_INT8, NUM_LEAVES = 20, 5, 31
 # under its reading, so a fault that only degrades the trees still fails.
 AUC_FLOOR = 0.84
 AUC_FLOOR_INT8 = 0.80
+# the Epsilon-shaped cell (PASCAL Large Scale Learning Challenge "epsilon":
+# 400k train rows x 2000 dense features; the real set is not on the machine)
+EPS_N_TRAIN, EPS_N_TEST, EPS_FEAT, EPS_LEAVES = 400_000, 50_000, 2000, 255
+EPS_ROUNDS_FLOAT, EPS_ROUNDS_INT8, EPS_PARITY_ROWS = 5, 3, 100_000
+EPS_BIN_SAMPLE = 50_000  # bin_construct_sample_cnt (PERF.md section 4)
+# the card read 0.64003 (5 float rounds) and 0.62815 (3 int8 rounds) on
+# this generator (PERF.md); each floor sits 0.01 under its reading
+AUC_FLOOR_EPS = 0.63
+AUC_FLOOR_EPS_INT8 = 0.61
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_OPS_PER_S = 67e12  # H100 SXM, non-tensor-core f32 (integer adds counted alike)
 
@@ -149,6 +176,29 @@ def library_call(bins, vals, mask, slot, leaf_base, tile, num_bins, dtype):
         acc.index_add_(0, idx, v)
 
     return run, rows
+
+
+def library_partition(order, seg_start, seg_len, go_left):
+    """The PyTorch yardstick (timed, never called by the port): one stable
+    sort of the in-segment positions by (segment start, goes right) gives
+    the same permutation.  Returns the call to time (keys built outside)."""
+    from lightgbm_tpu_torch.ops.partition import segment_ids
+
+    n = order.shape[0]
+    sid = segment_ids(seg_start, seg_len, n).long()
+    in_seg = sid >= 0
+    start = seg_start.long()[sid.clamp_min(0)]
+    key = torch.where(in_seg, start * 2 + (~go_left).long(), -1)
+    pos = torch.nonzero(in_seg).squeeze(1)
+    key_in = key[pos]
+
+    def run():
+        perm = torch.sort(key_in, stable=True).indices
+        out = order.clone()
+        out[pos] = order[pos[perm]]
+        return out
+
+    return run
 
 
 SECTOR = 32  # bytes: the unit in which the card reads scattered rows
@@ -294,6 +344,294 @@ def profile_rounds(lgt, params, train_set, rounds):
     return wall_ms, busy_ms, [(e.key[:60], dev_us(e) / 1e3, e.count) for e in top]
 
 
+
+# ---------------------------------------------------------------------------
+# phases 5-9: the windowed grower at Epsilon width
+# ---------------------------------------------------------------------------
+def epsilon_like(n: int, seed: int):
+    """A seeded set of the shape of PASCAL "epsilon": 2000 dense
+    standardized features, a balanced binary label from a noisy linear
+    model plus pairwise interactions, 1% of the values missing."""
+    rng = np.random.default_rng(seed)
+    X = rng.standard_normal((n, EPS_FEAT), dtype=np.float32)
+    w = (rng.standard_normal(EPS_FEAT) * np.exp(-np.arange(EPS_FEAT) / 300.0)
+         ).astype(np.float32)
+    z = X @ w / np.sqrt(float((w * w).sum()))
+    for a, b in ((0, 1), (2, 3), (10, 20), (30, 40)):
+        z += 0.5 * X[:, a] * X[:, b]
+    z += rng.standard_normal(n).astype(np.float32)
+    y = (z > np.median(z)).astype(np.float64)
+    X[rng.random((n, EPS_FEAT), dtype=np.float32) < 0.01] = np.nan
+    return X, y
+
+
+def split_case(bins, num_bins, T, seed, ragged=False):
+    """One round's split geometry on the real bins: T segments tiling the
+    rows (a tree a few rounds in), each split on a real feature at a seeded
+    threshold; the windows are the small children.  ``ragged`` adds an
+    empty segment, an all-left one and positions outside every segment."""
+    from lightgbm_tpu_torch.ops.partition import segment_ids
+
+    dev = bins.device
+    n, f = bins.shape
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    cuts = torch.sort(torch.randperm(n - 1, generator=g)[:T - 1] + 1).values
+    seg_start = torch.cat([torch.zeros(1, dtype=torch.int64), cuts])
+    seg_len = torch.diff(torch.cat([seg_start, torch.tensor([n])]))
+    if ragged:
+        seg_len[1] = 0  # empty
+        seg_len[-1] -= 17  # positions outside every segment
+    seg_start, seg_len = seg_start.int().to(dev), seg_len.int().to(dev)
+    order = torch.randperm(n, generator=g).int().to(dev)
+    feats = torch.randint(0, f, (T,), generator=g).to(dev)
+    thr = torch.randint(num_bins // 6, num_bins * 5 // 6, (T,), generator=g).to(dev)
+    sid = segment_ids(seg_start, seg_len, n).long()
+    col = bins[order.long(), feats[sid.clamp_min(0)]].int()
+    go = col <= thr[sid.clamp_min(0)]
+    if ragged:
+        go[seg_start[2]:seg_start[2] + seg_len[2]] = True  # all left
+    in_seg = sid >= 0
+    n_left = torch.zeros(T + 1, dtype=torch.int64, device=dev).index_add_(
+        0, sid + 1, (go & in_seg).long())[1:].int()
+    small_left = (2 * n_left <= seg_len).int()
+    return dict(order=order, go=go, seg_start=seg_start, seg_len=seg_len,
+                n_left=n_left, small_left=small_left, sid=sid, in_seg=in_seg,
+                win_start=torch.where(small_left > 0, seg_start, seg_start + n_left),
+                win_cnt=torch.where(small_left > 0, n_left, seg_len - n_left))
+
+
+def round_case(bins, grad, hess, nbpf, mbpf, num_bins, sp, shift):
+    """The round kernel's arguments for split ``sp``: the segments' own
+    histograms as parents (the histogram kernel on the permuted rows, with
+    the tree's exponents) and the 2T children's sums in cand_tab (their
+    outputs, row 3, come from ``with_outputs``)."""
+    from lightgbm_tpu_torch.ops import hist_cuda as hc
+
+    dev = bins.device
+    n, f = bins.shape
+    T = sp["seg_start"].shape[0]
+    sid, in_seg, go = sp["sid"], sp["in_seg"], sp["go"]
+    rows = sp["order"].long()
+    parent = hc.histogram_multi(bins.index_select(0, rows), grad[rows], hess[rows],
+                                in_seg, torch.where(in_seg, sid, -1).int(), 0, T,
+                                num_bins, shift=shift)
+    ps = parent[:, :, 0].sum(2)  # (T, 3) totals from feature 0
+    lsum = torch.zeros((T + 1, 3), dtype=torch.float64, device=dev).index_add_(
+        0, torch.where(go & in_seg, sid + 1, 0),
+        torch.stack([grad[rows], hess[rows], torch.ones_like(grad)], 1).double()
+    )[1:].float()
+    cand = torch.stack([torch.cat([lsum[:, i], ps[:, i] - lsum[:, i]])
+                        for i in range(3)]
+                       + [torch.zeros(2 * T, device=dev)]).contiguous()
+    mask = torch.ones(n, dtype=torch.bool, device=dev)
+    fmask = torch.ones(f, dtype=torch.bool, device=dev)
+    return (bins, sp["order"], go, grad, hess, mask, sp["seg_start"], sp["seg_len"],
+            sp["n_left"], sp["win_start"], sp["win_cnt"], sp["small_left"], parent,
+            cand, nbpf, mbpf, fmask)
+
+
+def with_outputs(args, params):
+    """The round's arguments with the children's leaf outputs under
+    ``params`` in cand_tab row 3 (what path smoothing reads)."""
+    from lightgbm_tpu_torch.ops.split import leaf_output
+
+    cand = args[13].clone()
+    cand[3] = leaf_output(cand[0], cand[1], params)
+    return args[:13] + (cand,) + args[14:]
+
+
+def same(a, b, what):
+    """Bit-for-bit equality of a kernel's output and its plain version's."""
+    if not torch.equal(a, b):
+        d = float((a.double() - b.double()).abs().max()) if a.shape == b.shape else None
+        raise AssertionError(f"{what}: kernel differs from its plain version, "
+                             f"max|d| {d}")
+
+
+def compare_round(kout, pout, what):
+    """Round kernel against its plain version, bit for bit: the new order,
+    the left/right histograms (same fixed point, same exponents) and the
+    per-feature bests (the same float64 prefix sums rounded to f32, the same
+    gain formulas op for op)."""
+    for name, a, b in (("new order", kout[0], pout[0]), ("left", kout[1], pout[1]),
+                       ("right", kout[2], pout[2])):
+        same(a, b, f"round kernel ({what}): {name}")
+    for name in kout[3]._fields:
+        same(getattr(kout[3], name), getattr(pout[3], name),
+             f"round kernel ({what}): per-feature {name}")
+
+
+def round_bound(args, W):
+    """Least time for one round call on this run's data.  Bytes: the
+    partition's 12 B per in-segment position; the window rows' order
+    entries (4 B), their bins (F x 2 B) and grad, hess, mask in the 32-B
+    sectors those rows touch; the parents read and left/right written once;
+    the per-feature bests (2T x F x 25 B).  Operations: three adds per
+    window row and feature, and ~40 per (candidate, feature, bin) of the
+    split search (two directions of leaf gains)."""
+    from lightgbm_tpu_torch.ops.round_cuda import window_rows
+    from lightgbm_tpu_torch.ops.partition import segment_ids, stable_partition_ranges
+
+    bins, order, go, _, _, _, seg_start, seg_len, _, win_start, win_cnt = args[:11]
+    parent = args[12]
+    n, f = bins.shape
+    T, b = parent.shape[0], parent.shape[3]
+    new_order, _ = stable_partition_ranges(order, segment_ids(seg_start, seg_len, n),
+                                           seg_start, seg_len, go)
+    rows, _, valid = window_rows(new_order, win_start, win_cnt, W)
+    rows = rows[valid]
+    in_seg = int(seg_len.sum())
+    hist_bytes = 3 * parent.numel() * 4
+    nbytes = (12 * in_seg + 4 * rows.numel() + sector_bytes(rows, f * 2)
+              + 2 * sector_bytes(rows, 4) + sector_bytes(rows, 1) + hist_bytes
+              + 2 * T * f * 25)
+    ops = rows.numel() * f * 3 + 2 * T * f * b * 40
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    return ((t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")), int(rows.numel())
+
+
+def check_epsilon_kernels(ts, grad, hess, params, tile, tile_q):
+    """Every kernel of the windowed path against its plain version, bit for
+    bit, on the real Epsilon bins with the gradients of a model a few trees
+    in: the root histogram pass (tile 1, the tree's exponents given
+    explicitly); at the float leaf tile ``tile``, the partition, the
+    three-pass float window pass and the round kernel under the training's
+    split parameters and under all of L1, L2, max_delta_step, path
+    smoothing and min_gain_to_split; at the int8 leaf tile ``tile_q``, the
+    partition and the int8 window pass on the gathered window; and a
+    ragged case (odd N, 257 features, an empty segment, an all-left one,
+    positions outside every segment).  Times on the float-tile case."""
+    from lightgbm_tpu_torch.ops import hist_cuda as hc
+    from lightgbm_tpu_torch.ops import partition_cuda as pc
+    from lightgbm_tpu_torch.ops import round_cuda as rc
+    from lightgbm_tpu_torch.ops.treegrow_fast import quantize_gradients
+    from lightgbm_tpu_torch.ops.treegrow_windowed import _window_size
+
+    bins, b = ts.bins_device, ts.max_num_bins
+    nbpf, mbpf = ts.num_bins_pf_device, ts.missing_bin_pf_device
+    n, f = bins.shape
+    dev = bins.device
+    mask = torch.ones(n, dtype=torch.bool, device=dev)
+    shift = hc.fixed_shift_pair(grad, hess)
+    full = params._replace(lambda_l1=0.5, lambda_l2=2.0, max_delta_step=0.7,
+                           path_smooth=3.0, min_gain_to_split=0.01)
+    out = dict(T=tile, Tq=tile_q, shift=shift)
+
+    # the root pass: tile 1, explicit exponents
+    ra = (bins, grad, hess, mask, torch.zeros(n, dtype=torch.int32, device=dev),
+          0, 1, b)
+    same(hc.histogram_multi(*ra, shift=shift), hc.histogram_multi_plain(*ra, shift=shift),
+         "root histogram pass (tile 1, explicit exponents)")
+    out["root_ms"] = cuda_ms(lambda: hc.histogram_multi(*ra, shift=shift), iters=5,
+                             warmup=1)
+    torch.cuda.empty_cache()
+
+    def partition(sp, what):
+        a = (sp["order"], sp["seg_start"], sp["seg_len"], sp["go"])
+        k, p = pc.partition_segments(*a), pc.partition_segments_plain(*a)
+        same(k[0], p[0], f"partition ({what})")
+        same(k[1], p[1], f"partition left counts ({what})")
+        if not torch.equal(k[1], sp["n_left"]):
+            raise AssertionError(f"partition ({what}): left counts disagree with the split")
+        return a, k[0]
+
+    # float leaf tile: partition, three-pass window pass, round kernel
+    sp = split_case(bins, b, tile, SEED + 5)
+    pa, new_order = partition(sp, f"T={tile}")
+    W = _window_size(int(sp["win_cnt"].sum()), n)
+    wa = (new_order, bins, (grad, hess), mask, sp["win_start"], sp["win_cnt"], W,
+          tile, b)
+    same(rc.window_histograms(hc.histogram_multi, *wa, shift=shift),
+         rc.window_histograms(hc.histogram_multi_plain, *wa, shift=shift),
+         f"float window pass (T={tile})")
+    base = round_case(bins, grad, hess, nbpf, mbpf, b, sp, shift)
+    for what, prm in (("training parameters", params), ("all options", full)):
+        args = with_outputs(base, prm)
+        kw = dict(params=prm, W=W, shift=shift)
+        compare_round(rc.round_megakernel(*args, **kw),
+                      rc.round_megakernel_plain(*args, **kw), what)
+    args, kw = with_outputs(base, params), dict(params=params, W=W, shift=shift)
+    out.update(W=W, in_seg=int(sp["seg_len"].sum()))
+    out["part_ms"] = cuda_ms(lambda: pc.partition_segments(*pa))
+    out["part_plain_ms"] = cuda_ms(lambda: pc.partition_segments_plain(*pa),
+                                   iters=5, warmup=1)
+    lib = library_partition(*pa)
+    if not torch.equal(lib(), new_order):
+        raise AssertionError("the stable-sort yardstick disagrees")
+    out["part_library_ms"] = cuda_ms(lib)
+    out["part_bound_ms"] = 12 * out["in_seg"] / HBM_BYTES_PER_S * 1e3
+    out["round_ms"] = cuda_ms(lambda: rc.round_megakernel(*args, **kw), iters=10,
+                              warmup=2)
+    out["round_plain_ms"] = cuda_ms(lambda: rc.round_megakernel_plain(*args, **kw),
+                                    iters=2, warmup=1)
+    (out["round_bound_ms"], out["round_bound_by"]), out["window_rows"] = round_bound(
+        args, W)
+    del base, args, wa
+    torch.cuda.empty_cache()
+
+    # int8 leaf tile: partition and the int8 window pass
+    gq, hq = quantize_gradients(grad, hess, mask, 4, False, None)[:2]
+    sq = split_case(bins, b, tile_q, SEED + 7)
+    _, new_q = partition(sq, f"T={tile_q}")
+    Wq = _window_size(int(sq["win_cnt"].sum()), n)
+    qa = (new_q, bins, (gq, hq), mask, sq["win_start"], sq["win_cnt"], Wq, tile_q, b)
+    same(rc.window_histograms(hc.histogram_multi_quantized, *qa),
+         rc.window_histograms(hc.histogram_multi_quantized_plain, *qa),
+         f"int8 window pass (T={tile_q})")
+    out.update(Wq=Wq, int8_window_ms=cuda_ms(
+        lambda: rc.window_histograms(hc.histogram_multi_quantized, *qa), iters=5,
+        warmup=1))
+    del qa
+    torch.cuda.empty_cache()
+
+    # ragged: partition and round kernel (all options)
+    nr, nf = 100_003, 257
+    rb = bins[:nr, :nf].contiguous()
+    sr = split_case(rb, b, 6, SEED + 6, ragged=True)
+    partition(sr, "ragged")
+    Wr = _window_size(int(sr["win_cnt"].sum()), nr)
+    args = with_outputs(round_case(rb, grad[:nr], hess[:nr], nbpf[:nf].contiguous(),
+                                   mbpf[:nf].contiguous(), b, sr, shift), full)
+    kw = dict(params=full, W=Wr, shift=shift)
+    compare_round(rc.round_megakernel(*args, **kw), rc.round_megakernel_plain(*args, **kw),
+                  "ragged")
+    del args, rb
+    torch.cuda.empty_cache()
+    return out
+
+
+def tree_stats(bst):
+    s = bst._gbdt.windowed_stats
+    rounds = sum(t["rounds"] for t in s)
+    return dict(trees=len(s), rounds=rounds, retries=sum(t["retries"] for t in s),
+                host_syncs=sum(t["host_syncs"] for t in s),
+                resolves=sum(t["async_resolves"] for t in s),
+                windows=sorted({w for t in s for w in t["windows"]}),
+                megakernel=[t["megakernel"] for t in s],
+                excluded=[t["megakernel_excluded"] for t in s])
+
+
+def trees_agree(a, b) -> float:
+    """Megakernel and three-pass trees: every node's feature, threshold and
+    default direction and every leaf count equal; leaf values within 1e-5
+    relative.  Returns the largest relative leaf-value gap."""
+    worst = 0.0
+    for i, (ta, tb) in enumerate(zip(a._gbdt.models, b._gbdt.models)):
+        if ta.num_leaves != tb.num_leaves:
+            raise AssertionError(f"tree {i}: {ta.num_leaves} vs {tb.num_leaves} leaves")
+        for name in ("split_feature", "threshold_bin", "leaf_count"):
+            if not np.array_equal(getattr(ta, name), getattr(tb, name)):
+                raise AssertionError(f"tree {i}: {name} differs")
+        if not np.array_equal(ta.default_left(), tb.default_left()):
+            raise AssertionError(f"tree {i}: default_left differs")
+        gap = np.abs(ta.leaf_value - tb.leaf_value) / (np.abs(tb.leaf_value) + 1e-12)
+        worst = max(worst, float(gap.max()))
+    if len(a._gbdt.models) != len(b._gbdt.models) or not worst <= 1e-5:
+        raise AssertionError(f"leaf values differ by {worst} relative")
+    return worst
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -301,7 +639,10 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.ops import cuda_build
     from lightgbm_tpu_torch.ops import hist_cuda as hc
+    from lightgbm_tpu_torch.ops import partition_cuda as pc
+    from lightgbm_tpu_torch.ops import round_cuda as rc
 
     if "jax" in sys.modules or "lightgbm_tpu" in sys.modules:
         raise AssertionError("the port pulled in JAX or the JAX package")
@@ -313,12 +654,15 @@ def main() -> int:
 
     # ---- 1. build ----
     t0 = time.perf_counter()
-    so = hc.build(force=True)
-    hc._lib()
-    for line in hc.build_log.splitlines():
-        if any(k in line for k in ("registers", "spill", "smem", "Compiling entry")):
-            log("ptxas: " + line.strip())
-    log(f"phase 1 build: ok {so.name} in {time.perf_counter() - t0:.2f} s")
+    libs = (hc.LIBRARY, pc.LIBRARY, rc.LIBRARY)
+    sos = cuda_build.build_all(libs, force=True)
+    for lib in libs:
+        lib.lib()
+        for line in lib.log.splitlines():
+            if any(k in line for k in ("registers", "spill", "smem", "Compiling entry")):
+                log(f"ptxas {lib.src.name}: " + line.strip())
+    log(f"phase 1 build: ok {' '.join(so.name for so in sos)} in "
+        f"{time.perf_counter() - t0:.2f} s")
 
     # ---- 2. kernels vs plain versions ----
     t0 = time.perf_counter()
@@ -411,13 +755,161 @@ def main() -> int:
         f"({launches_int8['histogram_multi_quantized'] / ROUNDS_INT8:.2f}/round) "
         f"small-vs-cpu max|d|={small_err_q:.3g} in {time.perf_counter() - t0:.2f} s")
 
-    # ---- 5. device ----
+    # ---- 5. the Epsilon-shaped set ----
+    t0 = time.perf_counter()
+    X, y = epsilon_like(EPS_N_TRAIN + EPS_N_TEST, SEED + 2)
+    Xtr, ytr, Xte, yte = (X[:EPS_N_TRAIN], y[:EPS_N_TRAIN], X[EPS_N_TRAIN:],
+                          y[EPS_N_TRAIN:])
+    t_gen = time.perf_counter() - t0
+    eps = {"objective": "binary", "max_bin": MAX_BIN, "num_leaves": EPS_LEAVES,
+           "learning_rate": 0.1, "device_type": "cuda", "verbosity": -1, "seed": 7,
+           "windowed_growth": True, "bin_construct_sample_cnt": EPS_BIN_SAMPLE}
+    eps_set = lgt.Dataset(Xtr, label=ytr, params=dict(eps))
+    eps_set.construct()
+    tile_w = hc.recommended_leaf_tile(eps_set.max_num_bins, EPS_FEAT, EPS_LEAVES)
+    tile_wq = hc.recommended_leaf_tile(eps_set.max_num_bins, EPS_FEAT, EPS_LEAVES,
+                                       quantized=True)
+    log(f"phase 5 epsilon data: {EPS_N_TRAIN}+{EPS_N_TEST} rows x {EPS_FEAT}, "
+        f"{eps_set.max_num_bins} bins max, generated in {t_gen:.2f} s, binned in "
+        f"{time.perf_counter() - t0 - t_gen:.2f} s; leaf tile {tile_w} float, "
+        f"{tile_wq} int8")
+
+    counted = (hc, pc, rc)
+
+    def reset():
+        for m in counted:
+            m.reset_counts()
+
+    def plain_total():
+        return sum(sum(m.plain_calls.values()) for m in counted)
+
+    def counts():
+        """Launches of (B1 float, B1 int8, B2, B3) since the last reset."""
+        return (hc.launches["histogram_multi"], hc.launches["histogram_multi_quantized"],
+                pc.launches["partition_segments"], rc.launches["round_megakernel"])
+
+    # ---- 6. windowed training, float: the round megakernel ----
+    t0 = time.perf_counter()
+    reset()
+    bst_w, it_w = train_timed(lgt, eps, eps_set, EPS_ROUNDS_FLOAT)
+    torch.cuda.synchronize()
+    st_w = tree_stats(bst_w)
+    b1_w, b1q_w, part_launches_float, mk_launches = counts()
+    if not (all(st_w["megakernel"]) and mk_launches == st_w["rounds"]
+            and part_launches_float == 0 and b1q_w == 0
+            and b1_w == st_w["trees"] == EPS_ROUNDS_FLOAT and plain_total() == 0
+            and st_w["host_syncs"] == st_w["trees"]):
+        raise AssertionError(f"windowed float run: {st_w} launches (B1 float, B1 "
+                             f"int8, B2, B3) {counts()} plain "
+                             f"{[m.plain_calls for m in counted]}")
+    pw = bst_w.predict(Xte)
+    if pw.shape != (EPS_N_TEST,) or not np.all(np.isfinite(pw)):
+        raise AssertionError("windowed predictions are not finite (N,) values")
+    a_w = auc(yte, pw)
+    if not a_w >= AUC_FLOOR_EPS:
+        raise AssertionError(f"windowed held-out AUC {a_w:.5f} < floor {AUC_FLOOR_EPS}")
+    if not np.array_equal(pw, lgt.Booster(model_str=bst_w.model_to_string()).predict(Xte)):
+        raise AssertionError("reloaded windowed model predicts differently")
+    log(f"phase 6 windowed float: ok {EPS_ROUNDS_FLOAT} rounds it/s={it_w:.4f} "
+        f"auc={a_w:.5f} (floor {AUC_FLOOR_EPS}) tree-rounds={st_w['rounds']} "
+        f"round-kernel launches={mk_launches} "
+        f"({mk_launches / st_w['rounds']:.2f}/tree-round) float histogram "
+        f"launches={b1_w} (the root pass, 1/tree) partition launches=0 "
+        f"plain_calls=0 retries={st_w['retries']} windows={st_w['windows']} "
+        f"blocking host reads/tree={st_w['host_syncs'] / st_w['trees']:.2f} "
+        f"(the exponents, before round 1) async resolves={st_w['resolves']} "
+        f"reload=bitwise in {time.perf_counter() - t0:.2f} s")
+    wall_ms, busy_ms, top = profile_rounds(lgt, eps, eps_set, 2)
+    if busy_ms > 0:
+        log(f"phase 6 profile (2 trees after a warm one): wall_ms={wall_ms:.2f} "
+            f"device_busy_ms={busy_ms:.2f} idle_share={1 - busy_ms / wall_ms:.4f} top: "
+            + "; ".join(f"{k} {ms:.3f} ms x{c}" for k, ms, c in top))
+    else:
+        log(f"phase 6 profile: wall_ms={wall_ms:.2f}, device time not measured "
+            "(the profiler saw no device activity)")
+
+    # ---- 7. the windowed path's kernels vs plain versions ----
+    t0 = time.perf_counter()
+    gb = bst_w._gbdt  # gradients of the model 5 trees in
+    g_eps, h_eps = (v.contiguous() for v in gb.objective.get_gradients(
+        gb._score, gb._label, gb._weight))
+    ek = r = check_epsilon_kernels(eps_set, g_eps, h_eps, gb._split_params, tile_w,
+                                   tile_wq)
+    log(f"phase 7 kernel histogram: root pass N={EPS_N_TRAIN} F={EPS_FEAT} tile 1 "
+        f"explicit exponents {r['shift']} ms={r['root_ms']:.4f} bitwise_plain=True; "
+        f"float window pass T={r['T']} W={r['W']} bitwise_plain=True; int8 window "
+        f"pass T={r['Tq']} W={r['Wq']} ms={r['int8_window_ms']:.4f} bitwise_plain=True")
+    log(f"phase 7 kernel partition: N={EPS_N_TRAIN} T={r['T']} in-segment={r['in_seg']} "
+        f"ms={r['part_ms']:.4f} plain_ms={r['part_plain_ms']:.4f} "
+        f"library_ms={r['part_library_ms']:.4f} bound_ms={r['part_bound_ms']:.6f} "
+        f"(bytes) bitwise_plain=True (T={r['Tq']} and ragged too)")
+    log(f"phase 7 kernel round: N={EPS_N_TRAIN} F={EPS_FEAT} B={eps_set.max_num_bins} "
+        f"T={r['T']} W={r['W']} window_rows={r['window_rows']} ms={r['round_ms']:.4f} "
+        f"plain_ms={r['round_plain_ms']:.4f} bound_ms={r['round_bound_ms']:.4f} "
+        f"({r['round_bound_by']}) order, left/right and per-feature bests bitwise "
+        f"(training parameters, all split options, ragged) "
+        f"in {time.perf_counter() - t0:.2f} s")
+    del gb, g_eps, h_eps
+    torch.cuda.empty_cache()
+
+    # ---- 8. windowed training, int8: the three-pass round ----
+    t0 = time.perf_counter()
+    eps_q = {**eps, "use_quantized_grad": True}
+    reset()
+    bst_q8, it_q8 = train_timed(lgt, eps_q, eps_set, EPS_ROUNDS_INT8)
+    torch.cuda.synchronize()
+    st_q = tree_stats(bst_q8)
+    l_q = counts()
+    _, i8_launches, part_launches, _ = l_q
+    if not (l_q == (0, st_q["rounds"] + st_q["trees"], st_q["rounds"], 0)
+            and plain_total() == 0 and st_q["host_syncs"] == st_q["trees"]
+            and st_q["excluded"] == ["quantized"] * EPS_ROUNDS_INT8):
+        raise AssertionError(f"windowed int8 run: {st_q} launches (B1 float, B1 int8, "
+                             f"B2, B3) {l_q}")
+    a_q8 = auc(yte, bst_q8.predict(Xte))
+    if not a_q8 >= AUC_FLOOR_EPS_INT8:
+        raise AssertionError(f"windowed int8 AUC {a_q8:.5f} < floor {AUC_FLOOR_EPS_INT8}")
+    log(f"phase 8 windowed int8: ok {EPS_ROUNDS_INT8} rounds it/s={it_q8:.4f} "
+        f"auc={a_q8:.5f} (floor {AUC_FLOOR_EPS_INT8}) tree-rounds={st_q['rounds']} "
+        f"partition launches={part_launches} int8 histogram launches={i8_launches} "
+        f"(window passes + roots) round-kernel launches=0 megakernel excluded: "
+        f"quantized retries={st_q['retries']} in {time.perf_counter() - t0:.2f} s")
+
+    # ---- 9. megakernel against the three-pass round ----
+    t0 = time.perf_counter()
+    small = lgt.Dataset(Xtr[:EPS_PARITY_ROWS], label=ytr[:EPS_PARITY_ROWS],
+                        params=dict(eps), reference=eps_set)
+    small.construct()
+    reset()
+    b_mk = lgt.train(eps, small, 2)
+    torch.cuda.synchronize()
+    st_mk, l_mk = tree_stats(b_mk), counts()
+    if not (all(st_mk["megakernel"]) and plain_total() == 0
+            and l_mk == (st_mk["trees"], 0, 0, st_mk["rounds"])):
+        raise AssertionError(f"parity, megakernel: {st_mk} launches {l_mk}")
+    reset()
+    b_3p = lgt.train({**eps, "megakernel": "0"}, small, 2)
+    torch.cuda.synchronize()
+    st_3p, l_3p = tree_stats(b_3p), counts()
+    if not (not any(st_3p["megakernel"]) and plain_total() == 0
+            and l_3p == (st_3p["rounds"] + st_3p["trees"], 0, st_3p["rounds"], 0)):
+        raise AssertionError(f"parity, three-pass: {st_3p} launches (B1 float, B1 "
+                             f"int8, B2, B3) {l_3p} plain "
+                             f"{[m.plain_calls for m in counted]}")
+    gap = trees_agree(b_mk, b_3p)
+    log(f"phase 9 megakernel vs three-pass: ok {EPS_PARITY_ROWS} rows, 2 trees, "
+        f"nodes equal, leaf counts equal, leaf values max rel gap {gap:.3g}; "
+        f"launches (B1 float, B1 int8, B2, B3) megakernel {l_mk}, three-pass {l_3p} "
+        f"over {st_mk['rounds']} / {st_3p['rounds']} tree-rounds, plain_calls=0 "
+        f"in {time.perf_counter() - t0:.2f} s")
+
+    # ---- 10. device ----
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60)
     if smi.returncode != 0 or not smi.stdout.strip():
         raise AssertionError(f"nvidia-smi failed: {smi.stderr}")
-    log(f"phase 5 device: ok total {time.perf_counter() - t_all:.2f} s")
+    log(f"phase 10 device: ok total {time.perf_counter() - t_all:.2f} s")
     log(smi.stdout.strip().splitlines()[0])
 
     src, tpu = "lightgbm_tpu_torch/csrc/hist.cu", "lightgbm_tpu/ops/hist_pallas.py:120"
@@ -433,6 +925,23 @@ def main() -> int:
                                                      ragged[key]["max_abs_err"]),
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    r = ek
+    kernels.append({
+        "name": "partition_segments", "route": "cuda",
+        "source": "lightgbm_tpu_torch/csrc/partition.cu",
+        "replaces": "lightgbm_tpu/ops/partition_pallas.py:188",
+        "launches": part_launches, "max_abs_err": 0.0, "ms": r["part_ms"],
+        "plain_ms": r["part_plain_ms"], "bound_ms": r["part_bound_ms"],
+        "bound_by": "bytes", "library_ms": r["part_library_ms"]})
+    kernels.append({
+        "name": "round_megakernel", "route": "cuda",
+        "source": "lightgbm_tpu_torch/csrc/round.cu",
+        "replaces": "lightgbm_tpu/ops/round_pallas.py:107",
+        "launches": mk_launches,
+        "max_abs_err": 0.0,
+        "ms": r["round_ms"], "plain_ms": r["round_plain_ms"],
+        "bound_ms": r["round_bound_ms"], "bound_by": r["round_bound_by"],
+        "library_ms": None})
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

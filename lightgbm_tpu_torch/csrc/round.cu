@@ -1,0 +1,301 @@
+// The round megakernel for Hopper (sm_90a): one windowed boosting round's
+// partition, window histograms, sibling subtraction and per-feature split
+// search behind one C entry point.
+//
+// Replaces lightgbm_tpu/ops/round_pallas.py::_mk_kernel (fuse_tail=True).
+// Given a round's split segments with their left counts, and the windows
+// (the small child of each split, in the new order), it computes:
+//   1. partition: each segment's row ids moved stably into its left run and
+//      then its right run (partition_common.cuh, the partition kernel's
+//      device code; n_left arrives precomputed);
+//   2. window histograms: for slot s, the (grad, hess, count) histograms of
+//      rows order'[win_start[s] + i], i < win_cnt[s], read from the
+//      row-major (N, F) bins through the new order (hist_common.cuh, the
+//      histogram kernel's device code in its gather mode);
+//   3. subtraction: left = small_left ? fresh : parent - fresh, right the
+//      other one, written as (T, 3, F, B) f32;
+//   4. split search: per (candidate, feature), candidates being the T left
+//      and T right children, the first maximizing threshold over the bins
+//      with its gain, direction of missing values and left sums.
+//
+// What bounds it on an H100.  The partition moves 12 B per in-segment
+// position.  The window pass must read each window row's 4 KB of bins at
+// F = 2000 (in 32-B sectors) plus its order entry, mask, grad and hess.  The
+// tail reads the parent histograms and writes left and right once:
+// 3 x T x 3 x F x B x 4 B = 183 MB at T = 10, F = 2000, B = 255, ~55 us, and
+// the split search's 2T x F x B candidates cost ~40 float operations each.
+// So it is bytes-bound; the window pass itself is bound on the card by
+// shared-memory atomics (three per row and feature), as the histogram
+// kernel is.
+//
+// Design.  The TPU kernel runs its three phases in one sequential grid step
+// with VMEM carries.  Blocks on the card run in no order, so the phases are
+// consecutive launches on one stream behind one entry point; the bin matrix
+// is still read once per round (the window pass), which is the kernel's
+// purpose.  The window pass keeps one slot per block (its rows are one
+// contiguous run of the new order), as many features as fit 227 KB of
+// shared memory, and 4096-row chunks; its grid is sized from the round's
+// window bound W, known on the host, so no count is read back.  Sums are
+// the histogram kernel's 64-bit fixed point with the tree's exponents
+// (sg, sh), so left/right equal bit for bit what the three-pass round gets
+// from the histogram kernel on the gathered window.  The split search is
+// one thread per (candidate, feature) scanning the bins in order, with the
+// formulas of ops/split.py::gain_plane in the same operation order
+// (compiled with --fmad=false, so no multiply-add is contracted) and the
+// cumulative sums taken in double and rounded to float, as the plain
+// version's cumsum does; torch.argmax's first maximum is the strict > of
+// the scan.
+//
+// Built with: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -std=c++17
+//             --fmad=false -shared -Xcompiler -fPIC (ops/cuda_build.py).
+
+#include "hist_common.cuh"
+#include "partition_common.cuh"
+
+namespace {
+
+using lgbt::kThreads;
+
+constexpr float kEps = 1e-15f;      // ops/split.py KEPSILON
+constexpr float kMinScore = -1e30f;  // ops/split.py KMIN_SCORE
+
+struct GainParams {
+  float l1, l2, min_data, min_hess, min_gain, max_delta, path_smooth;
+  int use_smooth;
+};
+
+// fixed point -> f32 for the fresh (window) histograms, then the sibling by
+// subtraction from the parent; writes left and right (T, 3, F, B)
+__global__ void __launch_bounds__(kThreads)
+subtract_kernel(const unsigned long long* __restrict__ acc64, const int* __restrict__ acc32,
+                int sg, int sh, const float* __restrict__ parent,
+                const int32_t* __restrict__ small_left, int64_t T, int64_t FBg,
+                float* __restrict__ left, float* __restrict__ right) {
+  const double inv_g = ldexp(1.0, -sg);
+  const double inv_h = ldexp(1.0, -sh);
+  const int64_t total = T * FBg;
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < total; i += stride) {
+    const int64_t s = i / FBg, cell = i % FBg;
+    float fr[3];
+    fr[0] = (float)((double)(long long)acc64[(s * 2 + 0) * FBg + cell] * inv_g);
+    fr[1] = (float)((double)(long long)acc64[(s * 2 + 1) * FBg + cell] * inv_h);
+    fr[2] = (float)acc32[i];
+    const bool sl = small_left[s] != 0;
+    for (int ch = 0; ch < 3; ++ch) {
+      const int64_t o = (s * 3 + ch) * FBg + cell;
+      const float big = parent[o] - fr[ch];
+      left[o] = sl ? fr[ch] : big;
+      right[o] = sl ? big : fr[ch];
+    }
+  }
+}
+
+// torch.sign, clamp_min(x, 0) and ops/split.py's helpers, op for op
+__device__ __forceinline__ float sgn(float x) { return (float)((x > 0.f) - (x < 0.f)); }
+
+__device__ __forceinline__ float thr_l1(float g, float l1) {
+  float a = fabsf(g) - l1;
+  a = a < 0.f ? 0.f : a;
+  return sgn(g) * a;
+}
+
+__device__ __forceinline__ float clampf(float x, float lo, float hi) {
+  x = x < lo ? lo : x;
+  return x > hi ? hi : x;
+}
+
+__device__ __forceinline__ float leaf_output(float g, float h, const GainParams& p) {
+  float out = (-thr_l1(g, p.l1)) / ((h + p.l2) + kEps);
+  if (p.max_delta > 0.f) out = clampf(out, -p.max_delta, p.max_delta);
+  return out;
+}
+
+__device__ __forceinline__ float leaf_output_smoothed(float g, float h, float c, float po,
+                                                      const GainParams& p) {
+  const float raw = leaf_output(g, h, p);
+  const float alpha = c / (c + p.path_smooth);
+  return raw * alpha + po * (1.f - alpha);
+}
+
+__device__ __forceinline__ float gain_given_output(float g, float h, float out,
+                                                   const GainParams& p) {
+  const float tg = thr_l1(g, p.l1);
+  return -((2.f * tg) * out + (((h + p.l2) + kEps) * out) * out);
+}
+
+__device__ __forceinline__ float leaf_gain(float g, float h, const GainParams& p) {
+  const float tg = thr_l1(g, p.l1);
+  const float denom = (h + p.l2) + kEps;
+  if (p.max_delta > 0.f) {
+    const float out = clampf((-tg) / denom, -p.max_delta, p.max_delta);
+    return -((2.f * tg) * out + (denom * out) * out);
+  }
+  return (tg * tg) / denom;
+}
+
+__device__ __forceinline__ float direction_gain(float lg, float lh, float lc, float rg, float rh,
+                                                float rc, float po, float gain_parent,
+                                                const GainParams& p) {
+  if (!p.use_smooth) return (leaf_gain(lg, lh, p) + leaf_gain(rg, rh, p)) - gain_parent;
+  const float out_l = leaf_output_smoothed(lg, lh, lc, po, p);
+  const float out_r = leaf_output_smoothed(rg, rh, rc, po, p);
+  return (gain_given_output(lg, lh, out_l, p) + gain_given_output(rg, rh, out_r, p)) -
+         gain_parent;
+}
+
+// One thread per (candidate, feature): candidates 0..T-1 are the left
+// children, T..2T-1 the right ones.  cand (4, 2T): parent sum_g, sum_h,
+// count and output of each candidate.
+__global__ void __launch_bounds__(256)
+gain_kernel(const float* __restrict__ left, const float* __restrict__ right, int T, int F,
+            int B, const int32_t* __restrict__ nbpf, const int32_t* __restrict__ mbpf,
+            const uint8_t* __restrict__ fmask, const float* __restrict__ cand, GainParams p,
+            float* __restrict__ o_gain, int32_t* __restrict__ o_thr,
+            uint8_t* __restrict__ o_left, float* __restrict__ o_lg, float* __restrict__ o_lh,
+            float* __restrict__ o_lc) {
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const int C = 2 * T;
+  if (i >= (int64_t)C * F) return;
+  const int c = (int)(i / F), f = (int)(i % F);
+  const int64_t FB = (int64_t)F * B;
+  const float* h = (c < T ? left + (int64_t)c * 3 * FB : right + (int64_t)(c - T) * 3 * FB) +
+                   (int64_t)f * B;
+  const float* hg = h;
+  const float* hh = h + FB;
+  const float* hc = h + 2 * FB;
+  const float pg = cand[c], ph = cand[C + c], pc = cand[2 * C + c], po = cand[3 * C + c];
+  const int mb = mbpf[f];
+  const int last_nm = nbpf[f] - (mb >= 0 ? 2 : 1);
+  const bool fon = fmask[f] != 0;
+  // the missing bin's sums (a sum over bins of which one is non-zero)
+  float mg = 0.f, mh = 0.f, mc = 0.f;
+  if (mb >= 0 && mb < B) {
+    mg = 0.f + hg[mb];
+    mh = 0.f + hh[mb];
+    mc = 0.f + hc[mb];
+  }
+  const float gain_parent = p.use_smooth ? gain_given_output(pg, ph, po, p) : leaf_gain(pg, ph, p);
+  double cg = 0.0, chs = 0.0, cc = 0.0;
+  float best = 0.f, blg = 0.f, blh = 0.f, blc = 0.f;
+  int bthr = 0;
+  bool bleft = false;
+  for (int b = 0; b < B; ++b) {
+    if (b != mb) {  // the missing bin is left out of the scan
+      cg += (double)hg[b];
+      chs += (double)hh[b];
+      cc += (double)hc[b];
+    }
+    const float sg = (float)cg, sh = (float)chs, sc = (float)cc;
+    const bool valid = fon && b < last_nm;
+    float gd[2], st[2][3];
+    for (int d = 0; d < 2; ++d) {  // d = 0: missing -> right, 1: -> left
+      const float lg = sg + (d ? mg : 0.f), lh = sh + (d ? mh : 0.f), lc = sc + (d ? mc : 0.f);
+      const float rg = pg - lg, rh = ph - lh, rc = pc - lc;
+      const bool ok = valid && lc >= p.min_data && rc >= p.min_data && lh >= p.min_hess &&
+                      rh >= p.min_hess;
+      gd[d] = ok ? direction_gain(lg, lh, lc, rg, rh, rc, po, gain_parent, p) : kMinScore;
+      st[d][0] = lg;
+      st[d][1] = lh;
+      st[d][2] = lc;
+    }
+    const bool use_left = gd[1] > gd[0];  // ties keep missing -> right
+    float g = use_left ? gd[1] : gd[0];
+    if (!(g > kMinScore / 2.f && g > p.min_gain)) g = kMinScore;
+    if (b == 0 || g > best) {  // first maximum, as torch.argmax
+      best = g;
+      bthr = b;
+      bleft = use_left;
+      const int d = use_left ? 1 : 0;
+      blg = st[d][0];
+      blh = st[d][1];
+      blc = st[d][2];
+    }
+  }
+  o_gain[i] = best;
+  o_thr[i] = bthr;
+  o_left[i] = bleft ? 1 : 0;
+  o_lg[i] = blg;
+  o_lh[i] = blh;
+  o_lc[i] = blc;
+}
+
+}  // namespace
+
+extern "C" {
+
+// One round.  Shapes: bins (n, F) i16; order, out_order (n,) i32; go (n,)
+// u8 per position; seg_start, seg_len, n_left, win_start, win_cnt,
+// small_left (T,) i32; grad, hess (n,) f32; mask (n,) u8; parent, left,
+// right (T, 3, F, B) f32; nbpf, mbpf (F,) i32; fmask (F,) u8; cand (4, 2T)
+// f32; the six per-feature outputs (2T, F).  Scratch: counts (T,
+// ceil(n/1024)) i32, n_left_scan (T,) i32, acc64 (T, 2, F, B) u64, acc32 (T,
+// F, B) i32 (zeroed here).  W bounds every window's row count.  Returns a
+// cudaError_t (0 = success).
+int lgbt_round(const void* bins, long long n, int F, int B, int T, const void* order,
+               const void* go, const void* seg_start, const void* seg_len, const void* n_left,
+               void* counts, void* n_left_scan, void* out_order, const void* grad,
+               const void* hess, const void* mask, const void* win_start, const void* win_cnt,
+               const void* small_left, long long W, int sg, int sh, void* acc64, void* acc32,
+               const void* parent, void* left, void* right, const void* nbpf, const void* mbpf,
+               const void* fmask, const void* cand, float l1, float l2, float min_data,
+               float min_hess, float min_gain, float max_delta, float path_smooth,
+               int use_smooth, void* o_gain, void* o_thr, void* o_left, void* o_lg,
+               void* o_lh, void* o_lc, void* stream) {
+  if (n <= 0 || F <= 0 || B <= 0 || T <= 0 || W <= 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  // ---- 1. partition ----
+  cudaError_t e = cudaMemcpyAsync(out_order, order, (size_t)n * sizeof(int32_t),
+                                  cudaMemcpyDeviceToDevice, st);
+  if (e != cudaSuccess) return (int)e;
+  e = lgbt::launch_partition(
+      static_cast<const int32_t*>(order), static_cast<const uint8_t*>(go),
+      static_cast<const int32_t*>(seg_start), static_cast<const int32_t*>(seg_len),
+      static_cast<const int32_t*>(n_left), n, T, static_cast<int32_t*>(counts),
+      static_cast<int32_t*>(n_left_scan), static_cast<int32_t*>(out_order), st);
+  if (e != cudaSuccess) return (int)e;
+  // ---- 2. window histograms through the new order ----
+  const int64_t FBg = (int64_t)F * B;
+  e = cudaMemsetAsync(acc64, 0, (size_t)T * 2 * FBg * sizeof(unsigned long long), st);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaMemsetAsync(acc32, 0, (size_t)T * FBg * sizeof(int), st);
+  if (e != cudaSuccess) return (int)e;
+  lgbt::Plan p;
+  e = lgbt::make_plan(W, F, T, B, 20, true, &p);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaFuncSetAttribute(lgbt::hist_kernel<false, true>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid((unsigned)p.row_chunks, (unsigned)(p.n_fgroups * p.n_sgroups));
+  lgbt::hist_kernel<false, true><<<grid, kThreads, p.smem, st>>>(
+      static_cast<const int16_t*>(bins), grad, hess, static_cast<const uint8_t*>(mask),
+      nullptr, static_cast<const int32_t*>(out_order), static_cast<const int32_t*>(win_start),
+      static_cast<const int32_t*>(win_cnt), n, F, 0, T, B, p.rows_per_chunk, p.FB, p.SB,
+      p.n_fgroups, lgbt::Shift{nullptr, 0, sg, sh}, static_cast<unsigned long long*>(acc64),
+      static_cast<int*>(acc32));
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  // ---- 3. subtraction ----
+  subtract_kernel<<<lgbt::grid_for(T * FBg), kThreads, 0, st>>>(
+      static_cast<const unsigned long long*>(acc64), static_cast<const int*>(acc32), sg, sh,
+      static_cast<const float*>(parent), static_cast<const int32_t*>(small_left), T, FBg,
+      static_cast<float*>(left), static_cast<float*>(right));
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  // ---- 4. per-feature split search ----
+  GainParams gp{l1, l2, min_data, min_hess, min_gain, max_delta, path_smooth, use_smooth};
+  const int64_t cells = (int64_t)2 * T * F;
+  gain_kernel<<<(unsigned)((cells + 255) / 256), 256, 0, st>>>(
+      static_cast<const float*>(left), static_cast<const float*>(right), T, F, B,
+      static_cast<const int32_t*>(nbpf), static_cast<const int32_t*>(mbpf),
+      static_cast<const uint8_t*>(fmask), static_cast<const float*>(cand), gp,
+      static_cast<float*>(o_gain), static_cast<int32_t*>(o_thr), static_cast<uint8_t*>(o_left),
+      static_cast<float*>(o_lg), static_cast<float*>(o_lh), static_cast<float*>(o_lc));
+  return (int)cudaGetLastError();
+}
+
+const char* lgbt_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"

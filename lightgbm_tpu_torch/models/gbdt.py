@@ -2,7 +2,8 @@
 
 Counterpart of lightgbm_tpu/models/gbdt.py for the main path: single
 device, serial tree learner, one tree per iteration, the round-batched
-grower (ops/treegrow_fast.py).  Reference: src/boosting/gbdt.cpp
+grower (ops/treegrow_fast.py), or the windowed grower
+(ops/treegrow_windowed.py) in the wide regime on the card (``_use_windowed``).  Reference: src/boosting/gbdt.cpp
 (GBDT::{Init,TrainOneIter}), gbdt_model_text.cpp (the `.txt` model).
 
 Each iteration is an ordinary Python step on device tensors: gradients,
@@ -31,6 +32,7 @@ from ..ops import predict as predict_ops
 from ..ops.hist_cuda import recommended_leaf_tile
 from ..ops.split import SplitParams
 from ..ops.treegrow_fast import grow_tree_fast, predict_leaf_arrays
+from ..ops.treegrow_windowed import grow_tree_windowed
 from .tree import Tree, tree_from_device
 
 _MODEL_VERSION = "v4"
@@ -104,6 +106,9 @@ class GBDT:
         self.binner = None
         self._last_mask = None
         self.device = torch.device("cpu")
+        # per-tree round-driver stats of the windowed grower (rounds,
+        # host_syncs, async_resolves, retries, windows, megakernel, ...)
+        self.windowed_stats: List[dict] = []
         if train_set is not None:
             self.reset_training_data(train_set)
 
@@ -243,6 +248,19 @@ class GBDT:
         mask[rng.choice(f, size=k, replace=False)] = True
         return torch.as_tensor(mask & self._allowed_np, device=self.device)
 
+    def _use_windowed(self, ts) -> bool:
+        """Wide-regime windowed grower gate (the JAX package's, with "on
+        the accelerator" read as "the training device is the card"):
+        windowed_growth=true, >= 512 features and >= 64 leaves.  The options
+        its envelope excludes (monotone, interaction, forced splits, CEGB,
+        linear trees) are rejected for every grower of this package
+        (_unported_options); one device is all this package trains on."""
+        flag = self.cfg.extra.get("windowed_growth", False)
+        if isinstance(flag, str):
+            flag = flag.strip().lower() in ("1", "true", "yes", "on", "+")
+        return (self.device.type == "cuda" and bool(flag)
+                and ts.num_feature() >= 512 and self.cfg.num_leaves >= 64)
+
     # ------------------------------------------------------------------
     def train_one_iter(self) -> bool:
         """One boosting iteration (reference: GBDT::TrainOneIter).  Returns
@@ -256,9 +274,7 @@ class GBDT:
         if quant:
             gen = torch.Generator(device=self.device)
             gen.manual_seed(cfg.seed * 1000003 + self.iter_ * 31)
-        arrays, leaf_id = grow_tree_fast(
-            ts.bins_device, g, h, row_mask, sample_weight, self._feature_mask(),
-            ts.num_bins_pf_device, ts.missing_bin_pf_device,
+        common = dict(
             num_leaves=cfg.num_leaves,
             num_bins=ts.max_num_bins,
             max_depth=cfg.max_depth,
@@ -269,6 +285,17 @@ class GBDT:
             quant_renew=bool(cfg.quant_train_renew_leaf),
             generator=gen,
         )
+        args = (ts.bins_device, g, h, row_mask, sample_weight, self._feature_mask(),
+                ts.num_bins_pf_device, ts.missing_bin_pf_device)
+        if self._use_windowed(ts):
+            stats: dict = {}
+            arrays, leaf_id = grow_tree_windowed(
+                *args, stats=stats,
+                guard_label=f" (boosting iteration {self.iter_ + 1})",
+                megakernel_opt=cfg.extra.get("megakernel"), **common)
+            self.windowed_stats.append(stats)
+        else:
+            arrays, leaf_id = grow_tree_fast(*args, **common)
         shrinkage = cfg.learning_rate
         self._pending.append((arrays, shrinkage))
         delta = arrays.leaf_value * np.float32(shrinkage)

@@ -18,26 +18,18 @@ way and add integers, so they agree bit for bit and repeat bit for bit.
 from __future__ import annotations
 
 import ctypes
-import functools
-import hashlib
 import math
-import os
-import shutil
-import subprocess
-from pathlib import Path
+from typing import Optional, Tuple
 
 import torch
 
-_SRC = Path(__file__).resolve().parent.parent / "csrc" / "hist.cu"
-_BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
-_NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+from ..utils.guards import NonFiniteError
+from ..utils.sanitizer import sync_pull
+from .cuda_build import KernelLibrary, stream_ptr
 
 # launch counts of the kernel wrappers and call counts of the plain versions
 launches = {"histogram_multi": 0, "histogram_multi_quantized": 0}
 plain_calls = {"histogram_multi": 0, "histogram_multi_quantized": 0}
-# compiler output of the last build (nvcc -Xptxas -v: registers, smem, spills)
-build_log = ""
 
 
 def reset_counts() -> None:
@@ -77,57 +69,16 @@ def recommended_leaf_tile(num_bins: int, n_features_effective: int,
 # ---------------------------------------------------------------------------
 # build + bind
 # ---------------------------------------------------------------------------
-def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
-    for cand in ([str(Path(home) / "bin" / "nvcc")] if home else []) + [
-            "/usr/local/cuda/bin/nvcc"]:
-        if Path(cand).is_file():
-            return cand
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found: the histogram kernel is built from "
-                           f"{_SRC} with the CUDA toolkit (set CUDA_HOME)")
-    return found
-
-
-def build(force: bool = False) -> Path:
-    """Compile csrc/hist.cu into build/ (once per source content, or anew
-    with ``force``, which also refreshes ``build_log``)."""
-    global build_log
-    src = _SRC.read_bytes()
-    tag = hashlib.sha256(src + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = _BUILD_DIR / f"libhist_{tag}.so"
-    if out.is_file() and not force:
-        return out
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(_SRC)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    build_log = res.stdout + res.stderr
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{build_log}")
-    os.replace(tmp, out)
-    return out
-
-
-@functools.lru_cache(maxsize=1)
-def _lib() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build()))
+def _bind(lib: ctypes.CDLL) -> None:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.lgbt_hist_multi_f32.argtypes = [p, p, p, p, p, ll, i, i, i, i, i,
-                                        p, p, p, p, p]
+    lib.lgbt_hist_multi_f32.argtypes = [p, p, p, p, p, ll, i, i, i, i, i, i, i,
+                                        i, p, p, p, p, p]
     lib.lgbt_hist_multi_f32.restype = i
     lib.lgbt_hist_multi_i8.argtypes = [p, p, p, p, p, ll, i, i, i, i, p, p]
     lib.lgbt_hist_multi_i8.restype = i
-    lib.lgbt_error_string.argtypes = [i]
-    lib.lgbt_error_string.restype = ctypes.c_char_p
-    return lib
 
 
-def _raise_on(rc: int, what: str) -> None:
-    if rc != 0:
-        msg = _lib().lgbt_error_string(rc).decode()
-        raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")
+LIBRARY = KernelLibrary("hist.cu", _bind)
 
 
 def _check(bins, payload, mask, leaf_slot, payload_dtype, tile, num_bins):
@@ -153,20 +104,21 @@ def _check(bins, payload, mask, leaf_slot, payload_dtype, tile, num_bins):
                          f"{num_bins}")
 
 
-def _stream_ptr(device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
-
-
 # ---------------------------------------------------------------------------
 # entry points
 # ---------------------------------------------------------------------------
 def histogram_multi(bins, grad, hess, mask, leaf_slot, leaf_base: int,
-                    tile: int, num_bins: int) -> torch.Tensor:
+                    tile: int, num_bins: int,
+                    shift: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """(tile, 3, F, B) f32 sums of grad, hess and count of the rows with
-    mask set and slot = leaf_slot - leaf_base in [0, tile)."""
+    mask set and slot = leaf_slot - leaf_base in [0, tile).
+
+    ``shift`` = (sg, sh) fixes the fixed-point exponents of grad and hess
+    (see fixed_shift_pair); by default they come from this call's own rows,
+    fixed_shift_pair(grad, hess)."""
     if not bins.is_cuda:
         return histogram_multi_plain(bins, grad, hess, mask, leaf_slot,
-                                     leaf_base, tile, num_bins)
+                                     leaf_base, tile, num_bins, shift=shift)
     _check(bins, (grad, hess), mask, leaf_slot, torch.float32, tile, num_bins)
     n, f = bins.shape
     dev = bins.device
@@ -176,14 +128,15 @@ def histogram_multi(bins, grad, hess, mask, leaf_slot, leaf_base: int,
     absmax = torch.zeros(2, dtype=torch.int32, device=dev)
     acc64 = torch.zeros((tile, 2, f, num_bins), dtype=torch.int64, device=dev)
     acc32 = torch.zeros((tile, f, num_bins), dtype=torch.int32, device=dev)
+    sg, sh = (0, 0) if shift is None else (int(shift[0]), int(shift[1]))
     with torch.cuda.device(dev):
-        rc = _lib().lgbt_hist_multi_f32(
+        rc = LIBRARY.lib().lgbt_hist_multi_f32(
             bins.data_ptr(), grad.data_ptr(), hess.data_ptr(), mask.data_ptr(),
             leaf_slot.data_ptr(), n, f, int(leaf_base), int(tile),
-            int(num_bins), int(n).bit_length(), absmax.data_ptr(),
-            acc64.data_ptr(), acc32.data_ptr(), out.data_ptr(),
-            _stream_ptr(dev))
-    _raise_on(rc, "histogram_multi kernel")
+            int(num_bins), int(n).bit_length(), int(shift is not None), sg, sh,
+            absmax.data_ptr(), acc64.data_ptr(), acc32.data_ptr(),
+            out.data_ptr(), stream_ptr(dev))
+    LIBRARY.raise_on(rc, "histogram_multi kernel")
     launches["histogram_multi"] += 1
     return out
 
@@ -203,11 +156,11 @@ def histogram_multi_quantized(bins, grad_q, hess_q, mask, leaf_slot,
     if n == 0:
         return out
     with torch.cuda.device(dev):
-        rc = _lib().lgbt_hist_multi_i8(
+        rc = LIBRARY.lib().lgbt_hist_multi_i8(
             bins.data_ptr(), grad_q.data_ptr(), hess_q.data_ptr(),
             mask.data_ptr(), leaf_slot.data_ptr(), n, f, int(leaf_base),
-            int(tile), int(num_bins), out.data_ptr(), _stream_ptr(dev))
-    _raise_on(rc, "histogram_multi_quantized kernel")
+            int(tile), int(num_bins), out.data_ptr(), stream_ptr(dev))
+    LIBRARY.raise_on(rc, "histogram_multi_quantized kernel")
     launches["histogram_multi_quantized"] += 1
     return out
 
@@ -242,14 +195,36 @@ def _rows_and_index(bins, mask, leaf_slot, leaf_base, tile, num_bins):
     return rows, idx
 
 
-def _fixed_shift(v: torch.Tensor) -> int:
+def _shift_of(absmax: float, n: int) -> int:
     """Exponent s of the 64-bit fixed point: the kernel's fixed_shift."""
-    m = float(v.abs().max()) if v.numel() else 0.0
-    return 62 - int(v.shape[0]).bit_length() - math.frexp(m)[1]
+    return 62 - int(n).bit_length() - math.frexp(absmax)[1]
+
+
+def _fixed_shift(v: torch.Tensor) -> int:
+    return _shift_of(float(v.abs().max()) if v.numel() else 0.0, v.shape[0])
+
+
+def fixed_shift_pair(grad: torch.Tensor, hess: torch.Tensor) -> Tuple[int, int]:
+    """The exponents a call on these rows derives by default: with them no
+    sum of up to len(grad) values overflows 63 bits, so they hold for any
+    subset of the rows too.  One blocking host read of max |grad|, max
+    |hess| (counted by utils/sanitizer.py); raises NonFiniteError when
+    either is not finite (a fixed-point sum cannot carry a NaN or an
+    infinity)."""
+    n = int(grad.shape[0])
+    if n == 0:
+        return 62, 62
+    gm, hm = (float(v) for v in
+              sync_pull(torch.stack([grad.abs().max(), hess.abs().max()])))
+    if not (math.isfinite(gm) and math.isfinite(hm)):
+        raise NonFiniteError(f"non-finite gradients or hessians (max |g| = "
+                             f"{gm}, max |h| = {hm})")
+    return _shift_of(gm, n), _shift_of(hm, n)
 
 
 def histogram_multi_plain(bins, grad, hess, mask, leaf_slot, leaf_base: int,
-                          tile: int, num_bins: int) -> torch.Tensor:
+                          tile: int, num_bins: int,
+                          shift: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     plain_calls["histogram_multi"] += 1
     n, f = bins.shape
     rows, idx = _rows_and_index(bins, mask, leaf_slot, leaf_base, tile,
@@ -257,8 +232,8 @@ def histogram_multi_plain(bins, grad, hess, mask, leaf_slot, leaf_base: int,
     idx = idx.reshape(-1)
     size = tile * f * num_bins
     chans = []
-    for v in (grad, hess):
-        sh = _fixed_shift(v)
+    for i, v in enumerate((grad, hess)):
+        sh = _fixed_shift(v) if shift is None else int(shift[i])
         fixed = torch.round(v[rows].double() * math.ldexp(1.0, sh)).long()
         acc = torch.zeros(size, dtype=torch.int64, device=bins.device)
         acc.index_add_(0, idx, fixed[:, None].expand(-1, f).reshape(-1))

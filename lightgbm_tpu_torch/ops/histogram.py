@@ -18,11 +18,14 @@ from . import hist_cuda
 
 
 def histogram_multi(bins, grad, hess, mask, leaf_slot, leaf_base: int,
-                    num_leaves_tile: int, num_bins: int) -> torch.Tensor:
+                    num_leaves_tile: int, num_bins: int,
+                    shift=None) -> torch.Tensor:
     """Per-leaf histograms for leaves [leaf_base, leaf_base + tile) in one
-    pass: (tile, 3, F, B) f32."""
+    pass: (tile, 3, F, B) f32.  ``shift``: the fixed-point exponents
+    (hist_cuda.histogram_multi)."""
     return hist_cuda.histogram_multi(bins, grad, hess, mask, leaf_slot,
-                                     leaf_base, num_leaves_tile, num_bins)
+                                     leaf_base, num_leaves_tile, num_bins,
+                                     shift=shift)
 
 
 def histogram_multi_quantized(bins, grad_q, hess_q, mask, leaf_slot,

@@ -115,7 +115,13 @@ def gain_plane(hist, parent_sum_g, parent_sum_h, parent_count,
     is_missing_bin = bins_idx[None, :] == mbpf[:, None]  # (F, B)
     hist_nm = torch.where(is_missing_bin, 0.0, hist)  # (C, 3, F, B)
     miss = torch.where(is_missing_bin, hist, 0.0).sum(dim=3)  # (C, 3, F)
-    cum = torch.cumsum(hist_nm, dim=3)
+    # prefix sums in float64, rounded once to f32.  They are exact, so the
+    # round megakernel's sequential scan (csrc/round.cu) gets the same bits
+    # as this cumsum, when every partial sum fits 53 bits; a sum that needs
+    # more (a tiny bin beside a large prefix) can round apart in the two
+    # orders, and then only where the double lands on an f32 rounding tie.
+    # The JAX package scans in f32; this departs from it by design.
+    cum = torch.cumsum(hist_nm.double(), dim=3).float()
 
     last_nm_bin = num_bins_per_feature - torch.where(has_missing, 2, 1)
     valid_thr = bins_idx[None, :] < last_nm_bin[:, None]  # (F, B)
@@ -205,6 +211,73 @@ def select_from_plane(gain: torch.Tensor, ctx: dict) -> BestSplit:
         right_sum_g=ctx["parent_g"] - lg,
         right_sum_h=ctx["parent_h"] - lh,
         right_count=ctx["parent_count"] - lc,
+    )
+
+
+class FeatureBests(NamedTuple):
+    """Per-feature reduction of a batch of gain planes (the round
+    megakernel's output, csrc/round.cu): per (candidate, feature) the first
+    maximizing threshold's gain and what a BestSplit needs if that feature
+    wins.  Fields are (C, F); ``variant`` is -1 (numerical) throughout."""
+
+    gain: torch.Tensor  # f32
+    threshold_bin: torch.Tensor  # i32
+    use_left: torch.Tensor  # bool
+    variant: torch.Tensor  # i32
+    left_g: torch.Tensor
+    left_h: torch.Tensor
+    left_c: torch.Tensor
+
+
+def reduce_plane_per_feature(gain: torch.Tensor, ctx: dict) -> FeatureBests:
+    """Reduce (C, F, B) gain planes over the bins: per feature the first
+    maximizing bin (torch.argmax) and the stats select_from_plane would
+    gather there.  Feature-independent, so it may run on feature slices."""
+    bb = torch.argmax(gain, dim=2, keepdim=True)  # (C, F, 1)
+
+    def at(x):
+        return x.gather(2, bb)[..., 0]
+
+    use_left = at(ctx["use_left"])
+    stats_l, stats_r = ctx["stats_l"], ctx["stats_r"]
+    lg, lh, lc = (torch.where(use_left, at(a), at(b))
+                  for a, b in zip(stats_l, stats_r))
+    return FeatureBests(
+        gain=at(gain), threshold_bin=bb[..., 0].to(torch.int32),
+        use_left=use_left,
+        variant=torch.full_like(bb[..., 0], -1, dtype=torch.int32),
+        left_g=lg, left_h=lh, left_c=lc)
+
+
+def select_from_feature_best(fb: FeatureBests, parent_g, parent_h,
+                             parent_count, num_bins: int,
+                             categorical_mask=None) -> BestSplit:
+    """Cross-feature half of the selection: per candidate, the first
+    feature with the largest per-feature gain.  Bitwise equal to
+    select_from_plane's flat argmax on the same planes (both take the first
+    (feature, bin) cell in order)."""
+    _reject_unported(categorical_mask=categorical_mask)
+    c = fb.gain.shape[0]
+    best_f = torch.argmax(fb.gain, dim=1, keepdim=True)  # (C, 1)
+
+    def at(x):
+        return x.gather(1, best_f)[:, 0]
+
+    lg, lh, lc = at(fb.left_g), at(fb.left_h), at(fb.left_c)
+    dev = fb.gain.device
+    return BestSplit(
+        gain=at(fb.gain),
+        feature=best_f[:, 0].to(torch.int32),
+        threshold_bin=at(fb.threshold_bin),
+        default_left=at(fb.use_left),
+        is_cat=torch.zeros(c, dtype=torch.bool, device=dev),
+        cat_mask=torch.zeros((c, num_bins), dtype=torch.bool, device=dev),
+        left_sum_g=lg,
+        left_sum_h=lh,
+        left_count=lc,
+        right_sum_g=parent_g - lg,
+        right_sum_h=parent_h - lh,
+        right_count=parent_count - lc,
     )
 
 

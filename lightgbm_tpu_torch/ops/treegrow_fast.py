@@ -58,6 +58,33 @@ def predict_leaf_arrays(arrays: TreeArrays, bins: torch.Tensor,
     return (-cur - 1).to(torch.int32)
 
 
+def quantize_gradients(grad, hess, row_mask, quantize_bins: int,
+                       stochastic_rounding: bool,
+                       generator: Optional[torch.Generator]):
+    """Discretize to int8: grad in [-half, half], hess in [0, quantize_bins]
+    (reference: GradientDiscretizer::DiscretizeGradients); stochastic
+    rounding draws from ``generator``.  Returns (gq, hq, the dequantized
+    grad and hess that split evaluation sees, quant_scale (3,))."""
+    dev = grad.device
+    half = max(quantize_bins // 2, 1)
+    inbag = row_mask.float()
+    g_scale = torch.clamp_min(torch.max(torch.abs(grad) * inbag) / half, 1e-30)
+    h_scale = torch.clamp_min(torch.max(hess * inbag) / quantize_bins, 1e-30)
+    gs = grad / g_scale
+    hs = hess / h_scale
+    if stochastic_rounding:
+        u = torch.rand((2, grad.shape[0]), generator=generator, device=dev)
+        gq = torch.floor(gs + u[0])
+        hq = torch.floor(hs + u[1])
+    else:
+        gq = torch.round(gs)
+        hq = torch.round(hs)
+    gq = gq.clamp(-127, 127).to(torch.int8)
+    hq = hq.clamp(0, 127).to(torch.int8)
+    quant_scale = torch.stack([g_scale, h_scale, torch.ones((), device=dev)])
+    return gq, hq, gq.float() * g_scale, hq.float() * h_scale, quant_scale
+
+
 def grow_tree_fast(
     bins: torch.Tensor,  # (N, F) int16
     grad: torch.Tensor,  # (N,) f32
@@ -101,31 +128,8 @@ def grow_tree_fast(
     grad_true, hess_true = grad, hess
 
     if quantize_bins:
-        # discretize: grad in [-half, half], hess in [0, quantize_bins]
-        # (reference: GradientDiscretizer::DiscretizeGradients)
-        half = max(quantize_bins // 2, 1)
-        inbag = row_mask.float()
-        g_scale = torch.clamp_min(torch.max(torch.abs(grad) * inbag) / half,
-                                  1e-30)
-        h_scale = torch.clamp_min(torch.max(hess * inbag) / quantize_bins,
-                                  1e-30)
-        gs = grad / g_scale
-        hs = hess / h_scale
-        if stochastic_rounding:
-            u = torch.rand((2, n), generator=generator, device=dev)
-            gq = torch.floor(gs + u[0])
-            hq = torch.floor(hs + u[1])
-        else:
-            gq = torch.round(gs)
-            hq = torch.round(hs)
-        gq = gq.clamp(-127, 127).to(torch.int8)
-        hq = hq.clamp(0, 127).to(torch.int8)
-        # downstream sees the dequantized values, consistent with the int
-        # histograms
-        grad = gq.float() * g_scale
-        hess = hq.float() * h_scale
-        quant_scale = torch.stack([g_scale, h_scale,
-                                   torch.ones((), device=dev)])
+        gq, hq, grad, hess, quant_scale = quantize_gradients(
+            grad, hess, row_mask, quantize_bins, stochastic_rounding, generator)
 
     def multi_hist(leaf_slot: torch.Tensor, tile: int) -> torch.Tensor:
         """(N,)-slot -> (tile, 3, F, B) f32: per-slot histograms, one pass."""

@@ -1,0 +1,580 @@
+"""Windowed round-batched growth: the wide-regime (Epsilon-class) grower.
+
+Counterpart of lightgbm_tpu/ops/treegrow_windowed.py, single device.  The
+rounds grower (ops/treegrow_fast.py) histograms all N rows every round;
+this one keeps rows physically grouped by leaf (reference: DataPartition's
+[start, count) ranges, src/treelearner/data_partition.hpp) so a round
+reads only its small children's rows, the window.
+
+One round (``_round_fused``) is a fixed sequence of device work with no
+host read inside it:
+
+* admission, split decisions and segment geometry, as the rounds grower
+  admits (best gain first, at most ``leaf_tile`` a round);
+* an on-device check that the window fits W, the host's predicted window
+  size; a breach makes the round a no-op and reports, so a wrong
+  prediction costs a retried round, never a wrong tree;
+* either the round megakernel (ops/round_cuda.py: partition, window
+  histograms from the row-major bins through the new order, subtraction
+  and per-feature split search in one entry point), or the three-pass
+  round: the segment partition (ops/partition_cuda.py), the window rows
+  gathered into a (W, F) block and histogrammed by the multi-leaf kernel
+  (float or int8), subtraction (round_cuda.window_histograms and
+  split_window, which the megakernel's plain version shares) and split
+  search in torch;
+* the bookkeeping, and a 5-scalar info vector [admitted splits, window
+  rows, fits W, next-window bound, all finite].
+
+The host (``_run_fused_rounds``) launches round r+1 before it reads round
+r's info vector, which was copied to pinned memory behind an event one
+round earlier, so the device queue never drains; the next W comes from the
+bound (``whint``): every split's small child holds at most half of its
+leaf, so the top-(tile) halves of the live leaves' counts bound both next
+rounds' windows.  utils/sanitizer.py counts rounds, blocking reads (one a
+tree: the fixed-point exponents, before the first round) and async
+resolves.
+
+Float histograms use one fixed-point exponent pair per tree, taken from
+all N rows (hist_cuda.fixed_shift_pair), so every window histogram equals
+bit for bit what the rounds grower's full-N pass gives for the same rows,
+and the megakernel's equals the three-pass round's.
+
+State updates are functional but for the (L + 1, 3, F, B) histogram state,
+which is written in place (row L is a spare that takes the writes of
+inactive slots).  Trees do not depend on W: it only bounds the window.
+
+Scope: numerical features, missing values, max_depth, bagging masks and
+sample weights, float and int8-quantized gradients.  EFB bundles,
+categorical splits, per-node feature sampling and feature_contri raise
+(ROADMAP A11).  The obs spans and counters of the JAX driver wait for
+ROADMAP A14.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+
+from ..utils import sanitizer as _san
+from ..utils.guards import NonFiniteError
+from ..utils.log import log_warning
+from .hist_cuda import fixed_shift_pair
+from .histogram import histogram_multi, histogram_multi_quantized
+from .partition import segment_ids
+from .partition_cuda import partition_segments
+from .round_cuda import round_megakernel, split_window, window_histograms
+from .split import (KMIN_SCORE, BestSplit, SplitParams, find_best_split,
+                    leaf_output, select_from_feature_best)
+from .treegrow import TreeArrays, _empty_best, _set_best
+from .treegrow_fast import quantize_gradients
+
+_UNPORTED = ("rng_key", "categorical_mask", "efb_bins_t", "efb_gather",
+             "efb_default", "feature_contri")
+
+
+class WState(NamedTuple):
+    order: torch.Tensor  # (N,) i32: row ids physically grouped by leaf
+    leaf_start: torch.Tensor  # (L,) i64: position of each leaf's range
+    leaf_cnt: torch.Tensor  # (L,) i64
+    leaf_id: torch.Tensor  # (N,) i32: leaf per ROW
+    hist: torch.Tensor  # (L + 1, 3, F, B) f32, row L a spare; in place
+    best: BestSplit
+    leaf_sum_g: torch.Tensor
+    leaf_sum_h: torch.Tensor
+    leaf_count: torch.Tensor
+    leaf_depth: torch.Tensor  # i64
+    leaf_parent: torch.Tensor  # i64
+    leaf_side: torch.Tensor  # i64
+    num_leaves_cur: torch.Tensor  # 0-d i64
+    leaf_out: torch.Tensor
+    tree: TreeArrays
+
+
+def _ladder(n: int, floor: int = 8192):
+    """The W ladder for (n, floor): factor-4 steps to 128k, then factor-2,
+    clamped to (and ending at) round_up(n, floor)."""
+    cap = -(-n // floor) * floor
+    w = floor
+    while True:
+        yield min(w, cap)
+        if w >= cap:
+            return
+        w *= 4 if w < 131072 else 2
+
+
+def _window_size(x: int, n: int, floor: int = 8192) -> int:
+    """Window size quantization: the first ladder rung covering ``x``."""
+    for w in _ladder(n, floor):
+        if w >= x:
+            break
+    return w
+
+
+def _put(arr: torch.Tensor, idx: torch.Tensor, val) -> torch.Tensor:
+    """``arr.at[idx].set(val, mode="drop")``: a new array with arr[idx] =
+    val where 0 <= idx < len(arr); other writes land in a spare slot."""
+    n = arr.shape[0]
+    ext = torch.cat([arr, arr[:1]])
+    at = torch.where((idx >= 0) & (idx < n), idx, n).long()
+    if not torch.is_tensor(val):  # a host scalar would be a blocking copy
+        val = torch.full((), val, device=arr.device)
+    ext[at] = val.to(arr.dtype)
+    return ext[:n]
+
+
+def _round_fused(state: WState, bins, grad, hess, gq, hq, quant_scale,
+                 row_mask, num_bins_pf, missing_bin_pf, feature_mask, *,
+                 num_leaves: int, num_bins: int, max_depth: int,
+                 params: SplitParams, leaf_tile: int, W: int,
+                 quantize_bins: int, megakernel: bool,
+                 shift: Tuple[int, int]):
+    """One whole boosting round; returns (state', info) with info = [k_acc,
+    window_total, fits_W, whint, finite] (i32, on the device)."""
+    L, T = num_leaves, leaf_tile
+    n, f = bins.shape
+    dev = bins.device
+    s = state.best
+    idx = torch.arange(L, dtype=torch.int64, device=dev)
+    pos = torch.arange(n, dtype=torch.int64, device=dev)
+    nlc = state.num_leaves_cur
+    drop = 2 * L
+
+    # ---- admission (the rounds grower's semantics) ----
+    can = s.gain > KMIN_SCORE / 2
+    if max_depth > 0:
+        can = can & (state.leaf_depth < max_depth)
+    srt = torch.argsort(torch.where(can, -s.gain, float("inf")), stable=True)
+    order_rank = torch.empty_like(srt)
+    order_rank[srt] = idx  # rank of each leaf
+    accept0 = can & (order_rank < (L - nlc).clamp_max(T))
+
+    # ---- split decisions + segment geometry (pre-partition) ----
+    leaf_of_rank = srt[:T]
+    live_rk = accept0[leaf_of_rank]
+    feats_rk = torch.where(live_rk, s.feature[leaf_of_rank].long(), 0)
+    seg_start = torch.where(live_rk, state.leaf_start[leaf_of_rank], 0)
+    seg_len = torch.where(live_rk, state.leaf_cnt[leaf_of_rank], 0)
+    seg_id = segment_ids(seg_start, seg_len, n).long()  # admission rank
+    sid = seg_id.clamp_min(0)
+    # each position's bin of its segment's split feature: one gather of the
+    # row-major matrix (a contiguous row, one column of it)
+    col = bins.view(-1)[state.order.long() * f + feats_rk[sid]].to(torch.int32)
+    thr = s.threshold_bin[leaf_of_rank][sid]
+    dl = s.default_left[leaf_of_rank][sid]
+    mb = missing_bin_pf[feats_rk][sid]
+    go_left = torch.where(col == mb, dl, col <= thr)
+
+    # ---- on-device window verification ----
+    # segments are contiguous position ranges: differences of one prefix sum
+    # (a scatter-add into T slots would serialise on T atomic words)
+    cl = torch.cumsum((go_left & (seg_id >= 0)).long(), 0)
+    cl = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev), cl])
+    left_counts = cl[seg_start + seg_len] - cl[seg_start]
+    left_small = 2 * left_counts <= seg_len
+    win_cnt_rk = torch.where(live_rk, torch.where(left_small, left_counts,
+                                                  seg_len - left_counts), 0)
+    total = win_cnt_rk.sum()
+    ok = total <= W
+    accept = accept0 & ok
+    live_rk = live_rk & ok
+    k_acc = accept.sum()
+    acc_rank = torch.where(accept, order_rank, L)
+    node_of = nlc - 1 + acc_rank
+    right_of = nlc + acc_rank
+    seg_id = torch.where(ok, seg_id, -1)
+    seg_len_eff = torch.where(ok, seg_len, 0)
+    n_left_seg = torch.where(live_rk, left_counts, 0)
+
+    # ---- order-independent bookkeeping ----
+    right_pos = torch.where(accept, right_of, drop)
+
+    def upd(arr, left_val, right_val):
+        return _put(torch.where(accept, left_val, arr), right_pos, right_val)
+
+    leaf_sum_g = upd(state.leaf_sum_g, s.left_sum_g, s.right_sum_g)
+    leaf_sum_h = upd(state.leaf_sum_h, s.left_sum_h, s.right_sum_h)
+    leaf_count = upd(state.leaf_count, s.left_count, s.right_count)
+    depth_child = state.leaf_depth + 1
+    leaf_depth = upd(state.leaf_depth, depth_child, depth_child)
+    leaf_parent = upd(state.leaf_parent, node_of, torch.where(accept, node_of, 0))
+    leaf_side = _put(torch.where(accept, 0, state.leaf_side), right_pos, 1)
+    leaf_out = upd(state.leaf_out, leaf_output(s.left_sum_g, s.left_sum_h, params),
+                   leaf_output(s.right_sum_g, s.right_sum_h, params))
+    num_leaves_new = nlc + k_acc
+
+    fresh = _put(accept.clone(), right_pos, True)
+    pos_r = torch.where(accept, acc_rank, T)
+    minus1 = torch.full((T,), -1, dtype=torch.int64, device=dev)
+    slot_left = _put(minus1, pos_r, idx)
+    slot_right = _put(minus1, pos_r, right_of)
+    slot_small_left = live_rk & left_small  # slot r == admission rank r
+
+    # leaf ranges: the left child keeps the leaf's start
+    st_rk = state.leaf_start[leaf_of_rank]
+    ct_rk = state.leaf_cnt[leaf_of_rank]
+    rp = right_of[leaf_of_rank].clamp(0, L - 1)
+    leaf_start = _put(state.leaf_start, torch.where(live_rk, rp, drop),
+                      st_rk + n_left_seg)
+    leaf_cnt = _put(state.leaf_cnt, torch.where(live_rk, leaf_of_rank, drop),
+                    n_left_seg)
+    leaf_cnt = _put(leaf_cnt, torch.where(live_rk, rp, drop), ct_rk - n_left_seg)
+
+    # windows: per admission rank, the SMALL child's [start, cnt)
+    sm = torch.where(left_small, leaf_of_rank, rp)
+    win_start = torch.where(live_rk, leaf_start[sm], 0)
+    win_cnt = torch.where(live_rk, leaf_cnt[sm], 0)
+
+    active = slot_left >= 0
+    sl = slot_left.clamp(0, L - 1)
+    sr = slot_right.clamp(0, L - 1)
+    parent_hists = state.hist.index_select(0, sl)  # (T, 3, F, B)
+    cand = torch.cat([sl, sr])
+    cand_ok = torch.cat([active, active])
+    ci = torch.where(cand_ok, cand, 0)
+
+    # ---- partition (+ the whole pass, with the megakernel) ----
+    i32 = torch.int32
+    if megakernel:
+        cand_tab = torch.stack([leaf_sum_g[ci], leaf_sum_h[ci], leaf_count[ci],
+                                leaf_out[ci]]).contiguous()
+        new_order, left_h, right_h, fbests = round_megakernel(
+            bins, state.order, go_left, grad, hess, row_mask,
+            seg_start.to(i32), seg_len_eff.to(i32), n_left_seg.to(i32),
+            win_start.to(i32), win_cnt.to(i32), slot_small_left.to(i32),
+            parent_hists, cand_tab, num_bins_pf, missing_bin_pf, feature_mask,
+            params=params, W=W, shift=shift)
+    else:
+        new_order, _ = partition_segments(state.order, seg_start.to(i32),
+                                          seg_len_eff.to(i32), go_left)
+
+    # ---- per-row leaf ids (needs the partitioned order) ----
+    new_rows = new_order.long()
+    lid_pos = state.leaf_id[new_rows]
+    in_right = ((seg_id >= 0) & live_rk[sid]
+                & (pos >= seg_start[sid] + n_left_seg[sid]))
+    lid_pos = torch.where(in_right, right_of[leaf_of_rank][sid].to(i32), lid_pos)
+    leaf_id = torch.empty_like(state.leaf_id)
+    leaf_id[new_rows] = lid_pos
+
+    # ---- tree arrays ----
+    t = state.tree
+    old_parent, old_side = state.leaf_parent, state.leaf_side
+    repoint_l = accept & (old_parent >= 0) & (old_side == 0)
+    repoint_r = accept & (old_parent >= 0) & (old_side == 1)
+    safe_node = node_of.clamp(0, L - 2)
+    lc_t = _put(t.left_child, torch.where(repoint_l, old_parent, drop), safe_node)
+    rc_t = _put(t.right_child, torch.where(repoint_r, old_parent, drop), safe_node)
+    node_pos = torch.where(accept, node_of, drop)
+    tree = t._replace(
+        split_feature=_put(t.split_feature, node_pos, s.feature),
+        threshold_bin=_put(t.threshold_bin, node_pos, s.threshold_bin),
+        default_left=_put(t.default_left, node_pos, s.default_left),
+        split_gain=_put(t.split_gain, node_pos, s.gain),
+        left_child=_put(lc_t, node_pos, -idx - 1),
+        right_child=_put(rc_t, node_pos, -right_of - 1),
+        internal_value=_put(t.internal_value, node_pos, state.leaf_out),
+        internal_weight=_put(t.internal_weight, node_pos, state.leaf_sum_h),
+        internal_count=_put(t.internal_count, node_pos, state.leaf_count),
+    )
+    best = s._replace(gain=torch.where(fresh, KMIN_SCORE, s.gain))
+
+    # ---- three-pass: window gather -> multi-leaf pass -> subtraction ----
+    if not megakernel:
+        win = (new_order, bins)
+        geo = (row_mask, win_start, win_cnt, W, T, num_bins)
+        if quantize_bins:
+            fresh_h = window_histograms(histogram_multi_quantized, *win, (gq, hq),
+                                        *geo).float() * quant_scale[:, None, None]
+        else:
+            fresh_h = window_histograms(histogram_multi, *win, (grad, hess), *geo,
+                                        shift=shift)
+        left_h, right_h = split_window(parent_hists, fresh_h, slot_small_left)
+
+    spare = L  # inactive slots write the spare row
+    state.hist.index_copy_(0, torch.where(active, sl, spare), left_h)
+    state.hist.index_copy_(0, torch.where(active, sr, spare), right_h)
+
+    # ---- fresh-leaf split search ----
+    pg, ph, pc = leaf_sum_g[ci], leaf_sum_h[ci], leaf_count[ci]
+    if megakernel:
+        bb = select_from_feature_best(fbests, pg, ph, pc, num_bins)
+    else:
+        bb = find_best_split(torch.cat([left_h, right_h]), pg, ph, pc,
+                             num_bins_pf, missing_bin_pf, params,
+                             feature_mask=feature_mask,
+                             parent_output=leaf_out[ci])
+    scatter_pos = torch.where(cand_ok, cand, drop)
+    best = BestSplit(*[_put(o, scatter_pos, nw) for o, nw in zip(best, bb)])
+
+    # ---- next-window bound for the host's ladder ----
+    half_cnt = torch.where(idx < num_leaves_new, leaf_cnt // 2, 0)
+    k_top = min(T, L)
+    top = torch.topk(half_cnt, k_top).values
+    budget_next = (L - num_leaves_new).clamp_min(0).clamp_max(T)
+    whint = torch.where(torch.arange(k_top, device=dev) < budget_next, top, 0).sum()
+
+    state = WState(
+        order=new_order, leaf_start=leaf_start, leaf_cnt=leaf_cnt,
+        leaf_id=leaf_id, hist=state.hist, best=best, leaf_sum_g=leaf_sum_g,
+        leaf_sum_h=leaf_sum_h, leaf_count=leaf_count, leaf_depth=leaf_depth,
+        leaf_parent=leaf_parent, leaf_side=leaf_side,
+        num_leaves_cur=num_leaves_new, leaf_out=leaf_out, tree=tree)
+    # ---- non-finite guard, in the same info vector ----
+    finite = (torch.isfinite(leaf_sum_g).all() & torch.isfinite(leaf_sum_h).all()
+              & torch.isfinite(leaf_out).all() & ~torch.isnan(best.gain).any())
+    info = torch.stack([k_acc, total, ok.long(), whint, finite.long()]).to(i32)
+    return state, info
+
+
+def _w_init(bins, grad, hess, row_mask, sample_weight, num_bins_pf,
+            missing_bin_pf, feature_mask, *, num_leaves: int, num_bins: int,
+            params: SplitParams, quantize_bins: int, stochastic_rounding: bool,
+            generator: Optional[torch.Generator]):
+    """Root state: quantize gradients, the one full-N pass, seed best.
+    Returns (state, grad, hess, gq, hq, quant_scale, grad_true, hess_true,
+    shift)."""
+    n, f = bins.shape
+    L = num_leaves
+    dev = bins.device
+    grad = grad.float() * sample_weight
+    hess = hess.float() * sample_weight
+    grad_true, hess_true = grad, hess
+    gq = hq = quant_scale = None
+    if quantize_bins:
+        gq, hq, grad, hess, quant_scale = quantize_gradients(
+            grad, hess, row_mask, quantize_bins, stochastic_rounding, generator)
+    shift = fixed_shift_pair(grad, hess)  # the tree's one blocking host read
+    slot0 = torch.zeros(n, dtype=torch.int32, device=dev)
+    if quantize_bins:
+        hist0 = histogram_multi_quantized(bins, gq, hq, row_mask, slot0, 0, 1,
+                                          num_bins)[0].float() * quant_scale[:, None, None]
+    else:
+        hist0 = histogram_multi(bins, grad, hess, row_mask, slot0, 0, 1,
+                                num_bins, shift=shift)[0]
+    g0, h0, c0 = torch.sum(hist0[:, 0, :], dim=1)  # totals from feature 0
+    leaf_out0 = leaf_output(g0, h0, params)
+    best = _empty_best(L, num_bins, dev)
+    _set_best(best, torch.zeros(1, dtype=torch.int64, device=dev), find_best_split(
+        hist0[None], g0[None], h0[None], c0[None], num_bins_pf, missing_bin_pf,
+        params, feature_mask=feature_mask, parent_output=leaf_out0[None]))
+
+    def zeros(shape, dtype=torch.float32):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    m = L - 1
+    tree0 = TreeArrays(
+        num_leaves=torch.ones((), dtype=torch.int32, device=dev),
+        split_feature=zeros(m, torch.int32), threshold_bin=zeros(m, torch.int32),
+        default_left=zeros(m, torch.bool), split_gain=zeros(m),
+        left_child=zeros(m, torch.int32), right_child=zeros(m, torch.int32),
+        internal_value=zeros(m), internal_weight=zeros(m), internal_count=zeros(m),
+        leaf_value=zeros(L), leaf_weight=zeros(L), leaf_count=zeros(L),
+        leaf_sum_g=zeros(L), leaf_depth=zeros(L, torch.int32),
+        is_cat=zeros(m, torch.bool), cat_mask=zeros((m, num_bins), torch.bool))
+    hist = zeros((L + 1, 3, f, num_bins))
+    hist[0] = hist0
+
+    def first(v, dtype=torch.float32):
+        out = zeros(L, dtype)
+        out[0] = v
+        return out
+
+    state = WState(
+        order=torch.arange(n, dtype=torch.int32, device=dev),
+        leaf_start=zeros(L, torch.int64), leaf_cnt=first(n, torch.int64),
+        leaf_id=zeros(n, torch.int32), hist=hist, best=best,
+        leaf_sum_g=first(g0), leaf_sum_h=first(h0), leaf_count=first(c0),
+        leaf_depth=zeros(L, torch.int64),
+        leaf_parent=torch.full((L,), -1, dtype=torch.int64, device=dev),
+        leaf_side=zeros(L, torch.int64),
+        num_leaves_cur=torch.ones((), dtype=torch.int64, device=dev),
+        leaf_out=first(leaf_out0), tree=tree0)
+    return state, grad, hess, gq, hq, quant_scale, grad_true, hess_true, shift
+
+
+def _w_finalize(state: WState, grad_true, hess_true, row_mask, *,
+                params: SplitParams, quant_renew: bool):
+    L = state.leaf_out.shape[0]
+    if quant_renew:
+        # leaf outputs from the TRUE gradients: per-leaf sums as a
+        # one-feature histogram (bin = leaf id), as the rounds grower does
+        leaf_hist = histogram_multi(
+            state.leaf_id.to(torch.int16)[:, None].contiguous(), grad_true,
+            hess_true, row_mask, torch.zeros_like(state.leaf_id), 0, 1, L)
+        leaf_value = leaf_output(leaf_hist[0, 0, 0], leaf_hist[0, 1, 0], params)
+    else:
+        leaf_value = leaf_output(state.leaf_sum_g, state.leaf_sum_h, params)
+    active = torch.arange(L, device=leaf_value.device) < state.num_leaves_cur
+    tree = state.tree._replace(
+        num_leaves=state.num_leaves_cur.to(torch.int32),
+        leaf_value=torch.where(active, leaf_value, 0.0),
+        leaf_weight=torch.where(active, state.leaf_sum_h, 0.0),
+        leaf_count=torch.where(active, state.leaf_count, 0.0),
+        leaf_sum_g=torch.where(active, state.leaf_sum_g, 0.0),
+        leaf_depth=state.leaf_depth.to(torch.int32))
+    return tree, state.leaf_id
+
+
+def _run_fused_rounds(round_fn, state, *, n_ladder: int, w_first: int,
+                      num_leaves: int, stats: Optional[dict],
+                      guard_label: str, floor: int = 8192):
+    """The round protocol: W predicted from the bound, each round's info
+    read one round behind, a breach retried at a corrected W, a non-finite
+    flag raised as NonFiniteError.  ``round_fn(state, W) -> (state',
+    info)`` launches one round without reading anything back."""
+    n = n_ladder
+    W = w_first
+    pending: list = []  # launched rounds whose info is still in flight
+    n_leaves = 1
+    retries = 0
+    windows: list = []  # W of every launched round
+    # every productive round admits >= 1 split, reads lag 1 round, plus
+    # headroom for retried (skipped) rounds
+    max_rounds = 2 * num_leaves + 4
+    converged = False
+    resolved = 0
+    try:
+        while len(windows) < max_rounds:
+            _san.record_dispatch()
+            state, info_d = round_fn(state, W)
+            pending.append(_san.async_pull_start(info_d))
+            windows.append(W)
+            if len(pending) < 2:
+                continue  # pipeline fill: resolve reads one round behind
+            k_acc, total, ok, whint, finite = (
+                int(v) for v in _san.async_pull_result(pending.pop(0)))
+            resolved += 1
+            # (span and counter telemetry of this loop: ROADMAP A14)
+            if not finite:
+                raise NonFiniteError(
+                    f"non-finite gradients/hessians/split stats on the device "
+                    f"at windowed round {resolved}{guard_label}: refusing to "
+                    "keep boosting on NaNs; check labels, weights and custom "
+                    "objective outputs")
+            if not ok:
+                # the window bound was breached: the device skipped the round;
+                # fold the corrected W into the next launch
+                retries += 1
+                W = _window_size(max(total, 1), n, floor)
+                continue
+            n_leaves += k_acc
+            if k_acc == 0 or n_leaves >= num_leaves:
+                converged = True
+                break
+            W = _window_size(max(whint, 1), n, floor)
+        # drain the in-flight round so its finite flag is checked too
+        while pending:
+            info = _san.async_pull_result(pending.pop(0))
+            resolved += 1
+            if not int(info[4]):
+                raise NonFiniteError(
+                    f"non-finite gradients/hessians/split stats on the device "
+                    f"at windowed round {resolved}{guard_label} (drained "
+                    "in-flight round): refusing to finalize a tree grown on NaNs")
+    finally:
+        pending.clear()
+        if stats is not None:
+            stats.update(retries=retries, windows=windows)
+    if not converged:
+        log_warning(
+            f"windowed growth exhausted its round budget ({max_rounds} rounds, "
+            f"{retries} window retries) before reaching num_leaves="
+            f"{num_leaves}; the tree is valid but under-grown")
+    return state
+
+
+def megakernel_mode(on_card: bool, *, quantize_bins: int = 0,
+                    mode: Optional[str] = None) -> Tuple[bool, Optional[str]]:
+    """The round-megakernel gate: returns (megakernel, exclusion reason).
+
+    ``mode`` (the Booster's ``megakernel`` extra parameter): ``auto`` (the
+    default: on wherever the kernels run, i.e. on the card), ``1`` (on; on
+    the CPU the megakernel's plain version runs), ``0`` (off).  On the card,
+    int8-quantized training is outside the megakernel's envelope: the
+    three-pass round sums the int8 values exactly while the megakernel
+    would fold the dequantized floats, so it takes the three-pass round and
+    the reason ``quantized`` is reported (in the grower's stats)."""
+    mode = "auto" if mode is None else str(mode).lower()
+    if mode in ("0", "off", "false"):
+        return False, None
+    if mode not in ("auto", "1", "on", "true"):
+        raise ValueError(f"megakernel must be auto, 1 or 0, got {mode!r}")
+    if not (mode != "auto" or on_card):
+        return False, None
+    if quantize_bins and on_card:
+        return False, "quantized"
+    return True, None
+
+
+def grow_tree_windowed(
+    bins: torch.Tensor,  # (N, F) int16, row-major
+    grad: torch.Tensor,
+    hess: torch.Tensor,
+    row_mask: torch.Tensor,
+    sample_weight: torch.Tensor,
+    feature_mask: torch.Tensor,  # (F,) bool
+    num_bins_per_feature: torch.Tensor,
+    missing_bin_per_feature: torch.Tensor,
+    *,
+    num_leaves: int,
+    num_bins: int,
+    max_depth: int = -1,
+    params: SplitParams = SplitParams(),
+    leaf_tile: int = 16,
+    quantize_bins: int = 0,
+    stochastic_rounding: bool = True,
+    quant_renew: bool = False,
+    generator: Optional[torch.Generator] = None,
+    stats: Optional[dict] = None,
+    guard_label: str = "",
+    megakernel_opt: Optional[str] = None,
+    **options,
+) -> tuple[TreeArrays, torch.Tensor]:
+    """Grow one tree with windowed rounds; returns (tree, leaf_id per row).
+    ``stats``, when given, receives {rounds, host_syncs, async_resolves,
+    retries, windows, megakernel, megakernel_excluded}: the counts of
+    utils/sanitizer.py over the whole tree."""
+    for name in _UNPORTED:
+        v = options.pop(name, None)
+        if v is not None and v is not False:
+            raise ValueError(f"grow_tree_windowed: {name} is not ported to "
+                             "lightgbm_tpu_torch yet (ROADMAP A11)")
+    if options:
+        raise TypeError(f"unexpected options: {sorted(options)}")
+    if feature_mask is None:
+        feature_mask = torch.ones(bins.shape[1], dtype=torch.bool,
+                                  device=bins.device)
+    mk, excluded = megakernel_mode(bins.is_cuda, quantize_bins=quantize_bins,
+                                   mode=megakernel_opt)
+    tile = max(1, min(leaf_tile, num_leaves))
+    with _san.DispatchCounter() as counter:
+        try:
+            (state, g_d, h_d, gq, hq, qs, g_true, h_true, shift) = _w_init(
+                bins, grad, hess, row_mask, sample_weight, num_bins_per_feature,
+                missing_bin_per_feature, feature_mask, num_leaves=num_leaves,
+                num_bins=num_bins, params=params, quantize_bins=quantize_bins,
+                stochastic_rounding=stochastic_rounding, generator=generator)
+
+            def round_fn(st, W):
+                return _round_fused(
+                    st, bins, g_d, h_d, gq, hq, qs, row_mask, num_bins_per_feature,
+                    missing_bin_per_feature, feature_mask, num_leaves=num_leaves,
+                    num_bins=num_bins, max_depth=max_depth, params=params,
+                    leaf_tile=tile, W=W, quantize_bins=quantize_bins,
+                    megakernel=mk, shift=shift)
+
+            n = bins.shape[0]
+            # round 1 needs no feedback: a round's window (the small
+            # children) can never exceed floor(N/2) rows, whatever it admits
+            state = _run_fused_rounds(round_fn, state, n_ladder=n,
+                                      w_first=_window_size(max(n // 2, 1), n),
+                                      num_leaves=num_leaves, stats=stats,
+                                      guard_label=guard_label)
+            return _w_finalize(state, g_true, h_true, row_mask, params=params,
+                               quant_renew=bool(quant_renew and quantize_bins))
+        finally:
+            if stats is not None:
+                stats.update(rounds=counter.rounds, host_syncs=counter.host_syncs,
+                             async_resolves=counter.async_resolves,
+                             megakernel=mk, megakernel_excluded=excluded)

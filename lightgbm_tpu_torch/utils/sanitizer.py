@@ -1,0 +1,97 @@
+"""Host-sync accounting for round loops.
+
+Counterpart of the part of lightgbm_tpu/utils/sanitizer.py that the
+windowed round driver uses.  The windowed grower counts every round it
+launches and routes every device-to-host read it makes through this
+module: ``sync_pull`` is a blocking read (the host waits for the device
+queue to drain to the value; the grower makes one a tree, the fixed-point
+exponents of ops/hist_cuda.py::fixed_shift_pair, before its first round),
+``async_pull_start`` / ``async_pull_result`` a pipelined one (a
+non-blocking copy into pinned host memory behind a CUDA event, resolved a
+round later, while the device runs the rounds queued since).
+``DispatchCounter`` reads the three counts over a block, which is what the
+tests pin: one round per launch and no blocking read inside the rounds.
+A read made without this module is not counted; the card test runs every
+round under torch's sync debug mode, which raises on any such read.
+"""
+
+from __future__ import annotations
+
+import threading
+
+import numpy as np
+import torch
+
+_lock = threading.Lock()
+_counts = {"rounds": 0, "host_syncs": 0, "async_resolves": 0}
+
+
+def record_dispatch(n: int = 1) -> None:
+    """Count a round launched by a host driver loop."""
+    with _lock:
+        _counts["rounds"] += n
+
+
+def sync_pull(x: torch.Tensor) -> np.ndarray:
+    """Blocking host read of a device value."""
+    with _lock:
+        _counts["host_syncs"] += 1
+    return x.cpu().numpy()
+
+
+class PendingPull:
+    """A device->host copy in flight: pinned host buffer + CUDA event."""
+
+    def __init__(self, x: torch.Tensor):
+        if x.is_cuda:
+            self.host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+            self.host.copy_(x, non_blocking=True)
+            self.event = torch.cuda.Event()
+            self.event.record(torch.cuda.current_stream(x.device))
+        else:
+            self.host = x.clone()
+            self.event = None
+
+
+def async_pull_start(x: torch.Tensor) -> PendingPull:
+    """Begin a device->host copy without waiting (pipelined read)."""
+    return PendingPull(x)
+
+
+def async_pull_result(p: PendingPull) -> np.ndarray:
+    """Resolve a read begun with :func:`async_pull_start`: waits for that
+    copy only, while the device keeps running later work."""
+    with _lock:
+        _counts["async_resolves"] += 1
+    if p.event is not None:
+        p.event.synchronize()
+    return p.host.numpy()
+
+
+class DispatchCounter:
+    """Context manager: rounds, blocking syncs and async resolves counted
+    in the enclosed block."""
+
+    def __enter__(self) -> "DispatchCounter":
+        with _lock:
+            self._start = dict(_counts)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        return None
+
+    def _delta(self, key: str) -> int:
+        with _lock:
+            return _counts[key] - self._start[key]
+
+    @property
+    def rounds(self) -> int:
+        return self._delta("rounds")
+
+    @property
+    def host_syncs(self) -> int:
+        return self._delta("host_syncs")
+
+    @property
+    def async_resolves(self) -> int:
+        return self._delta("async_resolves")

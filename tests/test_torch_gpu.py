@@ -7,7 +7,10 @@ and skips otherwise.  Run on a machine with a card (no JAX needed there):
 
 Tolerances: int8 histograms are exact; float histograms are held to
 1e-5 * (max|hess| + 1), the f32 summation-order bound, though the 64-bit
-fixed point makes kernel and plain version agree bit for bit.
+fixed point makes kernel and plain version agree bit for bit.  The
+partition kernel and the round kernel are pinned bitwise: a permutation,
+fixed-point histograms with the caller's exponents, and a split search
+whose prefix sums are exact in float64 before their one rounding to f32.
 """
 
 import numpy as np
@@ -86,3 +89,152 @@ def test_training_on_card_launches_the_kernel():
     pc = {**p, "device_type": "cpu"}
     ref = tlgb.train(pc, tlgb.Dataset(X, label=y, params=pc), 5)
     np.testing.assert_allclose(bst.predict(X), ref.predict(X), atol=1e-4)
+
+
+def _segments(dev, n, seed):
+    """A ragged round: unsorted disjoint segments, an empty one, an all-left
+    one, one longer than 1024 chunks (the scan's carry), odd N."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    order = torch.randperm(n, generator=g).to(torch.int32)
+    go = torch.rand(n, generator=g) < 0.37
+    seg_start = torch.tensor([n // 2, 7, n // 2 - 1000, n - 5, 3], dtype=torch.int32)
+    seg_len = torch.tensor([n // 2 - 10, 900, 999, 5, 0], dtype=torch.int32)
+    go[7:907] = True
+    return [t.to(dev) for t in (order, go, seg_start, seg_len)]
+
+
+@pytest.mark.parametrize("n", [2_500_001, 4099])
+def test_partition_kernel_matches_plain(n):
+    import chip_smoke
+    from lightgbm_tpu_torch.ops import partition_cuda as pc
+
+    dev = _card()
+    if n < 10_000:
+        order, go, _, _ = _segments(dev, n, 1)
+        seg_start = torch.tensor([0, 2048, 1024], dtype=torch.int32, device=dev)
+        seg_len = torch.tensor([1000, 2051, 1], dtype=torch.int32, device=dev)
+    else:
+        order, go, seg_start, seg_len = _segments(dev, n, 0)
+    pc.reset_counts()
+    k, kl = pc.partition_segments(order, seg_start, seg_len, go)
+    p, pl = pc.partition_segments_plain(order, seg_start, seg_len, go)
+    assert pc.launches["partition_segments"] == 1
+    assert torch.equal(k, p) and torch.equal(kl, pl)
+    assert torch.equal(chip_smoke.library_partition(order, seg_start, seg_len, go)(), p)
+
+
+def _round_case(dev, n=60_013, f=300, b=255, T=6, seed=3):
+    """Window geometry from a real split of a ragged round."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    bins = torch.randint(0, b, (n, f), generator=g, dtype=torch.int16)
+    order = torch.randperm(n, generator=g).to(torch.int32)
+    go = torch.rand(n, generator=g) < 0.4
+    go[20_000:21_000] = False  # an all-right segment
+    seg_start = torch.tensor([0, 20_000, 21_000, 50_000, 59_000, 59_000],
+                             dtype=torch.int32)
+    seg_len = torch.tensor([20_000, 1000, 29_000, 9000, 0, 0], dtype=torch.int32)
+    n_left = torch.stack([go[int(s):int(s + l)].sum() for s, l in
+                          zip(seg_start, seg_len)]).to(torch.int32)
+    small_left = (2 * n_left <= seg_len).to(torch.int32)
+    win_start = torch.where(small_left > 0, seg_start, seg_start + n_left)
+    win_cnt = torch.where(small_left > 0, n_left, seg_len - n_left)
+    grad = torch.randn(n, generator=g)
+    hess = torch.rand(n, generator=g)
+    mask = torch.rand(n, generator=g) < 0.9
+    parent = torch.rand((T, 3, f, b), generator=g) * 40
+    cand = torch.rand((4, 2 * T), generator=g) * 3000
+    nbpf = torch.full((f,), b, dtype=torch.int32)
+    mbpf = torch.full((f,), -1, dtype=torch.int32)
+    mbpf[::4] = b - 1
+    fmask = torch.ones(f, dtype=torch.bool)
+    fmask[5] = False
+    args = [bins, order, go, grad, hess, mask, seg_start, seg_len, n_left,
+            win_start, win_cnt, small_left, parent, cand, nbpf, mbpf, fmask]
+    return [a.to(dev) for a in args]
+
+
+def test_round_kernel_matches_plain():
+    from lightgbm_tpu_torch.ops import round_cuda as rc
+    from lightgbm_tpu_torch.ops.split import SplitParams
+
+    dev = _card()
+    args = _round_case(dev)
+    kw = dict(params=SplitParams(min_data_in_leaf=20, lambda_l2=1.0), W=32768,
+              shift=(30, 30))
+    rc.reset_counts()
+    ko, kl, kr, kf = rc.round_megakernel(*args, **kw)
+    po, pl, pr, pf = rc.round_megakernel_plain(*args, **kw)
+    assert rc.launches["round_megakernel"] == 1
+    assert torch.equal(ko, po)
+    assert torch.equal(kl, pl) and torch.equal(kr, pr)
+    for name in kf._fields:  # float64 prefix sums, the same formulas op for op
+        assert torch.equal(getattr(kf, name), getattr(pf, name)), name
+
+
+def test_new_kernels_reject_wrong_inputs():
+    from lightgbm_tpu_torch.ops import partition_cuda as pc
+    from lightgbm_tpu_torch.ops import round_cuda as rc
+    from lightgbm_tpu_torch.ops.split import SplitParams
+
+    dev = _card()
+    order, go, seg_start, seg_len = _segments(dev, 5001, 2)
+    with pytest.raises(TypeError):
+        pc.partition_segments(order.long(), seg_start, seg_len, go)
+    with pytest.raises(ValueError):
+        pc.partition_segments(order, seg_start.cpu(), seg_len, go)
+    args = _round_case(dev, n=2000, f=8, b=16)
+    args[0] = args[0].int()
+    with pytest.raises(TypeError):
+        rc.round_megakernel(*args, params=SplitParams(), W=8192, shift=(40, 40))
+
+
+def _wide(n=30_000, f=512, seed=0):
+    rng = np.random.RandomState(seed)
+    X = rng.randn(n, f).astype(np.float32)
+    y = (X[:, :8].sum(1) + X[:, 8] * X[:, 9] + rng.randn(n) > 0).astype(float)
+    return X, y
+
+
+def test_windowed_training_launches_the_round_megakernel(monkeypatch):
+    """lgb.train with windowed_growth at 512 features and 64 leaves takes
+    the windowed grower; every round launches the megakernel and nothing
+    else on the float path, no plain version runs, and no round body asks
+    the host to wait (torch's sync debug mode raises inside every round)."""
+    import lightgbm_tpu_torch as tlgb
+    from lightgbm_tpu_torch.ops import hist_cuda, partition_cuda, round_cuda
+    from lightgbm_tpu_torch.ops import treegrow_windowed as tw
+
+    _card()
+    real = tw._round_fused
+
+    def strict(*a, **k):
+        prev = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("error")
+        out = real(*a, **k)
+        torch.cuda.set_sync_debug_mode(prev)
+        return out
+
+    monkeypatch.setattr(tw, "_round_fused", strict)
+    X, y = _wide()
+    p = {"objective": "binary", "num_leaves": 64, "verbosity": -1,
+         "windowed_growth": True}
+    for d in (hist_cuda, partition_cuda, round_cuda):
+        d.reset_counts()
+    bst = tlgb.train(p, tlgb.Dataset(X, label=y, params=p), 3)
+    stats = bst._gbdt.windowed_stats
+    assert len(stats) == 3 and all(s["megakernel"] for s in stats)
+    assert round_cuda.launches["round_megakernel"] == sum(s["rounds"] for s in stats)
+    assert partition_cuda.launches["partition_segments"] == 0
+    # one blocking read a tree, the fixed-point exponents before round 1
+    assert all(s["retries"] == 0 and s["host_syncs"] == 1 for s in stats)
+    for d in (hist_cuda, partition_cuda, round_cuda):
+        assert not any(d.plain_calls.values()), d.plain_calls
+    # the three-pass round grows the same trees
+    p0 = {**p, "megakernel": "0"}
+    for d in (hist_cuda, partition_cuda, round_cuda):
+        d.reset_counts()
+    ref = tlgb.train(p0, tlgb.Dataset(X, label=y, params=p0), 3)
+    assert round_cuda.launches["round_megakernel"] == 0
+    assert partition_cuda.launches["partition_segments"] > 0
+    np.testing.assert_allclose(bst.predict(X[:2000]), ref.predict(X[:2000]),
+                               rtol=1e-5, atol=1e-6)

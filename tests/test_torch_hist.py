@@ -193,3 +193,48 @@ def test_leaf_tile_policy_matches_jax():
 
 def test_jax_is_on_cpu():
     assert jax.default_backend() == "cpu"
+
+
+@pytest.mark.parametrize("b,tile,n,base", CASES)
+def test_explicit_shift_reproduces_the_default(b, tile, n, base):
+    """shift=None derives the exponents from the call's rows; passing the
+    same pair explicitly gives the same bits."""
+    t = [torch.from_numpy(a) for a in _inputs(b, tile, n, base)[:5]]
+    default = hist_cuda.histogram_multi(*t, base, tile, b)
+    pair = hist_cuda.fixed_shift_pair(t[1], t[2])
+    assert pair == (hist_cuda._fixed_shift(t[1]), hist_cuda._fixed_shift(t[2]))
+    assert torch.equal(hist_cuda.histogram_multi(*t, base, tile, b, shift=pair),
+                       default)
+
+
+def test_window_with_the_tree_shift_equals_the_full_pass():
+    """The windowed grower's property: rows gathered into a window and
+    histogrammed with the exponents of all N rows equal, bit for bit, the
+    full-N pass restricted to those rows (each derives its own exponent
+    by default, and the two would round differently)."""
+    bins, grad, hess, mask, slot = (torch.from_numpy(a)
+                                    for a in _inputs(63, 4, 5000, 0)[:5])
+    shift = hist_cuda.fixed_shift_pair(grad, hess)
+    full = hist_cuda.histogram_multi(bins, grad, hess, mask, slot, 0, 4, 63,
+                                     shift=shift)
+    rows = torch.nonzero((slot >= 0) & (slot < 4)).squeeze(1)
+    rows = rows[torch.randperm(len(rows), generator=torch.Generator().manual_seed(0))]
+    win = hist_cuda.histogram_multi(bins[rows], grad[rows], hess[rows],
+                                    mask[rows], slot[rows], 0, 4, 63, shift=shift)
+    assert torch.equal(win, full)
+    own = hist_cuda.histogram_multi(bins[rows[:50]], grad[rows[:50]],
+                                    hess[rows[:50]], mask[rows[:50]],
+                                    slot[rows[:50]], 0, 4, 63)
+    assert hist_cuda.fixed_shift_pair(grad[rows[:50]], hess[rows[:50]]) != shift
+    np.testing.assert_allclose(
+        own.numpy(), hist_cuda.histogram_multi(
+            bins[rows[:50]], grad[rows[:50]], hess[rows[:50]], mask[rows[:50]],
+            slot[rows[:50]], 0, 4, 63, shift=shift).numpy(), rtol=1e-6, atol=1e-6)
+
+
+def test_non_finite_gradients_have_no_shift():
+    from lightgbm_tpu_torch.utils.guards import NonFiniteError
+
+    g = torch.tensor([1.0, float("inf")])
+    with pytest.raises(NonFiniteError):
+        hist_cuda.fixed_shift_pair(g, torch.ones(2))

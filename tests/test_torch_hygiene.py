@@ -78,9 +78,40 @@ def test_cpu_training_never_counts_a_launch():
 
 
 def test_wrappers_have_no_fallback():
-    """The kernel wrappers branch on the tensor's device alone: no try/except
-    that could turn a failed build or launch into the plain path."""
-    src = (PORT / "ops" / "hist_cuda.py").read_text()
-    assert "except" not in src
+    """The kernel wrappers, their builder and the growers that call them
+    branch on the tensor's device alone: no try/except that could turn a
+    failed build or launch into the plain path."""
+    for module in ("hist_cuda.py", "partition_cuda.py", "round_cuda.py",
+                   "cuda_build.py", "partition.py", "treegrow_fast.py",
+                   "treegrow_windowed.py"):
+        assert "except" not in (PORT / "ops" / module).read_text(), module
     assert "run_with_fallback" not in "".join(
         p.read_text() for p in PORT.rglob("*.py"))
+
+
+def test_cpu_windowed_growth_never_counts_a_launch():
+    """The windowed grower on CPU tensors, three-pass and megakernel: every
+    kernel's plain version runs, no kernel launch is counted."""
+    from lightgbm_tpu_torch.ops import partition_cuda, round_cuda
+    from lightgbm_tpu_torch.ops.split import SplitParams
+    from lightgbm_tpu_torch.ops.treegrow_windowed import grow_tree_windowed
+
+    rng = np.random.RandomState(0)
+    n, f = 600, 6
+    bins = torch.from_numpy(rng.randint(0, 16, (n, f)).astype(np.int16))
+    grad = torch.from_numpy(rng.randn(n).astype(np.float32))
+    args = (bins, grad, torch.ones(n), torch.ones(n, dtype=torch.bool),
+            torch.ones(n), torch.ones(f, dtype=torch.bool),
+            torch.full((f,), 16, dtype=torch.int32),
+            torch.full((f,), -1, dtype=torch.int32))
+    for d in (hist_cuda, partition_cuda, round_cuda):
+        d.reset_counts()
+    for mode in ("0", "1"):
+        grow_tree_windowed(*args, num_leaves=8, num_bins=16, leaf_tile=4,
+                           params=SplitParams(min_data_in_leaf=5),
+                           megakernel_opt=mode)
+    for d in (hist_cuda, partition_cuda, round_cuda):
+        assert not any(d.launches.values()), d.launches
+    assert partition_cuda.plain_calls["partition_segments"] > 0
+    assert round_cuda.plain_calls["round_megakernel"] > 0
+    assert hist_cuda.plain_calls["histogram_multi"] > 0
