@@ -7,7 +7,8 @@ Imports no JAX.  Phases, one line each; any failure exits non-zero:
 
   1. build    compile csrc/hist.cu, partition.cu and round.cu, one nvcc
               each, all started together (nvcc -Xptxas -v: registers,
-              shared memory, spills);
+              shared memory, spills), and count each kernel's atomic
+              instruction forms in cuobjdump -sass where the toolkit has it;
   2. kernels  each histogram kernel against its plain PyTorch version at the
               training path's shapes (1M x 28 x 255, float tile 8, int8 tile
               20) and on a ragged case; timings from CUDA events;
@@ -16,6 +17,8 @@ Imports no JAX.  Phases, one line each; any failure exits non-zero:
               rounds): iterations/s, held-out AUC, kernel launch counts,
               save/reload bitwise, a small run held against the CPU, and
               a torch.profiler window of 5 rounds (device busy share);
+              each training run (phases 3, 4, 6, 8) prints the sha256 of
+              its model text, so a change can show the trees did not move;
   4. int8     the same set with use_quantized_grad=true, 5 rounds;
   5. epsilon  a seeded Epsilon-shaped set (400k train + 50k held-out rows x
               2000 dense features, 255 bins) binned once for phases 6-9;
@@ -28,7 +31,10 @@ Imports no JAX.  Phases, one line each; any failure exits non-zero:
               partition, the float window pass and the round megakernel
               (two sets of split options) at the float leaf tile 10, the
               partition and the int8 window pass at the int8 tile 20, and
-              a ragged case;
+              a ragged case; the root pass and the int8 window pass beside
+              their bounds, and the round kernel's per-phase device times
+              (partition, window pass, subtraction, split search) from a
+              torch.profiler window, each beside its own bound;
   8. int8     the same with use_quantized_grad=true, 3 rounds: the
               three-pass round (partition kernel + int8 histogram kernel);
   9. parity   megakernel=auto against megakernel=0 on 100k of the rows, 2
@@ -38,15 +44,26 @@ Imports no JAX.  Phases, one line each; any failure exits non-zero:
 
 Then a JSON line with every kernel's numbers, and last the device line
 {"ok": true, "device": {...}}.
+
+    python3 chip_smoke.py --variants [CHECKOUT]
+
+times the histogram and round kernels' design variants against each other
+in turns (``variants``), each held bitwise to the plain versions; with
+CHECKOUT, another checkout's csrc/ (e.g. the parent commit's, unpacked with
+git archive) is one more variant.
 """
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -225,10 +242,7 @@ def bound(n, f, tile, num_bins, rows, value_bytes, out_bytes):
     contributing row and feature."""
     nbytes = (n * 5 + sector_bytes(rows, f * 2) + 2 * sector_bytes(rows, value_bytes)
               + tile * 3 * f * num_bins * out_bytes)
-    ops = int(rows.numel()) * f * 3
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return bound_of(nbytes, int(rows.numel()) * f * 3)
 
 
 def check_kernel_case(hc, n, f, b, tile, tile_q, leaf_base, dev, seed, timed):
@@ -280,6 +294,50 @@ def check_kernel_case(hc, n, f, b, tile, tile_q, leaf_base, dev, seed, timed):
     return out
 
 
+ATOMIC_OP = re.compile(r"\b((?:ATOMS|ATOMG|ATOM|RED)(?:\.[A-Z0-9_]+)*)(?![A-Z0-9_])")
+
+
+def sass_atomics(so, nvcc_path):
+    """Atomic instruction forms per kernel of a built library, counted in
+    cuobjdump -sass: {kernel: {form: count}}; None where the toolkit has no
+    cuobjdump.  Kernel names are demangled with cu++filt where it exists."""
+    bindir = os.path.dirname(nvcc_path)
+    tool = os.path.join(bindir, "cuobjdump")
+    if not os.path.isfile(tool):
+        return None
+    out = subprocess.run([tool, "-sass", str(so)], capture_output=True, text=True,
+                         timeout=300, check=True).stdout
+    counts, fn = {}, None
+    for line in out.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            counts[fn] = {}
+            continue
+        m = ATOMIC_OP.search(line)
+        if m and fn is not None:
+            counts[fn][m.group(1)] = counts[fn].get(m.group(1), 0) + 1
+    filt = os.path.join(bindir, "cu++filt")
+    if counts and os.path.isfile(filt):
+        names = list(counts)
+        dm = subprocess.run([filt, *names], capture_output=True, text=True,
+                            timeout=60).stdout.splitlines()
+        if len(dm) == len(names):
+            short = [d.replace("(anonymous namespace)::", "").split("(")[0]
+                     .replace("void ", "").replace("lgbt::", "") for d in dm]
+            counts = {k: counts[n] for k, n in zip(short, names)}
+    return counts
+
+
+def sass_summary(so, nvcc_path) -> str:
+    """One line of ``sass_atomics``: each kernel's atomic forms and counts."""
+    forms = sass_atomics(so, nvcc_path)
+    if forms is None:
+        return "not counted (no cuobjdump in the toolkit)"
+    return "; ".join(f"{k}: " + ", ".join(f"{op} x{c}" for op, c in sorted(v.items()))
+                     for k, v in sorted(forms.items()) if v)
+
+
 # ---------------------------------------------------------------------------
 # phases 3 and 4: training through the package's entry points
 # ---------------------------------------------------------------------------
@@ -312,6 +370,26 @@ def small_vs_cpu(lgt, params, Xtr, ytr, Xte, n=20000, rounds=3) -> float:
     return err
 
 
+def dev_us(e) -> float:
+    """Device microseconds of a profiler event average."""
+    for k in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(e, k):
+            return float(getattr(e, k))
+    return 0.0
+
+
+def device_events(prof):
+    """The profiler's device-side events (kernels, copies, sets), each once:
+    host operators also carry the device time of what they launched."""
+    return [e for e in prof.key_averages()
+            if str(getattr(e, "device_type", "")).endswith("CUDA") and dev_us(e) > 0]
+
+
+def model_sha(bst) -> str:
+    """sha256 of a booster's model text: equal digests, equal trees."""
+    return hashlib.sha256(bst.model_to_string().encode()).hexdigest()
+
+
 def profile_rounds(lgt, params, train_set, rounds):
     """torch.profiler over ``rounds`` boosting rounds after a warm one
     (Booster.update): wall time, device time summed over the device's own
@@ -329,16 +407,7 @@ def profile_rounds(lgt, params, train_set, rounds):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
 
-    def dev_us(e):
-        for k in ("self_device_time_total", "self_cuda_time_total"):
-            if hasattr(e, k):
-                return float(getattr(e, k))
-        return 0.0
-
-    # host operators also carry the device time of what they launched:
-    # count only the device-side events, each once
-    events = [e for e in prof.key_averages()
-              if str(getattr(e, "device_type", "")).endswith("CUDA") and dev_us(e) > 0]
+    events = device_events(prof)
     busy_ms = sum(dev_us(e) for e in events) / 1e3
     top = sorted(events, key=dev_us, reverse=True)[:5]
     return wall_ms, busy_ms, [(e.key[:60], dev_us(e) / 1e3, e.count) for e in top]
@@ -461,14 +530,26 @@ def compare_round(kout, pout, what):
              f"round kernel ({what}): per-feature {name}")
 
 
-def round_bound(args, W):
-    """Least time for one round call on this run's data.  Bytes: the
-    partition's 12 B per in-segment position; the window rows' order
-    entries (4 B), their bins (F x 2 B) and grad, hess, mask in the 32-B
-    sectors those rows touch; the parents read and left/right written once;
-    the per-feature bests (2T x F x 25 B).  Operations: three adds per
-    window row and feature, and ~40 per (candidate, feature, bin) of the
-    split search (two directions of leaf gains)."""
+def bound_of(nbytes, ops):
+    """The larger of bytes over the memory rate and operations over the f32
+    rate, in ms, and which of the two it is."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def round_bounds(args, W):
+    """Least time of one round call on this run's data, for the whole call
+    and for each of its phases.  Bytes: the partition's 12 B per in-segment
+    position; the window rows' order entries (4 B), their bins (F x 2 B) and
+    grad, hess, mask in the 32-B sectors those rows touch, and the fresh
+    sums written once (T x F x B x 20 B); the subtraction reads the fresh
+    sums and the parents and writes left/right; the split search reads
+    left/right and writes the per-feature bests (2T x F x 25 B).  The whole
+    call counts the parents read and left/right written once.  Operations:
+    three adds per window row and feature, and ~40 per (candidate, feature,
+    bin) of the split search (two directions of leaf gains).  Returns
+    ({phase: (ms, by)}, window rows)."""
     from lightgbm_tpu_torch.ops.round_cuda import window_rows
     from lightgbm_tpu_torch.ops.partition import segment_ids, stable_partition_ranges
 
@@ -480,15 +561,52 @@ def round_bound(args, W):
                                            seg_start, seg_len, go)
     rows, _, valid = window_rows(new_order, win_start, win_cnt, W)
     rows = rows[valid]
-    in_seg = int(seg_len.sum())
-    hist_bytes = 3 * parent.numel() * 4
-    nbytes = (12 * in_seg + 4 * rows.numel() + sector_bytes(rows, f * 2)
-              + 2 * sector_bytes(rows, 4) + sector_bytes(rows, 1) + hist_bytes
-              + 2 * T * f * 25)
-    ops = rows.numel() * f * 3 + 2 * T * f * b * 40
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_OPS_PER_S * 1e3
-    return ((t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")), int(rows.numel())
+    part = 12 * int(seg_len.sum())
+    window = (4 * rows.numel() + sector_bytes(rows, f * 2) + 2 * sector_bytes(rows, 4)
+              + sector_bytes(rows, 1))
+    hist = parent.numel() * 4  # one (T, 3, F, B) f32 array
+    bests = 2 * T * f * 25
+    window_ops = rows.numel() * f * 3
+    split_ops = 2 * T * f * b * 40
+    return dict(
+        total=bound_of(part + window + 3 * hist + bests, window_ops + split_ops),
+        partition=bound_of(part, 0),
+        window=bound_of(window + T * f * b * 20, window_ops),
+        subtract=bound_of(T * f * b * 20 + 3 * hist, 0),
+        split=bound_of(2 * hist + bests, split_ops)), int(rows.numel())
+
+
+ROUND_PHASES = (("partition", ("partition_", "Memcpy")), ("window", ("hist_kernel", "Memset")),
+                ("subtract", ("subtract_kernel",)), ("split", ("gain_kernel",)))
+
+
+def round_phases(rc, args, kw, calls=5):
+    """Device ms a call of each phase of the round kernel, from a
+    torch.profiler window over ``calls`` calls: the partition (the order
+    copy and B2's three kernels), the window pass (two memsets and the
+    gather-mode histogram kernel), the subtraction and the split search;
+    "other" holds what the wrapper launches around the kernel.  Sums are
+    divided by the calls the profiler saw (its split-search launches, one a
+    call), returned as "calls"."""
+    from torch.profiler import ProfilerActivity, profile
+
+    rc.round_megakernel(*args, **kw)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            rc.round_megakernel(*args, **kw)
+        torch.cuda.synchronize()
+    events = device_events(prof)
+    seen = sum(e.count for e in events if "gain_kernel" in e.key)
+    if seen < 1:
+        raise AssertionError("the profiler saw no split-search launch of the round kernel")
+    out = {name: 0.0 for name, _ in ROUND_PHASES}
+    out["other"] = 0.0
+    for e in events:
+        name = next((n for n, keys in ROUND_PHASES if any(k in e.key for k in keys)), "other")
+        out[name] += dev_us(e) / seen / 1e3
+    out["calls"] = seen
+    return out
 
 
 def check_epsilon_kernels(ts, grad, hess, params, tile, tile_q):
@@ -501,7 +619,10 @@ def check_epsilon_kernels(ts, grad, hess, params, tile, tile_q):
     smoothing and min_gain_to_split; at the int8 leaf tile ``tile_q``, the
     partition and the int8 window pass on the gathered window; and a
     ragged case (odd N, 257 features, an empty segment, an all-left one,
-    positions outside every segment).  Times on the float-tile case."""
+    positions outside every segment).  Times on the float-tile case; the
+    root pass and the int8 window pass (the histogram kernel alone, on the
+    gathered window) with their plain versions, index_add_ yardsticks and
+    bounds; the round kernel's phases from a profiler window."""
     from lightgbm_tpu_torch.ops import hist_cuda as hc
     from lightgbm_tpu_torch.ops import partition_cuda as pc
     from lightgbm_tpu_torch.ops import round_cuda as rc
@@ -525,6 +646,12 @@ def check_epsilon_kernels(ts, grad, hess, params, tile, tile_q):
          "root histogram pass (tile 1, explicit exponents)")
     out["root_ms"] = cuda_ms(lambda: hc.histogram_multi(*ra, shift=shift), iters=5,
                              warmup=1)
+    out["root_plain_ms"] = cuda_ms(lambda: hc.histogram_multi_plain(*ra, shift=shift),
+                                   iters=2, warmup=1)
+    lib, rows = library_call(bins, (grad, hess), mask, ra[4], 0, 1, b, torch.float32)
+    out["root_library_ms"] = cuda_ms(lib, iters=2, warmup=1)
+    out["root_bound_ms"], out["root_bound_by"] = bound(n, f, 1, b, rows, 4, 4)
+    del lib, rows
     torch.cuda.empty_cache()
 
     def partition(sp, what):
@@ -565,8 +692,10 @@ def check_epsilon_kernels(ts, grad, hess, params, tile, tile_q):
                               warmup=2)
     out["round_plain_ms"] = cuda_ms(lambda: rc.round_megakernel_plain(*args, **kw),
                                     iters=2, warmup=1)
-    (out["round_bound_ms"], out["round_bound_by"]), out["window_rows"] = round_bound(
-        args, W)
+    bounds, out["window_rows"] = round_bounds(args, W)
+    out["round_bound_ms"], out["round_bound_by"] = bounds["total"]
+    out["round_phases"] = round_phases(rc, args, kw)
+    out["round_phase_bounds"] = bounds
     del base, args, wa
     torch.cuda.empty_cache()
 
@@ -582,7 +711,18 @@ def check_epsilon_kernels(ts, grad, hess, params, tile, tile_q):
     out.update(Wq=Wq, int8_window_ms=cuda_ms(
         lambda: rc.window_histograms(hc.histogram_multi_quantized, *qa), iters=5,
         warmup=1))
-    del qa
+    # the kernel alone, on the window gathered as the three-pass round does
+    wrows, wslot, valid = rc.window_rows(new_q, sq["win_start"], sq["win_cnt"], Wq)
+    ga = (bins.index_select(0, wrows), gq[wrows], hq[wrows], mask[wrows] & valid, wslot,
+          0, tile_q, b)
+    out["int8_hist_ms"] = cuda_ms(lambda: hc.histogram_multi_quantized(*ga), iters=5,
+                                  warmup=1)
+    out["int8_hist_plain_ms"] = cuda_ms(lambda: hc.histogram_multi_quantized_plain(*ga),
+                                        iters=2, warmup=1)
+    lib, rows = library_call(ga[0], ga[1:3], ga[3], ga[4], 0, tile_q, b, torch.int32)
+    out["int8_hist_library_ms"] = cuda_ms(lib, iters=2, warmup=1)
+    out["int8_hist_bound_ms"], out["int8_hist_bound_by"] = bound(Wq, f, tile_q, b, rows, 1, 4)
+    del qa, ga, lib, rows
     torch.cuda.empty_cache()
 
     # ragged: partition and round kernel (all options)
@@ -632,12 +772,231 @@ def trees_agree(a, b) -> float:
     return worst
 
 
+# ---------------------------------------------------------------------------
+# python3 chip_smoke.py --variants [CHECKOUT]: the design choices of the
+# histogram and round kernels timed against each other in turns, each a
+# patched copy of csrc/ built beside the package's own (and, given another
+# checkout of the repo, that checkout's kernels as one more variant)
+# ---------------------------------------------------------------------------
+# The split search with its lanes over 32 bins at a time and a carry between
+# steps: replaces round.cu's lane-run prefix, up to the per-bin evaluation.
+GAIN_PER32 = """\
+  double carry_g = 0.0, carry_h = 0.0, carry_c = 0.0;
+  float best = -INFINITY, blg = 0.f, blh = 0.f, blc = 0.f;
+  int bthr = INT_MAX;
+  bool bleft = false;
+  for (int b0 = 0; b0 < B; b0 += 32) {
+    const int b = b0 + lane;
+    double xg = 0.0, xh = 0.0, xc = 0.0;
+    if (b < B && b != mb) {
+      xg = (double)hg[b];
+      xh = (double)hh[b];
+      xc = (double)hc[b];
+    }
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const double yg = __shfl_up_sync(0xffffffffu, xg, o);
+      const double yh = __shfl_up_sync(0xffffffffu, xh, o);
+      const double yc = __shfl_up_sync(0xffffffffu, xc, o);
+      if (lane >= o) {
+        xg += yg;
+        xh += yh;
+        xc += yc;
+      }
+    }
+    const double cg = carry_g + xg, chs = carry_h + xh, cc = carry_c + xc;
+    carry_g = __shfl_sync(0xffffffffu, cg, 31);
+    carry_h = __shfl_sync(0xffffffffu, chs, 31);
+    carry_c = __shfl_sync(0xffffffffu, cc, 31);
+    if (b >= B) continue;
+"""
+
+# name -> patches (file, old text or (start, end) of a span, new text)
+VARIANTS = {
+    "kept": [],
+    "lookahead1": [("hist_common.cuh", "kLookahead = 4;", "kLookahead = 1;")],
+    "lookahead8": [("hist_common.cuh", "kLookahead = 4;", "kLookahead = 8;")],
+    "slots_max": [("hist_common.cuh", "for (int sb = 1; sb <= sb_max; ++sb)",
+                   "for (int sb = sb_max; sb <= sb_max; ++sb)")],
+    "waves2": [("hist_common.cuh", "wave = (int64_t)sms * occ;",
+                "wave = (int64_t)sms * occ * 2;")],
+    "gain_per32": [("round.cu", ("  const int K = (B + 31) / 32;",
+                                 "    const float sg = (float)cg"), GAIN_PER32)],
+}
+# Timing only (wrong sums by design): skipping every cell of the flush
+# leaves the rest of the call, so the kept time less this one's is the
+# flush's share (its global atomics and the shared words' reset).
+PROBES = {"no_flush": [("hist_common.cuh", "if (cnt == 0) continue;",
+                        "if (cnt != 0xffffffffu) continue;")]}
+
+
+def variant_sources(name, patches, csrc):
+    """A copy of ``csrc`` under build/variants/<name> with ``patches``
+    applied (each old text or span start must occur exactly once)."""
+    from lightgbm_tpu_torch.ops import cuda_build
+
+    d = cuda_build.BUILD_DIR / "variants" / name
+    shutil.rmtree(d, ignore_errors=True)
+    shutil.copytree(csrc, d)
+    for fname, old, new in patches:
+        path = d / fname
+        text = path.read_text()
+        first = old[0] if isinstance(old, tuple) else old
+        if text.count(first) != 1:
+            raise AssertionError(f"variant {name}: {first!r} is not in {fname} once")
+        i = text.index(first)
+        j = text.index(old[1], i) if isinstance(old, tuple) else i + len(old)
+        path.write_text(text[:i] + new + text[j:])
+    return d
+
+
+def ptxas_summary(log_text):
+    """Registers and spill bytes of each kernel in an nvcc -Xptxas -v log."""
+    regs = [int(m) for m in re.findall(r"Used (\d+) registers", log_text)]
+    spills = [int(a) + int(b) for a, b in re.findall(
+        r"(\d+) bytes spill stores, (\d+) bytes spill loads", log_text)]
+    return f"registers {regs} spill bytes {sum(spills)}"
+
+
+def variants(parent) -> int:
+    """Every variant's histogram and round libraries, built at once; then,
+    in turns (each variant once forward, once in reverse order), each held
+    bit for bit against the plain versions and timed with CUDA events: B1 at
+    the phase 2 shapes (1M x 28, float tile 8, int8 tile 20), the Epsilon
+    root pass (400k x 2000, tile 1), the int8 window pass on a gathered T =
+    20 window, and B3 at phase 7's geometry (T = 10, W = 131,072) with its
+    phases from a profiler window.  Then two probes of the kept kernels:
+    the flush's share of each call (PROBES), and the root pass on bins
+    that put a warp's atomics on 32 banks or on one.  Bins are seeded
+    random (no binning)."""
+    from lightgbm_tpu_torch.ops import cuda_build
+    from lightgbm_tpu_torch.ops import hist_cuda as hc
+    from lightgbm_tpu_torch.ops import partition_cuda as pc
+    from lightgbm_tpu_torch.ops import round_cuda as rc
+    from lightgbm_tpu_torch.ops.split import SplitParams
+    from lightgbm_tpu_torch.ops.treegrow_windowed import _window_size
+
+    dev = torch.device("cuda", 0)
+    srcs = {name: variant_sources(name, patches, cuda_build.CSRC)
+            for name, patches in {**VARIANTS, **PROBES}.items()}
+    if parent:
+        srcs["checkout"] = variant_sources("checkout", [], Path(parent).resolve()
+                                           / "lightgbm_tpu_torch" / "csrc")
+    n_base = len(cuda_build.NVCC_FLAGS)
+    libs = {name: (cuda_build.KernelLibrary(str(d / "hist.cu"), hc._bind,
+                                            hc.LIBRARY.flags[n_base:]),
+                   cuda_build.KernelLibrary(str(d / "round.cu"), rc._bind,
+                                            rc.LIBRARY.flags[n_base:]))
+            for name, d in srcs.items()}
+    # variants that patch one file share the other's library: build each once
+    built = {lib.target(): lib for pair in libs.values() for lib in pair}
+    t0 = time.perf_counter()
+    cuda_build.build_all(built.values(), force=True)
+    cuda_build.build_all([pc.LIBRARY])
+    log(f"variants built: {len(built)} libraries in {time.perf_counter() - t0:.2f} s")
+    for name, pair in libs.items():
+        for lib in pair:
+            so = lib.target()
+            log(f"variant {name} {lib.src.name}: {ptxas_summary(built[so].log)}; sass "
+                f"atomics {sass_summary(so, cuda_build.nvcc())}")
+    bins, grad, hess, mask, slot, gq, hq = kernel_inputs(N_TRAIN, N_FEAT, MAX_BIN, 20, 0, 1,
+                                                         dev)
+    hf = (bins, grad, hess, mask, slot, 0, 8, MAX_BIN)
+    hqa = (bins, gq, hq, mask, slot, 0, 20, MAX_BIN)
+    n, f = EPS_N_TRAIN, EPS_FEAT
+    g = torch.Generator(device=dev)
+    g.manual_seed(3)
+    ebins = torch.randint(0, MAX_BIN, (n, f), generator=g, device=dev, dtype=torch.int16)
+    eg = torch.randn(n, generator=g, device=dev) * 0.3
+    eh = torch.rand(n, generator=g, device=dev) * 0.25
+    emask = torch.ones(n, dtype=torch.bool, device=dev)
+    shift = hc.fixed_shift_pair(eg, eh)
+    ra = (ebins, eg, eh, emask, torch.zeros(n, dtype=torch.int32, device=dev), 0, 1, MAX_BIN)
+    nbpf = torch.full((f,), MAX_BIN, dtype=torch.int32, device=dev)
+    mbpf = torch.full((f,), -1, dtype=torch.int32, device=dev)
+    mbpf[::3] = MAX_BIN - 1
+    prm = SplitParams(min_data_in_leaf=20, min_sum_hessian_in_leaf=1e-3)
+    sp = split_case(ebins, MAX_BIN, 10, SEED + 5)
+    W = _window_size(int(sp["win_cnt"].sum()), n)
+    args = with_outputs(round_case(ebins, eg, eh, nbpf, mbpf, MAX_BIN, sp, shift), prm)
+    kw = dict(params=prm, W=W, shift=shift)
+    gqe = torch.randint(-8, 9, (n,), generator=g, device=dev, dtype=torch.int8)
+    hqe = torch.randint(0, 17, (n,), generator=g, device=dev, dtype=torch.int8)
+    sq = split_case(ebins, MAX_BIN, 20, SEED + 7)
+    new_q = pc.partition_segments(sq["order"], sq["seg_start"], sq["seg_len"], sq["go"])[0]
+    Wq = _window_size(int(sq["win_cnt"].sum()), n)
+    wrows, wslot, valid = rc.window_rows(new_q, sq["win_start"], sq["win_cnt"], Wq)
+    ga = (ebins.index_select(0, wrows), gqe[wrows], hqe[wrows], emask[wrows] & valid, wslot,
+          0, 20, MAX_BIN)
+    want = dict(higgs_f=hc.histogram_multi_plain(*hf),
+                higgs_q=hc.histogram_multi_quantized_plain(*hqa),
+                root=hc.histogram_multi_plain(*ra, shift=shift),
+                int8_win=hc.histogram_multi_quantized_plain(*ga),
+                round=rc.round_megakernel_plain(*args, **kw))
+    log(f"variants inputs: round T=10 W={W} window rows {int(sp['win_cnt'].sum())}; "
+        f"int8 window T=20 W={Wq}")
+    calls = dict(higgs_f=lambda: hc.histogram_multi(*hf),
+                 higgs_q=lambda: hc.histogram_multi_quantized(*hqa),
+                 root=lambda: hc.histogram_multi(*ra, shift=shift),
+                 int8_win=lambda: hc.histogram_multi_quantized(*ga),
+                 round=lambda: rc.round_megakernel(*args, **kw))
+    turns = [name for name in libs if name not in PROBES]
+    times = {name: [] for name in turns}
+    for name in turns + turns[::-1]:
+        hc.LIBRARY, rc.LIBRARY = libs[name]
+        for k, fn in calls.items():
+            if k == "round":
+                compare_round(fn(), want[k], f"variant {name}")
+            else:
+                same(fn(), want[k], f"variant {name} {k}")
+        t = {k: cuda_ms(fn, iters=20 if k.startswith("higgs") else 5, warmup=2)
+             for k, fn in calls.items()}
+        t["round_phases"] = round_phases(rc, args, kw)
+        times[name].append(t)
+        log(f"variant {name} turn {len(times[name])}: bitwise_plain=True ms "
+            + json.dumps(t))
+    for name, ts in times.items():
+        log(f"variant {name} mean of {len(ts)} turns: " + json.dumps(
+            {k: sum(t[k] for t in ts) / len(ts) for k in calls}))
+    flush = {"kept": [], "no_flush": []}
+    for name in ("kept", "no_flush", "no_flush", "kept"):
+        hc.LIBRARY, rc.LIBRARY = libs[name]
+        flush[name].append({k: cuda_ms(fn, iters=20 if k.startswith("higgs") else 5,
+                                       warmup=2) for k, fn in calls.items()})
+    mean = {name: {k: sum(t[k] for t in ts) / len(ts) for k in calls}
+            for name, ts in flush.items()}
+    log("flush probe ms: " + json.dumps(mean) + " flush share: " + json.dumps(
+        {k: 1 - mean["no_flush"][k] / mean["kept"][k] for k in calls}))
+    # Bank probe: the kept root pass on bins laid out so that a warp's lanes
+    # (consecutive features of one row, cells bin_stride(B) = 255 apart, so
+    # bank = bin - feature mod 32) hit 32 different banks (bin = 2f + r), or
+    # one bank (bin = f + r), against the seeded random bins above.
+    hc.LIBRARY, rc.LIBRARY = libs["kept"]
+    fr = (torch.arange(f, device=dev)[None, :], torch.arange(n, device=dev)[:, None])
+    probe = {"random": ebins}
+    for name, k in (("32_banks", 2), ("one_bank", 1)):
+        probe[name] = ((k * fr[0] + fr[1]) % MAX_BIN).to(torch.int16)
+    ms = {}
+    for name, pb in probe.items():
+        pa = (pb,) + ra[1:]
+        same(hc.histogram_multi(*pa, shift=shift), hc.histogram_multi_plain(*pa, shift=shift),
+             f"bank probe {name}")
+        ms[name] = cuda_ms(lambda: hc.histogram_multi(*pa, shift=shift), iters=5, warmup=2)
+    log("bank probe, root pass ms: " + json.dumps(ms))
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    log(smi.stdout.strip())
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs a CUDA card", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    if sys.argv[1:2] == ["--variants"]:
+        return variants(sys.argv[2] if len(sys.argv) > 2 else None)
     import lightgbm_tpu_torch as lgt
     from lightgbm_tpu_torch.ops import cuda_build
     from lightgbm_tpu_torch.ops import hist_cuda as hc
@@ -661,6 +1020,8 @@ def main() -> int:
         for line in lib.log.splitlines():
             if any(k in line for k in ("registers", "spill", "smem", "Compiling entry")):
                 log(f"ptxas {lib.src.name}: " + line.strip())
+    for so in sos:
+        log(f"phase 1 sass {so.name}: {sass_summary(so, cuda_build.nvcc())}")
     log(f"phase 1 build: ok {' '.join(so.name for so in sos)} in "
         f"{time.perf_counter() - t0:.2f} s")
 
@@ -720,7 +1081,7 @@ def main() -> int:
         f"auc={a:.5f} (floor {AUC_FLOOR}) launches={launches_float['histogram_multi']} "
         f"({launches_float['histogram_multi'] / ROUNDS_FLOAT:.2f}/round) "
         f"plain_calls=0 reload=bitwise small-vs-cpu max|d|={small_err:.3g} "
-        f"in {time.perf_counter() - t0:.2f} s")
+        f"model_sha256={model_sha(bst)} in {time.perf_counter() - t0:.2f} s")
     wall_ms, busy_ms, top = profile_rounds(lgt, base, train_set, 5)
     if busy_ms > 0:
         log(f"phase 3 profile (5 rounds after a warm one): wall_ms={wall_ms:.2f} "
@@ -753,7 +1114,8 @@ def main() -> int:
         f"auc={aq:.5f} (floor {AUC_FLOOR_INT8}) "
         f"launches={launches_int8['histogram_multi_quantized']} "
         f"({launches_int8['histogram_multi_quantized'] / ROUNDS_INT8:.2f}/round) "
-        f"small-vs-cpu max|d|={small_err_q:.3g} in {time.perf_counter() - t0:.2f} s")
+        f"small-vs-cpu max|d|={small_err_q:.3g} model_sha256={model_sha(bst_q)} "
+        f"in {time.perf_counter() - t0:.2f} s")
 
     # ---- 5. the Epsilon-shaped set ----
     t0 = time.perf_counter()
@@ -818,7 +1180,8 @@ def main() -> int:
         f"plain_calls=0 retries={st_w['retries']} windows={st_w['windows']} "
         f"blocking host reads/tree={st_w['host_syncs'] / st_w['trees']:.2f} "
         f"(the exponents, before round 1) async resolves={st_w['resolves']} "
-        f"reload=bitwise in {time.perf_counter() - t0:.2f} s")
+        f"reload=bitwise model_sha256={model_sha(bst_w)} "
+        f"in {time.perf_counter() - t0:.2f} s")
     wall_ms, busy_ms, top = profile_rounds(lgt, eps, eps_set, 2)
     if busy_ms > 0:
         log(f"phase 6 profile (2 trees after a warm one): wall_ms={wall_ms:.2f} "
@@ -836,9 +1199,14 @@ def main() -> int:
     ek = r = check_epsilon_kernels(eps_set, g_eps, h_eps, gb._split_params, tile_w,
                                    tile_wq)
     log(f"phase 7 kernel histogram: root pass N={EPS_N_TRAIN} F={EPS_FEAT} tile 1 "
-        f"explicit exponents {r['shift']} ms={r['root_ms']:.4f} bitwise_plain=True; "
+        f"explicit exponents {r['shift']} ms={r['root_ms']:.4f} "
+        f"plain_ms={r['root_plain_ms']:.4f} library_ms={r['root_library_ms']:.4f} "
+        f"bound_ms={r['root_bound_ms']:.4f} ({r['root_bound_by']}) bitwise_plain=True; "
         f"float window pass T={r['T']} W={r['W']} bitwise_plain=True; int8 window "
-        f"pass T={r['Tq']} W={r['Wq']} ms={r['int8_window_ms']:.4f} bitwise_plain=True")
+        f"pass T={r['Tq']} W={r['Wq']} ms={r['int8_window_ms']:.4f} (gather included), "
+        f"kernel alone ms={r['int8_hist_ms']:.4f} plain_ms={r['int8_hist_plain_ms']:.4f} "
+        f"library_ms={r['int8_hist_library_ms']:.4f} bound_ms={r['int8_hist_bound_ms']:.4f} "
+        f"({r['int8_hist_bound_by']}) bitwise_plain=True")
     log(f"phase 7 kernel partition: N={EPS_N_TRAIN} T={r['T']} in-segment={r['in_seg']} "
         f"ms={r['part_ms']:.4f} plain_ms={r['part_plain_ms']:.4f} "
         f"library_ms={r['part_library_ms']:.4f} bound_ms={r['part_bound_ms']:.6f} "
@@ -849,6 +1217,12 @@ def main() -> int:
         f"({r['round_bound_by']}) order, left/right and per-feature bests bitwise "
         f"(training parameters, all split options, ragged) "
         f"in {time.perf_counter() - t0:.2f} s")
+    ph, pb = r["round_phases"], r["round_phase_bounds"]
+    seen = ph.pop("calls")
+    log(f"phase 7 kernel round phases (torch.profiler, {seen} calls seen, ms a call): "
+        + "; ".join(f"{k} {ph[k]:.4f} (bound {pb[k][0]:.4f}, {pb[k][1]})"
+                    for k, _ in ROUND_PHASES)
+        + f"; other {ph['other']:.4f}; sum {sum(ph.values()):.4f}")
     del gb, g_eps, h_eps
     torch.cuda.empty_cache()
 
@@ -873,7 +1247,8 @@ def main() -> int:
         f"auc={a_q8:.5f} (floor {AUC_FLOOR_EPS_INT8}) tree-rounds={st_q['rounds']} "
         f"partition launches={part_launches} int8 histogram launches={i8_launches} "
         f"(window passes + roots) round-kernel launches=0 megakernel excluded: "
-        f"quantized retries={st_q['retries']} in {time.perf_counter() - t0:.2f} s")
+        f"quantized retries={st_q['retries']} model_sha256={model_sha(bst_q8)} "
+        f"in {time.perf_counter() - t0:.2f} s")
 
     # ---- 9. megakernel against the three-pass round ----
     t0 = time.perf_counter()
@@ -926,6 +1301,15 @@ def main() -> int:
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     r = ek
+    for name, pre, launches in (
+            ("histogram_multi_epsilon_root", "root", b1_w),
+            ("histogram_multi_quantized_epsilon_window", "int8_hist",
+             i8_launches - st_q["trees"])):
+        kernels.append({
+            "name": name, "route": "cuda", "source": src, "replaces": tpu,
+            "launches": launches, "max_abs_err": 0.0, "ms": r[f"{pre}_ms"],
+            "plain_ms": r[f"{pre}_plain_ms"], "bound_ms": r[f"{pre}_bound_ms"],
+            "bound_by": r[f"{pre}_bound_by"], "library_ms": r[f"{pre}_library_ms"]})
     kernels.append({
         "name": "partition_segments", "route": "cuda",
         "source": "lightgbm_tpu_torch/csrc/partition.cu",

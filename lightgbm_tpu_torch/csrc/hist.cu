@@ -16,30 +16,32 @@
 // contributing rows' bins (F * 2 bytes of int16) and grad and hess (4 bytes
 // each in float, 1 in int8), in the 32-byte sectors those scattered rows
 // touch, and write the histogram once.  At N = 1M, F = 28 with a third of
-// the rows in the tile that is ~40 MB, ~12 us at 3.35 TB/s.  The kernel
-// reads more: the float prologue reads grad and hess of every row, and each
-// feature group re-reads its rows' mask and slot.  Its work is one
-// shared-memory atomic per contributing row, feature and channel, so it is
-// bound by shared-memory atomic throughput, not by arithmetic or bytes.
-// chip_smoke.py measures it against that bound on the card (PERF.md);
-// closing the gap is later work.
+// the rows in the tile that is ~40 MB, ~12 us at 3.35 TB/s; the Epsilon
+// root pass (N = 400k, F = 2000, every row) reads 1.6 GB of bins, ~0.48 ms.
+// Its work is one shared-memory atomic per contributing row, feature and
+// 32-bit word (five in float, three in int8), so it is bound on the card by
+// shared-memory atomic throughput, not by arithmetic or bytes.
+// chip_smoke.py measures it against that bound on the card (PERF.md).
 //
 // Design.
-// * Bins are read in the package's row-major (N, F) int16 layout: one block
-//   reads the few contiguous features of its group for every row of its
-//   chunk, so a row's bytes come from one or two cache lines.  No
+// * Bins are read in the package's row-major (N, F) int16 layout: a warp
+//   reads the contiguous features of its group for one row in one or two
+//   requests, so a row's bytes come from one or two cache lines.  No
 //   feature-major copy is needed (the JAX package keeps one for its column
 //   reads; the port's partition reads a single gathered column per row).
 // * Each block owns a private accumulator in shared memory for
 //   (slots of its slot group) x (features of its feature group) x B bins.
-//   A (slot, feature) pair costs B * 20 bytes in float (two 64-bit sums and
-//   a 32-bit count) and B * 12 bytes in int8, so at B = 255 a block holds
-//   ~45 float pairs or ~75 int8 pairs in its 227 KB: features are split
-//   into groups, and slots too when one feature's slots do not fit.  The
-//   TPU kernel's accumulator carried across a sequential row grid has no
-//   counterpart here (blocks run in no order), so rows are cut into chunks,
-//   one block per (chunk, group), and each block adds its partial into the
-//   global result with integer atomics when it finishes.
+//   A (slot, feature) pair costs B * 20 bytes in float (a 64-bit sum of
+//   grad and of hess, each kept as two 32-bit words, and a 32-bit count) and
+//   B * 12 bytes in int8, so at B = 255 a block holds ~45 float pairs or ~75
+//   int8 pairs in its 227 KB: features are split into groups, and slots too
+//   when one feature's slots do not fit; make_plan picks the split that
+//   reads the fewest bytes a row.  The TPU kernel's accumulator carried
+//   across a sequential row grid has no counterpart here (blocks run in no
+//   order): the grid is one wave of resident blocks, each taking an equal
+//   range of the (group, row) space, and each adds its partial into the
+//   global result with integer atomics when its range leaves a group
+//   (hist_common.cuh says how the rows are read and added).
 // * Determinism.  Float atomics would sum in a different order, and to
 //   different bits, from run to run.  Float payloads are therefore summed
 //   in 64-bit fixed point, as XGBoost's GPU histogram does: a prologue finds
@@ -99,16 +101,14 @@ cudaError_t launch_hist(const void* bins, const void* g, const void* h, const vo
                         Shift shift, unsigned long long* acc64, int* acc32,
                         cudaStream_t stream) {
   Plan p;
-  cudaError_t e = lgbt::make_plan(n, F, tile, B, kQuant ? 12 : 20, false, &p);
+  cudaError_t e = lgbt::make_plan(lgbt::hist_kernel<kQuant, false>, n, F, tile, B,
+                                  lgbt::Cells<kQuant>::kBytes, false, 0, &p);
   if (e != cudaSuccess) return e;
-  e = cudaFuncSetAttribute(lgbt::hist_kernel<kQuant, false>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
-  if (e != cudaSuccess) return e;
-  dim3 grid((unsigned)p.row_chunks, (unsigned)(p.n_fgroups * p.n_sgroups));
-  lgbt::hist_kernel<kQuant, false><<<grid, kThreads, p.smem, stream>>>(
-      static_cast<const int16_t*>(bins), g, h, static_cast<const uint8_t*>(mask),
-      static_cast<const int32_t*>(slot), nullptr, nullptr, nullptr, n, F, leaf_base, tile, B,
-      p.rows_per_chunk, p.FB, p.SB, p.n_fgroups, shift, acc64, acc32);
+  lgbt::HistArgs a{static_cast<const int16_t*>(bins), g, h, static_cast<const uint8_t*>(mask),
+                   static_cast<const int32_t*>(slot), nullptr, nullptr, nullptr, n, F,
+                   leaf_base, tile, B, p.FB, p.SB, p.n_fgroups, p.n_sgroups, shift, acc64,
+                   acc32};
+  lgbt::hist_kernel<kQuant, false><<<p.blocks, kThreads, p.smem, stream>>>(a);
   return cudaGetLastError();
 }
 

@@ -1,20 +1,50 @@
 // Device code of the multi-leaf histogram, shared by hist.cu (the
 // histogram kernel proper) and round.cu (the round megakernel's window
 // pass).  hist.cu's source note says what bounds it and why the sums are
-// 64-bit fixed point; this header only holds the pieces both use.
+// 64-bit fixed point; this header holds the pieces both use.
 //
 // Two row sources, one accumulator:
 //   direct  (kGather = false)  rows 0..n-1 of the (N, F) bin matrix, each
 //           row's slot from leaf_slot[r] - leaf_base;
-//   gather  (kGather = true)   slot s's rows are order[win_start[s] + i] for
-//           i in [0, win_cnt[s]): the small-child windows of a round, read
-//           through the partitioned row order without copying them.  Each
-//           block serves one slot (SB = 1), so it only touches its slot's
-//           rows.
+//   gather  (kGather = true)   the round's windows laid end to end in a
+//           flat space of positions, as ops/round_cuda.py::window_rows lays
+//           them: position p of slot s is row order[win_start[s] + p -
+//           off[s]], off the prefix of win_cnt, and positions past W are
+//           dropped.  The small-child windows are read through the
+//           partitioned row order without copying them.
 // Both accumulate per block in shared memory and flush with integer
 // atomics, so the sums do not depend on the order of rows or blocks: a
 // window histogrammed here equals, bit for bit, the same rows gathered into
 // a matrix and histogrammed directly with the same fixed-point exponents.
+//
+// Work layout.  The work is a flat space of (group, position) units, a
+// group being a (slot group, feature group) of the plan, or a feature group
+// in gather mode.  The grid is one wave of resident blocks (or fewer for a
+// small call), and block b takes the b-th equal range of that space, so no
+// block is empty and every block ends together.  Where its range crosses a
+// group boundary, or in gather mode a window boundary, the block flushes
+// the cells it holds and goes on.
+//
+// Accumulator.  A float cell holds its 64-bit fixed-point sum as two
+// 32-bit words: the low word takes the value's low 32 bits as an unsigned
+// atomicAdd, which returns the old word, and the signed high word takes
+// value >> 32 plus a carry when that add wrapped.  Hopper has native 32-bit
+// shared atomics but no 64-bit shared add (it loops on a compare-and-swap),
+// so a (row, feature) costs five native adds (two words of grad, two of
+// hess, the count).  Integer addition is exact and order-free, so the flush
+// recombines (hi << 32) + lo into the same integer as one 64-bit sum.  The
+// int8 payload sums in plain int32 words.
+//
+// Rows.  A warp takes 32 consecutive positions at a time: each lane reads
+// one position's row id, mask, slot and payload (coalesced where the
+// positions are), a ballot keeps the rows that contribute, and the warp then
+// walks the (row, feature) pairs of those rows 32 at a time, each lane
+// reading one int16 bin (a warp reads a row's feature group as one or two
+// contiguous requests) after __shfl_sync hands it the row's values.  The
+// bin loads of kLookahead pair steps are in flight before their atomics
+// issue.  Bins of neighbouring features sit an odd stride (B | 1) apart, so
+// a warp's lanes at the same bin of different features fall on different
+// banks.
 
 #pragma once
 
@@ -26,6 +56,7 @@
 namespace lgbt {
 
 constexpr int kThreads = 1024;
+constexpr int kLookahead = 4;  // pair steps whose bin loads are in flight together
 
 __device__ __forceinline__ int fixed_shift(unsigned int absmax_bits, int row_bits) {
   int e = 0;
@@ -89,122 +120,261 @@ absmax_kernel(const float* __restrict__ g, const float* __restrict__ h,
   }
 }
 
-// One block: a chunk of rows x one (slot group, feature group).  kQuant
-// selects the int8 payload (int32 sums) over the float one (64-bit
-// fixed-point sums); kGather the window row source (see the top).
+__host__ __device__ __forceinline__ int64_t min64(int64_t a, int64_t b) { return a < b ? a : b; }
+
+// Stride between neighbouring features' bins in shared memory: odd, so the
+// same bin of consecutive features lands on consecutive banks.
+__host__ __device__ __forceinline__ int bin_stride(int B) { return B | 1; }
+
+// Position of the n-th (from 0) set bit of m; needs n < popc(m).
+__device__ __forceinline__ int nth_set_bit(unsigned m, int n) {
+  int pos = 0;
+#pragma unroll
+  for (int w = 16; w > 0; w >>= 1) {
+    const int c = __popc(m & ((1u << w) - 1u));
+    if (n >= c) {
+      n -= c;
+      m >>= w;
+      pos += w;
+    }
+  }
+  return pos;
+}
+
+// v into a (lo, hi) split-word cell: native 32-bit atomics only.
+__device__ __forceinline__ void add_split(unsigned* lo, int* hi, long long v) {
+  const unsigned l = (unsigned)(unsigned long long)v;
+  const unsigned old = atomicAdd(lo, l);
+  const int h = (int)(v >> 32) + (old + l < old ? 1 : 0);  // carry out of the low word
+  if (h != 0) atomicAdd(hi, h);
+}
+
+__device__ __forceinline__ unsigned long long join_split(unsigned lo, int hi) {
+  return ((unsigned long long)(unsigned)hi << 32) | lo;
+}
+
+struct HistArgs {
+  const int16_t* bins;
+  const void* g;  // float or int8 payloads
+  const void* h;
+  const uint8_t* mask;
+  const int32_t* slot;       // direct mode
+  const int32_t* order;      // gather mode
+  const int32_t* win_start;  // gather mode (tile,)
+  const int32_t* win_cnt;    // gather mode (tile,)
+  int64_t n;                 // rows (direct) or the window bound W (gather)
+  int F, leaf_base, tile, B;
+  int FB, SB, n_fgroups, n_sgroups;
+  Shift shift;
+  unsigned long long* acc64;  // float: (tile, 2, F, B) fixed-point sums
+  int* acc32;                 // float: (tile, F, B) counts; int8: (tile, 3, F, B)
+};
+
+// Shared words of one cell: lo_g, hi_g, lo_h, hi_h, count (float) or g, h,
+// count (int8), each an array of SB * FB * bin_stride(B) words.
+template <bool kQuant>
+struct Cells {
+  static constexpr int kWords = kQuant ? 3 : 5;
+  static constexpr int kBytes = kWords * 4;
+};
+
 template <bool kQuant, bool kGather>
-__global__ void __launch_bounds__(kThreads)
-hist_kernel(const int16_t* __restrict__ bins, const void* __restrict__ gp,
-            const void* __restrict__ hp, const uint8_t* __restrict__ mask,
-            const int32_t* __restrict__ slot, const int32_t* __restrict__ order,
-            const int32_t* __restrict__ win_start, const int32_t* __restrict__ win_cnt,
-            int64_t n, int F, int leaf_base, int tile, int B, int64_t rows_per_chunk,
-            int FB, int SB, int n_fgroups, Shift shift,
-            unsigned long long* __restrict__ acc64, int* __restrict__ acc32) {
+__global__ void __launch_bounds__(kThreads) hist_kernel(HistArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int fg = blockIdx.y % n_fgroups;
-  const int sg = blockIdx.y / n_fgroups;
-  const int f0 = fg * FB, s0 = sg * SB;
-  const int fcount = min(FB, F - f0), scount = min(SB, tile - s0);
-  const int64_t r0 = (int64_t)blockIdx.x * rows_per_chunk;
-  int64_t r1;
-  int64_t wbase = 0;
+  constexpr int kWords = Cells<kQuant>::kWords;
+  const int Bs = bin_stride(a.B);
+  const int cells = a.SB * a.FB * Bs;
+  unsigned* w = reinterpret_cast<unsigned*>(smem);
+  int* off = reinterpret_cast<int*>(w + kWords * cells);  // gather: tile + 1 offsets
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+
+  int64_t span;  // positions per group
+  int64_t groups;
   if constexpr (kGather) {
-    // SB == 1: this block's rows are window positions [r0, r1) of slot s0
-    const int64_t wcnt = win_cnt[s0];
-    if (r0 >= wcnt) return;  // the whole block leaves: no barrier is skipped
-    r1 = (r0 + rows_per_chunk < wcnt) ? r0 + rows_per_chunk : wcnt;
-    wbase = win_start[s0];
+    if (threadIdx.x == 0) {
+      int o = 0;
+      off[0] = 0;
+      for (int s = 0; s < a.tile; ++s) {
+        o += a.win_cnt[s];
+        off[s + 1] = o;
+      }
+    }
+    __syncthreads();
+    span = min64(off[a.tile], a.n);  // window_rows drops positions past W
+    groups = a.n_fgroups;
   } else {
-    r1 = (r0 + rows_per_chunk < n) ? r0 + rows_per_chunk : n;
+    span = a.n;
+    groups = (int64_t)a.n_fgroups * a.n_sgroups;
   }
-  const int cells = SB * FB * B;
-  using Sum = typename std::conditional<kQuant, int, unsigned long long>::type;
-  Sum* sum_g = reinterpret_cast<Sum*>(smem);
-  Sum* sum_h = sum_g + cells;
-  int* cnt = reinterpret_cast<int*>(sum_h + cells);
-  for (int i = threadIdx.x; i < cells; i += blockDim.x) {
-    sum_g[i] = 0;
-    sum_h[i] = 0;
-    cnt[i] = 0;
-  }
+  const int64_t units = span * groups;
+  const int64_t per = (units + gridDim.x - 1) / gridDim.x;
+  const int64_t u0 = (int64_t)blockIdx.x * per;
+  const int64_t u1 = min64(units, u0 + per);
+  if (u0 >= u1) return;  // the whole block leaves: no barrier is skipped
+
+  for (int i = threadIdx.x; i < kWords * cells; i += kThreads) w[i] = 0;
   double scale_g = 0.0, scale_h = 0.0;
   if constexpr (!kQuant) {
     int eg, eh;
-    shifts_of(shift, &eg, &eh);
+    shifts_of(a.shift, &eg, &eh);
     scale_g = ldexp(1.0, eg);
     scale_h = ldexp(1.0, eh);
   }
   __syncthreads();
 
-  for (int64_t i = r0 + threadIdx.x; i < r1; i += blockDim.x) {
-    int64_t r;
-    int s;
+  for (int64_t u = u0; u < u1;) {
+    const int64_t grp = u / span;
+    const int64_t p = u - grp * span;
+    int64_t q = min64(span, p + (u1 - u));  // this segment: positions [p, q)
+    const int fg = (int)(grp % a.n_fgroups);
+    int s0, scount;
+    int64_t wbase = 0;
     if constexpr (kGather) {
-      r = order[wbase + i];
-      s = 0;
+      int s = 0;
+      while (off[s + 1] <= p) ++s;  // empty windows are skipped
+      q = min64(q, off[s + 1]);
+      wbase = (int64_t)a.win_start[s] - off[s];
+      s0 = s;
+      scount = 1;
     } else {
-      r = i;
-      s = slot[r] - leaf_base - s0;
-      if (s < 0 || s >= scount) continue;
+      s0 = (int)(grp / a.n_fgroups) * a.SB;
+      scount = min(a.SB, a.tile - s0);
     }
-    if (!mask[r]) continue;
-    Sum vg, vh;
-    if constexpr (kQuant) {
-      vg = (Sum)static_cast<const int8_t*>(gp)[r];
-      vh = (Sum)static_cast<const int8_t*>(hp)[r];
-    } else {
-      vg = (Sum)__double2ll_rn((double)static_cast<const float*>(gp)[r] * scale_g);
-      vh = (Sum)__double2ll_rn((double)static_cast<const float*>(hp)[r] * scale_h);
-    }
-    const int16_t* brow = bins + r * F + f0;
-    const int base = s * FB * B;
-    for (int fl = 0; fl < fcount; ++fl) {
-      const int b = brow[fl];
-      if ((unsigned)b >= (unsigned)B) continue;
-      const int c = base + fl * B + b;
-      atomicAdd(&sum_g[c], vg);
-      atomicAdd(&sum_h[c], vh);
-      atomicAdd(&cnt[c], 1);
-    }
-  }
-  __syncthreads();
+    const int f0 = fg * a.FB;
+    const int fcount = min(a.FB, a.F - f0);
+    // pair k = i * fcount + fl of a warp's taken rows: lane l starts at
+    // pair l and steps by 32
+    const int di = 32 / fcount, dfl = 32 % fcount;
+    const int i_first = lane / fcount, fl_first = lane % fcount;
 
-  // flush this block's partial: integer atomics, so the order is irrelevant
-  const int fb_cells = fcount * B;
-  const int64_t FBg = (int64_t)F * B;
-  for (int i = threadIdx.x; i < scount * fb_cells; i += blockDim.x) {
-    const int sl = i / fb_cells, rem = i % fb_cells;
-    const int fl = rem / B, b = rem % B;
-    const int c = (sl * FB + fl) * B + b;
-    if (cnt[c] == 0) continue;  // no row landed here: all three sums are 0
-    const int64_t cell = (int64_t)(f0 + fl) * B + b;
-    const int64_t sidx = s0 + sl;
-    if constexpr (kQuant) {
-      atomicAdd(&acc32[(sidx * 3 + 0) * FBg + cell], (int)sum_g[c]);
-      atomicAdd(&acc32[(sidx * 3 + 1) * FBg + cell], (int)sum_h[c]);
-      atomicAdd(&acc32[(sidx * 3 + 2) * FBg + cell], cnt[c]);
-    } else {
-      atomicAdd(&acc64[(sidx * 2 + 0) * FBg + cell], (unsigned long long)sum_g[c]);
-      atomicAdd(&acc64[(sidx * 2 + 1) * FBg + cell], (unsigned long long)sum_h[c]);
-      atomicAdd(&acc32[sidx * FBg + cell], cnt[c]);
+    for (int64_t pb = p + (int64_t)warp * 32; pb < q; pb += kThreads) {
+      const int64_t pos = pb + lane;
+      bool take = pos < q;
+      int r = 0, base = 0;
+      uint32_t gv = 0, hv = 0;  // payload bits (float) or int8 values
+      if (take) {
+        if constexpr (kGather) {
+          r = a.order[wbase + pos];
+        } else {
+          r = (int)pos;
+          const int sl = a.slot[r] - a.leaf_base - s0;
+          take = sl >= 0 && sl < scount;
+          base = sl * a.FB * Bs;
+        }
+        take = take && a.mask[r];
+        if (take) {
+          if constexpr (kQuant) {
+            gv = (uint32_t)(int)static_cast<const int8_t*>(a.g)[r];
+            hv = (uint32_t)(int)static_cast<const int8_t*>(a.h)[r];
+          } else {
+            gv = __float_as_uint(static_cast<const float*>(a.g)[r]);
+            hv = __float_as_uint(static_cast<const float*>(a.h)[r]);
+          }
+        }
+      }
+      const unsigned act = __ballot_sync(0xffffffffu, take);
+      const int nact = __popc(act);
+      if (nact == 0) continue;
+      // compact: lane j holds the j-th taken row
+      const int src = lane < nact ? nth_set_bit(act, lane) : 0;
+      const int rc = __shfl_sync(0xffffffffu, r, src);
+      const int bc = __shfl_sync(0xffffffffu, base, src);
+      const uint32_t gc = __shfl_sync(0xffffffffu, gv, src);
+      const uint32_t hc = __shfl_sync(0xffffffffu, hv, src);
+
+      const int steps = (nact * fcount + 31) >> 5;
+      int i = i_first, fl = fl_first;
+      for (int t = 0; t < steps; t += kLookahead) {
+        int cell[kLookahead], bin[kLookahead];
+        uint32_t pg[kLookahead], ph[kLookahead];
+#pragma unroll
+        for (int k = 0; k < kLookahead; ++k) {
+          const int from = i < 31 ? i : 31;
+          const int rr = __shfl_sync(0xffffffffu, rc, from);
+          cell[k] = __shfl_sync(0xffffffffu, bc, from) + fl * Bs;
+          pg[k] = __shfl_sync(0xffffffffu, gc, from);
+          ph[k] = __shfl_sync(0xffffffffu, hc, from);
+          bin[k] = i < nact ? (int)a.bins[(int64_t)rr * a.F + f0 + fl] : -1;
+          i += di;
+          fl += dfl;
+          if (fl >= fcount) {
+            fl -= fcount;
+            ++i;
+          }
+        }
+#pragma unroll
+        for (int k = 0; k < kLookahead; ++k) {
+          if ((unsigned)bin[k] >= (unsigned)a.B) continue;
+          const int c = cell[k] + bin[k];
+          if constexpr (kQuant) {
+            atomicAdd((int*)&w[c], (int)pg[k]);
+            atomicAdd((int*)&w[cells + c], (int)ph[k]);
+            atomicAdd(&w[2 * cells + c], 1u);
+          } else {
+            add_split(&w[c], (int*)&w[cells + c],
+                      __double2ll_rn((double)__uint_as_float(pg[k]) * scale_g));
+            add_split(&w[2 * cells + c], (int*)&w[3 * cells + c],
+                      __double2ll_rn((double)__uint_as_float(ph[k]) * scale_h));
+            atomicAdd(&w[4 * cells + c], 1u);
+          }
+        }
+      }
     }
+    __syncthreads();
+
+    // flush this segment's cells into the global sums and zero them:
+    // integer atomics, so the order is irrelevant
+    const int fb_cells = fcount * a.B;
+    const int64_t FBg = (int64_t)a.F * a.B;
+    for (int x = threadIdx.x; x < scount * fb_cells; x += kThreads) {
+      const int sl = x / fb_cells, rem = x - sl * fb_cells;
+      const int fl = rem / a.B, b = rem - fl * a.B;
+      const int c = (sl * a.FB + fl) * Bs + b;
+      const unsigned cnt = w[(kWords - 1) * cells + c];
+      if (cnt == 0) continue;  // no row landed here: every word is 0
+      const int64_t cell = (int64_t)(f0 + fl) * a.B + b;
+      const int64_t sidx = s0 + sl;
+      if constexpr (kQuant) {
+        atomicAdd(&a.acc32[(sidx * 3 + 0) * FBg + cell], (int)w[c]);
+        atomicAdd(&a.acc32[(sidx * 3 + 1) * FBg + cell], (int)w[cells + c]);
+        atomicAdd(&a.acc32[(sidx * 3 + 2) * FBg + cell], (int)cnt);
+        w[c] = 0;
+        w[cells + c] = 0;
+      } else {
+        atomicAdd(&a.acc64[(sidx * 2 + 0) * FBg + cell], join_split(w[c], (int)w[cells + c]));
+        atomicAdd(&a.acc64[(sidx * 2 + 1) * FBg + cell],
+                  join_split(w[2 * cells + c], (int)w[3 * cells + c]));
+        atomicAdd(&a.acc32[sidx * FBg + cell], (int)cnt);
+        w[c] = 0;
+        w[cells + c] = 0;
+        w[2 * cells + c] = 0;
+        w[3 * cells + c] = 0;
+      }
+      w[(kWords - 1) * cells + c] = 0;
+    }
+    __syncthreads();
+    u += q - p;
   }
 }
 
 struct Plan {
   int FB, SB, n_fgroups, n_sgroups;
-  int64_t rows_per_chunk, row_chunks;
   size_t smem;
+  int blocks;
 };
 
-// Largest (slot group x feature group) block that fits the card's shared
-// memory, balanced over the groups.  Direct rows: enough row chunks for ~2
-// blocks per SM.  Window rows (one_slot): one slot a block, and chunks of
-// a fixed row count over the largest window a slot can hold (n); blocks
-// past their slot's window leave at once.
-inline cudaError_t make_plan(int64_t n, int F, int tile, int B, int cell_bytes, bool one_slot,
-                             Plan* p) {
+// Shared-memory plan and grid of one hist_kernel launch.  A (slot,
+// feature) pair costs bin_stride(B) cells; of the splits (SB slots x FB
+// features) that fit the card's shared memory, the one that reads the
+// fewest bytes a row: every (slot group, feature group) re-reads each row's
+// slot and mask (5 B), and each feature group reads the row's FB bins in
+// 32-B sectors.  Gather mode (one_slot) holds one slot a block.  The grid is
+// one wave of resident blocks (blocks per SM from the occupancy API at the
+// plan's shared memory), or fewer where the call has under kThreads units a
+// block; units_max bounds the positions per group (rows, or W).
+template <class Kernel>
+inline cudaError_t make_plan(Kernel kernel, int64_t units_max, int F, int tile, int B,
+                             int cell_bytes, bool one_slot, size_t extra_smem, Plan* p) {
   int dev = 0, smem_max = 0, sms = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
@@ -212,28 +382,37 @@ inline cudaError_t make_plan(int64_t n, int F, int tile, int B, int cell_bytes, 
   if (e != cudaSuccess) return e;
   e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return e;
-  const int64_t pairs = (int64_t)smem_max / ((int64_t)B * cell_bytes);
+  const int64_t pair_bytes = (int64_t)bin_stride(B) * cell_bytes;
+  const int64_t pairs = ((int64_t)smem_max - (int64_t)extra_smem) / pair_bytes;
   if (pairs < 1) return cudaErrorInvalidValue;  // one (slot, feature) row does not fit
   const int sb_max = one_slot ? 1 : (int)(pairs < tile ? pairs : tile);
-  int fb_max = (int)(pairs / sb_max);
-  if (fb_max > F) fb_max = F;
-  p->n_sgroups = (tile + sb_max - 1) / sb_max;
-  p->SB = (tile + p->n_sgroups - 1) / p->n_sgroups;
-  p->n_fgroups = (F + fb_max - 1) / fb_max;
-  p->FB = (F + p->n_fgroups - 1) / p->n_fgroups;
-  if (one_slot) {
-    p->rows_per_chunk = 4 * (int64_t)kThreads;
-  } else {
-    const int64_t groups = (int64_t)p->n_fgroups * p->n_sgroups;
-    int64_t chunks = (2 * (int64_t)sms + groups - 1) / groups;
-    const int64_t max_chunks = (n + kThreads - 1) / kThreads;
-    if (chunks > max_chunks) chunks = max_chunks;
-    if (chunks < 1) chunks = 1;
-    p->rows_per_chunk = (n + chunks - 1) / chunks;
+  int64_t best = -1;
+  for (int sb = 1; sb <= sb_max; ++sb) {
+    int fb_max = (int)(pairs / sb);
+    if (fb_max > F) fb_max = F;
+    const int n_sg = (tile + sb - 1) / sb;
+    const int n_fg = (F + fb_max - 1) / fb_max;
+    const int fb = (F + n_fg - 1) / n_fg;
+    const int64_t row_bytes = (int64_t)n_fg * (n_sg * 5 + 32 * ((2 * fb + 31) / 32 + 1));
+    if (best < 0 || row_bytes < best) {
+      best = row_bytes;
+      p->n_sgroups = n_sg;
+      p->SB = (tile + n_sg - 1) / n_sg;
+      p->n_fgroups = n_fg;
+      p->FB = fb;
+    }
   }
-  p->row_chunks = (n + p->rows_per_chunk - 1) / p->rows_per_chunk;
-  if (p->row_chunks < 1) p->row_chunks = 1;
-  p->smem = (size_t)p->SB * p->FB * B * cell_bytes;
+  p->smem = (size_t)p->SB * p->FB * pair_bytes + extra_smem;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p->smem);
+  if (e != cudaSuccess) return e;
+  int occ = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kernel, kThreads, p->smem);
+  if (e != cudaSuccess) return e;
+  if (occ < 1) return cudaErrorInvalidConfiguration;
+  const int64_t units = units_max * p->n_fgroups * (one_slot ? 1 : p->n_sgroups);
+  const int64_t wanted = (units + kThreads - 1) / kThreads;
+  const int64_t wave = (int64_t)sms * occ;
+  p->blocks = (int)(wanted < 1 ? 1 : (wanted < wave ? wanted : wave));
   return cudaSuccess;
 }
 

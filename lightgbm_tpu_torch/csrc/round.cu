@@ -25,29 +25,38 @@
 // 3 x T x 3 x F x B x 4 B = 183 MB at T = 10, F = 2000, B = 255, ~55 us, and
 // the split search's 2T x F x B candidates cost ~40 float operations each.
 // So it is bytes-bound; the window pass itself is bound on the card by
-// shared-memory atomics (three per row and feature), as the histogram
-// kernel is.
+// shared-memory atomics (five native 32-bit adds per row and feature), as
+// the histogram kernel is.
 //
 // Design.  The TPU kernel runs its three phases in one sequential grid step
 // with VMEM carries.  Blocks on the card run in no order, so the phases are
 // consecutive launches on one stream behind one entry point; the bin matrix
 // is still read once per round (the window pass), which is the kernel's
-// purpose.  The window pass keeps one slot per block (its rows are one
-// contiguous run of the new order), as many features as fit 227 KB of
-// shared memory, and 4096-row chunks; its grid is sized from the round's
-// window bound W, known on the host, so no count is read back.  Sums are
-// the histogram kernel's 64-bit fixed point with the tree's exponents
-// (sg, sh), so left/right equal bit for bit what the three-pass round gets
-// from the histogram kernel on the gathered window.  The split search is
-// one thread per (candidate, feature) scanning the bins in order, with the
-// formulas of ops/split.py::gain_plane in the same operation order
-// (compiled with --fmad=false, so no multiply-add is contracted) and the
-// cumulative sums taken in double and rounded to float, as the plain
-// version's cumsum does; torch.argmax's first maximum is the strict > of
-// the scan.
+// purpose.  The window pass is the histogram kernel's gather mode
+// (hist_common.cuh): the windows lie end to end in a flat space of
+// positions, one wave of blocks splits (feature group, position) units
+// evenly, each block holds one slot and as many features as fit 227 KB of
+// shared memory and flushes once per (window, feature group) its range
+// touches.  Its grid comes from W and the card, so no count is read back,
+// and positions past W are dropped as the plain version's window_rows drops
+// them.  Sums are the histogram kernel's 64-bit fixed point with the tree's
+// exponents (sg, sh), so left/right equal bit for bit what the three-pass
+// round gets from the histogram kernel on the gathered window.  The split
+// search is one warp per (candidate, feature): each lane sums its run of
+// ceil(B / 32) contiguous bins in float64, one warp scan of the lane totals
+// gives each lane its prefix, and the lane then walks its bins evaluating
+// each bin's gain with the formulas of ops/split.py::gain_plane in the same
+// operation order (compiled with --fmad=false, so no multiply-add is
+// contracted); the prefix sums are the plain version's float64 cumsum rounded to float
+// (exact, so the order of the additions does not matter, while every
+// partial sum fits 53 bits), and a warp reduction on (gain, lowest bin)
+// gives torch.argmax's first maximum.
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -std=c++17
 //             --fmad=false -shared -Xcompiler -fPIC (ops/cuda_build.py).
+
+#include <climits>
+#include <cmath>
 
 #include "hist_common.cuh"
 #include "partition_common.cuh"
@@ -144,9 +153,12 @@ __device__ __forceinline__ float direction_gain(float lg, float lh, float lc, fl
          gain_parent;
 }
 
-// One thread per (candidate, feature): candidates 0..T-1 are the left
+// One warp per (candidate, feature): candidates 0..T-1 are the left
 // children, T..2T-1 the right ones.  cand (4, 2T): parent sum_g, sum_h,
-// count and output of each candidate.
+// count and output of each candidate.  Lane l holds the K = ceil(B / 32)
+// bins [l K, l K + K): a serial pass sums them, one warp scan turns the lane
+// totals into each lane's exclusive prefix, and a second serial pass (its
+// loads hit L1) evaluates each bin on the running prefix.
 __global__ void __launch_bounds__(256)
 gain_kernel(const float* __restrict__ left, const float* __restrict__ right, int T, int F,
             int B, const int32_t* __restrict__ nbpf, const int32_t* __restrict__ mbpf,
@@ -154,9 +166,10 @@ gain_kernel(const float* __restrict__ left, const float* __restrict__ right, int
             float* __restrict__ o_gain, int32_t* __restrict__ o_thr,
             uint8_t* __restrict__ o_left, float* __restrict__ o_lg, float* __restrict__ o_lh,
             float* __restrict__ o_lc) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const int lane = threadIdx.x & 31;
+  const int64_t i = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const int C = 2 * T;
-  if (i >= (int64_t)C * F) return;
+  if (i >= (int64_t)C * F) return;  // whole warps leave
   const int c = (int)(i / F), f = (int)(i % F);
   const int64_t FB = (int64_t)F * B;
   const float* h = (c < T ? left + (int64_t)c * 3 * FB : right + (int64_t)(c - T) * 3 * FB) +
@@ -176,12 +189,36 @@ gain_kernel(const float* __restrict__ left, const float* __restrict__ right, int
     mc = 0.f + hc[mb];
   }
   const float gain_parent = p.use_smooth ? gain_given_output(pg, ph, po, p) : leaf_gain(pg, ph, p);
-  double cg = 0.0, chs = 0.0, cc = 0.0;
-  float best = 0.f, blg = 0.f, blh = 0.f, blc = 0.f;
-  int bthr = 0;
-  bool bleft = false;
-  for (int b = 0; b < B; ++b) {
+  const int K = (B + 31) / 32;
+  const int lo = lane * K, hi = min(B, lo + K);
+  double tg = 0.0, th = 0.0, tc = 0.0;
+  for (int b = lo; b < hi; ++b) {
     if (b != mb) {  // the missing bin is left out of the scan
+      tg += (double)hg[b];
+      th += (double)hh[b];
+      tc += (double)hc[b];
+    }
+  }
+  double xg = tg, xh = th, xc = tc;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const double yg = __shfl_up_sync(0xffffffffu, xg, o);
+    const double yh = __shfl_up_sync(0xffffffffu, xh, o);
+    const double yc = __shfl_up_sync(0xffffffffu, xc, o);
+    if (lane >= o) {
+      xg += yg;
+      xh += yh;
+      xc += yc;
+    }
+  }
+  // exclusive prefix: exact, as every partial sum is while it fits 53 bits
+  double cg = xg - tg, chs = xh - th, cc = xc - tc;
+  // this lane's first maximum over its bins
+  float best = -INFINITY, blg = 0.f, blh = 0.f, blc = 0.f;
+  int bthr = INT_MAX;
+  bool bleft = false;
+  for (int b = lo; b < hi; ++b) {
+    if (b != mb) {
       cg += (double)hg[b];
       chs += (double)hh[b];
       cc += (double)hc[b];
@@ -202,7 +239,7 @@ gain_kernel(const float* __restrict__ left, const float* __restrict__ right, int
     const bool use_left = gd[1] > gd[0];  // ties keep missing -> right
     float g = use_left ? gd[1] : gd[0];
     if (!(g > kMinScore / 2.f && g > p.min_gain)) g = kMinScore;
-    if (b == 0 || g > best) {  // first maximum, as torch.argmax
+    if (g > best) {  // bins rise within a lane: the first maximum stays
       best = g;
       bthr = b;
       bleft = use_left;
@@ -212,12 +249,26 @@ gain_kernel(const float* __restrict__ left, const float* __restrict__ right, int
       blc = st[d][2];
     }
   }
-  o_gain[i] = best;
-  o_thr[i] = bthr;
-  o_left[i] = bleft ? 1 : 0;
-  o_lg[i] = blg;
-  o_lh[i] = blh;
-  o_lc[i] = blc;
+  // first maximum across the lanes: the larger gain, then the lower bin
+  float vb = best;
+  int ib = bthr;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    const float ov = __shfl_xor_sync(0xffffffffu, vb, o);
+    const int oi = __shfl_xor_sync(0xffffffffu, ib, o);
+    if (ov > vb || (ov == vb && oi < ib)) {
+      vb = ov;
+      ib = oi;
+    }
+  }
+  if (ib == bthr) {  // the lane that holds the winning bin
+    o_gain[i] = best;
+    o_thr[i] = bthr;
+    o_left[i] = bleft ? 1 : 0;
+    o_lg[i] = blg;
+    o_lh[i] = blh;
+    o_lc[i] = blc;
+  }
 }
 
 }  // namespace
@@ -230,8 +281,9 @@ extern "C" {
 // right (T, 3, F, B) f32; nbpf, mbpf (F,) i32; fmask (F,) u8; cand (4, 2T)
 // f32; the six per-feature outputs (2T, F).  Scratch: counts (T,
 // ceil(n/1024)) i32, n_left_scan (T,) i32, acc64 (T, 2, F, B) u64, acc32 (T,
-// F, B) i32 (zeroed here).  W bounds every window's row count.  Returns a
-// cudaError_t (0 = success).
+// F, B) i32 (zeroed here).  W bounds the windows' total row count: positions
+// past it are dropped, as window_rows drops them.  Returns a cudaError_t (0
+// = success).
 int lgbt_round(const void* bins, long long n, int F, int B, int T, const void* order,
                const void* go, const void* seg_start, const void* seg_len, const void* n_left,
                void* counts, void* n_left_scan, void* out_order, const void* grad,
@@ -261,18 +313,17 @@ int lgbt_round(const void* bins, long long n, int F, int B, int T, const void* o
   e = cudaMemsetAsync(acc32, 0, (size_t)T * FBg * sizeof(int), st);
   if (e != cudaSuccess) return (int)e;
   lgbt::Plan p;
-  e = lgbt::make_plan(W, F, T, B, 20, true, &p);
+  const size_t off_bytes = (size_t)(T + 1) * sizeof(int);
+  e = lgbt::make_plan(lgbt::hist_kernel<false, true>, W, F, T, B, lgbt::Cells<false>::kBytes,
+                      true, off_bytes, &p);
   if (e != cudaSuccess) return (int)e;
-  e = cudaFuncSetAttribute(lgbt::hist_kernel<false, true>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
-  if (e != cudaSuccess) return (int)e;
-  dim3 grid((unsigned)p.row_chunks, (unsigned)(p.n_fgroups * p.n_sgroups));
-  lgbt::hist_kernel<false, true><<<grid, kThreads, p.smem, st>>>(
-      static_cast<const int16_t*>(bins), grad, hess, static_cast<const uint8_t*>(mask),
-      nullptr, static_cast<const int32_t*>(out_order), static_cast<const int32_t*>(win_start),
-      static_cast<const int32_t*>(win_cnt), n, F, 0, T, B, p.rows_per_chunk, p.FB, p.SB,
-      p.n_fgroups, lgbt::Shift{nullptr, 0, sg, sh}, static_cast<unsigned long long*>(acc64),
-      static_cast<int*>(acc32));
+  lgbt::HistArgs a{static_cast<const int16_t*>(bins), grad, hess,
+                   static_cast<const uint8_t*>(mask), nullptr,
+                   static_cast<const int32_t*>(out_order), static_cast<const int32_t*>(win_start),
+                   static_cast<const int32_t*>(win_cnt), W, F, 0, T, B, p.FB, p.SB, p.n_fgroups,
+                   p.n_sgroups, lgbt::Shift{nullptr, 0, sg, sh},
+                   static_cast<unsigned long long*>(acc64), static_cast<int*>(acc32)};
+  lgbt::hist_kernel<false, true><<<p.blocks, kThreads, p.smem, st>>>(a);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   // ---- 3. subtraction ----
@@ -284,8 +335,8 @@ int lgbt_round(const void* bins, long long n, int F, int B, int T, const void* o
   if (e != cudaSuccess) return (int)e;
   // ---- 4. per-feature split search ----
   GainParams gp{l1, l2, min_data, min_hess, min_gain, max_delta, path_smooth, use_smooth};
-  const int64_t cells = (int64_t)2 * T * F;
-  gain_kernel<<<(unsigned)((cells + 255) / 256), 256, 0, st>>>(
+  const int64_t warps = (int64_t)2 * T * F;
+  gain_kernel<<<(unsigned)((warps * 32 + 255) / 256), 256, 0, st>>>(
       static_cast<const float*>(left), static_cast<const float*>(right), T, F, B,
       static_cast<const int32_t*>(nbpf), static_cast<const int32_t*>(mbpf),
       static_cast<const uint8_t*>(fmask), static_cast<const float*>(cand), gp,

@@ -52,7 +52,7 @@ class KernelLibrary:
 
     def target(self) -> Path:
         h = hashlib.sha256(self.src.read_bytes())
-        for hdr in sorted(CSRC.glob("*.cuh")):
+        for hdr in sorted(self.src.parent.glob("*.cuh")):
             h.update(hdr.read_bytes())
         h.update(" ".join(self.flags).encode())
         return BUILD_DIR / f"lib{self.src.stem}_{h.hexdigest()[:16]}.so"

@@ -171,6 +171,98 @@ def test_round_kernel_matches_plain():
         assert torch.equal(getattr(kf, name), getattr(pf, name)), name
 
 
+def _edge_round(dev, f, geometry, n=40_013, b=255, seed=11):
+    """A round whose small-child windows have set sizes, each from a
+    segment with that many rows going left (left small) or right (right
+    small): "empty_and_one" has an empty window and two one-row ones;
+    "exactly_W" and "over_W" have windows totalling W and W + 2345 rows.
+    Windows are thousands of rows long, so they cross the window pass's
+    block ranges.  Every seventh row has all its bins at B - 1, the missing
+    bin of every fourth feature."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    seg_len = torch.tensor([8000, 3000, 12000, 5000, 9000, n - 37000], dtype=torch.int32)
+    lefts = {"empty_and_one": [0, 1, 5000, 4999, 4500, 1000]}.get(
+        geometry, [3000, 1200, 6000, 2500, 100, 1500])
+    seg_start = torch.cumsum(seg_len, 0, dtype=torch.int32) - seg_len
+    go = torch.zeros(n, dtype=torch.bool)
+    for start, length, k in zip(seg_start.tolist(), seg_len.tolist(), lefts):
+        go[start + torch.randperm(length, generator=g)[:k]] = True
+    n_left = torch.tensor(lefts, dtype=torch.int32)
+    small_left = (2 * n_left <= seg_len).to(torch.int32)
+    win_start = torch.where(small_left > 0, seg_start, seg_start + n_left)
+    win_cnt = torch.where(small_left > 0, n_left, seg_len - n_left)
+    total = int(win_cnt.sum())
+    W = {"empty_and_one": 16_384, "exactly_W": total}.get(geometry, total - 2345)
+    bins = torch.randint(0, b, (n, f), generator=g, dtype=torch.int16)
+    bins[::7] = b - 1
+    T = 6
+    mbpf = torch.full((f,), -1, dtype=torch.int32)
+    mbpf[::4] = b - 1
+    fmask = torch.ones(f, dtype=torch.bool)
+    fmask[3] = False
+    args = [bins, torch.randperm(n, generator=g).to(torch.int32), go,
+            torch.randn(n, generator=g), torch.rand(n, generator=g),
+            torch.rand(n, generator=g) < 0.9, seg_start, seg_len, n_left, win_start,
+            win_cnt, small_left, torch.rand((T, 3, f, b), generator=g) * 40,
+            torch.rand((4, 2 * T), generator=g) * 3000,
+            torch.full((f,), b, dtype=torch.int32), mbpf, fmask]
+    quant = (torch.randint(-8, 9, (n,), generator=g, dtype=torch.int8),
+             torch.randint(0, 17, (n,), generator=g, dtype=torch.int8))
+    return [a.to(dev) for a in args], [q.to(dev) for q in quant], W, total
+
+
+@pytest.mark.parametrize("f", [257, 2000])
+@pytest.mark.parametrize("geometry", ["empty_and_one", "exactly_W", "over_W"])
+def test_window_edges_match_plain(f, geometry):
+    """B3 and B1's window passes (float and int8) bit for bit against their
+    plain versions on the window edge cases; past W the kernel drops the
+    rows that window_rows drops."""
+    from lightgbm_tpu_torch.ops import hist_cuda as hc
+    from lightgbm_tpu_torch.ops import round_cuda as rc
+    from lightgbm_tpu_torch.ops.split import SplitParams
+
+    dev = _card()
+    args, quant, W, total = _edge_round(dev, f, geometry)
+    assert (W < total) == (geometry == "over_W")
+    kw = dict(params=SplitParams(min_data_in_leaf=20, lambda_l2=1.0), W=W, shift=(30, 30))
+    rc.reset_counts()
+    ko, kl, kr, kf = rc.round_megakernel(*args, **kw)
+    po, pl, pr, pf = rc.round_megakernel_plain(*args, **kw)
+    assert rc.launches["round_megakernel"] == 1
+    assert torch.equal(ko, po) and torch.equal(kl, pl) and torch.equal(kr, pr)
+    for name in kf._fields:
+        assert torch.equal(getattr(kf, name), getattr(pf, name)), name
+    rows, _, valid = rc.window_rows(po, args[9], args[10], W)
+    counted = int((args[5][rows] & valid).sum())  # masked rows of the first W positions
+    win = (po, args[0], None, args[5], args[9], args[10], W, 6, 255)
+    for kern, plain, vals, extra in (
+            (hc.histogram_multi, hc.histogram_multi_plain, (args[3], args[4]),
+             dict(shift=(30, 30))),
+            (hc.histogram_multi_quantized, hc.histogram_multi_quantized_plain, quant, {})):
+        wa = win[:2] + (vals,) + win[3:]
+        k = rc.window_histograms(kern, *wa, **extra)
+        assert torch.equal(k, rc.window_histograms(plain, *wa, **extra))
+        assert int(k[:, 2, 0].sum()) == counted
+
+
+@pytest.mark.parametrize("f,tile,base", [(257, 8, 2), (2000, 1, 0), (2000, 20, 0)])
+def test_wide_kernels_match_plain_with_bins_at_the_top(f, tile, base):
+    """B1 direct, float and int8, at F = 257 and 2000 with every fifth row's
+    bins at B - 1."""
+    from lightgbm_tpu_torch.ops import hist_cuda as hc
+
+    dev = _card()
+    x = _inputs(dev, 30_011, f, 255, base + tile + 2, seed=f + tile)
+    x["bins"][::5] = 254
+    args = (x["bins"], x["grad"], x["hess"], x["mask"], x["slot"], base, tile, 255)
+    k, p = hc.histogram_multi(*args), hc.histogram_multi_plain(*args)
+    assert torch.equal(k, p)
+    assert float(k[:, 2, :, 254].sum()) > 0
+    qargs = (x["bins"], x["gq"], x["hq"], x["mask"], x["slot"], base, tile, 255)
+    assert torch.equal(hc.histogram_multi_quantized(*qargs),
+                       hc.histogram_multi_quantized_plain(*qargs))
+
+
 def test_new_kernels_reject_wrong_inputs():
     from lightgbm_tpu_torch.ops import partition_cuda as pc
     from lightgbm_tpu_torch.ops import round_cuda as rc
