@@ -34,7 +34,9 @@ Imports no JAX.  Phases, one line each; any failure exits non-zero:
               a ragged case; the root pass and the int8 window pass beside
               their bounds, and the round kernel's per-phase device times
               (partition, window pass, subtraction, split search) from a
-              torch.profiler window, each beside its own bound;
+              torch.profiler window, each beside its own bound; the
+              partition's time per Python call (events), its device time
+              (profiler) and the floor of one launch from Python;
   8. int8     the same with use_quantized_grad=true, 3 rounds: the
               three-pass round (partition kernel + int8 histogram kernel);
   9. parity   megakernel=auto against megakernel=0 on 100k of the rows, 2
@@ -47,10 +49,11 @@ Then a JSON line with every kernel's numbers, and last the device line
 
     python3 chip_smoke.py --variants [CHECKOUT]
 
-times the histogram and round kernels' design variants against each other
-in turns (``variants``), each held bitwise to the plain versions; with
-CHECKOUT, another checkout's csrc/ (e.g. the parent commit's, unpacked with
-git archive) is one more variant.
+times the histogram, partition and round kernels' design variants against
+each other in turns (``variants``), each held bitwise to the plain
+versions; with CHECKOUT, another checkout's lightgbm_tpu_torch (e.g. the
+parent commit's, unpacked with git archive), its own wrappers and kernels,
+is one more variant.
 """
 
 from __future__ import annotations
@@ -216,6 +219,39 @@ def library_partition(order, seg_start, seg_len, go_left):
         return out
 
     return run
+
+
+# Segment geometries a round can hand the partition (kChunk = 4096): name ->
+# (N, seg_start, seg_len), segments in admission order.
+PARTITION_EDGES = {
+    # unsorted starts, positions outside every segment
+    "admission_order": (20_000, [12_000, 0, 3000, 7000], [5000, 2500, 4000, 1]),
+    # empty entries at 0 beside a real segment that starts at 0 (the grower's
+    # slots with no split)
+    "empty_at_0": (9000, [0, 0, 0, 6000, 0], [0, 4000, 0, 1000, 0]),
+    # a round whose windows do not fit W passes every length as 0
+    "all_empty": (5000, [0, 100, 3000, 0], [0, 0, 0, 0]),
+    "one_covers_all": (70_001, [0], [70_001]),
+    "one_position": (3000, [1500], [1]),
+    # lengths kChunk - 1, kChunk, kChunk + 1, 2 kChunk; ends on chunk edges
+    "chunk_edges": (32_768, [0, 4095, 8192, 16_384], [4095, 4096, 4097, 8192]),
+    "below_one_chunk": (3000, [100, 0, 2000], [200, 50, 999]),
+    "one_segment": (5000, [1000], [3321]),
+    "twenty_segments": (50_000, list(range(0, 50_000, 2500)), [2400 - 97 * i for i in range(20)]),
+}
+
+
+def partition_edge(name, seed=0):
+    """One PARTITION_EDGES geometry as numpy arrays: (order (N,) i32, a
+    permutation; seg_start, seg_len (S,) i32; go (N,) bool, 40% left, with
+    the second segment (where there is one) all left)."""
+    n, start, length = PARTITION_EDGES[name]
+    rng = np.random.RandomState(seed)
+    order = rng.permutation(n).astype(np.int32)
+    go = rng.rand(n) < 0.4
+    if len(start) > 1:
+        go[start[1]:start[1] + length[1]] = True
+    return (order, np.asarray(start, np.int32), np.asarray(length, np.int32), go)
 
 
 SECTOR = 32  # bytes: the unit in which the card reads scattered rows
@@ -538,10 +574,60 @@ def bound_of(nbytes, ops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def partition_bytes(n, in_seg):
+    """Bytes the partition must move: the row id (4 B) and go flag (1 B) of
+    every in-segment position read and its row id written (4 B); every
+    other position's row id read and written (8 B)."""
+    return 9 * in_seg + 8 * (n - in_seg)
+
+
+def device_window(fn, calls, marker):
+    """The device events of a torch.profiler window over ``calls`` calls of
+    ``fn`` (after one outside it), and the calls the profiler saw, counted
+    by the events whose name holds one of ``marker`` (one a call).  The
+    profiler can miss the first kernels of a window, all of them when the
+    calls are short: a window in which it saw none is taken again, three
+    windows at most."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        events = device_events(prof)
+        seen = sum(e.count for e in events if any(m in e.key for m in marker))
+        if seen:
+            return events, seen
+    raise AssertionError(f"the profiler saw no {marker} launch in three windows")
+
+
+# the partition's last launch of a call: this kernel's, or a two-launch one's
+PARTITION_MARKER = ("partition_kernel", "partition_move")
+
+
+def partition_device_ms(fn, calls=100):
+    """Device ms a call of the partition kernel: every device event of a
+    profiler window (what the wrapper launches and the kernel's launches),
+    summed and divided by the calls the profiler saw.  Returns (ms, calls
+    seen)."""
+    events, seen = device_window(fn, calls, PARTITION_MARKER)
+    return sum(dev_us(e) for e in events) / seen / 1e3, seen
+
+
+def launch_floor_ms(dev) -> float:
+    """The floor of one launch from Python: a one-element torch elementwise
+    op timed as the kernels are (cuda_ms)."""
+    x = torch.zeros(1, device=dev)
+    return cuda_ms(lambda: x.add_(1.0))
+
+
 def round_bounds(args, W):
     """Least time of one round call on this run's data, for the whole call
-    and for each of its phases.  Bytes: the partition's 12 B per in-segment
-    position; the window rows' order entries (4 B), their bins (F x 2 B) and
+    and for each of its phases.  Bytes: the partition's (``partition_bytes``);
+    the window rows' order entries (4 B), their bins (F x 2 B) and
     grad, hess, mask in the 32-B sectors those rows touch, and the fresh
     sums written once (T x F x B x 20 B); the subtraction reads the fresh
     sums and the parents and writes left/right; the split search reads
@@ -561,7 +647,7 @@ def round_bounds(args, W):
                                            seg_start, seg_len, go)
     rows, _, valid = window_rows(new_order, win_start, win_cnt, W)
     rows = rows[valid]
-    part = 12 * int(seg_len.sum())
+    part = partition_bytes(n, int(seg_len.sum()))
     window = (4 * rows.numel() + sector_bytes(rows, f * 2) + 2 * sector_bytes(rows, 4)
               + sector_bytes(rows, 1))
     hist = parent.numel() * 4  # one (T, 3, F, B) f32 array
@@ -576,30 +662,20 @@ def round_bounds(args, W):
         split=bound_of(2 * hist + bests, split_ops)), int(rows.numel())
 
 
-ROUND_PHASES = (("partition", ("partition_", "Memcpy")), ("window", ("hist_kernel", "Memset")),
+ROUND_PHASES = (("partition", ("partition_",)), ("window", ("hist_kernel", "Memset")),
                 ("subtract", ("subtract_kernel",)), ("split", ("gain_kernel",)))
 
 
-def round_phases(rc, args, kw, calls=5):
+def round_phases(rc, args, kw, calls=20):
     """Device ms a call of each phase of the round kernel, from a
-    torch.profiler window over ``calls`` calls: the partition (the order
-    copy and B2's three kernels), the window pass (two memsets and the
+    torch.profiler window over ``calls`` calls: the partition (B2's device
+    code as one fused launch), the window pass (two memsets and the
     gather-mode histogram kernel), the subtraction and the split search;
     "other" holds what the wrapper launches around the kernel.  Sums are
     divided by the calls the profiler saw (its split-search launches, one a
     call), returned as "calls"."""
-    from torch.profiler import ProfilerActivity, profile
-
-    rc.round_megakernel(*args, **kw)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            rc.round_megakernel(*args, **kw)
-        torch.cuda.synchronize()
-    events = device_events(prof)
-    seen = sum(e.count for e in events if "gain_kernel" in e.key)
-    if seen < 1:
-        raise AssertionError("the profiler saw no split-search launch of the round kernel")
+    events, seen = device_window(lambda: rc.round_megakernel(*args, **kw), calls,
+                                 ("gain_kernel",))
     out = {name: 0.0 for name, _ in ROUND_PHASES}
     out["other"] = 0.0
     for e in events:
@@ -687,7 +763,10 @@ def check_epsilon_kernels(ts, grad, hess, params, tile, tile_q):
     if not torch.equal(lib(), new_order):
         raise AssertionError("the stable-sort yardstick disagrees")
     out["part_library_ms"] = cuda_ms(lib)
-    out["part_bound_ms"] = 12 * out["in_seg"] / HBM_BYTES_PER_S * 1e3
+    out["part_device_ms"], out["part_seen"] = partition_device_ms(
+        lambda: pc.partition_segments(*pa))
+    out["part_floor_ms"] = launch_floor_ms(dev)
+    out["part_bound_ms"] = bound_of(partition_bytes(n, out["in_seg"]), 0)[0]
     out["round_ms"] = cuda_ms(lambda: rc.round_megakernel(*args, **kw), iters=10,
                               warmup=2)
     out["round_plain_ms"] = cuda_ms(lambda: rc.round_megakernel_plain(*args, **kw),
@@ -724,6 +803,14 @@ def check_epsilon_kernels(ts, grad, hess, params, tile, tile_q):
     out["int8_hist_bound_ms"], out["int8_hist_bound_by"] = bound(Wq, f, tile_q, b, rows, 1, 4)
     del qa, ga, lib, rows
     torch.cuda.empty_cache()
+
+    # the edge geometries of the partition, each against the plain version
+    for name in PARTITION_EDGES:
+        order, seg_start, seg_len, go = (torch.from_numpy(v).to(dev) for v in partition_edge(name))
+        n_left = pc.partition_segments_plain(order, seg_start, seg_len, go)[1]
+        partition(dict(order=order, seg_start=seg_start, seg_len=seg_len, go=go, n_left=n_left),
+                  name)
+    out["edges"] = len(PARTITION_EDGES)
 
     # ragged: partition and round kernel (all options)
     nr, nf = 100_003, 257
@@ -774,9 +861,10 @@ def trees_agree(a, b) -> float:
 
 # ---------------------------------------------------------------------------
 # python3 chip_smoke.py --variants [CHECKOUT]: the design choices of the
-# histogram and round kernels timed against each other in turns, each a
-# patched copy of csrc/ built beside the package's own (and, given another
-# checkout of the repo, that checkout's kernels as one more variant)
+# histogram, partition and round kernels timed against each other in turns,
+# each a patched copy of csrc/ built beside the package's own (and, given
+# another checkout of the repo, that checkout's wrappers and kernels as one
+# more variant)
 # ---------------------------------------------------------------------------
 # The split search with its lanes over 32 bins at a time and a carry between
 # steps: replaces round.cu's lane-run prefix, up to the per-bin evaluation.
@@ -823,6 +911,59 @@ VARIANTS = {
     "gain_per32": [("round.cu", ("  const int K = (B + 31) / 32;",
                                  "    const float sg = (float)cg"), GAIN_PER32)],
 }
+# B2 as two cooperative launches, a count launch and a move launch (the
+# move's chunks read their prefixes from the count launch's status words), in
+# place of one launch with a grid-wide barrier between the two passes.
+TWO_LAUNCH_KERNELS = """__global__ void __launch_bounds__(kBlock)
+partition_count_kernel(PartitionArgs a) {
+  __shared__ ChunkTable t;
+  const unsigned epoch = begin_launch(a, t, true);
+  partition_chunks<kCountMode>(a, t, epoch);
+  finish_launch(a.scratch);
+}
+
+__global__ void __launch_bounds__(kBlock)
+partition_move_kernel(PartitionArgs a) {
+  __shared__ ChunkTable t;
+  const unsigned epoch = begin_launch(a, t, false);
+  partition_chunks<kMoveMode>(a, t, epoch);
+  finish_launch(a.scratch);
+}
+
+// One wave of resident blocks of ``kernel``"""
+TWO_LAUNCHES = """    return cudaErrorInvalidValue;
+  if (!n_left_given) {
+    const void* count = reinterpret_cast<const void*>(partition_count_kernel);
+    const void* move = reinterpret_cast<const void*>(partition_move_kernel);
+    void* args[] = {&a};
+    int grid = 0;
+    cudaError_t e = partition_grid(count, chunks_of(a.n) + a.S, &grid);
+    if (e == cudaSuccess)
+      e = cudaLaunchCooperativeKernel(count, dim3(grid), dim3(kBlock), args, 0, st);
+    if (e == cudaSuccess) e = partition_grid(move, chunks_of(a.n) + 2 * (int64_t)a.S + 1, &grid);
+    if (e == cudaSuccess)
+      e = cudaLaunchCooperativeKernel(move, dim3(grid), dim3(kBlock), args, 0, st);
+    return e;
+  }
+  const void* fn = n_left_given"""
+VARIANTS["two_launches"] = [
+    ("partition_common.cuh", "// One wave of resident blocks of ``kernel``", TWO_LAUNCH_KERNELS),
+    ("partition_common.cuh", "    return cudaErrorInvalidValue;\n  const void* fn = n_left_given",
+     TWO_LAUNCHES)]
+# Chunks of 1024 and 2048 positions, 1 and 2 a thread (more chunks, fewer
+# loads in flight a thread).
+VARIANTS.update({f"items{k}": [("partition_common.cuh", "constexpr int kItems = 4;",
+                                f"constexpr int kItems = {k};")] for k in (1, 2)})
+# The order copied whole by the copy engine before the kernel, which then
+# skips the gap chunks (the parent's way of keeping the other positions).
+VARIANTS["memcpy"] = [
+    ("partition_common.cuh",
+     "  const int total = kMode == kCountMode ? n_seg : t.gap_first[a.S + 1];",
+     "  const int total = n_seg;"),
+    ("partition_common.cuh", "  void* args[] = {&a};\n",
+     "  void* args[] = {&a};\n"
+     "  e = cudaMemcpyAsync(a.out, a.order, (size_t)a.n * 4, cudaMemcpyDeviceToDevice, st);\n"
+     "  if (e != cudaSuccess) return e;\n")]
 # Timing only (wrong sums by design): skipping every cell of the flush
 # leaves the rest of the call, so the kept time less this one's is the
 # flush's share (its global atomics and the shared words' reset).
@@ -858,17 +999,41 @@ def ptxas_summary(log_text):
     return f"registers {regs} spill bytes {sum(spills)}"
 
 
+def load_checkout(root):
+    """Another checkout's lightgbm_tpu_torch, imported beside this one as
+    the package ``checkout_lgt``: its (hist_cuda, partition_cuda,
+    round_cuda), whose wrappers call its own kernels (built into the
+    checkout's build/), so a checkout whose C interfaces differ is timed
+    through its own wrappers."""
+    import importlib
+    import importlib.util
+
+    pkg = Path(root).resolve() / "lightgbm_tpu_torch"
+    spec = importlib.util.spec_from_file_location(
+        "checkout_lgt", pkg / "__init__.py", submodule_search_locations=[str(pkg)])
+    sys.modules["checkout_lgt"] = mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return tuple(importlib.import_module(f"checkout_lgt.ops.{m}")
+                 for m in ("hist_cuda", "partition_cuda", "round_cuda"))
+
+
 def variants(parent) -> int:
-    """Every variant's histogram and round libraries, built at once; then,
-    in turns (each variant once forward, once in reverse order), each held
-    bit for bit against the plain versions and timed with CUDA events: B1 at
+    """Every variant's histogram, partition and round libraries, built at
+    once (a variant that nvcc refuses is reported and left out); then, in
+    turns (each variant once forward, once in reverse order), each held bit
+    for bit against the plain versions and timed with CUDA events: B1 at
     the phase 2 shapes (1M x 28, float tile 8, int8 tile 20), the Epsilon
     root pass (400k x 2000, tile 1), the int8 window pass on a gathered T =
-    20 window, and B3 at phase 7's geometry (T = 10, W = 131,072) with its
-    phases from a profiler window.  Then two probes of the kept kernels:
-    the flush's share of each call (PROBES), and the root pass on bins
-    that put a warp's atomics on 32 banks or on one.  Bins are seeded
-    random (no binning)."""
+    20 window, B2 at phase 7's geometry (T = 10 and T = 20 segments tiling
+    400k positions) and on one chunk (N = 3000, its fixed cost) with its
+    device time from a profiler window, and B3 at
+    phase 7's geometry (T = 10, W = 131,072) with its phases from a
+    profiler window; beside them the floor of one launch from Python.  Then
+    two probes of the kept kernels: the flush's share of each call
+    (PROBES), and the root pass on bins that put a warp's atomics on 32
+    banks or on one.  Bins are seeded random (no binning), so each
+    segment's go flags come from a seeded threshold on a random bin, as
+    phase 7's do from the real bins."""
     from lightgbm_tpu_torch.ops import cuda_build
     from lightgbm_tpu_torch.ops import hist_cuda as hc
     from lightgbm_tpu_torch.ops import partition_cuda as pc
@@ -877,28 +1042,44 @@ def variants(parent) -> int:
     from lightgbm_tpu_torch.ops.treegrow_windowed import _window_size
 
     dev = torch.device("cuda", 0)
-    srcs = {name: variant_sources(name, patches, cuda_build.CSRC)
-            for name, patches in {**VARIANTS, **PROBES}.items()}
-    if parent:
-        srcs["checkout"] = variant_sources("checkout", [], Path(parent).resolve()
-                                           / "lightgbm_tpu_torch" / "csrc")
+    mods = (hc, pc, rc)
     n_base = len(cuda_build.NVCC_FLAGS)
-    libs = {name: (cuda_build.KernelLibrary(str(d / "hist.cu"), hc._bind,
-                                            hc.LIBRARY.flags[n_base:]),
-                   cuda_build.KernelLibrary(str(d / "round.cu"), rc._bind,
-                                            rc.LIBRARY.flags[n_base:]))
-            for name, d in srcs.items()}
-    # variants that patch one file share the other's library: build each once
-    built = {lib.target(): lib for pair in libs.values() for lib in pair}
+    trios = {}
+    for name, patches in {**VARIANTS, **PROBES}.items():
+        d = variant_sources(name, patches, cuda_build.CSRC)
+        trios[name] = tuple(cuda_build.KernelLibrary(str(d / m.LIBRARY.src.name), m._bind,
+                                                     m.LIBRARY.flags[n_base:]) for m in mods)
+    checkout = load_checkout(parent) if parent else None
+    if checkout:
+        trios["checkout"] = tuple(m.LIBRARY for m in checkout)
+    # variants that patch one file share the others' libraries: build each once
+    built = {lib.target(): lib for trio in trios.values() for lib in trio}
     t0 = time.perf_counter()
-    cuda_build.build_all(built.values(), force=True)
-    cuda_build.build_all([pc.LIBRARY])
-    log(f"variants built: {len(built)} libraries in {time.perf_counter() - t0:.2f} s")
-    for name, pair in libs.items():
-        for lib in pair:
+    procs = {so: lib.start(force=True) for so, lib in built.items()}
+    refused = set()
+    for so, lib in built.items():
+        try:
+            lib.finish(procs[so])
+        except RuntimeError as e:
+            log(f"variant library {so.name} not built: {e}")
+            refused.add(so)
+    trios = {name: trio for name, trio in trios.items()
+             if not any(lib.target() in refused for lib in trio)}
+    log(f"variants built: {len(built) - len(refused)} libraries in "
+        f"{time.perf_counter() - t0:.2f} s; timed: {' '.join(trios)}")
+    for name, trio in trios.items():
+        for lib in trio:
             so = lib.target()
             log(f"variant {name} {lib.src.name}: {ptxas_summary(built[so].log)}; sass "
                 f"atomics {sass_summary(so, cuda_build.nvcc())}")
+
+    def use(name):
+        """The (hist, partition, round) modules that run variant ``name``."""
+        if name == "checkout":
+            return checkout
+        hc.LIBRARY, pc.LIBRARY, rc.LIBRARY = trios[name]
+        return mods
+
     bins, grad, hess, mask, slot, gq, hq = kernel_inputs(N_TRAIN, N_FEAT, MAX_BIN, 20, 0, 1,
                                                          dev)
     hf = (bins, grad, hess, mask, slot, 0, 8, MAX_BIN)
@@ -923,55 +1104,81 @@ def variants(parent) -> int:
     gqe = torch.randint(-8, 9, (n,), generator=g, device=dev, dtype=torch.int8)
     hqe = torch.randint(0, 17, (n,), generator=g, device=dev, dtype=torch.int8)
     sq = split_case(ebins, MAX_BIN, 20, SEED + 7)
-    new_q = pc.partition_segments(sq["order"], sq["seg_start"], sq["seg_len"], sq["go"])[0]
+    pa10 = (sp["order"], sp["seg_start"], sp["seg_len"], sp["go"])
+    pa20 = (sq["order"], sq["seg_start"], sq["seg_len"], sq["go"])
+    pa_tiny = tuple(torch.from_numpy(v).to(dev) for v in partition_edge("below_one_chunk"))
+    new_q = pc.partition_segments_plain(*pa20)[0]
     Wq = _window_size(int(sq["win_cnt"].sum()), n)
     wrows, wslot, valid = rc.window_rows(new_q, sq["win_start"], sq["win_cnt"], Wq)
     ga = (ebins.index_select(0, wrows), gqe[wrows], hqe[wrows], emask[wrows] & valid, wslot,
           0, 20, MAX_BIN)
+    # the variants with fewer positions a thread need more status words than
+    # the kept chunk size allocates: grow the shared scratch once for them
+    pc.scratch(dev, torch.cuda.current_stream(dev).cuda_stream, n * pc.CHUNK // 1024, 20)
     want = dict(higgs_f=hc.histogram_multi_plain(*hf),
                 higgs_q=hc.histogram_multi_quantized_plain(*hqa),
                 root=hc.histogram_multi_plain(*ra, shift=shift),
                 int8_win=hc.histogram_multi_quantized_plain(*ga),
-                round=rc.round_megakernel_plain(*args, **kw))
+                round=rc.round_megakernel_plain(*args, **kw),
+                part10=pc.partition_segments_plain(*pa10),
+                part20=pc.partition_segments_plain(*pa20),
+                part_tiny=pc.partition_segments_plain(*pa_tiny))
     log(f"variants inputs: round T=10 W={W} window rows {int(sp['win_cnt'].sum())}; "
-        f"int8 window T=20 W={Wq}")
-    calls = dict(higgs_f=lambda: hc.histogram_multi(*hf),
-                 higgs_q=lambda: hc.histogram_multi_quantized(*hqa),
-                 root=lambda: hc.histogram_multi(*ra, shift=shift),
-                 int8_win=lambda: hc.histogram_multi_quantized(*ga),
-                 round=lambda: rc.round_megakernel(*args, **kw))
-    turns = [name for name in libs if name not in PROBES]
+        f"int8 window T=20 W={Wq}; partition N={n} T=10 and T=20, and N=3000 (one chunk)")
+
+    def calls(mh, mp, mr):
+        return dict(higgs_f=lambda: mh.histogram_multi(*hf),
+                    higgs_q=lambda: mh.histogram_multi_quantized(*hqa),
+                    root=lambda: mh.histogram_multi(*ra, shift=shift),
+                    int8_win=lambda: mh.histogram_multi_quantized(*ga),
+                    round=lambda: mr.round_megakernel(*args, **kw),
+                    part10=lambda: mp.partition_segments(*pa10),
+                    part20=lambda: mp.partition_segments(*pa20),
+                    part_tiny=lambda: mp.partition_segments(*pa_tiny))
+
+    def iters(k):
+        return 20 if k.startswith(("higgs", "part")) else 5
+
+    turns = [name for name in trios if name not in PROBES]
     times = {name: [] for name in turns}
     for name in turns + turns[::-1]:
-        hc.LIBRARY, rc.LIBRARY = libs[name]
-        for k, fn in calls.items():
+        trio = use(name)
+        fns = calls(*trio)
+        for k, fn in fns.items():
             if k == "round":
                 compare_round(fn(), want[k], f"variant {name}")
+            elif k.startswith("part"):
+                got = fn()
+                same(got[0], want[k][0], f"variant {name} {k} order")
+                same(got[1], want[k][1], f"variant {name} {k} left counts")
             else:
                 same(fn(), want[k], f"variant {name} {k}")
-        t = {k: cuda_ms(fn, iters=20 if k.startswith("higgs") else 5, warmup=2)
-             for k, fn in calls.items()}
-        t["round_phases"] = round_phases(rc, args, kw)
+        t = {k: cuda_ms(fn, iters=iters(k), warmup=2) for k, fn in fns.items()}
+        for k in ("part10", "part20", "part_tiny"):
+            t[f"{k}_device"], t[f"{k}_seen"] = partition_device_ms(fns[k])
+        t["floor"] = launch_floor_ms(dev)
+        ph = round_phases(trio[2], args, kw)
+        t["round_partition"] = ph["partition"]
+        t["round_phases"] = ph
         times[name].append(t)
         log(f"variant {name} turn {len(times[name])}: bitwise_plain=True ms "
             + json.dumps(t))
     for name, ts in times.items():
         log(f"variant {name} mean of {len(ts)} turns: " + json.dumps(
-            {k: sum(t[k] for t in ts) / len(ts) for k in calls}))
+            {k: sum(t[k] for t in ts) / len(ts) for k in ts[0] if k != "round_phases"}))
     flush = {"kept": [], "no_flush": []}
     for name in ("kept", "no_flush", "no_flush", "kept"):
-        hc.LIBRARY, rc.LIBRARY = libs[name]
-        flush[name].append({k: cuda_ms(fn, iters=20 if k.startswith("higgs") else 5,
-                                       warmup=2) for k, fn in calls.items()})
-    mean = {name: {k: sum(t[k] for t in ts) / len(ts) for k in calls}
+        fns = {k: fn for k, fn in calls(*use(name)).items() if not k.startswith("part")}
+        flush[name].append({k: cuda_ms(fn, iters=iters(k), warmup=2) for k, fn in fns.items()})
+    mean = {name: {k: sum(t[k] for t in ts) / len(ts) for k in ts[0]}
             for name, ts in flush.items()}
     log("flush probe ms: " + json.dumps(mean) + " flush share: " + json.dumps(
-        {k: 1 - mean["no_flush"][k] / mean["kept"][k] for k in calls}))
+        {k: 1 - mean["no_flush"][k] / mean["kept"][k] for k in mean["kept"]}))
     # Bank probe: the kept root pass on bins laid out so that a warp's lanes
     # (consecutive features of one row, cells bin_stride(B) = 255 apart, so
     # bank = bin - feature mod 32) hit 32 different banks (bin = 2f + r), or
     # one bank (bin = f + r), against the seeded random bins above.
-    hc.LIBRARY, rc.LIBRARY = libs["kept"]
+    use("kept")
     fr = (torch.arange(f, device=dev)[None, :], torch.arange(n, device=dev)[:, None])
     probe = {"random": ebins}
     for name, k in (("32_banks", 2), ("one_bank", 1)):
@@ -1208,9 +1415,12 @@ def main() -> int:
         f"library_ms={r['int8_hist_library_ms']:.4f} bound_ms={r['int8_hist_bound_ms']:.4f} "
         f"({r['int8_hist_bound_by']}) bitwise_plain=True")
     log(f"phase 7 kernel partition: N={EPS_N_TRAIN} T={r['T']} in-segment={r['in_seg']} "
-        f"ms={r['part_ms']:.4f} plain_ms={r['part_plain_ms']:.4f} "
+        f"ms={r['part_ms']:.4f} (events, a Python call) device_ms={r['part_device_ms']:.4f} "
+        f"(torch.profiler, {r['part_seen']} calls seen) floor_ms={r['part_floor_ms']:.4f} "
+        f"(one launch from Python) plain_ms={r['part_plain_ms']:.4f} "
         f"library_ms={r['part_library_ms']:.4f} bound_ms={r['part_bound_ms']:.6f} "
-        f"(bytes) bitwise_plain=True (T={r['Tq']} and ragged too)")
+        f"(bytes) bitwise_plain=True (T={r['Tq']}, ragged and {r['edges']} edge geometries "
+        f"too)")
     log(f"phase 7 kernel round: N={EPS_N_TRAIN} F={EPS_FEAT} B={eps_set.max_num_bins} "
         f"T={r['T']} W={r['W']} window_rows={r['window_rows']} ms={r['round_ms']:.4f} "
         f"plain_ms={r['round_plain_ms']:.4f} bound_ms={r['round_bound_ms']:.4f} "
@@ -1316,7 +1526,8 @@ def main() -> int:
         "replaces": "lightgbm_tpu/ops/partition_pallas.py:188",
         "launches": part_launches, "max_abs_err": 0.0, "ms": r["part_ms"],
         "plain_ms": r["part_plain_ms"], "bound_ms": r["part_bound_ms"],
-        "bound_by": "bytes", "library_ms": r["part_library_ms"]})
+        "bound_by": "bytes", "library_ms": r["part_library_ms"],
+        "device_ms": r["part_device_ms"], "floor_ms": r["part_floor_ms"]})
     kernels.append({
         "name": "round_megakernel", "route": "cuda",
         "source": "lightgbm_tpu_torch/csrc/round.cu",

@@ -9,26 +9,38 @@
 // new order (positions outside every segment keep order's value) and the
 // left count of each segment.
 //
-// What bounds it on an H100.  The function must read go_left and the row id
-// of every in-segment position and write the row id once: 4 + 1 + 4 bytes
-// (12 with the 4-byte go flags the TPU kernel streams), about 3.6 MB at
-// 400k rows, ~1 us at 3.35 TB/s.  Its cost on the card is launch latency
-// (three small kernels plus the copy of untouched positions) and the
-// blocks that find their chunk past the segment end.
+// What bounds it on an H100.  The function must read the row id (4 B) and
+// go flag (1 B) of every in-segment position and write its row id once
+// (4 B), and copy the row id of every other position (4 + 4 B): about 3.6
+// MB at 400k rows, ~1 us at 3.35 TB/s.  That is less than the time of one
+// launch, so its cost on the card is its launches and the chain of
+// dependent memory round trips inside them: the kernel is as fast as it has
+// few launches, no empty blocks and no serial step.
 //
 // Design.  The TPU kernel walks segments in a sequential grid and streams
 // each through double-buffered VMEM with read-modify-write DMA windows of
 // a fixed size, over an order padded to n_pad.  None of that carries over:
-// blocks run in parallel, in no order.  Here each segment is cut into
-// 1024-position chunks (partition_common.cuh): a count pass, a scan of the
-// chunk counts per segment, and a move pass in which each thread writes its
-// own row to its final position, ranked by ballot/popcount inside the block
-// plus the chunk's prefix.  Every block writes only positions inside its
-// own segment, so nothing is padded or read back, and the output starts as
-// a copy of the order (cudaMemcpyAsync) so untouched positions keep it.
-// The grid is sized from N on the host (no segment length is read back, so
-// the caller's round needs no host sync); chunks past a segment's end exit
-// at once.
+// blocks run in parallel, in no order.  Here (partition_common.cuh) the
+// segments and the gaps between them are cut into 4096-position chunks (4
+// positions a thread, so 4 loads in flight a thread) laid
+// end to end in one flat space; one wave of blocks, launched cooperatively
+// so that all are resident, takes them by block stride, so no block is
+// empty and none waits on a block that is not running.  A count pass ranks
+// each chunk's lefts by ballot and gets
+// its segment prefix by decoupled look-back (status words that a launch
+// epoch keeps apart from earlier launches, so no memset); the segment's last
+// chunk writes n_left.  The right runs start at start + n_left, so no row
+// moves before every chunk of its segment is counted: a grid-wide barrier
+// (a cooperative launch, every block resident) separates the count pass
+// from the move pass, which writes each in-segment row to its place and
+// copies the gap chunks.  So every position of the output is written once,
+// the order is not copied first, one launch does it all and nothing is read
+// back, so the caller's round needs no host sync.  (On an H100 at 400k
+// rows, a copy-engine copy of the order cost 5 us more a call, a count
+// launch plus a move launch 4 us more, chunks claimed by atomic ticket 1 us
+// more and one position a thread 3 us more: PERF.md, chip_smoke.py
+// --variants.)  The round
+// megakernel knows n_left and runs the fused pass of the same device code.
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -std=c++17
 //             -shared -Xcompiler -fPIC (ops/cuda_build.py does this).
@@ -38,21 +50,19 @@
 extern "C" {
 
 // order (n,) i32, go (n,) u8 per position, seg_start/seg_len (S,) i32;
-// counts (S, ceil(n / 1024)) i32 scratch; n_left (S,) i32 and out (n,) i32
-// outputs.  Returns a cudaError_t (0 = success).
+// scratch: 2 u32 words + (ceil(n / 4096) + S) u64 words, zeroed before its
+// first use and left ready by every launch; n_left (S,) i32 and out (n,)
+// i32 outputs.  Takes 1 <= S <= 1024 and 1 <= n < 2^30.  Returns a
+// cudaError_t (0 = success).
 int lgbt_partition(const void* order, const void* go, const void* seg_start,
-                   const void* seg_len, long long n, int S, void* counts, void* n_left,
+                   const void* seg_len, long long n, int S, void* scratch, void* n_left,
                    void* out, void* stream) {
-  if (n <= 0 || S <= 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t e = cudaMemcpyAsync(out, order, (size_t)n * sizeof(int32_t),
-                                  cudaMemcpyDeviceToDevice, st);
-  if (e != cudaSuccess) return (int)e;
-  return (int)lgbt::launch_partition(
-      static_cast<const int32_t*>(order), static_cast<const uint8_t*>(go),
-      static_cast<const int32_t*>(seg_start), static_cast<const int32_t*>(seg_len), nullptr, n,
-      S, static_cast<int32_t*>(counts), static_cast<int32_t*>(n_left),
-      static_cast<int32_t*>(out), st);
+  if (n <= 0 || n >= lgbt::kMaxRows) return (int)cudaErrorInvalidValue;
+  lgbt::PartitionArgs a{static_cast<const int32_t*>(order), static_cast<const uint8_t*>(go),
+                        static_cast<const int32_t*>(seg_start),
+                        static_cast<const int32_t*>(seg_len), static_cast<int32_t*>(n_left),
+                        (int)n, S, static_cast<unsigned*>(scratch), static_cast<int32_t*>(out)};
+  return (int)lgbt::launch_partition(a, false, static_cast<cudaStream_t>(stream));
 }
 
 const char* lgbt_error_string(int code) {

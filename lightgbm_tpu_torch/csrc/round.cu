@@ -6,8 +6,9 @@
 // Given a round's split segments with their left counts, and the windows
 // (the small child of each split, in the new order), it computes:
 //   1. partition: each segment's row ids moved stably into its left run and
-//      then its right run (partition_common.cuh, the partition kernel's
-//      device code; n_left arrives precomputed);
+//      then its right run, the other positions copied (partition_common.cuh,
+//      the partition kernel's device code as one fused launch, since n_left
+//      arrives precomputed);
 //   2. window histograms: for slot s, the (grad, hess, count) histograms of
 //      rows order'[win_start[s] + i], i < win_cnt[s], read from the
 //      row-major (N, F) bins through the new order (hist_common.cuh, the
@@ -18,12 +19,13 @@
 //      and T right children, the first maximizing threshold over the bins
 //      with its gain, direction of missing values and left sums.
 //
-// What bounds it on an H100.  The partition moves 12 B per in-segment
-// position.  The window pass must read each window row's 4 KB of bins at
-// F = 2000 (in 32-B sectors) plus its order entry, mask, grad and hess.  The
-// tail reads the parent histograms and writes left and right once:
-// 3 x T x 3 x F x B x 4 B = 183 MB at T = 10, F = 2000, B = 255, ~55 us, and
-// the split search's 2T x F x B candidates cost ~40 float operations each.
+// What bounds it on an H100.  The partition reads 5 B and writes 4 B per
+// in-segment position and copies 4 B of every other one.  The window pass
+// must read each window row's 4 KB of bins at F = 2000 (in 32-B sectors)
+// plus its order entry, mask, grad and hess.  The tail reads the parent
+// histograms and writes left and right once: 3 x T x 3 x F x B x 4 B = 183
+// MB at T = 10, F = 2000, B = 255, ~55 us, and the split search's 2T x F x B
+// candidates cost ~40 float operations each.
 // So it is bytes-bound; the window pass itself is bound on the card by
 // shared-memory atomics (five native 32-bit adds per row and feature), as
 // the histogram kernel is.
@@ -279,14 +281,15 @@ extern "C" {
 // u8 per position; seg_start, seg_len, n_left, win_start, win_cnt,
 // small_left (T,) i32; grad, hess (n,) f32; mask (n,) u8; parent, left,
 // right (T, 3, F, B) f32; nbpf, mbpf (F,) i32; fmask (F,) u8; cand (4, 2T)
-// f32; the six per-feature outputs (2T, F).  Scratch: counts (T,
-// ceil(n/1024)) i32, n_left_scan (T,) i32, acc64 (T, 2, F, B) u64, acc32 (T,
-// F, B) i32 (zeroed here).  W bounds the windows' total row count: positions
-// past it are dropped, as window_rows drops them.  Returns a cudaError_t (0
-// = success).
+// f32; the six per-feature outputs (2T, F).  Scratch: the partition's
+// (partition.cu: 2 u32 words + (ceil(n/4096) + T) u64 words, zeroed before
+// its first use and left ready by every launch), acc64 (T, 2, F, B) u64,
+// acc32 (T, F, B) i32 (zeroed here).  W bounds the windows' total row
+// count: positions past it are dropped, as window_rows drops them.  Takes
+// T <= 1024 and n < 2^30.  Returns a cudaError_t (0 = success).
 int lgbt_round(const void* bins, long long n, int F, int B, int T, const void* order,
                const void* go, const void* seg_start, const void* seg_len, const void* n_left,
-               void* counts, void* n_left_scan, void* out_order, const void* grad,
+               void* scratch, void* out_order, const void* grad,
                const void* hess, const void* mask, const void* win_start, const void* win_cnt,
                const void* small_left, long long W, int sg, int sh, void* acc64, void* acc32,
                const void* parent, void* left, void* right, const void* nbpf, const void* mbpf,
@@ -294,17 +297,16 @@ int lgbt_round(const void* bins, long long n, int F, int B, int T, const void* o
                float min_hess, float min_gain, float max_delta, float path_smooth,
                int use_smooth, void* o_gain, void* o_thr, void* o_left, void* o_lg,
                void* o_lh, void* o_lc, void* stream) {
-  if (n <= 0 || F <= 0 || B <= 0 || T <= 0 || W <= 0) return (int)cudaErrorInvalidValue;
+  if (n <= 0 || n >= lgbt::kMaxRows || F <= 0 || B <= 0 || T <= 0 || W <= 0)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  // ---- 1. partition ----
-  cudaError_t e = cudaMemcpyAsync(out_order, order, (size_t)n * sizeof(int32_t),
-                                  cudaMemcpyDeviceToDevice, st);
-  if (e != cudaSuccess) return (int)e;
-  e = lgbt::launch_partition(
-      static_cast<const int32_t*>(order), static_cast<const uint8_t*>(go),
-      static_cast<const int32_t*>(seg_start), static_cast<const int32_t*>(seg_len),
-      static_cast<const int32_t*>(n_left), n, T, static_cast<int32_t*>(counts),
-      static_cast<int32_t*>(n_left_scan), static_cast<int32_t*>(out_order), st);
+  // ---- 1. partition (the fused launch only reads n_left) ----
+  lgbt::PartitionArgs pa{static_cast<const int32_t*>(order), static_cast<const uint8_t*>(go),
+                         static_cast<const int32_t*>(seg_start),
+                         static_cast<const int32_t*>(seg_len),
+                         const_cast<int32_t*>(static_cast<const int32_t*>(n_left)), (int)n, T,
+                         static_cast<unsigned*>(scratch), static_cast<int32_t*>(out_order)};
+  cudaError_t e = lgbt::launch_partition(pa, true, st);
   if (e != cudaSuccess) return (int)e;
   // ---- 2. window histograms through the new order ----
   const int64_t FBg = (int64_t)F * B;

@@ -8,7 +8,8 @@ partition of the split leaves' position ranges (segments).
 :func:`stable_partition_ranges` is the plain version: an O(N)
 permutation.  The dispatcher is ops/partition_cuda.py::partition_segments:
 a CUDA tensor goes to the segment-partition kernel (csrc/partition.cu),
-which touches only the segments; a CPU tensor goes to the plain version.
+which reads each position once and writes it once; a CPU tensor goes to
+the plain version.
 Both return identical results.
 """
 

@@ -6,7 +6,9 @@ partition_pallas.py::_partition_kernel; the source note there says what
 bounds it and how its design answers.  Dispatch rule: a CUDA tensor
 launches the kernel or raises; only a tensor on the CPU takes the plain
 version (ops/partition.py::stable_partition_ranges).  The output is a
-permutation, so kernel and plain version agree bit for bit.
+permutation, so kernel and plain version agree bit for bit.  The round
+megakernel (ops/round_cuda.py) runs the same device code and shares the
+scratch kept here.
 """
 
 from __future__ import annotations
@@ -20,7 +22,13 @@ from .partition import segment_ids, stable_partition_ranges
 
 launches = {"partition_segments": 0}
 plain_calls = {"partition_segments": 0}
-CHUNK = 1024  # positions per block (partition_common.cuh kChunk)
+CHUNK = 4096  # positions per chunk (partition_common.cuh kChunk)
+MAX_SEGMENTS = 1024  # segments a call (kMaxSegments); the kernels refuse more
+MAX_ROWS = 1 << 30  # the status words count in 30 bits (kMaxRows)
+SCRATCH_HEADER = 1  # int64 words before the status words (kScratchWords u32)
+# the kernels' scratch, one buffer per (device, stream), grown when a call
+# needs more; every launch leaves it ready for the next one on its stream
+_scratch = {}
 
 
 def reset_counts() -> None:
@@ -37,11 +45,29 @@ def _bind(lib: ctypes.CDLL) -> None:
 LIBRARY = KernelLibrary("partition.cu", _bind)
 
 
+def scratch(device: torch.device, stream: int, n: int, s: int) -> torch.Tensor:
+    """The partition kernels' scratch for ``n`` positions and ``s``
+    segments on ``stream`` of ``device`` (partition_common.cuh: epoch and
+    block count, then one status word a segment chunk).  It is
+    zeroed once when it is allocated or grown, never per call: each launch
+    leaves it ready for the next launch in stream order."""
+    words = SCRATCH_HEADER + (n + CHUNK - 1) // CHUNK + s
+    key = (device.index, stream)
+    buf = _scratch.get(key)
+    if buf is None or buf.numel() < words:
+        buf = torch.zeros(words, dtype=torch.int64, device=device)
+        _scratch[key] = buf
+    return buf
+
+
 def check_segments(order, seg_start, seg_len, go_left) -> None:
     if order.dim() != 1 or order.dtype != torch.int32:
         raise TypeError(f"order must be (N,) int32, got {tuple(order.shape)} "
                         f"{order.dtype}")
     n = order.shape[0]
+    if n >= MAX_ROWS:
+        raise ValueError(f"the partition kernels take fewer than {MAX_ROWS} "
+                         f"positions, got {n}")
     if go_left.dtype != torch.bool or go_left.shape != (n,):
         raise TypeError(f"go_left must be ({n},) bool, got "
                         f"{tuple(go_left.shape)} {go_left.dtype}")
@@ -62,25 +88,26 @@ def check_segments(order, seg_start, seg_len, go_left) -> None:
 
 def partition_segments(order, seg_start, seg_len, go_left):
     """Stably partition each segment [seg_start[s], seg_start[s] +
-    seg_len[s]) of ``order`` (disjoint segments) into its go-left rows, then
-    the others.  Returns (new_order (N,) i32, left counts (S,) i32); other
-    positions keep order's value."""
+    seg_len[s]) of ``order`` (disjoint segments, in any order) into its
+    go-left rows, then the others.  Returns (new_order (N,) i32, left
+    counts (S,) i32); other positions keep order's value.  On the card it
+    makes the kernel's one launch and nothing else; S > MAX_SEGMENTS is
+    refused by the kernel and raises."""
     if not order.is_cuda:
         return partition_segments_plain(order, seg_start, seg_len, go_left)
     check_segments(order, seg_start, seg_len, go_left)
     n, s = order.shape[0], seg_start.shape[0]
     dev = order.device
-    n_left = torch.zeros(s, dtype=torch.int32, device=dev)
     if n == 0 or s == 0:
-        return order.clone(), n_left
+        return order.clone(), torch.zeros(s, dtype=torch.int32, device=dev)
     out = torch.empty_like(order)
-    counts = torch.empty((s, (n + CHUNK - 1) // CHUNK), dtype=torch.int32,
-                         device=dev)
+    n_left = torch.empty(s, dtype=torch.int32, device=dev)
+    stream = stream_ptr(dev)
     with torch.cuda.device(dev):
         rc = LIBRARY.lib().lgbt_partition(
             order.data_ptr(), go_left.data_ptr(), seg_start.data_ptr(),
-            seg_len.data_ptr(), n, s, counts.data_ptr(), n_left.data_ptr(),
-            out.data_ptr(), stream_ptr(dev))
+            seg_len.data_ptr(), n, s, scratch(dev, stream, n, s).data_ptr(),
+            n_left.data_ptr(), out.data_ptr(), stream)
     LIBRARY.raise_on(rc, "partition_segments kernel")
     launches["partition_segments"] += 1
     return out, n_left

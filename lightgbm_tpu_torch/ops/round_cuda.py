@@ -27,7 +27,7 @@ import torch
 from . import hist_cuda
 from .cuda_build import KernelLibrary, stream_ptr
 from .partition import segment_ids, stable_partition_ranges
-from .partition_cuda import CHUNK
+from .partition_cuda import MAX_ROWS, scratch
 from .split import FeatureBests, SplitParams, gain_plane, reduce_plane_per_feature
 
 launches = {"round_megakernel": 0}
@@ -42,7 +42,7 @@ def reset_counts() -> None:
 def _bind(lib: ctypes.CDLL) -> None:
     p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
     lib.lgbt_round.argtypes = (
-        [p, ll, i, i, i, p, p, p, p, p, p, p, p, p, p, p, p, p, p, ll, i, i, p, p,
+        [p, ll, i, i, i, p, p, p, p, p, p, p, p, p, p, p, p, p, ll, i, i, p, p,
          p, p, p, p, p, p, p] + [f] * 7 + [i] + [p] * 7)
     lib.lgbt_round.restype = i
 
@@ -113,6 +113,8 @@ def _check(bins, order, go_left, grad, hess, row_mask, tvecs, parent, cand_tab,
             raise ValueError(f"{name} must be contiguous")
     if not bins.is_contiguous():
         raise ValueError("bins must be contiguous")
+    if n >= MAX_ROWS:
+        raise ValueError(f"the round kernel takes fewer than {MAX_ROWS} rows, got {n}")
     if T < 1 or b < 1:
         raise ValueError(f"need at least one slot and one bin, got T={T}, B={b}")
 
@@ -150,8 +152,6 @@ def round_megakernel(bins, order, go_left, grad, hess, row_mask, seg_start,
 
     new_order = empty((n,), torch.int32)
     left, right = empty((T, 3, f, b)), empty((T, 3, f, b))
-    counts = empty((T, (n + CHUNK - 1) // CHUNK), torch.int32)
-    n_left_scan = empty((T,), torch.int32)
     acc64 = empty((T, 2, f, b), torch.int64)
     acc32 = empty((T, f, b), torch.int32)
     c = 2 * T
@@ -159,11 +159,12 @@ def round_megakernel(bins, order, go_left, grad, hess, row_mask, seg_start,
     o_thr = empty((c, f), torch.int32)
     o_left = empty((c, f), torch.bool)
     p = params
+    stream = stream_ptr(dev)
     with torch.cuda.device(dev):
         rc = LIBRARY.lib().lgbt_round(
             bins.data_ptr(), n, f, b, T, order.data_ptr(), go_left.data_ptr(),
             seg_start.data_ptr(), seg_len.data_ptr(), n_left.data_ptr(),
-            counts.data_ptr(), n_left_scan.data_ptr(), new_order.data_ptr(),
+            scratch(dev, stream, n, T).data_ptr(), new_order.data_ptr(),
             grad.data_ptr(), hess.data_ptr(), row_mask.data_ptr(),
             win_start.data_ptr(), win_cnt.data_ptr(), small_left.data_ptr(),
             int(W), int(shift[0]), int(shift[1]), acc64.data_ptr(),
@@ -175,7 +176,7 @@ def round_megakernel(bins, order, go_left, grad, hess, row_mask, seg_start,
             p.min_gain_to_split, p.max_delta_step, p.path_smooth,
             int(p.path_smooth > 0), o_gain.data_ptr(), o_thr.data_ptr(),
             o_left.data_ptr(), o_lg.data_ptr(), o_lh.data_ptr(),
-            o_lc.data_ptr(), stream_ptr(dev))
+            o_lc.data_ptr(), stream)
     LIBRARY.raise_on(rc, "round_megakernel kernel")
     launches["round_megakernel"] += 1
     fb = FeatureBests(gain=o_gain, threshold_bin=o_thr, use_left=o_left,

@@ -17,6 +17,8 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
+
 pytestmark = pytest.mark.gpu
 
 
@@ -93,7 +95,7 @@ def test_training_on_card_launches_the_kernel():
 
 def _segments(dev, n, seed):
     """A ragged round: unsorted disjoint segments, an empty one, an all-left
-    one, one longer than 1024 chunks (the scan's carry), odd N."""
+    one, one of hundreds of chunks (a long look-back), odd N."""
     g = torch.Generator(device="cpu").manual_seed(seed)
     order = torch.randperm(n, generator=g).to(torch.int32)
     go = torch.rand(n, generator=g) < 0.37
@@ -105,7 +107,6 @@ def _segments(dev, n, seed):
 
 @pytest.mark.parametrize("n", [2_500_001, 4099])
 def test_partition_kernel_matches_plain(n):
-    import chip_smoke
     from lightgbm_tpu_torch.ops import partition_cuda as pc
 
     dev = _card()
@@ -121,6 +122,109 @@ def test_partition_kernel_matches_plain(n):
     assert pc.launches["partition_segments"] == 1
     assert torch.equal(k, p) and torch.equal(kl, pl)
     assert torch.equal(chip_smoke.library_partition(order, seg_start, seg_len, go)(), p)
+
+
+def _partition_edge(dev, name, seed=0):
+    return [torch.from_numpy(v).to(dev) for v in chip_smoke.partition_edge(name, seed)]
+
+
+def _round_on(dev, order, go, seg_start, seg_len, f=8, b=16, seed=5):
+    """round_megakernel's arguments for a given segment geometry: the left
+    counts from go, the small children as windows, seeded bins and sums."""
+    from lightgbm_tpu_torch.ops import partition_cuda as pc
+
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    n, T = order.shape[0], seg_start.shape[0]
+    n_left = pc.partition_segments_plain(order, seg_start, seg_len, go)[1]
+    small_left = (2 * n_left <= seg_len).to(torch.int32)
+    win_start = torch.where(small_left > 0, seg_start, seg_start + n_left)
+    win_cnt = torch.where(small_left > 0, n_left, seg_len - n_left)
+    fmask = torch.ones(f, dtype=torch.bool)
+    cpu = [torch.randint(0, b, (n, f), generator=g, dtype=torch.int16), order.cpu(), go.cpu(),
+           torch.randn(n, generator=g), torch.rand(n, generator=g),
+           torch.rand(n, generator=g) < 0.9]
+    rest = [torch.rand((T, 3, f, b), generator=g) * 40, torch.rand((4, 2 * T), generator=g) * 300,
+            torch.full((f,), b, dtype=torch.int32), torch.full((f,), -1, dtype=torch.int32), fmask]
+    args = ([a.to(dev) for a in cpu] + [seg_start, seg_len, n_left, win_start, win_cnt,
+                                         small_left] + [a.to(dev) for a in rest])
+    return args, max(int(win_cnt.sum()), 1)
+
+
+def _b2_matches_plain(order, seg_start, seg_len, go):
+    from lightgbm_tpu_torch.ops import partition_cuda as pc
+
+    k, kl = pc.partition_segments(order, seg_start, seg_len, go)
+    p, pl = pc.partition_segments_plain(order, seg_start, seg_len, go)
+    torch.cuda.synchronize()
+    assert torch.equal(k, p) and torch.equal(kl, pl)
+
+
+def _b3_matches_plain(dev, order, go, seg_start, seg_len):
+    from lightgbm_tpu_torch.ops import round_cuda as rc
+    from lightgbm_tpu_torch.ops.split import SplitParams
+
+    args, W = _round_on(dev, order, go, seg_start, seg_len)
+    kw = dict(params=SplitParams(min_data_in_leaf=5, lambda_l2=1.0), W=W, shift=(30, 30))
+    ko, kl, kr, kf = rc.round_megakernel(*args, **kw)
+    po, pl, pr, pf = rc.round_megakernel_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(ko, po) and torch.equal(kl, pl) and torch.equal(kr, pr)
+    for name in kf._fields:
+        assert torch.equal(getattr(kf, name), getattr(pf, name)), name
+
+
+@pytest.mark.parametrize("name", list(chip_smoke.PARTITION_EDGES))
+def test_partition_edges_match_plain(name):
+    """B2, and B3's partition phase through round_megakernel, bit for bit
+    against their plain versions on every edge geometry (admission order,
+    empty entries at 0, all empty, one segment over all N, one position,
+    chunk edges, N below one chunk, S = 1 and 20, positions outside every
+    segment)."""
+    from lightgbm_tpu_torch.ops import partition_cuda as pc
+    from lightgbm_tpu_torch.ops import round_cuda as rc
+
+    dev = _card()
+    order, seg_start, seg_len, go = _partition_edge(dev, name)
+    pc.reset_counts()
+    rc.reset_counts()
+    _b2_matches_plain(order, seg_start, seg_len, go)
+    _b3_matches_plain(dev, order, go, seg_start, seg_len)
+    assert pc.launches["partition_segments"] == 1 and rc.launches["round_megakernel"] == 1
+
+
+def test_partition_repeated_calls_carry_no_state():
+    """Calls that share the reused scratch, with other geometries and N
+    rising past the last call's (the scratch grows), B2 and B3 interleaved:
+    each equals its plain version, so no ticket, block count or status
+    word of one launch leaks into the next."""
+    from lightgbm_tpu_torch.ops import partition_cuda as pc
+
+    dev = _card()
+    geoms = [_partition_edge(dev, name, seed) for seed, name in enumerate(
+        ("below_one_chunk", "admission_order", "one_covers_all", "chunk_edges"))]
+    order, go, seg_start, seg_len = _segments(dev, 300_001, 5)
+    geoms.append([order, seg_start, seg_len, go])
+    for i, (order, seg_start, seg_len, go) in enumerate(geoms + geoms[::-1]):
+        _b2_matches_plain(order, seg_start, seg_len, go)
+        if i % 2:
+            _b3_matches_plain(dev, order, go, seg_start, seg_len)
+        _b2_matches_plain(order, seg_start, seg_len, go)
+    key = (dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    assert pc._scratch[key].numel() >= pc.SCRATCH_HEADER + -(-300_001 // pc.CHUNK) + 5
+
+
+def test_partition_refuses_more_segments_than_the_kernel_takes():
+    """S > 1024: the kernel's C entry returns an error and the wrapper
+    raises; the next call still works."""
+    from lightgbm_tpu_torch.ops import partition_cuda as pc
+
+    dev = _card()
+    order, seg_start, seg_len, go = _partition_edge(dev, "one_segment")
+    s = pc.MAX_SEGMENTS + 1
+    zeros = torch.zeros(s, dtype=torch.int32, device=dev)
+    with pytest.raises(RuntimeError):
+        pc.partition_segments(order, zeros, zeros, go)
+    _b2_matches_plain(order, seg_start, seg_len, go)
 
 
 def _round_case(dev, n=60_013, f=300, b=255, T=6, seed=3):
