@@ -14,17 +14,23 @@ Imports no JAX.  Phases, one line each; any failure exits non-zero:
               20) and on a ragged case; timings from CUDA events;
   3. train    lgb.train on a seeded Higgs-shaped binary set (1M train rows
               + 100k held out, 28 features, max_bin=255, 31 leaves, 20
-              rounds): iterations/s, held-out AUC, kernel launch counts,
-              save/reload bitwise, a small run held against the CPU, and
-              a torch.profiler window of 5 rounds (device busy share);
-              each training run (phases 3, 4, 6, 8) prints the sha256 of
-              its model text, so a change can show the trees did not move;
-  4. int8     the same set with use_quantized_grad=true, 5 rounds;
+              rounds) in graph mode (fused_training, the default: a
+              CUDA-graph replay a round) and eager mode
+              (fused_training=false) in turns: iterations/s, replays,
+              captures, kernel launches (counted from replays), peak device
+              memory, held-out AUC, save/reload bitwise, a small run held
+              against the CPU, and torch.profiler windows of 5 rounds in
+              each mode (device idle share, launches outside replays);
+              each training run (phases 3, 4, 6, 8) must print the model
+              sha256 that PERF.md lists (MODEL_SHA), in both modes;
+  4. int8     the same set with use_quantized_grad=true, 5 rounds (eager:
+              not fused-eligible, as in the JAX package);
   5. epsilon  a seeded Epsilon-shaped set (400k train + 50k held-out rows x
               2000 dense features, 255 bins) binned once for phases 6-9;
-  6. windowed lgb.train with windowed_growth=true, 255 leaves, 5 rounds:
-              the round megakernel every round, held-out AUC, save/reload,
-              round-driver stats and a torch.profiler window;
+  6. windowed lgb.train with windowed_growth=true, 255 leaves, 5 rounds,
+              graph and eager in turns: the round megakernel every round
+              (one replay), held-out AUC, save/reload, round-driver stats
+              and a torch.profiler window in each mode;
   7. kernels  every kernel of the windowed path against its plain version,
               bit for bit, on the real bins with phase 6's gradients: the
               root histogram pass (tile 1, explicit exponents), the
@@ -37,15 +43,23 @@ Imports no JAX.  Phases, one line each; any failure exits non-zero:
               torch.profiler window, each beside its own bound; the
               partition's time per Python call (events), its device time
               (profiler) and the floor of one launch from Python;
-  8. int8     the same with use_quantized_grad=true, 3 rounds: the
-              three-pass round (partition kernel + int8 histogram kernel);
+  8. int8     the same with use_quantized_grad=true, 3 rounds, graph and
+              eager: the three-pass round (partition kernel + int8
+              histogram kernel);
   9. parity   megakernel=auto against megakernel=0 on 100k of the rows, 2
               trees: the same nodes, leaf counts and leaf values, and each
               run's launches counted;
  10. device   nvidia-smi's name and power limit.
 
-Then a JSON line with every kernel's numbers, and last the device line
-{"ok": true, "device": {...}}.
+Then a JSON line with every kernel's numbers (launches on the main path,
+graph mode; whether it runs inside a graph and its launches a replay), and
+last the device line {"ok": true, "device": {...}}.
+
+    python3 chip_smoke.py --turns CHECKOUT
+
+trains the Higgs-shaped cell with another checkout's package (e.g. the
+parent commit's, unpacked with git archive) and with this one in graph and
+eager mode, in turns, printing each run's it/s and model sha256.
 
     python3 chip_smoke.py --variants [CHECKOUT]
 
@@ -89,6 +103,10 @@ EPS_BIN_SAMPLE = 50_000  # bin_construct_sample_cnt (PERF.md section 4)
 # this generator (PERF.md); each floor sits 0.01 under its reading
 AUC_FLOOR_EPS = 0.63
 AUC_FLOOR_EPS_INT8 = 0.61
+# sha256 prefixes of the four training runs' model text (phases 3, 4, 6, 8;
+# PERF.md): graph and eager training, every kernel change, must keep them
+MODEL_SHA = {"higgs_float": "3cb1e5ba", "higgs_int8": "900c2628",
+             "eps_float": "3e51d1cd", "eps_int8": "c2599a30"}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_OPS_PER_S = 67e12  # H100 SXM, non-tensor-core f32 (integer adds counted alike)
 
@@ -426,11 +444,17 @@ def model_sha(bst) -> str:
     return hashlib.sha256(bst.model_to_string().encode()).hexdigest()
 
 
+RUNTIME_LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cudaLaunchCooperativeKernel",
+                    "cuLaunchKernel", "cuLaunchKernelEx")
+
+
 def profile_rounds(lgt, params, train_set, rounds):
     """torch.profiler over ``rounds`` boosting rounds after a warm one
-    (Booster.update): wall time, device time summed over the device's own
-    events (kernels, copies, sets: one stream, so their sum is the busy
-    time) and the five largest of them."""
+    (Booster.update; in graph mode the warm one captures the graphs): wall
+    time, device time summed over the device's own events (kernels, copies,
+    sets: one stream, so their sum is the busy time), the five largest of
+    them, and from the host's runtime calls, per tree, the kernels launched
+    outside replays, the graph replays and the copies and sets."""
     from torch.profiler import ProfilerActivity, profile
 
     bst = lgt.Booster(params=dict(params), train_set=train_set)
@@ -446,8 +470,106 @@ def profile_rounds(lgt, params, train_set, rounds):
     events = device_events(prof)
     busy_ms = sum(dev_us(e) for e in events) / 1e3
     top = sorted(events, key=dev_us, reverse=True)[:5]
-    return wall_ms, busy_ms, [(e.key[:60], dev_us(e) / 1e3, e.count) for e in top]
+    host = {e.key: e.count for e in prof.key_averages()
+            if e.key.startswith("cu") and not str(getattr(e, "device_type", "")).endswith("CUDA")}
+    return dict(wall_ms=wall_ms, busy_ms=busy_ms,
+                idle=(1 - busy_ms / wall_ms) if busy_ms > 0 else float("nan"),
+                top=[(e.key[:60], dev_us(e) / 1e3, e.count) for e in top],
+                launches=sum(c for k, c in host.items() if k in RUNTIME_LAUNCHES) / rounds,
+                replays=host.get("cudaGraphLaunch", 0) / rounds,
+                copies=sum(c for k, c in host.items()
+                           if k.startswith(("cudaMemcpy", "cudaMemset"))) / rounds,
+                runtime={k: c for k, c in sorted(host.items()) if c >= rounds})
 
+
+def profile_line(what, r) -> str:
+    if r["busy_ms"] <= 0:
+        return (f"{what}: wall_ms={r['wall_ms']:.2f}, device time not measured (the "
+                "profiler saw no device activity)")
+    return (f"{what}: wall_ms={r['wall_ms']:.2f} device_busy_ms={r['busy_ms']:.2f} "
+            f"idle_share={r['idle']:.4f} per tree: kernel launches outside replays="
+            f"{r['launches']:.1f} replays={r['replays']:.1f} copies+sets={r['copies']:.1f} "
+            f"runtime calls {json.dumps(r['runtime'])} top: "
+            + "; ".join(f"{k} {ms:.3f} ms x{c}" for k, ms, c in r["top"]))
+
+
+def tree_stats(bst):
+    """The round drivers' counts over a booster's trees."""
+    s = bst._gbdt.round_stats
+    tot = {k: sum(t[k] for t in s) for k in ("rounds", "retries", "host_syncs",
+                                              "async_resolves", "captures", "replays",
+                                              "dispatches")}
+    seen, new_keys = set(), []
+    for t in s:  # captures a tree must make: the window rungs (keys) it meets first
+        keys = set(t["windows"])
+        new_keys.append(len(keys - seen))
+        seen |= keys
+    graphs = bst._gbdt._round_graphs
+    per_replay = {}
+    for per in (graphs.launches_per_replay().values() if graphs is not None else ()):
+        for k, v in per.items():
+            per_replay[k] = max(per_replay.get(k, 0), v)
+    return dict(trees=len(s), resolves=tot["async_resolves"], **tot,
+                captures_per_tree=[t["captures"] for t in s], new_keys=new_keys,
+                windows=sorted({w for t in s for w in t["windows"] if w is not None}),
+                megakernel=[t.get("megakernel") for t in s],
+                excluded=[t.get("megakernel_excluded") for t in s], per_replay=per_replay)
+
+
+def train_turns(lgt, params, train_set, rounds, want_sha, counts, plain_total,
+                turns=("graph", "eager", "graph", "eager")):
+    """lgb.train in graph mode (fused_training, the default) and in eager
+    mode (fused_training=false), in turns (a turn "ineligible" is
+    fused_training=true where GBDT._fused_eligible does not hold): each
+    run's it/s, round stats, kernel launches (``counts()``, reset before
+    it), peak device memory above what was allocated before it, and model
+    sha256.  Fails unless every run's sha256 starts with ``want_sha``
+    (PERF.md's) and no plain version ran; in graph mode unless every round
+    was one replay and graphs were captured only for the keys a tree met
+    first; otherwise unless nothing was captured or replayed.  The first
+    run's booster is kept."""
+    from lightgbm_tpu_torch.ops import hist_cuda as hc
+    from lightgbm_tpu_torch.ops import partition_cuda as pc
+    from lightgbm_tpu_torch.ops import round_cuda as rc
+
+    runs = []
+    for mode in turns:
+        for m in (hc, pc, rc):
+            m.reset_counts()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        bst, it_s = train_timed(lgt, {**params, "fused_training": mode != "eager"},
+                                train_set, rounds)
+        torch.cuda.synchronize()
+        st = tree_stats(bst)
+        run = dict(mode=mode, it_s=it_s, sha=model_sha(bst), st=st, launches=counts(),
+                   peak_mb=(torch.cuda.max_memory_allocated() - base) / 2**20,
+                   bst=bst if not runs else None)
+        if plain_total():
+            raise AssertionError(f"a plain version ran in {mode} mode: {run}")
+        if mode == "graph":
+            ok = (st["replays"] == st["rounds"] == st["dispatches"]
+                  and st["captures_per_tree"] == st["new_keys"] and st["captures"] >= 1)
+        else:
+            ok = st["replays"] == st["captures"] == st["dispatches"] == 0
+        if not (ok and run["sha"].startswith(want_sha)):
+            raise AssertionError(f"{mode} run (model sha256 should start {want_sha}): "
+                                 f"{ {k: v for k, v in run.items() if k != 'bst'} }")
+        runs.append(run)
+        del bst
+    return runs
+
+
+def turn_line(what, r) -> str:
+    st = r["st"]
+    return (f"{what} {r['mode']}: it/s={r['it_s']:.4f} tree-rounds={st['rounds']} "
+            f"replays={st['replays']} captures={st['captures']} "
+            f"(per tree {st['captures_per_tree']}) dispatches={st['dispatches']} "
+            f"blocking reads/tree={st['host_syncs'] / st['trees']:.2f} "
+            f"launches (B1 float, B1 int8, B2, B3)={r['launches']} "
+            f"launches/replay={json.dumps(st['per_replay'])} "
+            f"peak_mem_mb={r['peak_mb']:.1f} model_sha256={r['sha']}")
 
 
 # ---------------------------------------------------------------------------
@@ -710,10 +832,11 @@ def check_epsilon_kernels(ts, grad, hess, params, tile, tile_q):
     n, f = bins.shape
     dev = bins.device
     mask = torch.ones(n, dtype=torch.bool, device=dev)
-    shift = hc.fixed_shift_pair(grad, hess)
+    pair = hc.fixed_shift_pair(grad, hess)
+    shift = hc.fixed_shift_tensor(grad, hess)  # as the grower passes them
     full = params._replace(lambda_l1=0.5, lambda_l2=2.0, max_delta_step=0.7,
                            path_smooth=3.0, min_gain_to_split=0.01)
-    out = dict(T=tile, Tq=tile_q, shift=shift)
+    out = dict(T=tile, Tq=tile_q, shift=pair)
 
     # the root pass: tile 1, explicit exponents
     ra = (bins, grad, hess, mask, torch.zeros(n, dtype=torch.int32, device=dev),
@@ -826,17 +949,6 @@ def check_epsilon_kernels(ts, grad, hess, params, tile, tile_q):
     del args, rb
     torch.cuda.empty_cache()
     return out
-
-
-def tree_stats(bst):
-    s = bst._gbdt.windowed_stats
-    rounds = sum(t["rounds"] for t in s)
-    return dict(trees=len(s), rounds=rounds, retries=sum(t["retries"] for t in s),
-                host_syncs=sum(t["host_syncs"] for t in s),
-                resolves=sum(t["async_resolves"] for t in s),
-                windows=sorted({w for t in s for w in t["windows"]}),
-                megakernel=[t["megakernel"] for t in s],
-                excluded=[t["megakernel_excluded"] for t in s])
 
 
 def trees_agree(a, b) -> float:
@@ -1017,6 +1129,36 @@ def load_checkout(root):
                  for m in ("hist_cuda", "partition_cuda", "round_cuda"))
 
 
+def turns(checkout) -> int:
+    """The Higgs-shaped cell (phase 3's data and parameters, 20 rounds)
+    trained by another checkout's package (``checkout_lgt``, e.g. the
+    parent commit's, with its defaults) and by this one in graph and in
+    eager mode, in turns: it/s and model sha256 of each run, so both modes
+    are held against the other checkout on one card in one call."""
+    import lightgbm_tpu_torch as lgt
+
+    load_checkout(checkout)
+    other = sys.modules["checkout_lgt"]
+    X, y = higgs_like(N_TRAIN + N_TEST, SEED)
+    base = {"objective": "binary", "max_bin": MAX_BIN, "num_leaves": NUM_LEAVES,
+            "learning_rate": 0.1, "device_type": "cuda", "verbosity": -1, "seed": 7}
+    sets = {}
+    for name, pkg in (("checkout", other), ("this", lgt)):
+        sets[name] = pkg.Dataset(X[:N_TRAIN], label=y[:N_TRAIN], params=dict(base))
+        sets[name].construct()
+    runs = [("checkout", other, {}), ("this graph", lgt, {"fused_training": True}),
+            ("this eager", lgt, {"fused_training": False})]
+    for label, pkg, extra in runs + runs[::-1]:
+        bst, it_s = train_timed(pkg, {**base, **extra}, sets[label.split()[0]],
+                                ROUNDS_FLOAT)
+        log(f"turns {label}: {ROUNDS_FLOAT} rounds it/s={it_s:.4f} "
+            f"model_sha256={model_sha(bst)}")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    log(smi.stdout.strip())
+    return 0
+
+
 def variants(parent) -> int:
     """Every variant's histogram, partition and round libraries, built at
     once (a variant that nvcc refuses is reported and left out); then, in
@@ -1092,6 +1234,7 @@ def variants(parent) -> int:
     eh = torch.rand(n, generator=g, device=dev) * 0.25
     emask = torch.ones(n, dtype=torch.bool, device=dev)
     shift = hc.fixed_shift_pair(eg, eh)
+    shift_t = hc.fixed_shift_tensor(eg, eh)
     ra = (ebins, eg, eh, emask, torch.zeros(n, dtype=torch.int32, device=dev), 0, 1, MAX_BIN)
     nbpf = torch.full((f,), MAX_BIN, dtype=torch.int32, device=dev)
     mbpf = torch.full((f,), -1, dtype=torch.int32, device=dev)
@@ -1127,11 +1270,14 @@ def variants(parent) -> int:
         f"int8 window T=20 W={Wq}; partition N={n} T=10 and T=20, and N=3000 (one chunk)")
 
     def calls(mh, mp, mr):
+        # wrappers that read the exponents from device memory take them as
+        # a tensor (a pair of ints would cost them a copy a call)
+        s = shift_t if hasattr(mh, "shift_on") else shift
         return dict(higgs_f=lambda: mh.histogram_multi(*hf),
                     higgs_q=lambda: mh.histogram_multi_quantized(*hqa),
-                    root=lambda: mh.histogram_multi(*ra, shift=shift),
+                    root=lambda: mh.histogram_multi(*ra, shift=s),
                     int8_win=lambda: mh.histogram_multi_quantized(*ga),
-                    round=lambda: mr.round_megakernel(*args, **kw),
+                    round=lambda: mr.round_megakernel(*args, **{**kw, "shift": s}),
                     part10=lambda: mp.partition_segments(*pa10),
                     part20=lambda: mp.partition_segments(*pa20),
                     part_tiny=lambda: mp.partition_segments(*pa_tiny))
@@ -1186,9 +1332,9 @@ def variants(parent) -> int:
     ms = {}
     for name, pb in probe.items():
         pa = (pb,) + ra[1:]
-        same(hc.histogram_multi(*pa, shift=shift), hc.histogram_multi_plain(*pa, shift=shift),
-             f"bank probe {name}")
-        ms[name] = cuda_ms(lambda: hc.histogram_multi(*pa, shift=shift), iters=5, warmup=2)
+        same(hc.histogram_multi(*pa, shift=shift_t),
+             hc.histogram_multi_plain(*pa, shift=shift), f"bank probe {name}")
+        ms[name] = cuda_ms(lambda: hc.histogram_multi(*pa, shift=shift_t), iters=5, warmup=2)
     log("bank probe, root pass ms: " + json.dumps(ms))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
@@ -1204,6 +1350,8 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     if sys.argv[1:2] == ["--variants"]:
         return variants(sys.argv[2] if len(sys.argv) > 2 else None)
+    if sys.argv[1:2] == ["--turns"] and len(sys.argv) > 2:
+        return turns(sys.argv[2])
     import lightgbm_tpu_torch as lgt
     from lightgbm_tpu_torch.ops import cuda_build
     from lightgbm_tpu_torch.ops import hist_cuda as hc
@@ -1251,7 +1399,21 @@ def main() -> int:
             f"ragged(N=200003,F=130) max_abs_err={ragged[name]['max_abs_err']:.3g}")
     log(f"phase 2 kernels: ok in {time.perf_counter() - t0:.2f} s")
 
-    # ---- 3. train, float ----
+    counted = (hc, pc, rc)
+
+    def reset():
+        for m in counted:
+            m.reset_counts()
+
+    def plain_total():
+        return sum(sum(m.plain_calls.values()) for m in counted)
+
+    def counts():
+        """Launches of (B1 float, B1 int8, B2, B3) since the last reset."""
+        return (hc.launches["histogram_multi"], hc.launches["histogram_multi_quantized"],
+                pc.launches["partition_segments"], rc.launches["round_megakernel"])
+
+    # ---- 3. train, float: graph mode and eager mode in turns ----
     t0 = time.perf_counter()
     X, y = higgs_like(N_TRAIN + N_TEST, SEED)
     Xtr, ytr, Xte, yte = X[:N_TRAIN], y[:N_TRAIN], X[N_TRAIN:], y[N_TRAIN:]
@@ -1262,17 +1424,18 @@ def main() -> int:
     train_set.construct()
     log(f"phase 3 data: {N_TRAIN}+{N_TEST} rows x {N_FEAT} binned in "
         f"{time.perf_counter() - t0:.2f} s")
-    hc.reset_counts()
-    bst, it_s = train_timed(lgt, base, train_set, ROUNDS_FLOAT)
-    torch.cuda.synchronize()
-    launches_float = dict(hc.launches)
-    plain_float = dict(hc.plain_calls)
-    if launches_float["histogram_multi"] < ROUNDS_FLOAT:
-        raise AssertionError(f"float kernel launched {launches_float} times in "
-                             f"{ROUNDS_FLOAT} rounds")
-    if any(plain_float.values()) or launches_float["histogram_multi_quantized"]:
-        raise AssertionError(f"plain version or int8 kernel ran: {plain_float} "
-                             f"{launches_float}")
+    t0 = time.perf_counter()
+    runs3 = train_turns(lgt, base, train_set, ROUNDS_FLOAT, MODEL_SHA["higgs_float"],
+                        counts, plain_total)
+    for r in runs3:
+        st, (b1, b1q, b2, b3) = r["st"], r["launches"]
+        # B1: the root pass a tree (eager), one a round, one a warm-up round
+        # before each capture; the rounds grower makes no blocking read
+        if not (b1 == st["trees"] + st["rounds"] + st["captures"] and b1q == b2 == b3 == 0
+                and st["host_syncs"] == 0 and st["trees"] == ROUNDS_FLOAT):
+            raise AssertionError(f"Higgs float {r['mode']} run: {st} launches {r['launches']}")
+        log(turn_line("phase 3 train float", r))
+    bst, b1_h, per_replay_h = runs3[0]["bst"], runs3[0]["launches"][0], runs3[0]["st"]["per_replay"]
     p = bst.predict(Xte)
     if p.shape != (N_TEST,) or not np.all(np.isfinite(p)):
         raise AssertionError("predictions are not finite (N,) values")
@@ -1284,31 +1447,25 @@ def main() -> int:
     if not np.array_equal(p, p2):
         raise AssertionError("reloaded model predicts differently")
     small_err = small_vs_cpu(lgt, {**base, "num_leaves": 15}, Xtr, ytr, Xte)
-    log(f"phase 3 train float: ok {ROUNDS_FLOAT} rounds it/s={it_s:.4f} "
-        f"auc={a:.5f} (floor {AUC_FLOOR}) launches={launches_float['histogram_multi']} "
-        f"({launches_float['histogram_multi'] / ROUNDS_FLOAT:.2f}/round) "
-        f"plain_calls=0 reload=bitwise small-vs-cpu max|d|={small_err:.3g} "
-        f"model_sha256={model_sha(bst)} in {time.perf_counter() - t0:.2f} s")
-    wall_ms, busy_ms, top = profile_rounds(lgt, base, train_set, 5)
-    if busy_ms > 0:
-        log(f"phase 3 profile (5 rounds after a warm one): wall_ms={wall_ms:.2f} "
-            f"device_busy_ms={busy_ms:.2f} idle_share={1 - busy_ms / wall_ms:.4f} top: "
-            + "; ".join(f"{k} {ms:.3f} ms x{c}" for k, ms, c in top))
-    else:
-        log(f"phase 3 profile: wall_ms={wall_ms:.2f}, device time not measured "
-            "(the profiler saw no device activity)")
+    st = runs3[0]["st"]
+    log(f"phase 3 train float: ok {ROUNDS_FLOAT} rounds auc={a:.5f} (floor {AUC_FLOOR}) "
+        f"B1 launches={b1_h} = {st['trees']} root passes + "
+        f"{st['rounds']} tree-rounds (each the last a no-op the one-behind read "
+        f"launches) + {st['captures']} warm-up before the capture; plain_calls=0 "
+        f"reload=bitwise small-vs-cpu max|d|={small_err:.3g} graph == eager sha256 "
+        f"in {time.perf_counter() - t0:.2f} s")
+    for mode in ("graph", "eager", "graph", "eager"):
+        log(profile_line(f"phase 3 profile {mode} (5 rounds after a warm one)", profile_rounds(
+            lgt, {**base, "fused_training": mode == "graph"}, train_set, 5)))
 
-    # ---- 4. train, int8 ----
+    # ---- 4. train, int8 (eager in both packages) ----
     t0 = time.perf_counter()
     qparams = {**base, "use_quantized_grad": True}
-    hc.reset_counts()
-    bst_q, it_s_q = train_timed(lgt, qparams, train_set, ROUNDS_INT8)
-    torch.cuda.synchronize()
-    launches_int8 = dict(hc.launches)
-    if (launches_int8["histogram_multi_quantized"] < ROUNDS_INT8
-            or any(hc.plain_calls.values())):
-        raise AssertionError(f"int8 run: launches {launches_int8}, plain "
-                             f"{hc.plain_calls}")
+    (r4,) = train_turns(lgt, qparams, train_set, ROUNDS_INT8, MODEL_SHA["higgs_int8"],
+                        counts, plain_total, turns=("ineligible",))
+    bst_q, b1q_h = r4["bst"], r4["launches"][1]
+    if b1q_h < ROUNDS_INT8 or not bst_q._gbdt.cfg.fused_training:
+        raise AssertionError(f"int8 run: launches {r4['launches']}")
     pq = bst_q.predict(Xte)
     aq = auc(yte, pq)
     if not (np.all(np.isfinite(pq)) and aq >= AUC_FLOOR_INT8):
@@ -1317,12 +1474,11 @@ def main() -> int:
     small_err_q = small_vs_cpu(
         lgt, {**qparams, "num_leaves": 15, "stochastic_rounding": False},
         Xtr, ytr, Xte)
-    log(f"phase 4 train int8: ok {ROUNDS_INT8} rounds it/s={it_s_q:.4f} "
-        f"auc={aq:.5f} (floor {AUC_FLOOR_INT8}) "
-        f"launches={launches_int8['histogram_multi_quantized']} "
-        f"({launches_int8['histogram_multi_quantized'] / ROUNDS_INT8:.2f}/round) "
-        f"small-vs-cpu max|d|={small_err_q:.3g} model_sha256={model_sha(bst_q)} "
-        f"in {time.perf_counter() - t0:.2f} s")
+    log(turn_line("phase 4 train int8 (fused_training=true, not eligible: eager)", r4))
+    log(f"phase 4 train int8: ok {ROUNDS_INT8} rounds auc={aq:.5f} (floor "
+        f"{AUC_FLOOR_INT8}) int8 launches={b1q_h} ({b1q_h / ROUNDS_INT8:.2f}/round) "
+        f"small-vs-cpu max|d|={small_err_q:.3g} in {time.perf_counter() - t0:.2f} s")
+    del runs3, r4
 
     # ---- 5. the Epsilon-shaped set ----
     t0 = time.perf_counter()
@@ -1343,34 +1499,22 @@ def main() -> int:
         f"{time.perf_counter() - t0 - t_gen:.2f} s; leaf tile {tile_w} float, "
         f"{tile_wq} int8")
 
-    counted = (hc, pc, rc)
-
-    def reset():
-        for m in counted:
-            m.reset_counts()
-
-    def plain_total():
-        return sum(sum(m.plain_calls.values()) for m in counted)
-
-    def counts():
-        """Launches of (B1 float, B1 int8, B2, B3) since the last reset."""
-        return (hc.launches["histogram_multi"], hc.launches["histogram_multi_quantized"],
-                pc.launches["partition_segments"], rc.launches["round_megakernel"])
-
-    # ---- 6. windowed training, float: the round megakernel ----
+    # ---- 6. windowed training, float: the round megakernel, in turns ----
     t0 = time.perf_counter()
-    reset()
-    bst_w, it_w = train_timed(lgt, eps, eps_set, EPS_ROUNDS_FLOAT)
-    torch.cuda.synchronize()
-    st_w = tree_stats(bst_w)
-    b1_w, b1q_w, part_launches_float, mk_launches = counts()
-    if not (all(st_w["megakernel"]) and mk_launches == st_w["rounds"]
-            and part_launches_float == 0 and b1q_w == 0
-            and b1_w == st_w["trees"] == EPS_ROUNDS_FLOAT and plain_total() == 0
-            and st_w["host_syncs"] == st_w["trees"]):
-        raise AssertionError(f"windowed float run: {st_w} launches (B1 float, B1 "
-                             f"int8, B2, B3) {counts()} plain "
-                             f"{[m.plain_calls for m in counted]}")
+    runs6 = train_turns(lgt, eps, eps_set, EPS_ROUNDS_FLOAT, MODEL_SHA["eps_float"],
+                        counts, plain_total)
+    for r in runs6:
+        st, (b1, b1q, b2, b3) = r["st"], r["launches"]
+        # B3 a round (a replay in graph mode) plus the warm-up before each
+        # capture; B1 the root pass a tree; one blocking read a tree
+        if not (all(st["megakernel"]) and b3 == st["rounds"] + st["captures"]
+                and b2 == b1q == 0 and b1 == st["trees"] == EPS_ROUNDS_FLOAT
+                and st["host_syncs"] == st["trees"]):
+            raise AssertionError(f"windowed float {r['mode']} run: {st} launches "
+                                 f"(B1 float, B1 int8, B2, B3) {r['launches']}")
+        log(turn_line("phase 6 windowed float", r))
+    bst_w, st_w = runs6[0]["bst"], runs6[0]["st"]
+    b1_w, mk_launches = runs6[0]["launches"][0], runs6[0]["launches"][3]
     pw = bst_w.predict(Xte)
     if pw.shape != (EPS_N_TEST,) or not np.all(np.isfinite(pw)):
         raise AssertionError("windowed predictions are not finite (N,) values")
@@ -1379,24 +1523,22 @@ def main() -> int:
         raise AssertionError(f"windowed held-out AUC {a_w:.5f} < floor {AUC_FLOOR_EPS}")
     if not np.array_equal(pw, lgt.Booster(model_str=bst_w.model_to_string()).predict(Xte)):
         raise AssertionError("reloaded windowed model predicts differently")
-    log(f"phase 6 windowed float: ok {EPS_ROUNDS_FLOAT} rounds it/s={it_w:.4f} "
-        f"auc={a_w:.5f} (floor {AUC_FLOOR_EPS}) tree-rounds={st_w['rounds']} "
-        f"round-kernel launches={mk_launches} "
-        f"({mk_launches / st_w['rounds']:.2f}/tree-round) float histogram "
-        f"launches={b1_w} (the root pass, 1/tree) partition launches=0 "
+    log(f"phase 6 windowed float: ok {EPS_ROUNDS_FLOAT} rounds auc={a_w:.5f} (floor "
+        f"{AUC_FLOOR_EPS}) tree-rounds={st_w['rounds']} round-kernel launches="
+        f"{mk_launches} ({st_w['replays']} replays + {st_w['captures']} warm-ups) float "
+        f"histogram launches={b1_w} (the root pass, 1/tree) partition launches=0 "
         f"plain_calls=0 retries={st_w['retries']} windows={st_w['windows']} "
         f"blocking host reads/tree={st_w['host_syncs'] / st_w['trees']:.2f} "
-        f"(the exponents, before round 1) async resolves={st_w['resolves']} "
-        f"reload=bitwise model_sha256={model_sha(bst_w)} "
-        f"in {time.perf_counter() - t0:.2f} s")
-    wall_ms, busy_ms, top = profile_rounds(lgt, eps, eps_set, 2)
-    if busy_ms > 0:
-        log(f"phase 6 profile (2 trees after a warm one): wall_ms={wall_ms:.2f} "
-            f"device_busy_ms={busy_ms:.2f} idle_share={1 - busy_ms / wall_ms:.4f} top: "
-            + "; ".join(f"{k} {ms:.3f} ms x{c}" for k, ms, c in top))
-    else:
-        log(f"phase 6 profile: wall_ms={wall_ms:.2f}, device time not measured "
-            "(the profiler saw no device activity)")
+        f"(the gradients' maxima, before round 1) async resolves={st_w['resolves']} "
+        f"reload=bitwise graph == eager sha256 in {time.perf_counter() - t0:.2f} s")
+    prof6 = {}
+    for mode in ("graph", "eager"):
+        prof6[mode] = profile_rounds(lgt, {**eps, "fused_training": mode == "graph"},
+                                     eps_set, 2)
+        log(profile_line(f"phase 6 profile {mode} (2 trees after a warm one)",
+                         prof6[mode]))
+    del runs6
+    torch.cuda.empty_cache()
 
     # ---- 7. the windowed path's kernels vs plain versions ----
     t0 = time.perf_counter()
@@ -1433,32 +1575,40 @@ def main() -> int:
         + "; ".join(f"{k} {ph[k]:.4f} (bound {pb[k][0]:.4f}, {pb[k][1]})"
                     for k, _ in ROUND_PHASES)
         + f"; other {ph['other']:.4f}; sum {sum(ph.values()):.4f}")
-    del gb, g_eps, h_eps
+    per_replay_w = st_w["per_replay"]
+    del gb, g_eps, h_eps, bst_w
     torch.cuda.empty_cache()
 
-    # ---- 8. windowed training, int8: the three-pass round ----
+    # ---- 8. windowed training, int8: the three-pass round, in turns ----
     t0 = time.perf_counter()
     eps_q = {**eps, "use_quantized_grad": True}
-    reset()
-    bst_q8, it_q8 = train_timed(lgt, eps_q, eps_set, EPS_ROUNDS_INT8)
-    torch.cuda.synchronize()
-    st_q = tree_stats(bst_q8)
-    l_q = counts()
-    _, i8_launches, part_launches, _ = l_q
-    if not (l_q == (0, st_q["rounds"] + st_q["trees"], st_q["rounds"], 0)
-            and plain_total() == 0 and st_q["host_syncs"] == st_q["trees"]
-            and st_q["excluded"] == ["quantized"] * EPS_ROUNDS_INT8):
-        raise AssertionError(f"windowed int8 run: {st_q} launches (B1 float, B1 int8, "
-                             f"B2, B3) {l_q}")
+    runs8 = train_turns(lgt, eps_q, eps_set, EPS_ROUNDS_INT8, MODEL_SHA["eps_int8"],
+                        counts, plain_total, turns=("graph", "eager"))
+    for r in runs8:
+        st, l_q = r["st"], r["launches"]
+        per = st["rounds"] + st["captures"]  # a replay a round, a warm-up a capture
+        if not (l_q == (0, per + st["trees"], per, 0) and st["host_syncs"] == st["trees"]
+                and st["excluded"] == ["quantized"] * EPS_ROUNDS_INT8):
+            raise AssertionError(f"windowed int8 {r['mode']} run: {st} launches (B1 "
+                                 f"float, B1 int8, B2, B3) {l_q}")
+        log(turn_line("phase 8 windowed int8", r))
+    bst_q8, st_q = runs8[0]["bst"], runs8[0]["st"]
+    _, i8_launches, part_launches, _ = runs8[0]["launches"]
     a_q8 = auc(yte, bst_q8.predict(Xte))
     if not a_q8 >= AUC_FLOOR_EPS_INT8:
         raise AssertionError(f"windowed int8 AUC {a_q8:.5f} < floor {AUC_FLOOR_EPS_INT8}")
-    log(f"phase 8 windowed int8: ok {EPS_ROUNDS_INT8} rounds it/s={it_q8:.4f} "
-        f"auc={a_q8:.5f} (floor {AUC_FLOOR_EPS_INT8}) tree-rounds={st_q['rounds']} "
-        f"partition launches={part_launches} int8 histogram launches={i8_launches} "
-        f"(window passes + roots) round-kernel launches=0 megakernel excluded: "
-        f"quantized retries={st_q['retries']} model_sha256={model_sha(bst_q8)} "
+    log(f"phase 8 windowed int8: ok {EPS_ROUNDS_INT8} rounds auc={a_q8:.5f} (floor "
+        f"{AUC_FLOOR_EPS_INT8}) tree-rounds={st_q['rounds']} partition launches="
+        f"{part_launches} int8 histogram launches={i8_launches} (window passes + "
+        f"warm-ups + roots) round-kernel launches=0 megakernel excluded: quantized "
+        f"retries={st_q['retries']} graph == eager sha256 "
         f"in {time.perf_counter() - t0:.2f} s")
+    for mode in ("graph", "eager"):
+        log(profile_line(f"phase 8 profile {mode} (2 trees after a warm one)", profile_rounds(
+            lgt, {**eps_q, "fused_training": mode == "graph"}, eps_set, 2)))
+    per_replay_q = st_q["per_replay"]
+    del runs8, bst_q8
+    torch.cuda.empty_cache()
 
     # ---- 9. megakernel against the three-pass round ----
     t0 = time.perf_counter()
@@ -1469,15 +1619,19 @@ def main() -> int:
     b_mk = lgt.train(eps, small, 2)
     torch.cuda.synchronize()
     st_mk, l_mk = tree_stats(b_mk), counts()
+    # counted from replays: one a round, plus the warm-up round before each capture
     if not (all(st_mk["megakernel"]) and plain_total() == 0
-            and l_mk == (st_mk["trees"], 0, 0, st_mk["rounds"])):
+            and st_mk["replays"] == st_mk["rounds"]
+            and l_mk == (st_mk["trees"], 0, 0, st_mk["rounds"] + st_mk["captures"])):
         raise AssertionError(f"parity, megakernel: {st_mk} launches {l_mk}")
     reset()
     b_3p = lgt.train({**eps, "megakernel": "0"}, small, 2)
     torch.cuda.synchronize()
     st_3p, l_3p = tree_stats(b_3p), counts()
+    per = st_3p["rounds"] + st_3p["captures"]
     if not (not any(st_3p["megakernel"]) and plain_total() == 0
-            and l_3p == (st_3p["rounds"] + st_3p["trees"], 0, st_3p["rounds"], 0)):
+            and st_3p["replays"] == st_3p["rounds"]
+            and l_3p == (per + st_3p["trees"], 0, per, 0)):
         raise AssertionError(f"parity, three-pass: {st_3p} launches (B1 float, B1 "
                              f"int8, B2, B3) {l_3p} plain "
                              f"{[m.plain_calls for m in counted]}")
@@ -1485,8 +1639,9 @@ def main() -> int:
     log(f"phase 9 megakernel vs three-pass: ok {EPS_PARITY_ROWS} rows, 2 trees, "
         f"nodes equal, leaf counts equal, leaf values max rel gap {gap:.3g}; "
         f"launches (B1 float, B1 int8, B2, B3) megakernel {l_mk}, three-pass {l_3p} "
-        f"over {st_mk['rounds']} / {st_3p['rounds']} tree-rounds, plain_calls=0 "
-        f"in {time.perf_counter() - t0:.2f} s")
+        f"over {st_mk['rounds']} / {st_3p['rounds']} tree-rounds (replays) and "
+        f"{st_mk['captures']} / {st_3p['captures']} captures (a warm-up round each), "
+        f"plain_calls=0 in {time.perf_counter() - t0:.2f} s")
 
     # ---- 10. device ----
     smi = subprocess.run(
@@ -1499,40 +1654,45 @@ def main() -> int:
 
     src, tpu = "lightgbm_tpu_torch/csrc/hist.cu", "lightgbm_tpu/ops/hist_pallas.py:120"
     kernels = []
-    for name, key, launches in (
-            ("histogram_multi", "float", launches_float["histogram_multi"]),
-            ("histogram_multi_quantized", "int8",
-             launches_int8["histogram_multi_quantized"])):
+    for name, key, launches, per_replay in (
+            ("histogram_multi", "float", b1_h, per_replay_h.get("histogram_multi", 0)),
+            ("histogram_multi_quantized", "int8", b1q_h, 0)):
         r = main_case[key]
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": tpu,
-            "launches": launches, "max_abs_err": max(r["max_abs_err"],
-                                                     ragged[key]["max_abs_err"]),
+            "launches": launches, "in_graph": per_replay > 0,
+            "launches_per_replay": per_replay,
+            "max_abs_err": max(r["max_abs_err"], ragged[key]["max_abs_err"]),
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     r = ek
-    for name, pre, launches in (
-            ("histogram_multi_epsilon_root", "root", b1_w),
+    for name, pre, launches, per_replay in (
+            ("histogram_multi_epsilon_root", "root", b1_w, 0),
             ("histogram_multi_quantized_epsilon_window", "int8_hist",
-             i8_launches - st_q["trees"])):
+             i8_launches - st_q["trees"], per_replay_q.get("histogram_multi_quantized", 0))):
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": tpu,
-            "launches": launches, "max_abs_err": 0.0, "ms": r[f"{pre}_ms"],
+            "launches": launches, "in_graph": per_replay > 0,
+            "launches_per_replay": per_replay, "max_abs_err": 0.0, "ms": r[f"{pre}_ms"],
             "plain_ms": r[f"{pre}_plain_ms"], "bound_ms": r[f"{pre}_bound_ms"],
             "bound_by": r[f"{pre}_bound_by"], "library_ms": r[f"{pre}_library_ms"]})
+    per_replay = per_replay_q.get("partition_segments", 0)
     kernels.append({
         "name": "partition_segments", "route": "cuda",
         "source": "lightgbm_tpu_torch/csrc/partition.cu",
         "replaces": "lightgbm_tpu/ops/partition_pallas.py:188",
-        "launches": part_launches, "max_abs_err": 0.0, "ms": r["part_ms"],
+        "launches": part_launches, "in_graph": per_replay > 0,
+        "launches_per_replay": per_replay, "max_abs_err": 0.0, "ms": r["part_ms"],
         "plain_ms": r["part_plain_ms"], "bound_ms": r["part_bound_ms"],
         "bound_by": "bytes", "library_ms": r["part_library_ms"],
         "device_ms": r["part_device_ms"], "floor_ms": r["part_floor_ms"]})
+    per_replay = per_replay_w.get("round_megakernel", 0)
     kernels.append({
         "name": "round_megakernel", "route": "cuda",
         "source": "lightgbm_tpu_torch/csrc/round.cu",
         "replaces": "lightgbm_tpu/ops/round_pallas.py:107",
-        "launches": mk_launches,
+        "launches": mk_launches, "in_graph": per_replay > 0,
+        "launches_per_replay": per_replay,
         "max_abs_err": 0.0,
         "ms": r["round_ms"], "plain_ms": r["round_plain_ms"],
         "bound_ms": r["round_bound_ms"], "bound_by": r["round_bound_by"],

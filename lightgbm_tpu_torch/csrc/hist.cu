@@ -57,8 +57,9 @@
 //   outside [0, tile) (e.g. -1 for inactive rows) are skipped; any F works.
 // * A launch allocates nothing: the Python wrapper passes zeroed scratch.
 //
-// * The exponent may also be given (explicit_shift): the windowed grower
-//   fixes it once per tree from all N rows, so a histogram of a window of
+// * The exponent may also be given (shift, an int32[2] in device memory):
+//   the windowed grower fixes it once per tree from all N rows, so a
+//   histogram of a window of
 //   rows, here or in the round megakernel (round.cu, which shares this
 //   device code through hist_common.cuh), rounds exactly as the full-N
 //   pass of the rounds grower would.
@@ -117,19 +118,19 @@ cudaError_t launch_hist(const void* bins, const void* g, const void* h, const vo
 extern "C" {
 
 // Float histogram.  acc64 (tile, 2, F, B) and acc32 (tile, F, B) must be
-// zeroed by the caller; out is (tile, 3, F, B) f32.  With explicit_shift the
-// fixed-point exponents are (sg, sh); otherwise they come from max |grad|,
-// max |hess| over the n rows (absmax, 2 x u32, zeroed by the caller) and
-// row_bits = bitlen(n).  Returns a cudaError_t (0 = success).
+// zeroed by the caller; out is (tile, 3, F, B) f32.  With shift (int32[2] in
+// device memory) the fixed-point exponents are shift[0], shift[1]; with
+// shift = nullptr they come from max |grad|, max |hess| over the n rows
+// (absmax, 2 x u32, zeroed by the caller) and row_bits = bitlen(n).  Returns
+// a cudaError_t (0 = success).
 int lgbt_hist_multi_f32(const void* bins, const void* grad, const void* hess,
                         const void* mask, const void* slot, long long n, int F,
-                        int leaf_base, int tile, int B, int row_bits, int explicit_shift,
-                        int sg, int sh, void* absmax, void* acc64, void* acc32, void* out,
-                        void* stream) {
+                        int leaf_base, int tile, int B, int row_bits, const void* shift_dev,
+                        void* absmax, void* acc64, void* acc32, void* out, void* stream) {
   if (n <= 0 || F <= 0 || tile <= 0 || B <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  Shift shift{nullptr, row_bits, sg, sh};
-  if (!explicit_shift) {
+  Shift shift{nullptr, row_bits, static_cast<const int*>(shift_dev)};
+  if (shift_dev == nullptr) {
     unsigned int* am = static_cast<unsigned int*>(absmax);
     lgbt::absmax_kernel<<<lgbt::grid_for(n), kThreads, 0, st>>>(
         static_cast<const float*>(grad), static_cast<const float*>(hess), n, am);
@@ -154,7 +155,7 @@ int lgbt_hist_multi_i8(const void* bins, const void* grad_q, const void* hess_q,
                        int leaf_base, int tile, int B, void* out, void* stream) {
   if (n <= 0 || F <= 0 || tile <= 0 || B <= 0) return (int)cudaErrorInvalidValue;
   return (int)launch_hist<true>(bins, grad_q, hess_q, mask, slot, n, F, leaf_base, tile, B,
-                                Shift{nullptr, 0, 0, 0}, nullptr, static_cast<int*>(out),
+                                Shift{nullptr, 0, nullptr}, nullptr, static_cast<int*>(out),
                                 static_cast<cudaStream_t>(stream));
 }
 

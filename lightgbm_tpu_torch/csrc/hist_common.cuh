@@ -65,11 +65,13 @@ __device__ __forceinline__ int fixed_shift(unsigned int absmax_bits, int row_bit
 }
 
 // Fixed-point exponents of grad and hess: derived on the device from max |v|
-// over the call's rows (absmax != nullptr), or given by the caller.
+// over the call's rows (absmax != nullptr), or given by the caller as an
+// int32[2] in device memory (given), so a captured CUDA graph reads each
+// tree's exponents when it replays instead of baking in the first tree's.
 struct Shift {
   const unsigned int* absmax;
   int row_bits;
-  int sg, sh;
+  const int* given;
 };
 
 __device__ __forceinline__ void shifts_of(const Shift& s, int* g, int* h) {
@@ -77,8 +79,8 @@ __device__ __forceinline__ void shifts_of(const Shift& s, int* g, int* h) {
     *g = fixed_shift(s.absmax[0], s.row_bits);
     *h = fixed_shift(s.absmax[1], s.row_bits);
   } else {
-    *g = s.sg;
-    *h = s.sh;
+    *g = s.given[0];
+    *h = s.given[1];
   }
 }
 

@@ -377,7 +377,19 @@ inline cudaError_t launch_partition(PartitionArgs a, bool n_left_given, cudaStre
   cudaError_t e = partition_grid(fn, chunks_of(a.n) + 2 * (int64_t)a.S + 1, &grid);
   if (e != cudaSuccess) return e;
   void* args[] = {&a};
-  return cudaLaunchCooperativeKernel(fn, dim3(grid), dim3(kBlock), args, 0, st);
+  // cooperative through the extensible launch, which stream capture records
+  // as a kernel node with the cooperative attribute (a captured CUDA graph
+  // then launches it cooperatively on every replay)
+  cudaLaunchAttribute coop[1];
+  coop[0].id = cudaLaunchAttributeCooperative;
+  coop[0].val.cooperative = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(kBlock);
+  cfg.stream = st;
+  cfg.attrs = coop;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelExC(&cfg, fn, args);
 }
 
 }  // namespace lgbt

@@ -79,11 +79,11 @@ struct GainParams {
 // subtraction from the parent; writes left and right (T, 3, F, B)
 __global__ void __launch_bounds__(kThreads)
 subtract_kernel(const unsigned long long* __restrict__ acc64, const int* __restrict__ acc32,
-                int sg, int sh, const float* __restrict__ parent,
+                const int* __restrict__ shift, const float* __restrict__ parent,
                 const int32_t* __restrict__ small_left, int64_t T, int64_t FBg,
                 float* __restrict__ left, float* __restrict__ right) {
-  const double inv_g = ldexp(1.0, -sg);
-  const double inv_h = ldexp(1.0, -sh);
+  const double inv_g = ldexp(1.0, -shift[0]);
+  const double inv_h = ldexp(1.0, -shift[1]);
   const int64_t total = T * FBg;
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
   for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < total; i += stride) {
@@ -281,7 +281,9 @@ extern "C" {
 // u8 per position; seg_start, seg_len, n_left, win_start, win_cnt,
 // small_left (T,) i32; grad, hess (n,) f32; mask (n,) u8; parent, left,
 // right (T, 3, F, B) f32; nbpf, mbpf (F,) i32; fmask (F,) u8; cand (4, 2T)
-// f32; the six per-feature outputs (2T, F).  Scratch: the partition's
+// f32; the six per-feature outputs (2T, F); shift, the tree's fixed-point
+// exponents of grad and hess, int32[2] in device memory (read when the
+// kernels run, so a captured graph takes each tree's).  Scratch: the partition's
 // (partition.cu: 2 u32 words + (ceil(n/4096) + T) u64 words, zeroed before
 // its first use and left ready by every launch), acc64 (T, 2, F, B) u64,
 // acc32 (T, F, B) i32 (zeroed here).  W bounds the windows' total row
@@ -291,7 +293,7 @@ int lgbt_round(const void* bins, long long n, int F, int B, int T, const void* o
                const void* go, const void* seg_start, const void* seg_len, const void* n_left,
                void* scratch, void* out_order, const void* grad,
                const void* hess, const void* mask, const void* win_start, const void* win_cnt,
-               const void* small_left, long long W, int sg, int sh, void* acc64, void* acc32,
+               const void* small_left, long long W, const void* shift, void* acc64, void* acc32,
                const void* parent, void* left, void* right, const void* nbpf, const void* mbpf,
                const void* fmask, const void* cand, float l1, float l2, float min_data,
                float min_hess, float min_gain, float max_delta, float path_smooth,
@@ -310,6 +312,7 @@ int lgbt_round(const void* bins, long long n, int F, int B, int T, const void* o
   if (e != cudaSuccess) return (int)e;
   // ---- 2. window histograms through the new order ----
   const int64_t FBg = (int64_t)F * B;
+  const int* sh_dev = static_cast<const int*>(shift);
   e = cudaMemsetAsync(acc64, 0, (size_t)T * 2 * FBg * sizeof(unsigned long long), st);
   if (e != cudaSuccess) return (int)e;
   e = cudaMemsetAsync(acc32, 0, (size_t)T * FBg * sizeof(int), st);
@@ -323,14 +326,14 @@ int lgbt_round(const void* bins, long long n, int F, int B, int T, const void* o
                    static_cast<const uint8_t*>(mask), nullptr,
                    static_cast<const int32_t*>(out_order), static_cast<const int32_t*>(win_start),
                    static_cast<const int32_t*>(win_cnt), W, F, 0, T, B, p.FB, p.SB, p.n_fgroups,
-                   p.n_sgroups, lgbt::Shift{nullptr, 0, sg, sh},
+                   p.n_sgroups, lgbt::Shift{nullptr, 0, sh_dev},
                    static_cast<unsigned long long*>(acc64), static_cast<int*>(acc32)};
   lgbt::hist_kernel<false, true><<<p.blocks, kThreads, p.smem, st>>>(a);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   // ---- 3. subtraction ----
   subtract_kernel<<<lgbt::grid_for(T * FBg), kThreads, 0, st>>>(
-      static_cast<const unsigned long long*>(acc64), static_cast<const int*>(acc32), sg, sh,
+      static_cast<const unsigned long long*>(acc64), static_cast<const int*>(acc32), sh_dev,
       static_cast<const float*>(parent), static_cast<const int32_t*>(small_left), T, FBg,
       static_cast<float*>(left), static_cast<float*>(right));
   e = cudaGetLastError();

@@ -12,6 +12,16 @@ shrinkage`, which is a gather because the grower keeps every row's leaf id.
 Trees stay device TreeArrays until something needs host trees
 (save/predict), as in the JAX package.
 
+``fused_training`` (default true) is honoured as the JAX package's
+one-dispatch contracts: every windowed round, and every round of the rounds
+grower where ``_fused_eligible`` holds, runs through one ops/graphs.py
+cache a training, one CUDA-graph replay a round on the card (on the CPU the
+same round functions run eagerly on the same static buffers).  Gradients,
+the root pass, the tree's finalize and the score update stay eager around
+the replays.  With fused_training=false every round is eager torch
+launches.  Nothing falls back from one to the other.  Whether training can
+go on is read from the device every 32 iterations, as the JAX package does.
+
 Not ported yet, and rejected at construction: DART/RF/GOSS (queue A8),
 multiclass (A4), the strict grower (A7), and the options of the grower
 envelope that ops/treegrow_fast.py does not carry (A5/A8).
@@ -30,9 +40,11 @@ from ..metrics import Metric, create_metrics
 from ..objectives import Objective, create_objective
 from ..ops import predict as predict_ops
 from ..ops.hist_cuda import recommended_leaf_tile
+from ..ops.graphs import RoundGraphs
 from ..ops.split import SplitParams
 from ..ops.treegrow_fast import grow_tree_fast, predict_leaf_arrays
 from ..ops.treegrow_windowed import grow_tree_windowed
+from ..utils import sanitizer as _san
 from .tree import Tree, tree_from_device
 
 _MODEL_VERSION = "v4"
@@ -106,9 +118,13 @@ class GBDT:
         self.binner = None
         self._last_mask = None
         self.device = torch.device("cpu")
-        # per-tree round-driver stats of the windowed grower (rounds,
-        # host_syncs, async_resolves, retries, windows, megakernel, ...)
-        self.windowed_stats: List[dict] = []
+        # per-tree round-driver stats of both growers (grower, rounds,
+        # host_syncs, async_resolves, captures, replays, dispatches, retries,
+        # windows; the windowed grower's megakernel and megakernel_excluded)
+        self.round_stats: List[dict] = []
+        # the captured rounds of this training (fused_training)
+        self._round_graphs: Optional[RoundGraphs] = None
+        self._round_graphs_shape: Optional[tuple] = None
         if train_set is not None:
             self.reset_training_data(train_set)
 
@@ -142,6 +158,7 @@ class GBDT:
                 + " (see ROADMAP queue A)")
         self.device = dev = resolve_device(cfg)
         self.train_set = train_set
+        self._round_graphs = None
         train_set.construct(device=dev)
         self.binner = train_set.binner
         self.feature_names = list(train_set.feature_names)
@@ -261,10 +278,46 @@ class GBDT:
         return (self.device.type == "cuda" and bool(flag)
                 and ts.num_feature() >= 512 and self.cfg.num_leaves >= 64)
 
+    @property
+    def windowed_stats(self) -> List[dict]:
+        """round_stats of the windowed grower's trees."""
+        return [s for s in self.round_stats if s["grower"] == "windowed"]
+
+    def _fused_eligible(self, ts) -> bool:
+        """The JAX package's gate of its fused training step, as far as this
+        package's envelope has its conditions: the rounds grower, float
+        histograms (quantized training stays eager, as it does there),
+        num_leaves x features <= 100,000, a built-in objective that needs no
+        leaf renewal, one tree an iteration."""
+        obj = self.objective
+        return (bool(self.cfg.fused_training) and not self._use_windowed(ts)
+                and not self.cfg.use_quantized_grad
+                and self.cfg.num_leaves * ts.num_feature() <= 100_000
+                and obj is not None and not obj.need_renew and obj.is_fusable()
+                and self.num_tree_per_iteration == 1)
+
+    def _graphs(self, ts) -> Optional[RoundGraphs]:
+        """This training's cache of captured rounds, where the rounds run
+        through one: every windowed round under fused_training, the rounds
+        grower's where _fused_eligible holds."""
+        if not (self._fused_eligible(ts)
+                or (self.cfg.fused_training and self._use_windowed(ts))):
+            return None
+        # what sizes the static buffers; a parameter reset that changes it
+        # (reset_parameter) starts a new cache
+        shape = (self.cfg.num_leaves, bool(self.cfg.use_quantized_grad))
+        if self._round_graphs is None or self._round_graphs_shape != shape:
+            self._round_graphs = RoundGraphs(self.device)
+            self._round_graphs_shape = shape
+        return self._round_graphs
+
     # ------------------------------------------------------------------
     def train_one_iter(self) -> bool:
         """One boosting iteration (reference: GBDT::TrainOneIter).  Returns
-        True when training cannot continue (the tree is a single leaf)."""
+        True when training cannot continue (the tree is a single leaf),
+        checked every 32 iterations as the JAX package does: a finished
+        model only adds one-leaf trees, and a read every iteration would
+        drain the device queue."""
         ts = self.train_set
         cfg = self.cfg
         g, h = self.objective.get_gradients(self._score, self._label, self._weight)
@@ -287,15 +340,17 @@ class GBDT:
         )
         args = (ts.bins_device, g, h, row_mask, sample_weight, self._feature_mask(),
                 ts.num_bins_pf_device, ts.missing_bin_pf_device)
+        stats: dict = {}
+        common.update(stats=stats, graphs=self._graphs(ts),
+                      guard_label=f" (boosting iteration {self.iter_ + 1})")
         if self._use_windowed(ts):
-            stats: dict = {}
+            stats["grower"] = "windowed"
             arrays, leaf_id = grow_tree_windowed(
-                *args, stats=stats,
-                guard_label=f" (boosting iteration {self.iter_ + 1})",
-                megakernel_opt=cfg.extra.get("megakernel"), **common)
-            self.windowed_stats.append(stats)
+                *args, megakernel_opt=cfg.extra.get("megakernel"), **common)
         else:
+            stats["grower"] = "rounds"
             arrays, leaf_id = grow_tree_fast(*args, **common)
+        self.round_stats.append(stats)
         shrinkage = cfg.learning_rate
         self._pending.append((arrays, shrinkage))
         delta = arrays.leaf_value * np.float32(shrinkage)
@@ -305,7 +360,9 @@ class GBDT:
                                          ts.missing_bin_pf_device)
             self._valid_scores[vi] = self._valid_scores[vi] + delta[leaf_v.long()]
         self.iter_ += 1
-        return int(arrays.num_leaves) <= 1
+        if self.iter_ % 32:
+            return False
+        return int(_san.sync_pull(arrays.num_leaves)) <= 1
 
     # ------------------------------------------------------------------
     def _converted(self, score: torch.Tensor) -> np.ndarray:

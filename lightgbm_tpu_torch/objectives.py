@@ -9,6 +9,10 @@ Each objective exposes:
   * boost_from_score(label, weight) -> float init score (reference:
     ObjectiveFunction::BoostFromScore, used when boost_from_average=true)
   * convert_output(score) -> prediction-space outputs
+  * need_renew and is_fusable(), which models/gbdt.py::_fused_eligible
+    reads as the JAX package does: an objective that renews leaf outputs
+    after growth, or keeps per-iteration host state, cannot take the fused
+    path
 """
 
 from __future__ import annotations
@@ -25,9 +29,16 @@ Tensor = torch.Tensor
 
 class Objective:
     name = "custom"
+    need_renew = False
+    # get_gradients is a pure tensor function of (score, label, weight), with
+    # no per-iteration host state
+    fusable = True
 
     def __init__(self, cfg: Config):
         self.cfg = cfg
+
+    def is_fusable(self) -> bool:
+        return self.fusable
 
     def prepare(self, label: np.ndarray, weight) -> None:
         """Label-dependent state, set once per training set."""

@@ -109,3 +109,21 @@ def build_all(libs: Iterable[KernelLibrary], force: bool = False) -> list:
 
 def stream_ptr(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+# launch tallies of the CUDA graphs being captured (ops/graphs.py)
+_tallies: list = []
+
+
+def count_launch(counts: dict, name: str) -> None:
+    """Count one launch of kernel ``name`` in a wrapper's ``counts``.  While
+    a CUDA graph is being captured nothing runs: the launch is recorded in
+    the graph's tally instead, and ops/graphs.py adds it to ``counts`` at
+    every replay, so the counts are kernels launched, not Python calls."""
+    if torch.cuda.is_current_stream_capturing():
+        if not _tallies:
+            raise RuntimeError(f"{name} captured outside ops/graphs.py: its "
+                               "launches could not be counted")
+        _tallies[-1].append((counts, name))
+    else:
+        counts[name] += 1

@@ -25,7 +25,7 @@ import torch
 
 from ..utils.guards import NonFiniteError
 from ..utils.sanitizer import sync_pull
-from .cuda_build import KernelLibrary, stream_ptr
+from .cuda_build import KernelLibrary, count_launch, stream_ptr
 
 # launch counts of the kernel wrappers and call counts of the plain versions
 launches = {"histogram_multi": 0, "histogram_multi_quantized": 0}
@@ -71,8 +71,8 @@ def recommended_leaf_tile(num_bins: int, n_features_effective: int,
 # ---------------------------------------------------------------------------
 def _bind(lib: ctypes.CDLL) -> None:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.lgbt_hist_multi_f32.argtypes = [p, p, p, p, p, ll, i, i, i, i, i, i, i,
-                                        i, p, p, p, p, p]
+    lib.lgbt_hist_multi_f32.argtypes = [p, p, p, p, p, ll, i, i, i, i, i, p, p,
+                                        p, p, p, p]
     lib.lgbt_hist_multi_f32.restype = i
     lib.lgbt_hist_multi_i8.argtypes = [p, p, p, p, p, ll, i, i, i, i, p, p]
     lib.lgbt_hist_multi_i8.restype = i
@@ -108,14 +108,16 @@ def _check(bins, payload, mask, leaf_slot, payload_dtype, tile, num_bins):
 # entry points
 # ---------------------------------------------------------------------------
 def histogram_multi(bins, grad, hess, mask, leaf_slot, leaf_base: int,
-                    tile: int, num_bins: int,
-                    shift: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+                    tile: int, num_bins: int, shift=None) -> torch.Tensor:
     """(tile, 3, F, B) f32 sums of grad, hess and count of the rows with
     mask set and slot = leaf_slot - leaf_base in [0, tile).
 
-    ``shift`` = (sg, sh) fixes the fixed-point exponents of grad and hess
-    (see fixed_shift_pair); by default they come from this call's own rows,
-    fixed_shift_pair(grad, hess)."""
+    ``shift`` fixes the fixed-point exponents of grad and hess: an int32[2]
+    tensor on the rows' device (fixed_shift_tensor), which the kernel reads
+    when it runs, so a captured CUDA graph takes each tree's; or a pair of
+    ints (fixed_shift_pair), copied to the device first.  By default they
+    come from this call's own rows, as fixed_shift_pair(grad, hess) would
+    give them."""
     if not bins.is_cuda:
         return histogram_multi_plain(bins, grad, hess, mask, leaf_slot,
                                      leaf_base, tile, num_bins, shift=shift)
@@ -128,16 +130,17 @@ def histogram_multi(bins, grad, hess, mask, leaf_slot, leaf_base: int,
     absmax = torch.zeros(2, dtype=torch.int32, device=dev)
     acc64 = torch.zeros((tile, 2, f, num_bins), dtype=torch.int64, device=dev)
     acc32 = torch.zeros((tile, f, num_bins), dtype=torch.int32, device=dev)
-    sg, sh = (0, 0) if shift is None else (int(shift[0]), int(shift[1]))
+    shift = shift_on(shift, dev)
     with torch.cuda.device(dev):
         rc = LIBRARY.lib().lgbt_hist_multi_f32(
             bins.data_ptr(), grad.data_ptr(), hess.data_ptr(), mask.data_ptr(),
             leaf_slot.data_ptr(), n, f, int(leaf_base), int(tile),
-            int(num_bins), int(n).bit_length(), int(shift is not None), sg, sh,
+            int(num_bins), int(n).bit_length(),
+            None if shift is None else shift.data_ptr(),
             absmax.data_ptr(), acc64.data_ptr(), acc32.data_ptr(),
             out.data_ptr(), stream_ptr(dev))
     LIBRARY.raise_on(rc, "histogram_multi kernel")
-    launches["histogram_multi"] += 1
+    count_launch(launches, "histogram_multi")
     return out
 
 
@@ -161,7 +164,7 @@ def histogram_multi_quantized(bins, grad_q, hess_q, mask, leaf_slot,
             mask.data_ptr(), leaf_slot.data_ptr(), n, f, int(leaf_base),
             int(tile), int(num_bins), out.data_ptr(), stream_ptr(dev))
     LIBRARY.raise_on(rc, "histogram_multi_quantized kernel")
-    launches["histogram_multi_quantized"] += 1
+    count_launch(launches, "histogram_multi_quantized")
     return out
 
 
@@ -222,9 +225,37 @@ def fixed_shift_pair(grad: torch.Tensor, hess: torch.Tensor) -> Tuple[int, int]:
     return _shift_of(gm, n), _shift_of(hm, n)
 
 
+def fixed_shift_tensor(grad: torch.Tensor, hess: torch.Tensor) -> torch.Tensor:
+    """fixed_shift_pair's exponents as an int32[2] tensor, computed on
+    grad's device from the same maxima: no host read, so a round that takes
+    them stays free of syncs."""
+    n = int(grad.shape[0])
+    if n == 0:
+        return torch.full((2,), 62, dtype=torch.int32, device=grad.device)
+    am = torch.stack([grad.abs().max(), hess.abs().max()])
+    return (62 - n.bit_length() - torch.frexp(am).exponent).to(torch.int32)
+
+
+def shift_on(shift, device) -> Optional[torch.Tensor]:
+    """The exponent pair as the kernels read it: None (derive per call), or
+    an int32[2] on ``device``.  A tensor passes unchanged; a pair of ints
+    costs a host-to-device copy, so it cannot be given inside a captured
+    CUDA graph."""
+    if shift is None:
+        return None
+    if not torch.is_tensor(shift):
+        return torch.tensor([int(shift[0]), int(shift[1])], dtype=torch.int32,
+                            device=device)
+    if shift.dtype != torch.int32 or tuple(shift.shape) != (2,):
+        raise TypeError(f"shift must be (2,) int32, got {tuple(shift.shape)} "
+                        f"{shift.dtype}")
+    if shift.device != torch.device(device):
+        raise ValueError(f"shift is on {shift.device}, the rows on {device}")
+    return shift
+
+
 def histogram_multi_plain(bins, grad, hess, mask, leaf_slot, leaf_base: int,
-                          tile: int, num_bins: int,
-                          shift: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+                          tile: int, num_bins: int, shift=None) -> torch.Tensor:
     plain_calls["histogram_multi"] += 1
     n, f = bins.shape
     rows, idx = _rows_and_index(bins, mask, leaf_slot, leaf_base, tile,

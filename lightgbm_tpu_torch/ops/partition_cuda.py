@@ -17,7 +17,7 @@ import ctypes
 
 import torch
 
-from .cuda_build import KernelLibrary, stream_ptr
+from .cuda_build import KernelLibrary, count_launch, stream_ptr
 from .partition import segment_ids, stable_partition_ranges
 
 launches = {"partition_segments": 0}
@@ -50,14 +50,29 @@ def scratch(device: torch.device, stream: int, n: int, s: int) -> torch.Tensor:
     segments on ``stream`` of ``device`` (partition_common.cuh: epoch and
     block count, then one status word a segment chunk).  It is
     zeroed once when it is allocated or grown, never per call: each launch
-    leaves it ready for the next launch in stream order."""
+    leaves it ready for the next launch in stream order.  A captured CUDA
+    graph bakes in the buffer's address: ops/graphs.py keeps the buffer
+    alive, growing it replaces the entry for later launches only, and a
+    capture that would grow it raises."""
     words = SCRATCH_HEADER + (n + CHUNK - 1) // CHUNK + s
     key = (device.index, stream)
     buf = _scratch.get(key)
     if buf is None or buf.numel() < words:
+        if torch.cuda.is_current_stream_capturing():
+            # a graph would bake in a buffer from its own pool: the capture
+            # must find the scratch ready (ops/graphs.py warms up first)
+            raise RuntimeError(
+                f"partition scratch for {n} positions and {s} segments is "
+                "not allocated on the capturing stream; run the round once "
+                "on that stream before capturing it")
         buf = torch.zeros(words, dtype=torch.int64, device=device)
         _scratch[key] = buf
     return buf
+
+
+def scratch_of(device: torch.device, stream: int):
+    """The scratch allocated for ``stream`` of ``device``, or None."""
+    return _scratch.get((device.index, stream))
 
 
 def check_segments(order, seg_start, seg_len, go_left) -> None:
@@ -109,7 +124,7 @@ def partition_segments(order, seg_start, seg_len, go_left):
             seg_len.data_ptr(), n, s, scratch(dev, stream, n, s).data_ptr(),
             n_left.data_ptr(), out.data_ptr(), stream)
     LIBRARY.raise_on(rc, "partition_segments kernel")
-    launches["partition_segments"] += 1
+    count_launch(launches, "partition_segments")
     return out, n_left
 
 

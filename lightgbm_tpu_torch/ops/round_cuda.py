@@ -20,12 +20,11 @@ ops/split.py::gain_plane).
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
 
 import torch
 
 from . import hist_cuda
-from .cuda_build import KernelLibrary, stream_ptr
+from .cuda_build import KernelLibrary, count_launch, stream_ptr
 from .partition import segment_ids, stable_partition_ranges
 from .partition_cuda import MAX_ROWS, scratch
 from .split import FeatureBests, SplitParams, gain_plane, reduce_plane_per_feature
@@ -42,7 +41,7 @@ def reset_counts() -> None:
 def _bind(lib: ctypes.CDLL) -> None:
     p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
     lib.lgbt_round.argtypes = (
-        [p, ll, i, i, i, p, p, p, p, p, p, p, p, p, p, p, p, p, ll, i, i, p, p,
+        [p, ll, i, i, i, p, p, p, p, p, p, p, p, p, p, p, p, p, ll, p, p, p,
          p, p, p, p, p, p, p] + [f] * 7 + [i] + [p] * 7)
     lib.lgbt_round.restype = i
 
@@ -122,8 +121,7 @@ def _check(bins, order, go_left, grad, hess, row_mask, tvecs, parent, cand_tab,
 def round_megakernel(bins, order, go_left, grad, hess, row_mask, seg_start,
                      seg_len, n_left, win_start, win_cnt, small_left, parent,
                      cand_tab, num_bins_per_feature, missing_bin_per_feature,
-                     feature_mask, *, params: SplitParams, W: int,
-                     shift: Tuple[int, int]):
+                     feature_mask, *, params: SplitParams, W: int, shift):
     """One round: returns (new_order (N,) i32, left (T, 3, F, B), right
     (T, 3, F, B), FeatureBests (2T, F)).
 
@@ -134,7 +132,10 @@ def round_megakernel(bins, order, go_left, grad, hess, row_mask, seg_start,
     parent (T, 3, F, B) holds the split leaves' histograms, cand_tab (4, 2T)
     the parent sum_g, sum_h, count and output of the 2T children (left
     children first), for the split search.  ``shift`` is the tree's
-    fixed-point exponent pair (hist_cuda.fixed_shift_pair)."""
+    fixed-point exponent pair: an int32[2] tensor (hist_cuda.
+    fixed_shift_tensor) that the kernel reads when it runs, so a captured
+    CUDA graph takes each tree's; a pair of ints (fixed_shift_pair) is
+    copied to the device first, which a capture does not allow."""
     tvecs = (seg_start, seg_len, n_left, win_start, win_cnt, small_left)
     if not bins.is_cuda:
         return round_megakernel_plain(
@@ -158,6 +159,9 @@ def round_megakernel(bins, order, go_left, grad, hess, row_mask, seg_start,
     o_gain, o_lg, o_lh, o_lc = (empty((c, f)) for _ in range(4))
     o_thr = empty((c, f), torch.int32)
     o_left = empty((c, f), torch.bool)
+    shift = hist_cuda.shift_on(shift, dev)
+    if shift is None:
+        raise TypeError("round_megakernel needs the tree's exponent pair (shift)")
     p = params
     stream = stream_ptr(dev)
     with torch.cuda.device(dev):
@@ -167,7 +171,7 @@ def round_megakernel(bins, order, go_left, grad, hess, row_mask, seg_start,
             scratch(dev, stream, n, T).data_ptr(), new_order.data_ptr(),
             grad.data_ptr(), hess.data_ptr(), row_mask.data_ptr(),
             win_start.data_ptr(), win_cnt.data_ptr(), small_left.data_ptr(),
-            int(W), int(shift[0]), int(shift[1]), acc64.data_ptr(),
+            int(W), shift.data_ptr(), acc64.data_ptr(),
             acc32.data_ptr(), parent.data_ptr(), left.data_ptr(),
             right.data_ptr(), num_bins_per_feature.data_ptr(),
             missing_bin_per_feature.data_ptr(), feature_mask.data_ptr(),
@@ -178,7 +182,7 @@ def round_megakernel(bins, order, go_left, grad, hess, row_mask, seg_start,
             o_left.data_ptr(), o_lg.data_ptr(), o_lh.data_ptr(),
             o_lc.data_ptr(), stream)
     LIBRARY.raise_on(rc, "round_megakernel kernel")
-    launches["round_megakernel"] += 1
+    count_launch(launches, "round_megakernel")
     fb = FeatureBests(gain=o_gain, threshold_bin=o_thr, use_left=o_left,
                       variant=torch.full((c, f), -1, dtype=torch.int32, device=dev),
                       left_g=o_lg, left_h=o_lh, left_c=o_lc)
@@ -189,7 +193,7 @@ def round_megakernel_plain(bins, order, go_left, grad, hess, row_mask,
                            seg_start, seg_len, n_left, win_start, win_cnt,
                            small_left, parent, cand_tab, num_bins_per_feature,
                            missing_bin_per_feature, feature_mask, *,
-                           params: SplitParams, W: int, shift: Tuple[int, int]):
+                           params: SplitParams, W: int, shift):
     plain_calls["round_megakernel"] += 1
     n = order.shape[0]
     T, b = seg_start.shape[0], parent.shape[3]

@@ -9,10 +9,16 @@ batched split search.  Split math, admission order and leaf numbering are
 the JAX package's, so on fixtures with separated gains both packages grow
 the same trees.
 
-There is no jit here: the rounds loop is a Python loop that reads one
-scalar (the number of admitted splits) per round.  Per-leaf bookkeeping is
-small tensor updates on the device; node arrays carry one spare slot at
-index L-1 that takes the writes the JAX code drops with mode="drop".
+A round is the JAX package's masked fixed-tile round: the admitted splits
+are a mask over the leaves, the number of leaves lives on the device, the
+histogram pass always runs at ``leaf_tile`` slots, and writes of the slots
+and leaves a round does not admit land in spare rows.  So a round reads
+nothing back and a round that admits nothing is a bitwise no-op.  The host
+drives the rounds with the windowed grower's one-behind protocol
+(ops/treegrow_windowed.py::_run_fused_rounds): each round's info vector is
+read while the next round runs.  With ``graphs`` (ops/graphs.py; GBDT
+passes one on its fused path) each round is one run of the same round
+function on static buffers, on the card one CUDA-graph replay.
 
 Supported: numerical splits, missing values, max_depth, bagging masks and
 sample weights, path smoothing, float and int8-quantized histograms
@@ -23,17 +29,48 @@ splits and per-node sampling raise ValueError (ROADMAP queue A5/A8).
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
-from .histogram import fix_histogram_subtract, histogram_multi, histogram_multi_quantized
-from .split import KMIN_SCORE, SplitParams, find_best_split, leaf_output, leaf_output_smoothed
-from .treegrow import TreeArrays, _empty_best, _set_best
+from ..utils import sanitizer as _san
+from .graphs import RoundGraphs
+from .histogram import histogram_multi, histogram_multi_quantized
+from .round_cuda import split_window
+from .split import BestSplit, SplitParams, find_best_split, leaf_output, leaf_output_smoothed
+from .treegrow import (TreeArrays, _empty_best, _put, _set_best, admit,
+                       admits_next, book_tree, empty_tree, quantize_gradients)
+from .treegrow_windowed import _run_fused_rounds, round_runner
 
 _UNPORTED = ("categorical_mask", "monotone_constraints", "interaction_sets",
              "rng_key", "cegb_feature_penalty", "efb_bins", "feature_contri",
              "forced_leaf", "cegb_lazy_penalty", "track_path")
+
+class FState(NamedTuple):
+    leaf_id: torch.Tensor  # (N,) i32
+    hist: torch.Tensor  # (L + 1, 3, F, B) f32, row L a spare; in place
+    best: BestSplit
+    leaf_sum_g: torch.Tensor
+    leaf_sum_h: torch.Tensor
+    leaf_count: torch.Tensor
+    leaf_depth: torch.Tensor  # i64
+    leaf_parent: torch.Tensor  # i64, -1 at the root
+    leaf_side: torch.Tensor  # i64
+    num_leaves_cur: torch.Tensor  # 0-d i64
+    leaf_out: torch.Tensor
+    tree: TreeArrays
+    inputs_finite: torch.Tensor  # 0-d bool
+
+
+class FInputs(NamedTuple):
+    """A tree's inputs to its rounds (the static buffers' second part)."""
+    grad: torch.Tensor
+    hess: torch.Tensor
+    gq: Optional[torch.Tensor]
+    hq: Optional[torch.Tensor]
+    quant_scale: Optional[torch.Tensor]
+    row_mask: torch.Tensor
+    feature_mask: Optional[torch.Tensor]
 
 
 def predict_leaf_arrays(arrays: TreeArrays, bins: torch.Tensor,
@@ -42,9 +79,9 @@ def predict_leaf_arrays(arrays: TreeArrays, bins: torch.Tensor,
     Tree::GetLeafIndex).  Children encode leaves as ~leaf."""
     n = bins.shape[0]
     L = arrays.leaf_value.shape[0]
-    cur = torch.zeros(n, dtype=torch.int64, device=bins.device)
-    if int(arrays.num_leaves) <= 1:
-        return cur.to(torch.int32)
+    # a one-leaf tree starts every row at leaf 0 (~(-1)): nothing is read back
+    start = torch.where(arrays.num_leaves > 1, 0, -1).to(torch.int64)
+    cur = torch.zeros(n, dtype=torch.int64, device=bins.device) + start
     sf = arrays.split_feature.long()
     lc, rc = arrays.left_child.long(), arrays.right_child.long()
     for _ in range(max(L - 1, 1)):
@@ -58,31 +95,197 @@ def predict_leaf_arrays(arrays: TreeArrays, bins: torch.Tensor,
     return (-cur - 1).to(torch.int32)
 
 
-def quantize_gradients(grad, hess, row_mask, quantize_bins: int,
-                       stochastic_rounding: bool,
-                       generator: Optional[torch.Generator]):
-    """Discretize to int8: grad in [-half, half], hess in [0, quantize_bins]
-    (reference: GradientDiscretizer::DiscretizeGradients); stochastic
-    rounding draws from ``generator``.  Returns (gq, hq, the dequantized
-    grad and hess that split evaluation sees, quant_scale (3,))."""
-    dev = grad.device
-    half = max(quantize_bins // 2, 1)
-    inbag = row_mask.float()
-    g_scale = torch.clamp_min(torch.max(torch.abs(grad) * inbag) / half, 1e-30)
-    h_scale = torch.clamp_min(torch.max(hess * inbag) / quantize_bins, 1e-30)
-    gs = grad / g_scale
-    hs = hess / h_scale
-    if stochastic_rounding:
-        u = torch.rand((2, grad.shape[0]), generator=generator, device=dev)
-        gq = torch.floor(gs + u[0])
-        hq = torch.floor(hs + u[1])
+def _multi_hist(bins, inp: FInputs, leaf_slot, tile: int, num_bins: int,
+                quantize_bins: int) -> torch.Tensor:
+    """(N,)-slot -> (tile, 3, F, B) f32: per-slot histograms, one pass."""
+    m = inp.row_mask & (leaf_slot >= 0)
+    if quantize_bins:
+        hi = histogram_multi_quantized(bins, inp.gq, inp.hq, m, leaf_slot, 0,
+                                       tile, num_bins)
+        return hi.float() * inp.quant_scale[:, None, None]
+    return histogram_multi(bins, inp.grad, inp.hess, m, leaf_slot, 0, tile,
+                           num_bins)
+
+
+def _f_init(bins, grad, hess, row_mask, sample_weight, feature_mask, nbpf, mbpf,
+            *, num_leaves: int, num_bins: int, params: SplitParams,
+            quantize_bins: int, stochastic_rounding: bool,
+            generator: Optional[torch.Generator], hist=None):
+    """Root state: quantize gradients, the root pass, seed best.  ``hist``:
+    the (L + 1, 3, F, B) buffer for the histogram state, else a new one.
+    Returns (state, FInputs, grad_true, hess_true)."""
+    dev = bins.device
+    n, f = bins.shape
+    L = num_leaves
+    grad = grad.float() * sample_weight
+    hess = hess.float() * sample_weight
+    grad_true, hess_true = grad, hess
+    gq = hq = quant_scale = None
+    if quantize_bins:
+        gq, hq, grad, hess, quant_scale = quantize_gradients(
+            grad, hess, row_mask, quantize_bins, stochastic_rounding, generator)
+    inputs = FInputs(grad, hess, gq, hq, quant_scale, row_mask, feature_mask)
+    minus1 = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    hist0 = _multi_hist(bins, inputs, torch.where(row_mask, 0, minus1), 1,
+                        num_bins, quantize_bins)[0]
+    g0, h0, c0 = torch.sum(hist0[:, 0, :], dim=1)  # totals from feature 0
+    leaf_out0 = leaf_output(g0, h0, params)
+    best = _empty_best(L, num_bins, dev)
+    _set_best(best, torch.zeros(1, dtype=torch.int64, device=dev), find_best_split(
+        hist0[None], g0[None], h0[None], c0[None], nbpf, mbpf, params,
+        feature_mask=feature_mask, parent_output=leaf_out0[None]))
+
+    def zeros(shape, dtype=torch.float32):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    def first(v):
+        out = zeros(L)
+        out[0] = v
+        return out
+
+    if hist is None:
+        hist = zeros((L + 1, 3, f, num_bins))
     else:
-        gq = torch.round(gs)
-        hq = torch.round(hs)
-    gq = gq.clamp(-127, 127).to(torch.int8)
-    hq = hq.clamp(0, 127).to(torch.int8)
-    quant_scale = torch.stack([g_scale, h_scale, torch.ones((), device=dev)])
-    return gq, hq, gq.float() * g_scale, hq.float() * h_scale, quant_scale
+        hist.zero_()
+    hist[0] = hist0
+    state = FState(
+        leaf_id=zeros(n, torch.int32), hist=hist, best=best,
+        leaf_sum_g=first(g0), leaf_sum_h=first(h0), leaf_count=first(c0),
+        leaf_depth=zeros(L, torch.int64),
+        leaf_parent=torch.full((L,), -1, dtype=torch.int64, device=dev),
+        leaf_side=zeros(L, torch.int64),
+        num_leaves_cur=torch.ones((), dtype=torch.int64, device=dev),
+        leaf_out=first(leaf_out0), tree=empty_tree(L, num_bins, dev),
+        inputs_finite=torch.isfinite(grad_true).all() & torch.isfinite(hess_true).all())
+    return state, inputs, grad_true, hess_true
+
+
+def _round(st: FState, bins, inp: FInputs, nbpf, mbpf, *, num_leaves: int,
+           num_bins: int, max_depth: int, params: SplitParams, leaf_tile: int,
+           quantize_bins: int):
+    """One masked fixed-tile round; returns (state', info) with info =
+    [k_acc, 0, 1, 0, finite, k_next] (i32, on the device; the windowed
+    round's layout, whose window fields this round has no use for)."""
+    L, T = num_leaves, leaf_tile
+    dev = bins.device
+    s = st.best
+    idx = torch.arange(L, dtype=torch.int64, device=dev)
+    nlc = st.num_leaves_cur
+    drop = -1  # _put's index of the spare slot
+
+    # ---------- phase 1: admit this round's splits ----------
+    accept, order_rank, _ = admit(s.gain, st.leaf_depth, nlc, num_leaves=L,
+                                  leaf_tile=T, max_depth=max_depth)
+    k_acc = accept.sum()
+    acc_rank = torch.where(accept, order_rank, L)
+    node_of = nlc - 1 + acc_rank  # node slot of each admitted leaf
+    right_of = nlc + acc_rank  # leaf id of its right child
+
+    # ---------- row partition: all admitted splits at once ----------
+    lid = st.leaf_id.long()
+    r_row = torch.where(accept, right_of, -1)[lid]
+    feat_row = s.feature.long()[lid]
+    col = bins.gather(1, feat_row[:, None])[:, 0].to(torch.int32)
+    miss = col == mbpf[feat_row]
+    gl = torch.where(miss, s.default_left[lid], col <= s.threshold_bin[lid])
+    leaf_id = torch.where((r_row >= 0) & ~gl, r_row.to(torch.int32), st.leaf_id)
+
+    # ---------- tree and leaf bookkeeping (left keeps the id) ----------
+    tree = book_tree(st.tree, accept, node_of, right_of, st.leaf_parent,
+                     st.leaf_side, s, st.leaf_out, st.leaf_sum_h, st.leaf_count)
+    right_pos = torch.where(accept, right_of, drop)
+
+    def upd(arr, left_val, right_val):
+        return _put(torch.where(accept, left_val, arr), right_pos, right_val)
+
+    leaf_sum_g = upd(st.leaf_sum_g, s.left_sum_g, s.right_sum_g)
+    leaf_sum_h = upd(st.leaf_sum_h, s.left_sum_h, s.right_sum_h)
+    leaf_count = upd(st.leaf_count, s.left_count, s.right_count)
+    depth_child = st.leaf_depth + 1
+    leaf_depth = upd(st.leaf_depth, depth_child, depth_child)
+    leaf_parent = upd(st.leaf_parent, node_of, torch.where(accept, node_of, 0))
+    leaf_side = _put(torch.where(accept, 0, st.leaf_side), right_pos, 1)
+    leaf_out = upd(
+        st.leaf_out,
+        leaf_output_smoothed(s.left_sum_g, s.left_sum_h, s.left_count,
+                             st.leaf_out, params),
+        leaf_output_smoothed(s.right_sum_g, s.right_sum_h, s.right_count,
+                             st.leaf_out, params))
+    num_leaves_new = nlc + k_acc
+
+    # ---------- phase 2: one pass at the tile for all smaller children ----------
+    left_smaller = s.left_count <= s.right_count
+    small = torch.where(left_smaller, idx, right_of)
+    slot_of_leaf = _put(torch.full((L,), -1, dtype=torch.int64, device=dev),
+                        torch.where(accept, small, drop), acc_rank)
+    fresh = _multi_hist(bins, inp, slot_of_leaf[leaf_id.long()].to(torch.int32),
+                        T, num_bins, quantize_bins)  # (T, 3, F, B)
+    # per admission rank: the split leaf (the left child keeps its id), the
+    # right child, and which one the pass histogrammed
+    pos_r = torch.where(accept, acc_rank, -1)
+    minus1 = torch.full((T,), -1, dtype=torch.int64, device=dev)
+    slot_left = _put(minus1, pos_r, idx)
+    slot_right = _put(minus1, pos_r, right_of)
+    active = slot_left >= 0
+    sl = slot_left.clamp(0, L - 1)
+    sr = slot_right.clamp(0, L - 1)
+    small_left = _put(torch.zeros(T, dtype=torch.int32, device=dev), pos_r,
+                      left_smaller)
+    left_h, right_h = split_window(st.hist.index_select(0, sl), fresh, small_left)
+    spare = L  # inactive slots write the spare row
+    st.hist.index_copy_(0, torch.where(active, sl, spare), left_h)
+    st.hist.index_copy_(0, torch.where(active, sr, spare), right_h)
+
+    # ---------- phase 3: evaluate the fresh leaves ----------
+    cand = torch.cat([sl, sr])
+    cand_ok = torch.cat([active, active])
+    ci = torch.where(cand_ok, cand, 0)
+    bb = find_best_split(torch.cat([left_h, right_h]), leaf_sum_g[ci],
+                         leaf_sum_h[ci], leaf_count[ci], nbpf, mbpf, params,
+                         feature_mask=inp.feature_mask, parent_output=leaf_out[ci])
+    scatter_pos = torch.where(cand_ok, cand, drop)
+    best = BestSplit(*[_put(o, scatter_pos, nw) for o, nw in zip(s, bb)])
+
+    state = FState(
+        leaf_id=leaf_id, hist=st.hist, best=best, leaf_sum_g=leaf_sum_g,
+        leaf_sum_h=leaf_sum_h, leaf_count=leaf_count, leaf_depth=leaf_depth,
+        leaf_parent=leaf_parent, leaf_side=leaf_side,
+        num_leaves_cur=num_leaves_new, leaf_out=leaf_out, tree=tree,
+        inputs_finite=st.inputs_finite)
+    finite = (st.inputs_finite & torch.isfinite(leaf_sum_g).all()
+              & torch.isfinite(leaf_sum_h).all() & torch.isfinite(leaf_out).all()
+              & ~torch.isnan(best.gain).any())
+    k_next = admits_next(best.gain, leaf_depth, num_leaves_new, num_leaves=L,
+                         leaf_tile=T, max_depth=max_depth)
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
+    info = torch.stack([k_acc, zero, zero + 1, zero, finite.long(), k_next])
+    return state, info.to(torch.int32)
+
+
+def _f_finalize(st: FState, inp: FInputs, grad_true, hess_true, *,
+                params: SplitParams, quant_renew: bool):
+    L = st.leaf_out.shape[0]
+    if quant_renew:
+        # leaf outputs from the TRUE gradients (reference: GBDT::Train ->
+        # RenewIntGradTreeOutput): per-leaf sums as a one-feature histogram
+        # (bin = leaf id), deterministic like every other kernel sum
+        leaf_hist = histogram_multi(
+            st.leaf_id.to(torch.int16)[:, None].contiguous(), grad_true,
+            hess_true, inp.row_mask, torch.zeros_like(st.leaf_id), 0, 1, L)
+        leaf_value = leaf_output(leaf_hist[0, 0, 0], leaf_hist[0, 1, 0], params)
+    elif params.path_smooth > 0:
+        leaf_value = st.leaf_out  # smoothed at creation
+    else:
+        leaf_value = leaf_output(st.leaf_sum_g, st.leaf_sum_h, params)
+    active = torch.arange(L, device=leaf_value.device) < st.num_leaves_cur
+    tree = st.tree._replace(
+        num_leaves=st.num_leaves_cur.to(torch.int32),
+        leaf_value=torch.where(active, leaf_value, 0.0),
+        leaf_weight=torch.where(active, st.leaf_sum_h, 0.0),
+        leaf_count=torch.where(active, st.leaf_count, 0.0),
+        leaf_sum_g=torch.where(active, st.leaf_sum_g, 0.0),
+        leaf_depth=st.leaf_depth.to(torch.int32))
+    return tree, st.leaf_id
 
 
 def grow_tree_fast(
@@ -104,6 +307,9 @@ def grow_tree_fast(
     stochastic_rounding: bool = True,
     quant_renew: bool = False,
     generator: Optional[torch.Generator] = None,
+    stats: Optional[dict] = None,
+    guard_label: str = "",
+    graphs: Optional[RoundGraphs] = None,
     **options,
 ) -> tuple[TreeArrays, torch.Tensor]:
     """Grow one tree in rounds; returns (tree, final leaf_id per row).
@@ -112,7 +318,10 @@ def grow_tree_fast(
     gradient_discretizer.cpp): gradients/hessians are discretized to int8
     (stochastic rounding draws from ``generator``), histograms accumulate
     exactly in int32, and split evaluation sees the rescaled sums;
-    quant_renew recomputes leaf outputs from the true gradients."""
+    quant_renew recomputes leaf outputs from the true gradients.
+    ``graphs``: run every round through that cache's static buffers (one
+    CUDA-graph replay a round on the card).  ``stats`` receives the
+    utils/sanitizer.py counts of the tree and the driver's retries."""
     for name in _UNPORTED:
         v = options.pop(name, None)
         if v is not None and v is not False:
@@ -120,188 +329,38 @@ def grow_tree_fast(
                              "lightgbm_tpu_torch yet (ROADMAP queue A5/A8)")
     if options:
         raise TypeError(f"unexpected options: {sorted(options)}")
-    dev = bins.device
-    n, f = bins.shape
-    L = num_leaves
-    grad = grad.float() * sample_weight
-    hess = hess.float() * sample_weight
-    grad_true, hess_true = grad, hess
+    tile = max(1, min(leaf_tile, num_leaves))
+    static = dict(num_leaves=num_leaves, num_bins=num_bins, max_depth=max_depth,
+                  params=params, leaf_tile=tile, quantize_bins=quantize_bins)
+    fixed = (bins, num_bins_per_feature, missing_bin_per_feature)
 
-    if quantize_bins:
-        gq, hq, grad, hess, quant_scale = quantize_gradients(
-            grad, hess, row_mask, quantize_bins, stochastic_rounding, generator)
+    def round_fn(st, inp: FInputs, _W):
+        return _round(st, bins, inp, num_bins_per_feature,
+                      missing_bin_per_feature, **static)
 
-    def multi_hist(leaf_slot: torch.Tensor, tile: int) -> torch.Tensor:
-        """(N,)-slot -> (tile, 3, F, B) f32: per-slot histograms, one pass."""
-        m = row_mask & (leaf_slot >= 0)
-        if quantize_bins:
-            hi = histogram_multi_quantized(bins, gq, hq, m, leaf_slot, 0, tile,
-                                           num_bins)
-            return hi.float() * quant_scale[:, None, None]
-        return histogram_multi(bins, grad, hess, m, leaf_slot, 0, tile,
-                               num_bins)
-
-    def zeros(shape, dtype=torch.float32):
-        return torch.zeros(shape, dtype=dtype, device=dev)
-
-    # ---- root ----
-    minus1 = torch.full((n,), -1, dtype=torch.int32, device=dev)
-    hist0 = multi_hist(torch.where(row_mask, 0, minus1), 1)[0]
-    g0, h0, c0 = torch.sum(hist0[:, 0, :], dim=1)  # totals from feature 0
-
-    # node arrays: L-1 real slots + one spare (index L-1) for dropped writes
-    t_feature = zeros(L, torch.int32)
-    t_thr = zeros(L, torch.int32)
-    t_dl = zeros(L, torch.bool)
-    t_gain = zeros(L)
-    t_left = zeros(L, torch.int32)
-    t_right = zeros(L, torch.int32)
-    t_ival = zeros(L)
-    t_iweight = zeros(L)
-    t_icount = zeros(L)
-
-    leaf_out0 = leaf_output(g0, h0, params)
-    best = _empty_best(L, num_bins, dev)
-    root = torch.zeros(1, dtype=torch.int64, device=dev)
-    _set_best(best, root, find_best_split(
-        hist0[None], g0[None], h0[None], c0[None], num_bins_per_feature,
-        missing_bin_per_feature, params, feature_mask=feature_mask,
-        parent_output=leaf_out0[None]))
-
-    leaf_id = torch.zeros(n, dtype=torch.int32, device=dev)
-    hist = zeros((L, 3, f, num_bins))
-    hist[0] = hist0
-    leaf_sum_g, leaf_sum_h, leaf_count = zeros(L), zeros(L), zeros(L)
-    leaf_sum_g[0], leaf_sum_h[0], leaf_count[0] = g0, h0, c0
-    leaf_depth = zeros(L, torch.int32)
-    leaf_parent = torch.full((L,), -1, dtype=torch.int32, device=dev)
-    leaf_side = zeros(L, torch.int32)
-    leaf_out = zeros(L)
-    leaf_out[0] = leaf_out0
-    num_cur = 1
-    eps = KMIN_SCORE / 2
-    inf = torch.tensor(float("inf"), device=dev)
-
-    while num_cur < L:
-        # ---------- phase 1: admit this round's splits ----------
-        gains = best.gain
-        can = gains > eps
-        if max_depth > 0:
-            can = can & (leaf_depth < max_depth)
-        # best-gain-first within the budget and the leaf tile; the admitted
-        # set is a prefix of the stable sort order
-        srt = torch.argsort(torch.where(can, -gains, inf), stable=True)
-        k = min(int(can.sum()), L - num_cur, leaf_tile)  # one sync a round
-        if k == 0:
-            break
-        lv = srt[:k]  # admitted leaves in rank order (left children keep ids)
-        ar = torch.arange(k, dtype=torch.int32, device=dev)
-        nodes = (num_cur - 1 + ar).long()
-        rights = (num_cur + ar).long()
-        s_feat = best.feature[lv]
-        s_thr = best.threshold_bin[lv]
-        s_dl = best.default_left[lv]
-        s_lg, s_lh, s_lc = best.left_sum_g[lv], best.left_sum_h[lv], best.left_count[lv]
-        s_rg, s_rh, s_rc = best.right_sum_g[lv], best.right_sum_h[lv], best.right_count[lv]
-
-        # ---------- row partition: all admitted splits at once ----------
-        right_of = torch.full((L,), -1, dtype=torch.int32, device=dev)
-        right_of[lv] = rights.to(torch.int32)
-        lid = leaf_id.long()
-        r_row = right_of[lid]
-        feat_row = best.feature.long()[lid]
-        col = bins.gather(1, feat_row[:, None])[:, 0].to(torch.int32)
-        miss = col == missing_bin_per_feature[feat_row]
-        gl = torch.where(miss, best.default_left[lid],
-                         col <= best.threshold_bin[lid])
-        leaf_id = torch.where((r_row >= 0) & ~gl, r_row, leaf_id)
-
-        # ---------- tree bookkeeping ----------
-        par = leaf_parent[lv].long()
-        side = leaf_side[lv]
-        spare = L - 1
-        t_left[torch.where((par >= 0) & (side == 0), par, spare)] = nodes.to(torch.int32)
-        t_right[torch.where((par >= 0) & (side == 1), par, spare)] = nodes.to(torch.int32)
-        t_left[nodes] = (-lv - 1).to(torch.int32)
-        t_right[nodes] = (-rights - 1).to(torch.int32)
-        t_feature[nodes] = s_feat
-        t_thr[nodes] = s_thr
-        t_dl[nodes] = s_dl
-        t_gain[nodes] = best.gain[lv]
-        parent_out = leaf_out[lv]
-        t_ival[nodes] = parent_out
-        t_iweight[nodes] = leaf_sum_h[lv]
-        t_icount[nodes] = leaf_count[lv]
-
-        # ---------- leaf aggregates (left keeps the id, right is new) ----------
-        for arr, lval, rval in ((leaf_sum_g, s_lg, s_rg),
-                                (leaf_sum_h, s_lh, s_rh),
-                                (leaf_count, s_lc, s_rc)):
-            arr[lv] = lval
-            arr[rights] = rval
-        depth_child = leaf_depth[lv] + 1
-        leaf_depth[lv] = depth_child
-        leaf_depth[rights] = depth_child
-        leaf_parent[lv] = nodes.to(torch.int32)
-        leaf_parent[rights] = nodes.to(torch.int32)
-        leaf_side[lv] = 0
-        leaf_side[rights] = 1
-        leaf_out[lv] = leaf_output_smoothed(s_lg, s_lh, s_lc, parent_out, params)
-        leaf_out[rights] = leaf_output_smoothed(s_rg, s_rh, s_rc, parent_out,
-                                                params)
-        num_cur += k
-
-        # ---------- phase 2: one pass for all smaller children ----------
-        left_smaller = s_lc <= s_rc
-        small = torch.where(left_smaller, lv, rights)
-        slot_of_leaf = torch.full((L,), -1, dtype=torch.int32, device=dev)
-        slot_of_leaf[small] = ar
-        fresh = multi_hist(slot_of_leaf[leaf_id.long()], k)  # (k, 3, F, B)
-        big = fix_histogram_subtract(hist[lv], fresh)
-        sml = left_smaller[:, None, None, None]
-        left_h = torch.where(sml, fresh, big)
-        right_h = torch.where(sml, big, fresh)
-        hist[lv] = left_h
-        hist[rights] = right_h
-
-        # ---------- phase 3: evaluate the fresh leaves ----------
-        cand = torch.cat([lv, rights])
-        _set_best(best, cand, find_best_split(
-            torch.cat([left_h, right_h]), leaf_sum_g[cand], leaf_sum_h[cand],
-            leaf_count[cand], num_bins_per_feature, missing_bin_per_feature,
-            params, feature_mask=feature_mask, parent_output=leaf_out[cand]))
-
-    if quant_renew and quantize_bins:
-        # leaf outputs from the TRUE gradients (reference: GBDT::Train ->
-        # RenewIntGradTreeOutput): per-leaf sums as a one-feature histogram
-        # (bin = leaf id), deterministic like every other kernel sum
-        leaf_hist = histogram_multi(
-            leaf_id.to(torch.int16)[:, None].contiguous(), grad_true,
-            hess_true, row_mask, torch.zeros_like(leaf_id), 0, 1, L)
-        leaf_value = leaf_output(leaf_hist[0, 0, 0], leaf_hist[0, 1, 0], params)
-    elif params.path_smooth > 0:
-        leaf_value = leaf_out  # smoothed at creation
-    else:
-        leaf_value = leaf_output(leaf_sum_g, leaf_sum_h, params)
-    active = torch.arange(L, device=dev) < num_cur
-    m = L - 1
-    tree = TreeArrays(
-        num_leaves=torch.tensor(num_cur, dtype=torch.int32, device=dev),
-        split_feature=t_feature[:m],
-        threshold_bin=t_thr[:m],
-        default_left=t_dl[:m],
-        split_gain=t_gain[:m],
-        left_child=t_left[:m],
-        right_child=t_right[:m],
-        internal_value=t_ival[:m],
-        internal_weight=t_iweight[:m],
-        internal_count=t_icount[:m],
-        leaf_value=torch.where(active, leaf_value, 0.0),
-        leaf_weight=torch.where(active, leaf_sum_h, 0.0),
-        leaf_count=torch.where(active, leaf_count, 0.0),
-        leaf_sum_g=torch.where(active, leaf_sum_g, 0.0),
-        leaf_depth=leaf_depth,
-        is_cat=zeros(m, torch.bool),
-        cat_mask=zeros((m, num_bins), torch.bool),
-    )
-    return tree, leaf_id
+    with _san.DispatchCounter() as counter:
+        try:
+            hist = None if graphs is None or graphs.buffers is None else (
+                graphs.buffers[0].hist)
+            state, inputs, g_true, h_true = _f_init(
+                bins, grad, hess, row_mask, sample_weight, feature_mask,
+                num_bins_per_feature, missing_bin_per_feature,
+                num_leaves=num_leaves, num_bins=num_bins, params=params,
+                quantize_bins=quantize_bins,
+                stochastic_rounding=stochastic_rounding, generator=generator,
+                hist=hist)
+            state = _run_fused_rounds(
+                round_runner(round_fn, state, inputs, fixed,
+                             ("rounds",) + tuple(static.items()), graphs),
+                state, n_ladder=None, w_first=None, num_leaves=num_leaves,
+                stats=stats, guard_label=guard_label)
+            tree, leaf_id = _f_finalize(
+                state, inputs, g_true, h_true, params=params,
+                quant_renew=bool(quant_renew and quantize_bins))
+            if graphs is not None:  # the next tree overwrites the buffers
+                tree = TreeArrays(*[None if a is None else a.clone() for a in tree])
+                leaf_id = leaf_id.clone()
+            return tree, leaf_id
+        finally:
+            if stats is not None:
+                stats.update(counter.stats())

@@ -22,22 +22,32 @@ host read inside it:
   (float or int8), subtraction (round_cuda.window_histograms and
   split_window, which the megakernel's plain version shares) and split
   search in torch;
-* the bookkeeping, and a 5-scalar info vector [admitted splits, window
-  rows, fits W, next-window bound, all finite].
+* the bookkeeping, and a 6-scalar info vector [admitted splits, window
+  rows, fits W, next-window bound, all finite, splits the next round
+  admits].
 
-The host (``_run_fused_rounds``) launches round r+1 before it reads round
-r's info vector, which was copied to pinned memory behind an event one
-round earlier, so the device queue never drains; the next W comes from the
-bound (``whint``): every split's small child holds at most half of its
-leaf, so the top-(tile) halves of the live leaves' counts bound both next
-rounds' windows.  utils/sanitizer.py counts rounds, blocking reads (one a
-tree: the fixed-point exponents, before the first round) and async
-resolves.
+The host (``_run_fused_rounds``, which the rounds grower shares) launches
+round r+1 before it reads round r's info vector, which was copied to pinned
+memory behind an event one round earlier, so the device queue never
+drains; the next W comes from the bound (``whint``): every split's small
+child holds at most half of its leaf, so the top-(tile) halves of the live
+leaves' counts bound both next rounds' windows.  A tree ends when a round
+reports that the next admits nothing: the round already launched then is a
+no-op.  utils/sanitizer.py counts rounds, blocking reads (one a tree: the
+maxima of the gradients, checked finite before the first round) and async
+resolves, and with ops/graphs.py captures, replays and dispatches.
+
+With ``graphs`` (ops/graphs.py; GBDT passes one when fused_training is on)
+each round is one run of the same round function on static buffers: on the
+card one CUDA-graph replay, captured once per window rung and training.
+The tree's inputs (gradients, quantized lanes and scale, masks, exponent
+pair) are copied into the buffers before its first round.
 
 Float histograms use one fixed-point exponent pair per tree, taken from
-all N rows (hist_cuda.fixed_shift_pair), so every window histogram equals
-bit for bit what the rounds grower's full-N pass gives for the same rows,
-and the megakernel's equals the three-pass round's.
+all N rows (hist_cuda.fixed_shift_tensor: an int32[2] on the device, which
+the kernels read when they run), so every window histogram equals bit for
+bit what the rounds grower's full-N pass gives for the same rows, and the
+megakernel's equals the three-pass round's.
 
 State updates are functional but for the (L + 1, 3, F, B) histogram state,
 which is written in place (row L is a spare that takes the writes of
@@ -59,15 +69,16 @@ import torch
 from ..utils import sanitizer as _san
 from ..utils.guards import NonFiniteError
 from ..utils.log import log_warning
-from .hist_cuda import fixed_shift_pair
+from .graphs import RoundGraphs, copy_into
+from .hist_cuda import fixed_shift_pair, fixed_shift_tensor
 from .histogram import histogram_multi, histogram_multi_quantized
 from .partition import segment_ids
 from .partition_cuda import partition_segments
 from .round_cuda import round_megakernel, split_window, window_histograms
 from .split import (KMIN_SCORE, BestSplit, SplitParams, find_best_split,
                     leaf_output, select_from_feature_best)
-from .treegrow import TreeArrays, _empty_best, _set_best
-from .treegrow_fast import quantize_gradients
+from .treegrow import (TreeArrays, _empty_best, _put, _set_best, admit,
+                       admits_next, book_tree, empty_tree, quantize_gradients)
 
 _UNPORTED = ("rng_key", "categorical_mask", "efb_bins_t", "efb_gather",
              "efb_default", "feature_contri")
@@ -91,6 +102,21 @@ class WState(NamedTuple):
     tree: TreeArrays
 
 
+class WInputs(NamedTuple):
+    """A tree's inputs to its rounds (the static buffers' second part)."""
+    grad: torch.Tensor
+    hess: torch.Tensor
+    gq: Optional[torch.Tensor]
+    hq: Optional[torch.Tensor]
+    quant_scale: Optional[torch.Tensor]
+    row_mask: torch.Tensor
+    feature_mask: torch.Tensor
+    shift: torch.Tensor  # (2,) i32 fixed-point exponents
+
+
+INFO = 6  # scalars in a round's info vector
+
+
 def _ladder(n: int, floor: int = 8192):
     """The W ladder for (n, floor): factor-4 steps to 128k, then factor-2,
     clamped to (and ending at) round_up(n, floor)."""
@@ -111,26 +137,13 @@ def _window_size(x: int, n: int, floor: int = 8192) -> int:
     return w
 
 
-def _put(arr: torch.Tensor, idx: torch.Tensor, val) -> torch.Tensor:
-    """``arr.at[idx].set(val, mode="drop")``: a new array with arr[idx] =
-    val where 0 <= idx < len(arr); other writes land in a spare slot."""
-    n = arr.shape[0]
-    ext = torch.cat([arr, arr[:1]])
-    at = torch.where((idx >= 0) & (idx < n), idx, n).long()
-    if not torch.is_tensor(val):  # a host scalar would be a blocking copy
-        val = torch.full((), val, device=arr.device)
-    ext[at] = val.to(arr.dtype)
-    return ext[:n]
-
-
 def _round_fused(state: WState, bins, grad, hess, gq, hq, quant_scale,
                  row_mask, num_bins_pf, missing_bin_pf, feature_mask, *,
                  num_leaves: int, num_bins: int, max_depth: int,
                  params: SplitParams, leaf_tile: int, W: int,
-                 quantize_bins: int, megakernel: bool,
-                 shift: Tuple[int, int]):
+                 quantize_bins: int, megakernel: bool, shift: torch.Tensor):
     """One whole boosting round; returns (state', info) with info = [k_acc,
-    window_total, fits_W, whint, finite] (i32, on the device)."""
+    window_total, fits_W, whint, finite, k_next] (i32, on the device)."""
     L, T = num_leaves, leaf_tile
     n, f = bins.shape
     dev = bins.device
@@ -138,16 +151,11 @@ def _round_fused(state: WState, bins, grad, hess, gq, hq, quant_scale,
     idx = torch.arange(L, dtype=torch.int64, device=dev)
     pos = torch.arange(n, dtype=torch.int64, device=dev)
     nlc = state.num_leaves_cur
-    drop = 2 * L
+    drop = -1  # _put's index of the spare slot
 
     # ---- admission (the rounds grower's semantics) ----
-    can = s.gain > KMIN_SCORE / 2
-    if max_depth > 0:
-        can = can & (state.leaf_depth < max_depth)
-    srt = torch.argsort(torch.where(can, -s.gain, float("inf")), stable=True)
-    order_rank = torch.empty_like(srt)
-    order_rank[srt] = idx  # rank of each leaf
-    accept0 = can & (order_rank < (L - nlc).clamp_max(T))
+    accept0, order_rank, srt = admit(s.gain, state.leaf_depth, nlc, num_leaves=L,
+                                     leaf_tile=T, max_depth=max_depth)
 
     # ---- split decisions + segment geometry (pre-partition) ----
     leaf_of_rank = srt[:T]
@@ -204,7 +212,7 @@ def _round_fused(state: WState, bins, grad, hess, gq, hq, quant_scale,
     num_leaves_new = nlc + k_acc
 
     fresh = _put(accept.clone(), right_pos, True)
-    pos_r = torch.where(accept, acc_rank, T)
+    pos_r = torch.where(accept, acc_rank, -1)
     minus1 = torch.full((T,), -1, dtype=torch.int64, device=dev)
     slot_left = _put(minus1, pos_r, idx)
     slot_right = _put(minus1, pos_r, right_of)
@@ -258,25 +266,9 @@ def _round_fused(state: WState, bins, grad, hess, gq, hq, quant_scale,
     leaf_id[new_rows] = lid_pos
 
     # ---- tree arrays ----
-    t = state.tree
-    old_parent, old_side = state.leaf_parent, state.leaf_side
-    repoint_l = accept & (old_parent >= 0) & (old_side == 0)
-    repoint_r = accept & (old_parent >= 0) & (old_side == 1)
-    safe_node = node_of.clamp(0, L - 2)
-    lc_t = _put(t.left_child, torch.where(repoint_l, old_parent, drop), safe_node)
-    rc_t = _put(t.right_child, torch.where(repoint_r, old_parent, drop), safe_node)
-    node_pos = torch.where(accept, node_of, drop)
-    tree = t._replace(
-        split_feature=_put(t.split_feature, node_pos, s.feature),
-        threshold_bin=_put(t.threshold_bin, node_pos, s.threshold_bin),
-        default_left=_put(t.default_left, node_pos, s.default_left),
-        split_gain=_put(t.split_gain, node_pos, s.gain),
-        left_child=_put(lc_t, node_pos, -idx - 1),
-        right_child=_put(rc_t, node_pos, -right_of - 1),
-        internal_value=_put(t.internal_value, node_pos, state.leaf_out),
-        internal_weight=_put(t.internal_weight, node_pos, state.leaf_sum_h),
-        internal_count=_put(t.internal_count, node_pos, state.leaf_count),
-    )
+    tree = book_tree(state.tree, accept, node_of, right_of, state.leaf_parent,
+                     state.leaf_side, s, state.leaf_out, state.leaf_sum_h,
+                     state.leaf_count)
     best = s._replace(gain=torch.where(fresh, KMIN_SCORE, s.gain))
 
     # ---- three-pass: window gather -> multi-leaf pass -> subtraction ----
@@ -323,17 +315,21 @@ def _round_fused(state: WState, bins, grad, hess, gq, hq, quant_scale,
     # ---- non-finite guard, in the same info vector ----
     finite = (torch.isfinite(leaf_sum_g).all() & torch.isfinite(leaf_sum_h).all()
               & torch.isfinite(leaf_out).all() & ~torch.isnan(best.gain).any())
-    info = torch.stack([k_acc, total, ok.long(), whint, finite.long()]).to(i32)
+    k_next = admits_next(best.gain, leaf_depth, num_leaves_new, num_leaves=L,
+                         leaf_tile=T, max_depth=max_depth)
+    info = torch.stack([k_acc, total, ok.long(), whint, finite.long(),
+                        k_next]).to(i32)
     return state, info
 
 
 def _w_init(bins, grad, hess, row_mask, sample_weight, num_bins_pf,
             missing_bin_pf, feature_mask, *, num_leaves: int, num_bins: int,
             params: SplitParams, quantize_bins: int, stochastic_rounding: bool,
-            generator: Optional[torch.Generator]):
+            generator: Optional[torch.Generator], hist=None):
     """Root state: quantize gradients, the one full-N pass, seed best.
-    Returns (state, grad, hess, gq, hq, quant_scale, grad_true, hess_true,
-    shift)."""
+    ``hist``: the (L + 1, 3, F, B) buffer to hold the histogram state (the
+    static one of a graph cache), else a new one.  Returns (state, WInputs,
+    grad_true, hess_true)."""
     n, f = bins.shape
     L = num_leaves
     dev = bins.device
@@ -344,7 +340,8 @@ def _w_init(bins, grad, hess, row_mask, sample_weight, num_bins_pf,
     if quantize_bins:
         gq, hq, grad, hess, quant_scale = quantize_gradients(
             grad, hess, row_mask, quantize_bins, stochastic_rounding, generator)
-    shift = fixed_shift_pair(grad, hess)  # the tree's one blocking host read
+    fixed_shift_pair(grad, hess)  # the tree's one blocking host read: finite?
+    shift = fixed_shift_tensor(grad, hess)
     slot0 = torch.zeros(n, dtype=torch.int32, device=dev)
     if quantize_bins:
         hist0 = histogram_multi_quantized(bins, gq, hq, row_mask, slot0, 0, 1,
@@ -362,17 +359,10 @@ def _w_init(bins, grad, hess, row_mask, sample_weight, num_bins_pf,
     def zeros(shape, dtype=torch.float32):
         return torch.zeros(shape, dtype=dtype, device=dev)
 
-    m = L - 1
-    tree0 = TreeArrays(
-        num_leaves=torch.ones((), dtype=torch.int32, device=dev),
-        split_feature=zeros(m, torch.int32), threshold_bin=zeros(m, torch.int32),
-        default_left=zeros(m, torch.bool), split_gain=zeros(m),
-        left_child=zeros(m, torch.int32), right_child=zeros(m, torch.int32),
-        internal_value=zeros(m), internal_weight=zeros(m), internal_count=zeros(m),
-        leaf_value=zeros(L), leaf_weight=zeros(L), leaf_count=zeros(L),
-        leaf_sum_g=zeros(L), leaf_depth=zeros(L, torch.int32),
-        is_cat=zeros(m, torch.bool), cat_mask=zeros((m, num_bins), torch.bool))
-    hist = zeros((L + 1, 3, f, num_bins))
+    if hist is None:
+        hist = zeros((L + 1, 3, f, num_bins))
+    else:
+        hist.zero_()
     hist[0] = hist0
 
     def first(v, dtype=torch.float32):
@@ -389,8 +379,9 @@ def _w_init(bins, grad, hess, row_mask, sample_weight, num_bins_pf,
         leaf_parent=torch.full((L,), -1, dtype=torch.int64, device=dev),
         leaf_side=zeros(L, torch.int64),
         num_leaves_cur=torch.ones((), dtype=torch.int64, device=dev),
-        leaf_out=first(leaf_out0), tree=tree0)
-    return state, grad, hess, gq, hq, quant_scale, grad_true, hess_true, shift
+        leaf_out=first(leaf_out0), tree=empty_tree(L, num_bins, dev))
+    inputs = WInputs(grad, hess, gq, hq, quant_scale, row_mask, feature_mask, shift)
+    return state, inputs, grad_true, hess_true
 
 
 def _w_finalize(state: WState, grad_true, hess_true, row_mask, *,
@@ -416,13 +407,42 @@ def _w_finalize(state: WState, grad_true, hess_true, row_mask, *,
     return tree, state.leaf_id
 
 
-def _run_fused_rounds(round_fn, state, *, n_ladder: int, w_first: int,
-                      num_leaves: int, stats: Optional[dict],
-                      guard_label: str, floor: int = 8192):
+def round_runner(round_fn, state, inputs, fixed, key, graphs: Optional[RoundGraphs]):
+    """The driver's ``round(state, W) -> (state', info)``.  Without
+    ``graphs``: ``round_fn(state, inputs, W)``, functional.  With them, the
+    tree's state and inputs are loaded into the cache's static buffers and
+    each round is ``graphs.run``: ``round_fn`` on the buffers, its new state
+    and info copied back into them (on the card one replay of the graph
+    captured for ``key + (W,)``).  ``fixed`` are the tensors the rounds read
+    where they lie."""
+    if graphs is None:
+        return lambda st, W: round_fn(st, inputs, W)
+    info = torch.zeros(INFO, dtype=torch.int32, device=inputs.grad.device)
+    buffers = graphs.load((state, inputs, info), fixed)
+
+    def run(_, W):
+        def body(b):
+            st, inp, out = b
+            new, new_info = round_fn(st, inp, W)
+            copy_into(st, new)
+            out.copy_(new_info)
+
+        graphs.run(key + (W,), body)
+        return buffers[0], buffers[2]
+
+    return run
+
+
+def _run_fused_rounds(round_fn, state, *, n_ladder: Optional[int],
+                      w_first: Optional[int], num_leaves: int,
+                      stats: Optional[dict], guard_label: str, floor: int = 8192):
     """The round protocol: W predicted from the bound, each round's info
     read one round behind, a breach retried at a corrected W, a non-finite
-    flag raised as NonFiniteError.  ``round_fn(state, W) -> (state',
-    info)`` launches one round without reading anything back."""
+    flag raised as NonFiniteError, and the tree ended when a round reports
+    that the next admits nothing (the round in flight then is a no-op).
+    ``round_fn(state, W) -> (state', info)`` launches one round without
+    reading anything back.  ``n_ladder`` None: the rounds take no window
+    (the rounds grower), W stays None."""
     n = n_ladder
     W = w_first
     pending: list = []  # launched rounds whose info is still in flight
@@ -442,15 +462,15 @@ def _run_fused_rounds(round_fn, state, *, n_ladder: int, w_first: int,
             windows.append(W)
             if len(pending) < 2:
                 continue  # pipeline fill: resolve reads one round behind
-            k_acc, total, ok, whint, finite = (
+            k_acc, total, ok, whint, finite, k_next = (
                 int(v) for v in _san.async_pull_result(pending.pop(0)))
             resolved += 1
             # (span and counter telemetry of this loop: ROADMAP A14)
             if not finite:
                 raise NonFiniteError(
                     f"non-finite gradients/hessians/split stats on the device "
-                    f"at windowed round {resolved}{guard_label}: refusing to "
-                    "keep boosting on NaNs; check labels, weights and custom "
+                    f"at round {resolved}{guard_label}: refusing to keep "
+                    "boosting on NaNs; check labels, weights and custom "
                     "objective outputs")
             if not ok:
                 # the window bound was breached: the device skipped the round;
@@ -459,10 +479,11 @@ def _run_fused_rounds(round_fn, state, *, n_ladder: int, w_first: int,
                 W = _window_size(max(total, 1), n, floor)
                 continue
             n_leaves += k_acc
-            if k_acc == 0 or n_leaves >= num_leaves:
+            if k_acc == 0 or k_next == 0:
                 converged = True
                 break
-            W = _window_size(max(whint, 1), n, floor)
+            if n is not None:
+                W = _window_size(max(whint, 1), n, floor)
         # drain the in-flight round so its finite flag is checked too
         while pending:
             info = _san.async_pull_result(pending.pop(0))
@@ -470,7 +491,7 @@ def _run_fused_rounds(round_fn, state, *, n_ladder: int, w_first: int,
             if not int(info[4]):
                 raise NonFiniteError(
                     f"non-finite gradients/hessians/split stats on the device "
-                    f"at windowed round {resolved}{guard_label} (drained "
+                    f"at round {resolved}{guard_label} (drained "
                     "in-flight round): refusing to finalize a tree grown on NaNs")
     finally:
         pending.clear()
@@ -478,8 +499,8 @@ def _run_fused_rounds(round_fn, state, *, n_ladder: int, w_first: int,
             stats.update(retries=retries, windows=windows)
     if not converged:
         log_warning(
-            f"windowed growth exhausted its round budget ({max_rounds} rounds, "
-            f"{retries} window retries) before reaching num_leaves="
+            f"round-batched growth exhausted its round budget ({max_rounds} "
+            f"rounds, {retries} window retries) before reaching num_leaves="
             f"{num_leaves}; the tree is valid but under-grown")
     return state
 
@@ -529,12 +550,16 @@ def grow_tree_windowed(
     stats: Optional[dict] = None,
     guard_label: str = "",
     megakernel_opt: Optional[str] = None,
+    graphs: Optional[RoundGraphs] = None,
     **options,
 ) -> tuple[TreeArrays, torch.Tensor]:
     """Grow one tree with windowed rounds; returns (tree, leaf_id per row).
+    ``graphs``: run every round through that cache's static buffers (one
+    CUDA-graph replay a round on the card), else as eager torch launches.
     ``stats``, when given, receives {rounds, host_syncs, async_resolves,
-    retries, windows, megakernel, megakernel_excluded}: the counts of
-    utils/sanitizer.py over the whole tree."""
+    captures, replays, dispatches, retries, windows, megakernel,
+    megakernel_excluded}: the counts of utils/sanitizer.py over the whole
+    tree."""
     for name in _UNPORTED:
         v = options.pop(name, None)
         if v is not None and v is not False:
@@ -548,33 +573,43 @@ def grow_tree_windowed(
     mk, excluded = megakernel_mode(bins.is_cuda, quantize_bins=quantize_bins,
                                    mode=megakernel_opt)
     tile = max(1, min(leaf_tile, num_leaves))
+    static = dict(num_leaves=num_leaves, num_bins=num_bins, max_depth=max_depth,
+                  params=params, leaf_tile=tile, quantize_bins=quantize_bins,
+                  megakernel=mk)
+    fixed = (bins, num_bins_per_feature, missing_bin_per_feature)
+
+    def round_fn(st, inp: WInputs, W):
+        return _round_fused(
+            st, bins, inp.grad, inp.hess, inp.gq, inp.hq, inp.quant_scale,
+            inp.row_mask, num_bins_per_feature, missing_bin_per_feature,
+            inp.feature_mask, W=W, shift=inp.shift, **static)
+
     with _san.DispatchCounter() as counter:
         try:
-            (state, g_d, h_d, gq, hq, qs, g_true, h_true, shift) = _w_init(
+            hist = None if graphs is None or graphs.buffers is None else (
+                graphs.buffers[0].hist)
+            state, inputs, g_true, h_true = _w_init(
                 bins, grad, hess, row_mask, sample_weight, num_bins_per_feature,
                 missing_bin_per_feature, feature_mask, num_leaves=num_leaves,
                 num_bins=num_bins, params=params, quantize_bins=quantize_bins,
-                stochastic_rounding=stochastic_rounding, generator=generator)
-
-            def round_fn(st, W):
-                return _round_fused(
-                    st, bins, g_d, h_d, gq, hq, qs, row_mask, num_bins_per_feature,
-                    missing_bin_per_feature, feature_mask, num_leaves=num_leaves,
-                    num_bins=num_bins, max_depth=max_depth, params=params,
-                    leaf_tile=tile, W=W, quantize_bins=quantize_bins,
-                    megakernel=mk, shift=shift)
-
+                stochastic_rounding=stochastic_rounding, generator=generator,
+                hist=hist)
             n = bins.shape[0]
             # round 1 needs no feedback: a round's window (the small
             # children) can never exceed floor(N/2) rows, whatever it admits
-            state = _run_fused_rounds(round_fn, state, n_ladder=n,
-                                      w_first=_window_size(max(n // 2, 1), n),
-                                      num_leaves=num_leaves, stats=stats,
-                                      guard_label=guard_label)
-            return _w_finalize(state, g_true, h_true, row_mask, params=params,
-                               quant_renew=bool(quant_renew and quantize_bins))
+            state = _run_fused_rounds(
+                round_runner(round_fn, state, inputs, fixed,
+                             ("windowed",) + tuple(static.items()), graphs),
+                state, n_ladder=n, w_first=_window_size(max(n // 2, 1), n),
+                num_leaves=num_leaves, stats=stats, guard_label=guard_label)
+            tree, leaf_id = _w_finalize(
+                state, g_true, h_true, inputs.row_mask, params=params,
+                quant_renew=bool(quant_renew and quantize_bins))
+            if graphs is not None:  # the next tree overwrites the buffers
+                tree = TreeArrays(*[None if a is None else a.clone() for a in tree])
+                leaf_id = leaf_id.clone()
+            return tree, leaf_id
         finally:
             if stats is not None:
-                stats.update(rounds=counter.rounds, host_syncs=counter.host_syncs,
-                             async_resolves=counter.async_resolves,
-                             megakernel=mk, megakernel_excluded=excluded)
+                stats.update(counter.stats(), megakernel=mk,
+                             megakernel_excluded=excluded)

@@ -9,10 +9,17 @@ exponents of ops/hist_cuda.py::fixed_shift_pair, before its first round),
 ``async_pull_start`` / ``async_pull_result`` a pipelined one (a
 non-blocking copy into pinned host memory behind a CUDA event, resolved a
 round later, while the device runs the rounds queued since).
-``DispatchCounter`` reads the three counts over a block, which is what the
+``DispatchCounter`` reads the counts over a block, which is what the
 tests pin: one round per launch and no blocking read inside the rounds.
 A read made without this module is not counted; the card test runs every
 round under torch's sync debug mode, which raises on any such read.
+
+ops/graphs.py adds the counts of the one-dispatch contract, the
+counterpart of the JAX package's dispatch counts: ``captures`` (CUDA graphs
+captured), ``replays`` (graph replays), and ``dispatches``, rounds run as
+one unit: a replay on the card, or on the CPU the same round function run
+in place on its static buffers.  Rounds run as eager torch launches count
+none.
 """
 
 from __future__ import annotations
@@ -23,13 +30,28 @@ import numpy as np
 import torch
 
 _lock = threading.Lock()
-_counts = {"rounds": 0, "host_syncs": 0, "async_resolves": 0}
+_counts = {"rounds": 0, "host_syncs": 0, "async_resolves": 0, "captures": 0,
+           "replays": 0, "dispatches": 0}
 
 
 def record_dispatch(n: int = 1) -> None:
     """Count a round launched by a host driver loop."""
     with _lock:
         _counts["rounds"] += n
+
+
+def record_capture() -> None:
+    """Count a CUDA graph captured."""
+    with _lock:
+        _counts["captures"] += 1
+
+
+def record_replay(replayed: bool) -> None:
+    """Count a round run as one dispatch: a graph replay (``replayed``), or
+    the same round function run in place where nothing is captured."""
+    with _lock:
+        _counts["dispatches"] += 1
+        _counts["replays"] += int(replayed)
 
 
 def sync_pull(x: torch.Tensor) -> np.ndarray:
@@ -95,3 +117,20 @@ class DispatchCounter:
     @property
     def async_resolves(self) -> int:
         return self._delta("async_resolves")
+
+    @property
+    def captures(self) -> int:
+        return self._delta("captures")
+
+    @property
+    def replays(self) -> int:
+        return self._delta("replays")
+
+    @property
+    def dispatches(self) -> int:
+        return self._delta("dispatches")
+
+    def stats(self) -> dict:
+        """Every count over the block so far."""
+        with _lock:
+            return {k: v - self._start[k] for k, v in _counts.items()}

@@ -5,6 +5,11 @@ and skips otherwise.  Run on a machine with a card (no JAX needed there):
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py -q
 
+The CUDA-graph tests (the one-dispatch contracts, ops/graphs.py) hold graph
+and eager training bitwise, count one replay a tree-round and captures only
+in the first tree that meets a key, run the replays under torch's sync debug
+mode, and hold B2 and B3 captured in a graph to their eager launches.
+
 Tolerances: int8 histograms are exact; float histograms are held to
 1e-5 * (max|hess| + 1), the f32 summation-order bound, though the 64-bit
 fixed point makes kernel and plain version agree bit for bit.  The
@@ -419,7 +424,10 @@ def test_windowed_training_launches_the_round_megakernel(monkeypatch):
     bst = tlgb.train(p, tlgb.Dataset(X, label=y, params=p), 3)
     stats = bst._gbdt.windowed_stats
     assert len(stats) == 3 and all(s["megakernel"] for s in stats)
-    assert round_cuda.launches["round_megakernel"] == sum(s["rounds"] for s in stats)
+    # one launch a round (a graph replay), plus the warm-up round before
+    # each capture
+    assert round_cuda.launches["round_megakernel"] == sum(
+        s["rounds"] + s["captures"] for s in stats)
     assert partition_cuda.launches["partition_segments"] == 0
     # one blocking read a tree, the fixed-point exponents before round 1
     assert all(s["retries"] == 0 and s["host_syncs"] == 1 for s in stats)
@@ -434,3 +442,202 @@ def test_windowed_training_launches_the_round_megakernel(monkeypatch):
     assert partition_cuda.launches["partition_segments"] > 0
     np.testing.assert_allclose(bst.predict(X[:2000]), ref.predict(X[:2000]),
                                rtol=1e-5, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# the one-dispatch contracts: every round one CUDA-graph replay
+# ---------------------------------------------------------------------------
+def _train_modes(p, X, y, rounds):
+    """lgb.train with fused_training on (graphs) and off (eager): the two
+    boosters, each with the stats of its trees and the kernels' launches."""
+    import lightgbm_tpu_torch as tlgb
+    from lightgbm_tpu_torch.ops import hist_cuda, partition_cuda, round_cuda
+
+    out = []
+    for fused in (True, False):
+        q = {**p, "fused_training": fused}
+        for d in (hist_cuda, partition_cuda, round_cuda):
+            d.reset_counts()
+        bst = tlgb.train(q, tlgb.Dataset(X, label=y, params=q), rounds)
+        launches = {**hist_cuda.launches, **partition_cuda.launches,
+                    **round_cuda.launches}
+        for d in (hist_cuda, partition_cuda, round_cuda):
+            assert not any(d.plain_calls.values()), d.plain_calls
+        out.append((bst, bst._gbdt.round_stats, launches))
+    return out
+
+
+@pytest.mark.parametrize("cell", ["windowed_float", "windowed_int8", "rounds_float"])
+def test_graph_and_eager_trees_are_bitwise_equal(cell):
+    """fused_training=true (a replay a round) and false (eager rounds) grow
+    the same model text; every round of the graph run is one replay, graphs
+    are captured only for keys the tree meets first, and each kernel's
+    launches are its replays' nodes plus the warm-up rounds."""
+    _card()
+    if cell == "rounds_float":
+        rng = np.random.RandomState(1)
+        X = rng.randn(40_000, 12)
+        y = (X[:, 0] + X[:, 1] * X[:, 2] + rng.randn(40_000) > 0).astype(float)
+        p = {"objective": "binary", "num_leaves": 31, "verbosity": -1}
+    else:
+        X, y = _wide()
+        p = {"objective": "binary", "num_leaves": 64, "verbosity": -1,
+             "windowed_growth": True,
+             "use_quantized_grad": cell == "windowed_int8"}
+    (gb, g_stats, g_l), (eb, e_stats, e_l) = _train_modes(p, X, y, 4)
+    assert gb.model_to_string() == eb.model_to_string()
+    assert all(s["replays"] == s["rounds"] == s["dispatches"] for s in g_stats)
+    assert all(s["replays"] == s["captures"] == 0 for s in e_stats)
+    assert g_stats[0]["captures"] >= 1
+    seen = set()
+    for s in g_stats:
+        keys = set(s["windows"])
+        assert s["captures"] == len(keys - seen), (s, seen)
+        seen |= keys
+    rounds = sum(s["rounds"] for s in g_stats)
+    captures = sum(s["captures"] for s in g_stats)
+    trees = len(g_stats)
+    if cell == "windowed_float":
+        assert g_l["round_megakernel"] == rounds + captures
+        assert g_l["histogram_multi"] == trees  # the root passes, eager
+    elif cell == "windowed_int8":
+        assert g_l["partition_segments"] == rounds + captures
+        assert g_l["histogram_multi_quantized"] == rounds + captures + trees
+    else:
+        assert g_l["histogram_multi"] == rounds + captures + trees
+        assert all(s["host_syncs"] == 0 for s in g_stats)
+    assert e_l["histogram_multi"] + e_l["histogram_multi_quantized"] > 0
+
+
+def _windowed_fixture(n=30_000, f=512, seed=0):
+    from lightgbm_tpu_torch.ops.split import SplitParams
+
+    dev = _card()
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    bins = torch.randint(0, 64, (n, f), generator=g, dtype=torch.int16).to(dev)
+    grad = (bins[:, 0].float() - 30 + 8 * (bins[:, 1] > 20).float()
+            + torch.randn(n, generator=g).to(dev))
+    ones = torch.ones(n, device=dev)
+    args = (bins, grad, ones, torch.ones(n, dtype=torch.bool, device=dev), ones,
+            torch.ones(f, dtype=torch.bool, device=dev),
+            torch.full((f,), 64, dtype=torch.int32, device=dev),
+            torch.full((f,), -1, dtype=torch.int32, device=dev))
+    kw = dict(num_leaves=64, num_bins=64, leaf_tile=10,
+              params=SplitParams(min_data_in_leaf=20, lambda_l2=1.0))
+    return args, kw
+
+
+@pytest.mark.parametrize("grower", ["windowed", "rounds"])
+def test_second_tree_replays_clean_and_captures_nothing(monkeypatch, grower):
+    """The same tree twice through one cache: the first captures one graph
+    per key it meets, the second none; the second's whole round loop runs
+    under torch's sync debug mode set to raise (so no round asks the host
+    to wait), with one replay a round and the same tree."""
+    from lightgbm_tpu_torch.ops import treegrow_fast as tf
+    from lightgbm_tpu_torch.ops import treegrow_windowed as tw
+    from lightgbm_tpu_torch.ops.graphs import RoundGraphs
+
+    args, kw = _windowed_fixture()
+    grow = tw.grow_tree_windowed if grower == "windowed" else tf.grow_tree_fast
+    graphs = RoundGraphs(args[0].device)
+    s1, s2 = {}, {}
+    t1, l1 = grow(*args, graphs=graphs, stats=s1, **kw)
+    real = tw._run_fused_rounds
+
+    def strict(*a, **k):
+        prev = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return real(*a, **k)
+        finally:
+            torch.cuda.set_sync_debug_mode(prev)
+
+    monkeypatch.setattr(tw, "_run_fused_rounds", strict)
+    monkeypatch.setattr(tf, "_run_fused_rounds", strict)
+    t2, l2 = grow(*args, graphs=graphs, stats=s2, **kw)
+    assert s1["captures"] == len(set(s1["windows"])) >= 1
+    assert s2["captures"] == 0 and s2["replays"] == s2["rounds"] == s1["rounds"]
+    assert s2["host_syncs"] == (1 if grower == "windowed" else 0)
+    assert torch.equal(l1, l2)
+    for a, b in zip(t1, t2):
+        assert (a is None and b is None) or torch.equal(a, b)
+
+
+def test_b2_and_b3_in_a_graph_equal_their_eager_launches():
+    """B2 and B3 captured in one graph (their cooperative launches as graph
+    nodes, the exponent pair read from device memory), replayed with new
+    inputs, interleaved on the same scratch with eager B2 calls over rising
+    N (the last past the scratch's size, which regrows it for later eager
+    calls while the graph keeps its own): every output equals the plain
+    version's."""
+    from lightgbm_tpu_torch.ops import partition_cuda as pc
+    from lightgbm_tpu_torch.ops import round_cuda as rc
+    from lightgbm_tpu_torch.ops.graphs import RoundGraphs
+    from lightgbm_tpu_torch.ops.split import SplitParams
+
+    dev = _card()
+    n = 60_013
+    order, go, seg_start, seg_len = _segments(dev, n, 7)
+    args, W = _round_on(dev, order, go, seg_start, seg_len)
+    kw = dict(params=SplitParams(min_data_in_leaf=5, lambda_l2=1.0), W=n)
+    shift = torch.tensor([30, 31], dtype=torch.int32, device=dev)
+    graphs = RoundGraphs(dev)
+    side = graphs._stream
+    big = _segments(dev, 200_003, 8)
+    with torch.cuda.stream(side):
+        _b2_matches_plain(big[0], big[2], big[3], big[1])  # scratch at its largest
+        buffers = graphs.load((order, go, seg_start, seg_len, shift, tuple(args),
+                               torch.empty_like(order), torch.empty_like(seg_start),
+                               torch.empty_like(order)))
+
+        def body(b):
+            o, g, ss, sl, sh, ra, out2, nl2, out3 = b
+            k2, kl2 = pc.partition_segments(o, ss, sl, g)
+            out2.copy_(k2)
+            nl2.copy_(kl2)
+            out3.copy_(rc.round_megakernel(*ra, shift=sh, **kw)[0])
+
+        for i, m in enumerate((5_000, 60_013, 150_001, 400_001)):
+            other = _segments(dev, m, 20 + i)
+            _b2_matches_plain(other[0], other[2], other[3], other[1])
+            if i == 2:  # new inputs for the same graph
+                o2 = torch.roll(order, 1)
+                g2 = torch.roll(go, 3)
+                ra = tuple(_round_on(dev, o2, g2, seg_start, seg_len, seed=9)[0])
+                graphs.load((o2, g2, seg_start, seg_len, shift + 1, ra,
+                             *buffers[6:]))
+            graphs.run("b2b3", body)
+            b = graphs.buffers
+            p2, pl2 = pc.partition_segments_plain(b[0], b[2], b[3], b[1])
+            p3 = rc.round_megakernel_plain(*b[5], shift=b[4], **kw)[0]
+            torch.cuda.synchronize()
+            assert torch.equal(b[6], p2) and torch.equal(b[7], pl2), i
+            assert torch.equal(b[8], p3), i
+    assert pc.launches["partition_segments"] >= 4
+
+
+def test_a_failed_capture_raises_and_trains_nothing_eagerly(monkeypatch):
+    """A round that asks the host to wait cannot be captured: training
+    raises, and does not go on with eager rounds.  (Last in this file: a
+    failed capture is left behind on its stream.)"""
+    import lightgbm_tpu_torch as tlgb
+    from lightgbm_tpu_torch.ops import treegrow_fast as tf
+
+    _card()
+    real = tf._round
+
+    def syncing(*a, **k):
+        st, info = real(*a, **k)
+        if int(info[0]) < 0:  # a blocking read inside the round
+            raise AssertionError("unreachable")
+        return st, info
+
+    monkeypatch.setattr(tf, "_round", syncing)
+    rng = np.random.RandomState(2)
+    X = rng.randn(5000, 6)
+    y = (X[:, 0] > 0).astype(float)
+    p = {"objective": "binary", "num_leaves": 8, "verbosity": -1}
+    ds = tlgb.Dataset(X, label=y, params=p)
+    with pytest.raises(RuntimeError):
+        tlgb.train(p, ds, 2)
+    torch.cuda.synchronize()

@@ -83,7 +83,7 @@ def test_wrappers_have_no_fallback():
     failed build or launch into the plain path."""
     for module in ("hist_cuda.py", "partition_cuda.py", "round_cuda.py",
                    "cuda_build.py", "partition.py", "treegrow_fast.py",
-                   "treegrow_windowed.py"):
+                   "treegrow_windowed.py", "graphs.py"):
         assert "except" not in (PORT / "ops" / module).read_text(), module
     assert "run_with_fallback" not in "".join(
         p.read_text() for p in PORT.rglob("*.py"))
