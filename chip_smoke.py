@@ -49,11 +49,30 @@ Imports no JAX.  Phases, one line each; any failure exits non-zero:
   9. parity   megakernel=auto against megakernel=0 on 100k of the rows, 2
               trees: the same nodes, leaf counts and leaf values, and each
               run's launches counted;
- 10. device   nvidia-smi's name and power limit.
+ 10. strict   phase 3's Higgs set with tree_growth_mode=strict, 5 rounds
+              (eager: the strict step is not captured): it/s, blocking
+              reads a tree (none), B1 launches (tile 1: the root and one a
+              split), held-out AUC, a small run held against the CPU, a
+              profiled window, and B1 at its tile-1 call site against its
+              plain version;
+ 11. multi    multiclass softmax at the repo's multiclass-5 shape (500k
+              train + 50k held-out rows x 28 features, 5 classes, 31
+              leaves, max_bin 63), 10 rounds (50 trees), graph and eager in
+              turns: one capture a training, the class trees replaying it,
+              held-out multi_logloss and multi_error, graph == eager;
+ 12. rank     LambdaRank at MSLR-WEB30K width (1M train rows in ~8,300
+              queries of 60-180 documents + ~50k held-out rows, 136
+              features, relevance 0-4, 255 leaves, max_bin 255), 5 rounds,
+              graph and eager in turns: held-out NDCG@{1,3,5,10}; then every
+              objective this slice added, its gradients and hessians on the
+              card against the CPU at 1M rows;
+ 13. device   nvidia-smi's name and power limit.
 
 Then a JSON line with every kernel's numbers (launches on the main path,
-graph mode; whether it runs inside a graph and its launches a replay), and
-last the device line {"ok": true, "device": {...}}.
+graph mode; whether it runs inside a graph and its launches a replay; B1
+once for each call site: Higgs rounds, Epsilon root and window, strict,
+multiclass, LambdaRank), and last the device line {"ok": true, "device":
+{...}}.
 
     python3 chip_smoke.py --turns CHECKOUT
 
@@ -106,7 +125,37 @@ AUC_FLOOR_EPS_INT8 = 0.61
 # sha256 prefixes of the four training runs' model text (phases 3, 4, 6, 8;
 # PERF.md): graph and eager training, every kernel change, must keep them
 MODEL_SHA = {"higgs_float": "3cb1e5ba", "higgs_int8": "900c2628",
-             "eps_float": "3e51d1cd", "eps_int8": "c2599a30"}
+             "eps_float": "3e51d1cd", "eps_int8": "c2599a30",
+             # phases 10-12 (PERF.md)
+             "higgs_strict": "b0263266", "multiclass": "a178220f",
+             "lambdarank": "d37e8ddd"}
+# phase 10: the strict grower on the Higgs cell; the card read AUC 0.81766
+# (PERF.md), the floor sits 0.01 under it
+ROUNDS_STRICT = 5
+AUC_FLOOR_STRICT = 0.80
+# phase 11: the README's "multiclass-5 softmax 500k x 28" row, generated as
+# benchmarks/workload_smoke.py::bench_multiclass does (it stands for the
+# Airline multiclass workload of BASELINE.md)
+MC_N_TRAIN, MC_N_TEST, MC_FEAT, MC_CLASSES, MC_BIN = 500_000, 50_000, 28, 5, 63
+MC_ROUNDS = 10
+# the card read multi_logloss 1.28050 and multi_error 0.41170 on the
+# held-out rows (PERF.md); each ceiling sits 0.01 over its reading
+MC_LOGLOSS_CEIL, MC_ERROR_CEIL = 1.29, 0.42
+# phase 12: LambdaRank at MSLR-WEB30K width (136 features, relevance 0-4,
+# ~120 documents a query; 1M of its ~3.7M rows), LightGBM's ranking
+# experiment parameters (docs/Experiments.rst: 255 leaves, learning rate
+# 0.1, max_bin 255)
+RK_N_TRAIN, RK_N_TEST, RK_FEAT, RK_LEAVES, RK_ROUNDS = 1_000_000, 50_000, 136, 255, 5
+RK_QMIN, RK_QMAX = 60, 180
+RK_EVAL_AT = (1, 3, 5, 10)
+# the card read NDCG@1,3,5,10 = 0.76316, 0.72857, 0.70391, 0.66570 on the
+# held-out queries (PERF.md); each floor sits 0.01 under its reading
+NDCG_FLOORS = {1: 0.75, 3: 0.71, 5: 0.69, 10: 0.65}
+# the objectives this slice added, held card against CPU at RK_N_TRAIN rows
+NEW_OBJECTIVES = ("regression_l1", "huber", "fair", "poisson", "gamma", "tweedie",
+                  "quantile", "mape", "multiclass", "multiclassova", "cross_entropy",
+                  "cross_entropy_lambda", "lambdarank", "rank_xendcg")
+OBJECTIVE_RTOL = 1e-5
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_OPS_PER_S = 67e12  # H100 SXM, non-tensor-core f32 (integer adds counted alike)
 
@@ -411,7 +460,10 @@ def train_timed(lgt, params, train_set, rounds):
 def small_vs_cpu(lgt, params, Xtr, ytr, Xte, n=20000, rounds=3) -> float:
     """Train on ``n`` rows on the card and on the CPU (the plain versions
     throughout) and return the largest gap in predictions; fails above
-    1e-4 (f32 arithmetic order of the torch ops on each side)."""
+    1e-4 (f32 arithmetic order of the torch ops on each side).  Both sides
+    take the grower the card takes (auto is the strict grower on the
+    CPU)."""
+    params = {"tree_growth_mode": "rounds", **params}
     cpu = {**params, "device_type": "cpu"}
     pc = lgt.train(cpu, lgt.Dataset(Xtr[:n], label=ytr[:n], params=cpu),
                    rounds).predict(Xte[:5000])
@@ -1342,6 +1394,392 @@ def variants(parent) -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# phases 10-12: the strict grower, multiclass and LambdaRank
+# ---------------------------------------------------------------------------
+def multiclass_like(n: int, k: int, seed: int):
+    """benchmarks/workload_smoke.py::bench_multiclass's generator: 28
+    standard normal features, the class of the largest of k noisy
+    projections on random centers."""
+    rng = np.random.RandomState(seed)
+    X = rng.randn(n, MC_FEAT).astype(np.float32)
+    centers = rng.randn(k, MC_FEAT)
+    y = np.argmax(X @ centers.T + rng.randn(n, k), axis=1).astype(np.float64)
+    return X, y
+
+
+def query_sizes(rng, n: int) -> np.ndarray:
+    """Query lengths uniform in [RK_QMIN, RK_QMAX] (mean 120, as in
+    MSLR-WEB30K), the last cut so that they sum to n."""
+    sizes = rng.randint(RK_QMIN, RK_QMAX + 1, size=n // RK_QMIN + 2)
+    sizes = sizes[:int(np.searchsorted(np.cumsum(sizes), n)) + 1].copy()
+    sizes[-1] -= int(sizes.sum()) - n
+    return sizes
+
+
+def mslr_like(seed: int):
+    """A seeded set of the shape of MSLR-WEB30K: RK_N_TRAIN + RK_N_TEST rows
+    of 136 features in queries of 60-180 documents, relevance 0-4 by the
+    rank of a noisy linear score within its query, as
+    benchmarks/workload_smoke.py::bench_rank labels them.  Returns (X, y,
+    train query sizes, held-out query sizes); the held-out queries follow
+    the training ones."""
+    rng = np.random.RandomState(seed)
+    s_tr, s_te = query_sizes(rng, RK_N_TRAIN), query_sizes(rng, RK_N_TEST)
+    sizes = np.concatenate([s_tr, s_te])
+    n = int(sizes.sum())
+    X = rng.randn(n, RK_FEAT).astype(np.float32)
+    rel = X @ (rng.randn(RK_FEAT) / 8) + 0.7 * rng.randn(n)
+    qid = np.repeat(np.arange(len(sizes)), sizes)
+    order = np.lexsort((-rel, qid))  # by query, then by score descending
+    start = np.concatenate([[0], np.cumsum(sizes)[:-1]])
+    rank = np.empty(n, np.int64)
+    rank[order] = np.arange(n) - start[qid[order]]
+    y = np.clip(4 - rank // (sizes[qid] // 5 + 1), 0, 4).astype(np.float64)
+    return X, y, s_tr, s_te
+
+
+def check_b1_site(hc, bins, grad, hess, mask, slot, tile, num_bins):
+    """B1 at one of its call sites, on that path's own inputs and with the
+    tree's exponent pair (fixed_shift_tensor), as the grower calls it:
+    kernel against plain version bit for bit, then the kernel's, the plain
+    version's and the library call's times and the bound of this data."""
+    shift = hc.fixed_shift_tensor(grad, hess)
+    args = (bins, grad, hess, mask, slot, 0, tile, num_bins)
+    k = hc.histogram_multi(*args, shift=shift)
+    p = hc.histogram_multi_plain(*args, shift=shift)
+    torch.cuda.synchronize()
+    if not torch.equal(k, p):
+        raise AssertionError(f"B1 (tile {tile}) differs from its plain version: "
+                             f"max|d| {float((k - p).abs().max())}")
+    if float(k[:, 2].sum()) <= 0:
+        raise AssertionError("B1: empty histogram")
+    ms = cuda_ms(lambda: hc.histogram_multi(*args, shift=shift))
+    plain_ms = cuda_ms(lambda: hc.histogram_multi_plain(*args, shift=shift),
+                       iters=3, warmup=1)
+    lib, rows = library_call(bins, (grad, hess), mask, slot, 0, tile, num_bins,
+                             torch.float32)
+    library_ms = cuda_ms(lib)
+    n, f = bins.shape
+    b_ms, b_by = bound(n, f, tile, num_bins, rows, 4, 4)
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms,
+                bound_by=b_by, max_abs_err=0.0, rows=int(rows.numel()), tile=tile)
+
+
+def b1_line(what, r) -> str:
+    return (f"{what}: tile={r['tile']} rows={r['rows']} ms={r['ms']:.4f} "
+            f"plain_ms={r['plain_ms']:.4f} library_ms={r['library_ms']:.4f} "
+            f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) bitwise_plain=True")
+
+
+def b1_entry(name, r, launches, per_replay):
+    return {"name": name, "route": "cuda", "source": "lightgbm_tpu_torch/csrc/hist.cu",
+            "replaces": "lightgbm_tpu/ops/hist_pallas.py:120", "launches": launches,
+            "in_graph": per_replay > 0, "launches_per_replay": per_replay,
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"]}
+
+
+def round_slots(n, tile, seed, dev):
+    """The slots a round of the rounds grower hands B1: each row in one of
+    ``tile`` small children or (about half the rows) in none (-1)."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    s = torch.randint(-tile, tile, (n,), generator=g, device=dev, dtype=torch.int32)
+    return torch.where(s < 0, -1, s).to(torch.int32)
+
+
+def objective_inputs(name, n, rng, rank_label, rank_qb):
+    """Seeded (score, label, weight, query boundaries, params) for one
+    objective at n rows."""
+    params = {"objective": name, "verbosity": -1}
+    score = rng.standard_normal(n).astype(np.float32)
+    weight = rng.uniform(0.5, 2.0, n).astype(np.float32)
+    qb = None
+    if name in ("multiclass", "multiclassova"):
+        params["num_class"] = MC_CLASSES
+        score = rng.standard_normal((n, MC_CLASSES)).astype(np.float32)
+        label = rng.integers(0, MC_CLASSES, n).astype(np.float32)
+    elif name in ("lambdarank", "rank_xendcg"):
+        label, qb, weight = rank_label.astype(np.float32), rank_qb, None
+    elif name in ("cross_entropy", "cross_entropy_lambda"):
+        label = rng.random(n).astype(np.float32)
+    elif name in ("poisson", "tweedie"):
+        label = rng.poisson(2.0, n).astype(np.float32)
+        score *= 0.5
+    elif name == "gamma":
+        label = rng.gamma(2.0, 1.5, n).astype(np.float32)
+        score *= 0.5
+    else:
+        label = (3.0 * rng.standard_normal(n)).astype(np.float32)
+    return score, label, weight, qb, params
+
+
+def check_new_objectives(rank_label, rank_qb, dev):
+    """Every objective this slice added: gradients and hessians on the card
+    against the same objective on the CPU, on the same seeded inputs at
+    RK_N_TRAIN rows (the ranking ones on phase 12's queries; XE-NDCG with
+    one set of draws given to both).  Fails where the largest difference
+    exceeds OBJECTIVE_RTOL x the largest CPU magnitude (f32 arithmetic in
+    another order: the card's reductions and transcendentals)."""
+    from lightgbm_tpu_torch.config import Config
+    from lightgbm_tpu_torch.objectives import create_objective
+
+    rng = np.random.default_rng(SEED + 6)
+    out = {}
+    n = RK_N_TRAIN
+    for name in NEW_OBJECTIVES:
+        score, label, weight, qb, params = objective_inputs(name, n, rng, rank_label,
+                                                            rank_qb)
+        res = []
+        u = None
+        for d in (dev, torch.device("cpu")):
+            obj = create_objective(Config.from_dict(params))
+            if qb is not None:
+                obj.set_query(qb, label, d)
+                if u is None:
+                    u = torch.rand(tuple(obj._pad_idx.shape),
+                                   generator=torch.Generator().manual_seed(SEED))
+                obj.draws = lambda shape, device: u.to(device)
+            g, h = obj.get_gradients(
+                torch.as_tensor(score, device=d), torch.as_tensor(label, device=d),
+                None if weight is None else torch.as_tensor(weight, device=d))
+            res.append((g.cpu(), h.cpu()))
+        (gc, hc), (gp, hp) = res
+        errs = []
+        for a, b in ((gc, gp), (hc, hp)):
+            if a.shape != b.shape or not torch.isfinite(a).all():
+                raise AssertionError(f"{name}: card output {tuple(a.shape)} not finite "
+                                     f"or not the CPU's {tuple(b.shape)}")
+            err = float((a - b).abs().max())
+            scale = max(1.0, float(b.abs().max()))
+            if not err <= OBJECTIVE_RTOL * scale:
+                raise AssertionError(f"{name}: card vs CPU max|d| {err} > "
+                                     f"{OBJECTIVE_RTOL} x {scale}")
+            errs.append(err)
+        out[name] = tuple(errs)
+    return out
+
+
+def _wrappers():
+    from lightgbm_tpu_torch.ops import hist_cuda, partition_cuda, round_cuda
+
+    return hist_cuda, partition_cuda, round_cuda
+
+
+def reset():
+    """Every kernel wrapper's launch and plain-call counts to 0."""
+    for m in _wrappers():
+        m.reset_counts()
+
+
+def plain_total() -> int:
+    return sum(sum(m.plain_calls.values()) for m in _wrappers())
+
+
+def counts():
+    """Launches of (B1 float, B1 int8, B2, B3) since the last reset."""
+    hc, pc, rc = _wrappers()
+    return (hc.launches["histogram_multi"], hc.launches["histogram_multi_quantized"],
+            pc.launches["partition_segments"], rc.launches["round_megakernel"])
+
+
+def higgs_cell(lgt):
+    """Phase 3's Higgs-shaped set and parameters: (base params, (train set,
+    Xtr, ytr, Xte, yte))."""
+    X, y = higgs_like(N_TRAIN + N_TEST, SEED)
+    Xtr, ytr, Xte, yte = X[:N_TRAIN], y[:N_TRAIN], X[N_TRAIN:], y[N_TRAIN:]
+    base = {"objective": "binary", "max_bin": MAX_BIN, "num_leaves": NUM_LEAVES,
+            "learning_rate": 0.1, "device_type": "cuda", "verbosity": -1,
+            "seed": 7}
+    train_set = lgt.Dataset(Xtr, label=ytr, params=dict(base))
+    train_set.construct()
+    return base, (train_set, Xtr, ytr, Xte, yte)
+
+
+def new_phases(lgt, dev, base, higgs, counts, plain_total):
+    """Phases 10-12 (the strict grower on the Higgs cell, multiclass,
+    LambdaRank); ``higgs`` is phase 3's (train set, Xtr, ytr, Xte, yte).
+    Returns the kernel line's B1 entries of their call sites."""
+    from lightgbm_tpu_torch.ops import hist_cuda as hc
+
+    h_set, h_Xtr, h_ytr, h_Xte, h_yte = higgs
+
+    # ---- 10. the strict grower on the Higgs cell (eager) ----
+    t0 = time.perf_counter()
+    strict = {**base, "tree_growth_mode": "strict"}
+    runs10 = train_turns(lgt, strict, h_set, ROUNDS_STRICT, MODEL_SHA["higgs_strict"],
+                         counts, plain_total, turns=("ineligible", "ineligible"))
+    for r in runs10:
+        st, (b1, b1q, b2, b3) = r["st"], r["launches"]
+        # B1 at tile 1: the root and one a step (L - 1 steps, the masked
+        # no-ops after the last split included); no read inside a tree
+        if not (st["trees"] == ROUNDS_STRICT and st["rounds"] == st["trees"] * (NUM_LEAVES - 1)
+                and b1 == st["trees"] * NUM_LEAVES and b1q == b2 == b3 == 0
+                and st["host_syncs"] == 0):
+            raise AssertionError(f"strict run: {st} launches {r['launches']}")
+        log(turn_line("phase 10 strict (fused_training=true, not eligible: eager)", r))
+    if len({r["sha"] for r in runs10}) != 1:
+        raise AssertionError("strict runs grew different models")
+    bst_s, b1_strict = runs10[0]["bst"], runs10[0]["launches"][0]
+    ps = bst_s.predict(h_Xte)
+    a_s = auc(h_yte, ps)
+    if not (ps.shape == (N_TEST,) and np.all(np.isfinite(ps)) and a_s >= AUC_FLOOR_STRICT):
+        raise AssertionError(f"strict run: held-out AUC {a_s} < floor {AUC_FLOOR_STRICT}")
+    if not np.array_equal(ps, lgt.Booster(model_str=bst_s.model_to_string()).predict(h_Xte)):
+        raise AssertionError("reloaded strict model predicts differently")
+    small_err_s = small_vs_cpu(lgt, {**strict, "num_leaves": 15}, h_Xtr, h_ytr, h_Xte)
+    log(f"phase 10 strict: ok {ROUNDS_STRICT} rounds auc={a_s:.5f} (floor "
+        f"{AUC_FLOOR_STRICT}) B1 launches={b1_strict} ({b1_strict / ROUNDS_STRICT:.1f}/tree: "
+        f"the root + {NUM_LEAVES - 1} steps) blocking reads inside trees=0 reload=bitwise "
+        f"small-vs-cpu max|d|={small_err_s:.3g} in {time.perf_counter() - t0:.2f} s")
+    log(profile_line("phase 10 profile strict (2 trees after a warm one)",
+                     profile_rounds(lgt, strict, h_set, 2)))
+    # B1 at its tile-1 call site: one child of a split on feature 0 at its
+    # median bin, with the gradients of the model 5 trees in
+    gb = bst_s._gbdt
+    g10, h10 = (v.contiguous() for v in gb.objective.get_gradients(
+        gb._score, gb._label, gb._weight))
+    col = h_set.bins_device[:, 0]
+    mask = col.float() <= col.float().median()
+    slot0 = torch.zeros(N_TRAIN, dtype=torch.int32, device=dev)
+    b1s = check_b1_site(hc, h_set.bins_device, g10, h10, mask, slot0, 1, h_set.max_num_bins)
+    log(b1_line(f"phase 10 kernel B1 strict site N={N_TRAIN} F={N_FEAT}", b1s))
+    del runs10, bst_s, gb, g10, h10, h_set
+
+    # ---- 11. multiclass, graph and eager in turns ----
+    t0 = time.perf_counter()
+    X, y = multiclass_like(MC_N_TRAIN + MC_N_TEST, MC_CLASSES, SEED + 3)
+    Xte, yte = X[MC_N_TRAIN:], y[MC_N_TRAIN:]
+    mc = {"objective": "multiclass", "num_class": MC_CLASSES, "max_bin": MC_BIN,
+          "num_leaves": NUM_LEAVES, "learning_rate": 0.1, "device_type": "cuda",
+          "verbosity": -1, "seed": 7}
+    mc_set = lgt.Dataset(X[:MC_N_TRAIN], label=y[:MC_N_TRAIN], params=dict(mc))
+    mc_set.construct()
+    log(f"phase 11 data: {MC_N_TRAIN}+{MC_N_TEST} rows x {MC_FEAT}, {MC_CLASSES} classes, "
+        f"max_bin {MC_BIN}, in {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    runs11 = train_turns(lgt, mc, mc_set, MC_ROUNDS, MODEL_SHA["multiclass"], counts,
+                         plain_total)
+    trees = MC_ROUNDS * MC_CLASSES
+    for r in runs11:
+        st, (b1, b1q, b2, b3) = r["st"], r["launches"]
+        # the class trees' rounds share one static key: one capture a
+        # training in graph mode, every round of every class tree a replay
+        if not (st["trees"] == trees and b1 == trees + st["rounds"] + st["captures"]
+                and b1q == b2 == b3 == 0 and st["host_syncs"] == 0
+                and st["captures"] == (1 if r["mode"] == "graph" else 0)):
+            raise AssertionError(f"multiclass {r['mode']} run: {st} launches {r['launches']}")
+        log(turn_line("phase 11 multiclass", r))
+    if len({r["sha"] for r in runs11}) != 1:
+        raise AssertionError("multiclass graph and eager runs grew different models")
+    bst_m, st_m = runs11[0]["bst"], runs11[0]["st"]
+    b1_mc, per_replay_mc = runs11[0]["launches"][0], st_m["per_replay"].get("histogram_multi", 0)
+    pm = bst_m.predict(Xte)
+    if not (pm.shape == (MC_N_TEST, MC_CLASSES) and np.all(np.isfinite(pm))
+            and np.allclose(pm.sum(axis=1), 1.0, atol=1e-5)):
+        raise AssertionError("multiclass predictions are not (N, K) probabilities")
+    mc_ll = float(np.mean(-np.log(np.clip(pm[np.arange(MC_N_TEST), yte.astype(int)],
+                                          1e-15, None))))
+    mc_err = float(np.mean(np.argmax(pm, axis=1) != yte))
+    if not (mc_ll <= MC_LOGLOSS_CEIL and mc_err <= MC_ERROR_CEIL):
+        raise AssertionError(f"multiclass held-out multi_logloss {mc_ll} / multi_error "
+                             f"{mc_err} over {MC_LOGLOSS_CEIL} / {MC_ERROR_CEIL}")
+    if not np.array_equal(pm, lgt.Booster(model_str=bst_m.model_to_string()).predict(Xte)):
+        raise AssertionError("reloaded multiclass model predicts differently")
+    log(f"phase 11 multiclass: ok {MC_ROUNDS} rounds ({trees} trees) multi_logloss="
+        f"{mc_ll:.5f} (ceiling {MC_LOGLOSS_CEIL}) multi_error={mc_err:.5f} (ceiling "
+        f"{MC_ERROR_CEIL}) captures={st_m['captures']} replays/tree="
+        f"{st_m['replays'] / st_m['trees']:.2f} B1 launches={b1_mc} reload=bitwise graph == "
+        f"eager sha256 in {time.perf_counter() - t0:.2f} s")
+    for mode in ("graph", "eager"):
+        log(profile_line(f"phase 11 profile {mode} (2 iterations after a warm one)",
+                         profile_rounds(lgt, {**mc, "fused_training": mode == "graph"},
+                                        mc_set, 2)))
+    gb = bst_m._gbdt
+    g11, h11 = gb.objective.get_gradients(gb._score, gb._label, gb._weight)
+    tile_m = hc.recommended_leaf_tile(mc_set.max_num_bins, MC_FEAT, NUM_LEAVES)
+    b1m = check_b1_site(hc, mc_set.bins_device, g11[:, 0].contiguous(),
+                        h11[:, 0].contiguous(), torch.ones(MC_N_TRAIN, dtype=torch.bool,
+                                                           device=dev),
+                        round_slots(MC_N_TRAIN, tile_m, SEED, dev), tile_m,
+                        mc_set.max_num_bins)
+    log(b1_line(f"phase 11 kernel B1 multiclass site N={MC_N_TRAIN} F={MC_FEAT} "
+                f"B={mc_set.max_num_bins}", b1m))
+    del runs11, bst_m, gb, g11, h11, mc_set, X, y, Xte, yte
+    torch.cuda.empty_cache()
+
+    # ---- 12. LambdaRank at MSLR-WEB30K width, graph and eager in turns ----
+    t0 = time.perf_counter()
+    X, y, s_tr, s_te = mslr_like(SEED + 4)
+    t_gen = time.perf_counter() - t0
+    rk = {"objective": "lambdarank", "max_bin": MAX_BIN, "num_leaves": RK_LEAVES,
+          "learning_rate": 0.1, "device_type": "cuda", "verbosity": -1, "seed": 7,
+          "bin_construct_sample_cnt": EPS_BIN_SAMPLE, "eval_at": list(RK_EVAL_AT)}
+    rk_set = lgt.Dataset(X[:RK_N_TRAIN], label=y[:RK_N_TRAIN], group=s_tr, params=dict(rk))
+    rk_set.construct()
+    log(f"phase 12 data: {RK_N_TRAIN}+{len(X) - RK_N_TRAIN} rows x {RK_FEAT} in "
+        f"{len(s_tr)}+{len(s_te)} queries of {RK_QMIN}-{RK_QMAX} documents, generated in "
+        f"{t_gen:.2f} s, binned in {time.perf_counter() - t0 - t_gen:.2f} s")
+    t0 = time.perf_counter()
+    runs12 = train_turns(lgt, rk, rk_set, RK_ROUNDS, MODEL_SHA["lambdarank"], counts,
+                         plain_total)
+    for r in runs12:
+        st, (b1, b1q, b2, b3) = r["st"], r["launches"]
+        if not (st["trees"] == RK_ROUNDS and b1 == st["trees"] + st["rounds"] + st["captures"]
+                and b1q == b2 == b3 == 0 and st["host_syncs"] == 0):
+            raise AssertionError(f"lambdarank {r['mode']} run: {st} launches {r['launches']}")
+        log(turn_line("phase 12 lambdarank", r))
+    if len({r["sha"] for r in runs12}) != 1:
+        raise AssertionError("lambdarank graph and eager runs grew different models")
+    from lightgbm_tpu_torch.metrics import ndcg_at_k
+
+    bst_r, st_r = runs12[0]["bst"], runs12[0]["st"]
+    b1_rk, per_replay_rk = runs12[0]["launches"][0], st_r["per_replay"].get("histogram_multi", 0)
+    pr = bst_r.predict(X[RK_N_TRAIN:])
+    qb_te = np.concatenate([[0], np.cumsum(s_te)])
+    gains = np.asarray([2.0 ** i - 1 for i in range(31)])
+    ndcg = {k: ndcg_at_k(pr, y[RK_N_TRAIN:], qb_te, k, gains) for k in RK_EVAL_AT}
+    if not (np.all(np.isfinite(pr)) and all(ndcg[k] >= NDCG_FLOORS[k] for k in RK_EVAL_AT)):
+        raise AssertionError(f"lambdarank held-out NDCG {ndcg} under floors {NDCG_FLOORS}")
+    if not np.array_equal(pr, lgt.Booster(model_str=bst_r.model_to_string()).predict(
+            X[RK_N_TRAIN:])):
+        raise AssertionError("reloaded lambdarank model predicts differently")
+    log(f"phase 12 lambdarank: ok {RK_ROUNDS} rounds held-out "
+        + " ".join(f"ndcg@{k}={ndcg[k]:.5f} (floor {NDCG_FLOORS[k]})" for k in RK_EVAL_AT)
+        + f" captures={st_r['captures']} replays/tree={st_r['replays'] / st_r['trees']:.2f} "
+        f"B1 launches={b1_rk} reload=bitwise graph == eager sha256 "
+        f"in {time.perf_counter() - t0:.2f} s")
+    for mode in ("graph", "eager"):
+        log(profile_line(f"phase 12 profile {mode} (2 trees after a warm one)",
+                         profile_rounds(lgt, {**rk, "fused_training": mode == "graph"},
+                                        rk_set, 2)))
+    gb = bst_r._gbdt
+    g12, h12 = (v.contiguous() for v in gb.objective.get_gradients(
+        gb._score, gb._label, gb._weight))
+    tile_r = hc.recommended_leaf_tile(rk_set.max_num_bins, RK_FEAT, RK_LEAVES)
+    b1r = check_b1_site(hc, rk_set.bins_device, g12, h12,
+                        torch.ones(RK_N_TRAIN, dtype=torch.bool, device=dev),
+                        round_slots(RK_N_TRAIN, tile_r, SEED + 1, dev), tile_r,
+                        rk_set.max_num_bins)
+    log(b1_line(f"phase 12 kernel B1 lambdarank site N={RK_N_TRAIN} F={RK_FEAT} "
+                f"B={rk_set.max_num_bins}", b1r))
+    del runs12, bst_r, gb, g12, h12, rk_set
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    obj_errs = check_new_objectives(y[:RK_N_TRAIN], np.concatenate([[0], np.cumsum(s_tr)]),
+                                    dev)
+    log(f"phase 12 objectives card vs CPU at {RK_N_TRAIN} rows (max|d| grad, hess; "
+        f"bound {OBJECTIVE_RTOL} x max|CPU|): "
+        + "; ".join(f"{k} {g:.3g}, {h:.3g}" for k, (g, h) in obj_errs.items())
+        + f" in {time.perf_counter() - t0:.2f} s")
+
+    return [b1_entry("histogram_multi_strict", b1s, b1_strict, 0),
+            b1_entry("histogram_multi_multiclass", b1m, b1_mc, per_replay_mc),
+            b1_entry("histogram_multi_lambdarank", b1r, b1_rk, per_replay_rk)]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1401,27 +1839,9 @@ def main() -> int:
 
     counted = (hc, pc, rc)
 
-    def reset():
-        for m in counted:
-            m.reset_counts()
-
-    def plain_total():
-        return sum(sum(m.plain_calls.values()) for m in counted)
-
-    def counts():
-        """Launches of (B1 float, B1 int8, B2, B3) since the last reset."""
-        return (hc.launches["histogram_multi"], hc.launches["histogram_multi_quantized"],
-                pc.launches["partition_segments"], rc.launches["round_megakernel"])
-
     # ---- 3. train, float: graph mode and eager mode in turns ----
     t0 = time.perf_counter()
-    X, y = higgs_like(N_TRAIN + N_TEST, SEED)
-    Xtr, ytr, Xte, yte = X[:N_TRAIN], y[:N_TRAIN], X[N_TRAIN:], y[N_TRAIN:]
-    base = {"objective": "binary", "max_bin": MAX_BIN, "num_leaves": NUM_LEAVES,
-            "learning_rate": 0.1, "device_type": "cuda", "verbosity": -1,
-            "seed": 7}
-    train_set = lgt.Dataset(Xtr, label=ytr, params=dict(base))
-    train_set.construct()
+    base, (train_set, Xtr, ytr, Xte, yte) = higgs_cell(lgt)
     log(f"phase 3 data: {N_TRAIN}+{N_TEST} rows x {N_FEAT} binned in "
         f"{time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
@@ -1479,6 +1899,9 @@ def main() -> int:
         f"{AUC_FLOOR_INT8}) int8 launches={b1q_h} ({b1q_h / ROUNDS_INT8:.2f}/round) "
         f"small-vs-cpu max|d|={small_err_q:.3g} in {time.perf_counter() - t0:.2f} s")
     del runs3, r4
+
+    # the Higgs set stays for phase 10
+    h_set, h_Xtr, h_ytr, h_Xte, h_yte = train_set, Xtr, ytr, Xte, yte
 
     # ---- 5. the Epsilon-shaped set ----
     t0 = time.perf_counter()
@@ -1643,13 +2066,19 @@ def main() -> int:
         f"{st_mk['captures']} / {st_3p['captures']} captures (a warm-up round each), "
         f"plain_calls=0 in {time.perf_counter() - t0:.2f} s")
 
-    # ---- 10. device ----
+    del eps_set, small, b_mk, b_3p, X, y, Xtr, ytr, Xte, yte
+    torch.cuda.empty_cache()
+    new_kernels = new_phases(lgt, dev, base, (h_set, h_Xtr, h_ytr, h_Xte, h_yte),
+                             counts, plain_total)
+    del h_set
+
+    # ---- 13. device ----
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60)
     if smi.returncode != 0 or not smi.stdout.strip():
         raise AssertionError(f"nvidia-smi failed: {smi.stderr}")
-    log(f"phase 10 device: ok total {time.perf_counter() - t_all:.2f} s")
+    log(f"phase 13 device: ok total {time.perf_counter() - t_all:.2f} s")
     log(smi.stdout.strip().splitlines()[0])
 
     src, tpu = "lightgbm_tpu_torch/csrc/hist.cu", "lightgbm_tpu/ops/hist_pallas.py:120"
@@ -1697,6 +2126,7 @@ def main() -> int:
         "ms": r["round_ms"], "plain_ms": r["round_plain_ms"],
         "bound_ms": r["round_bound_ms"], "bound_by": r["round_bound_by"],
         "library_ms": None})
+    kernels += new_kernels
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

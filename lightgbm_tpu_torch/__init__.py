@@ -1,8 +1,9 @@
 """lightgbm_tpu_torch: the PyTorch/CUDA port of lightgbm_tpu (JAX, TPU).
 
-Trains and predicts single-device serial GBDTs with the round-batched
-grower; the multi-leaf histogram pass is a CUDA kernel written for Hopper
-(csrc/hist.cu).  Entry points run on the CUDA card unless the parameters
+Trains and predicts single-device serial GBDTs (every objective and
+metric of the JAX package, multiclass and ranking included) with the
+strict, round-batched or windowed grower; the histogram, partition and
+round kernels are CUDA written for Hopper (csrc/).  Entry points run on the CUDA card unless the parameters
 say device_type='cpu'.  The JAX package (lightgbm_tpu) is the reference;
 this package imports neither it nor JAX.
 """

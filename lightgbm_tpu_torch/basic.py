@@ -64,15 +64,21 @@ class Dataset:
     training entry calls."""
 
     def __init__(self, data, label=None, reference: Optional["Dataset"] = None,
-                 weight=None, init_score=None,
+                 weight=None, group=None, init_score=None,
                  feature_name: Union[str, List[str]] = "auto",
                  categorical_feature: Union[str, List[int]] = "auto",
                  params: Optional[Dict[str, Any]] = None,
-                 free_raw_data: bool = True):
+                 free_raw_data: bool = True, position=None):
         self.data = data
         self.label = None if label is None else np.asarray(label, dtype=np.float64).ravel()
         self.reference = reference
         self.weight = None if weight is None else np.asarray(weight, dtype=np.float64).ravel()
+        # query sizes in row order (ranking objectives and metrics)
+        self.group = None if group is None else np.asarray(group, dtype=np.int64).ravel()
+        # each row's display position (LambdaRank position bias)
+        self.position = (None if position is None
+                         else np.asarray(position, dtype=np.int64).ravel())
+        # (N,) or, for K trees an iteration, (N, K) or N * K row-major
         self.init_score = None if init_score is None else np.asarray(init_score, dtype=np.float64)
         self.params = dict(params or {})
         self.feature_name = feature_name
@@ -108,6 +114,9 @@ class Dataset:
         device = device if device is not None else resolve_device(cfg)
         raw = _to_2d_float(self.data)
         n, f = raw.shape
+        if self.group is not None and int(self.group.sum()) != n:
+            raise ValueError(f"group sizes sum to {int(self.group.sum())}, "
+                             f"but the data has {n} rows")
         if isinstance(self.feature_name, (list, tuple)):
             self.feature_names = list(self.feature_name)
         elif hasattr(self.data, "columns"):
@@ -157,10 +166,18 @@ class Dataset:
             return self._num_feature
         return _to_2d_float(self.data).shape[1]
 
-    def create_valid(self, data, label=None, weight=None, init_score=None,
-                     params=None) -> "Dataset":
+    @property
+    def query_boundaries(self) -> Optional[np.ndarray]:
+        """(Q + 1,) row offsets of the queries, or None without groups."""
+        if self.group is None:
+            return None
+        return np.concatenate([[0], np.cumsum(self.group)]).astype(np.int64)
+
+    def create_valid(self, data, label=None, weight=None, group=None,
+                     init_score=None, params=None) -> "Dataset":
         return Dataset(data, label=label, reference=self, weight=weight,
-                       init_score=init_score, params=params or self.params)
+                       group=group, init_score=init_score,
+                       params=params or self.params)
 
 
 class Booster:

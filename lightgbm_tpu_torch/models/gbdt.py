@@ -1,9 +1,12 @@
 """Gradient-boosting orchestration.
 
 Counterpart of lightgbm_tpu/models/gbdt.py for the main path: single
-device, serial tree learner, one tree per iteration, the round-batched
-grower (ops/treegrow_fast.py), or the windowed grower
-(ops/treegrow_windowed.py) in the wide regime on the card (``_use_windowed``).  Reference: src/boosting/gbdt.cpp
+device, serial tree learner, K trees an iteration (K = num_class for the
+multiclass objectives, else 1), grown by the strict grower
+(ops/treegrow.py::grow_tree: tree_growth_mode=strict, or auto when training
+on the CPU), the round-batched grower (ops/treegrow_fast.py: rounds, or auto
+on the card), or the windowed grower (ops/treegrow_windowed.py) in the wide
+regime on the card (``_use_windowed``).  Reference: src/boosting/gbdt.cpp
 (GBDT::{Init,TrainOneIter}), gbdt_model_text.cpp (the `.txt` model).
 
 Each iteration is an ordinary Python step on device tensors: gradients,
@@ -20,11 +23,15 @@ same round functions run eagerly on the same static buffers).  Gradients,
 the root pass, the tree's finalize and the score update stay eager around
 the replays.  With fused_training=false every round is eager torch
 launches.  Nothing falls back from one to the other.  Whether training can
-go on is read from the device every 32 iterations, as the JAX package does.
+go on is read from the device every 32 iterations, as the JAX package does
+on its rounds path; the strict grower's trees are read then too (the JAX
+package reads each of them at once), so no tree makes a host read.
 
-Not ported yet, and rejected at construction: DART/RF/GOSS (queue A8),
-multiclass (A4), the strict grower (A7), and the options of the grower
-envelope that ops/treegrow_fast.py does not carry (A5/A8).
+Objectives that renew leaf outputs (L1, quantile, MAPE) renew each tree
+after growth, on any grower (the JAX package's renew hook after the tree).
+
+Not ported yet, and rejected at construction: DART/RF/GOSS (queue A8) and
+the options of the grower envelope that the growers do not carry (A11).
 """
 
 from __future__ import annotations
@@ -42,9 +49,11 @@ from ..ops import predict as predict_ops
 from ..ops.hist_cuda import recommended_leaf_tile
 from ..ops.graphs import RoundGraphs
 from ..ops.split import SplitParams
+from ..ops.treegrow import grow_tree
 from ..ops.treegrow_fast import grow_tree_fast, predict_leaf_arrays
 from ..ops.treegrow_windowed import grow_tree_windowed
 from ..utils import sanitizer as _san
+from ..utils.guards import NonFiniteError
 from .tree import Tree, tree_from_device
 
 _MODEL_VERSION = "v4"
@@ -78,7 +87,6 @@ def _unported_options(cfg: Config) -> List[str]:
         "boosting": cfg.boosting not in ("gbdt", "gbrt"),
         "data_sample_strategy=goss": cfg.data_sample_strategy == "goss",
         "tree_learner": cfg.tree_learner != "serial",
-        "tree_growth_mode=strict": cfg.tree_growth_mode == "strict",
         "hist_precision=bf16": cfg.hist_precision != "f32",
         "linear_tree": bool(cfg.linear_tree),
         "monotone_constraints": any(int(c) != 0 for c in
@@ -125,6 +133,10 @@ class GBDT:
         # the captured rounds of this training (fused_training)
         self._round_graphs: Optional[RoundGraphs] = None
         self._round_graphs_shape: Optional[tuple] = None
+        # first iteration (1-based) whose trees carried a non-finite leaf
+        # value or split gain, 0 while clean: kept on the device and read
+        # with the finish check (the JAX package's guard rail)
+        self._guard_bad_iter = None
         if train_set is not None:
             self.reset_training_data(train_set)
 
@@ -147,11 +159,18 @@ class GBDT:
 
     # ------------------------------------------------------------------
     def reset_training_data(self, train_set) -> None:
-        """reference: GBDT::ResetTrainingData."""
+        """reference: GBDT::ResetTrainingData.
+
+        Not carried over from the JAX package: its wide-data int8 default
+        (``_quantized_wide_default``, which switches a training with >= 256
+        features, max_bin > 64 and the rounds grower to int8 gradients with
+        leaf renewal on its device).  On the H100, float is the faster
+        choice at that shape: the Epsilon-shaped cell (400k x 2000, 255
+        bins, 255 leaves) trains at 17.4-17.7 iterations/s in float against
+        4.0-4.2 in int8 (chip_smoke.py, PERF.md section 5).  So the port
+        trains float unless use_quantized_grad is set."""
         cfg = self.cfg
         bad = _unported_options(cfg)
-        if self.num_tree_per_iteration != 1:
-            bad.append("multiclass")
         if bad:
             raise ValueError(
                 "not ported to lightgbm_tpu_torch yet: " + ", ".join(bad)
@@ -164,21 +183,39 @@ class GBDT:
         self.feature_names = list(train_set.feature_names)
         self.metrics = create_metrics(cfg)
         n = train_set.num_data()
+        k = self.num_tree_per_iteration
+        shape = (n,) if k == 1 else (n, k)
         self._label = torch.as_tensor(train_set.label, dtype=torch.float32,
                                       device=dev)
         self._weight = (None if train_set.weight is None else torch.as_tensor(
             train_set.weight, dtype=torch.float32, device=dev))
-        init = torch.zeros(n, dtype=torch.float32, device=dev)
-        if self.objective is not None:
-            self.objective.prepare(np.asarray(train_set.label), train_set.weight)
+        init = torch.zeros(shape, dtype=torch.float32, device=dev)
+        obj = self.objective
+        if obj is not None:
+            obj.prepare(np.asarray(train_set.label), train_set.weight)
             if cfg.boost_from_average and not self.models:
-                self.init_scores = [self.objective.boost_from_score(
-                    self._label, self._weight)]
-                init += np.float32(self.init_scores[0])
+                if k == 1:
+                    self.init_scores = [obj.boost_from_score(self._label,
+                                                             self._weight)]
+                    init += np.float32(self.init_scores[0])
+                else:
+                    self.init_scores = _class_init_scores(
+                        np.asarray(train_set.label), train_set.weight, k)
+                    init += torch.as_tensor(np.asarray(self.init_scores, np.float32),
+                                            device=dev)[None, :]
         if train_set.init_score is not None:
             init += torch.as_tensor(np.asarray(train_set.init_score, np.float32)
-                                    .reshape(n), device=dev)
+                                    .reshape(shape), device=dev)
         self._score = init
+        if obj is not None and hasattr(obj, "set_query"):
+            qb = train_set.query_boundaries
+            if qb is None:
+                raise ValueError(f"objective={obj.name} needs query information: "
+                                 "pass Dataset(group=...)")
+            obj.set_query(qb, np.asarray(train_set.label), dev)
+            if hasattr(obj, "set_positions") and train_set.position is not None:
+                obj.set_positions(train_set.position)
+        self._guard_bad_iter = torch.zeros((), dtype=torch.int32, device=dev)
         self.reset_split_params()
         allowed = np.ones(train_set.num_feature(), dtype=bool)
         if cfg.feature_pre_filter and cfg.min_data_in_leaf > 1:
@@ -209,12 +246,15 @@ class GBDT:
         self.valid_sets.append(valid_set)
         self.valid_names.append(name)
         n = valid_set.num_data()
-        score = torch.zeros(n, dtype=torch.float32, device=self.device)
-        if self.init_scores[0] != 0.0:
-            score += np.float32(self.init_scores[0])
+        k = self.num_tree_per_iteration
+        shape = (n,) if k == 1 else (n, k)
+        score = torch.zeros(shape, dtype=torch.float32, device=self.device)
+        if any(s != 0.0 for s in self.init_scores):
+            score += torch.as_tensor(np.asarray(self.init_scores, np.float32),
+                                     device=self.device).reshape(-1)
         if valid_set.init_score is not None:
             score += torch.as_tensor(np.asarray(valid_set.init_score, np.float32)
-                                     .reshape(n), device=self.device)
+                                     .reshape(shape), device=self.device)
         if self.models:
             raise NotImplementedError(
                 "adding a validation set after training started is not "
@@ -265,6 +305,12 @@ class GBDT:
         mask[rng.choice(f, size=k, replace=False)] = True
         return torch.as_tensor(mask & self._allowed_np, device=self.device)
 
+    def _use_strict(self) -> bool:
+        """The strict grower, as the JAX package picks it: asked for, or
+        auto off the accelerator (here: training on the CPU)."""
+        mode = self.cfg.tree_growth_mode
+        return mode == "strict" or (mode == "auto" and self.device.type == "cpu")
+
     def _use_windowed(self, ts) -> bool:
         """Wide-regime windowed grower gate (the JAX package's, with "on
         the accelerator" read as "the training device is the card"):
@@ -288,13 +334,16 @@ class GBDT:
         package's envelope has its conditions: the rounds grower, float
         histograms (quantized training stays eager, as it does there),
         num_leaves x features <= 100,000, a built-in objective that needs no
-        leaf renewal, one tree an iteration."""
+        leaf renewal and keeps no per-iteration host state, at most 8 trees
+        an iteration.  The class trees of an iteration share the captures:
+        their rounds have one static key."""
         obj = self.objective
         return (bool(self.cfg.fused_training) and not self._use_windowed(ts)
+                and not self._use_strict()
                 and not self.cfg.use_quantized_grad
                 and self.cfg.num_leaves * ts.num_feature() <= 100_000
                 and obj is not None and not obj.need_renew and obj.is_fusable()
-                and self.num_tree_per_iteration == 1)
+                and self.num_tree_per_iteration <= 8)
 
     def _graphs(self, ts) -> Optional[RoundGraphs]:
         """This training's cache of captured rounds, where the rounds run
@@ -313,56 +362,112 @@ class GBDT:
 
     # ------------------------------------------------------------------
     def train_one_iter(self) -> bool:
-        """One boosting iteration (reference: GBDT::TrainOneIter).  Returns
-        True when training cannot continue (the tree is a single leaf),
-        checked every 32 iterations as the JAX package does: a finished
-        model only adds one-leaf trees, and a read every iteration would
-        drain the device queue."""
+        """One boosting iteration, K trees (reference: GBDT::TrainOneIter).
+        Returns True when training cannot continue (every tree of the
+        iteration is a single leaf), checked every 32 iterations as the
+        JAX package does on its rounds path: a finished model only adds
+        one-leaf trees, and a read every iteration would drain the device
+        queue.  The check also reads the non-finite guard."""
         ts = self.train_set
         cfg = self.cfg
+        k = self.num_tree_per_iteration
         g, h = self.objective.get_gradients(self._score, self._label, self._weight)
         row_mask, sample_weight = self._bagging_mask()
-        quant = bool(cfg.use_quantized_grad)
-        gen = None
-        if quant:
-            gen = torch.Generator(device=self.device)
-            gen.manual_seed(cfg.seed * 1000003 + self.iter_ * 31)
-        common = dict(
-            num_leaves=cfg.num_leaves,
-            num_bins=ts.max_num_bins,
-            max_depth=cfg.max_depth,
-            params=self._split_params,
-            leaf_tile=self._leaf_tile,
-            quantize_bins=(cfg.num_grad_quant_bins if quant else 0),
-            stochastic_rounding=bool(cfg.stochastic_rounding),
-            quant_renew=bool(cfg.quant_train_renew_leaf),
-            generator=gen,
-        )
-        args = (ts.bins_device, g, h, row_mask, sample_weight, self._feature_mask(),
-                ts.num_bins_pf_device, ts.missing_bin_pf_device)
-        stats: dict = {}
-        common.update(stats=stats, graphs=self._graphs(ts),
-                      guard_label=f" (boosting iteration {self.iter_ + 1})")
-        if self._use_windowed(ts):
-            stats["grower"] = "windowed"
-            arrays, leaf_id = grow_tree_windowed(
-                *args, megakernel_opt=cfg.extra.get("megakernel"), **common)
-        else:
-            stats["grower"] = "rounds"
-            arrays, leaf_id = grow_tree_fast(*args, **common)
-        self.round_stats.append(stats)
-        shrinkage = cfg.learning_rate
-        self._pending.append((arrays, shrinkage))
-        delta = arrays.leaf_value * np.float32(shrinkage)
-        self._score = self._score + delta[leaf_id.long()]
-        for vi, vs in enumerate(self.valid_sets):
-            leaf_v = predict_leaf_arrays(arrays, vs.bins_device,
-                                         ts.missing_bin_pf_device)
-            self._valid_scores[vi] = self._valid_scores[vi] + delta[leaf_v.long()]
+        feature_mask = self._feature_mask()
+        strict = self._use_strict()
+        graphs = None if strict else self._graphs(ts)
+        # the strict grower trains float, as in the JAX package
+        quant = bool(cfg.use_quantized_grad) and not strict
+        num_leaves = []
+        for c in range(k):
+            gc = g if k == 1 else g[:, c].contiguous()
+            hc = h if k == 1 else h[:, c].contiguous()
+            args = (ts.bins_device, gc, hc, row_mask, sample_weight, feature_mask,
+                    ts.num_bins_pf_device, ts.missing_bin_pf_device)
+            stats: dict = {}
+            common = dict(num_leaves=cfg.num_leaves, num_bins=ts.max_num_bins,
+                          max_depth=cfg.max_depth, params=self._split_params,
+                          stats=stats)
+            if strict:
+                stats["grower"] = "strict"
+                arrays, leaf_id = grow_tree(*args, **common)
+            else:
+                gen = None
+                if quant:
+                    gen = torch.Generator(device=self.device)
+                    gen.manual_seed(cfg.seed * 1000003 + self.iter_ * 31 + c)
+                common.update(
+                    leaf_tile=self._leaf_tile,
+                    quantize_bins=(cfg.num_grad_quant_bins if quant else 0),
+                    stochastic_rounding=bool(cfg.stochastic_rounding),
+                    quant_renew=bool(cfg.quant_train_renew_leaf),
+                    generator=gen, graphs=graphs,
+                    guard_label=f" (boosting iteration {self.iter_ + 1})")
+                if self._use_windowed(ts):
+                    stats["grower"] = "windowed"
+                    arrays, leaf_id = grow_tree_windowed(
+                        *args, megakernel_opt=cfg.extra.get("megakernel"), **common)
+                else:
+                    stats["grower"] = "rounds"
+                    arrays, leaf_id = grow_tree_fast(*args, **common)
+            self.round_stats.append(stats)
+            arrays = self._renew(arrays, leaf_id, c)
+            self._guard_accumulate(arrays)
+            num_leaves.append(arrays.num_leaves)
+            shrinkage = cfg.learning_rate
+            self._pending.append((arrays, shrinkage))
+            if strict:
+                # the JAX package's strict path scales the host tree in f64
+                delta = (arrays.leaf_value.double() * shrinkage).float()
+            else:
+                delta = arrays.leaf_value * np.float32(shrinkage)
+            self._add_score(self._score, delta[leaf_id.long()], c)
+            for vi, vs in enumerate(self.valid_sets):
+                leaf_v = predict_leaf_arrays(arrays, vs.bins_device,
+                                             ts.missing_bin_pf_device)
+                self._add_score(self._valid_scores[vi], delta[leaf_v.long()], c)
         self.iter_ += 1
         if self.iter_ % 32:
             return False
-        return int(_san.sync_pull(arrays.num_leaves)) <= 1
+        read = _san.sync_pull(torch.stack([torch.stack(num_leaves).max(),
+                                           self._guard_bad_iter]))
+        self._raise_if_nonfinite(int(read[1]))
+        return int(read[0]) <= 1
+
+    def _add_score(self, score: torch.Tensor, delta: torch.Tensor, c: int) -> None:
+        """score (+)= delta in place, into class column c of a (N, K) score."""
+        if score.dim() == 1:
+            score += delta
+        else:
+            score[:, c] += delta
+
+    def _renew(self, arrays, leaf_id, c: int):
+        """Leaf outputs renewed from the residuals where the objective asks
+        for it (reference: RenewTreeOutput after the tree is grown)."""
+        obj = self.objective
+        if not obj.need_renew:
+            return arrays
+        score = self._score if self._score.dim() == 1 else self._score[:, c]
+        renewed = obj.renew_tree_output(self._label, self._weight, score,
+                                        leaf_id, self.cfg.num_leaves)
+        active = (torch.arange(self.cfg.num_leaves, device=self.device)
+                  < arrays.num_leaves)
+        return arrays._replace(leaf_value=torch.where(active, renewed, 0.0))
+
+    def _guard_accumulate(self, arrays) -> None:
+        """Fold the tree's finiteness into the device guard, no host read."""
+        ok = (torch.isfinite(arrays.leaf_value).all()
+              & ~torch.isnan(arrays.split_gain).any())
+        self._guard_bad_iter = torch.where(
+            (self._guard_bad_iter == 0) & ~ok, self.iter_ + 1, self._guard_bad_iter
+        ).to(torch.int32)
+
+    def _raise_if_nonfinite(self, bad: int) -> None:
+        if bad:
+            raise NonFiniteError(
+                f"non-finite leaf values or split gains entered the model at "
+                f"boosting iteration {bad}: the gradients or hessians went "
+                "NaN/inf (check labels, weights and the objective)")
 
     # ------------------------------------------------------------------
     def _converted(self, score: torch.Tensor) -> np.ndarray:
@@ -379,11 +484,13 @@ class GBDT:
             ds = self.valid_sets[data_idx - 1]
             score = self._valid_scores[data_idx - 1]
             name = self.valid_names[data_idx - 1]
+        if self._guard_bad_iter is not None:  # eval reads the device anyway
+            self._raise_if_nonfinite(int(_san.sync_pull(self._guard_bad_iter)))
         pred = self._converted(score)
         label = np.asarray(ds.label)
         out = []
         for m in self.metrics:
-            for mn, v, hib in m.eval(pred, label, ds.weight):
+            for mn, v, hib in m.eval(pred, label, ds.weight, ds.query_boundaries):
                 out.append((name, mn, v, hib))
         return out
 
@@ -415,23 +522,32 @@ class GBDT:
 
     def predict_raw(self, X: np.ndarray, start_iteration: int = 0,
                     num_iteration: int = -1) -> torch.Tensor:
-        """Raw margins (N,) f32 on the device, from the export trees (init
-        score folded into the first tree, as in a saved model), so an
-        in-memory model and its text round-trip predict identically."""
+        """Raw margins, (N,) or (N, K) f32 on the device, from the export
+        trees (init score folded into each class's first tree, as in a
+        saved model), so an in-memory model and its text round-trip predict
+        identically."""
         trees = self._trees_for_export(start_iteration, num_iteration)
         if any(t.num_cat > 0 or t.is_linear for t in trees):
             raise NotImplementedError("categorical / linear trees are not "
-                                      "ported yet (ROADMAP queue A5/A8)")
+                                      "ported yet (ROADMAP queue A11)")
         dev = self.device
+        k = self.num_tree_per_iteration
         x = torch.as_tensor(np.asarray(X, np.float32), device=dev)
         if not trees:
-            return torch.full((x.shape[0],), np.float32(self.init_scores[0]),
-                              device=dev)
+            base = torch.as_tensor(np.asarray(self.init_scores, np.float32),
+                                   device=dev)
+            out = base.expand(x.shape[0], k).clone()
+            return out[:, 0] if k == 1 else out
         s = self._stacked(trees, dev)
         # the traversal holds a few (trees, rows) int64 planes: cut the rows
         # so each plane stays near 2^25 elements (256 MiB)
         step = max(1, 2 ** 25 // len(trees))
-        return torch.cat([predict_ops.predict_raw_values(x[i:i + step], **s)
+        if k == 1:
+            fn = predict_ops.predict_raw_values
+        else:
+            def fn(xs, **kw):
+                return predict_ops.predict_raw_multiclass(xs, **kw, k=k)
+        return torch.cat([fn(x[i:i + step], **s)
                           for i in range(0, max(x.shape[0], 1), step)])
 
     def predict(self, X, raw_score: bool = False, start_iteration: int = 0,
@@ -460,22 +576,28 @@ class GBDT:
         o = self.cfg.objective
         if o == "binary":
             return f"binary sigmoid:{self.cfg.sigmoid:g}"
+        if o in ("multiclass", "multiclassova"):
+            return f"{o} num_class:{self.cfg.num_class}"
         if o == "regression" and self.cfg.reg_sqrt:
             return "regression sqrt"
         return o
 
     def _trees_for_export(self, start: int, num_iteration: int) -> List[Tree]:
-        """Trees with the init score folded into the first tree (reference:
+        """The trees of iterations [start, start + num_iteration), with each
+        class's init score folded into its first tree (reference:
         Tree::AddBias), so the saved model is self-contained."""
+        k = self.num_tree_per_iteration
+        lo = start * k
         hi = (len(self.models) if num_iteration < 0
-              else min(start + num_iteration, len(self.models)))
-        trees = list(self.models[start:hi])
-        if start != 0 or self.init_scores[0] == 0.0 or not trees:
+              else min((start + num_iteration) * k, len(self.models)))
+        trees = list(self.models[lo:hi])
+        if lo != 0 or not any(s != 0.0 for s in self.init_scores):
             return trees
-        t = copy.deepcopy(trees[0])
-        t.leaf_value = t.leaf_value + self.init_scores[0]
-        t.internal_value = t.internal_value + self.init_scores[0]
-        trees[0] = t
+        for i in range(min(k, len(trees))):
+            t = copy.deepcopy(trees[i])
+            t.leaf_value = t.leaf_value + self.init_scores[i]
+            t.internal_value = t.internal_value + self.init_scores[i]
+            trees[i] = t
         return trees
 
     def save_model_to_string(self, num_iteration: int = -1,
@@ -546,15 +668,16 @@ class GBDT:
                 params[pk] = pv
             elif tok == "sqrt":  # reference: "regression sqrt"
                 params["reg_sqrt"] = True
-        if int(kv.get("num_class", 1)) > 1 or int(kv.get("num_tree_per_iteration", 1)) > 1:
-            raise NotImplementedError("multiclass models are not ported yet "
-                                      "(ROADMAP queue A4)")
+        if int(kv.get("num_class", 1)) > 1:
+            params["num_class"] = int(kv["num_class"])
         if any(line.strip() == "average_output" for line in header.splitlines()):
             raise NotImplementedError("random-forest models are not ported "
                                       "yet (ROADMAP queue A8)")
         booster = cls(Config.from_dict(params))
         booster.device = resolve_device(booster.cfg)
         booster.feature_names = kv.get("feature_names", "").split()
+        k = booster.num_tree_per_iteration = int(kv.get("num_tree_per_iteration", 1))
+        booster.init_scores = [0.0] * k  # folded into the trees
         if "init_scores" in kv:
             # raw-delta snapshot form: trees are pure deltas
             booster.init_scores = [float(v) for v in kv["init_scores"].split()]
@@ -563,7 +686,7 @@ class GBDT:
             if b.strip():
                 booster.models.append(
                     Tree.from_string(b if b.startswith("Tree=") else "Tree=" + b))
-        booster.iter_ = len(booster.models)
+        booster.iter_ = len(booster.models) // max(k, 1)
         return booster
 
 
@@ -592,3 +715,16 @@ def _pre_filter(bins: np.ndarray, binner, md: int) -> np.ndarray:
         if not np.any((hi >= md) & (lo + m >= md)):
             allowed[j] = False
     return allowed
+
+
+def _class_init_scores(label: np.ndarray, weight, k: int) -> List[float]:
+    """Each class's log-odds of its (weighted) share of the labels: the
+    JAX package's multiclass init score (reference: BoostFromScore per
+    tree id)."""
+    out = []
+    for c in range(k):
+        lbl = (label == c).astype(np.float32)
+        p = float(lbl.mean() if weight is None else np.average(lbl, weights=weight))
+        p = min(max(p, 1e-15), 1 - 1e-15)
+        out.append(float(np.log(p / (1 - p))))
+    return out

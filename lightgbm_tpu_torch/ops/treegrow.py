@@ -1,12 +1,16 @@
-"""What the round-batched growers share: tree arrays, admission and the
-node bookkeeping of a round.
+"""Leaf-wise tree growth: the strict grower, and what the round-batched
+growers share (tree arrays, admission and the node bookkeeping of a round).
 
-Counterpart of the structure-of-arrays part of lightgbm_tpu/ops/treegrow.py
-(reference: class Tree in include/LightGBM/tree.h) and of the admission and
-bookkeeping that the JAX package's rounds grower (treegrow_fast.py) and
-windowed grower (treegrow_windowed.py) both carry.  The strict best-first
-grower (grow_tree) is not ported yet (ROADMAP queue A7); the round-batched
-growers live in ops/treegrow_fast.py and ops/treegrow_windowed.py.
+Counterpart of lightgbm_tpu/ops/treegrow.py (reference:
+src/treelearner/serial_tree_learner.cpp, class Tree in
+include/LightGBM/tree.h).  ``grow_tree`` is the exact-order best-first
+grower, the JAX package's default off the accelerator: L - 1 steps, each
+splitting the leaf with the best gain.  A step is a fixed sequence of
+device work, as the JAX package's fori_loop body is: the best leaf, the
+number of leaves and "no splittable leaf" stay on the device, and a step
+after the last useful split is a masked no-op, so a tree makes no host
+read.  The round-batched growers live in ops/treegrow_fast.py and
+ops/treegrow_windowed.py.
 
 A round is a fixed sequence of device work: its splits are masked by
 ``accept`` over the leaves, and writes of the leaves or ranks it does not
@@ -19,7 +23,30 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from .split import KMIN_SCORE, BestSplit
+from ..utils import sanitizer as _san
+from .hist_cuda import fixed_shift_tensor
+from .histogram import histogram_multi
+from .round_cuda import split_window
+from .split import (KMIN_SCORE, BestSplit, SplitParams, find_best_split,
+                    leaf_output, leaf_output_smoothed)
+
+# options of the JAX package's growers that this package does not carry yet
+# (ROADMAP queue A11; data/feature/voting modes A13): passing one raises
+UNPORTED = ("categorical_mask", "monotone_constraints", "interaction_sets",
+            "rng_key", "cegb_feature_penalty", "efb_bins", "feature_contri",
+            "forced_leaf", "cegb_lazy_penalty", "track_path", "axis_name")
+
+
+def reject_unported(who: str, options: dict) -> None:
+    """Raise for any option of UNPORTED given a value, and for any other
+    unknown option."""
+    for name in UNPORTED:
+        v = options.pop(name, None)
+        if v is not None and v is not False:
+            raise ValueError(f"{who}: {name} is not ported to "
+                             "lightgbm_tpu_torch yet (ROADMAP queue A11/A13)")
+    if options:
+        raise TypeError(f"unexpected options: {sorted(options)}")
 
 
 class TreeArrays(NamedTuple):
@@ -191,3 +218,165 @@ def quantize_gradients(grad, hess, row_mask, quantize_bins: int,
     hq = hq.clamp(0, 127).to(torch.int8)
     quant_scale = torch.stack([g_scale, h_scale, torch.ones((), device=dev)])
     return gq, hq, gq.float() * g_scale, hq.float() * h_scale, quant_scale
+
+
+def finish_tree(t: TreeArrays, num_leaves_cur, leaf_value, leaf_sum_g,
+                leaf_sum_h, leaf_count, leaf_depth) -> TreeArrays:
+    """The tree with its leaf arrays; leaves past the last are zero."""
+    L = leaf_value.shape[0]
+    active = torch.arange(L, device=leaf_value.device) < num_leaves_cur
+    return t._replace(
+        num_leaves=num_leaves_cur.to(torch.int32),
+        leaf_value=torch.where(active, leaf_value, 0.0),
+        leaf_weight=torch.where(active, leaf_sum_h, 0.0),
+        leaf_count=torch.where(active, leaf_count, 0.0),
+        leaf_sum_g=torch.where(active, leaf_sum_g, 0.0),
+        leaf_depth=leaf_depth.to(torch.int32))
+
+
+def grow_tree(
+    bins: torch.Tensor,  # (N, F) int16
+    grad: torch.Tensor,  # (N,) f32
+    hess: torch.Tensor,
+    row_mask: torch.Tensor,  # (N,) bool
+    sample_weight: torch.Tensor,  # (N,) f32
+    feature_mask: Optional[torch.Tensor],  # (F,) bool
+    num_bins_per_feature: torch.Tensor,  # (F,) i32
+    missing_bin_per_feature: torch.Tensor,  # (F,) i32
+    *,
+    num_leaves: int,
+    num_bins: int,
+    max_depth: int = -1,
+    params: SplitParams = SplitParams(),
+    stats: Optional[dict] = None,
+    **options,
+) -> tuple[TreeArrays, torch.Tensor]:
+    """Grow one tree best-first, one split a step; returns (tree, final
+    leaf_id per row).
+
+    Each step: the leaf with the best gain (the first on ties), an
+    elementwise leaf_id update from its split's column, the histogram of
+    the smaller child (one histogram_multi call at tile 1 over the rows of
+    that child), the sibling as parent minus child, and both children's
+    best splits.  Every histogram of the tree shares one fixed-point
+    exponent pair (hist_cuda.fixed_shift_tensor of the tree's gradients,
+    computed on the device), so the subtraction is exact.  ``stats``
+    receives the utils/sanitizer.py counts of the tree (a step counts as a
+    round), in the round drivers' layout (no retries, no windows)."""
+    reject_unported("grow_tree", options)
+    with _san.DispatchCounter() as counter:
+        try:
+            return _grow(bins, grad, hess, row_mask, sample_weight, feature_mask,
+                         num_bins_per_feature, missing_bin_per_feature,
+                         num_leaves, num_bins, max_depth, params)
+        finally:
+            if stats is not None:
+                stats.update(counter.stats(), retries=0, windows=[])
+
+
+def _grow(bins, grad, hess, row_mask, sample_weight, feature_mask, nbpf, mbpf,
+          L, num_bins, max_depth, params):
+    dev = bins.device
+    n, f = bins.shape
+    grad = grad.float() * sample_weight
+    hess = hess.float() * sample_weight
+    shift = fixed_shift_tensor(grad, hess)
+    slot = torch.zeros(n, dtype=torch.int32, device=dev)
+    idx = torch.arange(L, dtype=torch.int64, device=dev)
+    drop = -1  # _put's index of the spare slot
+
+    def leaf_hist(mask):
+        return histogram_multi(bins, grad, hess, mask, slot, 0, 1, num_bins,
+                               shift=shift)
+
+    def best_for(hist, g, h, c, depth, parent_out) -> BestSplit:
+        s = find_best_split(hist, g, h, c, nbpf, mbpf, params,
+                            feature_mask=feature_mask, parent_output=parent_out)
+        if max_depth > 0:  # reference: the max_depth check of BeforeFindBestSplit
+            s = s._replace(gain=torch.where(depth >= max_depth, KMIN_SCORE, s.gain))
+        return s
+
+    def first(v):
+        out = torch.zeros(L, dtype=v.dtype, device=dev)
+        out[0] = v
+        return out
+
+    # ---- the root: every in-bag row ----
+    hist = torch.zeros((L + 1, 3, f, num_bins), dtype=torch.float32, device=dev)
+    hist0 = leaf_hist(row_mask)  # (1, 3, F, B)
+    hist[0] = hist0[0]
+    g0, h0, c0 = torch.sum(hist0[0, :, 0, :], dim=1)  # totals from feature 0
+    leaf_out = first(leaf_output(g0, h0, params))
+    best = _empty_best(L, num_bins, dev)
+    zero = torch.zeros(1, dtype=torch.int64, device=dev)
+    _set_best(best, zero, best_for(hist0, g0[None], h0[None], c0[None], zero,
+                                   leaf_out[:1]))
+    leaf_id = torch.zeros(n, dtype=torch.int32, device=dev)
+    leaf_sum_g, leaf_sum_h, leaf_count = first(g0), first(h0), first(c0)
+    leaf_depth = torch.zeros(L, dtype=torch.int64, device=dev)
+    leaf_parent = torch.full((L,), -1, dtype=torch.int64, device=dev)
+    leaf_side = torch.zeros(L, dtype=torch.int64, device=dev)
+    nlc = torch.ones((), dtype=torch.int64, device=dev)
+    tree = empty_tree(L, num_bins, dev)
+    sides = torch.arange(2, dtype=torch.int64, device=dev)
+
+    for _ in range(L - 1):
+        _san.record_dispatch()
+        can = best.gain.max() > KMIN_SCORE / 2
+        best_leaf = torch.argmax(best.gain)
+        bl = best_leaf.reshape(1)  # (index_select: no host read of the index)
+        s = BestSplit(*[a.index_select(0, bl)[0] for a in best])
+        node, new_leaf = nlc - 1, nlc
+        pair = torch.stack([best_leaf, new_leaf])
+        pos = torch.where(can, pair, drop)  # where the two children write
+
+        # ---- partition: an elementwise leaf_id update ----
+        feat = s.feature.long()
+        fcol = bins.index_select(1, feat.reshape(1))[:, 0].to(torch.int32)
+        miss = fcol == mbpf.index_select(0, feat.reshape(1))
+        go_left = torch.where(miss, s.default_left, fcol <= s.threshold_bin)
+        moves = can & (leaf_id == best_leaf) & ~go_left
+        leaf_id = torch.where(moves, new_leaf.to(torch.int32), leaf_id)
+
+        # ---- the smaller child's histogram, the sibling by subtraction ----
+        left_smaller = s.left_count <= s.right_count
+        small_leaf = torch.where(left_smaller, best_leaf, new_leaf)
+        fresh = leaf_hist(can & row_mask & (leaf_id == small_leaf))
+        left_h, right_h = split_window(hist.index_select(0, bl), fresh,
+                                       left_smaller.reshape(1))
+        children = torch.cat([left_h, right_h])
+        hist.index_copy_(0, torch.where(can, pair, L), children)
+
+        # ---- the node (reference: Tree::Split) and the leaf aggregates ----
+        accept = can & (idx == best_leaf)
+        tree = book_tree(tree, accept, node.expand(L), new_leaf.expand(L),
+                         leaf_parent, leaf_side, best, leaf_out, leaf_sum_h,
+                         leaf_count)
+        parent_out = leaf_out.index_select(0, bl)[0]
+        out_l = leaf_output_smoothed(s.left_sum_g, s.left_sum_h, s.left_count,
+                                     parent_out, params)
+        out_r = leaf_output_smoothed(s.right_sum_g, s.right_sum_h, s.right_count,
+                                     parent_out, params)
+        depth_child = leaf_depth.index_select(0, bl)[0] + 1
+        g2 = torch.stack([s.left_sum_g, s.right_sum_g])
+        h2 = torch.stack([s.left_sum_h, s.right_sum_h])
+        c2 = torch.stack([s.left_count, s.right_count])
+        out2 = torch.stack([out_l, out_r])
+        d2 = depth_child.expand(2)
+        leaf_sum_g = _put(leaf_sum_g, pos, g2)
+        leaf_sum_h = _put(leaf_sum_h, pos, h2)
+        leaf_count = _put(leaf_count, pos, c2)
+        leaf_depth = _put(leaf_depth, pos, d2)
+        leaf_parent = _put(leaf_parent, pos, node.expand(2))
+        leaf_side = _put(leaf_side, pos, sides)
+        leaf_out = _put(leaf_out, pos, out2)
+
+        # ---- the two fresh leaves' best splits ----
+        bb = best_for(children, g2, h2, c2, d2, out2)
+        best = BestSplit(*[_put(o, pos, nw) for o, nw in zip(best, bb)])
+        nlc = nlc + can.long()
+
+    leaf_value = (leaf_out if params.path_smooth > 0  # smoothed at creation
+                  else leaf_output(leaf_sum_g, leaf_sum_h, params))
+    return finish_tree(tree, nlc, leaf_value, leaf_sum_g, leaf_sum_h,
+                       leaf_count, leaf_depth), leaf_id

@@ -24,7 +24,7 @@ Supported: numerical splits, missing values, max_depth, bagging masks and
 sample weights, path smoothing, float and int8-quantized histograms
 (quantize_bins, stochastic_rounding, quant_renew).  Monotone, interaction
 and CEGB constraints, forced splits, EFB bundles, linear trees, categorical
-splits and per-node sampling raise ValueError (ROADMAP queue A5/A8).
+splits and per-node sampling raise ValueError (ROADMAP queue A11).
 """
 
 from __future__ import annotations
@@ -39,12 +39,9 @@ from .histogram import histogram_multi, histogram_multi_quantized
 from .round_cuda import split_window
 from .split import BestSplit, SplitParams, find_best_split, leaf_output, leaf_output_smoothed
 from .treegrow import (TreeArrays, _empty_best, _put, _set_best, admit,
-                       admits_next, book_tree, empty_tree, quantize_gradients)
+                       admits_next, book_tree, empty_tree, finish_tree,
+                       quantize_gradients, reject_unported)
 from .treegrow_windowed import _run_fused_rounds, round_runner
-
-_UNPORTED = ("categorical_mask", "monotone_constraints", "interaction_sets",
-             "rng_key", "cegb_feature_penalty", "efb_bins", "feature_contri",
-             "forced_leaf", "cegb_lazy_penalty", "track_path")
 
 class FState(NamedTuple):
     leaf_id: torch.Tensor  # (N,) i32
@@ -277,15 +274,8 @@ def _f_finalize(st: FState, inp: FInputs, grad_true, hess_true, *,
         leaf_value = st.leaf_out  # smoothed at creation
     else:
         leaf_value = leaf_output(st.leaf_sum_g, st.leaf_sum_h, params)
-    active = torch.arange(L, device=leaf_value.device) < st.num_leaves_cur
-    tree = st.tree._replace(
-        num_leaves=st.num_leaves_cur.to(torch.int32),
-        leaf_value=torch.where(active, leaf_value, 0.0),
-        leaf_weight=torch.where(active, st.leaf_sum_h, 0.0),
-        leaf_count=torch.where(active, st.leaf_count, 0.0),
-        leaf_sum_g=torch.where(active, st.leaf_sum_g, 0.0),
-        leaf_depth=st.leaf_depth.to(torch.int32))
-    return tree, st.leaf_id
+    return finish_tree(st.tree, st.num_leaves_cur, leaf_value, st.leaf_sum_g,
+                       st.leaf_sum_h, st.leaf_count, st.leaf_depth), st.leaf_id
 
 
 def grow_tree_fast(
@@ -322,13 +312,7 @@ def grow_tree_fast(
     ``graphs``: run every round through that cache's static buffers (one
     CUDA-graph replay a round on the card).  ``stats`` receives the
     utils/sanitizer.py counts of the tree and the driver's retries."""
-    for name in _UNPORTED:
-        v = options.pop(name, None)
-        if v is not None and v is not False:
-            raise ValueError(f"grow_tree_fast: {name} is not ported to "
-                             "lightgbm_tpu_torch yet (ROADMAP queue A5/A8)")
-    if options:
-        raise TypeError(f"unexpected options: {sorted(options)}")
+    reject_unported("grow_tree_fast", options)
     tile = max(1, min(leaf_tile, num_leaves))
     static = dict(num_leaves=num_leaves, num_bins=num_bins, max_depth=max_depth,
                   params=params, leaf_tile=tile, quantize_bins=quantize_bins)

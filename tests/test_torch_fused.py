@@ -322,7 +322,8 @@ def test_fused_training_on_and_off_give_the_same_model_text(objective, extra):
     for fused in (True, False):
         p = {"objective": objective, "num_leaves": 15, "min_data_in_leaf": 20,
              "learning_rate": 0.2, "min_gain_to_split": 0.1, "verbosity": -1,
-             "device_type": "cpu", "fused_training": fused, **extra}
+             "device_type": "cpu", "tree_growth_mode": "rounds",
+             "fused_training": fused, **extra}
         bst = tlgb.train(p, tlgb.Dataset(X, label=y, params=p), 5)
         texts.append(bst.model_to_string())
         stats.append(bst._gbdt.round_stats)
@@ -339,7 +340,8 @@ def test_parameter_reset_that_resizes_the_state_starts_a_new_cache():
     texts = []
     for fused in (True, False):
         p = {"objective": "regression", "num_leaves": 15, "min_data_in_leaf": 20,
-             "verbosity": -1, "device_type": "cpu", "fused_training": fused}
+             "verbosity": -1, "device_type": "cpu", "tree_growth_mode": "rounds",
+             "fused_training": fused}
         bst = tlgb.train(p, tlgb.Dataset(X, label=y, params=p), 4,
                          callbacks=[tlgb.reset_parameter(num_leaves=[15, 15, 7, 7])])
         texts.append(bst.model_to_string())
@@ -366,7 +368,8 @@ def test_fused_gate():
     X, y = _data("binary", n=200)
 
     def gate(**extra):
-        p = {"objective": "binary", "device_type": "cpu", "verbosity": -1, **extra}
+        p = {"objective": "binary", "device_type": "cpu", "verbosity": -1,
+             "tree_growth_mode": "rounds", **extra}
         g = GBDT(Config.from_dict(p))
         ds = tlgb.Dataset(X, label=y, params=p)
         ds.construct()

@@ -5,6 +5,12 @@ and skips otherwise.  Run on a machine with a card (no JAX needed there):
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py -q
 
+The strict grower, multiclass and LambdaRank trainings are held against
+the same trainings on the CPU (the plain versions) within 1e-4, the strict
+grower's steps run under torch's sync debug mode set to raise, and
+multiclass graph and eager training give the same model text with one
+capture a training.
+
 The CUDA-graph tests (the one-dispatch contracts, ops/graphs.py) hold graph
 and eager training bitwise, count one replay a tree-round and captures only
 in the first tree that meets a key, run the replays under torch's sync debug
@@ -88,7 +94,9 @@ def test_training_on_card_launches_the_kernel():
     rng = np.random.RandomState(0)
     X = rng.randn(20000, 10)
     y = (X[:, 0] + X[:, 1] ** 2 + rng.randn(20000) > 1).astype(float)
-    p = {"objective": "binary", "num_leaves": 15, "verbosity": -1}
+    # the rounds grower on both sides (auto is the strict grower on the CPU)
+    p = {"objective": "binary", "num_leaves": 15, "verbosity": -1,
+         "tree_growth_mode": "rounds"}
     hc.reset_counts()
     bst = tlgb.train(p, tlgb.Dataset(X, label=y, params=p), 5)
     assert hc.launches["histogram_multi"] >= 5
@@ -641,3 +649,89 @@ def test_a_failed_capture_raises_and_trains_nothing_eagerly(monkeypatch):
     with pytest.raises(RuntimeError):
         tlgb.train(p, ds, 2)
     torch.cuda.synchronize()
+
+
+def _card_vs_cpu(p, X, y, rounds, group=None):
+    import lightgbm_tpu_torch as tlgb
+
+    out = []
+    for dev in ("cuda", "cpu"):
+        q = {**p, "device_type": dev}
+        out.append(tlgb.train(q, tlgb.Dataset(X, label=y, group=group, params=q),
+                              rounds))
+    return out
+
+
+def test_strict_grower_on_card_matches_cpu_and_reads_nothing(monkeypatch):
+    """tree_growth_mode=strict on the card: B1 at tile 1 its only histogram
+    (the root and one a step), no host read inside a tree (every step runs
+    under the sync debug mode set to raise), and the CPU's trees."""
+    from lightgbm_tpu_torch.ops import hist_cuda as hc
+    from lightgbm_tpu_torch.ops import treegrow as tg
+
+    _card()
+    rng = np.random.RandomState(2)
+    X = rng.randn(30_000, 10)
+    y = (X[:, 0] + X[:, 1] ** 2 + rng.randn(30_000) > 1).astype(float)
+    real = tg._grow
+
+    def no_sync(*a, **k):
+        prev = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return real(*a, **k)
+        finally:
+            torch.cuda.set_sync_debug_mode(prev)
+
+    monkeypatch.setattr(tg, "_grow", no_sync)
+    hc.reset_counts()
+    p = {"objective": "binary", "num_leaves": 15, "verbosity": -1,
+         "tree_growth_mode": "strict"}
+    card, cpu = _card_vs_cpu(p, X, y, 4)
+    stats = card._gbdt.round_stats
+    assert all(s["grower"] == "strict" and s["host_syncs"] == 0 for s in stats)
+    assert hc.launches["histogram_multi"] == 4 * 15
+    assert hc.launches["histogram_multi_quantized"] == 0
+    np.testing.assert_allclose(card.predict(X), cpu.predict(X), atol=1e-4)
+
+
+@pytest.mark.parametrize("objective,extra", [
+    ("multiclass", {"num_class": 4}), ("multiclassova", {"num_class": 4}),
+    ("lambdarank", {}), ("quantile", {"alpha": 0.8})])
+def test_new_objectives_on_card_match_cpu(objective, extra):
+    _card()
+    rng = np.random.RandomState(3)
+    n = 24_000
+    X = rng.randn(n, 12)
+    s = X[:, 0] + X[:, 1] * X[:, 2] + 0.5 * rng.randn(n)
+    group = None
+    if objective.startswith("multiclass"):
+        y = np.digitize(s, [-1.0, 0.0, 1.0]).astype(float)
+    elif objective == "lambdarank":
+        y = np.clip(np.round(s + 1), 0, 4)
+        group = np.full(n // 120, 120)
+    else:
+        y = s
+    p = {"objective": objective, "num_leaves": 15, "verbosity": -1,
+         "tree_growth_mode": "rounds", **extra}
+    card, cpu = _card_vs_cpu(p, X, y, 3, group)
+    assert card.predict(X).shape == cpu.predict(X).shape
+    np.testing.assert_allclose(card.predict(X, raw_score=True),
+                               cpu.predict(X, raw_score=True), atol=1e-4)
+
+
+def test_multiclass_graph_and_eager_give_the_same_model():
+    """Five classes, fused_training on and off: the same model text; in
+    graph mode every class tree's rounds are replays of one capture."""
+    _card()
+    rng = np.random.RandomState(4)
+    X = rng.randn(30_000, 10)
+    y = np.digitize(X[:, 0] + X[:, 1] * X[:, 2], [-1.5, -0.5, 0.5, 1.5]).astype(float)
+    p = {"objective": "multiclass", "num_class": 5, "num_leaves": 15,
+         "max_bin": 63, "verbosity": -1}
+    (gb, g_stats, g_l), (eb, e_stats, e_l) = _train_modes(p, X, y, 3)
+    assert gb.model_to_string() == eb.model_to_string()
+    assert len(g_stats) == 15
+    assert all(s["replays"] == s["rounds"] == s["dispatches"] for s in g_stats)
+    assert sum(s["captures"] for s in g_stats) == 1 == g_stats[0]["captures"]
+    assert all(s["replays"] == s["captures"] == 0 for s in e_stats)

@@ -119,7 +119,7 @@ def test_quantized_training_runs_the_int8_path():
     X, y = _data("binary")
     params = {"objective": "binary", "num_leaves": 15, "device_type": "cpu",
               "use_quantized_grad": True, "num_grad_quant_bins": 16,
-              "verbosity": -1, "seed": 3}
+              "verbosity": -1, "seed": 3, "tree_growth_mode": "rounds"}
     b1 = tlgb.train(params, tlgb.Dataset(X, label=y, params=params), ROUNDS)
     b2 = tlgb.train(params, tlgb.Dataset(X, label=y, params=params), ROUNDS)
     # the seeded generator makes stochastic rounding repeatable
@@ -130,17 +130,16 @@ def test_quantized_training_runs_the_int8_path():
     # within reach of the JAX package's quantized model (different random
     # bits, so the trees differ: compare accuracy, not values)
     jparams = {k: v for k, v in params.items() if k != "device_type"}
-    jparams["tree_growth_mode"] = "rounds"
     jp = jlgb.train(jparams, jlgb.Dataset(X, label=y), ROUNDS).predict(X)
     acc = lambda q: np.mean((q > 0.5) == (y > 0))  # noqa: E731
     assert abs(acc(p) - acc(jp)) < 0.03
 
 
 @pytest.mark.parametrize("params,match", [
-    ({"objective": "huber"}, "queue A4"),
+    ({"data_sample_strategy": "goss"}, "goss"),
     ({"boosting": "dart"}, "boosting"),
-    ({"tree_growth_mode": "strict"}, "strict"),
-    ({"objective": "multiclass", "num_class": 3}, "queue A4"),
+    ({"tree_growth_mode": "strict", "extra_trees": True}, "extra_trees"),
+    ({"tree_learner": "data"}, "tree_learner"),
     ({"linear_tree": True}, "linear_tree"),
 ])
 def test_unported_configurations_raise(params, match):
