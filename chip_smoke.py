@@ -66,13 +66,36 @@ Imports no JAX.  Phases, one line each; any failure exits non-zero:
               graph and eager in turns: held-out NDCG@{1,3,5,10}; then every
               objective this slice added, its gradients and hessians on the
               card against the CPU at 1M rows;
- 13. device   nvidia-smi's name and power limit.
+ 13. modes    the boosting modes on phase 3's Higgs set: GOSS (top_rate 0.2,
+              other_rate 0.1, learning rate 0.2) and DART (drop_rate 0.1),
+              10 rounds each, graph and eager in turns; random forest
+              (bagging 0.632 every iteration), 10 rounds, eager by the
+              gate; each run's it/s, replays, B1 launches and blocking reads
+              a tree, GOSS's rows in the bag past the warm-up, DART's drops
+              an iteration, held-out AUC, model sha256 (graph == eager,
+              MODEL_SHA), a small run held against the CPU and a bitwise
+              reload; init_model 10 + 10 rounds (the replayed training score
+              against predict(raw_score=True)); cv, 3 folds x 5 rounds on
+              200k rows; B1 at each mode's call site against its plain
+              version;
+ 14. predict  the prediction surface on phase 3's 20-tree Higgs model and
+              phase 12's 255-leaf LambdaRank model: Booster.predict latency
+              at 1, 1,024 and 100,000 rows (host copies in and out
+              included; the median of 50 calls, 10 at 100,000 rows),
+              rows/s, the traversal's device time and launches a call from
+              a torch.profiler window; pred_leaf card == CPU bitwise at
+              100,000 rows; early-stop prediction (freq 5, margin 1.5) with
+              its chunks, blocking reads and stopped rows, the rows that ran
+              every chunk bitwise the full prediction; pred_contrib on 1,000
+              rows (host seconds; contributions sum to the margin); refit on
+              the 100,000 held-out rows, card against CPU;
+ 15. device   nvidia-smi's name and power limit.
 
 Then a JSON line with every kernel's numbers (launches on the main path,
 graph mode; whether it runs inside a graph and its launches a replay; B1
 once for each call site: Higgs rounds, Epsilon root and window, strict,
-multiclass, LambdaRank), and last the device line {"ok": true, "device":
-{...}}.
+multiclass, LambdaRank, GOSS, DART, random forest), and last the device
+line {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --turns CHECKOUT
 
@@ -128,7 +151,9 @@ MODEL_SHA = {"higgs_float": "3cb1e5ba", "higgs_int8": "900c2628",
              "eps_float": "3e51d1cd", "eps_int8": "c2599a30",
              # phases 10-12 (PERF.md)
              "higgs_strict": "b0263266", "multiclass": "a178220f",
-             "lambdarank": "d37e8ddd"}
+             "lambdarank": "d37e8ddd",
+             # phase 13 (PERF.md)
+             "goss": "87c6f557", "dart": "e9ea51f1", "rf": "c06c0dd1"}
 # phase 10: the strict grower on the Higgs cell; the card read AUC 0.81766
 # (PERF.md), the floor sits 0.01 under it
 ROUNDS_STRICT = 5
@@ -156,6 +181,19 @@ NEW_OBJECTIVES = ("regression_l1", "huber", "fair", "poisson", "gamma", "tweedie
                   "quantile", "mape", "multiclass", "multiclassova", "cross_entropy",
                   "cross_entropy_lambda", "lambdarank", "rank_xendcg")
 OBJECTIVE_RTOL = 1e-5
+# phase 13: the boosting modes on the Higgs cell, each 10 rounds; their
+# sha256 prefixes are in MODEL_SHA, and each AUC floor sits 0.01 under the
+# card's first reading (PERF.md)
+MODE_ROUNDS, CV_ROWS, CV_FOLDS, CV_ROUNDS = 10, 200_000, 3, 5
+MODES = {"goss": {"data_sample_strategy": "goss", "top_rate": 0.2, "other_rate": 0.1,
+                  "learning_rate": 0.2},
+         "dart": {"boosting": "dart", "drop_rate": 0.1},
+         "rf": {"boosting": "rf", "bagging_freq": 1, "bagging_fraction": 0.632}}
+# (read 0.84828, 0.82501 and 0.78992)
+AUC_FLOOR_MODES = {"goss": 0.83, "dart": 0.81, "rf": 0.77}
+# phase 14: prediction
+PRED_BATCHES, PRED_CALLS, PRED_CALLS_BIG = (1, 1024, 100_000), 50, 10
+ES_FREQ, ES_MARGIN, CONTRIB_ROWS = 5, 1.5, 1000
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_OPS_PER_S = 67e12  # H100 SXM, non-tensor-core f32 (integer adds counted alike)
 
@@ -500,9 +538,9 @@ RUNTIME_LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cudaLaunchCooper
                     "cuLaunchKernel", "cuLaunchKernelEx")
 
 
-def profile_rounds(lgt, params, train_set, rounds):
-    """torch.profiler over ``rounds`` boosting rounds after a warm one
-    (Booster.update; in graph mode the warm one captures the graphs): wall
+def profile_rounds(lgt, params, train_set, rounds, warm=1):
+    """torch.profiler over ``rounds`` boosting rounds after ``warm`` warm
+    ones (Booster.update; in graph mode the first captures the graphs): wall
     time, device time summed over the device's own events (kernels, copies,
     sets: one stream, so their sum is the busy time), the five largest of
     them, and from the host's runtime calls, per tree, the kernels launched
@@ -510,7 +548,8 @@ def profile_rounds(lgt, params, train_set, rounds):
     from torch.profiler import ProfilerActivity, profile
 
     bst = lgt.Booster(params=dict(params), train_set=train_set)
-    bst.update()
+    for _ in range(warm):
+        bst.update()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1601,7 +1640,8 @@ def higgs_cell(lgt):
 def new_phases(lgt, dev, base, higgs, counts, plain_total):
     """Phases 10-12 (the strict grower on the Higgs cell, multiclass,
     LambdaRank); ``higgs`` is phase 3's (train set, Xtr, ytr, Xte, yte).
-    Returns the kernel line's B1 entries of their call sites."""
+    Returns the kernel line's B1 entries of their call sites, and the
+    LambdaRank model's text with 100,000 of its rows for phase 14."""
     from lightgbm_tpu_torch.ops import hist_cuda as hc
 
     h_set, h_Xtr, h_ytr, h_Xte, h_yte = higgs
@@ -1765,6 +1805,7 @@ def new_phases(lgt, dev, base, higgs, counts, plain_total):
                         rk_set.max_num_bins)
     log(b1_line(f"phase 12 kernel B1 lambdarank site N={RK_N_TRAIN} F={RK_FEAT} "
                 f"B={rk_set.max_num_bins}", b1r))
+    rank_model = (bst_r.model_to_string(), np.ascontiguousarray(X[-100_000:]), None)
     del runs12, bst_r, gb, g12, h12, rk_set
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -1777,7 +1818,245 @@ def new_phases(lgt, dev, base, higgs, counts, plain_total):
 
     return [b1_entry("histogram_multi_strict", b1s, b1_strict, 0),
             b1_entry("histogram_multi_multiclass", b1m, b1_mc, per_replay_mc),
-            b1_entry("histogram_multi_lambdarank", b1r, b1_rk, per_replay_rk)]
+            b1_entry("histogram_multi_lambdarank", b1r, b1_rk, per_replay_rk)], rank_model
+
+
+# ---------------------------------------------------------------------------
+# phases 13-14: the boosting modes and the prediction surface
+# ---------------------------------------------------------------------------
+class card_draws:
+    """GOSS's draws made on the card whatever the training device, so a
+    CPU run samples the rows a card run samples (small_vs_cpu)."""
+
+    def __init__(self, dev):
+        self.dev = dev
+
+    def __enter__(self):
+        from lightgbm_tpu_torch.models.gbdt import GBDT
+
+        self.real, dev = GBDT._goss_uniforms, self.dev
+
+        def draws(gbdt, n):
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(gbdt.cfg.bagging_seed + gbdt.iter_)
+            return torch.rand(n, generator=gen, device=dev).to(gbdt.device)
+
+        GBDT._goss_uniforms = draws
+        return self
+
+    def __exit__(self, *exc):
+        from lightgbm_tpu_torch.models.gbdt import GBDT
+
+        GBDT._goss_uniforms = self.real
+
+
+def mode_phases(lgt, dev, base, higgs, counts, plain_total):
+    """Phase 13 on phase 3's Higgs set: GOSS, DART and random forest,
+    init_model and cv.  Returns the kernel line's B1 entries of the modes'
+    call sites."""
+    from lightgbm_tpu_torch.ops import hist_cuda as hc
+    from lightgbm_tpu_torch.utils import sanitizer as san
+
+    h_set, h_Xtr, h_ytr, h_Xte, h_yte = higgs
+    tile = hc.recommended_leaf_tile(h_set.max_num_bins, N_FEAT, NUM_LEAVES)
+    entries = []
+    for name, extra in MODES.items():
+        t0 = time.perf_counter()
+        params = {**base, **extra}
+        turns = ("ineligible",) * 2 if name == "rf" else ("graph", "eager")
+        with san.DispatchCounter() as sync:
+            runs = train_turns(lgt, params, h_set, MODE_ROUNDS, MODEL_SHA[name], counts,
+                               plain_total, turns=turns)
+        for r in runs:
+            st, (b1, b1q, b2, b3) = r["st"], r["launches"]
+            # rounds grower: the root pass a tree, one a round, one a warm-up
+            # before each capture; no blocking read inside a tree
+            if not (st["trees"] == MODE_ROUNDS and b1 == st["trees"] + st["rounds"]
+                    + st["captures"] and b1q == b2 == b3 == 0 and st["host_syncs"] == 0):
+                raise AssertionError(f"{name} {r['mode']} run: {st} launches {r['launches']}")
+            log(turn_line(f"phase 13 {name}", r))
+        if len({r["sha"] for r in runs}) != 1:
+            raise AssertionError(f"{name}: graph and eager runs grew different models")
+        bst = runs[0]["bst"]
+        gb = bst._gbdt
+        p = bst.predict(h_Xte)
+        a = auc(h_yte, p)
+        if not (p.shape == (N_TEST,) and np.all(np.isfinite(p)) and a >= AUC_FLOOR_MODES[name]):
+            raise AssertionError(f"{name}: held-out AUC {a} < floor {AUC_FLOOR_MODES[name]}")
+        if not np.array_equal(p, lgt.Booster(model_str=bst.model_to_string()).predict(h_Xte)):
+            raise AssertionError(f"reloaded {name} model predicts differently")
+        with card_draws(dev):
+            small = small_vs_cpu(lgt, {**params, "num_leaves": 15}, h_Xtr, h_ytr, h_Xte,
+                                 rounds=8)
+        reads = sync.host_syncs / (len(runs) * MODE_ROUNDS)
+        g, h = (v.contiguous() for v in gb.objective.get_gradients(
+            gb._score, gb._label, gb._weight))
+        mask, weight = gb._bagging_mask()  # GOSS: the mask past the warm-up
+        if name == "goss":
+            detail = (f"rows in the bag past the warm-up={int(mask.sum())} of {N_TRAIN} "
+                      f"(weight {float(weight.max()):g} on the drawn ones)")
+        elif name == "dart":
+            detail = (f"trees dropped an iteration={np.mean(gb.drops):.2f} "
+                      f"(drops {gb.drops})")
+        else:
+            detail = (f"rows in the bag={int(mask.sum())} of {N_TRAIN}, shrinkage 1, "
+                      f"the trees' mean")
+        # a window past GOSS's warm-up, and one holding DART's drops
+        for r in runs[:2]:
+            log(profile_line(f"phase 13 profile {name} {r['mode']} (3 trees after 5)",
+                             profile_rounds(lgt, {**params, "fused_training": r["mode"] != "eager"},
+                                            h_set, 3, warm=5)))
+        log(f"phase 13 {name}: ok {MODE_ROUNDS} rounds auc={a:.5f} (floor "
+            f"{AUC_FLOOR_MODES[name]}) {detail} blocking reads an iteration={reads:.2f} "
+            f"B1 launches a tree={runs[0]['launches'][0] / MODE_ROUNDS:.1f} reload=bitwise "
+            f"small-vs-cpu max|d|={small:.3g} model_sha256={runs[0]['sha']} "
+            f"in {time.perf_counter() - t0:.2f} s")
+        # B1 at this mode's call site: the grower's weighted gradients and mask
+        r = check_b1_site(hc, h_set.bins_device, (g * weight).contiguous(),
+                          (h * weight).contiguous(), mask,
+                          round_slots(N_TRAIN, tile, SEED + 5, dev), tile, h_set.max_num_bins)
+        log(b1_line(f"phase 13 kernel B1 {name} site N={N_TRAIN} F={N_FEAT}", r))
+        entries.append(b1_entry(f"histogram_multi_{name}", r, runs[0]["launches"][0],
+                                runs[0]["st"]["per_replay"].get("histogram_multi", 0)))
+        del runs, bst, gb, g, h, mask, weight
+
+    # init_model: 10 rounds, then 10 more from that booster
+    t0 = time.perf_counter()
+    first = lgt.train(base, h_set, MODE_ROUNDS)
+    cont = lgt.train(base, h_set, MODE_ROUNDS, init_model=first)
+    torch.cuda.synchronize()
+    d = np.abs(cont._gbdt._score.cpu().numpy() - cont.predict(h_Xtr, raw_score=True))
+    # the training score walks the bins, predict the raw values in f32: a
+    # value within an f32 step above a threshold bins right and predicts
+    # left.  Such rows may differ; every other row must agree within 1e-5.
+    raw_leaf = cont.predict(h_Xtr, pred_leaf=True)
+    flip = np.zeros(N_TRAIN, dtype=bool)
+    for i, tree in enumerate(cont._gbdt.models):
+        flip |= h_set.predict_leaf_binned_tree(tree).cpu().numpy() != raw_leaf[:, i]
+    gap = float(d[~flip].max())
+    if not (cont.num_trees() == 2 * MODE_ROUNDS and gap <= 1e-5
+            and flip.sum() <= 1e-5 * N_TRAIN):
+        raise AssertionError(f"init_model: {cont.num_trees()} trees, replayed score "
+                             f"off predict by {gap}, {int(flip.sum())} rows walk "
+                             "differently on bins and raw values")
+    log(f"phase 13 init_model: ok {MODE_ROUNDS} + {MODE_ROUNDS} rounds = "
+        f"{cont.num_trees()} trees, replayed training score vs predict(raw_score=True) "
+        f"max|d|={gap:.3g} on the {N_TRAIN - int(flip.sum())} rows whose bins and f32 "
+        f"values take the same leaves ({int(flip.sum())} rows do not, max|d| there "
+        f"{float(d[flip].max()) if flip.any() else 0.0:.3g}) held-out auc="
+        f"{auc(h_yte, cont.predict(h_Xte)):.5f} in {time.perf_counter() - t0:.2f} s")
+    del first, cont
+
+    # cv on 200k of the rows
+    t0 = time.perf_counter()
+    cv_set = lgt.Dataset(h_Xtr[:CV_ROWS], label=h_ytr[:CV_ROWS], params=dict(base))
+    res = lgt.cv({**base, "metric": "auc"}, cv_set, CV_ROUNDS, nfold=CV_FOLDS, seed=SEED)
+    mean = res["valid auc-mean"]
+    if not (len(mean) == CV_ROUNDS and 0.5 < mean[-1] <= 1.0):
+        raise AssertionError(f"cv: {res}")
+    log(f"phase 13 cv: ok {CV_FOLDS} folds x {CV_ROUNDS} rounds on {CV_ROWS} rows "
+        f"valid auc-mean={mean[-1]:.5f} stdv={res['valid auc-stdv'][-1]:.5f} "
+        f"in {time.perf_counter() - t0:.2f} s")
+    return entries
+
+
+def latency(bst, X, n, calls):
+    """Median wall seconds of Booster.predict on the first ``n`` rows of
+    ``X`` (the host copies in and out included) over ``calls`` calls,
+    after one warm call."""
+    x = np.ascontiguousarray(X[:n])
+    bst.predict(x)
+    times = []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        bst.predict(x)
+        times.append(time.perf_counter() - t0)
+    return float(np.median(times))
+
+
+def predict_profile(bst, X, calls=5):
+    """Device ms, wall ms and kernel launches a Booster.predict call, from
+    a torch.profiler window over ``calls`` calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    bst.predict(X)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            bst.predict(X)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / calls
+    busy = sum(dev_us(e) for e in device_events(prof)) / 1e3 / calls
+    launches = sum(e.count for e in prof.key_averages()
+                   if e.key in RUNTIME_LAUNCHES
+                   and not str(getattr(e, "device_type", "")).endswith("CUDA")) / calls
+    return busy, wall, launches
+
+
+def predict_phase(lgt, models):
+    """Phase 14: ``models`` maps a name to (model text, rows to predict,
+    labels or None)."""
+    from lightgbm_tpu_torch.utils import sanitizer as san
+
+    cpu = {"device_type": "cpu"}
+    for name, (text, X, y) in models.items():
+        t0 = time.perf_counter()
+        bst = lgt.Booster(model_str=text)
+        lat = {n: latency(bst, X, n, PRED_CALLS if n < 100_000 else PRED_CALLS_BIG)
+               for n in PRED_BATCHES}
+        busy, wall, launches = predict_profile(bst, X[:100_000])
+        log(f"phase 14 predict {name} ({bst.num_trees()} trees, "
+            f"{max(t.num_leaves for t in bst._gbdt.models)} leaves max, {X.shape[1]} "
+            f"features): latency_ms " + " ".join(f"{n}={lat[n] * 1e3:.3f}" for n in lat)
+            + f" rows/s at {PRED_BATCHES[-1]}={PRED_BATCHES[-1] / lat[PRED_BATCHES[-1]]:.0f} "
+            f"profiled at 100000 rows: device_ms a call={busy:.3f} wall_ms={wall:.3f} "
+            f"idle_share={1 - busy / wall:.4f} kernel launches a call={launches:.0f}")
+        host = lgt.Booster(model_str=text, params=cpu)
+        leaf, leaf_cpu = bst.predict(X[:100_000], pred_leaf=True), host.predict(
+            X[:100_000], pred_leaf=True)
+        if not (leaf.shape == (min(len(X), 100_000), bst.num_trees())
+                and np.array_equal(leaf, leaf_cpu)):
+            raise AssertionError(f"{name}: pred_leaf card != CPU")
+        log(f"phase 14 pred_leaf {name}: ok {leaf.shape} card == CPU bitwise "
+            f"in {time.perf_counter() - t0:.2f} s")
+        if y is None:
+            continue
+        # early stop: binary margins past ES_MARGIN stop every ES_FREQ trees
+        t0 = time.perf_counter()
+        es = {"pred_early_stop": True, "pred_early_stop_freq": ES_FREQ,
+              "pred_early_stop_margin": ES_MARGIN}
+        with san.DispatchCounter() as c:
+            r_es = bst.predict(X, raw_score=True, **es)
+        st = bst._gbdt.early_stop_stats
+        full = bst.predict(X, raw_score=True)
+        running = np.abs(r_es) < ES_MARGIN  # these never stopped
+        if not (c.host_syncs == st["reads"] == st["chunks"] >= 2 and 0 < st["stopped"]
+                and np.array_equal(r_es[running], full[running])):
+            raise AssertionError(f"early stop: {st}, {c.host_syncs} blocking reads")
+        log(f"phase 14 early stop {name}: ok freq={ES_FREQ} margin={ES_MARGIN} "
+            f"chunks={st['chunks']} blocking reads={c.host_syncs} rows stopped="
+            f"{st['stopped']} of {len(X)} running rows == full prediction bitwise "
+            f"in {time.perf_counter() - t0:.2f} s")
+        t0 = time.perf_counter()
+        contrib = bst.predict(X[:CONTRIB_ROWS], pred_contrib=True)
+        t_contrib = time.perf_counter() - t0
+        gap = float(np.abs(contrib.sum(axis=1) - full[:CONTRIB_ROWS]).max())
+        if not gap <= 1e-5:
+            raise AssertionError(f"pred_contrib rows sum off the margin by {gap}")
+        log(f"phase 14 pred_contrib {name}: ok {contrib.shape} host seconds="
+            f"{t_contrib:.2f} max|sum - margin|={gap:.3g}")
+        t0 = time.perf_counter()
+        ref = bst.refit(X, y)
+        torch.cuda.synchronize()
+        t_refit = time.perf_counter() - t0
+        ref_cpu = host.refit(X, y)
+        gap = max(float(np.abs(a.leaf_value - b.leaf_value).max())
+                  for a, b in zip(ref._gbdt.models, ref_cpu._gbdt.models))
+        if not gap <= 1e-6:
+            raise AssertionError(f"refit: card and CPU leaf values differ by {gap}")
+        log(f"phase 14 refit {name}: ok {len(X)} rows seconds={t_refit:.2f} card vs CPU "
+            f"leaf values max|d|={gap:.3g} held-out auc before {auc(y, bst.predict(X)):.5f} "
+            f"after {auc(y, ref.predict(X)):.5f}")
 
 
 def main() -> int:
@@ -2068,17 +2347,30 @@ def main() -> int:
 
     del eps_set, small, b_mk, b_3p, X, y, Xtr, ytr, Xte, yte
     torch.cuda.empty_cache()
-    new_kernels = new_phases(lgt, dev, base, (h_set, h_Xtr, h_ytr, h_Xte, h_yte),
-                             counts, plain_total)
-    del h_set
+    new_kernels, rank_model = new_phases(lgt, dev, base, (h_set, h_Xtr, h_ytr, h_Xte,
+                                                          h_yte), counts, plain_total)
+    torch.cuda.empty_cache()
 
-    # ---- 13. device ----
+    # ---- 13. the boosting modes, init_model and cv ----
+    t0 = time.perf_counter()
+    new_kernels += mode_phases(lgt, dev, base, (h_set, h_Xtr, h_ytr, h_Xte, h_yte),
+                               counts, plain_total)
+    del h_set
+    torch.cuda.empty_cache()
+    log(f"phase 13 modes: ok in {time.perf_counter() - t0:.2f} s")
+
+    # ---- 14. the prediction surface ----
+    t0 = time.perf_counter()
+    predict_phase(lgt, {"higgs": (text, h_Xte, h_yte), "lambdarank": rank_model})
+    log(f"phase 14 predict: ok in {time.perf_counter() - t0:.2f} s")
+
+    # ---- 15. device ----
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60)
     if smi.returncode != 0 or not smi.stdout.strip():
         raise AssertionError(f"nvidia-smi failed: {smi.stderr}")
-    log(f"phase 13 device: ok total {time.perf_counter() - t_all:.2f} s")
+    log(f"phase 15 device: ok total {time.perf_counter() - t_all:.2f} s")
     log(smi.stdout.strip().splitlines()[0])
 
     src, tpu = "lightgbm_tpu_torch/csrc/hist.cu", "lightgbm_tpu/ops/hist_pallas.py:120"

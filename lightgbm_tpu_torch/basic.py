@@ -6,7 +6,8 @@ python-package/lightgbm/basic.py).  A Dataset is binned on the host
 (N, F) int16 matrix; a Booster wraps models/gbdt.py.
 
 Not ported yet, and raising when asked for: file and bin-cache input,
-out-of-core, EFB bundling, sparse and arrow input (ROADMAP queue A2).
+out-of-core, EFB bundling, sparse and arrow input and save_binary (ROADMAP
+queue A2), categorical features (A11), set_network / free_network (A13).
 """
 
 from __future__ import annotations
@@ -20,7 +21,9 @@ import torch
 
 from .binning import DatasetBinner
 from .config import Config
-from .models.gbdt import GBDT
+from .models.gbdt import GBDT, create_boosting, tree_depth
+from .models.tree import Tree
+from .ops import predict as predict_ops
 
 
 class LightGBMError(Exception):
@@ -56,6 +59,11 @@ def _to_2d_float(data) -> np.ndarray:
         data = data.values
     arr = np.asarray(data, dtype=np.float64)
     return arr.reshape(-1, 1) if arr.ndim == 1 else arr
+
+
+def _check_finite(name: str, v) -> None:
+    if v is not None and not np.all(np.isfinite(v)):
+        raise ValueError(f"{name} contains non-finite values")
 
 
 class Dataset:
@@ -108,9 +116,7 @@ class Dataset:
                                       "not ported to lightgbm_tpu_torch yet "
                                       "(ROADMAP queue A2)")
         for name in ("label", "weight", "init_score"):
-            v = getattr(self, name)
-            if v is not None and not np.all(np.isfinite(v)):
-                raise ValueError(f"{name} contains non-finite values")
+            _check_finite(name, getattr(self, name))
         device = device if device is not None else resolve_device(cfg)
         raw = _to_2d_float(self.data)
         n, f = raw.shape
@@ -143,18 +149,23 @@ class Dataset:
                 use_missing=cfg.use_missing, zero_as_missing=cfg.zero_as_missing,
                 max_bin_by_feature=cfg.max_bin_by_feature,
                 seed=cfg.data_random_seed)
-        self.bins = self.binner.transform(raw)
-        self.bins_device = torch.as_tensor(self.bins.astype(np.int16), device=device)
-        self.num_bins_pf_device = torch.as_tensor(
-            self.binner.num_bins_per_feature, dtype=torch.int32, device=device)
-        self.missing_bin_pf_device = torch.as_tensor(
-            self.binner.missing_bin_per_feature, dtype=torch.int32, device=device)
-        self.max_num_bins = int(self.binner.max_num_bins)
+        self._set_bins(self.binner.transform(raw), device)
         self._num_data, self._num_feature = n, f
         if self.free_raw_data:
             self.data = None
         self._constructed = True
         return self
+
+    def _set_bins(self, bins: np.ndarray, device) -> None:
+        """The host bins and their device copies (the matrix and the
+        per-feature bin tables)."""
+        self.bins = bins
+        self.bins_device = torch.as_tensor(bins.astype(np.int16), device=device)
+        self.num_bins_pf_device = torch.as_tensor(
+            self.binner.num_bins_per_feature, dtype=torch.int32, device=device)
+        self.missing_bin_pf_device = torch.as_tensor(
+            self.binner.missing_bin_per_feature, dtype=torch.int32, device=device)
+        self.max_num_bins = int(self.binner.max_num_bins)
 
     def num_data(self) -> int:
         if self._constructed:
@@ -179,6 +190,186 @@ class Dataset:
                        group=group, init_score=init_score,
                        params=params or self.params)
 
+    # -- fields (reference: Dataset.set_field / get_field) ---------------
+    def set_field(self, field_name: str, data) -> "Dataset":
+        if field_name in ("label", "weight"):
+            v = None if data is None else np.asarray(data, np.float64).ravel()
+            _check_finite(field_name, v)
+            setattr(self, field_name, v)
+        elif field_name in ("group", "query", "position"):
+            v = None if data is None else np.asarray(data, np.int64).ravel()
+            setattr(self, "group" if field_name == "query" else field_name, v)
+        elif field_name == "init_score":
+            self.init_score = None if data is None else np.asarray(data, np.float64)
+            _check_finite("init_score", self.init_score)
+        else:
+            raise LightGBMError(f"Unknown field: {field_name}")
+        return self
+
+    def get_field(self, field_name: str):
+        return {"label": self.label, "weight": self.weight, "group": self.group,
+                "query": self.group, "init_score": self.init_score,
+                "position": self.position}.get(field_name)
+
+    def set_label(self, label) -> "Dataset":
+        return self.set_field("label", label)
+
+    def set_weight(self, weight) -> "Dataset":
+        return self.set_field("weight", weight)
+
+    def set_group(self, group) -> "Dataset":
+        return self.set_field("group", group)
+
+    def set_init_score(self, init_score) -> "Dataset":
+        return self.set_field("init_score", init_score)
+
+    def set_position(self, position) -> "Dataset":
+        return self.set_field("position", position)
+
+    def get_label(self):
+        return self.label
+
+    def get_weight(self):
+        return self.weight
+
+    def get_group(self):
+        return self.group
+
+    def get_init_score(self):
+        return self.init_score
+
+    def get_position(self):
+        return self.position
+
+    def get_data(self):
+        """The raw data (None once freed)."""
+        return self.data
+
+    def get_feature_name(self) -> List[str]:
+        self.construct()
+        return list(self.feature_names)
+
+    def set_feature_name(self, feature_name) -> "Dataset":
+        if feature_name is not None and feature_name != "auto":
+            names = list(feature_name)
+            if self._constructed and len(names) != self.num_feature():
+                raise LightGBMError(
+                    f"Length of feature names {len(names)} does not equal "
+                    f"number of features {self.num_feature()}")
+            self.feature_name = names
+            if self._constructed:
+                self.feature_names = names
+        return self
+
+    def set_categorical_feature(self, categorical_feature) -> "Dataset":
+        if categorical_feature not in (None, "auto", [], ()):
+            raise NotImplementedError("categorical features are not ported to "
+                                      "lightgbm_tpu_torch yet (ROADMAP queue A11)")
+        return self
+
+    def set_reference(self, reference: "Dataset") -> "Dataset":
+        """Align this dataset's bins to ``reference``'s (before construction)."""
+        if self._constructed:
+            if self.reference is reference:
+                return self
+            raise LightGBMError("Cannot set reference after Dataset was constructed.")
+        self.reference = reference
+        return self
+
+    def get_ref_chain(self, ref_limit: int = 100) -> set:
+        """The datasets along the reference= chain, this one first."""
+        head, chain = self, set()
+        while len(chain) < ref_limit and isinstance(head, Dataset):
+            chain.add(head)
+            if head.reference is None or head.reference in chain:
+                break
+            head = head.reference
+        return chain
+
+    def feature_num_bin(self, feature: Union[int, str]) -> int:
+        self.construct()
+        if isinstance(feature, str):
+            feature = self.feature_names.index(feature)
+        return int(self.binner.mappers[feature].num_bins)
+
+    def add_features_from(self, other: "Dataset") -> "Dataset":
+        """Column-concatenate another dataset of the same rows (reference:
+        Dataset::AddFeaturesFrom)."""
+        self.construct()
+        other.construct(device=self.bins_device.device)
+        if self.num_data() != other.num_data():
+            raise LightGBMError("Cannot add features from Dataset with a "
+                                "different number of rows")
+        self.binner = DatasetBinner(mappers=list(self.binner.mappers)
+                                    + list(other.binner.mappers))
+        self._set_bins(np.concatenate([self.bins, other.bins], axis=1),
+                       self.bins_device.device)
+        self.feature_names = list(self.feature_names) + list(other.feature_names)
+        self._num_feature = len(self.feature_names)
+        if self.data is not None and other.data is not None:
+            self.data = np.column_stack([_to_2d_float(self.data),
+                                         _to_2d_float(other.data)])
+        return self
+
+    def subset(self, used_indices, params=None) -> "Dataset":
+        """The rows ``used_indices``, sharing this dataset's bin mappers
+        (reference: Dataset.subset / CopySubrow)."""
+        self.construct()
+        idx = np.asarray(used_indices, dtype=np.int64)
+        sub = Dataset.__new__(Dataset)
+        sub.__dict__.update(self.__dict__)
+        sub._set_bins(self.bins[idx], self.bins_device.device)
+        for name in ("label", "weight", "init_score", "position"):
+            v = getattr(self, name)
+            setattr(sub, name, None if v is None else v[idx])
+        if self.group is not None:
+            # group sizes from the selected rows' query ids
+            qid = np.repeat(np.arange(len(self.group)), self.group)[idx]
+            change = np.nonzero(np.diff(qid) != 0)[0] + 1
+            sub.group = np.diff(np.concatenate([[0], change, [len(qid)]])).astype(np.int64)
+        if self.data is not None:
+            sub.data = _to_2d_float(self.data)[idx]
+        if params is not None:
+            sub.params = dict(params)
+        sub._num_data = len(idx)
+        sub._used_indices = idx
+        return sub
+
+    def save_binary(self, filename: str) -> "Dataset":
+        raise NotImplementedError("Dataset.save_binary (the bin cache) is not ported "
+                                  "to lightgbm_tpu_torch yet (ROADMAP queue A2)")
+
+    # -- a host tree on the device bins -----------------------------------
+    def predict_leaf_binned_tree(self, tree: Tree) -> torch.Tensor:
+        """(N,) i32 leaf id of each row for one host tree, on the device
+        bins (the JAX package's Dataset.predict_leaf_binned_tree): torch
+        ops, no host read."""
+        dev = self.bins_device.device
+        if tree.num_internal == 0:
+            return torch.zeros(self.num_data(), dtype=torch.int32, device=dev)
+        if tree.num_cat > 0:
+            raise NotImplementedError("categorical trees are not ported to "
+                                      "lightgbm_tpu_torch yet (ROADMAP queue A11)")
+        self._tree_threshold_bin(tree)
+
+        def t(a, dtype):
+            return torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
+
+        return predict_ops.predict_leaf_binned(
+            self.bins_device, self.missing_bin_pf_device,
+            t(tree.split_feature, torch.int64), t(tree.threshold_bin, torch.int32),
+            t(tree.default_left(), torch.bool), t(tree.left_child, torch.int64),
+            t(tree.right_child, torch.int64), tree_depth(tree))
+
+    def _tree_threshold_bin(self, tree: Tree) -> None:
+        """Bin-space thresholds of a tree read from model text (exact: the
+        text stores this binner's bin uppers)."""
+        if tree.threshold_bin is not None:
+            return
+        tree.threshold_bin = np.asarray(
+            [int(self.binner.mappers[int(f)].transform(np.asarray([thr]))[0])
+             for f, thr in zip(tree.split_feature, tree.threshold)], np.int32)
+
 
 class Booster:
     """reference: class Booster in python-package/lightgbm/basic.py."""
@@ -190,6 +381,7 @@ class Booster:
         self.params = dict(params or {})
         self.best_iteration = -1
         self.best_score: Dict[str, Dict[str, float]] = {}
+        self._train_set = train_set
         if model_file is not None:
             model_str = Path(model_file).read_text(encoding="utf-8")
         if model_str is not None:
@@ -203,14 +395,26 @@ class Booster:
             merged.update(self.params)
             train_set.params = merged
             self.cfg = Config.from_dict(self.params)
-            self._gbdt = GBDT(self.cfg, train_set)
+            self._gbdt = create_boosting(self.cfg, train_set)
         else:
             raise LightGBMError("need either params+train_set or a model")
 
     # -- training -------------------------------------------------------
-    def update(self) -> bool:
-        """One boosting iteration; True if training should stop."""
+    def update(self, train_set: Optional[Dataset] = None, fobj=None) -> bool:
+        """One boosting iteration; True if training should stop.  ``fobj``
+        (score, train Dataset) -> (grad, hess) gives the gradients."""
+        if train_set is not None and train_set is not self._train_set:
+            self._train_set = train_set
+            self._gbdt.reset_training_data(train_set)
+        if fobj is not None:
+            score = self._gbdt._score.cpu().numpy()
+            grad, hess = fobj(score, self._gbdt.train_set)
+            return self._gbdt.train_one_iter(np.asarray(grad), np.asarray(hess))
         return self._gbdt.train_one_iter()
+
+    def rollback_one_iter(self) -> "Booster":
+        self._gbdt.rollback_one_iter()
+        return self
 
     def add_valid(self, data: Dataset, name: str) -> "Booster":
         self._gbdt.add_valid(data, name)
@@ -224,11 +428,87 @@ class Booster:
         self._gbdt.reset_split_params()
         return self
 
+    def set_train_data_name(self, name: str) -> "Booster":
+        """The name the training set's evaluations carry."""
+        self._gbdt.train_name = name
+        return self
+
+    def shuffle_models(self, start_iteration: int = 0,
+                       end_iteration: int = -1) -> "Booster":
+        """Shuffle the trees in [start, end) (reference: GBDT ShuffleModels),
+        with numpy's global generator, as the JAX package does."""
+        models = self._gbdt.models
+        end = len(models) if end_iteration < 0 else min(end_iteration, len(models))
+        seg = models[start_iteration:end]
+        np.random.shuffle(seg)
+        models[start_iteration:end] = seg
+        return self
+
+    def _init_score_offset(self) -> float:
+        scores = self._gbdt.init_scores or [0.0]
+        return float(scores[0]) if len(scores) == 1 else 0.0
+
+    def lower_bound(self) -> float:
+        """Smallest possible raw output: the trees' smallest leaves summed
+        (reference: GBDT::GetLowerBoundValue)."""
+        return float(sum(float(np.min(t.leaf_value[: t.num_leaves]))
+                         for t in self._gbdt.models) + self._init_score_offset())
+
+    def upper_bound(self) -> float:
+        return float(sum(float(np.max(t.leaf_value[: t.num_leaves]))
+                         for t in self._gbdt.models) + self._init_score_offset())
+
+    def trees_to_dataframe(self):
+        """One pandas row per node and leaf (reference:
+        Booster.trees_to_dataframe)."""
+        import pandas as pd  # local: pandas is optional
+
+        def node_rows(tree_idx, struct, parent, depth, rows):
+            internal = "split_index" in struct
+            idx = (f"{tree_idx}-S{struct['split_index']}" if internal
+                   else f"{tree_idx}-L{struct['leaf_index']}")
+            rows.append({
+                "tree_index": tree_idx, "node_depth": depth, "node_index": idx,
+                "left_child": None, "right_child": None, "parent_index": parent,
+                "split_feature": struct["split_feature"] if internal else None,
+                "split_gain": struct["split_gain"] if internal else None,
+                "threshold": struct["threshold"] if internal else None,
+                "decision_type": struct["decision_type"] if internal else None,
+                "missing_direction": (("left" if struct["default_left"] else "right")
+                                      if internal else None),
+                "missing_type": struct["missing_type"] if internal else None,
+                "value": struct["internal_value"] if internal else struct["leaf_value"],
+                "weight": (struct["internal_weight"] if internal
+                           else struct.get("leaf_weight")),
+                "count": (struct["internal_count"] if internal
+                          else struct.get("leaf_count")),
+            })
+            if internal:
+                me = len(rows) - 1
+                rows[me]["left_child"] = node_rows(
+                    tree_idx, struct["left_child"], idx, depth + 1, rows)
+                rows[me]["right_child"] = node_rows(
+                    tree_idx, struct["right_child"], idx, depth + 1, rows)
+            return idx
+
+        model = self.dump_model()
+        names = model["feature_names"]
+        rows: List[Dict[str, Any]] = []
+        for t in model["tree_info"]:
+            node_rows(t["tree_index"], t["tree_structure"], None, 1, rows)
+        df = pd.DataFrame(rows)
+        df["split_feature"] = df["split_feature"].map(
+            lambda v: names[int(v)] if v is not None and not pd.isna(v) else None)
+        return df
+
     def current_iteration(self) -> int:
         return self._gbdt.iter_
 
     def num_trees(self) -> int:
-        return len(self._gbdt.models)
+        return self._gbdt._num_trees()
+
+    def num_model_per_iteration(self) -> int:
+        return self._gbdt.num_tree_per_iteration
 
     def num_feature(self) -> int:
         return len(self._gbdt.feature_names)
@@ -236,31 +516,94 @@ class Booster:
     def feature_name(self) -> List[str]:
         return list(self._gbdt.feature_names)
 
-    def feature_importance(self, importance_type: str = "split") -> np.ndarray:
-        return self._gbdt.feature_importance(importance_type)
+    def feature_importance(self, importance_type: str = "split",
+                           iteration: Optional[int] = None) -> np.ndarray:
+        return self._gbdt.feature_importance(importance_type, iteration)
+
+    def get_split_value_histogram(self, feature, bins=None, xgboost_style: bool = False):
+        """Histogram of a feature's split thresholds across the model
+        (reference: Booster.get_split_value_histogram)."""
+        if isinstance(feature, str):
+            if feature not in self.feature_name():
+                raise ValueError(f"Unknown feature name {feature!r}")
+            feature = self.feature_name().index(feature)
+        values = np.array([float(t.threshold[i]) for t in self._gbdt.models
+                           for i in range(t.num_internal)
+                           if int(t.split_feature[i]) == feature
+                           and not t.is_categorical_node()[i]], dtype=np.float64)
+        if bins is None or (isinstance(bins, int) and bins > len(values)):
+            bins = max(len(values), 1)
+        hist, bin_edges = np.histogram(values, bins=bins)
+        if xgboost_style:
+            ret = np.column_stack((bin_edges[1:], hist))
+            ret = ret[ret[:, 1] > 0]
+            try:
+                import pandas as pd
+            except ImportError:
+                return ret
+            return pd.DataFrame(ret, columns=["SplitValue", "Count"])
+        return hist, bin_edges
+
+    def set_network(self, *args, **kwargs) -> "Booster":
+        raise NotImplementedError("set_network: distributed training is not ported "
+                                  "to lightgbm_tpu_torch yet (ROADMAP queue A13)")
+
+    def free_network(self) -> "Booster":
+        raise NotImplementedError("free_network: distributed training is not ported "
+                                  "to lightgbm_tpu_torch yet (ROADMAP queue A13)")
+
+    def free_dataset(self) -> "Booster":
+        self._train_set = None
+        return self
+
+    def set_leaf_output(self, tree_id: int, leaf_id: int, value: float) -> "Booster":
+        self._gbdt.models[tree_id].leaf_value[leaf_id] = value
+        return self
+
+    def get_leaf_output(self, tree_id: int, leaf_id: int) -> float:
+        return float(self._gbdt.models[tree_id].leaf_value[leaf_id])
 
     # -- eval -------------------------------------------------------------
-    def eval_train(self):
-        return self._eval(0, self._gbdt.train_name)
+    def eval_train(self, feval=None):
+        return self._eval(0, self._gbdt.train_name, feval)
 
-    def eval_valid(self):
+    def eval_valid(self, feval=None):
         out = []
         for i, name in enumerate(self._gbdt.valid_names):
-            out.extend(self._eval(i + 1, name))
+            out.extend(self._eval(i + 1, name, feval))
         return out
 
-    def _eval(self, data_idx: int, name: str):
-        return [(name, mname, val, hib)
-                for (_n, mname, val, hib) in self._gbdt.eval_at(data_idx)]
+    def eval(self, data: Dataset, name: str, feval=None):
+        """Evaluate ``data`` (added as a validation set when it is not one)."""
+        for i, vs in enumerate(self._gbdt.valid_sets):
+            if vs is data:
+                return self._eval(i + 1, name, feval)
+        self.add_valid(data, name)
+        return self._eval(len(self._gbdt.valid_sets), name, feval)
+
+    def _eval(self, data_idx: int, name: str, feval=None):
+        g = self._gbdt
+        res = [(name, mname, val, hib) for (_n, mname, val, hib) in g.eval_at(data_idx)]
+        if feval is not None:
+            ds = g.train_set if data_idx == 0 else g.valid_sets[data_idx - 1]
+            score = g._score if data_idx == 0 else g._valid_scores[data_idx - 1]
+            for r in _call_feval(feval, score.cpu().numpy(), ds):
+                res.append((name, r[0], r[1], r[2]))
+        return res
 
     # -- prediction -------------------------------------------------------
     def predict(self, data, start_iteration: int = 0,
-                num_iteration: Optional[int] = None,
-                raw_score: bool = False, **kwargs) -> np.ndarray:
-        for k in ("pred_leaf", "pred_contrib", "mesh"):
-            if kwargs.get(k):
-                raise NotImplementedError(f"{k} is not ported to "
-                                          "lightgbm_tpu_torch yet (ROADMAP queue A3)")
+                num_iteration: Optional[int] = None, raw_score: bool = False,
+                pred_leaf: bool = False, pred_contrib: bool = False,
+                **kwargs) -> np.ndarray:
+        """Margins or probabilities; ``pred_leaf`` (N, T) leaf ids;
+        ``pred_contrib`` (N, (F + 1) * K) SHAP values; pred_early_stop,
+        pred_early_stop_freq and pred_early_stop_margin in ``kwargs`` set
+        prediction early stopping for this call."""
+        if kwargs.get("mesh") is not None:
+            raise NotImplementedError("predict(mesh=): prediction over several "
+                                      "devices is not ported to lightgbm_tpu_torch "
+                                      "yet (ROADMAP queue A13)")
         if num_iteration is None:
             num_iteration = self.best_iteration if self.best_iteration > 0 else -1
         X = _to_2d_float(data)
@@ -271,9 +614,58 @@ class Booster:
                 f"The number of features in data ({X.shape[1]}) is not the same "
                 f"as it was in training data ({n_feat}). You can set "
                 f"predict_disable_shape_check=true to discard this error.")
+        early_stop = {k: kwargs[k] for k in ("pred_early_stop", "pred_early_stop_freq",
+                                             "pred_early_stop_margin") if k in kwargs}
         return self._gbdt.predict(X, raw_score=raw_score,
                                   start_iteration=start_iteration,
-                                  num_iteration=num_iteration)
+                                  num_iteration=num_iteration, pred_leaf=pred_leaf,
+                                  pred_contrib=pred_contrib, early_stop=early_stop)
+
+    def refit(self, data, label, decay_rate: float = 0.9, weight=None,
+              **kwargs) -> "Booster":
+        """A new booster whose leaf values are refitted on ``data``
+        (reference: GBDT::RefitTree): new = decay * old + (1 - decay) *
+        the leaf's Newton value from the port's objective, with the trees
+        walked in training order and tree t of a multiclass model renewed
+        against class t % K.  The gradients run on this booster's device;
+        leaf ids, sums and scores on the host in f64, as in the JAX
+        package."""
+        X = _to_2d_float(data)
+        label = np.asarray(label, dtype=np.float64).ravel()
+        new_booster = Booster(params={"device_type": self.cfg.device_type},
+                              model_str=self.model_to_string())
+        new_booster._gbdt.cfg = self.cfg
+        gbdt = new_booster._gbdt
+        dev = gbdt.device
+        k = gbdt.num_tree_per_iteration
+        score = np.zeros((len(label), k) if k > 1 else len(label), dtype=np.float64)
+        w_dev = None
+        if weight is not None:
+            weight = np.asarray(weight, dtype=np.float64).ravel()
+            if len(weight) != len(label):
+                raise LightGBMError(f"refit: {len(label)} labels but {len(weight)} weights")
+            w_dev = torch.as_tensor(weight, dtype=torch.float32, device=dev)
+        from .objectives import create_objective
+
+        obj = create_objective(self.cfg)
+        label_dev = torch.as_tensor(label, dtype=torch.float32, device=dev)
+        for t_i, tree in enumerate(gbdt.models):
+            leaf = tree.predict_leaf_batch(X)
+            g, h = obj.get_gradients(torch.as_tensor(score, dtype=torch.float32,
+                                                     device=dev), label_dev, w_dev)
+            g, h = g.cpu().numpy().astype(np.float64), h.cpu().numpy().astype(np.float64)
+            if k > 1:
+                g, h = g[:, t_i % k], h[:, t_i % k]
+            sum_g = np.bincount(leaf, weights=g, minlength=tree.num_leaves)
+            sum_h = np.bincount(leaf, weights=h, minlength=tree.num_leaves)
+            new_vals = -sum_g / (sum_h + self.cfg.lambda_l2 + 1e-15) * tree.shrinkage
+            tree.leaf_value = (decay_rate * tree.leaf_value + (1.0 - decay_rate)
+                               * np.where(sum_h > 0, new_vals, tree.leaf_value))
+            if k > 1:
+                score[:, t_i % k] += tree.leaf_value[leaf]
+            else:
+                score += tree.leaf_value[leaf]
+        return new_booster
 
     # -- serialization ----------------------------------------------------
     def model_to_string(self, num_iteration: int = -1, start_iteration: int = 0,
@@ -294,3 +686,61 @@ class Booster:
     def model_from_string(cls, model_str: str,
                           params: Optional[Dict[str, Any]] = None) -> "Booster":
         return cls(params=params, model_str=model_str)
+
+    def dump_model(self, num_iteration: int = -1, start_iteration: int = 0) -> Dict[str, Any]:
+        """JSON model dump (reference: GBDT::DumpModel)."""
+        g = self._gbdt
+        k = g.num_tree_per_iteration
+        models = g.models
+        lo = start_iteration * k
+        hi = len(models) if num_iteration < 0 else min((start_iteration + num_iteration) * k,
+                                                        len(models))
+        trees = [{"tree_index": i, "num_leaves": t.num_leaves, "num_cat": t.num_cat,
+                  "shrinkage": t.shrinkage,
+                  "tree_structure": _dump_node(t, 0 if t.num_internal else -1)}
+                 for i, t in enumerate(models[lo:hi])]
+        return {"name": "tree", "version": "v4", "num_class": self.cfg.num_class,
+                "num_tree_per_iteration": k, "label_index": 0,
+                "max_feature_idx": len(g.feature_names) - 1,
+                "objective": g._objective_string(), "average_output": g.average_output,
+                "feature_names": list(g.feature_names), "monotone_constraints": [],
+                "feature_infos": {}, "tree_info": trees}
+
+    def to_if_else(self) -> str:
+        """The model as standalone C++ (task=convert_model)."""
+        return self._gbdt.to_if_else()
+
+
+def _dump_node(tree: Tree, node: int) -> Dict[str, Any]:
+    if node < 0 or tree.num_internal == 0:
+        leaf = -node - 1 if node < 0 else 0
+        return {
+            "leaf_index": leaf,
+            "leaf_value": float(tree.leaf_value[leaf]),
+            "leaf_weight": (float(tree.leaf_weight[leaf])
+                            if len(tree.leaf_weight) > leaf else 0.0),
+            "leaf_count": (int(tree.leaf_count[leaf])
+                           if len(tree.leaf_count) > leaf else 0),
+        }
+    return {
+        "split_index": node,
+        "split_feature": int(tree.split_feature[node]),
+        "split_gain": float(tree.split_gain[node]),
+        "threshold": float(tree.threshold[node]),
+        "decision_type": "<=",
+        "default_left": bool(tree.default_left()[node]),
+        "missing_type": ["None", "Zero", "NaN"][(int(tree.decision_type[node]) >> 2) & 3],
+        "internal_value": float(tree.internal_value[node]),
+        "internal_weight": float(tree.internal_weight[node]),
+        "internal_count": int(tree.internal_count[node]),
+        "left_child": _dump_node(tree, tree.left_child[node]),
+        "right_child": _dump_node(tree, tree.right_child[node]),
+    }
+
+
+def _call_feval(feval, score: np.ndarray, ds: Dataset) -> list:
+    """feval(score, dataset) -> one (name, value, higher_better) or a list."""
+    ret = feval(score, ds)
+    if ret is None:
+        return []
+    return ret if isinstance(ret, list) else [ret]

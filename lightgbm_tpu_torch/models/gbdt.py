@@ -30,8 +30,19 @@ package reads each of them at once), so no tree makes a host read.
 Objectives that renew leaf outputs (L1, quantile, MAPE) renew each tree
 after growth, on any grower (the JAX package's renew hook after the tree).
 
-Not ported yet, and rejected at construction: DART/RF/GOSS (queue A8) and
-the options of the grower envelope that the growers do not carry (A11).
+The boosting modes are the JAX package's: GOSS (``goss_mask``, a sampling
+strategy of GBDT), DART (``DART``: dropped trees leave the score and come
+back rescaled) and random forest (``RF``: gradients at the init score,
+averaged output), built by ``create_boosting``.  Trees not yet read by the
+host stay device TreeArrays with the list of factors that scale them
+(``_pending``); the score arithmetic of DART, rollback and a late
+validation set reads their leaf values and leaf ids on the device
+(``_tree_leaf_values``, ``_tree_leaves``), so none of them drains the
+device queue.
+
+Not ported yet, and rejected at construction: the options of the grower
+envelope that the growers do not carry (A11) and the distributed tree
+learners (A13).
 """
 
 from __future__ import annotations
@@ -54,7 +65,7 @@ from ..ops.treegrow_fast import grow_tree_fast, predict_leaf_arrays
 from ..ops.treegrow_windowed import grow_tree_windowed
 from ..utils import sanitizer as _san
 from ..utils.guards import NonFiniteError
-from .tree import Tree, tree_from_device
+from .tree import Tree, tree_from_device, tree_to_if_else
 
 _MODEL_VERSION = "v4"
 
@@ -84,8 +95,6 @@ def _f32_threshold_upper(t: np.ndarray) -> np.ndarray:
 def _unported_options(cfg: Config) -> List[str]:
     """Config options outside this slice's envelope (they raise)."""
     checks = {
-        "boosting": cfg.boosting not in ("gbdt", "gbrt"),
-        "data_sample_strategy=goss": cfg.data_sample_strategy == "goss",
         "tree_learner": cfg.tree_learner != "serial",
         "hist_precision=bf16": cfg.hist_precision != "f32",
         "linear_tree": bool(cfg.linear_tree),
@@ -100,20 +109,74 @@ def _unported_options(cfg: Config) -> List[str]:
         "cegb penalties": (cfg.cegb_penalty_split > 0 or any(
             p != 0 for p in (cfg.cegb_penalty_feature_coupled or [])
             + (cfg.cegb_penalty_feature_lazy or []))),
-        "bagging_by_query": bool(cfg.bagging_by_query),
     }
     return [k for k, v in checks.items() if v]
 
 
+def goss_mask(g: torch.Tensor, h: torch.Tensor, u: torch.Tensor,
+              top_rate: float, other_rate: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """GOSS row selection (reference: goss.hpp; the JAX package's
+    _goss_mask): keep the top ``top_rate`` of the rows by |g * h| (summed
+    over classes), draw ``other_rate`` of the rest from the uniforms ``u``
+    and weight the drawn rows by (1 - top_rate) / other_rate.  Returns
+    (mask bool, weights f32), computed on the device: the threshold is an
+    element of the sorted scores, read by a view, not by the host."""
+    score_abs = (g * h).abs()
+    if score_abs.dim() > 1:
+        score_abs = score_abs.sum(dim=1)
+    n = score_abs.shape[0]
+    top_k = max(int(n * top_rate), 1)
+    other_k = max(int(n * other_rate), 1)
+    thresh = torch.sort(score_abs).values[n - top_k]
+    top = score_abs >= thresh
+    # f32 of the quotient, as the JAX package's f32 division gives it
+    rest = ~top & (u < float(np.float32(other_k / max(n - top_k, 1))))
+    amp = float(np.float32((1.0 - top_rate) / other_rate))
+    return top | rest, torch.ones_like(u, dtype=torch.float32).masked_fill(rest, amp)
+
+
+def tree_depth(tree: Tree) -> int:
+    """Levels of a host tree: internal nodes on its longest root-leaf path."""
+    if tree.num_internal == 0:
+        return 0
+    depth, frontier = 0, [0]
+    while frontier:
+        depth += 1
+        frontier = [int(c) for nd in frontier
+                    for c in (tree.left_child[nd], tree.right_child[nd]) if c >= 0]
+    return depth
+
+
+def _dummy_tree() -> Tree:
+    """A one-leaf tree of value 0: pads the trees of an early-stop
+    prediction to a whole number of windows."""
+    z32 = np.zeros(0, np.int32)
+    return Tree(num_leaves=1, split_feature=z32, threshold=np.zeros(0, np.float64),
+                threshold_bin=None, decision_type=np.zeros(0, np.uint8),
+                split_gain=np.zeros(0, np.float32), left_child=z32, right_child=z32,
+                internal_value=np.zeros(0, np.float64),
+                internal_weight=np.zeros(0, np.float64),
+                internal_count=np.zeros(0, np.int64), leaf_value=np.zeros(1, np.float64),
+                leaf_weight=np.zeros(1, np.float64), leaf_count=np.zeros(1, np.int64))
+
+
 class GBDT:
     """reference: class GBDT in src/boosting/gbdt.h."""
+
+    average_output = False  # random forest: predictions average the trees
 
     def __init__(self, cfg: Config, train_set=None):
         self.cfg = cfg
         self.objective: Optional[Objective] = create_objective(cfg)
         self.train_set = None
         self._models: List[Tree] = []  # host trees
-        self._pending: List[tuple] = []  # (device TreeArrays, shrinkage)
+        # trees after _models, not yet read by the host: [device TreeArrays,
+        # [factors]], the factors applied in order when the host tree is
+        # made (shrinkage, then any DART rescales), as Tree.apply_shrinkage
+        # applies them to a host tree
+        self._pending: List[list] = []
+        # this iteration's gradients (GOSS reads them)
+        self._cur_grad = self._cur_hess = None
         self.iter_ = 0
         self.num_tree_per_iteration = cfg.num_tree_per_iteration
         self.init_scores = [0.0] * self.num_tree_per_iteration
@@ -125,6 +188,9 @@ class GBDT:
         self._valid_scores: List[torch.Tensor] = []
         self.binner = None
         self._last_mask = None
+        self._nobag = None
+        # trees dropped in each DART iteration (DART fills it)
+        self.drops: List[int] = []
         self.device = torch.device("cpu")
         # per-tree round-driver stats of both growers (grower, rounds,
         # host_syncs, async_resolves, captures, replays, dispatches, retries,
@@ -146,9 +212,10 @@ class GBDT:
         """Host trees; converts pending device trees first."""
         if self._pending:
             pending, self._pending = self._pending, []
-            for arrays, shrink in pending:
+            for arrays, factors in pending:
                 tree = tree_from_device(arrays.to_numpy(), self.binner)
-                tree.apply_shrinkage(shrink)
+                for f in factors:
+                    tree.apply_shrinkage(f)
                 self._models.append(tree)
         return self._models
 
@@ -156,6 +223,47 @@ class GBDT:
     def models(self, value) -> None:
         self._pending = []
         self._models = value
+
+    # -- the ensemble's trees on the device, without reading pending trees
+    def _num_trees(self) -> int:
+        return len(self._models) + len(self._pending)
+
+    def _tree_leaf_values(self, i: int) -> torch.Tensor:
+        """Tree i's leaf values as the score adds them back (f32 of the host
+        tree's f64 values), on the device; a pending tree's are its device
+        values times its factors in f64, so no host read."""
+        if i < len(self._models):
+            return torch.as_tensor(np.asarray(self._models[i].leaf_value, np.float32),
+                                   device=self.device)
+        arrays, factors = self._pending[i - len(self._models)]
+        v = arrays.leaf_value.double()
+        for f in factors:
+            v = v * f
+        return v.float()
+
+    def _tree_leaves(self, i: int, ds) -> torch.Tensor:
+        """Tree i's leaf id for each row of the constructed dataset ``ds``,
+        on the device (the JAX package's Dataset.predict_leaf_binned_tree)."""
+        if i < len(self._models):
+            return ds.predict_leaf_binned_tree(self._models[i])
+        arrays = self._pending[i - len(self._models)][0]
+        return predict_leaf_arrays(arrays, ds.bins_device, ds.missing_bin_pf_device)
+
+    def _tree_rows(self, i: int, ds) -> torch.Tensor:
+        """(N,) f32: tree i's value for each row of ``ds``."""
+        return self._tree_leaf_values(i)[self._tree_leaves(i, ds).long()]
+
+    def _scale_tree(self, i: int, factor: float) -> None:
+        """Tree::Shrinkage on tree i, pending or not."""
+        if i < len(self._models):
+            self._models[i].apply_shrinkage(factor)
+        else:
+            self._pending[i - len(self._models)][1].append(factor)
+
+    def _scored_sets(self) -> List[tuple]:
+        """(dataset, score) of the training set and every validation set."""
+        return [(self.train_set, self._score)] + list(zip(self.valid_sets,
+                                                          self._valid_scores))
 
     # ------------------------------------------------------------------
     def reset_training_data(self, train_set) -> None:
@@ -255,33 +363,45 @@ class GBDT:
         if valid_set.init_score is not None:
             score += torch.as_tensor(np.asarray(valid_set.init_score, np.float32)
                                      .reshape(shape), device=self.device)
-        if self.models:
-            raise NotImplementedError(
-                "adding a validation set after training started is not "
-                "ported yet (ROADMAP queue A8)")
+        # a set added after training started: the trees so far, in
+        # training order, on the device
+        for i in range(self._num_trees()):
+            self._add_score(score, self._tree_rows(i, valid_set), i % k)
         self._valid_scores.append(score)
 
     # ------------------------------------------------------------------
+    def _all_rows(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        n = self.train_set.num_data()
+        if self._nobag is None or self._nobag[0].shape[0] != n:
+            self._nobag = (torch.ones(n, dtype=torch.bool, device=self.device),
+                           torch.ones(n, dtype=torch.float32, device=self.device))
+        return self._nobag
+
     def _bagging_mask(self) -> Tuple[torch.Tensor, torch.Tensor]:
         """Row selection for this iteration: (mask bool, weights f32)
-        (reference: BaggingSampleStrategy, bagging.hpp)."""
+        (reference: BaggingSampleStrategy, bagging.hpp, and GOSSStrategy,
+        goss.hpp)."""
         n = self.train_set.num_data()
         cfg = self.cfg
         dev = self.device
+        if cfg.data_sample_strategy == "goss" or cfg.boosting == "goss":
+            return self._goss_mask()
         use_bagging = cfg.bagging_freq > 0 and (
             cfg.bagging_fraction < 1.0
             or cfg.pos_bagging_fraction < 1.0
             or cfg.neg_bagging_fraction < 1.0
         )
         if not use_bagging:
-            if self._last_mask is None:
-                self._last_mask = (torch.ones(n, dtype=torch.bool, device=dev),
-                                   torch.ones(n, dtype=torch.float32, device=dev))
-            return self._last_mask
+            return self._all_rows()
         if self._last_mask is not None and (self.iter_ % cfg.bagging_freq) != 0:
             return self._last_mask  # re-bag every bagging_freq iterations
         rng = np.random.RandomState(cfg.bagging_seed + self.iter_)
-        if cfg.pos_bagging_fraction < 1.0 or cfg.neg_bagging_fraction < 1.0:
+        qb = self.train_set.query_boundaries
+        if cfg.bagging_by_query and qb is not None:
+            # whole queries, so no ranking pair straddles the bag's edge
+            qmask = rng.rand(len(qb) - 1) < cfg.bagging_fraction
+            mask = np.repeat(qmask, np.diff(qb))
+        elif cfg.pos_bagging_fraction < 1.0 or cfg.neg_bagging_fraction < 1.0:
             lbl = np.asarray(self.train_set.label)
             mask = np.zeros(n, dtype=bool)
             pos = lbl > 0
@@ -292,6 +412,24 @@ class GBDT:
         self._last_mask = (torch.as_tensor(mask, device=dev),
                            torch.ones(n, dtype=torch.float32, device=dev))
         return self._last_mask
+
+    def _goss_mask(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """GOSS on this iteration's gradients, after a warm-up of
+        int(1 / learning_rate) iterations on every row (the JAX package's
+        rule)."""
+        cfg = self.cfg
+        if self.iter_ < int(1.0 / max(cfg.learning_rate, 1e-12)):
+            return self._all_rows()
+        u = self._goss_uniforms(self.train_set.num_data())
+        return goss_mask(self._cur_grad, self._cur_hess, u, cfg.top_rate,
+                         cfg.other_rate)
+
+    def _goss_uniforms(self, n: int) -> torch.Tensor:
+        """GOSS's draws: (n,) uniforms from a generator on the training
+        device seeded with bagging_seed + iteration."""
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(self.cfg.bagging_seed + self.iter_)
+        return torch.rand(n, generator=gen, device=self.device)
 
     def _feature_mask(self) -> torch.Tensor:
         """reference: ColSampler::ResetByTree (col_sampler.hpp)."""
@@ -329,27 +467,30 @@ class GBDT:
         """round_stats of the windowed grower's trees."""
         return [s for s in self.round_stats if s["grower"] == "windowed"]
 
-    def _fused_eligible(self, ts) -> bool:
+    def _fused_eligible(self, ts, grad=None) -> bool:
         """The JAX package's gate of its fused training step, as far as this
-        package's envelope has its conditions: the rounds grower, float
-        histograms (quantized training stays eager, as it does there),
-        num_leaves x features <= 100,000, a built-in objective that needs no
-        leaf renewal and keeps no per-iteration host state, at most 8 trees
-        an iteration.  The class trees of an iteration share the captures:
-        their rounds have one static key."""
+        package's envelope has its conditions: gradients from the objective
+        (not given by the caller: custom gradients and random forests run
+        eagerly), the rounds grower, float histograms (quantized training
+        stays eager, as it does there), num_leaves x features <= 100,000, a
+        built-in objective that needs no leaf renewal and keeps no
+        per-iteration host state, at most 8 trees an iteration.  The class
+        trees of an iteration share the captures: their rounds have one
+        static key."""
         obj = self.objective
-        return (bool(self.cfg.fused_training) and not self._use_windowed(ts)
+        return (grad is None and bool(self.cfg.fused_training)
+                and not self._use_windowed(ts)
                 and not self._use_strict()
                 and not self.cfg.use_quantized_grad
                 and self.cfg.num_leaves * ts.num_feature() <= 100_000
                 and obj is not None and not obj.need_renew and obj.is_fusable()
                 and self.num_tree_per_iteration <= 8)
 
-    def _graphs(self, ts) -> Optional[RoundGraphs]:
+    def _graphs(self, ts, grad=None) -> Optional[RoundGraphs]:
         """This training's cache of captured rounds, where the rounds run
         through one: every windowed round under fused_training, the rounds
         grower's where _fused_eligible holds."""
-        if not (self._fused_eligible(ts)
+        if not (self._fused_eligible(ts, grad)
                 or (self.cfg.fused_training and self._use_windowed(ts))):
             return None
         # what sizes the static buffers; a parameter reset that changes it
@@ -361,8 +502,10 @@ class GBDT:
         return self._round_graphs
 
     # ------------------------------------------------------------------
-    def train_one_iter(self) -> bool:
+    def train_one_iter(self, grad=None, hess=None) -> bool:
         """One boosting iteration, K trees (reference: GBDT::TrainOneIter).
+        ``grad``/``hess``: the caller's gradients (a custom objective),
+        shaped as the score ((N,) or (N, K)); else the objective's.
         Returns True when training cannot continue (every tree of the
         iteration is a single leaf), checked every 32 iterations as the
         JAX package does on its rounds path: a finished model only adds
@@ -371,11 +514,21 @@ class GBDT:
         ts = self.train_set
         cfg = self.cfg
         k = self.num_tree_per_iteration
-        g, h = self.objective.get_gradients(self._score, self._label, self._weight)
+        if grad is None:
+            if self.objective is None:
+                raise ValueError("objective=none needs gradients from the caller "
+                                 "(Booster.update(fobj=...))")
+            g, h = self.objective.get_gradients(self._score, self._label, self._weight)
+        else:
+            g = torch.as_tensor(grad, dtype=torch.float32,
+                                device=self.device).reshape(self._score.shape)
+            h = torch.as_tensor(hess, dtype=torch.float32,
+                                device=self.device).reshape(self._score.shape)
+        self._cur_grad, self._cur_hess = g, h
         row_mask, sample_weight = self._bagging_mask()
         feature_mask = self._feature_mask()
         strict = self._use_strict()
-        graphs = None if strict else self._graphs(ts)
+        graphs = None if strict else self._graphs(ts, grad)
         # the strict grower trains float, as in the JAX package
         quant = bool(cfg.use_quantized_grad) and not strict
         num_leaves = []
@@ -414,8 +567,8 @@ class GBDT:
             arrays = self._renew(arrays, leaf_id, c)
             self._guard_accumulate(arrays)
             num_leaves.append(arrays.num_leaves)
-            shrinkage = cfg.learning_rate
-            self._pending.append((arrays, shrinkage))
+            shrinkage = 1.0 if self.average_output else cfg.learning_rate
+            self._pending.append([arrays, [shrinkage]])
             if strict:
                 # the JAX package's strict path scales the host tree in f64
                 delta = (arrays.leaf_value.double() * shrinkage).float()
@@ -445,7 +598,7 @@ class GBDT:
         """Leaf outputs renewed from the residuals where the objective asks
         for it (reference: RenewTreeOutput after the tree is grown)."""
         obj = self.objective
-        if not obj.need_renew:
+        if obj is None or not obj.need_renew:
             return arrays
         score = self._score if self._score.dim() == 1 else self._score[:, c]
         renewed = obj.renew_tree_output(self._label, self._weight, score,
@@ -470,10 +623,31 @@ class GBDT:
                 "NaN/inf (check labels, weights and the objective)")
 
     # ------------------------------------------------------------------
+    def rollback_one_iter(self) -> None:
+        """Drop the last iteration's trees and take their values out of
+        every score (reference: GBDT::RollbackOneIter), on the device."""
+        if self.iter_ <= 0:
+            return
+        k = self.num_tree_per_iteration
+        for c in reversed(range(k)):
+            i = self._num_trees() - 1
+            for ds, score in self._scored_sets():
+                self._add_score(score, -self._tree_rows(i, ds), c)
+            if self._pending:
+                self._pending.pop()
+            else:
+                self._models.pop()
+        self.iter_ -= 1
+
+    # ------------------------------------------------------------------
     def _converted(self, score: torch.Tensor) -> np.ndarray:
         if self.objective is not None:
             score = self.objective.convert_output(score)
         return score.cpu().numpy()
+
+    def _eval_margin(self, score: torch.Tensor) -> torch.Tensor:
+        """The margin the metrics read (RF averages it)."""
+        return score
 
     def eval_at(self, data_idx: int) -> List[Tuple[str, str, float, bool]]:
         """data_idx 0 = training, 1.. = valid sets (reference:
@@ -486,7 +660,7 @@ class GBDT:
             name = self.valid_names[data_idx - 1]
         if self._guard_bad_iter is not None:  # eval reads the device anyway
             self._raise_if_nonfinite(int(_san.sync_pull(self._guard_bad_iter)))
-        pred = self._converted(score)
+        pred = self._converted(self._eval_margin(score))
         label = np.asarray(ds.label)
         out = []
         for m in self.metrics:
@@ -496,7 +670,11 @@ class GBDT:
 
     # ------------------------------------------------------------------
     def _stacked(self, trees: List[Tree], device) -> Dict[str, torch.Tensor]:
-        """Stacked structure-of-arrays ensemble for the traversal."""
+        """Stacked structure-of-arrays ensemble for the traversal, with the
+        depth of its deepest tree (the traversal's step count)."""
+        if any(t.num_cat > 0 or t.is_linear for t in trees):
+            raise NotImplementedError("categorical / linear trees are not "
+                                      "ported yet (ROADMAP queue A11)")
         max_l = max(max(t.num_leaves for t in trees), 2)
         m = max_l - 1
 
@@ -518,49 +696,214 @@ class GBDT:
             num_leaves=torch.as_tensor([t.num_leaves for t in trees],
                                        dtype=torch.int32, device=device),
             leaf_value=pad(lambda t: t.leaf_value, np.float32, max_l),
+            depth=max(tree_depth(t) for t in trees),
         )
+
+    def _row_chunks(self, X: np.ndarray, n_trees: int):
+        """X as f32 on the device, cut in row chunks: the traversal holds a
+        few (trees, rows) int64 planes, each kept near 2^25 elements."""
+        x = torch.as_tensor(np.asarray(X, np.float32), device=self.device)
+        step = max(1, 2 ** 25 // max(n_trees, 1))
+        return [x[i:i + step] for i in range(0, max(x.shape[0], 1), step)]
 
     def predict_raw(self, X: np.ndarray, start_iteration: int = 0,
                     num_iteration: int = -1) -> torch.Tensor:
         """Raw margins, (N,) or (N, K) f32 on the device, from the export
         trees (init score folded into each class's first tree, as in a
         saved model), so an in-memory model and its text round-trip predict
-        identically."""
+        identically.  A random forest's are the trees' sum (``predict``
+        averages it)."""
         trees = self._trees_for_export(start_iteration, num_iteration)
-        if any(t.num_cat > 0 or t.is_linear for t in trees):
-            raise NotImplementedError("categorical / linear trees are not "
-                                      "ported yet (ROADMAP queue A11)")
         dev = self.device
         k = self.num_tree_per_iteration
-        x = torch.as_tensor(np.asarray(X, np.float32), device=dev)
         if not trees:
             base = torch.as_tensor(np.asarray(self.init_scores, np.float32),
                                    device=dev)
-            out = base.expand(x.shape[0], k).clone()
+            out = base.expand(np.asarray(X).shape[0], k).clone()
             return out[:, 0] if k == 1 else out
         s = self._stacked(trees, dev)
-        # the traversal holds a few (trees, rows) int64 planes: cut the rows
-        # so each plane stays near 2^25 elements (256 MiB)
-        step = max(1, 2 ** 25 // len(trees))
         if k == 1:
             fn = predict_ops.predict_raw_values
         else:
             def fn(xs, **kw):
                 return predict_ops.predict_raw_multiclass(xs, **kw, k=k)
-        return torch.cat([fn(x[i:i + step], **s)
-                          for i in range(0, max(x.shape[0], 1), step)])
+        return torch.cat([fn(xs, **s) for xs in self._row_chunks(X, len(trees))])
+
+    def _average_scale(self, start_iteration: int, num_iteration: int) -> float:
+        """A random forest's 1 / (its trees a class), else 1."""
+        if not self.average_output:
+            return 1.0
+        n = len(self._trees_for_export(start_iteration, num_iteration))
+        return 1.0 / max(n // self.num_tree_per_iteration, 1)
+
+    def _early_stop_on(self, settings: Optional[dict]) -> bool:
+        on = (settings or {}).get("pred_early_stop", self.cfg.pred_early_stop)
+        return (bool(on) and not self.average_output and self.objective is not None
+                and self.objective.name in ("binary", "multiclass", "multiclassova"))
 
     def predict(self, X, raw_score: bool = False, start_iteration: int = 0,
-                num_iteration: int = -1) -> np.ndarray:
+                num_iteration: int = -1, pred_leaf: bool = False,
+                pred_contrib: bool = False,
+                early_stop: Optional[dict] = None) -> np.ndarray:
+        """The JAX package's GBDT.predict.  ``early_stop``: pred_early_stop,
+        pred_early_stop_freq and pred_early_stop_margin for this call,
+        over the configuration's."""
+        X = np.asarray(X, dtype=np.float64)
+        if pred_leaf:
+            return self._predict_leaf(X, start_iteration, num_iteration)
+        if pred_contrib:
+            return self.predict_contrib(X, start_iteration, num_iteration)
+        if self._early_stop_on(early_stop):
+            raw = self._predict_raw_early_stop(X, start_iteration, num_iteration,
+                                               early_stop)
+            if raw_score:
+                return raw
+            return self._converted(torch.as_tensor(raw.astype(np.float32),
+                                                   device=self.device))
         raw = self.predict_raw(X, start_iteration, num_iteration)
-        if raw_score or self.objective is None:
+        if self.average_output:
+            # the JAX package scales the tree sum on the host in f64
+            raw64 = (raw.cpu().numpy().astype(np.float64)
+                     * self._average_scale(start_iteration, num_iteration))
+            if raw_score or self.objective is None:
+                return raw64
+            raw = torch.as_tensor(raw64.astype(np.float32), device=self.device)
+        elif raw_score or self.objective is None:
             return raw.cpu().numpy().astype(np.float64)
         return self.objective.convert_output(raw).cpu().numpy()
 
-    def feature_importance(self, importance_type: str = "split") -> np.ndarray:
-        """reference: GBDT::FeatureImportance."""
+    def _predict_leaf(self, X: np.ndarray, start_iteration: int = 0,
+                      num_iteration: int = -1) -> np.ndarray:
+        """pred_leaf: (N, T) i32 leaf ids from the value path's traversal."""
+        trees = self._trees_for_export(start_iteration, num_iteration)
+        if not trees:
+            return np.zeros((X.shape[0], 0), dtype=np.int32)
+        s = self._stacked(trees, self.device)
+        del s["leaf_value"]
+        out = torch.cat([predict_ops.predict_leaf_values(xs, **s)
+                         for xs in self._row_chunks(X, len(trees))])
+        return _san.sync_pull(out)
+
+    def _predict_raw_early_stop(self, X: np.ndarray, start_iteration: int = 0,
+                                num_iteration: int = -1,
+                                settings: Optional[dict] = None) -> np.ndarray:
+        """Prediction early stopping (reference: prediction_early_stop.h):
+        every pred_early_stop_freq iterations, rows whose margin (|raw| for
+        binary, top1 - top2 for multiclass) is past pred_early_stop_margin
+        stop taking trees.  Each chunk is one window of trees on the device
+        over every row (the stopped ones masked) and one blocking read of
+        the margins, which the stop test needs on the host; a row that runs
+        every chunk ends at the full prediction, bitwise.  The counts of the
+        last call are in ``early_stop_stats``."""
+        settings = settings or {}
+        cfg = self.cfg
+        k = self.num_tree_per_iteration
+        total = self._num_trees() // k
+        if num_iteration is not None and num_iteration >= 0:
+            total = min(total, start_iteration + num_iteration)
+        freq = max(int(settings.get("pred_early_stop_freq", cfg.pred_early_stop_freq)), 1)
+        margin = float(settings.get("pred_early_stop_margin", cfg.pred_early_stop_margin))
+        n = X.shape[0]
+        n_iters = total - start_iteration
+        self.early_stop_stats = dict(chunks=0, reads=0, stopped=0)
+        if n_iters <= 0:
+            return self.predict_raw(X, start_iteration, 0).cpu().numpy().astype(np.float64)
+        freq = min(freq, n_iters)
+        window = freq * k
+        trees = self._trees_for_export(start_iteration, n_iters)
+        trees += [_dummy_tree()] * (-len(trees) % window)
+        s = self._stacked(trees, self.device)
+        x = torch.as_tensor(np.asarray(X, np.float32), device=self.device)
+        shape = (n,) if k == 1 else (n, k)
+        raw_dev = torch.zeros(shape, dtype=torch.float32, device=self.device)
+        active = np.ones(n, dtype=bool)
+        raw = np.zeros(shape, dtype=np.float64)
+        for ci in range(len(trees) // window):
+            raw_dev = predict_ops.predict_raw_window(
+                x, ci * window, **s, k=k, window=window, base=raw_dev,
+                active=torch.as_tensor(active, device=self.device))
+            # the stop test is a host dependency: one blocking read a chunk
+            raw = _san.sync_pull(raw_dev).astype(np.float64)
+            self.early_stop_stats["chunks"] += 1
+            self.early_stop_stats["reads"] += 1
+            active &= self._early_stop_active(raw, margin)
+            if not active.any():
+                break
+        self.early_stop_stats["stopped"] = int(n - active.sum())
+        return raw
+
+    @staticmethod
+    def _early_stop_active(raw: np.ndarray, margin: float) -> np.ndarray:
+        """Rows whose margin has not yet cleared pred_early_stop_margin."""
+        if raw.ndim == 1:
+            m = np.abs(raw)
+        else:
+            top2 = np.partition(raw, -2, axis=1)[:, -2:]
+            m = top2[:, 1] - top2[:, 0]
+        return m < margin
+
+    def predict_contrib(self, X, start_iteration: int = 0,
+                        num_iteration: int = -1) -> np.ndarray:
+        """SHAP values by the per-tree path algorithm over the export trees
+        (reference: Tree::PredictContrib), on the host: (N, (F + 1) * K)."""
+        if any(t.is_linear for t in self.models):
+            raise ValueError("predict_contrib is not supported for linear trees")
+        from .shap import tree_shap_ensemble
+
+        trees = self._trees_for_export(start_iteration, num_iteration)
+        return tree_shap_ensemble(trees, np.asarray(X, np.float64),
+                                  self.num_tree_per_iteration)
+
+    def to_if_else(self) -> str:
+        """Standalone C++ predictor source (reference: task=convert_model,
+        GBDT::SaveModelToIfElse): float64 code, equal to the host f64 tree
+        walk of the export trees."""
+        trees = self._trees_for_export(0, -1)
+        k = self.num_tree_per_iteration
+        parts = ["// Generated by lightgbm_tpu task=convert_model", "#include <cmath>", ""]
+        for i, t in enumerate(trees):
+            parts.append(tree_to_if_else(t, i))
+            parts.append("")
+        n_per_class = max(len(trees) // k, 1) if trees else 1
+        scale = (1.0 / n_per_class) if self.average_output else 1.0
+        calls = " + ".join(f"PredictTree{i}(x)" for i in range(len(trees))) or "0.0"
+        if k == 1:
+            parts.append("extern \"C\" double PredictRaw(const double* x) {")
+            parts.append(f"  return ({calls}) * {scale:.17g};")
+            parts.append("}")
+            parts.append("extern \"C\" double Predict(const double* x) {")
+            if self._objective_string().startswith("binary"):
+                parts.append("  return 1.0 / (1.0 + std::exp(-PredictRaw(x)));")
+            else:
+                parts.append("  return PredictRaw(x);")
+            parts.append("}")
+        else:
+            parts.append(f"static const int kNumClass = {k};")
+            parts.append("extern \"C\" void PredictRaw(const double* x, double* out) {")
+            for c in range(k):
+                terms = " + ".join(
+                    f"PredictTree{i}(x)" for i in range(c, len(trees), k)) or "0.0"
+                parts.append(f"  out[{c}] = ({terms}) * {scale:.17g};")
+            parts.append("}")
+            parts.append("extern \"C\" void Predict(const double* x, double* out) {")
+            parts.append("  PredictRaw(x, out);")
+            parts.append("  double m = out[0]; for (int c = 1; c < kNumClass; ++c) "
+                         "if (out[c] > m) m = out[c];")
+            parts.append("  double s = 0.0; for (int c = 0; c < kNumClass; ++c) "
+                         "{ out[c] = std::exp(out[c] - m); s += out[c]; }")
+            parts.append("  for (int c = 0; c < kNumClass; ++c) out[c] /= s;")
+            parts.append("}")
+        return "\n".join(parts) + "\n"
+
+    def feature_importance(self, importance_type: str = "split",
+                           iteration: Optional[int] = None) -> np.ndarray:
+        """reference: GBDT::FeatureImportance, over the first ``iteration``
+        iterations (every iteration when None or <= 0)."""
         imp = np.zeros(len(self.feature_names), dtype=np.float64)
-        for t in self.models:
+        trees = self.models
+        if iteration is not None and iteration > 0:
+            trees = trees[: iteration * self.num_tree_per_iteration]
+        for t in trees:
             for i in range(t.num_internal):
                 if importance_type == "split":
                     imp[t.split_feature[i]] += 1.0
@@ -585,7 +928,8 @@ class GBDT:
     def _trees_for_export(self, start: int, num_iteration: int) -> List[Tree]:
         """The trees of iterations [start, start + num_iteration), with each
         class's init score folded into its first tree (reference:
-        Tree::AddBias), so the saved model is self-contained."""
+        Tree::AddBias), so the saved model is self-contained; a random
+        forest folds it into every tree, so the trees' mean carries it."""
         k = self.num_tree_per_iteration
         lo = start * k
         hi = (len(self.models) if num_iteration < 0
@@ -593,10 +937,11 @@ class GBDT:
         trees = list(self.models[lo:hi])
         if lo != 0 or not any(s != 0.0 for s in self.init_scores):
             return trees
-        for i in range(min(k, len(trees))):
+        for i in (range(len(trees)) if self.average_output
+                  else range(min(k, len(trees)))):
             t = copy.deepcopy(trees[i])
-            t.leaf_value = t.leaf_value + self.init_scores[i]
-            t.internal_value = t.internal_value + self.init_scores[i]
+            t.leaf_value = t.leaf_value + self.init_scores[i % k]
+            t.internal_value = t.internal_value + self.init_scores[i % k]
             trees[i] = t
         return trees
 
@@ -628,6 +973,7 @@ class GBDT:
             "label_index=0",
             f"max_feature_idx={len(feature_names) - 1}",
             f"objective={self._objective_string()}",
+            *(["average_output"] if self.average_output else []),
             "feature_names=" + " ".join(feature_names),
             "feature_infos=" + " ".join(infos),
             "tree_sizes=" + " ".join(str(len(b) + 1) for b in blocks),
@@ -670,10 +1016,9 @@ class GBDT:
                 params["reg_sqrt"] = True
         if int(kv.get("num_class", 1)) > 1:
             params["num_class"] = int(kv["num_class"])
-        if any(line.strip() == "average_output" for line in header.splitlines()):
-            raise NotImplementedError("random-forest models are not ported "
-                                      "yet (ROADMAP queue A8)")
         booster = cls(Config.from_dict(params))
+        booster.average_output = any(line.strip() == "average_output"
+                                     for line in header.splitlines())
         booster.device = resolve_device(booster.cfg)
         booster.feature_names = kv.get("feature_names", "").split()
         k = booster.num_tree_per_iteration = int(kv.get("num_tree_per_iteration", 1))
@@ -688,6 +1033,115 @@ class GBDT:
                     Tree.from_string(b if b.startswith("Tree=") else "Tree=" + b))
         booster.iter_ = len(booster.models) // max(k, 1)
         return booster
+
+
+class DART(GBDT):
+    """Dropout boosting (reference: src/boosting/dart.hpp; the JAX
+    package's DART).  The drop draw is numpy's RandomState(drop_seed +
+    iteration), so the dropped trees are the JAX package's.  Dropped trees
+    leave every score before the iteration's gradients and come back
+    rescaled after its trees, all on the device: a pending tree is rescaled
+    by appending to its factors (``_scale_tree``), which export, predict
+    and later drops read.  Unlike the JAX package, the validation scores
+    follow the drops and rescales too, as LightGBM's DART::Normalize
+    updates them, so they stay equal to the ensemble's prediction."""
+
+    def train_one_iter(self, grad=None, hess=None) -> bool:
+        cfg = self.cfg
+        k = self.num_tree_per_iteration
+        n_done = self.iter_
+        rng = np.random.RandomState(cfg.drop_seed + n_done)
+        drop: List[int] = []
+        if n_done > 0 and rng.rand() >= cfg.skip_drop:
+            if cfg.uniform_drop:
+                drop = list(np.nonzero(rng.rand(n_done) < cfg.drop_rate)[0])
+            else:
+                want = max(int(round(n_done * cfg.drop_rate)), 1)
+                drop = list(rng.choice(n_done, size=min(want, n_done), replace=False))
+            drop = drop[: cfg.max_drop] if cfg.max_drop > 0 else drop
+        self.drops.append(len(drop))
+        sets = self._scored_sets()
+        leaves = {}
+        for it in drop:
+            for c in range(k):
+                i = int(it) * k + c
+                vals = self._tree_leaf_values(i)
+                for si, (ds, score) in enumerate(sets):
+                    leaves[i, si] = self._tree_leaves(i, ds).long()
+                    self._add_score(score, -vals[leaves[i, si]], c)
+        finished = super().train_one_iter(grad, hess)
+        if drop:
+            n_drop = len(drop)
+            if cfg.xgboost_dart_mode:
+                new_scale = cfg.learning_rate / (n_drop + cfg.learning_rate)
+                old_scale = n_drop / (n_drop + cfg.learning_rate)
+            else:
+                new_scale = 1.0 / (n_drop + 1.0)
+                old_scale = n_drop / (n_drop + 1.0)
+            new = [self._num_trees() - k + c for c in range(k)]
+            for i in new:
+                self._scale_tree(i, new_scale)
+            for it in drop:
+                for c in range(k):
+                    self._scale_tree(int(it) * k + c, old_scale)
+            for it in drop:
+                for c in range(k):
+                    i = int(it) * k + c
+                    vals = self._tree_leaf_values(i)
+                    for si, (_ds, score) in enumerate(sets):
+                        self._add_score(score, vals[leaves[i, si]], c)
+            # the scores hold the new trees unscaled: take the difference out
+            corr = np.float32(1.0 / new_scale - 1.0)
+            for c, i in enumerate(new):
+                vals = self._tree_leaf_values(i)
+                for ds, score in sets:
+                    self._add_score(score, -(vals[self._tree_leaves(i, ds).long()] * corr), c)
+        return finished
+
+
+class RF(GBDT):
+    """Random forest (reference: src/boosting/rf.hpp; the JAX package's
+    RF): bagged trees on the gradients at the init score, shrinkage 1,
+    predictions the trees' mean."""
+
+    average_output = True
+
+    def __init__(self, cfg: Config, train_set=None):
+        if cfg.bagging_freq <= 0 or cfg.bagging_fraction >= 1.0:
+            raise ValueError("Random forest needs bagging (bagging_freq > 0 and "
+                             "bagging_fraction < 1)")
+        super().__init__(cfg, train_set)
+
+    def train_one_iter(self, grad=None, hess=None) -> bool:
+        if grad is None and self.objective is not None:
+            init = torch.as_tensor(np.asarray(self.init_scores, np.float32),
+                                   device=self.device)
+            base = torch.zeros_like(self._score) + (init[0] if self._score.dim() == 1
+                                                    else init[None, :])
+            grad, hess = self.objective.get_gradients(base, self._label, self._weight)
+        return super().train_one_iter(grad, hess)
+
+    def _eval_margin(self, score: torch.Tensor) -> torch.Tensor:
+        # the score holds init + the sum of the trees; the metrics read
+        # init + their mean
+        init = torch.as_tensor(np.asarray(self.init_scores, np.float32),
+                               device=self.device)
+        init = init[0] if score.dim() == 1 else init[None, :]
+        return init + (score - init) / max(self.iter_, 1)
+
+
+def create_boosting(cfg: Config, train_set=None) -> GBDT:
+    """reference: Boosting::CreateBoosting (src/boosting/boosting.cpp)."""
+    name = cfg.boosting
+    if name in ("gbdt", "gbrt", "goss"):
+        if name == "goss":
+            cfg.data_sample_strategy = "goss"
+        return GBDT(cfg, train_set)
+    if name == "dart":
+        return DART(cfg, train_set)
+    if name in ("rf", "random_forest"):
+        return RF(cfg, train_set)
+    raise ValueError(f"Unknown boosting type: {name}")
 
 
 def _pre_filter(bins: np.ndarray, binner, md: int) -> np.ndarray:

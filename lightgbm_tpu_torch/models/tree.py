@@ -1,9 +1,9 @@
 """Host-side tree model: trimmed arrays + LightGBM text-format serialization.
 
 Copy of lightgbm_tpu/models/tree.py (numpy only): the text format is shared,
-so a model written by either package loads in the other.  The C++ export
-(tree_to_if_else) is left out; tree_from_device takes this package's
-TreeArrays moved to numpy (models/gbdt.py does the move).
+so a model written by either package loads in the other, and
+tree_to_if_else emits the same C++ source.  tree_from_device takes this
+package's TreeArrays moved to numpy (models/gbdt.py does the move).
 
 Reference: src/io/tree.cpp / include/LightGBM/tree.h (Tree::ToString,
 Tree::Split recording real-valued thresholds from bin uppers) and
@@ -491,3 +491,80 @@ def _linear_fields(linear, num_leaves: int) -> dict:
             coef[l, : int(nfeat[l])].astype(np.float64) for l in range(num_leaves)
         ],
     )
+
+
+def tree_to_if_else(tree: "Tree", idx: int) -> str:
+    """Emit a standalone C++ predict function for one tree
+    (reference: Tree::ToIfElse in src/io/tree.cpp, task=convert_model)."""
+    lines = [f"double PredictTree{idx}(const double* x) {{"]
+    is_cat = tree.is_categorical_node()
+    dl = tree.default_left()
+    mt = (tree.decision_type.astype(np.int32) >> _MISSING_TYPE_SHIFT) & 3
+
+    def emit(node: int, indent: int) -> None:
+        pad = "  " * indent
+        if node < 0:
+            l = -node - 1
+            if tree.is_linear and tree.leaf_const is not None:
+                feats = list(np.asarray(tree.leaf_features[l], np.int64))
+                if feats:
+                    nan_chk = " || ".join(f"std::isnan(x[{fi}])" for fi in feats)
+                    terms = " + ".join(
+                        f"{float(c):.17g} * x[{fi}]"
+                        for fi, c in zip(feats, np.asarray(tree.leaf_coeff[l]))
+                    )
+                    lines.append(
+                        f"{pad}return ({nan_chk}) ? {tree.leaf_value[l]:.17g} : "
+                        f"({tree.leaf_const[l]:.17g} + {terms});"
+                    )
+                    return
+                lines.append(f"{pad}return {tree.leaf_value[l]:.17g};")
+                return
+            lines.append(f"{pad}return {tree.leaf_value[-node - 1]:.17g};")
+            return
+        f = int(tree.split_feature[node])
+        if is_cat[node]:
+            cat_idx = int(tree.threshold[node])
+            lo = int(tree.cat_boundaries[cat_idx])
+            hi = int(tree.cat_boundaries[cat_idx + 1])
+            vals = []
+            for w in range(lo, hi):
+                word = int(tree.cat_threshold[w])
+                for bit in range(32):
+                    if (word >> bit) & 1:
+                        vals.append((w - lo) * 32 + bit)
+            conds = " || ".join(f"iv == {v}" for v in vals) or "false"
+            lines.append(f"{pad}{{ const int iv = std::isnan(x[{f}]) ? -1 : (int)x[{f}];")
+            lines.append(f"{pad}if ({conds}) {{")
+            emit(int(tree.left_child[node]), indent + 1)
+            lines.append(f"{pad}}} else {{")
+            emit(int(tree.right_child[node]), indent + 1)
+            lines.append(f"{pad}}} }}")
+            return
+        thr = float(tree.threshold[node])
+        m = int(mt[node])
+        v = f"x[{f}]"
+        if m == 2:  # NaN routes to default
+            cond_default = f"std::isnan({v})"
+        elif m == 1:  # Zero (and NaN) route to default
+            cond_default = f"(std::isnan({v}) || std::fabs({v}) <= 1e-35)"
+        else:
+            cond_default = None
+        base = f"(std::isnan({v}) ? 0.0 : {v}) <= {thr:.17g}"
+        if cond_default is not None:
+            goes_left = f"({cond_default}) ? {str(bool(dl[node])).lower()} : ({base})"
+        else:
+            goes_left = base
+        lines.append(f"{pad}if ({goes_left}) {{")
+        emit(int(tree.left_child[node]), indent + 1)
+        lines.append(f"{pad}}} else {{")
+        emit(int(tree.right_child[node]), indent + 1)
+        lines.append(f"{pad}}}")
+
+    if tree.num_leaves <= 1:
+        val = float(tree.leaf_value[0]) if len(np.atleast_1d(tree.leaf_value)) else 0.0
+        lines.append(f"  return {val:.17g};")
+    else:
+        emit(0, 1)
+    lines.append("}")
+    return "\n".join(lines)

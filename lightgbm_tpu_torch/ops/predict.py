@@ -1,20 +1,28 @@
-"""Tree-ensemble prediction on raw feature values.
+"""Tree-ensemble prediction on raw feature values, and leaf ids on bins.
 
-Counterpart of lightgbm_tpu/ops/predict.py::predict_raw_values and
-predict_raw_multiclass.  All rows of all trees advance one level per step through the
+Counterpart of lightgbm_tpu/ops/predict.py: predict_raw_values,
+predict_raw_multiclass, predict_raw_window (the early-stop chunks),
+predict_leaf_values (pred_leaf) and predict_leaf_binned (a host tree on a
+dataset's device bins, the JAX package's Dataset.predict_leaf_binned_tree
+traversal).  All rows of all trees advance one level per step through the
 stacked structure-of-arrays trees; decisions are made in f32 against
 thresholds rounded up to f32 (models/gbdt.py::_f32_threshold_upper), as in
-the JAX package, and the per-tree values are summed in tree order.
+the JAX package, and the per-tree values are summed in tree order.  A walk
+takes as many steps as its deepest tree (``depth``, counted on the host
+from the trees' children), or num_leaves - 1 when it is not given.
+Nothing here reads the device back.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
 _K_ZERO = 1e-35  # reference: kZeroThreshold
 
 
-def _per_tree_values(
+def _leaf_index(
     x: torch.Tensor,  # (N, F) raw features (NaN = missing)
     split_feature: torch.Tensor,  # (T, M) i32
     threshold: torch.Tensor,  # (T, M) f32 — `value <= threshold` -> left
@@ -23,9 +31,9 @@ def _per_tree_values(
     left_child: torch.Tensor,  # (T, M) i32, negative = ~leaf
     right_child: torch.Tensor,  # (T, M) i32
     num_leaves: torch.Tensor,  # (T,) i32
-    leaf_value: torch.Tensor,  # (T, L) f32
+    depth: Optional[int] = None,
 ) -> torch.Tensor:
-    """(T, N) f32: each tree's leaf value for each row (reference:
+    """(T, N) i64: each tree's leaf index for each row (reference:
     Tree::NumericalDecision semantics per node missing type: NaN ->
     default; Zero: NaN or |v| <= kZero -> default; None: NaN treated as
     0.0)."""
@@ -39,7 +47,8 @@ def _per_tree_values(
     # single-leaf trees start at a leaf (~0)
     node = torch.where(num_leaves > 1, 0, -1).long()[:, None].expand(t, n)
     sf, lc, rc = split_feature.long(), left_child.long(), right_child.long()
-    for _ in range(max(m, 1)):
+    steps = max(m, 1) if depth is None else max(min(depth, m), 1)
+    for _ in range(steps):
         nd = node.clamp_min(0)
         f = sf[tt, nd]  # (T, N)
         v = vals[rows, f]
@@ -52,13 +61,25 @@ def _per_tree_values(
                               v <= threshold[tt, nd])
         node = torch.where(node >= 0,
                            torch.where(go_left, lc[tt, nd], rc[tt, nd]), node)
-    return leaf_value[tt, -node - 1]
+    return -node - 1
 
 
-def _tree_sum(per_tree: torch.Tensor) -> torch.Tensor:
-    """Sum over the leading (tree) axis, one tree after another."""
-    out = torch.zeros(per_tree.shape[1:], dtype=torch.float32,
-                      device=per_tree.device)
+def _per_tree_values(x, split_feature, threshold, default_left, missing_type,
+                     left_child, right_child, num_leaves, leaf_value,
+                     depth=None) -> torch.Tensor:
+    """(T, N) f32: each tree's leaf value for each row."""
+    leaf = _leaf_index(x, split_feature, threshold, default_left, missing_type,
+                       left_child, right_child, num_leaves, depth)
+    tt = torch.arange(leaf.shape[0], device=x.device)[:, None]
+    return leaf_value[tt, leaf]
+
+
+def _tree_sum(per_tree: torch.Tensor,
+              base: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Sum over the leading (tree) axis, one tree after another, onto
+    ``base`` (zeros when not given)."""
+    out = (torch.zeros(per_tree.shape[1:], dtype=torch.float32,
+                       device=per_tree.device) if base is None else base)
     for i in range(per_tree.shape[0]):
         out = out + per_tree[i]
     return out
@@ -66,22 +87,75 @@ def _tree_sum(per_tree: torch.Tensor) -> torch.Tensor:
 
 def predict_raw_values(x, split_feature, threshold, default_left,
                        missing_type, left_child, right_child, num_leaves,
-                       leaf_value) -> torch.Tensor:
+                       leaf_value, depth=None) -> torch.Tensor:
     """Raw ensemble margin per row: (N,) f32, the sum over trees of the
     leaf values, in tree order."""
     return _tree_sum(_per_tree_values(
         x, split_feature, threshold, default_left, missing_type, left_child,
-        right_child, num_leaves, leaf_value))
+        right_child, num_leaves, leaf_value, depth))
 
 
 def predict_raw_multiclass(x, split_feature, threshold, default_left,
                            missing_type, left_child, right_child, num_leaves,
-                           leaf_value, *, k: int) -> torch.Tensor:
+                           leaf_value, depth=None, *, k: int) -> torch.Tensor:
     """Multiclass raw margins, (N, k) f32.  Tree i belongs to class i % k
     (iteration-major, class-minor), and each class sums its own trees in
     iteration order, the JAX package's per-row order."""
     per_tree = _per_tree_values(
         x, split_feature, threshold, default_left, missing_type, left_child,
-        right_child, num_leaves, leaf_value)  # (T, N)
+        right_child, num_leaves, leaf_value, depth)  # (T, N)
     t, n = per_tree.shape
     return _tree_sum(per_tree.reshape(t // k, k, n)).T
+
+
+def predict_raw_window(x, tree_lo: int, split_feature, threshold, default_left,
+                       missing_type, left_child, right_child, num_leaves,
+                       leaf_value, depth=None, *, k: int, window: int,
+                       base: torch.Tensor, active: torch.Tensor) -> torch.Tensor:
+    """The margins after ``window`` more trees, starting at tree
+    ``tree_lo``: ``base`` ((N,) or (N, k) f32, the margins so far) plus the
+    window's trees, added one after another in the full prediction's order,
+    so a row that runs every window ends bitwise at predict_raw_values /
+    predict_raw_multiclass.  Rows where ``active`` (N,) is false keep
+    ``base`` (prediction early stopping)."""
+    sl = slice(tree_lo, tree_lo + window)
+    per_tree = _per_tree_values(
+        x, split_feature[sl], threshold[sl], default_left[sl], missing_type[sl],
+        left_child[sl], right_child[sl], num_leaves[sl], leaf_value[sl], depth)
+    n = per_tree.shape[1]
+    if k == 1:
+        return torch.where(active, _tree_sum(per_tree, base), base)
+    out = _tree_sum(per_tree.reshape(window // k, k, n), base.T).T
+    return torch.where(active[:, None], out, base)
+
+
+def predict_leaf_values(x, split_feature, threshold, default_left,
+                        missing_type, left_child, right_child, num_leaves,
+                        depth=None) -> torch.Tensor:
+    """Leaf index per (row, tree) on raw values: (N, T) i32, the traversal
+    of the value path (reference: the Predictor's leaf-index mode)."""
+    return _leaf_index(x, split_feature, threshold, default_left, missing_type,
+                       left_child, right_child, num_leaves, depth).T.to(torch.int32)
+
+
+def predict_leaf_binned(bins: torch.Tensor,  # (N, F) int
+                        missing_bin_per_feature: torch.Tensor,  # (F,) i32
+                        split_feature: torch.Tensor,  # (M,) i64
+                        threshold_bin: torch.Tensor,  # (M,) i32
+                        default_left: torch.Tensor,  # (M,) bool
+                        left_child: torch.Tensor,  # (M,) i64
+                        right_child: torch.Tensor,  # (M,) i64
+                        depth: int) -> torch.Tensor:
+    """Leaf index per row of one tree (M >= 1 internal nodes, ``depth``
+    levels) on binned rows: (N,) i32.  In bin space the missing bin is
+    exact, so every node sends it to its default side."""
+    node = torch.zeros(bins.shape[0], dtype=torch.int64, device=bins.device)
+    for _ in range(max(depth, 1)):
+        nd = node.clamp_min(0)
+        f = split_feature[nd]
+        col = bins.gather(1, f[:, None])[:, 0].to(torch.int32)
+        miss = col == missing_bin_per_feature[f]
+        go_left = torch.where(miss, default_left[nd], col <= threshold_bin[nd])
+        node = torch.where(node >= 0,
+                           torch.where(go_left, left_child[nd], right_child[nd]), node)
+    return (-node - 1).to(torch.int32)

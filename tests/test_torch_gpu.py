@@ -735,3 +735,89 @@ def test_multiclass_graph_and_eager_give_the_same_model():
     assert all(s["replays"] == s["rounds"] == s["dispatches"] for s in g_stats)
     assert sum(s["captures"] for s in g_stats) == 1 == g_stats[0]["captures"]
     assert all(s["replays"] == s["captures"] == 0 for s in e_stats)
+
+
+def _sync_error(fn):
+    """fn run under torch's sync debug mode set to raise."""
+    def run(*a, **k):
+        prev = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return fn(*a, **k)
+        finally:
+            torch.cuda.set_sync_debug_mode(prev)
+    return run
+
+
+def test_goss_mask_reads_nothing_and_graph_equals_eager(monkeypatch):
+    """GOSS on the card: the mask and weights (gradients' scores, the
+    threshold, the draws) run under the sync debug mode set to raise, every
+    tree makes no blocking read, and graph and eager training (the mask
+    entering the static buffers) give the same model."""
+    from lightgbm_tpu_torch.models.gbdt import GBDT
+
+    _card()
+    monkeypatch.setattr(GBDT, "_goss_mask", _sync_error(GBDT._goss_mask))
+    rng = np.random.RandomState(5)
+    X = rng.randn(40_000, 10)
+    y = (X[:, 0] + X[:, 1] ** 2 + rng.randn(40_000) > 1).astype(float)
+    p = {"objective": "binary", "num_leaves": 15, "verbosity": -1,
+         "data_sample_strategy": "goss", "learning_rate": 0.25}
+    (gb, g_stats, _), (eb, e_stats, _) = _train_modes(p, X, y, 8)
+    assert gb.model_to_string() == eb.model_to_string()
+    assert all(s["host_syncs"] == 0 for s in g_stats + e_stats)
+    assert all(s["replays"] == s["rounds"] for s in g_stats)
+    mask, w = gb._gbdt._bagging_mask()
+    assert 0 < int(mask.sum()) < len(y) and float(w.max()) > 1.0
+
+
+def test_dart_graph_equals_eager_and_counts_its_reads():
+    """DART on the card: graph and eager training give the same model, and
+    an iteration's drops and rescales of pending trees make no blocking
+    read."""
+    from lightgbm_tpu_torch.utils import sanitizer as san
+
+    _card()
+    rng = np.random.RandomState(6)
+    X = rng.randn(40_000, 10)
+    y = X[:, 0] + X[:, 1] * X[:, 2] + rng.randn(40_000)
+    p = {"objective": "regression", "num_leaves": 15, "verbosity": -1,
+         "boosting": "dart", "drop_rate": 0.3, "skip_drop": 0.0}
+    (gb, _, _), (eb, _, _) = _train_modes(p, X, y, 8)
+    assert gb.model_to_string() == eb.model_to_string()
+    import lightgbm_tpu_torch as tlgb
+
+    bst = tlgb.Booster(params=p, train_set=tlgb.Dataset(X, label=y, params=p))
+    with san.DispatchCounter() as c:
+        for _ in range(8):
+            bst.update()
+    assert c.host_syncs == 0 and sum(bst._gbdt.drops) > 0
+
+
+def test_pred_leaf_and_early_stop_on_card_match_cpu():
+    """A card-trained model: pred_leaf bitwise the CPU's, and prediction
+    early stopping bitwise the CPU's with one blocking read a chunk."""
+    import lightgbm_tpu_torch as tlgb
+    from lightgbm_tpu_torch.utils import sanitizer as san
+
+    _card()
+    rng = np.random.RandomState(7)
+    X = rng.randn(50_000, 10)
+    X[rng.rand(50_000, 10) < 0.05] = np.nan
+    y = (np.nan_to_num(X[:, 0]) + np.nan_to_num(X[:, 1]) ** 2 > 1).astype(float)
+    p = {"objective": "binary", "num_leaves": 31, "verbosity": -1}
+    card = tlgb.train(p, tlgb.Dataset(X, label=y, params=p), 20)
+    cpu = tlgb.Booster(model_str=card.model_to_string(), params={"device_type": "cpu"})
+    np.testing.assert_array_equal(card.predict(X, pred_leaf=True),
+                                  cpu.predict(X, pred_leaf=True))
+    es = {"pred_early_stop": True, "pred_early_stop_freq": 4,
+          "pred_early_stop_margin": 2.0}
+    with san.DispatchCounter() as c:
+        r_card = card.predict(X, raw_score=True, **es)
+    stats = card._gbdt.early_stop_stats
+    assert c.host_syncs == stats["reads"] == stats["chunks"] >= 2
+    assert 0 < stats["stopped"] < len(X)
+    np.testing.assert_array_equal(r_card, cpu.predict(X, raw_score=True, **es))
+    full = card.predict(X, raw_score=True)
+    running = np.abs(r_card) < 2.0
+    np.testing.assert_array_equal(r_card[running], full[running])

@@ -136,8 +136,8 @@ def test_quantized_training_runs_the_int8_path():
 
 
 @pytest.mark.parametrize("params,match", [
-    ({"data_sample_strategy": "goss"}, "goss"),
-    ({"boosting": "dart"}, "boosting"),
+    ({"monotone_constraints": [1, 0, 0, 0, 0, 0, 0, 0]}, "monotone_constraints"),
+    ({"tree_learner": "voting"}, "tree_learner"),
     ({"tree_growth_mode": "strict", "extra_trees": True}, "extra_trees"),
     ({"tree_learner": "data"}, "tree_learner"),
     ({"linear_tree": True}, "linear_tree"),
