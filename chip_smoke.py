@@ -42,13 +42,17 @@ Imports no JAX.  Phases, one line each; any failure exits non-zero:
               (partition, window pass, subtraction, split search) from a
               torch.profiler window, each beside its own bound; the
               partition's time per Python call (events), its device time
-              (profiler) and the floor of one launch from Python;
+              (profiler) and the floor of one launch from Python; the round
+              kernel's categorical and feature_contri modes (64 columns
+              marked categorical, a seeded contri vector), timed beside
+              their bound;
   8. int8     the same with use_quantized_grad=true, 3 rounds, graph and
               eager: the three-pass round (partition kernel + int8
               histogram kernel);
   9. parity   megakernel=auto against megakernel=0 on 100k of the rows, 2
               trees: the same nodes, leaf counts and leaf values, and each
-              run's launches counted;
+              run's launches counted; the same with 64 columns re-coded to
+              32 integer codes and marked categorical (bitsets equal too);
  10. strict   phase 3's Higgs set with tree_growth_mode=strict, 5 rounds
               (eager: the strict step is not captured): it/s, blocking
               reads a tree (none), B1 launches (tile 1: the root and one a
@@ -89,13 +93,26 @@ Imports no JAX.  Phases, one line each; any failure exits non-zero:
               every chunk bitwise the full prediction; pred_contrib on 1,000
               rows (host seconds; contributions sum to the margin); refit on
               the 100,000 held-out rows, card against CPU;
- 15. device   nvidia-smi's name and power limit.
+ 15. categ    categorical features on a seeded Criteo-shaped cell (2M train
+              + 200k held-out rows, 13 integer counts then 26 categorical
+              columns of 3 to 50,000 Zipf-distributed codes, 255 leaves,
+              max_bin 255, LightGBM's categorical defaults): 20 float
+              rounds on the rounds grower, graph and eager in turns (one
+              replay a tree-round, no blocking read, graph == eager
+              sha256, MODEL_SHA), 20 rounds with hist_precision=bf16 (graph;
+              B1's bf16 mode at tile 16), the strict grower 3 rounds on 200k
+              rows card against CPU (15 leaves, as phase 3's small run), a
+              bitwise reload, predict latency at 1,
+              1,024 and 100,000 rows, and B1's float and bf16 modes at the
+              cell's call sites against their plain versions;
+ 16. device   nvidia-smi's name and power limit.
 
 Then a JSON line with every kernel's numbers (launches on the main path,
 graph mode; whether it runs inside a graph and its launches a replay; B1
 once for each call site: Higgs rounds, Epsilon root and window, strict,
-multiclass, LambdaRank, GOSS, DART, random forest), and last the device
-line {"ok": true, "device": {...}}.
+multiclass, LambdaRank, GOSS, DART, random forest, Criteo float and bf16;
+B3 numerical and categorical), and last the device line {"ok": true,
+"device": {...}}.
 
     python3 chip_smoke.py --turns CHECKOUT
 
@@ -153,7 +170,9 @@ MODEL_SHA = {"higgs_float": "3cb1e5ba", "higgs_int8": "900c2628",
              "higgs_strict": "b0263266", "multiclass": "a178220f",
              "lambdarank": "d37e8ddd",
              # phase 13 (PERF.md)
-             "goss": "87c6f557", "dart": "e9ea51f1", "rf": "c06c0dd1"}
+             "goss": "87c6f557", "dart": "e9ea51f1", "rf": "c06c0dd1",
+             # phase 15 (PERF.md)
+             "criteo": "0586e933", "criteo_bf16": "4960ac72"}
 # phase 10: the strict grower on the Higgs cell; the card read AUC 0.81766
 # (PERF.md), the floor sits 0.01 under it
 ROUNDS_STRICT = 5
@@ -194,6 +213,23 @@ AUC_FLOOR_MODES = {"goss": 0.83, "dart": 0.81, "rf": 0.77}
 # phase 14: prediction
 PRED_BATCHES, PRED_CALLS, PRED_CALLS_BIG = (1, 1024, 100_000), 50, 10
 ES_FREQ, ES_MARGIN, CONTRIB_ROWS = 5, 1.5, 1000
+# phase 15: the Criteo display-advertising shape (BASELINE.json's Criteo
+# CTR config, Kaggle layout: 13 integer count features, then 26 hashed
+# categorical ones), generated from a seed; binary, 255 leaves, learning
+# rate 0.1, max_bin 255, LightGBM's categorical defaults
+CR_N_TRAIN, CR_N_TEST, CR_INT, CR_CAT, CR_LEAVES = 2_000_000, 200_000, 13, 26, 255
+CR_ROUNDS, CR_STRICT_ROWS, CR_STRICT_ROUNDS = 20, 200_000, 3
+# cardinalities of the 26 categorical columns: two with at most 4 values
+# (LightGBM's one-hot rule applies), the others over 255 (the binner keeps
+# the 255 most frequent), up to 5 x 10^4
+CR_CARD = (3, 4, 300, 450, 600, 800, 1000, 1300, 1700, 2200, 2800, 3500, 4500,
+           5500, 7000, 9000, 11000, 14000, 17000, 21000, 26000, 31000, 37000,
+           42000, 47000, 50000)
+# the card read held-out AUC 0.75739 (float) and 0.75616 (bf16) after 20
+# rounds (PERF.md); each floor sits 0.01 under its reading
+AUC_FLOOR_CRITEO, AUC_FLOOR_CRITEO_BF16 = 0.74, 0.74
+# phase 9's categorical case: 64 Epsilon columns re-coded to 32 codes
+EPS_CAT_COLS, EPS_CAT_CODES = 64, 32
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_OPS_PER_S = 67e12  # H100 SXM, non-tensor-core f32 (integer adds counted alike)
 
@@ -495,7 +531,8 @@ def train_timed(lgt, params, train_set, rounds):
     return bst, it_s
 
 
-def small_vs_cpu(lgt, params, Xtr, ytr, Xte, n=20000, rounds=3) -> float:
+def small_vs_cpu(lgt, params, Xtr, ytr, Xte, n=20000, rounds=3,
+                 categorical_feature="auto") -> float:
     """Train on ``n`` rows on the card and on the CPU (the plain versions
     throughout) and return the largest gap in predictions; fails above
     1e-4 (f32 arithmetic order of the torch ops on each side).  Both sides
@@ -503,9 +540,11 @@ def small_vs_cpu(lgt, params, Xtr, ytr, Xte, n=20000, rounds=3) -> float:
     CPU)."""
     params = {"tree_growth_mode": "rounds", **params}
     cpu = {**params, "device_type": "cpu"}
-    pc = lgt.train(cpu, lgt.Dataset(Xtr[:n], label=ytr[:n], params=cpu),
-                   rounds).predict(Xte[:5000])
-    pg = lgt.train(params, lgt.Dataset(Xtr[:n], label=ytr[:n], params=dict(params)),
+    cf = categorical_feature
+    pc = lgt.train(cpu, lgt.Dataset(Xtr[:n], label=ytr[:n], params=cpu,
+                                    categorical_feature=cf), rounds).predict(Xte[:5000])
+    pg = lgt.train(params, lgt.Dataset(Xtr[:n], label=ytr[:n], params=dict(params),
+                                       categorical_feature=cf),
                    rounds).predict(Xte[:5000])
     err = float(np.abs(pc - pg).max())
     if not err <= 1e-4:
@@ -837,9 +876,16 @@ def launch_floor_ms(dev) -> float:
     return cuda_ms(lambda: x.add_(1.0))
 
 
-def round_bounds(args, W):
+# operations a (candidate, categorical feature, bin) of the categorical
+# search: two bitonic sorts of 256 keys (36 compare-exchange steps a key,
+# ~4 operations each) and three candidate gains (~40 each)
+CAT_OPS_PER_BIN = 2 * 36 * 4 + 3 * 40
+
+
+def round_bounds(args, W, n_cat=0):
     """Least time of one round call on this run's data, for the whole call
-    and for each of its phases.  Bytes: the partition's (``partition_bytes``);
+    and for each of its phases (with ``n_cat`` categorical features, their
+    search's operations, CAT_OPS_PER_BIN a bin, join the split search's).  Bytes: the partition's (``partition_bytes``);
     the window rows' order entries (4 B), their bins (F x 2 B) and
     grad, hess, mask in the 32-B sectors those rows touch, and the fresh
     sums written once (T x F x B x 20 B); the subtraction reads the fresh
@@ -866,7 +912,7 @@ def round_bounds(args, W):
     hist = parent.numel() * 4  # one (T, 3, F, B) f32 array
     bests = 2 * T * f * 25
     window_ops = rows.numel() * f * 3
-    split_ops = 2 * T * f * b * 40
+    split_ops = 2 * T * (f - n_cat) * b * 40 + 2 * T * n_cat * b * CAT_OPS_PER_BIN
     return dict(
         total=bound_of(part + window + 3 * hist + bests, window_ops + split_ops),
         partition=bound_of(part, 0),
@@ -968,7 +1014,34 @@ def check_epsilon_kernels(ts, grad, hess, params, tile, tile_q):
         kw = dict(params=prm, W=W, shift=shift)
         compare_round(rc.round_megakernel(*args, **kw),
                       rc.round_megakernel_plain(*args, **kw), what)
-    args, kw = with_outputs(base, params), dict(params=params, W=W, shift=shift)
+    # the categorical and feature_contri tails (the TPU kernel's has_cat and
+    # has_contri): EPS_CAT_COLS seeded columns marked categorical, a seeded
+    # contri vector in [-0.1, 1.5)
+    g = torch.Generator(device="cpu").manual_seed(SEED + 8)
+    cmask = torch.zeros(f, dtype=torch.bool)
+    cmask[torch.randperm(f, generator=g)[:EPS_CAT_COLS]] = True
+    cmask = cmask.to(dev)
+    contri = (torch.rand(f, generator=g) * 1.6 - 0.1).to(dev)
+    args = with_outputs(base, params)
+    for what, extra, prm in (
+            ("categorical", dict(categorical_mask=cmask), params),
+            ("feature_contri", dict(feature_contri=contri), params),
+            ("categorical + feature_contri, all options",
+             dict(categorical_mask=cmask, feature_contri=contri), full)):
+        a = with_outputs(base, prm)
+        kw = dict(params=prm, W=W, shift=shift, **extra)
+        ko = rc.round_megakernel(*a, **kw)
+        compare_round(ko, rc.round_megakernel_plain(*a, **kw), what)
+        if "categorical_mask" in extra and not bool((ko[3].variant >= 0).any()):
+            raise AssertionError(f"round kernel ({what}): no categorical variant")
+    kwc = dict(params=params, W=W, shift=shift, categorical_mask=cmask)
+    out["round_cat_ms"] = cuda_ms(lambda: rc.round_megakernel(*args, **kwc), iters=10,
+                                  warmup=2)
+    out["round_cat_plain_ms"] = cuda_ms(lambda: rc.round_megakernel_plain(*args, **kwc),
+                                        iters=2, warmup=1)
+    out["round_cat_bound_ms"], out["round_cat_bound_by"] = round_bounds(
+        args, W, EPS_CAT_COLS)[0]["total"]
+    kw = dict(params=params, W=W, shift=shift)
     out.update(W=W, in_seg=int(sp["seg_len"].sum()))
     out["part_ms"] = cuda_ms(lambda: pc.partition_segments(*pa))
     out["part_plain_ms"] = cuda_ms(lambda: pc.partition_segments_plain(*pa),
@@ -1055,6 +1128,10 @@ def trees_agree(a, b) -> float:
                 raise AssertionError(f"tree {i}: {name} differs")
         if not np.array_equal(ta.default_left(), tb.default_left()):
             raise AssertionError(f"tree {i}: default_left differs")
+        if not (ta.num_cat == tb.num_cat
+                and np.array_equal(ta.cat_boundaries, tb.cat_boundaries)
+                and np.array_equal(ta.cat_threshold, tb.cat_threshold)):
+            raise AssertionError(f"tree {i}: categorical splits differ")
         gap = np.abs(ta.leaf_value - tb.leaf_value) / (np.abs(tb.leaf_value) + 1e-12)
         worst = max(worst, float(gap.max()))
     if len(a._gbdt.models) != len(b._gbdt.models) or not worst <= 1e-5:
@@ -1478,29 +1555,35 @@ def mslr_like(seed: int):
     return X, y, s_tr, s_te
 
 
-def check_b1_site(hc, bins, grad, hess, mask, slot, tile, num_bins):
+def check_b1_site(hc, bins, grad, hess, mask, slot, tile, num_bins, precision="f32"):
     """B1 at one of its call sites, on that path's own inputs and with the
     tree's exponent pair (fixed_shift_tensor), as the grower calls it:
     kernel against plain version bit for bit, then the kernel's, the plain
-    version's and the library call's times and the bound of this data."""
-    shift = hc.fixed_shift_tensor(grad, hess)
+    version's and the library call's times and the bound of this data.
+    ``precision="bf16"``: the payload rounded to bfloat16 as the rounds
+    grower rounds it (once, before the pass), read as 2 bytes a value; the
+    library call adds the rounded values."""
+    if precision == "bf16":
+        grad, hess = grad.to(torch.bfloat16), hess.to(torch.bfloat16)
+    shift = hc.fixed_shift_tensor(grad.float(), hess.float())
     args = (bins, grad, hess, mask, slot, 0, tile, num_bins)
-    k = hc.histogram_multi(*args, shift=shift)
-    p = hc.histogram_multi_plain(*args, shift=shift)
+    k = hc.histogram_multi(*args, shift=shift, precision=precision)
+    p = hc.histogram_multi_plain(*args, shift=shift, precision=precision)
     torch.cuda.synchronize()
     if not torch.equal(k, p):
         raise AssertionError(f"B1 (tile {tile}) differs from its plain version: "
                              f"max|d| {float((k - p).abs().max())}")
     if float(k[:, 2].sum()) <= 0:
         raise AssertionError("B1: empty histogram")
-    ms = cuda_ms(lambda: hc.histogram_multi(*args, shift=shift))
-    plain_ms = cuda_ms(lambda: hc.histogram_multi_plain(*args, shift=shift),
+    ms = cuda_ms(lambda: hc.histogram_multi(*args, shift=shift, precision=precision))
+    plain_ms = cuda_ms(lambda: hc.histogram_multi_plain(*args, shift=shift,
+                                                        precision=precision),
                        iters=3, warmup=1)
-    lib, rows = library_call(bins, (grad, hess), mask, slot, 0, tile, num_bins,
-                             torch.float32)
+    lib, rows = library_call(bins, (grad.float(), hess.float()), mask, slot, 0, tile,
+                             num_bins, torch.float32)
     library_ms = cuda_ms(lib)
     n, f = bins.shape
-    b_ms, b_by = bound(n, f, tile, num_bins, rows, 4, 4)
+    b_ms, b_by = bound(n, f, tile, num_bins, rows, grad.element_size(), 4)
     return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms,
                 bound_by=b_by, max_abs_err=0.0, rows=int(rows.numel()), tile=tile)
 
@@ -2059,6 +2142,212 @@ def predict_phase(lgt, models):
             f"after {auc(y, ref.predict(X)):.5f}")
 
 
+# ---------------------------------------------------------------------------
+# phase 15: categorical features on a Criteo-shaped cell
+# ---------------------------------------------------------------------------
+def criteo_like(n: int, seed: int):
+    """Rows in the Criteo display-advertising layout: 13 integer counts
+    (log-normal, heavy-tailed, 10-45% missing), then 26 categorical columns
+    of label-encoded codes (CR_CARD values each, Zipf frequencies with
+    exponent 1.1, codes in random order, 2-30% missing); labels 25%
+    positive, from per-category effects of nine columns plus three count
+    terms and logistic noise."""
+    rng = np.random.RandomState(seed)
+    X = np.empty((n, CR_INT + CR_CAT), np.float64)
+    logit = np.zeros(n)
+    for j in range(CR_INT):
+        v = np.floor(rng.lognormal(rng.uniform(0.0, 3.0), rng.uniform(0.8, 2.0), n))
+        if j < 3:
+            lv = np.log1p(v)
+            logit += 0.4 * (lv - lv.mean()) * (1.0 if j % 2 else -1.0)
+        v[rng.rand(n) < rng.uniform(0.1, 0.45)] = np.nan
+        X[:, j] = v
+    for j, card in enumerate(CR_CARD):
+        w = 1.0 / np.arange(1, card + 1) ** 1.1
+        rank = np.minimum(np.searchsorted(np.cumsum(w / w.sum()), rng.rand(n)), card - 1)
+        code = rng.permutation(card)[rank].astype(np.float64)
+        if j % 3 == 0:
+            logit += 0.6 * rng.randn(card)[rank]
+        code[rng.rand(n) < rng.uniform(0.02, 0.3)] = np.nan
+        X[:, CR_INT + j] = code
+    z = logit + rng.logistic(size=n)
+    return X, (z > np.quantile(z, 0.75)).astype(np.float64)
+
+
+def categorical_phase(lgt, dev, counts, plain_total):
+    """Phase 15 on the Criteo-shaped cell: float training on the rounds
+    grower (graph and eager in turns), bf16 training (graph), the strict
+    grower card against CPU, a bitwise reload, predict latency, and B1's
+    float and bf16 call sites against their plain versions.  Returns the
+    kernel line's entries."""
+    from lightgbm_tpu_torch.ops import hist_cuda as hc
+
+    t0 = time.perf_counter()
+    X, y = criteo_like(CR_N_TRAIN + CR_N_TEST, SEED + 15)
+    Xtr, ytr, Xte, yte = X[:CR_N_TRAIN], y[:CR_N_TRAIN], X[CR_N_TRAIN:], y[CR_N_TRAIN:]
+    t_gen = time.perf_counter() - t0
+    cats = list(range(CR_INT, CR_INT + CR_CAT))
+    base = {"objective": "binary", "num_leaves": CR_LEAVES, "learning_rate": 0.1,
+            "max_bin": MAX_BIN, "device_type": dev.type, "verbosity": -1, "seed": 7,
+            "tree_growth_mode": "rounds"}
+    ts = lgt.Dataset(Xtr, label=ytr, categorical_feature=cats, params=dict(base))
+    ts.construct()
+    nb = ts.binner.num_bins_per_feature[CR_INT:]
+    if not (ts.binner.categorical_mask.tolist() == [False] * CR_INT + [True] * CR_CAT
+            and (nb <= 5).sum() >= 2 and (nb == MAX_BIN + 1).sum() == CR_CAT - 2):
+        raise AssertionError(f"Criteo bins: categorical {ts.binner.categorical_mask} "
+                             f"bins {nb}")
+    f = CR_INT + CR_CAT
+    tile = hc.recommended_leaf_tile(ts.max_num_bins, f, CR_LEAVES)
+    tile_b = hc.recommended_leaf_tile(ts.max_num_bins, f, CR_LEAVES, hist_precision="bf16")
+    log(f"phase 15 data: {CR_N_TRAIN}+{CR_N_TEST} rows x {CR_INT} counts + {CR_CAT} "
+        f"categorical (cardinalities {min(CR_CARD)}-{max(CR_CARD)}), positive share "
+        f"{ytr.mean():.4f}, generated in {t_gen:.2f} s, binned in "
+        f"{time.perf_counter() - t0 - t_gen:.2f} s; bins a categorical column "
+        f"{int(nb.min())}-{int(nb.max())}; leaf tile {tile} float, {tile_b} bf16")
+
+    # ---- float, graph and eager in turns ----
+    t0 = time.perf_counter()
+    runs = train_turns(lgt, base, ts, CR_ROUNDS, MODEL_SHA["criteo"], counts, plain_total)
+    for r in runs:
+        st, (b1, b1q, b2, b3) = r["st"], r["launches"]
+        if not (b1 == st["trees"] + st["rounds"] + st["captures"] and b1q == b2 == b3 == 0
+                and st["host_syncs"] == 0 and st["trees"] == CR_ROUNDS):
+            raise AssertionError(f"Criteo float {r['mode']} run: {st} launches {r['launches']}")
+        log(turn_line("phase 15 criteo float", r))
+    if len({r["sha"] for r in runs}) != 1:
+        raise AssertionError(f"Criteo graph and eager models differ: {[r['sha'] for r in runs]}")
+    bst, st = runs[0]["bst"], runs[0]["st"]
+    b1_c, per_replay_c = runs[0]["launches"][0], st["per_replay"].get("histogram_multi", 0)
+    p = bst.predict(Xte)
+    a = auc(yte, p)
+    n_cat = sum(t.num_cat for t in bst._gbdt.models)
+    if not (np.all(np.isfinite(p)) and a >= AUC_FLOOR_CRITEO and n_cat > 0):
+        raise AssertionError(f"Criteo float: AUC {a} (floor {AUC_FLOOR_CRITEO}), "
+                             f"{n_cat} categorical nodes")
+    text = bst.model_to_string()
+    reloaded = lgt.Booster(model_str=text, params={"device_type": dev.type})
+    if not np.array_equal(p, reloaded.predict(Xte)):
+        raise AssertionError("reloaded Criteo model predicts differently")
+    log(f"phase 15 criteo float: ok {CR_ROUNDS} rounds auc={a:.5f} (floor "
+        f"{AUC_FLOOR_CRITEO}) categorical nodes={n_cat} of "
+        f"{sum(t.num_leaves - 1 for t in bst._gbdt.models)} tree-rounds={st['rounds']} "
+        f"replays/tree={st['replays'] / st['trees']:.2f} B1 launches={b1_c} blocking "
+        f"reads/tree=0 reload=bitwise graph == eager sha256 {runs[0]['sha'][:8]} "
+        f"in {time.perf_counter() - t0:.2f} s")
+    del runs
+    for mode in ("graph", "eager"):
+        log(profile_line(f"phase 15 profile {mode} (2 trees after a warm one)",
+                         profile_rounds(lgt, {**base, "fused_training": mode == "graph"},
+                                        ts, 2)))
+
+    # ---- bf16, graph mode ----
+    t0 = time.perf_counter()
+    (rb,) = train_turns(lgt, {**base, "hist_precision": "bf16"}, ts, CR_ROUNDS,
+                        MODEL_SHA["criteo_bf16"], counts, plain_total, turns=("graph",))
+    stb, b1_bf16 = rb["st"], hc.launches["histogram_multi_bf16"]
+    if not (rb["launches"] == (0, 0, 0, 0) and stb["host_syncs"] == 0
+            and b1_bf16 == stb["trees"] + stb["rounds"] + stb["captures"]):
+        raise AssertionError(f"Criteo bf16 run: {stb} launches {rb['launches']} bf16 "
+                             f"{b1_bf16}")
+    log(turn_line("phase 15 criteo bf16", rb))
+    a_b = auc(yte, rb["bst"].predict(Xte))
+    if not a_b >= AUC_FLOOR_CRITEO_BF16:
+        raise AssertionError(f"Criteo bf16 AUC {a_b} < floor {AUC_FLOOR_CRITEO_BF16}")
+    log(f"phase 15 criteo bf16: ok {CR_ROUNDS} rounds auc={a_b:.5f} (floor "
+        f"{AUC_FLOOR_CRITEO_BF16}) bf16 B1 launches={b1_bf16} at tile {tile_b} "
+        f"float B1 launches=0 sha256 {rb['sha'][:8]} in {time.perf_counter() - t0:.2f} s")
+    per_replay_b = stb["per_replay"].get("histogram_multi_bf16", 0)
+    del rb
+
+    # ---- the strict grower, card against CPU ----
+    # at phase 3's 15 leaves: at 63 and 255 the two devices' trees part at
+    # a near-tie within the first tree (the gradients' and the root sums'
+    # last bits differ between the devices; PERF.md)
+    t0 = time.perf_counter()
+    err = small_vs_cpu(lgt, {**base, "tree_growth_mode": "strict", "num_leaves": 15},
+                       Xtr, ytr, Xte, n=CR_STRICT_ROWS, rounds=CR_STRICT_ROUNDS,
+                       categorical_feature=cats)
+    log(f"phase 15 criteo strict: ok {CR_STRICT_ROUNDS} rounds on {CR_STRICT_ROWS} rows, "
+        f"15 leaves, card vs CPU max|d|={err:.3g} in {time.perf_counter() - t0:.2f} s")
+
+    # ---- prediction latency of the categorical model ----
+    t0 = time.perf_counter()
+    lat = {n: latency(bst, Xte, n, PRED_CALLS if n < 100_000 else PRED_CALLS_BIG)
+           for n in PRED_BATCHES}
+    log(f"phase 15 criteo predict ({bst.num_trees()} trees, {n_cat} categorical "
+        f"nodes): latency_ms " + " ".join(f"{n}={lat[n] * 1e3:.3f}" for n in lat)
+        + f" rows/s at {PRED_BATCHES[-1]}={PRED_BATCHES[-1] / lat[PRED_BATCHES[-1]]:.0f} "
+        f"in {time.perf_counter() - t0:.2f} s")
+
+    # ---- B1 at the cell's float and bf16 call sites ----
+    gb = bst._gbdt  # gradients of the model 20 trees in
+    g, h = (v.contiguous() for v in gb.objective.get_gradients(gb._score, gb._label,
+                                                               gb._weight))
+    mask = torch.ones(CR_N_TRAIN, dtype=torch.bool, device=dev)
+    r_f = check_b1_site(hc, ts.bins_device, g, h, mask,
+                        round_slots(CR_N_TRAIN, tile, SEED + 16, dev), tile,
+                        ts.max_num_bins)
+    log(b1_line(f"phase 15 kernel B1 criteo float site N={CR_N_TRAIN} F={f}", r_f))
+    r_b = check_b1_site(hc, ts.bins_device, g, h, mask,
+                        round_slots(CR_N_TRAIN, tile_b, SEED + 17, dev), tile_b,
+                        ts.max_num_bins, precision="bf16")
+    log(b1_line(f"phase 15 kernel B1 criteo bf16 site N={CR_N_TRAIN} F={f}", r_b))
+    entries = [b1_entry("histogram_multi_criteo", r_f, b1_c, per_replay_c),
+               b1_entry("histogram_multi_bf16", r_b, b1_bf16, per_replay_b)]
+    del bst, gb, g, h, ts
+    return entries
+
+
+def eps_categorical_parity(lgt, eps, eps_set, Xtr, ytr):
+    """Phase 9's categorical case: EPS_CAT_COLS seeded columns of the first
+    EPS_PARITY_ROWS rows re-coded to EPS_CAT_CODES integer codes and marked
+    categorical (their bin mappers fitted on EPS_BIN_SAMPLE rows, the other
+    columns' taken from the full set's), 2 trees with megakernel=auto and
+    with megakernel=0: the same trees (the JAX package's invariant).
+    Returns (round-kernel launches of the megakernel run, its stats)."""
+    from lightgbm_tpu_torch.binning import DatasetBinner, find_bin
+
+    t0 = time.perf_counter()
+    rng = np.random.RandomState(SEED + 9)
+    cols = np.sort(rng.choice(EPS_FEAT, EPS_CAT_COLS, replace=False))
+    Xc = Xtr[:EPS_PARITY_ROWS].copy()
+    v = Xc[:, cols]
+    lo, hi = np.nanmin(v, axis=0), np.nanmax(v, axis=0)
+    Xc[:, cols] = np.clip(np.floor((v - lo) / (hi - lo) * EPS_CAT_CODES), 0,
+                          EPS_CAT_CODES - 1)
+    mappers = list(eps_set.binner.mappers)
+    for j in cols:
+        mappers[j] = find_bin(Xc[:EPS_BIN_SAMPLE, j], max_bin=MAX_BIN, is_categorical=True)
+    ref = lgt.Dataset(Xc[:1], params=dict(eps))
+    ref.binner, ref._constructed = DatasetBinner(mappers=mappers), True
+    cat_set = lgt.Dataset(Xc, label=ytr[:EPS_PARITY_ROWS], params=dict(eps), reference=ref)
+    cat_set.construct()
+    reset()
+    b_mk = lgt.train(eps, cat_set, 2)
+    torch.cuda.synchronize()
+    st_mk, l_mk = tree_stats(b_mk), counts()
+    if not (all(st_mk["megakernel"]) and plain_total() == 0
+            and l_mk[3] == st_mk["rounds"] + st_mk["captures"]):
+        raise AssertionError(f"categorical parity, megakernel: {st_mk} launches {l_mk}")
+    reset()
+    b_3p = lgt.train({**eps, "megakernel": "0"}, cat_set, 2)
+    torch.cuda.synchronize()
+    st_3p, l_3p = tree_stats(b_3p), counts()
+    if not (not any(st_3p["megakernel"]) and plain_total() == 0 and l_3p[3] == 0):
+        raise AssertionError(f"categorical parity, three-pass: {st_3p} launches {l_3p}")
+    gap = trees_agree(b_mk, b_3p)
+    n_cat = sum(t.num_cat for t in b_mk._gbdt.models)
+    if n_cat == 0:
+        raise AssertionError("categorical parity: no categorical split")
+    log(f"phase 9 categorical megakernel vs three-pass: ok {EPS_PARITY_ROWS} rows, "
+        f"{EPS_CAT_COLS} columns of {EPS_CAT_CODES} codes, 2 trees, {n_cat} categorical "
+        f"nodes, nodes and bitsets equal, leaf counts equal, leaf values max rel gap "
+        f"{gap:.3g}; launches (B1 float, B1 int8, B2, B3) megakernel {l_mk}, three-pass "
+        f"{l_3p} in {time.perf_counter() - t0:.2f} s")
+    return l_mk[3], st_mk
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -2271,6 +2560,11 @@ def main() -> int:
         f"({r['round_bound_by']}) order, left/right and per-feature bests bitwise "
         f"(training parameters, all split options, ragged) "
         f"in {time.perf_counter() - t0:.2f} s")
+    log(f"phase 7 kernel round categorical: {EPS_CAT_COLS} of {EPS_FEAT} columns "
+        f"categorical, T={r['T']} W={r['W']} ms={r['round_cat_ms']:.4f} "
+        f"plain_ms={r['round_cat_plain_ms']:.4f} bound_ms={r['round_cat_bound_ms']:.4f} "
+        f"({r['round_cat_bound_by']}) order, left/right and per-feature bests with "
+        f"variants bitwise (categorical, feature_contri, both under all split options)")
     ph, pb = r["round_phases"], r["round_phase_bounds"]
     seen = ph.pop("calls")
     log(f"phase 7 kernel round phases (torch.profiler, {seen} calls seen, ms a call): "
@@ -2344,8 +2638,10 @@ def main() -> int:
         f"over {st_mk['rounds']} / {st_3p['rounds']} tree-rounds (replays) and "
         f"{st_mk['captures']} / {st_3p['captures']} captures (a warm-up round each), "
         f"plain_calls=0 in {time.perf_counter() - t0:.2f} s")
+    del small, b_mk, b_3p
+    mk_cat_launches, st_mkc = eps_categorical_parity(lgt, eps, eps_set, Xtr, ytr)
 
-    del eps_set, small, b_mk, b_3p, X, y, Xtr, ytr, Xte, yte
+    del eps_set, X, y, Xtr, ytr, Xte, yte
     torch.cuda.empty_cache()
     new_kernels, rank_model = new_phases(lgt, dev, base, (h_set, h_Xtr, h_ytr, h_Xte,
                                                           h_yte), counts, plain_total)
@@ -2363,14 +2659,22 @@ def main() -> int:
     t0 = time.perf_counter()
     predict_phase(lgt, {"higgs": (text, h_Xte, h_yte), "lambdarank": rank_model})
     log(f"phase 14 predict: ok in {time.perf_counter() - t0:.2f} s")
+    del rank_model
+    torch.cuda.empty_cache()
 
-    # ---- 15. device ----
+    # ---- 15. categorical features on the Criteo-shaped cell ----
+    t0 = time.perf_counter()
+    new_kernels += categorical_phase(lgt, dev, counts, plain_total)
+    torch.cuda.empty_cache()
+    log(f"phase 15 categorical: ok in {time.perf_counter() - t0:.2f} s")
+
+    # ---- 16. device ----
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60)
     if smi.returncode != 0 or not smi.stdout.strip():
         raise AssertionError(f"nvidia-smi failed: {smi.stderr}")
-    log(f"phase 15 device: ok total {time.perf_counter() - t_all:.2f} s")
+    log(f"phase 16 device: ok total {time.perf_counter() - t_all:.2f} s")
     log(smi.stdout.strip().splitlines()[0])
 
     src, tpu = "lightgbm_tpu_torch/csrc/hist.cu", "lightgbm_tpu/ops/hist_pallas.py:120"
@@ -2417,6 +2721,16 @@ def main() -> int:
         "max_abs_err": 0.0,
         "ms": r["round_ms"], "plain_ms": r["round_plain_ms"],
         "bound_ms": r["round_bound_ms"], "bound_by": r["round_bound_by"],
+        "library_ms": None})
+    per_replay = st_mkc["per_replay"].get("round_megakernel", 0)
+    kernels.append({
+        "name": "round_megakernel_categorical", "route": "cuda",
+        "source": "lightgbm_tpu_torch/csrc/round.cu",
+        "replaces": "lightgbm_tpu/ops/round_pallas.py:107",
+        "launches": mk_cat_launches, "in_graph": per_replay > 0,
+        "launches_per_replay": per_replay, "max_abs_err": 0.0,
+        "ms": r["round_cat_ms"], "plain_ms": r["round_cat_plain_ms"],
+        "bound_ms": r["round_cat_bound_ms"], "bound_by": r["round_cat_bound_by"],
         "library_ms": None})
     kernels += new_kernels
     log(json.dumps({"kernels": kernels}))

@@ -5,9 +5,13 @@ python-package/lightgbm/basic.py).  A Dataset is binned on the host
 (binning.py, bitwise the JAX package's bins) and shipped to the device as an
 (N, F) int16 matrix; a Booster wraps models/gbdt.py.
 
+Categorical features are the columns that ``categorical_feature`` names
+(indices or feature names; "auto" marks none, as in the JAX package), and
+pandas category columns enter as their codes.
+
 Not ported yet, and raising when asked for: file and bin-cache input,
 out-of-core, EFB bundling, sparse and arrow input and save_binary (ROADMAP
-queue A2), categorical features (A11), set_network / free_network (A13).
+queue A2), set_network / free_network (A13).
 """
 
 from __future__ import annotations
@@ -137,9 +141,6 @@ class Dataset:
             if isinstance(self.categorical_feature, (list, tuple)):
                 cats = [self.feature_names.index(c) if isinstance(c, str) else int(c)
                         for c in self.categorical_feature]
-            if cats:
-                raise NotImplementedError("categorical features are not ported "
-                                          "to lightgbm_tpu_torch yet (ROADMAP queue A5)")
             if cfg.forcedbins_filename:
                 raise NotImplementedError("forcedbins_filename is not ported "
                                           "yet (ROADMAP queue A2)")
@@ -147,6 +148,7 @@ class Dataset:
                 raw, max_bin=cfg.max_bin, min_data_in_bin=cfg.min_data_in_bin,
                 sample_cnt=cfg.bin_construct_sample_cnt,
                 use_missing=cfg.use_missing, zero_as_missing=cfg.zero_as_missing,
+                categorical_features=cats,
                 max_bin_by_feature=cfg.max_bin_by_feature,
                 seed=cfg.data_random_seed)
         self._set_bins(self.binner.transform(raw), device)
@@ -262,9 +264,15 @@ class Dataset:
         return self
 
     def set_categorical_feature(self, categorical_feature) -> "Dataset":
-        if categorical_feature not in (None, "auto", [], ()):
-            raise NotImplementedError("categorical features are not ported to "
-                                      "lightgbm_tpu_torch yet (ROADMAP queue A11)")
+        """reference: Dataset.set_categorical_feature; before construction
+        only (the bin mappers depend on it)."""
+        if self.categorical_feature == categorical_feature:
+            return self
+        if self._constructed:
+            raise LightGBMError(
+                "Cannot set categorical feature after freed raw data, "
+                "set free_raw_data=False when construct Dataset to avoid this.")
+        self.categorical_feature = categorical_feature
         return self
 
     def set_reference(self, reference: "Dataset") -> "Dataset":
@@ -347,19 +355,20 @@ class Dataset:
         dev = self.bins_device.device
         if tree.num_internal == 0:
             return torch.zeros(self.num_data(), dtype=torch.int32, device=dev)
-        if tree.num_cat > 0:
-            raise NotImplementedError("categorical trees are not ported to "
-                                      "lightgbm_tpu_torch yet (ROADMAP queue A11)")
         self._tree_threshold_bin(tree)
 
         def t(a, dtype):
             return torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
 
+        cat = None
+        if tree.num_cat > 0:  # bin-space masks of the categorical nodes
+            cat = (t(tree.is_categorical_node(), torch.bool),
+                   t(tree._bin_masks(self.binner), torch.bool))
         return predict_ops.predict_leaf_binned(
             self.bins_device, self.missing_bin_pf_device,
             t(tree.split_feature, torch.int64), t(tree.threshold_bin, torch.int32),
             t(tree.default_left(), torch.bool), t(tree.left_child, torch.int64),
-            t(tree.right_child, torch.int64), tree_depth(tree))
+            t(tree.right_child, torch.int64), tree_depth(tree), cat)
 
     def _tree_threshold_bin(self, tree: Tree) -> None:
         """Bin-space thresholds of a tree read from model text (exact: the

@@ -73,16 +73,16 @@ class BinMapper:
         """Map raw values -> bin indices (vectorized)."""
         values = np.asarray(values, dtype=np.float64)
         if self.is_categorical:
-            # categories[b] is the raw value for bin b; build reverse map
+            # categories[b] is the raw value for bin b: look each value up
+            # among the sorted categories; NaN is looked up as -1.0, and a
+            # value that is not a category (unseen, non-integer) takes bin 0
+            cats = np.asarray(self.categories, dtype=np.float64)
             out = np.zeros(values.shape, dtype=np.int32)
-            cat_to_bin = {float(c): b for b, c in enumerate(self.categories)}
-            flat = values.ravel()
-            res = np.fromiter(
-                (cat_to_bin.get(v if not np.isnan(v) else -1.0, 0) for v in flat),
-                dtype=np.int32,
-                count=flat.size,
-            )
-            out = res.reshape(values.shape)
+            if len(cats):
+                order = np.argsort(cats, kind="stable")
+                key = np.where(np.isnan(values), -1.0, values)
+                pos = np.minimum(np.searchsorted(cats[order], key), len(cats) - 1)
+                out = np.where(cats[order][pos] == key, order[pos], 0).astype(np.int32)
             if self.missing_type == MISSING_NAN:
                 out[np.isnan(values)] = self.missing_bin
             return out

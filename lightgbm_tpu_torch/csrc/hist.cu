@@ -6,6 +6,9 @@
 //   float:  sum of grad, sum of hess and the row count of the rows whose
 //           mask is set and whose slot (leaf_slot - leaf_base) lies in
 //           [0, tile);
+//   bf16:   the float sums of grad and hess rounded to bfloat16 (the JAX
+//           package's hist_precision=bf16, ops/hist_pallas.py's rounded
+//           3-lane payload), read as 2 bytes each;
 //   int8:   the same sums of the int8-quantized grad_q / hess_q, exact in
 //           int32.
 // Output layout (tile, 3, F, B), channels (grad, hess, count) -- the JAX
@@ -14,7 +17,7 @@
 // What bounds it on an H100.  The function must read mask and slot of
 // every row (5 bytes) to learn which rows contribute, then only the
 // contributing rows' bins (F * 2 bytes of int16) and grad and hess (4 bytes
-// each in float, 1 in int8), in the 32-byte sectors those scattered rows
+// each in float, 2 in bf16, 1 in int8), in the 32-byte sectors those scattered rows
 // touch, and write the histogram once.  At N = 1M, F = 28 with a third of
 // the rows in the tile that is ~40 MB, ~12 us at 3.35 TB/s; the Epsilon
 // root pass (N = 400k, F = 2000, every row) reads 1.6 GB of bins, ~0.48 ms.
@@ -96,21 +99,51 @@ finalize_kernel(const unsigned long long* __restrict__ acc64,
   }
 }
 
-template <bool kQuant>
+template <bool kQuant, bool kBf16 = false>
 cudaError_t launch_hist(const void* bins, const void* g, const void* h, const void* mask,
                         const void* slot, int64_t n, int F, int leaf_base, int tile, int B,
                         Shift shift, unsigned long long* acc64, int* acc32,
                         cudaStream_t stream) {
   Plan p;
-  cudaError_t e = lgbt::make_plan(lgbt::hist_kernel<kQuant, false>, n, F, tile, B,
+  cudaError_t e = lgbt::make_plan(lgbt::hist_kernel<kQuant, false, kBf16>, n, F, tile, B,
                                   lgbt::Cells<kQuant>::kBytes, false, 0, &p);
   if (e != cudaSuccess) return e;
   lgbt::HistArgs a{static_cast<const int16_t*>(bins), g, h, static_cast<const uint8_t*>(mask),
                    static_cast<const int32_t*>(slot), nullptr, nullptr, nullptr, n, F,
                    leaf_base, tile, B, p.FB, p.SB, p.n_fgroups, p.n_sgroups, shift, acc64,
                    acc32};
-  lgbt::hist_kernel<kQuant, false><<<p.blocks, kThreads, p.smem, stream>>>(a);
+  lgbt::hist_kernel<kQuant, false, kBf16><<<p.blocks, kThreads, p.smem, stream>>>(a);
   return cudaGetLastError();
+}
+
+// The float and bf16 histograms: payload type T (float or __nv_bfloat16).
+template <class T>
+int hist_float(const void* bins, const void* grad, const void* hess, const void* mask,
+               const void* slot, long long n, int F, int leaf_base, int tile, int B,
+               int row_bits, const void* shift_dev, void* absmax, void* acc64, void* acc32,
+               void* out, void* stream) {
+  if (n <= 0 || F <= 0 || tile <= 0 || B <= 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  Shift shift{nullptr, row_bits, static_cast<const int*>(shift_dev)};
+  if (shift_dev == nullptr) {
+    unsigned int* am = static_cast<unsigned int*>(absmax);
+    lgbt::absmax_kernel<T><<<lgbt::grid_for(n), kThreads, 0, st>>>(
+        static_cast<const T*>(grad), static_cast<const T*>(hess), n, am);
+    cudaError_t e0 = cudaGetLastError();
+    if (e0 != cudaSuccess) return (int)e0;
+    shift.absmax = am;
+  }
+  constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
+  cudaError_t e = launch_hist<false, kBf16>(bins, grad, hess, mask, slot, n, F, leaf_base,
+                                            tile, B, shift,
+                                            static_cast<unsigned long long*>(acc64),
+                                            static_cast<int*>(acc32), st);
+  if (e != cudaSuccess) return (int)e;
+  const int64_t FBg = (int64_t)F * B;
+  finalize_kernel<<<lgbt::grid_for(tile * FBg), kThreads, 0, st>>>(
+      static_cast<const unsigned long long*>(acc64), static_cast<const int*>(acc32), shift,
+      tile, FBg, static_cast<float*>(out));
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -127,26 +160,18 @@ int lgbt_hist_multi_f32(const void* bins, const void* grad, const void* hess,
                         const void* mask, const void* slot, long long n, int F,
                         int leaf_base, int tile, int B, int row_bits, const void* shift_dev,
                         void* absmax, void* acc64, void* acc32, void* out, void* stream) {
-  if (n <= 0 || F <= 0 || tile <= 0 || B <= 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  Shift shift{nullptr, row_bits, static_cast<const int*>(shift_dev)};
-  if (shift_dev == nullptr) {
-    unsigned int* am = static_cast<unsigned int*>(absmax);
-    lgbt::absmax_kernel<<<lgbt::grid_for(n), kThreads, 0, st>>>(
-        static_cast<const float*>(grad), static_cast<const float*>(hess), n, am);
-    cudaError_t e0 = cudaGetLastError();
-    if (e0 != cudaSuccess) return (int)e0;
-    shift.absmax = am;
-  }
-  cudaError_t e = launch_hist<false>(bins, grad, hess, mask, slot, n, F, leaf_base, tile, B,
-                                     shift, static_cast<unsigned long long*>(acc64),
-                                     static_cast<int*>(acc32), st);
-  if (e != cudaSuccess) return (int)e;
-  const int64_t FBg = (int64_t)F * B;
-  finalize_kernel<<<lgbt::grid_for(tile * FBg), kThreads, 0, st>>>(
-      static_cast<const unsigned long long*>(acc64), static_cast<const int*>(acc32), shift,
-      tile, FBg, static_cast<float*>(out));
-  return (int)cudaGetLastError();
+  return hist_float<float>(bins, grad, hess, mask, slot, n, F, leaf_base, tile, B, row_bits,
+                           shift_dev, absmax, acc64, acc32, out, stream);
+}
+
+// bf16 histogram: lgbt_hist_multi_f32's contract with grad and hess given
+// as bfloat16 (n,) arrays; the exponents come from max |v| of those values.
+int lgbt_hist_multi_bf16(const void* bins, const void* grad, const void* hess,
+                         const void* mask, const void* slot, long long n, int F,
+                         int leaf_base, int tile, int B, int row_bits, const void* shift_dev,
+                         void* absmax, void* acc64, void* acc32, void* out, void* stream) {
+  return hist_float<__nv_bfloat16>(bins, grad, hess, mask, slot, n, F, leaf_base, tile, B,
+                                   row_bits, shift_dev, absmax, acc64, acc32, out, stream);
 }
 
 // int8 histogram: out (tile, 3, F, B) int32, zeroed by the caller.

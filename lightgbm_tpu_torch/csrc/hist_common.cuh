@@ -17,6 +17,11 @@
 // window histogrammed here equals, bit for bit, the same rows gathered into
 // a matrix and histogrammed directly with the same fixed-point exponents.
 //
+// Three payloads: float (grad and hess f32), bf16 (the same values rounded
+// to bfloat16 by the caller, read as 2 bytes each and widened exactly to
+// f32, then summed in the same fixed point: the JAX package's
+// hist_precision=bf16) and int8 (exact int32 sums).
+//
 // Work layout.  The work is a flat space of (group, position) units, a
 // group being a (slot group, feature group) of the plan, or a feature group
 // in gather mode.  The grid is one wave of resident blocks (or fewer for a
@@ -48,6 +53,7 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -84,15 +90,19 @@ __device__ __forceinline__ void shifts_of(const Shift& s, int* g, int* h) {
   }
 }
 
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+template <class T>
 __global__ void __launch_bounds__(kThreads)
-absmax_kernel(const float* __restrict__ g, const float* __restrict__ h,
+absmax_kernel(const T* __restrict__ g, const T* __restrict__ h,
               int64_t n, unsigned int* __restrict__ out) {
   unsigned int mg = 0, mh = 0;
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
   for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
     // |x| as bits orders like |x| itself for non-negative floats
-    mg = max(mg, __float_as_uint(fabsf(g[i])));
-    mh = max(mh, __float_as_uint(fabsf(h[i])));
+    mg = max(mg, __float_as_uint(fabsf(to_f32(g[i]))));
+    mh = max(mh, __float_as_uint(fabsf(to_f32(h[i]))));
   }
   // warp, then block, then one atomic per block: per-warp atomics on the
   // two words serialised (measured ~50 us per call at N = 1M)
@@ -157,7 +167,7 @@ __device__ __forceinline__ unsigned long long join_split(unsigned lo, int hi) {
 
 struct HistArgs {
   const int16_t* bins;
-  const void* g;  // float or int8 payloads
+  const void* g;  // float, bf16 or int8 payloads
   const void* h;
   const uint8_t* mask;
   const int32_t* slot;       // direct mode
@@ -180,8 +190,10 @@ struct Cells {
   static constexpr int kBytes = kWords * 4;
 };
 
-template <bool kQuant, bool kGather>
+// kBf16: the float path reading __nv_bfloat16 payloads (kQuant false)
+template <bool kQuant, bool kGather, bool kBf16 = false>
 __global__ void __launch_bounds__(kThreads) hist_kernel(HistArgs a) {
+  static_assert(!(kQuant && kBf16), "bf16 is a float payload");
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int kWords = Cells<kQuant>::kWords;
   const int Bs = bin_stride(a.B);
@@ -268,6 +280,9 @@ __global__ void __launch_bounds__(kThreads) hist_kernel(HistArgs a) {
           if constexpr (kQuant) {
             gv = (uint32_t)(int)static_cast<const int8_t*>(a.g)[r];
             hv = (uint32_t)(int)static_cast<const int8_t*>(a.h)[r];
+          } else if constexpr (kBf16) {
+            gv = __float_as_uint(__bfloat162float(static_cast<const __nv_bfloat16*>(a.g)[r]));
+            hv = __float_as_uint(__bfloat162float(static_cast<const __nv_bfloat16*>(a.h)[r]));
           } else {
             gv = __float_as_uint(static_cast<const float*>(a.g)[r]);
             hv = __float_as_uint(static_cast<const float*>(a.h)[r]);

@@ -17,7 +17,12 @@
 //      other one, written as (T, 3, F, B) f32;
 //   4. split search: per (candidate, feature), candidates being the T left
 //      and T right children, the first maximizing threshold over the bins
-//      with its gain, direction of missing values and left sums.
+//      with its gain, direction of missing values and left sums; on the
+//      features of the categorical mask (the TPU kernel's has_cat tail) the
+//      first maximizing categorical candidate instead, with its variant
+//      (one-hot, ascending or descending prefix); and with feature_contri
+//      (its has_contri tail) each gain that passed min_gain_to_split
+//      scaled by max(0, contri[f]) and kept only if it stays above 0.
 //
 // What bounds it on an H100.  The partition reads 5 B and writes 4 B per
 // in-segment position and copies 4 B of every other one.  The window pass
@@ -54,6 +59,20 @@
 // partial sum fits 53 bits), and a warp reduction on (gain, lowest bin)
 // gives torch.argmax's first maximum.
 //
+// The categorical search (cat_gain_kernel) is one block of 256 threads per
+// (candidate, categorical feature), a thread a bin (B <= 256).  One-hot
+// candidates need no order.  The many-vs-many ones sort the (key, bin)
+// pairs in shared memory by a bitonic network, the key being
+// sum_g / (sum_h + cat_smooth) of a used bin and +inf of the others, with
+// the bin as the tie key, so the order is the stable sort of
+// ops/split.py::gain_plane (torch.argsort, stable); a block scan in float64
+// of the sorted bins gives each prefix's sums, rounded to float as the
+// plain version's float64 cumsum is; the gains use lambda_l2 + cat_l2 in
+// gain_plane's operation order.  Blocks of numerical features leave at
+// once.  The winning candidate's left-bin mask is not written: ops/split.py
+// ::categorical_winner_mask replays it from the winner's histogram column,
+// as the JAX package does outside its kernel.
+//
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -std=c++17
 //             --fmad=false -shared -Xcompiler -fPIC (ops/cuda_build.py).
 
@@ -69,10 +88,13 @@ using lgbt::kThreads;
 
 constexpr float kEps = 1e-15f;      // ops/split.py KEPSILON
 constexpr float kMinScore = -1e30f;  // ops/split.py KMIN_SCORE
+constexpr int kCatThreads = 256;     // categorical search: a thread a bin
 
 struct GainParams {
   float l1, l2, min_data, min_hess, min_gain, max_delta, path_smooth;
   int use_smooth;
+  float l2_cat, cat_smooth;  // l2_cat = lambda_l2 + cat_l2
+  int max_cat_threshold, max_cat_to_onehot;
 };
 
 // fixed point -> f32 for the fresh (window) histograms, then the sibling by
@@ -135,14 +157,37 @@ __device__ __forceinline__ float gain_given_output(float g, float h, float out,
   return -((2.f * tg) * out + (((h + p.l2) + kEps) * out) * out);
 }
 
-__device__ __forceinline__ float leaf_gain(float g, float h, const GainParams& p) {
+__device__ __forceinline__ float leaf_gain_l2(float g, float h, float l2,
+                                              const GainParams& p) {
   const float tg = thr_l1(g, p.l1);
-  const float denom = (h + p.l2) + kEps;
+  const float denom = (h + l2) + kEps;
   if (p.max_delta > 0.f) {
     const float out = clampf((-tg) / denom, -p.max_delta, p.max_delta);
     return -((2.f * tg) * out + (denom * out) * out);
   }
   return (tg * tg) / denom;
+}
+
+__device__ __forceinline__ float leaf_gain(float g, float h, const GainParams& p) {
+  return leaf_gain_l2(g, h, p.l2, p);
+}
+
+__device__ __forceinline__ bool split_ok(float lc, float rc, float lh, float rh,
+                                         const GainParams& p) {
+  return lc >= p.min_data && rc >= p.min_data && lh >= p.min_hess && rh >= p.min_hess;
+}
+
+// the min_gain_to_split gate, then feature_contri (contri may be null)
+__device__ __forceinline__ float gate(float g, const float* __restrict__ contri, int f,
+                                      const GainParams& p) {
+  if (!(g > kMinScore / 2.f && g > p.min_gain)) return kMinScore;
+  if (contri != nullptr) {
+    float k = contri[f];
+    k = k < 0.f ? 0.f : k;
+    g = g * k;
+    if (!(g > 0.f)) return kMinScore;
+  }
+  return g;
 }
 
 __device__ __forceinline__ float direction_gain(float lg, float lh, float lc, float rg, float rh,
@@ -164,15 +209,17 @@ __device__ __forceinline__ float direction_gain(float lg, float lh, float lc, fl
 __global__ void __launch_bounds__(256)
 gain_kernel(const float* __restrict__ left, const float* __restrict__ right, int T, int F,
             int B, const int32_t* __restrict__ nbpf, const int32_t* __restrict__ mbpf,
-            const uint8_t* __restrict__ fmask, const float* __restrict__ cand, GainParams p,
+            const uint8_t* __restrict__ fmask, const uint8_t* __restrict__ cmask,
+            const float* __restrict__ contri, const float* __restrict__ cand, GainParams p,
             float* __restrict__ o_gain, int32_t* __restrict__ o_thr,
-            uint8_t* __restrict__ o_left, float* __restrict__ o_lg, float* __restrict__ o_lh,
-            float* __restrict__ o_lc) {
+            uint8_t* __restrict__ o_left, int32_t* __restrict__ o_var, float* __restrict__ o_lg,
+            float* __restrict__ o_lh, float* __restrict__ o_lc) {
   const int lane = threadIdx.x & 31;
   const int64_t i = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const int C = 2 * T;
   if (i >= (int64_t)C * F) return;  // whole warps leave
   const int c = (int)(i / F), f = (int)(i % F);
+  if (cmask != nullptr && cmask[f]) return;  // cat_gain_kernel's
   const int64_t FB = (int64_t)F * B;
   const float* h = (c < T ? left + (int64_t)c * 3 * FB : right + (int64_t)(c - T) * 3 * FB) +
                    (int64_t)f * B;
@@ -239,8 +286,7 @@ gain_kernel(const float* __restrict__ left, const float* __restrict__ right, int
       st[d][2] = lc;
     }
     const bool use_left = gd[1] > gd[0];  // ties keep missing -> right
-    float g = use_left ? gd[1] : gd[0];
-    if (!(g > kMinScore / 2.f && g > p.min_gain)) g = kMinScore;
+    const float g = gate(use_left ? gd[1] : gd[0], contri, f, p);
     if (g > best) {  // bins rise within a lane: the first maximum stays
       best = g;
       bthr = b;
@@ -267,9 +313,187 @@ gain_kernel(const float* __restrict__ left, const float* __restrict__ right, int
     o_gain[i] = best;
     o_thr[i] = bthr;
     o_left[i] = bleft ? 1 : 0;
+    o_var[i] = -1;
     o_lg[i] = blg;
     o_lh[i] = blh;
     o_lc[i] = blc;
+  }
+}
+
+// Inclusive float64 scan of (x, y, z) over the block's 256 threads.
+__device__ __forceinline__ void block_scan3(double* x, double* y, double* z,
+                                            double (*ws)[kCatThreads / 32]) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const double a = __shfl_up_sync(0xffffffffu, *x, o);
+    const double b = __shfl_up_sync(0xffffffffu, *y, o);
+    const double c = __shfl_up_sync(0xffffffffu, *z, o);
+    if (lane >= o) {
+      *x += a;
+      *y += b;
+      *z += c;
+    }
+  }
+  if (lane == 31) {
+    ws[0][warp] = *x;
+    ws[1][warp] = *y;
+    ws[2][warp] = *z;
+  }
+  __syncthreads();
+  double ox = 0.0, oy = 0.0, oz = 0.0;
+  for (int w = 0; w < warp; ++w) {
+    ox += ws[0][w];
+    oy += ws[1][w];
+    oz += ws[2][w];
+  }
+  *x += ox;
+  *y += oy;
+  *z += oz;
+  __syncthreads();  // ws is reused by the next scan
+}
+
+// Stable ascending sort of (key, bin) pairs in shared memory, a thread an
+// element: a bitonic network whose order is (key, then bin), which is total
+// over distinct bins, so it ends at the stable sort's order.
+__device__ __forceinline__ void bitonic_sort(float* key, int* bin) {
+  const int t = threadIdx.x;
+  __syncthreads();
+  for (int k = 2; k <= kCatThreads; k <<= 1) {
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      const int o = t ^ j;
+      if (o > t) {
+        const float ka = key[t], kb = key[o];
+        const int ia = bin[t], ib = bin[o];
+        const bool a_after_b = ka > kb || (ka == kb && ia > ib);
+        if (a_after_b == ((t & k) == 0)) {
+          key[t] = kb;
+          key[o] = ka;
+          bin[t] = ib;
+          bin[o] = ia;
+        }
+      }
+      __syncthreads();
+    }
+  }
+}
+
+// One block per (candidate, categorical feature); thread t is bin t (and,
+// after a sort, the prefix of length t + 1).  Writes the (candidate,
+// feature) outputs gain_kernel leaves to it, with the winning variant.
+__global__ void __launch_bounds__(kCatThreads)
+cat_gain_kernel(const float* __restrict__ left, const float* __restrict__ right, int T, int F,
+                int B, const int32_t* __restrict__ mbpf, const uint8_t* __restrict__ fmask,
+                const uint8_t* __restrict__ cmask, const float* __restrict__ contri,
+                const float* __restrict__ cand, GainParams p, float* __restrict__ o_gain,
+                int32_t* __restrict__ o_thr, uint8_t* __restrict__ o_left,
+                int32_t* __restrict__ o_var, float* __restrict__ o_lg, float* __restrict__ o_lh,
+                float* __restrict__ o_lc) {
+  const int64_t i = blockIdx.x;
+  const int C = 2 * T;
+  const int c = (int)(i / F), f = (int)(i % F);
+  if (!cmask[f]) return;  // the whole block: numerical features are gain_kernel's
+  __shared__ float s_g[kCatThreads], s_h[kCatThreads], s_c[kCatThreads];
+  __shared__ float s_key[kCatThreads];
+  __shared__ int s_bin[kCatThreads];
+  __shared__ double s_ws[3][kCatThreads / 32];
+  __shared__ float s_best[kCatThreads / 32];
+  __shared__ int s_bt[kCatThreads / 32];
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int64_t FB = (int64_t)F * B;
+  const float* h = (c < T ? left + (int64_t)c * 3 * FB : right + (int64_t)(c - T) * 3 * FB) +
+                   (int64_t)f * B;
+  const float pg = cand[c], ph = cand[C + c], pc = cand[2 * C + c];
+  const int mb = mbpf[f];
+  // the bin with the missing bin zeroed (gain_plane's hist_nm)
+  float g = 0.f, hh = 0.f, cc = 0.f;
+  if (t < B && t != mb) {
+    g = h[t];
+    hh = h[FB + t];
+    cc = h[2 * FB + t];
+  }
+  s_g[t] = g;
+  s_h[t] = hh;
+  s_c[t] = cc;
+  const bool used = t < B && cc > 0.f && t != mb;
+  const int num_used = __syncthreads_count(used);
+  const float gain_parent = leaf_gain_l2(pg, ph, p.l2_cat, p);
+  // one-hot: bin t alone goes left
+  float gain_oh = kMinScore;
+  if (used && split_ok(cc, pc - cc, hh, ph - hh, p))
+    gain_oh = (leaf_gain_l2(g, hh, p.l2_cat, p) + leaf_gain_l2(pg - g, ph - hh, p.l2_cat, p)) -
+              gain_parent;
+  const float ratio = g / (hh + p.cat_smooth);
+  const int k_len = t + 1;
+  const bool len_ok = k_len <= p.max_cat_threshold && k_len <= (num_used + 1) / 2 &&
+                      k_len < num_used;
+  float gd[2], st[2][3];
+  for (int d = 0; d < 2; ++d) {  // d = 0: ascending keys, 1: descending
+    // ``+ 0.f`` and ``0.f -`` turn -0 into +0, as ops/split.py::_cat_keys
+    s_key[t] = used ? (d == 0 ? ratio + 0.f : 0.f - ratio) : INFINITY;
+    s_bin[t] = t;
+    bitonic_sort(s_key, s_bin);
+    const int sb = s_bin[t];
+    double x = sb < B ? (double)s_g[sb] : 0.0;
+    double y = sb < B ? (double)s_h[sb] : 0.0;
+    double z = sb < B ? (double)s_c[sb] : 0.0;
+    block_scan3(&x, &y, &z, s_ws);
+    const float lg = (float)x, lh = (float)y, lc = (float)z;
+    gd[d] = (len_ok && split_ok(lc, pc - lc, lh, ph - lh, p))
+                ? (leaf_gain_l2(lg, lh, p.l2_cat, p) +
+                   leaf_gain_l2(pg - lg, ph - lh, p.l2_cat, p)) -
+                      gain_parent
+                : kMinScore;
+    st[d][0] = lg;
+    st[d][1] = lh;
+    st[d][2] = lc;
+  }
+  const bool onehot = num_used <= p.max_cat_to_onehot;
+  const int var = onehot ? 0 : (gd[1] > gd[0] ? 2 : 1);
+  float gain = onehot ? gain_oh : (gd[1] > gd[0] ? gd[1] : gd[0]);
+  if (!fmask[f]) gain = kMinScore;
+  gain = t < B ? gate(gain, contri, f, p) : -INFINITY;
+  // first maximum over the bins: the larger gain, then the lower bin
+  float vb = gain;
+  int ib = t;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    const float ov = __shfl_xor_sync(0xffffffffu, vb, o);
+    const int oi = __shfl_xor_sync(0xffffffffu, ib, o);
+    if (ov > vb || (ov == vb && oi < ib)) {
+      vb = ov;
+      ib = oi;
+    }
+  }
+  if (lane == 0) {
+    s_best[warp] = vb;
+    s_bt[warp] = ib;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    vb = lane < kCatThreads / 32 ? s_best[lane] : -INFINITY;
+    ib = lane < kCatThreads / 32 ? s_bt[lane] : INT_MAX;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      const float ov = __shfl_xor_sync(0xffffffffu, vb, o);
+      const int oi = __shfl_xor_sync(0xffffffffu, ib, o);
+      if (ov > vb || (ov == vb && oi < ib)) {
+        vb = ov;
+        ib = oi;
+      }
+    }
+    if (lane == 0) s_bt[0] = ib;
+  }
+  __syncthreads();
+  if (t == s_bt[0]) {
+    const int64_t o = (int64_t)c * F + f;
+    o_gain[o] = gain;
+    o_thr[o] = t;
+    o_left[o] = 0;
+    o_var[o] = var;
+    o_lg[o] = var == 0 ? g : st[var - 1][0];
+    o_lh[o] = var == 0 ? hh : st[var - 1][1];
+    o_lc[o] = var == 0 ? cc : st[var - 1][2];
   }
 }
 
@@ -281,7 +505,9 @@ extern "C" {
 // u8 per position; seg_start, seg_len, n_left, win_start, win_cnt,
 // small_left (T,) i32; grad, hess (n,) f32; mask (n,) u8; parent, left,
 // right (T, 3, F, B) f32; nbpf, mbpf (F,) i32; fmask (F,) u8; cand (4, 2T)
-// f32; the six per-feature outputs (2T, F); shift, the tree's fixed-point
+// f32; cmask (F,) u8 the categorical features and contri (F,) f32 the
+// feature_contri multipliers, each null when not given (cmask needs B <=
+// 256); the seven per-feature outputs (2T, F); shift, the tree's fixed-point
 // exponents of grad and hess, int32[2] in device memory (read when the
 // kernels run, so a captured graph takes each tree's).  Scratch: the partition's
 // (partition.cu: 2 u32 words + (ceil(n/4096) + T) u64 words, zeroed before
@@ -295,12 +521,15 @@ int lgbt_round(const void* bins, long long n, int F, int B, int T, const void* o
                const void* hess, const void* mask, const void* win_start, const void* win_cnt,
                const void* small_left, long long W, const void* shift, void* acc64, void* acc32,
                const void* parent, void* left, void* right, const void* nbpf, const void* mbpf,
-               const void* fmask, const void* cand, float l1, float l2, float min_data,
-               float min_hess, float min_gain, float max_delta, float path_smooth,
-               int use_smooth, void* o_gain, void* o_thr, void* o_left, void* o_lg,
-               void* o_lh, void* o_lc, void* stream) {
+               const void* fmask, const void* cmask, const void* contri, const void* cand,
+               float l1, float l2, float min_data, float min_hess, float min_gain,
+               float max_delta, float path_smooth, int use_smooth, float l2_cat,
+               float cat_smooth, int max_cat_threshold, int max_cat_to_onehot, void* o_gain,
+               void* o_thr, void* o_left, void* o_var, void* o_lg, void* o_lh, void* o_lc,
+               void* stream) {
   if (n <= 0 || n >= lgbt::kMaxRows || F <= 0 || B <= 0 || T <= 0 || W <= 0)
     return (int)cudaErrorInvalidValue;
+  if (cmask != nullptr && B > kCatThreads) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   // ---- 1. partition (the fused launch only reads n_left) ----
   lgbt::PartitionArgs pa{static_cast<const int32_t*>(order), static_cast<const uint8_t*>(go),
@@ -339,13 +568,26 @@ int lgbt_round(const void* bins, long long n, int F, int B, int T, const void* o
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   // ---- 4. per-feature split search ----
-  GainParams gp{l1, l2, min_data, min_hess, min_gain, max_delta, path_smooth, use_smooth};
+  GainParams gp{l1,        l2,         min_data,          min_hess,
+                min_gain,  max_delta,  path_smooth,       use_smooth,
+                l2_cat,    cat_smooth, max_cat_threshold, max_cat_to_onehot};
   const int64_t warps = (int64_t)2 * T * F;
+  const uint8_t* cm = static_cast<const uint8_t*>(cmask);
+  const float* fc = static_cast<const float*>(contri);
   gain_kernel<<<(unsigned)((warps * 32 + 255) / 256), 256, 0, st>>>(
       static_cast<const float*>(left), static_cast<const float*>(right), T, F, B,
       static_cast<const int32_t*>(nbpf), static_cast<const int32_t*>(mbpf),
-      static_cast<const uint8_t*>(fmask), static_cast<const float*>(cand), gp,
+      static_cast<const uint8_t*>(fmask), cm, fc, static_cast<const float*>(cand), gp,
       static_cast<float*>(o_gain), static_cast<int32_t*>(o_thr), static_cast<uint8_t*>(o_left),
+      static_cast<int32_t*>(o_var), static_cast<float*>(o_lg), static_cast<float*>(o_lh),
+      static_cast<float*>(o_lc));
+  e = cudaGetLastError();
+  if (e != cudaSuccess || cm == nullptr) return (int)e;
+  cat_gain_kernel<<<(unsigned)(2 * (int64_t)T * F), kCatThreads, 0, st>>>(
+      static_cast<const float*>(left), static_cast<const float*>(right), T, F, B,
+      static_cast<const int32_t*>(mbpf), static_cast<const uint8_t*>(fmask), cm, fc,
+      static_cast<const float*>(cand), gp, static_cast<float*>(o_gain),
+      static_cast<int32_t*>(o_thr), static_cast<uint8_t*>(o_left), static_cast<int32_t*>(o_var),
       static_cast<float*>(o_lg), static_cast<float*>(o_lh), static_cast<float*>(o_lc));
   return (int)cudaGetLastError();
 }

@@ -40,8 +40,12 @@ validation set reads their leaf values and leaf ids on the device
 (``_tree_leaf_values``, ``_tree_leaves``), so none of them drains the
 device queue.
 
+Categorical features (the Dataset's categorical mask), feature_contri and
+hist_precision=bf16 reach every grower, as in the JAX package; a model
+with categorical splits predicts through the stacked walk's bitsets.
+
 Not ported yet, and rejected at construction: the options of the grower
-envelope that the growers do not carry (A11) and the distributed tree
+envelope that the growers do not carry (A11b) and the distributed tree
 learners (A13).
 """
 
@@ -96,7 +100,6 @@ def _unported_options(cfg: Config) -> List[str]:
     """Config options outside this slice's envelope (they raise)."""
     checks = {
         "tree_learner": cfg.tree_learner != "serial",
-        "hist_precision=bf16": cfg.hist_precision != "f32",
         "linear_tree": bool(cfg.linear_tree),
         "monotone_constraints": any(int(c) != 0 for c in
                                     (cfg.monotone_constraints or [])),
@@ -104,8 +107,6 @@ def _unported_options(cfg: Config) -> List[str]:
         "forcedsplits_filename": bool(cfg.forcedsplits_filename),
         "extra_trees": bool(cfg.extra_trees),
         "feature_fraction_bynode": cfg.feature_fraction_bynode < 1.0,
-        "feature_contri": any(float(c) != 1.0 for c in
-                              (cfg.feature_contri or [])),
         "cegb penalties": (cfg.cegb_penalty_split > 0 or any(
             p != 0 for p in (cfg.cegb_penalty_feature_coupled or [])
             + (cfg.cegb_penalty_feature_lazy or []))),
@@ -203,6 +204,10 @@ class GBDT:
         # value or split gain, 0 while clean: kept on the device and read
         # with the finish check (the JAX package's guard rail)
         self._guard_bad_iter = None
+        # the training's categorical features and feature_contri (None when
+        # it has none)
+        self._categorical_mask: Optional[torch.Tensor] = None
+        self._feature_contri: Optional[torch.Tensor] = None
         if train_set is not None:
             self.reset_training_data(train_set)
 
@@ -247,7 +252,8 @@ class GBDT:
         if i < len(self._models):
             return ds.predict_leaf_binned_tree(self._models[i])
         arrays = self._pending[i - len(self._models)][0]
-        return predict_leaf_arrays(arrays, ds.bins_device, ds.missing_bin_pf_device)
+        return predict_leaf_arrays(arrays, ds.bins_device, ds.missing_bin_pf_device,
+                                   categorical=self._categorical_mask is not None)
 
     def _tree_rows(self, i: int, ds) -> torch.Tensor:
         """(N,) f32: tree i's value for each row of ``ds``."""
@@ -331,9 +337,22 @@ class GBDT:
                                   int(cfg.min_data_in_leaf))
         self._allowed_np = allowed
         self._allowed_features = torch.as_tensor(allowed, device=dev)
+        # None without categorical features, so the growers skip the
+        # categorical candidates (as the JAX package passes None)
+        cat_mask = np.asarray(train_set.binner.categorical_mask)
+        self._categorical_mask = (torch.as_tensor(cat_mask, device=dev)
+                                  if cat_mask.any() else None)
+        # per-feature split-gain multipliers (reference: config
+        # feature_contri), padded with 1.0 to every feature
+        fc = list(cfg.feature_contri or [])
+        f = train_set.num_feature()
+        self._feature_contri = (
+            torch.as_tensor(np.asarray((fc + [1.0] * f)[:f], np.float32), device=dev)
+            if any(float(c) != 1.0 for c in fc) else None)
         self._leaf_tile = recommended_leaf_tile(
             train_set.max_num_bins, train_set.num_feature(), cfg.num_leaves,
-            quantized=bool(cfg.use_quantized_grad))
+            quantized=bool(cfg.use_quantized_grad),
+            hist_precision=cfg.hist_precision)
 
     def reset_split_params(self) -> None:
         """Refresh the split hyperparameters after a config change
@@ -347,6 +366,10 @@ class GBDT:
             min_gain_to_split=cfg.min_gain_to_split,
             max_delta_step=cfg.max_delta_step,
             path_smooth=cfg.path_smooth,
+            cat_l2=cfg.cat_l2,
+            cat_smooth=cfg.cat_smooth,
+            max_cat_threshold=cfg.max_cat_threshold,
+            max_cat_to_onehot=cfg.max_cat_to_onehot,
         )
 
     def add_valid(self, valid_set, name: str) -> None:
@@ -540,7 +563,8 @@ class GBDT:
             stats: dict = {}
             common = dict(num_leaves=cfg.num_leaves, num_bins=ts.max_num_bins,
                           max_depth=cfg.max_depth, params=self._split_params,
-                          stats=stats)
+                          stats=stats, categorical_mask=self._categorical_mask,
+                          feature_contri=self._feature_contri)
             if strict:
                 stats["grower"] = "strict"
                 arrays, leaf_id = grow_tree(*args, **common)
@@ -555,6 +579,7 @@ class GBDT:
                     stochastic_rounding=bool(cfg.stochastic_rounding),
                     quant_renew=bool(cfg.quant_train_renew_leaf),
                     generator=gen, graphs=graphs,
+                    hist_precision=cfg.hist_precision,
                     guard_label=f" (boosting iteration {self.iter_ + 1})")
                 if self._use_windowed(ts):
                     stats["grower"] = "windowed"
@@ -576,8 +601,9 @@ class GBDT:
                 delta = arrays.leaf_value * np.float32(shrinkage)
             self._add_score(self._score, delta[leaf_id.long()], c)
             for vi, vs in enumerate(self.valid_sets):
-                leaf_v = predict_leaf_arrays(arrays, vs.bins_device,
-                                             ts.missing_bin_pf_device)
+                leaf_v = predict_leaf_arrays(
+                    arrays, vs.bins_device, ts.missing_bin_pf_device,
+                    categorical=self._categorical_mask is not None)
                 self._add_score(self._valid_scores[vi], delta[leaf_v.long()], c)
         self.iter_ += 1
         if self.iter_ % 32:
@@ -671,10 +697,13 @@ class GBDT:
     # ------------------------------------------------------------------
     def _stacked(self, trees: List[Tree], device) -> Dict[str, torch.Tensor]:
         """Stacked structure-of-arrays ensemble for the traversal, with the
-        depth of its deepest tree (the traversal's step count)."""
-        if any(t.num_cat > 0 or t.is_linear for t in trees):
-            raise NotImplementedError("categorical / linear trees are not "
-                                      "ported yet (ROADMAP queue A11)")
+        depth of its deepest tree (the traversal's step count) and, when a
+        tree has categorical nodes, their bitsets (``cat``: per node a
+        flag, a word base and a word count into the flat words of every
+        tree, as the JAX package stacks them)."""
+        if any(t.is_linear for t in trees):
+            raise NotImplementedError("linear trees are not ported yet "
+                                      "(ROADMAP queue A11b)")
         max_l = max(max(t.num_leaves for t in trees), 2)
         m = max_l - 1
 
@@ -697,6 +726,7 @@ class GBDT:
                                        dtype=torch.int32, device=device),
             leaf_value=pad(lambda t: t.leaf_value, np.float32, max_l),
             depth=max(tree_depth(t) for t in trees),
+            cat=_stacked_bitsets(trees, m, device),
         )
 
     def _row_chunks(self, X: np.ndarray, n_trees: int):
@@ -1142,6 +1172,29 @@ def create_boosting(cfg: Config, train_set=None) -> GBDT:
     if name in ("rf", "random_forest"):
         return RF(cfg, train_set)
     raise ValueError(f"Unknown boosting type: {name}")
+
+
+def _stacked_bitsets(trees: List[Tree], m: int, device) -> Optional[tuple]:
+    """(is_cat, cat_base, cat_nwords) (T, m) and the flat bitset words (W,)
+    of the trees' categorical nodes, or None when no tree has one."""
+    if not any(t.num_cat > 0 for t in trees):
+        return None
+    is_cat = np.zeros((len(trees), m), bool)
+    base = np.zeros((len(trees), m), np.int32)
+    nwords = np.zeros((len(trees), m), np.int32)
+    words, off = [], 0
+    for i, t in enumerate(trees):
+        nd = np.nonzero(t.is_categorical_node())[0]
+        ci = np.asarray(t.threshold, np.float64)[nd].astype(np.int64)  # cat index
+        bounds = np.asarray(t.cat_boundaries, np.int64)
+        is_cat[i, nd] = True
+        base[i, nd] = off + bounds[ci]
+        nwords[i, nd] = bounds[ci + 1] - bounds[ci]
+        words.append(np.asarray(t.cat_threshold, np.int64))
+        off += len(t.cat_threshold)
+    flat = np.concatenate(words) if off else np.zeros(1, np.int64)
+    return tuple(torch.as_tensor(a, device=device)
+                 for a in (is_cat, base, nwords, flat))
 
 
 def _pre_filter(bins: np.ndarray, binner, md: int) -> np.ndarray:

@@ -13,6 +13,10 @@ turned into the plain path.
 Float sums are 64-bit fixed point with a per-call exponent (see the source
 note): both the kernel and the plain version quantize each value the same
 way and add integers, so they agree bit for bit and repeat bit for bit.
+``precision="bf16"`` (the JAX package's hist_precision=bf16) rounds grad
+and hess to bfloat16 before the pass, outside the kernel as the JAX package
+builds its payload outside its kernel, and the kernel reads the 2-byte
+values; the sums are the same fixed point.
 """
 
 from __future__ import annotations
@@ -28,8 +32,10 @@ from ..utils.sanitizer import sync_pull
 from .cuda_build import KernelLibrary, count_launch, stream_ptr
 
 # launch counts of the kernel wrappers and call counts of the plain versions
-launches = {"histogram_multi": 0, "histogram_multi_quantized": 0}
-plain_calls = {"histogram_multi": 0, "histogram_multi_quantized": 0}
+launches = {"histogram_multi": 0, "histogram_multi_bf16": 0,
+            "histogram_multi_quantized": 0}
+plain_calls = {"histogram_multi": 0, "histogram_multi_bf16": 0,
+               "histogram_multi_quantized": 0}
 
 
 def reset_counts() -> None:
@@ -50,17 +56,19 @@ def _round_up(x: int, m: int) -> int:
 
 
 def recommended_leaf_tile(num_bins: int, n_features_effective: int,
-                          num_leaves: int, *, quantized: bool = False) -> int:
-    """Leaves histogrammed per pass: 8 for f32 and 20 for int8 at narrow F
-    (the JAX package's policy for its f32/bf16x2 and int8 payloads; the
-    Hopper-derived tile is ROADMAP queue A9)."""
-    ncl = 3 if quantized else 6
+                          num_leaves: int, *, quantized: bool = False,
+                          hist_precision: str = "f32") -> int:
+    """Leaves histogrammed per pass: at narrow F 8 for f32, 16 for bf16 and
+    20 for int8 (the JAX package's policy for its 6-lane bf16x2, 3-lane
+    bf16 and 3-lane int8 payloads; the Hopper-derived tile is ROADMAP queue
+    A17)."""
+    ncl = 3 if (quantized or hist_precision == "bf16") else 6
     fb = min(n_features_effective if n_features_effective > 0 else 1, 128)
     fb_pad = max(_round_up(fb, 8), 8)
     bpad = _round_up(max(num_bins, 8), 8)
     per_leaf = fb_pad * bpad * 4 * ncl
     if n_features_effective <= 128:
-        cap = 20 if quantized else 8
+        cap = 8 if ncl == 6 else (20 if quantized else 16)
     else:
         cap = 20 if quantized else 10
     return max(1, min(cap, _VMEM_ACC_BUDGET // max(per_leaf, 1), num_leaves))
@@ -71,9 +79,9 @@ def recommended_leaf_tile(num_bins: int, n_features_effective: int,
 # ---------------------------------------------------------------------------
 def _bind(lib: ctypes.CDLL) -> None:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.lgbt_hist_multi_f32.argtypes = [p, p, p, p, p, ll, i, i, i, i, i, p, p,
-                                        p, p, p, p]
-    lib.lgbt_hist_multi_f32.restype = i
+    for fn in (lib.lgbt_hist_multi_f32, lib.lgbt_hist_multi_bf16):
+        fn.argtypes = [p, p, p, p, p, ll, i, i, i, i, i, p, p, p, p, p, p]
+        fn.restype = i
     lib.lgbt_hist_multi_i8.argtypes = [p, p, p, p, p, ll, i, i, i, i, p, p]
     lib.lgbt_hist_multi_i8.restype = i
 
@@ -107,10 +115,22 @@ def _check(bins, payload, mask, leaf_slot, payload_dtype, tile, num_bins):
 # ---------------------------------------------------------------------------
 # entry points
 # ---------------------------------------------------------------------------
+def _payload(grad, hess, precision: str):
+    """grad and hess as the pass reads them: f32, or rounded to bfloat16
+    (round to nearest even; a no-op on values already bfloat16)."""
+    if precision == "f32":
+        return grad, hess
+    if precision == "bf16":
+        return grad.to(torch.bfloat16), hess.to(torch.bfloat16)
+    raise ValueError(f"precision must be f32 or bf16, got {precision!r}")
+
+
 def histogram_multi(bins, grad, hess, mask, leaf_slot, leaf_base: int,
-                    tile: int, num_bins: int, shift=None) -> torch.Tensor:
+                    tile: int, num_bins: int, shift=None,
+                    precision: str = "f32") -> torch.Tensor:
     """(tile, 3, F, B) f32 sums of grad, hess and count of the rows with
-    mask set and slot = leaf_slot - leaf_base in [0, tile).
+    mask set and slot = leaf_slot - leaf_base in [0, tile).  With
+    ``precision="bf16"`` grad and hess are summed rounded to bfloat16.
 
     ``shift`` fixes the fixed-point exponents of grad and hess: an int32[2]
     tensor on the rows' device (fixed_shift_tensor), which the kernel reads
@@ -118,10 +138,14 @@ def histogram_multi(bins, grad, hess, mask, leaf_slot, leaf_base: int,
     ints (fixed_shift_pair), copied to the device first.  By default they
     come from this call's own rows, as fixed_shift_pair(grad, hess) would
     give them."""
+    grad, hess = _payload(grad, hess, precision)
     if not bins.is_cuda:
         return histogram_multi_plain(bins, grad, hess, mask, leaf_slot,
-                                     leaf_base, tile, num_bins, shift=shift)
-    _check(bins, (grad, hess), mask, leaf_slot, torch.float32, tile, num_bins)
+                                     leaf_base, tile, num_bins, shift=shift,
+                                     precision=precision)
+    bf16 = precision == "bf16"
+    _check(bins, (grad, hess), mask, leaf_slot,
+           torch.bfloat16 if bf16 else torch.float32, tile, num_bins)
     n, f = bins.shape
     dev = bins.device
     out = torch.zeros((tile, 3, f, num_bins), dtype=torch.float32, device=dev)
@@ -131,16 +155,18 @@ def histogram_multi(bins, grad, hess, mask, leaf_slot, leaf_base: int,
     acc64 = torch.zeros((tile, 2, f, num_bins), dtype=torch.int64, device=dev)
     acc32 = torch.zeros((tile, f, num_bins), dtype=torch.int32, device=dev)
     shift = shift_on(shift, dev)
+    lib = LIBRARY.lib()
     with torch.cuda.device(dev):
-        rc = LIBRARY.lib().lgbt_hist_multi_f32(
+        rc = (lib.lgbt_hist_multi_bf16 if bf16 else lib.lgbt_hist_multi_f32)(
             bins.data_ptr(), grad.data_ptr(), hess.data_ptr(), mask.data_ptr(),
             leaf_slot.data_ptr(), n, f, int(leaf_base), int(tile),
             int(num_bins), int(n).bit_length(),
             None if shift is None else shift.data_ptr(),
             absmax.data_ptr(), acc64.data_ptr(), acc32.data_ptr(),
             out.data_ptr(), stream_ptr(dev))
-    LIBRARY.raise_on(rc, "histogram_multi kernel")
-    count_launch(launches, "histogram_multi")
+    name = "histogram_multi_bf16" if bf16 else "histogram_multi"
+    LIBRARY.raise_on(rc, name + " kernel")
+    count_launch(launches, name)
     return out
 
 
@@ -255,8 +281,11 @@ def shift_on(shift, device) -> Optional[torch.Tensor]:
 
 
 def histogram_multi_plain(bins, grad, hess, mask, leaf_slot, leaf_base: int,
-                          tile: int, num_bins: int, shift=None) -> torch.Tensor:
-    plain_calls["histogram_multi"] += 1
+                          tile: int, num_bins: int, shift=None,
+                          precision: str = "f32") -> torch.Tensor:
+    grad, hess = (v.float() for v in _payload(grad, hess, precision))
+    plain_calls["histogram_multi_bf16" if precision == "bf16"
+                else "histogram_multi"] += 1
     n, f = bins.shape
     rows, idx = _rows_and_index(bins, mask, leaf_slot, leaf_base, tile,
                                 num_bins)

@@ -18,14 +18,15 @@ from . import hist_cuda
 
 
 def histogram_multi(bins, grad, hess, mask, leaf_slot, leaf_base: int,
-                    num_leaves_tile: int, num_bins: int,
-                    shift=None) -> torch.Tensor:
+                    num_leaves_tile: int, num_bins: int, shift=None,
+                    precision: str = "f32") -> torch.Tensor:
     """Per-leaf histograms for leaves [leaf_base, leaf_base + tile) in one
-    pass: (tile, 3, F, B) f32.  ``shift``: the fixed-point exponents
-    (hist_cuda.histogram_multi)."""
+    pass: (tile, 3, F, B) f32.  ``shift``: the fixed-point exponents;
+    ``precision``: f32, or bf16 (grad and hess rounded to bfloat16, the
+    JAX package's hist_precision=bf16; hist_cuda.histogram_multi)."""
     return hist_cuda.histogram_multi(bins, grad, hess, mask, leaf_slot,
                                      leaf_base, num_leaves_tile, num_bins,
-                                     shift=shift)
+                                     shift=shift, precision=precision)
 
 
 def histogram_multi_quantized(bins, grad_q, hess_q, mask, leaf_slot,

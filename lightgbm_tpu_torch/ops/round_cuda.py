@@ -5,8 +5,11 @@ The kernel (csrc/round.cu) replaces lightgbm_tpu/ops/round_pallas.py::
 _mk_kernel with its fused tail: one windowed round's partition, the small
 children's window histograms read straight from the row-major bins through
 the new order, the siblings by subtraction, and the per-feature split
-search.  ``select_from_feature_best`` (ops/split.py) finishes the
-cross-feature choice in torch, as the JAX package does outside its kernel.
+search, with the categorical candidates on the features of a categorical
+mask and the feature_contri scaling when given (the TPU kernel's has_cat
+and has_contri tails).  ``select_from_feature_best`` (ops/split.py)
+finishes the cross-feature choice in torch, and replays a categorical
+winner's left-bin mask, as the JAX package does outside its kernel.
 
 Dispatch rule: a CUDA tensor launches the kernel or raises; only a tensor
 on the CPU takes the plain version, which is the three-pass round's own
@@ -41,8 +44,8 @@ def reset_counts() -> None:
 def _bind(lib: ctypes.CDLL) -> None:
     p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
     lib.lgbt_round.argtypes = (
-        [p, ll, i, i, i, p, p, p, p, p, p, p, p, p, p, p, p, p, ll, p, p, p,
-         p, p, p, p, p, p, p] + [f] * 7 + [i] + [p] * 7)
+        [p, ll, i, i, i] + [p] * 13 + [ll] + [p] * 12 + [f] * 7 + [i]
+        + [f, f, i, i] + [p] * 8)
     lib.lgbt_round.restype = i
 
 
@@ -85,7 +88,7 @@ def split_window(parent, fresh, small_left):
 
 
 def _check(bins, order, go_left, grad, hess, row_mask, tvecs, parent, cand_tab,
-           nbpf, mbpf, fmask):
+           nbpf, mbpf, fmask, cmask=None, contri=None):
     if bins.dim() != 2 or bins.dtype != torch.int16:
         raise TypeError(f"bins must be (N, F) int16, got {tuple(bins.shape)} "
                         f"{bins.dtype}")
@@ -100,6 +103,9 @@ def _check(bins, order, go_left, grad, hess, row_mask, tvecs, parent, cand_tab,
             ("num_bins_per_feature", nbpf, (f,), torch.int32),
             ("missing_bin_per_feature", mbpf, (f,), torch.int32),
             ("feature_mask", fmask, (f,), torch.bool)]
+    want += [(name, t, (f,), dt) for name, t, dt in
+             (("categorical_mask", cmask, torch.bool),
+              ("feature_contri", contri, torch.float32)) if t is not None]
     want += [(f"segment/window table {i}", t, (T,), torch.int32)
              for i, t in enumerate(tvecs)]
     for name, t, shape, dt in want:
@@ -116,14 +122,19 @@ def _check(bins, order, go_left, grad, hess, row_mask, tvecs, parent, cand_tab,
         raise ValueError(f"the round kernel takes fewer than {MAX_ROWS} rows, got {n}")
     if T < 1 or b < 1:
         raise ValueError(f"need at least one slot and one bin, got T={T}, B={b}")
+    if cmask is not None and b > 256:
+        raise ValueError(f"the categorical search takes at most 256 bins, got {b}")
 
 
 def round_megakernel(bins, order, go_left, grad, hess, row_mask, seg_start,
                      seg_len, n_left, win_start, win_cnt, small_left, parent,
                      cand_tab, num_bins_per_feature, missing_bin_per_feature,
-                     feature_mask, *, params: SplitParams, W: int, shift):
+                     feature_mask, *, params: SplitParams, W: int, shift,
+                     categorical_mask=None, feature_contri=None):
     """One round: returns (new_order (N,) i32, left (T, 3, F, B), right
-    (T, 3, F, B), FeatureBests (2T, F)).
+    (T, 3, F, B), FeatureBests (2T, F)).  ``categorical_mask`` (F,) bool
+    and ``feature_contri`` (F,) f32 are gain_plane's (B <= 256 with a
+    categorical mask).
 
     Segments (seg_start, seg_len, n_left: (T,) i32) are the split leaves'
     position ranges and their left counts; windows (win_start, win_cnt) the
@@ -137,13 +148,15 @@ def round_megakernel(bins, order, go_left, grad, hess, row_mask, seg_start,
     CUDA graph takes each tree's; a pair of ints (fixed_shift_pair) is
     copied to the device first, which a capture does not allow."""
     tvecs = (seg_start, seg_len, n_left, win_start, win_cnt, small_left)
+    tables = dict(categorical_mask=categorical_mask, feature_contri=feature_contri)
     if not bins.is_cuda:
         return round_megakernel_plain(
             bins, order, go_left, grad, hess, row_mask, *tvecs, parent, cand_tab,
             num_bins_per_feature, missing_bin_per_feature, feature_mask,
-            params=params, W=W, shift=shift)
+            params=params, W=W, shift=shift, **tables)
     _check(bins, order, go_left, grad, hess, row_mask, tvecs, parent, cand_tab,
-           num_bins_per_feature, missing_bin_per_feature, feature_mask)
+           num_bins_per_feature, missing_bin_per_feature, feature_mask,
+           categorical_mask, feature_contri)
     n, f = bins.shape
     T, b = seg_start.shape[0], parent.shape[3]
     dev = bins.device
@@ -157,7 +170,7 @@ def round_megakernel(bins, order, go_left, grad, hess, row_mask, seg_start,
     acc32 = empty((T, f, b), torch.int32)
     c = 2 * T
     o_gain, o_lg, o_lh, o_lc = (empty((c, f)) for _ in range(4))
-    o_thr = empty((c, f), torch.int32)
+    o_thr, o_var = empty((c, f), torch.int32), empty((c, f), torch.int32)
     o_left = empty((c, f), torch.bool)
     shift = hist_cuda.shift_on(shift, dev)
     if shift is None:
@@ -175,17 +188,19 @@ def round_megakernel(bins, order, go_left, grad, hess, row_mask, seg_start,
             acc32.data_ptr(), parent.data_ptr(), left.data_ptr(),
             right.data_ptr(), num_bins_per_feature.data_ptr(),
             missing_bin_per_feature.data_ptr(), feature_mask.data_ptr(),
+            *(None if t is None else t.data_ptr() for t in tables.values()),
             cand_tab.data_ptr(), p.lambda_l1, p.lambda_l2,
             float(p.min_data_in_leaf), p.min_sum_hessian_in_leaf,
             p.min_gain_to_split, p.max_delta_step, p.path_smooth,
-            int(p.path_smooth > 0), o_gain.data_ptr(), o_thr.data_ptr(),
-            o_left.data_ptr(), o_lg.data_ptr(), o_lh.data_ptr(),
+            int(p.path_smooth > 0), p.lambda_l2 + p.cat_l2, p.cat_smooth,
+            int(p.max_cat_threshold), int(p.max_cat_to_onehot),
+            o_gain.data_ptr(), o_thr.data_ptr(), o_left.data_ptr(),
+            o_var.data_ptr(), o_lg.data_ptr(), o_lh.data_ptr(),
             o_lc.data_ptr(), stream)
     LIBRARY.raise_on(rc, "round_megakernel kernel")
     count_launch(launches, "round_megakernel")
     fb = FeatureBests(gain=o_gain, threshold_bin=o_thr, use_left=o_left,
-                      variant=torch.full((c, f), -1, dtype=torch.int32, device=dev),
-                      left_g=o_lg, left_h=o_lh, left_c=o_lc)
+                      variant=o_var, left_g=o_lg, left_h=o_lh, left_c=o_lc)
     return new_order, left, right, fb
 
 
@@ -193,7 +208,8 @@ def round_megakernel_plain(bins, order, go_left, grad, hess, row_mask,
                            seg_start, seg_len, n_left, win_start, win_cnt,
                            small_left, parent, cand_tab, num_bins_per_feature,
                            missing_bin_per_feature, feature_mask, *,
-                           params: SplitParams, W: int, shift):
+                           params: SplitParams, W: int, shift,
+                           categorical_mask=None, feature_contri=None):
     plain_calls["round_megakernel"] += 1
     n = order.shape[0]
     T, b = seg_start.shape[0], parent.shape[3]
@@ -206,5 +222,7 @@ def round_megakernel_plain(bins, order, go_left, grad, hess, row_mask,
     gain, ctx = gain_plane(torch.cat([left, right]), cand_tab[0], cand_tab[1],
                            cand_tab[2], num_bins_per_feature,
                            missing_bin_per_feature, params,
-                           feature_mask=feature_mask, parent_output=cand_tab[3])
+                           feature_mask=feature_mask, parent_output=cand_tab[3],
+                           categorical_mask=categorical_mask,
+                           feature_contri=feature_contri)
     return new_order, left, right, reduce_plane_per_feature(gain, ctx)

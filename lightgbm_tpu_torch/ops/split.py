@@ -1,11 +1,12 @@
 """Split-gain search over histograms, as batched tensor reductions.
 
-Counterpart of lightgbm_tpu/ops/split.py for numerical features with
-missing-value handling.  The whole (F, B) candidate plane of each leaf is
-evaluated at once with cumulative sums, both missing-value directions in
-parallel, and the argmax taken as one reduction.  Where the JAX package
-vmaps over leaves, these functions take a leading batch axis: histograms
-(C, 3, F, B) and parent sums (C,); an unbatched (3, F, B) call works too.
+Counterpart of lightgbm_tpu/ops/split.py for numerical and categorical
+features with missing-value handling and feature_contri.  The whole (F, B)
+candidate plane of each leaf is evaluated at once with cumulative sums,
+both missing-value directions in parallel, and the argmax taken as one
+reduction.  Where the JAX package vmaps over leaves, these functions take a
+leading batch axis: histograms (C, 3, F, B) and parent sums (C,); an
+unbatched (3, F, B) call works too.
 
 Math (as in the JAX package; SURVEY.md §8):
   ThresholdL1(g, l1) = sign(g) * max(0, |g| - l1)
@@ -13,8 +14,8 @@ Math (as in the JAX package; SURVEY.md §8):
   leaf_gain   = ThresholdL1(G, l1)^2 / (H + l2)
   split_gain  = gain(L) + gain(R) - gain(parent)
 
-Categorical, monotone, CEGB, feature_contri and per-node sampling
-arguments are not ported yet (ROADMAP queue A5) and raise when given.
+Monotone, CEGB and per-node sampling arguments are not ported yet (ROADMAP
+queue A11b) and raise when given.
 """
 
 from __future__ import annotations
@@ -35,6 +36,11 @@ class SplitParams(NamedTuple):
     min_gain_to_split: float = 0.0
     max_delta_step: float = 0.0
     path_smooth: float = 0.0
+    # categorical split params (reference: FindBestThresholdCategoricalInner)
+    cat_l2: float = 10.0
+    cat_smooth: float = 10.0
+    max_cat_threshold: int = 32
+    max_cat_to_onehot: int = 4
 
 
 class BestSplit(NamedTuple):
@@ -45,8 +51,8 @@ class BestSplit(NamedTuple):
     feature: torch.Tensor  # i32
     threshold_bin: torch.Tensor  # i32 (bin <= threshold_bin -> left)
     default_left: torch.Tensor  # bool (missing goes left)
-    is_cat: torch.Tensor  # bool — always False here
-    cat_mask: torch.Tensor  # (B,) bool — always False here
+    is_cat: torch.Tensor  # bool — categorical (bitmask) split
+    cat_mask: torch.Tensor  # (B,) bool — bins going left (categorical only)
     left_sum_g: torch.Tensor
     left_sum_h: torch.Tensor
     left_count: torch.Tensor
@@ -93,20 +99,54 @@ def leaf_gain(sum_g, sum_h, p: SplitParams):
     return tg * tg / denom
 
 
+def _cat_gain(g, h, p: SplitParams):
+    """leaf_gain with lambda_l2 + cat_l2 (the categorical candidates')."""
+    return leaf_gain(g, h, p._replace(lambda_l2=p.lambda_l2 + p.cat_l2))
+
+
+def _cat_keys(sum_g, sum_h, used, p: SplitParams):
+    """The many-vs-many sort keys of each bin, ascending and descending:
+    sum_g / (sum_h + cat_smooth) of a used bin, +inf for the others (they
+    sort last).  ``+ 0.0`` and ``0.0 -`` turn a -0.0 into +0.0, so a
+    comparison sort and a radix sort (torch.sort on the card) order every
+    key alike; no other value changes."""
+    ratio = sum_g / (sum_h + p.cat_smooth)
+    inf = float("inf")
+    return (torch.where(used, ratio + 0.0, inf),
+            torch.where(used, 0.0 - ratio, inf))
+
+
+def _ranks(keys):
+    """(order, rank) of a stable ascending sort along the last axis: ties
+    keep bin order, as jnp.argsort does."""
+    order = torch.argsort(keys, dim=-1, stable=True)
+    idx = torch.arange(keys.shape[-1], device=keys.device).expand_as(order)
+    return order, torch.empty_like(order).scatter_(-1, order, idx)
+
+
 def _reject_unported(**args) -> None:
     for name, v in args.items():
         if v is not None:
             raise ValueError(f"{name} is not ported to lightgbm_tpu_torch yet "
-                             "(ROADMAP queue A5)")
+                             "(ROADMAP queue A11b)")
 
 
 def gain_plane(hist, parent_sum_g, parent_sum_h, parent_count,
                num_bins_per_feature, missing_bin_per_feature,
-               params: SplitParams, feature_mask=None, parent_output=None):
+               params: SplitParams, feature_mask=None, parent_output=None,
+               categorical_mask=None, feature_contri=None):
     """Every (feature, threshold, missing-direction) candidate of a batch of
     leaves: returns (gain (C, F, B), ctx).  hist is (C, 3, F, B); rows with
     bin <= t go left, missing rows go the default direction; the missing
-    bin (last, when present) is excluded from the scan."""
+    bin (last, when present) is excluded from the scan.  Features of
+    ``categorical_mask`` (F,) take the categorical candidates instead (the
+    JAX package's two families): at most max_cat_to_onehot used bins, each
+    used bin alone goes left (cell t = bin t); otherwise the used bins
+    sorted by sum_g / (sum_h + cat_smooth), ascending and descending, and
+    cell t = the sorted order's prefix of length t + 1 goes left.  The
+    missing bin never goes left.  ``feature_contri`` (F,) scales each gain
+    that passed min_gain_to_split by max(0, contri) (reference: config
+    feature_contri)."""
     _, _, f, b = hist.shape
     dev = hist.device
     bins_idx = torch.arange(b, dtype=torch.int32, device=dev)
@@ -139,6 +179,11 @@ def gain_plane(hist, parent_sum_g, parent_sum_h, parent_count,
     else:
         gain_parent = leaf_gain(pg, ph, params)
 
+    def split_ok(lc, rc, lh, rh):
+        return ((lc >= params.min_data_in_leaf) & (rc >= params.min_data_in_leaf)
+                & (lh >= params.min_sum_hessian_in_leaf)
+                & (rh >= params.min_sum_hessian_in_leaf))
+
     def eval_direction(missing_left: bool):
         add = miss if missing_left else torch.zeros_like(miss)  # (C, 3, F)
         left_g = cum[:, 0] + add[:, 0, :, None]
@@ -147,13 +192,7 @@ def gain_plane(hist, parent_sum_g, parent_sum_h, parent_count,
         right_g = pg - left_g
         right_h = ph - left_h
         right_c = pc - left_c
-        ok = (
-            valid_thr
-            & (left_c >= params.min_data_in_leaf)
-            & (right_c >= params.min_data_in_leaf)
-            & (left_h >= params.min_sum_hessian_in_leaf)
-            & (right_h >= params.min_sum_hessian_in_leaf)
-        )
+        ok = valid_thr & split_ok(left_c, right_c, left_h, right_h)
         if not use_smooth:
             g = (leaf_gain(left_g, left_h, params)
                  + leaf_gain(right_g, right_h, params) - gain_parent)
@@ -173,18 +212,66 @@ def gain_plane(hist, parent_sum_g, parent_sum_h, parent_count,
     # ties (no missing values) prefer missing->right, the reference default
     use_left = gain_l > gain_r
     gain = torch.where(use_left, gain_l, gain_r)
-    # the min_gain gate sees raw gains (FindBestThresholdSequentially)
-    gate = (gain > KMIN_SCORE / 2) & (gain > params.min_gain_to_split)
-    gain = torch.where(gate, gain, KMIN_SCORE)
     ctx = dict(use_left=use_left, stats_l=stats_l, stats_r=stats_r,
                parent_g=parent_sum_g, parent_h=parent_sum_h,
-               parent_count=parent_count)
+               parent_count=parent_count, categorical_mask=categorical_mask)
+
+    if categorical_mask is not None:
+        gain_parent_cat = _cat_gain(pg, ph, params)
+        used = (hist_nm[:, 2] > 0) & ~is_missing_bin  # (C, F, B)
+        num_used = used.sum(dim=2, keepdim=True)  # (C, F, 1)
+        k_len = bins_idx + 1  # prefix length at cell t
+
+        def eval_sorted(keys):
+            order, rank = _ranks(keys)
+            sh = hist_nm.gather(3, order[:, None].expand(-1, 3, -1, -1))
+            # prefixes in float64, rounded once, as the numerical scan
+            cs = torch.cumsum(sh.double(), dim=3).float()
+            lg, lh, lc = cs[:, 0], cs[:, 1], cs[:, 2]
+            # each direction stops at half the used bins, so the two scans
+            # never try one partition twice (reference: (used_bin + 1) / 2)
+            ok = ((k_len <= params.max_cat_threshold)
+                  & (k_len <= torch.div(num_used + 1, 2, rounding_mode="floor"))
+                  & (k_len < num_used) & split_ok(lc, pc - lc, lh, ph - lh))
+            g = (_cat_gain(lg, lh, params) + _cat_gain(pg - lg, ph - lh, params)
+                 - gain_parent_cat)
+            return torch.where(ok, g, KMIN_SCORE), rank, (lg, lh, lc)
+
+        key_asc, key_desc = _cat_keys(hist_nm[:, 0], hist_nm[:, 1], used, params)
+        gain_asc, rank_asc, st_asc = eval_sorted(key_asc)
+        gain_desc, rank_desc, st_desc = eval_sorted(key_desc)
+        og, oh, oc = hist_nm[:, 0], hist_nm[:, 1], hist_nm[:, 2]  # bin t alone
+        oh_ok = used & split_ok(oc, pc - oc, oh, ph - oh)
+        gain_oh = (_cat_gain(og, oh, params) + _cat_gain(pg - og, ph - oh, params)
+                   - gain_parent_cat)
+        gain_oh = torch.where(oh_ok, gain_oh, KMIN_SCORE)
+        onehot = num_used <= params.max_cat_to_onehot
+        gain_cat = torch.where(onehot, gain_oh, torch.maximum(gain_asc, gain_desc))
+        variant = torch.where(onehot, 0, torch.where(gain_desc > gain_asc, 2, 1))
+        cat_col = categorical_mask[:, None]
+        if feature_mask is not None:
+            cat_col = cat_col & feature_mask[:, None]
+        gain = torch.where(categorical_mask[:, None], KMIN_SCORE, gain)
+        gain = torch.where(cat_col, gain_cat, gain)
+        ctx.update(variant=variant.to(torch.int32), rank_asc=rank_asc,
+                   rank_desc=rank_desc, st_asc=st_asc, st_desc=st_desc,
+                   oh_l=(og, oh, oc))
+
+    # the min_gain gate sees raw gains (FindBestThresholdSequentially); the
+    # gated gain is then scaled by feature_contri and must stay positive
+    gate = (gain > KMIN_SCORE / 2) & (gain > params.min_gain_to_split)
+    gain = torch.where(gate, gain, KMIN_SCORE)
+    if feature_contri is not None:
+        contri = torch.clamp_min(feature_contri.float(), 0.0)
+        gain = torch.where(gate, gain * contri[:, None], gain)
+        gain = torch.where(gate & (gain > 0), gain, KMIN_SCORE)
     return gain, ctx
 
 
 def select_from_plane(gain: torch.Tensor, ctx: dict) -> BestSplit:
     """Materialize each leaf's argmax candidate (first maximum in flat
-    (feature, bin) order, as jnp.argmax) into a BestSplit."""
+    (feature, bin) order, as jnp.argmax) into a BestSplit (numerical
+    planes; find_best_split selects categorical ones per feature first)."""
     c, f, b = gain.shape
     flat = gain.reshape(c, -1)
     best = torch.argmax(flat, dim=1, keepdim=True)  # (C, 1)
@@ -218,11 +305,12 @@ class FeatureBests(NamedTuple):
     """Per-feature reduction of a batch of gain planes (the round
     megakernel's output, csrc/round.cu): per (candidate, feature) the first
     maximizing threshold's gain and what a BestSplit needs if that feature
-    wins.  Fields are (C, F); ``variant`` is -1 (numerical) throughout."""
+    wins.  Fields are (C, F); ``variant`` is -1 on numerical features, 0
+    (one-hot), 1 (ascending) or 2 (descending) on categorical ones."""
 
     gain: torch.Tensor  # f32
     threshold_bin: torch.Tensor  # i32
-    use_left: torch.Tensor  # bool
+    use_left: torch.Tensor  # bool (False on categorical features)
     variant: torch.Tensor  # i32
     left_g: torch.Tensor
     left_h: torch.Tensor
@@ -242,21 +330,56 @@ def reduce_plane_per_feature(gain: torch.Tensor, ctx: dict) -> FeatureBests:
     stats_l, stats_r = ctx["stats_l"], ctx["stats_r"]
     lg, lh, lc = (torch.where(use_left, at(a), at(b))
                   for a, b in zip(stats_l, stats_r))
+    variant = torch.full_like(bb[..., 0], -1, dtype=torch.int32)
+    cmask = ctx.get("categorical_mask")
+    if cmask is not None:
+        v = at(ctx["variant"])
+
+        def pick_cat(i):  # the variant's stats at the feature's best cell
+            stk = torch.stack([at(ctx["oh_l"][i]), at(ctx["st_asc"][i]),
+                               at(ctx["st_desc"][i])])
+            return stk.gather(0, v.long()[None])[0]
+
+        lg = torch.where(cmask, pick_cat(0), lg)
+        lh = torch.where(cmask, pick_cat(1), lh)
+        lc = torch.where(cmask, pick_cat(2), lc)
+        use_left = torch.where(cmask, False, use_left)
+        variant = torch.where(cmask, v, variant)
     return FeatureBests(
         gain=at(gain), threshold_bin=bb[..., 0].to(torch.int32),
-        use_left=use_left,
-        variant=torch.full_like(bb[..., 0], -1, dtype=torch.int32),
-        left_g=lg, left_h=lh, left_c=lc)
+        use_left=use_left, variant=variant, left_g=lg, left_h=lh, left_c=lc)
+
+
+def categorical_winner_mask(hist_col, missing_bin, params: SplitParams,
+                            variant, threshold) -> torch.Tensor:
+    """The left-bin mask (C, B) of each candidate's winning categorical
+    feature, rebuilt from its (C, 3, B) histogram column: gain_plane's
+    ranks replayed for one feature (same zeroing, keys and stable sort), so
+    the per-feature search need not ship (F, B) rank planes out of the
+    round kernel."""
+    b = hist_col.shape[-1]
+    bins_idx = torch.arange(b, dtype=torch.int32, device=hist_col.device)
+    is_missing = bins_idx[None, :] == missing_bin[:, None]  # (C, B)
+    hist_nm = torch.where(is_missing[:, None], 0.0, hist_col)
+    used = (hist_nm[:, 2] > 0) & ~is_missing
+    key_asc, key_desc = _cat_keys(hist_nm[:, 0], hist_nm[:, 1], used, params)
+    t = threshold[:, None]
+    v = variant[:, None]
+    return torch.where(v == 0, bins_idx[None, :] == t,
+                       torch.where(v == 1, _ranks(key_asc)[1] <= t,
+                                   _ranks(key_desc)[1] <= t))
 
 
 def select_from_feature_best(fb: FeatureBests, parent_g, parent_h,
                              parent_count, num_bins: int,
-                             categorical_mask=None) -> BestSplit:
+                             categorical_mask=None, cand_hist=None,
+                             missing_bin_per_feature=None,
+                             params: SplitParams = SplitParams()) -> BestSplit:
     """Cross-feature half of the selection: per candidate, the first
     feature with the largest per-feature gain.  Bitwise equal to
     select_from_plane's flat argmax on the same planes (both take the first
-    (feature, bin) cell in order)."""
-    _reject_unported(categorical_mask=categorical_mask)
+    (feature, bin) cell in order).  A categorical winner's mask is replayed
+    from its column of ``cand_hist`` (C, 3, F, B)."""
     c = fb.gain.shape[0]
     best_f = torch.argmax(fb.gain, dim=1, keepdim=True)  # (C, 1)
 
@@ -264,14 +387,24 @@ def select_from_feature_best(fb: FeatureBests, parent_g, parent_h,
         return x.gather(1, best_f)[:, 0]
 
     lg, lh, lc = at(fb.left_g), at(fb.left_h), at(fb.left_c)
+    thr = at(fb.threshold_bin)
     dev = fb.gain.device
+    is_cat = torch.zeros(c, dtype=torch.bool, device=dev)
+    cat_mask = torch.zeros((c, num_bins), dtype=torch.bool, device=dev)
+    if categorical_mask is not None:
+        is_cat = categorical_mask[best_f[:, 0]]
+        col = cand_hist.gather(2, best_f[:, None, :, None].expand(
+            -1, 3, 1, cand_hist.shape[3]))[:, :, 0]  # (C, 3, B)
+        cat_mask = is_cat[:, None] & categorical_winner_mask(
+            col, missing_bin_per_feature[best_f[:, 0]], params,
+            at(fb.variant), thr)
     return BestSplit(
         gain=at(fb.gain),
         feature=best_f[:, 0].to(torch.int32),
-        threshold_bin=at(fb.threshold_bin),
+        threshold_bin=thr,
         default_left=at(fb.use_left),
-        is_cat=torch.zeros(c, dtype=torch.bool, device=dev),
-        cat_mask=torch.zeros((c, num_bins), dtype=torch.bool, device=dev),
+        is_cat=is_cat,
+        cat_mask=cat_mask,
         left_sum_g=lg,
         left_sum_h=lh,
         left_count=lc,
@@ -288,14 +421,12 @@ def find_best_split(hist, parent_sum_g, parent_sum_h, parent_count,
                     out_lo=None, out_hi=None, rng_key=None, depth=None,
                     parent_output=None, cegb_feature_penalty=None,
                     feature_contri=None) -> BestSplit:
-    """gain_plane + select_from_plane (reference: FindBestThreshold).
+    """gain_plane + the selection (reference: FindBestThreshold).
     hist (3, F, B) with scalar parents, or batched (C, 3, F, B) with (C,)
     parents.  ``depth`` only feeds the monotone penalty and is ignored."""
-    _reject_unported(categorical_mask=categorical_mask,
-                     monotone_constraints=monotone_constraints,
+    _reject_unported(monotone_constraints=monotone_constraints,
                      out_lo=out_lo, out_hi=out_hi, rng_key=rng_key,
-                     cegb_feature_penalty=cegb_feature_penalty,
-                     feature_contri=feature_contri)
+                     cegb_feature_penalty=cegb_feature_penalty)
     single = hist.dim() == 3
     if single:
         hist = hist[None]
@@ -310,8 +441,17 @@ def find_best_split(hist, parent_sum_g, parent_sum_h, parent_count,
     gain, ctx = gain_plane(hist, parent_sum_g, parent_sum_h, parent_count,
                            num_bins_per_feature, missing_bin_per_feature,
                            params, feature_mask=feature_mask,
-                           parent_output=parent_output)
-    best = select_from_plane(gain, ctx)
+                           parent_output=parent_output,
+                           categorical_mask=categorical_mask,
+                           feature_contri=feature_contri)
+    if categorical_mask is None:
+        best = select_from_plane(gain, ctx)
+    else:  # per feature first: the winner's mask is replayed from its column
+        best = select_from_feature_best(
+            reduce_plane_per_feature(gain, ctx), parent_sum_g, parent_sum_h,
+            parent_count, hist.shape[3], categorical_mask=categorical_mask,
+            cand_hist=hist, missing_bin_per_feature=missing_bin_per_feature,
+            params=params)
     if single:
         best = BestSplit(*[x[0] for x in best])
     return best

@@ -9,7 +9,9 @@ splitting the leaf with the best gain.  A step is a fixed sequence of
 device work, as the JAX package's fori_loop body is: the best leaf, the
 number of leaves and "no splittable leaf" stay on the device, and a step
 after the last useful split is a masked no-op, so a tree makes no host
-read.  The round-batched growers live in ops/treegrow_fast.py and
+read.  Categorical splits route a row left when its bin is in the
+winning subset (``cat_mask``), so missing and unseen categories go right.
+The round-batched growers live in ops/treegrow_fast.py and
 ops/treegrow_windowed.py.
 
 A round is a fixed sequence of device work: its splits are masked by
@@ -31,10 +33,10 @@ from .split import (KMIN_SCORE, BestSplit, SplitParams, find_best_split,
                     leaf_output, leaf_output_smoothed)
 
 # options of the JAX package's growers that this package does not carry yet
-# (ROADMAP queue A11; data/feature/voting modes A13): passing one raises
-UNPORTED = ("categorical_mask", "monotone_constraints", "interaction_sets",
-            "rng_key", "cegb_feature_penalty", "efb_bins", "feature_contri",
-            "forced_leaf", "cegb_lazy_penalty", "track_path", "axis_name")
+# (ROADMAP queue A11b; data/feature/voting modes A13): passing one raises
+UNPORTED = ("monotone_constraints", "interaction_sets", "rng_key",
+            "cegb_feature_penalty", "efb_bins", "forced_leaf",
+            "cegb_lazy_penalty", "track_path", "axis_name")
 
 
 def reject_unported(who: str, options: dict) -> None:
@@ -44,7 +46,7 @@ def reject_unported(who: str, options: dict) -> None:
         v = options.pop(name, None)
         if v is not None and v is not False:
             raise ValueError(f"{who}: {name} is not ported to "
-                             "lightgbm_tpu_torch yet (ROADMAP queue A11/A13)")
+                             "lightgbm_tpu_torch yet (ROADMAP queue A11b/A13)")
     if options:
         raise TypeError(f"unexpected options: {sorted(options)}")
 
@@ -119,6 +121,19 @@ def _put(arr: torch.Tensor, idx: torch.Tensor, val) -> torch.Tensor:
     return ext[:n]
 
 
+def go_left_of(col, missing_bin, default_left, threshold_bin, is_cat=None,
+               cat_mask=None):
+    """Each row's direction at its split: a numerical split sends bin <=
+    threshold left and the missing bin its default way; a categorical one
+    (``is_cat``) sends the bins of its ``cat_mask`` left (reference:
+    Tree::CategoricalDecision; missing and unseen categories go right).
+    ``cat_mask`` is the row's mask row, or a gather of it; col (N,) i32."""
+    gl = torch.where(col == missing_bin, default_left, col <= threshold_bin)
+    if is_cat is None:
+        return gl
+    return torch.where(is_cat, cat_mask, gl)
+
+
 def _splittable(gain, leaf_depth, max_depth: int) -> torch.Tensor:
     can = gain > KMIN_SCORE / 2
     if max_depth > 0:
@@ -166,11 +181,14 @@ def empty_tree(num_leaves: int, num_bins: int, device) -> TreeArrays:
 
 
 def book_tree(t: TreeArrays, accept, node_of, right_of, leaf_parent, leaf_side,
-              s: BestSplit, leaf_out, leaf_sum_h, leaf_count) -> TreeArrays:
+              s: BestSplit, leaf_out, leaf_sum_h, leaf_count,
+              categorical: bool = False) -> TreeArrays:
     """The node arrays after the admitted splits: each admitted leaf's node
     (slot node_of) takes its split and the leaf's output and sums, its
     children are ~leaf (the left keeps the id) and ~right_of, and the
-    parent's child slot is re-pointed from ~leaf to the node."""
+    parent's child slot is re-pointed from ~leaf to the node.
+    ``categorical``: book is_cat and cat_mask too (they stay False
+    otherwise)."""
     L = accept.shape[0]
     drop = -1  # _put's index of the spare slot
     idx = torch.arange(L, dtype=torch.int64, device=accept.device)
@@ -180,6 +198,9 @@ def book_tree(t: TreeArrays, accept, node_of, right_of, leaf_parent, leaf_side,
     lc_t = _put(t.left_child, torch.where(repoint_l, leaf_parent, drop), safe_node)
     rc_t = _put(t.right_child, torch.where(repoint_r, leaf_parent, drop), safe_node)
     node_pos = torch.where(accept, node_of, drop)
+    if categorical:
+        t = t._replace(is_cat=_put(t.is_cat, node_pos, s.is_cat),
+                       cat_mask=_put(t.cat_mask, node_pos, s.cat_mask))
     return t._replace(
         split_feature=_put(t.split_feature, node_pos, s.feature),
         threshold_bin=_put(t.threshold_bin, node_pos, s.threshold_bin),
@@ -249,6 +270,8 @@ def grow_tree(
     max_depth: int = -1,
     params: SplitParams = SplitParams(),
     stats: Optional[dict] = None,
+    categorical_mask: Optional[torch.Tensor] = None,  # (F,) bool
+    feature_contri: Optional[torch.Tensor] = None,  # (F,) f32
     **options,
 ) -> tuple[TreeArrays, torch.Tensor]:
     """Grow one tree best-first, one split a step; returns (tree, final
@@ -268,14 +291,15 @@ def grow_tree(
         try:
             return _grow(bins, grad, hess, row_mask, sample_weight, feature_mask,
                          num_bins_per_feature, missing_bin_per_feature,
-                         num_leaves, num_bins, max_depth, params)
+                         num_leaves, num_bins, max_depth, params,
+                         categorical_mask, feature_contri)
         finally:
             if stats is not None:
                 stats.update(counter.stats(), retries=0, windows=[])
 
 
 def _grow(bins, grad, hess, row_mask, sample_weight, feature_mask, nbpf, mbpf,
-          L, num_bins, max_depth, params):
+          L, num_bins, max_depth, params, cmask, contri):
     dev = bins.device
     n, f = bins.shape
     grad = grad.float() * sample_weight
@@ -291,7 +315,8 @@ def _grow(bins, grad, hess, row_mask, sample_weight, feature_mask, nbpf, mbpf,
 
     def best_for(hist, g, h, c, depth, parent_out) -> BestSplit:
         s = find_best_split(hist, g, h, c, nbpf, mbpf, params,
-                            feature_mask=feature_mask, parent_output=parent_out)
+                            feature_mask=feature_mask, parent_output=parent_out,
+                            categorical_mask=cmask, feature_contri=contri)
         if max_depth > 0:  # reference: the max_depth check of BeforeFindBestSplit
             s = s._replace(gain=torch.where(depth >= max_depth, KMIN_SCORE, s.gain))
         return s
@@ -333,8 +358,10 @@ def _grow(bins, grad, hess, row_mask, sample_weight, feature_mask, nbpf, mbpf,
         # ---- partition: an elementwise leaf_id update ----
         feat = s.feature.long()
         fcol = bins.index_select(1, feat.reshape(1))[:, 0].to(torch.int32)
-        miss = fcol == mbpf.index_select(0, feat.reshape(1))
-        go_left = torch.where(miss, s.default_left, fcol <= s.threshold_bin)
+        go_left = go_left_of(
+            fcol, mbpf.index_select(0, feat.reshape(1)), s.default_left,
+            s.threshold_bin, *((s.is_cat, s.cat_mask[fcol.long()])
+                               if cmask is not None else ()))
         moves = can & (leaf_id == best_leaf) & ~go_left
         leaf_id = torch.where(moves, new_leaf.to(torch.int32), leaf_id)
 
@@ -351,7 +378,7 @@ def _grow(bins, grad, hess, row_mask, sample_weight, feature_mask, nbpf, mbpf,
         accept = can & (idx == best_leaf)
         tree = book_tree(tree, accept, node.expand(L), new_leaf.expand(L),
                          leaf_parent, leaf_side, best, leaf_out, leaf_sum_h,
-                         leaf_count)
+                         leaf_count, categorical=cmask is not None)
         parent_out = leaf_out.index_select(0, bl)[0]
         out_l = leaf_output_smoothed(s.left_sum_g, s.left_sum_h, s.left_count,
                                      parent_out, params)

@@ -20,11 +20,13 @@ read while the next round runs.  With ``graphs`` (ops/graphs.py; GBDT
 passes one on its fused path) each round is one run of the same round
 function on static buffers, on the card one CUDA-graph replay.
 
-Supported: numerical splits, missing values, max_depth, bagging masks and
-sample weights, path smoothing, float and int8-quantized histograms
-(quantize_bins, stochastic_rounding, quant_renew).  Monotone, interaction
-and CEGB constraints, forced splits, EFB bundles, linear trees, categorical
-splits and per-node sampling raise ValueError (ROADMAP queue A11).
+Supported: numerical and categorical splits, missing values, max_depth,
+bagging masks and sample weights, path smoothing, feature_contri, float,
+bf16 (``hist_precision``: grad and hess rounded to bfloat16 once a tree,
+summed exactly) and int8-quantized histograms (quantize_bins,
+stochastic_rounding, quant_renew).  Monotone, interaction and CEGB
+constraints, forced splits, EFB bundles, linear trees and per-node sampling
+raise ValueError (ROADMAP queue A11b).
 """
 
 from __future__ import annotations
@@ -40,7 +42,7 @@ from .round_cuda import split_window
 from .split import BestSplit, SplitParams, find_best_split, leaf_output, leaf_output_smoothed
 from .treegrow import (TreeArrays, _empty_best, _put, _set_best, admit,
                        admits_next, book_tree, empty_tree, finish_tree,
-                       quantize_gradients, reject_unported)
+                       go_left_of, quantize_gradients, reject_unported)
 from .treegrow_windowed import _run_fused_rounds, round_runner
 
 class FState(NamedTuple):
@@ -61,7 +63,7 @@ class FState(NamedTuple):
 
 class FInputs(NamedTuple):
     """A tree's inputs to its rounds (the static buffers' second part)."""
-    grad: torch.Tensor
+    grad: torch.Tensor  # f32, or bf16 under hist_precision=bf16
     hess: torch.Tensor
     gq: Optional[torch.Tensor]
     hq: Optional[torch.Tensor]
@@ -71,9 +73,11 @@ class FInputs(NamedTuple):
 
 
 def predict_leaf_arrays(arrays: TreeArrays, bins: torch.Tensor,
-                        missing_bin_per_feature: torch.Tensor) -> torch.Tensor:
+                        missing_bin_per_feature: torch.Tensor,
+                        categorical: bool = False) -> torch.Tensor:
     """Leaf index per row for a device tree on binned rows (host analogue:
-    Tree::GetLeafIndex).  Children encode leaves as ~leaf."""
+    Tree::GetLeafIndex).  Children encode leaves as ~leaf.  ``categorical``:
+    the tree may hold categorical nodes (their bin-space masks route)."""
     n = bins.shape[0]
     L = arrays.leaf_value.shape[0]
     # a one-leaf tree starts every row at leaf 0 (~(-1)): nothing is read back
@@ -85,15 +89,16 @@ def predict_leaf_arrays(arrays: TreeArrays, bins: torch.Tensor,
         nd = cur.clamp(0, max(L - 2, 0))
         ft = sf[nd]
         col = bins.gather(1, ft[:, None])[:, 0].to(torch.int32)
-        miss = col == missing_bin_per_feature[ft]
-        gl = torch.where(miss, arrays.default_left[nd],
-                         col <= arrays.threshold_bin[nd])
+        gl = go_left_of(col, missing_bin_per_feature[ft], arrays.default_left[nd],
+                        arrays.threshold_bin[nd],
+                        *((arrays.is_cat[nd], arrays.cat_mask[nd, col.long()])
+                          if categorical else ()))
         cur = torch.where(cur >= 0, torch.where(gl, lc[nd], rc[nd]), cur)
     return (-cur - 1).to(torch.int32)
 
 
 def _multi_hist(bins, inp: FInputs, leaf_slot, tile: int, num_bins: int,
-                quantize_bins: int) -> torch.Tensor:
+                quantize_bins: int, hist_precision: str) -> torch.Tensor:
     """(N,)-slot -> (tile, 3, F, B) f32: per-slot histograms, one pass."""
     m = inp.row_mask & (leaf_slot >= 0)
     if quantize_bins:
@@ -101,13 +106,14 @@ def _multi_hist(bins, inp: FInputs, leaf_slot, tile: int, num_bins: int,
                                        tile, num_bins)
         return hi.float() * inp.quant_scale[:, None, None]
     return histogram_multi(bins, inp.grad, inp.hess, m, leaf_slot, 0, tile,
-                           num_bins)
+                           num_bins, precision=hist_precision)
 
 
 def _f_init(bins, grad, hess, row_mask, sample_weight, feature_mask, nbpf, mbpf,
             *, num_leaves: int, num_bins: int, params: SplitParams,
             quantize_bins: int, stochastic_rounding: bool,
-            generator: Optional[torch.Generator], hist=None):
+            generator: Optional[torch.Generator], hist_precision: str = "f32",
+            categorical_mask=None, feature_contri=None, hist=None):
     """Root state: quantize gradients, the root pass, seed best.  ``hist``:
     the (L + 1, 3, F, B) buffer for the histogram state, else a new one.
     Returns (state, FInputs, grad_true, hess_true)."""
@@ -121,16 +127,19 @@ def _f_init(bins, grad, hess, row_mask, sample_weight, feature_mask, nbpf, mbpf,
     if quantize_bins:
         gq, hq, grad, hess, quant_scale = quantize_gradients(
             grad, hess, row_mask, quantize_bins, stochastic_rounding, generator)
+    elif hist_precision == "bf16":  # rounded once, as the payload is built
+        grad, hess = grad.to(torch.bfloat16), hess.to(torch.bfloat16)
     inputs = FInputs(grad, hess, gq, hq, quant_scale, row_mask, feature_mask)
     minus1 = torch.full((n,), -1, dtype=torch.int32, device=dev)
     hist0 = _multi_hist(bins, inputs, torch.where(row_mask, 0, minus1), 1,
-                        num_bins, quantize_bins)[0]
+                        num_bins, quantize_bins, hist_precision)[0]
     g0, h0, c0 = torch.sum(hist0[:, 0, :], dim=1)  # totals from feature 0
     leaf_out0 = leaf_output(g0, h0, params)
     best = _empty_best(L, num_bins, dev)
     _set_best(best, torch.zeros(1, dtype=torch.int64, device=dev), find_best_split(
         hist0[None], g0[None], h0[None], c0[None], nbpf, mbpf, params,
-        feature_mask=feature_mask, parent_output=leaf_out0[None]))
+        feature_mask=feature_mask, parent_output=leaf_out0[None],
+        categorical_mask=categorical_mask, feature_contri=feature_contri))
 
     def zeros(shape, dtype=torch.float32):
         return torch.zeros(shape, dtype=dtype, device=dev)
@@ -157,9 +166,9 @@ def _f_init(bins, grad, hess, row_mask, sample_weight, feature_mask, nbpf, mbpf,
     return state, inputs, grad_true, hess_true
 
 
-def _round(st: FState, bins, inp: FInputs, nbpf, mbpf, *, num_leaves: int,
-           num_bins: int, max_depth: int, params: SplitParams, leaf_tile: int,
-           quantize_bins: int):
+def _round(st: FState, bins, inp: FInputs, nbpf, mbpf, cmask=None, contri=None, *,
+           num_leaves: int, num_bins: int, max_depth: int, params: SplitParams,
+           leaf_tile: int, quantize_bins: int, hist_precision: str = "f32"):
     """One masked fixed-tile round; returns (state', info) with info =
     [k_acc, 0, 1, 0, finite, k_next] (i32, on the device; the windowed
     round's layout, whose window fields this round has no use for)."""
@@ -183,13 +192,15 @@ def _round(st: FState, bins, inp: FInputs, nbpf, mbpf, *, num_leaves: int,
     r_row = torch.where(accept, right_of, -1)[lid]
     feat_row = s.feature.long()[lid]
     col = bins.gather(1, feat_row[:, None])[:, 0].to(torch.int32)
-    miss = col == mbpf[feat_row]
-    gl = torch.where(miss, s.default_left[lid], col <= s.threshold_bin[lid])
+    gl = go_left_of(col, mbpf[feat_row], s.default_left[lid], s.threshold_bin[lid],
+                    *((s.is_cat[lid], s.cat_mask[lid, col.long()])
+                      if cmask is not None else ()))
     leaf_id = torch.where((r_row >= 0) & ~gl, r_row.to(torch.int32), st.leaf_id)
 
     # ---------- tree and leaf bookkeeping (left keeps the id) ----------
     tree = book_tree(st.tree, accept, node_of, right_of, st.leaf_parent,
-                     st.leaf_side, s, st.leaf_out, st.leaf_sum_h, st.leaf_count)
+                     st.leaf_side, s, st.leaf_out, st.leaf_sum_h, st.leaf_count,
+                     categorical=cmask is not None)
     right_pos = torch.where(accept, right_of, drop)
 
     def upd(arr, left_val, right_val):
@@ -216,7 +227,7 @@ def _round(st: FState, bins, inp: FInputs, nbpf, mbpf, *, num_leaves: int,
     slot_of_leaf = _put(torch.full((L,), -1, dtype=torch.int64, device=dev),
                         torch.where(accept, small, drop), acc_rank)
     fresh = _multi_hist(bins, inp, slot_of_leaf[leaf_id.long()].to(torch.int32),
-                        T, num_bins, quantize_bins)  # (T, 3, F, B)
+                        T, num_bins, quantize_bins, hist_precision)  # (T, 3, F, B)
     # per admission rank: the split leaf (the left child keeps its id), the
     # right child, and which one the pass histogrammed
     pos_r = torch.where(accept, acc_rank, -1)
@@ -239,7 +250,8 @@ def _round(st: FState, bins, inp: FInputs, nbpf, mbpf, *, num_leaves: int,
     ci = torch.where(cand_ok, cand, 0)
     bb = find_best_split(torch.cat([left_h, right_h]), leaf_sum_g[ci],
                          leaf_sum_h[ci], leaf_count[ci], nbpf, mbpf, params,
-                         feature_mask=inp.feature_mask, parent_output=leaf_out[ci])
+                         feature_mask=inp.feature_mask, parent_output=leaf_out[ci],
+                         categorical_mask=cmask, feature_contri=contri)
     scatter_pos = torch.where(cand_ok, cand, drop)
     best = BestSplit(*[_put(o, scatter_pos, nw) for o, nw in zip(s, bb)])
 
@@ -300,6 +312,9 @@ def grow_tree_fast(
     stats: Optional[dict] = None,
     guard_label: str = "",
     graphs: Optional[RoundGraphs] = None,
+    hist_precision: str = "f32",
+    categorical_mask: Optional[torch.Tensor] = None,  # (F,) bool
+    feature_contri: Optional[torch.Tensor] = None,  # (F,) f32
     **options,
 ) -> tuple[TreeArrays, torch.Tensor]:
     """Grow one tree in rounds; returns (tree, final leaf_id per row).
@@ -313,14 +328,19 @@ def grow_tree_fast(
     CUDA-graph replay a round on the card).  ``stats`` receives the
     utils/sanitizer.py counts of the tree and the driver's retries."""
     reject_unported("grow_tree_fast", options)
+    if hist_precision not in ("f32", "bf16"):
+        raise ValueError(f"hist_precision must be f32 or bf16, got {hist_precision!r}")
     tile = max(1, min(leaf_tile, num_leaves))
     static = dict(num_leaves=num_leaves, num_bins=num_bins, max_depth=max_depth,
-                  params=params, leaf_tile=tile, quantize_bins=quantize_bins)
-    fixed = (bins, num_bins_per_feature, missing_bin_per_feature)
+                  params=params, leaf_tile=tile, quantize_bins=quantize_bins,
+                  hist_precision=hist_precision)
+    tables = (categorical_mask, feature_contri)
+    fixed = (bins, num_bins_per_feature, missing_bin_per_feature,
+             *(t for t in tables if t is not None))
 
     def round_fn(st, inp: FInputs, _W):
         return _round(st, bins, inp, num_bins_per_feature,
-                      missing_bin_per_feature, **static)
+                      missing_bin_per_feature, *tables, **static)
 
     with _san.DispatchCounter() as counter:
         try:
@@ -332,7 +352,8 @@ def grow_tree_fast(
                 num_leaves=num_leaves, num_bins=num_bins, params=params,
                 quantize_bins=quantize_bins,
                 stochastic_rounding=stochastic_rounding, generator=generator,
-                hist=hist)
+                hist_precision=hist_precision, categorical_mask=categorical_mask,
+                feature_contri=feature_contri, hist=hist)
             state = _run_fused_rounds(
                 round_runner(round_fn, state, inputs, fixed,
                              ("rounds",) + tuple(static.items()), graphs),

@@ -53,11 +53,13 @@ State updates are functional but for the (L + 1, 3, F, B) histogram state,
 which is written in place (row L is a spare that takes the writes of
 inactive slots).  Trees do not depend on W: it only bounds the window.
 
-Scope: numerical features, missing values, max_depth, bagging masks and
-sample weights, float and int8-quantized gradients.  EFB bundles,
-categorical splits, per-node feature sampling and feature_contri raise
-(ROADMAP A11).  The obs spans and counters of the JAX driver wait for
-ROADMAP A14.
+Scope: numerical and categorical features (a categorical split routes the
+bins of its mask left), missing values, max_depth, bagging masks and
+sample weights, feature_contri, float and int8-quantized gradients, and
+hist_precision=bf16 in the root pass and the three-pass window pass (the
+megakernel's window pass sums f32, as the JAX package's does).  EFB
+bundles (ROADMAP A2) and per-node feature sampling (A11b) raise.  The obs spans
+and counters of the JAX round loop wait for ROADMAP A14.
 """
 
 from __future__ import annotations
@@ -78,10 +80,10 @@ from .round_cuda import round_megakernel, split_window, window_histograms
 from .split import (KMIN_SCORE, BestSplit, SplitParams, find_best_split,
                     leaf_output, select_from_feature_best)
 from .treegrow import (TreeArrays, _empty_best, _put, _set_best, admit,
-                       admits_next, book_tree, empty_tree, quantize_gradients)
+                       admits_next, book_tree, empty_tree, go_left_of,
+                       quantize_gradients)
 
-_UNPORTED = ("rng_key", "categorical_mask", "efb_bins_t", "efb_gather",
-             "efb_default", "feature_contri")
+_UNPORTED = ("rng_key", "efb_bins_t", "efb_gather", "efb_default")
 
 
 class WState(NamedTuple):
@@ -138,10 +140,11 @@ def _window_size(x: int, n: int, floor: int = 8192) -> int:
 
 
 def _round_fused(state: WState, bins, grad, hess, gq, hq, quant_scale,
-                 row_mask, num_bins_pf, missing_bin_pf, feature_mask, *,
-                 num_leaves: int, num_bins: int, max_depth: int,
+                 row_mask, num_bins_pf, missing_bin_pf, feature_mask, cmask=None,
+                 contri=None, *, num_leaves: int, num_bins: int, max_depth: int,
                  params: SplitParams, leaf_tile: int, W: int,
-                 quantize_bins: int, megakernel: bool, shift: torch.Tensor):
+                 quantize_bins: int, megakernel: bool, shift: torch.Tensor,
+                 hist_precision: str = "f32"):
     """One whole boosting round; returns (state', info) with info = [k_acc,
     window_total, fits_W, whint, finite, k_next] (i32, on the device)."""
     L, T = num_leaves, leaf_tile
@@ -171,7 +174,9 @@ def _round_fused(state: WState, bins, grad, hess, gq, hq, quant_scale,
     thr = s.threshold_bin[leaf_of_rank][sid]
     dl = s.default_left[leaf_of_rank][sid]
     mb = missing_bin_pf[feats_rk][sid]
-    go_left = torch.where(col == mb, dl, col <= thr)
+    go_left = go_left_of(col, mb, dl, thr, *(
+        (s.is_cat[leaf_of_rank][sid], s.cat_mask[leaf_of_rank][sid, col.long()])
+        if cmask is not None else ()))
 
     # ---- on-device window verification ----
     # segments are contiguous position ranges: differences of one prefix sum
@@ -251,7 +256,8 @@ def _round_fused(state: WState, bins, grad, hess, gq, hq, quant_scale,
             seg_start.to(i32), seg_len_eff.to(i32), n_left_seg.to(i32),
             win_start.to(i32), win_cnt.to(i32), slot_small_left.to(i32),
             parent_hists, cand_tab, num_bins_pf, missing_bin_pf, feature_mask,
-            params=params, W=W, shift=shift)
+            params=params, W=W, shift=shift, categorical_mask=cmask,
+            feature_contri=contri)
     else:
         new_order, _ = partition_segments(state.order, seg_start.to(i32),
                                           seg_len_eff.to(i32), go_left)
@@ -268,7 +274,7 @@ def _round_fused(state: WState, bins, grad, hess, gq, hq, quant_scale,
     # ---- tree arrays ----
     tree = book_tree(state.tree, accept, node_of, right_of, state.leaf_parent,
                      state.leaf_side, s, state.leaf_out, state.leaf_sum_h,
-                     state.leaf_count)
+                     state.leaf_count, categorical=cmask is not None)
     best = s._replace(gain=torch.where(fresh, KMIN_SCORE, s.gain))
 
     # ---- three-pass: window gather -> multi-leaf pass -> subtraction ----
@@ -280,7 +286,7 @@ def _round_fused(state: WState, bins, grad, hess, gq, hq, quant_scale,
                                         *geo).float() * quant_scale[:, None, None]
         else:
             fresh_h = window_histograms(histogram_multi, *win, (grad, hess), *geo,
-                                        shift=shift)
+                                        shift=shift, precision=hist_precision)
         left_h, right_h = split_window(parent_hists, fresh_h, slot_small_left)
 
     spare = L  # inactive slots write the spare row
@@ -290,12 +296,16 @@ def _round_fused(state: WState, bins, grad, hess, gq, hq, quant_scale,
     # ---- fresh-leaf split search ----
     pg, ph, pc = leaf_sum_g[ci], leaf_sum_h[ci], leaf_count[ci]
     if megakernel:
-        bb = select_from_feature_best(fbests, pg, ph, pc, num_bins)
+        bb = select_from_feature_best(
+            fbests, pg, ph, pc, num_bins, categorical_mask=cmask,
+            cand_hist=None if cmask is None else torch.cat([left_h, right_h]),
+            missing_bin_per_feature=missing_bin_pf, params=params)
     else:
         bb = find_best_split(torch.cat([left_h, right_h]), pg, ph, pc,
                              num_bins_pf, missing_bin_pf, params,
                              feature_mask=feature_mask,
-                             parent_output=leaf_out[ci])
+                             parent_output=leaf_out[ci], categorical_mask=cmask,
+                             feature_contri=contri)
     scatter_pos = torch.where(cand_ok, cand, drop)
     best = BestSplit(*[_put(o, scatter_pos, nw) for o, nw in zip(best, bb)])
 
@@ -325,7 +335,8 @@ def _round_fused(state: WState, bins, grad, hess, gq, hq, quant_scale,
 def _w_init(bins, grad, hess, row_mask, sample_weight, num_bins_pf,
             missing_bin_pf, feature_mask, *, num_leaves: int, num_bins: int,
             params: SplitParams, quantize_bins: int, stochastic_rounding: bool,
-            generator: Optional[torch.Generator], hist=None):
+            generator: Optional[torch.Generator], hist_precision: str = "f32",
+            categorical_mask=None, feature_contri=None, hist=None):
     """Root state: quantize gradients, the one full-N pass, seed best.
     ``hist``: the (L + 1, 3, F, B) buffer to hold the histogram state (the
     static one of a graph cache), else a new one.  Returns (state, WInputs,
@@ -348,13 +359,14 @@ def _w_init(bins, grad, hess, row_mask, sample_weight, num_bins_pf,
                                           num_bins)[0].float() * quant_scale[:, None, None]
     else:
         hist0 = histogram_multi(bins, grad, hess, row_mask, slot0, 0, 1,
-                                num_bins, shift=shift)[0]
+                                num_bins, shift=shift, precision=hist_precision)[0]
     g0, h0, c0 = torch.sum(hist0[:, 0, :], dim=1)  # totals from feature 0
     leaf_out0 = leaf_output(g0, h0, params)
     best = _empty_best(L, num_bins, dev)
     _set_best(best, torch.zeros(1, dtype=torch.int64, device=dev), find_best_split(
         hist0[None], g0[None], h0[None], c0[None], num_bins_pf, missing_bin_pf,
-        params, feature_mask=feature_mask, parent_output=leaf_out0[None]))
+        params, feature_mask=feature_mask, parent_output=leaf_out0[None],
+        categorical_mask=categorical_mask, feature_contri=feature_contri))
 
     def zeros(shape, dtype=torch.float32):
         return torch.zeros(shape, dtype=dtype, device=dev)
@@ -551,6 +563,9 @@ def grow_tree_windowed(
     guard_label: str = "",
     megakernel_opt: Optional[str] = None,
     graphs: Optional[RoundGraphs] = None,
+    hist_precision: str = "f32",
+    categorical_mask: Optional[torch.Tensor] = None,  # (F,) bool
+    feature_contri: Optional[torch.Tensor] = None,  # (F,) f32
     **options,
 ) -> tuple[TreeArrays, torch.Tensor]:
     """Grow one tree with windowed rounds; returns (tree, leaf_id per row).
@@ -564,7 +579,7 @@ def grow_tree_windowed(
         v = options.pop(name, None)
         if v is not None and v is not False:
             raise ValueError(f"grow_tree_windowed: {name} is not ported to "
-                             "lightgbm_tpu_torch yet (ROADMAP A11)")
+                             "lightgbm_tpu_torch yet (ROADMAP A11b, EFB A2)")
     if options:
         raise TypeError(f"unexpected options: {sorted(options)}")
     if feature_mask is None:
@@ -575,14 +590,16 @@ def grow_tree_windowed(
     tile = max(1, min(leaf_tile, num_leaves))
     static = dict(num_leaves=num_leaves, num_bins=num_bins, max_depth=max_depth,
                   params=params, leaf_tile=tile, quantize_bins=quantize_bins,
-                  megakernel=mk)
-    fixed = (bins, num_bins_per_feature, missing_bin_per_feature)
+                  megakernel=mk, hist_precision=hist_precision)
+    tables = (categorical_mask, feature_contri)
+    fixed = (bins, num_bins_per_feature, missing_bin_per_feature,
+             *(t for t in tables if t is not None))
 
     def round_fn(st, inp: WInputs, W):
         return _round_fused(
             st, bins, inp.grad, inp.hess, inp.gq, inp.hq, inp.quant_scale,
             inp.row_mask, num_bins_per_feature, missing_bin_per_feature,
-            inp.feature_mask, W=W, shift=inp.shift, **static)
+            inp.feature_mask, *tables, W=W, shift=inp.shift, **static)
 
     with _san.DispatchCounter() as counter:
         try:
@@ -593,7 +610,8 @@ def grow_tree_windowed(
                 missing_bin_per_feature, feature_mask, num_leaves=num_leaves,
                 num_bins=num_bins, params=params, quantize_bins=quantize_bins,
                 stochastic_rounding=stochastic_rounding, generator=generator,
-                hist=hist)
+                hist_precision=hist_precision, categorical_mask=categorical_mask,
+                feature_contri=feature_contri, hist=hist)
             n = bins.shape[0]
             # round 1 needs no feedback: a round's window (the small
             # children) can never exceed floor(N/2) rows, whatever it admits

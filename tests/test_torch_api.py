@@ -362,8 +362,16 @@ def test_dataset_reference_chain_subset_and_added_features():
         assert bst.num_trees() == 2
     with pytest.raises(NotImplementedError, match="A2"):
         d1.save_binary("never_written.bin")
-    with pytest.raises(NotImplementedError, match="A11"):
-        tlgb.Dataset(X).set_categorical_feature([0])
+    # categorical features are set before construction only (A11); linear
+    # trees still raise (A11b)
+    late = tlgb.Dataset(X, label=y, free_raw_data=False, params=CPU)
+    assert late.set_categorical_feature([0]).categorical_feature == [0]
+    late.construct()
+    with pytest.raises(tlgb.basic.LightGBMError, match="categorical"):
+        late.set_categorical_feature([1])
+    with pytest.raises(ValueError, match="linear_tree"):
+        tlgb.train({**CPU, "objective": "binary", "linear_tree": True},
+                   tlgb.Dataset(X, label=y, params=CPU), 1)
 
 
 def test_refit_matches_jax(binary_pair):

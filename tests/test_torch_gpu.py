@@ -100,7 +100,8 @@ def test_training_on_card_launches_the_kernel():
     hc.reset_counts()
     bst = tlgb.train(p, tlgb.Dataset(X, label=y, params=p), 5)
     assert hc.launches["histogram_multi"] >= 5
-    assert hc.plain_calls == {"histogram_multi": 0, "histogram_multi_quantized": 0}
+    assert hc.plain_calls == {"histogram_multi": 0, "histogram_multi_bf16": 0,
+                              "histogram_multi_quantized": 0}
     pc = {**p, "device_type": "cpu"}
     ref = tlgb.train(pc, tlgb.Dataset(X, label=y, params=pc), 5)
     np.testing.assert_allclose(bst.predict(X), ref.predict(X), atol=1e-4)
@@ -821,3 +822,138 @@ def test_pred_leaf_and_early_stop_on_card_match_cpu():
     full = card.predict(X, raw_score=True)
     running = np.abs(r_card) < 2.0
     np.testing.assert_array_equal(r_card[running], full[running])
+
+
+# ---------------------------------------------------------------------------
+# categorical features, feature_contri and hist_precision=bf16
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("n,f,b,tile,base", [
+    (1, 1, 2, 1, 0), (5003, 39, 256, 16, 3), (200_000, 39, 256, 16, 0),
+    (70_001, 130, 63, 16, 2)])
+def test_bf16_histogram_matches_plain(n, f, b, tile, base):
+    """B1's bf16 mode bit for bit against its plain version, with the
+    exponents derived from the rounded values and given by the caller."""
+    from lightgbm_tpu_torch.ops import hist_cuda as hc
+
+    dev = _card()
+    x = _inputs(dev, n, f, b, base + tile + 2)
+    args = (x["bins"], x["grad"], x["hess"], x["mask"], x["slot"], base, tile, b)
+    hc.reset_counts()
+    k = hc.histogram_multi(*args, precision="bf16")
+    assert hc.launches["histogram_multi_bf16"] == 1 and hc.launches["histogram_multi"] == 0
+    assert torch.equal(k, hc.histogram_multi_plain(*args, precision="bf16"))
+    shift = hc.fixed_shift_tensor(x["grad"], x["hess"])
+    assert torch.equal(hc.histogram_multi(*args, shift=shift, precision="bf16"),
+                       hc.histogram_multi_plain(*args, shift=shift, precision="bf16"))
+
+
+@pytest.mark.parametrize("mode", ["categorical", "contri", "both"])
+def test_round_kernel_categorical_and_contri_match_plain(mode):
+    """B3's categorical and feature_contri modes bit for bit against the
+    plain version: per-feature bests, variants included."""
+    from lightgbm_tpu_torch.ops import round_cuda as rc
+    from lightgbm_tpu_torch.ops.split import SplitParams
+
+    dev = _card()
+    args = _round_case(dev)
+    f = args[0].shape[1]
+    g = torch.Generator(device="cpu").manual_seed(3)
+    cmask = (torch.rand(f, generator=g) < 0.4).to(dev)
+    contri = (torch.rand(f, generator=g) * 1.6 - 0.1).to(dev)
+    extra = {"categorical": dict(categorical_mask=cmask),
+             "contri": dict(feature_contri=contri),
+             "both": dict(categorical_mask=cmask, feature_contri=contri)}[mode]
+    for prm in (SplitParams(min_data_in_leaf=20, lambda_l2=1.0),
+                SplitParams(min_data_in_leaf=5, lambda_l1=0.2, max_delta_step=0.5,
+                            cat_smooth=2.0, cat_l2=1.0, max_cat_threshold=6,
+                            max_cat_to_onehot=8)):
+        kw = dict(params=prm, W=32768, shift=(30, 30), **extra)
+        ko = rc.round_megakernel(*args, **kw)
+        po = rc.round_megakernel_plain(*args, **kw)
+        for a, b in zip(ko[:3], po[:3]):
+            assert torch.equal(a, b)
+        for name in ko[3]._fields:
+            assert torch.equal(getattr(ko[3], name), getattr(po[3], name)), name
+        if "categorical_mask" in extra:
+            assert bool((ko[3].variant[:, cmask] >= 0).all())
+
+
+def _categorical_rows(n=40_000, seed=6):
+    rng = np.random.RandomState(seed)
+    X = rng.randn(n, 8)
+    X[:, 0] = rng.randint(0, 40, n)
+    X[:, 1] = rng.randint(0, 4, n)
+    X[rng.rand(n) < 0.1, 0] = np.nan
+    eff = rng.randn(40)
+    y = (eff[np.nan_to_num(X[:, 0]).astype(int)] + (X[:, 1] == 2) + X[:, 2]
+         + rng.randn(n) > 0.5).astype(float)
+    return X, y
+
+
+def test_categorical_training_graph_equals_eager_and_reads_nothing(monkeypatch):
+    """Categorical features on the rounds grower: graph and eager training
+    give the same model text, every round of the graph run is one replay,
+    no tree makes a blocking read, and every round body (captured or
+    eager) runs under torch's sync debug mode set to raise; the card's
+    trees predict as the CPU's."""
+    import lightgbm_tpu_torch as tlgb
+    from lightgbm_tpu_torch.ops import treegrow_fast as tf
+
+    _card()
+    monkeypatch.setattr(tf, "_round", _sync_error(tf._round))
+    X, y = _categorical_rows()
+    p = {"objective": "binary", "num_leaves": 31, "verbosity": -1,
+         "tree_growth_mode": "rounds", "feature_contri": [1.0, 1.0, 0.7]}
+    out = []
+    for fused in (True, False):
+        q = {**p, "fused_training": fused}
+        bst = tlgb.train(q, tlgb.Dataset(X, label=y, categorical_feature=[0, 1],
+                                         params=q), 5)
+        out.append((bst, bst._gbdt.round_stats))
+    (gb, g_stats), (eb, e_stats) = out
+    assert gb.model_to_string() == eb.model_to_string()
+    assert sum(t.num_cat for t in gb._gbdt.models) > 0
+    assert all(s["replays"] == s["rounds"] for s in g_stats)
+    assert all(s["host_syncs"] == 0 for s in g_stats + e_stats)
+    cpu = {**p, "device_type": "cpu"}
+    ref = tlgb.train(cpu, tlgb.Dataset(X, label=y, categorical_feature=[0, 1],
+                                       params=cpu), 5)
+    np.testing.assert_allclose(gb.predict(X[:5000]), ref.predict(X[:5000]), atol=1e-4)
+
+
+def test_bf16_training_launches_the_bf16_kernel():
+    import lightgbm_tpu_torch as tlgb
+    from lightgbm_tpu_torch.ops import hist_cuda as hc
+
+    _card()
+    X, y = _categorical_rows(seed=8)
+    p = {"objective": "binary", "num_leaves": 31, "verbosity": -1,
+         "hist_precision": "bf16", "tree_growth_mode": "rounds"}
+    hc.reset_counts()
+    bst = tlgb.train(p, tlgb.Dataset(X, label=y, categorical_feature=[0, 1], params=p), 3)
+    assert hc.launches["histogram_multi"] == 0
+    assert hc.launches["histogram_multi_bf16"] >= 3
+    assert not any(hc.plain_calls.values())
+    assert bst._gbdt._leaf_tile == 16
+
+
+def test_windowed_categorical_megakernel_equals_three_pass():
+    """The windowed grower with categorical features: the megakernel's
+    categorical mode against the three-pass round, the same trees."""
+    import lightgbm_tpu_torch as tlgb
+    from lightgbm_tpu_torch.ops import round_cuda
+
+    _card()
+    X, y = _wide()
+    X[:, :12] = np.floor((X[:, :12] - X[:, :12].min(0)) * 3).clip(0, 20)
+    p = {"objective": "binary", "num_leaves": 64, "verbosity": -1,
+         "windowed_growth": True}
+    boosters = []
+    for mk in ("auto", "0"):
+        q = {**p, "megakernel": mk}
+        round_cuda.reset_counts()
+        boosters.append(tlgb.train(q, tlgb.Dataset(X, label=y, categorical_feature=list(
+            range(12)), params=q), 2))
+        assert (round_cuda.launches["round_megakernel"] > 0) == (mk == "auto")
+    assert sum(t.num_cat for t in boosters[0]._gbdt.models) > 0
+    chip_smoke.trees_agree(*boosters)

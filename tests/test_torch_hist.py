@@ -150,8 +150,10 @@ def test_cpu_dispatch_counts_plain_calls_only():
     hist_cuda.histogram_multi_quantized(_t(bins), _t(gq), _t(hq), _t(mask),
                                         _t(leaf), 0, 8, 16)
     assert hist_cuda.launches == {"histogram_multi": 0,
+                                  "histogram_multi_bf16": 0,
                                   "histogram_multi_quantized": 0}
     assert hist_cuda.plain_calls == {"histogram_multi": 1,
+                                     "histogram_multi_bf16": 0,
                                      "histogram_multi_quantized": 1}
 
 

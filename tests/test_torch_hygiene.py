@@ -73,6 +73,7 @@ def test_cpu_training_never_counts_a_launch():
          "num_leaves": 4, "min_data_in_leaf": 5}
     tlgb.train(p, tlgb.Dataset(X, label=y, params=p), 2)
     assert hist_cuda.launches == {"histogram_multi": 0,
+                                  "histogram_multi_bf16": 0,
                                   "histogram_multi_quantized": 0}
     assert hist_cuda.plain_calls["histogram_multi"] >= 2
 

@@ -129,8 +129,8 @@ def test_leaf_output_matches_jax():
         np.testing.assert_allclose(t.numpy(), np.asarray(j), rtol=1e-6)
 
 
-@pytest.mark.parametrize("arg", ["categorical_mask", "monotone_constraints",
-                                 "cegb_feature_penalty", "feature_contri"])
+@pytest.mark.parametrize("arg", ["out_lo", "monotone_constraints",
+                                 "cegb_feature_penalty", "rng_key"])
 def test_unported_arguments_raise(arg):
     hist = torch.zeros((3, 2, 4))
     with pytest.raises(ValueError, match="not ported"):

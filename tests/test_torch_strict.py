@@ -199,7 +199,7 @@ def test_strict_envelope_still_raises(extra, match):
         tlgb.train(p, tlgb.Dataset(X, label=y, params=p), 1)
 
 
-@pytest.mark.parametrize("option", ["monotone_constraints", "categorical_mask",
+@pytest.mark.parametrize("option", ["monotone_constraints", "interaction_sets",
                                     "forced_leaf", "axis_name"])
 def test_grow_tree_rejects_unported_options(option):
     n, f = 50, 3

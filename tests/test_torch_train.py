@@ -94,6 +94,7 @@ def test_train_matches_jax(objective):
         np.testing.assert_allclose(tres["valid_0"][key], jres["valid_0"][key],
                                    rtol=1e-5, atol=1e-6, err_msg=key)
     assert hist_cuda.launches == {"histogram_multi": 0,
+                                  "histogram_multi_bf16": 0,
                                   "histogram_multi_quantized": 0}
     assert hist_cuda.plain_calls["histogram_multi"] >= ROUNDS
 

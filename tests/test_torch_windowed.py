@@ -247,8 +247,8 @@ def test_non_finite_gradients_raise():
         _port(tuple(fx), **_kw(15, 4, 0))
 
 
-@pytest.mark.parametrize("opt", ["rng_key", "categorical_mask", "efb_bins_t",
-                                 "feature_contri"])
+@pytest.mark.parametrize("opt", ["rng_key", "efb_gather", "efb_bins_t",
+                                 "efb_default"])
 def test_unported_options_raise(opt):
     fx = _fixture(29, n=300)
     with pytest.raises(ValueError, match="A11"):
