@@ -105,12 +105,28 @@ Imports no JAX.  Phases, one line each; any failure exits non-zero:
               bitwise reload, predict latency at 1,
               1,024 and 100,000 rows, and B1's float and bf16 modes at the
               cell's call sites against their plain versions;
- 16. device   nvidia-smi's name and power limit.
+ 16. efb      EFB and data input on a seeded Expo-shaped cell (LightGBM's
+              Experiments.rst "Expo": 1M train + 100k held-out rows x 700
+              one-hot and integer columns as a CSR matrix, 255 leaves,
+              max_bin 255, min_sum_hessian_in_leaf 100), bundled by
+              default: the rounds grower 20 rounds graph and eager in turns
+              (F, F_b, bundle widths, the tile from F_b, B1 launches, graph
+              == eager sha256, MODEL_SHA "expo"), the same bins without the
+              plan (a reading), the windowed grower 5 rounds (three-pass:
+              megakernel_excluded "efb", B2 and B1 launches, "expo_windowed"),
+              int8 5 rounds ("expo_int8"); the first 200k rows written as
+              LibSVM: Dataset(path), two_round and save_binary + Dataset(cache)
+              give the CSR set's bins and, after 5 rounds, its model text;
+              B1 float / int8 / window pass and B2 at the bundled shapes
+              against their plain versions, unbundling card vs CPU; a small
+              run card vs CPU; predict latency on 1 and 100,000 CSR rows;
+ 17. device   nvidia-smi's name and power limit.
 
 Then a JSON line with every kernel's numbers (launches on the main path,
 graph mode; whether it runs inside a graph and its launches a replay; B1
 once for each call site: Higgs rounds, Epsilon root and window, strict,
-multiclass, LambdaRank, GOSS, DART, random forest, Criteo float and bf16;
+multiclass, LambdaRank, GOSS, DART, random forest, Criteo float and bf16,
+Expo float, int8 and window pass; B2 at the Epsilon and Expo geometries;
 B3 numerical and categorical), and last the device line {"ok": true,
 "device": {...}}.
 
@@ -172,7 +188,9 @@ MODEL_SHA = {"higgs_float": "3cb1e5ba", "higgs_int8": "900c2628",
              # phase 13 (PERF.md)
              "goss": "87c6f557", "dart": "e9ea51f1", "rf": "c06c0dd1",
              # phase 15 (PERF.md)
-             "criteo": "0586e933", "criteo_bf16": "4960ac72"}
+             "criteo": "0586e933", "criteo_bf16": "4960ac72",
+             # phase 16 (PERF.md)
+             "expo": "add98dac", "expo_windowed": "6abc116e", "expo_int8": "5f609696"}
 # phase 10: the strict grower on the Higgs cell; the card read AUC 0.81766
 # (PERF.md), the floor sits 0.01 under it
 ROUNDS_STRICT = 5
@@ -230,6 +248,21 @@ CR_CARD = (3, 4, 300, 450, 600, 800, 1000, 1300, 1700, 2200, 2800, 3500, 4500,
 AUC_FLOOR_CRITEO, AUC_FLOOR_CRITEO_BF16 = 0.74, 0.74
 # phase 9's categorical case: 64 Epsilon columns re-coded to 32 codes
 EPS_CAT_COLS, EPS_CAT_CODES = 64, 32
+# phase 16: LightGBM's "Expo" experiment set (docs/Experiments.rst: the ASA
+# Data Expo airline on-time records one-hot encoded to 700 columns, 11M
+# training rows, binary; num_leaves 255, learning rate 0.1, max_bin 255,
+# min_sum_hessian_in_leaf 100), generated from a seed: one-hot blocks (name,
+# columns, Zipf exponent or 0), four integer columns; 1M training rows
+EX_BLOCKS = (("Month", 12, 0.0), ("DayofMonth", 31, 0.0), ("DayOfWeek", 7, 0.0),
+             ("DepHour", 24, 0.0), ("UniqueCarrier", 22, 1.1), ("Origin", 300, 1.1),
+             ("Dest", 300, 1.1))
+EX_NUMERIC, EX_POSITIVE = 4, 0.19
+EX_FEAT = sum(b for _, b, _ in EX_BLOCKS) + EX_NUMERIC  # 700
+EX_N_TRAIN, EX_N_TEST, EX_LEAVES, EX_ROUNDS, EX_ROUNDS_SHORT = 1_000_000, 100_000, 255, 20, 5
+EX_FILE_ROWS, EX_SMALL_ROWS = 200_000, 20_000
+# the card read held-out AUC 0.67499 after 20 rounds (PERF.md); the floor
+# sits 0.01 under it
+AUC_FLOOR_EXPO = 0.66
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_OPS_PER_S = 67e12  # H100 SXM, non-tensor-core f32 (integer adds counted alike)
 
@@ -626,9 +659,9 @@ def profile_line(what, r) -> str:
 def tree_stats(bst):
     """The round drivers' counts over a booster's trees."""
     s = bst._gbdt.round_stats
-    tot = {k: sum(t[k] for t in s) for k in ("rounds", "retries", "host_syncs",
-                                              "async_resolves", "captures", "replays",
-                                              "dispatches")}
+    tot = {k: sum(t.get(k, 0) for t in s) for k in (
+        "rounds", "retries", "host_syncs", "async_resolves", "captures", "replays",
+        "dispatches", "megakernel_fallbacks")}
     seen, new_keys = set(), []
     for t in s:  # captures a tree must make: the window rungs (keys) it meets first
         keys = set(t["windows"])
@@ -2047,7 +2080,7 @@ def latency(bst, X, n, calls):
     """Median wall seconds of Booster.predict on the first ``n`` rows of
     ``X`` (the host copies in and out included) over ``calls`` calls,
     after one warm call."""
-    x = np.ascontiguousarray(X[:n])
+    x = X[:n] if hasattr(X, "tocsr") else np.ascontiguousarray(X[:n])
     bst.predict(x)
     times = []
     for _ in range(calls):
@@ -2346,6 +2379,408 @@ def eps_categorical_parity(lgt, eps, eps_set, Xtr, ytr):
         f"{gap:.3g}; launches (B1 float, B1 int8, B2, B3) megakernel {l_mk}, three-pass "
         f"{l_3p} in {time.perf_counter() - t0:.2f} s")
     return l_mk[3], st_mk
+
+
+# ---------------------------------------------------------------------------
+# phase 16: EFB on an Expo-shaped cell, and the data-input routes
+# ---------------------------------------------------------------------------
+def expo_like(n: int, seed: int):
+    """Rows in the layout of LightGBM's "Expo" experiment set (the ASA Data
+    Expo airline on-time records one-hot encoded to 700 columns): one-hot
+    blocks EX_BLOCKS (Month, DayofMonth, DayOfWeek and departure hour
+    uniform-ish; UniqueCarrier, Origin and Dest with Zipf frequencies,
+    codes in random order), then four integer columns: Distance (miles,
+    log-normal), scheduled departure minute of the day, scheduled elapsed
+    minutes and taxi-out minutes (5% missing).  A float32 CSR matrix, 11
+    stored values a row; the label dep_delayed_15min, ~19% positive, from
+    hour, carrier and origin effects and a distance term, with logistic
+    noise."""
+    import scipy.sparse as sps
+
+    rng = np.random.RandomState(seed)
+    cols = np.empty((n, len(EX_BLOCKS) + EX_NUMERIC), np.int64)
+    vals = np.ones((n, len(EX_BLOCKS) + EX_NUMERIC), np.float32)
+    logit = np.zeros(n)
+    off = 0
+    hour = None
+    for k, (name, card, zipf) in enumerate(EX_BLOCKS):
+        if zipf:
+            w = 1.0 / np.arange(1, card + 1) ** zipf
+            rank = np.minimum(np.searchsorted(np.cumsum(w / w.sum()), rng.rand(n)), card - 1)
+            code = rng.permutation(card)[rank]
+        elif name == "DepHour":  # few departures at night
+            w = np.where(np.arange(card) < 6, 0.2, 1.0)
+            code = rng.choice(card, n, p=w / w.sum())
+            hour = code
+        else:
+            code = rng.randint(0, card, n)
+        if name == "DepHour":
+            logit += 0.09 * np.maximum(code - 6, 0)
+        elif name in ("UniqueCarrier", "Origin"):
+            logit += (0.5 if name == "UniqueCarrier" else 0.35) * rng.randn(card)[code]
+        cols[:, k] = off + code
+        off += card
+    dist = np.maximum(np.round(np.exp(rng.normal(6.3, 0.6, n))), 30.0)
+    dep_min = hour * 60 + rng.randint(0, 60, n)
+    elapsed = np.maximum(np.round(dist / 8.0 + 25.0 + 10.0 * rng.randn(n)), 20.0)
+    taxi = rng.poisson(14.0, n).astype(np.float64)
+    taxi[rng.rand(n) < 0.05] = np.nan
+    logit += 0.15 * np.log(dist) + 0.03 * np.nan_to_num(taxi, nan=14.0)
+    for j, v in enumerate((dist, dep_min, elapsed, taxi)):
+        cols[:, len(EX_BLOCKS) + j] = off + j
+        vals[:, len(EX_BLOCKS) + j] = v
+    z = logit + rng.logistic(size=n)
+    y = (z > np.quantile(z, 1.0 - EX_POSITIVE)).astype(np.float64)
+    width = cols.shape[1]
+    X = sps.csr_matrix((vals.ravel(), cols.ravel(), np.arange(0, n * width + 1, width)),
+                       shape=(n, off + EX_NUMERIC))
+    return X, y
+
+
+def write_libsvm(path, X, y) -> None:
+    """CSR rows as LibSVM text (0-based indices, explicit zeros and NaN
+    written as stored); the cell's values are integers, so %.17g writes
+    them exactly."""
+    indptr, indices, data = X.indptr, X.indices, X.data
+    with open(path, "w") as fh:
+        for i in range(X.shape[0]):
+            lo, hi = indptr[i], indptr[i + 1]
+            fh.write("%d %s\n" % (y[i], " ".join(
+                "%d:%.17g" % (j, v) for j, v in zip(indices[lo:hi], data[lo:hi]))))
+
+
+def check_b1_site_q(hc, bins, gq, hq, mask, slot, tile, num_bins):
+    """B1's int8 mode at a call site: kernel against plain version bit for
+    bit, then the kernel's, the plain version's and index_add_'s times and
+    the bound of this data."""
+    args = (bins, gq, hq, mask, slot, 0, tile, num_bins)
+    k = hc.histogram_multi_quantized(*args)
+    same(k, hc.histogram_multi_quantized_plain(*args), f"B1 int8 (tile {tile})")
+    ms = cuda_ms(lambda: hc.histogram_multi_quantized(*args))
+    plain_ms = cuda_ms(lambda: hc.histogram_multi_quantized_plain(*args), iters=3, warmup=1)
+    lib, rows = library_call(bins, (gq, hq), mask, slot, 0, tile, num_bins, torch.int32)
+    library_ms = cuda_ms(lib)
+    b_ms, b_by = bound(bins.shape[0], bins.shape[1], tile, num_bins, rows, 1, 4)
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms,
+                bound_by=b_by, max_abs_err=0.0, rows=int(rows.numel()), tile=tile), k
+
+
+def efb_kernels(ts, grad, hess, tile, tile_q, tile_w):
+    """The kernels at the cell's bundled shapes, each against its plain
+    version: B1 float (rounds tile) and int8 (int8 tile) over the (N, F_b)
+    bundled matrix; the unbundling of both on the card against the CPU;
+    at the windowed tile on a seeded split geometry of the feature bins,
+    B2 (the partition) and B1's float window pass over the bundled matrix
+    (bit for bit, then the kernel alone on the gathered window), each
+    beside its bound and its library call."""
+    from lightgbm_tpu_torch.ops import hist_cuda as hc
+    from lightgbm_tpu_torch.ops import partition_cuda as pc
+    from lightgbm_tpu_torch.ops import round_cuda as rc
+    from lightgbm_tpu_torch.ops.histogram import unbundle_hists
+    from lightgbm_tpu_torch.ops.treegrow import quantize_gradients
+    from lightgbm_tpu_torch.ops.treegrow_windowed import _window_size
+
+    bundled, gather, default = ts.efb_device_tables()
+    b, f = ts.max_num_bins, ts.num_feature()
+    n = bundled.shape[0]
+    dev = bundled.device
+    mask = torch.ones(n, dtype=torch.bool, device=dev)
+    out = {}
+    slot = round_slots(n, tile, SEED + 18, dev)
+    out["float"] = check_b1_site(hc, bundled, grad, hess, mask, slot, tile, b)
+    gq, hq = quantize_gradients(grad, hess, mask, 4, False, None)[:2]
+    out["int8"], hk_q = check_b1_site_q(hc, bundled, gq, hq, mask,
+                                        round_slots(n, tile_q, SEED + 19, dev), tile_q, b)
+    # unbundling: card against CPU (int32 bit for bit; f32 within the
+    # float64 fill's rounding)
+    hk = hc.histogram_multi(bundled, grad, hess, mask, slot, 0, tile, b,
+                            shift=hc.fixed_shift_tensor(grad, hess))
+    un = {}
+    for name, h in (("float", hk), ("int8", hk_q)):
+        card = unbundle_hists(h, gather, default, f, b).cpu()
+        host = unbundle_hists(h.cpu(), gather.cpu(), default.cpu(), f, b)
+        un[name] = (float((card.double() - host.double()).abs().max()),
+                    bool(torch.equal(card, host)))
+        scale = float(host.double().abs().max())
+        if not (un[name][1] or (name == "float" and un[name][0] <= 1e-6 * scale)):
+            raise AssertionError(f"unbundle {name}: card vs CPU max|d| {un[name][0]}")
+        if float(card[:, 2].double().sum()) != f * float(h[:, 2, 0].double().sum()):
+            raise AssertionError(f"unbundle {name}: counts do not add up")
+    out["unbundle"] = un
+    out["unbundle_ms"] = cuda_ms(lambda: unbundle_hists(hk, gather, default, f, b))
+    del hk, hk_q
+    # the windowed three-pass round's B2 and window pass (split geometry on
+    # the feature bins, window rows gathered from the bundled matrix)
+    shift = hc.fixed_shift_tensor(grad, hess)
+    # (thresholds drawn on the integer columns: a one-hot column's two bins
+    # would send every row one way)
+    sp_ = split_case(ts.bins_device[:, -EX_NUMERIC:].contiguous(), b, tile_w, SEED + 20)
+    pa = (sp_["order"], sp_["seg_start"], sp_["seg_len"], sp_["go"])
+    new_order, n_left = pc.partition_segments(*pa)
+    p_order, p_left = pc.partition_segments_plain(*pa)
+    same(new_order, p_order, "partition (Expo)")
+    same(n_left, p_left, "partition left counts (Expo)")
+    in_seg = int(sp_["seg_len"].sum())
+    lib = library_partition(*pa)
+    if not torch.equal(lib(), new_order):
+        raise AssertionError("the stable-sort yardstick disagrees (Expo)")
+    out["part"] = dict(ms=cuda_ms(lambda: pc.partition_segments(*pa)),
+                       plain_ms=cuda_ms(lambda: pc.partition_segments_plain(*pa), iters=5,
+                                        warmup=1),
+                       library_ms=cuda_ms(lib), max_abs_err=0.0,
+                       device_ms=partition_device_ms(lambda: pc.partition_segments(*pa))[0],
+                       bound_ms=bound_of(partition_bytes(n, in_seg), 0)[0],
+                       bound_by="bytes", in_seg=in_seg, T=tile_w)
+    W = _window_size(int(sp_["win_cnt"].sum()), n)
+    wa = (new_order, bundled, (grad, hess), mask, sp_["win_start"], sp_["win_cnt"], W,
+          tile_w, b)
+    same(rc.window_histograms(hc.histogram_multi, *wa, shift=shift),
+         rc.window_histograms(hc.histogram_multi_plain, *wa, shift=shift),
+         f"float window pass over the bundled matrix (T={tile_w})")
+    wrows, wslot, valid = rc.window_rows(new_order, sp_["win_start"], sp_["win_cnt"], W)
+    ga = (bundled.index_select(0, wrows), grad[wrows], hess[wrows], mask[wrows] & valid,
+          wslot, 0, tile_w, b)
+    lib_w, rows = library_call(ga[0], ga[1:3], ga[3], ga[4], 0, tile_w, b, torch.float32)
+    bw = bound(W, ga[0].shape[1], tile_w, b, rows, 4, 4)
+    out["window"] = dict(
+        ms=cuda_ms(lambda: hc.histogram_multi(*ga, shift=shift)),
+        plain_ms=cuda_ms(lambda: hc.histogram_multi_plain(*ga, shift=shift), iters=3,
+                         warmup=1),
+        library_ms=cuda_ms(lib_w), bound_ms=bw[0], bound_by=bw[1], max_abs_err=0.0,
+        rows=int(rows.numel()), tile=tile_w, W=W,
+        with_gather_ms=cuda_ms(lambda: rc.window_histograms(hc.histogram_multi, *wa,
+                                                            shift=shift)))
+    return out
+
+
+def efb_phase(lgt, dev, counts, plain_total):
+    """Phase 16 on the Expo-shaped cell (a CSR matrix, bundled by default):
+    the rounds grower graph and eager in turns; the same data without the
+    plan (a reading); the windowed grower (three-pass: EFB is outside the
+    megakernel's envelope); int8; the file, two-round and bin-cache routes
+    on the first EX_FILE_ROWS rows; the kernels at the bundled shapes; card
+    against CPU; predict on CSR rows.  Returns the kernel line's entries."""
+    import copy
+    import tempfile
+
+    from lightgbm_tpu_torch import native
+    from lightgbm_tpu_torch.ops import hist_cuda as hc
+
+    t0 = time.perf_counter()
+    X, y = expo_like(EX_N_TRAIN + EX_N_TEST, SEED + 16)
+    Xtr, ytr, Xte, yte = X[:EX_N_TRAIN], y[:EX_N_TRAIN], X[EX_N_TRAIN:], y[EX_N_TRAIN:]
+    t_gen = time.perf_counter() - t0
+    base = {"objective": "binary", "num_leaves": EX_LEAVES, "learning_rate": 0.1,
+            "max_bin": MAX_BIN, "min_sum_hessian_in_leaf": 100, "device_type": dev.type,
+            "verbosity": -1, "seed": 7}
+    ts = lgt.Dataset(Xtr, label=ytr, params=dict(base))
+    ts.construct()
+    t_bin = time.perf_counter() - t0 - t_gen
+    efb, f = ts.efb, ts.num_feature()
+    if efb is None or f != EX_FEAT or not efb.num_bundled <= 40:
+        raise AssertionError(f"Expo bundles: F={f} plan {efb and efb.num_bundled}")
+    tile = hc.recommended_leaf_tile(ts.max_num_bins, efb.num_bundled, EX_LEAVES)
+    tile_q = hc.recommended_leaf_tile(ts.max_num_bins, efb.num_bundled, EX_LEAVES,
+                                      quantized=True)
+    tile_f = hc.recommended_leaf_tile(ts.binner.max_num_bins, f, EX_LEAVES)
+    widths = sorted((int(w) for w in efb.bundled_num_bins), reverse=True)
+    log(f"phase 16 data: {EX_N_TRAIN}+{EX_N_TEST} rows x {f} columns (CSR, "
+        f"{X.nnz / X.shape[0]:.2f} stored values a row), positive share {ytr.mean():.4f}, "
+        f"generated in {t_gen:.2f} s, binned and bundled in {t_bin:.2f} s; F={f} "
+        f"F_b={efb.num_bundled} bundles of {sum(len(m) > 1 for m in efb.bundles)} "
+        f"multi-member, widths {widths}, histogram width B={ts.max_num_bins}; leaf tile "
+        f"{tile} float, {tile_q} int8 (from F_b; {tile_f} from F)")
+
+    # ---- 1. the default path: bundled, rounds grower, graph and eager ----
+    t0 = time.perf_counter()
+    runs = train_turns(lgt, base, ts, EX_ROUNDS, MODEL_SHA["expo"], counts, plain_total,
+                       turns=("graph", "eager"))
+    for r in runs:
+        st, (b1, b1q, b2, b3) = r["st"], r["launches"]
+        if not (b1 == st["trees"] + st["rounds"] + st["captures"] and b1q == b2 == b3 == 0
+                and st["host_syncs"] == 0 and st["trees"] == EX_ROUNDS):
+            raise AssertionError(f"Expo {r['mode']} run: {st} launches {r['launches']}")
+        log(turn_line("phase 16 expo", r))
+    if len({r["sha"] for r in runs}) != 1:
+        raise AssertionError(f"Expo graph and eager models differ: {[r['sha'] for r in runs]}")
+    bst, st = runs[0]["bst"], runs[0]["st"]
+    it_s1 = [r["it_s"] for r in runs]
+    if bst._gbdt._leaf_tile != tile:
+        raise AssertionError(f"Expo leaf tile {bst._gbdt._leaf_tile}, want {tile} from F_b")
+    b1_e, per_replay_e = runs[0]["launches"][0], st["per_replay"].get("histogram_multi", 0)
+    p = bst.predict(Xte)
+    a = auc(yte, p)
+    if not (p.shape == (EX_N_TEST,) and np.all(np.isfinite(p)) and a >= AUC_FLOOR_EXPO):
+        raise AssertionError(f"Expo: AUC {a} (floor {AUC_FLOOR_EXPO})")
+    prof = profile_rounds(lgt, base, ts, 2)
+    log(profile_line("phase 16 profile graph (2 trees after a warm one)", prof))
+    log(profile_line("phase 16 profile eager (2 trees after a warm one)", profile_rounds(
+        lgt, {**base, "fused_training": False}, ts, 2)))
+    log(f"phase 16 expo: ok {EX_ROUNDS} rounds auc={a:.5f} (floor {AUC_FLOOR_EXPO}) "
+        f"it/s graph={runs[0]['it_s']:.4f} eager={runs[1]['it_s']:.4f} idle graph="
+        f"{prof['idle']:.4f} device ms/tree={prof['busy_ms'] / 2:.2f} F={f} "
+        f"F_b={efb.num_bundled} tile={tile} tree-rounds={st['rounds']} "
+        f"replays/tree={st['replays'] / st['trees']:.2f} B1 launches={b1_e} "
+        f"({b1_e / st['trees']:.2f}/tree) blocking reads/tree=0 graph == eager sha256 "
+        f"{runs[0]['sha'][:8]} in {time.perf_counter() - t0:.2f} s")
+    del runs
+
+    # ---- 2. the same data without the plan (a reading) ----
+    t0 = time.perf_counter()
+    flat = copy.copy(ts)  # the bins construct() gives at enable_bundle=false
+    flat.efb, flat._efb_device = None, None
+    flat.max_num_bins = int(ts.binner.max_num_bins)
+    (r2,) = train_turns(lgt, {**base, "enable_bundle": False}, flat, EX_ROUNDS, "",
+                        counts, plain_total, turns=("ineligible",))
+    a2 = auc(yte, r2["bst"].predict(Xte))
+    log(turn_line("phase 16 expo unbundled (F x leaves > 100,000: eager)", r2))
+    log(f"phase 16 expo unbundled: {EX_ROUNDS} rounds auc={a2:.5f} (bundled {a:.5f}) "
+        f"it/s={r2['it_s']:.4f} (bundled: graph {it_s1[0]:.4f}, eager {it_s1[1]:.4f}) "
+        f"tree-rounds={r2['st']['rounds']} (bundled {st['rounds']}) "
+        f"tile={r2['bst']._gbdt._leaf_tile} (bundled {tile}) "
+        f"in {time.perf_counter() - t0:.2f} s")
+    del r2, flat
+
+    # ---- 3. the windowed grower: the three-pass round with EFB ----
+    t0 = time.perf_counter()
+    wp = {**base, "windowed_growth": True}
+    runs3 = train_turns(lgt, wp, ts, EX_ROUNDS_SHORT, MODEL_SHA["expo_windowed"], counts,
+                        plain_total, turns=("graph", "eager"))
+    for r in runs3:
+        st3, (b1, b1q, b2, b3) = r["st"], r["launches"]
+        per = st3["rounds"] + st3["captures"]  # a replay a round, a warm-up a capture
+        fallbacks = st3["megakernel_fallbacks"]
+        if not ((b1, b1q, b2, b3) == (per + st3["trees"], 0, per, 0)
+                and st3["excluded"] == ["efb"] * EX_ROUNDS_SHORT
+                and not any(st3["megakernel"]) and fallbacks == EX_ROUNDS_SHORT
+                and st3["host_syncs"] == st3["trees"]):
+            raise AssertionError(f"Expo windowed {r['mode']} run: {st3} launches "
+                                 f"{r['launches']} fallbacks {fallbacks}")
+        log(turn_line("phase 16 expo windowed", r))
+    if len({r["sha"] for r in runs3}) != 1:
+        raise AssertionError("Expo windowed graph and eager models differ")
+    st_w = runs3[0]["st"]
+    b1_w, b2_w = runs3[0]["launches"][0] - st_w["trees"], runs3[0]["launches"][2]
+    per_replay_w = st_w["per_replay"]
+    a3 = auc(yte, runs3[0]["bst"].predict(Xte))
+    log(f"phase 16 expo windowed: ok {EX_ROUNDS_SHORT} rounds auc={a3:.5f} "
+        f"megakernel_excluded=efb ({EX_ROUNDS_SHORT} fallbacks counted) it/s graph="
+        f"{runs3[0]['it_s']:.4f} eager={runs3[1]['it_s']:.4f} window-pass B1 launches="
+        f"{b1_w} B2 launches={b2_w} (graph run) retries={st_w['retries']} graph == eager "
+        f"sha256 {runs3[0]['sha'][:8]} in {time.perf_counter() - t0:.2f} s")
+    del runs3
+
+    # ---- 4. int8, eager ----
+    t0 = time.perf_counter()
+    (r4,) = train_turns(lgt, {**base, "use_quantized_grad": True}, ts, EX_ROUNDS_SHORT,
+                        MODEL_SHA["expo_int8"], counts, plain_total, turns=("ineligible",))
+    st4, (b1, b1q, b2, b3) = r4["st"], r4["launches"]
+    if not (b1q == st4["trees"] + st4["rounds"] and b1 == b2 == b3 == 0):
+        raise AssertionError(f"Expo int8 run: {st4} launches {r4['launches']}")
+    b1q_e = b1q
+    a4 = auc(yte, r4["bst"].predict(Xte))
+    log(turn_line("phase 16 expo int8 (fused_training=true, not eligible: eager)", r4))
+    log(f"phase 16 expo int8: ok {EX_ROUNDS_SHORT} rounds auc={a4:.5f} tile={tile_q} "
+        f"int8 B1 launches={b1q} sha256 {r4['sha'][:8]} in {time.perf_counter() - t0:.2f} s")
+    del r4
+
+    # ---- 5. the file, two-round and bin-cache routes ----
+    t0 = time.perf_counter()
+    n5 = EX_FILE_ROWS
+    with tempfile.TemporaryDirectory() as tmp:
+        path, cache = os.path.join(tmp, "expo.libsvm"), os.path.join(tmp, "expo.bin")
+        write_libsvm(path, Xtr[:n5], ytr[:n5])
+        t_write, file_bytes = time.perf_counter() - t0, os.path.getsize(path)
+        mem = lgt.Dataset(Xtr[:n5], label=ytr[:n5], params=dict(base)).construct()
+        tm = time.perf_counter()
+        native.parse_file(path, "libsvm", False, 0)
+        t_parse = time.perf_counter() - tm
+        sets, secs = {}, {}
+        for name, make in (("one-round", lambda: lgt.Dataset(path, params=dict(base))),
+                           ("two-round", lambda: lgt.Dataset(
+                               path, params={**base, "two_round": True})),
+                           ("bin cache", lambda: lgt.Dataset(cache, params=dict(base)))):
+            if name == "bin cache":
+                tm = time.perf_counter()
+                sets["one-round"].save_binary(cache)
+                secs["cache write"] = time.perf_counter() - tm
+            tm = time.perf_counter()
+            sets[name] = make().construct()
+            secs[name] = time.perf_counter() - tm
+        for name, d in sets.items():
+            if not (np.array_equal(d.bins, mem.bins) and np.array_equal(d.label, mem.label)
+                    and d.efb.bundles == mem.efb.bundles):
+                raise AssertionError(f"Expo {name} route: bins, labels or bundles differ "
+                                     "from the in-memory CSR set's")
+        texts = {name: lgt.train(base, d, EX_ROUNDS_SHORT).model_to_string()
+                 for name, d in [("in-memory CSR", mem), *sets.items()]}
+    if len(set(texts.values())) != 1:
+        raise AssertionError(f"Expo routes train different models: "
+                             f"{ {k: hashlib.sha256(v.encode()).hexdigest()[:8] for k, v in texts.items()} }")
+    log(f"phase 16 expo file routes: ok {n5} rows as LibSVM (written in {t_write:.2f} s, "
+        f"{file_bytes} B): native parse "
+        f"{t_parse:.2f} s; Dataset(path) parse + bin + bundle {secs['one-round']:.2f} s, "
+        f"two_round {secs['two-round']:.2f} s, save_binary {secs['cache write']:.2f} s, "
+        f"Dataset(cache) {secs['bin cache']:.2f} s; bins, labels and bundles == the "
+        f"in-memory CSR set's; {EX_ROUNDS_SHORT} rounds on each: one model text "
+        f"(sha256 {hashlib.sha256(texts['one-round'].encode()).hexdigest()[:8]}) in "
+        f"{time.perf_counter() - t0:.2f} s")
+    del mem, sets, texts
+
+    # ---- 6. kernels at the bundled shapes ----
+    t0 = time.perf_counter()
+    gb = bst._gbdt  # gradients of the model EX_ROUNDS trees in
+    g, h = (v.contiguous() for v in gb.objective.get_gradients(gb._score, gb._label,
+                                                               gb._weight))
+    tile_w = gb._leaf_tile
+    ek = efb_kernels(ts, g, h, tile, tile_q, tile_w)
+    fb = efb.num_bundled
+    log(b1_line(f"phase 16 kernel B1 expo float site N={EX_N_TRAIN} F_b={fb} "
+                f"B={ts.max_num_bins}", ek["float"]))
+    log(b1_line(f"phase 16 kernel B1 expo int8 site N={EX_N_TRAIN} F_b={fb} "
+                f"B={ts.max_num_bins}", ek["int8"]))
+    w, pt = ek["window"], ek["part"]
+    log(b1_line(f"phase 16 kernel B1 expo window pass W={w['W']} F_b={fb} (kernel alone; "
+                f"with the gather {w['with_gather_ms']:.4f} ms)", w))
+    log(f"phase 16 kernel B2 expo three-pass geometry: N={EX_N_TRAIN} T={pt['T']} "
+        f"in-segment={pt['in_seg']} ms={pt['ms']:.4f} (events, a Python call) device_ms="
+        f"{pt['device_ms']:.4f} plain_ms={pt['plain_ms']:.4f} library_ms="
+        f"{pt['library_ms']:.4f} bound_ms={pt['bound_ms']:.6f} (bytes) bitwise_plain=True")
+    uf, uq = ek["unbundle"]["float"], ek["unbundle"]["int8"]
+    log(f"phase 16 unbundle card vs CPU: float max|d|={uf[0]:.3g} bitwise={uf[1]}, int8 "
+        f"bitwise={uq[1]}; (tile {tile}, 3, {fb}, B) -> (tile, 3, {f}, B) "
+        f"ms={ek['unbundle_ms']:.4f} in {time.perf_counter() - t0:.2f} s")
+    del g, h
+
+    # ---- 7. card against CPU ----
+    t0 = time.perf_counter()
+    err = small_vs_cpu(lgt, {**base, "num_leaves": 15}, Xtr, ytr, Xte, n=EX_SMALL_ROWS)
+    log(f"phase 16 expo card vs CPU: ok {EX_SMALL_ROWS} rows, 15 leaves, 3 rounds, "
+        f"max|d|={err:.3g} in {time.perf_counter() - t0:.2f} s")
+
+    # ---- 8. prediction on CSR rows ----
+    t0 = time.perf_counter()
+    lat = {n: latency(bst, Xte, n, PRED_CALLS if n < 100_000 else PRED_CALLS_BIG)
+           for n in (1, 100_000)}
+    log(f"phase 16 expo predict on CSR rows ({bst.num_trees()} trees x {EX_LEAVES} "
+        f"leaves): latency_ms " + " ".join(f"{n}={lat[n] * 1e3:.3f}" for n in lat)
+        + f" rows/s at 100000={100_000 / lat[100_000]:.0f} in "
+        f"{time.perf_counter() - t0:.2f} s")
+    pr = per_replay_w
+    entries = [b1_entry("histogram_multi_expo", ek["float"], b1_e, per_replay_e),
+               b1_entry("histogram_multi_quantized_expo", ek["int8"], b1q_e, 0),
+               b1_entry("histogram_multi_expo_window", w, b1_w,
+                        pr.get("histogram_multi", 0)),
+               {"name": "partition_segments_expo", "route": "cuda",
+                "source": "lightgbm_tpu_torch/csrc/partition.cu",
+                "replaces": "lightgbm_tpu/ops/partition_pallas.py:188",
+                "launches": b2_w, "in_graph": pr.get("partition_segments", 0) > 0,
+                "launches_per_replay": pr.get("partition_segments", 0),
+                "max_abs_err": 0.0, "ms": pt["ms"], "plain_ms": pt["plain_ms"],
+                "bound_ms": pt["bound_ms"], "bound_by": "bytes",
+                "library_ms": pt["library_ms"], "device_ms": pt["device_ms"]}]
+    del bst, gb, ts, X, Xtr, Xte
+    return entries
 
 
 def main() -> int:
@@ -2668,13 +3103,19 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"phase 15 categorical: ok in {time.perf_counter() - t0:.2f} s")
 
-    # ---- 16. device ----
+    # ---- 16. EFB and the data-input routes on the Expo-shaped cell ----
+    t0 = time.perf_counter()
+    new_kernels += efb_phase(lgt, dev, counts, plain_total)
+    torch.cuda.empty_cache()
+    log(f"phase 16 efb: ok in {time.perf_counter() - t0:.2f} s")
+
+    # ---- 17. device ----
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60)
     if smi.returncode != 0 or not smi.stdout.strip():
         raise AssertionError(f"nvidia-smi failed: {smi.stderr}")
-    log(f"phase 16 device: ok total {time.perf_counter() - t_all:.2f} s")
+    log(f"phase 17 device: ok total {time.perf_counter() - t_all:.2f} s")
     log(smi.stdout.strip().splitlines()[0])
 
     src, tpu = "lightgbm_tpu_torch/csrc/hist.cu", "lightgbm_tpu/ops/hist_pallas.py:120"

@@ -1,21 +1,30 @@
 """Dataset and Booster.
 
-Counterpart of lightgbm_tpu/basic.py for dense in-memory data (reference:
+Counterpart of lightgbm_tpu/basic.py (reference:
 python-package/lightgbm/basic.py).  A Dataset is binned on the host
 (binning.py, bitwise the JAX package's bins) and shipped to the device as an
 (N, F) int16 matrix; a Booster wraps models/gbdt.py.
 
-Categorical features are the columns that ``categorical_feature`` names
-(indices or feature names; "auto" marks none, as in the JAX package), and
-pandas category columns enter as their codes.
+Data arrives as numpy arrays, nested lists, pandas frames (category columns
+as their codes), pyarrow tables (dictionary columns as their codes), scipy
+sparse matrices (binned straight from CSC, never densified), Sequence_
+sources, or a file path: CSV, TSV or LibSVM text (io/parser.py: one round
+through the native loader, or ``two_round`` streaming that never holds the
+raw floats), or a save_binary bin cache (io/stream.py, the JAX package's
+format).  ``forcedbins_filename`` forces bin bounds.
 
-Not ported yet, and raising when asked for: file and bin-cache input,
-out-of-core, EFB bundling, sparse and arrow input and save_binary (ROADMAP
-queue A2), set_network / free_network (A13).
+Exclusive Feature Bundling (``enable_bundle``, on by default as in the JAX
+package; io/efb.py) plans bundles on the binned matrix; the growers'
+histogram passes then read the bundled (N, F_b) matrix
+(``efb_device_tables``) and everything else stays in feature space.
+
+Not ported yet, and raising when asked for: out_of_core (ROADMAP queue
+A12), the bin_cache_shard feed, set_network / free_network (A13).
 """
 
 from __future__ import annotations
 
+import json
 import os
 from pathlib import Path
 from typing import Any, Dict, List, Optional, Union
@@ -23,9 +32,12 @@ from typing import Any, Dict, List, Optional, Union
 import numpy as np
 import torch
 
-from .binning import DatasetBinner
+from .binning import BinMapper, DatasetBinner
 from .config import Config
-from .models.gbdt import GBDT, create_boosting, tree_depth
+from .io.efb import apply_bundles, find_bundles
+from .io.parser import load_data_file, load_data_file_two_round
+from .io.stream import create_bin_cache, is_bin_cache, read_bin_cache
+from .models.gbdt import GBDT, _pre_filter, create_boosting, tree_depth
 from .models.tree import Tree
 from .ops import predict as predict_ops
 
@@ -34,18 +46,21 @@ class LightGBMError(Exception):
     """reference: LightGBMError in python-package/lightgbm/basic.py."""
 
 
+def _is_scipy_sparse(data) -> bool:
+    return hasattr(data, "tocsr") and hasattr(data, "toarray")
+
+
 def _to_2d_float(data) -> np.ndarray:
-    """numpy arrays, nested lists and pandas frames (categorical columns as
-    their codes) -> (N, F) float64."""
+    """numpy arrays, nested lists, pandas frames (categorical columns as
+    their codes), pyarrow tables, scipy sparse matrices and Sequence_
+    sources -> (N, F) float64 (the JAX package's _to_2d_float)."""
     if isinstance(data, (str, os.PathLike)):
-        raise NotImplementedError("file and bin-cache input are not ported to "
-                                  "lightgbm_tpu_torch yet (ROADMAP queue A2)")
-    if hasattr(data, "tocsr") and hasattr(data, "toarray"):
-        raise NotImplementedError("sparse input is not ported to "
-                                  "lightgbm_tpu_torch yet (ROADMAP queue A2)")
-    if hasattr(data, "schema") and hasattr(data, "column"):
-        raise NotImplementedError("arrow input is not ported to "
-                                  "lightgbm_tpu_torch yet (ROADMAP queue A2)")
+        raise TypeError(f"{os.fspath(data)!r}: a file is read by Dataset, not "
+                        "passed as rows")
+    if isinstance(data, Sequence_):
+        data = _from_sequences([data])
+    elif isinstance(data, list) and data and isinstance(data[0], Sequence_):
+        data = _from_sequences(data)
     if hasattr(data, "dtypes") and hasattr(data, "columns"):  # pandas frame
         import pandas as pd  # local: pandas is optional
 
@@ -59,10 +74,84 @@ def _to_2d_float(data) -> np.ndarray:
             else:
                 cols.append(col.to_numpy(dtype=np.float64, na_value=np.nan))
         return np.stack(cols, axis=1)
+    if hasattr(data, "schema") and hasattr(data, "column"):  # pyarrow
+        return _arrow_to_2d(data)
     if hasattr(data, "values"):  # pandas series
         data = data.values
+    if _is_scipy_sparse(data):
+        data = data.toarray()
     arr = np.asarray(data, dtype=np.float64)
     return arr.reshape(-1, 1) if arr.ndim == 1 else arr
+
+
+def _arrow_to_2d(data) -> np.ndarray:
+    """pyarrow Table or RecordBatch -> (N, F) float64, a column at a time
+    (reference: include/LightGBM/arrow.h): nulls become NaN, booleans 0/1,
+    dictionary columns their integer codes (after unifying the chunks'
+    dictionaries)."""
+    import pyarrow as pa  # local: pyarrow is optional
+
+    def chunk_values(chunk) -> np.ndarray:
+        t = chunk.type
+        if isinstance(t, pa.DictionaryType):
+            return chunk.indices.cast(pa.float64()).to_numpy(zero_copy_only=False)
+        if pa.types.is_boolean(t) or chunk.null_count:
+            return chunk.cast(pa.float64()).to_numpy(zero_copy_only=False)
+        return np.asarray(chunk, dtype=np.float64)
+
+    cols = []
+    for i in range(data.num_columns):
+        col = data.column(i)
+        if isinstance(col.type, pa.DictionaryType) and getattr(col, "num_chunks", 1) > 1:
+            col = col.unify_dictionaries()
+        chunks = col.chunks if hasattr(col, "chunks") else [col]
+        cols.append(np.concatenate([chunk_values(c) for c in chunks]) if chunks
+                    else np.zeros(0, np.float64))
+    return np.stack(cols, axis=1) if cols else np.zeros((data.num_rows, 0))
+
+
+class Sequence_:
+    """A source of rows read in batches (reference: lightgbm.Sequence):
+    subclass with __len__ and __getitem__ (a row slice -> array);
+    ``batch_size`` rows are read at a time."""
+
+    batch_size = 65536
+
+    def __len__(self) -> int:  # pragma: no cover - abstract
+        raise NotImplementedError
+
+    def __getitem__(self, idx):  # pragma: no cover - abstract
+        raise NotImplementedError
+
+
+def _from_sequences(seqs) -> np.ndarray:
+    chunks = []
+    for seq in seqs:
+        n = len(seq)
+        bs = max(int(getattr(seq, "batch_size", 65536)), 1)
+        for lo in range(0, n, bs):
+            chunk = np.asarray(seq[slice(lo, min(lo + bs, n))], np.float64)
+            # a 1-D slice is a batch of one-feature rows
+            chunks.append(chunk.reshape(-1, 1) if chunk.ndim == 1 else chunk)
+    return np.concatenate(chunks, axis=0)
+
+
+def _feature_names_of(data, num_features: int) -> List[str]:
+    if hasattr(data, "schema") and hasattr(data, "column"):  # pyarrow
+        return [str(n) for n in data.schema.names]
+    if hasattr(data, "columns"):
+        return [str(c) for c in data.columns]
+    return [f"Column_{i}" for i in range(num_features)]
+
+
+def _forced_bins(cfg: Config) -> Optional[Dict[int, List[float]]]:
+    """forcedbins_filename's JSON, [{"feature": i, "bin_upper_bound":
+    [...]}], as {feature: bounds} (reference: DatasetLoader)."""
+    if not cfg.forcedbins_filename:
+        return None
+    with open(cfg.forcedbins_filename) as fh:
+        return {int(e["feature"]): [float(v) for v in e["bin_upper_bound"]]
+                for e in json.load(fh)}
 
 
 def _check_finite(name: str, v) -> None:
@@ -100,67 +189,151 @@ class Dataset:
         self.binner: Optional[DatasetBinner] = None
         self.bins: Optional[np.ndarray] = None
         self.feature_names: List[str] = []
+        self.efb = None  # the EFB plan (io/efb.py::FeatureBundles), if any
+        self._efb_device = None
 
     def construct(self, reference: Optional["Dataset"] = None,
                   device: Optional[torch.device] = None) -> "Dataset":
         """Bin on the host and upload the (N, F) int16 matrix to ``device``
-        (default: the one the parameters' device_type names)."""
+        (default: the one the parameters' device_type names); plan the EFB
+        bundles (the train set; a reference= set takes its reference's)."""
         if self._constructed:
             return self
         from .models.gbdt import resolve_device
 
         ref = reference if reference is not None else self.reference
         cfg = Config.from_dict(self.params)
-        for name in ("out_of_core", "two_round"):
-            if getattr(cfg, name):
-                raise NotImplementedError(f"{name} is not ported to "
-                                          "lightgbm_tpu_torch yet (ROADMAP queue A2)")
-        if cfg.is_set("enable_bundle") and cfg.enable_bundle:
-            raise NotImplementedError("EFB bundling (enable_bundle=true) is "
-                                      "not ported to lightgbm_tpu_torch yet "
-                                      "(ROADMAP queue A2)")
+        if cfg.out_of_core:
+            raise NotImplementedError("out_of_core (streamed bin caches) is not "
+                                      "ported to lightgbm_tpu_torch yet (ROADMAP "
+                                      "queue A12)")
+        if self.params.get("bin_cache_shard") is not None:
+            raise NotImplementedError("bin_cache_shard (a rank's rows of a shared "
+                                      "cache) is not ported to lightgbm_tpu_torch "
+                                      "yet (ROADMAP queue A13)")
+        device = device if device is not None else resolve_device(cfg)
+        if ref is not None:
+            ref.construct(device=device)
+        pre_binner = pre_bins = None
+        if isinstance(self.data, (str, os.PathLike)):
+            pre_binner, pre_bins = self._load_file(os.fspath(self.data), cfg, ref)
         for name in ("label", "weight", "init_score"):
             _check_finite(name, getattr(self, name))
-        device = device if device is not None else resolve_device(cfg)
-        raw = _to_2d_float(self.data)
-        n, f = raw.shape
+        # sparse input is binned straight from CSC (stored nonzeros plus an
+        # implicit-zero count), never as dense raw floats
+        csc = raw = None
+        if pre_bins is not None:
+            f = pre_bins.shape[1]
+        elif _is_scipy_sparse(self.data) and cfg.is_enable_sparse:
+            csc = self.data.tocsc()
+            f = csc.shape[1]
+        else:
+            raw = _to_2d_float(self.data)
+            f = raw.shape[1]
+        self.feature_names = (list(self.feature_name)
+                              if isinstance(self.feature_name, (list, tuple))
+                              else _feature_names_of(self.data, f))
+        if pre_binner is not None:
+            self.binner = pre_binner
+        elif ref is not None:
+            self.binner = ref.binner  # bin alignment with the reference set
+        else:
+            fit = dict(max_bin=cfg.max_bin, min_data_in_bin=cfg.min_data_in_bin,
+                       sample_cnt=cfg.bin_construct_sample_cnt,
+                       use_missing=cfg.use_missing, zero_as_missing=cfg.zero_as_missing,
+                       categorical_features=self._categorical_indices(self.feature_names),
+                       max_bin_by_feature=cfg.max_bin_by_feature,
+                       seed=cfg.data_random_seed, forced_bins=_forced_bins(cfg))
+            self.binner = (DatasetBinner.fit_sparse(csc, **fit) if csc is not None
+                           else DatasetBinner.fit(raw, **fit))
+        if pre_bins is not None:
+            bins = pre_bins
+        elif csc is not None:
+            bins = self.binner.transform_sparse(csc)
+        else:
+            bins = self.binner.transform(raw)
+        n = bins.shape[0]
         if self.group is not None and int(self.group.sum()) != n:
             raise ValueError(f"group sizes sum to {int(self.group.sum())}, "
                              f"but the data has {n} rows")
-        if isinstance(self.feature_name, (list, tuple)):
-            self.feature_names = list(self.feature_name)
-        elif hasattr(self.data, "columns"):
-            self.feature_names = [str(c) for c in self.data.columns]
-        else:
-            self.feature_names = [f"Column_{i}" for i in range(f)]
+        # EFB (reference: DatasetLoader::FindGroups / FastFeatureBundling):
+        # a reference= set keeps its reference's plan (its bundled matrix is
+        # encoded only if a grower asks for it)
+        self.efb = None
         if ref is not None:
-            ref.construct(device=device)
-            self.binner = ref.binner  # bin alignment with the reference set
-        else:
-            cats = []
-            if isinstance(self.categorical_feature, (list, tuple)):
-                cats = [self.feature_names.index(c) if isinstance(c, str) else int(c)
-                        for c in self.categorical_feature]
-            if cfg.forcedbins_filename:
-                raise NotImplementedError("forcedbins_filename is not ported "
-                                          "yet (ROADMAP queue A2)")
-            self.binner = DatasetBinner.fit(
-                raw, max_bin=cfg.max_bin, min_data_in_bin=cfg.min_data_in_bin,
-                sample_cnt=cfg.bin_construct_sample_cnt,
-                use_missing=cfg.use_missing, zero_as_missing=cfg.zero_as_missing,
-                categorical_features=cats,
-                max_bin_by_feature=cfg.max_bin_by_feature,
+            if ref.efb is not None:
+                self.efb = ref.efb._replace(bundled_bins=None)
+        elif cfg.enable_bundle:
+            # the capacity is the whole max_bin budget, so one-hot blocks of
+            # 2-bin features pack up to max_bin members a bundle
+            self.efb = find_bundles(
+                bins, self.binner.num_bins_per_feature,
+                max(self.binner.max_num_bins, int(cfg.max_bin) + 1),
+                categorical_mask=np.asarray(self.binner.categorical_mask),
                 seed=cfg.data_random_seed)
-        self._set_bins(self.binner.transform(raw), device)
+        self._set_bins(bins, device)
         self._num_data, self._num_feature = n, f
         if self.free_raw_data:
             self.data = None
         self._constructed = True
         return self
 
+    def _categorical_indices(self, names: List[str]) -> List[int]:
+        if not isinstance(self.categorical_feature, (list, tuple)):
+            return []
+        return [names.index(c) if isinstance(c, str) else int(c)
+                for c in self.categorical_feature]
+
+    def _load_file(self, path: str, cfg: Config, ref: Optional["Dataset"]):
+        """A file path's rows: a save_binary cache (binner and bins), a
+        two-round text load (binner and bins, the raw floats never held)
+        or a one-round text load (the raw floats, into ``self.data``).  Its
+        label, weight, group, init_score, position and feature names fill
+        what the caller did not give.  Returns (binner, bins) or (None,
+        None)."""
+        binner = bins = None
+        cols = dict(header=bool(cfg.header), label_column=cfg.label_column,
+                    weight_column=cfg.weight_column, group_column=cfg.group_column,
+                    ignore_column=cfg.ignore_column)
+        if is_bin_cache(path):
+            loaded = read_bin_cache(path)
+            binner = DatasetBinner(mappers=[BinMapper(**m) for m in loaded["mappers"]])
+            bins = loaded["bins"]
+        elif cfg.two_round:
+            if ref is not None:
+                def factory(sample, names):
+                    return ref.binner
+            else:
+                def factory(sample, names):
+                    return DatasetBinner.fit(
+                        sample, max_bin=cfg.max_bin, min_data_in_bin=cfg.min_data_in_bin,
+                        sample_cnt=len(sample), use_missing=cfg.use_missing,
+                        zero_as_missing=cfg.zero_as_missing,
+                        categorical_features=self._categorical_indices(names),
+                        max_bin_by_feature=cfg.max_bin_by_feature,
+                        seed=cfg.data_random_seed, forced_bins=_forced_bins(cfg))
+            loaded = load_data_file_two_round(
+                path, factory, sample_cnt=cfg.bin_construct_sample_cnt,
+                seed=cfg.data_random_seed, sample_needed=ref is None, **cols)
+            binner, bins = loaded["binner"], loaded["bins"]
+        else:
+            loaded = load_data_file(path, **cols)
+            self.data = loaded["data"]
+        for name, dtype in (("label", np.float64), ("weight", np.float64),
+                            ("group", np.int64), ("position", np.int64)):
+            if getattr(self, name) is None and loaded.get(name) is not None:
+                setattr(self, name, np.asarray(loaded[name], dtype).ravel())
+        if self.init_score is None and loaded.get("init_score") is not None:
+            self.init_score = np.asarray(loaded["init_score"], np.float64)
+        if self.feature_name == "auto":
+            self.feature_name = list(loaded["feature_names"])
+        return binner, bins
+
     def _set_bins(self, bins: np.ndarray, device) -> None:
         """The host bins and their device copies (the matrix and the
-        per-feature bin tables)."""
+        per-feature bin tables).  With an EFB plan the histogram width is
+        its widest bundle where that is wider (the gather tables' stride);
+        the bundled matrix goes to the device when a grower asks."""
         self.bins = bins
         self.bins_device = torch.as_tensor(bins.astype(np.int16), device=device)
         self.num_bins_pf_device = torch.as_tensor(
@@ -168,6 +341,41 @@ class Dataset:
         self.missing_bin_pf_device = torch.as_tensor(
             self.binner.missing_bin_per_feature, dtype=torch.int32, device=device)
         self.max_num_bins = int(self.binner.max_num_bins)
+        self._efb_device = None
+        self._pre_filter_masks: Dict[int, np.ndarray] = {}
+        if self.efb is not None:
+            self.max_num_bins = max(self.max_num_bins,
+                                    int(self.efb.gather_idx.shape[1]))
+
+    def pre_filter_mask(self, min_data_in_leaf: int) -> np.ndarray:
+        """feature_pre_filter's allowed features on these bins
+        (models/gbdt.py::_pre_filter), computed once for each
+        min_data_in_leaf: a column pass over the host bins that every
+        training on this set would otherwise repeat."""
+        if min_data_in_leaf not in self._pre_filter_masks:
+            self._pre_filter_masks[min_data_in_leaf] = _pre_filter(
+                self.bins, self.binner, min_data_in_leaf)
+        return self._pre_filter_masks[min_data_in_leaf]
+
+    def efb_device_tables(self) -> Optional[tuple]:
+        """The EFB tables the growers' histogram passes take, on the bins'
+        device, or None without a plan: (bundled (N, F_b) int16 matrix,
+        gather (F * B,) int64, default (F, B) bool).  The bundled matrix is
+        encoded here if the plan does not hold this dataset's (a reference=
+        set, a subset)."""
+        if self.efb is None:
+            return None
+        if self._efb_device is None:
+            if self.efb.bundled_bins is None:
+                self.efb = self.efb._replace(bundled_bins=apply_bundles(
+                    self.efb, self.bins, self.binner.num_bins_per_feature))
+            dev = self.bins_device.device
+            self._efb_device = (
+                torch.as_tensor(self.efb.bundled_bins.astype(np.int16), device=dev),
+                torch.as_tensor(self.efb.gather_idx.reshape(-1), dtype=torch.int64,
+                                device=dev),
+                torch.as_tensor(self.efb.default_mask, device=dev))
+        return self._efb_device
 
     def num_data(self) -> int:
         if self._constructed:
@@ -310,6 +518,7 @@ class Dataset:
                                 "different number of rows")
         self.binner = DatasetBinner(mappers=list(self.binner.mappers)
                                     + list(other.binner.mappers))
+        self.efb = None  # the bundle plan is stale once columns are added
         self._set_bins(np.concatenate([self.bins, other.bins], axis=1),
                        self.bins_device.device)
         self.feature_names = list(self.feature_names) + list(other.feature_names)
@@ -326,6 +535,8 @@ class Dataset:
         idx = np.asarray(used_indices, dtype=np.int64)
         sub = Dataset.__new__(Dataset)
         sub.__dict__.update(self.__dict__)
+        if self.efb is not None:  # the plan, its bundled matrix encoded anew
+            sub.efb = self.efb._replace(bundled_bins=None)
         sub._set_bins(self.bins[idx], self.bins_device.device)
         for name in ("label", "weight", "init_score", "position"):
             v = getattr(self, name)
@@ -335,7 +546,9 @@ class Dataset:
             qid = np.repeat(np.arange(len(self.group)), self.group)[idx]
             change = np.nonzero(np.diff(qid) != 0)[0] + 1
             sub.group = np.diff(np.concatenate([[0], change, [len(qid)]])).astype(np.int64)
-        if self.data is not None:
+        if _is_scipy_sparse(self.data):  # the rows, still sparse
+            sub.data = self.data.tocsr()[idx]
+        elif self.data is not None and not isinstance(self.data, (str, os.PathLike)):
             sub.data = _to_2d_float(self.data)[idx]
         if params is not None:
             sub.params = dict(params)
@@ -344,8 +557,16 @@ class Dataset:
         return sub
 
     def save_binary(self, filename: str) -> "Dataset":
-        raise NotImplementedError("Dataset.save_binary (the bin cache) is not ported "
-                                  "to lightgbm_tpu_torch yet (ROADMAP queue A2)")
+        """Write the binned dataset to ``filename`` (reference:
+        Dataset::SaveBinaryFile), atomically, in the JAX package's npz
+        cache format (io/stream.py); Dataset(filename) loads it back
+        without parsing or binning."""
+        self.construct()
+        create_bin_cache(os.fspath(filename), self.bins, self.binner.mappers,
+                         label=self.label, weight=self.weight, group=self.group,
+                         init_score=self.init_score, position=self.position,
+                         feature_names=self.feature_names)
+        return self
 
     # -- a host tree on the device bins -----------------------------------
     def predict_leaf_binned_tree(self, tree: Tree) -> torch.Tensor:
@@ -615,6 +836,16 @@ class Booster:
                                       "yet (ROADMAP queue A13)")
         if num_iteration is None:
             num_iteration = self.best_iteration if self.best_iteration > 0 else -1
+        if _is_scipy_sparse(data):
+            # sparse rows are densified a chunk at a time (about 512 MB of
+            # float64 each), never all at once
+            chunk = max(1, int(512e6 // (max(data.shape[1], 1) * 8)))
+            if data.shape[0] > chunk:
+                csr = data.tocsr()
+                return np.concatenate([
+                    self.predict(csr[lo:lo + chunk], start_iteration, num_iteration,
+                                 raw_score, pred_leaf, pred_contrib, **kwargs)
+                    for lo in range(0, csr.shape[0], chunk)], axis=0)
         X = _to_2d_float(data)
         n_feat = self.num_feature()
         if (n_feat and X.shape[1] != n_feat

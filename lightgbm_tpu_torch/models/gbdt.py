@@ -42,7 +42,12 @@ device queue.
 
 Categorical features (the Dataset's categorical mask), feature_contri and
 hist_precision=bf16 reach every grower, as in the JAX package; a model
-with categorical splits predicts through the stacked walk's bitsets.
+with categorical splits predicts through the stacked walk's bitsets.  A
+Dataset's EFB plan (basic.py, io/efb.py) reaches the rounds and windowed
+growers, whose histogram passes read the bundled matrix; their leaf tile
+comes from the bundled column count F_b, as the JAX package's _leaf_tile
+does.  The strict grower histograms the features, as the JAX package's
+does.
 
 Not ported yet, and rejected at construction: the options of the grower
 envelope that the growers do not carry (A11b) and the distributed tree
@@ -134,6 +139,12 @@ def goss_mask(g: torch.Tensor, h: torch.Tensor, u: torch.Tensor,
     rest = ~top & (u < float(np.float32(other_k / max(n - top_k, 1))))
     amp = float(np.float32((1.0 - top_rate) / other_rate))
     return top | rest, torch.ones_like(u, dtype=torch.float32).masked_fill(rest, amp)
+
+
+def _hist_columns(ts) -> int:
+    """Columns the rounds and windowed growers' histogram passes read: the
+    bundled ones (F_b) with an EFB plan, else the features."""
+    return ts.efb.num_bundled if ts.efb is not None else ts.num_feature()
 
 
 def tree_depth(tree: Tree) -> int:
@@ -333,8 +344,7 @@ class GBDT:
         self.reset_split_params()
         allowed = np.ones(train_set.num_feature(), dtype=bool)
         if cfg.feature_pre_filter and cfg.min_data_in_leaf > 1:
-            allowed = _pre_filter(train_set.bins, train_set.binner,
-                                  int(cfg.min_data_in_leaf))
+            allowed = train_set.pre_filter_mask(int(cfg.min_data_in_leaf))
         self._allowed_np = allowed
         self._allowed_features = torch.as_tensor(allowed, device=dev)
         # None without categorical features, so the growers skip the
@@ -350,7 +360,7 @@ class GBDT:
             torch.as_tensor(np.asarray((fc + [1.0] * f)[:f], np.float32), device=dev)
             if any(float(c) != 1.0 for c in fc) else None)
         self._leaf_tile = recommended_leaf_tile(
-            train_set.max_num_bins, train_set.num_feature(), cfg.num_leaves,
+            train_set.max_num_bins, _hist_columns(train_set), cfg.num_leaves,
             quantized=bool(cfg.use_quantized_grad),
             hist_precision=cfg.hist_precision)
 
@@ -495,17 +505,23 @@ class GBDT:
         package's envelope has its conditions: gradients from the objective
         (not given by the caller: custom gradients and random forests run
         eagerly), the rounds grower, float histograms (quantized training
-        stays eager, as it does there), num_leaves x features <= 100,000, a
-        built-in objective that needs no leaf renewal and keeps no
-        per-iteration host state, at most 8 trees an iteration.  The class
-        trees of an iteration share the captures: their rounds have one
-        static key."""
+        stays eager, as it does there), num_leaves x histogram columns <=
+        100,000, a built-in objective that needs no leaf renewal and keeps
+        no per-iteration host state, at most 8 trees an iteration.  The
+        class trees of an iteration share the captures: their rounds have
+        one static key.
+
+        A recorded departure (ROADMAP queue C6): the histogram columns are
+        the bundled ones (F_b) where the Dataset has an EFB plan, where the
+        JAX package counts the features.  Its limit bounds the size of an
+        XLA trace, which a CUDA graph does not have; the graph and eager
+        rounds grow the same trees, so only the dispatch mode differs."""
         obj = self.objective
         return (grad is None and bool(self.cfg.fused_training)
                 and not self._use_windowed(ts)
                 and not self._use_strict()
                 and not self.cfg.use_quantized_grad
-                and self.cfg.num_leaves * ts.num_feature() <= 100_000
+                and self.cfg.num_leaves * _hist_columns(ts) <= 100_000
                 and obj is not None and not obj.need_renew and obj.is_fusable()
                 and self.num_tree_per_iteration <= 8)
 
@@ -560,6 +576,7 @@ class GBDT:
             hc = h if k == 1 else h[:, c].contiguous()
             args = (ts.bins_device, gc, hc, row_mask, sample_weight, feature_mask,
                     ts.num_bins_pf_device, ts.missing_bin_pf_device)
+            efb = None if strict else ts.efb_device_tables()
             stats: dict = {}
             common = dict(num_leaves=cfg.num_leaves, num_bins=ts.max_num_bins,
                           max_depth=cfg.max_depth, params=self._split_params,
@@ -578,7 +595,7 @@ class GBDT:
                     quantize_bins=(cfg.num_grad_quant_bins if quant else 0),
                     stochastic_rounding=bool(cfg.stochastic_rounding),
                     quant_renew=bool(cfg.quant_train_renew_leaf),
-                    generator=gen, graphs=graphs,
+                    generator=gen, graphs=graphs, efb=efb,
                     hist_precision=cfg.hist_precision,
                     guard_label=f" (boosting iteration {self.iter_ + 1})")
                 if self._use_windowed(ts):

@@ -35,7 +35,7 @@ from .split import (KMIN_SCORE, BestSplit, SplitParams, find_best_split,
 # options of the JAX package's growers that this package does not carry yet
 # (ROADMAP queue A11b; data/feature/voting modes A13): passing one raises
 UNPORTED = ("monotone_constraints", "interaction_sets", "rng_key",
-            "cegb_feature_penalty", "efb_bins", "forced_leaf",
+            "cegb_feature_penalty", "forced_leaf",
             "cegb_lazy_penalty", "track_path", "axis_name")
 
 

@@ -24,9 +24,11 @@ Supported: numerical and categorical splits, missing values, max_depth,
 bagging masks and sample weights, path smoothing, feature_contri, float,
 bf16 (``hist_precision``: grad and hess rounded to bfloat16 once a tree,
 summed exactly) and int8-quantized histograms (quantize_bins,
-stochastic_rounding, quant_renew).  Monotone, interaction and CEGB
-constraints, forced splits, EFB bundles, linear trees and per-node sampling
-raise ValueError (ROADMAP queue A11b).
+stochastic_rounding, quant_renew), and EFB bundles (``efb``: the root and
+round passes histogram the bundled matrix and unbundle, int8 histograms
+before they are scaled; the partition reads the feature bins).  Monotone,
+interaction and CEGB constraints, forced splits, linear trees and per-node
+sampling raise ValueError (ROADMAP queue A11b).
 """
 
 from __future__ import annotations
@@ -37,7 +39,7 @@ import torch
 
 from ..utils import sanitizer as _san
 from .graphs import RoundGraphs
-from .histogram import histogram_multi, histogram_multi_quantized
+from .histogram import histogram_multi, histogram_multi_quantized, unbundle
 from .round_cuda import split_window
 from .split import BestSplit, SplitParams, find_best_split, leaf_output, leaf_output_smoothed
 from .treegrow import (TreeArrays, _empty_best, _put, _set_best, admit,
@@ -98,25 +100,28 @@ def predict_leaf_arrays(arrays: TreeArrays, bins: torch.Tensor,
 
 
 def _multi_hist(bins, inp: FInputs, leaf_slot, tile: int, num_bins: int,
-                quantize_bins: int, hist_precision: str) -> torch.Tensor:
-    """(N,)-slot -> (tile, 3, F, B) f32: per-slot histograms, one pass."""
+                quantize_bins: int, hist_precision: str, efb=None) -> torch.Tensor:
+    """(N,)-slot -> (tile, 3, F, B) f32: per-slot histograms, one pass (over
+    the bundled matrix, then unbundled, with an EFB plan)."""
+    src = bins if efb is None else efb[0]
     m = inp.row_mask & (leaf_slot >= 0)
     if quantize_bins:
-        hi = histogram_multi_quantized(bins, inp.gq, inp.hq, m, leaf_slot, 0,
+        hi = histogram_multi_quantized(src, inp.gq, inp.hq, m, leaf_slot, 0,
                                        tile, num_bins)
-        return hi.float() * inp.quant_scale[:, None, None]
-    return histogram_multi(bins, inp.grad, inp.hess, m, leaf_slot, 0, tile,
-                           num_bins, precision=hist_precision)
+        return unbundle(hi, efb, num_bins).float() * inp.quant_scale[:, None, None]
+    return unbundle(histogram_multi(src, inp.grad, inp.hess, m, leaf_slot, 0, tile,
+                                    num_bins, precision=hist_precision), efb, num_bins)
 
 
 def _f_init(bins, grad, hess, row_mask, sample_weight, feature_mask, nbpf, mbpf,
             *, num_leaves: int, num_bins: int, params: SplitParams,
             quantize_bins: int, stochastic_rounding: bool,
             generator: Optional[torch.Generator], hist_precision: str = "f32",
-            categorical_mask=None, feature_contri=None, hist=None):
+            categorical_mask=None, feature_contri=None, hist=None, efb=None):
     """Root state: quantize gradients, the root pass, seed best.  ``hist``:
-    the (L + 1, 3, F, B) buffer for the histogram state, else a new one.
-    Returns (state, FInputs, grad_true, hess_true)."""
+    the (L + 1, 3, F, B) buffer for the histogram state, else a new one;
+    ``efb``: the EFB tables.  Returns (state, FInputs, grad_true,
+    hess_true)."""
     dev = bins.device
     n, f = bins.shape
     L = num_leaves
@@ -132,7 +137,7 @@ def _f_init(bins, grad, hess, row_mask, sample_weight, feature_mask, nbpf, mbpf,
     inputs = FInputs(grad, hess, gq, hq, quant_scale, row_mask, feature_mask)
     minus1 = torch.full((n,), -1, dtype=torch.int32, device=dev)
     hist0 = _multi_hist(bins, inputs, torch.where(row_mask, 0, minus1), 1,
-                        num_bins, quantize_bins, hist_precision)[0]
+                        num_bins, quantize_bins, hist_precision, efb)[0]
     g0, h0, c0 = torch.sum(hist0[:, 0, :], dim=1)  # totals from feature 0
     leaf_out0 = leaf_output(g0, h0, params)
     best = _empty_best(L, num_bins, dev)
@@ -168,7 +173,8 @@ def _f_init(bins, grad, hess, row_mask, sample_weight, feature_mask, nbpf, mbpf,
 
 def _round(st: FState, bins, inp: FInputs, nbpf, mbpf, cmask=None, contri=None, *,
            num_leaves: int, num_bins: int, max_depth: int, params: SplitParams,
-           leaf_tile: int, quantize_bins: int, hist_precision: str = "f32"):
+           leaf_tile: int, quantize_bins: int, hist_precision: str = "f32",
+           efb=None):
     """One masked fixed-tile round; returns (state', info) with info =
     [k_acc, 0, 1, 0, finite, k_next] (i32, on the device; the windowed
     round's layout, whose window fields this round has no use for)."""
@@ -227,7 +233,7 @@ def _round(st: FState, bins, inp: FInputs, nbpf, mbpf, cmask=None, contri=None, 
     slot_of_leaf = _put(torch.full((L,), -1, dtype=torch.int64, device=dev),
                         torch.where(accept, small, drop), acc_rank)
     fresh = _multi_hist(bins, inp, slot_of_leaf[leaf_id.long()].to(torch.int32),
-                        T, num_bins, quantize_bins, hist_precision)  # (T, 3, F, B)
+                        T, num_bins, quantize_bins, hist_precision, efb)  # (T, 3, F, B)
     # per admission rank: the split leaf (the left child keeps its id), the
     # right child, and which one the pass histogrammed
     pos_r = torch.where(accept, acc_rank, -1)
@@ -315,6 +321,7 @@ def grow_tree_fast(
     hist_precision: str = "f32",
     categorical_mask: Optional[torch.Tensor] = None,  # (F,) bool
     feature_contri: Optional[torch.Tensor] = None,  # (F,) f32
+    efb: Optional[tuple] = None,  # Dataset.efb_device_tables()
     **options,
 ) -> tuple[TreeArrays, torch.Tensor]:
     """Grow one tree in rounds; returns (tree, final leaf_id per row).
@@ -326,7 +333,10 @@ def grow_tree_fast(
     quant_renew recomputes leaf outputs from the true gradients.
     ``graphs``: run every round through that cache's static buffers (one
     CUDA-graph replay a round on the card).  ``stats`` receives the
-    utils/sanitizer.py counts of the tree and the driver's retries."""
+    utils/sanitizer.py counts of the tree and the driver's retries.
+    ``efb``: (bundled (N, F_b) int16, gather, default) of an EFB plan, which
+    the histogram passes read; the static buffers of ``graphs`` read them
+    where they lie, as they read ``bins``."""
     reject_unported("grow_tree_fast", options)
     if hist_precision not in ("f32", "bf16"):
         raise ValueError(f"hist_precision must be f32 or bf16, got {hist_precision!r}")
@@ -336,11 +346,11 @@ def grow_tree_fast(
                   hist_precision=hist_precision)
     tables = (categorical_mask, feature_contri)
     fixed = (bins, num_bins_per_feature, missing_bin_per_feature,
-             *(t for t in tables if t is not None))
+             *(t for t in tables if t is not None), *(efb or ()))
 
     def round_fn(st, inp: FInputs, _W):
         return _round(st, bins, inp, num_bins_per_feature,
-                      missing_bin_per_feature, *tables, **static)
+                      missing_bin_per_feature, *tables, efb=efb, **static)
 
     with _san.DispatchCounter() as counter:
         try:
@@ -353,7 +363,7 @@ def grow_tree_fast(
                 quantize_bins=quantize_bins,
                 stochastic_rounding=stochastic_rounding, generator=generator,
                 hist_precision=hist_precision, categorical_mask=categorical_mask,
-                feature_contri=feature_contri, hist=hist)
+                feature_contri=feature_contri, hist=hist, efb=efb)
             state = _run_fused_rounds(
                 round_runner(round_fn, state, inputs, fixed,
                              ("rounds",) + tuple(static.items()), graphs),

@@ -55,11 +55,16 @@ inactive slots).  Trees do not depend on W: it only bounds the window.
 
 Scope: numerical and categorical features (a categorical split routes the
 bins of its mask left), missing values, max_depth, bagging masks and
-sample weights, feature_contri, float and int8-quantized gradients, and
+sample weights, feature_contri, float and int8-quantized gradients,
 hist_precision=bf16 in the root pass and the three-pass window pass (the
-megakernel's window pass sums f32, as the JAX package's does).  EFB
-bundles (ROADMAP A2) and per-node feature sampling (A11b) raise.  The obs spans
-and counters of the JAX round loop wait for ROADMAP A14.
+megakernel's window pass sums f32, as the JAX package's does), and EFB
+bundles: outside the megakernel's envelope, as in the JAX package, so an
+EFB tree takes the three-pass round, reports ``megakernel_excluded``
+"efb" and counts a megakernel fallback (utils/sanitizer.py); its root pass
+and window pass histogram the bundled (N, F_b) matrix and unbundle, while
+the partition and the split's go-left test read the feature bins.
+Per-node feature sampling (A11b) raises.  The obs spans and counters of
+the JAX round loop wait for ROADMAP A14.
 """
 
 from __future__ import annotations
@@ -73,7 +78,7 @@ from ..utils.guards import NonFiniteError
 from ..utils.log import log_warning
 from .graphs import RoundGraphs, copy_into
 from .hist_cuda import fixed_shift_pair, fixed_shift_tensor
-from .histogram import histogram_multi, histogram_multi_quantized
+from .histogram import histogram_multi, histogram_multi_quantized, unbundle
 from .partition import segment_ids
 from .partition_cuda import partition_segments
 from .round_cuda import round_megakernel, split_window, window_histograms
@@ -83,7 +88,7 @@ from .treegrow import (TreeArrays, _empty_best, _put, _set_best, admit,
                        admits_next, book_tree, empty_tree, go_left_of,
                        quantize_gradients)
 
-_UNPORTED = ("rng_key", "efb_bins_t", "efb_gather", "efb_default")
+_UNPORTED = ("rng_key",)
 
 
 class WState(NamedTuple):
@@ -144,9 +149,11 @@ def _round_fused(state: WState, bins, grad, hess, gq, hq, quant_scale,
                  contri=None, *, num_leaves: int, num_bins: int, max_depth: int,
                  params: SplitParams, leaf_tile: int, W: int,
                  quantize_bins: int, megakernel: bool, shift: torch.Tensor,
-                 hist_precision: str = "f32"):
+                 hist_precision: str = "f32", efb=None):
     """One whole boosting round; returns (state', info) with info = [k_acc,
-    window_total, fits_W, whint, finite, k_next] (i32, on the device)."""
+    window_total, fits_W, whint, finite, k_next] (i32, on the device).
+    ``efb``: the EFB tables (three-pass rounds only): the window pass
+    histograms the bundled matrix and unbundles."""
     L, T = num_leaves, leaf_tile
     n, f = bins.shape
     dev = bins.device
@@ -279,14 +286,16 @@ def _round_fused(state: WState, bins, grad, hess, gq, hq, quant_scale,
 
     # ---- three-pass: window gather -> multi-leaf pass -> subtraction ----
     if not megakernel:
-        win = (new_order, bins)
+        win = (new_order, bins if efb is None else efb[0])
         geo = (row_mask, win_start, win_cnt, W, T, num_bins)
         if quantize_bins:
-            fresh_h = window_histograms(histogram_multi_quantized, *win, (gq, hq),
-                                        *geo).float() * quant_scale[:, None, None]
+            fresh_h = unbundle(window_histograms(
+                histogram_multi_quantized, *win, (gq, hq), *geo), efb, num_bins
+            ).float() * quant_scale[:, None, None]
         else:
-            fresh_h = window_histograms(histogram_multi, *win, (grad, hess), *geo,
-                                        shift=shift, precision=hist_precision)
+            fresh_h = unbundle(window_histograms(
+                histogram_multi, *win, (grad, hess), *geo, shift=shift,
+                precision=hist_precision), efb, num_bins)
         left_h, right_h = split_window(parent_hists, fresh_h, slot_small_left)
 
     spare = L  # inactive slots write the spare row
@@ -336,10 +345,11 @@ def _w_init(bins, grad, hess, row_mask, sample_weight, num_bins_pf,
             missing_bin_pf, feature_mask, *, num_leaves: int, num_bins: int,
             params: SplitParams, quantize_bins: int, stochastic_rounding: bool,
             generator: Optional[torch.Generator], hist_precision: str = "f32",
-            categorical_mask=None, feature_contri=None, hist=None):
+            categorical_mask=None, feature_contri=None, hist=None, efb=None):
     """Root state: quantize gradients, the one full-N pass, seed best.
     ``hist``: the (L + 1, 3, F, B) buffer to hold the histogram state (the
-    static one of a graph cache), else a new one.  Returns (state, WInputs,
+    static one of a graph cache), else a new one; ``efb``: the EFB tables
+    (the pass reads the bundled matrix).  Returns (state, WInputs,
     grad_true, hess_true)."""
     n, f = bins.shape
     L = num_leaves
@@ -354,12 +364,15 @@ def _w_init(bins, grad, hess, row_mask, sample_weight, num_bins_pf,
     fixed_shift_pair(grad, hess)  # the tree's one blocking host read: finite?
     shift = fixed_shift_tensor(grad, hess)
     slot0 = torch.zeros(n, dtype=torch.int32, device=dev)
+    src = bins if efb is None else efb[0]
     if quantize_bins:
-        hist0 = histogram_multi_quantized(bins, gq, hq, row_mask, slot0, 0, 1,
-                                          num_bins)[0].float() * quant_scale[:, None, None]
+        hist0 = unbundle(histogram_multi_quantized(src, gq, hq, row_mask, slot0, 0, 1,
+                                                    num_bins), efb, num_bins
+                          )[0].float() * quant_scale[:, None, None]
     else:
-        hist0 = histogram_multi(bins, grad, hess, row_mask, slot0, 0, 1,
-                                num_bins, shift=shift, precision=hist_precision)[0]
+        hist0 = unbundle(histogram_multi(src, grad, hess, row_mask, slot0, 0, 1,
+                                          num_bins, shift=shift,
+                                          precision=hist_precision), efb, num_bins)[0]
     g0, h0, c0 = torch.sum(hist0[:, 0, :], dim=1)  # totals from feature 0
     leaf_out0 = leaf_output(g0, h0, params)
     best = _empty_best(L, num_bins, dev)
@@ -517,7 +530,7 @@ def _run_fused_rounds(round_fn, state, *, n_ladder: Optional[int],
     return state
 
 
-def megakernel_mode(on_card: bool, *, quantize_bins: int = 0,
+def megakernel_mode(on_card: bool, *, quantize_bins: int = 0, efb: bool = False,
                     mode: Optional[str] = None) -> Tuple[bool, Optional[str]]:
     """The round-megakernel gate: returns (megakernel, exclusion reason).
 
@@ -527,7 +540,10 @@ def megakernel_mode(on_card: bool, *, quantize_bins: int = 0,
     int8-quantized training is outside the megakernel's envelope: the
     three-pass round sums the int8 values exactly while the megakernel
     would fold the dequantized floats, so it takes the three-pass round and
-    the reason ``quantized`` is reported (in the grower's stats)."""
+    the reason ``quantized`` is reported (in the grower's stats).  EFB
+    bundles (``efb``) are outside the envelope wherever the megakernel was
+    asked for, as in the JAX package: reason ``efb``.  Every exclusion
+    counts a megakernel fallback (utils/sanitizer.py)."""
     mode = "auto" if mode is None else str(mode).lower()
     if mode in ("0", "off", "false"):
         return False, None
@@ -535,8 +551,10 @@ def megakernel_mode(on_card: bool, *, quantize_bins: int = 0,
         raise ValueError(f"megakernel must be auto, 1 or 0, got {mode!r}")
     if not (mode != "auto" or on_card):
         return False, None
-    if quantize_bins and on_card:
-        return False, "quantized"
+    reason = "efb" if efb else ("quantized" if quantize_bins and on_card else None)
+    if reason is not None:
+        _san.record_megakernel_fallback()
+        return False, reason
     return True, None
 
 
@@ -566,42 +584,45 @@ def grow_tree_windowed(
     hist_precision: str = "f32",
     categorical_mask: Optional[torch.Tensor] = None,  # (F,) bool
     feature_contri: Optional[torch.Tensor] = None,  # (F,) f32
+    efb: Optional[tuple] = None,  # Dataset.efb_device_tables()
     **options,
 ) -> tuple[TreeArrays, torch.Tensor]:
     """Grow one tree with windowed rounds; returns (tree, leaf_id per row).
     ``graphs``: run every round through that cache's static buffers (one
     CUDA-graph replay a round on the card), else as eager torch launches.
     ``stats``, when given, receives {rounds, host_syncs, async_resolves,
-    captures, replays, dispatches, retries, windows, megakernel,
-    megakernel_excluded}: the counts of utils/sanitizer.py over the whole
-    tree."""
+    captures, replays, dispatches, megakernel_fallbacks, retries, windows,
+    megakernel, megakernel_excluded}: the counts of utils/sanitizer.py over
+    the whole tree.  ``efb``: an EFB plan's (bundled (N, F_b) int16,
+    gather, default), which the root and window passes read (the
+    three-pass round: the megakernel excludes it)."""
     for name in _UNPORTED:
         v = options.pop(name, None)
         if v is not None and v is not False:
             raise ValueError(f"grow_tree_windowed: {name} is not ported to "
-                             "lightgbm_tpu_torch yet (ROADMAP A11b, EFB A2)")
+                             "lightgbm_tpu_torch yet (ROADMAP A11b)")
     if options:
         raise TypeError(f"unexpected options: {sorted(options)}")
     if feature_mask is None:
         feature_mask = torch.ones(bins.shape[1], dtype=torch.bool,
                                   device=bins.device)
-    mk, excluded = megakernel_mode(bins.is_cuda, quantize_bins=quantize_bins,
-                                   mode=megakernel_opt)
-    tile = max(1, min(leaf_tile, num_leaves))
-    static = dict(num_leaves=num_leaves, num_bins=num_bins, max_depth=max_depth,
-                  params=params, leaf_tile=tile, quantize_bins=quantize_bins,
-                  megakernel=mk, hist_precision=hist_precision)
-    tables = (categorical_mask, feature_contri)
-    fixed = (bins, num_bins_per_feature, missing_bin_per_feature,
-             *(t for t in tables if t is not None))
+    with _san.DispatchCounter() as counter:  # the gate's fallback count too
+        mk, excluded = megakernel_mode(bins.is_cuda, quantize_bins=quantize_bins,
+                                       efb=efb is not None, mode=megakernel_opt)
+        tile = max(1, min(leaf_tile, num_leaves))
+        static = dict(num_leaves=num_leaves, num_bins=num_bins, max_depth=max_depth,
+                      params=params, leaf_tile=tile, quantize_bins=quantize_bins,
+                      megakernel=mk, hist_precision=hist_precision)
+        tables = (categorical_mask, feature_contri)
+        fixed = (bins, num_bins_per_feature, missing_bin_per_feature,
+                 *(t for t in tables if t is not None), *(efb or ()))
 
-    def round_fn(st, inp: WInputs, W):
-        return _round_fused(
-            st, bins, inp.grad, inp.hess, inp.gq, inp.hq, inp.quant_scale,
-            inp.row_mask, num_bins_per_feature, missing_bin_per_feature,
-            inp.feature_mask, *tables, W=W, shift=inp.shift, **static)
+        def round_fn(st, inp: WInputs, W):
+            return _round_fused(
+                st, bins, inp.grad, inp.hess, inp.gq, inp.hq, inp.quant_scale,
+                inp.row_mask, num_bins_per_feature, missing_bin_per_feature,
+                inp.feature_mask, *tables, W=W, shift=inp.shift, efb=efb, **static)
 
-    with _san.DispatchCounter() as counter:
         try:
             hist = None if graphs is None or graphs.buffers is None else (
                 graphs.buffers[0].hist)
@@ -611,7 +632,7 @@ def grow_tree_windowed(
                 num_bins=num_bins, params=params, quantize_bins=quantize_bins,
                 stochastic_rounding=stochastic_rounding, generator=generator,
                 hist_precision=hist_precision, categorical_mask=categorical_mask,
-                feature_contri=feature_contri, hist=hist)
+                feature_contri=feature_contri, hist=hist, efb=efb)
             n = bins.shape[0]
             # round 1 needs no feedback: a round's window (the small
             # children) can never exceed floor(N/2) rows, whatever it admits

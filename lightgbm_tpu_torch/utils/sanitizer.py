@@ -19,7 +19,10 @@ counterpart of the JAX package's dispatch counts: ``captures`` (CUDA graphs
 captured), ``replays`` (graph replays), and ``dispatches``, rounds run as
 one unit: a replay on the card, or on the CPU the same round function run
 in place on its static buffers.  Rounds run as eager torch launches count
-none.
+none.  ``megakernel_fallbacks`` counts windowed trees whose configuration
+the round megakernel excludes (ops/treegrow_windowed.py::megakernel_mode:
+EFB bundles, int8 on the card), the JAX package's
+megakernel_envelope_fallbacks_total.
 """
 
 from __future__ import annotations
@@ -31,7 +34,7 @@ import torch
 
 _lock = threading.Lock()
 _counts = {"rounds": 0, "host_syncs": 0, "async_resolves": 0, "captures": 0,
-           "replays": 0, "dispatches": 0}
+           "replays": 0, "dispatches": 0, "megakernel_fallbacks": 0}
 
 
 def record_dispatch(n: int = 1) -> None:
@@ -44,6 +47,13 @@ def record_capture() -> None:
     """Count a CUDA graph captured."""
     with _lock:
         _counts["captures"] += 1
+
+
+def record_megakernel_fallback() -> None:
+    """Count a tree that takes the three-pass round where the megakernel
+    was asked for."""
+    with _lock:
+        _counts["megakernel_fallbacks"] += 1
 
 
 def record_replay(replayed: bool) -> None:

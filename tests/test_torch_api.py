@@ -333,7 +333,7 @@ def test_dataset_fields_and_names():
     assert nb[0] == nb[1]
 
 
-def test_dataset_reference_chain_subset_and_added_features():
+def test_dataset_reference_chain_subset_and_added_features(tmp_path):
     rng = np.random.RandomState(2)
     X = rng.randn(300, 3)
     y = (X[:, 0] > 0).astype(float)
@@ -360,8 +360,11 @@ def test_dataset_reference_chain_subset_and_added_features():
         assert a.num_feature() == 5 and len(a.get_feature_name()) == 5
         bst = lgb.train({"objective": "binary", "verbosity": -1, **extra}, a, 2)
         assert bst.num_trees() == 2
-    with pytest.raises(NotImplementedError, match="A2"):
-        d1.save_binary("never_written.bin")
+    # save_binary writes the bin cache that Dataset(path) loads back
+    d1.save_binary(str(tmp_path / "d1.bin"))
+    back = tlgb.Dataset(str(tmp_path / "d1.bin"), params=CPU).construct()
+    np.testing.assert_array_equal(back.bins, d1.bins)
+    np.testing.assert_array_equal(back.get_label(), y)
     # categorical features are set before construction only (A11); linear
     # trees still raise (A11b)
     late = tlgb.Dataset(X, label=y, free_raw_data=False, params=CPU)

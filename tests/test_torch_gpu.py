@@ -16,6 +16,11 @@ and eager training bitwise, count one replay a tree-round and captures only
 in the first tree that meets a key, run the replays under torch's sync debug
 mode, and hold B2 and B3 captured in a graph to their eager launches.
 
+EFB: B1 over a bundled Expo-shaped matrix (values up to 255, F_b
+columns, the tile from F_b) against its plain version, unbundling on the
+card against the CPU, a bundled CSR training graph == eager with no
+blocking read, and the windowed grower's three-pass round over bundles.
+
 Tolerances: int8 histograms are exact; float histograms are held to
 1e-5 * (max|hess| + 1), the f32 summation-order bound, though the 64-bit
 fixed point makes kernel and plain version agree bit for bit.  The
@@ -957,3 +962,109 @@ def test_windowed_categorical_megakernel_equals_three_pass():
         assert (round_cuda.launches["round_megakernel"] > 0) == (mk == "auto")
     assert sum(t.num_cat for t in boosters[0]._gbdt.models) > 0
     chip_smoke.trees_agree(*boosters)
+
+
+def _bundled(n=60_000, seed=9):
+    """A constructed Expo-shaped CSR set on the card (700 one-hot and
+    integer columns, bundled) and its labels."""
+    import lightgbm_tpu_torch as tlgb
+
+    X, y = chip_smoke.expo_like(n, seed)
+    ds = tlgb.Dataset(X, label=y, params={"verbosity": -1, "max_bin": 255})
+    ds.construct()
+    assert ds.efb is not None and ds.efb.num_bundled < 40
+    return X, y, ds
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+def test_b1_over_the_bundled_matrix_matches_plain(quantized):
+    """B1 over an (N, F_b) bundled matrix, values up to 255 in bundles of
+    width 256, at the tile the training derives from F_b: bitwise its plain
+    version; unbundling on the card equals the CPU's (int32 bitwise, f32
+    within its float64 fill's rounding)."""
+    from lightgbm_tpu_torch.ops import hist_cuda as hc
+    from lightgbm_tpu_torch.ops.histogram import unbundle_hists
+    from lightgbm_tpu_torch.ops.treegrow import quantize_gradients
+
+    dev = _card()
+    _, y, ds = _bundled()
+    bundled, gather, default = ds.efb_device_tables()
+    assert bundled.dtype == torch.int16 and int(bundled.max()) >= 200
+    b, f, n = ds.max_num_bins, ds.num_feature(), bundled.shape[0]
+    tile = hc.recommended_leaf_tile(b, ds.efb.num_bundled, 255, quantized=quantized)
+    g = torch.as_tensor(0.19 - y, dtype=torch.float32, device=dev)
+    h = torch.full((n,), 0.25, device=dev)
+    mask = torch.ones(n, dtype=torch.bool, device=dev)
+    slot = chip_smoke.round_slots(n, tile, 5, dev)
+    if quantized:
+        gq, hq = quantize_gradients(g, h, mask, 16, False, None)[:2]
+        args = (bundled, gq, hq, mask, slot, 0, tile, b)
+        k = hc.histogram_multi_quantized(*args)
+        assert torch.equal(k, hc.histogram_multi_quantized_plain(*args))
+    else:
+        args = (bundled, g, h, mask, slot, 0, tile, b)
+        k = hc.histogram_multi(*args)
+        assert torch.equal(k, hc.histogram_multi_plain(*args))
+    card = unbundle_hists(k, gather, default, f, b).cpu()
+    host = unbundle_hists(k.cpu(), gather.cpu(), default.cpu(), f, b)
+    if quantized:
+        assert torch.equal(card, host)
+    else:
+        scale = float(host.abs().max())
+        assert float((card - host).abs().max()) <= 1e-6 * scale
+
+
+def test_csr_training_graph_equals_eager_over_bundles(monkeypatch):
+    """A bundled CSR set on the rounds grower: graph and eager training give
+    the same model text, every round of the graph run one replay and none
+    a blocking read, under torch's sync debug mode; the tile comes from
+    F_b; the card's trees predict as the CPU's on CSR rows."""
+    import lightgbm_tpu_torch as tlgb
+    from lightgbm_tpu_torch.ops import hist_cuda as hc
+    from lightgbm_tpu_torch.ops import treegrow_fast as tf
+
+    _card()
+    monkeypatch.setattr(tf, "_round", _sync_error(tf._round))
+    X, y, _ = _bundled(n=40_000)
+    p = {"objective": "binary", "num_leaves": 63, "verbosity": -1, "max_bin": 255,
+         "tree_growth_mode": "rounds"}
+    out = []
+    for fused in (True, False):
+        q = {**p, "fused_training": fused}
+        hc.reset_counts()
+        bst = tlgb.train(q, tlgb.Dataset(X, label=y, params=q), 4)
+        assert hc.launches["histogram_multi"] > 0 and not any(hc.plain_calls.values())
+        out.append((bst, bst._gbdt.round_stats))
+    (gb, g_stats), (eb, e_stats) = out
+    assert gb.model_to_string() == eb.model_to_string()
+    assert all(s["replays"] == s["rounds"] for s in g_stats)
+    assert all(s["host_syncs"] == 0 for s in g_stats + e_stats)
+    ts = gb._gbdt.train_set
+    assert gb._gbdt._leaf_tile == hc.recommended_leaf_tile(ts.max_num_bins,
+                                                           ts.efb.num_bundled, 63)
+    cpu = {**p, "device_type": "cpu"}
+    ref = tlgb.train(cpu, tlgb.Dataset(X, label=y, params=cpu), 4)
+    np.testing.assert_allclose(gb.predict(X[:5000]), ref.predict(X[:5000]), atol=1e-4)
+
+
+def test_windowed_training_over_bundles_takes_the_three_pass_round():
+    """windowed_growth with a bundle plan: every tree reports the
+    megakernel excluded for "efb", launches B2 and B1 and no B3, and equals
+    the rounds grower's tree."""
+    import lightgbm_tpu_torch as tlgb
+    from lightgbm_tpu_torch.ops import partition_cuda, round_cuda
+
+    _card()
+    X, y, _ = _bundled(n=40_000)
+    p = {"objective": "binary", "num_leaves": 64, "verbosity": -1, "max_bin": 255}
+    round_cuda.reset_counts()
+    partition_cuda.reset_counts()
+    q = {**p, "windowed_growth": True}
+    bw = tlgb.train(q, tlgb.Dataset(X, label=y, params=q), 2)
+    st = bw._gbdt.round_stats
+    assert [s["megakernel_excluded"] for s in st] == ["efb", "efb"]
+    assert all(s["megakernel_fallbacks"] == 1 for s in st)
+    assert round_cuda.launches["round_megakernel"] == 0
+    assert partition_cuda.launches["partition_segments"] > 0
+    br = tlgb.train(p, tlgb.Dataset(X, label=y, params=p), 2)
+    chip_smoke.trees_agree(bw, br)

@@ -144,7 +144,7 @@ def test_predict_leaf_arrays_on_jax_tree():
 
 
 @pytest.mark.parametrize("opt", ["monotone_constraints", "interaction_sets",
-                                 "efb_bins", "forced_leaf"])
+                                 "cegb_feature_penalty", "forced_leaf"])
 def test_unported_options_raise(opt):
     fx = _fixture(5, n=200)
     t = [torch.from_numpy(a) for a in fx]

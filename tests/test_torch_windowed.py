@@ -247,8 +247,7 @@ def test_non_finite_gradients_raise():
         _port(tuple(fx), **_kw(15, 4, 0))
 
 
-@pytest.mark.parametrize("opt", ["rng_key", "efb_gather", "efb_bins_t",
-                                 "efb_default"])
+@pytest.mark.parametrize("opt", ["rng_key"])
 def test_unported_options_raise(opt):
     fx = _fixture(29, n=300)
     with pytest.raises(ValueError, match="A11"):
@@ -262,6 +261,9 @@ def test_megakernel_mode():
     assert twin.megakernel_mode(True, mode="0") == (False, None)
     assert twin.megakernel_mode(True, quantize_bins=16) == (False, "quantized")
     assert twin.megakernel_mode(False, quantize_bins=16, mode="1") == (True, None)
+    assert twin.megakernel_mode(True, efb=True) == (False, "efb")
+    assert twin.megakernel_mode(False, efb=True, mode="1") == (False, "efb")
+    assert twin.megakernel_mode(False, efb=True) == (False, None)  # not asked for
     with pytest.raises(ValueError):
         twin.megakernel_mode(True, mode="interpret")
 
