@@ -120,15 +120,39 @@ Imports no JAX.  Phases, one line each; any failure exits non-zero:
               B1 float / int8 / window pass and B2 at the bundled shapes
               against their plain versions, unbundling card vs CPU; a small
               run card vs CPU; predict latency on 1 and 100,000 CSR rows;
- 17. device   nvidia-smi's name and power limit.
+ 17. envelope the rest of the feature envelope on phase 3's Higgs set (20
+              rounds, 31 leaves unless a line says otherwise): (a) +1
+              monotone on columns 0, 3, 5, 8, 9 and 12 and (b) the same
+              with intermediate bounds and monotone_penalty 1.0, both graph
+              and eager in turns, every column swept over its bin
+              thresholds for 1,000 held-out rows with predictions never
+              falling; (c) interaction sets lepton / jets / masses, graph
+              and eager, every root-to-leaf path inside one set; (d) a
+              forced prefix (root on column 25 at 1.0, its left child on
+              column 0), graph and eager, and the strict grower (5 rounds),
+              every tree beginning with it; (e) extra_trees with
+              feature_fraction_bynode 0.8 on the rounds grower (eager by
+              the gate) and the strict grower, and 3 windowed rounds on
+              phase 16's bundled Expo set (three-pass, graph and eager);
+              (f) CEGB split, coupled and lazy penalties on the mass
+              columns (eager); (g) linear trees, 10 rounds (eager), card
+              against CPU on 100,000 rows and a bitwise reload, predict
+              latency at 1, 1,024 and 100,000 rows.  Each run: the model
+              sha256 (MODEL_SHA), held-out AUC over its floor, a small run
+              card against CPU (the card's node draws on both sides); B1 at
+              (a)'s site (the model 10 trees in, tile 8) and B2 and the
+              window pass at (e)'s windowed site against their plain
+              versions; profiles of (a), (f) and (g);
+ 18. device   nvidia-smi's name and power limit.
 
 Then a JSON line with every kernel's numbers (launches on the main path,
 graph mode; whether it runs inside a graph and its launches a replay; B1
 once for each call site: Higgs rounds, Epsilon root and window, strict,
 multiclass, LambdaRank, GOSS, DART, random forest, Criteo float and bf16,
-Expo float, int8 and window pass; B2 at the Epsilon and Expo geometries;
-B3 numerical and categorical), and last the device line {"ok": true,
-"device": {...}}.
+Expo float, int8 and window pass, the monotone site and the per-node
+sampling window pass; B2 at the Epsilon and Expo geometries and at the
+per-node sampling site; B3 numerical and categorical), and last the device
+line {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --turns CHECKOUT
 
@@ -190,7 +214,12 @@ MODEL_SHA = {"higgs_float": "3cb1e5ba", "higgs_int8": "900c2628",
              # phase 15 (PERF.md)
              "criteo": "0586e933", "criteo_bf16": "4960ac72",
              # phase 16 (PERF.md)
-             "expo": "add98dac", "expo_windowed": "6abc116e", "expo_int8": "5f609696"}
+             "expo": "add98dac", "expo_windowed": "6abc116e", "expo_int8": "5f609696",
+             # phase 17 (PERF.md)
+             "mono": "562806e0", "mono_int": "87df87b1", "inter": "05374480",
+             "forced": "e2e8c367", "forced_strict": "2faa452d", "extra": "d5c74a4b",
+             "extra_strict": "860ce530", "extra_windowed": "ca3ea16a",
+             "cegb": "dea763ab", "linear": "9c02cd81"}
 # phase 10: the strict grower on the Higgs cell; the card read AUC 0.81766
 # (PERF.md), the floor sits 0.01 under it
 ROUNDS_STRICT = 5
@@ -263,6 +292,30 @@ EX_FILE_ROWS, EX_SMALL_ROWS = 200_000, 20_000
 # the card read held-out AUC 0.67499 after 20 rounds (PERF.md); the floor
 # sits 0.01 under it
 AUC_FLOOR_EXPO = 0.66
+# phase 17: the rest of the feature envelope on phase 3's Higgs set (and
+# phase 16's bundled Expo set for per-node sampling on the windowed
+# grower): +1 monotone on the columns higgs_like shifts up with the signal
+# (lepton pT, missing-energy magnitude, jet-1 pT and b-tag, jet-2 pT and
+# b-tag), interaction sets lepton / jets / masses, a forced prefix (root on
+# column 25 at 1.0, its left child on column 0 at 1.0), CEGB penalties on
+# the seven mass columns, linear trees
+ENV_ROUNDS, ENV_LINEAR_ROUNDS, ENV_WIN_ROUNDS = 20, 10, 3
+ENV_MONO_COLS = (0, 3, 5, 8, 9, 12)
+ENV_SETS = [list(range(0, 5)), list(range(5, 21)), list(range(21, 28))]
+ENV_FORCED = {"feature": 25, "threshold": 1.0, "left": {"feature": 0, "threshold": 1.0}}
+ENV_MASS = tuple(range(21, 28))
+ENV_CEGB = {"cegb_penalty_split": 1e-6,
+            "cegb_penalty_feature_coupled": [50.0 if j in ENV_MASS else 0.0
+                                             for j in range(N_FEAT)],
+            "cegb_penalty_feature_lazy": [1e-4 if j in ENV_MASS else 0.0
+                                          for j in range(N_FEAT)]}
+ENV_SWEEP_ROWS, ENV_LINEAR_ROWS = 1000, 100_000
+# held-out AUC floors, each the card's first reading less 0.01, cut to
+# three decimals (read 0.84988, 0.85009, 0.84881, 0.84460, 0.80326,
+# 0.84662, 0.81283, 0.85007, 0.84102, and 0.66689 on the Expo set; PERF.md)
+AUC_FLOOR_ENV = {"mono": 0.839, "mono_int": 0.840, "inter": 0.838, "forced": 0.834,
+                 "forced_strict": 0.793, "extra": 0.836, "extra_strict": 0.802,
+                 "cegb": 0.840, "linear": 0.831, "extra_windowed": 0.656}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_OPS_PER_S = 67e12  # H100 SXM, non-tensor-core f32 (integer adds counted alike)
 
@@ -1005,7 +1058,8 @@ def check_epsilon_kernels(ts, grad, hess, params, tile, tile_q):
     pair = hc.fixed_shift_pair(grad, hess)
     shift = hc.fixed_shift_tensor(grad, hess)  # as the grower passes them
     full = params._replace(lambda_l1=0.5, lambda_l2=2.0, max_delta_step=0.7,
-                           path_smooth=3.0, min_gain_to_split=0.01)
+                           path_smooth=3.0, min_gain_to_split=0.01,
+                           cegb_penalty_split=1e-6)
     out = dict(T=tile, Tq=tile_q, shift=pair)
 
     # the root pass: tile 1, explicit exponents
@@ -1748,7 +1802,10 @@ def higgs_cell(lgt):
     base = {"objective": "binary", "max_bin": MAX_BIN, "num_leaves": NUM_LEAVES,
             "learning_rate": 0.1, "device_type": "cuda", "verbosity": -1,
             "seed": 7}
-    train_set = lgt.Dataset(Xtr, label=ytr, params=dict(base))
+    # the Dataset keeps its raw values on the card for phase 17's linear
+    # trees (a Dataset parameter: the bins and every other training are the
+    # same)
+    train_set = lgt.Dataset(Xtr, label=ytr, params={**base, "linear_tree": True})
     train_set.construct()
     return base, (train_set, Xtr, ytr, Xte, yte)
 
@@ -1941,8 +1998,9 @@ def new_phases(lgt, dev, base, higgs, counts, plain_total):
 # phases 13-14: the boosting modes and the prediction surface
 # ---------------------------------------------------------------------------
 class card_draws:
-    """GOSS's draws made on the card whatever the training device, so a
-    CPU run samples the rows a card run samples (small_vs_cpu)."""
+    """GOSS's and the per-node sampling's draws made on the card whatever
+    the training device, so a CPU run samples the rows and nodes a card run
+    samples (small_vs_cpu)."""
 
     def __init__(self, dev):
         self.dev = dev
@@ -1950,20 +2008,27 @@ class card_draws:
     def __enter__(self):
         from lightgbm_tpu_torch.models.gbdt import GBDT
 
-        self.real, dev = GBDT._goss_uniforms, self.dev
+        self.real = (GBDT._goss_uniforms, GBDT._node_uniforms)
+        dev = self.dev
 
         def draws(gbdt, n):
             gen = torch.Generator(device=dev)
             gen.manual_seed(gbdt.cfg.bagging_seed + gbdt.iter_)
             return torch.rand(n, generator=gen, device=dev).to(gbdt.device)
 
-        GBDT._goss_uniforms = draws
+        def node_draws(gbdt, c):
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(gbdt.cfg.extra_seed + gbdt.iter_ * 131 + c)
+            shape = (2 * gbdt.cfg.num_leaves - 1, 2, gbdt.train_set.num_feature())
+            return torch.rand(shape, generator=gen, device=dev).to(gbdt.device)
+
+        GBDT._goss_uniforms, GBDT._node_uniforms = draws, node_draws
         return self
 
     def __exit__(self, *exc):
         from lightgbm_tpu_torch.models.gbdt import GBDT
 
-        GBDT._goss_uniforms = self.real
+        GBDT._goss_uniforms, GBDT._node_uniforms = self.real
 
 
 def mode_phases(lgt, dev, base, higgs, counts, plain_total):
@@ -2472,13 +2537,10 @@ def efb_kernels(ts, grad, hess, tile, tile_q, tile_w):
     at the windowed tile on a seeded split geometry of the feature bins,
     B2 (the partition) and B1's float window pass over the bundled matrix
     (bit for bit, then the kernel alone on the gathered window), each
-    beside its bound and its library call."""
+    beside its bound and its library call (window_kernels)."""
     from lightgbm_tpu_torch.ops import hist_cuda as hc
-    from lightgbm_tpu_torch.ops import partition_cuda as pc
-    from lightgbm_tpu_torch.ops import round_cuda as rc
     from lightgbm_tpu_torch.ops.histogram import unbundle_hists
     from lightgbm_tpu_torch.ops.treegrow import quantize_gradients
-    from lightgbm_tpu_torch.ops.treegrow_windowed import _window_size
 
     bundled, gather, default = ts.efb_device_tables()
     b, f = ts.max_num_bins, ts.num_feature()
@@ -2509,21 +2571,37 @@ def efb_kernels(ts, grad, hess, tile, tile_q, tile_w):
     out["unbundle"] = un
     out["unbundle_ms"] = cuda_ms(lambda: unbundle_hists(hk, gather, default, f, b))
     del hk, hk_q
-    # the windowed three-pass round's B2 and window pass (split geometry on
-    # the feature bins, window rows gathered from the bundled matrix)
+    out.update(window_kernels(ts, grad, hess, tile_w, SEED + 20, "Expo"))
+    return out
+
+
+def window_kernels(ts, grad, hess, tile_w, seed, what):
+    """The windowed three-pass round's B2 and window pass on a bundled set,
+    each against its plain version and beside its bound and library call:
+    a seeded split geometry at the windowed tile on the feature bins (its
+    thresholds drawn on the integer columns: a one-hot column's two bins
+    would send every row one way), the window rows gathered from the
+    bundled matrix.  Returns {"part": ..., "window": ...}."""
+    from lightgbm_tpu_torch.ops import hist_cuda as hc
+    from lightgbm_tpu_torch.ops import partition_cuda as pc
+    from lightgbm_tpu_torch.ops import round_cuda as rc
+    from lightgbm_tpu_torch.ops.treegrow_windowed import _window_size
+
+    bundled = ts.efb_device_tables()[0]
+    b, n = ts.max_num_bins, bundled.shape[0]
+    mask = torch.ones(n, dtype=torch.bool, device=bundled.device)
+    out = {}
     shift = hc.fixed_shift_tensor(grad, hess)
-    # (thresholds drawn on the integer columns: a one-hot column's two bins
-    # would send every row one way)
-    sp_ = split_case(ts.bins_device[:, -EX_NUMERIC:].contiguous(), b, tile_w, SEED + 20)
+    sp_ = split_case(ts.bins_device[:, -EX_NUMERIC:].contiguous(), b, tile_w, seed)
     pa = (sp_["order"], sp_["seg_start"], sp_["seg_len"], sp_["go"])
     new_order, n_left = pc.partition_segments(*pa)
     p_order, p_left = pc.partition_segments_plain(*pa)
-    same(new_order, p_order, "partition (Expo)")
-    same(n_left, p_left, "partition left counts (Expo)")
+    same(new_order, p_order, f"partition ({what})")
+    same(n_left, p_left, f"partition left counts ({what})")
     in_seg = int(sp_["seg_len"].sum())
     lib = library_partition(*pa)
     if not torch.equal(lib(), new_order):
-        raise AssertionError("the stable-sort yardstick disagrees (Expo)")
+        raise AssertionError(f"the stable-sort yardstick disagrees ({what})")
     out["part"] = dict(ms=cuda_ms(lambda: pc.partition_segments(*pa)),
                        plain_ms=cuda_ms(lambda: pc.partition_segments_plain(*pa), iters=5,
                                         warmup=1),
@@ -2536,7 +2614,7 @@ def efb_kernels(ts, grad, hess, tile, tile_q, tile_w):
           tile_w, b)
     same(rc.window_histograms(hc.histogram_multi, *wa, shift=shift),
          rc.window_histograms(hc.histogram_multi_plain, *wa, shift=shift),
-         f"float window pass over the bundled matrix (T={tile_w})")
+         f"float window pass over the bundled matrix (T={tile_w}, {what})")
     wrows, wslot, valid = rc.window_rows(new_order, sp_["win_start"], sp_["win_cnt"], W)
     ga = (bundled.index_select(0, wrows), grad[wrows], hess[wrows], mask[wrows] & valid,
           wslot, 0, tile_w, b)
@@ -2779,8 +2857,281 @@ def efb_phase(lgt, dev, counts, plain_total):
                 "max_abs_err": 0.0, "ms": pt["ms"], "plain_ms": pt["plain_ms"],
                 "bound_ms": pt["bound_ms"], "bound_by": "bytes",
                 "library_ms": pt["library_ms"], "device_ms": pt["device_ms"]}]
-    del bst, gb, ts, X, Xtr, Xte
-    return entries
+    del bst, gb, X, Xtr
+    return entries, (ts, base, Xte, yte)
+
+
+# ---------------------------------------------------------------------------
+# phase 17: the rest of the feature envelope
+# ---------------------------------------------------------------------------
+def tree_paths(tree):
+    """The split features on each root-to-leaf path of a host tree."""
+    if tree.num_leaves <= 1:
+        return [[]]
+    out, stack = [], [(0, [])]
+    while stack:
+        nd, path = stack.pop()
+        path = path + [int(tree.split_feature[nd])]
+        for c in (tree.left_child[nd], tree.right_child[nd]):
+            if c < 0:
+                out.append(path)
+            else:
+                stack.append((int(c), path))
+    return out
+
+
+def check_monotone(bst, ts, X, cols, rows):
+    """Along each column of ``cols``, swept over its bin thresholds (and one
+    value below them) for ``rows`` held-out rows, the raw predictions never
+    decrease.  Returns the number of sweeps checked."""
+    x0 = np.asarray(X[:rows], np.float64)
+    for j in cols:
+        ups = np.asarray(ts.binner.mappers[j].upper_bounds[:-1], np.float64)
+        vals = np.concatenate([[ups[0] - 1.0], ups, [ups[-1] + 1.0]])
+        xs = np.repeat(x0, len(vals), axis=0)
+        xs[:, j] = np.tile(vals, rows)
+        p = bst.predict(xs, raw_score=True).reshape(rows, len(vals))
+        if not np.all(np.diff(p, axis=1) >= 0):
+            d = np.diff(p, axis=1)
+            raise AssertionError(f"monotone column {j}: predictions fall by up to "
+                                 f"{float(-d.min())} along its sweep")
+    return rows * len(cols)
+
+
+def env_run(lgt, params, ts, rounds, key, counts, plain_total, turns, Xte, yte, what):
+    """One phase-17 training in ``turns``: the rounds drivers' counts, B1
+    launches (the root pass a tree, one a round, one a warm-up before each
+    capture; eager: no capture), graph == eager sha256, MODEL_SHA[key], the
+    held-out AUC against its floor.  Returns (first run, auc)."""
+    runs = train_turns(lgt, params, ts, rounds, MODEL_SHA[key], counts, plain_total,
+                       turns=turns)
+    for r in runs:
+        st, (b1, b1q, b2, b3) = r["st"], r["launches"]
+        per_tree = 31 if params.get("tree_growth_mode") == "strict" else None
+        want = (st["trees"] * per_tree if per_tree
+                else st["trees"] + st["rounds"] + st["captures"])
+        if not (b1 == want and b1q == b2 == b3 == 0 and st["host_syncs"] == 0
+                and st["trees"] == rounds):
+            raise AssertionError(f"{what} {r['mode']} run: {st} launches {r['launches']}")
+        log(turn_line(f"phase 17 {what}", r))
+    if len({r["sha"] for r in runs}) != 1:
+        raise AssertionError(f"{what}: the runs' models differ: {[r['sha'] for r in runs]}")
+    p = runs[0]["bst"].predict(Xte)
+    a = auc(yte, p)
+    if not (np.all(np.isfinite(p)) and a >= AUC_FLOOR_ENV[key]):
+        raise AssertionError(f"{what}: held-out AUC {a:.5f} < floor {AUC_FLOOR_ENV[key]}")
+    return runs[0], a
+
+
+def envelope_phase(lgt, dev, base, higgs, expo, counts, plain_total):
+    """Phase 17: monotone constraints (basic; intermediate with
+    monotone_penalty), interaction constraints, forced splits, extra_trees
+    with feature_fraction_bynode, CEGB and linear trees on phase 3's Higgs
+    set, and per-node sampling on the windowed grower over phase 16's
+    bundled Expo set; each checked against what it promises, card against
+    CPU on a small input, its sha256 pinned.  Returns the kernel line's
+    entries: B1 at (a)'s site, B2 and the window pass at the windowed
+    site."""
+    import tempfile
+
+    from lightgbm_tpu_torch.ops import hist_cuda as hc
+
+    ts, Xtr, ytr, Xte, yte = higgs
+    out = {}
+    b1_env = per_replay_env = None
+    gg = ("graph", "eager")
+    mono = [1 if j in ENV_MONO_COLS else 0 for j in range(N_FEAT)]
+    runs_a = {}
+
+    # ---- (a) and (b): monotone, basic and intermediate ----
+    for key, extra in (("mono", {"monotone_constraints": mono}),
+                       ("mono_int", {"monotone_constraints": mono,
+                                     "monotone_constraints_method": "intermediate",
+                                     "monotone_penalty": 1.0})):
+        t0 = time.perf_counter()
+        params = {**base, **extra}
+        r, a = env_run(lgt, params, ts, ENV_ROUNDS, key, counts, plain_total, gg, Xte,
+                       yte, key)
+        swept = check_monotone(r["bst"], ts, Xte, ENV_MONO_COLS, ENV_SWEEP_ROWS)
+        err = small_vs_cpu(lgt, {**params, "num_leaves": 15}, Xtr, ytr, Xte)
+        st = r["st"]
+        log(f"phase 17 {key}: ok {ENV_ROUNDS} rounds auc={a:.5f} (floor "
+            f"{AUC_FLOOR_ENV[key]}) it/s graph={r['it_s']:.4f} tree-rounds={st['rounds']} "
+            f"replays={st['replays']} blocking reads/tree=0 graph == eager sha256 "
+            f"{r['sha'][:8]}; {swept} sweeps non-decreasing on columns {ENV_MONO_COLS}; "
+            f"small-vs-cpu max|d|={err:.3g} in {time.perf_counter() - t0:.2f} s")
+        runs_a[key] = r
+    r = runs_a["mono"]
+    b1_env, per_replay_env = r["launches"][0], r["st"]["per_replay"].get("histogram_multi", 0)
+    prof = profile_rounds(lgt, {**base, "monotone_constraints": mono}, ts, 3)
+    log(profile_line("phase 17 profile mono graph (3 trees after a warm one)", prof))
+    out["mono_prof"] = prof
+    # B1 at (a)'s site: the gradients of the model 10 trees in, tile 8
+    b10 = lgt.train({**base, "monotone_constraints": mono}, ts, 10)
+    gb = b10._gbdt
+    g, h = (v.contiguous() for v in gb.objective.get_gradients(gb._score, gb._label,
+                                                               gb._weight))
+    tile = gb._leaf_tile
+    b1r = check_b1_site(hc, ts.bins_device, g, h,
+                        torch.ones(N_TRAIN, dtype=torch.bool, device=dev),
+                        round_slots(N_TRAIN, tile, SEED + 21, dev), tile, MAX_BIN)
+    log(b1_line(f"phase 17 kernel B1 monotone site N={N_TRAIN} F={N_FEAT}", b1r))
+    del runs_a, b10, gb, g, h
+
+    # ---- (c): interaction constraints ----
+    t0 = time.perf_counter()
+    params = {**base, "interaction_constraints": ENV_SETS}
+    r, a = env_run(lgt, params, ts, ENV_ROUNDS, "inter", counts, plain_total, gg, Xte,
+                   yte, "inter")
+    sets = [set(x) for x in ENV_SETS]
+    paths = [p_ for t in r["bst"]._gbdt.models for p_ in tree_paths(t)]
+    bad = [p_ for p_ in paths if not any(set(p_) <= s_ for s_ in sets)]
+    if bad:
+        raise AssertionError(f"inter: {len(bad)} paths leave every set, e.g. {bad[0]}")
+    err = small_vs_cpu(lgt, {**params, "num_leaves": 15}, Xtr, ytr, Xte)
+    log(f"phase 17 inter: ok {ENV_ROUNDS} rounds auc={a:.5f} it/s graph={r['it_s']:.4f} "
+        f"{len(paths)} root-to-leaf paths each inside one of {len(sets)} sets; "
+        f"graph == eager sha256 {r['sha'][:8]} small-vs-cpu max|d|={err:.3g} in "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    # ---- (d): forced splits, rounds (graph and eager) and strict ----
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "forced.json")
+        with open(path, "w") as fh:
+            json.dump(ENV_FORCED, fh)
+        thr = {c: ts.binner.mappers[c].bin_to_threshold(int(
+            ts.binner.mappers[c].transform(np.asarray([1.0]))[0])) for c in (25, 0)}
+        for key, mode, turns in (("forced", "rounds", gg),
+                                 ("forced_strict", "strict", ("ineligible",))):
+            t0 = time.perf_counter()
+            params = {**base, "forcedsplits_filename": path, "tree_growth_mode": mode}
+            rounds = ENV_ROUNDS if mode == "rounds" else ROUNDS_STRICT
+            r, a = env_run(lgt, params, ts, rounds, key, counts, plain_total, turns,
+                           Xte, yte, key)
+            for t in r["bst"]._gbdt.models:
+                lc = int(t.left_child[0])
+                if not (t.num_leaves > 2 and int(t.split_feature[0]) == 25
+                        and t.threshold[0] == thr[25] and lc > 0
+                        and int(t.split_feature[lc]) == 0 and t.threshold[lc] == thr[0]):
+                    raise AssertionError(f"{key}: a tree does not begin with the forced "
+                                         f"splits: {t.split_feature[:3]} {t.threshold[:3]}")
+            err = small_vs_cpu(lgt, {**params, "num_leaves": 15}, Xtr, ytr, Xte)
+            log(f"phase 17 {key}: ok {rounds} rounds auc={a:.5f} it/s={r['it_s']:.4f} "
+                f"every tree begins with column 25 at {thr[25]:.6g}, its left child "
+                f"column 0 at {thr[0]:.6g}; sha256 {r['sha'][:8]} small-vs-cpu "
+                f"max|d|={err:.3g} in {time.perf_counter() - t0:.2f} s")
+
+    # ---- (e): extra_trees + bynode, rounds (eager by the gate) and strict ----
+    node = {"extra_trees": True, "feature_fraction_bynode": 0.8}
+    for key, mode in (("extra", "rounds"), ("extra_strict", "strict")):
+        t0 = time.perf_counter()
+        params = {**base, **node, "tree_growth_mode": mode}
+        rounds = ENV_ROUNDS if mode == "rounds" else ROUNDS_STRICT
+        r, a = env_run(lgt, params, ts, rounds, key, counts, plain_total,
+                       ("ineligible", "ineligible"), Xte, yte, key)
+        with card_draws(dev):  # the card's node draws on both sides
+            err = small_vs_cpu(lgt, {**params, "num_leaves": 15}, Xtr, ytr, Xte)
+        log(f"phase 17 {key}: ok {rounds} rounds auc={a:.5f} it/s={r['it_s']:.4f} "
+            f"(eager: the fused gate excludes per-node sampling) twice the same sha256 "
+            f"{r['sha'][:8]} small-vs-cpu max|d|={err:.3g} in "
+            f"{time.perf_counter() - t0:.2f} s")
+
+    # ---- (e, windowed): the three-pass round with per-node sampling ----
+    t0 = time.perf_counter()
+    ets, ebase, eXte, eyte = expo
+    wp = {**ebase, **node, "windowed_growth": True}
+    runs = train_turns(lgt, wp, ets, ENV_WIN_ROUNDS, MODEL_SHA["extra_windowed"], counts,
+                       plain_total, turns=gg)
+    for r in runs:
+        st, (b1, b1q, b2, b3) = r["st"], r["launches"]
+        per = st["rounds"] + st["captures"]
+        if not ((b1, b1q, b2, b3) == (per + st["trees"], 0, per, 0)
+                and st["excluded"] == ["efb"] * ENV_WIN_ROUNDS
+                and not any(st["megakernel"]) and st["host_syncs"] == st["trees"]):
+            raise AssertionError(f"windowed node-rng {r['mode']} run: {st} launches "
+                                 f"{r['launches']}")
+        log(turn_line("phase 17 extra windowed", r))
+    if len({r["sha"] for r in runs}) != 1:
+        raise AssertionError("windowed node-rng graph and eager models differ")
+    st_w = runs[0]["st"]
+    b1_w, b2_w = runs[0]["launches"][0] - st_w["trees"], runs[0]["launches"][2]
+    per_w = st_w["per_replay"]
+    gb = runs[0]["bst"]._gbdt
+    g, h = (v.contiguous() for v in gb.objective.get_gradients(gb._score, gb._label,
+                                                               gb._weight))
+    wk = window_kernels(ets, g, h, gb._leaf_tile, SEED + 22, "Expo node-rng")
+    a_w = auc(eyte, runs[0]["bst"].predict(eXte))
+    if not a_w >= AUC_FLOOR_ENV["extra_windowed"]:
+        raise AssertionError(f"windowed node-rng: held-out AUC {a_w:.5f} < floor "
+                             f"{AUC_FLOOR_ENV['extra_windowed']}")
+    log(f"phase 17 extra windowed: ok {ENV_WIN_ROUNDS} rounds on the bundled Expo set "
+        f"auc={a_w:.5f} megakernel excluded (efb, node_rng) it/s graph="
+        f"{runs[0]['it_s']:.4f} eager={runs[1]['it_s']:.4f} window-pass B1 launches="
+        f"{b1_w} B2 launches={b2_w} graph == eager sha256 {runs[0]['sha'][:8]} in "
+        f"{time.perf_counter() - t0:.2f} s")
+    w, pt = wk["window"], wk["part"]
+    log(b1_line(f"phase 17 kernel B1 node-rng window pass W={w['W']} (kernel alone; with "
+                f"the gather {w['with_gather_ms']:.4f} ms)", w))
+    log(f"phase 17 kernel B2 node-rng three-pass geometry: T={pt['T']} in-segment="
+        f"{pt['in_seg']} ms={pt['ms']:.4f} device_ms={pt['device_ms']:.4f} plain_ms="
+        f"{pt['plain_ms']:.4f} library_ms={pt['library_ms']:.4f} bound_ms="
+        f"{pt['bound_ms']:.6f} (bytes) bitwise_plain=True")
+    del runs, gb, g, h
+
+    # ---- (f): CEGB split, coupled and lazy penalties (eager by the gate) ----
+    t0 = time.perf_counter()
+    params = {**base, **ENV_CEGB}
+    r, a = env_run(lgt, params, ts, ENV_ROUNDS, "cegb", counts, plain_total,
+                   ("ineligible", "ineligible"), Xte, yte, "cegb")
+    used = sorted({int(f_) for t in r["bst"]._gbdt.models
+                   for f_ in t.split_feature[:t.num_leaves - 1]})
+    err = small_vs_cpu(lgt, {**params, "num_leaves": 15}, Xtr, ytr, Xte)
+    prof = profile_rounds(lgt, params, ts, 3)
+    log(profile_line("phase 17 profile cegb eager (3 trees after a warm one)", prof))
+    log(f"phase 17 cegb: ok {ENV_ROUNDS} rounds auc={a:.5f} it/s={r['it_s']:.4f} features "
+        f"used {used} sha256 {r['sha'][:8]} small-vs-cpu max|d|={err:.3g} in "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    # ---- (g): linear trees (eager by the gate) ----
+    t0 = time.perf_counter()
+    params = {**base, "linear_tree": True, "linear_lambda": 0.01}
+    r, a = env_run(lgt, params, ts, ENV_LINEAR_ROUNDS, "linear", counts, plain_total,
+                   ("ineligible", "ineligible"), Xte, yte, "linear")
+    bst = r["bst"]
+    if not all(t.is_linear for t in bst._gbdt.models):
+        raise AssertionError("linear: a tree without leaf models")
+    xs = Xte[:ENV_LINEAR_ROWS]
+    p_card = bst.predict(xs, raw_score=True)
+    text = bst.model_to_string()
+    p_cpu = lgt.Booster(model_str=text, params={"device_type": "cpu"}).predict(
+        xs, raw_score=True)
+    d_cpu = float(np.abs(p_card - p_cpu).max())
+    if not d_cpu <= 1e-5 * max(1.0, float(np.abs(p_cpu).max())):
+        raise AssertionError(f"linear: card and CPU predictions differ by {d_cpu}")
+    if not np.array_equal(lgt.Booster(model_str=text).predict(xs, raw_score=True), p_card):
+        raise AssertionError("linear: the reloaded model predicts differently")
+    err = small_vs_cpu(lgt, {**params, "num_leaves": 15}, Xtr, ytr, Xte)
+    prof = profile_rounds(lgt, params, ts, 3)
+    log(profile_line("phase 17 profile linear eager (3 trees after a warm one)", prof))
+    lat = {n: latency(bst, Xte, n, PRED_CALLS if n < 100_000 else PRED_CALLS_BIG)
+           for n in PRED_BATCHES}
+    log(f"phase 17 linear: ok {ENV_LINEAR_ROUNDS} rounds auc={a:.5f} it/s={r['it_s']:.4f} "
+        f"card vs CPU on {ENV_LINEAR_ROWS} rows max|d|={d_cpu:.3g} reload=bitwise "
+        f"sha256 {r['sha'][:8]} small-vs-cpu max|d|={err:.3g} predict latency_ms "
+        + " ".join(f"{n}={lat[n] * 1e3:.3f}" for n in lat)
+        + f" in {time.perf_counter() - t0:.2f} s")
+    pr = per_w
+    return [b1_entry("histogram_multi_monotone", b1r, b1_env, per_replay_env),
+            b1_entry("histogram_multi_node_rng_window", w, b1_w,
+                     pr.get("histogram_multi", 0)),
+            {"name": "partition_segments_node_rng", "route": "cuda",
+             "source": "lightgbm_tpu_torch/csrc/partition.cu",
+             "replaces": "lightgbm_tpu/ops/partition_pallas.py:188",
+             "launches": b2_w, "in_graph": pr.get("partition_segments", 0) > 0,
+             "launches_per_replay": pr.get("partition_segments", 0),
+             "max_abs_err": 0.0, "ms": pt["ms"], "plain_ms": pt["plain_ms"],
+             "bound_ms": pt["bound_ms"], "bound_by": "bytes",
+             "library_ms": pt["library_ms"], "device_ms": pt["device_ms"]}]
 
 
 def main() -> int:
@@ -3086,7 +3437,6 @@ def main() -> int:
     t0 = time.perf_counter()
     new_kernels += mode_phases(lgt, dev, base, (h_set, h_Xtr, h_ytr, h_Xte, h_yte),
                                counts, plain_total)
-    del h_set
     torch.cuda.empty_cache()
     log(f"phase 13 modes: ok in {time.perf_counter() - t0:.2f} s")
 
@@ -3105,17 +3455,26 @@ def main() -> int:
 
     # ---- 16. EFB and the data-input routes on the Expo-shaped cell ----
     t0 = time.perf_counter()
-    new_kernels += efb_phase(lgt, dev, counts, plain_total)
+    entries, expo = efb_phase(lgt, dev, counts, plain_total)
+    new_kernels += entries
     torch.cuda.empty_cache()
     log(f"phase 16 efb: ok in {time.perf_counter() - t0:.2f} s")
 
-    # ---- 17. device ----
+    # ---- 17. the rest of the feature envelope ----
+    t0 = time.perf_counter()
+    new_kernels += envelope_phase(lgt, dev, base, (h_set, h_Xtr, h_ytr, h_Xte, h_yte),
+                                  expo, counts, plain_total)
+    del h_set, expo
+    torch.cuda.empty_cache()
+    log(f"phase 17 envelope: ok in {time.perf_counter() - t0:.2f} s")
+
+    # ---- 18. device ----
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60)
     if smi.returncode != 0 or not smi.stdout.strip():
         raise AssertionError(f"nvidia-smi failed: {smi.stderr}")
-    log(f"phase 17 device: ok total {time.perf_counter() - t_all:.2f} s")
+    log(f"phase 18 device: ok total {time.perf_counter() - t_all:.2f} s")
     log(smi.stdout.strip().splitlines()[0])
 
     src, tpu = "lightgbm_tpu_torch/csrc/hist.cu", "lightgbm_tpu/ops/hist_pallas.py:120"

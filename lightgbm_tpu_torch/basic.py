@@ -191,6 +191,8 @@ class Dataset:
         self.feature_names: List[str] = []
         self.efb = None  # the EFB plan (io/efb.py::FeatureBundles), if any
         self._efb_device = None
+        # (N, F) f32 raw values on the device, kept for linear trees
+        self.raw_device: Optional[torch.Tensor] = None
 
     def construct(self, reference: Optional["Dataset"] = None,
                   device: Optional[torch.device] = None) -> "Dataset":
@@ -273,6 +275,15 @@ class Dataset:
                 seed=cfg.data_random_seed)
         self._set_bins(bins, device)
         self._num_data, self._num_feature = n, f
+        if cfg.linear_tree or (ref is not None and ref.raw_device is not None):
+            # linear trees fit and score on raw values (reference:
+            # linear_tree_learner.cpp keeps a raw-data view)
+            if raw is None:
+                raise LightGBMError(
+                    "linear_tree requires dense raw feature values; pass "
+                    "is_enable_sparse=False (sparse input) or disable "
+                    "two_round (file streaming) to materialize them")
+            self.raw_device = torch.as_tensor(raw.astype(np.float32), device=device)
         if self.free_raw_data:
             self.data = None
         self._constructed = True
@@ -538,6 +549,9 @@ class Dataset:
         if self.efb is not None:  # the plan, its bundled matrix encoded anew
             sub.efb = self.efb._replace(bundled_bins=None)
         sub._set_bins(self.bins[idx], self.bins_device.device)
+        if self.raw_device is not None:
+            sub.raw_device = self.raw_device[torch.as_tensor(
+                idx, device=self.raw_device.device)]
         for name in ("label", "weight", "init_score", "position"):
             v = getattr(self, name)
             setattr(sub, name, None if v is None else v[idx])

@@ -22,7 +22,9 @@
 //      first maximizing categorical candidate instead, with its variant
 //      (one-hot, ascending or descending prefix); and with feature_contri
 //      (its has_contri tail) each gain that passed min_gain_to_split
-//      scaled by max(0, contri[f]) and kept only if it stays above 0.
+//      scaled by max(0, contri[f]); with cegb_penalty_split the parent
+//      count times the penalty subtracted; an adjusted gain is kept only
+//      if it stays above 0.
 //
 // What bounds it on an H100.  The partition reads 5 B and writes 4 B per
 // in-segment position and copies 4 B of every other one.  The window pass
@@ -95,6 +97,7 @@ struct GainParams {
   int use_smooth;
   float l2_cat, cat_smooth;  // l2_cat = lambda_l2 + cat_l2
   int max_cat_threshold, max_cat_to_onehot;
+  float split_pen;  // cegb_tradeoff * cegb_penalty_split, or < 0 when off
 };
 
 // fixed point -> f32 for the fresh (window) histograms, then the sibling by
@@ -177,16 +180,19 @@ __device__ __forceinline__ bool split_ok(float lc, float rc, float lh, float rh,
   return lc >= p.min_data && rc >= p.min_data && lh >= p.min_hess && rh >= p.min_hess;
 }
 
-// the min_gain_to_split gate, then feature_contri (contri may be null)
+// the min_gain_to_split gate, then feature_contri (contri may be null) and
+// the CEGB split penalty on the parent count pc; an adjusted gain must stay
+// above 0
 __device__ __forceinline__ float gate(float g, const float* __restrict__ contri, int f,
-                                      const GainParams& p) {
+                                      float pc, const GainParams& p) {
   if (!(g > kMinScore / 2.f && g > p.min_gain)) return kMinScore;
   if (contri != nullptr) {
     float k = contri[f];
     k = k < 0.f ? 0.f : k;
     g = g * k;
-    if (!(g > 0.f)) return kMinScore;
   }
+  if (p.split_pen >= 0.f) g = g - p.split_pen * pc;
+  if ((contri != nullptr || p.split_pen >= 0.f) && !(g > 0.f)) return kMinScore;
   return g;
 }
 
@@ -286,7 +292,7 @@ gain_kernel(const float* __restrict__ left, const float* __restrict__ right, int
       st[d][2] = lc;
     }
     const bool use_left = gd[1] > gd[0];  // ties keep missing -> right
-    const float g = gate(use_left ? gd[1] : gd[0], contri, f, p);
+    const float g = gate(use_left ? gd[1] : gd[0], contri, f, pc, p);
     if (g > best) {  // bins rise within a lane: the first maximum stays
       best = g;
       bthr = b;
@@ -452,7 +458,7 @@ cat_gain_kernel(const float* __restrict__ left, const float* __restrict__ right,
   const int var = onehot ? 0 : (gd[1] > gd[0] ? 2 : 1);
   float gain = onehot ? gain_oh : (gd[1] > gd[0] ? gd[1] : gd[0]);
   if (!fmask[f]) gain = kMinScore;
-  gain = t < B ? gate(gain, contri, f, p) : -INFINITY;
+  gain = t < B ? gate(gain, contri, f, pc, p) : -INFINITY;
   // first maximum over the bins: the larger gain, then the lower bin
   float vb = gain;
   int ib = t;
@@ -524,7 +530,8 @@ int lgbt_round(const void* bins, long long n, int F, int B, int T, const void* o
                const void* fmask, const void* cmask, const void* contri, const void* cand,
                float l1, float l2, float min_data, float min_hess, float min_gain,
                float max_delta, float path_smooth, int use_smooth, float l2_cat,
-               float cat_smooth, int max_cat_threshold, int max_cat_to_onehot, void* o_gain,
+               float cat_smooth, int max_cat_threshold, int max_cat_to_onehot,
+               float split_pen, void* o_gain,
                void* o_thr, void* o_left, void* o_var, void* o_lg, void* o_lh, void* o_lc,
                void* stream) {
   if (n <= 0 || n >= lgbt::kMaxRows || F <= 0 || B <= 0 || T <= 0 || W <= 0)
@@ -570,7 +577,8 @@ int lgbt_round(const void* bins, long long n, int F, int B, int T, const void* o
   // ---- 4. per-feature split search ----
   GainParams gp{l1,        l2,         min_data,          min_hess,
                 min_gain,  max_delta,  path_smooth,       use_smooth,
-                l2_cat,    cat_smooth, max_cat_threshold, max_cat_to_onehot};
+                l2_cat,    cat_smooth, max_cat_threshold, max_cat_to_onehot,
+                split_pen};
   const int64_t warps = (int64_t)2 * T * F;
   const uint8_t* cm = static_cast<const uint8_t*>(cmask);
   const float* fc = static_cast<const float*>(contri);

@@ -49,14 +49,28 @@ comes from the bundled column count F_b, as the JAX package's _leaf_tile
 does.  The strict grower histograms the features, as the JAX package's
 does.
 
-Not ported yet, and rejected at construction: the options of the grower
-envelope that the growers do not carry (A11b) and the distributed tree
+The constraint envelope is the JAX package's too: monotone constraints
+(basic, intermediate; advanced runs as intermediate, with its warning) and
+monotone_penalty, interaction constraints, forced splits
+(forcedsplits_filename, a (leaf, feature, bin) schedule), CEGB split,
+coupled and lazy penalties, extra_trees and feature_fraction_bynode, and
+linear trees (ops/linear.py, fitted and predicted on the training device
+from the Dataset's raw values).  The per-node draws are a per-tree table of
+uniforms (``_node_uniforms``), not the JAX package's threefry keys.  The
+gates are the JAX package's: the windowed grower takes none of these
+options but per-node sampling, and the fused (graph) rounds take none of
+CEGB coupled or lazy penalties, per-node sampling or linear trees.
+
+Not ported yet, and rejected at construction: the distributed tree
 learners (A13).
 """
 
 from __future__ import annotations
 
 import copy
+import json
+import re
+from collections import deque
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -68,12 +82,14 @@ from ..objectives import Objective, create_objective
 from ..ops import predict as predict_ops
 from ..ops.hist_cuda import recommended_leaf_tile
 from ..ops.graphs import RoundGraphs
+from ..ops.linear import fit_linear_leaves, predict_linear_rows
 from ..ops.split import SplitParams
 from ..ops.treegrow import grow_tree
 from ..ops.treegrow_fast import grow_tree_fast, predict_leaf_arrays
 from ..ops.treegrow_windowed import grow_tree_windowed
 from ..utils import sanitizer as _san
 from ..utils.guards import NonFiniteError
+from ..utils.log import log_warning
 from .tree import Tree, tree_from_device, tree_to_if_else
 
 _MODEL_VERSION = "v4"
@@ -102,21 +118,46 @@ def _f32_threshold_upper(t: np.ndarray) -> np.ndarray:
 
 
 def _unported_options(cfg: Config) -> List[str]:
-    """Config options outside this slice's envelope (they raise)."""
-    checks = {
-        "tree_learner": cfg.tree_learner != "serial",
-        "linear_tree": bool(cfg.linear_tree),
-        "monotone_constraints": any(int(c) != 0 for c in
-                                    (cfg.monotone_constraints or [])),
-        "interaction_constraints": bool(cfg.interaction_constraints),
-        "forcedsplits_filename": bool(cfg.forcedsplits_filename),
-        "extra_trees": bool(cfg.extra_trees),
-        "feature_fraction_bynode": cfg.feature_fraction_bynode < 1.0,
-        "cegb penalties": (cfg.cegb_penalty_split > 0 or any(
-            p != 0 for p in (cfg.cegb_penalty_feature_coupled or [])
-            + (cfg.cegb_penalty_feature_lazy or []))),
-    }
+    """Config options outside the port's envelope (they raise)."""
+    checks = {"tree_learner": cfg.tree_learner != "serial"}
     return [k for k, v in checks.items() if v]
+
+
+def _parse_interaction_constraints(spec, feature_names) -> List[List[int]]:
+    """interaction_constraints as lists of feature indices: the string form
+    "[0,1,2],[2,3]" or lists of indices or names (the JAX package's
+    parser; reference: config interaction_constraints)."""
+    if not spec:
+        return []
+    if isinstance(spec, str):
+        sets = [[t.strip() for t in g.split(",") if t.strip()]
+                for g in re.findall(r"\[([^\]]*)\]", spec)]
+    else:
+        sets = [list(g) for g in spec]
+    name_to_idx = {nm: i for i, nm in enumerate(feature_names or [])}
+    out = []
+    for g in sets:
+        idxs = []
+        for it in g:
+            if isinstance(it, str) and not it.lstrip("-").isdigit():
+                if it in name_to_idx:
+                    idxs.append(name_to_idx[it])
+            else:
+                idxs.append(int(it))
+        out.append(idxs)
+    return out
+
+
+def _scaled_penalties(values, f: int, tradeoff: float) -> Optional[np.ndarray]:
+    """A CEGB per-feature penalty list as an (F,) f32 vector pre-scaled by
+    cegb_tradeoff, or None when every penalty is 0."""
+    values = list(values or [])
+    if not any(v != 0 for v in values):
+        return None
+    pen = np.zeros(f, np.float32)
+    for i, v in enumerate(values[:f]):
+        pen[i] = tradeoff * float(v)
+    return pen
 
 
 def goss_mask(g: torch.Tensor, h: torch.Tensor, u: torch.Tensor,
@@ -183,9 +224,10 @@ class GBDT:
         self.train_set = None
         self._models: List[Tree] = []  # host trees
         # trees after _models, not yet read by the host: [device TreeArrays,
-        # [factors]], the factors applied in order when the host tree is
-        # made (shrinkage, then any DART rescales), as Tree.apply_shrinkage
-        # applies them to a host tree
+        # [factors], linear fit or None], the factors applied in order when
+        # the host tree is made (shrinkage, then any DART rescales), as
+        # Tree.apply_shrinkage applies them to a host tree; a linear tree's
+        # fit is (coef, const, feat_idx, nfeat) from ops/linear.py
         self._pending: List[list] = []
         # this iteration's gradients (GOSS reads them)
         self._cur_grad = self._cur_hess = None
@@ -219,6 +261,14 @@ class GBDT:
         # it has none)
         self._categorical_mask: Optional[torch.Tensor] = None
         self._feature_contri: Optional[torch.Tensor] = None
+        # the constraint envelope of the training (reset_training_data)
+        self._monotone: Optional[torch.Tensor] = None
+        self._interaction_sets: Optional[torch.Tensor] = None
+        self._needs_node_rng = False
+        self._cegb_coupled = self._cegb_used_global = None
+        self._cegb_lazy = self._cegb_lazy_used = None
+        self._forced_cache = None
+        self._linear = False
         if train_set is not None:
             self.reset_training_data(train_set)
 
@@ -228,8 +278,10 @@ class GBDT:
         """Host trees; converts pending device trees first."""
         if self._pending:
             pending, self._pending = self._pending, []
-            for arrays, factors in pending:
-                tree = tree_from_device(arrays.to_numpy(), self.binner)
+            for arrays, factors, linear in pending:
+                tree = tree_from_device(
+                    arrays.to_numpy(), self.binner,
+                    linear=None if linear is None else [a.cpu().numpy() for a in linear])
                 for f in factors:
                     tree.apply_shrinkage(f)
                 self._models.append(tree)
@@ -251,11 +303,21 @@ class GBDT:
         if i < len(self._models):
             return torch.as_tensor(np.asarray(self._models[i].leaf_value, np.float32),
                                    device=self.device)
-        arrays, factors = self._pending[i - len(self._models)]
-        v = arrays.leaf_value.double()
-        for f in factors:
-            v = v * f
-        return v.float()
+        arrays, factors, _ = self._pending[i - len(self._models)]
+        return _scaled(arrays.leaf_value, factors)
+
+    def _tree_linear(self, i: int) -> Optional[tuple]:
+        """Tree i's linear leaf models on the device as
+        predict_linear_rows takes them (coef, const, feat_idx, nfeat, leaf
+        value), scaled like its leaf values; None for a constant tree."""
+        if i < len(self._models):
+            return _linear_tables(self._models[i], self.device)
+        arrays, factors, linear = self._pending[i - len(self._models)]
+        if linear is None:
+            return None
+        coef, const, fidx, nf = linear
+        return (_scaled(coef, factors), _scaled(const, factors), fidx, nf,
+                _scaled(arrays.leaf_value, factors))
 
     def _tree_leaves(self, i: int, ds) -> torch.Tensor:
         """Tree i's leaf id for each row of the constructed dataset ``ds``,
@@ -267,8 +329,16 @@ class GBDT:
                                    categorical=self._categorical_mask is not None)
 
     def _tree_rows(self, i: int, ds) -> torch.Tensor:
-        """(N,) f32: tree i's value for each row of ``ds``."""
-        return self._tree_leaf_values(i)[self._tree_leaves(i, ds).long()]
+        """(N,) f32: tree i's value for each row of ``ds`` (a linear tree's
+        from the set's raw values)."""
+        leaves = self._tree_leaves(i, ds).long()
+        linear = self._tree_linear(i)
+        if linear is None:
+            return self._tree_leaf_values(i)[leaves]
+        if getattr(ds, "raw_device", None) is None:
+            raise ValueError("a linear tree needs the raw feature values of the "
+                             "Dataset: construct it with linear_tree in its params")
+        return predict_linear_rows(ds.raw_device, leaves, *linear)
 
     def _scale_tree(self, i: int, factor: float) -> None:
         """Tree::Shrinkage on tree i, pending or not."""
@@ -363,6 +433,122 @@ class GBDT:
             train_set.max_num_bins, _hist_columns(train_set), cfg.num_leaves,
             quantized=bool(cfg.use_quantized_grad),
             hist_precision=cfg.hist_precision)
+        self._set_envelope(train_set)
+
+    def _set_envelope(self, ts) -> None:
+        """The constraint options as the growers take them (the JAX
+        package's GBDT setup): the monotone vector, the interaction sets,
+        the CEGB vectors (pre-scaled by cegb_tradeoff; the coupled "used"
+        state carried across trees and classes, the lazy (N, F) charges
+        returned by each tree), and the linear-tree gate."""
+        cfg, dev = self.cfg, self.device
+        f = ts.num_feature()
+        mc = list(cfg.monotone_constraints or [])
+        self._monotone = (
+            torch.as_tensor(np.asarray((mc + [0] * f)[:f], np.int32), device=dev)
+            if any(int(c) != 0 for c in mc) else None)
+        sets = _parse_interaction_constraints(cfg.interaction_constraints,
+                                              self.feature_names)
+        mat = np.zeros((len(sets), f), dtype=bool)
+        for i, st in enumerate(sets):
+            mat[i, [j for j in st if 0 <= j < f]] = True
+        self._interaction_sets = torch.as_tensor(mat, device=dev) if sets else None
+        self._needs_node_rng = bool(cfg.extra_trees or cfg.feature_fraction_bynode < 1.0)
+        coupled = _scaled_penalties(cfg.cegb_penalty_feature_coupled, f,
+                                    cfg.cegb_tradeoff)
+        self._cegb_coupled = (None if coupled is None
+                              else torch.as_tensor(coupled, device=dev))
+        self._cegb_used_global = (None if coupled is None
+                                  else torch.zeros(f, dtype=torch.bool, device=dev))
+        lazy = _scaled_penalties(cfg.cegb_penalty_feature_lazy, f, cfg.cegb_tradeoff)
+        self._cegb_lazy = None if lazy is None else torch.as_tensor(lazy, device=dev)
+        self._cegb_lazy_used = (None if lazy is None else torch.zeros(
+            (ts.num_data(), f), dtype=torch.bool, device=dev))
+        self._forced_cache = None
+        if self._monotone is not None:
+            method = cfg.monotone_constraints_method
+            if method == "advanced":
+                log_warning("monotone_constraints_method='advanced' is not "
+                            "implemented; using 'intermediate'")
+            if (method in ("intermediate", "advanced") and cfg.use_quantized_grad
+                    and cfg.quant_train_renew_leaf):
+                log_warning(
+                    "quant_train_renew_leaf is skipped under intermediate "
+                    "monotone bounds: renewed leaf values cannot be re-clipped "
+                    "to evolving bounds without crossing a monotone split; leaf "
+                    "values keep their creation-time (clipped, quantized) outputs.")
+        self._linear = bool(cfg.linear_tree)
+        if self._linear:
+            if cfg.boosting == "dart":
+                raise ValueError("linear_tree is not supported with boosting=dart "
+                                 "(its drops and rescales assume constant leaves)")
+            if self.objective is not None and self.objective.need_renew:
+                # reference: Config::CheckParamConflict
+                raise ValueError(f"linear_tree is not supported with objective="
+                                 f"{self.objective.name} (leaf-output renewal)")
+            if getattr(ts, "raw_device", None) is None:
+                raise ValueError(
+                    "linear_tree requires raw feature values: the Dataset was "
+                    "constructed without linear_tree in its params (or raw data "
+                    "was freed). Pass params={'linear_tree': True} to Dataset.")
+
+    @property
+    def _monotone_method(self) -> str:
+        """The growers' monotone method: 'advanced' runs as 'intermediate'
+        (reference: LeafConstraintsBase::Create; the advanced refinement is
+        not implemented, warned at setup)."""
+        if self._monotone is None:
+            return "basic"
+        return ("intermediate" if self.cfg.monotone_constraints_method
+                in ("intermediate", "advanced") else "basic")
+
+    def _forced_schedule(self):
+        """forcedsplits_filename as a (leaf, feature, bin) schedule on the
+        device, with its length (reference: SerialTreeLearner::ForceSplits):
+        the JSON tree walked breadth first with the growers' leaf numbering
+        (the left child keeps its parent's leaf, the right child of the s-th
+        split is leaf s + 1), each threshold mapped to its bin by the
+        training binner.  None without a file."""
+        if not self.cfg.forcedsplits_filename:
+            return None
+        if self._forced_cache is not None:
+            return self._forced_cache
+        with open(self.cfg.forcedsplits_filename) as fh:
+            root = json.load(fh)
+        leaves, feats, bins_ = [], [], []
+        queue = deque([(root, 0)])
+        step = 0
+        while queue:
+            node, leaf = queue.popleft()
+            fidx = int(node["feature"])
+            mapper = self.binner.mappers[fidx]
+            leaves.append(leaf)
+            feats.append(fidx)
+            thr = np.asarray([float(node["threshold"])])
+            bins_.append(int(mapper.transform(thr)[0]))
+            if node.get("left"):
+                queue.append((node["left"], leaf))
+            if node.get("right"):
+                queue.append((node["right"], step + 1))
+            step += 1
+        self._forced_cache = (
+            *(torch.as_tensor(np.asarray(a, np.int32), device=self.device)
+              for a in (leaves, feats, bins_)), len(leaves))
+        return self._forced_cache
+
+    def _node_uniforms(self, c: int) -> torch.Tensor:
+        """The per-node draws of extra_trees and feature_fraction_bynode for
+        class tree ``c`` of this iteration: a (2L - 1, 2, F) table of
+        uniforms from a generator on the training device seeded with
+        extra_seed + iteration * 131 + c (the JAX package's per-tree seed),
+        row i for node id i (0 the root, 2s + 1 and 2s + 2 the children of
+        split s); [:, 0] feeds the bynode mask, [:, 1] the random
+        threshold."""
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(self.cfg.extra_seed + self.iter_ * 131 + c)
+        L = self.cfg.num_leaves
+        return torch.rand((2 * L - 1, 2, self.train_set.num_feature()),
+                          generator=gen, device=self.device)
 
     def reset_split_params(self) -> None:
         """Refresh the split hyperparameters after a config change
@@ -380,6 +566,11 @@ class GBDT:
             cat_smooth=cfg.cat_smooth,
             max_cat_threshold=cfg.max_cat_threshold,
             max_cat_to_onehot=cfg.max_cat_to_onehot,
+            feature_fraction_bynode=cfg.feature_fraction_bynode,
+            extra_trees=bool(cfg.extra_trees),
+            monotone_penalty=cfg.monotone_penalty,
+            cegb_tradeoff=cfg.cegb_tradeoff,
+            cegb_penalty_split=cfg.cegb_penalty_split,
         )
 
     def add_valid(self, valid_set, name: str) -> None:
@@ -485,15 +676,20 @@ class GBDT:
     def _use_windowed(self, ts) -> bool:
         """Wide-regime windowed grower gate (the JAX package's, with "on
         the accelerator" read as "the training device is the card"):
-        windowed_growth=true, >= 512 features and >= 64 leaves.  The options
-        its envelope excludes (monotone, interaction, forced splits, CEGB,
-        linear trees) are rejected for every grower of this package
-        (_unported_options); one device is all this package trains on."""
+        windowed_growth=true, >= 512 features and >= 64 leaves, and none of
+        the options its envelope excludes (monotone and interaction
+        constraints, forced splits, CEGB coupled or lazy penalties, linear
+        trees: they train on the rounds grower); one device is all this
+        package trains on."""
         flag = self.cfg.extra.get("windowed_growth", False)
         if isinstance(flag, str):
             flag = flag.strip().lower() in ("1", "true", "yes", "on", "+")
         return (self.device.type == "cuda" and bool(flag)
-                and ts.num_feature() >= 512 and self.cfg.num_leaves >= 64)
+                and ts.num_feature() >= 512 and self.cfg.num_leaves >= 64
+                and self._monotone is None and self._interaction_sets is None
+                and not self.cfg.forcedsplits_filename
+                and self._cegb_lazy is None and self._cegb_coupled is None
+                and not self._linear)
 
     @property
     def windowed_stats(self) -> List[dict]:
@@ -507,7 +703,9 @@ class GBDT:
         eagerly), the rounds grower, float histograms (quantized training
         stays eager, as it does there), num_leaves x histogram columns <=
         100,000, a built-in objective that needs no leaf renewal and keeps
-        no per-iteration host state, at most 8 trees an iteration.  The
+        no per-iteration host state, at most 8 trees an iteration, and none
+        of CEGB coupled or lazy penalties, per-node sampling or linear trees
+        (monotone, interaction and forced-split rounds stay eligible).  The
         class trees of an iteration share the captures: their rounds have
         one static key.
 
@@ -523,7 +721,9 @@ class GBDT:
                 and not self.cfg.use_quantized_grad
                 and self.cfg.num_leaves * _hist_columns(ts) <= 100_000
                 and obj is not None and not obj.need_renew and obj.is_fusable()
-                and self.num_tree_per_iteration <= 8)
+                and self.num_tree_per_iteration <= 8
+                and self._cegb_coupled is None and self._cegb_lazy is None
+                and not self._needs_node_rng and not self._linear)
 
     def _graphs(self, ts, grad=None) -> Optional[RoundGraphs]:
         """This training's cache of captured rounds, where the rounds run
@@ -571,6 +771,7 @@ class GBDT:
         # the strict grower trains float, as in the JAX package
         quant = bool(cfg.use_quantized_grad) and not strict
         num_leaves = []
+        fs = self._forced_schedule()
         for c in range(k):
             gc = g if k == 1 else g[:, c].contiguous()
             hc = h if k == 1 else h[:, c].contiguous()
@@ -581,10 +782,27 @@ class GBDT:
             common = dict(num_leaves=cfg.num_leaves, num_bins=ts.max_num_bins,
                           max_depth=cfg.max_depth, params=self._split_params,
                           stats=stats, categorical_mask=self._categorical_mask,
-                          feature_contri=self._feature_contri)
+                          feature_contri=self._feature_contri,
+                          rng_key=(self._node_uniforms(c) if self._needs_node_rng
+                                   else None))
+            # the rest of the envelope (the windowed grower's gate excludes it)
+            envelope = dict(
+                monotone_constraints=self._monotone,
+                interaction_sets=self._interaction_sets,
+                # recomputed per class tree: a feature an earlier tree used
+                # is no longer charged (reference: cegb.hpp's coupled state)
+                cegb_feature_penalty=(
+                    None if self._cegb_coupled is None
+                    else torch.where(self._cegb_used_global, 0.0, self._cegb_coupled)),
+                cegb_lazy_penalty=self._cegb_lazy,
+                cegb_lazy_used=self._cegb_lazy_used,
+                forced_leaf=fs[0] if fs else None,
+                forced_feature=fs[1] if fs else None,
+                forced_bin=fs[2] if fs else None, n_forced=fs[3] if fs else 0,
+                track_path=self._linear, monotone_method=self._monotone_method)
             if strict:
                 stats["grower"] = "strict"
-                arrays, leaf_id = grow_tree(*args, **common)
+                out = grow_tree(*args, **common, **envelope)
             else:
                 gen = None
                 if quant:
@@ -600,28 +818,61 @@ class GBDT:
                     guard_label=f" (boosting iteration {self.iter_ + 1})")
                 if self._use_windowed(ts):
                     stats["grower"] = "windowed"
-                    arrays, leaf_id = grow_tree_windowed(
+                    out = grow_tree_windowed(
                         *args, megakernel_opt=cfg.extra.get("megakernel"), **common)
                 else:
                     stats["grower"] = "rounds"
-                    arrays, leaf_id = grow_tree_fast(*args, **common)
+                    out = grow_tree_fast(*args, **common, **envelope)
+            arrays, leaf_id = out[:2]
+            if self._cegb_lazy is not None:
+                self._cegb_lazy_used = out[2]
             self.round_stats.append(stats)
             arrays = self._renew(arrays, leaf_id, c)
             self._guard_accumulate(arrays)
+            linear_fit = lin_pred = None
+            if self._linear:
+                used_path = arrays.path_features
+                if self._categorical_mask is not None:
+                    used_path = used_path & ~self._categorical_mask[None, :]
+                coef, const, fidx, nf, lin_pred, _good = fit_linear_leaves(
+                    ts.raw_device, leaf_id, gc * sample_weight, hc * sample_weight,
+                    row_mask, used_path, arrays.leaf_value, float(cfg.linear_lambda),
+                    # at most 24 path features a leaf model (the JAX
+                    # package's cap; deeper paths keep the lowest indices)
+                    K=min(24, ts.num_feature()), num_leaves=cfg.num_leaves)
+                linear_fit = (coef, const, fidx, nf)
+            if self._cegb_coupled is not None:
+                valid = (torch.arange(cfg.num_leaves - 1, device=self.device)
+                         < arrays.num_leaves - 1)
+                hit = torch.zeros(ts.num_feature() + 1, dtype=torch.bool,
+                                  device=self.device)
+                f_nodes = torch.where(valid, arrays.split_feature.long(),
+                                      ts.num_feature())
+                hit[f_nodes] = True
+                self._cegb_used_global = self._cegb_used_global | hit[:-1]
             num_leaves.append(arrays.num_leaves)
             shrinkage = 1.0 if self.average_output else cfg.learning_rate
-            self._pending.append([arrays, [shrinkage]])
-            if strict:
+            self._pending.append([arrays, [shrinkage], linear_fit])
+            if linear_fit is not None:
+                delta_rows = lin_pred * np.float32(shrinkage)
+            elif strict:
                 # the JAX package's strict path scales the host tree in f64
                 delta = (arrays.leaf_value.double() * shrinkage).float()
+                delta_rows = delta[leaf_id.long()]
             else:
                 delta = arrays.leaf_value * np.float32(shrinkage)
-            self._add_score(self._score, delta[leaf_id.long()], c)
+                delta_rows = delta[leaf_id.long()]
+            self._add_score(self._score, delta_rows, c)
             for vi, vs in enumerate(self.valid_sets):
                 leaf_v = predict_leaf_arrays(
                     arrays, vs.bins_device, ts.missing_bin_pf_device,
-                    categorical=self._categorical_mask is not None)
-                self._add_score(self._valid_scores[vi], delta[leaf_v.long()], c)
+                    categorical=self._categorical_mask is not None).long()
+                if linear_fit is not None:
+                    vals = predict_linear_rows(vs.raw_device, leaf_v, *linear_fit,
+                                               arrays.leaf_value) * np.float32(shrinkage)
+                else:
+                    vals = delta[leaf_v]
+                self._add_score(self._valid_scores[vi], vals, c)
         self.iter_ += 1
         if self.iter_ % 32:
             return False
@@ -718,9 +969,6 @@ class GBDT:
         tree has categorical nodes, their bitsets (``cat``: per node a
         flag, a word base and a word count into the flat words of every
         tree, as the JAX package stacks them)."""
-        if any(t.is_linear for t in trees):
-            raise NotImplementedError("linear trees are not ported yet "
-                                      "(ROADMAP queue A11b)")
         max_l = max(max(t.num_leaves for t in trees), 2)
         m = max_l - 1
 
@@ -769,12 +1017,25 @@ class GBDT:
             out = base.expand(np.asarray(X).shape[0], k).clone()
             return out[:, 0] if k == 1 else out
         s = self._stacked(trees, dev)
+        if any(t.is_linear for t in trees):
+            return torch.cat([self._linear_raw(trees, xs, s)
+                              for xs in self._row_chunks(X, len(trees))])
         if k == 1:
             fn = predict_ops.predict_raw_values
         else:
             def fn(xs, **kw):
                 return predict_ops.predict_raw_multiclass(xs, **kw, k=k)
         return torch.cat([fn(xs, **s) for xs in self._row_chunks(X, len(trees))])
+
+    def _linear_raw(self, trees: List[Tree], xs: torch.Tensor, s: dict) -> torch.Tensor:
+        """Raw margins of an ensemble with linear trees on the device: the
+        traversal's leaf of every (row, tree), then each linear tree's leaf
+        model on the raw values (ops/linear.py::predict_linear_rows), a
+        constant tree's leaf value, summed per class in tree order."""
+        k = self.num_tree_per_iteration
+        out = torch.zeros((xs.shape[0], k), dtype=torch.float32, device=xs.device)
+        _add_trees(trees, xs, _leaves_of(xs, s), 0, len(trees), k, out)
+        return out[:, 0] if k == 1 else out
 
     def _average_scale(self, start_iteration: int, num_iteration: int) -> float:
         """A random forest's 1 / (its trees a class), else 1."""
@@ -865,10 +1126,19 @@ class GBDT:
         raw_dev = torch.zeros(shape, dtype=torch.float32, device=self.device)
         active = np.ones(n, dtype=bool)
         raw = np.zeros(shape, dtype=np.float64)
+        # linear leaves: the window's trees added onto the margins in tree
+        # order (_add_trees), as _linear_raw adds all of them
+        leaves = _leaves_of(x, s) if any(t.is_linear for t in trees) else None
         for ci in range(len(trees) // window):
-            raw_dev = predict_ops.predict_raw_window(
-                x, ci * window, **s, k=k, window=window, base=raw_dev,
-                active=torch.as_tensor(active, device=self.device))
+            act = torch.as_tensor(active, device=self.device)
+            if leaves is None:
+                raw_dev = predict_ops.predict_raw_window(
+                    x, ci * window, **s, k=k, window=window, base=raw_dev, active=act)
+            else:
+                acc = raw_dev.reshape(n, k)
+                nxt = _add_trees(trees, x, leaves, ci * window, (ci + 1) * window, k,
+                                 acc.clone())
+                raw_dev = torch.where(act[:, None], nxt, acc).reshape(shape)
             # the stop test is a host dependency: one blocking read a chunk
             raw = _san.sync_pull(raw_dev).astype(np.float64)
             self.early_stop_stats["chunks"] += 1
@@ -989,6 +1259,9 @@ class GBDT:
             t = copy.deepcopy(trees[i])
             t.leaf_value = t.leaf_value + self.init_scores[i % k]
             t.internal_value = t.internal_value + self.init_scores[i % k]
+            if t.is_linear and t.leaf_const is not None:
+                # a linear leaf predicts from leaf_const, not leaf_value
+                t.leaf_const = t.leaf_const + self.init_scores[i % k]
             trees[i] = t
         return trees
 
@@ -1189,6 +1462,58 @@ def create_boosting(cfg: Config, train_set=None) -> GBDT:
     if name in ("rf", "random_forest"):
         return RF(cfg, train_set)
     raise ValueError(f"Unknown boosting type: {name}")
+
+
+def _scaled(v: torch.Tensor, factors) -> torch.Tensor:
+    """f32 of v times the factors in f64, as Tree.apply_shrinkage scales a
+    host tree."""
+    v = v.double()
+    for f in factors:
+        v = v * f
+    return v.float()
+
+
+def _leaves_of(xs: torch.Tensor, s: dict) -> torch.Tensor:
+    """(N, T) i64: every tree's leaf for every row of ``xs``, from the
+    stacked ensemble ``s`` (GBDT._stacked)."""
+    s = {key: v for key, v in s.items() if key != "leaf_value"}
+    return predict_ops.predict_leaf_values(xs, **s).long()
+
+
+def _add_trees(trees: List[Tree], xs: torch.Tensor, leaves: torch.Tensor, lo: int,
+               hi: int, k: int, out: torch.Tensor) -> torch.Tensor:
+    """``out`` (N, K) plus the values of trees [lo, hi) (tree i in class
+    i % K), one after another: a linear tree's leaf models on the raw
+    values, a constant tree's leaf values.  In place; returns ``out``."""
+    for i in range(lo, hi):
+        linear = _linear_tables(trees[i], xs.device)
+        if linear is None:
+            vals = torch.as_tensor(np.asarray(trees[i].leaf_value, np.float32),
+                                   device=xs.device)[leaves[:, i]]
+        else:
+            vals = predict_linear_rows(xs, leaves[:, i], *linear)
+        out[:, i % k] = out[:, i % k] + vals
+    return out
+
+
+def _linear_tables(tree: Tree, device) -> Optional[tuple]:
+    """A host linear tree's leaf models as predict_linear_rows takes them
+    (f32 on ``device``), or None for a constant tree."""
+    if not tree.is_linear or tree.leaf_const is None:
+        return None
+    L = tree.num_leaves
+    k = max([len(f) for f in tree.leaf_features] + [1])
+    coef = np.zeros((L, k), np.float32)
+    fidx = np.zeros((L, k), np.int32)
+    nf = np.zeros(L, np.int32)
+    for l in range(L):
+        m = len(tree.leaf_features[l])
+        nf[l] = m
+        fidx[l, :m] = np.asarray(tree.leaf_features[l], np.int64)
+        coef[l, :m] = np.asarray(tree.leaf_coeff[l], np.float64)
+    return tuple(torch.as_tensor(a, device=device) for a in (
+        coef, np.asarray(tree.leaf_const, np.float32), fidx, nf,
+        np.asarray(tree.leaf_value, np.float32)))
 
 
 def _stacked_bitsets(trees: List[Tree], m: int, device) -> Optional[tuple]:

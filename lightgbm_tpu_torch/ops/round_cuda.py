@@ -7,7 +7,8 @@ children's window histograms read straight from the row-major bins through
 the new order, the siblings by subtraction, and the per-feature split
 search, with the categorical candidates on the features of a categorical
 mask and the feature_contri scaling when given (the TPU kernel's has_cat
-and has_contri tails).  ``select_from_feature_best`` (ops/split.py)
+and has_contri tails), and the CEGB split penalty (cegb_penalty_split, which
+the TPU kernel's gain_plane applies from its params).  ``select_from_feature_best`` (ops/split.py)
 finishes the cross-feature choice in torch, and replays a categorical
 winner's left-bin mask, as the JAX package does outside its kernel.
 
@@ -45,7 +46,7 @@ def _bind(lib: ctypes.CDLL) -> None:
     p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
     lib.lgbt_round.argtypes = (
         [p, ll, i, i, i] + [p] * 13 + [ll] + [p] * 12 + [f] * 7 + [i]
-        + [f, f, i, i] + [p] * 8)
+        + [f, f, i, i, f] + [p] * 8)
     lib.lgbt_round.restype = i
 
 
@@ -194,6 +195,8 @@ def round_megakernel(bins, order, go_left, grad, hess, row_mask, seg_start,
             p.min_gain_to_split, p.max_delta_step, p.path_smooth,
             int(p.path_smooth > 0), p.lambda_l2 + p.cat_l2, p.cat_smooth,
             int(p.max_cat_threshold), int(p.max_cat_to_onehot),
+            (p.cegb_tradeoff * p.cegb_penalty_split
+             if p.cegb_penalty_split > 0 else -1.0),
             o_gain.data_ptr(), o_thr.data_ptr(), o_left.data_ptr(),
             o_var.data_ptr(), o_lg.data_ptr(), o_lh.data_ptr(),
             o_lc.data_ptr(), stream)

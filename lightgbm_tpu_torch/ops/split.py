@@ -1,7 +1,9 @@
 """Split-gain search over histograms, as batched tensor reductions.
 
-Counterpart of lightgbm_tpu/ops/split.py for numerical and categorical
-features with missing-value handling and feature_contri.  The whole (F, B)
+Counterpart of lightgbm_tpu/ops/split.py: numerical and categorical
+features with missing-value handling, feature_contri, monotone constraints
+(output clipping, ordering and the split-gain penalty), CEGB penalties,
+per-node feature sampling and extra_trees, and forced splits.  The whole (F, B)
 candidate plane of each leaf is evaluated at once with cumulative sums,
 both missing-value directions in parallel, and the argmax taken as one
 reduction.  Where the JAX package vmaps over leaves, these functions take a
@@ -14,8 +16,12 @@ Math (as in the JAX package; SURVEY.md §8):
   leaf_gain   = ThresholdL1(G, l1)^2 / (H + l2)
   split_gain  = gain(L) + gain(R) - gain(parent)
 
-Monotone, CEGB and per-node sampling arguments are not ported yet (ROADMAP
-queue A11b) and raise when given.
+Per-node sampling: where the JAX package folds a threefry key into each
+node id and draws two (F,) uniforms from it, these functions take the two
+rows of uniforms themselves (``rng_key``: (C, 2, F) f32, row 0 for the
+bynode keep mask, row 1 for extra_trees' random threshold), which the
+growers gather from a per-tree table indexed by the JAX package's node ids
+(GBDT._node_uniforms).
 """
 
 from __future__ import annotations
@@ -41,6 +47,17 @@ class SplitParams(NamedTuple):
     cat_smooth: float = 10.0
     max_cat_threshold: int = 32
     max_cat_to_onehot: int = 4
+    # node-level sampling (reference: ColSampler bynode / extra_trees)
+    feature_fraction_bynode: float = 1.0
+    extra_trees: bool = False
+    # monotone split gain penalty (reference: monotone_penalty ->
+    # ComputeMonotoneSplitGainPenalty)
+    monotone_penalty: float = 0.0
+    # CEGB (reference: cost_effective_gradient_boosting.hpp): split gain is
+    # charged cegb_tradeoff * cegb_penalty_split * num_data, plus the
+    # per-feature penalties each leaf passes in
+    cegb_tradeoff: float = 1.0
+    cegb_penalty_split: float = 0.0
 
 
 class BestSplit(NamedTuple):
@@ -89,6 +106,17 @@ def gain_given_output(sum_g, sum_h, l1, l2, out):
     return -(2.0 * tg * out + (sum_h + l2 + KEPSILON) * out * out)
 
 
+def monotone_split_gain_penalty(depth, penalization: float):
+    """reference: LeafConstraintsBase::ComputeMonotoneSplitGainPenalty: the
+    multiplicative factor of a monotone split's gain at ``depth`` (f32)."""
+    depth = depth.float()
+    eps = 1e-10
+    full = penalization >= depth + 1.0
+    f_small = 1.0 - penalization / torch.exp2(depth) + eps
+    f_big = 1.0 - torch.exp2(penalization - 1.0 - depth) + eps
+    return torch.where(full, eps, f_small if penalization <= 1.0 else f_big)
+
+
 def leaf_gain(sum_g, sum_h, p: SplitParams):
     """reference: GetLeafGain (0.5 factor dropped — it cancels in deltas)."""
     tg = threshold_l1(sum_g, p.lambda_l1)
@@ -124,17 +152,12 @@ def _ranks(keys):
     return order, torch.empty_like(order).scatter_(-1, order, idx)
 
 
-def _reject_unported(**args) -> None:
-    for name, v in args.items():
-        if v is not None:
-            raise ValueError(f"{name} is not ported to lightgbm_tpu_torch yet "
-                             "(ROADMAP queue A11b)")
-
-
 def gain_plane(hist, parent_sum_g, parent_sum_h, parent_count,
                num_bins_per_feature, missing_bin_per_feature,
                params: SplitParams, feature_mask=None, parent_output=None,
-               categorical_mask=None, feature_contri=None):
+               categorical_mask=None, feature_contri=None,
+               monotone_constraints=None, out_lo=None, out_hi=None,
+               rng_key=None, depth=None, cegb_feature_penalty=None):
     """Every (feature, threshold, missing-direction) candidate of a batch of
     leaves: returns (gain (C, F, B), ctx).  hist is (C, 3, F, B); rows with
     bin <= t go left, missing rows go the default direction; the missing
@@ -144,10 +167,21 @@ def gain_plane(hist, parent_sum_g, parent_sum_h, parent_count,
     used bin alone goes left (cell t = bin t); otherwise the used bins
     sorted by sum_g / (sum_h + cat_smooth), ascending and descending, and
     cell t = the sorted order's prefix of length t + 1 goes left.  The
-    missing bin never goes left.  ``feature_contri`` (F,) scales each gain
-    that passed min_gain_to_split by max(0, contri) (reference: config
-    feature_contri)."""
-    _, _, f, b = hist.shape
+    missing bin never goes left.
+
+    Per candidate: ``feature_mask`` (F,) or (C, F); ``monotone_constraints``
+    (F,) i32 with the output band ``out_lo`` / ``out_hi`` (C,): child
+    outputs are clipped to the band and a split that breaks its feature's
+    order (or a leaf whose band is empty) is rejected (reference:
+    BasicLeafConstraints + GetSplitGainGivenOutput); ``depth`` (C,) feeds
+    monotone_penalty; ``rng_key`` (C, 2, F) the node's uniforms (module
+    docstring); ``cegb_feature_penalty`` (F,) or (C, F) the pre-scaled
+    CEGB feature penalties.  The min_gain_to_split gate sees the raw (and
+    monotone-penalized) gain; then ``feature_contri`` (F,) scales it by
+    max(0, contri) and the CEGB penalties are subtracted, and an adjusted
+    gain must stay positive (reference: config feature_contri, the
+    SerialTreeLearner's CEGB delta)."""
+    c, _, f, b = hist.shape
     dev = hist.device
     bins_idx = torch.arange(b, dtype=torch.int32, device=dev)
     mbpf = missing_bin_per_feature
@@ -164,9 +198,20 @@ def gain_plane(hist, parent_sum_g, parent_sum_h, parent_count,
     cum = torch.cumsum(hist_nm.double(), dim=3).float()
 
     last_nm_bin = num_bins_per_feature - torch.where(has_missing, 2, 1)
-    valid_thr = bins_idx[None, :] < last_nm_bin[:, None]  # (F, B)
-    if feature_mask is not None:
-        valid_thr = valid_thr & feature_mask[:, None]
+    fmask = feature_mask
+    if fmask is not None and fmask.dim() == 1:
+        fmask = fmask[None]  # (1 or C, F)
+    # node-level feature sampling (reference: ColSampler::GetByNode) and
+    # extra_trees' one random threshold per feature, as candidate masks
+    if rng_key is not None and params.feature_fraction_bynode < 1.0:
+        keep = rng_key[:, 0] < params.feature_fraction_bynode  # (C, F)
+        fmask = keep if fmask is None else fmask & keep
+    valid_thr = (bins_idx[None, :] < last_nm_bin[:, None])[None]  # (1, F, B)
+    if rng_key is not None and params.extra_trees:
+        rbin = torch.floor(rng_key[:, 1] * last_nm_bin.clamp_min(1)).to(torch.int32)
+        valid_thr = valid_thr & (bins_idx == rbin[..., None])
+    if fmask is not None:
+        valid_thr = valid_thr & fmask[..., None]
 
     pg = parent_sum_g[:, None, None]
     ph = parent_sum_h[:, None, None]
@@ -178,6 +223,12 @@ def gain_plane(hist, parent_sum_g, parent_sum_h, parent_count,
                                         params.lambda_l2, po)
     else:
         gain_parent = leaf_gain(pg, ph, params)
+    mono = monotone_constraints
+    if mono is not None:
+        inf = torch.full((c,), float("inf"), device=dev)
+        lo = (-inf if out_lo is None else out_lo)[:, None, None]
+        hi = (inf if out_hi is None else out_hi)[:, None, None]
+        mono_col = mono[:, None]
 
     def split_ok(lc, rc, lh, rh):
         return ((lc >= params.min_data_in_leaf) & (rc >= params.min_data_in_leaf)
@@ -193,17 +244,32 @@ def gain_plane(hist, parent_sum_g, parent_sum_h, parent_count,
         right_h = ph - left_h
         right_c = pc - left_c
         ok = valid_thr & split_ok(left_c, right_c, left_h, right_h)
-        if not use_smooth:
+        if mono is None and not use_smooth:
             g = (leaf_gain(left_g, left_h, params)
                  + leaf_gain(right_g, right_h, params) - gain_parent)
         else:
-            out_l = leaf_output_smoothed(left_g, left_h, left_c, po, params)
-            out_r = leaf_output_smoothed(right_g, right_h, right_c, po, params)
+            # output-based gains: smoothed outputs, clipped to the
+            # monotone band where constraints apply
+            if use_smooth:
+                out_l = leaf_output_smoothed(left_g, left_h, left_c, po, params)
+                out_r = leaf_output_smoothed(right_g, right_h, right_c, po, params)
+            else:
+                out_l = leaf_output(left_g, left_h, params)
+                out_r = leaf_output(right_g, right_h, params)
+            if mono is not None:
+                out_l = torch.clamp(out_l, lo, hi)
+                out_r = torch.clamp(out_r, lo, hi)
             g = (gain_given_output(left_g, left_h, params.lambda_l1,
                                    params.lambda_l2, out_l)
                  + gain_given_output(right_g, right_h, params.lambda_l1,
                                      params.lambda_l2, out_r)
                  - gain_parent)
+            if mono is not None:
+                viol = (((mono_col > 0) & (out_l > out_r))
+                        | ((mono_col < 0) & (out_l < out_r)))
+                # an empty band (conflicting ancestors) makes the leaf
+                # unsplittable: clamp would quietly return hi
+                ok = ok & ~viol & (lo <= hi)
         g = torch.where(ok, g, KMIN_SCORE)
         return g, (left_g, left_h, left_c)
 
@@ -249,21 +315,39 @@ def gain_plane(hist, parent_sum_g, parent_sum_h, parent_count,
         gain_cat = torch.where(onehot, gain_oh, torch.maximum(gain_asc, gain_desc))
         variant = torch.where(onehot, 0, torch.where(gain_desc > gain_asc, 2, 1))
         cat_col = categorical_mask[:, None]
-        if feature_mask is not None:
-            cat_col = cat_col & feature_mask[:, None]
+        if fmask is not None:
+            cat_col = cat_col & fmask[..., None]
         gain = torch.where(categorical_mask[:, None], KMIN_SCORE, gain)
         gain = torch.where(cat_col, gain_cat, gain)
         ctx.update(variant=variant.to(torch.int32), rank_asc=rank_asc,
                    rank_desc=rank_desc, st_asc=st_asc, st_desc=st_desc,
                    oh_l=(og, oh, oc))
 
+    live = gain > KMIN_SCORE / 2
+    if params.monotone_penalty > 0 and mono is not None and depth is not None:
+        factor = monotone_split_gain_penalty(depth, params.monotone_penalty)
+        gain = torch.where(live & (mono != 0)[:, None],
+                           gain * factor[:, None, None], gain)
     # the min_gain gate sees raw gains (FindBestThresholdSequentially); the
-    # gated gain is then scaled by feature_contri and must stay positive
-    gate = (gain > KMIN_SCORE / 2) & (gain > params.min_gain_to_split)
+    # gated gain is then scaled by feature_contri, charged the CEGB
+    # penalties, and must stay positive
+    gate = live & (gain > params.min_gain_to_split)
     gain = torch.where(gate, gain, KMIN_SCORE)
+    has_adjust = False
     if feature_contri is not None:
         contri = torch.clamp_min(feature_contri.float(), 0.0)
         gain = torch.where(gate, gain * contri[:, None], gain)
+        has_adjust = True
+    if params.cegb_penalty_split > 0 or cegb_feature_penalty is not None:
+        pen = torch.zeros((c, f), dtype=torch.float32, device=dev)
+        if params.cegb_penalty_split > 0:
+            pen = pen + (params.cegb_tradeoff * params.cegb_penalty_split
+                         ) * parent_count[:, None]
+        if cegb_feature_penalty is not None:
+            pen = pen + cegb_feature_penalty
+        gain = torch.where(gate, gain - pen[..., None], gain)
+        has_adjust = True
+    if has_adjust:
         gain = torch.where(gate & (gain > 0), gain, KMIN_SCORE)
     return gain, ctx
 
@@ -420,30 +504,36 @@ def find_best_split(hist, parent_sum_g, parent_sum_h, parent_count,
                     categorical_mask=None, monotone_constraints=None,
                     out_lo=None, out_hi=None, rng_key=None, depth=None,
                     parent_output=None, cegb_feature_penalty=None,
-                    feature_contri=None) -> BestSplit:
+                    feature_contri=None, cell=None) -> BestSplit:
     """gain_plane + the selection (reference: FindBestThreshold).
-    hist (3, F, B) with scalar parents, or batched (C, 3, F, B) with (C,)
-    parents.  ``depth`` only feeds the monotone penalty and is ignored."""
-    _reject_unported(monotone_constraints=monotone_constraints,
-                     out_lo=out_lo, out_hi=out_hi, rng_key=rng_key,
-                     cegb_feature_penalty=cegb_feature_penalty)
+    hist (3, F, B) with scalar parents (and out_lo, out_hi, depth scalars,
+    rng_key (2, F)), or batched (C, 3, F, B) with (C,) parents.  ``cell``
+    (F, B) bool keeps only those candidates (forced_split_candidate)."""
     single = hist.dim() == 3
     if single:
         hist = hist[None]
-        parent_sum_g, parent_sum_h, parent_count = (
-            torch.as_tensor(v, dtype=torch.float32,
-                            device=hist.device).reshape(1)
-            for v in (parent_sum_g, parent_sum_h, parent_count))
-        if parent_output is not None:
-            parent_output = torch.as_tensor(
-                parent_output, dtype=torch.float32,
-                device=hist.device).reshape(1)
+
+        def one(v):
+            return None if v is None else torch.as_tensor(
+                v, dtype=torch.float32, device=hist.device).reshape(1)
+
+        parent_sum_g, parent_sum_h, parent_count, parent_output, out_lo, \
+            out_hi, depth = (one(v) for v in (
+                parent_sum_g, parent_sum_h, parent_count, parent_output,
+                out_lo, out_hi, depth))
+        if rng_key is not None:
+            rng_key = rng_key[None]
     gain, ctx = gain_plane(hist, parent_sum_g, parent_sum_h, parent_count,
                            num_bins_per_feature, missing_bin_per_feature,
                            params, feature_mask=feature_mask,
                            parent_output=parent_output,
                            categorical_mask=categorical_mask,
-                           feature_contri=feature_contri)
+                           feature_contri=feature_contri,
+                           monotone_constraints=monotone_constraints,
+                           out_lo=out_lo, out_hi=out_hi, rng_key=rng_key,
+                           depth=depth, cegb_feature_penalty=cegb_feature_penalty)
+    if cell is not None:
+        gain = torch.where(cell, gain, KMIN_SCORE)
     if categorical_mask is None:
         best = select_from_plane(gain, ctx)
     else:  # per feature first: the winner's mask is replayed from its column
@@ -455,3 +545,26 @@ def find_best_split(hist, parent_sum_g, parent_sum_h, parent_count,
     if single:
         best = BestSplit(*[x[0] for x in best])
     return best
+
+
+def forced_split_candidate(hist, parent_sum_g, parent_sum_h, parent_count,
+                           num_bins_per_feature, missing_bin_per_feature,
+                           params: SplitParams, forced_feature, forced_bin,
+                           categorical_mask=None, monotone_constraints=None,
+                           out_lo=None, out_hi=None, depth=None,
+                           parent_output=None, feature_contri=None) -> BestSplit:
+    """A forced split (reference: SerialTreeLearner::ForceSplits): the
+    scheduled (feature, bin) cell of one leaf's (3, F, B) histogram through
+    the standard gain machinery, so min_data, min_hess and the monotone
+    gates still apply; the split is valid where its gain > KMIN_SCORE / 2.
+    ``forced_feature`` / ``forced_bin`` are 0-d tensors (no host read)."""
+    _, f, b = hist.shape
+    dev = hist.device
+    cell = ((torch.arange(f, device=dev)[:, None] == forced_feature)
+            & (torch.arange(b, device=dev)[None, :] == forced_bin))
+    return find_best_split(
+        hist, parent_sum_g, parent_sum_h, parent_count, num_bins_per_feature,
+        missing_bin_per_feature, params, categorical_mask=categorical_mask,
+        monotone_constraints=monotone_constraints, out_lo=out_lo, out_hi=out_hi,
+        depth=depth, parent_output=parent_output, feature_contri=feature_contri,
+        cell=cell)

@@ -63,8 +63,11 @@ EFB tree takes the three-pass round, reports ``megakernel_excluded``
 "efb" and counts a megakernel fallback (utils/sanitizer.py); its root pass
 and window pass histogram the bundled (N, F_b) matrix and unbundle, while
 the partition and the split's go-left test read the feature bins.
-Per-node feature sampling (A11b) raises.  The obs spans and counters of
-the JAX round loop wait for ROADMAP A14.
+Per-node feature sampling (extra_trees, feature_fraction_bynode: the
+tree's uniform table ``rng_key``, indexed by node id as in
+ops/treegrow.py) is outside the megakernel's envelope too, as in the JAX
+package: it takes the three-pass round and reports "node_rng".  The obs
+spans and counters of the JAX round loop wait for ROADMAP A14.
 """
 
 from __future__ import annotations
@@ -87,8 +90,6 @@ from .split import (KMIN_SCORE, BestSplit, SplitParams, find_best_split,
 from .treegrow import (TreeArrays, _empty_best, _put, _set_best, admit,
                        admits_next, book_tree, empty_tree, go_left_of,
                        quantize_gradients)
-
-_UNPORTED = ("rng_key",)
 
 
 class WState(NamedTuple):
@@ -119,6 +120,7 @@ class WInputs(NamedTuple):
     row_mask: torch.Tensor
     feature_mask: torch.Tensor
     shift: torch.Tensor  # (2,) i32 fixed-point exponents
+    rng: Optional[torch.Tensor] = None  # (2L-1, 2, F) node uniforms
 
 
 INFO = 6  # scalars in a round's info vector
@@ -149,11 +151,12 @@ def _round_fused(state: WState, bins, grad, hess, gq, hq, quant_scale,
                  contri=None, *, num_leaves: int, num_bins: int, max_depth: int,
                  params: SplitParams, leaf_tile: int, W: int,
                  quantize_bins: int, megakernel: bool, shift: torch.Tensor,
-                 hist_precision: str = "f32", efb=None):
+                 hist_precision: str = "f32", efb=None, rng=None):
     """One whole boosting round; returns (state', info) with info = [k_acc,
     window_total, fits_W, whint, finite, k_next] (i32, on the device).
     ``efb``: the EFB tables (three-pass rounds only): the window pass
-    histograms the bundled matrix and unbundles."""
+    histograms the bundled matrix and unbundles.  ``rng``: the tree's node
+    uniforms (three-pass rounds only)."""
     L, T = num_leaves, leaf_tile
     n, f = bins.shape
     dev = bins.device
@@ -310,11 +313,13 @@ def _round_fused(state: WState, bins, grad, hess, gq, hq, quant_scale,
             cand_hist=None if cmask is None else torch.cat([left_h, right_h]),
             missing_bin_per_feature=missing_bin_pf, params=params)
     else:
+        node_ids = leaf_parent.clamp_min(0) * 2 + leaf_side + 1
         bb = find_best_split(torch.cat([left_h, right_h]), pg, ph, pc,
                              num_bins_pf, missing_bin_pf, params,
                              feature_mask=feature_mask,
                              parent_output=leaf_out[ci], categorical_mask=cmask,
-                             feature_contri=contri)
+                             feature_contri=contri,
+                             rng_key=None if rng is None else rng[node_ids[ci]])
     scatter_pos = torch.where(cand_ok, cand, drop)
     best = BestSplit(*[_put(o, scatter_pos, nw) for o, nw in zip(best, bb)])
 
@@ -345,7 +350,8 @@ def _w_init(bins, grad, hess, row_mask, sample_weight, num_bins_pf,
             missing_bin_pf, feature_mask, *, num_leaves: int, num_bins: int,
             params: SplitParams, quantize_bins: int, stochastic_rounding: bool,
             generator: Optional[torch.Generator], hist_precision: str = "f32",
-            categorical_mask=None, feature_contri=None, hist=None, efb=None):
+            categorical_mask=None, feature_contri=None, hist=None, efb=None,
+            rng=None):
     """Root state: quantize gradients, the one full-N pass, seed best.
     ``hist``: the (L + 1, 3, F, B) buffer to hold the histogram state (the
     static one of a graph cache), else a new one; ``efb``: the EFB tables
@@ -379,7 +385,8 @@ def _w_init(bins, grad, hess, row_mask, sample_weight, num_bins_pf,
     _set_best(best, torch.zeros(1, dtype=torch.int64, device=dev), find_best_split(
         hist0[None], g0[None], h0[None], c0[None], num_bins_pf, missing_bin_pf,
         params, feature_mask=feature_mask, parent_output=leaf_out0[None],
-        categorical_mask=categorical_mask, feature_contri=feature_contri))
+        categorical_mask=categorical_mask, feature_contri=feature_contri,
+        rng_key=None if rng is None else rng[:1]))
 
     def zeros(shape, dtype=torch.float32):
         return torch.zeros(shape, dtype=dtype, device=dev)
@@ -405,7 +412,8 @@ def _w_init(bins, grad, hess, row_mask, sample_weight, num_bins_pf,
         leaf_side=zeros(L, torch.int64),
         num_leaves_cur=torch.ones((), dtype=torch.int64, device=dev),
         leaf_out=first(leaf_out0), tree=empty_tree(L, num_bins, dev))
-    inputs = WInputs(grad, hess, gq, hq, quant_scale, row_mask, feature_mask, shift)
+    inputs = WInputs(grad, hess, gq, hq, quant_scale, row_mask, feature_mask,
+                     shift, rng)
     return state, inputs, grad_true, hess_true
 
 
@@ -531,6 +539,7 @@ def _run_fused_rounds(round_fn, state, *, n_ladder: Optional[int],
 
 
 def megakernel_mode(on_card: bool, *, quantize_bins: int = 0, efb: bool = False,
+                    node_rng: bool = False,
                     mode: Optional[str] = None) -> Tuple[bool, Optional[str]]:
     """The round-megakernel gate: returns (megakernel, exclusion reason).
 
@@ -541,9 +550,10 @@ def megakernel_mode(on_card: bool, *, quantize_bins: int = 0, efb: bool = False,
     three-pass round sums the int8 values exactly while the megakernel
     would fold the dequantized floats, so it takes the three-pass round and
     the reason ``quantized`` is reported (in the grower's stats).  EFB
-    bundles (``efb``) are outside the envelope wherever the megakernel was
-    asked for, as in the JAX package: reason ``efb``.  Every exclusion
-    counts a megakernel fallback (utils/sanitizer.py)."""
+    bundles (``efb``) and per-node feature sampling (``node_rng``) are
+    outside the envelope wherever the megakernel was asked for, as in the
+    JAX package: reasons ``efb`` and ``node_rng``.  Every exclusion counts
+    a megakernel fallback (utils/sanitizer.py)."""
     mode = "auto" if mode is None else str(mode).lower()
     if mode in ("0", "off", "false"):
         return False, None
@@ -551,7 +561,8 @@ def megakernel_mode(on_card: bool, *, quantize_bins: int = 0, efb: bool = False,
         raise ValueError(f"megakernel must be auto, 1 or 0, got {mode!r}")
     if not (mode != "auto" or on_card):
         return False, None
-    reason = "efb" if efb else ("quantized" if quantize_bins and on_card else None)
+    reason = ("efb" if efb else "node_rng" if node_rng
+              else "quantized" if quantize_bins and on_card else None)
     if reason is not None:
         _san.record_megakernel_fallback()
         return False, reason
@@ -585,6 +596,7 @@ def grow_tree_windowed(
     categorical_mask: Optional[torch.Tensor] = None,  # (F,) bool
     feature_contri: Optional[torch.Tensor] = None,  # (F,) f32
     efb: Optional[tuple] = None,  # Dataset.efb_device_tables()
+    rng_key: Optional[torch.Tensor] = None,  # (2L-1, 2, F) node uniforms
     **options,
 ) -> tuple[TreeArrays, torch.Tensor]:
     """Grow one tree with windowed rounds; returns (tree, leaf_id per row).
@@ -595,12 +607,9 @@ def grow_tree_windowed(
     megakernel, megakernel_excluded}: the counts of utils/sanitizer.py over
     the whole tree.  ``efb``: an EFB plan's (bundled (N, F_b) int16,
     gather, default), which the root and window passes read (the
-    three-pass round: the megakernel excludes it)."""
-    for name in _UNPORTED:
-        v = options.pop(name, None)
-        if v is not None and v is not False:
-            raise ValueError(f"grow_tree_windowed: {name} is not ported to "
-                             "lightgbm_tpu_torch yet (ROADMAP A11b)")
+    three-pass round: the megakernel excludes it).  ``rng_key``: the
+    tree's node uniforms for extra_trees and feature_fraction_bynode (the
+    three-pass round too)."""
     if options:
         raise TypeError(f"unexpected options: {sorted(options)}")
     if feature_mask is None:
@@ -608,7 +617,9 @@ def grow_tree_windowed(
                                   device=bins.device)
     with _san.DispatchCounter() as counter:  # the gate's fallback count too
         mk, excluded = megakernel_mode(bins.is_cuda, quantize_bins=quantize_bins,
-                                       efb=efb is not None, mode=megakernel_opt)
+                                       efb=efb is not None,
+                                       node_rng=rng_key is not None,
+                                       mode=megakernel_opt)
         tile = max(1, min(leaf_tile, num_leaves))
         static = dict(num_leaves=num_leaves, num_bins=num_bins, max_depth=max_depth,
                       params=params, leaf_tile=tile, quantize_bins=quantize_bins,
@@ -621,7 +632,8 @@ def grow_tree_windowed(
             return _round_fused(
                 st, bins, inp.grad, inp.hess, inp.gq, inp.hq, inp.quant_scale,
                 inp.row_mask, num_bins_per_feature, missing_bin_per_feature,
-                inp.feature_mask, *tables, W=W, shift=inp.shift, efb=efb, **static)
+                inp.feature_mask, *tables, W=W, shift=inp.shift, efb=efb,
+                rng=inp.rng, **static)
 
         try:
             hist = None if graphs is None or graphs.buffers is None else (
@@ -632,7 +644,7 @@ def grow_tree_windowed(
                 num_bins=num_bins, params=params, quantize_bins=quantize_bins,
                 stochastic_rounding=stochastic_rounding, generator=generator,
                 hist_precision=hist_precision, categorical_mask=categorical_mask,
-                feature_contri=feature_contri, hist=hist, efb=efb)
+                feature_contri=feature_contri, hist=hist, efb=efb, rng=rng_key)
             n = bins.shape[0]
             # round 1 needs no feedback: a round's window (the small
             # children) can never exceed floor(N/2) rows, whatever it admits

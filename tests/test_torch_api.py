@@ -365,16 +365,18 @@ def test_dataset_reference_chain_subset_and_added_features(tmp_path):
     back = tlgb.Dataset(str(tmp_path / "d1.bin"), params=CPU).construct()
     np.testing.assert_array_equal(back.bins, d1.bins)
     np.testing.assert_array_equal(back.get_label(), y)
-    # categorical features are set before construction only (A11); linear
-    # trees still raise (A11b)
+    # categorical features are set before construction only (A11); a
+    # Dataset constructed without linear_tree holds no raw values for linear
+    # trees, and training them raises the JAX package's error (an
+    # unconstructed one takes linear_tree from the Booster's parameters)
     late = tlgb.Dataset(X, label=y, free_raw_data=False, params=CPU)
     assert late.set_categorical_feature([0]).categorical_feature == [0]
     late.construct()
     with pytest.raises(tlgb.basic.LightGBMError, match="categorical"):
         late.set_categorical_feature([1])
-    with pytest.raises(ValueError, match="linear_tree"):
+    with pytest.raises(ValueError, match="linear_tree requires raw feature values"):
         tlgb.train({**CPU, "objective": "binary", "linear_tree": True},
-                   tlgb.Dataset(X, label=y, params=CPU), 1)
+                   tlgb.Dataset(X, label=y, params=CPU).construct(), 1)
 
 
 def test_refit_matches_jax(binary_pair):

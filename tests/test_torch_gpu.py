@@ -1068,3 +1068,239 @@ def test_windowed_training_over_bundles_takes_the_three_pass_round():
     assert partition_cuda.launches["partition_segments"] > 0
     br = tlgb.train(p, tlgb.Dataset(X, label=y, params=p), 2)
     chip_smoke.trees_agree(bw, br)
+
+
+def test_round_kernel_cegb_split_penalty_matches_plain():
+    """B3's gain tail with cegb_penalty_split (the parent count times the
+    penalty subtracted after feature_contri), bit for bit against the plain
+    version, alone and with feature_contri and categorical features."""
+    from lightgbm_tpu_torch.ops import round_cuda as rc
+    from lightgbm_tpu_torch.ops.split import SplitParams
+
+    dev = _card()
+    args = _round_case(dev)
+    f = args[0].shape[1]
+    g = torch.Generator(device="cpu").manual_seed(5)
+    cmask = (torch.rand(f, generator=g) < 0.3).to(dev)
+    contri = (torch.rand(f, generator=g) * 1.6 - 0.1).to(dev)
+    for extra in ({}, dict(feature_contri=contri),
+                  dict(categorical_mask=cmask, feature_contri=contri)):
+        for prm in (SplitParams(min_data_in_leaf=20, lambda_l2=1.0,
+                                cegb_penalty_split=1e-3),
+                    SplitParams(min_data_in_leaf=5, cegb_tradeoff=0.5,
+                                cegb_penalty_split=0.05)):
+            kw = dict(params=prm, W=32768, shift=(30, 30), **extra)
+            ko = rc.round_megakernel(*args, **kw)
+            po = rc.round_megakernel_plain(*args, **kw)
+            for name in ko[3]._fields:
+                assert torch.equal(getattr(ko[3], name), getattr(po[3], name)), name
+            assert bool((ko[3].gain > -1e29).any())
+
+
+def _envelope_rows(n=40_000, seed=11):
+    rng = np.random.RandomState(seed)
+    X = np.round(rng.randn(n, 8) * 8) / 8
+    X[rng.rand(n, 8) < 0.05] = np.nan
+    Z = np.nan_to_num(X)
+    s = 2.0 * (Z[:, 0] > 0.3) + 1.5 * Z[:, 1] - (Z[:, 2] < -0.5) + 0.5 * Z[:, 3] * (Z[:, 4] > 0)
+    return X, (s + 0.5 * rng.randn(n) > 0.6).astype(float)
+
+
+@pytest.mark.parametrize("opt", ["monotone", "intermediate", "interaction", "forced"])
+def test_constrained_training_graph_equals_eager_and_reads_nothing(opt, monkeypatch,
+                                                                   tmp_path):
+    """Monotone (basic, intermediate), interaction and forced-split rounds
+    on the card: graph and eager training give the same model text, every
+    round of the graph run is one replay, no tree reads the device, every
+    round body runs under torch's sync debug mode set to raise, and the
+    card's trees predict as the CPU's within 1e-4."""
+    import json
+
+    import lightgbm_tpu_torch as tlgb
+    from lightgbm_tpu_torch.ops import treegrow_fast as tf
+
+    _card()
+    monkeypatch.setattr(tf, "_round", _sync_error(tf._round))
+    path = tmp_path / "forced.json"
+    path.write_text(json.dumps({"feature": 1, "threshold": 0.25,
+                                "left": {"feature": 2, "threshold": -0.5}}))
+    mono = [1, 1, 1, 1, 0, -1, 0, 0]
+    extra = {"monotone": {"monotone_constraints": mono},
+             "intermediate": {"monotone_constraints": mono,
+                              "monotone_constraints_method": "intermediate"},
+             "interaction": {"interaction_constraints": [[0, 1], [2, 3, 4], [1, 5, 6, 7]]},
+             "forced": {"forcedsplits_filename": str(path)}}[opt]
+    X, y = _envelope_rows()
+    # min_gain_to_split drops the splits that gain nothing in exact
+    # arithmetic (their f32 gains are a few rounding steps of the leaf's
+    # score terms, which the card's and the CPU's summation orders decide
+    # differently); test_intermediate_card_and_cpu_part_only_at_f32_ties
+    # runs this fixture without it
+    p = {"objective": "binary", "num_leaves": 31, "verbosity": -1,
+         "tree_growth_mode": "rounds", "min_gain_to_split": 1.0, **extra}
+    out = []
+    for fused in (True, False):
+        q = {**p, "fused_training": fused}
+        bst = tlgb.train(q, tlgb.Dataset(X, label=y, params=q), 5)
+        out.append((bst, bst._gbdt.round_stats))
+    (gb, g_stats), (eb, e_stats) = out
+    assert gb.model_to_string() == eb.model_to_string()
+    assert all(s["replays"] == s["rounds"] > 0 for s in g_stats)
+    assert all(s["host_syncs"] == 0 for s in g_stats + e_stats)
+    cpu = {**p, "device_type": "cpu"}
+    ref = tlgb.train(cpu, tlgb.Dataset(X, label=y, params=cpu), 5)
+    np.testing.assert_allclose(gb.predict(X[:5000]), ref.predict(X[:5000]), atol=1e-4)
+
+
+def _search_log(monkeypatch, p, X, y, rounds):
+    """An eager training's split searches in call order, on the host: each
+    gain plane (C, F, B) as ("plane", gains) and each admission as
+    ("admit", leaf gains, accepted leaves)."""
+    import lightgbm_tpu_torch as tlgb
+    from lightgbm_tpu_torch.ops import split
+    from lightgbm_tpu_torch.ops import treegrow_fast as tf
+
+    log = []
+    plane0, admit0 = split.gain_plane, tf.admit
+
+    def plane(*a, **k):
+        gain, ctx = plane0(*a, **k)
+        log.append(("plane", gain.detach().cpu().clone()))
+        return gain, ctx
+
+    def admit(gain, *a, **k):
+        out = admit0(gain, *a, **k)
+        log.append(("admit", gain.detach().cpu().clone(), out[0].detach().cpu().clone()))
+        return out
+
+    monkeypatch.setattr(split, "gain_plane", plane)
+    monkeypatch.setattr(tf, "admit", admit)
+    q = {**p, "fused_training": False}
+    tlgb.train(q, tlgb.Dataset(X, label=y, params=q), rounds)
+    monkeypatch.setattr(split, "gain_plane", plane0)
+    monkeypatch.setattr(tf, "admit", admit0)
+    return log
+
+
+def test_intermediate_card_and_cpu_part_only_at_f32_ties(monkeypatch):
+    """The intermediate-bounds rounds grower searches every leaf again each
+    round.  On the graph test's fixture without min_gain_to_split, the card
+    and the CPU score every candidate alike and admit the same leaves up to
+    the first search whose choice they part on, and there each side scores
+    the other's choice within rounding of its own: a tie.
+
+    A gain is a difference of score terms up to ~8,000 here (the roots'),
+    whose f32 spacing is 4.9e-4, so the sides are held within 1e-2 (20
+    such steps) plus 1e-4 relative.  A candidate that one side rejects
+    (gain not above 0) counts there as 0, the gain of not splitting, and
+    may be valid on the other side only with a gain within 1e-2 of 0."""
+    _card()
+    tol = 1e-2
+    mono = [1, 1, 1, 1, 0, -1, 0, 0]
+    p = {"objective": "binary", "num_leaves": 31, "verbosity": -1,
+         "tree_growth_mode": "rounds", "monotone_constraints": mono,
+         "monotone_constraints_method": "intermediate"}
+    X, y = _envelope_rows()
+    card = _search_log(monkeypatch, p, X, y, 5)
+    cpu = _search_log(monkeypatch, {**p, "device_type": "cpu"}, X, y, 5)
+
+    def score(g):  # rejected candidates score 0, the gain of no split
+        return torch.where(g > -1e29, g, 0.0).double()
+
+    parted = None
+    for i, (a, b) in enumerate(zip(card, cpu)):
+        assert a[0] == b[0], i
+        ga, gb = score(a[1]), score(b[1])
+        np.testing.assert_allclose(ga.numpy(), gb.numpy(), rtol=1e-4, atol=tol)
+        if a[0] == "admit":
+            if not torch.equal(a[2], b[2]):
+                # leaves admitted on one side only: each within tol of a
+                # leaf that side ranked past it, or of no split
+                for l in torch.nonzero(a[2] != b[2]).flatten().tolist():
+                    for g, acc in ((ga, a[2]), (gb, b[2])):
+                        rival = torch.where(acc != acc[l], g, -np.inf)
+                        assert min(float(g[l]), float((rival - g[l]).abs().min())) <= tol
+                parted = (i, "admission", torch.nonzero(a[2] != b[2]).flatten().tolist())
+                break
+            continue
+        live = (a[1] > -1e29).flatten(1).any(1) | (b[1] > -1e29).flatten(1).any(1)
+        pa, pb = ga.flatten(1).argmax(1), gb.flatten(1).argmax(1)
+        rows = torch.nonzero(live & (pa != pb)).flatten().tolist()
+        if rows:
+            r = rows[0]
+            fa, fb = ga[r].flatten(), gb[r].flatten()
+            ja, jb = int(pa[r]), int(pb[r])
+            bins = ga.shape[2]
+            parted = (i, f"leaf {r}", f"card picks {divmod(ja, bins)} at {float(fa[ja])} "
+                      f"(CPU {float(fb[ja])})", f"CPU picks {divmod(jb, bins)} at "
+                      f"{float(fb[jb])} (card {float(fa[jb])})")
+            assert float(fa[ja] - fa[jb]) <= tol and float(fb[jb] - fb[ja]) <= tol, parted
+            break
+    print(f"searches {len(card)}, first parting {parted}")
+
+
+@pytest.mark.parametrize("opt", ["cegb", "node_sampling", "linear"])
+def test_eager_envelope_on_card_matches_cpu(opt, monkeypatch):
+    """CEGB coupled and lazy penalties, per-node sampling (the card's
+    draws on both sides) and linear trees run eagerly by the fused gate;
+    on the card they train the CPU's trees (predictions within 1e-4), the
+    linear fit runs under torch's sync debug mode set to raise, and the
+    linear model predicts on the card as its text does on the CPU, with
+    prediction early stopping too."""
+    import chip_smoke as cs
+    import lightgbm_tpu_torch as tlgb
+    from lightgbm_tpu_torch.models import gbdt
+
+    dev = _card()
+    monkeypatch.setattr(gbdt, "fit_linear_leaves", _sync_error(gbdt.fit_linear_leaves))
+    extra = {"cegb": {"cegb_penalty_split": 1e-4,
+                      "cegb_penalty_feature_coupled": [0, 0, 20, 0, 10, 0, 0, 0],
+                      "cegb_penalty_feature_lazy": [0.01, 0, 0, 0.02, 0, 0, 0, 0]},
+             "node_sampling": {"extra_trees": True, "feature_fraction_bynode": 0.7},
+             "linear": {"linear_tree": True, "linear_lambda": 0.01}}[opt]
+    X, y = _envelope_rows()
+    p = {"objective": "binary", "num_leaves": 15, "verbosity": -1,
+         "tree_growth_mode": "rounds", **extra}
+    with cs.card_draws(dev):
+        bst = tlgb.train(p, tlgb.Dataset(X, label=y, params=p), 5)
+        cpu = {**p, "device_type": "cpu"}
+        ref = tlgb.train(cpu, tlgb.Dataset(X, label=y, params=cpu), 5)
+    assert not bst._gbdt._fused_eligible(bst._gbdt.train_set)
+    assert all(s["host_syncs"] == 0 and s["replays"] == 0 for s in bst._gbdt.round_stats)
+    np.testing.assert_allclose(bst.predict(X[:5000]), ref.predict(X[:5000]), atol=1e-4)
+    if opt == "linear":
+        assert all(t.is_linear for t in bst._gbdt.models)
+        back = tlgb.Booster(model_str=bst.model_to_string(), params={"device_type": "cpu"})
+        np.testing.assert_allclose(bst.predict(X[:5000], raw_score=True),
+                                   back.predict(X[:5000], raw_score=True), atol=1e-5)
+        es = dict(pred_early_stop=True, pred_early_stop_freq=2,
+                  pred_early_stop_margin=0.5)
+        np.testing.assert_allclose(bst.predict(X[:5000], raw_score=True, **es),
+                                   back.predict(X[:5000], raw_score=True, **es),
+                                   atol=1e-5)
+        assert bst._gbdt.early_stop_stats["stopped"] > 0
+
+
+def test_windowed_node_sampling_takes_the_three_pass_round():
+    """extra_trees and feature_fraction_bynode on the windowed grower: every
+    tree reports the megakernel excluded for "node_rng", launches B2 and B1
+    and no B3, and equals the rounds grower's tree on the same draws."""
+    import lightgbm_tpu_torch as tlgb
+    from lightgbm_tpu_torch.ops import partition_cuda, round_cuda
+
+    _card()
+    rng = np.random.RandomState(12)
+    X = rng.randn(30_000, 520).astype(np.float32)
+    y = (X[:, 0] + X[:, 1] * X[:, 2] + 0.5 * rng.randn(30_000) > 0).astype(float)
+    p = {"objective": "binary", "num_leaves": 64, "verbosity": -1, "max_bin": 63,
+         "extra_trees": True, "feature_fraction_bynode": 0.8}
+    round_cuda.reset_counts()
+    partition_cuda.reset_counts()
+    q = {**p, "windowed_growth": True}
+    bw = tlgb.train(q, tlgb.Dataset(X, label=y, params=q), 2)
+    st = bw._gbdt.round_stats
+    assert [s["megakernel_excluded"] for s in st] == ["node_rng", "node_rng"]
+    assert round_cuda.launches["round_megakernel"] == 0
+    assert partition_cuda.launches["partition_segments"] > 0
+    br = tlgb.train(p, tlgb.Dataset(X, label=y, params=p), 2)
+    chip_smoke.trees_agree(bw, br)

@@ -64,20 +64,26 @@ def _fixture(seed, n=3000, f=6, missing=False):
     return bins, grad, hess, mask, weight, fmask, nbpf, mbpf
 
 
-def _grow_both(fx, num_leaves, use_pallas, quant=0, max_depth=-1, tile=8):
+def _grow_both(fx, num_leaves, use_pallas, quant=0, max_depth=-1, tile=8,
+               options=None, statics=None):
+    """``options``: array options given to both growers (numpy, converted
+    for each); ``statics``: plain keyword options for both."""
     bins, grad, hess, mask, weight, fmask, nbpf, mbpf = fx
     kw = dict(num_leaves=num_leaves, num_bins=NUM_BINS, max_depth=max_depth,
-              leaf_tile=tile, quantize_bins=quant, stochastic_rounding=False)
+              leaf_tile=tile, quantize_bins=quant, stochastic_rounding=False,
+              **(statics or {}))
     p = dict(min_data_in_leaf=20, lambda_l2=1.0)
+    options = options or {}
     jt, jl = jfast.grow_tree_fast(
         jnp.asarray(bins), jnp.asarray(grad), jnp.asarray(hess),
         jnp.asarray(mask), jnp.asarray(weight), jnp.asarray(fmask),
         jnp.asarray(nbpf), jnp.asarray(mbpf), use_pallas=use_pallas,
-        params=JParams(**p), **kw)
+        params=JParams(**p), **{k: jnp.asarray(v) for k, v in options.items()}, **kw)
     tt, tl = tfast.grow_tree_fast(
         torch.from_numpy(bins), torch.from_numpy(grad), torch.from_numpy(hess),
         torch.from_numpy(mask), torch.from_numpy(weight), torch.from_numpy(fmask),
-        torch.from_numpy(nbpf), torch.from_numpy(mbpf), params=TParams(**p), **kw)
+        torch.from_numpy(nbpf), torch.from_numpy(mbpf), params=TParams(**p),
+        **{k: torch.from_numpy(v) for k, v in options.items()}, **kw)
     jt = {k: (None if v is None else np.asarray(v)) for k, v in jt._asdict().items()}
     return jt, np.asarray(jl), tt.to_numpy(), tl.numpy()
 
@@ -146,8 +152,36 @@ def test_predict_leaf_arrays_on_jax_tree():
 @pytest.mark.parametrize("opt", ["monotone_constraints", "interaction_sets",
                                  "cegb_feature_penalty", "forced_leaf"])
 def test_unported_options_raise(opt):
-    fx = _fixture(5, n=200)
-    t = [torch.from_numpy(a) for a in fx]
-    with pytest.raises(ValueError, match=opt):
-        tfast.grow_tree_fast(*t, num_leaves=4, num_bins=NUM_BINS,
-                             **{opt: torch.zeros(1)})
+    """Once refused, these options now grow the JAX package's trees (the
+    name is kept; tests/test_torch_constraints.py holds them through
+    lgb.train): monotone (+1 on the step features, -1 on noise),
+    interaction sets, coupled CEGB penalties, and a forced prefix (two
+    entries, the second on the root's right child)."""
+    fx = _fixture(5)
+    f = fx[0].shape[1]
+    options, statics = {
+        "monotone_constraints": ({"monotone_constraints": np.array(
+            [1, 1, 1, 1, -1, 0], np.int32)}, {}),
+        "interaction_sets": ({"interaction_sets": np.array(
+            [[1, 1, 1, 0, 0, 0], [1, 0, 0, 1, 1, 1]], bool)}, {}),
+        "cegb_feature_penalty": ({"cegb_feature_penalty": np.array(
+            [0, 40, 0, 20, 5, 5], np.float32)}, {}),
+        "forced_leaf": ({"forced_leaf": np.array([0, 1], np.int32),
+                         "forced_feature": np.array([0, 2], np.int32),
+                         "forced_bin": np.array([50, 70], np.int32)},
+                        {"n_forced": 2}),
+    }[opt]
+    jt, jl, tt, tl = _grow_both(fx, 15, False, options=options, statics=statics)
+    _assert_same_tree(jt, jl, tt, tl)
+    if opt == "interaction_sets":  # no path mixes the two sets
+        paths, stack = [], [(0, set())]
+        while stack:
+            nd, seen = stack.pop()
+            seen = seen | {int(tt.split_feature[nd])}
+            for c in (int(tt.left_child[nd]), int(tt.right_child[nd])):
+                (paths.append(seen) if c < 0 else stack.append((c, seen)))
+        assert paths and all(p_ <= {0, 1, 2} or p_ <= {0, 3, 4, 5} for p_ in paths)
+    if opt == "forced_leaf":  # the root, then its right child (leaf 1)
+        assert list(tt.split_feature[:2]) == [0, 2] and list(tt.threshold_bin[:2]) == [50, 70]
+        assert int(tt.right_child[0]) == 1
+    assert f == 6

@@ -132,10 +132,44 @@ def test_leaf_output_matches_jax():
 @pytest.mark.parametrize("arg", ["out_lo", "monotone_constraints",
                                  "cegb_feature_penalty", "rng_key"])
 def test_unported_arguments_raise(arg):
-    hist = torch.zeros((3, 2, 4))
-    with pytest.raises(ValueError, match="not ported"):
-        tsplit.find_best_split(hist, 0.0, 1.0, 10.0,
-                               torch.tensor([4, 4], dtype=torch.int32),
-                               torch.tensor([-1, -1], dtype=torch.int32),
-                               tsplit.SplitParams(),
-                               **{arg: torch.zeros(2)})
+    """Once refused, these arguments now search as the JAX package does
+    (the name is kept): the monotone output band (out_lo / out_hi with
+    monotone_constraints, so clipped outputs and ordering), monotone
+    constraints with monotone_penalty at depth 2, CEGB split and feature
+    penalties, and a node's uniforms (extra_trees and bynode: the JAX key's
+    two draws, given to the port as its (2, F) rows)."""
+    rng = np.random.RandomState(5)
+    f, b = 6, 40
+    hist, sums, nbpf, mbpf = _leaf(rng, f, b)
+    mono = np.array([1, -1, 0, 1, 0, -1], np.int32)
+    key = jax.random.PRNGKey(9)
+    kb, ke = jax.random.split(key)
+    u = np.stack([np.asarray(jax.random.uniform(kb, (f,))),
+                  np.asarray(jax.random.uniform(ke, (f,)))])
+    pen = np.array([0.0, 0.5, 2.0, 0.0, 1.0, 0.3], np.float32)
+    kw, jk, tk = {
+        "out_lo": ({}, dict(monotone_constraints=jnp.asarray(mono),
+                            out_lo=jnp.float32(-3.1), out_hi=jnp.float32(-2.7)),
+                   dict(monotone_constraints=torch.from_numpy(mono), out_lo=-3.1,
+                        out_hi=-2.7)),
+        "monotone_constraints": (dict(monotone_penalty=1.5),
+                                 dict(monotone_constraints=jnp.asarray(mono),
+                                      depth=jnp.float32(2)),
+                                 dict(monotone_constraints=torch.from_numpy(mono),
+                                      depth=2.0)),
+        "cegb_feature_penalty": (dict(cegb_penalty_split=1e-4, cegb_tradeoff=0.5),
+                                 dict(cegb_feature_penalty=jnp.asarray(pen)),
+                                 dict(cegb_feature_penalty=torch.from_numpy(pen))),
+        "rng_key": (dict(extra_trees=True, feature_fraction_bynode=0.7),
+                    dict(rng_key=key), dict(rng_key=torch.from_numpy(u))),
+    }[arg]
+    p = dict(lambda_l2=1.0, min_data_in_leaf=20, **kw)
+    jb = jsplit.find_best_split(
+        jnp.asarray(hist), jnp.float32(sums[0]), jnp.float32(sums[1]),
+        jnp.float32(sums[2]), jnp.asarray(nbpf), jnp.asarray(mbpf),
+        jsplit.SplitParams(**p), **jk)
+    tb = tsplit.find_best_split(
+        torch.from_numpy(hist), float(sums[0]), float(sums[1]), float(sums[2]),
+        torch.from_numpy(nbpf), torch.from_numpy(mbpf), tsplit.SplitParams(**p), **tk)
+    assert float(tb.gain) > 0
+    _compare(jb, tb)

@@ -191,23 +191,74 @@ def test_strict_tree_makes_no_blocking_read():
     ({"feature_fraction_bynode": 0.5}, "feature_fraction_bynode"),
     ({"cegb_penalty_split": 1.0}, "cegb"),
 ])
-def test_strict_envelope_still_raises(extra, match):
-    X, y = _data("binary", n=200)
-    p = {"objective": "binary", "device_type": "cpu", "verbosity": -1,
-         "tree_growth_mode": "strict", **extra}
-    with pytest.raises(ValueError, match=match):
-        tlgb.train(p, tlgb.Dataset(X, label=y, params=p), 1)
+def test_strict_envelope_still_raises(extra, match, monkeypatch):
+    """Once refused, these options now train the JAX package's strict trees
+    (the name is kept; the per-node draws are the JAX package's, injected
+    into GBDT._node_uniforms; cegb_tradeoff scales the split penalty down
+    to one that lets trees grow): same structure, values within 1e-5."""
+    from test_torch_constraints import assert_same_models, jax_node_uniforms, train_pair
+
+    from lightgbm_tpu_torch.models import gbdt as tgbdt
+
+    monkeypatch.setattr(tgbdt.GBDT, "_node_uniforms", jax_node_uniforms)
+    X, y = _data("binary")
+    p = {"objective": "binary", "num_leaves": 15, "min_data_in_leaf": 20,
+         "learning_rate": 0.2, "min_gain_to_split": 1.0, "verbosity": -1,
+         "tree_growth_mode": "strict", "cegb_tradeoff": 1e-3, **extra}
+    jb, tb = train_pair(p, X, y, rounds=3)
+    assert_same_models(jb, tb, X, min_leaves=5)
+    assert match and tb._gbdt.round_stats[0]["grower"] == "strict"
 
 
 @pytest.mark.parametrize("option", ["monotone_constraints", "interaction_sets",
                                     "forced_leaf", "axis_name"])
 def test_grow_tree_rejects_unported_options(option):
-    n, f = 50, 3
-    args = (torch.zeros((n, f), dtype=torch.int16), torch.zeros(n), torch.ones(n),
-            torch.ones(n, dtype=torch.bool), torch.ones(n), None,
-            torch.full((f,), 4, dtype=torch.int32), torch.full((f,), -1, dtype=torch.int32))
-    with pytest.raises(ValueError, match=option):
-        tgrow(*args, num_leaves=4, num_bins=4, **{option: "x"})
+    """axis_name (the distributed learners, ROADMAP A13) still raises; the
+    others, once refused, now grow the JAX strict grower's tree (the name is
+    kept)."""
+    if option == "axis_name":
+        n, f = 50, 3
+        args = (torch.zeros((n, f), dtype=torch.int16), torch.zeros(n), torch.ones(n),
+                torch.ones(n, dtype=torch.bool), torch.ones(n), None,
+                torch.full((f,), 4, dtype=torch.int32),
+                torch.full((f,), -1, dtype=torch.int32))
+        with pytest.raises(ValueError, match=option):
+            tgrow(*args, num_leaves=4, num_bins=4, **{option: "x"})
+        return
+    rng = np.random.RandomState(21)
+    n, f, b = 2000, 5, 32
+    bins = rng.randint(0, b, (n, f))
+    y = (2.0 * (bins[:, 0] > 15) + 1.0 * (bins[:, 1] > 8) + 0.7 * bins[:, 2] / b
+         + 0.05 * rng.randn(n))
+    grad = (-y).astype(np.float32)
+    hess = (0.5 + 0.5 * rng.rand(n)).astype(np.float32)
+    arrays, statics = {
+        "monotone_constraints": ({"monotone_constraints": np.array([1, 1, 1, -1, 0],
+                                                                   np.int32)}, {}),
+        "interaction_sets": ({"interaction_sets": np.array(
+            [[1, 1, 0, 0, 0], [1, 0, 1, 1, 1]], bool)}, {}),
+        "forced_leaf": ({"forced_leaf": np.array([0, 0], np.int32),
+                         "forced_feature": np.array([1, 0], np.int32),
+                         "forced_bin": np.array([8, 15], np.int32)}, {"n_forced": 2}),
+    }[option]
+    n_, f_ = bins.shape
+    jt, jl = jgrow(jnp.asarray(bins.astype(np.int32)), jnp.asarray(grad),
+                   jnp.asarray(hess), jnp.ones(n_, bool), jnp.ones(n_, jnp.float32),
+                   jnp.ones(f_, bool), jnp.full(f_, b, jnp.int32),
+                   jnp.full(f_, -1, jnp.int32), params=JParams(min_data_in_leaf=20),
+                   num_leaves=15, num_bins=b,
+                   **{k: jnp.asarray(v) for k, v in arrays.items()}, **statics)
+    tt, tl = tgrow(torch.from_numpy(bins.astype(np.int16)), torch.from_numpy(grad),
+                   torch.from_numpy(hess), torch.ones(n_, dtype=torch.bool),
+                   torch.ones(n_), torch.ones(f_, dtype=torch.bool),
+                   torch.full((f_,), b, dtype=torch.int32),
+                   torch.full((f_,), -1, dtype=torch.int32),
+                   params=TParams(min_data_in_leaf=20), num_leaves=15, num_bins=b,
+                   **{k: torch.from_numpy(v) for k, v in arrays.items()}, **statics)
+    _same_structure(jt, tt.to_numpy())
+    np.testing.assert_array_equal(tl.numpy(), np.asarray(jl))
+    if option == "forced_leaf":  # the root on feature 1, its left child on 0
+        assert list(tt.split_feature[:2].numpy()) == [1, 0]
 
 
 def test_wide_data_trains_float():

@@ -143,8 +143,29 @@ def test_quantized_training_runs_the_int8_path():
     ({"tree_learner": "data"}, "tree_learner"),
     ({"linear_tree": True}, "linear_tree"),
 ])
-def test_unported_configurations_raise(params, match):
-    X, y = _data("binary", n=200)
+def test_unported_configurations_raise(params, match, monkeypatch):
+    """The distributed tree learners (ROADMAP A13) still raise; the other
+    cases, once refused, now train as the JAX package does (the name is
+    kept): the same trees on the default (CPU: strict) grower, extra_trees
+    with the JAX package's per-node draws injected, linear trees with leaf
+    models within 1e-4 relative (their f32 solves)."""
+    X, y = _data("binary", n=600 if match == "tree_learner" else 3000)
     p = {"device_type": "cpu", "verbosity": -1, "objective": "binary", **params}
-    with pytest.raises((ValueError, NotImplementedError), match=match):
-        tlgb.train(p, tlgb.Dataset(X, label=y, params=p), 1)
+    if match == "tree_learner":
+        with pytest.raises((ValueError, NotImplementedError), match=match):
+            tlgb.train(p, tlgb.Dataset(X, label=y, params=p), 1)
+        return
+    from test_torch_constraints import assert_same_models, jax_node_uniforms, train_pair
+
+    from lightgbm_tpu_torch.models import gbdt as tgbdt
+
+    monkeypatch.setattr(tgbdt.GBDT, "_node_uniforms", jax_node_uniforms)
+    p = {k: v for k, v in p.items() if k != "device_type"}
+    p.update(num_leaves=15, min_data_in_leaf=20, min_gain_to_split=1.0)
+    jb, tb = train_pair(p, X, y, rounds=3, dataset_params=(
+        {"linear_tree": True} if match == "linear_tree" else None))
+    if match == "linear_tree":
+        assert all(t.is_linear for t in tb._gbdt.models)
+        np.testing.assert_allclose(tb.predict(X), jb.predict(X), rtol=1e-4, atol=1e-5)
+    else:
+        assert_same_models(jb, tb, X, min_leaves=5)

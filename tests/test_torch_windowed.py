@@ -249,9 +249,21 @@ def test_non_finite_gradients_raise():
 
 @pytest.mark.parametrize("opt", ["rng_key"])
 def test_unported_options_raise(opt):
-    fx = _fixture(29, n=300)
-    with pytest.raises(ValueError, match="A11"):
-        _port(fx, **_kw(15, 4, 0), **{opt: torch.zeros(1)})
+    """Per-node sampling, once refused, now grows the JAX package's
+    three-pass tree (the name is kept): extra_trees and
+    feature_fraction_bynode from the JAX package's threefry draws, given to
+    the port as its (2L - 1, 2, F) table of node uniforms."""
+    from test_torch_constraints import jax_table
+
+    import jax
+
+    fx = _fixture(29)
+    key = jax.random.PRNGKey(5)
+    p = dict(_P, extra_trees=True, feature_fraction_bynode=0.7)
+    want = _jax(fx, False, params=p, **{opt: key}, **_kw(15, 4, 0))
+    got = _port(fx, params=p, **{opt: torch.from_numpy(jax_table(key, 15, 8))},
+                **_kw(15, 4, 0))
+    _assert_same_tree(got, want, fx)
 
 
 def test_megakernel_mode():
@@ -264,6 +276,7 @@ def test_megakernel_mode():
     assert twin.megakernel_mode(True, efb=True) == (False, "efb")
     assert twin.megakernel_mode(False, efb=True, mode="1") == (False, "efb")
     assert twin.megakernel_mode(False, efb=True) == (False, None)  # not asked for
+    assert twin.megakernel_mode(True, node_rng=True) == (False, "node_rng")
     with pytest.raises(ValueError):
         twin.megakernel_mode(True, mode="interpret")
 
