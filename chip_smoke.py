@@ -55,7 +55,9 @@ Imports no JAX.  Phases, one line each; any failure exits non-zero:
               32 integer codes and marked categorical (bitsets equal too);
  10. strict   phase 3's Higgs set with tree_growth_mode=strict, 5 rounds
               (eager: the strict step is not captured): it/s, blocking
-              reads a tree (none), B1 launches (tile 1: the root and one a
+              reads inside a tree (none) and an iteration (one: the finish
+              check, which stops the strict path at the first all-one-leaf
+              iteration), B1 launches (tile 1: the root and one a
               split), held-out AUC, a small run held against the CPU, a
               profiled window, and B1 at its tile-1 call site against its
               plain version;
@@ -143,7 +145,28 @@ Imports no JAX.  Phases, one line each; any failure exits non-zero:
               (a)'s site (the model 10 trees in, tile 8) and B2 and the
               window pass at (e)'s windowed site against their plain
               versions; profiles of (a), (f) and (g);
- 18. device   nvidia-smi's name and power limit.
+ 18. runtime  on phase 3's Higgs set and 20-tree model (nothing binned
+              again; at most 60 s): (a) 10 graph-mode rounds with
+              snapshot_freq 5 (snapshot write ms), a torn snapshot_iter_15
+              beside them, then resume="auto" to 20 rounds: it skips the
+              torn file, resumes from 10 (load + score replay ms) and prints
+              the uninterrupted run's sha256 (MODEL_SHA "higgs_float");
+              (b) Booster.predict at 1, 1,024 and 100,000 rows cached (the
+              packed ensemble warm) against uncached (the pack version
+              bumped before each call), medians of phase 14's call counts,
+              outputs bitwise, one blocking read a warm call, a profiled
+              window of each at 100,000 rows (device ms, idle share,
+              launches a call); (c) lgb.serve(serve_max_wait_ms=2), 8
+              clients x 200 requests of 1/7/64/300 held-out rows, a
+              swap_model to the 10-round snapshot midway: requests/s,
+              rows/s, p50/p99 latency, batches, rows a batch, one blocking
+              read and one traversal a batch, launches a batch (profiled),
+              every response bitwise one model's Booster.predict; then a
+              2-replica ServingFleet under LGBMTPU_FAULT=replica_death:3,
+              no request lost; (d) 5 graph-mode rounds trained while 4
+              clients keep the runtime busy: captured and replayed, the
+              model text of a 5-round run alone;
+ 19. device   nvidia-smi's name and power limit.
 
 Then a JSON line with every kernel's numbers (launches on the main path,
 graph mode; whether it runs inside a graph and its launches a replay; B1
@@ -1820,10 +1843,17 @@ def new_phases(lgt, dev, base, higgs, counts, plain_total):
     h_set, h_Xtr, h_ytr, h_Xte, h_yte = higgs
 
     # ---- 10. the strict grower on the Higgs cell (eager) ----
+    from lightgbm_tpu_torch.utils import sanitizer as san
+
     t0 = time.perf_counter()
     strict = {**base, "tree_growth_mode": "strict"}
-    runs10 = train_turns(lgt, strict, h_set, ROUNDS_STRICT, MODEL_SHA["higgs_strict"],
-                         counts, plain_total, turns=("ineligible", "ineligible"))
+    with san.DispatchCounter() as c10:
+        runs10 = train_turns(lgt, strict, h_set, ROUNDS_STRICT, MODEL_SHA["higgs_strict"],
+                             counts, plain_total, turns=("ineligible", "ineligible"))
+    # the strict path's one read an iteration: its finish check (fault C9)
+    reads_iter = c10.host_syncs / (len(runs10) * ROUNDS_STRICT)
+    if reads_iter != 1:
+        raise AssertionError(f"strict runs: {reads_iter} blocking reads an iteration")
     for r in runs10:
         st, (b1, b1q, b2, b3) = r["st"], r["launches"]
         # B1 at tile 1: the root and one a step (L - 1 steps, the masked
@@ -1845,7 +1875,8 @@ def new_phases(lgt, dev, base, higgs, counts, plain_total):
     small_err_s = small_vs_cpu(lgt, {**strict, "num_leaves": 15}, h_Xtr, h_ytr, h_Xte)
     log(f"phase 10 strict: ok {ROUNDS_STRICT} rounds auc={a_s:.5f} (floor "
         f"{AUC_FLOOR_STRICT}) B1 launches={b1_strict} ({b1_strict / ROUNDS_STRICT:.1f}/tree: "
-        f"the root + {NUM_LEAVES - 1} steps) blocking reads inside trees=0 reload=bitwise "
+        f"the root + {NUM_LEAVES - 1} steps) blocking reads inside trees=0, an iteration="
+        f"{reads_iter:.2f} (the finish check) reload=bitwise "
         f"small-vs-cpu max|d|={small_err_s:.3g} in {time.perf_counter() - t0:.2f} s")
     log(profile_line("phase 10 profile strict (2 trees after a warm one)",
                      profile_rounds(lgt, strict, h_set, 2)))
@@ -2048,6 +2079,8 @@ def mode_phases(lgt, dev, base, higgs, counts, plain_total):
         with san.DispatchCounter() as sync:
             runs = train_turns(lgt, params, h_set, MODE_ROUNDS, MODEL_SHA[name], counts,
                                plain_total, turns=turns)
+        # the counts are live: read before the predictions below add theirs
+        reads = sync.host_syncs / (len(runs) * MODE_ROUNDS)
         for r in runs:
             st, (b1, b1q, b2, b3) = r["st"], r["launches"]
             # rounds grower: the root pass a tree, one a round, one a warm-up
@@ -2069,7 +2102,6 @@ def mode_phases(lgt, dev, base, higgs, counts, plain_total):
         with card_draws(dev):
             small = small_vs_cpu(lgt, {**params, "num_leaves": 15}, h_Xtr, h_ytr, h_Xte,
                                  rounds=8)
-        reads = sync.host_syncs / (len(runs) * MODE_ROUNDS)
         g, h = (v.contiguous() for v in gb.objective.get_gradients(
             gb._score, gb._label, gb._weight))
         mask, weight = gb._bagging_mask()  # GOSS: the mask past the warm-up
@@ -2155,15 +2187,18 @@ def latency(bst, X, n, calls):
     return float(np.median(times))
 
 
-def predict_profile(bst, X, calls=5):
+def predict_profile(bst, X, calls=5, before=None):
     """Device ms, wall ms and kernel launches a Booster.predict call, from
-    a torch.profiler window over ``calls`` calls."""
+    a torch.profiler window over ``calls`` calls (``before()`` runs ahead
+    of each)."""
     from torch.profiler import ProfilerActivity, profile
 
     bst.predict(X)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(calls):
+            if before is not None:
+                before()
             bst.predict(X)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / calls
@@ -2208,14 +2243,15 @@ def predict_phase(lgt, models):
               "pred_early_stop_margin": ES_MARGIN}
         with san.DispatchCounter() as c:
             r_es = bst.predict(X, raw_score=True, **es)
+        reads = c.host_syncs  # the counts are live: read before the next predict
         st = bst._gbdt.early_stop_stats
         full = bst.predict(X, raw_score=True)
         running = np.abs(r_es) < ES_MARGIN  # these never stopped
-        if not (c.host_syncs == st["reads"] == st["chunks"] >= 2 and 0 < st["stopped"]
+        if not (reads == st["reads"] == st["chunks"] >= 2 and 0 < st["stopped"]
                 and np.array_equal(r_es[running], full[running])):
-            raise AssertionError(f"early stop: {st}, {c.host_syncs} blocking reads")
+            raise AssertionError(f"early stop: {st}, {reads} blocking reads")
         log(f"phase 14 early stop {name}: ok freq={ES_FREQ} margin={ES_MARGIN} "
-            f"chunks={st['chunks']} blocking reads={c.host_syncs} rows stopped="
+            f"chunks={st['chunks']} blocking reads={reads} rows stopped="
             f"{st['stopped']} of {len(X)} running rows == full prediction bitwise "
             f"in {time.perf_counter() - t0:.2f} s")
         t0 = time.perf_counter()
@@ -2836,13 +2872,23 @@ def efb_phase(lgt, dev, counts, plain_total):
     log(f"phase 16 expo card vs CPU: ok {EX_SMALL_ROWS} rows, 15 leaves, 3 rounds, "
         f"max|d|={err:.3g} in {time.perf_counter() - t0:.2f} s")
 
-    # ---- 8. prediction on CSR rows ----
+    # ---- 8. prediction on CSR rows, cached and uncached, at Expo width ----
+    from lightgbm_tpu_torch.models.gbdt import _PINNED_MAX_BYTES
+
     t0 = time.perf_counter()
-    lat = {n: latency(bst, Xte, n, PRED_CALLS if n < 100_000 else PRED_CALLS_BIG)
-           for n in (1, 100_000)}
+    lat = {(n, bump): timed_predicts(bst, Xte[:n], PRED_CALLS if n < 100_000
+                                     else PRED_CALLS_BIG, bump)
+           for n in (1, 100_000) for bump in (False, True)}
+    pinned = bst._gbdt._pinned
     log(f"phase 16 expo predict on CSR rows ({bst.num_trees()} trees x {EX_LEAVES} "
-        f"leaves): latency_ms " + " ".join(f"{n}={lat[n] * 1e3:.3f}" for n in lat)
-        + f" rows/s at 100000={100_000 / lat[100_000]:.0f} in "
+        f"leaves, {EX_FEAT} columns): latency_ms " + " ".join(
+            f"{n}: cached {lat[(n, False)] * 1e3:.3f} uncached {lat[(n, True)] * 1e3:.3f};"
+            for n in (1, 100_000))
+        + f" rows/s at 100000={100_000 / lat[(100_000, False)]:.0f}; pinned buffers "
+        f"{pinned.nbytes() / 2**20:.3f} MiB: rungs "
+        f"{sorted({k[0][0] for k in pinned.bufs if k[2] == 0})} and "
+        f"{sum(k[2] > 0 for k in pinned.bufs)} chunk buffers (a rung over "
+        f"{_PINNED_MAX_BYTES >> 20} MiB stages in chunks) in "
         f"{time.perf_counter() - t0:.2f} s")
     pr = per_replay_w
     entries = [b1_entry("histogram_multi_expo", ek["float"], b1_e, per_replay_e),
@@ -3134,6 +3180,312 @@ def envelope_phase(lgt, dev, base, higgs, expo, counts, plain_total):
              "library_ms": pt["library_ms"], "device_ms": pt["device_ms"]}]
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the runtime (snapshots and resume, the cached ensemble, serving)
+# ---------------------------------------------------------------------------
+RESUME_ROUNDS, SNAP_FREQ, TWS_ROUNDS = 10, 5, 5
+SERVE_THREADS, SERVE_REQUESTS, SERVE_ROWS, SERVE_OFFSETS = 8, 200, (1, 7, 64, 300), 50
+FLEET_THREADS, FLEET_REQUESTS = 4, 50
+
+
+def timed_predicts(bst, x, calls, bump):
+    """Median wall seconds of ``calls`` Booster.predict calls on ``x``, the
+    pack version bumped before each when ``bump`` (so each call builds and
+    uploads the ensemble: the uncached path; the model's pinned buffers
+    stay); every output must equal the first call's, bitwise."""
+    g = bst._gbdt
+    want = bst.predict(x)
+    times = []
+    for _ in range(calls):
+        if bump:
+            g._invalidate_pred_cache("phase 18 uncached")
+        t0 = time.perf_counter()
+        got = bst.predict(x)
+        times.append(time.perf_counter() - t0)
+        if not np.array_equal(got, want):
+            raise AssertionError(f"{'uncached' if bump else 'cached'} predict of "
+                                 f"{len(x)} rows differs from the first call")
+    return float(np.median(times))
+
+
+def serve_request(i):
+    """Request i of the serving traffic: (first held-out row, rows)."""
+    return (i % SERVE_OFFSETS) * 300, SERVE_ROWS[i % len(SERVE_ROWS)]
+
+
+def serve_traffic(rt, X, expect, threads, requests, midway=None):
+    """``threads`` clients, each sending ``requests`` blocking requests
+    through ``rt`` (rows from serve_request); every response must be
+    bitwise one of ``expect[(offset, rows)]`` (Booster.predict of those rows
+    under each model that may serve it).  ``midway()`` runs on this thread
+    once half the requests are answered.  Returns (seconds, per-request
+    latencies, answered, rows)."""
+    import threading
+
+    lat, errors = [], []
+    lock = threading.Lock()
+    half = threading.Event()
+    answered = [0]
+
+    def client(t):
+        try:
+            for j in range(requests):
+                off, n = serve_request(t * requests + j)
+                t0 = time.perf_counter()
+                y = rt.predict(X[off:off + n], timeout=120)
+                dt = time.perf_counter() - t0
+                if not any(np.array_equal(y, w) for w in expect[(off, n)]):
+                    raise AssertionError(f"request ({off}, {n}) answered with no "
+                                         "model's Booster.predict")
+                with lock:
+                    lat.append(dt)
+                    answered[0] += 1
+                    if answered[0] * 2 >= threads * requests:
+                        half.set()
+        except BaseException as e:  # noqa: BLE001 (reported below)
+            errors.append(e)
+            half.set()
+
+    ts = [threading.Thread(target=client, args=(t,), daemon=True) for t in range(threads)]
+    t0 = time.perf_counter()
+    for t in ts:
+        t.start()
+    if midway is not None:
+        half.wait(300)
+        midway()
+    for t in ts:
+        t.join(300)
+    secs = time.perf_counter() - t0
+    if errors or any(t.is_alive() for t in ts):
+        raise AssertionError(f"serving traffic failed: {errors[:3]}")
+    rows = sum(serve_request(i)[1] for i in range(threads * requests))
+    return secs, np.asarray(lat), answered[0], rows
+
+
+def runtime_phase(lgt, base, higgs, counts, plain_total):
+    """Phase 18 on phase 3's Higgs set (nothing binned again): (a) resume,
+    (b) cached against uncached prediction, (c) serving, (d) training while
+    serving.  Prints its lines and its time."""
+    import tempfile
+    import threading
+
+    from lightgbm_tpu_torch import engine
+    from lightgbm_tpu_torch.obs import metrics as obs
+    from lightgbm_tpu_torch.obs import trace as trc
+    from lightgbm_tpu_torch.utils import faults as flt
+    from lightgbm_tpu_torch.utils import sanitizer as san
+
+    t_phase = time.perf_counter()
+    h_set, _, _, h_Xte, _ = higgs
+    tmp = tempfile.mkdtemp(prefix="lgbt_phase18_")
+    try:
+        # ---- (a) snapshots, a torn newest one, resume == uninterrupted ----
+        t0 = time.perf_counter()
+        out = os.path.join(tmp, "higgs.txt")
+        run = {**base, "snapshot_freq": SNAP_FREQ, "output_model": out}
+        trc.reset_trace()
+        reset()
+        first = lgt.train(run, h_set, RESUME_ROUNDS)
+        b1_first = counts()[0]
+        snap10 = f"{out}.snapshot_iter_{RESUME_ROUNDS}"
+        text10 = Path(snap10).read_text()
+        torn = f"{out}.snapshot_iter_{RESUME_ROUNDS + SNAP_FREQ}"
+        Path(torn).write_text(text10[: len(text10) // 2])
+        write_ms = [s["dur"] * 1e3 for s in trc.spans("checkpoint.snapshot")]
+        load = {}
+        seed_from = engine._seed_from
+
+        def timed_seed(*a):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            seed_from(*a)
+            torch.cuda.synchronize()
+            load["ms"] = (time.perf_counter() - t) * 1e3
+
+        engine._seed_from = timed_seed
+        try:
+            reset()
+            resumed = lgt.train(run, h_set, ROUNDS_FLOAT, resume="auto")
+        finally:
+            engine._seed_from = seed_from
+        b1_resumed = counts()[0]
+        sha = model_sha(resumed)
+        if not (sha.startswith(MODEL_SHA["higgs_float"]) and "ms" in load
+                and resumed.num_trees() == ROUNDS_FLOAT and b1_first > 0
+                and b1_resumed > 0 and plain_total() == 0 and len(write_ms) == 2):
+            raise AssertionError(f"resume: sha256 {sha} (want {MODEL_SHA['higgs_float']}), "
+                                 f"{resumed.num_trees()} trees, B1 {b1_first}/{b1_resumed}, "
+                                 f"{len(write_ms)} snapshots written, load {load}")
+        log(f"phase 18 runtime resume: ok {RESUME_ROUNDS} rounds with snapshot_freq="
+            f"{SNAP_FREQ} (snapshot write ms {' '.join(f'{v:.2f}' for v in write_ms)}), a "
+            f"torn snapshot_iter_{RESUME_ROUNDS + SNAP_FREQ} skipped (checkpoint_torn_total "
+            f"{obs.counter('checkpoint_torn_total').value}), resume=auto from "
+            f"iteration {RESUME_ROUNDS} (snapshot load + score replay ms={load['ms']:.2f}) "
+            f"to {ROUNDS_FLOAT}: model_sha256={sha} == the uninterrupted Higgs float pin; "
+            f"B1 launches {b1_first} + {b1_resumed} in {time.perf_counter() - t0:.2f} s")
+        bst = resumed
+        bst10 = lgt.Booster(model_file=snap10, params={"device_type": base["device_type"]})
+        del first, resumed
+        # the torn snapshot was seen (checkpoint_torn_total), which marks the
+        # process unhealthy for /healthz and so for the runtime's shedding:
+        # a fresh registry for the serving below
+        torn_seen = obs.counter("checkpoint_torn_total").value
+        if torn_seen < 1:
+            raise AssertionError("the torn snapshot went unseen")
+        obs.reset()
+
+        # ---- (b) prediction, cached against uncached ----
+        t0 = time.perf_counter()
+        parts = []
+        for n in PRED_BATCHES:
+            x = np.ascontiguousarray(h_Xte[:n])
+            calls = PRED_CALLS if n < 100_000 else PRED_CALLS_BIG
+            cached = timed_predicts(bst, x, calls, bump=False)
+            uncached = timed_predicts(bst, x, calls, bump=True)
+            parts.append(f"{n}: cached {cached * 1e3:.3f} uncached {uncached * 1e3:.3f}")
+        x = np.ascontiguousarray(h_Xte[:1024])
+        with san.DispatchCounter() as c:
+            bst.predict(x)
+        if not (c.host_syncs == 1 and c.predicts == 1):
+            raise AssertionError(f"a warm predict made {c.host_syncs} blocking reads "
+                                 f"and {c.predicts} traversals")
+        g = bst._gbdt
+        prof = {mode: predict_profile(bst, h_Xte[:100_000], before=(
+            (lambda: g._invalidate_pred_cache("phase 18 uncached")) if mode == "uncached"
+            else None)) for mode in ("cached", "uncached")}
+        log(f"phase 18 runtime predict: ok latency_ms (median of {PRED_CALLS}, "
+            f"{PRED_CALLS_BIG} at 100000 rows) " + "; ".join(parts)
+            + f"; outputs bitwise equal; pinned buffers {g._pinned.nbytes() / 2**20:.3f} "
+            "MiB; blocking reads a warm call=1; profiled at "
+            "100000 rows: " + "; ".join(
+                f"{m} device_ms={b:.3f} wall_ms={w:.3f} idle_share={1 - b / w:.4f} "
+                f"launches a call={n:.0f}" for m, (b, w, n) in prof.items())
+            + f" in {time.perf_counter() - t0:.2f} s")
+
+        # ---- (c) serving: coalesced traffic, a hot swap, a 2-replica fleet ----
+        t0 = time.perf_counter()
+        keys = {serve_request(i) for i in range(SERVE_THREADS * SERVE_REQUESTS)}
+        expect = {(o, n): [bst.predict(h_Xte[o:o + n]), bst10.predict(h_Xte[o:o + n])]
+                  for o, n in keys}
+        rt = lgt.serve(bst, {"serve_max_wait_ms": 2, "device_type": base["device_type"]})
+        try:
+            rt.predict(h_Xte[:8], timeout=120)
+            c0 = {k: obs.counter(k).value for k in ("serve_batches_total",
+                                                   "serve_coalesced_rows_total")}
+            reset()
+            with san.DispatchCounter() as c:
+                secs, lat, answered, rows = serve_traffic(
+                    rt, h_Xte, expect, SERVE_THREADS, SERVE_REQUESTS,
+                    midway=lambda: rt.swap_model("default", bst10))
+            reads, traversals = c.host_syncs, c.predicts
+            phases = {ph: obs.histogram(obs.labeled("serve_phase_ms", phase=ph))
+                      .percentile(50) for ph in ("queue", "coalesce", "staging",
+                                                 "dispatch", "sliceout")}
+            batches = obs.counter("serve_batches_total").value - c0["serve_batches_total"]
+            brows = (obs.counter("serve_coalesced_rows_total").value
+                     - c0["serve_coalesced_rows_total"])
+            if not (answered == SERVE_THREADS * SERVE_REQUESTS and batches > 0
+                    and reads == batches == traversals and brows == rows
+                    and counts() == (0, 0, 0, 0) and plain_total() == 0):
+                raise AssertionError(f"serving: {answered} answered, {batches} batches, "
+                                     f"{reads} reads, {traversals} traversals, "
+                                     f"{brows} of {rows} rows, launches {counts()}")
+            from torch.profiler import ProfilerActivity, profile
+
+            b0 = obs.counter("serve_batches_total").value
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
+                serve_traffic(rt, h_Xte, expect, SERVE_THREADS, 10)
+            launches = sum(e.count for e in p.key_averages() if e.key in RUNTIME_LAUNCHES
+                           and not str(getattr(e, "device_type", "")).endswith("CUDA"))
+            per_batch = launches / max(obs.counter("serve_batches_total").value - b0, 1)
+            log(f"phase 18 runtime serve: ok {SERVE_THREADS} clients x {SERVE_REQUESTS} "
+                f"requests of {'/'.join(map(str, SERVE_ROWS))} rows, serve_max_wait_ms=2, "
+                f"hot swap to the {RESUME_ROUNDS}-round snapshot midway: requests/s="
+                f"{answered / secs:.1f} rows/s={rows / secs:.0f} latency_ms p50="
+                f"{np.percentile(lat, 50) * 1e3:.3f} p99={np.percentile(lat, 99) * 1e3:.3f} "
+                f"batches={batches} mean rows a batch={rows / batches:.1f} blocking reads "
+                f"a batch={reads / batches:.2f} traversals a batch="
+                f"{traversals / batches:.2f} kernel launches a batch={per_batch:.1f} "
+                f"(profiled window); request phases p50 ms "
+                + " ".join(f"{k}={v:.3f}" for k, v in phases.items())
+                + "; every response bitwise its model's Booster.predict, "
+                f"no failure in {time.perf_counter() - t0:.2f} s")
+
+            t1 = time.perf_counter()
+            fl = lgt.ServingFleet(bst10, replicas=2, max_wait_ms=2, hedge_ms=0,
+                                  hang_timeout_ms=30_000, restart_backoff_ms=50,
+                                  shed_unhealthy=False)
+            try:
+                fl.predict(h_Xte[:8], timeout=120)
+                d0 = obs.counter("serve_replica_deaths_total").value
+                os.environ["LGBMTPU_FAULT"] = "replica_death:3"
+                flt.reset()
+                only10 = {k: v[1:] for k, v in expect.items()}
+                secs_f, _, answered_f, _ = serve_traffic(fl, h_Xte, only10, FLEET_THREADS,
+                                                         FLEET_REQUESTS)
+                deaths = obs.counter("serve_replica_deaths_total").value - d0
+            finally:
+                os.environ.pop("LGBMTPU_FAULT", None)
+                flt.reset()
+                fl.stop()
+            if not (answered_f == FLEET_THREADS * FLEET_REQUESTS and deaths == 1):
+                raise AssertionError(f"fleet: {answered_f} answered, {deaths} deaths")
+            log(f"phase 18 runtime fleet: ok 2 replicas, LGBMTPU_FAULT=replica_death:3, "
+                f"{FLEET_THREADS} clients x {FLEET_REQUESTS} requests: {answered_f} answered "
+                f"(0 lost), {deaths} replica death, every response bitwise, requests/s="
+                f"{answered_f / secs_f:.1f} in {time.perf_counter() - t1:.2f} s")
+
+            # ---- (d) training while the runtime serves ----
+            t1 = time.perf_counter()
+            stop = threading.Event()
+            served, errors = [0], []
+
+            def keep_serving():
+                i = 0
+                try:
+                    while not stop.is_set():
+                        off, n = serve_request(i)
+                        y = rt.predict(h_Xte[off:off + n], timeout=120)
+                        if not np.array_equal(y, expect[(off, n)][1]):
+                            raise AssertionError(f"request ({off}, {n}) differs")
+                        served[0] += 1
+                        i += 1
+                except BaseException as e:  # noqa: BLE001 (reported below)
+                    errors.append(e)
+
+            clients = [threading.Thread(target=keep_serving, daemon=True) for _ in range(4)]
+            for t in clients:
+                t.start()
+            reset()
+            try:
+                tws = lgt.train(base, h_set, TWS_ROUNDS)
+            finally:
+                stop.set()
+                for t in clients:
+                    t.join(120)
+            b1_tws = counts()[0]
+            st = tree_stats(tws)
+            alone = lgt.train(base, h_set, TWS_ROUNDS)
+            if not (not errors and served[0] > 0 and st["captures"] >= 1
+                    and st["replays"] == st["rounds"] and b1_tws > 0
+                    and tws.model_to_string() == alone.model_to_string()):
+                raise AssertionError(f"train while serving: {errors[:2]}, {served[0]} "
+                                     f"served, {st}, B1 {b1_tws}")
+            log(f"phase 18 runtime train while serving: ok {TWS_ROUNDS} rounds in graph "
+                f"mode ({st['captures']} captures, {st['replays']} replays, B1 launches "
+                f"{b1_tws}, capture_error_mode=thread_local) while 4 clients sent "
+                f"{served[0]} requests, all bitwise; model text == a {TWS_ROUNDS}-round "
+                f"run alone in {time.perf_counter() - t1:.2f} s")
+        finally:
+            rt.stop()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    secs = time.perf_counter() - t_phase
+    log(f"phase 18 runtime: ok in {secs:.2f} s (limit 60)")
+    if secs > 60:
+        raise AssertionError(f"phase 18 took {secs:.2f} s, over its 60 s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -3228,6 +3580,20 @@ def main() -> int:
         f"launches) + {st['captures']} warm-up before the capture; plain_calls=0 "
         f"reload=bitwise small-vs-cpu max|d|={small_err:.3g} graph == eager sha256 "
         f"in {time.perf_counter() - t0:.2f} s")
+    # telemetry's cost: graph runs with telemetry=false and the default in
+    # turns (the same model either way)
+    from lightgbm_tpu_torch.obs import metrics as obs
+
+    tele = {False: [], True: []}
+    for on in (False, True, False, True):
+        (r,) = train_turns(lgt, base if on else {**base, "telemetry": False}, train_set,
+                           ROUNDS_FLOAT, MODEL_SHA["higgs_float"], counts, plain_total,
+                           turns=("graph",))
+        tele[on].append(r["it_s"])
+    obs.set_enabled(True)
+    log(f"phase 3 telemetry cost (graph, {ROUNDS_FLOAT} rounds, in turns): it/s "
+        f"telemetry=false {' '.join(f'{v:.4f}' for v in tele[False])} default (on) "
+        f"{' '.join(f'{v:.4f}' for v in tele[True])}; model_sha256 equal")
     for mode in ("graph", "eager", "graph", "eager"):
         log(profile_line(f"phase 3 profile {mode} (5 rounds after a warm one)", profile_rounds(
             lgt, {**base, "fused_training": mode == "graph"}, train_set, 5)))
@@ -3464,17 +3830,22 @@ def main() -> int:
     t0 = time.perf_counter()
     new_kernels += envelope_phase(lgt, dev, base, (h_set, h_Xtr, h_ytr, h_Xte, h_yte),
                                   expo, counts, plain_total)
-    del h_set, expo
+    del expo
     torch.cuda.empty_cache()
     log(f"phase 17 envelope: ok in {time.perf_counter() - t0:.2f} s")
 
-    # ---- 18. device ----
+    # ---- 18. the runtime: resume, the cached ensemble, serving ----
+    runtime_phase(lgt, base, (h_set, h_Xtr, h_ytr, h_Xte, h_yte), counts, plain_total)
+    del h_set
+    torch.cuda.empty_cache()
+
+    # ---- 19. device ----
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60)
     if smi.returncode != 0 or not smi.stdout.strip():
         raise AssertionError(f"nvidia-smi failed: {smi.stderr}")
-    log(f"phase 18 device: ok total {time.perf_counter() - t_all:.2f} s")
+    log(f"phase 19 device: ok total {time.perf_counter() - t_all:.2f} s")
     log(smi.stdout.strip().splitlines()[0])
 
     src, tpu = "lightgbm_tpu_torch/csrc/hist.cu", "lightgbm_tpu/ops/hist_pallas.py:120"

@@ -40,10 +40,17 @@ from .io.stream import create_bin_cache, is_bin_cache, read_bin_cache
 from .models.gbdt import GBDT, _pre_filter, create_boosting, tree_depth
 from .models.tree import Tree
 from .ops import predict as predict_ops
+from .utils import checkpoint as _checkpoint
 
 
 class LightGBMError(Exception):
     """reference: LightGBMError in python-package/lightgbm/basic.py."""
+
+
+class CorruptModelError(LightGBMError):
+    """A model or snapshot file failed integrity verification (torn write,
+    truncation, bit rot).  engine.train catches it to fall back to the
+    newest valid older snapshot (utils/checkpoint.py)."""
 
 
 def _is_scipy_sparse(data) -> bool:
@@ -627,7 +634,7 @@ class Booster:
         self.best_score: Dict[str, Dict[str, float]] = {}
         self._train_set = train_set
         if model_file is not None:
-            model_str = Path(model_file).read_text(encoding="utf-8")
+            model_str = _read_model_file(model_file)
         if model_str is not None:
             device_type = Config.from_dict(self.params).device_type
             self._gbdt = GBDT.load_model_from_string(model_str, device_type)
@@ -686,6 +693,7 @@ class Booster:
         seg = models[start_iteration:end]
         np.random.shuffle(seg)
         models[start_iteration:end] = seg
+        self._gbdt._invalidate_pred_cache("shuffle_models")
         return self
 
     def _init_score_offset(self) -> float:
@@ -802,6 +810,7 @@ class Booster:
 
     def set_leaf_output(self, tree_id: int, leaf_id: int, value: float) -> "Booster":
         self._gbdt.models[tree_id].leaf_value[leaf_id] = value
+        self._gbdt._invalidate_pred_cache("set_leaf_output")
         return self
 
     def get_leaf_output(self, tree_id: int, leaf_id: int) -> float:
@@ -919,21 +928,25 @@ class Booster:
                 score[:, t_i % k] += tree.leaf_value[leaf]
             else:
                 score += tree.leaf_value[leaf]
+        gbdt._invalidate_pred_cache("refit")  # leaf values renewed in place
         return new_booster
 
     # -- serialization ----------------------------------------------------
     def model_to_string(self, num_iteration: int = -1, start_iteration: int = 0,
-                        importance_type: Optional[str] = None) -> str:
+                        importance_type: Optional[str] = None,
+                        raw_deltas: bool = False) -> str:
+        """The model text; ``raw_deltas`` gives the snapshot form (pure-delta
+        trees and an init_scores header line: GBDT.save_model_to_string)."""
         return self._gbdt.save_model_to_string(num_iteration, start_iteration,
-                                               importance_type)
+                                               importance_type, raw_deltas=raw_deltas)
 
     def save_model(self, filename, num_iteration: int = -1,
                    start_iteration: int = 0,
                    importance_type: Optional[str] = None) -> "Booster":
-        tmp = f"{filename}.tmp"
-        Path(tmp).write_text(self.model_to_string(
-            num_iteration, start_iteration, importance_type), encoding="utf-8")
-        os.replace(tmp, filename)  # atomic: never a torn model file
+        # atomic (a same-directory temp file, fsync, os.replace): a crash
+        # mid-write leaves the previous file, never a torn one
+        _checkpoint.atomic_write_text(os.fspath(filename), self.model_to_string(
+            num_iteration, start_iteration, importance_type))
         return self
 
     @classmethod
@@ -963,6 +976,27 @@ class Booster:
     def to_if_else(self) -> str:
         """The model as standalone C++ (task=convert_model)."""
         return self._gbdt.to_if_else()
+
+
+def _read_model_file(model_file) -> str:
+    """A model file's text, its integrity trailer (utils/checkpoint.py)
+    verified and stripped.  A trailer that does not verify, a snapshot
+    without one (it was cut before its last line) or bytes that are not
+    UTF-8 raise CorruptModelError; a plain model file without a trailer
+    loads as it is."""
+    try:
+        text = Path(model_file).read_text(encoding="utf-8")
+    except UnicodeDecodeError as e:
+        raise CorruptModelError(f"{model_file} is not valid UTF-8 ({e}); the file "
+                                "is corrupted") from None
+    model_str, ok = _checkpoint.verify_text(text)
+    if ok is False or (ok is None and _checkpoint.is_snapshot_path(os.fspath(model_file))):
+        raise CorruptModelError(
+            f"{model_file} failed integrity verification (torn or truncated "
+            "checkpoint); resume from an older snapshot: "
+            "utils/checkpoint.py latest_valid_snapshot scans the family, and "
+            "engine.train falls back to it")
+    return model_str
 
 
 def _dump_node(tree: Tree, node: int) -> Dict[str, Any]:

@@ -516,10 +516,9 @@ class Config:
     # syncs (every device-derived metric rides an existing sync point);
     # telemetry=false flips the registry off for the process.
     telemetry: bool = True
-    # metrics_file / metrics_port / trace_file: the JAX package's
-    # observability outputs (end-of-run metrics snapshot, live HTTP
-    # endpoint, Chrome-trace span file).  Accepted here so parameter
-    # dictionaries stay portable; this package does not write them yet.
+    # metrics_file / metrics_port / trace_file: the end-of-run metrics
+    # snapshot, the live /metrics + /healthz endpoint and the Chrome-trace
+    # span file, as in the JAX package (engine.train, obs/)
     metrics_file: str = ""
     metrics_port: int = -1
     trace_file: str = ""

@@ -1,51 +1,109 @@
-"""Training entry points: train() and cv().
+"""Training and serving entry points: train(), cv() and serve().
 
-Counterpart of lightgbm_tpu/engine.py::train and ::cv (reference:
-python-package/lightgbm/engine.py: train(), cv(), CVBooster, callback
-ordering by ``.order`` / ``.before_iteration``, the EarlyStopException
-flow).  Resuming from checkpoints (``resume=``, snapshot families) waits
-for utils/checkpoint.py (ROADMAP queue A14); serving, continual training
-and fleets are later queue items too.
+Counterpart of lightgbm_tpu/engine.py::train, ::cv and ::serve
+(reference: python-package/lightgbm/engine.py: train(), cv(), CVBooster,
+callback ordering by ``.order`` / ``.before_iteration``, the
+EarlyStopException flow).  train() carries the JAX package's runtime:
+``snapshot_freq`` snapshots (atomic, integrity-trailed, pure-delta trees,
+named by global iteration, pruned to ``snapshot_keep``), ``resume="auto"``
+and ``init_model=<snapshot>`` with the fall back to the newest valid older
+snapshot, so a resumed run gives the uninterrupted run's model text
+bitwise; the ``train`` span, the heartbeat gauges, the fault sites
+``host_crash`` and ``worker_hang``, ``metrics_file``, ``trace_file`` and
+``metrics_port``.  ``resume=<fleet manifest>`` needs ranks and waits for
+the distributed learners (ROADMAP A13); continual training and the booster
+fleet trainer are A12.
 """
 
 from __future__ import annotations
 
 import copy
 import os
+import re
+import time
 from typing import Any, Callable, Dict, List, Optional, Union
 
 import numpy as np
 import torch
 
-from .basic import Booster, Dataset
+from .basic import Booster, CorruptModelError, Dataset, LightGBMError
 from .callback import CallbackEnv, EarlyStopException
 from .config import Config, choose_param_value
-from .utils.log import log_info, set_verbosity
+from .obs import metrics as _obs
+from .obs import server as _obs_server
+from .obs import trace as _trace
+from .utils import checkpoint as _checkpoint
+from .utils import faults as _faults
+from .utils.log import log_debug, log_info, log_warning, set_verbosity
 
 
 def _load_init_booster(init_model, device_type: str) -> Booster:
     """init_model as a Booster: a Booster, a model file or a model string
-    (loaded for ``device_type``).  Snapshot files (``*.snapshot_iter_<k>``,
-    verified and replaced by an older valid one in the JAX package) wait
-    for the checkpoint module."""
+    (loaded for ``device_type``).  A snapshot that fails its integrity
+    check falls back to the newest valid older snapshot of its family
+    (never a newer one: it may come from another, longer run), and
+    failing that, a snapshot with no trailer at all that is structurally
+    whole loads unverified, with a warning, as in the JAX package."""
     if isinstance(init_model, Booster):
         return init_model
     text = os.fspath(init_model)
     params = {"device_type": device_type}
     if text.startswith("tree\n"):
         return Booster(params=params, model_str=text)
-    if ".snapshot_iter_" in os.path.basename(text):
-        raise NotImplementedError("init_model from a checkpoint snapshot is not "
-                                  "ported to lightgbm_tpu_torch yet (ROADMAP queue A14)")
-    return Booster(params=params, model_file=text)
+    try:
+        return Booster(params=params, model_file=text)
+    except CorruptModelError as corrupt:
+        below = _checkpoint.snapshot_iteration(text)
+        fb = _checkpoint.latest_valid_snapshot(text, below_iter=below)
+        if fb is not None:
+            it, snap = fb
+            _obs.counter("checkpoint_fallbacks_total").inc()
+            _obs.event("checkpoint_fallback", requested=text, used=snap, iteration=it)
+            log_warning(f"init_model {text} failed integrity verification; falling "
+                        f"back to the newest valid older snapshot {snap} "
+                        f"(iteration {it})")
+            return Booster(params=params, model_file=snap)
+        body, ok = _checkpoint.read_and_verify(text)
+        if ok is None and "\nend of trees" in body:
+            m = re.search(r"^tree_sizes=(.*)$", body, re.M)
+            expected = len(m.group(1).split()) if m else -1
+            try:
+                booster = Booster(params=params, model_str=body)
+            except Exception:  # noqa: BLE001 (torn after all)
+                raise corrupt from None
+            if booster.num_trees() != expected:
+                raise corrupt from None
+            log_warning(f"init_model {text} is a snapshot with no integrity trailer; "
+                        "no verified fallback exists, so it loads UNVERIFIED")
+            return booster
+        raise
 
 
 def _replay_scores(gbdt) -> None:
-    """The training score from the trees so far (continued training): each
-    tree's f32 leaf values added in training order, on the device."""
+    """The training score from the trees so far (continued training, a
+    resume), on the device, adding the f32 values training added in the
+    same order: the strict grower scales a tree's values in f64 and casts
+    (the host tree's f32), the rounds and windowed growers multiply the
+    f32 leaf value by the f32 shrinkage (recovered exactly from the host
+    tree: its f64 value over its shrinkage is the f32 value), and a linear
+    tree adds its leaf models' rows (``_tree_rows``).  Trees whose
+    shrinkage no longer is one factor (a DART rescale) add their f32
+    values.  The init score is in the base already."""
     k = gbdt.num_tree_per_iteration
+    f32_product = not gbdt._use_strict()
     for i in range(gbdt._num_trees()):
-        gbdt._add_score(gbdt._score, gbdt._tree_rows(i, gbdt.train_set), i % k)
+        rows = None
+        if f32_product and i < len(gbdt._models):
+            tree = gbdt._models[i]
+            lr = float(tree.shrinkage)
+            if not tree.is_linear and lr not in (0.0, 1.0):
+                raw = np.asarray(tree.leaf_value, np.float64) / lr
+                vals = torch.as_tensor(raw.astype(np.float32) * np.float32(lr),
+                                       device=gbdt.device)
+                rows = vals[gbdt._tree_leaves(i, gbdt.train_set).long()]
+        if rows is None:
+            rows = gbdt._tree_rows(i, gbdt.train_set)
+        gbdt._add_score(gbdt._score, rows, i % k)
 
 
 def _seed_from(booster: Booster, init_model) -> None:
@@ -104,9 +162,12 @@ def train(
 ) -> Booster:
     """Boost ``num_boost_round`` iterations on ``train_set`` (on the card
     unless params say device_type='cpu').  ``feval(score, dataset)`` adds
-    metrics; ``init_model`` (a Booster, a model file or a model string)
-    continues its trees; a callable ``objective`` gives the gradients.
-    The returned booster keeps its training state whatever
+    metrics; ``init_model`` (a Booster, a model file, a snapshot or a model
+    string) continues its trees; a callable ``objective`` gives the
+    gradients.  ``resume="auto"`` (or the ``resume=auto`` parameter)
+    continues from the newest valid snapshot of ``output_model``'s family
+    at or below ``num_boost_round`` and trains the remaining rounds.  The
+    returned booster keeps its training state whatever
     ``keep_training_booster`` says, as in the JAX package."""
     params = dict(params or {})
     params = choose_param_value("num_iterations", params, None)
@@ -121,9 +182,46 @@ def train(
         params["objective"] = "none"
     cfg = Config.from_dict(params)
     set_verbosity(cfg.verbosity)
-    if resume is not None or cfg.resume:
-        raise NotImplementedError("resume= (checkpoint snapshots) is not ported to "
-                                  "lightgbm_tpu_torch yet (ROADMAP queue A14)")
+    telemetry_on = (bool(cfg.telemetry) if cfg.is_set("telemetry")
+                    else _obs.DEFAULT_ENABLED)
+    if telemetry_on:
+        _start_endpoint(cfg)
+
+    resume = resume if resume is not None else (cfg.resume or None)
+    if resume is not None and resume != "auto":
+        if init_model is not None:
+            log_warning("resume=<manifest> ignored: an explicit init_model was "
+                        "given and takes precedence")
+        elif not os.path.exists(resume):
+            raise LightGBMError(
+                f"resume={resume!r} is not supported: pass 'auto', or "
+                "init_model=<snapshot> for a specific file")
+        else:
+            raise NotImplementedError(
+                "resume=<fleet manifest> (the launcher's coordinated checkpoints: "
+                "rank exclusion, shard fingerprints) is not ported to "
+                "lightgbm_tpu_torch yet (ROADMAP queue A13); pass resume='auto' or "
+                "init_model=<snapshot>")
+    elif resume is not None:
+        if init_model is not None:
+            log_warning("resume='auto' ignored: an explicit init_model was given "
+                        "and takes precedence")
+        else:
+            # at or below the target: a newer snapshot of a longer run that
+            # shares the prefix would overshoot the requested model
+            fb = _checkpoint.latest_valid_snapshot(cfg.output_model,
+                                                   below_iter=num_boost_round + 1)
+            if fb is not None:
+                it, snap = fb
+                init_model = snap
+                num_boost_round = max(num_boost_round - it, 0)
+                _trace.record_span("checkpoint.resume", 0.0, round=it,
+                                   snapshot=os.fspath(snap), outcome="auto_snapshot")
+                log_info(f"resume=auto: resuming from {snap} (iteration {it}); "
+                         f"training {num_boost_round} remaining round(s)")
+            else:
+                log_info("resume=auto: no valid snapshot found for "
+                         f"{cfg.output_model}; starting fresh")
 
     booster = Booster(params=params, train_set=train_set)
     if init_model is not None:
@@ -150,8 +248,30 @@ def train(
     before, after = _ordered(callbacks)
     train_in_valids = any(vs is train_set for vs in valid_sets)
 
+    snapshot_freq = int(cfg.snapshot_freq)
+    # snapshot names carry global iteration numbers: a resumed run must not
+    # write a 6-tree model as snapshot_iter_2
+    snapshot_base = booster.current_iteration()
+    _trace.configure_request_tracing(cfg.request_tracing, cfg.trace_sample)
+    trace_out = _trace_path(cfg)
+    if _obs.enabled() and trace_out:
+        try:  # the ring's evictions spill next to the trace file
+            _trace.enable_spill(trace_out + ".spill.jsonl")
+        except OSError as e:
+            log_warning(f"could not arm the trace spill sink next to {trace_out}: {e}")
+
+    # the run's span is host wall clock; heartbeat_done=0 marks the process
+    # as training for a launcher's hang watchdog, until the finally below
+    train_span = _trace.span("train", num_boost_round=num_boost_round)
+    train_span.__enter__()
+    _obs.gauge("heartbeat_done").set(0.0)
     try:
         for i in range(num_boost_round):
+            _obs.gauge("heartbeat_ts").set(time.monotonic())
+            # fault sites: preemption, or a wedged process, at the start of
+            # 1-based iteration i + 1 (utils/faults.py)
+            _faults.maybe_crash("host_crash", i + 1)
+            _faults.maybe_hang("worker_hang", i + 1)
             for cb in before:
                 cb(CallbackEnv(booster, params, i, 0, num_boost_round, []))
             finished = booster.update(fobj=fobj)
@@ -161,6 +281,9 @@ def train(
             results.extend(booster.eval_valid(feval))
             for cb in after:
                 cb(CallbackEnv(booster, params, i, 0, num_boost_round, results))
+            global_iter = snapshot_base + i + 1
+            if snapshot_freq > 0 and global_iter % snapshot_freq == 0:
+                _snapshot(booster, cfg, global_iter)
             if finished:
                 log_info("Stopped training because there are no more leaves "
                          "that meet the split requirements")
@@ -169,9 +292,141 @@ def train(
         booster.best_iteration = e.best_iteration + 1
         for item in e.best_score:
             booster.best_score.setdefault(item[0], {})[item[1]] = item[2]
+        train_span.set(early_stopped=True)
+    finally:
+        _obs.gauge("heartbeat_done").set(1.0)
+        train_span.set(trained_iterations=booster.current_iteration())
+        train_span.__exit__(None, None, None)
+        _finish_run_report(cfg)
     if booster.best_iteration <= 0:
         booster.best_iteration = booster.current_iteration()
     return booster
+
+
+def _snapshot(booster: Booster, cfg: Config, global_iter: int) -> None:
+    """``<output_model>.snapshot_iter_<global_iter>``: the snapshot form of
+    the model text (pure-delta trees, exact init scores) written
+    atomically with its integrity trailer; then the oldest snapshots
+    beyond ``snapshot_keep`` are pruned (never the newest valid one)."""
+    snap = f"{cfg.output_model}.snapshot_iter_{global_iter}"
+    with _trace.span("checkpoint.snapshot", iteration=global_iter, path=snap):
+        _checkpoint.save_snapshot(snap, booster.model_to_string(raw_deltas=True),
+                                  global_iter)
+    log_info(f"Saved snapshot to {snap}")
+    if int(cfg.snapshot_keep) > 0:
+        _checkpoint.prune_snapshots(cfg.output_model, int(cfg.snapshot_keep))
+
+
+def _start_endpoint(cfg: Config) -> None:
+    """The process-wide /metrics and /healthz endpoint (obs/server.py) at
+    ``metrics_port`` (or LGBMTPU_METRICS_PORT); a port that cannot be bound
+    warns and never costs the caller a model."""
+    try:
+        _obs_server.maybe_start(cfg.metrics_port if cfg.is_set("metrics_port")
+                                else None)
+    except OSError as e:
+        log_warning(f"metrics endpoint could not start: {e}")
+
+
+def _trace_path(cfg: Config) -> str:
+    """The run's trace file: ``trace_file=``, else LGBMTPU_TRACE_FILE."""
+    return cfg.trace_file or os.environ.get("LGBMTPU_TRACE_FILE", "")
+
+
+def _finish_run_report(cfg: Config) -> None:
+    """End-of-run observability, as the JAX package's: the "Time for X /
+    counter = v" report at debug verbosity, the metrics snapshot to
+    ``metrics_file=`` (atomic JSON; ``python -m lightgbm_tpu_torch.obs
+    <file>`` renders it) and the Chrome-trace spans to ``trace_file=``,
+    each best-effort; then the run's spill sink is disarmed."""
+    if not _obs.enabled():
+        for name, val in (("metrics_file", cfg.metrics_file),
+                          ("trace_file", _trace_path(cfg))):
+            if val:
+                log_warning(f"{name}={val} ignored: telemetry is disabled "
+                            "(telemetry=false / LGBMTPU_TELEMETRY=0)")
+        return
+    snap = _obs.snapshot()
+    for line in _obs.render_lightgbm(snap):
+        log_debug(line)
+    if cfg.metrics_file:
+        try:
+            _obs.write_snapshot(cfg.metrics_file, snap)
+        except OSError as e:
+            log_warning(f"could not write metrics snapshot to {cfg.metrics_file}: {e}")
+        else:
+            log_info(f"Metrics snapshot written to {cfg.metrics_file}")
+    trace_out = _trace_path(cfg)
+    if trace_out:
+        try:
+            n_spans = _trace.write_trace(trace_out)
+        except OSError as e:
+            log_warning(f"could not write trace to {trace_out}: {e}")
+        else:
+            log_info(f"Trace ({n_spans} spans) written to {trace_out}")
+        _trace.disable_spill()
+
+
+def serve(model=None, params: Optional[Dict[str, Any]] = None, *, models=None,
+          start: bool = True):
+    """Serving entry point (the JAX package's engine.serve): build, and by
+    default start, a :class:`~lightgbm_tpu_torch.serve.ServingRuntime` over
+    one model (``model``: a Booster or a model file, served as "default")
+    or several (``models``: {name: Booster or file}), with the /metrics and
+    /healthz endpoint brought up as train() does.  ``params`` holds the
+    serve options (serve_max_wait_ms, serve_max_queue, serve_slo_p99_ms,
+    serve_tenant_quota), metrics_port, telemetry and device_type (the
+    device model files load for: the card unless it says cpu).  Any fleet
+    option (serve_replicas, serve_deadline_ms, serve_hedge_ms,
+    serve_retry_budget, serve_replica_trip, serve_replica_cooldown_ms,
+    serve_hang_timeout_ms, serve_restart_backoff_ms, serve_max_restarts)
+    builds a :class:`~lightgbm_tpu_torch.serve.ServingFleet` instead.
+
+    >>> rt = lgb.serve(booster, {"serve_max_wait_ms": 2})
+    >>> y = rt.predict(X); rt.stop()
+    """
+    from .models.gbdt import resolve_device
+    from .serve.fleet import ServingFleet
+    from .serve.runtime import ServingRuntime
+
+    cfg = Config.from_dict(dict(params or {}))
+    set_verbosity(cfg.verbosity)
+    resolve_device(cfg)  # no card and no device_type=cpu: raise here
+    telemetry_on = (bool(cfg.telemetry) if cfg.is_set("telemetry")
+                    else _obs.DEFAULT_ENABLED)
+    _obs.set_enabled(telemetry_on)
+    if telemetry_on:
+        _start_endpoint(cfg)
+
+    def _load(m):
+        if isinstance(m, Booster):
+            return m
+        return Booster(params={"device_type": cfg.device_type}, model_file=m)
+
+    table = None if models is None else {n: _load(m) for n, m in models.items()}
+    single = None if model is None else _load(model)
+    kw = {}
+    for name, param in (("max_wait_ms", "serve_max_wait_ms"),
+                        ("max_queue", "serve_max_queue"),
+                        ("slo_p99_ms", "serve_slo_p99_ms"),
+                        ("tenant_quota", "serve_tenant_quota")):
+        if cfg.is_set(param):
+            kw[name] = getattr(cfg, param)
+    fleet_kw = {}
+    for name, param in (("replicas", "serve_replicas"),
+                        ("deadline_ms", "serve_deadline_ms"),
+                        ("hedge_ms", "serve_hedge_ms"),
+                        ("retry_budget", "serve_retry_budget"),
+                        ("trip", "serve_replica_trip"),
+                        ("cooldown_ms", "serve_replica_cooldown_ms"),
+                        ("hang_timeout_ms", "serve_hang_timeout_ms"),
+                        ("restart_backoff_ms", "serve_restart_backoff_ms"),
+                        ("max_restarts", "serve_max_restarts")):
+        if cfg.is_set(param):
+            fleet_kw[name] = getattr(cfg, param)
+    if fleet_kw:
+        return ServingFleet(single, models=table, start=start, **kw, **fleet_kw)
+    return ServingRuntime(single, models=table, start=start, **kw)
 
 
 class CVBooster:

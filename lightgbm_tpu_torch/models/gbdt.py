@@ -23,9 +23,10 @@ same round functions run eagerly on the same static buffers).  Gradients,
 the root pass, the tree's finalize and the score update stay eager around
 the replays.  With fused_training=false every round is eager torch
 launches.  Nothing falls back from one to the other.  Whether training can
-go on is read from the device every 32 iterations, as the JAX package does
-on its rounds path; the strict grower's trees are read then too (the JAX
-package reads each of them at once), so no tree makes a host read.
+go on is read from the device every 32 iterations on the rounds and
+windowed growers, as the JAX package does on its rounds path, and every
+iteration on the strict grower, as its strict path does: one blocking read
+an iteration there, none inside a tree.
 
 Objectives that renew leaf outputs (L1, quantile, MAPE) renew each tree
 after growth, on any grower (the JAX package's renew hook after the tree).
@@ -70,6 +71,8 @@ from __future__ import annotations
 import copy
 import json
 import re
+import threading
+import time
 from collections import deque
 from typing import Dict, List, Optional, Tuple
 
@@ -77,6 +80,8 @@ import numpy as np
 import torch
 
 from ..config import Config
+from ..obs import metrics as _obs
+from ..obs import trace as _trace
 from ..metrics import Metric, create_metrics
 from ..objectives import Objective, create_objective
 from ..ops import predict as predict_ops
@@ -87,12 +92,66 @@ from ..ops.split import SplitParams
 from ..ops.treegrow import grow_tree
 from ..ops.treegrow_fast import grow_tree_fast, predict_leaf_arrays
 from ..ops.treegrow_windowed import grow_tree_windowed
+from ..utils import faults as _faults
+from ..utils import locktrace as _lt
+from ..utils import profiling as _profiling  # noqa: F401  (LGBMTPU_NVTX=1 bridge)
 from ..utils import sanitizer as _san
 from ..utils.guards import NonFiniteError
 from ..utils.log import log_warning
 from .tree import Tree, tree_from_device, tree_to_if_else
 
 _MODEL_VERSION = "v4"
+
+# the prediction bucket ladder: a batch of n rows takes the rung of the
+# next power of two (at least 8).  The JAX package pads to the rung so its
+# traversal compiles once a rung; here the rung keys the model's pinned
+# host buffers and the latency reservoirs, and the traversal runs on the
+# n rows themselves
+_PREDICT_BUCKET_MIN = 8
+# a pinned buffer is kept only up to this size: a larger rung stages its
+# rows through two pinned chunk buffers of at most this size in turns, and
+# reads through pageable memory
+_PINNED_MAX_BYTES = 32 << 20
+# guards the lazy creation of a GBDT's pack lock
+_PACK_LOCK_INIT = threading.Lock()
+
+
+def _predict_bucket(n: int) -> int:
+    """The rung of a batch of n rows."""
+    b = _PREDICT_BUCKET_MIN
+    while b < n:
+        b <<= 1
+    return b
+
+
+class _PinnedBuffers:
+    """A model's pinned host buffers for prediction, one a (shape, dtype),
+    allocated at first use and shared by all its packs, so a version bump
+    allocates nothing again.  ``lock`` is held from a call's staging to its
+    read, which also retires an upload before its buffer is written again."""
+
+    __slots__ = ("lock", "bufs")
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        self.bufs: Dict[tuple, torch.Tensor] = {}
+
+    def get(self, shape: tuple, dtype: torch.dtype,
+            slot: int = 0) -> Tuple[Optional[torch.Tensor], bool]:
+        """(buffer, allocated by this call); (None, False) when the buffer
+        would hold more than _PINNED_MAX_BYTES.  ``slot`` tells apart the
+        chunk buffers of one shape."""
+        key = (shape, dtype, slot)
+        buf = self.bufs.get(key)
+        if buf is not None:
+            return buf, False
+        if int(np.prod(shape)) * dtype.itemsize > _PINNED_MAX_BYTES:
+            return None, False
+        buf = self.bufs[key] = torch.empty(shape, dtype=dtype, pin_memory=True)
+        return buf, True
+
+    def nbytes(self) -> int:
+        return sum(b.numel() * b.element_size() for b in self.bufs.values())
 
 
 def resolve_device(cfg: Config) -> torch.device:
@@ -269,6 +328,17 @@ class GBDT:
         self._cegb_lazy = self._cegb_lazy_used = None
         self._forced_cache = None
         self._linear = False
+        # the packed-ensemble cache of prediction (``_packed``): entries
+        # keyed by (version, tree range, ...); every mutation bumps the
+        # version (``_invalidate_pred_cache``) under the pack lock
+        self._pred_cache = None
+        self._pack_version = 0
+        self._pack_lock = _lt.rlock("gbdt.pack")
+        self._pinned = _PinnedBuffers()
+        # telemetry is process-wide and on by default; an explicit
+        # telemetry= applies for this model's lifetime (the JAX package's)
+        _obs.set_enabled(bool(cfg.telemetry) if cfg.is_set("telemetry")
+                         else _obs.DEFAULT_ENABLED)
         if train_set is not None:
             self.reset_training_data(train_set)
 
@@ -291,6 +361,58 @@ class GBDT:
     def models(self, value) -> None:
         self._pending = []
         self._models = value
+        self._invalidate_pred_cache("models_setter")
+
+    def __getstate__(self):
+        # locks and pinned buffers cannot be pickled or deep-copied: the
+        # pack lock, the pack cache and the pinned buffers are made again
+        d = dict(self.__dict__)
+        d.pop("_pack_lock", None)
+        d.pop("_pinned", None)
+        d["_pred_cache"] = None
+        return d
+
+    def __setstate__(self, d):
+        self.__dict__.update(d)
+        self._pinned = _PinnedBuffers()
+        self._plock()
+
+    def _plock(self):
+        """The pack lock, created once for an unpickled or copied model
+        (``__setstate__``) under a module lock, so racing callers share
+        one."""
+        lock = getattr(self, "_pack_lock", None)
+        if lock is None:
+            with _PACK_LOCK_INIT:
+                if getattr(self, "_pack_lock", None) is None:
+                    self._pack_lock = _lt.rlock("gbdt.pack")
+                lock = self._pack_lock
+        return lock
+
+    def _invalidate_pred_cache(self, reason: str) -> None:
+        """Bump the pack version instead of emptying the cache (the JAX
+        package's): the next prediction packs the ensemble anew under the
+        new version, while the packs of the previous version stay in the
+        cache for requests in flight.  Older versions than
+        _PACKED_KEEP_VERSIONS are evicted here.  Called at every mutation
+        of the trees: a tree appended (pending or host), a rollback, the
+        ``models`` setter, a DART rescale, refit, shuffle_models and
+        set_leaf_output.  The bump and the eviction hold the pack lock
+        that ``_packed``'s lookup holds."""
+        with self._plock():
+            cache = self._pred_cache
+            if cache:
+                _obs.counter("predict_cache_invalidations_total").inc()
+                _obs.event("pred_cache_invalidate", reason=reason,
+                           version=self._pack_version + 1)
+            self._pack_version += 1
+            if cache:
+                floor = self._pack_version - self._PACKED_KEEP_VERSIONS
+                stale = [key for key in cache if key[0] <= floor]
+                for key in stale:
+                    del cache[key]
+                if stale:
+                    _obs.counter("predict_stale_pack_evictions_total").inc(len(stale))
 
     # -- the ensemble's trees on the device, without reading pending trees
     def _num_trees(self) -> int:
@@ -346,6 +468,7 @@ class GBDT:
             self._models[i].apply_shrinkage(factor)
         else:
             self._pending[i - len(self._models)][1].append(factor)
+        self._invalidate_pred_cache("scale_tree")
 
     def _scored_sets(self) -> List[tuple]:
         """(dataset, score) of the training set and every validation set."""
@@ -742,14 +865,40 @@ class GBDT:
 
     # ------------------------------------------------------------------
     def train_one_iter(self, grad=None, hess=None) -> bool:
+        """One boosting iteration (``_train_one_iter_impl``) inside the JAX
+        package's telemetry: a ``boost_round`` span and event with the
+        iteration's launched rounds, blocking reads, graph captures and
+        replays from the sanitizer's host-side counts (no wall-clock
+        delta: the launches are asynchronous), and
+        ``train_boost_rounds_total``.  Nothing here reads the device."""
+        if not _obs.enabled():
+            return self._train_one_iter_impl(grad, hess)
+        it = self.iter_
+        with _san.DispatchCounter() as c, _trace.span("boost_round",
+                                                     iteration=it) as sp:
+            finished = self._train_one_iter_impl(grad, hess)
+            d = c.stats()
+            sp.set(dispatches=d["rounds"], host_syncs=d["host_syncs"],
+                   captures=d["captures"], replays=d["replays"])
+        _obs.counter("train_boost_rounds_total").inc()
+        _obs.event("boost_round", iteration=it, dispatches=d["rounds"],
+                   host_syncs=d["host_syncs"], captures=d["captures"],
+                   replays=d["replays"])
+        return finished
+
+    def _train_one_iter_impl(self, grad=None, hess=None) -> bool:
         """One boosting iteration, K trees (reference: GBDT::TrainOneIter).
         ``grad``/``hess``: the caller's gradients (a custom objective),
         shaped as the score ((N,) or (N, K)); else the objective's.
         Returns True when training cannot continue (every tree of the
-        iteration is a single leaf), checked every 32 iterations as the
-        JAX package does on its rounds path: a finished model only adds
-        one-leaf trees, and a read every iteration would drain the device
-        queue.  The check also reads the non-finite guard."""
+        iteration is a single leaf).  On the rounds and windowed growers
+        that is checked every 32 iterations, as the JAX package does on
+        its rounds path: a finished model only adds one-leaf trees, and a
+        read every iteration would drain the device queue.  The strict
+        grower checks every iteration (one blocking read an iteration), as
+        the JAX package's strict path reads each host tree and stops at the
+        first iteration whose trees are all one leaf.  The check also
+        reads the non-finite guard."""
         ts = self.train_set
         cfg = self.cfg
         k = self.num_tree_per_iteration
@@ -763,6 +912,13 @@ class GBDT:
                                 device=self.device).reshape(self._score.shape)
             h = torch.as_tensor(hess, dtype=torch.float32,
                                 device=self.device).reshape(self._score.shape)
+        # fault sites of the guard-rail tests (utils/faults.py)
+        if _faults.fire("nonfinite_grad", self.iter_ + 1):
+            g = g.clone()
+            g.view(-1)[0] = float("nan")
+        if _faults.fire("nonfinite_hess", self.iter_ + 1):
+            h = h.clone()
+            h.view(-1)[0] = float("nan")
         self._cur_grad, self._cur_hess = g, h
         row_mask, sample_weight = self._bagging_mask()
         feature_mask = self._feature_mask()
@@ -853,6 +1009,9 @@ class GBDT:
             num_leaves.append(arrays.num_leaves)
             shrinkage = 1.0 if self.average_output else cfg.learning_rate
             self._pending.append([arrays, [shrinkage], linear_fit])
+            # bumped at the append, not at the host read: a pack built from
+            # here on must not be keyed as the version before this tree
+            self._invalidate_pred_cache("train_one_iter")
             if linear_fit is not None:
                 delta_rows = lin_pred * np.float32(shrinkage)
             elif strict:
@@ -874,7 +1033,7 @@ class GBDT:
                     vals = delta[leaf_v]
                 self._add_score(self._valid_scores[vi], vals, c)
         self.iter_ += 1
-        if self.iter_ % 32:
+        if not strict and self.iter_ % 32:
             return False
         read = _san.sync_pull(torch.stack([torch.stack(num_leaves).max(),
                                            self._guard_bad_iter]))
@@ -911,6 +1070,8 @@ class GBDT:
 
     def _raise_if_nonfinite(self, bad: int) -> None:
         if bad:
+            _obs.counter("train_nonfinite_errors_total").inc()
+            _obs.event("nonfinite", phase="guard_check", iteration=bad)
             raise NonFiniteError(
                 f"non-finite leaf values or split gains entered the model at "
                 f"boosting iteration {bad}: the gradients or hessians went "
@@ -923,15 +1084,17 @@ class GBDT:
         if self.iter_ <= 0:
             return
         k = self.num_tree_per_iteration
-        for c in reversed(range(k)):
-            i = self._num_trees() - 1
-            for ds, score in self._scored_sets():
-                self._add_score(score, -self._tree_rows(i, ds), c)
-            if self._pending:
-                self._pending.pop()
-            else:
-                self._models.pop()
-        self.iter_ -= 1
+        with self._plock():  # the pops and the bump, atomic for _packed
+            for c in reversed(range(k)):
+                i = self._num_trees() - 1
+                for ds, score in self._scored_sets():
+                    self._add_score(score, -self._tree_rows(i, ds), c)
+                if self._pending:
+                    self._pending.pop()
+                else:
+                    self._models.pop()
+            self.iter_ -= 1
+            self._invalidate_pred_cache("rollback_one_iter")
 
     # ------------------------------------------------------------------
     def _converted(self, score: torch.Tensor) -> np.ndarray:
@@ -994,12 +1157,215 @@ class GBDT:
             cat=_stacked_bitsets(trees, m, device),
         )
 
-    def _row_chunks(self, X: np.ndarray, n_trees: int):
-        """X as f32 on the device, cut in row chunks: the traversal holds a
-        few (trees, rows) int64 planes, each kept near 2^25 elements."""
-        x = torch.as_tensor(np.asarray(X, np.float32), device=self.device)
+    # -- the packed-ensemble cache (the JAX package's _packed) ----------
+    _PACKED_CACHE_CAP = 32  # bounds the early-stop windows' entries etc.
+    # versions kept after a mutation: the current one and the previous one
+    # (in-flight readers of the pack before the mutation)
+    _PACKED_KEEP_VERSIONS = 2
+
+    def _packed(self, start: int = 0, num_iteration: int = -1, *,
+                pad_trees_to: int = 0) -> Optional[dict]:
+        """The stacked ensemble of iterations [start, start +
+        num_iteration) on the device, built once a (version, tree range,
+        model state) and cached, so a warm predict builds and uploads
+        nothing; None for an ensemble without trees.  ``pad_trees_to``
+        pads the tree axis with one-leaf zero trees to a multiple of that
+        window (the early-stop chunks).
+
+        A pack is ``walk`` (``_stacked``'s tensors, what the traversal
+        takes), ``trees`` (the export trees), ``linear`` (any tree with
+        leaf models), ``lin`` (their tables on the device) and ``served``
+        (a predict has read through it).  The lookup holds the pack lock,
+        which the version bump holds too; the build runs outside it, and a
+        build that a mutation overtook is built again under the new version
+        (after three lost races, under the lock)."""
+        races = 0
+        while True:
+            if races >= 3:
+                with self._plock():
+                    return self._packed_build_locked(start, num_iteration,
+                                                     pad_trees_to)
+            with self._plock():
+                v0 = self._pack_version
+                key = self._pack_key(start, num_iteration, pad_trees_to)
+                if self._pred_cache is None:
+                    self._pred_cache = {}
+                if key in self._pred_cache:
+                    _obs.counter("predict_packed_cache_hits_total").inc()
+                    return self._pred_cache[key]
+                _obs.counter("predict_packed_cache_misses_total").inc()
+            s = self._pack(start, num_iteration, pad_trees_to)
+            with self._plock():
+                if self._pack_version != v0:
+                    _obs.counter("predict_pack_build_races_total").inc()
+                    races += 1
+                    continue
+                self._pack_insert(key, s)
+                return s
+
+    def _pack_key(self, start: int, num_iteration: int, pad_trees_to: int) -> tuple:
+        """(version, first tree, end tree, trees, pad): the model's trees
+        are read (pending ones made host trees) under the pack lock."""
+        k = self.num_tree_per_iteration
+        n_models = len(self.models)
+        hi = n_models if num_iteration < 0 else min((start + num_iteration) * k,
+                                                    n_models)
+        return (self._pack_version, start * k, hi, n_models, pad_trees_to)
+
+    def _pack_insert(self, key: tuple, s: Optional[dict]) -> None:
+        if len(self._pred_cache) >= self._PACKED_CACHE_CAP:
+            self._pred_cache.pop(next(iter(self._pred_cache)))
+        self._pred_cache[key] = s
+
+    def _packed_build_locked(self, start: int, num_iteration: int,
+                             pad_trees_to: int) -> Optional[dict]:
+        """Lookup, build and insert with the pack lock held: no mutation
+        can overtake it (``_packed`` after repeated races)."""
+        key = self._pack_key(start, num_iteration, pad_trees_to)
+        if self._pred_cache is None:
+            self._pred_cache = {}
+        if key in self._pred_cache:
+            _obs.counter("predict_packed_cache_hits_total").inc()
+            return self._pred_cache[key]
+        _obs.counter("predict_packed_cache_misses_total").inc()
+        s = self._pack(start, num_iteration, pad_trees_to)
+        self._pack_insert(key, s)
+        return s
+
+    def _pack(self, start: int, num_iteration: int, pad_trees_to: int) -> Optional[dict]:
+        trees = self._trees_for_export(start, num_iteration)
+        if not trees:
+            return None
+        walk_trees = trees
+        if pad_trees_to:
+            walk_trees = trees + [_dummy_tree()] * (-len(trees) % pad_trees_to)
+        linear = any(t.is_linear for t in trees)
+        return dict(
+            walk=self._stacked(walk_trees, self.device), trees=trees, linear=linear,
+            lin=([_linear_tables(t, self.device) for t in walk_trees] if linear
+                 else None),
+            served=False)
+
+    def _chunks(self, x: torch.Tensor, n_trees: int):
+        """Row chunks of the device batch ``x``: the traversal holds a few
+        (trees, rows) int64 planes, each kept near 2^25 elements."""
         step = max(1, 2 ** 25 // max(n_trees, 1))
         return [x[i:i + step] for i in range(0, max(x.shape[0], 1), step)]
+
+    def _raw_of(self, s: dict, x: torch.Tensor) -> torch.Tensor:
+        """Raw margins of the device rows ``x`` (f32): (n,) or (n, K) f32
+        on the device, the trees' sum in tree order (a random forest's
+        unscaled)."""
+        k = self.num_tree_per_iteration
+        walk = s["walk"]
+        n_trees = len(s["trees"])
+        if s["linear"]:
+            return torch.cat([self._linear_raw(s, xs) for xs in self._chunks(x, n_trees)])
+        if k == 1:
+            fn = predict_ops.predict_raw_values
+        else:
+            def fn(xs, **kw):
+                return predict_ops.predict_raw_multiclass(xs, **kw, k=k)
+        return torch.cat([fn(xs, **walk) for xs in self._chunks(x, n_trees)])
+
+    def _linear_raw(self, s: dict, xs: torch.Tensor) -> torch.Tensor:
+        """Raw margins of an ensemble with linear trees on the device: the
+        traversal's leaf of every (row, tree), then each linear tree's leaf
+        model on the raw values (ops/linear.py::predict_linear_rows), a
+        constant tree's leaf value, summed per class in tree order."""
+        k = self.num_tree_per_iteration
+        trees = s["trees"]
+        out = torch.zeros((xs.shape[0], k), dtype=torch.float32, device=xs.device)
+        _add_trees(trees, xs, _leaves_of(xs, s["walk"]), 0, len(trees), k, out,
+                   s["lin"])
+        return out[:, 0] if k == 1 else out
+
+    def _stage(self, X: np.ndarray, nb: int) -> torch.Tensor:
+        """X as f32 rows on the device.  On the card through the model's
+        pinned input buffer of rung ``nb`` (the f64 -> f32 cast is the copy
+        into it, the same rounding as numpy's), uploaded without blocking;
+        the caller holds the pinned lock until its read is done, which also
+        retires these uploads before a buffer is written again.  A rung too
+        large to pin goes through two pinned chunk buffers in turns, each
+        written again only after the event behind its last upload."""
+        if self.device.type != "cuda":
+            return torch.as_tensor(np.asarray(X, np.float32), device=self.device)
+        n, f = X.shape
+        src = torch.from_numpy(np.ascontiguousarray(X, dtype=np.float64))
+        buf, _ = self._pinned.get((nb, f), torch.float32)
+        if buf is not None:
+            buf[:n].copy_(src)
+            return buf[:n].to(self.device, non_blocking=True)
+        step = max(1, _PINNED_MAX_BYTES // (4 * f))
+        out = torch.empty((n, f), dtype=torch.float32, device=self.device)
+        events = (torch.cuda.Event(), torch.cuda.Event())
+        for i, lo in enumerate(range(0, n, step)):
+            chunk, _ = self._pinned.get((step, f), torch.float32, slot=1 + i % 2)
+            events[i % 2].synchronize()
+            m = min(step, n - lo)
+            chunk[:m].copy_(src[lo:lo + m])
+            out[lo:lo + m].copy_(chunk[:m], non_blocking=True)
+            events[i % 2].record()
+        return out
+
+    def _pull(self, s: dict, t: torch.Tensor, nb: int) -> Tuple[np.ndarray, bool]:
+        """The one blocking read of a prediction: ``t`` into the model's
+        pinned output buffer of rung ``nb`` (allocated at the rung's first
+        read; pageable memory for a rung too large to pin), copied out as a
+        new array.  Returns (array, warm): warm when the pack ``s`` has
+        served before and no buffer was allocated.  The caller holds the
+        pinned lock."""
+        served, s["served"] = s["served"], True
+        buf, new = None, False
+        if self.device.type == "cuda":
+            buf, new = self._pinned.get((nb,) + tuple(t.shape[1:]), t.dtype)
+        if buf is None:
+            return np.array(_san.sync_pull(t)), served
+        return np.array(_san.sync_pull(t, out=buf)), served and not new
+
+    def _finish(self, s: dict, raw: torch.Tensor, raw_score: bool, nb: int,
+                scale: float) -> Tuple[np.ndarray, bool]:
+        """Margins or converted outputs of the device margins ``raw``, in
+        one read (``_pull``): a random forest's tree sum times ``scale`` in
+        f64 (as the JAX package scales it on the host: the same IEEE
+        products), a raw margin as f64, a converted output in the
+        objective's dtype."""
+        if self.average_output:
+            raw = raw.double() * scale
+            if raw_score or self.objective is None:
+                return self._pull(s, raw, nb)
+            raw = raw.float()
+        elif raw_score or self.objective is None:
+            out, warm = self._pull(s, raw, nb)
+            return out.astype(np.float64), warm
+        return self._pull(s, self.objective.convert_output(raw), nb)
+
+    def _serve_note(self, entry: str, n: int, t0: float, bucket: int, warm: bool,
+                    trace_ctx=None) -> None:
+        """Record one prediction call, after its blocking read (so the time
+        covers the device work): requests and rows, and a warm call's
+        latency in ``predict_warm_latency_ms`` (labelled by entry and by
+        rung too).  A call is cold when it built its pack or its rung's
+        buffers; cold calls count as bucket misses and stay out of the
+        reservoirs.  The ``predict.<entry>`` span records the same
+        interval, a child of ``trace_ctx`` when a serving dispatcher gives
+        one."""
+        if not _obs.enabled():
+            return
+        dt_ms = (time.perf_counter() - t0) * 1e3
+        _obs.counter("predict_requests_total").inc()
+        _obs.counter("predict_rows_total").inc(n)
+        if warm:
+            _obs.counter("predict_bucket_hits_total").inc()
+            _obs.histogram("predict_warm_latency_ms").observe(dt_ms)
+            _obs.histogram(_obs.labeled("predict_warm_latency_ms",
+                                        entry=entry)).observe(dt_ms)
+            _obs.histogram(_obs.labeled("predict_warm_latency_ms",
+                                        bucket=bucket)).observe(dt_ms)
+        else:
+            _obs.counter("predict_bucket_misses_total").inc()
+        _trace.record_span(f"predict.{entry}", dt_ms / 1e3, parent=trace_ctx,
+                           rows=n, bucket=bucket, warm=warm)
 
     def predict_raw(self, X: np.ndarray, start_iteration: int = 0,
                     num_iteration: int = -1) -> torch.Tensor:
@@ -1007,42 +1373,26 @@ class GBDT:
         trees (init score folded into each class's first tree, as in a
         saved model), so an in-memory model and its text round-trip predict
         identically.  A random forest's are the trees' sum (``predict``
-        averages it)."""
-        trees = self._trees_for_export(start_iteration, num_iteration)
-        dev = self.device
-        k = self.num_tree_per_iteration
-        if not trees:
-            base = torch.as_tensor(np.asarray(self.init_scores, np.float32),
-                                   device=dev)
-            out = base.expand(np.asarray(X).shape[0], k).clone()
-            return out[:, 0] if k == 1 else out
-        s = self._stacked(trees, dev)
-        if any(t.is_linear for t in trees):
-            return torch.cat([self._linear_raw(trees, xs, s)
-                              for xs in self._row_chunks(X, len(trees))])
-        if k == 1:
-            fn = predict_ops.predict_raw_values
-        else:
-            def fn(xs, **kw):
-                return predict_ops.predict_raw_multiclass(xs, **kw, k=k)
-        return torch.cat([fn(xs, **s) for xs in self._row_chunks(X, len(trees))])
+        averages it).  Reads nothing back."""
+        s = self._packed(start_iteration, num_iteration)
+        if s is None:
+            return self._init_only(np.asarray(X).shape[0])
+        _san.record_predict()
+        return self._raw_of(s, torch.as_tensor(np.asarray(X, np.float32),
+                                               device=self.device))
 
-    def _linear_raw(self, trees: List[Tree], xs: torch.Tensor, s: dict) -> torch.Tensor:
-        """Raw margins of an ensemble with linear trees on the device: the
-        traversal's leaf of every (row, tree), then each linear tree's leaf
-        model on the raw values (ops/linear.py::predict_linear_rows), a
-        constant tree's leaf value, summed per class in tree order."""
+    def _init_only(self, n: int) -> torch.Tensor:
         k = self.num_tree_per_iteration
-        out = torch.zeros((xs.shape[0], k), dtype=torch.float32, device=xs.device)
-        _add_trees(trees, xs, _leaves_of(xs, s), 0, len(trees), k, out)
+        base = torch.as_tensor(np.asarray(self.init_scores, np.float32),
+                               device=self.device)
+        out = base.expand(n, k).clone()
         return out[:, 0] if k == 1 else out
 
-    def _average_scale(self, start_iteration: int, num_iteration: int) -> float:
-        """A random forest's 1 / (its trees a class), else 1."""
+    def _pack_scale(self, s: dict) -> float:
+        """A random forest's 1 / (the pack's trees a class), else 1."""
         if not self.average_output:
             return 1.0
-        n = len(self._trees_for_export(start_iteration, num_iteration))
-        return 1.0 / max(n // self.num_tree_per_iteration, 1)
+        return 1.0 / max(len(s["trees"]) // self.num_tree_per_iteration, 1)
 
     def _early_stop_on(self, settings: Optional[dict]) -> bool:
         on = (settings or {}).get("pred_early_stop", self.cfg.pred_early_stop)
@@ -1055,7 +1405,10 @@ class GBDT:
                 early_stop: Optional[dict] = None) -> np.ndarray:
         """The JAX package's GBDT.predict.  ``early_stop``: pred_early_stop,
         pred_early_stop_freq and pred_early_stop_margin for this call,
-        over the configuration's."""
+        over the configuration's.  A warm call (its pack cached, its rung
+        seen) stages the rows through the pack's pinned input buffer,
+        launches the traversal and makes one blocking read into the pinned
+        output buffer: no ensemble is built on the host."""
         X = np.asarray(X, dtype=np.float64)
         if pred_leaf:
             return self._predict_leaf(X, start_iteration, num_iteration)
@@ -1068,28 +1421,68 @@ class GBDT:
                 return raw
             return self._converted(torch.as_tensor(raw.astype(np.float32),
                                                    device=self.device))
-        raw = self.predict_raw(X, start_iteration, num_iteration)
-        if self.average_output:
-            # the JAX package scales the tree sum on the host in f64
-            raw64 = (raw.cpu().numpy().astype(np.float64)
-                     * self._average_scale(start_iteration, num_iteration))
+        s = self._packed(start_iteration, num_iteration)
+        n = X.shape[0]
+        if s is None:
+            raw = self._init_only(n)
             if raw_score or self.objective is None:
-                return raw64
-            raw = torch.as_tensor(raw64.astype(np.float32), device=self.device)
-        elif raw_score or self.objective is None:
-            return raw.cpu().numpy().astype(np.float64)
-        return self.objective.convert_output(raw).cpu().numpy()
+                return raw.cpu().numpy().astype(np.float64)
+            return self.objective.convert_output(raw).cpu().numpy()
+        t0 = time.perf_counter()
+        nb = _predict_bucket(n)
+        scale = self._pack_scale(s)
+        with self._pinned.lock:
+            _san.record_predict()
+            raw = self._raw_of(s, self._stage(X, nb))
+            res, warm = self._finish(s, raw, raw_score, nb, scale)
+        self._serve_note("raw" if raw_score else "predict", n, t0, nb, warm)
+        return res
+
+    def _coalescible(self, raw_score: bool) -> bool:
+        """Whether ``predict(raw_score=)`` can be served by
+        ``predict_coalesced``, bitwise: a packed ensemble without linear
+        leaves, and no prediction early stopping (its trees a row depend on
+        the margins).  A random forest's converted output is coalescible
+        here (its f64 scale runs on the device in the one read)."""
+        if self._early_stop_on(None):
+            return False
+        s = self._packed(0, -1)
+        return s is not None and not s["linear"]
+
+    def predict_coalesced(self, x: torch.Tensor, *, convert: bool,
+                          trace_ctx=None) -> np.ndarray:
+        """One coalesced serving batch (serve/runtime.py): ``x`` is the
+        staged (n, F) f32 rows of the batch's requests on the device.  One
+        traversal and one blocking read for the whole batch; each request's
+        rows, sliced out, are bitwise its own ``predict``, since rows
+        traverse independently and the conversions are row-wise.
+        ``convert=False`` gives raw margins as ``predict(raw_score=True)``.
+        Raises for a model that is not coalescible."""
+        s = self._packed(0, -1)
+        if s is None or s["linear"]:
+            raise ValueError("predict_coalesced: the model is not coalescible "
+                             "(no trees, or linear leaves): use predict()")
+        t0 = time.perf_counter()
+        n = x.shape[0]
+        nb = _predict_bucket(n)
+        with self._pinned.lock:
+            _san.record_predict()
+            raw = self._raw_of(s, x)
+            res, warm = self._finish(s, raw, not convert, nb, self._pack_scale(s))
+        self._serve_note("coalesced", n, t0, nb, warm, trace_ctx=trace_ctx)
+        return res
 
     def _predict_leaf(self, X: np.ndarray, start_iteration: int = 0,
                       num_iteration: int = -1) -> np.ndarray:
         """pred_leaf: (N, T) i32 leaf ids from the value path's traversal."""
-        trees = self._trees_for_export(start_iteration, num_iteration)
-        if not trees:
+        s = self._packed(start_iteration, num_iteration)
+        if s is None:
             return np.zeros((X.shape[0], 0), dtype=np.int32)
-        s = self._stacked(trees, self.device)
-        del s["leaf_value"]
-        out = torch.cat([predict_ops.predict_leaf_values(xs, **s)
-                         for xs in self._row_chunks(X, len(trees))])
+        x = torch.as_tensor(np.asarray(X, np.float32), device=self.device)
+        walk = {key: v for key, v in s["walk"].items() if key != "leaf_value"}
+        _san.record_predict()
+        out = torch.cat([predict_ops.predict_leaf_values(xs, **walk)
+                         for xs in self._chunks(x, len(s["trees"]))])
         return _san.sync_pull(out)
 
     def _predict_raw_early_stop(self, X: np.ndarray, start_iteration: int = 0,
@@ -1101,8 +1494,9 @@ class GBDT:
         stop taking trees.  Each chunk is one window of trees on the device
         over every row (the stopped ones masked) and one blocking read of
         the margins, which the stop test needs on the host; a row that runs
-        every chunk ends at the full prediction, bitwise.  The counts of the
-        last call are in ``early_stop_stats``."""
+        every chunk ends at the full prediction, bitwise.  The packed
+        ensemble (padded to whole windows) comes from the cache.  The
+        counts of the last call are in ``early_stop_stats``."""
         settings = settings or {}
         cfg = self.cfg
         k = self.num_tree_per_iteration
@@ -1118,9 +1512,9 @@ class GBDT:
             return self.predict_raw(X, start_iteration, 0).cpu().numpy().astype(np.float64)
         freq = min(freq, n_iters)
         window = freq * k
-        trees = self._trees_for_export(start_iteration, n_iters)
-        trees += [_dummy_tree()] * (-len(trees) % window)
-        s = self._stacked(trees, self.device)
+        p = self._packed(start_iteration, n_iters, pad_trees_to=window)
+        s, lin = p["walk"], p["lin"]
+        n_walk = s["num_leaves"].shape[0]
         x = torch.as_tensor(np.asarray(X, np.float32), device=self.device)
         shape = (n,) if k == 1 else (n, k)
         raw_dev = torch.zeros(shape, dtype=torch.float32, device=self.device)
@@ -1128,8 +1522,9 @@ class GBDT:
         raw = np.zeros(shape, dtype=np.float64)
         # linear leaves: the window's trees added onto the margins in tree
         # order (_add_trees), as _linear_raw adds all of them
-        leaves = _leaves_of(x, s) if any(t.is_linear for t in trees) else None
-        for ci in range(len(trees) // window):
+        trees = p["trees"] + [_dummy_tree()] * (n_walk - len(p["trees"]))
+        leaves = _leaves_of(x, s) if p["linear"] else None
+        for ci in range(n_walk // window):
             act = torch.as_tensor(active, device=self.device)
             if leaves is None:
                 raw_dev = predict_ops.predict_raw_window(
@@ -1137,7 +1532,7 @@ class GBDT:
             else:
                 acc = raw_dev.reshape(n, k)
                 nxt = _add_trees(trees, x, leaves, ci * window, (ci + 1) * window, k,
-                                 acc.clone())
+                                 acc.clone(), lin)
                 raw_dev = torch.where(act[:, None], nxt, acc).reshape(shape)
             # the stop test is a host dependency: one blocking read a chunk
             raw = _san.sync_pull(raw_dev).astype(np.float64)
@@ -1242,17 +1637,19 @@ class GBDT:
             return "regression sqrt"
         return o
 
-    def _trees_for_export(self, start: int, num_iteration: int) -> List[Tree]:
+    def _trees_for_export(self, start: int, num_iteration: int,
+                          fold: bool = True) -> List[Tree]:
         """The trees of iterations [start, start + num_iteration), with each
         class's init score folded into its first tree (reference:
         Tree::AddBias), so the saved model is self-contained; a random
-        forest folds it into every tree, so the trees' mean carries it."""
+        forest folds it into every tree, so the trees' mean carries it.
+        ``fold=False``: the pure-delta trees (the snapshot form)."""
         k = self.num_tree_per_iteration
         lo = start * k
         hi = (len(self.models) if num_iteration < 0
               else min((start + num_iteration) * k, len(self.models)))
         trees = list(self.models[lo:hi])
-        if lo != 0 or not any(s != 0.0 for s in self.init_scores):
+        if not fold or lo != 0 or not any(s != 0.0 for s in self.init_scores):
             return trees
         for i in (range(len(trees)) if self.average_output
                   else range(min(k, len(trees)))):
@@ -1267,11 +1664,18 @@ class GBDT:
 
     def save_model_to_string(self, num_iteration: int = -1,
                              start_iteration: int = 0,
-                             importance_type: Optional[str] = None) -> str:
+                             importance_type: Optional[str] = None,
+                             raw_deltas: bool = False) -> str:
+        """The model text.  ``raw_deltas``: the snapshot form of the JAX
+        package: the trees stay pure deltas at full precision (%.17g) and
+        the init scores ride an exact ``init_scores=`` header line, so a
+        run resumed from it rebuilds the training score bitwise (folding
+        rounds v0 + init in f64, which f32(init) + f32(v0) does not)."""
         if importance_type is None:
             importance_type = ("gain" if int(self.cfg.saved_feature_importance_type) == 1
                                else "split")
-        trees = self._trees_for_export(start_iteration, num_iteration)
+        trees = self._trees_for_export(start_iteration, num_iteration,
+                                       fold=not raw_deltas)
         feature_names = self.feature_names
         if self.binner is not None:
             infos = []
@@ -1284,7 +1688,7 @@ class GBDT:
                     infos.append(f"[{m.min_value:g}:{m.max_value:g}]")
         else:
             infos = ["none"] * len(feature_names)
-        blocks = [t.to_string(i) for i, t in enumerate(trees)]
+        blocks = [t.to_string(i, precise=raw_deltas) for i, t in enumerate(trees)]
         lines = [
             "tree",
             f"version={_MODEL_VERSION}",
@@ -1294,6 +1698,8 @@ class GBDT:
             f"max_feature_idx={len(feature_names) - 1}",
             f"objective={self._objective_string()}",
             *(["average_output"] if self.average_output else []),
+            *(["init_scores=" + " ".join(repr(float(v)) for v in self.init_scores)]
+              if raw_deltas else []),
             "feature_names=" + " ".join(feature_names),
             "feature_infos=" + " ".join(infos),
             "tree_sizes=" + " ".join(str(len(b) + 1) for b in blocks),
@@ -1481,12 +1887,15 @@ def _leaves_of(xs: torch.Tensor, s: dict) -> torch.Tensor:
 
 
 def _add_trees(trees: List[Tree], xs: torch.Tensor, leaves: torch.Tensor, lo: int,
-               hi: int, k: int, out: torch.Tensor) -> torch.Tensor:
+               hi: int, k: int, out: torch.Tensor, tables=None) -> torch.Tensor:
     """``out`` (N, K) plus the values of trees [lo, hi) (tree i in class
     i % K), one after another: a linear tree's leaf models on the raw
-    values, a constant tree's leaf values.  In place; returns ``out``."""
+    values, a constant tree's leaf values.  ``tables``: the trees'
+    ``_linear_tables`` on the device already (a pack's).  In place;
+    returns ``out``."""
     for i in range(lo, hi):
-        linear = _linear_tables(trees[i], xs.device)
+        linear = (_linear_tables(trees[i], xs.device) if tables is None
+                  else tables[i])
         if linear is None:
             vals = torch.as_tensor(np.asarray(trees[i].leaf_value, np.float32),
                                    device=xs.device)[leaves[:, i]]

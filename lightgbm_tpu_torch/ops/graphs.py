@@ -20,6 +20,13 @@ the same round function runs eagerly on the same buffers, with no capture.
 
 Nothing falls back: a failed capture or replay raises, and a tree whose
 buffers or fixed inputs do not match the captured ones is refused.
+
+A capture runs in CUDA's thread-local capture mode (``CAPTURE_ERROR_MODE``)
+on its private stream, so a serving thread of the same process may launch,
+allocate, pin host memory and read the card while a training thread
+captures (train while serving, as the JAX package's continual runtime
+does).  torch's default, the global mode, makes such a call in any thread
+fail the capture.  The captured work is the same in either mode.
 """
 
 from __future__ import annotations
@@ -30,6 +37,10 @@ import torch
 
 from ..utils import sanitizer as _san
 from . import cuda_build, partition_cuda
+
+# cudaStreamCaptureModeThreadLocal: only the capturing thread is held to
+# the capture's rules (the module docstring)
+CAPTURE_ERROR_MODE = "thread_local"
 
 
 def _map(fn, tree):
@@ -139,7 +150,8 @@ class RoundGraphs:
         tally: list = []
         cuda_build._tallies.append(tally)
         try:
-            with torch.cuda.graph(graph, pool=self._pool, stream=side):
+            with torch.cuda.graph(graph, pool=self._pool, stream=side,
+                                  capture_error_mode=CAPTURE_ERROR_MODE):
                 body(self.buffers)
         finally:
             cuda_build._tallies.pop()

@@ -66,16 +66,28 @@ the partition and the split's go-left test read the feature bins.
 Per-node feature sampling (extra_trees, feature_fraction_bynode: the
 tree's uniform table ``rng_key``, indexed by node id as in
 ops/treegrow.py) is outside the megakernel's envelope too, as in the JAX
-package: it takes the three-pass round and reports "node_rng".  The obs
-spans and counters of the JAX round loop wait for ROADMAP A14.
+package: it takes the three-pass round and reports "node_rng".
+
+Telemetry (obs/, under the JAX package's names): the round loop records
+each resolved round's ``train_window_rows`` and ``train_window_fill``
+histograms and ``windowed_round`` span, and each tree's
+``train_windowed_rounds_total`` / ``train_windowed_retries_total``, the
+``windowed_tree`` event and span; the gate counts
+``train_megakernel_trees_total`` and ``megakernel_envelope_fallbacks_total``.
+All of it runs on the host loop around the launches (never inside a
+captured round, whose body a CUDA graph replays without the host) and
+reads only what the loop has read already.
 """
 
 from __future__ import annotations
 
+import time
 from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from ..obs import metrics as _obs
+from ..obs import trace as _trace
 from ..utils import sanitizer as _san
 from ..utils.guards import NonFiniteError
 from ..utils.log import log_warning
@@ -487,6 +499,9 @@ def _run_fused_rounds(round_fn, state, *, n_ladder: Optional[int],
     max_rounds = 2 * num_leaves + 4
     converged = False
     resolved = 0
+    # the windowed grower's telemetry (the rounds grower shares this loop)
+    tele = n is not None and _obs.enabled()
+    t_open = t_prev = time.perf_counter()
     try:
         while len(windows) < max_rounds:
             _san.record_dispatch()
@@ -498,8 +513,20 @@ def _run_fused_rounds(round_fn, state, *, n_ladder: Optional[int],
             k_acc, total, ok, whint, finite, k_next = (
                 int(v) for v in _san.async_pull_result(pending.pop(0)))
             resolved += 1
-            # (span and counter telemetry of this loop: ROADMAP A14)
+            if tele:
+                # the resolve just made is the loop's own read: the span
+                # from the previous one is the round that retired between
+                w_ran = windows[resolved - 1]
+                _obs.histogram("train_window_rows").observe(total)
+                _obs.histogram("train_window_fill").observe(total / max(w_ran, 1))
+                t_now = time.perf_counter()
+                _trace.record_span("windowed_round", t_now - t_prev, round=resolved,
+                                   k_acc=k_acc, rows=total, W=w_ran, whint=whint,
+                                   first=resolved == 1)
+                t_prev = t_now
             if not finite:
+                _obs.counter("train_nonfinite_errors_total").inc()
+                _obs.event("nonfinite", phase="windowed", round=resolved)
                 raise NonFiniteError(
                     f"non-finite gradients/hessians/split stats on the device "
                     f"at round {resolved}{guard_label}: refusing to keep "
@@ -521,7 +548,16 @@ def _run_fused_rounds(round_fn, state, *, n_ladder: Optional[int],
         while pending:
             info = _san.async_pull_result(pending.pop(0))
             resolved += 1
+            if tele:
+                t_now = time.perf_counter()
+                _trace.record_span("windowed_round", t_now - t_prev, round=resolved,
+                                   k_acc=int(info[0]), rows=int(info[1]),
+                                   W=windows[resolved - 1], whint=int(info[3]),
+                                   first=resolved == 1, drained=True)
+                t_prev = t_now
             if not int(info[4]):
+                _obs.counter("train_nonfinite_errors_total").inc()
+                _obs.event("nonfinite", phase="windowed_drain", round=resolved)
                 raise NonFiniteError(
                     f"non-finite gradients/hessians/split stats on the device "
                     f"at round {resolved}{guard_label} (drained "
@@ -530,6 +566,14 @@ def _run_fused_rounds(round_fn, state, *, n_ladder: Optional[int],
         pending.clear()
         if stats is not None:
             stats.update(retries=retries, windows=windows)
+        if tele:
+            rounds = len(windows)
+            _obs.counter("train_windowed_rounds_total").inc(rounds)
+            _obs.counter("train_windowed_retries_total").inc(retries)
+            _obs.event("windowed_tree", rounds=rounds, retries=retries,
+                       resolved=resolved)
+            _trace.record_span("windowed_tree", time.perf_counter() - t_open,
+                               rounds=rounds, retries=retries)
     if not converged:
         log_warning(
             f"round-batched growth exhausted its round budget ({max_rounds} "
@@ -565,6 +609,8 @@ def megakernel_mode(on_card: bool, *, quantize_bins: int = 0, efb: bool = False,
               else "quantized" if quantize_bins and on_card else None)
     if reason is not None:
         _san.record_megakernel_fallback()
+        _obs.counter("megakernel_envelope_fallbacks_total").inc()
+        _obs.event("megakernel_fallback", reason=reason)
         return False, reason
     return True, None
 
@@ -620,6 +666,8 @@ def grow_tree_windowed(
                                        efb=efb is not None,
                                        node_rng=rng_key is not None,
                                        mode=megakernel_opt)
+        if mk and _obs.enabled():
+            _obs.counter("train_megakernel_trees_total").inc()
         tile = max(1, min(leaf_tile, num_leaves))
         static = dict(num_leaves=num_leaves, num_bins=num_bins, max_depth=max_depth,
                       params=params, leaf_tile=tile, quantize_bins=quantize_bins,

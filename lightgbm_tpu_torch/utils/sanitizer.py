@@ -23,18 +23,51 @@ none.  ``megakernel_fallbacks`` counts windowed trees whose configuration
 the round megakernel excludes (ops/treegrow_windowed.py::megakernel_mode:
 EFB bundles, int8 on the card), the JAX package's
 megakernel_envelope_fallbacks_total.
+
+Serving adds ``predicts``: traversals launched by a prediction entry
+(``GBDT.predict_raw``, ``predict_coalesced``; the JAX package counts them
+as dispatches), each followed by one counted blocking read (``sync_pull``
+into the model's pinned output buffer), so "one read a coalesced batch" is
+a DispatchCounter assertion.  :meth:`DispatchCounter.assert_round_budget`
+and :class:`BudgetError` are the JAX package's gate.  Every metrics
+snapshot reads these counts through a collector (the JAX package's
+``device_*_total`` counters).  The JAX package's compile, trace and
+donation counters have no torch meaning and are not carried over
+(ROADMAP).
 """
 
 from __future__ import annotations
 
-import threading
+from typing import Optional
 
 import numpy as np
 import torch
 
-_lock = threading.Lock()
+from ..obs import metrics as _obs
+from . import locktrace as _lt
+
+_lock = _lt.lock("sanitizer.counts")
 _counts = {"rounds": 0, "host_syncs": 0, "async_resolves": 0, "captures": 0,
-           "replays": 0, "dispatches": 0, "megakernel_fallbacks": 0}
+           "replays": 0, "dispatches": 0, "megakernel_fallbacks": 0,
+           "predicts": 0}
+
+
+def _obs_collect() -> dict:
+    """Snapshot-time bridge into the metrics registry: this module stays
+    the one ledger, and every metrics snapshot reads it once here
+    (process-cumulative, as the JAX package's collector)."""
+    with _lock:
+        c = dict(_counts)
+    return {"counters": {
+        "device_dispatches_total": c["rounds"] + c["predicts"],
+        "device_host_syncs_total": c["host_syncs"],
+        "device_async_resolves_total": c["async_resolves"],
+        "device_graph_captures_total": c["captures"],
+        "device_graph_replays_total": c["replays"],
+    }}
+
+
+_obs.register_collector("sanitizer", _obs_collect)
 
 
 def record_dispatch(n: int = 1) -> None:
@@ -64,11 +97,26 @@ def record_replay(replayed: bool) -> None:
         _counts["replays"] += int(replayed)
 
 
-def sync_pull(x: torch.Tensor) -> np.ndarray:
-    """Blocking host read of a device value."""
+def record_predict() -> None:
+    """Count a traversal launched by a prediction entry."""
+    with _lock:
+        _counts["predicts"] += 1
+
+
+def sync_pull(x: torch.Tensor, out: Optional[torch.Tensor] = None) -> np.ndarray:
+    """Blocking host read of a device value.  ``out``: a host buffer (pinned
+    on the card) of at least x's rows and x's dtype, which receives the
+    value; the result is then a view of it, valid until it is written
+    again."""
     with _lock:
         _counts["host_syncs"] += 1
-    return x.cpu().numpy()
+    if out is None:
+        return x.cpu().numpy()
+    dst = out[: x.shape[0]]
+    dst.copy_(x, non_blocking=x.is_cuda)
+    if x.is_cuda:
+        torch.cuda.current_stream(x.device).synchronize()
+    return dst.numpy()
 
 
 class PendingPull:
@@ -98,6 +146,10 @@ def async_pull_result(p: PendingPull) -> np.ndarray:
     if p.event is not None:
         p.event.synchronize()
     return p.host.numpy()
+
+
+class BudgetError(AssertionError):
+    """A host loop exceeded its launch or blocking-read budget."""
 
 
 class DispatchCounter:
@@ -139,6 +191,25 @@ class DispatchCounter:
     @property
     def dispatches(self) -> int:
         return self._delta("dispatches")
+
+    @property
+    def predicts(self) -> int:
+        return self._delta("predicts")
+
+    def assert_round_budget(self, rounds: int, *, dispatches_per_round: int = 1,
+                            syncs_per_round: int = 0,
+                            what: str = "round loop") -> None:
+        """The JAX package's steady-state contract of a round loop: exactly
+        ``dispatches_per_round`` launched rounds (prediction traversals
+        count too) and ``syncs_per_round`` blocking reads a round."""
+        got_d = self.rounds + self.predicts
+        got_s = self.host_syncs
+        want_d, want_s = rounds * dispatches_per_round, rounds * syncs_per_round
+        if got_d != want_d or got_s != want_s:
+            raise BudgetError(
+                f"{what}: {rounds} round(s) budgeted {want_d} launch(es) + "
+                f"{want_s} blocking read(s), observed {got_d} + {got_s} "
+                f"(async resolves: {self.async_resolves})")
 
     def stats(self) -> dict:
         """Every count over the block so far."""

@@ -21,6 +21,12 @@ columns, the tile from F_b) against its plain version, unbundling on the
 card against the CPU, a bundled CSR training graph == eager with no
 blocking read, and the windowed grower's three-pass round over bundles.
 
+The runtime: predict cached (the packed ensemble on the card) == uncached
+bitwise, 1,000 coalesced batches through the serving runtime's pinned
+staging, each bitwise, training in graph mode while a runtime serves
+(thread-local capture), and the probe that global-mode capture fails
+beside a reading thread.
+
 Tolerances: int8 histograms are exact; float histograms are held to
 1e-5 * (max|hess| + 1), the f32 summation-order bound, though the 64-bit
 fixed point makes kernel and plain version agree bit for bit.  The
@@ -1304,3 +1310,184 @@ def test_windowed_node_sampling_takes_the_three_pass_round():
     assert partition_cuda.launches["partition_segments"] > 0
     br = tlgb.train(p, tlgb.Dataset(X, label=y, params=p), 2)
     chip_smoke.trees_agree(bw, br)
+
+
+# ---------------------------------------------------------------------------
+# the runtime: the cached ensemble, pinned staging, training while serving
+# ---------------------------------------------------------------------------
+
+def _card_booster(n=20_000, f=12, rounds=10, seed=0, **extra):
+    import lightgbm_tpu_torch as lgt
+
+    rng = np.random.RandomState(seed)
+    X = rng.randn(n, f)
+    y = (X[:, 0] + 0.5 * X[:, 1] * X[:, 2] + 0.3 * rng.randn(n) > 0).astype(float)
+    p = {"objective": "binary", "num_leaves": 31, "verbosity": -1, **extra}
+    return lgt.train(p, lgt.Dataset(X, label=y, params=p), rounds), X, y, p
+
+
+def test_cached_and_uncached_predict_agree_bitwise():
+    """A warm predict (the packed ensemble cached on the card, its rung's
+    pinned buffers reused) and one that packs and uploads the ensemble
+    again (the version bumped first) give the same bits, raw and converted,
+    at every rung; a warm call is one traversal and one blocking read."""
+    from lightgbm_tpu_torch.utils import sanitizer as san
+
+    _card()
+    bst, X, _, _ = _card_booster()
+    g = bst._gbdt
+    for n in (1, 7, 1024, 20_000):
+        for raw in (False, True):
+            warm = bst.predict(X[:n], raw_score=raw)
+            with san.DispatchCounter() as c:
+                again = bst.predict(X[:n], raw_score=raw)
+            assert (c.predicts, c.host_syncs) == (1, 1)
+            g._invalidate_pred_cache("test")
+            cold = bst.predict(X[:n], raw_score=raw)
+            assert np.array_equal(warm, again) and np.array_equal(warm, cold), (n, raw)
+
+
+def test_pinned_buffers_are_the_models_and_bounded_in_bytes(monkeypatch):
+    """The pinned host buffers belong to the model, not to a pack: after a
+    version bump the new pack reads through the same buffers and nothing
+    is pinned again.  A rung whose buffer would hold more than
+    _PINNED_MAX_BYTES stages through two pinned chunk buffers in turns
+    (59 chunks here, each written again only after its last upload) and
+    predicts the same bits."""
+    from lightgbm_tpu_torch.models import gbdt as gm
+
+    _card()
+    bst, X, _, _ = _card_booster()
+    g = bst._gbdt
+    want = {n: bst.predict(X[:n]) for n in (1024, 5000)}
+    held = dict(g._pinned.bufs)
+    assert held and g._pinned.nbytes() > 0
+    g._invalidate_pred_cache("test")
+    assert np.array_equal(bst.predict(X[:1024]), want[1024])
+    assert g._pinned.bufs.keys() == held.keys()
+    assert all(g._pinned.bufs[k] is v for k, v in held.items())
+    g._pinned.bufs.clear()
+    monkeypatch.setattr(gm, "_PINNED_MAX_BYTES", 1 << 12)  # under rung 8192's
+    assert np.array_equal(bst.predict(X[:5000]), want[5000])
+    assert not any(k[0][0] == 8192 for k in g._pinned.bufs)
+    chunks = [b for k, b in g._pinned.bufs.items() if k[2] > 0]
+    assert len(chunks) == 2
+    assert all(b.numel() * b.element_size() <= 1 << 12 for b in chunks)
+
+
+def test_pinned_staging_is_reused_only_after_its_upload():
+    """1,000 coalesced batches through the runtime, their rows changing
+    every batch, so a pinned pair written again before its upload landed
+    would corrupt a batch: every response bitwise its Booster.predict."""
+    import threading
+
+    from lightgbm_tpu_torch.serve import ServingRuntime
+
+    _card()
+    bst, X, _, _ = _card_booster()
+    sizes = (1, 7, 64, 300)
+    keys = [((i * 37) % 19_000, sizes[i % 4]) for i in range(250)]
+    want = {k: bst.predict(X[k[0]:k[0] + k[1]]) for k in set(keys)}
+    errors, done = [], []
+    with ServingRuntime(bst, max_wait_ms=0.5, shed_unhealthy=False) as rt:
+        def client(t):
+            try:
+                for j in range(250):
+                    o, n = keys[(j + t * 61) % len(keys)]
+                    got = rt.predict(X[o:o + n], timeout=120)
+                    assert np.array_equal(got, want[(o, n)]), (o, n)
+                    done.append(1)
+            except BaseException as e:  # noqa: BLE001
+                errors.append(e)
+
+        ts = [threading.Thread(target=client, args=(t,)) for t in range(4)]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join(300)
+        batches = rt.stats()
+    from lightgbm_tpu_torch.obs import metrics as obs
+
+    assert not errors, errors[:3]
+    assert len(done) == 1000 and batches["queue_depth"] == 0
+    assert obs.counter("serve_batches_total").value >= 250
+
+
+def test_training_in_graph_mode_while_a_runtime_serves():
+    """A training thread captures and replays its rounds while serving
+    threads launch, allocate, pin and read: the capture (thread-local mode,
+    ops/graphs.py) succeeds and the trees are those of the training alone."""
+    import threading
+
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.serve import ServingRuntime
+
+    _card()
+    bst, X, y, p = _card_booster()
+    want = bst.predict(X[:300])
+    stop, errors, served = threading.Event(), [], [0]
+    with ServingRuntime(bst, max_wait_ms=0.5, shed_unhealthy=False) as rt:
+        def client():
+            try:
+                while not stop.is_set():
+                    assert np.array_equal(rt.predict(X[:300], timeout=120), want)
+                    served[0] += 1
+            except BaseException as e:  # noqa: BLE001
+                errors.append(e)
+
+        ts = [threading.Thread(target=client) for _ in range(3)]
+        for t in ts:
+            t.start()
+        try:
+            during = lgt.train({**p, "seed": 3}, lgt.Dataset(X, label=y, params=p), 5)
+        finally:
+            stop.set()
+            for t in ts:
+                t.join(120)
+    alone = lgt.train({**p, "seed": 3}, lgt.Dataset(X, label=y, params=p), 5)
+    st = during._gbdt.round_stats
+    assert not errors and served[0] > 0
+    assert sum(s["captures"] for s in st) >= 1 and all(s["replays"] == s["rounds"] for s in st)
+    assert during.model_to_string() == alone.model_to_string()
+
+
+_GLOBAL_CAPTURE = """
+import sys, threading
+import numpy as np, torch
+sys.path.insert(0, {repo!r})
+import lightgbm_tpu_torch as lgt
+from lightgbm_tpu_torch.ops import graphs
+graphs.CAPTURE_ERROR_MODE = "global"
+rng = np.random.RandomState(0)
+X = rng.randn(20000, 12); y = (X[:, 0] > 0).astype(float)
+p = {{"objective": "binary", "num_leaves": 31, "verbosity": -1}}
+stop = threading.Event()
+def reads():
+    while not stop.is_set():
+        torch.ones(1000, device="cuda").sum().item()
+        torch.empty(1 << 16, pin_memory=True)
+t = threading.Thread(target=reads, daemon=True); t.start()
+try:
+    lgt.train(p, lgt.Dataset(X, label=y, params=p), 5)
+    print("GLOBAL_CAPTURE_OK")
+except Exception as e:
+    print("GLOBAL_CAPTURE_FAILED", type(e).__name__, str(e)[:200])
+stop.set()
+"""
+
+
+def test_global_capture_mode_is_broken_by_a_reading_thread():
+    """Why ops/graphs.py captures in thread-local mode: with torch's default
+    global mode, another thread that reads the card and pins host memory
+    while a training captures makes the capture (or that thread's call)
+    fail.  Run in a subprocess, whose CUDA context the failure may spoil."""
+    import os
+    import subprocess
+    import sys
+
+    _card()
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    r = subprocess.run([sys.executable, "-c", _GLOBAL_CAPTURE.format(repo=repo)],
+                       capture_output=True, text=True, timeout=600)
+    print(r.stdout[-2000:], r.stderr[-2000:])
+    assert "GLOBAL_CAPTURE_OK" not in r.stdout, "global-mode capture survived"

@@ -40,6 +40,31 @@ def test_sources_reference_no_jax():
     assert not hits, hits
 
 
+def test_runtime_subpackages_import_no_jax():
+    """obs/, serve/ and the runtime utilities (copies of the JAX package's
+    stdlib modules, and the torch rewrites beside them) import neither JAX
+    nor the JAX package, and the source scan above reads every file of
+    theirs."""
+    mods = ["lightgbm_tpu_torch.obs", "lightgbm_tpu_torch.obs.__main__",
+            "lightgbm_tpu_torch.serve", "lightgbm_tpu_torch.serve.fleet",
+            "lightgbm_tpu_torch.serve.runtime", "lightgbm_tpu_torch.utils.checkpoint",
+            "lightgbm_tpu_torch.utils.faults", "lightgbm_tpu_torch.utils.locktrace",
+            "lightgbm_tpu_torch.utils.profiling"]
+    code = ("import importlib, sys\n"
+            f"for m in {mods!r}: importlib.import_module(m)\n"
+            "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
+            "or m == 'lightgbm_tpu' or m.startswith('lightgbm_tpu.'))\n"
+            "print(bad); sys.exit(1 if bad else 0)")
+    env = {**os.environ, "PYTHONPATH": str(ROOT)}
+    res = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT), env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+    scanned = {p.relative_to(PORT).parts[0] for p in PORT.rglob("*.py")}
+    assert {"obs", "serve", "utils"} <= scanned
+    assert len(list((PORT / "obs").glob("*.py"))) == 5
+    assert len(list((PORT / "serve").glob("*.py"))) == 3
+
+
 def _small():
     rng = np.random.RandomState(0)
     X = rng.randn(300, 4)
@@ -57,6 +82,8 @@ def test_no_card_raises_instead_of_cpu(monkeypatch, device_type):
         tlgb.Dataset(X, label=y, params=params).construct()
     with pytest.raises(RuntimeError, match="no CUDA card"):
         tlgb.train(params, tlgb.Dataset(X, label=y), 1)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        tlgb.serve(None, dict(params), models={})
 
 
 def test_unknown_device_type_rejected():

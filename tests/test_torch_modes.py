@@ -319,13 +319,18 @@ def test_init_model_continues_as_jax_does(source, tmp_path):
 
 
 def test_init_model_from_a_snapshot_is_not_ported():
+    """Snapshots are ported now (ROADMAP A14; the name is kept, and
+    tests/test_torch_resume.py holds the resume itself): a snapshot that
+    does not exist raises instead of training from nothing, and
+    resume="auto" without any snapshot trains from scratch."""
     X, y, _ = _data("regression")
     p = _params("regression", device_type="cpu")
-    with pytest.raises(NotImplementedError, match="A14"):
+    with pytest.raises(FileNotFoundError):
         tlgb.train(p, tlgb.Dataset(X, label=y, params=p), 1,
                    init_model="model.txt.snapshot_iter_5")
-    with pytest.raises(NotImplementedError, match="A14"):
-        tlgb.train({**p, "resume": "auto"}, tlgb.Dataset(X, label=y, params=p), 1)
+    out = {"output_model": "no_such_dir/model.txt"}
+    bst = tlgb.train({**p, **out, "resume": "auto"}, tlgb.Dataset(X, label=y, params=p), 1)
+    assert bst.num_trees() == 1
 
 
 @pytest.mark.parametrize("mode", ["strict", "rounds"])
