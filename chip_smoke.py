@@ -166,7 +166,30 @@ Imports no JAX.  Phases, one line each; any failure exits non-zero:
               no request lost; (d) 5 graph-mode rounds trained while 4
               clients keep the runtime busy: captured and replayed, the
               model text of a 5-round run alone;
- 19. device   nvidia-smi's name and power limit.
+ 19. fleet    lgb.train_fleet on phase 3's bins: 16 lanes (lane b's labels
+              the Higgs labels with 5% flipped by RandomState(SEED + b),
+              lanes 8-15 weighing a seeded 20% of rows 0, lanes 12-15 5
+              rounds), 10 float rounds graph and eager, 5 int8 (16 gradient
+              bins) graph: lanes 0, 5, 10, 15 bitwise their solo windowed runs
+              (sha256), lane-mode B1 and B2 one launch each a fleet round,
+              model-rounds/s against the solo runs, lane 0's held-out AUC, a
+              profiled window's idle share; the lane kernels at L = 16, W =
+              131,072 a lane bitwise their plain versions, with times, bounds
+              and the library yardsticks (at most 60 s);
+ 20. ooc      phase 3's bins as a stored bin cache: (a) resident, chunk
+              131,072, phase 3's sha256; (b) spill, max_rows_in_hbm 262,144,
+              chunks 131,072 and 65,536, 5 rounds, phase 10's strict sha256,
+              streamed rows/s, GB/s, chunk launches a tree, blocking reads a
+              split, the carried B1 bitwise its plain version with times;
+              (c) 65,536 rows appended as a segment, read back bitwise,
+              compacted (at most 60 s);
+ 21. continual phase 3's model behind lgb.serve, 8 clients: 4 ingested
+              chunks of 65,536 Higgs rows, a refit rollover and an append
+              rollover (2 trees), each bitwise its offline application, the
+              card's refit within 1e-6 of the CPU's, staleness gauges 0 after
+              each, every response bitwise one version's predict (at most
+              60 s);
+ 22. device   nvidia-smi's name and power limit.
 
 Then a JSON line with every kernel's numbers (launches on the main path,
 graph mode; whether it runs inside a graph and its launches a replay; B1
@@ -174,7 +197,8 @@ once for each call site: Higgs rounds, Epsilon root and window, strict,
 multiclass, LambdaRank, GOSS, DART, random forest, Criteo float and bf16,
 Expo float, int8 and window pass, the monotone site and the per-node
 sampling window pass; B2 at the Epsilon and Expo geometries and at the
-per-node sampling site; B3 numerical and categorical), and last the device
+per-node sampling site; B3 numerical and categorical; B1 and B2 in their
+lane mode and B1 in its carried mode), and last the device
 line {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --turns CHECKOUT
@@ -3486,6 +3510,537 @@ def runtime_phase(lgt, base, higgs, counts, plain_total):
         raise AssertionError(f"phase 18 took {secs:.2f} s, over its 60 s")
 
 
+# ---------------------------------------------------------------------------
+# phases 19-21: the booster fleet, out-of-core training, continual training,
+# on phase 3's binned Higgs set (nothing binned again)
+# ---------------------------------------------------------------------------
+FLEET_LANES, FLEET_ROUNDS, FLEET_ROUNDS_INT8 = 16, 10, 5
+FLEET_SHORT = 5  # rounds of lanes 12-15
+FLEET_PARITY = (0, 5, 10, 15)
+# lane 0's held-out AUC: the card read 0.83696 (PERF.md); the floor is 0.01 under
+AUC_FLOOR_FLEET = 0.826
+FLEET_W = 131_072  # positions a lane in the lane kernels' check
+OOC_CHUNKS, OOC_SPILL_CAP, OOC_SPILL_ROUNDS = (131_072, 65_536), 262_144, 5
+OOC_APPEND_ROWS = 65_536
+CONT_EVERY, CONT_APPEND, CONT_CHUNK, CONT_CHUNKS, CONT_CLIENTS = 131_072, 2, 65_536, 4, 8
+PHASE_LIMIT_S = 60.0
+
+
+def phase_time(name, t_phase):
+    secs = time.perf_counter() - t_phase
+    if secs > PHASE_LIMIT_S:
+        raise AssertionError(f"phase {name} took {secs:.2f} s, over its "
+                             f"{PHASE_LIMIT_S:.0f} s limit")
+    return secs
+
+
+def fleet_labels(ytr):
+    """Phase 19's lanes: lane b's labels are the Higgs labels with 5% of
+    rows flipped by RandomState(SEED + b); lanes 8-15 weigh a seeded 20% of
+    the rows (one tenant's) 0; lanes 12-15 take FLEET_SHORT rounds."""
+    n = len(ytr)
+    labels = np.empty((FLEET_LANES, n))
+    for b in range(FLEET_LANES):
+        flip = np.random.RandomState(SEED + b).rand(n) < 0.05
+        labels[b] = np.where(flip, 1.0 - ytr, ytr)
+    weights = np.ones((FLEET_LANES, n))
+    weights[8:, np.random.RandomState(SEED + 100).rand(n) < 0.2] = 0.0
+    return labels, weights
+
+
+def lane_kernel_case(hc, bins, num_bins, tile, dev, quantized):
+    """B1's lane mode at L = FLEET_LANES, W = FLEET_W a lane on the real
+    bins: windows of distinct rows (a permutation's prefix, slots in
+    ranges, 5% padding), kernel against its plain version on the card
+    (bitwise), times, bound and the index_add_ yardstick."""
+    n, f = bins.shape
+    L, W = FLEET_LANES, FLEET_W
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 19)
+    rows = torch.stack([torch.randperm(n, generator=g, device=dev)[:W]
+                        for _ in range(L)]).to(torch.int32)
+    slot = (torch.arange(W, device=dev) * tile // W).to(torch.int32).repeat(L, 1)
+    slot[:, int(W * 0.95):] = -1
+    mask = torch.rand(L, n, generator=g, device=dev) < 0.9
+    if quantized:
+        gv = torch.randint(-8, 9, (L, n), generator=g, device=dev, dtype=torch.int8)
+        hv = torch.randint(0, 17, (L, n), generator=g, device=dev, dtype=torch.int8)
+        args = (bins, gv, hv, mask, rows, slot, tile, num_bins)
+        kern, plain = hc.histogram_multi_quantized_lanes, hc.histogram_multi_quantized_lanes_plain
+        dt, vb = torch.int32, 1
+    else:
+        gv = torch.randn(L, n, generator=g, device=dev)
+        hv = torch.rand(L, n, generator=g, device=dev) * 0.25
+        shift = torch.stack([hc.fixed_shift_tensor(gv[l], hv[l]) for l in range(L)])
+        args = (bins, gv, hv, mask, rows, slot, shift, tile, num_bins)
+        kern, plain = hc.histogram_multi_lanes, hc.histogram_multi_lanes_plain
+        dt, vb = torch.float32, 4
+    k1, k2, p = kern(*args), kern(*args), plain(*args)
+    torch.cuda.synchronize()
+    if not (torch.equal(k1, k2) and torch.equal(k1, p)):
+        raise AssertionError(f"lane-mode B1 ({'int8' if quantized else 'float'}) differs "
+                             "from its plain version or between launches")
+    ms = cuda_ms(lambda: kern(*args))
+    plain_ms = cuda_ms(lambda: plain(*args), iters=2, warmup=1)
+    # the yardstick: one index_add_ over flat (lane, slot, feature, bin) cells
+    lane_i, pos = torch.nonzero((slot >= 0) & torch.gather(mask, 1, rows.long()),
+                                as_tuple=True)
+    r = rows[lane_i, pos].long()
+    s_ = slot[lane_i, pos].long()
+    feat = torch.arange(f, device=dev)
+    idx = (((lane_i * tile + s_)[:, None] * f + feat) * num_bins
+           + bins[r].long()).reshape(-1)
+    v = torch.stack([gv[lane_i, r].to(dt), hv[lane_i, r].to(dt),
+                     torch.ones_like(r, dtype=dt)], 1)[:, None, :].expand(-1, f, -1)
+    v = v.reshape(-1, 3).contiguous()
+    acc = torch.zeros((L * tile * f * num_bins, 3), dtype=dt, device=dev)
+
+    def lib():
+        acc.zero_()
+        acc.index_add_(0, idx, v)
+
+    library_ms = cuda_ms(lib)
+    nbytes = (L * W * 8 + int(r.numel()) * (1 + 2 * vb) + sector_bytes(r, f * 2)
+              + L * tile * 3 * f * num_bins * 4)
+    b_ms, b_by = bound_of(nbytes, int(r.numel()) * f * 3)
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms,
+                bound_by=b_by, max_abs_err=0.0, tile=tile, rows=int(r.numel()))
+
+
+def partition_lanes_case(pc, n, dev):
+    """B2's lane mode at L = FLEET_LANES lanes of n positions, 8 segments
+    a lane covering about a third of them, against its plain version on
+    the card (bitwise), times, bound and a stable sort as the yardstick."""
+    L, S = FLEET_LANES, 8
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 20)
+    order = torch.stack([torch.randperm(n, generator=g, device=dev)
+                         for _ in range(L)]).to(torch.int32)
+    base_st = torch.arange(S, device=dev) * (n // S)
+    seg_start = (base_st + torch.randint(0, n // (3 * S), (L, S), generator=g,
+                                         device=dev)).to(torch.int32)
+    seg_len = torch.randint(n // (6 * S), n // (3 * S), (L, S), generator=g,
+                            device=dev).to(torch.int32)
+    go = torch.rand(L, n, generator=g, device=dev) < 0.4
+    args = (order, seg_start, seg_len, go)
+    k1, k2 = pc.partition_segments_lanes(*args), pc.partition_segments_lanes(*args)
+    p = pc.partition_segments_lanes_plain(*args)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) and torch.equal(a, c) for a, b, c in zip(k1, k2, p)):
+        raise AssertionError("lane-mode B2 differs from its plain version or between "
+                             "launches")
+    # a fleet wider than one lane group (1024 // S lanes): 160 lanes of
+    # 100,000 positions take two groups in the one launch
+    wl, wn = 160, 100_000
+    wide = (torch.argsort(torch.rand(wl, wn, generator=g, device=dev), 1).to(torch.int32),
+            (torch.arange(S, device=dev) * (wn // S) + torch.randint(
+                0, wn // (2 * S), (wl, S), generator=g, device=dev)).to(torch.int32),
+            torch.randint(0, wn // (3 * S), (wl, S), generator=g, device=dev).to(
+                torch.int32),
+            torch.rand(wl, wn, generator=g, device=dev) < 0.4)
+    if not all(torch.equal(a, b) for a, b in zip(pc.partition_segments_lanes(*wide),
+                                                 pc.partition_segments_lanes_plain(*wide))):
+        raise AssertionError("lane-mode B2 over two lane groups differs from its plain "
+                             "version")
+    ms = cuda_ms(lambda: pc.partition_segments_lanes(*args))
+    plain_ms = cuda_ms(lambda: pc.partition_segments_lanes_plain(*args), iters=3, warmup=1)
+    # the yardstick: one stable sort of every lane's in-segment positions by
+    # (lane, segment start, goes right)
+    from lightgbm_tpu_torch.ops.partition import segment_ids
+
+    sid = torch.stack([segment_ids(seg_start[l], seg_len[l], n) for l in range(L)]).long()
+    in_seg = sid >= 0
+    lane = torch.arange(L, device=dev)[:, None]
+    start = torch.gather(seg_start.long(), 1, sid.clamp_min(0))
+    key = ((lane * n + start) * 2 + (~go).long())[in_seg]
+    flat = order.reshape(-1)
+    pos = torch.nonzero(in_seg.reshape(-1)).squeeze(1)
+
+    def lib():
+        perm = torch.sort(key, stable=True).indices
+        out = flat.clone()
+        out[pos] = flat[pos[perm]]
+        return out
+
+    library_ms = cuda_ms(lib)
+    in_seg_n = int(in_seg.sum())
+    b_ms, b_by = bound_of(partition_bytes(L * n, in_seg_n), 0)
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms,
+                bound_by=b_by, max_abs_err=0.0, in_seg=in_seg_n)
+
+
+def fleet_phase(lgt, base, higgs):
+    """Phase 19: 16 lanes over phase 3's Higgs bins (module docstring).
+    Returns its kernel entries."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from lightgbm_tpu_torch.ops import hist_cuda as hc
+    from lightgbm_tpu_torch.ops import partition_cuda as pc
+
+    t_phase = time.perf_counter()
+    h_set, Xtr, ytr, Xte, yte = higgs
+    # the fleet and the solo runs set lane labels and weights on the set
+    kept = (h_set.label, h_set.weight, dict(h_set.params or {}))
+    labels, weights = fleet_labels(ytr)
+    entries, launches = [], {}
+    split = {"setup": time.perf_counter() - t_phase, "fleet": 0.0, "solo": 0.0,
+             "checks": 0.0}
+    try:
+        for name, extra, R, modes in (
+                ("float", {}, FLEET_ROUNDS, ("graph", "eager")),
+                ("int8", {"use_quantized_grad": True, "num_grad_quant_bins": 16},
+                 FLEET_ROUNDS_INT8, ("graph",))):
+            rounds = [R] * 12 + [min(R, FLEET_SHORT)] * 4
+            for mode in modes:
+                p = {**base, **extra, "fused_training": mode == "graph"}
+                reset()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fb = lgt.train_fleet(p, h_set, labels, num_boost_round=R, weights=weights,
+                                     rounds=rounds)
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
+                split["fleet"] += secs
+                t_checks = time.perf_counter()
+                st = fb.round_stats
+                tree_rounds = sum(s["rounds"] for s in st)
+                warm = sum(s["captures"] for s in st)
+                replays = sum(s["replays"] for s in st)
+                b1 = hc.launches["histogram_multi_quantized_lanes" if extra
+                                 else "histogram_multi_lanes"]
+                b2 = pc.launches["partition_segments_lanes"]
+                graphs = mode == "graph" and h_set.bins_device.is_cuda
+                if not (b1 == b2 == tree_rounds + warm and plain_total() == 0
+                        and replays == (tree_rounds if graphs else 0)):
+                    raise AssertionError(f"fleet {name} {mode}: lane B1 {b1}, lane B2 {b2}, "
+                                         f"rounds {tree_rounds}, warm-ups {warm}, replays "
+                                         f"{replays}, plain {plain_total()}")
+                if name == "float" and mode == "graph":
+                    launches = {"histogram_multi_lanes": b1, "partition_segments_lanes": b2}
+                shas = {b: model_sha(fb.booster(b))[:8] for b in FLEET_PARITY}
+                t1 = time.perf_counter()
+                split["checks"] += t1 - t_checks
+                for b in FLEET_PARITY:
+                    # the port's solo run: train() on the three-pass windowed grower
+                    h_set.set_field("label", labels[b]).set_field("weight", weights[b])
+                    solo = lgt.train({**p, "tree_growth_mode": "windowed",
+                                      "megakernel": "0"}, h_set, rounds[b])
+                    if model_sha(solo)[:8] != shas[b]:
+                        raise AssertionError(f"fleet {name} {mode}: lane {b} is not its "
+                                             "solo windowed run")
+                torch.cuda.synchronize()
+                solo_secs = time.perf_counter() - t1
+                split["solo"] += solo_secs
+                t_checks = time.perf_counter()
+                solo_rounds = sum(rounds[b] for b in FLEET_PARITY)
+                a0 = auc(yte, fb.booster(0).predict(Xte))
+                if name == "float" and not a0 >= AUC_FLOOR_FLEET:
+                    raise AssertionError(f"fleet lane 0 held-out AUC {a0:.5f} < floor "
+                                         f"{AUC_FLOOR_FLEET}")
+                log(f"phase 19 fleet {name} {mode}: {FLEET_LANES} lanes x {R} rounds "
+                    f"(lanes 12-15: {rounds[-1]}) in {secs:.3f} s = "
+                    f"{sum(rounds) / secs:.2f} model-rounds/s; four solo windowed runs "
+                    f"{solo_rounds / solo_secs:.2f} model-rounds/s; tree-rounds="
+                    f"{tree_rounds} replays={replays} warm-ups={warm} lane B1 launches={b1} "
+                    f"lane B2 launches={b2} (one each a fleet round) lanes "
+                    f"{list(FLEET_PARITY)} bitwise their solo runs {shas} lane 0 "
+                    f"auc={a0:.5f}")
+                del fb
+                split["checks"] += time.perf_counter() - t_checks
+        # the device's idle share over a profiled 1-round float fleet (device
+        # activity only: a fleet round's tens of thousands of host ops took
+        # 31 s to process; its 2-round device record still 19.7 s)
+        t_prof = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lgt.train_fleet(dict(base), h_set, labels, num_boost_round=1, weights=weights)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        busy = sum(dev_us(e) for e in device_events(prof)) / 1e3
+        split["profile"] = time.perf_counter() - t_prof
+        log(f"phase 19 fleet profile (1 round, graph, its capture included): wall_ms="
+            f"{wall:.2f} device_busy_ms={busy:.2f} idle_share="
+            f"{(1 - busy / wall) if busy > 0 else float('nan'):.4f}")
+    finally:
+        h_set.set_field("label", kept[0]).set_field("weight", kept[1])
+        h_set.params = kept[2]
+    dev = h_set.bins_device.device
+    t_k = time.perf_counter()
+    tile = hc.recommended_leaf_tile(h_set.max_num_bins, N_FEAT, NUM_LEAVES)
+    tile_q = hc.recommended_leaf_tile(h_set.max_num_bins, N_FEAT, NUM_LEAVES, quantized=True)
+    lf = lane_kernel_case(hc, h_set.bins_device, h_set.max_num_bins, tile, dev, False)
+    lq = lane_kernel_case(hc, h_set.bins_device, h_set.max_num_bins, tile_q, dev, True)
+    l2 = partition_lanes_case(pc, N_TRAIN, dev)
+    for what, r in (("B1 lane float", lf), ("B1 lane int8", lq)):
+        log(f"phase 19 kernel {what}: L={FLEET_LANES} W={FLEET_W} F={N_FEAT} "
+            f"tile={r['tile']} rows={r['rows']} ms={r['ms']:.4f} plain_ms="
+            f"{r['plain_ms']:.4f} library_ms={r['library_ms']:.4f} bound_ms="
+            f"{r['bound_ms']:.4f} ({r['bound_by']}) bitwise_plain=True")
+    log(f"phase 19 kernel B2 lane: L={FLEET_LANES} N={N_TRAIN} S=8 a lane in-segment="
+        f"{l2['in_seg']} ms={l2['ms']:.4f} plain_ms={l2['plain_ms']:.4f} library_ms="
+        f"{l2['library_ms']:.4f} bound_ms={l2['bound_ms']:.4f} ({l2['bound_by']}) "
+        "bitwise_plain=True")
+    entries.append({"name": "histogram_multi_lanes", "route": "cuda",
+                    "source": "lightgbm_tpu_torch/csrc/hist.cu",
+                    "replaces": "lightgbm_tpu/ops/hist_pallas.py:120",
+                    "launches": launches["histogram_multi_lanes"], "in_graph": True,
+                    **{k: lf[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                          "bound_by", "library_ms")}})
+    entries.append({"name": "partition_segments_lanes", "route": "cuda",
+                    "source": "lightgbm_tpu_torch/csrc/partition.cu",
+                    "replaces": "lightgbm_tpu/ops/partition_pallas.py:188",
+                    "launches": launches["partition_segments_lanes"], "in_graph": True,
+                    **{k: l2[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                          "bound_by", "library_ms")}})
+    split["kernels"] = time.perf_counter() - t_k
+    log("phase 19 time split (s): " + " ".join(f"{k} {v:.2f}" for k, v in split.items()))
+    log(f"phase 19 fleet: ok in {phase_time('19', t_phase):.2f} s")
+    return entries
+
+
+def carry_kernel_case(hc, bins, num_bins, chunk, dev):
+    """B1's carried mode at the spill grower's chunk: a sweep of the first
+    4 chunks added into one accumulator equals one call over their rows
+    with the same exponents (bitwise), and equals the plain version on
+    the card; times of one chunk's call, bound, and one index_add_ into an
+    int64 accumulator as the yardstick."""
+    n, f = 4 * chunk, bins.shape[1]
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 21)
+    grad = torch.randn(n, generator=g, device=dev)
+    hess = torch.rand(n, generator=g, device=dev) * 0.25
+    mask = torch.rand(n, generator=g, device=dev) < 0.5
+    slot = torch.zeros(n, dtype=torch.int32, device=dev)
+    shift = hc.fixed_shift_tensor(grad, hess)
+    b = bins[:n]
+    one = hc.histogram_multi(b, grad, hess, mask, slot, 0, 1, num_bins, shift=shift)
+    for fn in (hc.histogram_multi_carry, hc.histogram_multi_carry_plain):
+        acc = hc.CarryAccumulator(1, f, num_bins, shift, dev)
+        for lo in range(0, n, chunk):
+            out = fn(b[lo:lo + chunk], grad[lo:lo + chunk], hess[lo:lo + chunk],
+                     mask[lo:lo + chunk], slot[lo:lo + chunk], 0, acc,
+                     finalize=lo + chunk == n)
+        torch.cuda.synchronize()
+        if not torch.equal(out, one):
+            raise AssertionError(f"carried B1 ({fn.__name__}) differs from the one call")
+    c = (b[:chunk], grad[:chunk], hess[:chunk], mask[:chunk], slot[:chunk], 0)
+    acc = hc.CarryAccumulator(1, f, num_bins, shift, dev)
+    ms = cuda_ms(lambda: hc.histogram_multi_carry(*c, acc))
+    plain_ms = cuda_ms(lambda: hc.histogram_multi_carry_plain(*c, acc), iters=5, warmup=1)
+    rows = torch.nonzero(mask[:chunk]).squeeze(1)
+    feat = torch.arange(f, device=dev)
+    idx = (feat * num_bins + b[rows].long()).reshape(-1)
+    fix = torch.stack([torch.round(grad[rows].double() * 2.0 ** int(shift[0])).long(),
+                       torch.round(hess[rows].double() * 2.0 ** int(shift[1])).long(),
+                       torch.ones_like(rows)], 1)[:, None, :].expand(-1, f, -1)
+    fix = fix.reshape(-1, 3).contiguous()
+    acc64 = torch.zeros((f * num_bins, 3), dtype=torch.int64, device=dev)
+    library_ms = cuda_ms(lambda: acc64.index_add_(0, idx, fix))
+    nbytes = (chunk * 5 + sector_bytes(rows, f * 2) + 2 * sector_bytes(rows, 4)
+              + 2 * f * num_bins * (16 + 4))
+    b_ms, b_by = bound_of(nbytes, int(rows.numel()) * f * 3)
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms,
+                bound_by=b_by, max_abs_err=0.0, rows=int(rows.numel()))
+
+
+def ooc_phase(lgt, base, higgs, tmp):
+    """Phase 20: phase 3's bins as a stored bin cache; (a) resident, (b)
+    spill, (c) an appended segment, compacted.  Returns its kernel entry."""
+    from lightgbm_tpu_torch.io import stream as stm
+    from lightgbm_tpu_torch.ops import hist_cuda as hc
+
+    t_phase = time.perf_counter()
+    h_set, Xtr, ytr, Xte, yte = higgs
+    path = os.path.join(tmp, "higgs.bin")
+    t0 = time.perf_counter()
+    stm.create_bin_cache(path, h_set.bins, h_set.binner.mappers, label=ytr,
+                         feature_names=h_set.feature_names, compress=False)
+    mb = os.path.getsize(path) / 2 ** 20
+    log(f"phase 20 cache: {N_TRAIN} x {N_FEAT} {h_set.bins.dtype} stored, {mb:.1f} MiB "
+        f"written in {time.perf_counter() - t0:.2f} s")
+    # (a) resident: the chunks assemble the device matrix; phase 3's model
+    p = {**base, "out_of_core": True, "out_of_core_chunk_rows": OOC_CHUNKS[0]}
+    t0 = time.perf_counter()
+    ds = lgt.Dataset(path, params=p).construct()
+    torch.cuda.synchronize()
+    ingest = time.perf_counter() - t0
+    if not (ds.bins is None and not ds.ooc_spill
+            and torch.equal(ds.bins_device, h_set.bins_device)):
+        raise AssertionError("resident out-of-core: the assembled matrix differs")
+    bst = lgt.train(p, ds, ROUNDS_FLOAT)
+    if model_sha(bst)[:8] != MODEL_SHA["higgs_float"]:
+        raise AssertionError("resident out-of-core training is not phase 3's model")
+    log(f"phase 20 ooc resident: chunk {OOC_CHUNKS[0]} streamed {N_TRAIN} rows in "
+        f"{ingest:.3f} s ({N_TRAIN / ingest:.0f} rows/s, "
+        f"{N_TRAIN * N_FEAT * 2 / ingest / 1e9:.3f} GB/s to the card, the cache read "
+        f"and the staging copy included), {ROUNDS_FLOAT} rounds sha256 "
+        f"{MODEL_SHA['higgs_float']} (phase 3's)")
+    del ds, bst
+    # (b) spill: the chunk-streamed grower, bitwise phase 10's strict model
+    entry = None
+    for chunk in OOC_CHUNKS:
+        q = {**base, "out_of_core": True, "max_rows_in_hbm": OOC_SPILL_CAP,
+             "out_of_core_chunk_rows": chunk}
+        ds = lgt.Dataset(path, params=q).construct()
+        reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bst = lgt.train(q, ds, OOC_SPILL_ROUNDS)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        st = bst._gbdt.round_stats
+        passes, chunks = sum(s["passes"] for s in st), sum(s["chunks"] for s in st)
+        splits, reads = sum(s["splits"] for s in st), sum(s["host_syncs"] for s in st)
+        carry = hc.launches["histogram_multi_carry"]
+        if not (ds.ooc_spill and ds.bins_device is None and carry == chunks
+                and plain_total() == 0 and reads <= splits + len(st)
+                and model_sha(bst)[:8] == MODEL_SHA["higgs_strict"]):
+            raise AssertionError(f"spill chunk {chunk}: sha {model_sha(bst)[:8]} carried "
+                                 f"launches {carry} chunks {chunks} reads {reads} splits "
+                                 f"{splits}")
+        rows = passes * N_TRAIN
+        log(f"phase 20 ooc spill chunk {chunk}: max_rows_in_hbm={OOC_SPILL_CAP} "
+            f"{OOC_SPILL_ROUNDS} rounds in {secs:.3f} s, {rows / secs:.0f} streamed rows/s "
+            f"({rows * N_FEAT * 2 / secs / 1e9:.3f} GB/s to the card), "
+            f"{chunks / len(st):.1f} chunk launches a tree ({passes / len(st):.1f} passes), "
+            f"blocking reads a split={reads / splits:.3f}, carried B1 launches={carry} "
+            f"sha256 {MODEL_SHA['higgs_strict']} (phase 10's strict model)")
+        if chunk == OOC_CHUNKS[0]:
+            entry = carry
+        del ds, bst
+    r = carry_kernel_case(hc, h_set.bins_device, h_set.max_num_bins, OOC_CHUNKS[0],
+                          h_set.bins_device.device)
+    log(f"phase 20 kernel B1 carried: chunk {OOC_CHUNKS[0]} x {N_FEAT} rows={r['rows']} "
+        f"ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} library_ms={r['library_ms']:.4f} "
+        f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) sweep == one call bitwise, "
+        "== plain bitwise")
+    # (c) an appended segment: read back bitwise, then compacted
+    t0 = time.perf_counter()
+    new = h_set.binner.transform(Xte[:OOC_APPEND_ROWS])
+    stm.append_rows(path, new, label=yte[:OOC_APPEND_ROWS], segment_threshold=4)
+    seg = stm.BinCacheStream(path)
+    back = stm.read_bin_cache(path)
+    want = np.concatenate([h_set.bins, new])
+    if not (len(seg.segments) == 1 and np.array_equal(back["bins"], want)
+            and np.array_equal(back["label"], np.concatenate([ytr, yte[:OOC_APPEND_ROWS]]))):
+        raise AssertionError("appended segment: the cache does not read back bitwise")
+    stm.compact_bin_cache(path)
+    if stm.BinCacheStream(path).segments or not np.array_equal(
+            stm.read_bin_cache(path)["bins"], want):
+        raise AssertionError("compaction changed the cache")
+    log(f"phase 20 ooc append: {OOC_APPEND_ROWS} rows as segment "
+        f"{seg.segments[0][0]}, read back bitwise, compacted (watermark "
+        f"{stm.BinCacheStream(path).seg_watermark}) in {time.perf_counter() - t0:.2f} s")
+    os.remove(path)
+    log(f"phase 20 ooc: ok in {phase_time('20', t_phase):.2f} s")
+    return [{"name": "histogram_multi_carry", "route": "cuda",
+             "source": "lightgbm_tpu_torch/csrc/hist.cu",
+             "replaces": "lightgbm_tpu/ops/hist_pallas.py:120", "launches": entry,
+             "in_graph": False,
+             **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                  "library_ms")}}]
+
+
+def continual_phase(lgt, base, higgs, text, tmp):
+    """Phase 21: phase 3's 20-tree model behind lgb.serve, 8 clients,
+    4 ingested chunks, a refit rollover and an append rollover."""
+    import threading
+
+    from lightgbm_tpu_torch.continual import ContinualRunner, refit_leaves
+    from lightgbm_tpu_torch.obs import metrics as obs
+
+    t_phase = time.perf_counter()
+    h_set, _, _, Xte, _ = higgs
+    on = {"device_type": base["device_type"]}
+    live = lgt.Booster(params=on, model_str=text)
+    rt = lgt.serve(live, {**on, "serve_max_wait_ms": 2})
+    X, y = higgs_like(CONT_CHUNK * CONT_CHUNKS, SEED + 21)
+    stop = threading.Event()
+    got, errors = [], []
+
+    def client(t):
+        i = t
+        try:
+            while not stop.is_set():
+                off, n = serve_request(i)
+                t0 = time.perf_counter()
+                out = rt.predict(Xte[off:off + n], timeout=120)
+                got.append((off, n, out, time.perf_counter() - t0))
+                i += CONT_CLIENTS
+        except BaseException as e:  # noqa: BLE001 (reported below)
+            errors.append(e)
+
+    cr = ContinualRunner(live, runtime=rt, reference=h_set,
+                         state_dir=os.path.join(tmp, "continual"),
+                         update_every_rows=CONT_EVERY, append_trees=CONT_APPEND,
+                         window_rows=CONT_CHUNK * CONT_CHUNKS)
+    threads = [threading.Thread(target=client, args=(t,), daemon=True)
+               for t in range(CONT_CLIENTS)]
+    for t in threads:
+        t.start()
+    models, ingest_s, times = [live], 0.0, {}
+    try:
+        for k, kind in ((2, "refit"), (4, "append")):
+            for c in range(k - 2, k):
+                t0 = time.perf_counter()
+                cr.ingest(X[c * CONT_CHUNK:(c + 1) * CONT_CHUNK],
+                          y[c * CONT_CHUNK:(c + 1) * CONT_CHUNK])
+                ingest_s += time.perf_counter() - t0
+            if obs.snapshot()["gauges"]["model_staleness_rows"] != 2 * CONT_CHUNK:
+                raise AssertionError("staleness gauge does not count the pending rows")
+            before = cr.booster
+            t0 = time.perf_counter()
+            if cr.update(kind) != kind:
+                raise AssertionError(f"the {kind} rollover did not run")
+            times[kind] = (time.perf_counter() - t0) * 1e3
+            g = obs.snapshot()["gauges"]
+            if g["model_staleness_rows"] != 0 or g["model_staleness_s"] != 0:
+                raise AssertionError(f"staleness gauges after the {kind} rollover: {g}")
+            Xw, yw = X[:k * CONT_CHUNK], y[:k * CONT_CHUNK]
+            if kind == "refit":
+                offline = lgt.Booster(params=on, model_str=before.model_to_string())
+                offline._gbdt.cfg = before._gbdt.cfg
+                refit_leaves(offline._gbdt, Xw, yw)
+                cpu = lgt.Booster(params={"device_type": "cpu"},
+                                  model_str=before.model_to_string())
+                cpu._gbdt.cfg = before._gbdt.cfg
+                refit_leaves(cpu._gbdt, Xw, yw)
+                gap = max(float(np.abs(a.leaf_value - b.leaf_value).max())
+                          for a, b in zip(cr.booster._gbdt.models, cpu._gbdt.models))
+                if not gap <= 1e-6:
+                    raise AssertionError(f"card refit vs CPU refit: max|d| {gap}")
+            else:
+                offline = lgt.train(cr._train_params(), lgt.Dataset(
+                    Xw, label=yw, reference=h_set, params={"verbosity": -1, **on}),
+                    CONT_APPEND, init_model=before)
+            if model_sha(offline) != model_sha(cr.booster):
+                raise AssertionError(f"the {kind} rollover is not its offline application")
+            models.append(cr.booster)
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(120)
+        rt.stop()
+    if errors or any(t.is_alive() for t in threads):
+        raise AssertionError(f"serving during the rollovers failed: {errors[:3]}")
+    want = {}
+    for off, n, out, _ in got:
+        if (off, n) not in want:
+            want[(off, n)] = [m.predict(Xte[off:off + n]) for m in models]
+        if not any(np.array_equal(out, w) for w in want[(off, n)]):
+            raise AssertionError(f"a response ({off}, {n}) is no version's Booster.predict")
+    lat = np.asarray([d for *_, d in got]) * 1e3
+    log(f"phase 21 continual: {CONT_CHUNKS} x {CONT_CHUNK} rows ingested at "
+        f"{CONT_CHUNKS * CONT_CHUNK / ingest_s:.0f} rows/s, refit rollover "
+        f"{times['refit']:.2f} ms (card vs CPU refit max|d|={gap:.3g}), append rollover "
+        f"({CONT_APPEND} trees) {times['append']:.2f} ms, each bitwise its offline "
+        f"application, staleness gauges 0 after each; {len(got)} responses from "
+        f"{CONT_CLIENTS} clients across the rollovers, each bitwise one version's "
+        f"predict, p50={np.median(lat):.3f} ms p99={np.percentile(lat, 99):.3f} ms; "
+        f"ok in {phase_time('21', t_phase):.2f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -3836,16 +4391,31 @@ def main() -> int:
 
     # ---- 18. the runtime: resume, the cached ensemble, serving ----
     runtime_phase(lgt, base, (h_set, h_Xtr, h_ytr, h_Xte, h_yte), counts, plain_total)
-    del h_set
     torch.cuda.empty_cache()
 
-    # ---- 19. device ----
+    # ---- 19-21. the booster fleet, out of core, continual training ----
+    import tempfile
+
+    higgs = (h_set, h_Xtr, h_ytr, h_Xte, h_yte)
+    new_kernels += fleet_phase(lgt, base, higgs)
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="lgbt_phase20_")
+    try:
+        new_kernels += ooc_phase(lgt, base, higgs, tmp)
+        torch.cuda.empty_cache()
+        continual_phase(lgt, base, higgs, text, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    del h_set, higgs
+    torch.cuda.empty_cache()
+
+    # ---- 22. device ----
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60)
     if smi.returncode != 0 or not smi.stdout.strip():
         raise AssertionError(f"nvidia-smi failed: {smi.stderr}")
-    log(f"phase 19 device: ok total {time.perf_counter() - t_all:.2f} s")
+    log(f"phase 22 device: ok total {time.perf_counter() - t_all:.2f} s")
     log(smi.stdout.strip().splitlines()[0])
 
     src, tpu = "lightgbm_tpu_torch/csrc/hist.cu", "lightgbm_tpu/ops/hist_pallas.py:120"

@@ -8,7 +8,11 @@ gives margins, leaf ids, SHAP contributions and early-stopped margins
 from an ensemble cached on the device.  train() writes snapshots and
 resumes from them; serve() runs the coalescing serving runtime (or a
 fleet of replicas); obs/ holds the metrics, traces and the /metrics
-endpoint.
+endpoint.  train_fleet trains B boosters over one Dataset as one batch of
+lanes (models/fleet.py), out_of_core Datasets stream their bins in chunks
+(the spill grower, ops/treegrow_ooc.py, when they exceed
+max_rows_in_hbm), and continual_train keeps a served model learning
+(continual/).
 The histogram, partition and round kernels are CUDA written for Hopper
 (csrc/).  Entry points run on the CUDA card unless the parameters say
 device_type='cpu'.  The JAX package (lightgbm_tpu) is the reference; this
@@ -23,7 +27,8 @@ from .serve import runtime as _serve_runtime_mod
 # imported after the serve package, so the package attribute ``serve`` is
 # the entry-point function (engine.serve); the subpackage's names are
 # grafted onto it below, so ``lgb.serve.ServingRuntime`` works as well
-from .engine import CVBooster, cv, serve, train  # noqa: E402
+from .engine import CVBooster, continual_train, cv, serve, train, train_fleet  # noqa: E402
+from .models.fleet import FleetBooster, FleetError  # noqa: E402
 from .utils.log import register_logger
 
 for _name in _serve_pkg.__all__:
@@ -37,6 +42,10 @@ __all__ = [
     "LightGBMError",
     "CorruptModelError",
     "train",
+    "train_fleet",
+    "continual_train",
+    "FleetBooster",
+    "FleetError",
     "serve",
     "ServingRuntime",
     "ServingFleet",

@@ -18,8 +18,16 @@ package; io/efb.py) plans bundles on the binned matrix; the growers'
 histogram passes then read the bundled (N, F_b) matrix
 (``efb_device_tables``) and everything else stays in feature space.
 
-Not ported yet, and raising when asked for: out_of_core (ROADMAP queue
-A12), the bin_cache_shard feed, set_network / free_network (A13).
+``out_of_core`` streams the binned matrix in row chunks (from a
+save_binary cache without ever holding it on the host, or from the binned
+array): with ``max_rows_in_hbm`` at or above the rows (or 0) the chunks
+assemble the device matrix and every grower runs on it unchanged (the
+resident regime); below, the matrix never lies on the device and training
+takes the chunk-streamed spill grower (ops/treegrow_ooc.py).  EFB is not
+planned out of core (its passes scan the whole host matrix).
+
+Not ported yet, and raising when asked for: the bin_cache_shard feed,
+set_network / free_network (ROADMAP queue A13).
 """
 
 from __future__ import annotations
@@ -36,7 +44,8 @@ from .binning import BinMapper, DatasetBinner
 from .config import Config
 from .io.efb import apply_bundles, find_bundles
 from .io.parser import load_data_file, load_data_file_two_round
-from .io.stream import create_bin_cache, is_bin_cache, read_bin_cache
+from .io.stream import (DEFAULT_CHUNK_ROWS, array_chunks, create_bin_cache,
+                        is_bin_cache, prefetch_device, read_bin_cache, read_cache_meta)
 from .models.gbdt import GBDT, _pre_filter, create_boosting, tree_depth
 from .models.tree import Tree
 from .ops import predict as predict_ops
@@ -171,6 +180,13 @@ class Dataset:
     Lazily constructed: raw data is held until `construct()`, which the
     training entry calls."""
 
+    # out-of-core residency (construct): streamed, spilled, rows a chunk
+    ooc = False
+    ooc_spill = False
+    ooc_chunk_rows = 0
+    _ooc_stream = None
+    _staging = None
+
     def __init__(self, data, label=None, reference: Optional["Dataset"] = None,
                  weight=None, group=None, init_score=None,
                  feature_name: Union[str, List[str]] = "auto",
@@ -212,10 +228,6 @@ class Dataset:
 
         ref = reference if reference is not None else self.reference
         cfg = Config.from_dict(self.params)
-        if cfg.out_of_core:
-            raise NotImplementedError("out_of_core (streamed bin caches) is not "
-                                      "ported to lightgbm_tpu_torch yet (ROADMAP "
-                                      "queue A12)")
         if self.params.get("bin_cache_shard") is not None:
             raise NotImplementedError("bin_cache_shard (a rank's rows of a shared "
                                       "cache) is not ported to lightgbm_tpu_torch "
@@ -231,7 +243,10 @@ class Dataset:
         # sparse input is binned straight from CSC (stored nonzeros plus an
         # implicit-zero count), never as dense raw floats
         csc = raw = None
-        if pre_bins is not None:
+        stream = self._ooc_stream
+        if stream is not None:
+            f = stream.shape[1]
+        elif pre_bins is not None:
             f = pre_bins.shape[1]
         elif _is_scipy_sparse(self.data) and cfg.is_enable_sparse:
             csc = self.data.tocsc()
@@ -255,13 +270,15 @@ class Dataset:
                        seed=cfg.data_random_seed, forced_bins=_forced_bins(cfg))
             self.binner = (DatasetBinner.fit_sparse(csc, **fit) if csc is not None
                            else DatasetBinner.fit(raw, **fit))
-        if pre_bins is not None:
+        if stream is not None:
+            bins = None  # streamed from the cache, never held on the host
+        elif pre_bins is not None:
             bins = pre_bins
         elif csc is not None:
             bins = self.binner.transform_sparse(csc)
         else:
             bins = self.binner.transform(raw)
-        n = bins.shape[0]
+        n = stream.shape[0] if stream is not None else bins.shape[0]
         if self.group is not None and int(self.group.sum()) != n:
             raise ValueError(f"group sizes sum to {int(self.group.sum())}, "
                              f"but the data has {n} rows")
@@ -272,7 +289,9 @@ class Dataset:
         if ref is not None:
             if ref.efb is not None:
                 self.efb = ref.efb._replace(bundled_bins=None)
-        elif cfg.enable_bundle:
+        elif cfg.enable_bundle and not cfg.out_of_core:
+            # (out of core: the bundling passes would scan the whole host
+            # matrix, which the streamed path never holds)
             # the capacity is the whole max_bin budget, so one-hot blocks of
             # 2-bin features pack up to max_bin members a bundle
             self.efb = find_bundles(
@@ -280,6 +299,11 @@ class Dataset:
                 max(self.binner.max_num_bins, int(cfg.max_bin) + 1),
                 categorical_mask=np.asarray(self.binner.categorical_mask),
                 seed=cfg.data_random_seed)
+        self.ooc = bool(cfg.out_of_core)
+        if self.ooc:
+            self.ooc_chunk_rows = int(cfg.out_of_core_chunk_rows) or min(
+                DEFAULT_CHUNK_ROWS, n)
+            self.ooc_spill = 0 < int(cfg.max_rows_in_hbm) < n
         self._set_bins(bins, device)
         self._num_data, self._num_feature = n, f
         if cfg.linear_tree or (ref is not None and ref.raw_device is not None):
@@ -313,7 +337,11 @@ class Dataset:
         cols = dict(header=bool(cfg.header), label_column=cfg.label_column,
                     weight_column=cfg.weight_column, group_column=cfg.group_column,
                     ignore_column=cfg.ignore_column)
-        if is_bin_cache(path):
+        if is_bin_cache(path) and cfg.out_of_core:
+            loaded = read_cache_meta(path)  # the matrix streams (construct)
+            binner = DatasetBinner(mappers=[BinMapper(**m) for m in loaded["mappers"]])
+            self._ooc_stream = loaded["stream"]
+        elif is_bin_cache(path):
             loaded = read_bin_cache(path)
             binner = DatasetBinner(mappers=[BinMapper(**m) for m in loaded["mappers"]])
             bins = loaded["bins"]
@@ -347,13 +375,24 @@ class Dataset:
             self.feature_name = list(loaded["feature_names"])
         return binner, bins
 
-    def _set_bins(self, bins: np.ndarray, device) -> None:
+    def _set_bins(self, bins: Optional[np.ndarray], device) -> None:
         """The host bins and their device copies (the matrix and the
         per-feature bin tables).  With an EFB plan the histogram width is
         its widest bundle where that is wider (the gather tables' stride);
-        the bundled matrix goes to the device when a grower asks."""
+        the bundled matrix goes to the device when a grower asks.  Out of
+        core the matrix is assembled on the device from the streamed
+        chunks (resident), or stays off it (spill)."""
         self.bins = bins
-        self.bins_device = torch.as_tensor(bins.astype(np.int16), device=device)
+        if self.ooc_spill:
+            self.bins_device = None
+        elif self._ooc_stream is not None:
+            n, f = self._ooc_stream.shape
+            self.bins_device = torch.empty((n, f), dtype=torch.int16, device=device)
+            for lo, m, chunk in prefetch_device(self._ooc_stream.chunks(
+                    self.ooc_chunk_rows), device, staging=self.staging()):
+                self.bins_device[lo:lo + m].copy_(chunk)
+        else:
+            self.bins_device = torch.as_tensor(bins.astype(np.int16), device=device)
         self.num_bins_pf_device = torch.as_tensor(
             self.binner.num_bins_per_feature, dtype=torch.int32, device=device)
         self.missing_bin_pf_device = torch.as_tensor(
@@ -371,9 +410,59 @@ class Dataset:
         min_data_in_leaf: a column pass over the host bins that every
         training on this set would otherwise repeat."""
         if min_data_in_leaf not in self._pre_filter_masks:
+            counts = None
+            if self.bins is None:  # streamed: each feature's bin counts
+                nbpf = np.asarray(self.binner.num_bins_per_feature)
+                counts = [np.zeros(max(int(b), 1), np.int64) for b in nbpf]
+                for _lo, view in self.ooc_chunk_iter():
+                    for j, c in enumerate(counts):
+                        c += np.bincount(view[:, j].astype(np.int64),
+                                         minlength=len(c))[:len(c)]
             self._pre_filter_masks[min_data_in_leaf] = _pre_filter(
-                self.bins, self.binner, min_data_in_leaf)
+                self.bins, self.binner, min_data_in_leaf, counts=counts,
+                n_rows=self.num_data())
         return self._pre_filter_masks[min_data_in_leaf]
+
+    # -- out of core --------------------------------------------------------
+    def _host_bins(self, what: str) -> np.ndarray:
+        """The host bin matrix for a whole-matrix operation: the matrix, or
+        one copy from the device matrix a cache streamed into (resident
+        regime); a spill dataset has no whole matrix anywhere."""
+        if self.bins is not None:
+            return self.bins
+        if self.bins_device is None:
+            raise LightGBMError(f"{what} needs the whole bin matrix, which an "
+                                "out_of_core dataset in the spill regime never holds")
+        return self.bins_device.cpu().numpy()
+
+    def staging(self):
+        """The dataset's reused upload buffers (io/stream.py prefetch_device)."""
+        if self._staging is None:
+            from .io.stream import _Staging
+
+            self._staging = _Staging()
+        return self._staging
+
+    def ooc_chunk_iter(self):
+        """A fresh sweep of (row_lo, host chunk view) over the binned
+        matrix: the cache's stream, or the host array's chunks."""
+        if self._ooc_stream is not None:
+            return self._ooc_stream.chunks(self.ooc_chunk_rows)
+        return array_chunks(self.bins, self.ooc_chunk_rows or DEFAULT_CHUNK_ROWS)
+
+    def device_chunks(self):
+        """A sweep of (row_lo, rows, chunk on the device): the one-deep
+        upload pipeline over ooc_chunk_iter."""
+        return prefetch_device(self.ooc_chunk_iter(), self.num_bins_pf_device.device,
+                               staging=self.staging())
+
+    def over_rows(self, fn) -> torch.Tensor:
+        """``fn(bins)`` of a row-wise function of the device bins: on the
+        whole matrix, or, where it is not on the device (the spill
+        regime), chunk by chunk, the results concatenated."""
+        if self.bins_device is not None:
+            return fn(self.bins_device)
+        return torch.cat([fn(chunk) for _lo, _m, chunk in self.device_chunks()])
 
     def efb_device_tables(self) -> Optional[tuple]:
         """The EFB tables the growers' histogram passes take, on the bins'
@@ -530,15 +619,17 @@ class Dataset:
         """Column-concatenate another dataset of the same rows (reference:
         Dataset::AddFeaturesFrom)."""
         self.construct()
-        other.construct(device=self.bins_device.device)
+        other.construct(device=self.num_bins_pf_device.device)
         if self.num_data() != other.num_data():
             raise LightGBMError("Cannot add features from Dataset with a "
                                 "different number of rows")
+        host = self._host_bins("add_features_from")
         self.binner = DatasetBinner(mappers=list(self.binner.mappers)
                                     + list(other.binner.mappers))
         self.efb = None  # the bundle plan is stale once columns are added
-        self._set_bins(np.concatenate([self.bins, other.bins], axis=1),
-                       self.bins_device.device)
+        bins = np.concatenate([host, other.bins], axis=1)
+        self._ooc_stream, self.ooc_spill = None, False
+        self._set_bins(bins, self.num_bins_pf_device.device)
         self.feature_names = list(self.feature_names) + list(other.feature_names)
         self._num_feature = len(self.feature_names)
         if self.data is not None and other.data is not None:
@@ -555,7 +646,8 @@ class Dataset:
         sub.__dict__.update(self.__dict__)
         if self.efb is not None:  # the plan, its bundled matrix encoded anew
             sub.efb = self.efb._replace(bundled_bins=None)
-        sub._set_bins(self.bins[idx], self.bins_device.device)
+        sub._ooc_stream, sub.ooc_spill = None, False
+        sub._set_bins(self._host_bins("subset")[idx], self.num_bins_pf_device.device)
         if self.raw_device is not None:
             sub.raw_device = self.raw_device[torch.as_tensor(
                 idx, device=self.raw_device.device)]
@@ -583,7 +675,8 @@ class Dataset:
         cache format (io/stream.py); Dataset(filename) loads it back
         without parsing or binning."""
         self.construct()
-        create_bin_cache(os.fspath(filename), self.bins, self.binner.mappers,
+        create_bin_cache(os.fspath(filename), self._host_bins("save_binary"),
+                         self.binner.mappers,
                          label=self.label, weight=self.weight, group=self.group,
                          init_score=self.init_score, position=self.position,
                          feature_names=self.feature_names)
@@ -594,7 +687,7 @@ class Dataset:
         """(N,) i32 leaf id of each row for one host tree, on the device
         bins (the JAX package's Dataset.predict_leaf_binned_tree): torch
         ops, no host read."""
-        dev = self.bins_device.device
+        dev = self.num_bins_pf_device.device
         if tree.num_internal == 0:
             return torch.zeros(self.num_data(), dtype=torch.int32, device=dev)
         self._tree_threshold_bin(tree)
@@ -606,11 +699,11 @@ class Dataset:
         if tree.num_cat > 0:  # bin-space masks of the categorical nodes
             cat = (t(tree.is_categorical_node(), torch.bool),
                    t(tree._bin_masks(self.binner), torch.bool))
-        return predict_ops.predict_leaf_binned(
-            self.bins_device, self.missing_bin_pf_device,
-            t(tree.split_feature, torch.int64), t(tree.threshold_bin, torch.int32),
-            t(tree.default_left(), torch.bool), t(tree.left_child, torch.int64),
-            t(tree.right_child, torch.int64), tree_depth(tree), cat)
+        nodes = (t(tree.split_feature, torch.int64), t(tree.threshold_bin, torch.int32),
+                 t(tree.default_left(), torch.bool), t(tree.left_child, torch.int64),
+                 t(tree.right_child, torch.int64), tree_depth(tree), cat)
+        return self.over_rows(lambda bins: predict_ops.predict_leaf_binned(
+            bins, self.missing_bin_pf_device, *nodes))
 
     def _tree_threshold_bin(self, tree: Tree) -> None:
         """Bin-space thresholds of a tree read from model text (exact: the

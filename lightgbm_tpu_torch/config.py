@@ -259,7 +259,8 @@ class Config:
     # leaf expansion ORDER and in histogram payload precision (see
     # hist_precision), so trees can differ from strict/CPU ones — the same
     # class of deviation the reference documents for its CUDA-vs-CPU
-    # learners.
+    # learners.  "windowed" forces the windowed grower at any width and on
+    # either device (the solo run a booster-fleet lane reproduces).
     tree_growth_mode: str = "auto"
     # histogram payload precision on the TPU MXU path: "f32" = bf16x2 split
     # payloads (~17-bit mantissa products, f32 accumulation — between the
@@ -686,9 +687,10 @@ class Config:
             raise ValueError(
                 "Number of classes should be specified and greater than 1 for multiclass training"
             )
-        if self.tree_growth_mode not in ("auto", "strict", "rounds"):
+        if self.tree_growth_mode not in ("auto", "strict", "rounds", "windowed"):
             raise ValueError(
-                f"tree_growth_mode must be auto/strict/rounds, got {self.tree_growth_mode!r}"
+                "tree_growth_mode must be auto/strict/rounds/windowed, got "
+                f"{self.tree_growth_mode!r}"
             )
         if self.hist_precision not in ("f32", "bf16"):
             raise ValueError(

@@ -60,6 +60,18 @@
 //   outside [0, tile) (e.g. -1 for inactive rows) are skipped; any F works.
 // * A launch allocates nothing: the Python wrapper passes zeroed scratch.
 //
+// Two further modes (ops/hist_cuda.py):
+// * lanes (the booster fleet's window pass, the TPU kernel under
+//   jax.vmap): the grid gains a lane axis (blockIdx.y), each lane reading
+//   the shared bins through its own row ids (no (W, F) copy a lane), with
+//   its own payloads, mask and exponent pair, so each lane's slice equals
+//   its solo call bit for bit and each block's shared footprint is the
+//   solo one's;
+// * carried (the out-of-core spill grower's chunk sweep): each call adds a
+//   chunk's rows into accumulators the caller keeps across calls, and the
+//   f32 conversion runs once, after the last chunk: integer sums are
+//   order-free, so any chunking gives the in-memory call's bits.
+//
 // * The exponent may also be given (shift, an int32[2] in device memory):
 //   the windowed grower fixes it once per tree from all N rows, so a
 //   histogram of a window of
@@ -97,6 +109,49 @@ finalize_kernel(const unsigned long long* __restrict__ acc64,
     out[(s * 3 + 1) * FBg + cell] = (float)((double)h * inv_h);
     out[(s * 3 + 2) * FBg + cell] = (float)acc32[i];
   }
+}
+
+// fixed point -> f32 over a lane axis: acc64 (L, tile, 2, F, B), acc32 (L,
+// tile, F, B), out (L, tile, 3, F, B), lane l's exponents shift[2l], [2l + 1]
+__global__ void __launch_bounds__(kThreads)
+finalize_lanes_kernel(const unsigned long long* __restrict__ acc64,
+                      const int* __restrict__ acc32, const int* __restrict__ shift,
+                      int64_t lanes, int64_t tile, int64_t FBg, float* __restrict__ out) {
+  const int64_t total = lanes * tile * FBg;
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < total; i += stride) {
+    const int64_t ls = i / FBg, cell = i % FBg;  // ls = lane * tile + slot
+    const int64_t lane = ls / tile;
+    const double inv_g = ldexp(1.0, -shift[2 * lane]);
+    const double inv_h = ldexp(1.0, -shift[2 * lane + 1]);
+    const long long g = (long long)acc64[(ls * 2 + 0) * FBg + cell];
+    const long long h = (long long)acc64[(ls * 2 + 1) * FBg + cell];
+    out[(ls * 3 + 0) * FBg + cell] = (float)((double)g * inv_g);
+    out[(ls * 3 + 1) * FBg + cell] = (float)((double)h * inv_h);
+    out[(ls * 3 + 2) * FBg + cell] = (float)acc32[i];
+  }
+}
+
+// The lane mode: one launch over a (blocks, lanes) grid, each lane's blocks
+// taking equal ranges of its W positions, about one wave in all.
+template <bool kQuant, bool kBf16>
+cudaError_t launch_hist_lanes(const void* bins, const void* g, const void* h, const void* mask,
+                              const void* rows, const void* slot, int64_t n_rows, int64_t W,
+                              int F, int lanes, int tile, int B, const int* shift_dev,
+                              unsigned long long* acc64, int* acc32, cudaStream_t stream) {
+  Plan p;
+  cudaError_t e = lgbt::make_plan(lgbt::hist_kernel<kQuant, false, kBf16, true>, W, F, tile,
+                                  B, lgbt::Cells<kQuant>::kBytes, false, 0, &p);
+  if (e != cudaSuccess) return e;
+  lgbt::HistArgs a{static_cast<const int16_t*>(bins), g, h, static_cast<const uint8_t*>(mask),
+                   static_cast<const int32_t*>(slot), nullptr, nullptr, nullptr, W, F,
+                   0, tile, B, p.FB, p.SB, p.n_fgroups, p.n_sgroups,
+                   Shift{nullptr, 0, shift_dev}, acc64, acc32,
+                   static_cast<const int32_t*>(rows), n_rows};
+  const int bx = (p.blocks + lanes - 1) / lanes;
+  lgbt::hist_kernel<kQuant, false, kBf16, true>
+      <<<dim3(bx < 1 ? 1 : bx, lanes), kThreads, p.smem, stream>>>(a);
+  return cudaGetLastError();
 }
 
 template <bool kQuant, bool kBf16 = false>
@@ -182,6 +237,79 @@ int lgbt_hist_multi_i8(const void* bins, const void* grad_q, const void* hess_q,
   return (int)launch_hist<true>(bins, grad_q, hess_q, mask, slot, n, F, leaf_base, tile, B,
                                 Shift{nullptr, 0, nullptr}, nullptr, static_cast<int*>(out),
                                 static_cast<cudaStream_t>(stream));
+}
+
+// The carried-accumulator float mode (a sweep over row chunks): adds the
+// n rows' fixed-point sums into the caller's acc64 (tile, 2, F, B) and
+// acc32 (tile, F, B), which carry over from earlier calls, with the
+// exponents shift (int32[2] in device memory, required: the whole sweep's);
+// with finalize != 0 it then writes out (tile, 3, F, B) f32 from the
+// accumulators, once, after the sweep's last chunk.
+int lgbt_hist_multi_f32_carry(const void* bins, const void* grad, const void* hess,
+                              const void* mask, const void* slot, long long n, int F,
+                              int leaf_base, int tile, int B, const void* shift_dev,
+                              void* acc64, void* acc32, void* out, int finalize,
+                              void* stream) {
+  if (n < 0 || F <= 0 || tile <= 0 || B <= 0 || shift_dev == nullptr)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  Shift shift{nullptr, 0, static_cast<const int*>(shift_dev)};
+  if (n > 0) {
+    cudaError_t e = launch_hist<false>(bins, grad, hess, mask, slot, n, F, leaf_base, tile, B,
+                                       shift, static_cast<unsigned long long*>(acc64),
+                                       static_cast<int*>(acc32), st);
+    if (e != cudaSuccess) return (int)e;
+  }
+  if (finalize) {
+    const int64_t FBg = (int64_t)F * B;
+    finalize_kernel<<<lgbt::grid_for(tile * FBg), kThreads, 0, st>>>(
+        static_cast<const unsigned long long*>(acc64), static_cast<const int*>(acc32), shift,
+        tile, FBg, static_cast<float*>(out));
+  }
+  return (int)cudaGetLastError();
+}
+
+// The lane mode, float or bf16 (bf16 != 0): lanes histograms in one launch
+// over the shared bins (n_rows, F).  Lane l's position p (p < W) is row
+// rows[l, p] in slot slot[l, p] (skipped outside [0, tile)), weighed by
+// grad/hess[l, row] where mask[l, row]; shift (lanes, 2) int32 holds each
+// lane's exponents.  acc64 (lanes, tile, 2, F, B) and acc32 (lanes, tile,
+// F, B) zeroed by the caller; out (lanes, tile, 3, F, B) f32.
+int lgbt_hist_multi_lanes_f32(const void* bins, const void* grad, const void* hess,
+                              const void* mask, const void* rows, const void* slot,
+                              long long n_rows, long long W, int F, int lanes, int tile,
+                              int B, const void* shift_dev, void* acc64, void* acc32,
+                              void* out, int bf16, void* stream) {
+  if (n_rows <= 0 || W <= 0 || F <= 0 || lanes <= 0 || lanes > 65535 || tile <= 0 ||
+      B <= 0 || shift_dev == nullptr)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int* sh = static_cast<const int*>(shift_dev);
+  auto* a64 = static_cast<unsigned long long*>(acc64);
+  auto* a32 = static_cast<int*>(acc32);
+  cudaError_t e =
+      bf16 ? launch_hist_lanes<false, true>(bins, grad, hess, mask, rows, slot, n_rows, W, F,
+                                            lanes, tile, B, sh, a64, a32, st)
+           : launch_hist_lanes<false, false>(bins, grad, hess, mask, rows, slot, n_rows, W, F,
+                                             lanes, tile, B, sh, a64, a32, st);
+  if (e != cudaSuccess) return (int)e;
+  const int64_t FBg = (int64_t)F * B;
+  finalize_lanes_kernel<<<lgbt::grid_for((int64_t)lanes * tile * FBg), kThreads, 0, st>>>(
+      a64, a32, sh, lanes, tile, FBg, static_cast<float*>(out));
+  return (int)cudaGetLastError();
+}
+
+// The lane mode, int8: out (lanes, tile, 3, F, B) int32, zeroed by the caller.
+int lgbt_hist_multi_lanes_i8(const void* bins, const void* grad_q, const void* hess_q,
+                             const void* mask, const void* rows, const void* slot,
+                             long long n_rows, long long W, int F, int lanes, int tile, int B,
+                             void* out, void* stream) {
+  if (n_rows <= 0 || W <= 0 || F <= 0 || lanes <= 0 || lanes > 65535 || tile <= 0 || B <= 0)
+    return (int)cudaErrorInvalidValue;
+  return (int)launch_hist_lanes<true, false>(bins, grad_q, hess_q, mask, rows, slot, n_rows, W,
+                                             F, lanes, tile, B, nullptr, nullptr,
+                                             static_cast<int*>(out),
+                                             static_cast<cudaStream_t>(stream));
 }
 
 const char* lgbt_error_string(int code) {

@@ -180,6 +180,12 @@ struct HistArgs {
   Shift shift;
   unsigned long long* acc64;  // float: (tile, 2, F, B) fixed-point sums
   int* acc32;                 // float: (tile, F, B) counts; int8: (tile, 3, F, B)
+  // lane mode (kLanes): lane blockIdx.y's position p reads row rows[p] of
+  // the shared bins, its slot from slot[p], and that lane's payloads, mask,
+  // exponent pair and accumulators; rows, slot are (lanes, n), the payloads
+  // and mask (lanes, lane_rows), shift.given (lanes, 2)
+  const int32_t* rows;
+  int64_t lane_rows;
 };
 
 // Shared words of one cell: lo_g, hi_g, lo_h, hi_h, count (float) or g, h,
@@ -190,10 +196,28 @@ struct Cells {
   static constexpr int kBytes = kWords * 4;
 };
 
-// kBf16: the float path reading __nv_bfloat16 payloads (kQuant false)
-template <bool kQuant, bool kGather, bool kBf16 = false>
+// kBf16: the float path reading __nv_bfloat16 payloads (kQuant false).
+// kLanes: the direct mode over a lane axis (gridDim.y lanes, HistArgs'
+// lane fields): each block moves its pointers to its lane's slices, so a
+// block's shared footprint is the solo call's and every lane keeps its
+// own exponents
+template <bool kQuant, bool kGather, bool kBf16 = false, bool kLanes = false>
 __global__ void __launch_bounds__(kThreads) hist_kernel(HistArgs a) {
   static_assert(!(kQuant && kBf16), "bf16 is a float payload");
+  static_assert(!(kGather && kLanes), "lanes read rows through their own row ids");
+  if constexpr (kLanes) {
+    const int64_t lane = blockIdx.y;
+    const int64_t pay = kQuant ? 1 : (kBf16 ? 2 : 4);
+    const int64_t FBg = (int64_t)a.F * a.B;
+    a.g = static_cast<const unsigned char*>(a.g) + lane * a.lane_rows * pay;
+    a.h = static_cast<const unsigned char*>(a.h) + lane * a.lane_rows * pay;
+    a.mask += lane * a.lane_rows;
+    a.rows += lane * a.n;
+    a.slot += lane * a.n;
+    if (a.shift.given != nullptr) a.shift.given += 2 * lane;
+    if (a.acc64 != nullptr) a.acc64 += lane * a.tile * 2 * FBg;
+    a.acc32 += lane * a.tile * (kQuant ? 3 : 1) * FBg;
+  }
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int kWords = Cells<kQuant>::kWords;
   const int Bs = bin_stride(a.B);
@@ -270,8 +294,8 @@ __global__ void __launch_bounds__(kThreads) hist_kernel(HistArgs a) {
         if constexpr (kGather) {
           r = a.order[wbase + pos];
         } else {
-          r = (int)pos;
-          const int sl = a.slot[r] - a.leaf_base - s0;
+          r = kLanes ? a.rows[pos] : (int)pos;
+          const int sl = a.slot[pos] - a.leaf_base - s0;
           take = sl >= 0 && sl < scount;
           base = sl * a.FB * Bs;
         }

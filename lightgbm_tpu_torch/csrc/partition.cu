@@ -47,6 +47,39 @@
 
 #include "partition_common.cuh"
 
+// The lane mode's kernel: lane groups of ``group`` lanes in turn, each a
+// partition of its own flat space (partition_kernel's passes on the
+// group's offset arguments) with its own run of status words.
+__global__ void __launch_bounds__(lgbt::kBlock)
+    partition_lanes_kernel(lgbt::PartitionArgs a, int lanes, int group) {
+  __shared__ lgbt::ChunkTable t;
+  const unsigned epoch = *reinterpret_cast<volatile unsigned*>(a.scratch);
+  const long long words = lgbt::chunks_of(group * a.lane_n) + (long long)group * a.lane_s;
+  for (int g = 0; g * group < lanes; ++g) {
+    const int lane0 = g * group;
+    const int gl = lanes - lane0 < group ? lanes - lane0 : group;
+    const long long pos = (long long)lane0 * a.lane_n, seg = (long long)lane0 * a.lane_s;
+    lgbt::PartitionArgs ga = a;
+    ga.order += pos;
+    ga.go += pos;
+    ga.out += pos;
+    ga.seg_start += seg;
+    ga.seg_len += seg;
+    ga.n_left += seg;
+    ga.n = gl * a.lane_n;
+    ga.S = gl * a.lane_s;
+    ga.status_off = g * words;
+    __syncthreads();  // the block's threads are done with the last group's table
+    lgbt::build_table(ga, t);
+    if (blockIdx.x == 0 && threadIdx.x < ga.S && t.len[threadIdx.x] == 0)
+      ga.n_left[threadIdx.x] = 0;
+    lgbt::partition_chunks<lgbt::kCountMode>(ga, t, epoch);
+    cooperative_groups::this_grid().sync();
+    lgbt::partition_chunks<lgbt::kMoveMode>(ga, t, epoch);
+  }
+  lgbt::finish_launch(a.scratch);
+}
+
 extern "C" {
 
 // order (n,) i32, go (n,) u8 per position, seg_start/seg_len (S,) i32;
@@ -63,6 +96,46 @@ int lgbt_partition(const void* order, const void* go, const void* seg_start,
                         static_cast<const int32_t*>(seg_len), static_cast<int32_t*>(n_left),
                         (int)n, S, static_cast<unsigned*>(scratch), static_cast<int32_t*>(out)};
   return (int)lgbt::launch_partition(a, false, static_cast<cudaStream_t>(stream));
+}
+
+// The lane mode: lanes independent partitions in one launch.  order and
+// go are (lanes, n), seg_start / seg_len (lanes, S) with starts relative to
+// their lane's order; n_left (lanes, S) and out (lanes, n).  A lane group
+// of G = 1024 / S lanes lies end to end in one flat space of G * n
+// positions, whose G * S segments fill one chunk table; the launch's one
+// wave takes the groups in turn (count, grid barrier, move each), each
+// group's status words a run of their own in the scratch:
+// 2 u32 words + ceil(lanes / G) * (ceil(G n / 4096) + G S) u64 words.
+// Takes S <= 1024 and lanes * n < 2^30.
+int lgbt_partition_lanes(const void* order, const void* go, const void* seg_start,
+                         const void* seg_len, int lanes, long long n, int S, void* scratch,
+                         void* n_left, void* out, void* stream) {
+  const long long total = (long long)lanes * n;
+  if (lanes < 1 || n <= 0 || S < 1 || S > lgbt::kMaxSegments || total >= lgbt::kMaxRows)
+    return (int)cudaErrorInvalidValue;
+  const int group = lgbt::kMaxSegments / S < lanes ? lgbt::kMaxSegments / S : lanes;
+  lgbt::PartitionArgs a{static_cast<const int32_t*>(order), static_cast<const uint8_t*>(go),
+                        static_cast<const int32_t*>(seg_start),
+                        static_cast<const int32_t*>(seg_len), static_cast<int32_t*>(n_left),
+                        (int)n, S, static_cast<unsigned*>(scratch),
+                        static_cast<int32_t*>(out), (int)n, S, 0};
+  const void* fn = reinterpret_cast<const void*>(partition_lanes_kernel);
+  int grid = 0;
+  cudaError_t e = lgbt::partition_grid(
+      fn, lgbt::chunks_of((int)(group * n)) + 2 * (int64_t)group * S + 1, &grid);
+  if (e != cudaSuccess) return (int)e;
+  int n_lanes = lanes;
+  void* args[] = {&a, &n_lanes, (void*)&group};
+  cudaLaunchAttribute coop[1];
+  coop[0].id = cudaLaunchAttributeCooperative;
+  coop[0].val.cooperative = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(lgbt::kBlock);
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cfg.attrs = coop;
+  cfg.numAttrs = 1;
+  return (int)cudaLaunchKernelExC(&cfg, fn, args);
 }
 
 const char* lgbt_error_string(int code) {

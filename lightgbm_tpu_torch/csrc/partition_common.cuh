@@ -87,6 +87,14 @@ struct PartitionArgs {
   int S;
   unsigned* scratch;
   int32_t* out;
+  // lane mode: segment s lies lane_n * (s / lane_s) positions further on
+  // (lane b's order occupies positions [b lane_n, (b + 1) lane_n) of the
+  // flat space); lane_s = 0 reads seg_start as it is
+  int lane_n;
+  int lane_s;
+  // status words this call's chunks start at, past the header (the lane
+  // mode's lane groups each keep their own run of words)
+  long long status_off;
 };
 
 struct ChunkTable {
@@ -131,7 +139,7 @@ __host__ __device__ __forceinline__ int chunks_of(int len) { return (len + kChun
 __device__ void build_table(const PartitionArgs& a, ChunkTable& t) {
   const int s = threadIdx.x;
   const bool has = s < a.S;
-  const int st = has ? a.seg_start[s] : 0;
+  const int st = has ? a.seg_start[s] + (a.lane_s > 0 ? (s / a.lane_s) * a.lane_n : 0) : 0;
   const int len = has ? a.seg_len[s] : 0;
   if (has) {
     t.start[s] = st;
@@ -224,7 +232,7 @@ __device__ __forceinline__ int look_back(unsigned long long* me, int c, int cnt,
 template <int kMode>
 __device__ void partition_chunks(const PartitionArgs& a, ChunkTable& t, unsigned epoch) {
   unsigned long long* status =
-      reinterpret_cast<unsigned long long*>(a.scratch + kScratchWords);
+      reinterpret_cast<unsigned long long*>(a.scratch + kScratchWords) + a.status_off;
   const int n_seg = t.seg_first[a.S];
   const int total = kMode == kCountMode ? n_seg : t.gap_first[a.S + 1];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;

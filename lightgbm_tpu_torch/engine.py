@@ -482,6 +482,86 @@ def _make_n_folds(full_data: Dataset, nfold: int, params: Dict, seed: int,
         yield np.setdiff1d(np.arange(num_data), te), te
 
 
+def continual_train(model=None, params: Optional[Dict[str, Any]] = None, *,
+                    runtime=None, model_name: str = "default", reference=None,
+                    state_dir: Optional[str] = None, cache_path: Optional[str] = None,
+                    start: bool = True, **runner_kwargs):
+    """Make, and by default start, a ContinualRunner (README "Continuous
+    training"; continual/runtime.py): it ingests fresh rows beside a live
+    ServingRuntime, refits the leaves or appends trees on the card by
+    policy, and swaps the serving ensemble without downtime.
+
+    ``model`` is a Booster or a model file; ``runtime`` a ServingRuntime
+    already serving it as ``model_name``; ``reference`` the training
+    Dataset (or its save_binary cache) with the frozen bin mappers;
+    ``params`` the policy (``update_every_rows``, ``update_every_s``,
+    ``append_trees``, ``drift_window``) and ``metrics_port`` /
+    ``telemetry``; ``state_dir`` arms rollover checkpoints (with
+    ``resume=True`` to pick the newest valid one up) and ``cache_path``
+    the durable ingest cache.  Runs on the card unless ``device_type`` is
+    "cpu"; without a card and that parameter it raises."""
+    from .continual.runtime import ContinualRunner
+    from .models.gbdt import resolve_device
+
+    cfg = Config.from_dict(dict(params or {}))
+    set_verbosity(cfg.verbosity)
+    resolve_device(cfg)  # raises without a card unless device_type is cpu
+    _obs.set_enabled(bool(cfg.telemetry) if cfg.is_set("telemetry")
+                     else _obs.DEFAULT_ENABLED)
+    if _obs.enabled():
+        _start_endpoint(cfg)
+    bst = (model if isinstance(model, Booster)
+           else Booster(params={"device_type": cfg.device_type}, model_file=model))
+    for name in ("update_every_rows", "update_every_s", "append_trees", "drift_window"):
+        if cfg.is_set(name):
+            runner_kwargs.setdefault(name, getattr(cfg, name))
+    return ContinualRunner(bst, runtime=runtime, model_name=model_name,
+                           reference=reference, state_dir=state_dir,
+                           cache_path=cache_path, start=start, **runner_kwargs)
+
+
+def train_fleet(params: Optional[Dict[str, Any]], train_set, labels=None, *,
+                num_boost_round: int = 100, weights=None, rounds=None):
+    """Train B independent boosters over one shared binned Dataset (README
+    "Booster fleets"; models/fleet.py::FleetBooster): every boosting round
+    of every lane advances as one fleet round, with the histogram and
+    partition kernels launched once a round for all lanes.
+
+    ``train_set`` is the shared Dataset with ``labels`` a (B, N) label
+    matrix (and optionally ``weights`` (B, N)), or a list of Datasets over
+    the same feature data whose labels and weights are stacked here.
+    ``rounds`` optionally gives each lane's budget (default
+    ``num_boost_round``); ``params`` may pin ``fleet_size`` as a shape
+    guard.  Runs on the card unless ``device_type`` is "cpu".  Returns the
+    trained FleetBooster: ``booster(b)`` is lane b's Booster."""
+    from .models.fleet import FleetBooster, FleetError
+
+    cfg = Config.from_dict(dict(params or {}))
+    set_verbosity(cfg.verbosity)
+    _obs.set_enabled(bool(cfg.telemetry) if cfg.is_set("telemetry")
+                     else _obs.DEFAULT_ENABLED)
+    if _obs.enabled():
+        _start_endpoint(cfg)
+    if isinstance(train_set, (list, tuple)):
+        if labels is not None:
+            raise FleetError("train_fleet: pass either a list of Datasets or one "
+                             "Dataset and a (B, N) label matrix, not both")
+        datasets = list(train_set)
+        if not datasets:
+            raise FleetError("train_fleet: empty Dataset list")
+        labels = np.stack([np.asarray(d.label, np.float64) for d in datasets])
+        ws = [d.weight for d in datasets]
+        if any(w is not None for w in ws):
+            weights = np.stack([np.ones(labels.shape[1]) if w is None
+                                else np.asarray(w, np.float64) for w in ws])
+        train_set = datasets[0]
+    elif labels is None:
+        raise FleetError("train_fleet: a (B, N) label matrix (or a list of "
+                         "Datasets) is required")
+    fb = FleetBooster(train_set, labels, params, weights=weights, rounds=rounds)
+    return fb.train(num_boost_round)
+
+
 def cv(
     params: Dict[str, Any],
     train_set: Dataset,

@@ -91,6 +91,7 @@ from ..ops.linear import fit_linear_leaves, predict_linear_rows
 from ..ops.split import SplitParams
 from ..ops.treegrow import grow_tree
 from ..ops.treegrow_fast import grow_tree_fast, predict_leaf_arrays
+from ..ops.treegrow_ooc import grow_tree_ooc
 from ..ops.treegrow_windowed import grow_tree_windowed
 from ..utils import faults as _faults
 from ..utils import locktrace as _lt
@@ -328,6 +329,7 @@ class GBDT:
         self._cegb_lazy = self._cegb_lazy_used = None
         self._forced_cache = None
         self._linear = False
+        self._ooc_spill = False  # the out-of-core spill regime
         # the packed-ensemble cache of prediction (``_packed``): entries
         # keyed by (version, tree range, ...); every mutation bumps the
         # version (``_invalidate_pred_cache``) under the pack lock
@@ -447,8 +449,9 @@ class GBDT:
         if i < len(self._models):
             return ds.predict_leaf_binned_tree(self._models[i])
         arrays = self._pending[i - len(self._models)][0]
-        return predict_leaf_arrays(arrays, ds.bins_device, ds.missing_bin_pf_device,
-                                   categorical=self._categorical_mask is not None)
+        return ds.over_rows(lambda bins: predict_leaf_arrays(
+            arrays, bins, ds.missing_bin_pf_device,
+            categorical=self._categorical_mask is not None))
 
     def _tree_rows(self, i: int, ds) -> torch.Tensor:
         """(N,) f32: tree i's value for each row of ``ds`` (a linear tree's
@@ -552,11 +555,43 @@ class GBDT:
         self._feature_contri = (
             torch.as_tensor(np.asarray((fc + [1.0] * f)[:f], np.float32), device=dev)
             if any(float(c) != 1.0 for c in fc) else None)
+        self._check_spill_envelope(train_set)
         self._leaf_tile = recommended_leaf_tile(
             train_set.max_num_bins, _hist_columns(train_set), cfg.num_leaves,
             quantized=bool(cfg.use_quantized_grad),
             hist_precision=cfg.hist_precision)
         self._set_envelope(train_set)
+
+    def _check_spill_envelope(self, ts) -> None:
+        """The out-of-core spill regime (the Dataset's rows exceed
+        max_rows_in_hbm): training takes the chunk-streamed grower
+        (ops/treegrow_ooc.py), whose envelope is the strict grower's core;
+        an option outside it raises here, as in the JAX package, rather
+        than train something else."""
+        cfg = self.cfg
+        self._ooc_spill = bool(getattr(ts, "ooc_spill", False))
+        if not self._ooc_spill:
+            return
+        blocked = {
+            "monotone_constraints": any(int(c) != 0 for c in cfg.monotone_constraints or []),
+            "interaction_constraints": bool(cfg.interaction_constraints),
+            "forcedsplits_filename": bool(cfg.forcedsplits_filename),
+            "cegb penalties": any(p != 0 for p in (cfg.cegb_penalty_feature_coupled or [])
+                                  + (cfg.cegb_penalty_feature_lazy or [])),
+            "linear_tree": bool(cfg.linear_tree),
+            "extra_trees / feature_fraction_bynode": bool(
+                cfg.extra_trees or cfg.feature_fraction_bynode < 1.0),
+            "boosting = dart": cfg.boosting == "dart",
+        }
+        bad = [k for k, v in blocked.items() if v]
+        if bad:
+            raise ValueError(
+                "out_of_core spill training (rows > max_rows_in_hbm) does not "
+                f"support: {', '.join(bad)}; raise max_rows_in_hbm (the resident "
+                "regime trains everything) or drop the option (ops/treegrow_ooc.py)")
+        if cfg.use_quantized_grad:
+            log_warning("use_quantized_grad is ignored by the out-of-core spill "
+                        "grower: it trains float (a mirror of the strict grower)")
 
     def _set_envelope(self, ts) -> None:
         """The constraint options as the growers take them (the JAX
@@ -792,9 +827,11 @@ class GBDT:
 
     def _use_strict(self) -> bool:
         """The strict grower, as the JAX package picks it: asked for, or
-        auto off the accelerator (here: training on the CPU)."""
+        auto off the accelerator (here: training on the CPU); and the
+        out-of-core spill regime, whose grower mirrors it."""
         mode = self.cfg.tree_growth_mode
-        return mode == "strict" or (mode == "auto" and self.device.type == "cpu")
+        return (mode == "strict" or (mode == "auto" and self.device.type == "cpu")
+                or self._ooc_spill)
 
     def _use_windowed(self, ts) -> bool:
         """Wide-regime windowed grower gate (the JAX package's, with "on
@@ -803,16 +840,25 @@ class GBDT:
         the options its envelope excludes (monotone and interaction
         constraints, forced splits, CEGB coupled or lazy penalties, linear
         trees: they train on the rounds grower); one device is all this
-        package trains on."""
+        package trains on.  tree_growth_mode=windowed takes the grower at
+        any width and on either device, and raises outside its envelope."""
+        envelope = (self._monotone is None and self._interaction_sets is None
+                    and not self.cfg.forcedsplits_filename
+                    and self._cegb_lazy is None and self._cegb_coupled is None
+                    and not self._linear)
+        if self.cfg.tree_growth_mode == "windowed" and not self._ooc_spill:
+            if not envelope:
+                raise ValueError(
+                    "tree_growth_mode=windowed: monotone and interaction "
+                    "constraints, forced splits, CEGB coupled or lazy penalties "
+                    "and linear trees train on the rounds grower")
+            return True
         flag = self.cfg.extra.get("windowed_growth", False)
         if isinstance(flag, str):
             flag = flag.strip().lower() in ("1", "true", "yes", "on", "+")
         return (self.device.type == "cuda" and bool(flag)
                 and ts.num_feature() >= 512 and self.cfg.num_leaves >= 64
-                and self._monotone is None and self._interaction_sets is None
-                and not self.cfg.forcedsplits_filename
-                and self._cegb_lazy is None and self._cegb_coupled is None
-                and not self._linear)
+                and envelope)
 
     @property
     def windowed_stats(self) -> List[dict]:
@@ -956,7 +1002,15 @@ class GBDT:
                 forced_feature=fs[1] if fs else None,
                 forced_bin=fs[2] if fs else None, n_forced=fs[3] if fs else 0,
                 track_path=self._linear, monotone_method=self._monotone_method)
-            if strict:
+            if self._ooc_spill:
+                stats["grower"] = "ooc"
+                out = grow_tree_ooc(
+                    ts.device_chunks, ts.num_data(), ts.num_feature(), *args[1:],
+                    num_leaves=cfg.num_leaves, num_bins=ts.max_num_bins,
+                    max_depth=cfg.max_depth, params=self._split_params, stats=stats,
+                    categorical_mask=self._categorical_mask,
+                    feature_contri=self._feature_contri)
+            elif strict:
                 stats["grower"] = "strict"
                 out = grow_tree(*args, **common, **envelope)
             else:
@@ -1948,19 +2002,25 @@ def _stacked_bitsets(trees: List[Tree], m: int, device) -> Optional[tuple]:
                  for a in (is_cat, base, nwords, flat))
 
 
-def _pre_filter(bins: np.ndarray, binner, md: int) -> np.ndarray:
+def _pre_filter(bins: Optional[np.ndarray], binner, md: int, counts=None,
+                n_rows: Optional[int] = None) -> np.ndarray:
     """feature_pre_filter (reference: DatasetLoader): drop numerical features
     that cannot produce a split satisfying min_data_in_leaf for any
-    threshold or missing direction — an exact check on bin counts."""
+    threshold or missing direction — an exact check on bin counts.
+    ``counts``: each feature's bin counts, given instead of ``bins`` (a
+    streamed matrix), with ``n_rows``."""
     nbpf = np.asarray(binner.num_bins_per_feature)
     mbpf = np.asarray(binner.missing_bin_per_feature)
     cat_mask = np.asarray(binner.categorical_mask)
-    n_rows, n_feat = bins.shape
+    if bins is not None:
+        n_rows = bins.shape[0]
+    n_feat = len(nbpf)
     allowed = np.ones(n_feat, dtype=bool)
     for j in range(n_feat):
         if cat_mask[j] or nbpf[j] <= 1:
             continue
-        cm = np.bincount(bins[:, j].astype(np.int64), minlength=int(nbpf[j]))
+        cm = (np.bincount(bins[:, j].astype(np.int64), minlength=int(nbpf[j]))
+              if counts is None else counts[j].copy())
         m = int(cm[mbpf[j]]) if mbpf[j] >= 0 else 0
         if mbpf[j] >= 0:
             cm[mbpf[j]] = 0

@@ -17,6 +17,14 @@ way and add integers, so they agree bit for bit and repeat bit for bit.
 and hess to bfloat16 before the pass, outside the kernel as the JAX package
 builds its payload outside its kernel, and the kernel reads the 2-byte
 values; the sums are the same fixed point.
+
+Two further modes: the lane mode (``histogram_multi_lanes`` and its int8
+twin: L lanes' window histograms over shared bins in one launch, each lane
+through its own row ids and exponents, the booster fleet's) and the carried
+mode (``histogram_multi_carry``: a sweep's chunks added into one
+accumulator the caller keeps, converted to f32 once, the out-of-core spill
+grower's).  Each plain version is the solo plain version's arithmetic:
+looped over the lanes, or its integer sums added.
 """
 
 from __future__ import annotations
@@ -32,10 +40,11 @@ from ..utils.sanitizer import sync_pull
 from .cuda_build import KernelLibrary, count_launch, stream_ptr
 
 # launch counts of the kernel wrappers and call counts of the plain versions
-launches = {"histogram_multi": 0, "histogram_multi_bf16": 0,
-            "histogram_multi_quantized": 0}
-plain_calls = {"histogram_multi": 0, "histogram_multi_bf16": 0,
-               "histogram_multi_quantized": 0}
+_NAMES = ("histogram_multi", "histogram_multi_bf16", "histogram_multi_quantized",
+          "histogram_multi_lanes", "histogram_multi_quantized_lanes",
+          "histogram_multi_carry")
+launches = dict.fromkeys(_NAMES, 0)
+plain_calls = dict.fromkeys(_NAMES, 0)
 
 
 def reset_counts() -> None:
@@ -84,6 +93,14 @@ def _bind(lib: ctypes.CDLL) -> None:
         fn.restype = i
     lib.lgbt_hist_multi_i8.argtypes = [p, p, p, p, p, ll, i, i, i, i, p, p]
     lib.lgbt_hist_multi_i8.restype = i
+    lib.lgbt_hist_multi_f32_carry.argtypes = [p, p, p, p, p, ll, i, i, i, i, p, p, p,
+                                              p, i, p]
+    lib.lgbt_hist_multi_f32_carry.restype = i
+    lib.lgbt_hist_multi_lanes_f32.argtypes = [p, p, p, p, p, p, ll, ll, i, i, i, i, p,
+                                              p, p, p, i, p]
+    lib.lgbt_hist_multi_lanes_f32.restype = i
+    lib.lgbt_hist_multi_lanes_i8.argtypes = [p, p, p, p, p, p, ll, ll, i, i, i, i, p, p]
+    lib.lgbt_hist_multi_lanes_i8.restype = i
 
 
 LIBRARY = KernelLibrary("hist.cu", _bind)
@@ -194,6 +211,148 @@ def histogram_multi_quantized(bins, grad_q, hess_q, mask, leaf_slot,
     return out
 
 
+def _check_acc(name, t, shape, dtype, device) -> None:
+    if t.dtype != dtype or tuple(t.shape) != tuple(shape):
+        raise TypeError(f"{name} must be {tuple(shape)} {dtype}, got "
+                        f"{tuple(t.shape)} {t.dtype}")
+    if t.device != torch.device(device) or not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous on {device}")
+
+
+class CarryAccumulator:
+    """The carried float mode's accumulators (B1 over a sweep of row
+    chunks, the out-of-core spill grower's): int64 fixed-point sums of grad
+    and hess and int32 counts, (tile, 2, F, B) and (tile, F, B), kept by
+    the caller across the sweep's calls.  Every chunk is summed with the
+    sweep's exponent pair (``shift``: the tree's, from all N rows), so the
+    sums, and the f32 histogram ``histogram_multi_carry`` writes after the
+    last chunk, are the in-memory call's bit for bit."""
+
+    def __init__(self, tile: int, f: int, num_bins: int, shift, device):
+        self.shape = (tile, f, num_bins)
+        self.shift = shift_on(shift, device)
+        if self.shift is None:
+            raise TypeError("the carried mode needs the sweep's exponent pair")
+        self.acc64 = torch.zeros((tile, 2, f, num_bins), dtype=torch.int64,
+                                 device=device)
+        self.acc32 = torch.zeros((tile, f, num_bins), dtype=torch.int32,
+                                 device=device)
+
+
+def histogram_multi_carry(bins, grad, hess, mask, leaf_slot, leaf_base: int,
+                          acc: CarryAccumulator, finalize: bool = False
+                          ) -> Optional[torch.Tensor]:
+    """B1's carried float mode: add the rows of one chunk of a sweep (bins
+    (C, F), their grad, hess, mask and slot) into ``acc``; with
+    ``finalize``, after this chunk, return the sweep's (tile, 3, F, B) f32
+    histogram (one conversion a sweep), else None.  One launch a call on
+    the card (the conversion rides in it)."""
+    tile, f, num_bins = acc.shape
+    if not bins.is_cuda:
+        return histogram_multi_carry_plain(bins, grad, hess, mask, leaf_slot,
+                                           leaf_base, acc, finalize)
+    _check(bins, (grad, hess), mask, leaf_slot, torch.float32, tile, num_bins)
+    if bins.shape[1] != f:
+        raise TypeError(f"bins have {bins.shape[1]} columns, the accumulator {f}")
+    dev = bins.device
+    _check_acc("acc64", acc.acc64, (tile, 2, f, num_bins), torch.int64, dev)
+    _check_acc("acc32", acc.acc32, (tile, f, num_bins), torch.int32, dev)
+    out = (torch.empty((tile, 3, f, num_bins), dtype=torch.float32, device=dev)
+           if finalize else None)
+    with torch.cuda.device(dev):
+        rc = LIBRARY.lib().lgbt_hist_multi_f32_carry(
+            bins.data_ptr(), grad.data_ptr(), hess.data_ptr(), mask.data_ptr(),
+            leaf_slot.data_ptr(), bins.shape[0], f, int(leaf_base), int(tile),
+            int(num_bins), acc.shift.data_ptr(), acc.acc64.data_ptr(),
+            acc.acc32.data_ptr(), None if out is None else out.data_ptr(),
+            int(finalize), stream_ptr(dev))
+    LIBRARY.raise_on(rc, "histogram_multi_carry kernel")
+    count_launch(launches, "histogram_multi_carry")
+    return out
+
+
+def _check_lanes(bins, grad, hess, mask, rows, slot, payload_dtype, tile,
+                 num_bins):
+    if bins.dim() != 2 or bins.dtype != torch.int16:
+        raise TypeError(f"bins must be (N, F) int16, got {tuple(bins.shape)} "
+                        f"{bins.dtype}")
+    n = bins.shape[0]
+    if rows.dim() != 2:
+        raise TypeError(f"rows must be (L, W) int32, got {tuple(rows.shape)}")
+    lanes, w = rows.shape
+    for name, t, shape, dt in (("grad", grad, (lanes, n), payload_dtype),
+                               ("hess", hess, (lanes, n), payload_dtype),
+                               ("mask", mask, (lanes, n), torch.bool),
+                               ("rows", rows, (lanes, w), torch.int32),
+                               ("slot", slot, (lanes, w), torch.int32)):
+        if t.dtype != dt or tuple(t.shape) != shape:
+            raise TypeError(f"{name} must be {shape} {dt}, got "
+                            f"{tuple(t.shape)} {t.dtype}")
+        if t.device != bins.device or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous on {bins.device}")
+    if not bins.is_contiguous():
+        raise ValueError("bins must be contiguous")
+    if tile < 1 or num_bins < 1 or lanes < 1 or lanes > 65535:
+        raise ValueError(f"need 1 <= lanes <= 65535, tile and num_bins >= 1, got "
+                         f"{lanes}, {tile}, {num_bins}")
+
+
+def histogram_multi_lanes(bins, grad, hess, mask, rows, slot, shift, tile: int,
+                          num_bins: int, precision: str = "f32") -> torch.Tensor:
+    """B1's lane mode (the booster fleet's window pass): (L, tile, 3, F, B)
+    f32 histograms of L lanes over the shared bins (N, F) in one launch.
+    Lane l's position p is row rows[l, p] in slot slot[l, p] (a slot
+    outside [0, tile) is skipped), summed from grad / hess[l, row] where
+    mask[l, row], with lane l's exponent pair shift[l] ((L, 2) int32 on the
+    device).  Each lane's slice equals, bit for bit, ``histogram_multi`` of
+    that lane's gathered rows with its own exponents."""
+    grad, hess = _payload(grad, hess, precision)
+    if not bins.is_cuda:
+        return histogram_multi_lanes_plain(bins, grad, hess, mask, rows, slot,
+                                           shift, tile, num_bins, precision)
+    bf16 = precision == "bf16"
+    _check_lanes(bins, grad, hess, mask, rows, slot,
+                 torch.bfloat16 if bf16 else torch.float32, tile, num_bins)
+    lanes, w = rows.shape
+    n, f = bins.shape
+    dev = bins.device
+    _check_acc("shift", shift, (lanes, 2), torch.int32, dev)
+    out = torch.empty((lanes, tile, 3, f, num_bins), dtype=torch.float32, device=dev)
+    acc64 = torch.zeros((lanes, tile, 2, f, num_bins), dtype=torch.int64, device=dev)
+    acc32 = torch.zeros((lanes, tile, f, num_bins), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        rc = LIBRARY.lib().lgbt_hist_multi_lanes_f32(
+            bins.data_ptr(), grad.data_ptr(), hess.data_ptr(), mask.data_ptr(),
+            rows.data_ptr(), slot.data_ptr(), n, w, f, lanes, int(tile),
+            int(num_bins), shift.data_ptr(), acc64.data_ptr(), acc32.data_ptr(),
+            out.data_ptr(), int(bf16), stream_ptr(dev))
+    LIBRARY.raise_on(rc, "histogram_multi_lanes kernel")
+    count_launch(launches, "histogram_multi_lanes")
+    return out
+
+
+def histogram_multi_quantized_lanes(bins, grad_q, hess_q, mask, rows, slot,
+                                    tile: int, num_bins: int) -> torch.Tensor:
+    """B1's int8 lane mode: (L, tile, 3, F, B) int32 exact sums, lane by
+    lane ``histogram_multi_lanes``'s geometry."""
+    if not bins.is_cuda:
+        return histogram_multi_quantized_lanes_plain(bins, grad_q, hess_q, mask,
+                                                     rows, slot, tile, num_bins)
+    _check_lanes(bins, grad_q, hess_q, mask, rows, slot, torch.int8, tile, num_bins)
+    lanes, w = rows.shape
+    n, f = bins.shape
+    dev = bins.device
+    out = torch.zeros((lanes, tile, 3, f, num_bins), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        rc = LIBRARY.lib().lgbt_hist_multi_lanes_i8(
+            bins.data_ptr(), grad_q.data_ptr(), hess_q.data_ptr(), mask.data_ptr(),
+            rows.data_ptr(), slot.data_ptr(), n, w, f, lanes, int(tile),
+            int(num_bins), out.data_ptr(), stream_ptr(dev))
+    LIBRARY.raise_on(rc, "histogram_multi_quantized_lanes kernel")
+    count_launch(launches, "histogram_multi_quantized_lanes")
+    return out
+
+
 def histogram(bins, grad, hess, mask, num_bins: int) -> torch.Tensor:
     """Single-leaf (3, F, B) f32 histogram: a tile-1 call."""
     slot = torch.zeros(bins.shape[0], dtype=torch.int32, device=bins.device)
@@ -283,9 +442,15 @@ def shift_on(shift, device) -> Optional[torch.Tensor]:
 def histogram_multi_plain(bins, grad, hess, mask, leaf_slot, leaf_base: int,
                           tile: int, num_bins: int, shift=None,
                           precision: str = "f32") -> torch.Tensor:
-    grad, hess = (v.float() for v in _payload(grad, hess, precision))
     plain_calls["histogram_multi_bf16" if precision == "bf16"
                 else "histogram_multi"] += 1
+    return _multi_plain(bins, grad, hess, mask, leaf_slot, leaf_base, tile,
+                        num_bins, shift, precision)
+
+
+def _multi_plain(bins, grad, hess, mask, leaf_slot, leaf_base, tile, num_bins,
+                 shift, precision):
+    grad, hess = (v.float() for v in _payload(grad, hess, precision))
     n, f = bins.shape
     rows, idx = _rows_and_index(bins, mask, leaf_slot, leaf_base, tile,
                                 num_bins)
@@ -308,6 +473,12 @@ def histogram_multi_quantized_plain(bins, grad_q, hess_q, mask, leaf_slot,
                                     leaf_base: int, tile: int,
                                     num_bins: int) -> torch.Tensor:
     plain_calls["histogram_multi_quantized"] += 1
+    return _quantized_plain(bins, grad_q, hess_q, mask, leaf_slot, leaf_base,
+                            tile, num_bins)
+
+
+def _quantized_plain(bins, grad_q, hess_q, mask, leaf_slot, leaf_base, tile,
+                     num_bins):
     n, f = bins.shape
     rows, idx = _rows_and_index(bins, mask, leaf_slot, leaf_base, tile,
                                 num_bins)
@@ -320,3 +491,62 @@ def histogram_multi_quantized_plain(bins, grad_q, hess_q, mask, leaf_slot,
                        .reshape(-1))
         chans.append(acc.reshape(tile, f, num_bins))
     return torch.stack(chans, dim=1)
+
+
+def _lane_rows(rows, slot, l: int):
+    """Lane l's positions as the solo plain version takes them: row ids
+    (int64, 0 where the slot is out of range) and slots."""
+    r, s = rows[l].long(), slot[l]
+    return torch.where(s >= 0, r, 0), s
+
+
+def histogram_multi_lanes_plain(bins, grad, hess, mask, rows, slot, shift,
+                                tile: int, num_bins: int,
+                                precision: str = "f32") -> torch.Tensor:
+    """The solo plain version looped over the lanes, each lane's rows
+    gathered and summed with its own exponent pair."""
+    plain_calls["histogram_multi_lanes"] += 1
+    out = []
+    for l in range(rows.shape[0]):
+        r, s = _lane_rows(rows, slot, l)
+        out.append(_multi_plain(bins[r], grad[l][r], hess[l][r], mask[l][r], s, 0,
+                                tile, num_bins, (int(shift[l, 0]), int(shift[l, 1])),
+                                precision))
+    return torch.stack(out)
+
+
+def histogram_multi_quantized_lanes_plain(bins, grad_q, hess_q, mask, rows, slot,
+                                          tile: int, num_bins: int) -> torch.Tensor:
+    plain_calls["histogram_multi_quantized_lanes"] += 1
+    out = []
+    for l in range(rows.shape[0]):
+        r, s = _lane_rows(rows, slot, l)
+        out.append(_quantized_plain(bins[r], grad_q[l][r], hess_q[l][r], mask[l][r],
+                                    s, 0, tile, num_bins))
+    return torch.stack(out)
+
+
+def histogram_multi_carry_plain(bins, grad, hess, mask, leaf_slot, leaf_base: int,
+                                acc: CarryAccumulator,
+                                finalize: bool = False) -> Optional[torch.Tensor]:
+    """The solo plain version's integer sums of one chunk, added into the
+    accumulators; the conversion of histogram_multi_plain after the last."""
+    plain_calls["histogram_multi_carry"] += 1
+    tile, f, num_bins = acc.shape
+    rows, idx = _rows_and_index(bins, mask, leaf_slot, leaf_base, tile, num_bins)
+    idx = idx.reshape(-1)
+    sh = (int(acc.shift[0]), int(acc.shift[1]))
+    a64 = acc.acc64.view(tile, 2, -1)
+    for i, v in enumerate((grad, hess)):
+        fixed = torch.round(v.float()[rows].double() * math.ldexp(1.0, sh[i])).long()
+        flat = torch.zeros(tile * f * num_bins, dtype=torch.int64, device=bins.device)
+        flat.index_add_(0, idx, fixed[:, None].expand(-1, f).reshape(-1))
+        a64[:, i] += flat.view(tile, -1)
+    cnt = torch.zeros(tile * f * num_bins, dtype=torch.int64, device=bins.device)
+    cnt.index_add_(0, idx, torch.ones_like(idx))
+    acc.acc32 += cnt.view(tile, f, num_bins).to(torch.int32)
+    if not finalize:
+        return None
+    chans = [(a64[:, i].double() * math.ldexp(1.0, -sh[i])).float()
+             for i in range(2)] + [acc.acc32.view(tile, -1).float()]
+    return torch.stack([c.reshape(tile, f, num_bins) for c in chans], dim=1)

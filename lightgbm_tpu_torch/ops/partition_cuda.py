@@ -8,7 +8,10 @@ launches the kernel or raises; only a tensor on the CPU takes the plain
 version (ops/partition.py::stable_partition_ranges).  The output is a
 permutation, so kernel and plain version agree bit for bit.  The round
 megakernel (ops/round_cuda.py) runs the same device code and shares the
-scratch kept here.
+scratch kept here.  ``partition_segments_lanes`` is the lane mode (the
+booster fleet's): L orders partitioned in one launch, lane b's segments
+offset by b * N in the flat space of its lane group (1024 // S lanes, whose
+segments fill one chunk table); the launch takes the groups in turn.
 """
 
 from __future__ import annotations
@@ -20,8 +23,8 @@ import torch
 from .cuda_build import KernelLibrary, count_launch, stream_ptr
 from .partition import segment_ids, stable_partition_ranges
 
-launches = {"partition_segments": 0}
-plain_calls = {"partition_segments": 0}
+launches = {"partition_segments": 0, "partition_segments_lanes": 0}
+plain_calls = {"partition_segments": 0, "partition_segments_lanes": 0}
 CHUNK = 4096  # positions per chunk (partition_common.cuh kChunk)
 MAX_SEGMENTS = 1024  # segments a call (kMaxSegments); the kernels refuse more
 MAX_ROWS = 1 << 30  # the status words count in 30 bits (kMaxRows)
@@ -32,14 +35,17 @@ _scratch = {}
 
 
 def reset_counts() -> None:
-    launches["partition_segments"] = 0
-    plain_calls["partition_segments"] = 0
+    for d in (launches, plain_calls):
+        for k in d:
+            d[k] = 0
 
 
 def _bind(lib: ctypes.CDLL) -> None:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.lgbt_partition.argtypes = [p, p, p, p, ll, i, p, p, p, p]
     lib.lgbt_partition.restype = i
+    lib.lgbt_partition_lanes.argtypes = [p, p, p, p, i, ll, i, p, p, p, p]
+    lib.lgbt_partition_lanes.restype = i
 
 
 LIBRARY = KernelLibrary("partition.cu", _bind)
@@ -132,3 +138,59 @@ def partition_segments_plain(order, seg_start, seg_len, go_left):
     plain_calls["partition_segments"] += 1
     sid = segment_ids(seg_start, seg_len, order.shape[0])
     return stable_partition_ranges(order, sid, seg_start, seg_len, go_left)
+
+
+def partition_segments_lanes(order, seg_start, seg_len, go_left):
+    """B2's lane mode (the booster fleet's partition): L independent
+    segment partitions in one launch.  order and go_left are (L, N),
+    seg_start and seg_len (L, S) with starts relative to their lane's
+    order; returns the new orders (L, N) i32 and left counts (L, S) i32,
+    each lane's equal to ``partition_segments`` on that lane.  The kernel
+    lays each group of G = MAX_SEGMENTS // S lanes end to end in one flat
+    space of G * N positions (one chunk table) and takes the groups in
+    turn in its one cooperative wave, so it takes S <= MAX_SEGMENTS and
+    L * N < MAX_ROWS: beyond that this raises."""
+    if not order.is_cuda:
+        return partition_segments_lanes_plain(order, seg_start, seg_len, go_left)
+    if order.dim() != 2 or seg_start.dim() != 2:
+        raise TypeError(f"order must be (L, N) and seg_start (L, S), got "
+                        f"{tuple(order.shape)}, {tuple(seg_start.shape)}")
+    lanes, n = order.shape
+    s = seg_start.shape[1]
+    if s > MAX_SEGMENTS or lanes * n >= MAX_ROWS:
+        raise ValueError(
+            f"partition_segments_lanes takes S <= {MAX_SEGMENTS} segments a lane and "
+            f"L * N < {MAX_ROWS} positions, got L={lanes}, S={s}, N={n}")
+    check_segments(order.reshape(-1), seg_start.reshape(-1), seg_len.reshape(-1),
+                   go_left.reshape(-1))
+    if seg_start.shape != (lanes, s) or seg_len.shape != (lanes, s):
+        raise TypeError(f"seg_start and seg_len must be ({lanes}, {s})")
+    dev = order.device
+    if n == 0 or s == 0:
+        return order.clone(), torch.zeros((lanes, s), dtype=torch.int32, device=dev)
+    out = torch.empty_like(order)
+    n_left = torch.empty((lanes, s), dtype=torch.int32, device=dev)
+    stream = stream_ptr(dev)
+    # each lane group's status words are a run of their own
+    group = min(MAX_SEGMENTS // s, lanes)
+    groups = -(-lanes // group)
+    words_n = groups * -(-group * n // CHUNK) * CHUNK
+    with torch.cuda.device(dev):
+        rc = LIBRARY.lib().lgbt_partition_lanes(
+            order.data_ptr(), go_left.data_ptr(), seg_start.data_ptr(),
+            seg_len.data_ptr(), lanes, n, s,
+            scratch(dev, stream, words_n, groups * group * s).data_ptr(),
+            n_left.data_ptr(), out.data_ptr(), stream)
+    LIBRARY.raise_on(rc, "partition_segments_lanes kernel")
+    count_launch(launches, "partition_segments_lanes")
+    return out, n_left
+
+
+def partition_segments_lanes_plain(order, seg_start, seg_len, go_left):
+    """The solo plain version looped over the lanes."""
+    plain_calls["partition_segments_lanes"] += 1
+    outs = [stable_partition_ranges(order[l], segment_ids(seg_start[l], seg_len[l],
+                                                          order.shape[1]),
+                                    seg_start[l], seg_len[l], go_left[l])
+            for l in range(order.shape[0])]
+    return (torch.stack([o for o, _ in outs]), torch.stack([c for _, c in outs]))

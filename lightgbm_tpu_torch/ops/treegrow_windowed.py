@@ -168,13 +168,101 @@ def _round_fused(state: WState, bins, grad, hess, gq, hq, quant_scale,
     window_total, fits_W, whint, finite, k_next] (i32, on the device).
     ``efb``: the EFB tables (three-pass rounds only): the window pass
     histograms the bundled matrix and unbundles.  ``rng``: the tree's node
-    uniforms (three-pass rounds only)."""
+    uniforms (three-pass rounds only).  The round is its stages in order
+    (round_geometry, the partition, round_rows, the window pass,
+    round_finish); ops/treegrow_fleet.py runs the same stages for each of
+    its lanes around one lane-mode launch of each kernel."""
+    T = leaf_tile
+    g = round_geometry(state, bins, missing_bin_pf, cmask, num_leaves=num_leaves,
+                       leaf_tile=T, max_depth=max_depth, params=params, W=W)
+    i32 = torch.int32
+    if megakernel:
+        cand_tab = torch.stack([g.leaf_sum_g[g.ci], g.leaf_sum_h[g.ci],
+                                g.leaf_count[g.ci], g.leaf_out[g.ci]]).contiguous()
+        new_order, left_h, right_h, fbests = round_megakernel(
+            bins, state.order, g.go_left, grad, hess, row_mask,
+            g.seg_start.to(i32), g.seg_len_eff.to(i32), g.n_left_seg.to(i32),
+            g.win_start.to(i32), g.win_cnt.to(i32), g.slot_small_left.to(i32),
+            g.parent_hists, cand_tab, num_bins_pf, missing_bin_pf, feature_mask,
+            params=params, W=W, shift=shift, categorical_mask=cmask,
+            feature_contri=contri)
+    else:
+        new_order, _ = partition_segments(state.order, g.seg_start.to(i32),
+                                          g.seg_len_eff.to(i32), g.go_left)
+    rows = round_rows(state, g, new_order, cmask)
+    if megakernel:
+        return round_finish(state, g, rows, left_h, right_h, num_bins_pf,
+                            missing_bin_pf, feature_mask, cmask, contri,
+                            num_leaves=num_leaves, num_bins=num_bins,
+                            max_depth=max_depth, params=params, leaf_tile=T,
+                            fbests=fbests)
+    # ---- three-pass: window gather -> multi-leaf pass -> subtraction ----
+    win = (new_order, bins if efb is None else efb[0])
+    geo = (row_mask, g.win_start, g.win_cnt, W, T, num_bins)
+    if quantize_bins:
+        fresh_h = unbundle(window_histograms(
+            histogram_multi_quantized, *win, (gq, hq), *geo), efb, num_bins
+        ).float() * quant_scale[:, None, None]
+    else:
+        fresh_h = unbundle(window_histograms(
+            histogram_multi, *win, (grad, hess), *geo, shift=shift,
+            precision=hist_precision), efb, num_bins)
+    left_h, right_h = split_window(g.parent_hists, fresh_h, g.slot_small_left)
+    return round_finish(state, g, rows, left_h, right_h, num_bins_pf,
+                        missing_bin_pf, feature_mask, cmask, contri,
+                        num_leaves=num_leaves, num_bins=num_bins,
+                        max_depth=max_depth, params=params, leaf_tile=T, rng=rng)
+
+
+class RoundGeometry(NamedTuple):
+    """A round's decisions before its partition (round_geometry)."""
+    accept: torch.Tensor
+    k_acc: torch.Tensor
+    total: torch.Tensor
+    ok: torch.Tensor
+    live_rk: torch.Tensor
+    leaf_of_rank: torch.Tensor
+    seg_start: torch.Tensor
+    seg_len_eff: torch.Tensor
+    seg_id: torch.Tensor
+    sid: torch.Tensor
+    n_left_seg: torch.Tensor
+    go_left: torch.Tensor
+    node_of: torch.Tensor
+    right_of: torch.Tensor
+    leaf_sum_g: torch.Tensor
+    leaf_sum_h: torch.Tensor
+    leaf_count: torch.Tensor
+    leaf_depth: torch.Tensor
+    leaf_parent: torch.Tensor
+    leaf_side: torch.Tensor
+    leaf_out: torch.Tensor
+    num_leaves_new: torch.Tensor
+    fresh: torch.Tensor
+    slot_small_left: torch.Tensor
+    leaf_start: torch.Tensor
+    leaf_cnt: torch.Tensor
+    win_start: torch.Tensor
+    win_cnt: torch.Tensor
+    active: torch.Tensor
+    sl: torch.Tensor
+    sr: torch.Tensor
+    parent_hists: torch.Tensor
+    cand: torch.Tensor
+    cand_ok: torch.Tensor
+    ci: torch.Tensor
+
+
+def round_geometry(state: WState, bins, missing_bin_pf, cmask=None, *,
+                   num_leaves: int, leaf_tile: int, max_depth: int,
+                   params: SplitParams, W: int) -> RoundGeometry:
+    """Admission, split decisions, segment and window geometry, the window
+    check against W and the order-independent bookkeeping of a round."""
     L, T = num_leaves, leaf_tile
     n, f = bins.shape
     dev = bins.device
     s = state.best
     idx = torch.arange(L, dtype=torch.int64, device=dev)
-    pos = torch.arange(n, dtype=torch.int64, device=dev)
     nlc = state.num_leaves_cur
     drop = -1  # _put's index of the spare slot
 
@@ -267,94 +355,102 @@ def _round_fused(state: WState, bins, grad, hess, gq, hq, quant_scale,
     cand = torch.cat([sl, sr])
     cand_ok = torch.cat([active, active])
     ci = torch.where(cand_ok, cand, 0)
+    return RoundGeometry(
+        accept=accept, k_acc=k_acc, total=total, ok=ok, live_rk=live_rk,
+        leaf_of_rank=leaf_of_rank, seg_start=seg_start, seg_len_eff=seg_len_eff,
+        seg_id=seg_id, sid=sid, n_left_seg=n_left_seg, go_left=go_left,
+        node_of=node_of, right_of=right_of, leaf_sum_g=leaf_sum_g,
+        leaf_sum_h=leaf_sum_h, leaf_count=leaf_count, leaf_depth=leaf_depth,
+        leaf_parent=leaf_parent, leaf_side=leaf_side, leaf_out=leaf_out,
+        num_leaves_new=num_leaves_new, fresh=fresh, slot_small_left=slot_small_left,
+        leaf_start=leaf_start, leaf_cnt=leaf_cnt, win_start=win_start,
+        win_cnt=win_cnt, active=active, sl=sl, sr=sr, parent_hists=parent_hists,
+        cand=cand, cand_ok=cand_ok, ci=ci)
 
-    # ---- partition (+ the whole pass, with the megakernel) ----
-    i32 = torch.int32
-    if megakernel:
-        cand_tab = torch.stack([leaf_sum_g[ci], leaf_sum_h[ci], leaf_count[ci],
-                                leaf_out[ci]]).contiguous()
-        new_order, left_h, right_h, fbests = round_megakernel(
-            bins, state.order, go_left, grad, hess, row_mask,
-            seg_start.to(i32), seg_len_eff.to(i32), n_left_seg.to(i32),
-            win_start.to(i32), win_cnt.to(i32), slot_small_left.to(i32),
-            parent_hists, cand_tab, num_bins_pf, missing_bin_pf, feature_mask,
-            params=params, W=W, shift=shift, categorical_mask=cmask,
-            feature_contri=contri)
-    else:
-        new_order, _ = partition_segments(state.order, seg_start.to(i32),
-                                          seg_len_eff.to(i32), go_left)
 
+def round_rows(state: WState, g: RoundGeometry, new_order, cmask=None):
+    """After the partition: each row's leaf id, the tree arrays and the
+    best splits with the split leaves' cleared.  Returns (new_order,
+    leaf_id, tree, best)."""
+    n = new_order.shape[0]
+    dev = new_order.device
+    pos = torch.arange(n, dtype=torch.int64, device=dev)
+    sid = g.sid
     # ---- per-row leaf ids (needs the partitioned order) ----
     new_rows = new_order.long()
     lid_pos = state.leaf_id[new_rows]
-    in_right = ((seg_id >= 0) & live_rk[sid]
-                & (pos >= seg_start[sid] + n_left_seg[sid]))
-    lid_pos = torch.where(in_right, right_of[leaf_of_rank][sid].to(i32), lid_pos)
+    in_right = ((g.seg_id >= 0) & g.live_rk[sid]
+                & (pos >= g.seg_start[sid] + g.n_left_seg[sid]))
+    lid_pos = torch.where(in_right, g.right_of[g.leaf_of_rank][sid].to(torch.int32),
+                          lid_pos)
     leaf_id = torch.empty_like(state.leaf_id)
     leaf_id[new_rows] = lid_pos
 
     # ---- tree arrays ----
-    tree = book_tree(state.tree, accept, node_of, right_of, state.leaf_parent,
+    s = state.best
+    tree = book_tree(state.tree, g.accept, g.node_of, g.right_of, state.leaf_parent,
                      state.leaf_side, s, state.leaf_out, state.leaf_sum_h,
                      state.leaf_count, categorical=cmask is not None)
-    best = s._replace(gain=torch.where(fresh, KMIN_SCORE, s.gain))
+    best = s._replace(gain=torch.where(g.fresh, KMIN_SCORE, s.gain))
+    return new_order, leaf_id, tree, best
 
-    # ---- three-pass: window gather -> multi-leaf pass -> subtraction ----
-    if not megakernel:
-        win = (new_order, bins if efb is None else efb[0])
-        geo = (row_mask, win_start, win_cnt, W, T, num_bins)
-        if quantize_bins:
-            fresh_h = unbundle(window_histograms(
-                histogram_multi_quantized, *win, (gq, hq), *geo), efb, num_bins
-            ).float() * quant_scale[:, None, None]
-        else:
-            fresh_h = unbundle(window_histograms(
-                histogram_multi, *win, (grad, hess), *geo, shift=shift,
-                precision=hist_precision), efb, num_bins)
-        left_h, right_h = split_window(parent_hists, fresh_h, slot_small_left)
 
+def round_finish(state: WState, g: RoundGeometry, rows, left_h, right_h,
+                 num_bins_pf, missing_bin_pf, feature_mask, cmask=None,
+                 contri=None, *, num_leaves: int, num_bins: int, max_depth: int,
+                 params: SplitParams, leaf_tile: int, fbests=None, rng=None):
+    """The children's histograms into the state, their split search (from
+    the megakernel's per-feature bests ``fbests``, or in torch), the
+    next-window bound and the info vector.  Returns (state', info)."""
+    L, T = num_leaves, leaf_tile
+    new_order, leaf_id, tree, best = rows
+    dev = left_h.device
+    idx = torch.arange(L, dtype=torch.int64, device=dev)
+    drop = -1
     spare = L  # inactive slots write the spare row
-    state.hist.index_copy_(0, torch.where(active, sl, spare), left_h)
-    state.hist.index_copy_(0, torch.where(active, sr, spare), right_h)
+    state.hist.index_copy_(0, torch.where(g.active, g.sl, spare), left_h)
+    state.hist.index_copy_(0, torch.where(g.active, g.sr, spare), right_h)
 
     # ---- fresh-leaf split search ----
-    pg, ph, pc = leaf_sum_g[ci], leaf_sum_h[ci], leaf_count[ci]
-    if megakernel:
+    ci, cand_ok = g.ci, g.cand_ok
+    pg, ph, pc = g.leaf_sum_g[ci], g.leaf_sum_h[ci], g.leaf_count[ci]
+    if fbests is not None:
         bb = select_from_feature_best(
             fbests, pg, ph, pc, num_bins, categorical_mask=cmask,
             cand_hist=None if cmask is None else torch.cat([left_h, right_h]),
             missing_bin_per_feature=missing_bin_pf, params=params)
     else:
-        node_ids = leaf_parent.clamp_min(0) * 2 + leaf_side + 1
+        node_ids = g.leaf_parent.clamp_min(0) * 2 + g.leaf_side + 1
         bb = find_best_split(torch.cat([left_h, right_h]), pg, ph, pc,
                              num_bins_pf, missing_bin_pf, params,
                              feature_mask=feature_mask,
-                             parent_output=leaf_out[ci], categorical_mask=cmask,
+                             parent_output=g.leaf_out[ci], categorical_mask=cmask,
                              feature_contri=contri,
                              rng_key=None if rng is None else rng[node_ids[ci]])
-    scatter_pos = torch.where(cand_ok, cand, drop)
+    scatter_pos = torch.where(cand_ok, g.cand, drop)
     best = BestSplit(*[_put(o, scatter_pos, nw) for o, nw in zip(best, bb)])
 
     # ---- next-window bound for the host's ladder ----
-    half_cnt = torch.where(idx < num_leaves_new, leaf_cnt // 2, 0)
+    num_leaves_new = g.num_leaves_new
+    half_cnt = torch.where(idx < num_leaves_new, g.leaf_cnt // 2, 0)
     k_top = min(T, L)
     top = torch.topk(half_cnt, k_top).values
     budget_next = (L - num_leaves_new).clamp_min(0).clamp_max(T)
     whint = torch.where(torch.arange(k_top, device=dev) < budget_next, top, 0).sum()
 
     state = WState(
-        order=new_order, leaf_start=leaf_start, leaf_cnt=leaf_cnt,
-        leaf_id=leaf_id, hist=state.hist, best=best, leaf_sum_g=leaf_sum_g,
-        leaf_sum_h=leaf_sum_h, leaf_count=leaf_count, leaf_depth=leaf_depth,
-        leaf_parent=leaf_parent, leaf_side=leaf_side,
-        num_leaves_cur=num_leaves_new, leaf_out=leaf_out, tree=tree)
+        order=new_order, leaf_start=g.leaf_start, leaf_cnt=g.leaf_cnt,
+        leaf_id=leaf_id, hist=state.hist, best=best, leaf_sum_g=g.leaf_sum_g,
+        leaf_sum_h=g.leaf_sum_h, leaf_count=g.leaf_count, leaf_depth=g.leaf_depth,
+        leaf_parent=g.leaf_parent, leaf_side=g.leaf_side,
+        num_leaves_cur=num_leaves_new, leaf_out=g.leaf_out, tree=tree)
     # ---- non-finite guard, in the same info vector ----
-    finite = (torch.isfinite(leaf_sum_g).all() & torch.isfinite(leaf_sum_h).all()
-              & torch.isfinite(leaf_out).all() & ~torch.isnan(best.gain).any())
-    k_next = admits_next(best.gain, leaf_depth, num_leaves_new, num_leaves=L,
+    finite = (torch.isfinite(g.leaf_sum_g).all() & torch.isfinite(g.leaf_sum_h).all()
+              & torch.isfinite(g.leaf_out).all() & ~torch.isnan(best.gain).any())
+    k_next = admits_next(best.gain, g.leaf_depth, num_leaves_new, num_leaves=L,
                          leaf_tile=T, max_depth=max_depth)
-    info = torch.stack([k_acc, total, ok.long(), whint, finite.long(),
-                        k_next]).to(i32)
+    info = torch.stack([g.k_acc, g.total, g.ok.long(), whint, finite.long(),
+                        k_next]).to(torch.int32)
     return state, info
 
 
@@ -363,12 +459,13 @@ def _w_init(bins, grad, hess, row_mask, sample_weight, num_bins_pf,
             params: SplitParams, quantize_bins: int, stochastic_rounding: bool,
             generator: Optional[torch.Generator], hist_precision: str = "f32",
             categorical_mask=None, feature_contri=None, hist=None, efb=None,
-            rng=None):
+            rng=None, check_finite: bool = True):
     """Root state: quantize gradients, the one full-N pass, seed best.
     ``hist``: the (L + 1, 3, F, B) buffer to hold the histogram state (the
     static one of a graph cache), else a new one; ``efb``: the EFB tables
-    (the pass reads the bundled matrix).  Returns (state, WInputs,
-    grad_true, hess_true)."""
+    (the pass reads the bundled matrix).  ``check_finite``: make the
+    tree's blocking read of the gradients' maxima here (a fleet makes one
+    for all its lanes).  Returns (state, WInputs, grad_true, hess_true)."""
     n, f = bins.shape
     L = num_leaves
     dev = bins.device
@@ -379,7 +476,8 @@ def _w_init(bins, grad, hess, row_mask, sample_weight, num_bins_pf,
     if quantize_bins:
         gq, hq, grad, hess, quant_scale = quantize_gradients(
             grad, hess, row_mask, quantize_bins, stochastic_rounding, generator)
-    fixed_shift_pair(grad, hess)  # the tree's one blocking host read: finite?
+    if check_finite:
+        fixed_shift_pair(grad, hess)  # the tree's one blocking host read: finite?
     shift = fixed_shift_tensor(grad, hess)
     slot0 = torch.zeros(n, dtype=torch.int32, device=dev)
     src = bins if efb is None else efb[0]

@@ -32,7 +32,7 @@ Sites (see docs/ROBUSTNESS.md for the exact trigger points):
                     process exit BETWEEN the rank-0 snapshot landing and
                     the fleet manifest publish: the torn-fleet-state
                     window the manifest protocol exists to exclude.
-``continual_swap``  continual/runtime.py rollover (not ported yet) — hard
+``continual_swap``  continual/runtime.py rollover — hard
                     process exit BETWEEN the update's durable checkpoint
                     (raw-delta snapshot + manifest) and its publication
                     through ``ServingRuntime.swap_model``: the previous

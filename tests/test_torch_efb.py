@@ -315,7 +315,8 @@ def test_graph_rounds_with_efb_equal_eager():
 
 def test_unported_raises_are_gone_and_out_of_core_cites_a12(tmp_path):
     """enable_bundle=true, two_round, forced bins and save_binary no longer
-    raise; out_of_core still does, naming A12."""
+    raise; nor does out_of_core since A12 was ported: it constructs, streams
+    the bins, and plans no bundles (their passes scan the host matrix)."""
     X, y = _onehot(n=1000)
     forced = tmp_path / "forced.json"
     forced.write_text('[{"feature": 92, "bin_upper_bound": [-1.0, 0.0, 1.0]}]')
@@ -326,5 +327,7 @@ def test_unported_raises_are_gone_and_out_of_core_cites_a12(tmp_path):
     assert np.isin([-1.0, 0.0, 1.0], ds.binner.mappers[92].upper_bounds).all()
     back = tlgb.Dataset(str(tmp_path / "c.bin"), params=CPU).construct()
     np.testing.assert_array_equal(back.bins, ds.bins)
-    with pytest.raises(NotImplementedError, match="A12"):
-        tlgb.Dataset(X, label=y, params={**CPU, "out_of_core": True}).construct()
+    ooc = tlgb.Dataset(X, label=y, params={**CPU, "out_of_core": True}).construct()
+    assert ooc.ooc and not ooc.ooc_spill and ooc.efb is None
+    assert torch.equal(ooc.bins_device, tlgb.Dataset(
+        X, label=y, params={**CPU, "enable_bundle": False}).construct().bins_device)

@@ -111,8 +111,8 @@ def test_training_on_card_launches_the_kernel():
     hc.reset_counts()
     bst = tlgb.train(p, tlgb.Dataset(X, label=y, params=p), 5)
     assert hc.launches["histogram_multi"] >= 5
-    assert hc.plain_calls == {"histogram_multi": 0, "histogram_multi_bf16": 0,
-                              "histogram_multi_quantized": 0}
+    # no mode's plain version ran, the lane and carried modes' neither
+    assert hc.plain_calls == dict.fromkeys(hc.plain_calls, 0)
     pc = {**p, "device_type": "cpu"}
     ref = tlgb.train(pc, tlgb.Dataset(X, label=y, params=pc), 5)
     np.testing.assert_allclose(bst.predict(X), ref.predict(X), atol=1e-4)
@@ -1491,3 +1491,189 @@ def test_global_capture_mode_is_broken_by_a_reading_thread():
                        capture_output=True, text=True, timeout=600)
     print(r.stdout[-2000:], r.stderr[-2000:])
     assert "GLOBAL_CAPTURE_OK" not in r.stdout, "global-mode capture survived"
+
+
+# ---------------------------------------------------------------------------
+# the kernel modes of the fleet and the out-of-core spill grower: B1 and B2
+# over a lane axis, B1's carried accumulator (all bitwise)
+# ---------------------------------------------------------------------------
+from lightgbm_tpu_torch.ops import hist_cuda as hc  # noqa: E402
+from lightgbm_tpu_torch.ops import partition_cuda as pcu  # noqa: E402
+
+
+def _lane_inputs(dev, lanes, n, f, b, w, tile, seed=0):
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    bins = torch.randint(0, b, (n, f), generator=g, device=dev, dtype=torch.int16)
+    grad = torch.randn(lanes, n, generator=g, device=dev) * 3
+    hess = torch.rand(lanes, n, generator=g, device=dev)
+    mask = torch.rand(lanes, n, generator=g, device=dev) < 0.8
+    rows = torch.randint(0, n, (lanes, w), generator=g, device=dev, dtype=torch.int32)
+    slot = torch.randint(-1, tile + 1, (lanes, w), generator=g, device=dev,
+                         dtype=torch.int32)
+    shift = torch.stack([hc.fixed_shift_tensor(grad[l], hess[l]) for l in range(lanes)])
+    return bins, grad, hess, mask, rows, slot, shift
+
+
+@pytest.mark.parametrize("lanes,n,f,b,w,tile", [(3, 5000, 6, 63, 1500, 4),
+                                                (16, 40000, 28, 255, 9000, 8)])
+def test_lane_histograms_match_plain_and_solo(lanes, n, f, b, w, tile):
+    dev = _card()
+    bins, grad, hess, mask, rows, slot, shift = _lane_inputs(dev, lanes, n, f, b, w, tile)
+    cpu = [t.cpu() for t in (bins, grad, hess, mask, rows, slot, shift)]
+    for prec in ("f32", "bf16"):
+        got = hc.histogram_multi_lanes(bins, grad, hess, mask, rows, slot, shift, tile, b,
+                                       precision=prec)
+        want = hc.histogram_multi_lanes(*cpu, tile, b, precision=prec)
+        assert torch.equal(got.cpu(), want)
+        for l in (0, lanes - 1):  # each lane is its solo call on its gathered rows
+            r = torch.where(slot[l] >= 0, rows[l], 0).long()
+            solo = hc.histogram_multi(bins[r].contiguous(), grad[l][r], hess[l][r],
+                                      mask[l][r], slot[l].contiguous(), 0, tile, b,
+                                      shift=shift[l].contiguous(), precision=prec)
+            assert torch.equal(got[l], solo)
+    gq = torch.randint(-16, 17, (lanes, n), device=dev, dtype=torch.int8)
+    hq = torch.randint(0, 17, (lanes, n), device=dev, dtype=torch.int8)
+    got = hc.histogram_multi_quantized_lanes(bins, gq, hq, mask, rows, slot, tile, b)
+    want = hc.histogram_multi_quantized_lanes(cpu[0], gq.cpu(), hq.cpu(), cpu[3], cpu[4],
+                                              cpu[5], tile, b)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("lanes,n,s", [(2, 9000, 3), (16, 60000, 8), (64, 3000, 16),
+                                       (65, 3000, 16), (300, 5000, 31), (3, 20000, 1024)])
+def test_partition_lanes_match_plain(lanes, n, s):
+    dev = _card()
+    g = torch.Generator().manual_seed(lanes)
+    order = torch.stack([torch.randperm(n, generator=g) for _ in range(lanes)]).to(
+        torch.int32)
+    cuts = torch.sort(torch.randint(0, n, (lanes, 2 * s), generator=g), dim=1).values
+    seg_start, seg_len = cuts[:, 0::2].to(torch.int32), (cuts[:, 1::2] - cuts[:, 0::2]
+                                                         ).to(torch.int32)
+    seg_len[:, 0] = 0  # an empty segment
+    go = torch.rand(lanes, n, generator=g) < 0.4
+    want = pcu.partition_segments_lanes(order, seg_start, seg_len, go)
+    # more lanes than 1024 // s take several lane groups in the one launch;
+    # two launches in a row (the scratch's epochs keep them apart)
+    for _ in range(2):
+        got = pcu.partition_segments_lanes(*(t.to(dev) for t in (order, seg_start,
+                                                                 seg_len, go)))
+        assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
+    # 1025 segments a lane exceed one chunk table: refused
+    zi = torch.zeros((2, 1025), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="segments"):
+        pcu.partition_segments_lanes(torch.zeros((2, 2000), dtype=torch.int32, device=dev),
+                                     zi, zi, torch.zeros((2, 2000), dtype=torch.bool,
+                                                         device=dev))
+
+
+def test_wide_fleet_takes_several_lane_groups_on_card():
+    """160 lanes x a leaf tile of 8 are 1280 segments a round: B2's lane
+    mode takes them as two lane groups in its one launch, and the lanes
+    stay bitwise their solo runs."""
+    import lightgbm_tpu_torch as lgt
+
+    _card()
+    rng = np.random.RandomState(4)
+    n, f, lanes = 3000, 6, 160
+    X = rng.randn(n, f)
+    labels = ((X[None, :, 0] + rng.randn(lanes, n) * 0.5) > 0).astype(float)
+    p = {"objective": "binary", "num_leaves": 15, "verbosity": -1}
+    pcu.reset_counts()
+    fb = lgt.train_fleet(dict(p), lgt.Dataset(X, label=labels[0]), labels,
+                         num_boost_round=2)
+    torch.cuda.synchronize()
+    assert fb._proto._leaf_tile * lanes > pcu.MAX_SEGMENTS
+    st = fb.round_stats
+    assert pcu.launches["partition_segments_lanes"] == sum(
+        s["rounds"] + s["captures"] for s in st)
+    for l in (0, 97, lanes - 1):
+        solo = lgt.train({**p, "tree_growth_mode": "windowed", "megakernel": "0"},
+                         lgt.Dataset(X, label=labels[l]), 2)
+        assert fb.booster(l).model_to_string() == solo.model_to_string()
+
+
+def test_out_of_core_on_card_is_bitwise_in_memory(tmp_path):
+    """The chunks' uploads run on prefetch_device's copy stream: resident
+    training from a stored cache is bitwise in-memory training, and spill
+    training bitwise the in-memory strict grower, on the card."""
+    import lightgbm_tpu_torch as lgt
+
+    _card()
+    rng = np.random.RandomState(8)
+    n, f = 20000, 8
+    X = rng.randn(n, f)
+    y = (X[:, 0] + X[:, 1] * X[:, 2] + rng.randn(n) * 0.5 > 0).astype(float)
+    p = {"objective": "binary", "num_leaves": 15, "verbosity": -1}
+    path = str(tmp_path / "c.bin")
+    lgt.Dataset(X, label=y, params=p).construct().save_binary(path)
+    mem = lgt.train(p, lgt.Dataset(X, label=y, params=p), 3).model_to_string()
+    q = {**p, "out_of_core": True, "out_of_core_chunk_rows": 3000}
+    ds = lgt.Dataset(path, params=q)
+    assert lgt.train(q, ds, 3).model_to_string() == mem
+    assert ds.bins_device.is_cuda and not ds.ooc_spill
+    strict = {**p, "tree_growth_mode": "strict"}
+    want = lgt.train(strict, lgt.Dataset(X, label=y, params=p), 3).model_to_string()
+    for chunk in (3000, 7001):
+        q = {**p, "out_of_core": True, "max_rows_in_hbm": 5000,
+             "out_of_core_chunk_rows": chunk}
+        ds = lgt.Dataset(path, params=q)
+        assert lgt.train(q, ds, 3).model_to_string() == want, chunk
+        assert ds.ooc_spill and ds.staging().stream is not None
+
+
+@pytest.mark.parametrize("chunk", [7, 4096, 30000, 100000])
+def test_carried_histogram_equals_one_call(chunk):
+    dev = _card()
+    n, f, b, tile = 100000, 28, 255, 1
+    x = _inputs(dev, n, f, b, tile)
+    slot = torch.zeros(n, dtype=torch.int32, device=dev)
+    shift = hc.fixed_shift_tensor(x["grad"], x["hess"])
+    one = hc.histogram_multi(x["bins"], x["grad"], x["hess"], x["mask"], slot, 0, tile, b,
+                             shift=shift)
+    acc = hc.CarryAccumulator(tile, f, b, shift, dev)
+    out = None
+    for lo in range(0, n, chunk):
+        hi = min(lo + chunk, n)
+        out = hc.histogram_multi_carry(x["bins"][lo:hi], x["grad"][lo:hi],
+                                       x["hess"][lo:hi], x["mask"][lo:hi], slot[lo:hi],
+                                       0, acc, finalize=hi == n)
+    assert torch.equal(out, one)
+    cacc = hc.CarryAccumulator(tile, f, b, shift.cpu(), "cpu")
+    plain = hc.histogram_multi_carry(x["bins"].cpu(), x["grad"].cpu(), x["hess"].cpu(),
+                                     x["mask"].cpu(), slot.cpu(), 0, cacc, finalize=True)
+    assert torch.equal(plain, one.cpu())
+
+
+@pytest.mark.parametrize("quant", [False, True])
+def test_fleet_lanes_equal_solo_runs_on_card_graph_and_eager(quant):
+    import lightgbm_tpu_torch as lgt
+
+    _card()
+    rng = np.random.RandomState(3)
+    n, f, lanes = 6000, 8, 5
+    X = rng.randn(n, f)
+    labels = ((X[None, :, 0] + rng.randn(lanes, n) * 0.5) > 0).astype(float)
+    for fused in (True, False):
+        p = {"objective": "binary", "num_leaves": 15, "verbosity": -1,
+             "fused_training": fused}
+        if quant:
+            p.update(use_quantized_grad=True, num_grad_quant_bins=16)
+        hc.reset_counts()
+        pcu.reset_counts()
+        fb = lgt.train_fleet(dict(p), lgt.Dataset(X, label=labels[0]), labels,
+                             num_boost_round=3)
+        torch.cuda.synchronize()
+        st = fb.round_stats
+        rounds = sum(s["rounds"] for s in st)
+        warm = sum(s["captures"] for s in st)
+        name = "histogram_multi_quantized_lanes" if quant else "histogram_multi_lanes"
+        assert hc.launches[name] == rounds + warm
+        assert pcu.launches["partition_segments_lanes"] == rounds + warm
+        assert sum(s["replays"] for s in st) == (rounds if fused else 0)
+        for l in (0, lanes - 1):
+            # the port's solo run: train() on the three-pass windowed grower
+            solo = lgt.train({**p, "tree_growth_mode": "windowed", "megakernel": "0"},
+                             lgt.Dataset(X, label=labels[l]), 3)
+            assert fb.booster(l).model_to_string() == solo.model_to_string()
+            assert torch.equal(fb._score[l], solo._gbdt._score)

@@ -149,12 +149,13 @@ def test_cpu_dispatch_counts_plain_calls_only():
                               _t(leaf), 0, 8, 16)
     hist_cuda.histogram_multi_quantized(_t(bins), _t(gq), _t(hq), _t(mask),
                                         _t(leaf), 0, 8, 16)
-    assert hist_cuda.launches == {"histogram_multi": 0,
-                                  "histogram_multi_bf16": 0,
-                                  "histogram_multi_quantized": 0}
-    assert hist_cuda.plain_calls == {"histogram_multi": 1,
-                                     "histogram_multi_bf16": 0,
+    # every mode's count, the lane and carried modes' too
+    assert hist_cuda.launches == dict.fromkeys(hist_cuda.launches, 0)
+    assert hist_cuda.plain_calls == {**dict.fromkeys(hist_cuda.plain_calls, 0),
+                                     "histogram_multi": 1,
                                      "histogram_multi_quantized": 1}
+    assert {"histogram_multi", "histogram_multi_bf16",
+            "histogram_multi_quantized"} <= set(hist_cuda.launches)
 
 
 @pytest.mark.parametrize("bad", ["bins_dtype", "grad_dtype", "mask_dtype",

@@ -99,9 +99,10 @@ def test_cpu_training_never_counts_a_launch():
     p = {"objective": "binary", "device_type": "cpu", "verbosity": -1,
          "num_leaves": 4, "min_data_in_leaf": 5}
     tlgb.train(p, tlgb.Dataset(X, label=y, params=p), 2)
-    assert hist_cuda.launches == {"histogram_multi": 0,
-                                  "histogram_multi_bf16": 0,
-                                  "histogram_multi_quantized": 0}
+    # every mode's launch count, the lane and carried modes' too, stays 0
+    assert {"histogram_multi", "histogram_multi_bf16",
+            "histogram_multi_quantized"} <= set(hist_cuda.launches)
+    assert hist_cuda.launches == dict.fromkeys(hist_cuda.launches, 0)
     assert hist_cuda.plain_calls["histogram_multi"] >= 2
 
 

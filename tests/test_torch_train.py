@@ -93,9 +93,10 @@ def test_train_matches_jax(objective):
     for key in jres["valid_0"]:
         np.testing.assert_allclose(tres["valid_0"][key], jres["valid_0"][key],
                                    rtol=1e-5, atol=1e-6, err_msg=key)
-    assert hist_cuda.launches == {"histogram_multi": 0,
-                                  "histogram_multi_bf16": 0,
-                                  "histogram_multi_quantized": 0}
+    # every mode's launch count, the lane and carried modes' too, stays 0
+    assert {"histogram_multi", "histogram_multi_bf16",
+            "histogram_multi_quantized"} <= set(hist_cuda.launches)
+    assert hist_cuda.launches == dict.fromkeys(hist_cuda.launches, 0)
     assert hist_cuda.plain_calls["histogram_multi"] >= ROUNDS
 
 
