@@ -189,7 +189,26 @@ Imports no JAX.  Phases, one line each; any failure exits non-zero:
               card's refit within 1e-6 of the CPU's, staleness gauges 0 after
               each, every response bitwise one version's predict (at most
               60 s);
- 22. device   nvidia-smi's name and power limit.
+ 22. device   nvidia-smi's name and power limit;
+ 23. distributed (at most 60 s, reported after phase 21): (a) B3 unfused
+              (the TPU kernel's fuse_tail=False, round_cuda.
+              round_partition_window) bitwise against its plain version at
+              phase 7's Epsilon round geometry, timed beside its bound (no
+              library call computes it); (b) world size 1 over NCCL:
+              grow_tree_windowed_data_parallel on the Epsilon set, merge
+              psum and scatter, 2 trees, each bitwise the serial windowed
+              tree (B3 unfused launches counted, the int64 all-reduce, the
+              owned-feature search), run right after phase 7 while the
+              Epsilon set is on the card; (c) two ranks on the one card
+              over gloo (NCCL refuses two ranks on one GPU):
+              train_distributed on the Higgs cell split in two, tree_learner
+              =data on the rounds grower (20 float rounds, 5 int8 rounds:
+              the serial pins), feature on the strict grower (5 rounds:
+              phase 10's pin) and voting (5 rounds: held-out AUC over its
+              floor); merges a tree, bytes a merge and the wall time of each.
+              A distributed model's text differs from the serial one in its
+              parameter record [tree_learner: ...] alone; its sha256 is
+              taken with that line read as serial (``serial_sha``).
 
 Then a JSON line with every kernel's numbers (launches on the main path,
 graph mode; whether it runs inside a graph and its launches a replay; B1
@@ -197,7 +216,7 @@ once for each call site: Higgs rounds, Epsilon root and window, strict,
 multiclass, LambdaRank, GOSS, DART, random forest, Criteo float and bf16,
 Expo float, int8 and window pass, the monotone site and the per-node
 sampling window pass; B2 at the Epsilon and Expo geometries and at the
-per-node sampling site; B3 numerical and categorical; B1 and B2 in their
+per-node sampling site; B3 numerical, categorical and unfused; B1 and B2 in their
 lane mode and B1 in its carried mode), and last the device
 line {"ok": true, "device": {...}}.
 
@@ -249,6 +268,10 @@ EPS_BIN_SAMPLE = 50_000  # bin_construct_sample_cnt (PERF.md section 4)
 # this generator (PERF.md); each floor sits 0.01 under its reading
 AUC_FLOOR_EPS = 0.63
 AUC_FLOOR_EPS_INT8 = 0.61
+# phase 23: tree_learner=voting on the Higgs cell, 2 ranks, 5 rounds, top_k
+# 5; the card read 0.81766 (PERF.md) and the floor sits 0.01 under it
+AUC_FLOOR_VOTING = 0.80
+DIST_RANKS, DIST_ROUNDS_VOTING, DIST_TOP_K = 2, 5, 5
 # sha256 prefixes of the four training runs' model text (phases 3, 4, 6, 8;
 # PERF.md): graph and eager training, every kernel change, must keep them
 MODEL_SHA = {"higgs_float": "3cb1e5ba", "higgs_int8": "900c2628",
@@ -1048,6 +1071,8 @@ def round_bounds(args, W, n_cat=0):
     split_ops = 2 * T * (f - n_cat) * b * 40 + 2 * T * n_cat * b * CAT_OPS_PER_BIN
     return dict(
         total=bound_of(part + window + 3 * hist + bests, window_ops + split_ops),
+        # B3 unfused: the partition and the window pass, the sums written once
+        unfused=bound_of(part + window + T * f * b * 20, window_ops),
         partition=bound_of(part, 0),
         window=bound_of(window + T * f * b * 20, window_ops),
         subtract=bound_of(T * f * b * 20 + 3 * hist, 0),
@@ -1196,6 +1221,19 @@ def check_epsilon_kernels(ts, grad, hess, params, tile, tile_q):
     out["round_bound_ms"], out["round_bound_by"] = bounds["total"]
     out["round_phases"] = round_phases(rc, args, kw)
     out["round_phase_bounds"] = bounds
+    # B3 unfused (phase 23a): the partition and the window pass, the sums
+    # left in fixed point, bitwise against the plain version
+    ua = args[:11]
+    ukw = dict(num_bins=b, W=W, shift=shift)
+    ko, po = rc.round_partition_window(*ua, **ukw), rc.round_partition_window_plain(*ua, **ukw)
+    for name, x, y in zip(("new order", "acc64", "acc32"), ko, po):
+        same(x, y, f"round kernel unfused: {name}")
+    out["unfused_ms"] = cuda_ms(lambda: rc.round_partition_window(*ua, **ukw), iters=10,
+                                warmup=2)
+    out["unfused_plain_ms"] = cuda_ms(lambda: rc.round_partition_window_plain(*ua, **ukw),
+                                      iters=2, warmup=1)
+    out["unfused_bound_ms"], out["unfused_bound_by"] = bounds["unfused"]
+    del ko, po
     del base, args, wa
     torch.cuda.empty_cache()
 
@@ -4041,6 +4079,158 @@ def continual_phase(lgt, base, higgs, text, tmp):
         f"ok in {phase_time('21', t_phase):.2f} s")
 
 
+def serial_sha(text: str) -> str:
+    """sha256 of a distributed model's text read as the serial run's: the
+    parameter record [tree_learner: ...] (the only line in which the two
+    texts may differ) set to serial."""
+    return hashlib.sha256(re.sub(r"\[tree_learner: [a-z0-9]+\]", "[tree_learner: serial]",
+                                 text).encode()).hexdigest()
+
+
+def distributed_epsilon(ts, grad, hess, split_params, tile, score, label):
+    """Phase 23b: world size 1 over NCCL.  grow_tree_windowed_data_parallel
+    on the Epsilon set with the megakernel on (B3 unfused, the exact int64
+    all-reduce, then the torch search), merge psum and scatter (the owned-
+    feature search and election), against the serial windowed tree (the
+    fused megakernel), for 2 trees: phase 7's gradients and those after
+    the first tree.  Returns the numbers of the phase line."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from lightgbm_tpu_torch.objectives import create_objective
+    from lightgbm_tpu_torch.config import Config
+    from lightgbm_tpu_torch.ops import round_cuda as rc
+    from lightgbm_tpu_torch.ops.treegrow_windowed import grow_tree_windowed
+    from lightgbm_tpu_torch.parallel import data_parallel as dpar
+    from lightgbm_tpu_torch.parallel.mesh import make_mesh
+
+    bins, nbpf, mbpf = ts.bins_device, ts.num_bins_pf_device, ts.missing_bin_pf_device
+    n, f = bins.shape
+    dev = bins.device
+    mask = torch.ones(n, dtype=torch.bool, device=dev)
+    sw = torch.ones(n, dtype=torch.float32, device=dev)
+    fmask = torch.ones(f, dtype=torch.bool, device=dev)
+    common = dict(num_leaves=EPS_LEAVES, num_bins=ts.max_num_bins, params=split_params,
+                  leaf_tile=tile)
+    obj = create_objective(Config.from_dict({"objective": "binary"}))
+    tmp = tempfile.mkdtemp(prefix="lgbt_phase23_")
+    out = {"launches": 0, "trees": 0, "rounds": 0}
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/store", rank=0,
+                            world_size=1)
+    try:
+        mesh = make_mesh()
+        sd = dpar.ShardedData(mesh, bins, nbpf, mbpf)
+        g, h = grad, hess
+        for t in range(2):
+            st: dict = {}
+            t0 = time.perf_counter()
+            ser, ser_leaf = grow_tree_windowed(bins, g, h, mask, sw, fmask, nbpf, mbpf,
+                                               stats=st, **common)
+            torch.cuda.synchronize()
+            out[f"serial_s_{t}"] = time.perf_counter() - t0
+            if not all([st["megakernel"]]):
+                raise AssertionError(f"phase 23b: the serial tree took no megakernel: {st}")
+            for merge in ("psum", "scatter"):
+                reset()
+                mesh.reset_stats()
+                sst: dict = {}
+                t0 = time.perf_counter()
+                tree, leaf = dpar.grow_tree_windowed_data_parallel(
+                    sd, g, h, mask, sw, fmask, merge=merge, stats=sst, **common)
+                torch.cuda.synchronize()
+                out[f"{merge}_s_{t}"] = time.perf_counter() - t0
+                for name, a, b_ in zip(tree._fields, tree, ser):
+                    if (a is None) != (b_ is None) or (a is not None and not torch.equal(a, b_)):
+                        raise AssertionError(f"phase 23b {merge} tree {t}: {name} differs "
+                                             "from the serial windowed tree")
+                if not torch.equal(leaf, ser_leaf):
+                    raise AssertionError(f"phase 23b {merge} tree {t}: leaf ids differ")
+                k = rc.launches["round_megakernel_unfused"]
+                if not (sst["megakernel"] and k == sst["rounds"] and plain_total() == 0
+                        and rc.launches["round_megakernel"] == 0):
+                    raise AssertionError(f"phase 23b {merge} tree {t}: {k} unfused launches "
+                                         f"over {sst['rounds']} rounds, fused "
+                                         f"{rc.launches['round_megakernel']}, plain "
+                                         f"{plain_total()}")
+                out["launches"] += k
+                out["rounds"] += sst["rounds"]
+                out[f"{merge}_merges_{t}"] = mesh.stats["merges"]
+                out[f"{merge}_bytes"] = mesh.stats["merge_bytes"] / max(mesh.stats["merges"], 1)
+            out["trees"] += 1
+            out[f"leaves_{t}"] = int(ser.num_leaves)
+            # the next tree's gradients: the score after this tree
+            score = score + 0.1 * ser.leaf_value[ser_leaf.long()]
+            g, h = (v.contiguous() for v in obj.get_gradients(score, label, None))
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def distributed_phase(lgt, base, higgs):
+    """Phase 23c: two ranks on the one card, gloo over CUDA tensors (NCCL
+    refuses two ranks of one communicator on one GPU), through
+    parallel/launcher.py::train_distributed on the Higgs cell split in two:
+    tree_learner=data on the rounds grower (20 float rounds, 5 int8: the
+    serial pins), feature on the strict grower (5 rounds: phase 10's pin),
+    voting (5 rounds: held-out AUC over its floor).  The four launches run
+    two at a time (a launch is mostly its workers' start-up).  Each run:
+    its sha256 read as serial, both ranks' texts equal, merges a tree,
+    bytes a merge, wall time."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from lightgbm_tpu_torch.parallel.launcher import train_distributed
+
+    _, Xtr, ytr, Xte, yte = higgs
+    gloo = {**base, "dist_backend": "gloo"}
+    cases = (("data float", {**gloo, "tree_learner": "data"}, ROUNDS_FLOAT,
+              MODEL_SHA["higgs_float"]),
+             ("data int8", {**gloo, "tree_learner": "data", "use_quantized_grad": True},
+              ROUNDS_INT8, MODEL_SHA["higgs_int8"]),
+             ("feature strict", {**gloo, "tree_learner": "feature",
+                                 "tree_growth_mode": "strict"}, ROUNDS_STRICT,
+              MODEL_SHA["higgs_strict"]),
+             # top_k 5: 10 of the 28 features elected a leaf (the default 20
+             # would elect all 28, and voting would be data-parallel)
+             ("voting", {**gloo, "tree_learner": "voting", "top_k": DIST_TOP_K},
+              DIST_ROUNDS_VOTING, None))
+
+    def launch(case):
+        what, params, rounds, pin = case
+        t0 = time.perf_counter()
+        bst, paths = train_distributed(params, Xtr, ytr, rounds, num_machines=DIST_RANKS,
+                                       timeout_s=300)
+        return bst, [Path(p).read_text() for p in paths], time.perf_counter() - t0
+
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        results = list(pool.map(launch, cases))
+    for (what, params, rounds, pin), (bst, texts, wall) in zip(cases, results):
+        if len(set(texts)) != 1:
+            raise AssertionError(f"phase 23c {what}: the ranks' models differ")
+        sha = serial_sha(texts[0])
+        if pin is not None and not sha.startswith(pin):
+            raise AssertionError(f"phase 23c {what}: sha256 {sha[:8]} is not the serial "
+                                 f"pin {pin}")
+        meta = bst._distributed_meta
+        ms = meta.get("mesh_stats", {})
+        trees = max(len(meta.get("round_stats", [])), 1)
+        rounds_run = sum(int(s.get("rounds", 0)) for s in meta.get("round_stats", []))
+        extra = ""
+        if what == "voting":
+            a = auc(yte, bst.predict(Xte))
+            if not a >= AUC_FLOOR_VOTING:
+                raise AssertionError(f"phase 23c voting: AUC {a:.5f} < floor {AUC_FLOOR_VOTING}")
+            extra = f" auc={a:.5f} (floor {AUC_FLOOR_VOTING})"
+        log(f"phase 23c {what}: ok {DIST_RANKS} ranks on cuda:0 (gloo), {rounds} rounds "
+            f"in {wall:.2f} s (worker start-up included, two launches at a time) sha256 "
+            f"{sha[:8]}" + (f" == serial pin {pin}" if pin else "")
+            + f"; ranks' texts equal; merges/tree={ms.get('merges', 0) / trees:.2f} "
+            f"bytes/merge={ms.get('merge_bytes', 0) / max(ms.get('merges', 0), 1):.0f} "
+            f"other collectives/tree={ms.get('collectives', 0) / trees:.1f} "
+            f"grower rounds/tree={rounds_run / trees:.2f}{extra}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -4279,6 +4469,27 @@ def main() -> int:
                     for k, _ in ROUND_PHASES)
         + f"; other {ph['other']:.4f}; sum {sum(ph.values()):.4f}")
     per_replay_w = st_w["per_replay"]
+    t0 = time.perf_counter()
+    d23 = distributed_epsilon(eps_set, g_eps, h_eps, gb._split_params, tile_w, gb._score,
+                              gb._label)
+    t_23b = time.perf_counter() - t0
+    log(f"phase 23a kernel round unfused: N={EPS_N_TRAIN} F={EPS_FEAT} "
+        f"B={eps_set.max_num_bins} T={r['T']} W={r['W']} window_rows={r['window_rows']} "
+        f"ms={r['unfused_ms']:.4f} plain_ms={r['unfused_plain_ms']:.4f} "
+        f"bound_ms={r['unfused_bound_ms']:.4f} ({r['unfused_bound_by']}) library: none "
+        f"(no one PyTorch call partitions and histograms a window); order, int64 and "
+        f"int32 sums bitwise the plain version; launches on phase 23b's path="
+        f"{d23['launches']}")
+    log(f"phase 23b nccl world 1: ok 2 trees ({d23['leaves_0']}, {d23['leaves_1']} "
+        f"leaves) psum and scatter each bitwise the serial windowed tree (fused "
+        f"megakernel); B3 unfused launches={d23['launches']} over {d23['rounds']} "
+        f"tree-rounds (one a round); merges a tree psum {d23['psum_merges_0']}, "
+        f"{d23['psum_merges_1']} scatter {d23['scatter_merges_0']}, "
+        f"{d23['scatter_merges_1']}; bytes a merge psum {d23['psum_bytes']:.0f} "
+        f"scatter {d23['scatter_bytes']:.0f} (int64 grad/hess + int32 counts); s a tree "
+        f"serial {d23['serial_s_0']:.3f}/{d23['serial_s_1']:.3f} psum "
+        f"{d23['psum_s_0']:.3f}/{d23['psum_s_1']:.3f} scatter {d23['scatter_s_0']:.3f}/"
+        f"{d23['scatter_s_1']:.3f} (eager) in {t_23b:.2f} s")
     del gb, g_eps, h_eps, bst_w
     torch.cuda.empty_cache()
 
@@ -4406,6 +4617,12 @@ def main() -> int:
         continual_phase(lgt, base, higgs, text, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    # ---- 23c. two ranks on the one card ----
+    t0 = time.perf_counter()
+    distributed_phase(lgt, base, higgs)
+    t_23c = time.perf_counter() - t0
+    log(f"phase 23 distributed: ok in {t_23b + t_23c:.2f} s (23b {t_23b:.2f} s, "
+        f"23c {t_23c:.2f} s; limit 60)")
     del h_set, higgs
     torch.cuda.empty_cache()
 
@@ -4472,6 +4689,14 @@ def main() -> int:
         "launches_per_replay": per_replay, "max_abs_err": 0.0,
         "ms": r["round_cat_ms"], "plain_ms": r["round_cat_plain_ms"],
         "bound_ms": r["round_cat_bound_ms"], "bound_by": r["round_cat_bound_by"],
+        "library_ms": None})
+    kernels.append({
+        "name": "round_megakernel_unfused", "route": "cuda",
+        "source": "lightgbm_tpu_torch/csrc/round.cu",
+        "replaces": "lightgbm_tpu/ops/round_pallas.py:107",
+        "launches": d23["launches"], "in_graph": False, "launches_per_replay": 0,
+        "max_abs_err": 0.0, "ms": r["unfused_ms"], "plain_ms": r["unfused_plain_ms"],
+        "bound_ms": r["unfused_bound_ms"], "bound_by": r["unfused_bound_by"],
         "library_ms": None})
     kernels += new_kernels
     log(json.dumps({"kernels": kernels}))

@@ -26,8 +26,14 @@ resident regime); below, the matrix never lies on the device and training
 takes the chunk-streamed spill grower (ops/treegrow_ooc.py).  EFB is not
 planned out of core (its passes scan the whole host matrix).
 
-Not ported yet, and raising when asked for: the bin_cache_shard feed,
-set_network / free_network (ROADMAP queue A13).
+Distributed runs (tree_learner=data or voting over several ranks,
+``pre_partition``): each rank's Dataset holds its rows, and the bin
+boundaries come from the serial run's sample of the whole
+(``_sync_binning_sample``), so every rank bins as the serial run does;
+``bin_cache_shard=(lo, hi)`` reads rows [lo, hi) of a shared save_binary
+cache.  ``Booster.set_network`` / ``free_network`` bring the process group
+up and down (parallel/distributed.py).  ``predict(mesh=)`` is ROADMAP
+A13b and raises.
 """
 
 from __future__ import annotations
@@ -40,12 +46,15 @@ from typing import Any, Dict, List, Optional, Union
 import numpy as np
 import torch
 
+import torch.distributed as dist
+
 from .binning import BinMapper, DatasetBinner
 from .config import Config
 from .io.efb import apply_bundles, find_bundles
 from .io.parser import load_data_file, load_data_file_two_round
 from .io.stream import (DEFAULT_CHUNK_ROWS, array_chunks, create_bin_cache,
-                        is_bin_cache, prefetch_device, read_bin_cache, read_cache_meta)
+                        is_bin_cache, prefetch_device, read_bin_cache, read_cache_meta,
+                        read_cache_shard)
 from .models.gbdt import GBDT, _pre_filter, create_boosting, tree_depth
 from .models.tree import Tree
 from .ops import predict as predict_ops
@@ -66,10 +75,14 @@ def _is_scipy_sparse(data) -> bool:
     return hasattr(data, "tocsr") and hasattr(data, "toarray")
 
 
-def _to_2d_float(data) -> np.ndarray:
+def _to_2d_float(data, keep_f32: bool = False) -> np.ndarray:
     """numpy arrays, nested lists, pandas frames (categorical columns as
     their codes), pyarrow tables, scipy sparse matrices and Sequence_
-    sources -> (N, F) float64 (the JAX package's _to_2d_float)."""
+    sources -> (N, F) float64 (the JAX package's _to_2d_float).
+    ``keep_f32``: a float32 numpy array is returned as it is (its float64
+    values are the same; the binner converts what it reads)."""
+    if keep_f32 and isinstance(data, np.ndarray) and data.dtype == np.float32:
+        return data.reshape(-1, 1) if data.ndim == 1 else data
     if isinstance(data, (str, os.PathLike)):
         raise TypeError(f"{os.fspath(data)!r}: a file is read by Dataset, not "
                         "passed as rows")
@@ -175,6 +188,50 @@ def _check_finite(name: str, v) -> None:
         raise ValueError(f"{name} contains non-finite values")
 
 
+def _pre_partitioned(cfg) -> bool:
+    """This rank's Dataset holds its rows of a distributed training
+    (pre_partition with data or voting over more than one rank)."""
+    return (bool(cfg.pre_partition) and cfg.tree_learner in ("data", "voting")
+            and dist.is_available() and dist.is_initialized()
+            and dist.get_world_size() > 1)
+
+
+def _rank_gather(rows: np.ndarray, device) -> np.ndarray:
+    """Every rank's rows (float64), concatenated in rank order."""
+    from .parallel import collectives as C
+    from .parallel.mesh import make_mesh
+
+    t = torch.as_tensor(np.ascontiguousarray(rows, np.float64), device=device)
+    return C.all_gather_ragged(t, make_mesh()).cpu().numpy()
+
+
+def _sync_binning_sample(local: np.ndarray, target_cnt: int, seed: int,
+                         device) -> np.ndarray:
+    """A pre-partitioned rank's sample for the bin boundaries (reference:
+    DatasetLoader's distributed bin sync; the JAX package's
+    _sync_binning_sample): the serial run's sample of the whole, the rows
+    DatasetBinner.fit would draw from all N (ranks hold consecutive row
+    blocks in rank order), each rank contributing its part of it.  Every
+    rank fits the serial binner."""
+    from .parallel import collectives as C
+    from .parallel.mesh import make_mesh
+
+    mesh = make_mesh()
+    n = local.shape[0]
+    lens = C.all_gather(torch.tensor([n], dtype=torch.int64, device=device), mesh)
+    lens = [int(v) for v in lens.cpu()]
+    total, off = sum(lens), sum(lens[:mesh.rank])
+    if total > target_cnt:
+        idx = np.random.RandomState(seed).choice(total, size=target_cnt, replace=False)
+        mine = np.sort(idx[(idx >= off) & (idx < off + n)]) - off
+    else:
+        mine = np.arange(n)
+    rows = local[mine]
+    if hasattr(rows, "toarray"):  # sparse: the sampled rows only, densified
+        rows = rows.toarray()
+    return _rank_gather(np.asarray(rows, np.float64), device)
+
+
 class Dataset:
     """reference: class Dataset in python-package/lightgbm/basic.py.
     Lazily constructed: raw data is held until `construct()`, which the
@@ -228,10 +285,6 @@ class Dataset:
 
         ref = reference if reference is not None else self.reference
         cfg = Config.from_dict(self.params)
-        if self.params.get("bin_cache_shard") is not None:
-            raise NotImplementedError("bin_cache_shard (a rank's rows of a shared "
-                                      "cache) is not ported to lightgbm_tpu_torch "
-                                      "yet (ROADMAP queue A13)")
         device = device if device is not None else resolve_device(cfg)
         if ref is not None:
             ref.construct(device=device)
@@ -252,7 +305,7 @@ class Dataset:
             csc = self.data.tocsc()
             f = csc.shape[1]
         else:
-            raw = _to_2d_float(self.data)
+            raw = _to_2d_float(self.data, keep_f32=True)
             f = raw.shape[1]
         self.feature_names = (list(self.feature_name)
                               if isinstance(self.feature_name, (list, tuple))
@@ -268,8 +321,16 @@ class Dataset:
                        categorical_features=self._categorical_indices(self.feature_names),
                        max_bin_by_feature=cfg.max_bin_by_feature,
                        seed=cfg.data_random_seed, forced_bins=_forced_bins(cfg))
-            self.binner = (DatasetBinner.fit_sparse(csc, **fit) if csc is not None
-                           else DatasetBinner.fit(raw, **fit))
+            if _pre_partitioned(cfg):
+                # this rank's rows only: the serial run's sample of the whole
+                sample = _sync_binning_sample(csc.tocsr() if csc is not None else raw,
+                                              cfg.bin_construct_sample_cnt,
+                                              cfg.data_random_seed, device)
+                self.binner = DatasetBinner.fit(sample, **dict(
+                    fit, sample_cnt=max(len(sample), 1)))
+            else:
+                self.binner = (DatasetBinner.fit_sparse(csc, **fit) if csc is not None
+                               else DatasetBinner.fit(raw, **fit))
         if stream is not None:
             bins = None  # streamed from the cache, never held on the host
         elif pre_bins is not None:
@@ -277,7 +338,8 @@ class Dataset:
         elif csc is not None:
             bins = self.binner.transform_sparse(csc)
         else:
-            bins = self.binner.transform(raw)
+            # on the card when the Dataset's device is (A25: set-up time)
+            bins = self.binner.transform(raw, device=device)
         n = stream.shape[0] if stream is not None else bins.shape[0]
         if self.group is not None and int(self.group.sum()) != n:
             raise ValueError(f"group sizes sum to {int(self.group.sum())}, "
@@ -337,7 +399,26 @@ class Dataset:
         cols = dict(header=bool(cfg.header), label_column=cfg.label_column,
                     weight_column=cfg.weight_column, group_column=cfg.group_column,
                     ignore_column=cfg.ignore_column)
-        if is_bin_cache(path) and cfg.out_of_core:
+        shard = self.params.get("bin_cache_shard")
+        if shard is not None:
+            if not is_bin_cache(path) or cfg.out_of_core:
+                raise ValueError("bin_cache_shard reads rows of a save_binary cache "
+                                 "into memory (not out_of_core)")
+            lo, hi = int(shard[0]), int(shard[1])
+            if len(shard) > 2 and int(shard[2]) not in (0, hi - lo):
+                raise ValueError("bin_cache_shard takes no padding: a rank holds "
+                                 "exactly its rows")
+            meta = read_cache_meta(path)
+            if meta.get("group") is not None:
+                raise ValueError("bin_cache_shard does not take grouped (ranking) "
+                                 "caches: shard boundaries would cut queries")
+            binner = DatasetBinner(mappers=[BinMapper(**m) for m in meta["mappers"]])
+            bins = read_cache_shard(path, lo, hi)
+            loaded = {k: (None if v is None else np.asarray(v)[lo:hi])
+                      for k, v in meta.items()
+                      if k in ("label", "weight", "init_score", "position")}
+            loaded["feature_names"] = meta["feature_names"]
+        elif is_bin_cache(path) and cfg.out_of_core:
             loaded = read_cache_meta(path)  # the matrix streams (construct)
             binner = DatasetBinner(mappers=[BinMapper(**m) for m in loaded["mappers"]])
             self._ooc_stream = loaded["stream"]
@@ -351,6 +432,13 @@ class Dataset:
                     return ref.binner
             else:
                 def factory(sample, names):
+                    if _pre_partitioned(cfg):
+                        # every rank's reservoir sample of its rows (the JAX
+                        # package's), so every rank fits the same boundaries
+                        per = max(cfg.bin_construct_sample_cnt
+                                  // dist.get_world_size(), 1)
+                        sample = _rank_gather(np.asarray(sample, np.float64)[:per],
+                                              resolve_device(cfg))
                     return DatasetBinner.fit(
                         sample, max_bin=cfg.max_bin, min_data_in_bin=cfg.min_data_in_bin,
                         sample_cnt=len(sample), use_missing=cfg.use_missing,
@@ -889,13 +977,26 @@ class Booster:
             return pd.DataFrame(ret, columns=["SplitValue", "Count"])
         return hist, bin_edges
 
-    def set_network(self, *args, **kwargs) -> "Booster":
-        raise NotImplementedError("set_network: distributed training is not ported "
-                                  "to lightgbm_tpu_torch yet (ROADMAP queue A13)")
+    def set_network(self, machines, local_listen_port: int = 12400,
+                    listen_time_out: int = 120, num_machines: int = 1) -> "Booster":
+        """Bring up this process's rank of a distributed training
+        (reference: LGBM_NetworkInit; parallel/distributed.py)."""
+        from .parallel.distributed import init_distributed
+
+        if isinstance(machines, (list, tuple, set)):
+            machines = ",".join(machines)
+        net = dict(machines=machines, local_listen_port=local_listen_port,
+                   time_out=listen_time_out, num_machines=num_machines)
+        self.params.update(net)
+        init_distributed(Config.from_dict(dict(self.params, **net)))
+        return self
 
     def free_network(self) -> "Booster":
-        raise NotImplementedError("free_network: distributed training is not ported "
-                                  "to lightgbm_tpu_torch yet (ROADMAP queue A13)")
+        """Tear the process group down (reference: LGBM_NetworkFree)."""
+        from .parallel.distributed import free_network
+
+        free_network()
+        return self
 
     def free_dataset(self) -> "Booster":
         self._train_set = None
@@ -949,7 +1050,7 @@ class Booster:
         if kwargs.get("mesh") is not None:
             raise NotImplementedError("predict(mesh=): prediction over several "
                                       "devices is not ported to lightgbm_tpu_torch "
-                                      "yet (ROADMAP queue A13)")
+                                      "yet (ROADMAP queue A13b)")
         if num_iteration is None:
             num_iteration = self.best_iteration if self.best_iteration > 0 else -1
         if _is_scipy_sparse(data):

@@ -1,8 +1,13 @@
-"""Host-side feature binning.
+"""Feature binning.
 
-Copy of lightgbm_tpu/binning.py (numpy only): the two packages must bin the
+Copy of lightgbm_tpu/binning.py (numpy): the two packages must bin the
 same data to bitwise-equal matrices, dense or sparse (CSC: ``fit_sparse``,
-``transform_sparse``).
+``transform_sparse``).  One addition: ``DatasetBinner.transform`` with a
+CUDA ``device`` bins the dense numerical columns on the card
+(``transform_torch``: the same float64 upper bounds, ``torch.searchsorted``
+with side="left", the clip and the missing bins of ``BinMapper.transform``),
+a whole row chunk of columns a call; the numpy path stays for the CPU and
+is what the tests hold the torch path to, bit for bit.
 
 Re-design of the reference's binning layer
 (reference: src/io/bin.cpp -> BinMapper::FindBin, GreedyFindBin;
@@ -26,10 +31,12 @@ Semantics preserved from the reference:
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass, field
 from typing import List, Optional, Sequence
 
 import numpy as np
+import torch
 
 MISSING_NONE = 0
 MISSING_ZERO = 1
@@ -136,15 +143,28 @@ def _greedy_equal_count_bounds(
     rest_bins = max_bin - int(is_big.sum())
     if rest_bins > 0:
         mean_bin_size = max(rest_cnt / rest_bins, float(min_data_in_bin))
+    # The reference's loop over the distinct values closes a bin at the
+    # first i where is_big[i], or is_big[i + 1] (the running count is then
+    # > 0: every count is >= 1), or the running count (an exact integer)
+    # reaches mean_bin_size, i.e. ceil(mean_bin_size).  Taken as jumps, a
+    # bin at a time, it gives the same bounds.
+    cum = np.cumsum(counts)
+    big_at = np.flatnonzero(is_big)
+    need = int(math.ceil(mean_bin_size))
     bounds = []
-    cur = 0.0
-    for i in range(num_distinct - 1):
-        cur += counts[i]
-        if is_big[i] or cur >= mean_bin_size or (i + 1 < num_distinct and is_big[i + 1] and cur > 0):
-            bounds.append((sorted_values[i] + sorted_values[i + 1]) / 2.0)
-            cur = 0.0
-            if len(bounds) >= max_bin - 1:
-                break
+    i, base = 0, 0
+    while i < num_distinct - 1 and len(bounds) < max_bin - 1:
+        k = np.searchsorted(big_at, i)
+        j = int(big_at[k]) if k < len(big_at) else num_distinct
+        k = np.searchsorted(big_at, i + 1)
+        if k < len(big_at):
+            j = min(j, int(big_at[k]) - 1)
+        j = min(j, int(np.searchsorted(cum, base + need, side="left")))
+        if j >= num_distinct - 1:
+            break
+        bounds.append((sorted_values[j] + sorted_values[j + 1]) / 2.0)
+        base = int(cum[j])
+        i = j + 1
     bounds.append(np.inf)
     return np.unique(np.asarray(bounds, dtype=np.float64))
 
@@ -299,14 +319,14 @@ class DatasetBinner:
         seed: int = 1,
         forced_bins: Optional[dict] = None,
     ) -> "DatasetBinner":
-        data = np.asarray(data, dtype=np.float64)
-        n, f = data.shape
+        n, f = np.shape(data)
         if n > sample_cnt:
             rng = np.random.RandomState(seed)
             idx = rng.choice(n, size=sample_cnt, replace=False)
-            sample = data[idx]
+            # the sampled rows only are converted (the same float64 values)
+            sample = np.asarray(np.asarray(data)[idx], dtype=np.float64)
         else:
-            sample = data
+            sample = np.asarray(data, dtype=np.float64)
         cats = set(int(c) for c in categorical_features)
         forced_bins = forced_bins or {}
         mappers = []
@@ -325,7 +345,11 @@ class DatasetBinner:
             )
         return cls(mappers=mappers)
 
-    def transform(self, data: np.ndarray) -> np.ndarray:
+    def transform(self, data: np.ndarray, device=None) -> np.ndarray:
+        """(N, F) raw values -> bins.  ``device`` a CUDA device: the dense
+        numerical columns are binned there (transform_torch)."""
+        if device is not None and torch.device(device).type == "cuda":
+            return self.transform_torch(data, device)
         data = np.asarray(data, dtype=np.float64)
         n, f = data.shape
         assert f == self.num_features, (f, self.num_features)
@@ -333,6 +357,64 @@ class DatasetBinner:
         out = np.empty((n, f), dtype=dtype)
         for j, m in enumerate(self.mappers):
             out[:, j] = m.transform(data[:, j]).astype(dtype)
+        return out
+
+    def transform_torch(self, data: np.ndarray, device,
+                        chunk_bytes: int = 1 << 30) -> np.ndarray:
+        """``transform`` with the numerical columns binned by torch on
+        ``device`` (the card; any device gives the same bins): rows go up
+        in chunks as they are (float32 stays float32 on the wire) and become
+        float64 there; per column, the first upper bound >= the value
+        (torch.searchsorted, side="left", over the float64 bounds padded
+        with +inf), clipped to the last bound, NaN at the last bound, then
+        the missing bin as BinMapper.transform sets it.  Categorical
+        columns are binned on the host."""
+        arr = np.asarray(data)
+        if arr.dtype not in (np.float32, np.float64):
+            arr = arr.astype(np.float64)
+        n, f = arr.shape
+        assert f == self.num_features, (f, self.num_features)
+        dtype = np.uint8 if self.max_num_bins <= 256 else np.int32
+        out = np.empty((n, f), dtype=dtype)
+        num = [j for j, m in enumerate(self.mappers) if not m.is_categorical]
+        for j, m in enumerate(self.mappers):
+            if m.is_categorical:
+                out[:, j] = m.transform(arr[:, j]).astype(dtype)
+        if not num or n == 0:
+            return out
+        dev = torch.device(device)
+        kmax = max(len(self.mappers[j].upper_bounds) for j in num)
+        ub = torch.full((len(num), kmax), float("inf"), dtype=torch.float64)
+        for i, j in enumerate(num):
+            b = self.mappers[j].upper_bounds
+            ub[i, :len(b)] = torch.as_tensor(np.asarray(b, np.float64))
+        ub = ub.to(dev)
+        last = torch.as_tensor([len(self.mappers[j].upper_bounds) - 1 for j in num],
+                               dtype=torch.int64, device=dev)[:, None]
+        mtype = torch.as_tensor([self.mappers[j].missing_type for j in num],
+                                device=dev)[:, None]
+        mbin = torch.as_tensor([self.mappers[j].missing_bin for j in num],
+                               dtype=torch.int64, device=dev)[:, None]
+        cols = torch.as_tensor(num, dtype=torch.int64, device=dev)
+        rows = max(1, chunk_bytes // max(1, 8 * f))
+        whole = len(num) == f
+        for lo in range(0, n, rows):
+            hi = min(n, lo + rows)
+            x = torch.as_tensor(np.ascontiguousarray(arr[lo:hi])).to(dev)
+            if not whole:
+                x = x.index_select(1, cols)
+            v = x.double().T.contiguous()  # (F_num, rows)
+            b = torch.searchsorted(ub, v, side="left")
+            nan = torch.isnan(v)
+            b = torch.where(nan, last, torch.minimum(b, last))
+            b = torch.where(nan & (mtype == MISSING_NAN), mbin, b)
+            b = torch.where((nan | (v.abs() <= _KZERO_THRESHOLD))
+                            & (mtype == MISSING_ZERO), mbin, b)
+            got = b.T.to(torch.uint8 if dtype == np.uint8 else torch.int32).cpu().numpy()
+            if whole:
+                out[lo:hi] = got
+            else:
+                out[lo:hi, num] = got
         return out
 
     @classmethod

@@ -2,7 +2,10 @@
 // partition, window histograms, sibling subtraction and per-feature split
 // search behind one C entry point.
 //
-// Replaces lightgbm_tpu/ops/round_pallas.py::_mk_kernel (fuse_tail=True).
+// Replaces lightgbm_tpu/ops/round_pallas.py::_mk_kernel, both modes: the
+// fused one (fuse_tail=True, lgbt_round) and the unfused one
+// (fuse_tail=False, lgbt_round_unfused: phases 1 and 2 only, the sums left
+// in fixed point for the sharded round to merge across ranks).
 // Given a round's split segments with their left counts, and the windows
 // (the small child of each split, in the new order), it computes:
 //   1. partition: each segment's row ids moved stably into its left run and
@@ -505,6 +508,46 @@ cat_gain_kernel(const float* __restrict__ left, const float* __restrict__ right,
 
 }  // namespace
 
+// Phases 1 and 2 of a round, shared by the fused entry (lgbt_round) and the
+// unfused one (lgbt_round_unfused): the partition into out_order, then the
+// window histograms' fixed-point sums into acc64 / acc32 (zeroed here).
+static cudaError_t partition_and_window(const void* bins, long long n, int F, int B, int T,
+                                        const void* order, const void* go,
+                                        const void* seg_start, const void* seg_len,
+                                        const void* n_left, void* scratch, void* out_order,
+                                        const void* grad, const void* hess, const void* mask,
+                                        const void* win_start, const void* win_cnt,
+                                        long long W, const int* sh_dev, void* acc64,
+                                        void* acc32, cudaStream_t st) {
+  // ---- 1. partition (the fused launch only reads n_left) ----
+  lgbt::PartitionArgs pa{static_cast<const int32_t*>(order), static_cast<const uint8_t*>(go),
+                         static_cast<const int32_t*>(seg_start),
+                         static_cast<const int32_t*>(seg_len),
+                         const_cast<int32_t*>(static_cast<const int32_t*>(n_left)), (int)n, T,
+                         static_cast<unsigned*>(scratch), static_cast<int32_t*>(out_order)};
+  cudaError_t e = lgbt::launch_partition(pa, true, st);
+  if (e != cudaSuccess) return e;
+  // ---- 2. window histograms through the new order ----
+  const int64_t FBg = (int64_t)F * B;
+  e = cudaMemsetAsync(acc64, 0, (size_t)T * 2 * FBg * sizeof(unsigned long long), st);
+  if (e != cudaSuccess) return e;
+  e = cudaMemsetAsync(acc32, 0, (size_t)T * FBg * sizeof(int), st);
+  if (e != cudaSuccess) return e;
+  lgbt::Plan p;
+  const size_t off_bytes = (size_t)(T + 1) * sizeof(int);
+  e = lgbt::make_plan(lgbt::hist_kernel<false, true>, W, F, T, B, lgbt::Cells<false>::kBytes,
+                      true, off_bytes, &p);
+  if (e != cudaSuccess) return e;
+  lgbt::HistArgs a{static_cast<const int16_t*>(bins), grad, hess,
+                   static_cast<const uint8_t*>(mask), nullptr,
+                   static_cast<const int32_t*>(out_order), static_cast<const int32_t*>(win_start),
+                   static_cast<const int32_t*>(win_cnt), W, F, 0, T, B, p.FB, p.SB, p.n_fgroups,
+                   p.n_sgroups, lgbt::Shift{nullptr, 0, sh_dev},
+                   static_cast<unsigned long long*>(acc64), static_cast<int*>(acc32)};
+  lgbt::hist_kernel<false, true><<<p.blocks, kThreads, p.smem, st>>>(a);
+  return cudaGetLastError();
+}
+
 extern "C" {
 
 // One round.  Shapes: bins (n, F) i16; order, out_order (n,) i32; go (n,)
@@ -538,34 +581,11 @@ int lgbt_round(const void* bins, long long n, int F, int B, int T, const void* o
     return (int)cudaErrorInvalidValue;
   if (cmask != nullptr && B > kCatThreads) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  // ---- 1. partition (the fused launch only reads n_left) ----
-  lgbt::PartitionArgs pa{static_cast<const int32_t*>(order), static_cast<const uint8_t*>(go),
-                         static_cast<const int32_t*>(seg_start),
-                         static_cast<const int32_t*>(seg_len),
-                         const_cast<int32_t*>(static_cast<const int32_t*>(n_left)), (int)n, T,
-                         static_cast<unsigned*>(scratch), static_cast<int32_t*>(out_order)};
-  cudaError_t e = lgbt::launch_partition(pa, true, st);
-  if (e != cudaSuccess) return (int)e;
-  // ---- 2. window histograms through the new order ----
   const int64_t FBg = (int64_t)F * B;
   const int* sh_dev = static_cast<const int*>(shift);
-  e = cudaMemsetAsync(acc64, 0, (size_t)T * 2 * FBg * sizeof(unsigned long long), st);
-  if (e != cudaSuccess) return (int)e;
-  e = cudaMemsetAsync(acc32, 0, (size_t)T * FBg * sizeof(int), st);
-  if (e != cudaSuccess) return (int)e;
-  lgbt::Plan p;
-  const size_t off_bytes = (size_t)(T + 1) * sizeof(int);
-  e = lgbt::make_plan(lgbt::hist_kernel<false, true>, W, F, T, B, lgbt::Cells<false>::kBytes,
-                      true, off_bytes, &p);
-  if (e != cudaSuccess) return (int)e;
-  lgbt::HistArgs a{static_cast<const int16_t*>(bins), grad, hess,
-                   static_cast<const uint8_t*>(mask), nullptr,
-                   static_cast<const int32_t*>(out_order), static_cast<const int32_t*>(win_start),
-                   static_cast<const int32_t*>(win_cnt), W, F, 0, T, B, p.FB, p.SB, p.n_fgroups,
-                   p.n_sgroups, lgbt::Shift{nullptr, 0, sh_dev},
-                   static_cast<unsigned long long*>(acc64), static_cast<int*>(acc32)};
-  lgbt::hist_kernel<false, true><<<p.blocks, kThreads, p.smem, st>>>(a);
-  e = cudaGetLastError();
+  cudaError_t e = partition_and_window(bins, n, F, B, T, order, go, seg_start, seg_len, n_left,
+                                       scratch, out_order, grad, hess, mask, win_start,
+                                       win_cnt, W, sh_dev, acc64, acc32, st);
   if (e != cudaSuccess) return (int)e;
   // ---- 3. subtraction ----
   subtract_kernel<<<lgbt::grid_for(T * FBg), kThreads, 0, st>>>(
@@ -598,6 +618,28 @@ int lgbt_round(const void* bins, long long n, int F, int B, int T, const void* o
       static_cast<int32_t*>(o_thr), static_cast<uint8_t*>(o_left), static_cast<int32_t*>(o_var),
       static_cast<float*>(o_lg), static_cast<float*>(o_lh), static_cast<float*>(o_lc));
   return (int)cudaGetLastError();
+}
+
+// One round without its tail: the partition and the window pass only, as
+// round_pallas.py's _mk_kernel with fuse_tail=False (the sharded round's
+// mode: the window sums are merged across ranks before the subtraction and
+// the split search run).  Shapes and scratch as lgbt_round's; the window
+// pass's fixed-point sums are left unconverted in acc64 (T, 2, F, B) u64 and
+// acc32 (T, F, B) i32, zeroed here, for the caller to merge exactly and
+// convert once.  Returns a cudaError_t (0 = success).
+int lgbt_round_unfused(const void* bins, long long n, int F, int B, int T, const void* order,
+                       const void* go, const void* seg_start, const void* seg_len,
+                       const void* n_left, void* scratch, void* out_order, const void* grad,
+                       const void* hess, const void* mask, const void* win_start,
+                       const void* win_cnt, long long W, const void* shift, void* acc64,
+                       void* acc32, void* stream) {
+  if (n <= 0 || n >= lgbt::kMaxRows || F <= 0 || B <= 0 || T <= 0 || W <= 0 ||
+      shift == nullptr)
+    return (int)cudaErrorInvalidValue;
+  return (int)partition_and_window(bins, n, F, B, T, order, go, seg_start, seg_len, n_left,
+                                   scratch, out_order, grad, hess, mask, win_start, win_cnt,
+                                   W, static_cast<const int*>(shift), acc64, acc32,
+                                   static_cast<cudaStream_t>(stream));
 }
 
 const char* lgbt_error_string(int code) {

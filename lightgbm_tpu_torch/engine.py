@@ -10,9 +10,9 @@ and ``init_model=<snapshot>`` with the fall back to the newest valid older
 snapshot, so a resumed run gives the uninterrupted run's model text
 bitwise; the ``train`` span, the heartbeat gauges, the fault sites
 ``host_crash`` and ``worker_hang``, ``metrics_file``, ``trace_file`` and
-``metrics_port``.  ``resume=<fleet manifest>`` needs ranks and waits for
-the distributed learners (ROADMAP A13); continual training and the booster
-fleet trainer are A12.
+``metrics_port``.  ``resume=<fleet manifest>`` (the launcher's
+coordinated checkpoints and recovery) is ROADMAP A13b; continual training
+and the booster fleet trainer are A12.
 """
 
 from __future__ import annotations
@@ -200,7 +200,7 @@ def train(
             raise NotImplementedError(
                 "resume=<fleet manifest> (the launcher's coordinated checkpoints: "
                 "rank exclusion, shard fingerprints) is not ported to "
-                "lightgbm_tpu_torch yet (ROADMAP queue A13); pass resume='auto' or "
+                "lightgbm_tpu_torch yet (ROADMAP queue A13b); pass resume='auto' or "
                 "init_model=<snapshot>")
     elif resume is not None:
         if init_model is not None:

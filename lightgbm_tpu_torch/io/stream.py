@@ -22,11 +22,10 @@ rows), the bin mappers and the rows' metadata.
   last copy has completed; on the card the uploads run on a copy stream
   the consumer's stream waits on.
 
-Not here (ROADMAP A13): a rank's reads of its rows of a shared cache
-(``read_cache_shard``, ``cache_shard_fingerprint`` and the Dataset's
-``bin_cache_shard``), which the distributed launcher's cache feed takes;
-they raise.  ``BinCacheStream``'s ``shard=`` range stays: the segment
-sweep reads its sub-ranges through it.
+A rank's reads of its rows of a shared cache (``read_cache_shard``, and
+``cache_shard_fingerprint``, its identity) feed the Dataset's
+``bin_cache_shard`` and the distributed launcher's cache feed, through
+``BinCacheStream``'s ``shard=`` range.
 """
 
 from __future__ import annotations
@@ -366,18 +365,50 @@ class BinCacheStream:
                 lo += m
 
 
-def read_cache_shard(path: str, row_lo: int, row_hi: int, *args, **kwargs):
-    """Rows [row_lo, row_hi) of a shared cache, a rank's feed: not ported
-    (ROADMAP queue A13, the distributed launcher)."""
-    raise NotImplementedError("read_cache_shard (a rank's rows of a shared cache) is "
-                              "not ported to lightgbm_tpu_torch yet (ROADMAP queue A13)")
+def read_cache_shard(path: str, row_lo: int, row_hi: int,
+                     chunk_rows: int = DEFAULT_CHUNK_ROWS,
+                     member: str = "bins") -> np.ndarray:
+    """Rows [row_lo, row_hi) of a save_binary cache through the
+    shard-restricted stream: one reused read buffer, every CRC block the
+    shard fully covers verified: the distributed launcher's worker feed,
+    where each rank reads only its rows of one shared cache."""
+    st = BinCacheStream(path, member=member, shard=(int(row_lo), int(row_hi)))
+    out = np.empty((st.shard_rows, st.n_cols), st.dtype)
+    base = int(row_lo)
+    for lo, view in st.chunks(chunk_rows):
+        out[lo - base: lo - base + view.shape[0]] = view
+    return out
 
 
-def cache_shard_fingerprint(path: str, row_lo: int, row_hi: int, *args, **kwargs):
-    """A rank's shard fingerprint for the launcher's manifests: not ported
-    (ROADMAP queue A13)."""
-    raise NotImplementedError("cache_shard_fingerprint is not ported to "
-                              "lightgbm_tpu_torch yet (ROADMAP queue A13)")
+def cache_shard_fingerprint(path: str, row_lo: int, row_hi: int,
+                            member: str = "bins") -> str:
+    """A stable sha256 of rows [row_lo, row_hi) of a cache, from the header
+    and the CRC table entries that overlap the range (no payload read), so
+    it moves whenever a covered byte does, base or segment.  A cache
+    without a CRC table gives "" (nothing vouches for its bytes)."""
+    import hashlib
+
+    st = BinCacheStream(path, member=member)
+    if st.crcs is None:
+        return ""
+    lo_b = int(row_lo) // st.crc_rows
+    hi_b = -(-min(int(row_hi), st._base_rows) // st.crc_rows)
+    h = hashlib.sha256()
+    h.update(repr((st.shape, str(st.dtype), int(row_lo), int(row_hi))).encode())
+    h.update(np.ascontiguousarray(st.crcs[lo_b:hi_b]).tobytes())
+    off = st._base_rows
+    for k, sp, n_seg in st.segments:
+        s_lo = max(int(row_lo) - off, 0)
+        s_hi = min(int(row_hi) - off, n_seg)
+        if s_lo < s_hi:
+            sub = BinCacheStream(sp)
+            if sub.crcs is None:
+                return ""
+            h.update(repr((k, sub.shape, s_lo, s_hi)).encode())
+            h.update(np.ascontiguousarray(
+                sub.crcs[s_lo // sub.crc_rows: -(-s_hi // sub.crc_rows)]).tobytes())
+        off += n_seg
+    return h.hexdigest()
 
 
 # ---------------------------------------------------------------------------

@@ -62,8 +62,14 @@ gates are the JAX package's: the windowed grower takes none of these
 options but per-node sampling, and the fused (graph) rounds take none of
 CEGB coupled or lazy penalties, per-node sampling or linear trees.
 
-Not ported yet, and rejected at construction: the distributed tree
-learners (A13).
+Distributed (tree_learner=data, voting or feature over more than one
+torch.distributed rank, parallel/): the rank's rows (or feature block)
+through parallel/data_parallel.py and feature_parallel.py; the init score,
+the pre-filter, GOSS, leaf renewal and the metrics over every rank's rows
+(gathered in the serial order), bagging a slice of the serial draw, so a
+data-parallel training is the serial one; the rounds eager.
+Rejected at construction: tree_learner=feature2d and num_slices > 1 (the
+2-D and hierarchical meshes, A13b).
 """
 
 from __future__ import annotations
@@ -93,6 +99,11 @@ from ..ops.treegrow import grow_tree
 from ..ops.treegrow_fast import grow_tree_fast, predict_leaf_arrays
 from ..ops.treegrow_ooc import grow_tree_ooc
 from ..ops.treegrow_windowed import grow_tree_windowed
+from ..parallel import collectives as _coll
+from ..parallel import data_parallel as _dpar
+from ..parallel import feature_parallel as _fpar
+from ..parallel.distributed import init_distributed
+from ..parallel.mesh import current_mesh
 from ..utils import faults as _faults
 from ..utils import locktrace as _lt
 from ..utils import profiling as _profiling  # noqa: F401  (LGBMTPU_NVTX=1 bridge)
@@ -177,9 +188,14 @@ def _f32_threshold_upper(t: np.ndarray) -> np.ndarray:
     return np.where(bump, np.nextafter(t32, np.float32(np.inf)), t32)
 
 
+_TREE_LEARNERS = ("serial", "data", "voting", "feature")
+
+
 def _unported_options(cfg: Config) -> List[str]:
-    """Config options outside the port's envelope (they raise)."""
-    checks = {"tree_learner": cfg.tree_learner != "serial"}
+    """Config options outside the port's envelope (they raise): the 2-D
+    and hierarchical meshes of the distributed learners (ROADMAP A13b)."""
+    checks = {"tree_learner=feature2d (ROADMAP A13b)": cfg.tree_learner == "feature2d",
+              "num_slices > 1 (ROADMAP A13b)": int(cfg.num_slices) > 1}
     return [k for k, v in checks.items() if v]
 
 
@@ -330,6 +346,11 @@ class GBDT:
         self._forced_cache = None
         self._linear = False
         self._ooc_spill = False  # the out-of-core spill regime
+        # the distributed tree learner (tree_learner=data|voting|feature over
+        # more than one rank): this rank's rows (data, voting) or feature
+        # block (feature); None for a serial training
+        self._dp: Optional[_dpar.ShardedData] = None
+        self._fp: Optional[_fpar.FeatureShardedData] = None
         # the packed-ensemble cache of prediction (``_packed``): entries
         # keyed by (version, tree range, ...); every mutation bumps the
         # version (``_invalidate_pred_cache``) under the pack lock
@@ -496,6 +517,14 @@ class GBDT:
             raise ValueError(
                 "not ported to lightgbm_tpu_torch yet: " + ", ".join(bad)
                 + " (see ROADMAP queue A)")
+        if cfg.tree_learner not in _TREE_LEARNERS:
+            raise ValueError(f"tree_learner must be one of {_TREE_LEARNERS}, got "
+                             f"{cfg.tree_learner!r}")
+        if cfg.num_machines > 1:
+            # multi-process bring-up (reference: Network::Init from the
+            # machine list), before the Dataset puts anything on a device:
+            # the rank picks its card here
+            init_distributed(cfg)
         self.device = dev = resolve_device(cfg)
         self.train_set = train_set
         self._round_graphs = None
@@ -512,16 +541,34 @@ class GBDT:
             train_set.weight, dtype=torch.float32, device=dev))
         init = torch.zeros(shape, dtype=torch.float32, device=dev)
         obj = self.objective
+        self._set_learner(train_set)
         if obj is not None:
             obj.prepare(np.asarray(train_set.label), train_set.weight)
             if cfg.boost_from_average and not self.models:
+                # data and voting ranks hold their rows only: the init score
+                # is the serial one, from every rank's labels (reference:
+                # BoostFromScore syncing through Network::GlobalSyncUpBySum;
+                # the JAX package all-gathers them too)
+                label_all, weight_all = self._label, self._weight
+                if self._dp is not None:
+                    label_all = _coll.all_gather_ragged(self._label, self._dp.mesh)
+                    if self._weight is not None:
+                        weight_all = _coll.all_gather_ragged(self._weight,
+                                                             self._dp.mesh)
                 if k == 1:
-                    self.init_scores = [obj.boost_from_score(self._label,
-                                                             self._weight)]
+                    self.init_scores = [obj.boost_from_score(label_all, weight_all)]
                     init += np.float32(self.init_scores[0])
                 else:
-                    self.init_scores = _class_init_scores(
-                        np.asarray(train_set.label), train_set.weight, k)
+                    lbl, wt = np.asarray(train_set.label), train_set.weight
+                    if self._dp is not None:
+                        mesh = self._dp.mesh
+                        lbl = _coll.all_gather_ragged(torch.as_tensor(
+                            lbl, dtype=torch.float64, device=dev), mesh).cpu().numpy()
+                        if wt is not None:
+                            wt = _coll.all_gather_ragged(torch.as_tensor(
+                                np.asarray(wt, np.float64), device=dev),
+                                mesh).cpu().numpy()
+                    self.init_scores = _class_init_scores(lbl, wt, k)
                     init += torch.as_tensor(np.asarray(self.init_scores, np.float32),
                                             device=dev)[None, :]
         if train_set.init_score is not None:
@@ -540,7 +587,8 @@ class GBDT:
         self.reset_split_params()
         allowed = np.ones(train_set.num_feature(), dtype=bool)
         if cfg.feature_pre_filter and cfg.min_data_in_leaf > 1:
-            allowed = train_set.pre_filter_mask(int(cfg.min_data_in_leaf))
+            allowed = (train_set.pre_filter_mask(int(cfg.min_data_in_leaf))
+                       if self._dp is None else self._global_pre_filter(train_set))
         self._allowed_np = allowed
         self._allowed_features = torch.as_tensor(allowed, device=dev)
         # None without categorical features, so the growers skip the
@@ -557,10 +605,72 @@ class GBDT:
             if any(float(c) != 1.0 for c in fc) else None)
         self._check_spill_envelope(train_set)
         self._leaf_tile = recommended_leaf_tile(
-            train_set.max_num_bins, _hist_columns(train_set), cfg.num_leaves,
+            train_set.max_num_bins,
+            (_hist_columns(train_set) if self._dp is None
+             else train_set.num_feature()), cfg.num_leaves,
             quantized=bool(cfg.use_quantized_grad),
             hist_precision=cfg.hist_precision)
         self._set_envelope(train_set)
+        if self._dp is not None or self._fp is not None:
+            self._warn_distributed()
+
+    def _set_learner(self, ts) -> None:
+        """The distributed tree learner (the JAX package's learner set-up,
+        with the world size standing where it has the device count): over
+        more than one rank, tree_learner=data and voting shard the rows
+        (each rank's Dataset holds its rows: pre_partition), feature the
+        features (each rank holds all rows).  At world size 1 they train
+        serially, as the JAX package's do on one device."""
+        self._dp = self._fp = None
+        if self.cfg.tree_learner == "serial":
+            return
+        mesh = current_mesh()
+        if mesh is None:
+            return
+        if getattr(ts, "ooc_spill", False):
+            raise ValueError("out_of_core spill training is serial: "
+                             f"tree_learner={self.cfg.tree_learner} over "
+                             f"{mesh.size} ranks needs the rows resident")
+        nbpf = ts.num_bins_pf_device
+        mbpf = ts.missing_bin_pf_device
+        if self.cfg.tree_learner == "feature":
+            self._fp = _fpar.FeatureShardedData(mesh, ts.bins_device, nbpf, mbpf)
+        else:
+            self._dp = _dpar.ShardedData(mesh, ts.bins_device, nbpf, mbpf)
+
+    def _global_pre_filter(self, ts) -> np.ndarray:
+        """feature_pre_filter on every rank's bin counts (one psum), so
+        every rank keeps the features the serial run keeps."""
+        nbpf = np.asarray(ts.binner.num_bins_per_feature)
+        width = max(int(nbpf.max()), 1)
+        bins = ts.bins_device.long()
+        f = bins.shape[1]
+        counts = torch.zeros((f, width), dtype=torch.int64, device=bins.device)
+        counts.scatter_add_(1, bins.T.clamp_max(width - 1),
+                            torch.ones_like(bins.T))
+        counts = _coll.psum(counts, self._dp.mesh).cpu().numpy()
+        return _pre_filter(None, ts.binner, int(self.cfg.min_data_in_leaf),
+                           counts=[counts[j, :max(int(nbpf[j]), 1)].copy()
+                                   for j in range(f)],
+                           n_rows=self._dp.shard.num_data)
+
+    def _warn_distributed(self) -> None:
+        """What the distributed learners do not carry (the JAX package's
+        warnings), and what they refuse."""
+        cfg = self.cfg
+        if cfg.forcedsplits_filename:
+            log_warning("forcedsplits_filename is not applied by the distributed "
+                        "tree learners (tree_learner=data/feature/voting over "
+                        "several ranks); use tree_learner=serial to force splits.")
+        if self._cegb_lazy is not None:
+            log_warning("cegb_penalty_feature_lazy is applied by the single-"
+                        "device growers only (strict or rounds); this "
+                        "distributed configuration IGNORES it.")
+            self._cegb_lazy = self._cegb_lazy_used = None
+        if self._linear:
+            raise ValueError("linear_tree is not ported to the distributed tree "
+                             "learners (its leaf fits sum over every rank's rows; "
+                             "ROADMAP queue A13b)")
 
     def _check_spill_envelope(self, ts) -> None:
         """The out-of-core spill regime (the Dataset's rows exceed
@@ -789,6 +899,11 @@ class GBDT:
             pos = lbl > 0
             mask[pos] = rng.rand(int(pos.sum())) < cfg.pos_bagging_fraction
             mask[~pos] = rng.rand(int((~pos).sum())) < cfg.neg_bagging_fraction
+        elif self._dp is not None:
+            # this rank's slice of the serial draw over all rows
+            sh = self._dp.shard
+            mask = (rng.rand(sh.num_data) < cfg.bagging_fraction)[
+                sh.offset:sh.offset + n]
         else:
             mask = rng.rand(n) < cfg.bagging_fraction
         self._last_mask = (torch.as_tensor(mask, device=dev),
@@ -802,9 +917,20 @@ class GBDT:
         cfg = self.cfg
         if self.iter_ < int(1.0 / max(cfg.learning_rate, 1e-12)):
             return self._all_rows()
+        if self._dp is not None:
+            # the serial selection over every rank's rows, this rank's slice
+            sh, n = self._dp.shard, self.train_set.num_data()
+            g, h = (self._gather_rows(v) for v in (self._cur_grad, self._cur_hess))
+            mask, w = goss_mask(g, h, self._goss_uniforms(sh.num_data), cfg.top_rate,
+                                cfg.other_rate)
+            return mask[sh.offset:sh.offset + n], w[sh.offset:sh.offset + n]
         u = self._goss_uniforms(self.train_set.num_data())
         return goss_mask(self._cur_grad, self._cur_hess, u, cfg.top_rate,
                          cfg.other_rate)
+
+    def _gather_rows(self, t: torch.Tensor) -> torch.Tensor:
+        """Every rank's rows of ``t`` in the serial order (data and voting)."""
+        return _coll.all_gather_ragged(t.contiguous(), self._dp.mesh)
 
     def _goss_uniforms(self, n: int) -> torch.Tensor:
         """GOSS's draws: (n,) uniforms from a generator on the training
@@ -830,6 +956,10 @@ class GBDT:
         auto off the accelerator (here: training on the CPU); and the
         out-of-core spill regime, whose grower mirrors it."""
         mode = self.cfg.tree_growth_mode
+        if self._fp is not None:
+            return True  # feature-parallel: the strict grower
+        if self._dp is not None:
+            return not (self._use_fast_dp() or self._use_windowed(self.train_set))
         return (mode == "strict" or (mode == "auto" and self.device.type == "cpu")
                 or self._ooc_spill)
 
@@ -858,7 +988,24 @@ class GBDT:
             flag = flag.strip().lower() in ("1", "true", "yes", "on", "+")
         return (self.device.type == "cuda" and bool(flag)
                 and ts.num_feature() >= 512 and self.cfg.num_leaves >= 64
-                and envelope)
+                and envelope and self._fp is None)
+
+    def _use_fast_dp(self) -> bool:
+        """The rounds grower over sharded rows (the JAX package's gate):
+        tree_learner=data with the rounds grower asked for, or auto on the
+        card; voting stays on the strict grower (PV-Tree)."""
+        mode = self.cfg.tree_growth_mode
+        return (self._dp is not None and self.cfg.tree_learner == "data"
+                and (mode in ("rounds", "windowed")
+                     or (mode == "auto" and self.device.type == "cuda")))
+
+    def _windowed_dp_merge(self) -> str:
+        """The sharded windowed round's merge (the JAX package's rule):
+        tree_learner=voting takes the owned-feature reduce_scatter, data the
+        all_reduce; per-node sampling forces the all_reduce."""
+        if self.cfg.tree_learner == "voting" and not self._needs_node_rng:
+            return "scatter"
+        return "psum"
 
     @property
     def windowed_stats(self) -> List[dict]:
@@ -885,6 +1032,7 @@ class GBDT:
         rounds grow the same trees, so only the dispatch mode differs."""
         obj = self.objective
         return (grad is None and bool(self.cfg.fused_training)
+                and self._dp is None and self._fp is None
                 and not self._use_windowed(ts)
                 and not self._use_strict()
                 and not self.cfg.use_quantized_grad
@@ -898,6 +1046,8 @@ class GBDT:
         """This training's cache of captured rounds, where the rounds run
         through one: every windowed round under fused_training, the rounds
         grower's where _fused_eligible holds."""
+        if self._dp is not None or self._fp is not None:
+            return None  # sharded rounds run eagerly (collectives inside)
         if not (self._fused_eligible(ts, grad)
                 or (self.cfg.fused_training and self._use_windowed(ts))):
             return None
@@ -973,13 +1123,15 @@ class GBDT:
         # the strict grower trains float, as in the JAX package
         quant = bool(cfg.use_quantized_grad) and not strict
         num_leaves = []
-        fs = self._forced_schedule()
+        # the distributed learners do not thread the forced schedule (warned)
+        fs = (None if self._dp is not None or self._fp is not None
+              else self._forced_schedule())
         for c in range(k):
             gc = g if k == 1 else g[:, c].contiguous()
             hc = h if k == 1 else h[:, c].contiguous()
             args = (ts.bins_device, gc, hc, row_mask, sample_weight, feature_mask,
                     ts.num_bins_pf_device, ts.missing_bin_pf_device)
-            efb = None if strict else ts.efb_device_tables()
+            efb = None if strict or self._dp is not None else ts.efb_device_tables()
             stats: dict = {}
             common = dict(num_leaves=cfg.num_leaves, num_bins=ts.max_num_bins,
                           max_depth=cfg.max_depth, params=self._split_params,
@@ -1010,6 +1162,27 @@ class GBDT:
                     max_depth=cfg.max_depth, params=self._split_params, stats=stats,
                     categorical_mask=self._categorical_mask,
                     feature_contri=self._feature_contri)
+            elif self._fp is not None:
+                stats["grower"] = "strict"
+                out = _fpar.grow_tree_feature_parallel(
+                    self._fp, *args[1:6], self._categorical_mask,
+                    self._monotone, self._interaction_sets, common["rng_key"],
+                    self._feature_contri, num_leaves=cfg.num_leaves,
+                    num_bins=ts.max_num_bins, max_depth=cfg.max_depth,
+                    params=self._split_params, stats=stats,
+                    monotone_method=self._monotone_method,
+                    cegb_feature_penalty=envelope["cegb_feature_penalty"])
+            elif strict and self._dp is not None:
+                stats["grower"] = "strict"
+                out = _dpar.grow_tree_data_parallel(
+                    self._dp, *args[1:6], self._categorical_mask, self._monotone,
+                    self._interaction_sets, common["rng_key"], self._feature_contri,
+                    num_leaves=cfg.num_leaves, num_bins=ts.max_num_bins,
+                    max_depth=cfg.max_depth, params=self._split_params,
+                    stats=stats, parallel_mode=("voting" if cfg.tree_learner
+                                                == "voting" else "data"),
+                    top_k=int(cfg.top_k), monotone_method=self._monotone_method,
+                    cegb_feature_penalty=envelope["cegb_feature_penalty"])
             elif strict:
                 stats["grower"] = "strict"
                 out = grow_tree(*args, **common, **envelope)
@@ -1026,8 +1199,15 @@ class GBDT:
                     generator=gen, graphs=graphs, efb=efb,
                     hist_precision=cfg.hist_precision,
                     guard_label=f" (boosting iteration {self.iter_ + 1})")
+                if self._dp is not None:
+                    # sharded rows: the round's merge is a collective
+                    common.update(axis_name=self._dp.shard)
+                    for key in ("graphs", "efb"):
+                        common.pop(key)
                 if self._use_windowed(ts):
                     stats["grower"] = "windowed"
+                    if self._dp is not None:
+                        common["merge"] = self._windowed_dp_merge()
                     out = grow_tree_windowed(
                         *args, megakernel_opt=cfg.extra.get("megakernel"), **common)
                 else:
@@ -1108,8 +1288,12 @@ class GBDT:
         if obj is None or not obj.need_renew:
             return arrays
         score = self._score if self._score.dim() == 1 else self._score[:, c]
-        renewed = obj.renew_tree_output(self._label, self._weight, score,
-                                        leaf_id, self.cfg.num_leaves)
+        label, weight = self._label, self._weight
+        if self._dp is not None:  # over every rank's rows, as the serial run
+            label, score, leaf_id = (self._gather_rows(v) for v in (label, score, leaf_id))
+            weight = None if weight is None else self._gather_rows(weight)
+        renewed = obj.renew_tree_output(label, weight, score, leaf_id,
+                                        self.cfg.num_leaves)
         active = (torch.arange(self.cfg.num_leaves, device=self.device)
                   < arrays.num_leaves)
         return arrays._replace(leaf_value=torch.where(active, renewed, 0.0))
@@ -1171,11 +1355,39 @@ class GBDT:
             name = self.valid_names[data_idx - 1]
         if self._guard_bad_iter is not None:  # eval reads the device anyway
             self._raise_if_nonfinite(int(_san.sync_pull(self._guard_bad_iter)))
+        if self._dp is not None:
+            return self._eval_at_synced(ds, score, name)
         pred = self._converted(self._eval_margin(score))
         label = np.asarray(ds.label)
         out = []
         for m in self.metrics:
             for mn, v, hib in m.eval(pred, label, ds.weight, ds.query_boundaries):
+                out.append((name, mn, v, hib))
+        return out
+
+    def _eval_at_synced(self, ds, score, name) -> List[Tuple[str, str, float, bool]]:
+        """Metrics over every rank's rows (reference: Metric::Eval with
+        Network::GlobalSyncUpBySum): each rank's predictions, labels,
+        weights and query sizes are gathered in rank order, which is the
+        serial row order, and every rank evaluates the whole, so every rank
+        (and early stopping) sees the serial values."""
+        mesh = self._dp.mesh
+        dev = self.device
+
+        def gather(a):  # in the array's own dtype, so the values are the serial ones
+            t = torch.as_tensor(np.ascontiguousarray(a), device=dev)
+            return _coll.all_gather_ragged(t, mesh).cpu().numpy()
+
+        pred = gather(self._converted(self._eval_margin(score)))
+        label = gather(np.asarray(ds.label))
+        weight = None if ds.weight is None else gather(np.asarray(ds.weight))
+        qb = ds.query_boundaries
+        if qb is not None:
+            sizes = gather(np.diff(np.asarray(qb)).astype(np.int64))
+            qb = np.concatenate([[0], np.cumsum(sizes)])
+        out = []
+        for m in self.metrics:
+            for mn, v, hib in m.eval(pred, label, weight, qb):
                 out.append((name, mn, v, hib))
         return out
 

@@ -532,6 +532,15 @@ def histogram_multi_carry_plain(bins, grad, hess, mask, leaf_slot, leaf_base: in
     """The solo plain version's integer sums of one chunk, added into the
     accumulators; the conversion of histogram_multi_plain after the last."""
     plain_calls["histogram_multi_carry"] += 1
+    carry_sums_plain(bins, grad, hess, mask, leaf_slot, leaf_base, acc)
+    if not finalize:
+        return None
+    return carry_convert_plain(acc.acc64, acc.acc32, acc.shift)
+
+
+def carry_sums_plain(bins, grad, hess, mask, leaf_slot, leaf_base: int,
+                     acc: CarryAccumulator) -> None:
+    """The solo plain version's integer sums of rows, added into ``acc``."""
     tile, f, num_bins = acc.shape
     rows, idx = _rows_and_index(bins, mask, leaf_slot, leaf_base, tile, num_bins)
     idx = idx.reshape(-1)
@@ -545,8 +554,38 @@ def histogram_multi_carry_plain(bins, grad, hess, mask, leaf_slot, leaf_base: in
     cnt = torch.zeros(tile * f * num_bins, dtype=torch.int64, device=bins.device)
     cnt.index_add_(0, idx, torch.ones_like(idx))
     acc.acc32 += cnt.view(tile, f, num_bins).to(torch.int32)
-    if not finalize:
-        return None
+
+
+def carry_convert(acc64: torch.Tensor, acc32: torch.Tensor, shift) -> torch.Tensor:
+    """The carried mode's conversion alone: (tile, 3, F, B) f32 from int64
+    fixed-point sums acc64 (tile, 2, F, B) with the exponent pair ``shift``
+    and int32 counts acc32 (tile, F, B); the sharded growers' one
+    conversion after an exact merge.  On the card, the carried kernel's
+    finalize with no rows (one launch, counted as histogram_multi_carry)."""
+    tile, _two, f, num_bins = acc64.shape
+    if not acc64.is_cuda:
+        return carry_convert_plain(acc64, acc32, shift)
+    dev = acc64.device
+    _check_acc("acc64", acc64, (tile, 2, f, num_bins), torch.int64, dev)
+    _check_acc("acc32", acc32, (tile, f, num_bins), torch.int32, dev)
+    shift = shift_on(shift, dev)
+    if shift is None:
+        raise TypeError("carry_convert needs the exponent pair of the sums")
+    out = torch.empty((tile, 3, f, num_bins), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        rc = LIBRARY.lib().lgbt_hist_multi_f32_carry(
+            None, None, None, None, None, 0, f, 0, int(tile), int(num_bins),
+            shift.data_ptr(), acc64.data_ptr(), acc32.data_ptr(), out.data_ptr(), 1,
+            stream_ptr(dev))
+    LIBRARY.raise_on(rc, "histogram_multi_carry kernel (conversion)")
+    count_launch(launches, "histogram_multi_carry")
+    return out
+
+
+def carry_convert_plain(acc64, acc32, shift) -> torch.Tensor:
+    tile, _two, f, num_bins = acc64.shape
+    sh = (int(shift[0]), int(shift[1]))
+    a64 = acc64.reshape(tile, 2, -1)
     chans = [(a64[:, i].double() * math.ldexp(1.0, -sh[i])).float()
-             for i in range(2)] + [acc.acc32.view(tile, -1).float()]
+             for i in range(2)] + [acc32.reshape(tile, -1).float()]
     return torch.stack([c.reshape(tile, f, num_bins) for c in chans], dim=1)

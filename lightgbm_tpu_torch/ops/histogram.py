@@ -94,3 +94,103 @@ def unbundle(h: torch.Tensor, efb, num_bins: int) -> torch.Tensor:
     if efb is None:
         return h
     return unbundle_hists(h, efb[1], efb[2], efb[2].shape[0], num_bins)
+
+
+# ---------------------------------------------------------------------------
+# the sharded growers' merges (parallel/): exact, so R ranks grow the serial
+# tree bit for bit
+# ---------------------------------------------------------------------------
+def global_shift(grad, hess, shard) -> torch.Tensor:
+    """The tree's fixed-point exponent pair over all ranks' rows
+    (hist_cuda.fixed_shift_tensor of the whole): the global N of ``shard``
+    (parallel/mesh.py::RowShard) and one pmax of the two maxima."""
+    from ..parallel import collectives as C
+
+    n = int(shard.num_data)
+    if grad.shape[0]:
+        am = torch.stack([grad.float().abs().max(), hess.float().abs().max()])
+    else:
+        am = torch.zeros(2, dtype=torch.float32, device=grad.device)
+    am = C.pmax(am, shard.mesh)
+    return (62 - n.bit_length() - torch.frexp(am).exponent).to(torch.int32)
+
+
+def owned_features(num_feature: int, mesh) -> tuple:
+    """The scatter merge's feature blocks: (first feature of this rank's
+    block, block width k, padded width R * k)."""
+    k = -(-num_feature // mesh.size)
+    return mesh.rank * k, k, k * mesh.size
+
+
+def _scatter_features(x: torch.Tensor, fdim: int, mesh) -> torch.Tensor:
+    """psum_scatter of ``x`` over its feature dim ``fdim``: the features laid
+    out first, padded with zero features to a multiple of R; returns this
+    rank's block in x's layout."""
+    from ..parallel import collectives as C
+
+    _f0, _k, fp = owned_features(x.shape[fdim], mesh)
+    xm = x.movedim(fdim, 0)
+    if fp > xm.shape[0]:
+        xm = torch.cat([xm, xm.new_zeros((fp - xm.shape[0],) + tuple(xm.shape[1:]))])
+    return C.psum_scatter(xm, mesh).movedim(0, fdim).contiguous()
+
+
+def merge_carry(acc64, acc32, shift, mesh, merge: str = "psum") -> torch.Tensor:
+    """Rank-local fixed-point window sums (acc64 (T, 2, F, B) int64, acc32
+    (T, F, B) int32) merged across ``mesh`` and converted to f32 once:
+    (T, 3, F, B) with ``merge="psum"`` (all_reduce), this rank's (T, 3, k, B)
+    feature block with ``"scatter"`` (reduce_scatter over the features).
+    Integer sums do not depend on their order, so the merged histogram is
+    the serial one bit for bit."""
+    from ..parallel import collectives as C
+
+    mesh.stats["merges"] += 1
+    mesh.stats["merge_bytes"] += acc64.numel() * 8 + acc32.numel() * 4
+    if merge == "psum":
+        acc64, acc32 = C.psum(acc64, mesh), C.psum(acc32, mesh)
+    elif merge == "scatter":
+        acc64 = _scatter_features(acc64, 2, mesh)
+        acc32 = _scatter_features(acc32, 1, mesh)
+    else:
+        raise ValueError(f"merge must be 'psum' or 'scatter', got {merge!r}")
+    return hist_cuda.carry_convert(acc64, acc32, shift)
+
+
+def merge_int(h: torch.Tensor, mesh, merge: str = "psum") -> torch.Tensor:
+    """int8-quantized (T, 3, F, B) int32 histograms merged as merge_carry
+    merges (exact: integers)."""
+    from ..parallel import collectives as C
+
+    mesh.stats["merges"] += 1
+    mesh.stats["merge_bytes"] += h.numel() * 4
+    if merge == "psum":
+        return C.psum(h, mesh)
+    if merge == "scatter":
+        return _scatter_features(h, 2, mesh)
+    raise ValueError(f"merge must be 'psum' or 'scatter', got {merge!r}")
+
+
+def histogram_multi_merged(bins, grad, hess, mask, leaf_slot, leaf_base: int,
+                           tile: int, num_bins: int, shift, mesh,
+                           merge: str = "psum", precision: str = "f32"):
+    """histogram_multi over the rows of every rank: each rank sums its rows
+    into B1's carried accumulators (the fixed-point exponents ``shift`` must
+    be the global ones, global_shift), the accumulators are merged
+    (merge_carry) and converted once.  ``precision="bf16"``: grad and hess
+    rounded to bfloat16 first, whose float32 values sum to the same
+    integers as the bf16 pass's."""
+    g, h = hist_cuda._payload(grad, hess, precision)
+    acc = hist_cuda.CarryAccumulator(tile, bins.shape[1], num_bins, shift,
+                                     bins.device)
+    hist_cuda.histogram_multi_carry(bins, g.float().contiguous(),
+                                    h.float().contiguous(), mask, leaf_slot,
+                                    leaf_base, acc)
+    return merge_carry(acc.acc64, acc.acc32, acc.shift, mesh, merge)
+
+
+def histogram_multi_quantized_merged(bins, grad_q, hess_q, mask, leaf_slot,
+                                     leaf_base: int, tile: int, num_bins: int,
+                                     mesh, merge: str = "psum") -> torch.Tensor:
+    return merge_int(histogram_multi_quantized(bins, grad_q, hess_q, mask,
+                                               leaf_slot, leaf_base, tile,
+                                               num_bins), mesh, merge)

@@ -2,7 +2,11 @@
 version.
 
 The kernel (csrc/round.cu) replaces lightgbm_tpu/ops/round_pallas.py::
-_mk_kernel with its fused tail: one windowed round's partition, the small
+_mk_kernel in both its modes.  Unfused (``round_partition_window``, the
+TPU kernel's fuse_tail=False, which only the sharded windowed round
+reaches): the partition and the window pass, the sums left as the
+fixed-point accumulators so that the ranks' windows merge exactly before
+the subtraction and the split search run.  Fused (``round_megakernel``), one windowed round's partition, the small
 children's window histograms read straight from the row-major bins through
 the new order, the siblings by subtraction, and the per-feature split
 search, with the categorical candidates on the features of a categorical
@@ -33,13 +37,14 @@ from .partition import segment_ids, stable_partition_ranges
 from .partition_cuda import MAX_ROWS, scratch
 from .split import FeatureBests, SplitParams, gain_plane, reduce_plane_per_feature
 
-launches = {"round_megakernel": 0}
-plain_calls = {"round_megakernel": 0}
+launches = {"round_megakernel": 0, "round_megakernel_unfused": 0}
+plain_calls = {"round_megakernel": 0, "round_megakernel_unfused": 0}
 
 
 def reset_counts() -> None:
-    launches["round_megakernel"] = 0
-    plain_calls["round_megakernel"] = 0
+    for d in (launches, plain_calls):
+        for k in d:
+            d[k] = 0
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -48,6 +53,8 @@ def _bind(lib: ctypes.CDLL) -> None:
         [p, ll, i, i, i] + [p] * 13 + [ll] + [p] * 12 + [f] * 7 + [i]
         + [f, f, i, i, f] + [p] * 8)
     lib.lgbt_round.restype = i
+    lib.lgbt_round_unfused.argtypes = [p, ll, i, i, i] + [p] * 12 + [ll] + [p] * 4
+    lib.lgbt_round_unfused.restype = i
 
 
 LIBRARY = KernelLibrary("round.cu", _bind, extra_flags=["--fmad=false"])
@@ -229,3 +236,76 @@ def round_megakernel_plain(bins, order, go_left, grad, hess, row_mask,
                            categorical_mask=categorical_mask,
                            feature_contri=feature_contri)
     return new_order, left, right, reduce_plane_per_feature(gain, ctx)
+
+
+def round_partition_window(bins, order, go_left, grad, hess, row_mask, seg_start,
+                           seg_len, n_left, win_start, win_cnt, *, num_bins: int,
+                           W: int, shift):
+    """B3 without its tail (the TPU kernel's fuse_tail=False): the round's
+    partition and its window pass.  Returns (new_order (N,) i32, acc64
+    (T, 2, F, B) i64, acc32 (T, F, B) i32): the windows' fixed-point sums of
+    grad and hess with the tree's exponent pair ``shift`` (an int32[2] on
+    the device) and their counts, unconverted, for the caller to merge
+    across ranks and convert once (ops/histogram.py::merge_carry).  The
+    geometry is round_megakernel's."""
+    tvecs = (seg_start, seg_len, n_left, win_start, win_cnt)
+    if not bins.is_cuda:
+        return round_partition_window_plain(bins, order, go_left, grad, hess,
+                                            row_mask, *tvecs, num_bins=num_bins,
+                                            W=W, shift=shift)
+    n, f = bins.shape
+    T = seg_start.shape[0]
+    dev = bins.device
+    want = [("order", order, (n,), torch.int32), ("go_left", go_left, (n,), torch.bool),
+            ("grad", grad, (n,), torch.float32), ("hess", hess, (n,), torch.float32),
+            ("row_mask", row_mask, (n,), torch.bool)]
+    want += [(f"segment/window table {i}", t, (T,), torch.int32)
+             for i, t in enumerate(tvecs)]
+    if bins.dim() != 2 or bins.dtype != torch.int16 or not bins.is_contiguous():
+        raise TypeError(f"bins must be contiguous (N, F) int16, got "
+                        f"{tuple(bins.shape)} {bins.dtype}")
+    for name, t, shape, dt in want:
+        if t.dtype != dt or tuple(t.shape) != shape:
+            raise TypeError(f"{name} must be {shape} {dt}, got {tuple(t.shape)} "
+                            f"{t.dtype}")
+        if t.device != dev or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous on {dev}")
+    if n >= MAX_ROWS or T < 1 or num_bins < 1 or W < 1:
+        raise ValueError(f"need n < {MAX_ROWS}, T, num_bins, W >= 1; got n={n}, "
+                         f"T={T}, num_bins={num_bins}, W={W}")
+    shift = hist_cuda.shift_on(shift, dev)
+    if shift is None:
+        raise TypeError("round_partition_window needs the tree's exponent pair")
+    new_order = torch.empty((n,), dtype=torch.int32, device=dev)
+    acc64 = torch.empty((T, 2, f, num_bins), dtype=torch.int64, device=dev)
+    acc32 = torch.empty((T, f, num_bins), dtype=torch.int32, device=dev)
+    stream = stream_ptr(dev)
+    with torch.cuda.device(dev):
+        rc = LIBRARY.lib().lgbt_round_unfused(
+            bins.data_ptr(), n, f, int(num_bins), T, order.data_ptr(),
+            go_left.data_ptr(), seg_start.data_ptr(), seg_len.data_ptr(),
+            n_left.data_ptr(), scratch(dev, stream, n, T).data_ptr(),
+            new_order.data_ptr(), grad.data_ptr(), hess.data_ptr(),
+            row_mask.data_ptr(), win_start.data_ptr(), win_cnt.data_ptr(), int(W),
+            shift.data_ptr(), acc64.data_ptr(), acc32.data_ptr(), stream)
+    LIBRARY.raise_on(rc, "round_megakernel_unfused kernel")
+    count_launch(launches, "round_megakernel_unfused")
+    return new_order, acc64, acc32
+
+
+def round_partition_window_plain(bins, order, go_left, grad, hess, row_mask,
+                                 seg_start, seg_len, n_left, win_start, win_cnt,
+                                 *, num_bins: int, W: int, shift):
+    """The plain version: round_megakernel_plain's first two phases (the
+    partition, the gathered window through the histogram kernel's plain
+    integer sums), stopped before the conversion."""
+    plain_calls["round_megakernel_unfused"] += 1
+    n, f = bins.shape
+    T = seg_start.shape[0]
+    sid = segment_ids(seg_start, seg_len, n)
+    new_order, _ = stable_partition_ranges(order, sid, seg_start, seg_len, go_left)
+    rows, slot_of, valid = window_rows(new_order, win_start, win_cnt, W)
+    acc = hist_cuda.CarryAccumulator(T, f, num_bins, shift, bins.device)
+    hist_cuda.carry_sums_plain(bins.index_select(0, rows), grad[rows], hess[rows],
+                               row_mask[rows] & valid, slot_of, 0, acc)
+    return new_order, acc.acc64, acc.acc32

@@ -28,6 +28,27 @@ ops/treegrow_windowed.py.
 A round is a fixed sequence of device work: its splits are masked by
 ``accept`` over the leaves, and writes of the leaves or ranks it does not
 admit land in a spare slot (``_put``), so no host read sizes anything.
+
+Distributed (``axis_name``: a parallel/mesh.py::RowShard, the torch form of
+the JAX package's mesh axis; parallel/data_parallel.py and
+feature_parallel.py call it), with ``parallel_mode``:
+
+* ``data``: rows sharded.  Every histogram is summed by each rank into the
+  fixed-point accumulators with the tree's global exponents and merged
+  exactly (ops/histogram.py::histogram_multi_merged), so every rank holds
+  the serial histograms and grows the serial tree bit for bit;
+* ``voting`` (PV-Tree, reference: voting_parallel_tree_learner.cpp): rows
+  sharded, histograms kept local; each leaf search votes each rank's
+  top_k features by local gain, and only the 2 * top_k elected features'
+  histograms are summed (in f32, as the JAX package's psum sums them);
+* ``feature``: rows replicated, features sharded (each rank holds a block
+  of F / R columns): each rank searches its features, the best split is
+  elected (max gain, then the lowest rank) and broadcast, and the owner's
+  go-left bits are broadcast; the histograms are the serial ones, so the
+  tree is too.
+
+Lazy CEGB charges are row-global state and stay serial-only, as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -36,17 +57,19 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ..parallel import collectives as C
 from ..utils import sanitizer as _san
 from .hist_cuda import fixed_shift_tensor
-from .histogram import histogram_multi
+from .histogram import global_shift, histogram_multi, histogram_multi_merged
 from .round_cuda import split_window
 from .split import (KMIN_SCORE, BestSplit, SplitParams, find_best_split,
-                    forced_split_candidate, leaf_output, leaf_output_smoothed)
+                    forced_split_candidate, gain_plane, leaf_output,
+                    leaf_output_smoothed, reduce_plane_per_feature)
 
-# options of the JAX package's growers that this package does not carry yet
-# (the data/feature/voting tree learners, ROADMAP queue A13): passing one
-# raises
-UNPORTED = ("axis_name",)
+# options of the JAX package's growers that this package does not carry yet:
+# passing one raises (the 2-D and hierarchical meshes' options are
+# ROADMAP A13b and have no grower option here)
+UNPORTED = ()
 
 
 def reject_unported(who: str, options: dict) -> None:
@@ -56,7 +79,7 @@ def reject_unported(who: str, options: dict) -> None:
         v = options.pop(name, None)
         if v is not None and v is not False:
             raise ValueError(f"{who}: {name} is not ported to "
-                             "lightgbm_tpu_torch yet (ROADMAP queue A13)")
+                             "lightgbm_tpu_torch yet (ROADMAP queue A13b)")
     if options:
         raise TypeError(f"unexpected options: {sorted(options)}")
 
@@ -66,11 +89,15 @@ def at(t: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
     return t.index_select(0, i.reshape(1))[0]
 
 
-def allowed_features(used, interaction_sets):
+def allowed_features(used, interaction_sets, mesh=None):
     """(C, F) features allowed at each leaf: the union of the interaction
     sets that hold every feature on its path (``used`` (C, F); reference:
-    col_sampler.hpp's interaction-constraint filter)."""
+    col_sampler.hpp's interaction-constraint filter).  ``mesh``: features
+    are sharded (feature mode), so a set qualifies only if it does on
+    every rank's block."""
     ok_s = ~(used[:, None, :] & ~interaction_sets[None]).any(dim=2)  # (C, S)
+    if mesh is not None:
+        ok_s = C.pmin(ok_s, mesh)
     return (interaction_sets[None] & ok_s[..., None]).any(dim=1)
 
 
@@ -90,7 +117,7 @@ class Envelope(NamedTuple):
 
 
 def leaf_search(env: Envelope, feature_mask, rng, coupled, cegb_used, used, lo,
-                hi, node_ids, depth, lazy_counts) -> dict:
+                hi, node_ids, depth, lazy_counts, feature_mesh=None) -> dict:
     """find_best_split's constraint keywords for C leaves: the feature mask
     narrowed by the interaction sets of the features on each leaf's path
     (``used`` (C, F)), the monotone band (lo, hi (C,)), the leaves' rows of
@@ -99,7 +126,7 @@ def leaf_search(env: Envelope, feature_mask, rng, coupled, cegb_used, used, lo,
     ones times each leaf's uncharged rows (``lazy_counts`` (C, F))."""
     fm = feature_mask
     if env.sets is not None:
-        allowed = allowed_features(used, env.sets)
+        allowed = allowed_features(used, env.sets, feature_mesh)
         fm = allowed if fm is None else fm & allowed
     pen = None if coupled is None else torch.where(cegb_used, 0.0, coupled)
     if lazy_counts is not None:
@@ -160,6 +187,103 @@ def final_leaf_values(leaf_out, leaf_sum_g, leaf_sum_h, lo, hi, params,
         return leaf_out
     v = leaf_output(leaf_sum_g, leaf_sum_h, params)
     return torch.clamp(v, lo, hi) if monotone else v
+
+
+def serial_totals(hist_f0: torch.Tensor, num_feature: int) -> torch.Tensor:
+    """A leaf's (g, h, count) totals from the (3, B) histogram of global
+    feature 0, summed as the serial growers sum them: torch.sum over the
+    bins of feature 0 of a (3, F, B) histogram.  A CUDA reduction's order
+    follows its input's layout, so the rank holding feature 0 of a feature
+    block lays it out at the serial width first; the sum is then the
+    serial one bit for bit."""
+    buf = hist_f0.new_zeros((3, num_feature, hist_f0.shape[-1]))
+    buf[:, 0] = hist_f0
+    return torch.sum(buf[:, 0, :], dim=1)
+
+
+def _pack_best(s: BestSplit) -> torch.Tensor:
+    """A BestSplit (C,) as one (C, 11 + B) int32 tensor of bit patterns."""
+    def col(x):
+        if x.dtype == torch.float32:
+            return x.contiguous().view(torch.int32)[:, None]
+        return x.to(torch.int32)[:, None]
+    return torch.cat([col(s.gain), col(s.feature), col(s.threshold_bin),
+                      col(s.default_left), col(s.is_cat), col(s.left_sum_g),
+                      col(s.left_sum_h), col(s.left_count), col(s.right_sum_g),
+                      col(s.right_sum_h), col(s.right_count),
+                      s.cat_mask.to(torch.int32)], dim=1)
+
+
+def _unpack_best(t: torch.Tensor) -> BestSplit:
+    def fl(i):
+        return t[:, i].contiguous().view(torch.float32)
+    return BestSplit(gain=fl(0), feature=t[:, 1], threshold_bin=t[:, 2],
+                     default_left=t[:, 3] != 0, is_cat=t[:, 4] != 0,
+                     cat_mask=t[:, 11:] != 0, left_sum_g=fl(5), left_sum_h=fl(6),
+                     left_count=fl(7), right_sum_g=fl(8), right_sum_h=fl(9),
+                     right_count=fl(10))
+
+
+def elect_best(s: BestSplit, mesh, f0: int) -> BestSplit:
+    """Owned-feature winner election (reference: SyncUpGlobalBestSplit, an
+    Allreduce of SplitInfo; the JAX package's feature mode and _merge_best):
+    each rank's best over its block, its feature index made global (+ f0),
+    the max gain, the lowest rank holding it (the lowest feature block,
+    so the serial argmax's first maximum), and the winner's fields
+    broadcast bit for bit: three collectives for a batch of leaves."""
+    single = s.gain.dim() == 0
+    if single:
+        s = BestSplit(*[x[None] for x in s])
+    s = s._replace(feature=s.feature + f0)
+    gmax = C.pmax(s.gain, mesh)
+    cand = torch.where(s.gain >= gmax, mesh.rank, 1 << 30).to(torch.int32)
+    wrank = C.pmin(cand, mesh)
+    out = _unpack_best(C.broadcast_from(_pack_best(s), wrank, mesh))
+    return BestSplit(*[x[0] for x in out]) if single else out
+
+
+def vote_best(hist, sum_g, sum_h, count, nbpf, mbpf, params, mesh, top_k: int,
+              kw: dict) -> BestSplit:
+    """PV-Tree's search for a batch of leaves (the JAX package's voting
+    mode): per leaf, each rank votes its top_k features by the gain of its
+    LOCAL histogram (hist (C, 3, F, B), local totals), the tally elects
+    min(2 * top_k, F) features (ties to the lower index), and only their
+    histograms are summed across the ranks before the search."""
+    c, _three, f, b = hist.shape
+    loc = hist[:, :, 0, :].sum(dim=2)  # (C, 3) local leaf totals
+    gain, ctx = gain_plane(hist, loc[:, 0], loc[:, 1], loc[:, 2], nbpf, mbpf,
+                           params, **kw)
+    per_f = reduce_plane_per_feature(gain, ctx).gain  # (C, F)
+    kth = torch.topk(per_f, min(top_k, f), dim=1).values[:, -1:]
+    vote = (per_f >= kth) & (per_f > KMIN_SCORE / 2)
+    tally = C.psum(vote.to(torch.int32), mesh)
+    score = tally * (f + 1) - torch.arange(f, dtype=torch.int32, device=hist.device)
+    n_elect = min(2 * top_k, f)
+    el = torch.topk(score, n_elect, dim=1).indices  # (C, E)
+    sub = C.psum(hist.gather(2, el[:, None, :, None].expand(c, 3, n_elect, b)),
+                 mesh)
+    outs = []
+    for i in range(c):  # the elected tables differ leaf by leaf
+        e = el[i]
+
+        def pick(v):
+            if v is None:
+                return None
+            if v.dim() == 2 and v.shape[0] == c:  # per-leaf (C, F)
+                return v[i][e]
+            return v[e]
+        kwi = {k: (pick(v) if k in ("feature_mask", "categorical_mask",
+                                    "monotone_constraints",
+                                    "cegb_feature_penalty", "feature_contri")
+                   else v[i:i + 1] if torch.is_tensor(v) and v.dim() >= 1
+                   and v.shape[0] == c else v)
+               for k, v in kw.items()}
+        if kwi.get("rng_key") is not None:
+            kwi["rng_key"] = kwi["rng_key"][:, :, e]
+        bi = find_best_split(sub[i:i + 1], sum_g[i:i + 1], sum_h[i:i + 1],
+                             count[i:i + 1], nbpf[e], mbpf[e], params, **kwi)
+        outs.append(bi._replace(feature=e[bi.feature.long()].to(torch.int32)))
+    return BestSplit(*[torch.cat(xs) for xs in zip(*outs)])
 
 
 class TreeArrays(NamedTuple):
@@ -342,20 +466,34 @@ def book_tree(t: TreeArrays, accept, node_of, right_of, leaf_parent, leaf_side,
 
 def quantize_gradients(grad, hess, row_mask, quantize_bins: int,
                        stochastic_rounding: bool,
-                       generator: Optional[torch.Generator]):
+                       generator: Optional[torch.Generator], shard=None):
     """Discretize to int8: grad in [-half, half], hess in [0, quantize_bins]
     (reference: GradientDiscretizer::DiscretizeGradients); stochastic
     rounding draws from ``generator``.  Returns (gq, hq, the dequantized
-    grad and hess that split evaluation sees, quant_scale (3,))."""
+    grad and hess that split evaluation sees, quant_scale (3,)).
+    ``shard`` (parallel/mesh.py::RowShard): the rows are one rank's; the
+    scales come from the maxima over all ranks (one pmax) and the draws are
+    the serial draws of these rows (all N drawn, this rank's slice kept),
+    so every rank quantizes as the serial run does."""
     dev = grad.device
+    n = grad.shape[0]
     half = max(quantize_bins // 2, 1)
     inbag = row_mask.float()
-    g_scale = torch.clamp_min(torch.max(torch.abs(grad) * inbag) / half, 1e-30)
-    h_scale = torch.clamp_min(torch.max(hess * inbag) / quantize_bins, 1e-30)
+    if n:
+        mx = torch.stack([torch.max(torch.abs(grad) * inbag), torch.max(hess * inbag)])
+    else:
+        mx = torch.zeros(2, dtype=torch.float32, device=dev)
+    if shard is not None:
+        mx = C.pmax(mx, shard.mesh)
+    g_scale = torch.clamp_min(mx[0] / half, 1e-30)
+    h_scale = torch.clamp_min(mx[1] / quantize_bins, 1e-30)
     gs = grad / g_scale
     hs = hess / h_scale
     if stochastic_rounding:
-        u = torch.rand((2, grad.shape[0]), generator=generator, device=dev)
+        total = n if shard is None else shard.num_data
+        u = torch.rand((2, total), generator=generator, device=dev)
+        if shard is not None:
+            u = u[:, shard.offset: shard.offset + n]
         gq = torch.floor(gs + u[0])
         hq = torch.floor(hs + u[1])
     else:
@@ -410,11 +548,19 @@ def grow_tree(
     n_forced: int = 0,
     track_path: bool = False,
     monotone_method: str = "basic",  # basic | intermediate
+    axis_name=None,  # parallel/mesh.py::RowShard: a rank's part of the tree
+    parallel_mode: str = "data",  # with axis_name: data | voting | feature
+    top_k: int = 20,  # voting: features each rank votes for (reference: top_k)
     **options,
 ):
     """Grow one tree best-first, one split a step; returns (tree, final
     leaf_id per row), and the updated (N, F) lazy CEGB charges third when
-    ``cegb_lazy_penalty`` is given.
+    ``cegb_lazy_penalty`` is given (serial runs only).  With ``axis_name``
+    the rows (or, in feature mode, the feature columns) are this rank's,
+    and the tree comes out the same on every rank (module docstring); in
+    feature mode the tables of features (feature mask, categorical mask,
+    monotone vector, interaction sets, contri, penalties, uniforms) are
+    this rank's block and split_feature is global.
 
     Each step: the leaf with the best gain (the first on ties; a scheduled
     forced split first), an elementwise leaf_id update from its split's
@@ -427,7 +573,11 @@ def grow_tree(
     receives the utils/sanitizer.py counts of the tree (a step counts as a
     round), in the round drivers' layout (no retries, no windows)."""
     reject_unported("grow_tree", options)
-    use_lazy = cegb_lazy_penalty is not None and cegb_lazy_used is not None
+    if axis_name is not None and parallel_mode not in ("data", "voting", "feature"):
+        raise ValueError(f"parallel_mode must be data, voting or feature, got "
+                         f"{parallel_mode!r}")
+    use_lazy = (cegb_lazy_penalty is not None and cegb_lazy_used is not None
+                and axis_name is None)
     env = Envelope(
         monotone=monotone_constraints,
         intermediate=(monotone_method == "intermediate"
@@ -441,7 +591,9 @@ def grow_tree(
                          num_bins_per_feature, missing_bin_per_feature,
                          num_leaves, num_bins, max_depth, params,
                          categorical_mask, feature_contri, env, n_forced, rng_key,
-                         cegb_feature_penalty, cegb_lazy_used if use_lazy else None)
+                         cegb_feature_penalty, cegb_lazy_used if use_lazy else None,
+                         axis_name, parallel_mode if axis_name is not None
+                         else "serial", top_k)
         finally:
             if stats is not None:
                 stats.update(counter.stats(), retries=0, windows=[])
@@ -449,12 +601,18 @@ def grow_tree(
 
 def _grow(bins, grad, hess, row_mask, sample_weight, feature_mask, nbpf, mbpf,
           L, num_bins, max_depth, params, cmask, contri, env: Envelope, n_forced,
-          rng, coupled, lazy_used):
+          rng, coupled, lazy_used, shard=None, mode: str = "serial", top_k: int = 20):
     dev = bins.device
     n, f = bins.shape
     grad = grad.float() * sample_weight
     hess = hess.float() * sample_weight
-    shift = fixed_shift_tensor(grad, hess)
+    mesh = None if shard is None else shard.mesh
+    # feature mode: rows are replicated, this rank's columns are global
+    # features f0 .. f0 + f - 1
+    f0 = mesh.rank * f if mode == "feature" else 0
+    # the tree's exponents from all N rows (rows replicated in feature mode)
+    shift = (global_shift(grad, hess, shard) if mode in ("data", "voting")
+             else fixed_shift_tensor(grad, hess))
     slot = torch.zeros(n, dtype=torch.int32, device=dev)
     idx = torch.arange(L, dtype=torch.int64, device=dev)
     drop = -1  # _put's index of the spare slot
@@ -463,20 +621,39 @@ def _grow(bins, grad, hess, row_mask, sample_weight, feature_mask, nbpf, mbpf,
     use_lazy = lazy_used is not None
     use_used = env.sets is not None or env.track_path
     f_leaf, f_feat, f_bin = env.forced or (None, None, None)
-    fcols = torch.arange(f, device=dev)
+    fcols = torch.arange(f, device=dev) + f0
 
     def leaf_hist(mask):
+        if mode == "data":  # rows sharded: the exact merge
+            return histogram_multi_merged(bins, grad, hess, mask, slot, 0, 1,
+                                          num_bins, shift, mesh)
         return histogram_multi(bins, grad, hess, mask, slot, 0, 1, num_bins,
                                shift=shift)
 
+    def of_feature(table, feat):
+        """table[feat] for a global feature index (in feature mode from
+        the rank that holds the feature, broadcast)."""
+        if mode != "feature":
+            return at(table, feat)
+        lf = feat - f0
+        owned = (lf >= 0) & (lf < f)
+        return C.psum(torch.where(owned, at(table, lf.clamp(0, f - 1)),
+                                  torch.zeros((), dtype=table.dtype, device=dev)),
+                      mesh)
+
     def best_for(hist, g, h, c, depth, parent_out, lo, hi, used, node_ids,
                  cegb_used, lazy_counts) -> BestSplit:
-        s = find_best_split(hist, g, h, c, nbpf, mbpf, params,
-                            parent_output=parent_out, categorical_mask=cmask,
-                            feature_contri=contri,
-                            **leaf_search(env, feature_mask, rng, coupled,
-                                          cegb_used, used, lo, hi, node_ids,
-                                          depth, lazy_counts))
+        kw = dict(parent_output=parent_out, categorical_mask=cmask,
+                  feature_contri=contri,
+                  **leaf_search(env, feature_mask, rng, coupled, cegb_used, used,
+                                lo, hi, node_ids, depth, lazy_counts,
+                                mesh if mode == "feature" else None))
+        if mode == "voting":
+            s = vote_best(hist, g, h, c, nbpf, mbpf, params, mesh, top_k, kw)
+        else:
+            s = find_best_split(hist, g, h, c, nbpf, mbpf, params, **kw)
+        if mode == "feature":
+            s = elect_best(s, mesh, f0)
         if max_depth > 0:  # reference: the max_depth check of BeforeFindBestSplit
             s = s._replace(gain=torch.where(depth >= max_depth, KMIN_SCORE, s.gain))
         return s
@@ -490,7 +667,14 @@ def _grow(bins, grad, hess, row_mask, sample_weight, feature_mask, nbpf, mbpf,
     hist = torch.zeros((L + 1, 3, f, num_bins), dtype=torch.float32, device=dev)
     hist0 = leaf_hist(row_mask)  # (1, 3, F, B)
     hist[0] = hist0[0]
-    g0, h0, c0 = torch.sum(hist0[0, :, 0, :], dim=1)  # totals from feature 0
+    tot0 = torch.sum(hist0[0, :, 0, :], dim=1)  # totals from feature 0
+    if mode == "voting":  # local histograms; the leaf totals are global
+        tot0 = C.psum(tot0, mesh)
+    elif mode == "feature":  # global feature 0 is rank 0's
+        tot0 = C.broadcast_from(serial_totals(hist0[0, :, 0, :], shard.num_feature
+                                              or f * mesh.size),
+                                torch.zeros((), device=dev), mesh)
+    g0, h0, c0 = tot0
     leaf_out = first(leaf_output(g0, h0, params))
     leaf_lo = torch.full((L,), float("-inf"), device=dev)
     leaf_hi = torch.full((L,), float("inf"), device=dev)
@@ -553,11 +737,17 @@ def _grow(bins, grad, hess, row_mask, sample_weight, feature_mask, nbpf, mbpf,
 
         # ---- partition: an elementwise leaf_id update ----
         feat = s.feature.long()
-        fcol = bins.index_select(1, feat.reshape(1))[:, 0].to(torch.int32)
+        lfeat = (feat - f0).clamp(0, f - 1) if mode == "feature" else feat
+        fcol = bins.index_select(1, lfeat.reshape(1))[:, 0].to(torch.int32)
         go_left = go_left_of(
-            fcol, mbpf.index_select(0, feat.reshape(1)), s.default_left,
+            fcol, mbpf.index_select(0, lfeat.reshape(1)), s.default_left,
             s.threshold_bin, *((s.is_cat, s.cat_mask[fcol.long()])
                                if cmask is not None else ()))
+        if mode == "feature":
+            # only the rank holding the winning feature can route the rows;
+            # rows are replicated, so its go-left bits are broadcast
+            owned = (feat >= f0) & (feat < f0 + f)
+            go_left = C.psum((go_left & owned).to(torch.uint8), mesh) > 0
         in_leaf = can & (leaf_id == best_leaf)
         leaf_id = torch.where(in_leaf & ~go_left, new_leaf.to(torch.int32), leaf_id)
 
@@ -584,7 +774,7 @@ def _grow(bins, grad, hess, row_mask, sample_weight, feature_mask, nbpf, mbpf,
                                      parent_out, params)
         p_lo, p_hi = at(leaf_lo, best_leaf), at(leaf_hi, best_leaf)
         if mono is not None:
-            mono_c = at(mono, feat)
+            mono_c = of_feature(mono, feat)
             out_l, out_r, l_lo, l_hi, r_lo, r_hi = basic_bounds(
                 mono_c, out_l, out_r, p_lo, p_hi)
         else:

@@ -35,6 +35,16 @@ uniform table, forced splits (one single-split round per schedule entry
 before free growth, its cursor in the state) and the path features of
 linear trees.  Their per-leaf state lives in ``FState`` and so in a
 graph's static buffers: a constrained round is still one replay.
+
+Data-parallel (``axis_name``: a parallel/mesh.py::RowShard; the JAX
+package's grow_tree_fast under shard_map): each rank histograms its rows,
+the round's (tile, 3, F, B) block is merged exactly (fixed point with the
+tree's global exponents, ops/histogram.py::histogram_multi_merged; int8
+histograms as integers), the quantization scales are global and the
+stochastic draws the serial ones, so every rank applies the serial splits
+bit for bit.  Sharded rounds run eagerly (a graph cannot capture a gloo
+collective; NCCL capture is performance work, ROADMAP), lazy CEGB charges
+stay serial-only, and EFB bundles are not threaded (the plan is per rank).
 """
 
 from __future__ import annotations
@@ -45,7 +55,10 @@ import torch
 
 from ..utils import sanitizer as _san
 from .graphs import RoundGraphs
-from .histogram import histogram_multi, histogram_multi_quantized, unbundle
+from ..parallel import collectives as C
+from .histogram import (global_shift, histogram_multi, histogram_multi_merged,
+                        histogram_multi_quantized,
+                        histogram_multi_quantized_merged, unbundle)
 from .round_cuda import split_window
 from .split import (KMIN_SCORE, BestSplit, SplitParams, find_best_split,
                     forced_split_candidate, leaf_output, leaf_output_smoothed)
@@ -54,7 +67,7 @@ from .treegrow import (Envelope, TreeArrays, _empty_best, _put, _set_best, admit
                        final_leaf_values, finish_tree, go_left_of,
                        intermediate_bounds, leaf_search, quantize_gradients,
                        reject_unported)
-from .treegrow_windowed import _run_fused_rounds, round_runner
+from .treegrow_windowed import _run_fused_rounds, renew_leaf_hist, round_runner
 
 
 class FState(NamedTuple):
@@ -95,6 +108,7 @@ class FInputs(NamedTuple):
     feature_mask: Optional[torch.Tensor]
     rng: Optional[torch.Tensor] = None  # (2L-1, 2, F) node uniforms
     cegb_pen: Optional[torch.Tensor] = None  # (F,) coupled penalties
+    shift: Optional[torch.Tensor] = None  # (2,) i32 global exponents (sharded)
 
 
 def predict_leaf_arrays(arrays: TreeArrays, bins: torch.Tensor,
@@ -123,15 +137,25 @@ def predict_leaf_arrays(arrays: TreeArrays, bins: torch.Tensor,
 
 
 def _multi_hist(bins, inp: FInputs, leaf_slot, tile: int, num_bins: int,
-                quantize_bins: int, hist_precision: str, efb=None) -> torch.Tensor:
+                quantize_bins: int, hist_precision: str, efb=None,
+                mesh=None) -> torch.Tensor:
     """(N,)-slot -> (tile, 3, F, B) f32: per-slot histograms, one pass (over
-    the bundled matrix, then unbundled, with an EFB plan)."""
+    the bundled matrix, then unbundled, with an EFB plan); with ``mesh``
+    over every rank's rows, merged exactly."""
     src = bins if efb is None else efb[0]
     m = inp.row_mask & (leaf_slot >= 0)
     if quantize_bins:
-        hi = histogram_multi_quantized(src, inp.gq, inp.hq, m, leaf_slot, 0,
-                                       tile, num_bins)
+        if mesh is None:
+            hi = histogram_multi_quantized(src, inp.gq, inp.hq, m, leaf_slot, 0,
+                                           tile, num_bins)
+        else:
+            hi = histogram_multi_quantized_merged(src, inp.gq, inp.hq, m, leaf_slot,
+                                                  0, tile, num_bins, mesh)
         return unbundle(hi, efb, num_bins).float() * inp.quant_scale[:, None, None]
+    if mesh is not None:
+        return unbundle(histogram_multi_merged(
+            src, inp.grad, inp.hess, m, leaf_slot, 0, tile, num_bins, inp.shift,
+            mesh, precision=hist_precision), efb, num_bins)
     return unbundle(histogram_multi(src, inp.grad, inp.hess, m, leaf_slot, 0, tile,
                                     num_bins, precision=hist_precision), efb, num_bins)
 
@@ -142,13 +166,14 @@ def _f_init(bins, grad, hess, row_mask, sample_weight, feature_mask, nbpf, mbpf,
             generator: Optional[torch.Generator], hist_precision: str = "f32",
             categorical_mask=None, feature_contri=None, hist=None, efb=None,
             env: Envelope = Envelope(), rng=None, cegb_pen=None,
-            lazy_used=None):
+            lazy_used=None, shard=None):
     """Root state: quantize gradients, the root pass, seed best.  ``hist``:
     the (L + 1, 3, F, B) buffer for the histogram state, else a new one;
     ``efb``: the EFB tables; ``env``, ``rng``, ``cegb_pen`` and
     ``lazy_used``: the constraint envelope and this tree's uniforms,
-    coupled penalties and lazy charges.  Returns (state, FInputs,
-    grad_true, hess_true)."""
+    coupled penalties and lazy charges; ``shard``: the rows are one rank's
+    (parallel/mesh.py::RowShard).  Returns (state, FInputs, grad_true,
+    hess_true)."""
     dev = bins.device
     n, f = bins.shape
     L = num_leaves
@@ -158,14 +183,18 @@ def _f_init(bins, grad, hess, row_mask, sample_weight, feature_mask, nbpf, mbpf,
     gq = hq = quant_scale = None
     if quantize_bins:
         gq, hq, grad, hess, quant_scale = quantize_gradients(
-            grad, hess, row_mask, quantize_bins, stochastic_rounding, generator)
+            grad, hess, row_mask, quantize_bins, stochastic_rounding, generator,
+            shard)
     elif hist_precision == "bf16":  # rounded once, as the payload is built
         grad, hess = grad.to(torch.bfloat16), hess.to(torch.bfloat16)
+    mesh = None if shard is None else shard.mesh
+    shift = (None if shard is None or quantize_bins
+             else global_shift(grad, hess, shard))
     inputs = FInputs(grad, hess, gq, hq, quant_scale, row_mask, feature_mask,
-                     rng, cegb_pen)
+                     rng, cegb_pen, shift)
     minus1 = torch.full((n,), -1, dtype=torch.int32, device=dev)
     hist0 = _multi_hist(bins, inputs, torch.where(row_mask, 0, minus1), 1,
-                        num_bins, quantize_bins, hist_precision, efb)[0]
+                        num_bins, quantize_bins, hist_precision, efb, mesh)[0]
     g0, h0, c0 = torch.sum(hist0[:, 0, :], dim=1)  # totals from feature 0
 
     def zeros(shape, dtype=torch.float32):
@@ -194,6 +223,9 @@ def _f_init(bins, grad, hess, row_mask, sample_weight, feature_mask, nbpf, mbpf,
         ext["lazy_counts"][0] = row_mask.float() @ (~lazy_used).float()
     leaf_out0 = leaf_output(g0, h0, params)
     root = torch.zeros(1, dtype=torch.int64, device=dev)
+    finite = torch.isfinite(grad_true).all() & torch.isfinite(hess_true).all()
+    if mesh is not None:
+        finite = C.pmin(finite, mesh)
 
     def row0(t):
         return None if t is None else t[:1]
@@ -220,15 +252,14 @@ def _f_init(bins, grad, hess, row_mask, sample_weight, feature_mask, nbpf, mbpf,
         leaf_side=zeros(L, torch.int64),
         num_leaves_cur=torch.ones((), dtype=torch.int64, device=dev),
         leaf_out=first(leaf_out0), tree=empty_tree(L, num_bins, dev),
-        inputs_finite=torch.isfinite(grad_true).all() & torch.isfinite(hess_true).all(),
-        **ext)
+        inputs_finite=finite, **ext)
     return state, inputs, grad_true, hess_true
 
 
 def _round(st: FState, bins, inp: FInputs, nbpf, mbpf, cmask=None, contri=None, *,
            num_leaves: int, num_bins: int, max_depth: int, params: SplitParams,
            leaf_tile: int, quantize_bins: int, hist_precision: str = "f32",
-           efb=None, env: Envelope = Envelope(), forced: bool = False):
+           efb=None, env: Envelope = Envelope(), forced: bool = False, mesh=None):
     """One masked fixed-tile round; returns (state', info) with info =
     [k_acc, 0, 1, 0, finite, k_next] (i32, on the device; the windowed
     round's layout, whose window fields this round has no use for).
@@ -364,7 +395,8 @@ def _round(st: FState, bins, inp: FInputs, nbpf, mbpf, cmask=None, contri=None, 
     slot_of_leaf = _put(torch.full((L,), -1, dtype=torch.int64, device=dev),
                         torch.where(accept, small, drop), acc_rank)
     fresh = _multi_hist(bins, inp, slot_of_leaf[leaf_id.long()].to(torch.int32),
-                        T, num_bins, quantize_bins, hist_precision, efb)  # (T, 3, F, B)
+                        T, num_bins, quantize_bins, hist_precision, efb,
+                        mesh)  # (T, 3, F, B)
     # per admission rank: the split leaf (the left child keeps its id), the
     # right child, and which one the pass histogrammed
     pos_r = torch.where(accept, acc_rank, -1)
@@ -429,16 +461,15 @@ def _round(st: FState, bins, inp: FInputs, nbpf, mbpf, cmask=None, contri=None, 
 
 
 def _f_finalize(st: FState, inp: FInputs, grad_true, hess_true, *,
-                params: SplitParams, quant_renew: bool, env: Envelope = Envelope()):
+                params: SplitParams, quant_renew: bool, env: Envelope = Envelope(),
+                shard=None):
     L = st.leaf_out.shape[0]
     if quant_renew and not env.intermediate:
         # leaf outputs from the TRUE gradients (reference: GBDT::Train ->
-        # RenewIntGradTreeOutput): per-leaf sums as a one-feature histogram
-        # (bin = leaf id), deterministic like every other kernel sum; not
-        # under intermediate bounds, which a renewed value could cross
-        leaf_hist = histogram_multi(
-            st.leaf_id.to(torch.int16)[:, None].contiguous(), grad_true,
-            hess_true, inp.row_mask, torch.zeros_like(st.leaf_id), 0, 1, L)
+        # RenewIntGradTreeOutput); not under intermediate bounds, which a
+        # renewed value could cross
+        leaf_hist = renew_leaf_hist(st.leaf_id, grad_true, hess_true, inp.row_mask,
+                                    L, shard)
         leaf_value = leaf_output(leaf_hist[0, 0, 0], leaf_hist[0, 1, 0], params)
         if env.monotone is not None:
             leaf_value = torch.clamp(leaf_value, st.leaf_lo, st.leaf_hi)
@@ -491,11 +522,13 @@ def grow_tree_fast(
     n_forced: int = 0,
     track_path: bool = False,
     monotone_method: str = "basic",  # basic | intermediate
+    axis_name=None,  # parallel/mesh.py::RowShard: this rank's rows
     **options,
 ):
     """Grow one tree in rounds; returns (tree, final leaf_id per row), and
     the updated (N, F) lazy CEGB charges third when ``cegb_lazy_penalty``
-    is given.
+    is given (serial runs only).  ``axis_name``: the rows are one rank's of
+    a data-parallel training (module docstring); rounds run eagerly.
 
     quantize_bins > 0 enables quantized training (reference:
     gradient_discretizer.cpp): gradients/hessians are discretized to int8
@@ -514,7 +547,13 @@ def grow_tree_fast(
     if hist_precision not in ("f32", "bf16"):
         raise ValueError(f"hist_precision must be f32 or bf16, got {hist_precision!r}")
     tile = max(1, min(leaf_tile, num_leaves))
-    use_lazy = cegb_lazy_penalty is not None and cegb_lazy_used is not None
+    shard = axis_name
+    if shard is not None and (graphs is not None or efb is not None):
+        raise ValueError("grow_tree_fast: sharded rounds run eagerly over the "
+                         "feature bins (no graphs, no EFB plan)")
+    mesh = None if shard is None else shard.mesh
+    use_lazy = (cegb_lazy_penalty is not None and cegb_lazy_used is not None
+                and shard is None)
     n_forced = min(n_forced, num_leaves - 1)
     env = Envelope(
         monotone=monotone_constraints,
@@ -536,7 +575,7 @@ def grow_tree_fast(
         def fn(st, inp: FInputs, _W):
             return _round(st, bins, inp, num_bins_per_feature,
                           missing_bin_per_feature, *tables, efb=efb, env=env,
-                          forced=forced, **static)
+                          forced=forced, mesh=mesh, **static)
         return fn
 
     with _san.DispatchCounter() as counter:
@@ -552,7 +591,7 @@ def grow_tree_fast(
                 hist_precision=hist_precision, categorical_mask=categorical_mask,
                 feature_contri=feature_contri, hist=hist, efb=efb, env=env,
                 rng=rng_key, cegb_pen=cegb_feature_penalty,
-                lazy_used=cegb_lazy_used if use_lazy else None)
+                lazy_used=cegb_lazy_used if use_lazy else None, shard=shard)
             if n_forced:
                 # the forced prefix (reference: ForceSplits): one single-split
                 # round per entry, whatever it admits; nothing is read back
@@ -569,7 +608,8 @@ def grow_tree_fast(
                 stats["windows"] = ["forced"] * n_forced + stats["windows"]
             tree, leaf_id = _f_finalize(
                 state, inputs, g_true, h_true, params=params,
-                quant_renew=bool(quant_renew and quantize_bins), env=env)
+                quant_renew=bool(quant_renew and quantize_bins), env=env,
+                shard=shard)
             lazy_used = state.lazy_used
             if graphs is not None:  # the next tree overwrites the buffers
                 tree = TreeArrays(*[None if a is None else a.clone() for a in tree])

@@ -77,6 +77,29 @@ histograms and ``windowed_round`` span, and each tree's
 All of it runs on the host loop around the launches (never inside a
 captured round, whose body a CUDA graph replays without the host) and
 reads only what the loop has read already.
+
+Data-parallel (``axis_name``: a parallel/mesh.py::RowShard; the JAX
+package's sharded fused round, parallel/data_parallel.py::
+grow_tree_windowed_data_parallel): each rank keeps its rows grouped by
+leaf and windows its own rows of each round's small children; which child
+is the window is chosen by the GLOBAL physical counts (one psum of the
+segments' left counts), so every rank windows the same child, as the
+serial round does.  The round runs B3 unfused (round_cuda.
+round_partition_window: partition and window pass, the sums left in fixed
+point) or the three-pass round, then merges the window sums exactly
+(ops/histogram.py::merge_carry, or the int8 histograms as integers) with
+``merge="psum"`` (every rank holds the (T, 3, F, B) block and searches
+every feature) or ``merge="scatter"`` (reduce_scatter over the features,
+F padded to a multiple of R: each rank keeps the histogram state of its
+feature block, searches it, and the best split is elected across ranks,
+ops/treegrow.py::elect_best), and then runs the sibling subtraction and
+the split search in torch that the fused tail would have run.  The
+window check (pmin of fits, pmax of the rows), the next-window bound (a
+rank's bound is its leaves' whole counts: a globally small child can
+hold all of one rank's rows of its parent; pmax) and the finite flag are
+merged, so every rank's host loop reads the same info vector and runs the
+same rounds.  Sharded rounds run eagerly (ROADMAP: NCCL collectives in the
+round graphs).
 """
 
 from __future__ import annotations
@@ -84,6 +107,7 @@ from __future__ import annotations
 import time
 from typing import NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..obs import metrics as _obs
@@ -92,16 +116,21 @@ from ..utils import sanitizer as _san
 from ..utils.guards import NonFiniteError
 from ..utils.log import log_warning
 from .graphs import RoundGraphs, copy_into
+from ..parallel import collectives as C
 from .hist_cuda import fixed_shift_pair, fixed_shift_tensor
-from .histogram import histogram_multi, histogram_multi_quantized, unbundle
+from .histogram import (global_shift, histogram_multi, histogram_multi_merged,
+                        histogram_multi_quantized,
+                        histogram_multi_quantized_merged, merge_carry,
+                        owned_features, unbundle)
 from .partition import segment_ids
 from .partition_cuda import partition_segments
-from .round_cuda import round_megakernel, split_window, window_histograms
+from .round_cuda import (round_megakernel, round_partition_window, split_window,
+                         window_histograms)
 from .split import (KMIN_SCORE, BestSplit, SplitParams, find_best_split,
                     leaf_output, select_from_feature_best)
 from .treegrow import (TreeArrays, _empty_best, _put, _set_best, admit,
-                       admits_next, book_tree, empty_tree, go_left_of,
-                       quantize_gradients)
+                       admits_next, book_tree, elect_best, empty_tree,
+                       go_left_of, quantize_gradients, serial_totals)
 
 
 class WState(NamedTuple):
@@ -138,6 +167,42 @@ class WInputs(NamedTuple):
 INFO = 6  # scalars in a round's info vector
 
 
+class Sharding(NamedTuple):
+    """A sharded windowed tree's collective context: the rank's RowShard,
+    the merge, and under ``merge="scatter"`` this rank's feature block
+    (first feature f0) with its split tables (num bins, missing bin,
+    feature mask, categorical mask, contri), padded features never
+    splittable."""
+    shard: object
+    merge: str = "psum"
+    f0: int = 0
+    tables: Optional[tuple] = None
+
+    @property
+    def mesh(self):
+        return self.shard.mesh
+
+
+def _own_tables(sh: "Sharding", nbpf, mbpf, fmask, cmask, contri):
+    """The split search's tables: every feature's (psum), or this rank's
+    block (scatter)."""
+    if sh is None or sh.tables is None:
+        return nbpf, mbpf, fmask, cmask, contri
+    return sh.tables
+
+
+def _root_best(hist0, g0, h0, c0, leaf_out0, nbpf, mbpf, fmask, cmask, contri,
+               params, rng, sh: Optional["Sharding"]):
+    nb, mb, fm, cm, fc = _own_tables(sh, nbpf, mbpf, fmask, cmask, contri)
+    best = find_best_split(
+        hist0[None], g0[None], h0[None], c0[None], nb, mb, params,
+        feature_mask=fm, parent_output=leaf_out0[None], categorical_mask=cm,
+        feature_contri=fc, rng_key=None if rng is None else rng[:1])
+    if sh is not None and sh.tables is not None:
+        best = elect_best(best, sh.mesh, sh.f0)
+    return best
+
+
 def _ladder(n: int, floor: int = 8192):
     """The W ladder for (n, floor): factor-4 steps to 128k, then factor-2,
     clamped to (and ending at) round_up(n, floor)."""
@@ -163,7 +228,8 @@ def _round_fused(state: WState, bins, grad, hess, gq, hq, quant_scale,
                  contri=None, *, num_leaves: int, num_bins: int, max_depth: int,
                  params: SplitParams, leaf_tile: int, W: int,
                  quantize_bins: int, megakernel: bool, shift: torch.Tensor,
-                 hist_precision: str = "f32", efb=None, rng=None):
+                 hist_precision: str = "f32", efb=None, rng=None,
+                 sharding: Optional[Sharding] = None):
     """One whole boosting round; returns (state', info) with info = [k_acc,
     window_total, fits_W, whint, finite, k_next] (i32, on the device).
     ``efb``: the EFB tables (three-pass rounds only): the window pass
@@ -171,11 +237,25 @@ def _round_fused(state: WState, bins, grad, hess, gq, hq, quant_scale,
     uniforms (three-pass rounds only).  The round is its stages in order
     (round_geometry, the partition, round_rows, the window pass,
     round_finish); ops/treegrow_fleet.py runs the same stages for each of
-    its lanes around one lane-mode launch of each kernel."""
+    its lanes around one lane-mode launch of each kernel.  ``sharding``:
+    the rows are one rank's (module docstring): B3 unfused or the
+    three-pass window pass, the exact merge, then the subtraction and the
+    torch split search."""
     T = leaf_tile
+    mesh = None if sharding is None else sharding.mesh
     g = round_geometry(state, bins, missing_bin_pf, cmask, num_leaves=num_leaves,
-                       leaf_tile=T, max_depth=max_depth, params=params, W=W)
+                       leaf_tile=T, max_depth=max_depth, params=params, W=W,
+                       mesh=mesh)
     i32 = torch.int32
+    if sharding is not None:
+        return _round_sharded(state, g, bins, grad, hess, gq, hq, quant_scale,
+                              row_mask, num_bins_pf, missing_bin_pf, feature_mask,
+                              cmask, contri, num_leaves=num_leaves,
+                              num_bins=num_bins, max_depth=max_depth, params=params,
+                              leaf_tile=T, W=W, quantize_bins=quantize_bins,
+                              megakernel=megakernel, shift=shift,
+                              hist_precision=hist_precision, rng=rng,
+                              sharding=sharding)
     if megakernel:
         cand_tab = torch.stack([g.leaf_sum_g[g.ci], g.leaf_sum_h[g.ci],
                                 g.leaf_count[g.ci], g.leaf_out[g.ci]]).contiguous()
@@ -212,6 +292,46 @@ def _round_fused(state: WState, bins, grad, hess, gq, hq, quant_scale,
                         missing_bin_pf, feature_mask, cmask, contri,
                         num_leaves=num_leaves, num_bins=num_bins,
                         max_depth=max_depth, params=params, leaf_tile=T, rng=rng)
+
+
+def _round_sharded(state: WState, g, bins, grad, hess, gq, hq, quant_scale,
+                   row_mask, num_bins_pf, missing_bin_pf, feature_mask, cmask,
+                   contri, *, num_leaves: int, num_bins: int, max_depth: int,
+                   params: SplitParams, leaf_tile: int, W: int, quantize_bins: int,
+                   megakernel: bool, shift, hist_precision: str, rng,
+                   sharding: Sharding):
+    """A sharded round after its geometry: this rank's window sums (B3
+    unfused, or the three-pass window pass), merged exactly, then the
+    subtraction and the split search that B3's fused tail would run."""
+    i32 = torch.int32
+    mesh, merge = sharding.mesh, sharding.merge
+    T = leaf_tile
+    if megakernel:
+        new_order, acc64, acc32 = round_partition_window(
+            bins, state.order, g.go_left, grad, hess, row_mask,
+            g.seg_start.to(i32), g.seg_len_eff.to(i32), g.n_left_seg.to(i32),
+            g.win_start.to(i32), g.win_cnt.to(i32), num_bins=num_bins, W=W,
+            shift=shift)
+        fresh_h = merge_carry(acc64, acc32, shift, mesh, merge)
+    else:
+        new_order, _ = partition_segments(state.order, g.seg_start.to(i32),
+                                          g.seg_len_eff.to(i32), g.go_left)
+        geo = (row_mask, g.win_start, g.win_cnt, W, T, num_bins)
+        if quantize_bins:
+            fresh_h = window_histograms(
+                histogram_multi_quantized_merged, new_order, bins, (gq, hq), *geo,
+                mesh=mesh, merge=merge).float() * quant_scale[:, None, None]
+        else:
+            fresh_h = window_histograms(
+                histogram_multi_merged, new_order, bins, (grad, hess), *geo,
+                shift=shift, mesh=mesh, merge=merge, precision=hist_precision)
+    rows = round_rows(state, g, new_order, cmask)
+    left_h, right_h = split_window(g.parent_hists, fresh_h, g.slot_small_left)
+    return round_finish(state, g, rows, left_h, right_h, num_bins_pf,
+                        missing_bin_pf, feature_mask, cmask, contri,
+                        num_leaves=num_leaves, num_bins=num_bins,
+                        max_depth=max_depth, params=params, leaf_tile=T, rng=rng,
+                        sharding=sharding)
 
 
 class RoundGeometry(NamedTuple):
@@ -255,9 +375,11 @@ class RoundGeometry(NamedTuple):
 
 def round_geometry(state: WState, bins, missing_bin_pf, cmask=None, *,
                    num_leaves: int, leaf_tile: int, max_depth: int,
-                   params: SplitParams, W: int) -> RoundGeometry:
+                   params: SplitParams, W: int, mesh=None) -> RoundGeometry:
     """Admission, split decisions, segment and window geometry, the window
-    check against W and the order-independent bookkeeping of a round."""
+    check against W and the order-independent bookkeeping of a round.
+    ``mesh``: the rows are one rank's; the window child is the globally
+    smaller one and the window check is merged (module docstring)."""
     L, T = num_leaves, leaf_tile
     n, f = bins.shape
     dev = bins.device
@@ -294,11 +416,20 @@ def round_geometry(state: WState, bins, missing_bin_pf, cmask=None, *,
     cl = torch.cumsum((go_left & (seg_id >= 0)).long(), 0)
     cl = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev), cl])
     left_counts = cl[seg_start + seg_len] - cl[seg_start]
-    left_small = 2 * left_counts <= seg_len
+    if mesh is None:
+        left_small = 2 * left_counts <= seg_len
+    else:  # every rank windows the same child: the globally smaller one
+        both = C.psum(torch.stack([left_counts, seg_len]), mesh)
+        left_small = 2 * both[0] <= both[1]
     win_cnt_rk = torch.where(live_rk, torch.where(left_small, left_counts,
                                                   seg_len - left_counts), 0)
     total = win_cnt_rk.sum()
     ok = total <= W
+    if mesh is not None:
+        # one rank's breach skips the round on every rank, and the host's
+        # corrected W must cover the worst rank
+        ok = C.pmin(ok, mesh)
+        total = C.pmax(total, mesh)
     accept = accept0 & ok
     live_rk = live_rk & ok
     k_acc = accept.sum()
@@ -398,10 +529,13 @@ def round_rows(state: WState, g: RoundGeometry, new_order, cmask=None):
 def round_finish(state: WState, g: RoundGeometry, rows, left_h, right_h,
                  num_bins_pf, missing_bin_pf, feature_mask, cmask=None,
                  contri=None, *, num_leaves: int, num_bins: int, max_depth: int,
-                 params: SplitParams, leaf_tile: int, fbests=None, rng=None):
+                 params: SplitParams, leaf_tile: int, fbests=None, rng=None,
+                 sharding: Optional[Sharding] = None):
     """The children's histograms into the state, their split search (from
     the megakernel's per-feature bests ``fbests``, or in torch), the
-    next-window bound and the info vector.  Returns (state', info)."""
+    next-window bound and the info vector.  Returns (state', info).
+    ``sharding``: a sharded round's search (this rank's feature block and
+    the election under the scatter merge) and merged bound and flag."""
     L, T = num_leaves, leaf_tile
     new_order, leaf_id, tree, best = rows
     dev = left_h.device
@@ -421,22 +555,29 @@ def round_finish(state: WState, g: RoundGeometry, rows, left_h, right_h,
             missing_bin_per_feature=missing_bin_pf, params=params)
     else:
         node_ids = g.leaf_parent.clamp_min(0) * 2 + g.leaf_side + 1
-        bb = find_best_split(torch.cat([left_h, right_h]), pg, ph, pc,
-                             num_bins_pf, missing_bin_pf, params,
-                             feature_mask=feature_mask,
-                             parent_output=g.leaf_out[ci], categorical_mask=cmask,
-                             feature_contri=contri,
+        nb, mb, fm, cm, fc = _own_tables(sharding, num_bins_pf, missing_bin_pf,
+                                         feature_mask, cmask, contri)
+        bb = find_best_split(torch.cat([left_h, right_h]), pg, ph, pc, nb, mb,
+                             params, feature_mask=fm, parent_output=g.leaf_out[ci],
+                             categorical_mask=cm, feature_contri=fc,
                              rng_key=None if rng is None else rng[node_ids[ci]])
+        if sharding is not None and sharding.tables is not None:
+            bb = elect_best(bb, sharding.mesh, sharding.f0)
     scatter_pos = torch.where(cand_ok, g.cand, drop)
     best = BestSplit(*[_put(o, scatter_pos, nw) for o, nw in zip(best, bb)])
 
     # ---- next-window bound for the host's ladder ----
     num_leaves_new = g.num_leaves_new
-    half_cnt = torch.where(idx < num_leaves_new, g.leaf_cnt // 2, 0)
+    # sharded: a rank's window can hold all its rows of a leaf (the small
+    # child is small globally), so its bound drops the halving
+    half_cnt = torch.where(idx < num_leaves_new,
+                           g.leaf_cnt // 2 if sharding is None else g.leaf_cnt, 0)
     k_top = min(T, L)
     top = torch.topk(half_cnt, k_top).values
     budget_next = (L - num_leaves_new).clamp_min(0).clamp_max(T)
     whint = torch.where(torch.arange(k_top, device=dev) < budget_next, top, 0).sum()
+    if sharding is not None:
+        whint = C.pmax(whint, sharding.mesh)
 
     state = WState(
         order=new_order, leaf_start=g.leaf_start, leaf_cnt=g.leaf_cnt,
@@ -447,6 +588,8 @@ def round_finish(state: WState, g: RoundGeometry, rows, left_h, right_h,
     # ---- non-finite guard, in the same info vector ----
     finite = (torch.isfinite(g.leaf_sum_g).all() & torch.isfinite(g.leaf_sum_h).all()
               & torch.isfinite(g.leaf_out).all() & ~torch.isnan(best.gain).any())
+    if sharding is not None:
+        finite = C.pmin(finite, sharding.mesh)
     k_next = admits_next(best.gain, g.leaf_depth, num_leaves_new, num_leaves=L,
                          leaf_tile=T, max_depth=max_depth)
     info = torch.stack([g.k_acc, g.total, g.ok.long(), whint, finite.long(),
@@ -459,13 +602,18 @@ def _w_init(bins, grad, hess, row_mask, sample_weight, num_bins_pf,
             params: SplitParams, quantize_bins: int, stochastic_rounding: bool,
             generator: Optional[torch.Generator], hist_precision: str = "f32",
             categorical_mask=None, feature_contri=None, hist=None, efb=None,
-            rng=None, check_finite: bool = True):
+            rng=None, check_finite: bool = True,
+            sharding: Optional[Sharding] = None):
     """Root state: quantize gradients, the one full-N pass, seed best.
     ``hist``: the (L + 1, 3, F, B) buffer to hold the histogram state (the
     static one of a graph cache), else a new one; ``efb``: the EFB tables
     (the pass reads the bundled matrix).  ``check_finite``: make the
     tree's blocking read of the gradients' maxima here (a fleet makes one
-    for all its lanes).  Returns (state, WInputs, grad_true, hess_true)."""
+    for all its lanes).  ``sharding``: the rows are one rank's; the
+    exponents, scales and the finite check are global and the root
+    histogram merged (under the scatter merge: this rank's feature block
+    of it, the state's histograms too).  Returns (state, WInputs,
+    grad_true, hess_true)."""
     n, f = bins.shape
     L = num_leaves
     dev = bins.device
@@ -475,34 +623,57 @@ def _w_init(bins, grad, hess, row_mask, sample_weight, num_bins_pf,
     gq = hq = quant_scale = None
     if quantize_bins:
         gq, hq, grad, hess, quant_scale = quantize_gradients(
-            grad, hess, row_mask, quantize_bins, stochastic_rounding, generator)
-    if check_finite:
-        fixed_shift_pair(grad, hess)  # the tree's one blocking host read: finite?
-    shift = fixed_shift_tensor(grad, hess)
+            grad, hess, row_mask, quantize_bins, stochastic_rounding, generator,
+            None if sharding is None else sharding.shard)
     slot0 = torch.zeros(n, dtype=torch.int32, device=dev)
-    src = bins if efb is None else efb[0]
-    if quantize_bins:
-        hist0 = unbundle(histogram_multi_quantized(src, gq, hq, row_mask, slot0, 0, 1,
-                                                    num_bins), efb, num_bins
-                          )[0].float() * quant_scale[:, None, None]
+    if sharding is not None:
+        mesh, merge = sharding.mesh, sharding.merge
+        shift = global_shift(grad, hess, sharding.shard)
+        if check_finite:  # the tree's one blocking read: all ranks' maxima
+            am = C.pmax(torch.stack([grad.float().abs().amax(),
+                                     hess.float().abs().amax()])
+                        if n else torch.zeros(2, device=dev), mesh)
+            if not np.isfinite(_san.sync_pull(am)).all():
+                raise NonFiniteError("non-finite gradients or hessians on some rank")
+        if quantize_bins:
+            hist0 = histogram_multi_quantized_merged(
+                bins, gq, hq, row_mask, slot0, 0, 1, num_bins, mesh, merge
+            )[0].float() * quant_scale[:, None, None]
+        else:
+            hist0 = histogram_multi_merged(bins, grad, hess, row_mask, slot0, 0, 1,
+                                           num_bins, shift, mesh, merge,
+                                           precision=hist_precision)[0]
+        tot0 = torch.sum(hist0[:, 0, :], dim=1)  # totals from feature 0
+        if merge == "scatter":  # global feature 0 is rank 0's
+            tot0 = C.broadcast_from(serial_totals(hist0[:, 0, :], num_bins_pf.shape[0]),
+                                    torch.zeros((), device=dev), mesh)
+        g0, h0, c0 = tot0
     else:
-        hist0 = unbundle(histogram_multi(src, grad, hess, row_mask, slot0, 0, 1,
-                                          num_bins, shift=shift,
-                                          precision=hist_precision), efb, num_bins)[0]
-    g0, h0, c0 = torch.sum(hist0[:, 0, :], dim=1)  # totals from feature 0
+        if check_finite:
+            fixed_shift_pair(grad, hess)  # the tree's one blocking host read: finite?
+        shift = fixed_shift_tensor(grad, hess)
+        src = bins if efb is None else efb[0]
+        if quantize_bins:
+            hist0 = unbundle(histogram_multi_quantized(src, gq, hq, row_mask, slot0, 0,
+                                                        1, num_bins), efb, num_bins
+                              )[0].float() * quant_scale[:, None, None]
+        else:
+            hist0 = unbundle(histogram_multi(src, grad, hess, row_mask, slot0, 0, 1,
+                                              num_bins, shift=shift,
+                                              precision=hist_precision), efb,
+                             num_bins)[0]
+        g0, h0, c0 = torch.sum(hist0[:, 0, :], dim=1)  # totals from feature 0
     leaf_out0 = leaf_output(g0, h0, params)
     best = _empty_best(L, num_bins, dev)
-    _set_best(best, torch.zeros(1, dtype=torch.int64, device=dev), find_best_split(
-        hist0[None], g0[None], h0[None], c0[None], num_bins_pf, missing_bin_pf,
-        params, feature_mask=feature_mask, parent_output=leaf_out0[None],
-        categorical_mask=categorical_mask, feature_contri=feature_contri,
-        rng_key=None if rng is None else rng[:1]))
+    _set_best(best, torch.zeros(1, dtype=torch.int64, device=dev), _root_best(
+        hist0, g0, h0, c0, leaf_out0, num_bins_pf, missing_bin_pf, feature_mask,
+        categorical_mask, feature_contri, params, rng, sharding))
 
     def zeros(shape, dtype=torch.float32):
         return torch.zeros(shape, dtype=dtype, device=dev)
 
     if hist is None:
-        hist = zeros((L + 1, 3, f, num_bins))
+        hist = zeros((L + 1, 3, hist0.shape[1], num_bins))
     else:
         hist.zero_()
     hist[0] = hist0
@@ -527,15 +698,27 @@ def _w_init(bins, grad, hess, row_mask, sample_weight, num_bins_pf,
     return state, inputs, grad_true, hess_true
 
 
+def renew_leaf_hist(leaf_id, grad_true, hess_true, row_mask, L: int, shard=None):
+    """Per-leaf sums of the true gradients as a one-feature histogram (bin
+    = leaf id), deterministic like every other kernel sum: (1, 3, 1, L).
+    ``shard``: over every rank's rows, with the global exponents, merged
+    exactly."""
+    cols = leaf_id.to(torch.int16)[:, None].contiguous()
+    slot = torch.zeros_like(leaf_id)
+    if shard is None:
+        return histogram_multi(cols, grad_true, hess_true, row_mask, slot, 0, 1, L)
+    return histogram_multi_merged(cols, grad_true, hess_true, row_mask, slot, 0, 1,
+                                  L, global_shift(grad_true, hess_true, shard),
+                                  shard.mesh)
+
+
 def _w_finalize(state: WState, grad_true, hess_true, row_mask, *,
-                params: SplitParams, quant_renew: bool):
+                params: SplitParams, quant_renew: bool, shard=None):
     L = state.leaf_out.shape[0]
     if quant_renew:
-        # leaf outputs from the TRUE gradients: per-leaf sums as a
-        # one-feature histogram (bin = leaf id), as the rounds grower does
-        leaf_hist = histogram_multi(
-            state.leaf_id.to(torch.int16)[:, None].contiguous(), grad_true,
-            hess_true, row_mask, torch.zeros_like(state.leaf_id), 0, 1, L)
+        # leaf outputs from the TRUE gradients, as the rounds grower does
+        leaf_hist = renew_leaf_hist(state.leaf_id, grad_true, hess_true, row_mask,
+                                    L, shard)
         leaf_value = leaf_output(leaf_hist[0, 0, 0], leaf_hist[0, 1, 0], params)
     else:
         leaf_value = leaf_output(state.leaf_sum_g, state.leaf_sum_h, params)
@@ -713,6 +896,38 @@ def megakernel_mode(on_card: bool, *, quantize_bins: int = 0, efb: bool = False,
     return True, None
 
 
+def _sharding(shard, merge: str, rng_key, graphs, efb, nbpf, mbpf, fmask, cmask,
+              contri) -> Sharding:
+    """A sharded windowed tree's Sharding, with the scatter merge's feature
+    block tables (pads: one bin, no missing bin, masked, contri 1)."""
+    if merge not in ("psum", "scatter"):
+        raise ValueError(f"merge must be 'psum' or 'scatter', got {merge!r}")
+    if graphs is not None or efb is not None:
+        raise ValueError("the sharded windowed round runs eagerly over the "
+                         "feature bins (no graphs, no EFB plan)")
+    if merge == "psum":
+        return Sharding(shard, merge)
+    if rng_key is not None:
+        raise ValueError(
+            "merge='scatter' (owned-feature split search) is incompatible with "
+            "per-node feature sampling (feature_fraction_bynode/extra_trees): "
+            "each rank would sample only its owned block; use merge='psum'")
+    f = nbpf.shape[0]
+    f0, k, fp = owned_features(f, shard.mesh)
+
+    def block(v, fill):
+        if v is None:
+            return None
+        if fp > f:
+            v = torch.cat([v, torch.full((fp - f,), fill, dtype=v.dtype,
+                                         device=v.device)])
+        return v[f0:f0 + k].contiguous()
+
+    return Sharding(shard, merge, f0, (block(nbpf, 1), block(mbpf, -1),
+                                       block(fmask, False), block(cmask, False),
+                                       block(contri, 1.0)))
+
+
 def grow_tree_windowed(
     bins: torch.Tensor,  # (N, F) int16, row-major
     grad: torch.Tensor,
@@ -741,6 +956,8 @@ def grow_tree_windowed(
     feature_contri: Optional[torch.Tensor] = None,  # (F,) f32
     efb: Optional[tuple] = None,  # Dataset.efb_device_tables()
     rng_key: Optional[torch.Tensor] = None,  # (2L-1, 2, F) node uniforms
+    axis_name=None,  # parallel/mesh.py::RowShard: this rank's rows
+    merge: str = "psum",  # sharded: psum | scatter
     **options,
 ) -> tuple[TreeArrays, torch.Tensor]:
     """Grow one tree with windowed rounds; returns (tree, leaf_id per row).
@@ -753,12 +970,20 @@ def grow_tree_windowed(
     gather, default), which the root and window passes read (the
     three-pass round: the megakernel excludes it).  ``rng_key``: the
     tree's node uniforms for extra_trees and feature_fraction_bynode (the
-    three-pass round too)."""
+    three-pass round too).  ``axis_name``: the rows are one rank's of a
+    data-parallel training, merged by ``merge`` (module docstring; eager
+    rounds, no EFB plan; the scatter merge refuses per-node sampling, whose
+    draw must span every feature on every rank)."""
     if options:
         raise TypeError(f"unexpected options: {sorted(options)}")
     if feature_mask is None:
         feature_mask = torch.ones(bins.shape[1], dtype=torch.bool,
                                   device=bins.device)
+    sharding = None
+    if axis_name is not None:
+        sharding = _sharding(axis_name, merge, rng_key, graphs, efb,
+                             num_bins_per_feature, missing_bin_per_feature,
+                             feature_mask, categorical_mask, feature_contri)
     with _san.DispatchCounter() as counter:  # the gate's fallback count too
         mk, excluded = megakernel_mode(bins.is_cuda, quantize_bins=quantize_bins,
                                        efb=efb is not None,
@@ -779,7 +1004,7 @@ def grow_tree_windowed(
                 st, bins, inp.grad, inp.hess, inp.gq, inp.hq, inp.quant_scale,
                 inp.row_mask, num_bins_per_feature, missing_bin_per_feature,
                 inp.feature_mask, *tables, W=W, shift=inp.shift, efb=efb,
-                rng=inp.rng, **static)
+                rng=inp.rng, sharding=sharding, **static)
 
         try:
             hist = None if graphs is None or graphs.buffers is None else (
@@ -790,18 +1015,22 @@ def grow_tree_windowed(
                 num_bins=num_bins, params=params, quantize_bins=quantize_bins,
                 stochastic_rounding=stochastic_rounding, generator=generator,
                 hist_precision=hist_precision, categorical_mask=categorical_mask,
-                feature_contri=feature_contri, hist=hist, efb=efb, rng=rng_key)
+                feature_contri=feature_contri, hist=hist, efb=efb, rng=rng_key,
+                sharding=sharding)
             n = bins.shape[0]
             # round 1 needs no feedback: a round's window (the small
-            # children) can never exceed floor(N/2) rows, whatever it admits
+            # children) can never exceed floor(N/2) rows, whatever it admits;
+            # a rank's can hold all its rows (the child is small globally)
+            w_first = _window_size(max(n // 2 if sharding is None else n, 1), n)
             state = _run_fused_rounds(
                 round_runner(round_fn, state, inputs, fixed,
                              ("windowed",) + tuple(static.items()), graphs),
-                state, n_ladder=n, w_first=_window_size(max(n // 2, 1), n),
+                state, n_ladder=n, w_first=w_first,
                 num_leaves=num_leaves, stats=stats, guard_label=guard_label)
             tree, leaf_id = _w_finalize(
                 state, g_true, h_true, inputs.row_mask, params=params,
-                quant_renew=bool(quant_renew and quantize_bins))
+                quant_renew=bool(quant_renew and quantize_bins),
+                shard=None if sharding is None else sharding.shard)
             if graphs is not None:  # the next tree overwrites the buffers
                 tree = TreeArrays(*[None if a is None else a.clone() for a in tree])
                 leaf_id = leaf_id.clone()

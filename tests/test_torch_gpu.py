@@ -1677,3 +1677,162 @@ def test_fleet_lanes_equal_solo_runs_on_card_graph_and_eager(quant):
                              lgt.Dataset(X, label=labels[l]), 3)
             assert fb.booster(l).model_to_string() == solo.model_to_string()
             assert torch.equal(fb._score[l], solo._gbdt._score)
+
+
+# ---------------------------------------------------------------------------
+# distributed training: B3 unfused, the exact merge over NCCL, card binning
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("n,f,b,T", [(60_000, 40, 255, 10), (100_003, 257, 63, 6)])
+def test_unfused_round_matches_plain(n, f, b, T):
+    """B3 without its tail (round_cuda.round_partition_window): the new
+    order and the fixed-point window sums bitwise its plain version's, and
+    their conversion (the carried kernel's finalize) too."""
+    from lightgbm_tpu_torch.ops import hist_cuda as hc
+    from lightgbm_tpu_torch.ops import round_cuda as rc
+    from lightgbm_tpu_torch.ops.treegrow_windowed import _window_size
+
+    dev = _card()
+    x = _inputs(dev, n, f, b, T, seed=n)
+    sp = chip_smoke.split_case(x["bins"], b, T, seed=f, ragged=(f % 2 == 1))
+    W = _window_size(int(sp["win_cnt"].sum()), n)
+    shift = hc.fixed_shift_tensor(x["grad"], x["hess"])
+    args = (x["bins"], sp["order"], sp["go"], x["grad"], x["hess"], x["mask"],
+            sp["seg_start"], sp["seg_len"], sp["n_left"], sp["win_start"], sp["win_cnt"])
+    rc.reset_counts()
+    got = rc.round_partition_window(*args, num_bins=b, W=W, shift=shift)
+    want = rc.round_partition_window_plain(*args, num_bins=b, W=W, shift=shift)
+    torch.cuda.synchronize()
+    assert rc.launches["round_megakernel_unfused"] == 1
+    for name, a, w in zip(("order", "acc64", "acc32"), got, want):
+        assert torch.equal(a, w), name
+    assert torch.equal(hc.carry_convert(got[1], got[2], shift),
+                       hc.carry_convert_plain(want[1].cpu(), want[2].cpu(), shift.cpu()).to(dev))
+
+
+def test_nccl_world_one_windowed_tree_is_serial(tmp_path):
+    """grow_tree_windowed_data_parallel over a one-rank NCCL group, psum and
+    scatter merges, megakernel on: B3 unfused every round, and the tree and
+    leaf ids of the serial windowed tree (fused megakernel) bit for bit."""
+    import torch.distributed as dist
+
+    from lightgbm_tpu_torch.ops import round_cuda as rc
+    from lightgbm_tpu_torch.ops.split import SplitParams
+    from lightgbm_tpu_torch.ops.treegrow_windowed import grow_tree_windowed
+    from lightgbm_tpu_torch.parallel import data_parallel as dpar
+    from lightgbm_tpu_torch.parallel.mesh import make_mesh
+
+    dev = _card()
+    n, f, b = 120_000, 600, 63
+    x = _inputs(dev, n, f, b, 1, seed=3)
+    g = x["grad"] + (x["bins"][:, 0] > 30).float() * 2 - (x["bins"][:, 9] < 10).float()
+    nbpf = torch.full((f,), b, dtype=torch.int32, device=dev)
+    mbpf = torch.full((f,), -1, dtype=torch.int32, device=dev)
+    mbpf[4] = b - 1
+    ones = (torch.ones(n, dtype=torch.bool, device=dev), torch.ones(n, device=dev),
+            torch.ones(f, dtype=torch.bool, device=dev))
+    hess = x["hess"] + 0.1
+    common = dict(num_leaves=127, num_bins=b, params=SplitParams(min_data_in_leaf=20),
+                  leaf_tile=10)
+    st = {}
+    want, want_leaf = grow_tree_windowed(x["bins"], g, hess, *ones, nbpf, mbpf, stats=st,
+                                         **common)
+    assert st["megakernel"]
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store", rank=0,
+                            world_size=1)
+    try:
+        sd = dpar.ShardedData(make_mesh(), x["bins"], nbpf, mbpf)
+        for merge in ("psum", "scatter"):
+            rc.reset_counts()
+            sst = {}
+            got, leaf = dpar.grow_tree_windowed_data_parallel(sd, g, hess, *ones,
+                                                              merge=merge, stats=sst,
+                                                              **common)
+            torch.cuda.synchronize()
+            assert rc.launches["round_megakernel_unfused"] == sst["rounds"] > 5
+            assert rc.launches["round_megakernel"] == 0
+            for name, a, w in zip(got._fields, got, want):
+                if a is not None:
+                    assert torch.equal(a, w), (merge, name)
+            assert torch.equal(leaf, want_leaf)
+    finally:
+        dist.destroy_process_group()
+
+
+def test_card_binning_matches_numpy():
+    """DatasetBinner.transform on the card (torch.searchsorted over the
+    float64 bounds) bitwise its numpy path: NaN, zeros as missing, a
+    categorical column, float32 and float64 input."""
+    from lightgbm_tpu_torch.binning import DatasetBinner
+
+    dev = _card()
+    rng = np.random.RandomState(0)
+    X = rng.randn(50_000, 30).astype(np.float32)
+    X[rng.rand(50_000, 30) < 0.03] = np.nan
+    X[:, 4] = np.where(rng.rand(50_000) < 0.4, 0.0, X[:, 4])
+    X[:, 6] = rng.randint(0, 9, 50_000)
+    X[0, 7], X[1, 7] = np.inf, -np.inf
+    for kw in ({}, {"zero_as_missing": True}, {"use_missing": False}):
+        binner = DatasetBinner.fit(X, max_bin=255, categorical_features=[6], **kw)
+        want = binner.transform(X)
+        assert np.array_equal(binner.transform(X, device=dev), want), kw
+        assert np.array_equal(binner.transform(X.astype(np.float64), device=dev), want), kw
+
+
+_TWO_RANKS = r"""
+import os, numpy as np, torch
+from lightgbm_tpu_torch.parallel import data_parallel as DP, feature_parallel as FP
+from lightgbm_tpu_torch.parallel.mesh import make_mesh
+from lightgbm_tpu_torch.ops.split import SplitParams
+from lightgbm_tpu_torch.ops.treegrow import grow_tree
+from lightgbm_tpu_torch.ops.treegrow_windowed import grow_tree_windowed
+dev = torch.device("cuda", 0)
+d = np.load(os.path.join(WORKDIR, "in.npz"))
+bins, g, h = (torch.as_tensor(d[k], device=dev) for k in ("bins", "g", "h"))
+n, f = bins.shape
+per = -(-n // WORLD)
+lo, hi = RANK * per, min(n, (RANK + 1) * per)
+nbpf = torch.full((f,), 63, dtype=torch.int32, device=dev)
+mbpf = torch.full((f,), -1, dtype=torch.int32, device=dev)
+def ones(m):
+    return (torch.ones(m, dtype=torch.bool, device=dev), torch.ones(m, device=dev),
+            torch.ones(f, dtype=torch.bool, device=dev))
+mesh = make_mesh()
+sp = SplitParams(min_data_in_leaf=20)
+common = dict(num_leaves=63, num_bins=63, params=sp, leaf_tile=10)
+want = grow_tree_windowed(bins, g, h, *ones(n), nbpf, mbpf, **common)[0]
+sd = DP.ShardedData(mesh, bins[lo:hi], nbpf, mbpf)
+ok = {}
+for merge in ("psum", "scatter"):
+    got = DP.grow_tree_windowed_data_parallel(sd, g[lo:hi], h[lo:hi], *ones(hi - lo),
+                                              merge=merge, **common)[0]
+    ok[merge] = all(torch.equal(a, b) for a, b in zip(got, want) if a is not None)
+strict = grow_tree(bins, g, h, *ones(n), nbpf, mbpf, num_leaves=31, num_bins=63,
+                   params=sp)[0]
+fsd = FP.FeatureShardedData(mesh, bins, nbpf, mbpf)
+got = FP.grow_tree_feature_parallel(fsd, g, h, *ones(n), num_leaves=31, num_bins=63,
+                                    params=sp)[0]
+ok["feature"] = all(torch.equal(a, b) for a, b in zip(got, strict) if a is not None)
+with open(os.path.join(WORKDIR, f"ok{RANK}.txt"), "w") as fh:
+    fh.write(repr(ok))
+"""
+
+
+def test_two_gloo_ranks_on_the_card_grow_the_serial_trees(tmp_path):
+    """Two ranks on the one card (gloo over CUDA tensors): the windowed
+    round with psum and scatter merges and the feature-parallel strict
+    grower give the serial trees bit for bit.  On the card a reduction's
+    order follows its input's layout, so the rank holding feature 0 of a
+    feature block sums the root totals at the serial width
+    (ops/treegrow.py::serial_totals)."""
+    from lightgbm_tpu_torch.parallel.launcher import run_spmd
+
+    _card()
+    rng = np.random.RandomState(0)
+    n, f = 200_000, 300
+    bins = rng.randint(0, 63, (n, f)).astype(np.int16)
+    g = (rng.randn(n) + 2 * (bins[:, 0] > 30) - (bins[:, 9] < 10)).astype(np.float32)
+    np.savez(tmp_path / "in.npz", bins=bins, g=g, h=(rng.rand(n) + 0.1).astype(np.float32))
+    run_spmd(_TWO_RANKS, 2, str(tmp_path), timeout_s=240, cuda=True)
+    for r in range(2):
+        ok = eval((tmp_path / f"ok{r}.txt").read_text())
+        assert ok == {"psum": True, "scatter": True, "feature": True}, (r, ok)

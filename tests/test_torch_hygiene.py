@@ -41,15 +41,20 @@ def test_sources_reference_no_jax():
 
 
 def test_runtime_subpackages_import_no_jax():
-    """obs/, serve/ and the runtime utilities (copies of the JAX package's
-    stdlib modules, and the torch rewrites beside them) import neither JAX
-    nor the JAX package, and the source scan above reads every file of
-    theirs."""
+    """obs/, serve/, parallel/ and the runtime utilities (copies of the JAX
+    package's stdlib modules, and the torch rewrites beside them) import
+    neither JAX nor the JAX package, and the source scan above reads every
+    file of theirs."""
     mods = ["lightgbm_tpu_torch.obs", "lightgbm_tpu_torch.obs.__main__",
             "lightgbm_tpu_torch.serve", "lightgbm_tpu_torch.serve.fleet",
             "lightgbm_tpu_torch.serve.runtime", "lightgbm_tpu_torch.utils.checkpoint",
             "lightgbm_tpu_torch.utils.faults", "lightgbm_tpu_torch.utils.locktrace",
-            "lightgbm_tpu_torch.utils.profiling"]
+            "lightgbm_tpu_torch.utils.profiling", "lightgbm_tpu_torch.parallel.mesh",
+            "lightgbm_tpu_torch.parallel.collectives",
+            "lightgbm_tpu_torch.parallel.distributed",
+            "lightgbm_tpu_torch.parallel.data_parallel",
+            "lightgbm_tpu_torch.parallel.feature_parallel",
+            "lightgbm_tpu_torch.parallel.launcher"]
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
@@ -60,9 +65,10 @@ def test_runtime_subpackages_import_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
     scanned = {p.relative_to(PORT).parts[0] for p in PORT.rglob("*.py")}
-    assert {"obs", "serve", "utils"} <= scanned
+    assert {"obs", "serve", "utils", "parallel"} <= scanned
     assert len(list((PORT / "obs").glob("*.py"))) == 5
     assert len(list((PORT / "serve").glob("*.py"))) == 3
+    assert len(list((PORT / "parallel").glob("*.py"))) == 7
 
 
 def _small():

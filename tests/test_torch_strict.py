@@ -218,17 +218,34 @@ def test_strict_envelope_still_raises(extra, match, monkeypatch):
 @pytest.mark.parametrize("option", ["monotone_constraints", "interaction_sets",
                                     "forced_leaf", "axis_name"])
 def test_grow_tree_rejects_unported_options(option):
-    """axis_name (the distributed learners, ROADMAP A13) still raises; the
-    others, once refused, now grow the JAX strict grower's tree (the name is
-    kept)."""
+    """Options once refused now grow the JAX strict grower's tree (the name
+    is kept); axis_name (the distributed learners, ROADMAP A13) grows, on a
+    gloo group of one rank, the serial tree bit for bit."""
     if option == "axis_name":
-        n, f = 50, 3
-        args = (torch.zeros((n, f), dtype=torch.int16), torch.zeros(n), torch.ones(n),
+        import tempfile
+
+        import torch.distributed as dist
+
+        from lightgbm_tpu_torch.parallel.mesh import RowShard, make_mesh
+
+        rng = np.random.RandomState(3)
+        n, f = 400, 3
+        args = (torch.as_tensor(rng.randint(0, 4, (n, f)), dtype=torch.int16),
+                torch.as_tensor(rng.randn(n), dtype=torch.float32), torch.ones(n),
                 torch.ones(n, dtype=torch.bool), torch.ones(n), None,
                 torch.full((f,), 4, dtype=torch.int32),
                 torch.full((f,), -1, dtype=torch.int32))
-        with pytest.raises(ValueError, match=option):
-            tgrow(*args, num_leaves=4, num_bins=4, **{option: "x"})
+        with tempfile.TemporaryDirectory() as tmp:
+            dist.init_process_group("gloo", init_method=f"file://{tmp}/store",
+                                    rank=0, world_size=1)
+            try:
+                got = tgrow(*args, num_leaves=4, num_bins=4,
+                            axis_name=RowShard(make_mesh(), 0, n))[0]
+            finally:
+                dist.destroy_process_group()
+        want = tgrow(*args, num_leaves=4, num_bins=4)[0]
+        assert int(want.num_leaves) == 4
+        assert all(torch.equal(a, b) for a, b in zip(got, want) if a is not None)
         return
     rng = np.random.RandomState(21)
     n, f, b = 2000, 5, 32

@@ -145,16 +145,19 @@ def test_quantized_training_runs_the_int8_path():
     ({"linear_tree": True}, "linear_tree"),
 ])
 def test_unported_configurations_raise(params, match, monkeypatch):
-    """The distributed tree learners (ROADMAP A13) still raise; the other
-    cases, once refused, now train as the JAX package does (the name is
-    kept): the same trees on the default (CPU: strict) grower, extra_trees
-    with the JAX package's per-node draws injected, linear trees with leaf
-    models within 1e-4 relative (their f32 solves)."""
+    """The cases once refused now train as the JAX package does (the name
+    is kept): the distributed tree learners on one rank train serially (the
+    serial model's trees bit for bit; ROADMAP A13), the others the same
+    trees on the default (CPU: strict) grower, extra_trees with the JAX
+    package's per-node draws injected, linear trees with leaf models within
+    1e-4 relative (their f32 solves)."""
     X, y = _data("binary", n=600 if match == "tree_learner" else 3000)
     p = {"device_type": "cpu", "verbosity": -1, "objective": "binary", **params}
     if match == "tree_learner":
-        with pytest.raises((ValueError, NotImplementedError), match=match):
-            tlgb.train(p, tlgb.Dataset(X, label=y, params=p), 1)
+        def trees(q):
+            t = tlgb.train(q, tlgb.Dataset(X, label=y, params=q), 3).model_to_string()
+            return t[t.index("Tree=0"):t.index("end of trees")]
+        assert trees(p) == trees({**p, "tree_learner": "serial"})
         return
     from test_torch_constraints import assert_same_models, jax_node_uniforms, train_pair
 
