@@ -203,12 +203,31 @@ Imports no JAX.  Phases, one line each; any failure exits non-zero:
               over gloo (NCCL refuses two ranks on one GPU):
               train_distributed on the Higgs cell split in two, tree_learner
               =data on the rounds grower (20 float rounds, 5 int8 rounds:
-              the serial pins), feature on the strict grower (5 rounds:
-              phase 10's pin) and voting (5 rounds: held-out AUC over its
-              floor); merges a tree, bytes a merge and the wall time of each.
+              the serial pins; the float launch is 24b's recovery run),
+              feature on the strict grower (5 rounds: phase 10's pin) and
+              voting (5 rounds: held-out AUC over its floor), three
+              launches at a time; merges a tree, bytes a merge and the wall
+              time of each.
               A distributed model's text differs from the serial one in its
               parameter record [tree_learner: ...] alone; its sha256 is
               taken with that line read as serial (``serial_sha``).
+ 24. meshes   (at most 45 s: its set-up at phase 7 and its wall after 23c,
+              reported after 23): (a) one run_spmd launch of 4 gloo ranks
+              on cuda:0 fed by a bin cache in save_binary's format of
+              phase 5's first 100,000 rows through bin_cache_shard (F
+              2,000, 255 bins), one tree each: the 2 x 2 (data, feature)
+              mesh float and int8 at 255 leaves, bitwise the serial
+              windowed trees (three-pass) the main process grows; the 2 x 2
+              (dcn, ici) mesh at 63 leaves with top_k_features 2,000 and
+              the all_reduce in slices (bitwise the serial tree too) and
+              with top-k 32 and the reduce_scatter, each node's split, leaf
+              counts and values bitwise a plain PV-Tree replay
+              (pv_tree_replay); bytes a tree by axis beside a flat
+              all_reduce's; (b) 23c's data float launch: fleet snapshots
+              every 5 rounds, rank 1 killed at iteration 12, max_restarts
+              1: relaunched from round 10, the serial pin; (c)
+              predict(mesh=) over two entries of cuda:0 at 100,000 Higgs
+              rows, bitwise predict, both latencies.
 
 Then a JSON line with every kernel's numbers (launches on the main path,
 graph mode; whether it runs inside a graph and its launches a replay; B1
@@ -4174,38 +4193,48 @@ def distributed_phase(lgt, base, higgs):
     parallel/launcher.py::train_distributed on the Higgs cell split in two:
     tree_learner=data on the rounds grower (20 float rounds, 5 int8: the
     serial pins), feature on the strict grower (5 rounds: phase 10's pin),
-    voting (5 rounds: held-out AUC over its floor).  The four launches run
-    two at a time (a launch is mostly its workers' start-up).  Each run:
+    voting (5 rounds: held-out AUC over its floor).  The data float launch
+    is phase 24b's recovery run: fleet snapshots every RESUME_FREQ rounds,
+    rank 1 killed at the start of iteration RESUME_DEATH, max_restarts 1
+    (the uninterrupted run and the resumed one end on the same pin, so one
+    launch holds both).  The four launches run three at a time, the
+    longest first (a launch is mostly its workers' start-up).  Each run:
     its sha256 read as serial, both ranks' texts equal, merges a tree,
-    bytes a merge, wall time."""
+    bytes a merge, wall time.  Returns the recovery run's (wall s, model
+    texts, fleet events)."""
     from concurrent.futures import ThreadPoolExecutor
 
     from lightgbm_tpu_torch.parallel.launcher import train_distributed
 
     _, Xtr, ytr, Xte, yte = higgs
     gloo = {**base, "dist_backend": "gloo"}
-    cases = (("data float", {**gloo, "tree_learner": "data"}, ROUNDS_FLOAT,
-              MODEL_SHA["higgs_float"]),
+    recovery = dict(max_restarts=1, restart_backoff_s=0.5,
+                    env_extra={"LGBMTPU_FAULT": f"worker_death:1:{RESUME_DEATH}"})
+    cases = (("data float", {**gloo, "tree_learner": "data", "snapshot_freq": RESUME_FREQ},
+              ROUNDS_FLOAT, MODEL_SHA["higgs_float"], recovery),
              ("data int8", {**gloo, "tree_learner": "data", "use_quantized_grad": True},
-              ROUNDS_INT8, MODEL_SHA["higgs_int8"]),
+              ROUNDS_INT8, MODEL_SHA["higgs_int8"], {}),
              ("feature strict", {**gloo, "tree_learner": "feature",
                                  "tree_growth_mode": "strict"}, ROUNDS_STRICT,
-              MODEL_SHA["higgs_strict"]),
+              MODEL_SHA["higgs_strict"], {}),
              # top_k 5: 10 of the 28 features elected a leaf (the default 20
              # would elect all 28, and voting would be data-parallel)
              ("voting", {**gloo, "tree_learner": "voting", "top_k": DIST_TOP_K},
-              DIST_ROUNDS_VOTING, None))
+              DIST_ROUNDS_VOTING, None, {}))
 
     def launch(case):
-        what, params, rounds, pin = case
+        what, params, rounds, pin, kw = case
         t0 = time.perf_counter()
         bst, paths = train_distributed(params, Xtr, ytr, rounds, num_machines=DIST_RANKS,
-                                       timeout_s=300)
+                                       timeout_s=300, **kw)
         return bst, [Path(p).read_text() for p in paths], time.perf_counter() - t0
 
-    with ThreadPoolExecutor(max_workers=2) as pool:
+    with ThreadPoolExecutor(max_workers=3) as pool:
         results = list(pool.map(launch, cases))
-    for (what, params, rounds, pin), (bst, texts, wall) in zip(cases, results):
+    bst, texts, wall = results[0]
+    with open(bst._fleet_events, encoding="utf-8") as fh:
+        resumed = (wall, texts, [json.loads(line) for line in fh if line.strip()])
+    for (what, params, rounds, pin, kw), (bst, texts, wall) in zip(cases, results):
         if len(set(texts)) != 1:
             raise AssertionError(f"phase 23c {what}: the ranks' models differ")
         sha = serial_sha(texts[0])
@@ -4223,12 +4252,444 @@ def distributed_phase(lgt, base, higgs):
                 raise AssertionError(f"phase 23c voting: AUC {a:.5f} < floor {AUC_FLOOR_VOTING}")
             extra = f" auc={a:.5f} (floor {AUC_FLOOR_VOTING})"
         log(f"phase 23c {what}: ok {DIST_RANKS} ranks on cuda:0 (gloo), {rounds} rounds "
-            f"in {wall:.2f} s (worker start-up included, two launches at a time) sha256 "
+            f"in {wall:.2f} s (worker start-up included, three launches at a time"
+            + (", rank 1 killed and the fleet relaunched: phase 24b" if kw else "")
+            + ") sha256 "
             f"{sha[:8]}" + (f" == serial pin {pin}" if pin else "")
             + f"; ranks' texts equal; merges/tree={ms.get('merges', 0) / trees:.2f} "
             f"bytes/merge={ms.get('merge_bytes', 0) / max(ms.get('merges', 0), 1):.0f} "
             f"other collectives/tree={ms.get('collectives', 0) / trees:.1f} "
             f"grower rounds/tree={rounds_run / trees:.2f}{extra}")
+    return resumed
+
+
+# phase 24: the 2-D and hierarchical meshes at Epsilon width (a 100,000-row
+# slice of phase 5's set through a save_binary cache), the fleet's recovery
+# on the Higgs cell, and prediction over a device mesh
+# Depth cuts, so that phase 24's own time (its set-up and its launch after
+# 23c, alone) fits its 45 s on a slow host: one tree a configuration, and
+# the hierarchical trees at 63 leaves.  A round's merge moves every
+# window's F x B cells, so a tree's gloo bytes follow its splits: at 255
+# leaves the hierarchical trees moved 5.9 and 3.1 GB a rank (ici and dcn)
+# in 14.4 and 8.4 s beside the 2-D trees' 6.8 and 4.4 s, and the phase took
+# 60.08 s; at 127 leaves 4.5 and 3.7 s on a faster host, the phase 32.24 s
+# (H100 80GB HBM3, 700 W).  The launch's ~13 s of rank start-up is fixed.
+MESH_ROWS, MESH_TREES, MESH_TOP_K, MESH_HIER_LEAVES = 100_000, 1, 32, 63
+RESUME_FREQ, RESUME_DEATH = 5, 12
+PHASE23_LIMIT_S, PHASE24_LIMIT_S = 60.0, 45.0
+# name, mesh, int8, merge inside the mesh, top_k_features, leaves
+MESH_CONFIGS = (("2d_float", "2d", 0, "psum", 0, EPS_LEAVES),
+                ("2d_int8", "2d", 1, "psum", 0, EPS_LEAVES),
+                ("hier_full_psum", "hier", 0, "psum", EPS_FEAT, MESH_HIER_LEAVES),
+                ("hier_k32_scatter", "hier", 0, "scatter", MESH_TOP_K, MESH_HIER_LEAVES))
+# the ranks of the phase 24a launch (4 gloo ranks on cuda:0): the 2 x 2
+# (data, feature) mesh holds row blocks of 50,000 rows, the 2 x 2 (dcn,
+# ici) mesh row blocks of 25,000, each inside its rank's 2-D block
+MESH_SCRIPT = r'''
+import json, os, time
+import numpy as np, torch
+import lightgbm_tpu_torch as lgb
+from lightgbm_tpu_torch.ops import hist_cuda, partition_cuda, round_cuda
+from lightgbm_tpu_torch.ops.split import SplitParams
+from lightgbm_tpu_torch.parallel.feature2d import Sharded2DData, grow_tree_windowed_feature2d
+from lightgbm_tpu_torch.parallel.hierarchy import SlicedData, grow_tree_windowed_hierarchical
+from lightgbm_tpu_torch.parallel.mesh import make_mesh_2d, make_mesh_hierarchical
+
+t_start = time.perf_counter()
+torch.set_num_threads(max(1, (os.cpu_count() or 1) // WORLD))  # the ranks share the host
+cfg = json.load(open(os.path.join(WORKDIR, "mesh.json")))
+dev = torch.device(cfg["device"])
+grads = np.load(os.path.join(WORKDIR, "grads.npz"))
+n = cfg["rows"]
+m2, mh = make_mesh_2d(2, 2), make_mesh_hierarchical(2)
+lo, hi = m2.coords[0] * n // 2, (m2.coords[0] + 1) * n // 2
+ds = lgb.Dataset(os.path.join(WORKDIR, "eps.bin"),
+                 params={"device_type": dev.type, "verbosity": -1,
+                         "bin_cache_shard": (lo, hi)}).construct()
+bins, nbpf, mbpf = ds.bins_device, ds.num_bins_pf_device, ds.missing_bin_pf_device
+sd = Sharded2DData(m2, bins, nbpf, mbpf)
+h_lo = RANK * n // 4
+sl = SlicedData(mh, bins[h_lo - lo:h_lo - lo + n // 4], nbpf, mbpf)
+params = SplitParams(**cfg["split"])
+t_setup = time.perf_counter() - t_start
+out = {"setup_s": t_setup}
+for name, kind, quant, merge, k, leaves in cfg["configs"]:
+    mesh = m2 if kind == "2d" else mh
+    a, b = (lo, hi) if kind == "2d" else (h_lo, h_lo + n // 4)
+    rows = b - a
+    ones = (torch.ones(rows, dtype=torch.bool, device=dev), torch.ones(rows, device=dev),
+            torch.ones(nbpf.shape[0], dtype=torch.bool, device=dev))
+    for t in range(cfg["trees"]):
+        g = torch.as_tensor(grads[f"g{t}"][a:b], device=dev)
+        h = torch.as_tensor(grads[f"h{t}"][a:b], device=dev)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(cfg["seed"] + t)
+        for m in (hist_cuda, partition_cuda, round_cuda):
+            m.reset_counts()
+        mesh.reset_stats()
+        st = {}
+        common = dict(generator=gen, num_leaves=leaves, num_bins=cfg["bins"],
+                      params=params, leaf_tile=cfg["tile_q" if quant else "tile"],
+                      quantize_bins=cfg["quant_bins"] if quant else 0,
+                      quant_renew=False, stats=st)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if kind == "2d":
+            tree, leaf = grow_tree_windowed_feature2d(sd, g, h, *ones, **common)
+        else:
+            tree, leaf = grow_tree_windowed_hierarchical(sl, g, h, *ones, merge=merge,
+                                                         top_k_features=k, **common)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        np.savez(os.path.join(WORKDIR, f"{name}_{t}_r{RANK}.npz"), leaf=leaf.cpu().numpy(),
+                 **{kk: v.cpu().numpy() for kk, v in tree._asdict().items() if v is not None})
+        out[f"{name}_{t}"] = dict(
+            wall_s=wall, rounds=st["rounds"], megakernel=bool(st["megakernel"]),
+            tile=common["leaf_tile"], bins=cfg["bins"], features=int(nbpf.shape[0]),
+            stats=json.loads(json.dumps(mesh.stats)),
+            b1=sum(hist_cuda.launches.values()), b2=sum(partition_cuda.launches.values()),
+            b3=sum(round_cuda.launches.values()),
+            plain=sum(sum(m.plain_calls.values())
+                      for m in (hist_cuda, partition_cuda, round_cuda)))
+json.dump(out, open(os.path.join(WORKDIR, f"mesh_r{RANK}.json"), "w"))
+'''
+
+
+def _serial_key(quant: int, leaves: int, t: int) -> str:
+    return f"{'int8' if quant else 'float'}_{leaves}_{t}"
+
+
+def mesh_prep(lgt, eps, eps_set, Xtr, ytr, gb, g_eps, h_eps, tiles, tmp):
+    """Phase 24a's set-up, while the Epsilon set is on the card: a bin
+    cache in save_binary's format of its first MESH_ROWS rows (binned with
+    phase 5's boundaries), stored uncompressed (io/stream.py::
+    create_bin_cache; zlib took 6.91 s of 8.44 on the card), each tree's
+    gradients (phase 7's, and those after the first serial float tree) and
+    the serial windowed trees of the same rows at each configuration's
+    leaves, float and int8, three-pass (the megakernel stays off on the
+    meshes, as in the JAX package).  Returns (workdir, serial trees by name, the plain
+    replay's inputs (bins, gradients and tables on the card), seconds a
+    part)."""
+    from lightgbm_tpu_torch.io.stream import create_bin_cache
+    from lightgbm_tpu_torch.ops.treegrow_windowed import grow_tree_windowed
+
+    t0 = time.perf_counter()
+    parts = {}
+    wd = os.path.join(tmp, "mesh")
+    os.makedirs(wd, exist_ok=True)
+    sub = lgt.Dataset(Xtr[:MESH_ROWS], label=ytr[:MESH_ROWS], params=dict(eps),
+                      reference=eps_set)
+    sub.construct()
+    parts["bin"] = time.perf_counter() - t0
+    create_bin_cache(os.path.join(wd, "eps.bin"), sub._host_bins("save_binary"),
+                     sub.binner.mappers, label=sub.label, compress=False)
+    parts["save"] = time.perf_counter() - t0 - parts["bin"]
+    bins, nbpf, mbpf = sub.bins_device, sub.num_bins_pf_device, sub.missing_bin_pf_device
+    dev = bins.device
+    n, f = bins.shape
+    ones = (torch.ones(n, dtype=torch.bool, device=dev), torch.ones(n, device=dev),
+            torch.ones(f, dtype=torch.bool, device=dev))
+    grads = {"g0": g_eps[:MESH_ROWS].contiguous(), "h0": h_eps[:MESH_ROWS].contiguous()}
+    cfg = dict(rows=MESH_ROWS, trees=MESH_TREES, device=str(dev),
+               bins=sub.max_num_bins, tile=tiles[0], tile_q=tiles[1],
+               quant_bins=int(gb.cfg.num_grad_quant_bins), seed=SEED + 24,
+               split=gb._split_params._asdict(),
+               configs=[list(c) for c in MESH_CONFIGS])
+    serial = {}
+    wanted = sorted({(q, lv) for _n, kind, q, _m, k, lv in MESH_CONFIGS
+                     if kind == "2d" or k >= EPS_FEAT})
+    for t in range(MESH_TREES):
+        for quant, leaves in wanted:
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(cfg["seed"] + t)
+            tree, leaf = grow_tree_windowed(
+                bins, grads[f"g{t}"], grads[f"h{t}"], *ones, nbpf, mbpf,
+                num_leaves=leaves, num_bins=cfg["bins"], params=gb._split_params,
+                leaf_tile=tiles[quant], quantize_bins=cfg["quant_bins"] if quant else 0,
+                quant_renew=False, generator=gen, megakernel_opt="0")
+            serial[_serial_key(quant, leaves, t)] = (
+                {k: v.cpu().numpy() for k, v in tree._asdict().items() if v is not None},
+                leaf.cpu().numpy())
+            if quant == 0 and leaves == EPS_LEAVES and t + 1 < MESH_TREES:
+                # the next tree's gradients
+                score = gb._score[:MESH_ROWS] + 0.1 * tree.leaf_value[leaf.long()]
+                g, h = gb.objective.get_gradients(score, gb._label[:MESH_ROWS], None)
+                grads[f"g{t + 1}"], grads[f"h{t + 1}"] = g.contiguous(), h.contiguous()
+    np.savez(os.path.join(wd, "grads.npz"), **{k: v.cpu().numpy() for k, v in grads.items()})
+    with open(os.path.join(wd, "mesh.json"), "w") as fh:
+        json.dump(cfg, fh)
+    ref = dict(bins=bins, grads=grads, nbpf=nbpf, mbpf=mbpf, params=gb._split_params,
+               num_bins=cfg["bins"])
+    del sub
+    torch.cuda.synchronize()
+    parts["total"] = time.perf_counter() - t0
+    parts["trees"] = parts["total"] - parts["bin"] - parts["save"]
+    return wd, serial, ref, parts
+
+
+def mesh_launch(wd):
+    """Phase 24a's one launch: 4 gloo ranks on cuda:0 (parallel/launcher.py::
+    run_spmd) growing MESH_CONFIGS' trees.  Returns (wall s, its end on
+    time.perf_counter(), the ranks' records)."""
+    from lightgbm_tpu_torch.parallel.launcher import run_spmd
+
+    on_card = json.loads(Path(wd, "mesh.json").read_text())["device"].startswith("cuda")
+    t0 = time.perf_counter()
+    run_spmd(MESH_SCRIPT, 4, wd, timeout_s=300, cuda=on_card)
+    end = time.perf_counter()
+    return end - t0, end, [json.loads(Path(wd, f"mesh_r{r}.json").read_text())
+                           for r in range(4)]
+
+
+def pv_tree_replay(bins, grad, hess, tree, leaf, nbpf, mbpf, params, *, slices: int,
+                   blocks: int, top_k: int, num_bins: int) -> dict:
+    """A plain reference of the hierarchical (PV-Tree) split search, held
+    to a grown tree node by node.  Each internal node's rows (the rows of
+    the leaves under it) are histogrammed from scratch in B1's fixed point
+    (each gradient rounded to a multiple of 2^-s, int64 sums, one
+    conversion), per slice (``slices`` consecutive row blocks) and per
+    feature block (``blocks`` owners inside a slice, the reduce_scatter's).
+    Each slice votes its ``top_k`` features by slice-local gain; the votes
+    are summed, ties go to the lower id and the elected ids are sorted; the
+    elected features' global histograms are searched with the node's
+    global sums, and the blocks' winners are elected by gain (ties to the
+    lower block).  Returns the nodes replayed, those whose feature,
+    threshold or direction differ (and the first), the leaves whose count
+    differs and the largest leaf-value gap."""
+    from lightgbm_tpu_torch.ops.hist_cuda import fixed_shift_tensor
+    from lightgbm_tpu_torch.ops.split import (KMIN_SCORE, find_best_split, gain_plane,
+                                              leaf_output, reduce_plane_per_feature)
+    from lightgbm_tpu_torch.ops.treegrow import serial_totals
+
+    dev = bins.device
+    n, f = bins.shape
+    nb_ = int(num_bins)
+    sh = [int(v) for v in fixed_shift_tensor(grad, hess).cpu()]
+    fixed = [torch.round(v.float().double() * 2.0 ** s).long() for v, s in zip((grad, hess), sh)]
+    slice_of = torch.arange(n, device=dev) * slices // n
+    kb = -(-f // blocks)
+    pad = kb * blocks - f
+
+    def padded(v, fill):
+        return torch.cat([v, torch.full((pad,), fill, dtype=v.dtype, device=dev)])
+
+    tabs = (padded(nbpf.to(dev), 1), padded(mbpf.to(dev), -1),
+            padded(torch.ones(f, dtype=torch.bool, device=dev), False))
+
+    def conv(acc):  # (..., 3, k, B) int64 -> f32, as B1 converts
+        return torch.stack([(acc[..., 0, :, :].double() * 2.0 ** -sh[0]).float(),
+                            (acc[..., 1, :, :].double() * 2.0 ** -sh[1]).float(),
+                            acc[..., 2, :, :].float()], dim=-3)
+
+    def hists(rows, f0):  # (slices, 3, kb, B) int64 sums of features [f0, f0 + kb)
+        k = min(kb, f - f0)
+        b = bins[rows, f0:f0 + k].long()
+        idx = ((slice_of[rows][:, None] * kb + torch.arange(k, device=dev)) * nb_
+               + b).reshape(-1)
+        out = torch.zeros((3, slices * kb * nb_), dtype=torch.int64, device=dev)
+        for c, v in enumerate((fixed[0][rows], fixed[1][rows], torch.ones_like(rows))):
+            out[c].index_add_(0, idx, v[:, None].expand(-1, k).reshape(-1))
+        return out.view(3, slices, kb, nb_).transpose(0, 1)
+
+    m = int(tree["num_leaves"]) - 1
+    lc, rc = np.asarray(tree["left_child"]), np.asarray(tree["right_child"])
+    under = {}
+
+    def leaves(c):
+        if c < 0:
+            return [~c]
+        if c not in under:
+            under[c] = leaves(int(lc[c])) + leaves(int(rc[c]))
+        return under[c]
+
+    leaf_t = torch.as_tensor(np.asarray(leaf), device=dev).long()
+    col = hists(torch.arange(n, device=dev), 0).sum(0)[:, 0, :]  # global feature 0
+    tot = serial_totals(conv(col[:, None, :])[:, 0, :], f)
+    pend = {0: (tot[0], tot[1], tot[2])}
+    bad, first, count_bad, gap = 0, None, 0, 0.0
+    for s in range(m):
+        rows = torch.nonzero(torch.isin(leaf_t, torch.as_tensor(
+            leaves(s), device=dev)))[:, 0]
+        pg, ph, pc = pend[s]
+        po = leaf_output(pg, ph, params)
+        best = None
+        for blk in range(blocks):
+            f0 = blk * kb
+            nbb, mbb, fmb = (t[f0:f0 + kb] for t in tabs)
+            h = hists(rows, f0)
+            loc = conv(h)
+            k = max(1, min(int(top_k), kb))
+            score = torch.zeros(kb, dtype=torch.float32, device=dev)
+            for sl in range(slices):
+                lh = loc[sl][None]
+                lt = lh[:, :, 0, :].sum(dim=2)
+                gain, ctx = gain_plane(lh, lt[:, 0], lt[:, 1], lt[:, 2], nbb, mbb, params,
+                                       feature_mask=fmb, parent_output=po[None])
+                pf = reduce_plane_per_feature(gain, ctx).gain[0]
+                v, i = torch.sort(pf, descending=True, stable=True)
+                score.scatter_add_(0, i[:k], torch.where(v[:k] > KMIN_SCORE / 2, v[:k], 0.0))
+            el = torch.sort(torch.sort(score, descending=True, stable=True)[1][:k]).values
+            bb = find_best_split(conv(h.sum(0)[None])[:, :, el, :], pg[None], ph[None],
+                                 pc[None], nbb[el], mbb[el], params,
+                                 feature_mask=fmb[el], parent_output=po[None])
+            feat = f0 + int(el[int(bb.feature[0])])
+            if best is None or float(bb.gain[0]) > float(best[0].gain[0]):
+                best = (bb, feat)
+        bb, feat = best
+        if (feat != int(tree["split_feature"][s])
+                or int(bb.threshold_bin[0]) != int(tree["threshold_bin"][s])
+                or bool(bb.default_left[0]) != bool(tree["default_left"][s])):
+            bad += 1
+            first = s if first is None else first
+        for child, sums in ((int(lc[s]), (bb.left_sum_g[0], bb.left_sum_h[0],
+                                          bb.left_count[0])),
+                            (int(rc[s]), (bb.right_sum_g[0], bb.right_sum_h[0],
+                                          bb.right_count[0]))):
+            if child >= 0:
+                pend[child] = sums
+                continue
+            want = float(leaf_output(sums[0], sums[1], params))
+            gap = max(gap, abs(want - float(tree["leaf_value"][~child])))
+            count_bad += int(float(sums[2]) != float(tree["leaf_count"][~child]))
+    return {"nodes": m, "split_mismatch": bad, "first": first, "count_mismatch": count_bad,
+            "leaf_gap": gap}
+
+
+def mesh_check(wd, serial, recs, ref):
+    """Phase 24a's trees against the serial ones: the 2-D trees (float and
+    int8) and the hierarchical tree at top-k = F bitwise, the rows' leaf
+    ids too; the top-k 32 tree against the plain PV-Tree replay
+    (pv_tree_replay) at every node: the same features, thresholds,
+    directions and leaf counts, leaf values bitwise.  Returns the phase
+    line's numbers."""
+    res = {}
+    on_card = json.loads(Path(wd, "mesh.json").read_text())["device"].startswith("cuda")
+    for name, kind, quant, merge, k, leaves in MESH_CONFIGS:
+        for t in range(MESH_TREES):
+            ranks = [dict(np.load(os.path.join(wd, f"{name}_{t}_r{r}.npz")))
+                     for r in range(4)]
+            for r in ranks[1:]:
+                for key, v in ranks[0].items():
+                    if key != "leaf" and not np.array_equal(r[key], v):
+                        raise AssertionError(f"phase 24a {name} tree {t}: ranks differ "
+                                             f"in {key}")
+            tree = ranks[0]
+            leaf = (np.concatenate([ranks[0]["leaf"], ranks[2]["leaf"]]) if kind == "2d"
+                    else np.concatenate([r["leaf"] for r in ranks]))
+            rec = recs[0][f"{name}_{t}"]
+            if rec["megakernel"] or (on_card and (rec["plain"] or not rec["b1"]
+                                                  or not rec["b2"])):
+                raise AssertionError(f"phase 24a {name}: megakernel {rec['megakernel']} "
+                                     f"plain calls {rec['plain']}")
+            if kind == "2d" or k >= EPS_FEAT:
+                want, want_leaf = serial[_serial_key(quant, leaves, t)]
+                for key in want:
+                    if not np.array_equal(tree[key], want[key]):
+                        raise AssertionError(f"phase 24a {name} tree {t}: {key} differs "
+                                             "from the serial windowed tree")
+                if not np.array_equal(leaf, want_leaf):
+                    raise AssertionError(f"phase 24a {name} tree {t}: leaf ids differ")
+                res[f"{name}_bitwise"] = True
+            else:
+                if not (int(tree["num_leaves"]) > 1 and leaf.min() >= 0
+                        and leaf.max() < int(tree["num_leaves"])):
+                    raise AssertionError(f"phase 24a {name} tree {t}: not a valid tree")
+                t0 = time.perf_counter()
+                rp = pv_tree_replay(ref["bins"], ref["grads"][f"g{t}"],
+                                    ref["grads"][f"h{t}"], tree, leaf, ref["nbpf"],
+                                    ref["mbpf"], ref["params"], slices=2,
+                                    blocks=2 if merge == "scatter" else 1, top_k=k,
+                                    num_bins=ref["num_bins"])
+                rp["s"] = time.perf_counter() - t0
+                if (rp["split_mismatch"], rp["count_mismatch"], rp["leaf_gap"]) != (0, 0, 0.0):
+                    raise AssertionError(f"phase 24a {name} tree {t}: the plain PV-Tree "
+                                         f"replay differs: {rp}")
+                res[f"{name}_replay_{t}"] = rp
+            res[f"{name}_leaves_{t}"] = int(tree["num_leaves"])
+    return res
+
+
+def mesh_line(recs, res, wall, setup_s):
+    """The phase 24a lines: per configuration its wall a tree (rank 0),
+    rounds, launches and bytes a tree by axis, beside what a flat merge
+    (every rank's full-F histograms over one all_reduce) would move."""
+    lines = []
+    for name, kind, quant, merge, k, _leaves in MESH_CONFIGS:
+        rs = [recs[0][f"{name}_{t}"] for t in range(MESH_TREES)]
+        walls = "/".join(f"{r['wall_s']:.3f}" for r in rs)
+        rounds = sum(r["rounds"] for r in rs)
+        axes = {}
+        for r in rs:
+            for ax, s in r["stats"].items():
+                a = axes.setdefault(ax, [0, 0])
+                a[0] += s["merge_bytes"]
+                a[1] += s["bytes"]
+        cell = 12 if quant else 20  # int32 (g, h, count) or int64 g, h + int32 count
+        flat = sum((1 + r["rounds"] * r["tile"]) * r["features"] * r["bins"] * cell
+                   for r in rs)
+        by_axis = " ".join(f"{ax} {m / MESH_TREES / 1e6:.2f}/{b / MESH_TREES / 1e6:.2f}"
+                           for ax, (m, b) in sorted(axes.items()))
+        leaves = "/".join(str(res[f"{name}_leaves_{t}"]) for t in range(MESH_TREES))
+        replays = [res[f"{name}_replay_{t}"] for t in range(MESH_TREES)
+                   if f"{name}_replay_{t}" in res]
+        extra = (f" leaves {leaves}"
+                 + (" bitwise the serial trees and leaf ids" if f"{name}_bitwise" in res
+                    else f" each node's split, leaf counts and values bitwise the plain "
+                    f"PV-Tree replay ({sum(r['nodes'] for r in replays)} nodes, "
+                    f"{sum(r['s'] for r in replays):.2f} s)"))
+        lines.append(
+            f"phase 24a {name}: ok {MESH_TREES} tree(s){extra}, s a tree {walls}, tree-rounds "
+            f"{rounds}, launches a tree B1 {sum(r['b1'] for r in rs) / MESH_TREES:.1f} "
+            f"B2 {sum(r['b2'] for r in rs) / MESH_TREES:.1f} B3 "
+            f"{sum(r['b3'] for r in rs)}; MB a tree merged/moved by axis {by_axis}; "
+            f"a flat all_reduce of the same rounds {flat / MESH_TREES / 1e6:.2f} MB")
+    lines.append(f"phase 24a launch: 4 gloo ranks on cuda:0 in {wall:.2f} s (rank set-up "
+                 f"{max(r['setup_s'] for r in recs):.2f} s: the cache shard read and the "
+                 f"meshes; main-process set-up {setup_s['total']:.2f} s at phase 7: "
+                 f"binning {setup_s['bin']:.2f} s, the uncompressed cache {setup_s['save']:.2f} s, "
+                 f"gradients and serial trees {setup_s['trees']:.2f} s)")
+    return lines
+
+
+def resume_check(texts, events) -> dict:
+    if len(set(texts)) != 1:
+        raise AssertionError("phase 24b: the ranks' models differ")
+    sha = serial_sha(texts[0])
+    if not sha.startswith(MODEL_SHA["higgs_float"]):
+        raise AssertionError(f"phase 24b: sha256 {sha[:8]} is not the serial pin "
+                             f"{MODEL_SHA['higgs_float']}")
+    kinds = [e["kind"] for e in events]
+    resumes = sorted({e.get("round") for e in events if e["kind"] == "fleet_resume"})
+    want = RESUME_DEATH - 1 - (RESUME_DEATH - 1) % RESUME_FREQ
+    if kinds.count("worker_death") != 1 or kinds.count("fleet_relaunch") != 1 \
+            or resumes != [want]:
+        raise AssertionError(f"phase 24b: deaths {kinds.count('worker_death')} "
+                             f"relaunches {kinds.count('fleet_relaunch')} resume rounds "
+                             f"{resumes} (want [{want}])")
+    return {"sha": sha[:8], "round": want}
+
+
+def mesh_predict(lgt, text, X, calls=5):
+    """Phase 24c: predict(mesh=make_device_mesh([cuda:0, cuda:0])) of the
+    Higgs float model at X's rows, bitwise predict; warm latency of each
+    (ms, host clock around the call, which ends in its read)."""
+    from lightgbm_tpu_torch.parallel.mesh import make_device_mesh
+
+    bst = lgt.Booster(model_str=text)
+    mesh = make_device_mesh([torch.device("cuda", 0)] * 2)
+    want, got = bst.predict(X), bst.predict(X, mesh=mesh)
+    if not np.array_equal(want, got):
+        raise AssertionError("phase 24c: predict(mesh=) differs from predict")
+    lat = {}
+    for name, kw in (("single", {}), ("mesh", {"mesh": mesh}), ("single", {}),
+                     ("mesh", {"mesh": mesh})):
+        for _ in range(calls):
+            t0 = time.perf_counter()
+            bst.predict(X, **kw)
+            lat.setdefault(name, []).append((time.perf_counter() - t0) * 1e3)
+    return {k: float(np.median(v)) for k, v in lat.items()}
 
 
 def main() -> int:
@@ -4490,6 +4951,12 @@ def main() -> int:
         f"serial {d23['serial_s_0']:.3f}/{d23['serial_s_1']:.3f} psum "
         f"{d23['psum_s_0']:.3f}/{d23['psum_s_1']:.3f} scatter {d23['scatter_s_0']:.3f}/"
         f"{d23['scatter_s_1']:.3f} (eager) in {t_23b:.2f} s")
+    # ---- 24a set-up: the mesh cells' cache, gradients and serial trees ----
+    import tempfile
+
+    tmp24 = tempfile.mkdtemp(prefix="lgbt_phase24_")
+    mesh_wd, mesh_serial, mesh_ref, t_24prep = mesh_prep(
+        lgt, eps, eps_set, Xtr, ytr, gb, g_eps, h_eps, (tile_w, tile_wq), tmp24)
     del gb, g_eps, h_eps, bst_w
     torch.cuda.empty_cache()
 
@@ -4605,8 +5072,6 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 19-21. the booster fleet, out of core, continual training ----
-    import tempfile
-
     higgs = (h_set, h_Xtr, h_ytr, h_Xte, h_yte)
     new_kernels += fleet_phase(lgt, base, higgs)
     torch.cuda.empty_cache()
@@ -4617,12 +5082,48 @@ def main() -> int:
         continual_phase(lgt, base, higgs, text, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    # ---- 23c. two ranks on the one card ----
+    # ---- 23c. two ranks on the one card (its data float launch: 24b) ----
     t0 = time.perf_counter()
-    distributed_phase(lgt, base, higgs)
+    res_wall, res_texts, res_events = distributed_phase(lgt, base, higgs)
     t_23c = time.perf_counter() - t0
     log(f"phase 23 distributed: ok in {t_23b + t_23c:.2f} s (23b {t_23b:.2f} s, "
-        f"23c {t_23c:.2f} s; limit 60)")
+        f"23c {t_23c:.2f} s with phase 24b's recovery run; limit {PHASE23_LIMIT_S:.0f})")
+    if t_23b + t_23c > PHASE23_LIMIT_S:
+        raise AssertionError(f"phase 23 took {t_23b + t_23c:.2f} s, over its "
+                             f"{PHASE23_LIMIT_S:.0f} s limit")
+    # ---- 24. the 2-D and hierarchical meshes, recovery, sharded predict ----
+    # after 23c, alone: what the phase adds to the script is its set-up at
+    # phase 7 and its own wall here (24b's run is 23c's data float launch)
+    t0 = time.perf_counter()
+    try:
+        mesh_wall, _, mesh_recs = mesh_launch(mesh_wd)
+        mesh_res = mesh_check(mesh_wd, mesh_serial, mesh_recs, mesh_ref)
+        for line in mesh_line(mesh_recs, mesh_res, mesh_wall, t_24prep):
+            log(line)
+    finally:
+        shutil.rmtree(tmp24, ignore_errors=True)
+    del mesh_ref
+    rr = resume_check(res_texts, res_events)
+    log(f"phase 24b resume: ok {DIST_RANKS} ranks on cuda:0 (gloo), {ROUNDS_FLOAT} float "
+        f"rounds, fleet snapshots every {RESUME_FREQ}, rank 1 killed at iteration "
+        f"{RESUME_DEATH}: relaunched from fleet-valid round {rr['round']}, "
+        f"sha256 {rr['sha']} == serial pin "
+        f"{MODEL_SHA['higgs_float']}, ranks' texts equal, in {res_wall:.2f} s (with "
+        f"the relaunch and its back-off; phase 23c's data float launch)")
+    t1 = time.perf_counter()
+    lat = mesh_predict(lgt, text, h_Xte)
+    t_24c = time.perf_counter() - t1
+    log(f"phase 24c predict(mesh=2 x cuda:0): ok {len(h_Xte)} rows bitwise predict; "
+        f"warm ms (median of 10) predict {lat['single']:.3f} mesh {lat['mesh']:.3f} in "
+        f"{t_24c:.2f} s")
+    t_run = time.perf_counter() - t0
+    t_24 = t_24prep["total"] + t_run
+    log(f"phase 24 meshes: ok in {t_24:.2f} s (limit {PHASE24_LIMIT_S:.0f}: set-up "
+        f"{t_24prep['total']:.2f} s at phase 7 + {t_run:.2f} s after 23c: 24a "
+        f"{mesh_wall:.2f} s and its checks, 24c {t_24c:.2f} s)")
+    if t_24 > PHASE24_LIMIT_S:
+        raise AssertionError(f"phase 24 took {t_24:.2f} s, over its "
+                             f"{PHASE24_LIMIT_S:.0f} s limit")
     del h_set, higgs
     torch.cuda.empty_cache()
 

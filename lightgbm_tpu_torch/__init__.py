@@ -3,7 +3,8 @@
 Trains and predicts single-device serial GBDTs (every objective and
 metric of the JAX package, multiclass and ranking included; GBDT, GOSS,
 DART and random forests) with the strict, round-batched or windowed grower,
-through train, cv, Booster and the scikit-learn estimators; prediction
+through train, cv, Booster, the scikit-learn estimators and the command
+line (python -m lightgbm_tpu_torch); prediction
 gives margins, leaf ids, SHAP contributions and early-stopped margins
 from an ensemble cached on the device.  train() writes snapshots and
 resumes from them; serve() runs the coalescing serving runtime (or a
@@ -11,8 +12,12 @@ fleet of replicas); obs/ holds the metrics, traces and the /metrics
 endpoint.  train_fleet trains B boosters over one Dataset as one batch of
 lanes (models/fleet.py), out_of_core Datasets stream their bins in chunks
 (the spill grower, ops/treegrow_ooc.py, when they exceed
-max_rows_in_hbm), and continual_train keeps a served model learning
-(continual/).
+max_rows_in_hbm), continual_train keeps a served model learning
+(continual/), parallel/ trains over the ranks of a torch.distributed
+world (data, voting, feature, 2-D and hierarchical; the launcher with its
+recovery, and the Dask-style estimators of dask.py over it), and
+plotting.py draws importances, metrics and trees (matplotlib and graphviz
+imported at call time).
 The histogram, partition and round kernels are CUDA written for Hopper
 (csrc/).  Entry points run on the CUDA card unless the parameters say
 device_type='cpu'.  The JAX package (lightgbm_tpu) is the reference; this
@@ -64,3 +69,11 @@ __all__ = [
 from .sklearn import LGBMClassifier, LGBMModel, LGBMRanker, LGBMRegressor  # noqa: E402
 
 __all__ += ["LGBMModel", "LGBMClassifier", "LGBMRegressor", "LGBMRanker"]
+
+from .dask import DaskLGBMClassifier, DaskLGBMRanker, DaskLGBMRegressor  # noqa: E402
+from .plotting import (create_tree_digraph, plot_importance, plot_metric,  # noqa: E402
+                       plot_split_value_histogram, plot_tree)
+
+__all__ += ["DaskLGBMClassifier", "DaskLGBMRegressor", "DaskLGBMRanker",
+            "plot_importance", "plot_split_value_histogram", "plot_metric",
+            "plot_tree", "create_tree_digraph"]

@@ -32,8 +32,10 @@ boundaries come from the serial run's sample of the whole
 (``_sync_binning_sample``), so every rank bins as the serial run does;
 ``bin_cache_shard=(lo, hi)`` reads rows [lo, hi) of a shared save_binary
 cache.  ``Booster.set_network`` / ``free_network`` bring the process group
-up and down (parallel/distributed.py).  ``predict(mesh=)`` is ROADMAP
-A13b and raises.
+up and down (parallel/distributed.py).  ``predict(mesh=)`` scores the
+rows over several devices of this process (parallel/mesh.py::
+make_device_mesh) or over the ranks of a process group, bitwise
+``predict``.
 """
 
 from __future__ import annotations
@@ -188,35 +190,48 @@ def _check_finite(name: str, v) -> None:
         raise ValueError(f"{name} contains non-finite values")
 
 
-def _pre_partitioned(cfg) -> bool:
-    """This rank's Dataset holds its rows of a distributed training
-    (pre_partition with data or voting over more than one rank)."""
-    return (bool(cfg.pre_partition) and cfg.tree_learner in ("data", "voting")
-            and dist.is_available() and dist.is_initialized()
-            and dist.get_world_size() > 1)
+def _pre_partition_mesh(cfg):
+    """The mesh over whose ranks this rank's Dataset holds its row block of
+    a distributed training (pre_partition over more than one rank), or
+    None: the world under data and voting; under feature2d the data axis
+    of the 2-D mesh (the ranks of one row block hold the same rows), or
+    the world where num_feature_shards does not divide it
+    (models/gbdt.py::_set_learner makes the same choice)."""
+    if not (bool(cfg.pre_partition) and dist.is_available() and dist.is_initialized()
+            and dist.get_world_size() > 1):
+        return None
+    from .parallel.mesh import DATA_AXIS, make_mesh, make_mesh_2d
+
+    world = dist.get_world_size()
+    d_f = max(int(cfg.num_feature_shards), 1)
+    if cfg.tree_learner == "feature2d" and d_f > 1 and world % d_f == 0:
+        return make_mesh_2d(world // d_f, d_f).axes[DATA_AXIS]
+    if cfg.tree_learner in ("data", "voting", "feature2d"):
+        return make_mesh()
+    return None
 
 
-def _rank_gather(rows: np.ndarray, device) -> np.ndarray:
-    """Every rank's rows (float64), concatenated in rank order."""
+def _rank_gather(rows: np.ndarray, device, mesh) -> np.ndarray:
+    """Every rank's rows of ``mesh`` (float64), concatenated in rank order."""
     from .parallel import collectives as C
-    from .parallel.mesh import make_mesh
 
     t = torch.as_tensor(np.ascontiguousarray(rows, np.float64), device=device)
-    return C.all_gather_ragged(t, make_mesh()).cpu().numpy()
+    return C.all_gather_ragged(t, mesh).cpu().numpy()
 
 
 def _sync_binning_sample(local: np.ndarray, target_cnt: int, seed: int,
-                         device) -> np.ndarray:
+                         device, mesh=None) -> np.ndarray:
     """A pre-partitioned rank's sample for the bin boundaries (reference:
     DatasetLoader's distributed bin sync; the JAX package's
     _sync_binning_sample): the serial run's sample of the whole, the rows
     DatasetBinner.fit would draw from all N (ranks hold consecutive row
     blocks in rank order), each rank contributing its part of it.  Every
-    rank fits the serial binner."""
+    rank fits the serial binner.  ``mesh``: the ranks holding the blocks
+    (the default world by default)."""
     from .parallel import collectives as C
     from .parallel.mesh import make_mesh
 
-    mesh = make_mesh()
+    mesh = make_mesh() if mesh is None else mesh
     n = local.shape[0]
     lens = C.all_gather(torch.tensor([n], dtype=torch.int64, device=device), mesh)
     lens = [int(v) for v in lens.cpu()]
@@ -229,7 +244,7 @@ def _sync_binning_sample(local: np.ndarray, target_cnt: int, seed: int,
     rows = local[mine]
     if hasattr(rows, "toarray"):  # sparse: the sampled rows only, densified
         rows = rows.toarray()
-    return _rank_gather(np.asarray(rows, np.float64), device)
+    return _rank_gather(np.asarray(rows, np.float64), device, mesh)
 
 
 class Dataset:
@@ -321,11 +336,12 @@ class Dataset:
                        categorical_features=self._categorical_indices(self.feature_names),
                        max_bin_by_feature=cfg.max_bin_by_feature,
                        seed=cfg.data_random_seed, forced_bins=_forced_bins(cfg))
-            if _pre_partitioned(cfg):
+            mesh = _pre_partition_mesh(cfg)
+            if mesh is not None:
                 # this rank's rows only: the serial run's sample of the whole
                 sample = _sync_binning_sample(csc.tocsr() if csc is not None else raw,
                                               cfg.bin_construct_sample_cnt,
-                                              cfg.data_random_seed, device)
+                                              cfg.data_random_seed, device, mesh)
                 self.binner = DatasetBinner.fit(sample, **dict(
                     fit, sample_cnt=max(len(sample), 1)))
             else:
@@ -432,13 +448,13 @@ class Dataset:
                     return ref.binner
             else:
                 def factory(sample, names):
-                    if _pre_partitioned(cfg):
+                    mesh = _pre_partition_mesh(cfg)
+                    if mesh is not None:
                         # every rank's reservoir sample of its rows (the JAX
                         # package's), so every rank fits the same boundaries
-                        per = max(cfg.bin_construct_sample_cnt
-                                  // dist.get_world_size(), 1)
+                        per = max(cfg.bin_construct_sample_cnt // mesh.size, 1)
                         sample = _rank_gather(np.asarray(sample, np.float64)[:per],
-                                              resolve_device(cfg))
+                                              resolve_device(cfg), mesh)
                     return DatasetBinner.fit(
                         sample, max_bin=cfg.max_bin, min_data_in_bin=cfg.min_data_in_bin,
                         sample_cnt=len(sample), use_missing=cfg.use_missing,
@@ -1046,11 +1062,11 @@ class Booster:
         """Margins or probabilities; ``pred_leaf`` (N, T) leaf ids;
         ``pred_contrib`` (N, (F + 1) * K) SHAP values; pred_early_stop,
         pred_early_stop_freq and pred_early_stop_margin in ``kwargs`` set
-        prediction early stopping for this call."""
-        if kwargs.get("mesh") is not None:
-            raise NotImplementedError("predict(mesh=): prediction over several "
-                                      "devices is not ported to lightgbm_tpu_torch "
-                                      "yet (ROADMAP queue A13b)")
+        prediction early stopping for this call.  ``mesh`` in ``kwargs``
+        (a device mesh, or a process group's mesh) splits the rows over its
+        devices or ranks (models/gbdt.py::GBDT.predict_raw_sharded), bitwise
+        the single-device result; early stopping, pred_leaf and
+        pred_contrib keep the single-device path."""
         if num_iteration is None:
             num_iteration = self.best_iteration if self.best_iteration > 0 else -1
         if _is_scipy_sparse(data):
@@ -1076,7 +1092,13 @@ class Booster:
         return self._gbdt.predict(X, raw_score=raw_score,
                                   start_iteration=start_iteration,
                                   num_iteration=num_iteration, pred_leaf=pred_leaf,
-                                  pred_contrib=pred_contrib, early_stop=early_stop)
+                                  pred_contrib=pred_contrib, early_stop=early_stop,
+                                  mesh=kwargs.get("mesh"))
+
+    def predict_sharded(self, data, mesh, **kwargs) -> np.ndarray:
+        """``predict`` with its rows split over ``mesh`` (the JAX package's
+        giant-batch entry): bitwise ``predict``."""
+        return self.predict(data, mesh=mesh, **kwargs)
 
     def refit(self, data, label, decay_rate: float = 0.9, weight=None,
               **kwargs) -> "Booster":

@@ -10,9 +10,10 @@ and ``init_model=<snapshot>`` with the fall back to the newest valid older
 snapshot, so a resumed run gives the uninterrupted run's model text
 bitwise; the ``train`` span, the heartbeat gauges, the fault sites
 ``host_crash`` and ``worker_hang``, ``metrics_file``, ``trace_file`` and
-``metrics_port``.  ``resume=<fleet manifest>`` (the launcher's
-coordinated checkpoints and recovery) is ROADMAP A13b; continual training
-and the booster fleet trainer are A12.
+``metrics_port``; ``resume=<fleet manifest>``, the launcher's relaunch
+from its coordinated checkpoints (the manifest checked: torn, unconfirmed,
+a diverged acknowledgement, another shard fingerprint, past the asked
+rounds; the ``fleet_resume`` event, counter and span).
 """
 
 from __future__ import annotations
@@ -148,6 +149,51 @@ def _ordered(callbacks) -> tuple:
     return before, after
 
 
+def _fleet_resume(manifest_path: str, num_boost_round: int):
+    """resume=<fleet manifest> (the JAX package's): the manifest must be
+    fleet-valid (utils/checkpoint.py::fleet_manifest_valid, without the acks
+    of the ranks LGBMTPU_RESUME_EXCLUDE_RANKS names: a respawned slice's),
+    name this rank's shard fingerprint where both are known, and be at or
+    below ``num_boost_round``.  Returns (its snapshot, the rounds left)."""
+    if not os.path.exists(manifest_path):
+        raise LightGBMError(
+            f"resume={manifest_path!r} is not supported: pass 'auto', a fleet "
+            "manifest path (lgbmtpu-fleet-ckpt-v1), or init_model=<snapshot> for "
+            "a specific file")
+    excl = tuple(int(r) for r in os.environ.get(
+        "LGBMTPU_RESUME_EXCLUDE_RANKS", "").split(",") if r)
+    manifest = _checkpoint.fleet_manifest_valid(manifest_path, exclude_ranks=excl)
+    if manifest is None:
+        raise LightGBMError(
+            f"resume manifest {manifest_path} is not fleet-valid (torn, unconfirmed "
+            "by some rank, or its snapshot fails verification): refusing to resume "
+            "into inconsistent fleet state")
+    rank = os.environ.get("LGBM_TPU_WORKER_ID", os.environ.get("LIGHTGBM_TPU_RANK", "0"))
+    shard_fp = os.environ.get("LGBMTPU_SHARD_FINGERPRINT")
+    want_fp = (manifest.get("shards") or {}).get(rank)
+    if shard_fp and want_fp and shard_fp != want_fp:
+        raise LightGBMError(
+            f"rank {rank}'s data shard fingerprint {shard_fp[:12]} does not match "
+            f"the manifest's {want_fp[:12]}: the shard changed since the checkpoint, "
+            "and resuming would train round k+1 on other data than rounds 1..k")
+    it = int(manifest["round"])
+    if it > num_boost_round:
+        raise LightGBMError(
+            f"resume manifest {manifest_path} is at round {it}, beyond the "
+            f"requested num_iterations={num_boost_round}: raise num_iterations or "
+            "resume from an older manifest")
+    _obs.counter("fleet_resumes_total").inc()
+    _obs.gauge("fleet_resumed_round").set(it)
+    _obs.event("fleet_resume", round=it, manifest=os.fspath(manifest_path),
+               snapshot=manifest["snapshot"])
+    _trace.record_span("checkpoint.resume", 0.0, round=it,
+                       manifest=os.fspath(manifest_path), outcome="fleet_manifest")
+    left = max(num_boost_round - it, 0)
+    log_info(f"resume: fleet manifest {manifest_path} (round {it}); training {left} "
+             "remaining round(s) from its snapshot")
+    return manifest["snapshot"], left
+
+
 def train(
     params: Dict[str, Any],
     train_set: Dataset,
@@ -166,7 +212,9 @@ def train(
     string) continues its trees; a callable ``objective`` gives the
     gradients.  ``resume="auto"`` (or the ``resume=auto`` parameter)
     continues from the newest valid snapshot of ``output_model``'s family
-    at or below ``num_boost_round`` and trains the remaining rounds.  The
+    at or below ``num_boost_round`` and trains the remaining rounds;
+    ``resume=<fleet manifest>`` from that manifest's snapshot
+    (``_fleet_resume``).  The
     returned booster keeps its training state whatever
     ``keep_training_booster`` says, as in the JAX package."""
     params = dict(params or {})
@@ -192,16 +240,8 @@ def train(
         if init_model is not None:
             log_warning("resume=<manifest> ignored: an explicit init_model was "
                         "given and takes precedence")
-        elif not os.path.exists(resume):
-            raise LightGBMError(
-                f"resume={resume!r} is not supported: pass 'auto', or "
-                "init_model=<snapshot> for a specific file")
         else:
-            raise NotImplementedError(
-                "resume=<fleet manifest> (the launcher's coordinated checkpoints: "
-                "rank exclusion, shard fingerprints) is not ported to "
-                "lightgbm_tpu_torch yet (ROADMAP queue A13b); pass resume='auto' or "
-                "init_model=<snapshot>")
+            init_model, num_boost_round = _fleet_resume(resume, num_boost_round)
     elif resume is not None:
         if init_model is not None:
             log_warning("resume='auto' ignored: an explicit init_model was given "

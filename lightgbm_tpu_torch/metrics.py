@@ -302,14 +302,14 @@ class MultiErrorMetric(Metric):
         return [(self.name, _wmean(err, weight), False)]
 
 
-def pad_queries(query_boundaries: np.ndarray):
-    """Queries as a dense (Q, S) padded block, S the longest query: the
-    layout the ranking objectives use.  Returns (pad_idx, pad_mask); padded
-    lanes point at row 0 with the mask off."""
+def pad_queries(query_boundaries: np.ndarray, width: int = 0):
+    """Queries as a dense (Q, S) padded block, S the longest query (or
+    ``width`` if larger): the layout the ranking objectives use.  Returns
+    (pad_idx, pad_mask); padded lanes point at row 0 with the mask off."""
     qb = np.asarray(query_boundaries)
     nq = len(qb) - 1
     lens = np.diff(qb)
-    smax = int(lens.max()) if nq else 0
+    smax = max(int(lens.max()) if nq else 0, int(width))
     pos = np.arange(smax)[None, :]
     pad_mask = pos < lens[:, None]
     pad_idx = np.where(pad_mask, qb[:-1, None] + pos, 0).astype(np.int64)

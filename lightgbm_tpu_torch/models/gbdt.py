@@ -67,9 +67,13 @@ torch.distributed rank, parallel/): the rank's rows (or feature block)
 through parallel/data_parallel.py and feature_parallel.py; the init score,
 the pre-filter, GOSS, leaf renewal and the metrics over every rank's rows
 (gathered in the serial order), bagging a slice of the serial draw, so a
-data-parallel training is the serial one; the rounds eager.
-Rejected at construction: tree_learner=feature2d and num_slices > 1 (the
-2-D and hierarchical meshes, A13b).
+data-parallel training is the serial one; the rounds eager.  With the
+windowed grower, tree_learner=feature2d with num_feature_shards > 1 trains
+over a 2-D (data, feature) mesh (parallel/feature2d.py: the serial tree
+bit for bit) and num_slices > 1 with tree_learner=data or voting over a
+hierarchical (dcn, ici) mesh (parallel/hierarchy.py); a shard or slice
+count that does not divide the world warns and trains on the single-level
+mesh, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -101,9 +105,14 @@ from ..ops.treegrow_ooc import grow_tree_ooc
 from ..ops.treegrow_windowed import grow_tree_windowed
 from ..parallel import collectives as _coll
 from ..parallel import data_parallel as _dpar
+from ..parallel import feature2d as _f2d
 from ..parallel import feature_parallel as _fpar
+from ..parallel import hierarchy as _hier
 from ..parallel.distributed import init_distributed
-from ..parallel.mesh import current_mesh
+from ..parallel.feature2d import Sharded2DData
+from ..parallel.hierarchy import SlicedData
+from ..parallel.mesh import (DATA_AXIS, current_mesh, make_mesh_2d,
+                             make_mesh_hierarchical)
 from ..utils import faults as _faults
 from ..utils import locktrace as _lt
 from ..utils import profiling as _profiling  # noqa: F401  (LGBMTPU_NVTX=1 bridge)
@@ -188,15 +197,7 @@ def _f32_threshold_upper(t: np.ndarray) -> np.ndarray:
     return np.where(bump, np.nextafter(t32, np.float32(np.inf)), t32)
 
 
-_TREE_LEARNERS = ("serial", "data", "voting", "feature")
-
-
-def _unported_options(cfg: Config) -> List[str]:
-    """Config options outside the port's envelope (they raise): the 2-D
-    and hierarchical meshes of the distributed learners (ROADMAP A13b)."""
-    checks = {"tree_learner=feature2d (ROADMAP A13b)": cfg.tree_learner == "feature2d",
-              "num_slices > 1 (ROADMAP A13b)": int(cfg.num_slices) > 1}
-    return [k for k, v in checks.items() if v]
+_TREE_LEARNERS = ("serial", "data", "voting", "feature", "feature2d")
 
 
 def _parse_interaction_constraints(spec, feature_names) -> List[List[int]]:
@@ -346,11 +347,15 @@ class GBDT:
         self._forced_cache = None
         self._linear = False
         self._ooc_spill = False  # the out-of-core spill regime
-        # the distributed tree learner (tree_learner=data|voting|feature over
-        # more than one rank): this rank's rows (data, voting) or feature
-        # block (feature); None for a serial training
+        # the distributed tree learner (tree_learner=data|voting|feature|
+        # feature2d over more than one rank): this rank's rows (data, voting;
+        # under feature2d its row block, over the data axis) or feature
+        # block (feature); the 2-D tile and the hierarchical layout beside
+        # them; None for a serial training
         self._dp: Optional[_dpar.ShardedData] = None
         self._fp: Optional[_fpar.FeatureShardedData] = None
+        self._dp2d = None
+        self._dp_hier = None
         # the packed-ensemble cache of prediction (``_packed``): entries
         # keyed by (version, tree range, ...); every mutation bumps the
         # version (``_invalidate_pred_cache``) under the pack lock
@@ -512,11 +517,6 @@ class GBDT:
         4.0-4.2 in int8 (chip_smoke.py, PERF.md section 5).  So the port
         trains float unless use_quantized_grad is set."""
         cfg = self.cfg
-        bad = _unported_options(cfg)
-        if bad:
-            raise ValueError(
-                "not ported to lightgbm_tpu_torch yet: " + ", ".join(bad)
-                + " (see ROADMAP queue A)")
         if cfg.tree_learner not in _TREE_LEARNERS:
             raise ValueError(f"tree_learner must be one of {_TREE_LEARNERS}, got "
                              f"{cfg.tree_learner!r}")
@@ -580,7 +580,12 @@ class GBDT:
             if qb is None:
                 raise ValueError(f"objective={obj.name} needs query information: "
                                  "pass Dataset(group=...)")
-            obj.set_query(qb, np.asarray(train_set.label), dev)
+            width = 0
+            if self._dp is not None:  # every rank pads to the serial width (C20)
+                longest = torch.tensor([int(np.diff(qb).max()) if len(qb) > 1 else 0],
+                                       dtype=torch.int64, device=dev)
+                width = int(_coll.pmax(longest, self._dp.mesh).cpu()[0])
+            obj.set_query(qb, np.asarray(train_set.label), dev, width)
             if hasattr(obj, "set_positions") and train_set.position is not None:
                 obj.set_positions(train_set.position)
         self._guard_bad_iter = torch.zeros((), dtype=torch.int32, device=dev)
@@ -619,9 +624,18 @@ class GBDT:
         with the world size standing where it has the device count): over
         more than one rank, tree_learner=data and voting shard the rows
         (each rank's Dataset holds its rows: pre_partition), feature the
-        features (each rank holds all rows).  At world size 1 they train
-        serially, as the JAX package's do on one device."""
-        self._dp = self._fp = None
+        features (each rank holds all rows).  tree_learner=feature2d with
+        num_feature_shards d_f > 1 lays the world out as a (R / d_f, d_f)
+        (data, feature) mesh: the rank at (i, j) holds row block i (its
+        Dataset) and keeps feature block j of it; ``_dp`` is its rows over
+        the data axis, which every other learner path and the set-up read
+        (so the full-F rows stay resident beside the tile: ROADMAP A13c).
+        num_slices > 1 (data, voting) adds the hierarchical layout of the
+        same rows.  A count that does not divide the world warns and
+        trains on the single-level mesh, as in the JAX package.  At world
+        size 1 they train serially, as the JAX package's do on one
+        device."""
+        self._dp = self._fp = self._dp2d = self._dp_hier = None
         if self.cfg.tree_learner == "serial":
             return
         mesh = current_mesh()
@@ -635,8 +649,28 @@ class GBDT:
         mbpf = ts.missing_bin_pf_device
         if self.cfg.tree_learner == "feature":
             self._fp = _fpar.FeatureShardedData(mesh, ts.bins_device, nbpf, mbpf)
-        else:
-            self._dp = _dpar.ShardedData(mesh, ts.bins_device, nbpf, mbpf)
+            return
+        if self.cfg.tree_learner == "feature2d":
+            d_f = max(int(self.cfg.num_feature_shards), 1)
+            if d_f > 1 and mesh.size % d_f:
+                log_warning(f"num_feature_shards={d_f} does not divide {mesh.size} "
+                            "ranks; training on the single-level row mesh")
+                d_f = 1
+            if d_f > 1:
+                grid = make_mesh_2d(mesh.size // d_f, d_f)
+                self._dp2d = Sharded2DData(grid, ts.bins_device, nbpf, mbpf)
+                self._dp = _dpar.ShardedData(grid.axes[DATA_AXIS], ts.bins_device,
+                                             nbpf, mbpf)
+                return
+        self._dp = _dpar.ShardedData(mesh, ts.bins_device, nbpf, mbpf)
+        ns = int(self.cfg.num_slices)
+        if ns > 1 and self.cfg.tree_learner in ("data", "voting"):
+            if mesh.size % ns:
+                log_warning(f"num_slices={ns} does not divide {mesh.size} ranks; "
+                            "training on the single-level mesh")
+            else:
+                self._dp_hier = SlicedData.from_sharded(make_mesh_hierarchical(ns),
+                                                        self._dp)
 
     def _global_pre_filter(self, ts) -> np.ndarray:
         """feature_pre_filter on every rank's bin counts (one psum), so
@@ -668,9 +702,9 @@ class GBDT:
                         "distributed configuration IGNORES it.")
             self._cegb_lazy = self._cegb_lazy_used = None
         if self._linear:
-            raise ValueError("linear_tree is not ported to the distributed tree "
-                             "learners (its leaf fits sum over every rank's rows; "
-                             "ROADMAP queue A13b)")
+            raise ValueError("linear_tree is implemented for the serial tree "
+                             "learner only (its leaf fits sum over every rank's "
+                             "rows)")
 
     def _check_spill_envelope(self, ts) -> None:
         """The out-of-core spill regime (the Dataset's rows exceed
@@ -999,6 +1033,20 @@ class GBDT:
                 and (mode in ("rounds", "windowed")
                      or (mode == "auto" and self.device.type == "cuda")))
 
+    def _use_windowed_2d(self, ts) -> bool:
+        """The 2-D mesh's gate (the JAX package's): the windowed grower's,
+        less per-node feature sampling (each feature block searches only
+        its features; such a training takes the data axis's rounds)."""
+        return (self._dp2d is not None and not self._needs_node_rng
+                and self._use_windowed(ts))
+
+    def _use_windowed_hier(self, ts) -> bool:
+        """The hierarchical mesh's gate (the JAX package's): the windowed
+        grower's, less per-node feature sampling (the slice-local vote must
+        be the same on every slice)."""
+        return (self._dp_hier is not None and not self._needs_node_rng
+                and self._use_windowed(ts))
+
     def _windowed_dp_merge(self) -> str:
         """The sharded windowed round's merge (the JAX package's rule):
         tree_learner=voting takes the owned-feature reduce_scatter, data the
@@ -1204,7 +1252,18 @@ class GBDT:
                     common.update(axis_name=self._dp.shard)
                     for key in ("graphs", "efb"):
                         common.pop(key)
-                if self._use_windowed(ts):
+                mesh_kw = {k: v for k, v in common.items()
+                           if k not in ("rng_key", "axis_name")}
+                if self._use_windowed_2d(ts):
+                    stats["grower"] = "windowed_2d"
+                    out = _f2d.grow_tree_windowed_feature2d(self._dp2d, *args[1:6],
+                                                            **mesh_kw)
+                elif self._use_windowed_hier(ts):
+                    stats["grower"] = "windowed_hier"
+                    out = _hier.grow_tree_windowed_hierarchical(
+                        self._dp_hier, *args[1:6], merge=self._windowed_dp_merge(),
+                        top_k_features=int(cfg.top_k_features), **mesh_kw)
+                elif self._use_windowed(ts):
                     stats["grower"] = "windowed"
                     if self._dp is not None:
                         common["merge"] = self._windowed_dp_merge()
@@ -1668,13 +1727,15 @@ class GBDT:
     def predict(self, X, raw_score: bool = False, start_iteration: int = 0,
                 num_iteration: int = -1, pred_leaf: bool = False,
                 pred_contrib: bool = False,
-                early_stop: Optional[dict] = None) -> np.ndarray:
+                early_stop: Optional[dict] = None, mesh=None) -> np.ndarray:
         """The JAX package's GBDT.predict.  ``early_stop``: pred_early_stop,
         pred_early_stop_freq and pred_early_stop_margin for this call,
         over the configuration's.  A warm call (its pack cached, its rung
         seen) stages the rows through the pack's pinned input buffer,
         launches the traversal and makes one blocking read into the pinned
-        output buffer: no ensemble is built on the host."""
+        output buffer: no ensemble is built on the host.  ``mesh``: the
+        margins from ``predict_raw_sharded`` (early stopping, pred_leaf
+        and pred_contrib keep this path)."""
         X = np.asarray(X, dtype=np.float64)
         if pred_leaf:
             return self._predict_leaf(X, start_iteration, num_iteration)
@@ -1699,10 +1760,55 @@ class GBDT:
         scale = self._pack_scale(s)
         with self._pinned.lock:
             _san.record_predict()
-            raw = self._raw_of(s, self._stage(X, nb))
+            raw = (self._raw_of(s, self._stage(X, nb)) if mesh is None
+                   else self._raw_sharded(s, X, mesh))
             res, warm = self._finish(s, raw, raw_score, nb, scale)
-        self._serve_note("raw" if raw_score else "predict", n, t0, nb, warm)
+        self._serve_note("raw" if raw_score else
+                         "predict" if mesh is None else "sharded", n, t0, nb, warm)
         return res
+
+    def predict_raw_sharded(self, X: np.ndarray, mesh, start_iteration: int = 0,
+                            num_iteration: int = -1) -> np.ndarray:
+        """Raw margins (f64) with the rows split over ``mesh``: bitwise
+        ``predict(raw_score=True)`` (``_raw_sharded``)."""
+        return self.predict(X, raw_score=True, start_iteration=start_iteration,
+                            num_iteration=num_iteration, mesh=mesh)
+
+    def _raw_sharded(self, s: dict, X: np.ndarray, mesh) -> torch.Tensor:
+        """The pack's margins of ``X`` with its rows in contiguous blocks:
+        over a DeviceMesh (parallel/mesh.py::make_device_mesh) one block a
+        device, the pack's tables placed on each device once and cached in
+        the pack (``mesh_walk``), the blocks' margins gathered on the
+        training device; over a process group's mesh (a Mesh, or a 2-D or
+        hierarchical mesh's world) this rank's block, every rank's gathered
+        by all_gather_ragged (every rank passes the same ``X``).  Each
+        row's margin is its own traversal, so the blocks' are predict's
+        bit for bit."""
+        from ..parallel.mesh import WORLD_AXIS, DeviceMesh, GridMesh, Mesh
+
+        n = X.shape[0]
+        if not isinstance(mesh, (DeviceMesh, GridMesh, Mesh)):
+            raise TypeError(f"mesh must be a DeviceMesh (parallel/mesh.py::"
+                            f"make_device_mesh) or a process group's mesh, got "
+                            f"{type(mesh).__name__}")
+        if isinstance(mesh, DeviceMesh):
+            per = -(-max(n, 1) // mesh.size)
+            cache = s.setdefault("mesh_walk", {})
+            raws = []
+            for i, dev in enumerate(mesh.devices):
+                walk = cache.get(str(dev))
+                if walk is None:
+                    walk = cache[str(dev)] = _walk_on(s["walk"], dev)
+                block = X[i * per:(i + 1) * per]
+                x = torch.as_tensor(np.asarray(block, np.float32), device=dev)
+                raws.append(self._raw_of({**s, "walk": walk}, x))
+            return torch.cat([r.to(self.device) for r in raws])
+        group = mesh.axes[WORLD_AXIS] if isinstance(mesh, GridMesh) else mesh
+        per = -(-max(n, 1) // group.size)
+        block = X[group.rank * per:(group.rank + 1) * per]
+        raw = self._raw_of(s, torch.as_tensor(np.asarray(block, np.float32),
+                                              device=self.device))
+        return _coll.all_gather_ragged(raw.contiguous(), group)
 
     def _coalescible(self, raw_score: bool) -> bool:
         """Whether ``predict(raw_score=)`` can be served by
@@ -2189,6 +2295,17 @@ def _linear_tables(tree: Tree, device) -> Optional[tuple]:
     return tuple(torch.as_tensor(a, device=device) for a in (
         coef, np.asarray(tree.leaf_const, np.float32), fidx, nf,
         np.asarray(tree.leaf_value, np.float32)))
+
+
+def _walk_on(walk: dict, device) -> dict:
+    """A pack's traversal tables (``_stacked``) copied to ``device``."""
+    def to(v):
+        if torch.is_tensor(v):
+            return v.to(device)
+        if isinstance(v, tuple):
+            return tuple(to(x) for x in v)
+        return v
+    return {k: to(v) for k, v in walk.items()}
 
 
 def _stacked_bitsets(trees: List[Tree], m: int, device) -> Optional[tuple]:

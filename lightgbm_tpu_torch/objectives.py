@@ -376,11 +376,15 @@ class _RankingObjective(Objective):
     fusable = False
 
     def set_query(self, query_boundaries: np.ndarray, labels: np.ndarray,
-                  device) -> None:
+                  device, width: int = 0) -> None:
+        """``width``: pad to at least this many lanes (a distributed
+        training pads every rank's queries to the longest query of all, so
+        each query's sums over its lanes have the serial run's shape and
+        order)."""
         from .metrics import pad_queries
 
         self.query_boundaries = np.asarray(query_boundaries)
-        pad_idx, pad_mask = pad_queries(self.query_boundaries)
+        pad_idx, pad_mask = pad_queries(self.query_boundaries, width)
         self._pad_idx = torch.as_tensor(pad_idx, device=device)
         self._pad_mask = torch.as_tensor(pad_mask, device=device)
         # the real lanes (flat) and their rows: a scatter back with no mask
@@ -467,12 +471,12 @@ class LambdarankNDCG(_RankingObjective):
     def is_fusable(self) -> bool:
         return self._pos_pad is None
 
-    def set_query(self, query_boundaries, labels, device) -> None:
+    def set_query(self, query_boundaries, labels, device, width: int = 0) -> None:
         """Also the inverse max DCG of each query (reference:
         inverse_max_dcgs_ in LambdarankNDCG::Init)."""
         from .metrics import dcg_at_k
 
-        super().set_query(query_boundaries, labels, device)
+        super().set_query(query_boundaries, labels, device, width)
         qb = self.query_boundaries
         inv = np.zeros(len(qb) - 1, dtype=np.float64)
         for q in range(len(qb) - 1):

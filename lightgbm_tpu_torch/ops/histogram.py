@@ -135,25 +135,42 @@ def _scatter_features(x: torch.Tensor, fdim: int, mesh) -> torch.Tensor:
     return C.psum_scatter(xm, mesh).movedim(0, fdim).contiguous()
 
 
-def merge_carry(acc64, acc32, shift, mesh, merge: str = "psum") -> torch.Tensor:
+def merge_fixed(acc64, acc32, mesh, merge: str = "psum"):
     """Rank-local fixed-point window sums (acc64 (T, 2, F, B) int64, acc32
-    (T, F, B) int32) merged across ``mesh`` and converted to f32 once:
-    (T, 3, F, B) with ``merge="psum"`` (all_reduce), this rank's (T, 3, k, B)
-    feature block with ``"scatter"`` (reduce_scatter over the features).
-    Integer sums do not depend on their order, so the merged histogram is
-    the serial one bit for bit."""
+    (T, F, B) int32) merged across ``mesh``, left in fixed point: the
+    summed (acc64, acc32) with ``merge="psum"`` (all_reduce), this rank's
+    (T, ., k, B) feature block with ``"scatter"`` (reduce_scatter over the
+    features).  Integer sums do not depend on their order."""
     from ..parallel import collectives as C
 
     mesh.stats["merges"] += 1
     mesh.stats["merge_bytes"] += acc64.numel() * 8 + acc32.numel() * 4
     if merge == "psum":
-        acc64, acc32 = C.psum(acc64, mesh), C.psum(acc32, mesh)
-    elif merge == "scatter":
-        acc64 = _scatter_features(acc64, 2, mesh)
-        acc32 = _scatter_features(acc32, 1, mesh)
-    else:
-        raise ValueError(f"merge must be 'psum' or 'scatter', got {merge!r}")
-    return hist_cuda.carry_convert(acc64, acc32, shift)
+        return C.psum(acc64, mesh), C.psum(acc32, mesh)
+    if merge == "scatter":
+        return _scatter_features(acc64, 2, mesh), _scatter_features(acc32, 1, mesh)
+    raise ValueError(f"merge must be 'psum' or 'scatter', got {merge!r}")
+
+
+def merge_carry(acc64, acc32, shift, mesh, merge: str = "psum") -> torch.Tensor:
+    """merge_fixed, converted to f32 once: (T, 3, F, B) (or this rank's
+    feature block under the scatter merge), the serial histogram bit for
+    bit."""
+    return hist_cuda.carry_convert(*merge_fixed(acc64, acc32, mesh, merge), shift)
+
+
+def pack_fixed(acc64, acc32) -> torch.Tensor:
+    """Fixed-point sums as one (T, 3, F, B) int64 tensor (counts widened):
+    the hierarchical learner's slice-domain histograms, which subtract and
+    merge exactly."""
+    return torch.cat([acc64, acc32[:, None].to(torch.int64)], dim=1)
+
+
+def fixed_to_f32(h: torch.Tensor, shift) -> torch.Tensor:
+    """pack_fixed's (T, 3, F, B) int64 converted to f32 as B1 converts
+    (hist_cuda.carry_convert: one launch of the carried mode on the card)."""
+    return hist_cuda.carry_convert(h[:, :2].contiguous(),
+                                   h[:, 2].to(torch.int32).contiguous(), shift)
 
 
 def merge_int(h: torch.Tensor, mesh, merge: str = "psum") -> torch.Tensor:
@@ -170,21 +187,38 @@ def merge_int(h: torch.Tensor, mesh, merge: str = "psum") -> torch.Tensor:
     raise ValueError(f"merge must be 'psum' or 'scatter', got {merge!r}")
 
 
+def dcn_merge(h: torch.Tensor, dcn) -> torch.Tensor:
+    """Fixed-point histograms (ops/histogram.py::pack_fixed, (C, 3, F, B)
+    int64) summed over the dcn axis as the flat merge sends them: the
+    grad and hess sums int64, the counts int32."""
+    from ..parallel import collectives as C
+
+    sums, counts = h[:, :2].contiguous(), h[:, 2].to(torch.int32).contiguous()
+    dcn.stats["merges"] += 1
+    dcn.stats["merge_bytes"] += sums.numel() * 8 + counts.numel() * 4
+    return torch.cat([C.psum(sums, dcn), C.psum(counts, dcn)[:, None].to(torch.int64)],
+                     dim=1)
+
+
 def histogram_multi_merged(bins, grad, hess, mask, leaf_slot, leaf_base: int,
                            tile: int, num_bins: int, shift, mesh,
-                           merge: str = "psum", precision: str = "f32"):
+                           merge: str = "psum", precision: str = "f32",
+                           convert: bool = True):
     """histogram_multi over the rows of every rank: each rank sums its rows
     into B1's carried accumulators (the fixed-point exponents ``shift`` must
     be the global ones, global_shift), the accumulators are merged
     (merge_carry) and converted once.  ``precision="bf16"``: grad and hess
     rounded to bfloat16 first, whose float32 values sum to the same
-    integers as the bf16 pass's."""
+    integers as the bf16 pass's.  ``convert=False``: the merged sums stay
+    in fixed point (pack_fixed)."""
     g, h = hist_cuda._payload(grad, hess, precision)
     acc = hist_cuda.CarryAccumulator(tile, bins.shape[1], num_bins, shift,
                                      bins.device)
     hist_cuda.histogram_multi_carry(bins, g.float().contiguous(),
                                     h.float().contiguous(), mask, leaf_slot,
                                     leaf_base, acc)
+    if not convert:
+        return pack_fixed(*merge_fixed(acc.acc64, acc.acc32, mesh, merge))
     return merge_carry(acc.acc64, acc.acc32, acc.shift, mesh, merge)
 
 

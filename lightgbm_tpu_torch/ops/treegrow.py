@@ -60,26 +60,16 @@ import torch
 from ..parallel import collectives as C
 from ..utils import sanitizer as _san
 from .hist_cuda import fixed_shift_tensor
-from .histogram import global_shift, histogram_multi, histogram_multi_merged
+from .histogram import dcn_merge, global_shift, histogram_multi, histogram_multi_merged
 from .round_cuda import split_window
 from .split import (KMIN_SCORE, BestSplit, SplitParams, find_best_split,
                     forced_split_candidate, gain_plane, leaf_output,
                     leaf_output_smoothed, reduce_plane_per_feature)
 
-# options of the JAX package's growers that this package does not carry yet:
-# passing one raises (the 2-D and hierarchical meshes' options are
-# ROADMAP A13b and have no grower option here)
-UNPORTED = ()
-
-
 def reject_unported(who: str, options: dict) -> None:
-    """Raise for any option of UNPORTED given a value, and for any other
-    unknown option."""
-    for name in UNPORTED:
-        v = options.pop(name, None)
-        if v is not None and v is not False:
-            raise ValueError(f"{who}: {name} is not ported to "
-                             "lightgbm_tpu_torch yet (ROADMAP queue A13b)")
+    """Raise for any option a grower does not know (the 2-D and
+    hierarchical meshes have no grower option: parallel/feature2d.py and
+    parallel/hierarchy.py build their context)."""
     if options:
         raise TypeError(f"unexpected options: {sorted(options)}")
 
@@ -284,6 +274,57 @@ def vote_best(hist, sum_g, sum_h, count, nbpf, mbpf, params, mesh, top_k: int,
                              count[i:i + 1], nbpf[e], mbpf[e], params, **kwi)
         outs.append(bi._replace(feature=e[bi.feature.long()].to(torch.int32)))
     return BestSplit(*[torch.cat(xs) for xs in zip(*outs)])
+
+
+def _topk(x: torch.Tensor, k: int):
+    """(values, indices) of the k largest of each row, ties to the lower
+    index (a stable sort: the same order on every rank)."""
+    v, i = torch.sort(x, dim=1, descending=True, stable=True)
+    return v[:, :k], i[:, :k]
+
+
+def dcn_topk_best(cand: torch.Tensor, parent_g, parent_h, parent_c, nbpf, mbpf,
+                  fmask, cmask, contri, *, params: SplitParams, top_k: int, dcn,
+                  convert, parent_out) -> BestSplit:
+    """The two-level split search of a batch of candidates (the JAX
+    package's dcn_topk_best): ``cand`` (C, 3, Fd, B) slice-domain fixed-point
+    histograms over this rank's feature tables (every feature under the
+    slice's all_reduce, its owned block under reduce_scatter), the GLOBAL
+    parent sums, ``convert`` the fixed point's f32 conversion.  Returns the
+    best split of each candidate, its feature in this rank's domain (the
+    caller's owned-feature election composes)."""
+    c, _three, fd, b = cand.shape
+    k = max(1, min(int(top_k), fd))
+    local = convert(cand)
+    tot = local[:, :, 0, :].sum(dim=2)  # slice-local child totals
+    gain, ctx = gain_plane(local, tot[:, 0], tot[:, 1], tot[:, 2], nbpf, mbpf, params,
+                           feature_mask=fmask, categorical_mask=cmask,
+                           feature_contri=contri, parent_output=parent_out)
+    vote_gain, vote_idx = _topk(reduce_plane_per_feature(gain, ctx).gain, k)
+    all_gain = C.all_gather(vote_gain[None].contiguous(), dcn)  # (S, C, k)
+    all_idx = C.all_gather(vote_idx[None].contiguous(), dcn)
+    contrib = torch.where(all_gain > KMIN_SCORE / 2, all_gain, 0.0)
+    score = torch.zeros((c, fd), dtype=torch.float32, device=cand.device)
+    for s in range(all_gain.shape[0]):  # a slice's ids are distinct: no races
+        score.scatter_add_(1, all_idx[s], contrib[s])
+    elected = torch.sort(_topk(score, k)[1], dim=1).values  # (C, k)
+    sub = cand.gather(2, elected[:, None, :, None].expand(c, 3, k, b))
+    glob = convert(dcn_merge(sub, dcn))  # the only histogram over dcn
+    outs = []
+    for i in range(c):  # each candidate's elected tables differ
+        e = elected[i]
+
+        def pick(v):
+            return None if v is None else v[e]
+
+        outs.append(find_best_split(
+            glob[i:i + 1], parent_g[i:i + 1], parent_h[i:i + 1], parent_c[i:i + 1],
+            nbpf[e], mbpf[e], params, feature_mask=pick(fmask),
+            parent_output=parent_out[i:i + 1], categorical_mask=pick(cmask),
+            feature_contri=pick(contri)))
+    bb = BestSplit(*[torch.cat(xs) for xs in zip(*outs)])
+    feat = elected.gather(1, bb.feature.long()[:, None])[:, 0]
+    return bb._replace(feature=feat.to(bb.feature.dtype))
 
 
 class TreeArrays(NamedTuple):

@@ -117,11 +117,13 @@ from ..utils.guards import NonFiniteError
 from ..utils.log import log_warning
 from .graphs import RoundGraphs, copy_into
 from ..parallel import collectives as C
-from .hist_cuda import fixed_shift_pair, fixed_shift_tensor
-from .histogram import (global_shift, histogram_multi, histogram_multi_merged,
-                        histogram_multi_quantized,
-                        histogram_multi_quantized_merged, merge_carry,
-                        owned_features, unbundle)
+from .hist_cuda import (CarryAccumulator, fixed_shift_pair, fixed_shift_tensor,
+                        histogram_multi_carry)
+from .hist_cuda import _payload as hist_cuda_payload
+from .histogram import (dcn_merge, fixed_to_f32, global_shift, histogram_multi,
+                        histogram_multi_merged, histogram_multi_quantized,
+                        histogram_multi_quantized_merged, merge_carry, merge_fixed,
+                        merge_int, owned_features, pack_fixed, unbundle)
 from .partition import segment_ids
 from .partition_cuda import partition_segments
 from .round_cuda import (round_megakernel, round_partition_window, split_window,
@@ -129,7 +131,7 @@ from .round_cuda import (round_megakernel, round_partition_window, split_window,
 from .split import (KMIN_SCORE, BestSplit, SplitParams, find_best_split,
                     leaf_output, select_from_feature_best)
 from .treegrow import (TreeArrays, _empty_best, _put, _set_best, admit,
-                       admits_next, book_tree, elect_best, empty_tree,
+                       admits_next, book_tree, dcn_topk_best, elect_best, empty_tree,
                        go_left_of, quantize_gradients, serial_totals)
 
 
@@ -168,19 +170,44 @@ INFO = 6  # scalars in a round's info vector
 
 
 class Sharding(NamedTuple):
-    """A sharded windowed tree's collective context: the rank's RowShard,
-    the merge, and under ``merge="scatter"`` this rank's feature block
-    (first feature f0) with its split tables (num bins, missing bin,
-    feature mask, categorical mask, contri), padded features never
-    splittable."""
+    """A sharded windowed tree's collective context: the rank's RowShard
+    (its mesh sums over rows: the row-domain axis), the merge, and where
+    features are owned (``merge="scatter"``, or the 2-D mesh) this rank's
+    feature block (first feature f0) with its split tables (num bins,
+    missing bin, feature mask, categorical mask, contri), padded features
+    never splittable.  ``hist_mesh``: the axis the histograms merge over
+    (None: the row-domain one); ``own_mesh``: the axis the owned-feature
+    winner is elected over; ``feature_mesh``: the 2-D mesh's feature axis
+    (the go-left broadcast; the rank's bins are its feature block);
+    ``dcn_mesh`` and ``top_k``: the hierarchical merge's dcn axis and
+    vote size (the histogram state stays in fixed point, per slice; with
+    ``dcn_exhaustive``, a vote that would elect every feature the rank
+    searches, the window sums are summed over dcn too, converted once, and
+    the state is the flat round's)."""
     shard: object
     merge: str = "psum"
     f0: int = 0
     tables: Optional[tuple] = None
+    hist_mesh: object = None
+    own_mesh: object = None
+    feature_mesh: object = None
+    dcn_mesh: object = None
+    top_k: int = 0
+    dcn_exhaustive: bool = False
 
     @property
     def mesh(self):
         return self.shard.mesh
+
+    @property
+    def hmesh(self):
+        return self.shard.mesh if self.hist_mesh is None else self.hist_mesh
+
+    @property
+    def vote(self) -> bool:
+        """The hierarchical top-k exchange searches the splits (below the
+        exhaustive k)."""
+        return self.dcn_mesh is not None and not self.dcn_exhaustive
 
 
 def _own_tables(sh: "Sharding", nbpf, mbpf, fmask, cmask, contri):
@@ -192,14 +219,20 @@ def _own_tables(sh: "Sharding", nbpf, mbpf, fmask, cmask, contri):
 
 
 def _root_best(hist0, g0, h0, c0, leaf_out0, nbpf, mbpf, fmask, cmask, contri,
-               params, rng, sh: Optional["Sharding"]):
+               params, rng, sh: Optional["Sharding"], convert=None):
     nb, mb, fm, cm, fc = _own_tables(sh, nbpf, mbpf, fmask, cmask, contri)
-    best = find_best_split(
-        hist0[None], g0[None], h0[None], c0[None], nb, mb, params,
-        feature_mask=fm, parent_output=leaf_out0[None], categorical_mask=cm,
-        feature_contri=fc, rng_key=None if rng is None else rng[:1])
+    if sh is not None and sh.vote:
+        best = dcn_topk_best(hist0[None], g0[None], h0[None], c0[None], nb, mb, fm,
+                             cm, fc, params=params, top_k=sh.top_k,
+                             dcn=sh.dcn_mesh, convert=convert,
+                             parent_out=leaf_out0[None])
+    else:
+        best = find_best_split(
+            hist0[None], g0[None], h0[None], c0[None], nb, mb, params,
+            feature_mask=fm, parent_output=leaf_out0[None], categorical_mask=cm,
+            feature_contri=fc, rng_key=None if rng is None else rng[:1])
     if sh is not None and sh.tables is not None:
-        best = elect_best(best, sh.mesh, sh.f0)
+        best = elect_best(best, sh.own_mesh, sh.f0)
     return best
 
 
@@ -245,7 +278,9 @@ def _round_fused(state: WState, bins, grad, hess, gq, hq, quant_scale,
     mesh = None if sharding is None else sharding.mesh
     g = round_geometry(state, bins, missing_bin_pf, cmask, num_leaves=num_leaves,
                        leaf_tile=T, max_depth=max_depth, params=params, W=W,
-                       mesh=mesh)
+                       mesh=mesh, feature_mesh=(None if sharding is None
+                                                else sharding.feature_mesh),
+                       f0=0 if sharding is None else sharding.f0)
     i32 = torch.int32
     if sharding is not None:
         return _round_sharded(state, g, bins, grad, hess, gq, hq, quant_scale,
@@ -302,10 +337,19 @@ def _round_sharded(state: WState, g, bins, grad, hess, gq, hq, quant_scale,
                    sharding: Sharding):
     """A sharded round after its geometry: this rank's window sums (B3
     unfused, or the three-pass window pass), merged exactly, then the
-    subtraction and the split search that B3's fused tail would run."""
+    subtraction and the split search that B3's fused tail would run.
+    Hierarchical below the exhaustive top-k: the sums stay in fixed point
+    (slice domain), the subtraction is integer, and convert makes f32 of
+    them for the vote; at it, the sums are merged over dcn too and
+    converted (the flat round's state)."""
     i32 = torch.int32
-    mesh, merge = sharding.mesh, sharding.merge
+    mesh, merge = sharding.hmesh, sharding.merge
+    hier = sharding.dcn_mesh is not None
     T = leaf_tile
+    convert = None
+    if hier:
+        convert = ((lambda h: h.float() * quant_scale[:, None, None]) if quantize_bins
+                   else (lambda h: fixed_to_f32(h, shift)))
     if megakernel:
         new_order, acc64, acc32 = round_partition_window(
             bins, state.order, g.go_left, grad, hess, row_mask,
@@ -320,18 +364,24 @@ def _round_sharded(state: WState, g, bins, grad, hess, gq, hq, quant_scale,
         if quantize_bins:
             fresh_h = window_histograms(
                 histogram_multi_quantized_merged, new_order, bins, (gq, hq), *geo,
-                mesh=mesh, merge=merge).float() * quant_scale[:, None, None]
+                mesh=mesh, merge=merge)
+            fresh_h = (fresh_h.to(torch.int64) if hier
+                       else fresh_h.float() * quant_scale[:, None, None])
         else:
             fresh_h = window_histograms(
                 histogram_multi_merged, new_order, bins, (grad, hess), *geo,
-                shift=shift, mesh=mesh, merge=merge, precision=hist_precision)
+                shift=shift, mesh=mesh, merge=merge, precision=hist_precision,
+                convert=not hier)
+    if hier and sharding.dcn_exhaustive:  # the global window sums, the flat state
+        fresh_h = convert(dcn_merge(fresh_h, sharding.dcn_mesh))
+        convert = None
     rows = round_rows(state, g, new_order, cmask)
     left_h, right_h = split_window(g.parent_hists, fresh_h, g.slot_small_left)
     return round_finish(state, g, rows, left_h, right_h, num_bins_pf,
                         missing_bin_pf, feature_mask, cmask, contri,
                         num_leaves=num_leaves, num_bins=num_bins,
                         max_depth=max_depth, params=params, leaf_tile=T, rng=rng,
-                        sharding=sharding)
+                        sharding=sharding, convert=convert)
 
 
 class RoundGeometry(NamedTuple):
@@ -375,11 +425,16 @@ class RoundGeometry(NamedTuple):
 
 def round_geometry(state: WState, bins, missing_bin_pf, cmask=None, *,
                    num_leaves: int, leaf_tile: int, max_depth: int,
-                   params: SplitParams, W: int, mesh=None) -> RoundGeometry:
+                   params: SplitParams, W: int, mesh=None, feature_mesh=None,
+                   f0: int = 0) -> RoundGeometry:
     """Admission, split decisions, segment and window geometry, the window
     check against W and the order-independent bookkeeping of a round.
     ``mesh``: the rows are one rank's; the window child is the globally
-    smaller one and the window check is merged (module docstring)."""
+    smaller one and the window check is merged (module docstring).
+    ``feature_mesh``: ``bins`` hold this rank's feature block (first
+    feature ``f0``) of a 2-D mesh; each position's decision comes from the
+    block that owns its segment's split feature, one masked psum over the
+    feature axis (the round's only feature-axis data)."""
     L, T = num_leaves, leaf_tile
     n, f = bins.shape
     dev = bins.device
@@ -402,13 +457,21 @@ def round_geometry(state: WState, bins, missing_bin_pf, cmask=None, *,
     sid = seg_id.clamp_min(0)
     # each position's bin of its segment's split feature: one gather of the
     # row-major matrix (a contiguous row, one column of it)
-    col = bins.view(-1)[state.order.long() * f + feats_rk[sid]].to(torch.int32)
+    feats_col = feats_rk
+    if feature_mesh is not None:  # global feature -> this block's column
+        own_rk = (feats_rk >= f0) & (feats_rk < f0 + f)
+        feats_col = (feats_rk - f0).clamp(0, f - 1)
+    col = bins.view(-1)[state.order.long() * f + feats_col[sid]].to(torch.int32)
     thr = s.threshold_bin[leaf_of_rank][sid]
     dl = s.default_left[leaf_of_rank][sid]
     mb = missing_bin_pf[feats_rk][sid]
     go_left = go_left_of(col, mb, dl, thr, *(
         (s.is_cat[leaf_of_rank][sid], s.cat_mask[leaf_of_rank][sid, col.long()])
         if cmask is not None else ()))
+    if feature_mesh is not None:
+        own_pos = own_rk[sid] & (seg_id >= 0)
+        go_left = C.psum(torch.where(own_pos, go_left, False).to(torch.int32),
+                         feature_mesh) > 0
 
     # ---- on-device window verification ----
     # segments are contiguous position ranges: differences of one prefix sum
@@ -530,12 +593,14 @@ def round_finish(state: WState, g: RoundGeometry, rows, left_h, right_h,
                  num_bins_pf, missing_bin_pf, feature_mask, cmask=None,
                  contri=None, *, num_leaves: int, num_bins: int, max_depth: int,
                  params: SplitParams, leaf_tile: int, fbests=None, rng=None,
-                 sharding: Optional[Sharding] = None):
+                 sharding: Optional[Sharding] = None, convert=None):
     """The children's histograms into the state, their split search (from
     the megakernel's per-feature bests ``fbests``, or in torch), the
     next-window bound and the info vector.  Returns (state', info).
     ``sharding``: a sharded round's search (this rank's feature block and
-    the election under the scatter merge) and merged bound and flag."""
+    the election where features are owned; the two-level top-k search of
+    the hierarchical mesh, over fixed-point children that ``convert``
+    makes f32) and merged bound and flag."""
     L, T = num_leaves, leaf_tile
     new_order, leaf_id, tree, best = rows
     dev = left_h.device
@@ -557,12 +622,18 @@ def round_finish(state: WState, g: RoundGeometry, rows, left_h, right_h,
         node_ids = g.leaf_parent.clamp_min(0) * 2 + g.leaf_side + 1
         nb, mb, fm, cm, fc = _own_tables(sharding, num_bins_pf, missing_bin_pf,
                                          feature_mask, cmask, contri)
-        bb = find_best_split(torch.cat([left_h, right_h]), pg, ph, pc, nb, mb,
-                             params, feature_mask=fm, parent_output=g.leaf_out[ci],
-                             categorical_mask=cm, feature_contri=fc,
-                             rng_key=None if rng is None else rng[node_ids[ci]])
+        cand_h = torch.cat([left_h, right_h])
+        if sharding is not None and sharding.vote:
+            bb = dcn_topk_best(cand_h, pg, ph, pc, nb, mb, fm, cm, fc, params=params,
+                               top_k=sharding.top_k, dcn=sharding.dcn_mesh,
+                               convert=convert, parent_out=g.leaf_out[ci])
+        else:
+            bb = find_best_split(cand_h, pg, ph, pc, nb, mb, params, feature_mask=fm,
+                                 parent_output=g.leaf_out[ci], categorical_mask=cm,
+                                 feature_contri=fc,
+                                 rng_key=None if rng is None else rng[node_ids[ci]])
         if sharding is not None and sharding.tables is not None:
-            bb = elect_best(bb, sharding.mesh, sharding.f0)
+            bb = elect_best(bb, sharding.own_mesh, sharding.f0)
     scatter_pos = torch.where(cand_ok, g.cand, drop)
     best = BestSplit(*[_put(o, scatter_pos, nw) for o, nw in zip(best, bb)])
 
@@ -626,8 +697,9 @@ def _w_init(bins, grad, hess, row_mask, sample_weight, num_bins_pf,
             grad, hess, row_mask, quantize_bins, stochastic_rounding, generator,
             None if sharding is None else sharding.shard)
     slot0 = torch.zeros(n, dtype=torch.int32, device=dev)
+    convert = None
     if sharding is not None:
-        mesh, merge = sharding.mesh, sharding.merge
+        mesh, hmesh, merge = sharding.mesh, sharding.hmesh, sharding.merge
         shift = global_shift(grad, hess, sharding.shard)
         if check_finite:  # the tree's one blocking read: all ranks' maxima
             am = C.pmax(torch.stack([grad.float().abs().amax(),
@@ -635,18 +707,25 @@ def _w_init(bins, grad, hess, row_mask, sample_weight, num_bins_pf,
                         if n else torch.zeros(2, device=dev), mesh)
             if not np.isfinite(_san.sync_pull(am)).all():
                 raise NonFiniteError("non-finite gradients or hessians on some rank")
-        if quantize_bins:
-            hist0 = histogram_multi_quantized_merged(
-                bins, gq, hq, row_mask, slot0, 0, 1, num_bins, mesh, merge
-            )[0].float() * quant_scale[:, None, None]
+        if sharding.dcn_mesh is not None:
+            hist0, tot0, convert = _hier_root(bins, grad, hess, gq, hq, quant_scale,
+                                              row_mask, slot0, num_bins, shift,
+                                              sharding, hist_precision,
+                                              num_bins_pf.shape[0])
         else:
-            hist0 = histogram_multi_merged(bins, grad, hess, row_mask, slot0, 0, 1,
-                                           num_bins, shift, mesh, merge,
-                                           precision=hist_precision)[0]
-        tot0 = torch.sum(hist0[:, 0, :], dim=1)  # totals from feature 0
-        if merge == "scatter":  # global feature 0 is rank 0's
-            tot0 = C.broadcast_from(serial_totals(hist0[:, 0, :], num_bins_pf.shape[0]),
-                                    torch.zeros((), device=dev), mesh)
+            if quantize_bins:
+                hist0 = histogram_multi_quantized_merged(
+                    bins, gq, hq, row_mask, slot0, 0, 1, num_bins, hmesh, merge
+                )[0].float() * quant_scale[:, None, None]
+            else:
+                hist0 = histogram_multi_merged(bins, grad, hess, row_mask, slot0, 0, 1,
+                                               num_bins, shift, hmesh, merge,
+                                               precision=hist_precision)[0]
+            tot0 = torch.sum(hist0[:, 0, :], dim=1)  # totals from feature 0
+            if sharding.tables is not None:  # global feature 0 is block 0's
+                tot0 = C.broadcast_from(
+                    serial_totals(hist0[:, 0, :], num_bins_pf.shape[0]),
+                    torch.zeros((), device=dev), sharding.own_mesh)
         g0, h0, c0 = tot0
     else:
         if check_finite:
@@ -667,13 +746,13 @@ def _w_init(bins, grad, hess, row_mask, sample_weight, num_bins_pf,
     best = _empty_best(L, num_bins, dev)
     _set_best(best, torch.zeros(1, dtype=torch.int64, device=dev), _root_best(
         hist0, g0, h0, c0, leaf_out0, num_bins_pf, missing_bin_pf, feature_mask,
-        categorical_mask, feature_contri, params, rng, sharding))
+        categorical_mask, feature_contri, params, rng, sharding, convert))
 
     def zeros(shape, dtype=torch.float32):
         return torch.zeros(shape, dtype=dtype, device=dev)
 
     if hist is None:
-        hist = zeros((L + 1, 3, hist0.shape[1], num_bins))
+        hist = zeros((L + 1, 3, hist0.shape[1], num_bins), hist0.dtype)
     else:
         hist.zero_()
     hist[0] = hist0
@@ -696,6 +775,43 @@ def _w_init(bins, grad, hess, row_mask, sample_weight, num_bins_pf,
     inputs = WInputs(grad, hess, gq, hq, quant_scale, row_mask, feature_mask,
                      shift, rng)
     return state, inputs, grad_true, hess_true
+
+
+def _hier_root(bins, grad, hess, gq, hq, quant_scale, row_mask, slot0,
+               num_bins: int, shift, sharding: Sharding, hist_precision: str,
+               num_feature: int):
+    """The hierarchical root: this rank's pass over its rows, merged over
+    the slice (ici) and kept in fixed point (the slice-domain root), and
+    the tree's totals from global feature 0, its column summed over every
+    rank as integers and converted as the serial pass converts it; with
+    ``dcn_exhaustive`` the root summed over dcn too and converted (the flat
+    round's root).  Returns (hist0 (3, F, B) int64, or f32 when
+    exhaustive, totals (3,) f32, convert or None)."""
+    hmesh, merge = sharding.hmesh, sharding.merge
+    if gq is not None:
+        loc = histogram_multi_quantized(bins, gq, hq, row_mask, slot0, 0, 1, num_bins)
+        col = C.psum(loc[0, :, 0, :].to(torch.int64), sharding.mesh)
+        col_f32 = col.float() * quant_scale[:, None]
+        hist0 = merge_int(loc, hmesh, merge)[0].to(torch.int64)
+
+        def convert(h):
+            return h.float() * quant_scale[:, None, None]
+    else:
+        g, h = hist_cuda_payload(grad, hess, hist_precision)
+        acc = CarryAccumulator(1, bins.shape[1], num_bins, shift, bins.device)
+        histogram_multi_carry(bins, g.float().contiguous(), h.float().contiguous(),
+                              row_mask, slot0, 0, acc)
+        col = C.psum(pack_fixed(acc.acc64[:, :, :1], acc.acc32[:, :1])[0, :, 0, :],
+                     sharding.mesh)
+        col_f32 = fixed_to_f32(col[None, :, None, :], shift)[0, :, 0, :]
+        hist0 = pack_fixed(*merge_fixed(acc.acc64, acc.acc32, hmesh, merge))[0]
+
+        def convert(h):
+            return fixed_to_f32(h, shift)
+    if sharding.dcn_exhaustive:
+        return (convert(dcn_merge(hist0[None], sharding.dcn_mesh))[0],
+                serial_totals(col_f32, num_feature), None)
+    return hist0, serial_totals(col_f32, num_feature), convert
 
 
 def renew_leaf_hist(leaf_id, grad_true, hess_true, row_mask, L: int, shard=None):
@@ -912,8 +1028,17 @@ def _sharding(shard, merge: str, rng_key, graphs, efb, nbpf, mbpf, fmask, cmask,
             "merge='scatter' (owned-feature split search) is incompatible with "
             "per-node feature sampling (feature_fraction_bynode/extra_trees): "
             "each rank would sample only its owned block; use merge='psum'")
+    f0, k, fp = owned_features(nbpf.shape[0], shard.mesh)
+    return Sharding(shard, merge, f0, feature_block_tables(
+        f0, k, fp, nbpf, mbpf, fmask, cmask, contri), own_mesh=shard.mesh)
+
+
+def feature_block_tables(f0: int, k: int, fp: int, nbpf, mbpf, fmask, cmask,
+                         contri) -> tuple:
+    """The split tables of the feature block [f0, f0 + k) of the features
+    padded to ``fp``: pads have one bin, no missing bin, are masked and
+    have contri 1, so they never split."""
     f = nbpf.shape[0]
-    f0, k, fp = owned_features(f, shard.mesh)
 
     def block(v, fill):
         if v is None:
@@ -923,9 +1048,8 @@ def _sharding(shard, merge: str, rng_key, graphs, efb, nbpf, mbpf, fmask, cmask,
                                          device=v.device)])
         return v[f0:f0 + k].contiguous()
 
-    return Sharding(shard, merge, f0, (block(nbpf, 1), block(mbpf, -1),
-                                       block(fmask, False), block(cmask, False),
-                                       block(contri, 1.0)))
+    return (block(nbpf, 1), block(mbpf, -1), block(fmask, False),
+            block(cmask, False), block(contri, 1.0))
 
 
 def grow_tree_windowed(
@@ -958,6 +1082,7 @@ def grow_tree_windowed(
     rng_key: Optional[torch.Tensor] = None,  # (2L-1, 2, F) node uniforms
     axis_name=None,  # parallel/mesh.py::RowShard: this rank's rows
     merge: str = "psum",  # sharded: psum | scatter
+    sharding: Optional[Sharding] = None,  # 2-D / hierarchical (parallel/)
     **options,
 ) -> tuple[TreeArrays, torch.Tensor]:
     """Grow one tree with windowed rounds; returns (tree, leaf_id per row).
@@ -973,14 +1098,19 @@ def grow_tree_windowed(
     three-pass round too).  ``axis_name``: the rows are one rank's of a
     data-parallel training, merged by ``merge`` (module docstring; eager
     rounds, no EFB plan; the scatter merge refuses per-node sampling, whose
-    draw must span every feature on every rank)."""
+    draw must span every feature on every rank).  ``sharding``: a 2-D or
+    hierarchical mesh's context, built by parallel/feature2d.py and
+    parallel/hierarchy.py (eager rounds, three-pass)."""
     if options:
         raise TypeError(f"unexpected options: {sorted(options)}")
     if feature_mask is None:
         feature_mask = torch.ones(bins.shape[1], dtype=torch.bool,
                                   device=bins.device)
-    sharding = None
-    if axis_name is not None:
+    if sharding is not None:
+        if graphs is not None or efb is not None or rng_key is not None:
+            raise ValueError("the 2-D and hierarchical rounds run eagerly over the "
+                             "feature bins, without per-node sampling")
+    elif axis_name is not None:
         sharding = _sharding(axis_name, merge, rng_key, graphs, efb,
                              num_bins_per_feature, missing_bin_per_feature,
                              feature_mask, categorical_mask, feature_contri)

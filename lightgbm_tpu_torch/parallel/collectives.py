@@ -23,7 +23,9 @@ all_gather_single (newer PyTorch; the older names warn there) are used
 where they exist.
 
 All ranks must call the same collectives in the same order: the growers
-keep every decision that chooses a collective replicated.
+keep every decision that chooses a collective replicated.  Each call
+counts itself and its input's bytes in the stats of the Mesh it runs over
+(``_count``), so a 2-D or hierarchical mesh's counts are per axis.
 """
 
 from __future__ import annotations
@@ -39,8 +41,13 @@ _all_gather = (getattr(dist, "all_gather_single", None)
                or dist.all_gather_into_tensor)
 
 
-def _reduce(x: torch.Tensor, mesh: Mesh, op) -> torch.Tensor:
+def _count(x: torch.Tensor, mesh: Mesh) -> None:
     mesh.stats["collectives"] += 1
+    mesh.stats["bytes"] += x.numel() * x.element_size()
+
+
+def _reduce(x: torch.Tensor, mesh: Mesh, op) -> torch.Tensor:
+    _count(x, mesh)
     if x.dtype == torch.bool:
         y = x.to(torch.uint8)
         dist.all_reduce(y, op=op, group=mesh.group)
@@ -66,7 +73,7 @@ def pmin(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
 def psum_scatter(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     """This rank's block of the sum over the ranks: rows [r * k, (r + 1) * k)
     of the summed ``x``, k = x.shape[0] / R."""
-    mesh.stats["collectives"] += 1
+    _count(x, mesh)
     r = mesh.size
     if x.shape[0] % r:
         raise ValueError(f"psum_scatter: dim 0 ({x.shape[0]}) is not a multiple "
@@ -80,7 +87,7 @@ def psum_scatter(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
 
 def all_gather(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     """The ranks' ``x`` (equal shapes) concatenated over dim 0, rank order."""
-    mesh.stats["collectives"] += 1
+    _count(x, mesh)
     x = x.contiguous()
     out = torch.empty((x.shape[0] * mesh.size,) + tuple(x.shape[1:]),
                       dtype=x.dtype, device=x.device)

@@ -1,6 +1,6 @@
 """Multi-process training launcher (the Dask-orchestration analogue).
 
-Counterpart of lightgbm_tpu/parallel/launcher.py without its recovery
+Counterpart of lightgbm_tpu/parallel/launcher.py
 (reference: python-package/lightgbm/dask.py: align partitions to workers,
 find open ports, build the ``machines`` list, inject num_machines /
 local_listen_port / tree_learner, run plain ``train`` on every worker,
@@ -10,8 +10,9 @@ Workers are local processes running ``_WORKER_SRC``, which imports only
 this package: each builds its Dataset from ONLY its row shard (consecutive
 blocks in rank order, no padding: ``pre_partition``, the bin boundaries
 from the serial run's sample, basic.py::_sync_binning_sample; with
-tree_learner=feature every rank gets all rows), brings up the process group
-(parallel/distributed.py) and calls ``lightgbm_tpu_torch.train``.  Every rank
+tree_learner=feature every rank gets all rows; with tree_learner=feature2d
+the ranks of one row block of the 2-D mesh get that block), brings up the
+process group (parallel/distributed.py) and calls ``lightgbm_tpu_torch.train``.  Every rank
 ends with the same model; rank 0's is returned.  Eval sets are sharded the
 same way and their metrics are evaluated over every rank's rows
 (models/gbdt.py::_eval_at_synced), so early stopping fires on every rank
@@ -26,9 +27,18 @@ The workers' events, metrics snapshots and traces are merged into the
 launch directory (``fleet_events.jsonl``, ``fleet_metrics.json``,
 ``fleet_trace.json``) on every exit path.
 
-Not here (ROADMAP A13b): the elastic and slice-granular recovery
-(``max_restarts``, ``num_slices``, coordinated fleet checkpoints through
-``snapshot_freq``), which raise.
+Recovery (the JAX package's): ``max_restarts`` relaunches the whole fleet
+on fresh ports after a failure, with exponential backoff.  With
+``snapshot_freq`` > 0 the fleet keeps coordinated checkpoints (the
+worker's callback: rank 0 writes the snapshot and the manifest, every
+other rank its acknowledgement, utils/checkpoint.py), and a relaunch
+resumes every rank from the newest fleet-valid manifest
+(``LGBMTPU_RESUME_MANIFEST``, engine.train's ``resume=<manifest>``): the
+final model is the uninterrupted run's bit for bit.  ``num_slices`` > 1
+makes each slice its own world training the shared shard plan; a rank's
+failure kills and respawns only its slice, from the newest slice-valid
+round (``LGBMTPU_RESUME_EXCLUDE_RANKS``), while the other slices run on;
+the slow-rank check compares heartbeats inside a slice.
 
 ``run_spmd`` runs a script on R ranks of a gloo (or NCCL) process group
 under the same watchdog: the tests' way to run the sharded growers.
@@ -36,6 +46,7 @@ under the same watchdog: the tests' way to run the sharded growers.
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import signal
@@ -51,6 +62,7 @@ import numpy as np
 from ..config import _ALIASES, Config
 from ..obs import metrics as _obs
 from ..obs import trace as _trace
+from ..utils import checkpoint as _checkpoint
 from ..utils.log import log_warning
 
 _WORKER_SRC = r"""
@@ -61,7 +73,9 @@ import numpy as np
 shard = np.load(os.environ["LGBM_TPU_SHARD"], allow_pickle=True)
 net = {k: shard[k].item() for k in ("num_machines", "machines",
                                     "local_listen_port", "time_out")}
-wid = os.environ["LIGHTGBM_TPU_RANK"]
+# the rendezvous rank is slice-local; the worker id is fleet-global (model
+# outputs, acks and shard fingerprints key on it)
+wid = os.environ.get("LGBM_TPU_WORKER_ID", os.environ["LIGHTGBM_TPU_RANK"])
 
 from lightgbm_tpu_torch.obs import metrics as _obs_metrics
 
@@ -118,10 +132,38 @@ if os.environ.get("LGBMTPU_FAULT"):
     _fault_cb.before_iteration = True
     _fault_cb.order = -100
     callbacks.append(_fault_cb)
+_ckpt_dir = os.environ.get("LGBMTPU_FLEET_CKPT_DIR")
+_ckpt_freq = int(os.environ.get("LGBMTPU_FLEET_SNAPSHOT_FREQ", "0") or 0)
+if _ckpt_dir and _ckpt_freq > 0:
+    # coordinated fleet checkpoints: every _ckpt_freq global iterations rank
+    # 0 writes the snapshot and the manifest, every other rank its ack; a
+    # round is resumable only once every rank confirmed it
+    from lightgbm_tpu_torch.utils import checkpoint as _ckpt
+
+    _world = int(os.environ.get("LGBMTPU_FLEET_WORLD", str(net["num_machines"])))
+    _keep = int(os.environ.get("LGBMTPU_FLEET_SNAPSHOT_KEEP", "0") or 0)
+    _slices = json.loads(os.environ.get("LGBMTPU_FLEET_SLICES", "{}")) or None
+    with open(os.environ["LGBMTPU_FLEET_SHARDS_JSON"]) as fh:
+        _shards = json.load(fh)
+
+    def _fleet_ckpt_cb(env):
+        it = env.model.current_iteration()  # global: a resumed run keeps it
+        if it % _ckpt_freq:
+            return
+        text = env.model.model_to_string(raw_deltas=True)
+        if wid == "0":
+            _ckpt.write_fleet_checkpoint(_ckpt_dir, text, it, _world, _shards,
+                                         keep=_keep, slices=_slices)
+        else:
+            _ckpt.confirm_fleet_checkpoint(_ckpt_dir, it, int(wid), text)
+    _fleet_ckpt_cb.order = 100
+    callbacks.append(_fleet_ckpt_cb)
 
 bst = lgb.train(params, ds, int(os.environ["LGBM_TPU_ROUNDS"]),
                 valid_sets=valid_sets or None, valid_names=valid_names or None,
-                callbacks=callbacks)
+                callbacks=callbacks,
+                # a relaunched fleet resumes from the newest fleet-valid manifest
+                resume=os.environ.get("LGBMTPU_RESUME_MANIFEST") or None)
 out = os.environ["LGBM_TPU_MODEL_OUT"]
 bst.save_model(out + f".rank{wid}")
 if wid == "0":
@@ -132,9 +174,11 @@ if wid == "0":
             "round_stats": [{k: v for k, v in s.items()
                              if isinstance(v, (int, float, str, bool))}
                             for s in bst._gbdt.round_stats]}
-    dp = bst._gbdt._dp if bst._gbdt._dp is not None else bst._gbdt._fp
-    if dp is not None:
-        meta["mesh_stats"] = dict(dp.mesh.stats)
+    g = bst._gbdt
+    for key, d in (("mesh_stats", g._dp if g._dp is not None else g._fp),
+                   ("mesh_2d_stats", g._dp2d), ("mesh_hier_stats", g._dp_hier)):
+        if d is not None:
+            meta[key] = json.loads(json.dumps(d.mesh.stats))
     with open(out + ".meta.json", "w") as fh:
         json.dump(meta, fh)
 if _snap_path:
@@ -169,14 +213,30 @@ _REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__
 class WorkerFailure(RuntimeError):
     """A launcher worker died (non-zero exit), hung (heartbeat stale past
     the timeout), or the launch timed out; ``rank`` is the failing rank
-    (None for a timeout)."""
+    (None for a timeout).  ``slice_id`` is set when the failure was handled
+    slice-granularly: only that slice's workers were killed, the others
+    still run, and the caller respawns the slice."""
 
     def __init__(self, msg: str, rank: Optional[int] = None,
-                 timed_out: bool = False, hung: bool = False):
+                 timed_out: bool = False, hung: bool = False,
+                 slice_id: Optional[int] = None):
         super().__init__(msg)
         self.rank = rank
         self.timed_out = timed_out
         self.hung = hung
+        self.slice_id = slice_id
+
+
+# the slow-rank check's floor on a heartbeat age (s), over the snapshot
+# period and the read cadence
+_SLOW_RANK_FLOOR_S = 1.0
+
+
+def _snapshot_period() -> float:
+    try:
+        return float(os.environ.get("LGBMTPU_METRICS_SNAPSHOT_PERIOD_S", "1.0"))
+    except ValueError:
+        return 1.0
 
 
 def _kill_worker_group(proc: subprocess.Popen) -> None:
@@ -224,17 +284,42 @@ def _read_heartbeat(snap_path: Optional[str]) -> Optional[float]:
 
 def _watch_workers(workers, timeout_s: float, poll_interval: float = 0.1,
                    heartbeat_timeout_s: Optional[float] = None,
-                   heartbeat_paths: Optional[Dict[int, str]] = None) -> None:
+                   heartbeat_paths: Optional[Dict[int, str]] = None,
+                   slow_rank_factor: float = 0.0,
+                   hb_ages: Optional[Dict[int, float]] = None,
+                   slice_of: Optional[Dict[int, int]] = None,
+                   slice_granular: bool = False,
+                   done: Optional[set] = None) -> None:
     """Wait for every worker ((rank, Popen, log_path)) to exit 0.  A worker
     that exits non-zero, a worker whose heartbeat stops changing for more
     than ``heartbeat_timeout_s`` (armed once it has changed, so the first
-    round's set-up is not a hang), and a launch past ``timeout_s`` raise
-    WorkerFailure; every worker's process group is killed on every
-    failure path."""
+    round's set-up is not a hang; the stalest such rank is blamed, the
+    others wait on it), and a launch past ``timeout_s`` raise WorkerFailure.
+    ``slow_rank_factor`` > 0 emits one ``fleet_slow_rank`` event an episode
+    for a rank whose heartbeat age passes factor x the lower median of its
+    group (its slice with ``slice_of``, else the fleet) and a floor;
+    nothing is killed.  ``hb_ages`` is kept updated with each rank's age.
+    Every worker is killed on every failure path, unless
+    ``slice_granular`` and the failing rank has a slice: then only that
+    slice's workers are killed and the raised failure carries
+    ``slice_id``.  ``done`` (ranks that exited 0) may be carried across
+    calls (the slice respawn re-enters the watch)."""
     deadline = time.monotonic() + timeout_s
-    done: set = set()
+    done = set() if done is None else done
     hb_seen: Dict[int, Tuple[float, float, bool]] = {}
     hb_next = 0.0
+    slow_active: set = set()
+    watch_hb = bool((heartbeat_timeout_s or slow_rank_factor or hb_ages is not None)
+                    and heartbeat_paths)
+
+    def failure(rank, msg, hung=False):
+        sid = slice_of.get(rank) if slice_granular and slice_of else None
+        if sid is not None:
+            for r2, p2, _ in workers:
+                if slice_of.get(r2) == sid and p2.poll() is None:
+                    _kill_worker_group(p2)
+        return WorkerFailure(msg, rank=rank, hung=hung, slice_id=sid)
+
     try:
         while len(done) < len(workers):
             for rank, proc, log_path in workers:
@@ -250,33 +335,49 @@ def _watch_workers(workers, timeout_s: float, poll_interval: float = 0.1,
                 _obs.counter("launcher_worker_deaths_total").inc()
                 _obs.event("worker_death", worker_rank=rank, exit_code=rc,
                            log=log_path)
-                raise WorkerFailure(
-                    f"launcher worker rank {rank} died with exit code {rc}. "
-                    f"Tail of its log ({log_path}):\n{_log_tail(log_path)}",
-                    rank=rank)
+                raise failure(rank,
+                              f"launcher worker rank {rank} died with exit code {rc}. "
+                              f"Tail of its log ({log_path}):\n{_log_tail(log_path)}")
             now = time.monotonic()
-            if heartbeat_timeout_s and heartbeat_paths and now >= hb_next:
-                hb_next = now + min(1.0, heartbeat_timeout_s / 4.0)
+            if watch_hb and now >= hb_next:
+                hb_next = now + (min(1.0, heartbeat_timeout_s / 4.0)
+                                 if heartbeat_timeout_s else 1.0)
+                stalest = None
+                ages: Dict[int, float] = {}
                 for rank, proc, log_path in workers:
-                    if rank in done or proc.poll() is not None:
-                        continue
-                    hb = _read_heartbeat(heartbeat_paths.get(rank))
+                    hb = (None if rank in done or proc.poll() is not None
+                          else _read_heartbeat(heartbeat_paths.get(rank)))
                     if hb is None:
+                        if hb_ages is not None:
+                            hb_ages.pop(rank, None)
                         continue
                     prev = hb_seen.get(rank)
                     if prev is None or hb != prev[0]:
                         hb_seen[rank] = (hb, now, prev is not None)
+                        if prev is not None:
+                            ages[rank] = 0.0
                         continue
-                    if prev[2] and now - prev[1] > heartbeat_timeout_s:
-                        _obs.counter("fleet_hangs_total").inc()
-                        _obs.event("worker_hang", worker_rank=rank,
-                                   stale_s=round(now - prev[1], 3), log=log_path)
-                        raise WorkerFailure(
-                            f"launcher worker rank {rank} HUNG: heartbeat "
-                            f"unchanged for {now - prev[1]:.1f}s (> "
-                            f"{heartbeat_timeout_s:g}s). Tail of its log "
-                            f"({log_path}):\n{_log_tail(log_path)}",
-                            rank=rank, hung=True)
+                    if not prev[2]:
+                        continue
+                    ages[rank] = stale = now - prev[1]
+                    if (heartbeat_timeout_s and stale > heartbeat_timeout_s
+                            and (stalest is None or stale > stalest[0])):
+                        stalest = (stale, rank, proc, log_path)
+                if hb_ages is not None:
+                    hb_ages.update(ages)
+                if slow_rank_factor and len(ages) >= 2:
+                    _note_slow_ranks(ages, slice_of, slow_rank_factor, slow_active)
+                if stalest is not None:
+                    stale, rank, proc, log_path = stalest
+                    _obs.counter("fleet_hangs_total").inc()
+                    _obs.event("worker_hang", worker_rank=rank, stale_s=round(stale, 3),
+                               heartbeat_timeout_s=heartbeat_timeout_s, log=log_path)
+                    _kill_worker_group(proc)
+                    raise failure(rank,
+                                  f"launcher worker rank {rank} HUNG: heartbeat "
+                                  f"unchanged for {stale:.1f}s (> "
+                                  f"{heartbeat_timeout_s:g}s). Tail of its log "
+                                  f"({log_path}):\n{_log_tail(log_path)}", hung=True)
             if now > deadline:
                 _obs.counter("launcher_timeouts_total").inc()
                 _obs.event("launch_timeout", timeout_s=timeout_s)
@@ -287,11 +388,72 @@ def _watch_workers(workers, timeout_s: float, poll_interval: float = 0.1,
                     f"process groups killed. Worker log tails:\n{tails}",
                     timed_out=True)
             time.sleep(poll_interval)
-    except BaseException:
-        for _, p, _ in workers:
-            if p.poll() is None:
-                _kill_worker_group(p)
+    except BaseException as e:
+        # a slice-scoped failure leaves the other slices running for the
+        # respawned slice to rejoin
+        if not (isinstance(e, WorkerFailure) and e.slice_id is not None):
+            for _, p, _ in workers:
+                if p.poll() is None:
+                    _kill_worker_group(p)
         raise
+
+
+def _note_slow_ranks(ages: Dict[int, float], slice_of, factor: float,
+                     slow_active: set) -> None:
+    """The slow-rank check on one read of the heartbeats: a rank is slow
+    when its age passes ``factor`` x the lower median of its group's ages
+    (its slice's, with ``slice_of``) and the floor; one event an episode."""
+    groups: Dict[Optional[int], list] = {}
+    for rank, age in ages.items():
+        groups.setdefault(slice_of.get(rank) if slice_of else None, []).append(age)
+    floor = max(_SLOW_RANK_FLOOR_S, 2.0 * _snapshot_period() + 1.0)
+    for rank, age in ages.items():
+        gid = slice_of.get(rank) if slice_of else None
+        group = sorted(groups[gid])
+        if len(group) < 2:
+            continue  # a lone rank has no peer cadence
+        med = group[(len(group) - 1) // 2]
+        slow = age > max(factor * med, floor)
+        if slow and rank not in slow_active:
+            slow_active.add(rank)
+            _obs.counter("fleet_slow_ranks_total").inc()
+            _obs.event("fleet_slow_rank", worker_rank=rank, age_s=round(age, 3),
+                       fleet_median_s=round(med, 3), factor=factor, slice=gid)
+        elif not slow:
+            slow_active.discard(rank)
+
+
+def _fleet_live_collector(tmp: str, num_machines: int, hb_ages: Dict[int, float],
+                          slice_of: Optional[Dict[int, int]] = None):
+    """The launcher's live fleet view for its own /metrics: every rank's
+    periodic snapshot file with ``rank`` labels, and each rank's heartbeat
+    age (``fleet_heartbeat_age_s``, labelled by slice too).  Host file
+    reads only; a torn file skips one scrape."""
+    def collect() -> Dict[str, Dict[str, float]]:
+        out: Dict[str, Dict[str, float]] = {"counters": {}, "gauges": {}}
+        for r in range(num_machines):
+            try:
+                with open(os.path.join(tmp, f"worker{r}.metrics.json"),
+                          encoding="utf-8") as fh:
+                    snap = json.load(fh)
+            except (OSError, ValueError):
+                continue
+            if not isinstance(snap, dict):
+                continue
+            for kind, cast in (("counters", int), ("gauges", float)):
+                for name, v in (snap.get(kind) or {}).items():
+                    try:
+                        out[kind][_obs.labeled(name, rank=r)] = cast(v)
+                    except (TypeError, ValueError):
+                        pass
+        for r, age in list(hb_ages.items()):
+            labels = {"rank": r}
+            if slice_of is not None and r in slice_of:
+                labels["slice"] = slice_of[r]
+            out["gauges"][_obs.labeled("fleet_heartbeat_age_s", **labels)] = float(age)
+        return out
+
+    return collect
 
 
 def aggregate_fleet_events(tmp: str, num_machines: int, since: float = 0.0) -> str:
@@ -387,6 +549,33 @@ def _rank_arrays(slices, groups, rank, X, y, weight):
     return X[lo:hi], np.asarray(y)[lo:hi], w, (g if g is not None else np.asarray(()))
 
 
+# the most recent train_distributed launch directory: its fleet_events.jsonl
+# and fleet_metrics.json after a failed launch too
+_LAST_LAUNCH_DIR: Optional[str] = None
+
+
+def _row_blocks(params: Dict, ranks: int) -> Tuple[int, int]:
+    """(row blocks, ranks a block) of one world's shard plan: each rank its
+    own block, but under tree_learner=feature2d with num_feature_shards
+    d_f > 1 dividing the world the d_f ranks of one row of the 2-D mesh
+    share a block (models/gbdt.py::_set_learner makes the same choice)."""
+    cfg = Config.from_dict(params)
+    d_f = max(int(cfg.num_feature_shards), 1)
+    if cfg.tree_learner == "feature2d" and d_f > 1 and ranks % d_f == 0:
+        return ranks // d_f, d_f
+    return ranks, 1
+
+
+def _fingerprint(arrays) -> str:
+    """sha256 of a shard's data (not its file, whose zip stamps differ
+    between relaunches): what a resumed round must see again."""
+    h = hashlib.sha256()
+    for arr in arrays:
+        if arr is not None:
+            h.update(np.ascontiguousarray(arr).tobytes())
+    return h.hexdigest()
+
+
 def train_distributed(params: Dict, X: np.ndarray, y: np.ndarray,
                       num_boost_round: int = 100, *, num_machines: int = 2,
                       weight: Optional[np.ndarray] = None,
@@ -397,7 +586,8 @@ def train_distributed(params: Dict, X: np.ndarray, y: np.ndarray,
                       eval_names: Optional[Sequence[str]] = None,
                       early_stopping_rounds: Optional[int] = None,
                       timeout_s: int = 600, env_extra: Optional[Dict[str, str]] = None,
-                      max_restarts: int = 0, heartbeat_timeout_s: Optional[float] = None,
+                      max_restarts: int = 0, restart_backoff_s: float = 1.0,
+                      heartbeat_timeout_s: Optional[float] = None,
                       num_slices: Optional[int] = None,
                       data_cache: Optional[str] = None):
     """Shard rows over ``num_machines`` local worker processes, train with
@@ -406,21 +596,35 @@ def train_distributed(params: Dict, X: np.ndarray, y: np.ndarray,
     ``eval_set`` each eval set is sharded the same way and its metrics are
     evaluated over every rank's rows.  ``data_cache``: a save_binary cache
     instead of (X, y), each rank reading only its rows (bin_cache_shard).
-    ``max_restarts`` > 0, ``num_slices`` > 1 and ``snapshot_freq`` > 0
-    (the recovery of a failed fleet) are ROADMAP A13b and raise.  The
-    returned booster carries the run's merged events, metrics and trace
-    paths (``_fleet_events``, ``_fleet_metrics``, ``_fleet_trace``) and,
-    from rank 0, ``_distributed_meta`` (round stats, the collectives'
-    counts)."""
+
+    ``max_restarts`` relaunches the fleet after a failure (fresh ports,
+    backoff ``restart_backoff_s`` x 2^attempt); with ``snapshot_freq`` > 0
+    in ``params`` the relaunch resumes from the newest fleet-valid manifest
+    (module docstring), else from scratch.  A hung rank (heartbeat stale
+    past ``heartbeat_timeout_s``, or LGBMTPU_HEARTBEAT_TIMEOUT_S, or the
+    parameter) is killed and handled as a death.  ``num_slices`` > 1
+    (argument or parameter) groups the ranks into slice worlds of
+    num_machines / num_slices, each training the shared plan; a failure
+    respawns only its slice (up to ``max_restarts`` times) from the newest
+    slice-valid round.  The returned booster carries the run's merged
+    events, metrics and trace paths (``_fleet_events``, ``_fleet_metrics``,
+    ``_fleet_trace``) and, from rank 0, ``_distributed_meta`` (round stats,
+    the collectives' counts)."""
     import lightgbm_tpu_torch as lgb
 
+    global _LAST_LAUNCH_DIR
     cfg = Config.from_dict(params)
-    if max_restarts or (num_slices or int(cfg.num_slices)) > 1 or cfg.snapshot_freq > 0:
-        raise NotImplementedError(
-            "the launcher's elastic and slice-granular recovery (max_restarts, "
-            "num_slices, fleet checkpoints through snapshot_freq) is ROADMAP "
-            "queue A13b")
+    num_slices = max(int(num_slices if num_slices is not None else cfg.num_slices), 1)
+    ranks_per_slice = num_machines
+    slice_of: Optional[Dict[int, int]] = None
+    if num_slices > 1:
+        if num_machines % num_slices:
+            raise ValueError(f"num_machines={num_machines} does not divide into "
+                             f"num_slices={num_slices}")
+        ranks_per_slice = num_machines // num_slices
+        slice_of = {r: r // ranks_per_slice for r in range(num_machines)}
     feature = cfg.tree_learner == "feature"
+    n_blocks, per_block = _row_blocks(params, ranks_per_slice)
     if data_cache is not None:
         from ..io.stream import BinCacheStream
 
@@ -434,10 +638,16 @@ def train_distributed(params: Dict, X: np.ndarray, y: np.ndarray,
         n = BinCacheStream(data_cache).shape[0]
     else:
         n = X.shape[0]
-    slices, groups = _shard_plan(n, num_machines, group)
-    if feature:  # rows replicated, features sharded
-        slices = [(0, n)] * num_machines
-        groups = [group] * num_machines
+
+    def plan(rows: int, grp) -> Tuple[list, list]:
+        """(lo, hi) and query sizes of each rank of one slice world."""
+        if feature:  # rows replicated, features sharded
+            return [(0, rows)] * ranks_per_slice, [grp] * ranks_per_slice
+        sl, gr = _shard_plan(rows, n_blocks, grp)
+        return ([sl[r // per_block] for r in range(ranks_per_slice)],
+                [gr[r // per_block] for r in range(ranks_per_slice)])
+
+    slices, groups = plan(n, group)
     for arg_name, arg in (("eval_names", eval_names), ("eval_weight", eval_weight),
                           ("eval_group", eval_group)):
         if arg is not None and len(arg) != len(eval_set or ()):
@@ -450,72 +660,211 @@ def train_distributed(params: Dict, X: np.ndarray, y: np.ndarray,
               if eval_group is not None and eval_group[i] is not None else None)
         we = (np.asarray(eval_weight[i], np.float64).ravel()
               if eval_weight is not None and eval_weight[i] is not None else None)
-        sl, gr = _shard_plan(Xe.shape[0], num_machines, ge)
-        if feature:
-            sl, gr = [(0, Xe.shape[0])] * num_machines, [ge] * num_machines
+        sl, gr = plan(Xe.shape[0], ge)
         eval_plans.append((Xe, ye, we, sl, gr,
                            eval_names[i] if eval_names is not None else f"valid_{i}"))
 
-    tmp = tempfile.mkdtemp(prefix="lgbm_torch_launch_")
+    tmp = _LAST_LAUNCH_DIR = tempfile.mkdtemp(prefix="lgbm_torch_launch_")
     if heartbeat_timeout_s is None:
         env_hb = os.environ.get("LGBMTPU_HEARTBEAT_TIMEOUT_S")
         heartbeat_timeout_s = float(env_hb) if env_hb else float(cfg.heartbeat_timeout_s)
+    env_slow = os.environ.get("LGBMTPU_SLOW_RANK_FACTOR")
+    slow_rank_factor = float(env_slow) if env_slow else float(cfg.slow_rank_factor)
+    # the launcher owns the fleet's snapshots (the workers' callback runs
+    # the manifest protocol): the workers' own snapshot_freq is dropped
+    fleet_freq = max(int(cfg.snapshot_freq), 0)
+    fleet_keep = max(int(cfg.snapshot_keep), 0)
     params = {k: v for k, v in dict(params).items()
               if _ALIASES.get(k, k) != "snapshot_freq"}
+    hb_ages: Dict[int, float] = {}
+    _obs.register_collector("fleet_live",
+                            _fleet_live_collector(tmp, num_machines, hb_ages, slice_of))
+    from ..obs import server as _obs_server
+
+    _obs_server.maybe_start(int(cfg.metrics_port) if cfg.is_set("metrics_port")
+                            else None)
     params_path = os.path.join(tmp, "params.npz")
     np.savez(params_path, params=np.asarray(dict(params), dtype=object))
     model_out = os.path.join(tmp, "model.txt")
-    ports = _free_ports(num_machines)
-    machines = ",".join(f"127.0.0.1:{p}" for p in ports)
-    workers: list = []
-    run_started = time.time()
-    try:
+    shard_fps: Dict[str, str] = {}
+    shards_json = os.path.join(tmp, "fleet_shards.json")
+    relaunch = {"resume_manifest": None}
+
+    def write_shards(ports) -> None:
+        # every shard file and the fingerprint table exist before any
+        # worker starts (rank 0 reads the table once)
         for rank in range(num_machines):
-            shard = dict(num_machines=num_machines, machines=machines,
+            local, sid = rank % ranks_per_slice, rank // ranks_per_slice
+            slice_ports = ports[sid * ranks_per_slice:(sid + 1) * ranks_per_slice]
+            shard = dict(num_machines=ranks_per_slice,
+                         machines=",".join(f"127.0.0.1:{p}" for p in slice_ports),
                          local_listen_port=ports[rank], time_out=2,
                          n_eval=len(eval_plans))
             if data_cache is None:
-                Xs, ys, ws, gs = _rank_arrays(slices, groups, rank, X, y, weight)
+                Xs, ys, ws, gs = _rank_arrays(slices, groups, local, X, y, weight)
                 shard.update(X=Xs, y=ys, w=ws, g=gs)
                 for i, (Xe, ye, we, sl, gr, name) in enumerate(eval_plans):
-                    Xv, yv, wv, gv = _rank_arrays(sl, gr, rank, Xe, ye, we)
+                    Xv, yv, wv, gv = _rank_arrays(sl, gr, local, Xe, ye, we)
                     shard.update({f"ev{i}_X": Xv, f"ev{i}_y": yv, f"ev{i}_w": wv,
                                   f"ev{i}_g": gv, f"ev{i}_name": name})
-            shard_path = os.path.join(tmp, f"shard{rank}.npz")
-            np.savez(shard_path, **shard)
-            env = dict(os.environ)
-            env.update(env_extra or {})
-            env.update(LIGHTGBM_TPU_RANK=str(rank), LGBM_TPU_REPO=_REPO,
-                       LGBM_TPU_SHARD=shard_path, LGBM_TPU_PARAMS=params_path,
-                       LGBM_TPU_ROUNDS=str(num_boost_round),
-                       LGBM_TPU_MODEL_OUT=model_out,
-                       LGBM_TPU_ES_ROUNDS=str(early_stopping_rounds or 0),
-                       LGBMTPU_EVENTS_FILE=os.path.join(tmp, f"worker{rank}.events.jsonl"),
-                       LGBMTPU_METRICS_SNAPSHOT_FILE=os.path.join(
-                           tmp, f"worker{rank}.metrics.json"),
-                       LGBMTPU_TRACE_FILE=os.path.join(tmp, f"worker{rank}.trace.json"))
-            if data_cache is not None:
-                env["LGBM_TPU_CACHE"] = os.fspath(data_cache)
-                env["LGBM_TPU_CACHE_SHARD"] = "%d,%d" % slices[rank]
-            if env.get("LGBMTPU_FAULT"):
-                env.setdefault("LGBMTPU_FAULT_ONCE_DIR", tmp)
-            env.pop("PYTEST_CURRENT_TEST", None)
-            log_path = os.path.join(tmp, f"worker{rank}.log")
-            with open(log_path, "wb") as log_fh:
-                proc = subprocess.Popen([sys.executable, "-c", _WORKER_SRC], env=env,
-                                        stdout=log_fh, stderr=subprocess.STDOUT,
-                                        start_new_session=True)
+                shard_fps.setdefault(str(rank), _fingerprint((Xs, ys, ws, gs)))
+            elif str(rank) not in shard_fps:
+                from ..io.stream import cache_shard_fingerprint
+
+                shard_fps[str(rank)] = cache_shard_fingerprint(data_cache,
+                                                               *slices[local])
+            np.savez(os.path.join(tmp, f"shard{rank}.npz"), **shard)
+        if not os.path.exists(shards_json):
+            with open(shards_json, "w", encoding="utf-8") as fh:
+                json.dump(shard_fps, fh)
+
+    def spawn(workers, rank: int, resume_manifest: Optional[str] = None,
+              exclude_ranks: str = "") -> None:
+        local = rank % ranks_per_slice
+        env = dict(os.environ)
+        env.update(env_extra or {})
+        env.update(LIGHTGBM_TPU_RANK=str(local), LGBM_TPU_WORKER_ID=str(rank),
+                   LGBM_TPU_REPO=_REPO,
+                   LGBM_TPU_SHARD=os.path.join(tmp, f"shard{rank}.npz"),
+                   LGBM_TPU_PARAMS=params_path, LGBM_TPU_ROUNDS=str(num_boost_round),
+                   LGBM_TPU_MODEL_OUT=model_out,
+                   LGBM_TPU_ES_ROUNDS=str(early_stopping_rounds or 0),
+                   LGBMTPU_EVENTS_FILE=os.path.join(tmp, f"worker{rank}.events.jsonl"),
+                   LGBMTPU_METRICS_SNAPSHOT_FILE=os.path.join(
+                       tmp, f"worker{rank}.metrics.json"),
+                   LGBMTPU_TRACE_FILE=os.path.join(tmp, f"worker{rank}.trace.json"),
+                   LGBMTPU_SHARD_FINGERPRINT=shard_fps[str(rank)])
+        if data_cache is not None:
+            env["LGBM_TPU_CACHE"] = os.fspath(data_cache)
+            env["LGBM_TPU_CACHE_SHARD"] = "%d,%d" % slices[local]
+        if fleet_freq > 0:
+            env.update(LGBMTPU_FLEET_CKPT_DIR=tmp,
+                       LGBMTPU_FLEET_SNAPSHOT_FREQ=str(fleet_freq),
+                       LGBMTPU_FLEET_SNAPSHOT_KEEP=str(fleet_keep),
+                       LGBMTPU_FLEET_SHARDS_JSON=shards_json)
+        if num_slices > 1:
+            env["LGBMTPU_FLEET_WORLD"] = str(num_machines)
+            env["LGBMTPU_FLEET_SLICES"] = json.dumps({str(r): s
+                                                      for r, s in slice_of.items()})
+        resume_manifest = resume_manifest or relaunch["resume_manifest"]
+        if resume_manifest:
+            env["LGBMTPU_RESUME_MANIFEST"] = resume_manifest
+        if exclude_ranks:
+            env["LGBMTPU_RESUME_EXCLUDE_RANKS"] = exclude_ranks
+        if env.get("LGBMTPU_FAULT"):
+            # injected faults fire once across relaunches (utils/faults.py)
+            env.setdefault("LGBMTPU_FAULT_ONCE_DIR", tmp)
+        env.pop("PYTEST_CURRENT_TEST", None)
+        # a relaunched rank must not inherit its predecessor's snapshot (its
+        # frozen heartbeat would read as a hang) nor its trace
+        for key in ("LGBMTPU_METRICS_SNAPSHOT_FILE", "LGBMTPU_TRACE_FILE"):
+            try:
+                os.unlink(env[key])
+            except OSError:
+                pass
+        log_path = os.path.join(tmp, f"worker{rank}.log")
+        with open(log_path, "wb") as log_fh:
+            proc = subprocess.Popen([sys.executable, "-c", _WORKER_SRC], env=env,
+                                    stdout=log_fh, stderr=subprocess.STDOUT,
+                                    start_new_session=True)
+        for i, (r, _p, _lp) in enumerate(workers):
+            if r == rank:  # a respawned rank replaces its dead entry
+                workers[i] = (rank, proc, log_path)
+                break
+        else:
             workers.append((rank, proc, log_path))
-            _obs.counter("launcher_worker_spawns_total").inc()
-            _obs.event("worker_spawn", worker_rank=rank, pid=proc.pid)
-        _watch_workers(workers, timeout_s, heartbeat_timeout_s=heartbeat_timeout_s or None,
-                       heartbeat_paths={r: os.path.join(tmp, f"worker{r}.metrics.json")
-                                        for r in range(num_machines)})
-    except BaseException:
-        for _, p, _ in workers:
-            if p.poll() is None:
-                _kill_worker_group(p)
-        raise
+        _obs.counter("launcher_worker_spawns_total").inc()
+        _obs.event("worker_spawn", worker_rank=rank, pid=proc.pid)
+
+    def respawn_slice(workers, sid: int, attempt: int, done: set) -> None:
+        # only the failed slice restarts, from the newest slice-valid round
+        # (the surviving ranks' acks present); a member that already exited
+        # 0 is not lost
+        lost = tuple(r for r in range(num_machines)
+                     if slice_of[r] == sid and r not in done)
+        manifest = resumed_round = None
+        if fleet_freq > 0:
+            fm = _checkpoint.latest_slice_valid_fleet_manifest(tmp, num_machines, lost)
+            if fm is not None:
+                resumed_round, manifest, _ = fm
+        _obs.counter("fleet_slice_resumes_total").inc()
+        _obs.event("fleet_slice_resume", slice=sid, ranks=list(lost),
+                   round=resumed_round, attempt=attempt)
+        log_warning(f"slice {sid} (ranks {list(lost)}) failed; respawning it "
+                    + (f"from slice-valid manifest round {resumed_round}"
+                       if resumed_round is not None else "from scratch")
+                    + f"; the other slices run on (attempt {attempt})")
+        for rank in lost:
+            spawn(workers, rank, resume_manifest=manifest,
+                  exclude_ranks=",".join(str(r) for r in lost))
+
+    def launch_once() -> None:
+        # fresh ports each attempt: the machines list is in the shards
+        ports = _free_ports(num_machines)
+        workers: list = []
+        try:
+            write_shards(ports)
+            for rank in range(num_machines):
+                spawn(workers, rank)
+        except BaseException:
+            for _, p, _ in workers:
+                if p.poll() is None:
+                    _kill_worker_group(p)
+            raise
+        slice_restarts = 0
+        done: set = set()
+        while True:
+            try:
+                _watch_workers(workers, timeout_s,
+                               heartbeat_timeout_s=heartbeat_timeout_s or None,
+                               heartbeat_paths={r: os.path.join(
+                                   tmp, f"worker{r}.metrics.json")
+                                   for r in range(num_machines)},
+                               slow_rank_factor=slow_rank_factor, hb_ages=hb_ages,
+                               slice_of=slice_of, slice_granular=num_slices > 1,
+                               done=done)
+                return
+            except WorkerFailure as e:
+                if e.slice_id is None or slice_restarts >= max_restarts:
+                    for _, p, _ in workers:
+                        if p.poll() is None:
+                            _kill_worker_group(p)
+                    raise
+                slice_restarts += 1
+                respawn_slice(workers, e.slice_id, slice_restarts, done)
+
+    attempt = 0
+    run_started = time.time()
+    try:
+        while True:
+            try:
+                launch_once()
+                break
+            except WorkerFailure as e:
+                if attempt >= max_restarts:
+                    raise
+                delay = restart_backoff_s * (2 ** attempt)
+                attempt += 1
+                resumed_round = None
+                if fleet_freq > 0:
+                    fm = _checkpoint.latest_valid_fleet_manifest(tmp, num_machines)
+                    if fm is not None:
+                        resumed_round, relaunch["resume_manifest"], _ = fm
+                        _obs.counter("fleet_resumes_total").inc()
+                        _obs.gauge("fleet_resumed_round").set(resumed_round)
+                        _obs.event("fleet_resume", round=resumed_round,
+                                   manifest=relaunch["resume_manifest"],
+                                   attempt=attempt)
+                _obs.counter("launcher_relaunches_total").inc()
+                _obs.event("fleet_relaunch", attempt=attempt, backoff_s=delay,
+                           cause=str(e)[:200], hung=bool(e.hung),
+                           resumed_round=resumed_round)
+                log_warning(f"launcher attempt {attempt}/{max_restarts + 1} failed "
+                            f"({str(e)[:200]}); relaunching all workers in "
+                            f"{delay:.1f}s"
+                            + (f" from fleet checkpoint round {resumed_round}"
+                               if resumed_round is not None else " from scratch"))
+                time.sleep(delay)
     finally:
         fleet = {}
         for key, fn in (("events", lambda: aggregate_fleet_events(

@@ -20,6 +20,7 @@ import torch
 import lightgbm_tpu as jlgb
 import lightgbm_tpu_torch as tlgb
 from lightgbm_tpu_torch.convert import booster_from_jax_model_string
+from lightgbm_tpu_torch.parallel.mesh import make_device_mesh
 
 CPU = {"device_type": "cpu"}
 
@@ -273,8 +274,10 @@ def test_leaf_output_shuffle_and_train_name(binary_pair):
     # one machine: no process group to bring up (parallel/distributed.py)
     assert bst.set_network(["127.0.0.1:1"]) is bst
     assert bst.free_network() is bst
-    with pytest.raises(NotImplementedError, match="A13b"):
+    with pytest.raises(TypeError, match="mesh"):
         bst.predict(X, mesh=object())
+    np.testing.assert_array_equal(bst.predict(X, mesh=make_device_mesh(["cpu"] * 3)),
+                                  bst.predict(X))
 
 
 def test_eval_with_feval_matches_jax(binary_pair):

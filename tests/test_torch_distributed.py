@@ -24,7 +24,6 @@ grows every configuration, and the tests read its results.
 import json
 import os
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -443,21 +442,31 @@ def test_init_distributed_parses_machines_and_detects_rank(tmp_path, monkeypatch
 
 @pytest.mark.parametrize("params", [{"tree_learner": "feature2d"}, {"num_slices": 2}])
 def test_feature2d_and_num_slices_raise_citing_a13b(params):
+    """tree_learner=feature2d and num_slices > 1 are ported (ROADMAP A13b,
+    tests/test_torch_feature2d.py and test_torch_hierarchy.py); in one
+    process they train the serial model, as the JAX package's learners do
+    on one device."""
     rng = np.random.RandomState(0)
     X = rng.randn(200, 4)
-    p = {"objective": "regression", "device_type": "cpu", "verbosity": -1, **params}
-    with pytest.raises(ValueError, match="A13b"):
-        tlgb.train(p, tlgb.Dataset(X, label=X[:, 0], params=p), 1)
+    p = {"objective": "regression", "device_type": "cpu", "verbosity": -1}
+    want = tlgb.train(p, tlgb.Dataset(X, label=X[:, 0], params=p), 2).model_to_string()
+    got = tlgb.train({**p, **params}, tlgb.Dataset(X, label=X[:, 0], params=p), 2)
+    assert got._gbdt._dp is None and got._gbdt._dp2d is None and got._gbdt._dp_hier is None
+    cut = lambda t: t[t.index("Tree=0"):t.index("end of trees")]  # noqa: E731
+    assert cut(got.model_to_string()) == cut(want)
 
 
 def test_2d_and_hierarchical_meshes_and_predict_mesh_raise_citing_a13b():
-    with pytest.raises(NotImplementedError, match="A13b"):
+    """The 2-D and hierarchical meshes are subgroups of an initialized
+    world (without one they refuse, and a slice count below 1 is refused
+    first); predict(mesh=) over a device mesh is predict bit for bit."""
+    with pytest.raises(RuntimeError, match="initialized"):
         tmesh.make_mesh_2d(2, 2)
-    with pytest.raises(NotImplementedError, match="A13b"):
-        tmesh.make_mesh_hierarchical(2)
+    with pytest.raises(ValueError, match=">= 1"):
+        tmesh.make_mesh_hierarchical(0)
     rng = np.random.RandomState(0)
     X = rng.randn(200, 4)
     p = {"objective": "regression", "device_type": "cpu", "verbosity": -1}
     bst = tlgb.train(p, tlgb.Dataset(X, label=X[:, 0], params=p), 2)
-    with pytest.raises(NotImplementedError, match="A13b"):
-        bst.predict(X, mesh=jax.devices())
+    np.testing.assert_array_equal(bst.predict(X, mesh=tmesh.make_device_mesh(["cpu"] * 2)),
+                                  bst.predict(X))

@@ -1836,3 +1836,82 @@ def test_two_gloo_ranks_on_the_card_grow_the_serial_trees(tmp_path):
     for r in range(2):
         ok = eval((tmp_path / f"ok{r}.txt").read_text())
         assert ok == {"psum": True, "scatter": True, "feature": True}, (r, ok)
+
+
+_MESH_2D = r"""
+import os, numpy as np, torch
+from lightgbm_tpu_torch.ops.split import SplitParams
+from lightgbm_tpu_torch.ops.treegrow_windowed import grow_tree_windowed
+from lightgbm_tpu_torch.parallel.feature2d import Sharded2DData, grow_tree_windowed_feature2d
+from lightgbm_tpu_torch.parallel.mesh import make_mesh_2d
+torch.set_num_threads(2)
+dev = torch.device("cuda", 0)
+d = np.load(os.path.join(WORKDIR, "in.npz"))
+bins, g, h = (torch.as_tensor(d[k], device=dev) for k in ("bins", "g", "h"))
+n, f = bins.shape
+nbpf = torch.full((f,), 63, dtype=torch.int32, device=dev)
+mbpf = torch.full((f,), -1, dtype=torch.int32, device=dev)
+mbpf[3] = 62
+def ones(m):
+    return (torch.ones(m, dtype=torch.bool, device=dev), torch.ones(m, device=dev),
+            torch.ones(f, dtype=torch.bool, device=dev))
+mesh = make_mesh_2d(2, 2)
+lo, hi = mesh.coords[0] * n // 2, (mesh.coords[0] + 1) * n // 2
+sd = Sharded2DData(mesh, bins[lo:hi], nbpf, mbpf)
+ok = {}
+for q, tile in ((0, 10), (15, 20)):
+    common = dict(num_leaves=63, num_bins=63, params=SplitParams(min_data_in_leaf=20),
+                  leaf_tile=tile, quantize_bins=q)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    want, want_leaf = grow_tree_windowed(bins, g, h, *ones(n), nbpf, mbpf, generator=gen,
+                                         megakernel_opt="0", **common)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    got, leaf = grow_tree_windowed_feature2d(sd, g[lo:hi], h[lo:hi], *ones(hi - lo),
+                                             generator=gen, **common)
+    ok[q] = (all(torch.equal(a, b) for a, b in zip(got, want) if a is not None)
+             and torch.equal(leaf, want_leaf[lo:hi]) and int(got.num_leaves) == 63)
+with open(os.path.join(WORKDIR, f"ok{RANK}.txt"), "w") as fh:
+    fh.write(repr(ok))
+"""
+
+
+def test_2d_mesh_on_the_card_grows_the_serial_trees(tmp_path):
+    """Four gloo ranks on the one card as a 2 x 2 (data, feature) mesh: the
+    float and int8 windowed trees (B1's carried mode merged over the data
+    axis, B2, the election over the feature axis) and each row block's
+    leaf ids are the serial three-pass trees' bit for bit."""
+    from lightgbm_tpu_torch.parallel.launcher import run_spmd
+
+    _card()
+    rng = np.random.RandomState(1)
+    n, f = 120_000, 301
+    bins = rng.randint(0, 63, (n, f)).astype(np.int16)
+    g = (rng.randn(n) + 2 * (bins[:, 0] > 30) - (bins[:, 200] < 10)).astype(np.float32)
+    np.savez(tmp_path / "in.npz", bins=bins, g=g, h=(rng.rand(n) + 0.1).astype(np.float32))
+    run_spmd(_MESH_2D, 4, str(tmp_path), timeout_s=300, cuda=True)
+    for r in range(4):
+        ok = eval((tmp_path / f"ok{r}.txt").read_text())
+        assert ok == {0: True, 15: True}, (r, ok)
+
+
+def test_predict_over_a_device_mesh_on_the_card_is_predict():
+    """predict(mesh=) over two entries of the one card: the pack's tables
+    placed once a device, each block's margins the single-device ones bit
+    for bit, multiclass and binary."""
+    import lightgbm_tpu_torch as lgb
+    from lightgbm_tpu_torch.parallel.mesh import make_device_mesh
+
+    dev = _card()
+    rng = np.random.RandomState(2)
+    X = rng.randn(50_001, 12)
+    mesh = make_device_mesh([dev, dev])
+    for extra, y in (({"objective": "binary"}, (X[:, 0] + X[:, 1] > 0).astype(float)),
+                     ({"objective": "multiclass", "num_class": 3},
+                      np.digitize(X[:, 2], [-0.5, 0.5]))):
+        p = {**extra, "verbosity": -1, "num_leaves": 31}
+        bst = lgb.train(p, lgb.Dataset(X, label=y, params=p), 10)
+        for raw in (False, True):
+            assert np.array_equal(bst.predict(X, raw_score=raw, mesh=mesh),
+                                  bst.predict(X, raw_score=raw)), (extra, raw)

@@ -41,8 +41,9 @@ def test_sources_reference_no_jax():
 
 
 def test_runtime_subpackages_import_no_jax():
-    """obs/, serve/, parallel/ and the runtime utilities (copies of the JAX
-    package's stdlib modules, and the torch rewrites beside them) import
+    """obs/, serve/, parallel/ (the 2-D and hierarchical meshes too), the
+    runtime utilities (copies of the JAX package's stdlib modules, and the
+    torch rewrites beside them), dask.py, cli.py and plotting.py import
     neither JAX nor the JAX package, and the source scan above reads every
     file of theirs."""
     mods = ["lightgbm_tpu_torch.obs", "lightgbm_tpu_torch.obs.__main__",
@@ -54,7 +55,10 @@ def test_runtime_subpackages_import_no_jax():
             "lightgbm_tpu_torch.parallel.distributed",
             "lightgbm_tpu_torch.parallel.data_parallel",
             "lightgbm_tpu_torch.parallel.feature_parallel",
-            "lightgbm_tpu_torch.parallel.launcher"]
+            "lightgbm_tpu_torch.parallel.launcher",
+            "lightgbm_tpu_torch.parallel.feature2d",
+            "lightgbm_tpu_torch.parallel.hierarchy", "lightgbm_tpu_torch.dask",
+            "lightgbm_tpu_torch.cli", "lightgbm_tpu_torch.plotting"]
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
@@ -68,7 +72,9 @@ def test_runtime_subpackages_import_no_jax():
     assert {"obs", "serve", "utils", "parallel"} <= scanned
     assert len(list((PORT / "obs").glob("*.py"))) == 5
     assert len(list((PORT / "serve").glob("*.py"))) == 3
-    assert len(list((PORT / "parallel").glob("*.py"))) == 7
+    assert len(list((PORT / "parallel").glob("*.py"))) == 9
+    assert {"dask.py", "cli.py", "plotting.py", "__main__.py"} <= {
+        p.name for p in PORT.glob("*.py")}
 
 
 def _small():

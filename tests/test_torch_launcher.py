@@ -12,6 +12,7 @@ the serial order, so they are the serial values.  Every launch runs under a
 wall limit below 90 s.
 """
 
+import json
 import os
 
 import numpy as np
@@ -159,7 +160,28 @@ def test_shard_plan_keeps_queries_whole():
 @pytest.mark.parametrize("kw", [{"max_restarts": 1}, {"num_slices": 2},
                                 {"params": {"snapshot_freq": 1}}])
 def test_recovery_stays_for_a13b(kw):
-    X, y = _data(n=200)
-    p = {**CPU, "objective": "binary", **kw.pop("params", {})}
-    with pytest.raises(NotImplementedError, match="A13b"):
-        train_distributed(p, X, y, 2, num_machines=2, **kw)
+    """The launcher's recovery is ported (ROADMAP A13b; the fault cases in
+    tests/test_torch_recovery.py): max_restarts relaunches a fleet whose
+    rank died (from scratch without snapshots), num_slices runs slice
+    worlds (one rank each here: the serial model), snapshot_freq keeps
+    fleet-valid manifests; each ends with the serial model's trees."""
+    from lightgbm_tpu_torch.obs import metrics as obs
+    from lightgbm_tpu_torch.utils import checkpoint as ckpt
+
+    X, y = _data(n=600)
+    p = {**CPU, "objective": "binary", "num_leaves": 7, "tree_learner": "data",
+         **kw.pop("params", {})}
+    serial = _serial({k: v for k, v in p.items() if k != "snapshot_freq"}, X, y, 3)
+    env = {"LGBMTPU_FAULT": "worker_death:1:2"} if kw.get("max_restarts") else None
+    try:
+        bst, paths = train_distributed(p, X, y, 3, num_machines=2, timeout_s=LIMIT_S,
+                                       restart_backoff_s=0.1, env_extra=env, **kw)
+    finally:
+        obs.unregister_collector("fleet_live")
+    texts = [open(pth).read() for pth in paths]
+    assert texts[0] == texts[1] and _trees(texts[0]) == _trees(serial.model_to_string())
+    kinds = [json.loads(line)["kind"] for line in open(bst._fleet_events)]
+    assert kinds.count("fleet_relaunch") == (1 if env else 0)
+    if "snapshot_freq" in p:
+        found = ckpt.latest_valid_fleet_manifest(launcher._LAST_LAUNCH_DIR, 2)
+        assert found is not None and found[0] == 3

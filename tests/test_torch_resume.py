@@ -208,8 +208,8 @@ def test_resume_modes_the_port_refuses(tmp_path):
     with pytest.raises(tlgb.LightGBMError, match="not supported"):
         _train(PARAMS, X, y, 2, resume="latest")
     manifest = tmp_path / "fleet.json"
-    manifest.write_text("{}")
-    with pytest.raises(NotImplementedError, match="A13"):
+    manifest.write_text("{}")  # resume=<fleet manifest> is ported; this one is torn
+    with pytest.raises(tlgb.LightGBMError, match="not fleet-valid"):
         _train(PARAMS, X, y, 2, resume=str(manifest))
 
 
