@@ -228,6 +228,20 @@ Imports no JAX.  Phases, one line each; any failure exits non-zero:
               1: relaunched from round 10, the serial pin; (c)
               predict(mesh=) over two entries of cuda:0 at 100,000 Higgs
               rows, bitwise predict, both latencies.
+ 25. capi     (at most 30 s) the port's C library (csrc/capi/, g++
+              against this interpreter's libpython, built beside phase 1's
+              nvcc calls) loaded with ctypes: LGBM_DatasetCreateFromMat +
+              label + LGBM_BoosterCreate + 20 LGBM_BoosterUpdateOneIter on
+              phase 3's host matrix and parameters give the higgs_float pin
+              (it/s beside phase 3's graph run, blocking reads and event
+              waits an iteration, B1 launches); is_finished one iteration
+              late off the strict grower; LGBM_BoosterPredictForMat at the
+              100,000 held-out rows == Booster.predict bitwise (median ms
+              beside phase 14's) and PredictForMatSingleRowFast at one row;
+              LGBM_BoosterRefit on those rows' pred_leaf matrix within 1e-6
+              of the same refit on the CPU, B1 at its site bitwise its plain
+              version; a C host compiled with g++ trains 10 rounds on
+              100,000 rows on the card: the Python API's model bitwise.
 
 Then a JSON line with every kernel's numbers (launches on the main path,
 graph mode; whether it runs inside a graph and its launches a replay; B1
@@ -236,7 +250,7 @@ multiclass, LambdaRank, GOSS, DART, random forest, Criteo float and bf16,
 Expo float, int8 and window pass, the monotone site and the per-node
 sampling window pass; B2 at the Epsilon and Expo geometries and at the
 per-node sampling site; B3 numerical, categorical and unfused; B1 and B2 in their
-lane mode and B1 in its carried mode), and last the device
+lane mode and B1 in its carried mode; B1 at the C API's refit site), and last the device
 line {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --turns CHECKOUT
@@ -2292,15 +2306,18 @@ def predict_profile(bst, X, calls=5, before=None):
 
 def predict_phase(lgt, models):
     """Phase 14: ``models`` maps a name to (model text, rows to predict,
-    labels or None)."""
+    labels or None).  Returns each model's median latency (s) a batch
+    size."""
     from lightgbm_tpu_torch.utils import sanitizer as san
 
     cpu = {"device_type": "cpu"}
+    lats = {}
     for name, (text, X, y) in models.items():
         t0 = time.perf_counter()
         bst = lgt.Booster(model_str=text)
-        lat = {n: latency(bst, X, n, PRED_CALLS if n < 100_000 else PRED_CALLS_BIG)
-               for n in PRED_BATCHES}
+        lat = lats[name] = {n: latency(bst, X, n,
+                                       PRED_CALLS if n < 100_000 else PRED_CALLS_BIG)
+                            for n in PRED_BATCHES}
         busy, wall, launches = predict_profile(bst, X[:100_000])
         log(f"phase 14 predict {name} ({bst.num_trees()} trees, "
             f"{max(t.num_leaves for t in bst._gbdt.models)} leaves max, {X.shape[1]} "
@@ -2355,6 +2372,7 @@ def predict_phase(lgt, models):
         log(f"phase 14 refit {name}: ok {len(X)} rows seconds={t_refit:.2f} card vs CPU "
             f"leaf values max|d|={gap:.3g} held-out auc before {auc(y, bst.predict(X)):.5f} "
             f"after {auc(y, ref.predict(X)):.5f}")
+    return lats
 
 
 # ---------------------------------------------------------------------------
@@ -4692,6 +4710,336 @@ def mesh_predict(lgt, text, X, calls=5):
     return {k: float(np.median(v)) for k, v in lat.items()}
 
 
+# ---------------------------------------------------------------------------
+# phase 25: the port's C API (csrc/capi/) on the card
+# ---------------------------------------------------------------------------
+PHASE25_LIMIT_S = 30.0
+CAPI_HOST_ROWS, CAPI_HOST_ROUNDS = 100_000, 10
+CAPI_SINGLE_CALLS = 200
+# a C host: the reference's C ABI, nothing of Python in its source
+CAPI_HOST_SRC = r"""
+#include <cstdio>
+#include <cstdlib>
+#include <vector>
+#include "lightgbm_tpu_torch_c_api.h"
+
+static int fail(const char* what) {
+  std::fprintf(stderr, "%s: %s\n", what, LGBM_GetLastError());
+  return 1;
+}
+
+int main(int argc, char** argv) {
+  if (argc != 8) return 2;
+  const int n = std::atoi(argv[2]), f = std::atoi(argv[3]), rounds = std::atoi(argv[6]);
+  std::vector<double> x(static_cast<size_t>(n) * f);
+  std::vector<float> y(n);
+  FILE* fh = std::fopen(argv[1], "rb");
+  if (fh == nullptr || std::fread(x.data(), sizeof(double), x.size(), fh) != x.size() ||
+      std::fread(y.data(), sizeof(float), y.size(), fh) != y.size()) return 3;
+  std::fclose(fh);
+  DatasetHandle ds = nullptr;
+  BoosterHandle bst = nullptr;
+  int finished = 0;
+  if (LGBM_DatasetCreateFromMat(x.data(), C_API_DTYPE_FLOAT64, n, f, 1, argv[4], nullptr,
+                                &ds) != 0) return fail("DatasetCreateFromMat");
+  if (LGBM_DatasetSetField(ds, "label", y.data(), n, C_API_DTYPE_FLOAT32) != 0)
+    return fail("DatasetSetField");
+  if (LGBM_BoosterCreate(ds, argv[5], &bst) != 0) return fail("BoosterCreate");
+  for (int i = 0; i < rounds; ++i)
+    if (LGBM_BoosterUpdateOneIter(bst, &finished) != 0) return fail("UpdateOneIter");
+  if (LGBM_BoosterSaveModel(bst, 0, -1, 0, argv[7]) != 0) return fail("SaveModel");
+  LGBM_BoosterFree(bst);
+  LGBM_DatasetFree(ds);
+  std::printf("c host: %d rounds, model written\n", rounds);
+  return 0;
+}
+"""
+
+
+def capi_build(tmp: str):
+    """The C library (native.c_api_library) and the C host linked to it and
+    to libpython, both with g++: (library path, host path, seconds).  Run
+    beside phase 1's nvcc calls."""
+    from lightgbm_tpu_torch import native
+
+    t0 = time.perf_counter()
+    so = native.c_api_library()
+    src = Path(tmp) / "capi_host.cpp"
+    src.write_text(CAPI_HOST_SRC)
+    host = Path(tmp) / "capi_host"
+    r = subprocess.run(["g++", "-O2", "-std=c++17", str(src), "-I",
+                        str(native.CAPI_SRC.parent), "-o", str(host), so,
+                        "-Wl,-rpath," + os.path.dirname(so), *native.libpython_link()],
+                       capture_output=True, text=True, timeout=240)
+    if r.returncode != 0:
+        raise RuntimeError(f"g++ failed on the C host:\n{r.stderr[-4000:]}")
+    return so, str(host), time.perf_counter() - t0
+
+
+def capi_params(params: dict) -> bytes:
+    return " ".join(f"{k}={v}" for k, v in params.items()).encode()
+
+
+def capi_check(lib, rc, what):
+    if rc != 0:
+        raise AssertionError(f"phase 25 {what}: {lib.LGBM_GetLastError().decode()}")
+
+
+def capi_dataset(lib, X, y, params):
+    import ctypes
+
+    Xc = np.ascontiguousarray(X, np.float64)
+    yc = np.ascontiguousarray(y, np.float32)
+    h = ctypes.c_void_p()
+    capi_check(lib, lib.LGBM_DatasetCreateFromMat(
+        Xc.ctypes.data_as(ctypes.c_void_p), 1, Xc.shape[0], Xc.shape[1], 1,
+        capi_params(params), None, ctypes.byref(h)), "DatasetCreateFromMat")
+    capi_check(lib, lib.LGBM_DatasetSetField(h, b"label", yc.ctypes.data_as(
+        ctypes.c_void_p), len(yc), 0), "DatasetSetField")
+    return h
+
+
+def capi_text(lib, bh) -> str:
+    import ctypes
+
+    need = ctypes.c_int64()
+    capi_check(lib, lib.LGBM_BoosterSaveModelToString(
+        bh, 0, -1, 0, ctypes.c_int64(0), ctypes.byref(need), None), "SaveModelToString")
+    buf = ctypes.create_string_buffer(need.value)
+    capi_check(lib, lib.LGBM_BoosterSaveModelToString(
+        bh, 0, -1, 0, need, ctypes.byref(need), buf), "SaveModelToString")
+    return buf.value.decode()
+
+
+def capi_predict(lib, bh, X, predict_type, out):
+    import ctypes
+
+    n = ctypes.c_int64()
+    capi_check(lib, lib.LGBM_BoosterPredictForMat(
+        bh, X.ctypes.data_as(ctypes.c_void_p), 1, X.shape[0], X.shape[1], 1,
+        predict_type, 0, -1, b"", ctypes.byref(n),
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_double))), "PredictForMat")
+    return out[:n.value]
+
+
+def capi_phase(lgt, hc, base, higgs, text, lat14, it_s3, build):
+    """Phase 25 (module docstring): returns the kernels line's entry for B1
+    at the refit site."""
+    import ctypes
+    import tempfile
+
+    from lightgbm_tpu_torch import capi_helpers
+    from lightgbm_tpu_torch.objectives import create_objective
+    from lightgbm_tpu_torch.config import Config
+    from lightgbm_tpu_torch.utils import sanitizer as san
+
+    so, host, t_build = build.result()
+    t_phase = time.perf_counter()
+    _, Xtr, ytr, Xte, yte = higgs
+    lib = ctypes.CDLL(so)
+    lib.LGBM_GetLastError.restype = ctypes.c_char_p
+    fin = ctypes.c_int()
+
+    # train: phase 3's matrix and parameters through the C ABI (the
+    # parameter record carries num_iterations, as lgb.train writes it), in
+    # turns with the same Booster.update loop through Python on the same
+    # Dataset object (a new booster each turn: each captures its graphs)
+    t0 = time.perf_counter()
+    ds = capi_dataset(lib, Xtr, ytr, base)
+    t_setup = time.perf_counter() - t0
+    cparams = {**base, "num_iterations": ROUNDS_FLOAT}
+    turns = []
+    for via in ("c", "python", "c", "python"):
+        bh = ctypes.c_void_p()
+        if via == "c":
+            capi_check(lib, lib.LGBM_BoosterCreate(ds, capi_params(cparams),
+                                                   ctypes.byref(bh)), "BoosterCreate")
+        else:
+            pb = lgt.Booster(params=cparams, train_set=ctypes.cast(ds, ctypes.py_object).value)
+        reset()
+        torch.cuda.synchronize()
+        flags = []
+        with san.DispatchCounter() as c:
+            t0 = time.perf_counter()
+            for _ in range(ROUNDS_FLOAT):
+                if via == "c":
+                    capi_check(lib, lib.LGBM_BoosterUpdateOneIter(bh, ctypes.byref(fin)),
+                               "UpdateOneIter")
+                    flags.append(fin.value)
+                else:
+                    flags.append(int(pb.update()))
+            torch.cuda.synchronize()
+            t_train = time.perf_counter() - t0
+            st = c.stats()
+        ctext = capi_text(lib, bh) if via == "c" else pb.model_to_string()
+        sha = hashlib.sha256(ctext.encode()).hexdigest()[:8]
+        if sha != MODEL_SHA["higgs_float"] or any(flags) or st["host_syncs"] != 0:
+            raise AssertionError(f"phase 25 train via {via}: sha256 {sha} (the higgs_float "
+                                 f"pin {MODEL_SHA['higgs_float']}), is_finished {flags}, "
+                                 f"{st['host_syncs']} blocking reads")
+        turns.append((via, ROUNDS_FLOAT / t_train, st, counts()[0]))
+        if via == "c":
+            if len(turns) > 1:
+                lib.LGBM_BoosterFree(trained)
+            trained = bh  # the last C-trained booster: the predict step's
+        else:
+            del pb
+    bh = trained
+    _, _, st, b1_train = turns[0]
+    # the finish report: one iteration late off the strict grower
+    Xf = np.where(Xtr[:20_000, :3] > 0, 1.0, -1.0)
+    where = {k: v for k, v in base.items() if k in ("device_type", "tree_growth_mode")}
+    fds = capi_dataset(lib, Xf, Xf[:, 0], {"max_bin": 63, **where})
+    fbh = ctypes.c_void_p()
+    capi_check(lib, lib.LGBM_BoosterCreate(fds, capi_params(
+        {"objective": "regression", "num_leaves": 4, "learning_rate": 1.0,
+         "min_gain_to_split": 1e-3, "verbosity": -1, **where}), ctypes.byref(fbh)),
+        "BoosterCreate")
+    fflags = []
+    for _ in range(4):
+        capi_check(lib, lib.LGBM_BoosterUpdateOneIter(fbh, ctypes.byref(fin)),
+                   "UpdateOneIter")
+        fflags.append(fin.value)
+    if fflags != [0, 0, 1, 1]:
+        raise AssertionError(f"phase 25 finish report: {fflags}, not one iteration late")
+    lib.LGBM_BoosterFree(fbh)
+    lib.LGBM_DatasetFree(fds)
+    log(f"phase 25 capi train: ok {ROUNDS_FLOAT} LGBM_BoosterUpdateOneIter it/s "
+        + " ".join(f"{v:.4f}" for via, v, _, _ in turns if via == "c")
+        + " against Booster.update through Python in turns "
+        + " ".join(f"{v:.4f}" for via, v, _, _ in turns if via == "python")
+        + f" (phase 3 graph lgb.train {it_s3:.4f}); Dataset set-up {t_setup:.2f} s; "
+        f"sha256 == higgs_float pin {MODEL_SHA['higgs_float']} every turn; blocking "
+        f"reads/iteration={st['host_syncs'] / ROUNDS_FLOAT:.2f} event waits/iteration "
+        f"C {st['async_resolves'] / ROUNDS_FLOAT:.2f} Python "
+        f"{turns[1][2]['async_resolves'] / ROUNDS_FLOAT:.2f} B1 launches={b1_train} "
+        f"replays={st['replays']} captures={st['captures']}; is_finished on a model "
+        f"that stops at iteration 2: {fflags} (one iteration late)")
+
+    # predict: 100,000 held-out rows and one row
+    Xp = np.ascontiguousarray(Xte, np.float64)
+    out = np.zeros(len(Xp))
+    want = lgt.Booster(model_str=text, params=where).predict(Xp)
+    got = capi_predict(lib, bh, Xp, 0, out)
+    if not np.array_equal(got, want):
+        raise AssertionError("phase 25 PredictForMat != Booster.predict")
+    times = []
+    for _ in range(PRED_CALLS_BIG):
+        t0 = time.perf_counter()
+        capi_predict(lib, bh, Xp, 0, out)
+        times.append(time.perf_counter() - t0)
+    fc = ctypes.c_void_p()
+    capi_check(lib, lib.LGBM_BoosterPredictForMatSingleRowFastInit(
+        bh, 0, 0, -1, 1, Xp.shape[1], b"", ctypes.byref(fc)), "SingleRowFastInit")
+    one, n1, single = np.zeros(1), ctypes.c_int64(), []
+    for i in range(CAPI_SINGLE_CALLS):
+        row = Xp[i]
+        t0 = time.perf_counter()
+        capi_check(lib, lib.LGBM_BoosterPredictForMatSingleRowFast(
+            fc, row.ctypes.data_as(ctypes.c_void_p), ctypes.byref(n1),
+            one.ctypes.data_as(ctypes.POINTER(ctypes.c_double))), "SingleRowFast")
+        single.append(time.perf_counter() - t0)
+        if one[0] != want[i]:
+            raise AssertionError(f"phase 25 SingleRowFast row {i} != Booster.predict")
+    lib.LGBM_FastConfigFree(fc)
+    log(f"phase 25 capi predict: ok {len(Xp)} rows == Booster.predict bitwise; median ms "
+        f"PredictForMat {np.median(times) * 1e3:.3f} (phase 14 Booster.predict "
+        f"{lat14[len(Xp)] * 1e3:.3f}) PredictForMatSingleRowFast at 1 row "
+        f"{np.median(single) * 1e3:.3f} (phase 14 Booster.predict {lat14[1] * 1e3:.3f}; "
+        f"{CAPI_SINGLE_CALLS} rows, each bitwise)")
+
+    # refit: the model text loaded through the C ABI, the held-out rows
+    # attached (ResetTrainingData), their pred_leaf matrix; the same calls
+    # on the CPU through capi_helpers
+    leaf = np.ascontiguousarray(capi_predict(
+        lib, bh, Xp, 2, np.zeros(len(Xp) * ROUNDS_FLOAT)).reshape(len(Xp), -1)
+        .astype(np.int32))
+    rb, iters = ctypes.c_void_p(), ctypes.c_int()
+    capi_check(lib, lib.LGBM_BoosterLoadModelFromString(
+        text.encode(), ctypes.byref(iters), ctypes.byref(rb)), "LoadModelFromString")
+    rds = capi_dataset(lib, Xp, yte, base)
+    capi_check(lib, lib.LGBM_BoosterResetTrainingData(rb, rds), "ResetTrainingData")
+    reset()
+    t0 = time.perf_counter()
+    capi_check(lib, lib.LGBM_BoosterRefit(rb, leaf.ctypes.data_as(
+        ctypes.POINTER(ctypes.c_int32)), len(Xp), leaf.shape[1]), "Refit")
+    torch.cuda.synchronize()
+    t_refit = time.perf_counter() - t0
+    b1_refit = counts()[0]
+    cpu = {"device_type": "cpu"}
+    hb = capi_helpers.booster_from_string(text.replace("[device_type: cuda]",
+                                                       "[device_type: cpu]"))
+    capi_helpers.booster_reset_training_data(hb, lgt.Dataset(Xp, label=yte,
+                                                             params={**base, **cpu}))
+    capi_helpers.booster_refit_leaf_preds(hb, leaf.ctypes.data, len(Xp), leaf.shape[1])
+    card = ctypes.cast(rb, ctypes.py_object).value
+    gap = max(float(np.abs(a.leaf_value - b.leaf_value).max())
+              for a, b in zip(card._gbdt.models, hb._gbdt.models))
+    if not (gap <= 1e-6 and b1_refit == leaf.shape[1]):
+        raise AssertionError(f"phase 25 refit: card vs CPU max|d| {gap}, B1 launches "
+                             f"{b1_refit}")
+    # B1 at the refit site: tree 0's leaf column and the gradients at the
+    # refit's first score (the init score the loaded text folds in: 0)
+    dev = card._gbdt.device
+    obj = create_objective(Config.from_dict(base))
+    label = torch.as_tensor(yte, dtype=torch.float32, device=dev)
+    g, h = obj.get_gradients(torch.zeros(len(Xp), device=dev), label, None)
+    n_leaf = int(card._gbdt.models[0].num_leaves)
+    col = torch.as_tensor(leaf[:, :1], dtype=torch.int16, device=dev).contiguous()
+    r = check_b1_site(hc, col, g.contiguous(), h.contiguous(),
+                      torch.ones(len(Xp), dtype=torch.bool, device=dev),
+                      torch.zeros(len(Xp), dtype=torch.int32, device=dev), 1, n_leaf)
+    log(f"phase 25 capi refit: ok {len(Xp)} rows x {leaf.shape[1]} trees in "
+        f"{t_refit * 1e3:.2f} ms; card vs CPU leaf values max|d|={gap:.3g} (bar 1e-6); "
+        f"B1 launches={b1_refit} (one a tree)")
+    log(b1_line(f"phase 25 kernel B1 at the refit site (1 feature = the leaf id, "
+                f"{n_leaf} bins)", r))
+
+    # a C host on the card: 10 rounds on 100,000 rows, its model written
+    tmp = tempfile.mkdtemp(prefix="lgbt_phase25_")
+    try:
+        data = Path(tmp) / "higgs.bin"
+        with open(data, "wb") as fh:
+            fh.write(np.ascontiguousarray(Xtr[:CAPI_HOST_ROWS], np.float64).tobytes())
+            fh.write(np.ascontiguousarray(ytr[:CAPI_HOST_ROWS], np.float32).tobytes())
+        model = Path(tmp) / "model.txt"
+        hp = {**base, "num_iterations": CAPI_HOST_ROUNDS}
+        env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+            [os.path.dirname(os.path.abspath(__file__))] + [q for q in sys.path if q])}
+        t0 = time.perf_counter()
+        res = subprocess.run([host, str(data), str(CAPI_HOST_ROWS), str(Xtr.shape[1]),
+                              capi_params(base).decode(), capi_params(hp).decode(),
+                              str(CAPI_HOST_ROUNDS), str(model)], env=env,
+                             capture_output=True, text=True, timeout=120)
+        t_host = time.perf_counter() - t0
+        if res.returncode != 0:
+            raise AssertionError(f"phase 25 C host exited {res.returncode}: "
+                                 f"{res.stderr[-2000:]}")
+        want_host = lgt.train(base, lgt.Dataset(Xtr[:CAPI_HOST_ROWS],
+                                                label=ytr[:CAPI_HOST_ROWS],
+                                                params=base),
+                              CAPI_HOST_ROUNDS).model_to_string()
+        if model.read_text() != want_host:
+            raise AssertionError("phase 25 C host model != the Python API's")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for b in (bh, rb):
+        lib.LGBM_BoosterFree(b)
+    for d in (ds, rds):
+        lib.LGBM_DatasetFree(d)
+    log(f"phase 25 capi host: ok a C program (g++, linked to the library and "
+        f"libpython) trained {CAPI_HOST_ROUNDS} rounds on {CAPI_HOST_ROWS} rows on the "
+        f"card in {t_host:.2f} s (its interpreter's start-up included): the Python "
+        f"API's model bitwise")
+    t_25 = time.perf_counter() - t_phase
+    log(f"phase 25 capi: ok in {t_25:.2f} s (limit {PHASE25_LIMIT_S:.0f}; the library "
+        f"and the C host built in {t_build:.2f} s beside phase 1)")
+    if t_25 > PHASE25_LIMIT_S:
+        raise AssertionError(f"phase 25 took {t_25:.2f} s, over its "
+                             f"{PHASE25_LIMIT_S:.0f} s limit")
+    return b1_entry("histogram_multi_capi_refit", r, b1_refit, 0)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -4716,7 +5064,13 @@ def main() -> int:
     t_all = time.perf_counter()
     kind = torch.cuda.get_device_name(0)
 
-    # ---- 1. build ----
+    # ---- 1. build (phase 25's g++ builds run beside the nvcc calls) ----
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    tmp25 = tempfile.mkdtemp(prefix="lgbt_phase25_build_")
+    pool25 = ThreadPoolExecutor(max_workers=1)
+    capi_built = pool25.submit(capi_build, tmp25)
     t0 = time.perf_counter()
     libs = (hc.LIBRARY, pc.LIBRARY, rc.LIBRARY)
     sos = cuda_build.build_all(libs, force=True)
@@ -4768,6 +5122,7 @@ def main() -> int:
             raise AssertionError(f"Higgs float {r['mode']} run: {st} launches {r['launches']}")
         log(turn_line("phase 3 train float", r))
     bst, b1_h, per_replay_h = runs3[0]["bst"], runs3[0]["launches"][0], runs3[0]["st"]["per_replay"]
+    it_s3 = next(r["it_s"] for r in runs3 if r["mode"] == "graph")
     p = bst.predict(Xte)
     if p.shape != (N_TEST,) or not np.all(np.isfinite(p)):
         raise AssertionError("predictions are not finite (N,) values")
@@ -4952,8 +5307,6 @@ def main() -> int:
         f"{d23['psum_s_0']:.3f}/{d23['psum_s_1']:.3f} scatter {d23['scatter_s_0']:.3f}/"
         f"{d23['scatter_s_1']:.3f} (eager) in {t_23b:.2f} s")
     # ---- 24a set-up: the mesh cells' cache, gradients and serial trees ----
-    import tempfile
-
     tmp24 = tempfile.mkdtemp(prefix="lgbt_phase24_")
     mesh_wd, mesh_serial, mesh_ref, t_24prep = mesh_prep(
         lgt, eps, eps_set, Xtr, ytr, gb, g_eps, h_eps, (tile_w, tile_wq), tmp24)
@@ -5041,7 +5394,8 @@ def main() -> int:
 
     # ---- 14. the prediction surface ----
     t0 = time.perf_counter()
-    predict_phase(lgt, {"higgs": (text, h_Xte, h_yte), "lambdarank": rank_model})
+    lat14 = predict_phase(lgt, {"higgs": (text, h_Xte, h_yte),
+                                "lambdarank": rank_model})["higgs"]
     log(f"phase 14 predict: ok in {time.perf_counter() - t0:.2f} s")
     del rank_model
     torch.cuda.empty_cache()
@@ -5124,6 +5478,13 @@ def main() -> int:
     if t_24 > PHASE24_LIMIT_S:
         raise AssertionError(f"phase 24 took {t_24:.2f} s, over its "
                              f"{PHASE24_LIMIT_S:.0f} s limit")
+    # ---- 25. the C API ----
+    try:
+        new_kernels.append(capi_phase(lgt, hc, base, higgs, text, lat14, it_s3,
+                                      capi_built))
+    finally:
+        pool25.shutdown()
+        shutil.rmtree(tmp25, ignore_errors=True)
     del h_set, higgs
     torch.cuda.empty_cache()
 

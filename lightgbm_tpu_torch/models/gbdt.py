@@ -309,6 +309,13 @@ class GBDT:
         # this iteration's gradients (GOSS reads them)
         self._cur_grad = self._cur_hess = None
         self.iter_ = 0
+        # the C API's per-call finish report (capi_helpers.booster_update;
+        # the JAX package's _report_finish_every_iter): off the strict
+        # grower each iteration starts a copy of its leaf counts and guard
+        # into pinned memory and answers from the previous iteration's
+        # copy, (iteration, PendingPull), one iteration late
+        self._report_finish_every_iter = False
+        self._finish_probe = None
         self.num_tree_per_iteration = cfg.num_tree_per_iteration
         self.init_scores = [0.0] * self.num_tree_per_iteration
         self.feature_names: List[str] = []
@@ -517,6 +524,11 @@ class GBDT:
         4.0-4.2 in int8 (chip_smoke.py, PERF.md section 5).  So the port
         trains float unless use_quantized_grad is set."""
         cfg = self.cfg
+        if self._pending:
+            # pending device trees hold bin thresholds: they become host
+            # trees through the binner they were grown on, before the new
+            # set's replaces it (C24)
+            self.models  # noqa: B018 - the property converts them
         if cfg.tree_learner not in _TREE_LEARNERS:
             raise ValueError(f"tree_learner must be one of {_TREE_LEARNERS}, got "
                              f"{cfg.tree_learner!r}")
@@ -528,6 +540,7 @@ class GBDT:
         self.device = dev = resolve_device(cfg)
         self.train_set = train_set
         self._round_graphs = None
+        self._finish_probe = None
         train_set.construct(device=dev)
         self.binner = train_set.binner
         self.feature_names = list(train_set.feature_names)
@@ -1142,7 +1155,10 @@ class GBDT:
         grower checks every iteration (one blocking read an iteration), as
         the JAX package's strict path reads each host tree and stops at the
         first iteration whose trees are all one leaf.  The check also
-        reads the non-finite guard."""
+        reads the non-finite guard.  With ``_report_finish_every_iter`` (the
+        C API) the rounds and windowed growers answer every iteration
+        from the previous one's copy, with no blocking read: one
+        iteration late, as the JAX package's probe."""
         ts = self.train_set
         cfg = self.cfg
         k = self.num_tree_per_iteration
@@ -1326,12 +1342,24 @@ class GBDT:
                     vals = delta[leaf_v]
                 self._add_score(self._valid_scores[vi], vals, c)
         self.iter_ += 1
-        if not strict and self.iter_ % 32:
+        if not strict and self._report_finish_every_iter:
+            # the C API path: no blocking read; the previous iteration's
+            # copy has retired by now (a rollback or reset leaves it stale)
+            prev, self._finish_probe = self._finish_probe, (
+                self.iter_, _san.async_pull_start(self._finish_state(num_leaves)))
+            if prev is None or prev[0] != self.iter_ - 1:
+                return False
+            read = _san.async_pull_result(prev[1])
+        elif not strict and self.iter_ % 32:
             return False
-        read = _san.sync_pull(torch.stack([torch.stack(num_leaves).max(),
-                                           self._guard_bad_iter]))
+        else:
+            read = _san.sync_pull(self._finish_state(num_leaves))
         self._raise_if_nonfinite(int(read[1]))
         return int(read[0]) <= 1
+
+    def _finish_state(self, num_leaves) -> torch.Tensor:
+        """(2,) on the device: the iteration's largest leaf count, the guard."""
+        return torch.stack([torch.stack(num_leaves).max(), self._guard_bad_iter])
 
     def _add_score(self, score: torch.Tensor, delta: torch.Tensor, c: int) -> None:
         """score (+)= delta in place, into class column c of a (N, K) score."""
@@ -1380,6 +1408,7 @@ class GBDT:
         every score (reference: GBDT::RollbackOneIter), on the device."""
         if self.iter_ <= 0:
             return
+        self._finish_probe = None
         k = self.num_tree_per_iteration
         with self._plock():  # the pops and the bump, atomic for _packed
             for c in reversed(range(k)):

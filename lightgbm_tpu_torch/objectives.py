@@ -31,6 +31,31 @@ from .config import Config
 Tensor = torch.Tensor
 
 
+def _host_exact(torch_fn, numpy_fn):
+    """``torch_fn``, except on a CPU tensor, where numpy's ``numpy_fn`` runs
+    in float64 and the result is rounded to the tensor's dtype.  torch's
+    CPU kernels for exp and log2 call MKL's vector math, which picks its
+    code path per process at run time: under host load one process took
+    another path than its neighbour, and the last bits of the gradients,
+    and so the trees, parted (ROADMAP C21).  numpy's loops pick theirs from
+    the CPU's features alone, and its float64 result rounded to float32 is
+    the correctly rounded value but for ties (as near the JAX package's
+    float32 exp as MKL's is: 18,789 against 19,005 of 200,000 draws part
+    from it).  On the card torch's kernels stay.  (cross_entropy_lambda
+    differentiates its loss with torch.func, so its exp and log stay
+    torch's.)"""
+    def fn(x: Tensor) -> Tensor:
+        if x.device.type != "cpu":
+            return torch_fn(x)
+        a = x.detach().numpy()
+        return torch.from_numpy(np.asarray(numpy_fn(a.astype(np.float64)), a.dtype))
+    return fn
+
+
+_exp = _host_exact(torch.exp, np.exp)
+_log2 = _host_exact(torch.log2, np.log2)
+
+
 class Objective:
     name = "custom"
     need_renew = False
@@ -153,8 +178,8 @@ class RegressionPoisson(Objective):
 
     def get_gradients(self, score, label, weight):
         w = self._w(weight, label)
-        g = (torch.exp(score) - label) * w
-        h = torch.exp(score + self.cfg.poisson_max_delta_step) * w
+        g = (_exp(score) - label) * w
+        h = _exp(score + self.cfg.poisson_max_delta_step) * w
         return g, h
 
     def boost_from_score(self, label, weight):
@@ -163,7 +188,7 @@ class RegressionPoisson(Objective):
         return float(np.log(max(mean, 1e-9)))
 
     def convert_output(self, score):
-        return torch.exp(score)
+        return _exp(score)
 
 
 class RegressionGamma(RegressionPoisson):
@@ -173,8 +198,8 @@ class RegressionGamma(RegressionPoisson):
 
     def get_gradients(self, score, label, weight):
         w = self._w(weight, label)
-        g = (1.0 - label * torch.exp(-score)) * w
-        h = label * torch.exp(-score) * w
+        g = (1.0 - label * _exp(-score)) * w
+        h = label * _exp(-score) * w
         return g, h
 
 
@@ -186,8 +211,8 @@ class RegressionTweedie(RegressionPoisson):
     def get_gradients(self, score, label, weight):
         rho = self.cfg.tweedie_variance_power
         w = self._w(weight, label)
-        exp1 = torch.exp((1.0 - rho) * score)
-        exp2 = torch.exp((2.0 - rho) * score)
+        exp1 = _exp((1.0 - rho) * score)
+        exp2 = _exp((2.0 - rho) * score)
         g = (-label * exp1 + exp2) * w
         h = (-label * (1.0 - rho) * exp1 + (2.0 - rho) * exp2) * w
         return g, h
@@ -263,7 +288,7 @@ class BinaryLogloss(Objective):
         w = self._w(weight, label)
         y = torch.where(label > 0, 1.0, -1.0)
         lw = torch.where(label > 0, self.pos_weight, 1.0) * w
-        response = -y * sig / (1.0 + torch.exp(y * sig * score))
+        response = -y * sig / (1.0 + _exp(y * sig * score))
         grad = response * lw
         hess = torch.abs(response) * (sig - torch.abs(response)) * lw
         return grad, hess
@@ -274,7 +299,7 @@ class BinaryLogloss(Objective):
         return float(np.log(p / (1.0 - p)) / self.cfg.sigmoid)
 
     def convert_output(self, score):
-        return 1.0 / (1.0 + torch.exp(-self.cfg.sigmoid * score))
+        return 1.0 / (1.0 + _exp(-self.cfg.sigmoid * score))
 
 
 def _one_hot(label: Tensor, k: int, dtype) -> Tensor:
@@ -313,7 +338,7 @@ class MulticlassOVA(Objective):
             score, y, None if weight is None else weight[:, None])
 
     def convert_output(self, score):
-        return 1.0 / (1.0 + torch.exp(-self.cfg.sigmoid * score))
+        return 1.0 / (1.0 + _exp(-self.cfg.sigmoid * score))
 
 
 class CrossEntropy(Objective):
@@ -323,7 +348,7 @@ class CrossEntropy(Objective):
 
     def get_gradients(self, score, label, weight):
         w = self._w(weight, label)
-        p = 1.0 / (1.0 + torch.exp(-score))
+        p = 1.0 / (1.0 + _exp(-score))
         return (p - label) * w, p * (1.0 - p) * w
 
     def boost_from_score(self, label, weight):
@@ -331,7 +356,7 @@ class CrossEntropy(Objective):
         return float(np.log(p / (1 - p)))
 
     def convert_output(self, score):
-        return 1.0 / (1.0 + torch.exp(-score))
+        return 1.0 / (1.0 + _exp(-score))
 
 
 class CrossEntropyLambda(Objective):
@@ -548,7 +573,7 @@ def _lambdarank_block(scores, labels, mask, label_gain, inv_mdcg, sigmoid,
     lg = label_gain[labels.long().clamp(0, label_gain.shape[0] - 1)]
     lg = torch.where(mask, lg, 0.0)
     in_window = ranks < truncation
-    disc = torch.where(in_window, 1.0 / torch.log2(ranks.float() + 2.0), 0.0)
+    disc = torch.where(in_window, 1.0 / _log2(ranks.float() + 2.0), 0.0)
 
     d_s = scores[:, :, None] - scores[:, None, :]
     d_gain = lg[:, :, None] - lg[:, None, :]
@@ -558,7 +583,7 @@ def _lambdarank_block(scores, labels, mask, label_gain, inv_mdcg, sigmoid,
               & mask[:, None, :])
     better = better & (in_window[:, :, None] | in_window[:, None, :])
 
-    rho = 1.0 / (1.0 + torch.exp(sigmoid * d_s))
+    rho = 1.0 / (1.0 + _exp(sigmoid * d_s))
     lam = torch.where(better, sigmoid * rho * delta_ndcg, 0.0)
     hes = torch.where(better, sigmoid * sigmoid * rho * (1.0 - rho) * delta_ndcg,
                       0.0)
@@ -567,7 +592,7 @@ def _lambdarank_block(scores, labels, mask, label_gain, inv_mdcg, sigmoid,
     if norm:
         total = torch.abs(lam).sum(dim=(1, 2))[:, None]
         scale = torch.where(total > 0,
-                            torch.log2(1.0 + total) / torch.clamp_min(total, 1e-20),
+                            _log2(1.0 + total) / torch.clamp_min(total, 1e-20),
                             1.0)
         grad = grad * scale
         hess = hess * scale

@@ -1915,3 +1915,67 @@ def test_predict_over_a_device_mesh_on_the_card_is_predict():
         for raw in (False, True):
             assert np.array_equal(bst.predict(X, raw_score=raw, mesh=mesh),
                                   bst.predict(X, raw_score=raw)), (extra, raw)
+
+
+def test_c_api_training_on_the_card_is_the_python_api():
+    """The port's C library (native.c_api_library) on the card: a Dataset
+    from a matrix, its label, a Booster and 10 LGBM_BoosterUpdateOneIter
+    give the model text lgb.train gives, bit for bit, and the per-call
+    finish report makes no blocking read."""
+    import ctypes
+
+    import lightgbm_tpu_torch as lgb
+    from lightgbm_tpu_torch import native
+    from lightgbm_tpu_torch.utils import sanitizer as san
+
+    _card()
+    lib = ctypes.CDLL(native.c_api_library())
+    lib.LGBM_GetLastError.restype = ctypes.c_char_p
+    X, y = chip_smoke.higgs_like(50_000, 3)
+    Xc = np.ascontiguousarray(X)
+    yc = np.ascontiguousarray(y, np.float32)
+    ds, bh, fin = ctypes.c_void_p(), ctypes.c_void_p(), ctypes.c_int()
+    assert lib.LGBM_DatasetCreateFromMat(Xc.ctypes.data_as(ctypes.c_void_p), 1,
+                                         Xc.shape[0], Xc.shape[1], 1, b"max_bin=255",
+                                         None, ctypes.byref(ds)) == 0
+    assert lib.LGBM_DatasetSetField(ds, b"label", yc.ctypes.data_as(ctypes.c_void_p),
+                                    len(yc), 0) == 0
+    p = {"objective": "binary", "num_leaves": 31, "verbosity": -1, "seed": 7}
+    assert lib.LGBM_BoosterCreate(ds, " ".join(
+        f"{k}={v}" for k, v in {**p, "num_iterations": 10}.items()).encode(),
+        ctypes.byref(bh)) == 0, lib.LGBM_GetLastError()
+    with san.DispatchCounter() as c:
+        for _ in range(10):
+            assert lib.LGBM_BoosterUpdateOneIter(bh, ctypes.byref(fin)) == 0
+    assert c.stats()["host_syncs"] == 0
+    need = ctypes.c_int64()
+    lib.LGBM_BoosterSaveModelToString(bh, 0, -1, 0, ctypes.c_int64(0),
+                                      ctypes.byref(need), None)
+    buf = ctypes.create_string_buffer(need.value)
+    assert lib.LGBM_BoosterSaveModelToString(bh, 0, -1, 0, need, ctypes.byref(need),
+                                             buf) == 0
+    bst = lgb.train(p, lgb.Dataset(X, label=y, params={"max_bin": 255}), 10)
+    assert buf.value.decode() == bst.model_to_string()
+    lib.LGBM_BoosterFree(bh)
+    lib.LGBM_DatasetFree(ds)
+
+
+def test_refit_site_histogram_matches_plain():
+    """B1 at LGBM_BoosterRefit's site (capi_helpers.booster_refit_leaf_preds:
+    one int16 feature whose bin is the leaf id, every row in slot 0) on
+    the card == its plain version bit for bit."""
+    from lightgbm_tpu_torch.ops import hist_cuda
+
+    dev = _card()
+    n, leaves = 100_000, 31
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    leaf = torch.randint(0, leaves, (n, 1), generator=g, device=dev, dtype=torch.int16)
+    grad = torch.randn(n, generator=g, device=dev)
+    hess = torch.rand(n, generator=g, device=dev)
+    ones = torch.ones(n, dtype=torch.bool, device=dev)
+    slot = torch.zeros(n, dtype=torch.int32, device=dev)
+    args = (leaf, grad, hess, ones, slot)
+    k = hist_cuda.histogram_multi(*args, 0, 1, leaves)
+    p = hist_cuda.histogram_multi(*[a.cpu() for a in args], 0, 1, leaves)
+    assert torch.equal(k.cpu(), p)

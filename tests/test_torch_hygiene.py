@@ -156,3 +156,30 @@ def test_cpu_windowed_growth_never_counts_a_launch():
     assert partition_cuda.plain_calls["partition_segments"] > 0
     assert round_cuda.plain_calls["round_megakernel"] > 0
     assert hist_cuda.plain_calls["histogram_multi"] > 0
+
+
+def _c_declarations(text: str) -> dict:
+    """name -> its parameter list with whitespace normalized, for every
+    LGBM_* function a C header declares."""
+    text = re.sub(r"/\*.*?\*/", "", text, flags=re.S)
+    return {m.group(2): " ".join(m.group(3).split())
+            for m in re.finditer(r"(int|const char\*)\s+(LGBM_\w+)\(((?:[^()]|\([^()]*\))*)\);",
+                                 text)}
+
+
+def test_c_api_forwards_to_the_port_with_the_jax_librarys_entry_points():
+    """The port's C library embeds CPython and imports the port's
+    capi_helpers, never the JAX package's; its header declares the JAX
+    library's LGBM_* entry points with the same signatures, so a C host
+    links against either."""
+    capi = PORT / "csrc" / "capi"
+    src = (capi / "lightgbm_tpu_torch_c_api.cpp").read_text()
+    hdr = (capi / "lightgbm_tpu_torch_c_api.h").read_text()
+    assert '"lightgbm_tpu_torch.capi_helpers"' in src
+    assert '"lightgbm_tpu.' not in src + hdr
+    ours = _c_declarations(hdr)
+    assert ours == _c_declarations((ROOT / "src" / "capi" / "lightgbm_tpu_c_api.h")
+                                   .read_text())
+    assert len(ours) == 95 and "LGBM_NetworkInit" in ours
+    # every declared entry point is defined in the source
+    assert all(re.search(rf"\b{name}\(", src) for name in ours)
