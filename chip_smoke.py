@@ -242,6 +242,26 @@ Imports no JAX.  Phases, one line each; any failure exits non-zero:
               of the same refit on the CPU, B1 at its site bitwise its plain
               version; a C host compiled with g++ trains 10 rounds on
               100,000 rows on the card: the Python API's model bitwise.
+ 26. trace    (at most 30 s) the trace audit (lightgbm_tpu_torch/
+              analysis/trace_audit.py) of every single-device dispatch
+              contract at its cell's shape with the real kernels: the
+              windowed rounds (three-pass float and int8, the megakernel,
+              the three-pass sweep pin) on phase 6's Epsilon set right
+              after phase 7, while its gradients are on the card; the
+              fleet round (4 lanes), the spill grower's chunk steps, the
+              warm, converted and coalesced predicts and the continual
+              refit on phase 3's Higgs set and model after phase 25; then
+              each of them at its own fixture's shape (the multiclass
+              predict only there: no multiclass model is held), the
+              second shape J6's budgets are fitted to.  Each body runs
+              once eagerly under the recorder (J1-J7 clean: no
+              collective, no copy between host and card, no read, its
+              float64 allowance, its live bytes and max_memory_allocated's
+              rise within its budget, its bin-matrix sweeps), then is
+              captured once through ops/graphs.py, whose launch tally must
+              equal the contract's launches and the recorder's wrapper
+              calls.  One line a contract and shape, then the phase's
+              seconds.
 
 Then a JSON line with every kernel's numbers (launches on the main path,
 graph mode; whether it runs inside a graph and its launches a replay; B1
@@ -5040,6 +5060,59 @@ def capi_phase(lgt, hc, base, higgs, text, lat14, it_s3, build):
     return b1_entry("histogram_multi_capi_refit", r, b1_refit, 0)
 
 
+# ---------------------------------------------------------------------------
+# phase 26: the trace audit on the card (lightgbm_tpu_torch/analysis/)
+# ---------------------------------------------------------------------------
+PHASE26_LIMIT_S = 30.0
+TRACE_EPS = ("windowed_round_float", "windowed_round_megakernel",
+             "windowed_round_three_pass_sweeps")
+TRACE_EPS_INT8 = ("windowed_round_quantized",)
+TRACE_HIGGS = ("fleet_round_batched", "ooc_root_chunk", "ooc_split_chunk",
+               "predict_warm_single", "predict_warm_converted",
+               "predict_coalesced_bucket", "continual_refit_leaves")
+# every single-device contract at its own fixture too: J6's budgets are
+# fitted to the live bytes at both shapes (analysis/contracts.py)
+TRACE_FIXTURE_SHAPE = (TRACE_EPS + TRACE_EPS_INT8 + TRACE_HIGGS
+                       + ("predict_warm_multiclass",))
+TRACE_LANES = 4
+
+
+def trace_audit_phase(names, fixture, dev, where: str) -> float:
+    """Phase 26 over ``names`` at ``fixture``'s shape (None: the contract's
+    own fixture): each body once under the recorder on the card, then one
+    capture (analysis/trace_audit.py::audit_contract(capture=True)); fails
+    on any finding, a launch tally other than the declared launches and
+    the recorder's wrapper calls, or a host-to-device copy in the body.
+    Returns its seconds."""
+    from lightgbm_tpu_torch.analysis import contracts as ct
+    from lightgbm_tpu_torch.analysis import trace_audit as ta
+
+    t_all = time.perf_counter()
+    for name in names:
+        t0 = time.perf_counter()
+        r = ta.audit_contract(ct.CONTRACTS[name], dev, fixture, capture=True)
+        d = r.detail
+        if not r.ok:
+            raise AssertionError(f"phase 26 {name}: " + "; ".join(
+                f.format() for f in r.findings))
+        if not (d["graph_launches"] == d["declared_launches"] == d["wrappers"]):
+            raise AssertionError(f"phase 26 {name}: captured launches "
+                                 f"{d['graph_launches']}, declared "
+                                 f"{d['declared_launches']}, recorded {d['wrappers']}")
+        if d["h2d_bytes"]:
+            raise AssertionError(f"phase 26 {name}: {d['h2d_bytes']} bytes copied "
+                                 "from the host inside the body")
+        sweeps = d.get("bin_sweeps")
+        log(f"phase 26 {name}: ok at {where} ({d['note']}) collectives="
+            f"{len(d['collectives'])} sweeps={'-' if sweeps is None else sweeps} "
+            f"launches={d['graph_launches']} f64_ops={d['f64_ops']} live bytes: "
+            f"card {d['device_peak_bytes']} recorded {d['peak_live_bytes']} (budget "
+            f"{d['live_budget']}) in {time.perf_counter() - t0:.2f} s")
+        del r
+        torch.cuda.empty_cache()
+    return time.perf_counter() - t_all
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -5310,7 +5383,14 @@ def main() -> int:
     tmp24 = tempfile.mkdtemp(prefix="lgbt_phase24_")
     mesh_wd, mesh_serial, mesh_ref, t_24prep = mesh_prep(
         lgt, eps, eps_set, Xtr, ytr, gb, g_eps, h_eps, (tile_w, tile_wq), tmp24)
-    del gb, g_eps, h_eps, bst_w
+    # ---- 26, its Epsilon part: the windowed contracts on this set ----
+    eps_fx = {"bins": eps_set.bins_device, "grad": g_eps, "hess": h_eps,
+              "nbpf": eps_set.num_bins_pf_device, "mbpf": eps_set.missing_bin_pf_device,
+              "num_bins": eps_set.max_num_bins, "num_leaves": EPS_LEAVES, "tile": tile_w}
+    t_26a = (trace_audit_phase(TRACE_EPS, eps_fx, dev, "Epsilon")
+             + trace_audit_phase(TRACE_EPS_INT8, {**eps_fx, "tile": tile_wq}, dev,
+                                 "Epsilon"))
+    del gb, g_eps, h_eps, bst_w, eps_fx
     torch.cuda.empty_cache()
 
     # ---- 8. windowed training, int8: the three-pass round, in turns ----
@@ -5485,7 +5565,28 @@ def main() -> int:
     finally:
         pool25.shutdown()
         shutil.rmtree(tmp25, ignore_errors=True)
-    del h_set, higgs
+    # ---- 26, its Higgs part: the fleet, spill, predict and refit bodies ----
+    f32 = torch.float32
+    h_fx = {"bins": h_set.bins_device,
+            "grad": torch.as_tensor(0.5 - h_ytr, dtype=f32, device=dev),
+            "hess": torch.full((len(h_ytr),), 0.25, dtype=f32, device=dev),
+            "nbpf": h_set.num_bins_pf_device, "mbpf": h_set.missing_bin_pf_device,
+            "num_bins": h_set.max_num_bins, "num_leaves": NUM_LEAVES, "tile": tile_f,
+            "lanes": TRACE_LANES, "chunk_rows": OOC_CHUNKS[0],
+            "gbdt": lgt.Booster(model_str=text)._gbdt,
+            "x": torch.as_tensor(h_Xte, dtype=f32, device=dev),
+            "y": torch.as_tensor(h_yte, dtype=f32, device=dev)}
+    t_26b = (trace_audit_phase(TRACE_HIGGS, h_fx, dev, "Higgs")
+             + trace_audit_phase(TRACE_FIXTURE_SHAPE, None, dev, "its fixture"))
+    t_26 = t_26a + t_26b
+    log(f"phase 26 trace audit: ok in {t_26:.2f} s (limit {PHASE26_LIMIT_S:.0f}: "
+        f"{len(TRACE_EPS) + len(TRACE_EPS_INT8)} Epsilon contracts {t_26a:.2f} s after "
+        f"phase 7, {len(TRACE_HIGGS) + len(TRACE_FIXTURE_SHAPE)} more {t_26b:.2f} s "
+        f"after phase 25)")
+    if t_26 > PHASE26_LIMIT_S:
+        raise AssertionError(f"phase 26 took {t_26:.2f} s, over its "
+                             f"{PHASE26_LIMIT_S:.0f} s limit")
+    del h_set, higgs, h_fx
     torch.cuda.empty_cache()
 
     # ---- 22. device ----

@@ -71,6 +71,7 @@ def _dataset_params(parameters: str) -> dict:
 
     params = _parse_params(parameters)
     resolve_device(Config.from_dict(params))
+    _bring_up_network(params)
     return params
 
 
@@ -1329,15 +1330,20 @@ def predict_arrow_into(bst: Booster, n_chunks: int, chunks_addr: int,
 
 # ---- network surface (reference: LGBM_NetworkInit / Free /
 #      InitWithFunctions).  The machine list brings up a torch.distributed
-#      process group (parallel/distributed.py): NCCL where a card is
-#      visible, gloo on the CPU; the rank is the machine-list entry whose
-#      port is local_listen_port (or LIGHTGBM_TPU_RANK). ----
+#      process group (parallel/distributed.py) for the device the caller's
+#      parameters name: NCCL on the card (the default), gloo with
+#      device_type=cpu; the rank is the machine-list entry whose port is
+#      local_listen_port (or LIGHTGBM_TPU_RANK).  LGBM_NetworkInit takes no
+#      parameters, so the bring-up waits for the first Dataset or Booster
+#      made while its machine list is set (ROADMAP C26). ----
 
 _NETWORK_PARAMS: dict = {}
 
 
 def network_init(machines: str, local_listen_port: int, listen_time_out: int,
                  num_machines: int) -> bool:
+    """reference: LGBM_NetworkInit — records the machine list; the group
+    comes up with the first Dataset or Booster (``_bring_up_network``)."""
     _NETWORK_PARAMS.clear()
     if num_machines > 1:
         _NETWORK_PARAMS.update({
@@ -1346,16 +1352,20 @@ def network_init(machines: str, local_listen_port: int, listen_time_out: int,
             "time_out": int(listen_time_out),
             "num_machines": int(num_machines),
         })
-        import torch
-
-        from .config import Config
-        from .parallel.distributed import init_distributed
-
-        cfg = Config.from_dict(dict(
-            _NETWORK_PARAMS,
-            device_type="cuda" if torch.cuda.is_available() else "cpu"))
-        init_distributed(cfg)
     return True
+
+
+def _bring_up_network(params: dict) -> None:
+    """The process group of LGBM_NetworkInit's machine list, brought up
+    for the device ``params`` name (no card probed: a host without one
+    that does not ask for the CPU gets init_distributed's error); a no-op
+    without a machine list or with the group already up."""
+    if not _NETWORK_PARAMS.get("machines"):
+        return
+    from .config import Config
+    from .parallel.distributed import init_distributed
+
+    init_distributed(Config.from_dict(dict(_NETWORK_PARAMS, **params)))
 
 
 def network_free() -> bool:

@@ -55,7 +55,7 @@ def fleet_from_numpy(iters: List[Dict[str, np.ndarray]], train_set, params, *,
 
     if not iters:
         raise ValueError("fleet_from_numpy: no iterations")
-    lanes = int(np.asarray(iters[0]["num_leaves"]).shape[0])
+    lanes = int(np.shape(iters[0]["num_leaves"])[0])
     n = train_set.construct().num_data()
     fb = FleetBooster.__new__(FleetBooster)
     fb.params = dict(params or {})

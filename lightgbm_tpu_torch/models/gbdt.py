@@ -395,7 +395,7 @@ class GBDT:
     @models.setter
     def models(self, value) -> None:
         self._pending = []
-        self._models = value
+        self._models = value  # jaxlint: disable=L3 (replace+version-bump protocol: the bump below invalidates every pack, and the pack key carries (version, len) so a build overtaken by this write is caught at insert; locking here would nest the models property's device flush under the pack lock, an L2)
         self._invalidate_pred_cache("models_setter")
 
     def __getstate__(self):
@@ -1341,7 +1341,7 @@ class GBDT:
                 else:
                     vals = delta[leaf_v]
                 self._add_score(self._valid_scores[vi], vals, c)
-        self.iter_ += 1
+        self.iter_ += 1  # jaxlint: disable=L3 (the training thread's own counter: rollback_one_iter, the other writer, runs on the same thread between iterations; the pack lock there guards the model list, whose key carries (version, len))
         if not strict and self._report_finish_every_iter:
             # the C API path: no blocking read; the previous iteration's
             # copy has retired by now (a rollback or reset leaves it stale)
@@ -1730,7 +1730,7 @@ class GBDT:
         averages it).  Reads nothing back."""
         s = self._packed(start_iteration, num_iteration)
         if s is None:
-            return self._init_only(np.asarray(X).shape[0])
+            return self._init_only(np.shape(X)[0])
         _san.record_predict()
         return self._raw_of(s, torch.as_tensor(np.asarray(X, np.float32),
                                                device=self.device))
@@ -2298,7 +2298,7 @@ def _add_trees(trees: List[Tree], xs: torch.Tensor, leaves: torch.Tensor, lo: in
         linear = (_linear_tables(trees[i], xs.device) if tables is None
                   else tables[i])
         if linear is None:
-            vals = torch.as_tensor(np.asarray(trees[i].leaf_value, np.float32),
+            vals = torch.as_tensor(np.asarray(trees[i].leaf_value, np.float32),  # jaxlint: disable=R15 (A24: linear prediction uploads a constant tree's leaves a tree at a time; the pack's tables carry only the linear trees)
                                    device=xs.device)[leaves[:, i]]
         else:
             vals = predict_linear_rows(xs, leaves[:, i], *linear)

@@ -41,9 +41,9 @@ def _host_exact(torch_fn, numpy_fn):
     the CPU's features alone, and its float64 result rounded to float32 is
     the correctly rounded value but for ties (as near the JAX package's
     float32 exp as MKL's is: 18,789 against 19,005 of 200,000 draws part
-    from it).  On the card torch's kernels stay.  (cross_entropy_lambda
-    differentiates its loss with torch.func, so its exp and log stay
-    torch's.)"""
+    from it).  On the card torch's kernels stay.  cross_entropy_lambda's
+    gradients on the CPU are closed forms over the float64 values of the
+    same functions (CrossEntropyLambda._host_gradients, ROADMAP C25)."""
     def fn(x: Tensor) -> Tensor:
         if x.device.type != "cpu":
             return torch_fn(x)
@@ -364,7 +364,10 @@ class CrossEntropyLambda(Objective):
     the weight scales the intensity lambda = w * log1p(e^f); the label is a
     probability in [0, 1].  Gradients and hessians are the elementwise
     derivatives of the stable loss expression, taken with torch.func as the
-    JAX package takes them with jax.grad."""
+    JAX package takes them with jax.grad; on a CPU tensor they are the same
+    derivatives in closed form, computed in float64 numpy and rounded once
+    (``_host_gradients``), since torch's CPU exp, log1p, log and expm1 go
+    through MKL's per-process code path (ROADMAP C25, as C21)."""
 
     name = "cross_entropy_lambda"
 
@@ -375,9 +378,40 @@ class CrossEntropyLambda(Objective):
         log1m = torch.log(-torch.expm1(-torch.clamp_min(lam, 1e-30)))
         return (1.0 - t) * lam - t * log1m
 
+    @staticmethod
+    def _host_gradients(score, label, weight):
+        """(g, h) of ``_loss`` on CPU tensors: with lam = w * softplus(f),
+        dL/dlam = (1 - t) - t / expm1(lam) and d2L/dlam2 = t * e^lam /
+        expm1(lam)^2 (the t terms dropped where lam < 1e-30, as the clamp's
+        derivative drops them); g = dL/dlam * w * s, h = d2L/dlam2 * (w *
+        s)^2 + dL/dlam * w * s * (1 - s), s = sigmoid(f).  float64, rounded
+        once to the score's dtype; h >= 1e-8."""
+        a = score.detach().numpy()
+        f = a.astype(np.float64)
+        t = label.detach().numpy().astype(np.float64)
+        w = (np.ones_like(f) if weight is None
+             else weight.detach().numpy().astype(np.float64))
+        with np.errstate(over="ignore", divide="ignore", invalid="ignore"):
+            sp = np.log1p(np.exp(f))
+            sp = np.where(np.isinf(sp), f, sp)  # softplus(f) = f past exp's range
+            s = 0.5 * (1.0 + np.tanh(0.5 * f))  # sigmoid, stable both ways
+            lam = w * sp
+            live = lam >= 1e-30
+            lam_c = np.maximum(lam, 1e-30)
+            em1 = np.expm1(lam_c)
+            d1 = (1.0 - t) - np.where(live, t / em1, 0.0)
+            d2 = np.where(live, t * np.exp(lam_c) / (em1 * em1), 0.0)
+            dl = w * s
+            g = d1 * dl
+            h = d2 * dl * dl + d1 * dl * (1.0 - s)
+        return (torch.from_numpy(g.astype(a.dtype)),
+                torch.from_numpy(np.maximum(h, 1e-8).astype(a.dtype)))
+
     def get_gradients(self, score, label, weight):
         from torch.func import grad, vmap
 
+        if score.device.type == "cpu":
+            return self._host_gradients(score, label, weight)
         w = torch.ones_like(score) if weight is None else weight
         g = vmap(grad(self._loss))(score, label, w)
         h = vmap(grad(grad(self._loss)))(score, label, w)

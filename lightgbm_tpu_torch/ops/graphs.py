@@ -146,7 +146,7 @@ class RoundGraphs:
         with torch.cuda.stream(side):
             body(_map(torch.clone, self.buffers))  # warm-up on copies
         cur.wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
+        graph = torch.cuda.CUDAGraph()  # jaxlint: disable=R2 (once a key: run() keeps the graph in self._graphs and replays it)
         tally: list = []
         cuda_build._tallies.append(tally)
         try:

@@ -38,6 +38,7 @@ import torch
 from ..utils.guards import NonFiniteError
 from ..utils.sanitizer import sync_pull
 from .cuda_build import KernelLibrary, count_launch, stream_ptr
+from ..utils.audit_hooks import audited
 
 # launch counts of the kernel wrappers and call counts of the plain versions
 _NAMES = ("histogram_multi", "histogram_multi_bf16", "histogram_multi_quantized",
@@ -142,6 +143,7 @@ def _payload(grad, hess, precision: str):
     raise ValueError(f"precision must be f32 or bf16, got {precision!r}")
 
 
+@audited("histogram_multi")
 def histogram_multi(bins, grad, hess, mask, leaf_slot, leaf_base: int,
                     tile: int, num_bins: int, shift=None,
                     precision: str = "f32") -> torch.Tensor:
@@ -187,6 +189,7 @@ def histogram_multi(bins, grad, hess, mask, leaf_slot, leaf_base: int,
     return out
 
 
+@audited("histogram_multi_quantized")
 def histogram_multi_quantized(bins, grad_q, hess_q, mask, leaf_slot,
                               leaf_base: int, tile: int,
                               num_bins: int) -> torch.Tensor:
@@ -239,6 +242,7 @@ class CarryAccumulator:
                                  device=device)
 
 
+@audited("histogram_multi_carry")
 def histogram_multi_carry(bins, grad, hess, mask, leaf_slot, leaf_base: int,
                           acc: CarryAccumulator, finalize: bool = False
                           ) -> Optional[torch.Tensor]:
@@ -297,6 +301,7 @@ def _check_lanes(bins, grad, hess, mask, rows, slot, payload_dtype, tile,
                          f"{lanes}, {tile}, {num_bins}")
 
 
+@audited("histogram_multi_lanes")
 def histogram_multi_lanes(bins, grad, hess, mask, rows, slot, shift, tile: int,
                           num_bins: int, precision: str = "f32") -> torch.Tensor:
     """B1's lane mode (the booster fleet's window pass): (L, tile, 3, F, B)
@@ -331,6 +336,7 @@ def histogram_multi_lanes(bins, grad, hess, mask, rows, slot, shift, tile: int,
     return out
 
 
+@audited("histogram_multi_quantized_lanes")
 def histogram_multi_quantized_lanes(bins, grad_q, hess_q, mask, rows, slot,
                                     tile: int, num_bins: int) -> torch.Tensor:
     """B1's int8 lane mode: (L, tile, 3, F, B) int32 exact sums, lane by
@@ -376,7 +382,7 @@ def _rows_and_index(bins, mask, leaf_slot, leaf_base, tile, num_bins):
     n, f = bins.shape
     s = leaf_slot.to(torch.int64) - leaf_base
     take = mask & (s >= 0) & (s < tile)
-    rows = torch.nonzero(take).squeeze(1)
+    rows = torch.nonzero(take).squeeze(1)  # jaxlint: disable=R1 (plain version: runs only for CPU tensors, which no graph captures)
     feat = torch.arange(f, dtype=torch.int64, device=bins.device)
     idx = ((s[rows, None] * f + feat[None, :]) * num_bins
            + bins[rows].to(torch.int64))
@@ -389,7 +395,7 @@ def _shift_of(absmax: float, n: int) -> int:
 
 
 def _fixed_shift(v: torch.Tensor) -> int:
-    return _shift_of(float(v.abs().max()) if v.numel() else 0.0, v.shape[0])
+    return _shift_of(float(v.abs().max()) if v.numel() else 0.0, v.shape[0])  # jaxlint: disable=R1 (the plain version's own exponents and fixed_shift_pair's one read a tree; a captured round passes the tree's exponent tensor)
 
 
 def fixed_shift_pair(grad: torch.Tensor, hess: torch.Tensor) -> Tuple[int, int]:
@@ -556,6 +562,7 @@ def carry_sums_plain(bins, grad, hess, mask, leaf_slot, leaf_base: int,
     acc.acc32 += cnt.view(tile, f, num_bins).to(torch.int32)
 
 
+@audited("carry_convert")
 def carry_convert(acc64: torch.Tensor, acc32: torch.Tensor, shift) -> torch.Tensor:
     """The carried mode's conversion alone: (tile, 3, F, B) f32 from int64
     fixed-point sums acc64 (tile, 2, F, B) with the exponent pair ``shift``

@@ -21,6 +21,7 @@ import ctypes
 import torch
 
 from .cuda_build import KernelLibrary, count_launch, stream_ptr
+from ..utils.audit_hooks import audited
 from .partition import segment_ids, stable_partition_ranges
 
 launches = {"partition_segments": 0, "partition_segments_lanes": 0}
@@ -107,6 +108,7 @@ def check_segments(order, seg_start, seg_len, go_left) -> None:
             raise ValueError(f"{name} must be contiguous")
 
 
+@audited("partition_segments")
 def partition_segments(order, seg_start, seg_len, go_left):
     """Stably partition each segment [seg_start[s], seg_start[s] +
     seg_len[s]) of ``order`` (disjoint segments, in any order) into its
@@ -140,6 +142,7 @@ def partition_segments_plain(order, seg_start, seg_len, go_left):
     return stable_partition_ranges(order, sid, seg_start, seg_len, go_left)
 
 
+@audited("partition_segments_lanes")
 def partition_segments_lanes(order, seg_start, seg_len, go_left):
     """B2's lane mode (the booster fleet's partition): L independent
     segment partitions in one launch.  order and go_left are (L, N),

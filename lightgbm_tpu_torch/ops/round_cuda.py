@@ -33,6 +33,7 @@ import torch
 
 from . import hist_cuda
 from .cuda_build import KernelLibrary, count_launch, stream_ptr
+from ..utils.audit_hooks import audited
 from .partition import segment_ids, stable_partition_ranges
 from .partition_cuda import MAX_ROWS, scratch
 from .split import FeatureBests, SplitParams, gain_plane, reduce_plane_per_feature
@@ -134,6 +135,7 @@ def _check(bins, order, go_left, grad, hess, row_mask, tvecs, parent, cand_tab,
         raise ValueError(f"the categorical search takes at most 256 bins, got {b}")
 
 
+@audited("round_megakernel")
 def round_megakernel(bins, order, go_left, grad, hess, row_mask, seg_start,
                      seg_len, n_left, win_start, win_cnt, small_left, parent,
                      cand_tab, num_bins_per_feature, missing_bin_per_feature,
@@ -238,6 +240,7 @@ def round_megakernel_plain(bins, order, go_left, grad, hess, row_mask,
     return new_order, left, right, reduce_plane_per_feature(gain, ctx)
 
 
+@audited("round_partition_window")
 def round_partition_window(bins, order, go_left, grad, hess, row_mask, seg_start,
                            seg_len, n_left, win_start, win_cnt, *, num_bins: int,
                            W: int, shift):

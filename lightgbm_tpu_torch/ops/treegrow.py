@@ -788,7 +788,7 @@ def _grow(bins, grad, hess, row_mask, sample_weight, feature_mask, nbpf, mbpf,
             # only the rank holding the winning feature can route the rows;
             # rows are replicated, so its go-left bits are broadcast
             owned = (feat >= f0) & (feat < f0 + f)
-            go_left = C.psum((go_left & owned).to(torch.uint8), mesh) > 0
+            go_left = C.psum((go_left & owned).to(torch.uint8), mesh) > 0  # jaxlint: disable=R13 (C17/A27: the strict grower's sharded steps run eagerly; the step's go-left broadcast is its round's collective until NCCL rides the round graphs)
         in_leaf = can & (leaf_id == best_leaf)
         leaf_id = torch.where(in_leaf & ~go_left, new_leaf.to(torch.int32), leaf_id)
 

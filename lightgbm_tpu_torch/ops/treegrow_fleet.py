@@ -58,15 +58,15 @@ import torch
 
 from ..utils import sanitizer as _san
 from ..utils.guards import NonFiniteError
-from .graphs import RoundGraphs, copy_into
+from .graphs import RoundGraphs
 from .hist_cuda import histogram_multi_lanes, histogram_multi_quantized_lanes
 from .partition_cuda import MAX_ROWS, partition_segments_lanes
 from .round_cuda import split_window, window_rows
 from .split import SplitParams
 from .treegrow import TreeArrays
 from .treegrow_windowed import (INFO, _run_fused_rounds, _w_finalize, _w_init,
-                                _window_size, round_finish, round_geometry,
-                                round_rows)
+                                _window_size, round_body, round_finish,
+                                round_geometry, round_rows)
 
 _INT32_MAX = 2 ** 31 - 1
 
@@ -233,13 +233,7 @@ def grow_fleet_windowed(
                 key = ("fleet", lanes) + tuple(static.items())
 
                 def run(_, W):
-                    def body(bufs):
-                        sts, inps, out = bufs
-                        new, info = round_fn(sts, inps, W)
-                        copy_into(sts, new)
-                        out.copy_(info)
-
-                    graphs.run(key + (W,), body)
+                    graphs.run(key + (W,), round_body(round_fn, W))
                     return buffers[0], buffers[2]
 
             floor = lane_floor(lanes)

@@ -85,6 +85,19 @@ def grow_tree_ooc(
     return tree, leaf_id
 
 
+def split_chunk(leaf_id, chunk, lo: int, hi: int, s: BestSplit, feat, mb,
+                best_leaf, new_leaf, cmask) -> None:
+    """A split's partition of one chunk: the rows [lo, hi) of ``best_leaf``
+    that the chunk's split column sends right move to ``new_leaf`` (an
+    elementwise leaf-id update, in place)."""
+    fcol = chunk.index_select(1, feat.reshape(1))[:, 0].to(torch.int32)
+    go_left = go_left_of(fcol, mb, s.default_left, s.threshold_bin, *(
+        (s.is_cat, s.cat_mask[fcol.long()]) if cmask is not None else ()))
+    lid = leaf_id[lo:hi]
+    lid.copy_(torch.where((lid == best_leaf) & ~go_left, new_leaf.to(torch.int32),
+                          lid))
+
+
 def _grow(chunks, n, f, grad, hess, row_mask, sample_weight, feature_mask, nbpf,
           mbpf, L, num_bins, max_depth, params, cmask, contri):
     dev = grad.device
@@ -169,12 +182,8 @@ def _grow(chunks, n, f, grad, hess, row_mask, sample_weight, feature_mask, nbpf,
 
         def update(lo, hi, chunk):
             # ---- partition: the chunk's elementwise leaf-id update ----
-            fcol = chunk.index_select(1, feat.reshape(1))[:, 0].to(torch.int32)
-            go_left = go_left_of(fcol, mb, s.default_left, s.threshold_bin, *(
-                (s.is_cat, s.cat_mask[fcol.long()]) if cmask is not None else ()))
-            lid = leaf_id[lo:hi]
-            lid.copy_(torch.where((lid == best_leaf) & ~go_left,
-                                  new_leaf.to(torch.int32), lid))
+            split_chunk(leaf_id, chunk, lo, hi, s, feat, mb, best_leaf, new_leaf,
+                        cmask)
 
         # ---- the smaller child's histogram, the sibling by subtraction ----
         fresh = sweep(lambda lo, hi: row_mask[lo:hi] & (leaf_id[lo:hi] == small_leaf),

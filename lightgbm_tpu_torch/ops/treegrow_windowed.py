@@ -849,27 +849,50 @@ def _w_finalize(state: WState, grad_true, hess_true, row_mask, *,
     return tree, state.leaf_id
 
 
+def round_body(round_fn, W: int):
+    """The body ``graphs.run`` runs for one round at window ``W``:
+    ``round_fn(state, inputs, W)`` on the static buffers (state, inputs,
+    info), its new state and info copied back into them.  The trace audit
+    runs the same body (analysis/contracts.py)."""
+    def body(b):
+        st, inp, out = b
+        new, new_info = round_fn(st, inp, W)
+        copy_into(st, new)
+        out.copy_(new_info)
+
+    return body
+
+
+def windowed_round_fn(bins, num_bins_pf, missing_bin_pf, tables, efb,
+                      sharding: Optional[Sharding], static: dict):
+    """The windowed grower's ``round_fn(state, inputs, W) -> (state',
+    info)``: ``_round_fused`` over the tree's fixed inputs (the bins, the
+    per-feature tables, the categorical mask and contri ``tables``, the EFB
+    plan) and its static arguments."""
+    def round_fn(st, inp: WInputs, W):
+        return _round_fused(
+            st, bins, inp.grad, inp.hess, inp.gq, inp.hq, inp.quant_scale,
+            inp.row_mask, num_bins_pf, missing_bin_pf, inp.feature_mask, *tables,
+            W=W, shift=inp.shift, efb=efb, rng=inp.rng, sharding=sharding,
+            **static)
+
+    return round_fn
+
+
 def round_runner(round_fn, state, inputs, fixed, key, graphs: Optional[RoundGraphs]):
     """The driver's ``round(state, W) -> (state', info)``.  Without
     ``graphs``: ``round_fn(state, inputs, W)``, functional.  With them, the
     tree's state and inputs are loaded into the cache's static buffers and
-    each round is ``graphs.run``: ``round_fn`` on the buffers, its new state
-    and info copied back into them (on the card one replay of the graph
-    captured for ``key + (W,)``).  ``fixed`` are the tensors the rounds read
-    where they lie."""
+    each round is ``graphs.run`` of ``round_body`` (on the card one replay
+    of the graph captured for ``key + (W,)``).  ``fixed`` are the tensors
+    the rounds read where they lie."""
     if graphs is None:
         return lambda st, W: round_fn(st, inputs, W)
     info = torch.zeros(INFO, dtype=torch.int32, device=inputs.grad.device)
     buffers = graphs.load((state, inputs, info), fixed)
 
     def run(_, W):
-        def body(b):
-            st, inp, out = b
-            new, new_info = round_fn(st, inp, W)
-            copy_into(st, new)
-            out.copy_(new_info)
-
-        graphs.run(key + (W,), body)
+        graphs.run(key + (W,), round_body(round_fn, W))
         return buffers[0], buffers[2]
 
     return run
@@ -1129,13 +1152,6 @@ def grow_tree_windowed(
         fixed = (bins, num_bins_per_feature, missing_bin_per_feature,
                  *(t for t in tables if t is not None), *(efb or ()))
 
-        def round_fn(st, inp: WInputs, W):
-            return _round_fused(
-                st, bins, inp.grad, inp.hess, inp.gq, inp.hq, inp.quant_scale,
-                inp.row_mask, num_bins_per_feature, missing_bin_per_feature,
-                inp.feature_mask, *tables, W=W, shift=inp.shift, efb=efb,
-                rng=inp.rng, sharding=sharding, **static)
-
         try:
             hist = None if graphs is None or graphs.buffers is None else (
                 graphs.buffers[0].hist)
@@ -1153,7 +1169,10 @@ def grow_tree_windowed(
             # a rank's can hold all its rows (the child is small globally)
             w_first = _window_size(max(n // 2 if sharding is None else n, 1), n)
             state = _run_fused_rounds(
-                round_runner(round_fn, state, inputs, fixed,
+                round_runner(windowed_round_fn(bins, num_bins_per_feature,
+                                               missing_bin_per_feature, tables,
+                                               efb, sharding, static),
+                             state, inputs, fixed,
                              ("windowed",) + tuple(static.items()), graphs),
                 state, n_ladder=n, w_first=w_first,
                 num_leaves=num_leaves, stats=stats, guard_label=guard_label)

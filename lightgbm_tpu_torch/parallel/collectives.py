@@ -25,7 +25,9 @@ where they exist.
 All ranks must call the same collectives in the same order: the growers
 keep every decision that chooses a collective replicated.  Each call
 counts itself and its input's bytes in the stats of the Mesh it runs over
-(``_count``), so a 2-D or hierarchical mesh's counts are per axis.
+(``_count``), so a 2-D or hierarchical mesh's counts are per axis, and
+reports itself to the trace audit's recorder when one is installed
+(utils/audit_hooks.py; analysis/trace_audit.py J1).
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
+from ..utils import audit_hooks as _hooks
 from .mesh import Mesh
 
 _reduce_scatter = (getattr(dist, "reduce_scatter_single", None)
@@ -41,13 +44,15 @@ _all_gather = (getattr(dist, "all_gather_single", None)
                or dist.all_gather_into_tensor)
 
 
-def _count(x: torch.Tensor, mesh: Mesh) -> None:
+def _count(x: torch.Tensor, mesh: Mesh, op: str) -> None:
+    nbytes = x.numel() * x.element_size()
     mesh.stats["collectives"] += 1
-    mesh.stats["bytes"] += x.numel() * x.element_size()
+    mesh.stats["bytes"] += nbytes
+    _hooks.collective(op, mesh.axis, nbytes)
 
 
-def _reduce(x: torch.Tensor, mesh: Mesh, op) -> torch.Tensor:
-    _count(x, mesh)
+def _reduce(x: torch.Tensor, mesh: Mesh, op, name: str) -> torch.Tensor:
+    _count(x, mesh, name)
     if x.dtype == torch.bool:
         y = x.to(torch.uint8)
         dist.all_reduce(y, op=op, group=mesh.group)
@@ -59,21 +64,21 @@ def _reduce(x: torch.Tensor, mesh: Mesh, op) -> torch.Tensor:
 
 def psum(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     """The sum over the ranks of ``x`` (a new tensor)."""
-    return _reduce(x, mesh, dist.ReduceOp.SUM)
+    return _reduce(x, mesh, dist.ReduceOp.SUM, "psum")
 
 
 def pmax(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
-    return _reduce(x, mesh, dist.ReduceOp.MAX)
+    return _reduce(x, mesh, dist.ReduceOp.MAX, "pmax")
 
 
 def pmin(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
-    return _reduce(x, mesh, dist.ReduceOp.MIN)
+    return _reduce(x, mesh, dist.ReduceOp.MIN, "pmin")
 
 
 def psum_scatter(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     """This rank's block of the sum over the ranks: rows [r * k, (r + 1) * k)
     of the summed ``x``, k = x.shape[0] / R."""
-    _count(x, mesh)
+    _count(x, mesh, "psum_scatter")
     r = mesh.size
     if x.shape[0] % r:
         raise ValueError(f"psum_scatter: dim 0 ({x.shape[0]}) is not a multiple "
@@ -87,7 +92,7 @@ def psum_scatter(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
 
 def all_gather(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     """The ranks' ``x`` (equal shapes) concatenated over dim 0, rank order."""
-    _count(x, mesh)
+    _count(x, mesh, "all_gather")
     x = x.contiguous()
     out = torch.empty((x.shape[0] * mesh.size,) + tuple(x.shape[1:]),
                       dtype=x.dtype, device=x.device)

@@ -168,7 +168,7 @@ def parse_spec(raw: Optional[str] = None) -> Dict[str, int]:
 
 
 def _refresh_spec() -> None:
-    global _spec_cache  # jaxlint: disable=R5 (host-side env-spec memo; fault arming is DELIBERATELY a trace-time decision for the pallas sites and a host decision everywhere else — nothing here touches traced values)
+    global _spec_cache
     raw = os.environ.get("LGBMTPU_FAULT", "")
     if _spec_cache[0] != raw:
         rounds, ranks = _parse_full(raw)

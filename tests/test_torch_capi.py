@@ -425,6 +425,34 @@ def test_no_fallback_without_device_type(lib):
     lib.LGBM_DatasetFree(ds)
 
 
+def test_network_init_without_a_cpu_request_raises_instead_of_gloo():
+    """Fault C26: LGBM_NetworkInit probes for no card.  Without one, a
+    Dataset or a training made after it that does not ask for the CPU
+    raises, and no gloo group comes up behind the caller's back."""
+    import torch
+    import torch.distributed as dist
+
+    from lightgbm_tpu_torch import capi_helpers as ch
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is visible: the default device resolves")
+    ports = free_ports(2)
+    machines = ",".join(f"127.0.0.1:{p}" for p in ports)
+    X = np.random.RandomState(7).randn(200, 3)
+    try:
+        assert ch.network_init(machines, ports[0], 2, 2)
+        assert not dist.is_initialized()
+        with pytest.raises(Exception, match="device_type"):
+            ch._dataset_params("max_bin=63")
+        ds = tlgb.Dataset(X, label=(X[:, 0] > 0).astype(float),
+                          params={"device_type": "cpu", "verbosity": -1})
+        with pytest.raises(RuntimeError, match="needs CUDA"):
+            ch.booster_create(ds, "objective=binary verbosity=-1")
+        assert not dist.is_initialized()
+    finally:
+        ch.network_free()
+
+
 RANK_SCRIPT = r'''
 import ctypes, os, sys
 import numpy as np

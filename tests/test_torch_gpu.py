@@ -1979,3 +1979,23 @@ def test_refit_site_histogram_matches_plain():
     k = hist_cuda.histogram_multi(*args, 0, 1, leaves)
     p = hist_cuda.histogram_multi(*[a.cpu() for a in args], 0, 1, leaves)
     assert torch.equal(k.cpu(), p)
+
+
+@pytest.mark.parametrize("name", ["windowed_round_megakernel", "windowed_round_quantized",
+                                  "ooc_split_chunk", "predict_warm_converted"])
+def test_trace_audit_contract_on_card(name):
+    """The trace audit on the card (analysis/trace_audit.py): the contract's
+    body at its fixture shape, one recorded eager run with the real kernels
+    (J1-J7 clean, no copy between host and card), then one capture through
+    ops/graphs.py whose launch tally is the declared launches."""
+    from lightgbm_tpu_torch.analysis import trace_audit as ta
+    from lightgbm_tpu_torch.analysis.contracts import CONTRACTS
+
+    dev = _card()
+    c = CONTRACTS[name]
+    r = ta.audit_contract(c, dev, capture=True)
+    assert r.ok, [f.format() for f in r.findings]
+    assert r.detail["graph_launches"] == r.detail["declared_launches"] == \
+        r.detail["wrappers"]
+    assert r.detail["h2d_bytes"] == 0
+    assert 0 < r.detail["device_peak_bytes"] <= r.detail["live_budget"]

@@ -77,6 +77,75 @@ def test_runtime_subpackages_import_no_jax():
         p.name for p in PORT.glob("*.py")}
 
 
+def test_analysis_layer_imports_no_jax():
+    """The port's analysis layer (lint rules, lock rules, contracts and the
+    trace audit) imports neither JAX nor the JAX package, and its seven
+    modules are the JAX package's seven under the same names but for the
+    audit (jaxpr_audit.py is trace_audit.py)."""
+    mods = ["lightgbm_tpu_torch.analysis", "lightgbm_tpu_torch.analysis.__main__",
+            "lightgbm_tpu_torch.analysis.core", "lightgbm_tpu_torch.analysis.rules",
+            "lightgbm_tpu_torch.analysis.locks",
+            "lightgbm_tpu_torch.analysis.contracts",
+            "lightgbm_tpu_torch.analysis.trace_audit"]
+    code = ("import importlib, sys\n"
+            f"for m in {mods!r}: importlib.import_module(m)\n"
+            "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
+            "or m == 'lightgbm_tpu' or m.startswith('lightgbm_tpu.'))\n"
+            "print(bad); sys.exit(1 if bad else 0)")
+    env = {**os.environ, "PYTHONPATH": str(ROOT)}
+    res = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT), env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+    names = {p.name for p in (PORT / "analysis").glob("*.py")}
+    jax_names = {p.name for p in (ROOT / "lightgbm_tpu" / "analysis").glob("*.py")}
+    assert names == (jax_names - {"jaxpr_audit.py"}) | {"trace_audit.py"}
+
+
+def _picks_device(node) -> bool:
+    """A branch that names a device: a "cuda"/"gpu"/"cpu" literal or a
+    torch.device(...) call."""
+    import ast
+    for n in ast.walk(node):
+        if isinstance(n, ast.Constant) and n.value in ("cuda", "gpu", "cpu"):
+            return True
+        if (isinstance(n, ast.Call) and isinstance(n.func, ast.Attribute)
+                and n.func.attr == "device"):
+            return True
+    return False
+
+
+def test_no_cuda_probe_picks_a_device():
+    """Fault C26's pattern: nowhere in the port does torch.cuda.is_available()
+    choose a device (``"cuda" if is_available() else "cpu"``, or an ``if``
+    on it that sets one).  The probes left guard NVTX ranges, profiler
+    activities and a synchronize (utils/profiling.py), or raise."""
+    import ast
+    hits, probes = [], 0
+    for path in sorted(PORT.rglob("*.py")):
+        tree = ast.parse(path.read_text())
+        for node in ast.walk(tree):
+            if not isinstance(node, (ast.If, ast.IfExp, ast.BoolOp, ast.Assign)):
+                continue
+            test = node.test if isinstance(node, (ast.If, ast.IfExp)) else node
+            if not any(isinstance(n, ast.Call) and isinstance(n.func, ast.Attribute)
+                       and n.func.attr == "is_available"
+                       and (ast.unparse(n.func.value) == "torch.cuda")
+                       for n in ast.walk(test)):
+                continue
+            probes += 1
+            if isinstance(node, ast.IfExp):
+                arms = [node.body, node.orelse]
+            elif isinstance(node, ast.If):
+                arms = [s for s in node.body + node.orelse
+                        if not isinstance(s, ast.Raise)]
+            else:
+                arms = [node]
+            if any(_picks_device(a) for a in arms):
+                hits.append(f"{path.relative_to(ROOT)}:{node.lineno}")
+    assert probes >= 4  # the scan sees the guards that stay
+    assert not hits, hits
+
+
 def _small():
     rng = np.random.RandomState(0)
     X = rng.randn(300, 4)

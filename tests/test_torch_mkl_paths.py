@@ -32,6 +32,8 @@ CASES = {
     "binary rounds": ({"tree_growth_mode": "rounds"}, 3),
     "poisson": ({"objective": "poisson"}, 3),
     "lambdarank": ({"objective": "lambdarank", "num_leaves": 15}, 2),
+    # fault C25: its gradients on the CPU are closed forms in numpy
+    "cross_entropy_lambda": ({"objective": "cross_entropy_lambda"}, 4),
 }
 SCRIPT = r'''
 import hashlib, json, sys
