@@ -37,8 +37,12 @@ Imports no JAX.  Phases, one line each; any failure exits non-zero:
               partition, the float window pass and the round megakernel
               (two sets of split options) at the float leaf tile 10, the
               partition and the int8 window pass at the int8 tile 20, and
-              a ragged case; the root pass and the int8 window pass beside
-              their bounds, and the round kernel's per-phase device times
+              a ragged case; the window passes in B1's window mode (read
+              through the order), also bit for bit against the gathered
+              route; the root pass and the int8 window pass beside their
+              bounds (the int8 window pass beside the gathered route, the
+              kernel alone on the gathered copy and the window mode over
+              that copy), and the round kernel's per-phase device times
               (partition, window pass, subtraction, split search) from a
               torch.profiler window, each beside its own bound; the
               partition's time per Python call (events), its device time
@@ -60,7 +64,8 @@ Imports no JAX.  Phases, one line each; any failure exits non-zero:
               iteration), B1 launches (tile 1: the root and one a
               split), held-out AUC, a small run held against the CPU, a
               profiled window, and B1 at its tile-1 call site against its
-              plain version;
+              plain version, its call split into host time, launches and
+              device time (call_split);
  11. multi    multiclass softmax at the repo's multiclass-5 shape (500k
               train + 50k held-out rows x 28 features, 5 classes, 31
               leaves, max_bin 63), 10 rounds (50 trees), graph and eager in
@@ -180,7 +185,8 @@ Imports no JAX.  Phases, one line each; any failure exits non-zero:
               131,072, phase 3's sha256; (b) spill, max_rows_in_hbm 262,144,
               chunks 131,072 and 65,536, 5 rounds, phase 10's strict sha256,
               streamed rows/s, GB/s, chunk launches a tree, blocking reads a
-              split, the carried B1 bitwise its plain version with times;
+              split, the carried B1 bitwise its plain version with times
+              and its host / device split;
               (c) 65,536 rows appended as a segment, read back bitwise,
               compacted (at most 60 s);
  21. continual phase 3's model behind lgb.serve, 8 clients: 4 ingested
@@ -239,8 +245,10 @@ Imports no JAX.  Phases, one line each; any failure exits non-zero:
               100,000 held-out rows == Booster.predict bitwise (median ms
               beside phase 14's) and PredictForMatSingleRowFast at one row;
               LGBM_BoosterRefit on those rows' pred_leaf matrix within 1e-6
-              of the same refit on the CPU, B1 at its site bitwise its plain
-              version; a C host compiled with g++ trains 10 rounds on
+              of the same refit on the CPU, B1 at its site (exponents from
+              its own rows, as the refit calls it) bitwise its plain
+              version, its call split into host time, launches and device
+              time beside index_add_'s; a C host compiled with g++ trains 10 rounds on
               100,000 rows on the card: the Python API's model bitwise.
  26. trace    (at most 30 s) the trace audit (lightgbm_tpu_torch/
               analysis/trace_audit.py) of every single-device dispatch
@@ -277,7 +285,12 @@ line {"ok": true, "device": {...}}.
 
 trains the Higgs-shaped cell with another checkout's package (e.g. the
 parent commit's, unpacked with git archive) and with this one in graph and
-eager mode, in turns, printing each run's it/s and model sha256.
+eager mode, in turns, printing each run's it/s and model sha256; then
+times B1's small calls (the refit site, the strict grower's tile-1 call,
+the spill grower's carried chunk) and the three-pass window passes (Expo,
+int8 Epsilon and per-node sampling shapes) through both checkouts'
+wrappers in turns, each bitwise the other's, with host time, launches and
+device time a call (``small_call_turns``).
 
     python3 chip_smoke.py --variants [CHECKOUT]
 
@@ -286,6 +299,15 @@ each other in turns (``variants``), each held bitwise to the plain
 versions; with CHECKOUT, another checkout's lightgbm_tpu_torch (e.g. the
 parent commit's, unpacked with git archive), its own wrappers and kernels,
 is one more variant.
+
+    python3 chip_smoke.py --small-calls [CHECKOUT]
+
+splits B1's small calls (the refit site, the strict grower's tile-1 call,
+the spill grower's carried chunk) into host time, launches and device
+time, and times the three-pass window passes (Expo, int8 Epsilon, per-node
+sampling shapes) beside the kernel alone and the gathered route; with
+CHECKOUT, that checkout's wrappers in turns with this one's, each bitwise
+the other's (``small_calls``).
 """
 
 from __future__ import annotations
@@ -1104,7 +1126,7 @@ def round_bounds(args, W, n_cat=0):
     three adds per window row and feature, and ~40 per (candidate, feature,
     bin) of the split search (two directions of leaf gains).  Returns
     ({phase: (ms, by)}, window rows)."""
-    from lightgbm_tpu_torch.ops.round_cuda import window_rows
+    from lightgbm_tpu_torch.ops.hist_cuda import window_rows
     from lightgbm_tpu_torch.ops.partition import segment_ids, stable_partition_ranges
 
     bins, order, go, _, _, _, seg_start, seg_len, _, win_start, win_cnt = args[:11]
@@ -1163,12 +1185,13 @@ def check_epsilon_kernels(ts, grad, hess, params, tile, tile_q):
     three-pass float window pass and the round kernel under the training's
     split parameters and under all of L1, L2, max_delta_step, path
     smoothing and min_gain_to_split; at the int8 leaf tile ``tile_q``, the
-    partition and the int8 window pass on the gathered window; and a
-    ragged case (odd N, 257 features, an empty segment, an all-left one,
-    positions outside every segment).  Times on the float-tile case; the
-    root pass and the int8 window pass (the histogram kernel alone, on the
-    gathered window) with their plain versions, index_add_ yardsticks and
-    bounds; the round kernel's phases from a profiler window."""
+    partition and the int8 window pass (B1's window mode, also against the
+    gathered route); and a ragged case (odd N, 257 features, an empty
+    segment, an all-left one, positions outside every segment).  Times on
+    the float-tile case; the root pass and the int8 window pass
+    (check_window_pass: beside it the gathered route and the kernel alone
+    on the gathered copy) with their plain versions, index_add_ yardsticks
+    and bounds; the round kernel's phases from a profiler window."""
     from lightgbm_tpu_torch.ops import hist_cuda as hc
     from lightgbm_tpu_torch.ops import partition_cuda as pc
     from lightgbm_tpu_torch.ops import round_cuda as rc
@@ -1217,9 +1240,7 @@ def check_epsilon_kernels(ts, grad, hess, params, tile, tile_q):
     W = _window_size(int(sp["win_cnt"].sum()), n)
     wa = (new_order, bins, (grad, hess), mask, sp["win_start"], sp["win_cnt"], W,
           tile, b)
-    same(rc.window_histograms(hc.histogram_multi, *wa, shift=shift),
-         rc.window_histograms(hc.histogram_multi_plain, *wa, shift=shift),
-         f"float window pass (T={tile})")
+    check_window_pass(hc, False, wa, shift, f"float window pass (T={tile})")
     base = round_case(bins, grad, hess, nbpf, mbpf, b, sp, shift)
     for what, prm in (("training parameters", params), ("all options", full)):
         args = with_outputs(base, prm)
@@ -1296,24 +1317,10 @@ def check_epsilon_kernels(ts, grad, hess, params, tile, tile_q):
     _, new_q = partition(sq, f"T={tile_q}")
     Wq = _window_size(int(sq["win_cnt"].sum()), n)
     qa = (new_q, bins, (gq, hq), mask, sq["win_start"], sq["win_cnt"], Wq, tile_q, b)
-    same(rc.window_histograms(hc.histogram_multi_quantized, *qa),
-         rc.window_histograms(hc.histogram_multi_quantized_plain, *qa),
-         f"int8 window pass (T={tile_q})")
-    out.update(Wq=Wq, int8_window_ms=cuda_ms(
-        lambda: rc.window_histograms(hc.histogram_multi_quantized, *qa), iters=5,
-        warmup=1))
-    # the kernel alone, on the window gathered as the three-pass round does
-    wrows, wslot, valid = rc.window_rows(new_q, sq["win_start"], sq["win_cnt"], Wq)
-    ga = (bins.index_select(0, wrows), gq[wrows], hq[wrows], mask[wrows] & valid, wslot,
-          0, tile_q, b)
-    out["int8_hist_ms"] = cuda_ms(lambda: hc.histogram_multi_quantized(*ga), iters=5,
-                                  warmup=1)
-    out["int8_hist_plain_ms"] = cuda_ms(lambda: hc.histogram_multi_quantized_plain(*ga),
-                                        iters=2, warmup=1)
-    lib, rows = library_call(ga[0], ga[1:3], ga[3], ga[4], 0, tile_q, b, torch.int32)
-    out["int8_hist_library_ms"] = cuda_ms(lib, iters=2, warmup=1)
-    out["int8_hist_bound_ms"], out["int8_hist_bound_by"] = bound(Wq, f, tile_q, b, rows, 1, 4)
-    del qa, ga, lib, rows
+    wq = check_window_pass(hc, True, qa, None, f"int8 window pass (T={tile_q})",
+                           iters=5, plain_iters=2)
+    out.update(Wq=Wq, int8_window=wq)
+    del qa
     torch.cuda.empty_cache()
 
     # the edge geometries of the partition, each against the plain version
@@ -1411,8 +1418,8 @@ VARIANTS = {
     "lookahead8": [("hist_common.cuh", "kLookahead = 4;", "kLookahead = 8;")],
     "slots_max": [("hist_common.cuh", "for (int sb = 1; sb <= sb_max; ++sb)",
                    "for (int sb = sb_max; sb <= sb_max; ++sb)")],
-    "waves2": [("hist_common.cuh", "wave = (int64_t)sms * occ;",
-                "wave = (int64_t)sms * occ * 2;")],
+    "waves2": [("hist_common.cuh", "const int64_t wave = s.resident;",
+                "const int64_t wave = s.resident * 2;")],
     "gain_per32": [("round.cu", ("  const int K = (B + 31) / 32;",
                                  "    const float sg = (float)cg"), GAIN_PER32)],
 }
@@ -1522,15 +1529,153 @@ def load_checkout(root):
                  for m in ("hist_cuda", "partition_cuda", "round_cuda"))
 
 
+def gathered_window(hc, hist_fn, order, bins, vals, mask, win_start, win_cnt, W, T,
+                    num_bins, **kw):
+    """The window pass as the three-pass round ran it before it read the
+    windows through the order: the windows' rows gathered into a (W, F)
+    copy (with their payloads and mask), then histogrammed by ``hist_fn``
+    (an entry of ``hc``, a hist_cuda module), one slot a window."""
+    from lightgbm_tpu_torch.ops.hist_cuda import _gathered
+
+    return hist_fn(*_gathered(bins, vals, mask, order, win_start, win_cnt, W), 0, T,
+                   num_bins, **kw)
+
+
+def window_case(n, f, b, T, W, seed, dev):
+    """A window pass's inputs at a cell's shape, from a seed: random bins;
+    each row in one of T + 1 leaves, the first T (the windows) holding ~90%
+    of W rows together; the order the rows' stable partition by leaf (so a
+    window's row ids rise, as after B2's stable partitions); grad, hess and
+    their int8 quantization."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    bins = torch.randint(0, b, (n, f), generator=g, device=dev, dtype=torch.int16)
+    frac = 0.9 * W / n
+    u = torch.rand(n, generator=g, device=dev)
+    leaf = torch.where(u < frac, (u / frac * T).long().clamp_max(T - 1), T)
+    order = torch.sort(leaf, stable=True).indices.to(torch.int32)
+    cnt = torch.bincount(leaf, minlength=T + 1)[:T]
+    start = torch.cumsum(cnt, 0) - cnt
+    grad = torch.randn(n, generator=g, device=dev)
+    hess = torch.rand(n, generator=g, device=dev) * 0.25
+    gq = torch.randint(-8, 9, (n,), generator=g, device=dev, dtype=torch.int8)
+    hq = torch.randint(0, 17, (n,), generator=g, device=dev, dtype=torch.int8)
+    return dict(bins=bins, order=order, win_start=start.to(torch.int32),
+                win_cnt=cnt.to(torch.int32), grad=grad, hess=hess, gq=gq, hq=hq,
+                mask=torch.ones(n, dtype=torch.bool, device=dev), W=W, T=T, b=b)
+
+
+# the small-call sites of B1 (PERF.md section 6): the C API's refit site
+# (one feature, the leaf id, 31 bins, the 100,000 held-out rows), the
+# strict grower's tile-1 call (1M x 28 x 255, one child's rows) and the
+# spill grower's carried chunk (131,072 x 28 x 255); and the three window
+# passes of the three-pass round: Expo (1M x F_b 17 x 256, T 8, W
+# 262,144), int8 Epsilon (400k x 2000 x 255, T 20, W 131,072) and per-node
+# sampling (Expo's bundled shape at W 524,288)
+SMALL_SITES = ("refit", "strict", "carried")
+WINDOW_SITES = {"expo": (1_000_000, 17, 256, 8, 262_144, False),
+                "int8_epsilon": (400_000, 2000, 255, 20, 131_072, True),
+                "node_sampling": (1_000_000, 17, 256, 8, 524_288, False)}
+
+
+def small_call_case(site, dev):
+    """One SMALL_SITES site's histogram_multi arguments, from a seed."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 40)
+    if site == "refit":
+        n, b = 100_000, 31
+        # leaf sizes skewed as a tree's are: leaf k drawn with weight 1 / (k + 1)
+        w = 1.0 / torch.arange(1, b + 1, dtype=torch.float32, device=dev)
+        leaf = torch.multinomial(w, n, replacement=True, generator=g)
+        y = (torch.rand(n, generator=g, device=dev) < 0.53).float()
+        grad, hess = (0.5 - y).contiguous(), torch.full((n,), 0.25, device=dev)
+        bins = leaf.to(torch.int16)[:, None].contiguous()
+        mask = torch.ones(n, dtype=torch.bool, device=dev)
+        return (bins, grad, hess, mask, torch.zeros(n, dtype=torch.int32, device=dev),
+                0, 1, b)
+    n = 1_000_000 if site == "strict" else OOC_CHUNKS[0]
+    bins = torch.randint(0, MAX_BIN, (n, N_FEAT), generator=g, device=dev,
+                         dtype=torch.int16)
+    grad = torch.randn(n, generator=g, device=dev)
+    hess = torch.rand(n, generator=g, device=dev) * 0.25
+    col = bins[:, 0].float()
+    mask = col <= col.median() if site == "strict" else (
+        torch.rand(n, generator=g, device=dev) < 0.5)
+    return (bins, grad, hess, mask, torch.zeros(n, dtype=torch.int32, device=dev), 0, 1,
+            MAX_BIN)
+
+
+def small_call_turns(hc, other) -> None:
+    """B1's small calls and window passes, this package's wrappers
+    (``hc``) and another checkout's (``other``) in turns (other, this,
+    this, other), each result bitwise the other's and the plain version's:
+    at each SMALL_SITES site (small_call_case) and WINDOW_SITES site
+    (window_case) the call's time (cuda_ms) and call_split's host / device
+    split; at the small-call sites also index_add_'s time and the bound."""
+    dev = torch.device("cuda", 0)
+    pkgs = [("checkout", other), ("this", hc)]
+    for site in SMALL_SITES:
+        args, carried = small_call_case(site, dev), site == "carried"
+        shift = hc.fixed_shift_tensor(args[1], args[2])
+        # the refit derives its exponents from its own rows; the growers pass
+        # the tree's
+        kw = {} if site == "refit" else {"shift": shift}
+        want = hc.histogram_multi_plain(*args, **kw)
+
+        def call(m, finalize=False):
+            if carried:
+                acc = m.CarryAccumulator(1, args[0].shape[1], args[7], shift, dev)
+                return lambda: m.histogram_multi_carry(*args[:6], acc, finalize=finalize)
+            return lambda: m.histogram_multi(*args, **kw)
+
+        for name, m in pkgs:
+            same(call(m, finalize=True)(), want, f"small call {site} ({name})")
+        lib, rows = library_call(args[0], args[1:3], args[3], args[4], 0, 1, args[7],
+                                 torch.float32)
+        b_ms, b_by = bound(args[0].shape[0], args[0].shape[1], 1, args[7], rows, 4, 4)
+        for name, m in pkgs + pkgs[::-1]:
+            fn = call(m)
+            log(f"small call {site} {name}: ms={cuda_ms(fn):.4f} "
+                f"{split_text(call_split(fn))} library_ms={cuda_ms(lib):.4f} "
+                f"bound_ms={b_ms:.4f} ({b_by})")
+        del args, lib, rows
+        torch.cuda.empty_cache()
+    for site, (n, f, b, T, W, quant) in WINDOW_SITES.items():
+        x = window_case(n, f, b, T, W, SEED + 41, dev)
+        vals = (x["gq"], x["hq"]) if quant else (x["grad"], x["hess"])
+        kw = {} if quant else {"shift": hc.fixed_shift_tensor(x["grad"], x["hess"])}
+        wa = (x["bins"], vals[0], vals[1], x["mask"], x["order"], x["win_start"],
+              x["win_cnt"], T, b)
+        plain = hc.histogram_multi_quantized_plain if quant else hc.histogram_multi_plain
+        want = gathered_window(hc, plain, x["order"], x["bins"], vals, x["mask"],
+                               x["win_start"], x["win_cnt"], W, T, b, **kw)
+
+        def call(m):
+            fn = m.histogram_window_quantized if quant else m.histogram_window
+            return lambda: fn(*wa, W=W, **kw)
+
+        for name, m in pkgs:
+            same(call(m)(), want, f"window {site} ({name})")
+        for name, m in pkgs + pkgs[::-1]:
+            fn = call(m)
+            log(f"window {site} {name}: N={n} F={f} T={T} W={W} in windows="
+                f"{int(x['win_cnt'].sum())} ms={cuda_ms(fn, iters=10):.4f} "
+                f"{split_text(call_split(fn, calls=10))}")
+        del x, wa, vals
+        torch.cuda.empty_cache()
+
+
 def turns(checkout) -> int:
     """The Higgs-shaped cell (phase 3's data and parameters, 20 rounds)
     trained by another checkout's package (``checkout_lgt``, e.g. the
     parent commit's, with its defaults) and by this one in graph and in
     eager mode, in turns: it/s and model sha256 of each run, so both modes
-    are held against the other checkout on one card in one call."""
+    are held against the other checkout on one card in one call; then B1's
+    small calls and window passes through both (small_call_turns)."""
     import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.ops import hist_cuda as hc
 
-    load_checkout(checkout)
+    other_hc = load_checkout(checkout)[0]
     other = sys.modules["checkout_lgt"]
     X, y = higgs_like(N_TRAIN + N_TEST, SEED)
     base = {"objective": "binary", "max_bin": MAX_BIN, "num_leaves": NUM_LEAVES,
@@ -1546,6 +1691,7 @@ def turns(checkout) -> int:
                                 ROUNDS_FLOAT)
         log(f"turns {label}: {ROUNDS_FLOAT} rounds it/s={it_s:.4f} "
             f"model_sha256={model_sha(bst)}")
+    small_call_turns(hc, other_hc)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
     log(smi.stdout.strip())
@@ -1645,7 +1791,7 @@ def variants(parent) -> int:
     pa_tiny = tuple(torch.from_numpy(v).to(dev) for v in partition_edge("below_one_chunk"))
     new_q = pc.partition_segments_plain(*pa20)[0]
     Wq = _window_size(int(sq["win_cnt"].sum()), n)
-    wrows, wslot, valid = rc.window_rows(new_q, sq["win_start"], sq["win_cnt"], Wq)
+    wrows, wslot, valid = hc.window_rows(new_q, sq["win_start"], sq["win_cnt"], Wq)
     ga = (ebins.index_select(0, wrows), gqe[wrows], hqe[wrows], emask[wrows] & valid, wslot,
           0, 20, MAX_BIN)
     # the variants with fewer positions a thread need more status words than
@@ -1780,17 +1926,20 @@ def mslr_like(seed: int):
     return X, y, s_tr, s_te
 
 
-def check_b1_site(hc, bins, grad, hess, mask, slot, tile, num_bins, precision="f32"):
+def check_b1_site(hc, bins, grad, hess, mask, slot, tile, num_bins, precision="f32",
+                  split=False, own_shift=False):
     """B1 at one of its call sites, on that path's own inputs and with the
     tree's exponent pair (fixed_shift_tensor), as the grower calls it:
     kernel against plain version bit for bit, then the kernel's, the plain
     version's and the library call's times and the bound of this data.
     ``precision="bf16"``: the payload rounded to bfloat16 as the rounds
     grower rounds it (once, before the pass), read as 2 bytes a value; the
-    library call adds the rounded values."""
+    library call adds the rounded values.  ``own_shift``: the exponents
+    derived by the call from its own rows, as the refit calls it.
+    ``split``: the call's host / device split (call_split) too."""
     if precision == "bf16":
         grad, hess = grad.to(torch.bfloat16), hess.to(torch.bfloat16)
-    shift = hc.fixed_shift_tensor(grad.float(), hess.float())
+    shift = None if own_shift else hc.fixed_shift_tensor(grad.float(), hess.float())
     args = (bins, grad, hess, mask, slot, 0, tile, num_bins)
     k = hc.histogram_multi(*args, shift=shift, precision=precision)
     p = hc.histogram_multi_plain(*args, shift=shift, precision=precision)
@@ -1809,23 +1958,110 @@ def check_b1_site(hc, bins, grad, hess, mask, slot, tile, num_bins, precision="f
     library_ms = cuda_ms(lib)
     n, f = bins.shape
     b_ms, b_by = bound(n, f, tile, num_bins, rows, grad.element_size(), 4)
-    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms,
-                bound_by=b_by, max_abs_err=0.0, rows=int(rows.numel()), tile=tile)
+    out = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms,
+               bound_by=b_by, max_abs_err=0.0, rows=int(rows.numel()), tile=tile)
+    if split:
+        out["split"] = call_split(lambda: hc.histogram_multi(*args, shift=shift,
+                                                             precision=precision))
+        out["library_split"] = call_split(lib)
+    return out
+
+
+LAUNCH_CALLS = ("cudaLaunch", "cuLaunch", "cudaMemset", "cuMemset", "cudaMemcpy",
+                "cuMemcpy")
+
+
+def call_split(fn, calls=40, device_calls=100):
+    """One wrapper call split three ways: its host time (perf_counter
+    around the call, each call alone after a synchronize; median ms, the
+    enqueue of its launches included) and of that the host time before its
+    first launch or memset reaches the runtime (a torch.profiler window,
+    each call in a record_function range; median ms, the profiler slowing
+    the host); its device work from a window of ``device_calls`` calls
+    back to back: the device events (kernels, sets, copies) a call and
+    their summed device ms a call.  The calls that window saw are its
+    rarest device event's count (each op of a call occurs at least once a
+    call); the profiler can miss the kernels of a short window, so a window
+    that saw none is taken again, three at most ("not measured" after)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    fn()
+    torch.cuda.synchronize()
+    host = []
+    for _ in range(calls):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        host.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for _ in range(calls):
+            with record_function("lgbt_split_call"):
+                fn()
+            torch.cuda.synchronize()
+    evs = list(prof.events())
+    ranges = sorted((e.time_range.start, e.time_range.end) for e in evs
+                    if e.name == "lgbt_split_call")
+    rt = sorted(e.time_range.start for e in evs if e.name.startswith(LAUNCH_CALLS))
+    first = []
+    for lo, hi in ranges:
+        inside = [t for t in rt if lo <= t <= hi]
+        if inside:
+            first.append((inside[0] - lo) / 1e3)
+    dev_evs, seen = [], 0
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(device_calls):
+                fn()
+            torch.cuda.synchronize()
+        dev_evs = device_events(prof)
+        seen = min((e.count for e in dev_evs), default=0)
+        if seen:
+            break
+    return dict(host_ms=float(np.median(host)) * 1e3,
+                first_launch_ms=float(np.median(first)) if first else float("nan"),
+                launches=sum(e.count for e in dev_evs) / seen if seen else float("nan"),
+                device_ms=sum(dev_us(e) for e in dev_evs) / seen / 1e3 if seen
+                else float("nan"),
+                device_kernels=sorted({e.key[:40] for e in dev_evs}))
+
+
+def split_text(s) -> str:
+    dev = ("device not measured (the profiler saw no device event in three windows)"
+           if s["device_ms"] != s["device_ms"] else
+           f"device launches a call={s['launches']:.2f} device_ms={s['device_ms']:.4f} "
+           f"({', '.join(s['device_kernels'])})")
+    return (f"host_ms={s['host_ms']:.4f} (before the first launch, profiled "
+            f"{s['first_launch_ms']:.4f}) " + dev)
 
 
 def b1_line(what, r) -> str:
+    extra = f" split: {split_text(r['split'])}" if "split" in r else ""
+    if "library_split" in r:
+        extra += f"; index_add_ device_ms={r['library_split']['device_ms']:.4f}"
     return (f"{what}: tile={r['tile']} rows={r['rows']} ms={r['ms']:.4f} "
             f"plain_ms={r['plain_ms']:.4f} library_ms={r['library_ms']:.4f} "
-            f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) bitwise_plain=True")
+            f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) bitwise_plain=True" + extra)
+
+
+def window_entry(name, r, launches, per_replay):
+    """A window pass's kernels-line entry: B1's window mode, with the
+    gathered route's and the kernel-alone times beside it."""
+    return {**b1_entry(name, r, launches, per_replay), "gathered_ms": r["gathered_ms"],
+            "alone_ms": r["alone_ms"], "contiguous_ms": r["contiguous_ms"]}
 
 
 def b1_entry(name, r, launches, per_replay):
-    return {"name": name, "route": "cuda", "source": "lightgbm_tpu_torch/csrc/hist.cu",
-            "replaces": "lightgbm_tpu/ops/hist_pallas.py:120", "launches": launches,
-            "in_graph": per_replay > 0, "launches_per_replay": per_replay,
-            "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
-            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r["library_ms"]}
+    entry = {"name": name, "route": "cuda", "source": "lightgbm_tpu_torch/csrc/hist.cu",
+             "replaces": "lightgbm_tpu/ops/hist_pallas.py:120", "launches": launches,
+             "in_graph": per_replay > 0, "launches_per_replay": per_replay,
+             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+             "library_ms": r["library_ms"]}
+    if "split" in r:
+        d = r["split"]["device_ms"]
+        entry["device_ms"] = d if d == d else None  # NaN: not measured
+    return entry
 
 
 def round_slots(n, tile, seed, dev):
@@ -1926,9 +2162,12 @@ def plain_total() -> int:
 
 
 def counts():
-    """Launches of (B1 float, B1 int8, B2, B3) since the last reset."""
+    """Launches of (B1 float, B1 int8, B2, B3) since the last reset; B1's
+    count its direct and its window mode's."""
     hc, pc, rc = _wrappers()
-    return (hc.launches["histogram_multi"], hc.launches["histogram_multi_quantized"],
+    return (hc.launches["histogram_multi"] + hc.launches["histogram_window"],
+            hc.launches["histogram_multi_quantized"]
+            + hc.launches["histogram_window_quantized"],
             pc.launches["partition_segments"], rc.launches["round_megakernel"])
 
 
@@ -2003,7 +2242,8 @@ def new_phases(lgt, dev, base, higgs, counts, plain_total):
     col = h_set.bins_device[:, 0]
     mask = col.float() <= col.float().median()
     slot0 = torch.zeros(N_TRAIN, dtype=torch.int32, device=dev)
-    b1s = check_b1_site(hc, h_set.bins_device, g10, h10, mask, slot0, 1, h_set.max_num_bins)
+    b1s = check_b1_site(hc, h_set.bins_device, g10, h10, mask, slot0, 1, h_set.max_num_bins,
+                        split=True)
     log(b1_line(f"phase 10 kernel B1 strict site N={N_TRAIN} F={N_FEAT}", b1s))
     del runs10, bst_s, gb, g10, h10, h_set
 
@@ -2691,8 +2931,9 @@ def efb_kernels(ts, grad, hess, tile, tile_q, tile_w):
     bundled matrix; the unbundling of both on the card against the CPU;
     at the windowed tile on a seeded split geometry of the feature bins,
     B2 (the partition) and B1's float window pass over the bundled matrix
-    (bit for bit, then the kernel alone on the gathered window), each
-    beside its bound and its library call (window_kernels)."""
+    (window_kernels: bit for bit, then beside the gathered route and the
+    kernel alone on the gathered copy), each beside its bound and its
+    library call."""
     from lightgbm_tpu_torch.ops import hist_cuda as hc
     from lightgbm_tpu_torch.ops.histogram import unbundle_hists
     from lightgbm_tpu_torch.ops.treegrow import quantize_gradients
@@ -2730,16 +2971,84 @@ def efb_kernels(ts, grad, hess, tile, tile_q, tile_w):
     return out
 
 
+def check_window_pass(hc, quantized, wa, shift, what, iters=10, plain_iters=3):
+    """B1's window mode (the three-pass round's window pass) on ``wa`` =
+    (order, bins, (grad, hess), mask, win_start, win_cnt, W, T, B): bit
+    for bit against its plain version and against the gathered route
+    (gathered_window: the window copied, then histogrammed), then its time
+    and host / device split, the plain version's, the gathered route's,
+    the kernel alone on the gathered copy and the window mode over that
+    copy in order (its rows contiguous: what staging a warp's rows in
+    shared memory could reach at best), index_add_ over the copy, and its
+    bound: the windows' order entries, then the masks, bins and
+    payloads of their rows in the 32-B sectors those rows touch, and the
+    output written once."""
+    order, bins, vals, mask, win_start, win_cnt, W, T, b = wa
+    kw = {} if quantized else {"shift": shift}
+    gfn = hc.histogram_window_quantized if quantized else hc.histogram_window
+    pfn = hc.histogram_window_quantized_plain if quantized else hc.histogram_window_plain
+    dfn = hc.histogram_multi_quantized if quantized else hc.histogram_multi
+    args = (bins, vals[0], vals[1], mask, order, win_start, win_cnt, T, b)
+    k = gfn(*args, W=W, **kw)
+    same(k, pfn(*args, W=W, **kw), what)
+    same(k, gathered_window(hc, dfn, *wa, **kw), f"{what}: against the gathered route")
+    rows, slot, valid = hc.window_rows(order, win_start, win_cnt, W)
+    ga = (bins.index_select(0, rows), vals[0][rows], vals[1][rows], mask[rows] & valid,
+          slot, 0, T, b)
+    lib, taken = library_call(ga[0], ga[1:3], ga[3], ga[4], 0, T, b,
+                              torch.int32 if quantized else torch.float32)
+    f = bins.shape[1]
+    in_win = rows[valid]
+    used = in_win[mask[in_win]]
+    vb = vals[0].element_size()
+    nbytes = (int(valid.sum()) * 4 + sector_bytes(in_win, 1) + sector_bytes(used, f * 2)
+              + 2 * sector_bytes(used, vb) + T * 3 * f * b * 4)
+    b_ms, b_by = bound_of(nbytes, int(used.numel()) * f * 3)
+    # the copy read through an identity order: every warp's rows contiguous
+    # and coalesced, the most that staging them in shared memory could give
+    starts = (torch.cumsum(win_cnt, 0) - win_cnt).to(torch.int32)
+    cargs = (ga[0], ga[1], ga[2], ga[3], torch.arange(W, dtype=torch.int32,
+                                                      device=bins.device),
+             starts, win_cnt, T, b)
+    same(gfn(*cargs, W=W, **kw), k, f"{what}: read from the gathered copy")
+    fn = (lambda: gfn(*args, W=W, **kw))
+    out = dict(ms=cuda_ms(fn, iters=iters, warmup=2),
+               contiguous_ms=cuda_ms(lambda: gfn(*cargs, W=W, **kw), iters=iters,
+                                     warmup=2),
+               plain_ms=cuda_ms(lambda: pfn(*args, W=W, **kw), iters=plain_iters,
+                                warmup=1),
+               gathered_ms=cuda_ms(lambda: gathered_window(hc, dfn, *wa, **kw),
+                                   iters=iters, warmup=2),
+               alone_ms=cuda_ms(lambda: dfn(*ga, **kw), iters=iters, warmup=2),
+               library_ms=cuda_ms(lib, iters=plain_iters, warmup=1), bound_ms=b_ms,
+               bound_by=b_by, max_abs_err=0.0, rows=int(taken.numel()), tile=T, W=W,
+               split=call_split(fn, calls=10))
+    del lib, ga
+    return out
+
+
+def window_line(what, r) -> str:
+    """A window pass's line: the window mode's time beside the gathered
+    route's and the kernel alone on the gathered copy."""
+    return (f"{what}: tile={r['tile']} W={r['W']} rows={r['rows']} ms={r['ms']:.4f} "
+            f"(read through the order) gathered_route_ms={r['gathered_ms']:.4f} "
+            f"kernel_alone_on_the_copy_ms={r['alone_ms']:.4f} window_mode_on_the_copy_ms="
+            f"{r['contiguous_ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+            f"library_ms={r['library_ms']:.4f} bound_ms={r['bound_ms']:.4f} "
+            f"({r['bound_by']}) bitwise_plain=True bitwise_gathered=True split: "
+            f"{split_text(r['split'])}")
+
+
 def window_kernels(ts, grad, hess, tile_w, seed, what):
     """The windowed three-pass round's B2 and window pass on a bundled set,
     each against its plain version and beside its bound and library call:
     a seeded split geometry at the windowed tile on the feature bins (its
     thresholds drawn on the integer columns: a one-hot column's two bins
-    would send every row one way), the window rows gathered from the
-    bundled matrix.  Returns {"part": ..., "window": ...}."""
+    would send every row one way), the window pass B1's window mode over
+    the bundled matrix (check_window_pass).  Returns {"part": ...,
+    "window": ...}."""
     from lightgbm_tpu_torch.ops import hist_cuda as hc
     from lightgbm_tpu_torch.ops import partition_cuda as pc
-    from lightgbm_tpu_torch.ops import round_cuda as rc
     from lightgbm_tpu_torch.ops.treegrow_windowed import _window_size
 
     bundled = ts.efb_device_tables()[0]
@@ -2767,22 +3076,9 @@ def window_kernels(ts, grad, hess, tile_w, seed, what):
     W = _window_size(int(sp_["win_cnt"].sum()), n)
     wa = (new_order, bundled, (grad, hess), mask, sp_["win_start"], sp_["win_cnt"], W,
           tile_w, b)
-    same(rc.window_histograms(hc.histogram_multi, *wa, shift=shift),
-         rc.window_histograms(hc.histogram_multi_plain, *wa, shift=shift),
-         f"float window pass over the bundled matrix (T={tile_w}, {what})")
-    wrows, wslot, valid = rc.window_rows(new_order, sp_["win_start"], sp_["win_cnt"], W)
-    ga = (bundled.index_select(0, wrows), grad[wrows], hess[wrows], mask[wrows] & valid,
-          wslot, 0, tile_w, b)
-    lib_w, rows = library_call(ga[0], ga[1:3], ga[3], ga[4], 0, tile_w, b, torch.float32)
-    bw = bound(W, ga[0].shape[1], tile_w, b, rows, 4, 4)
-    out["window"] = dict(
-        ms=cuda_ms(lambda: hc.histogram_multi(*ga, shift=shift)),
-        plain_ms=cuda_ms(lambda: hc.histogram_multi_plain(*ga, shift=shift), iters=3,
-                         warmup=1),
-        library_ms=cuda_ms(lib_w), bound_ms=bw[0], bound_by=bw[1], max_abs_err=0.0,
-        rows=int(rows.numel()), tile=tile_w, W=W,
-        with_gather_ms=cuda_ms(lambda: rc.window_histograms(hc.histogram_multi, *wa,
-                                                            shift=shift)))
+    out["window"] = check_window_pass(
+        hc, False, wa, shift,
+        f"float window pass over the bundled matrix (T={tile_w}, {what})")
     return out
 
 
@@ -2973,8 +3269,7 @@ def efb_phase(lgt, dev, counts, plain_total):
     log(b1_line(f"phase 16 kernel B1 expo int8 site N={EX_N_TRAIN} F_b={fb} "
                 f"B={ts.max_num_bins}", ek["int8"]))
     w, pt = ek["window"], ek["part"]
-    log(b1_line(f"phase 16 kernel B1 expo window pass W={w['W']} F_b={fb} (kernel alone; "
-                f"with the gather {w['with_gather_ms']:.4f} ms)", w))
+    log(window_line(f"phase 16 kernel B1 expo window pass F_b={fb}", w))
     log(f"phase 16 kernel B2 expo three-pass geometry: N={EX_N_TRAIN} T={pt['T']} "
         f"in-segment={pt['in_seg']} ms={pt['ms']:.4f} (events, a Python call) device_ms="
         f"{pt['device_ms']:.4f} plain_ms={pt['plain_ms']:.4f} library_ms="
@@ -3012,8 +3307,8 @@ def efb_phase(lgt, dev, counts, plain_total):
     pr = per_replay_w
     entries = [b1_entry("histogram_multi_expo", ek["float"], b1_e, per_replay_e),
                b1_entry("histogram_multi_quantized_expo", ek["int8"], b1q_e, 0),
-               b1_entry("histogram_multi_expo_window", w, b1_w,
-                        pr.get("histogram_multi", 0)),
+               window_entry("histogram_multi_expo_window", w, b1_w,
+                            pr.get("histogram_window", 0)),
                {"name": "partition_segments_expo", "route": "cuda",
                 "source": "lightgbm_tpu_torch/csrc/partition.cu",
                 "replaces": "lightgbm_tpu/ops/partition_pallas.py:188",
@@ -3235,8 +3530,7 @@ def envelope_phase(lgt, dev, base, higgs, expo, counts, plain_total):
         f"{b1_w} B2 launches={b2_w} graph == eager sha256 {runs[0]['sha'][:8]} in "
         f"{time.perf_counter() - t0:.2f} s")
     w, pt = wk["window"], wk["part"]
-    log(b1_line(f"phase 17 kernel B1 node-rng window pass W={w['W']} (kernel alone; with "
-                f"the gather {w['with_gather_ms']:.4f} ms)", w))
+    log(window_line("phase 17 kernel B1 node-rng window pass", w))
     log(f"phase 17 kernel B2 node-rng three-pass geometry: T={pt['T']} in-segment="
         f"{pt['in_seg']} ms={pt['ms']:.4f} device_ms={pt['device_ms']:.4f} plain_ms="
         f"{pt['plain_ms']:.4f} library_ms={pt['library_ms']:.4f} bound_ms="
@@ -3287,8 +3581,8 @@ def envelope_phase(lgt, dev, base, higgs, expo, counts, plain_total):
         + f" in {time.perf_counter() - t0:.2f} s")
     pr = per_w
     return [b1_entry("histogram_multi_monotone", b1r, b1_env, per_replay_env),
-            b1_entry("histogram_multi_node_rng_window", w, b1_w,
-                     pr.get("histogram_multi", 0)),
+            window_entry("histogram_multi_node_rng_window", w, b1_w,
+                         pr.get("histogram_window", 0)),
             {"name": "partition_segments_node_rng", "route": "cuda",
              "source": "lightgbm_tpu_torch/csrc/partition.cu",
              "replaces": "lightgbm_tpu/ops/partition_pallas.py:188",
@@ -3922,6 +4216,7 @@ def carry_kernel_case(hc, bins, num_bins, chunk, dev):
     c = (b[:chunk], grad[:chunk], hess[:chunk], mask[:chunk], slot[:chunk], 0)
     acc = hc.CarryAccumulator(1, f, num_bins, shift, dev)
     ms = cuda_ms(lambda: hc.histogram_multi_carry(*c, acc))
+    split = call_split(lambda: hc.histogram_multi_carry(*c, acc))
     plain_ms = cuda_ms(lambda: hc.histogram_multi_carry_plain(*c, acc), iters=5, warmup=1)
     rows = torch.nonzero(mask[:chunk]).squeeze(1)
     feat = torch.arange(f, device=dev)
@@ -3936,7 +4231,7 @@ def carry_kernel_case(hc, bins, num_bins, chunk, dev):
               + 2 * f * num_bins * (16 + 4))
     b_ms, b_by = bound_of(nbytes, int(rows.numel()) * f * 3)
     return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms,
-                bound_by=b_by, max_abs_err=0.0, rows=int(rows.numel()))
+                bound_by=b_by, max_abs_err=0.0, rows=int(rows.numel()), split=split)
 
 
 def ooc_phase(lgt, base, higgs, tmp):
@@ -4009,7 +4304,7 @@ def ooc_phase(lgt, base, higgs, tmp):
     log(f"phase 20 kernel B1 carried: chunk {OOC_CHUNKS[0]} x {N_FEAT} rows={r['rows']} "
         f"ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} library_ms={r['library_ms']:.4f} "
         f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) sweep == one call bitwise, "
-        "== plain bitwise")
+        f"== plain bitwise; split: {split_text(r['split'])}")
     # (c) an appended segment: read back bitwise, then compacted
     t0 = time.perf_counter()
     new = h_set.binner.transform(Xte[:OOC_APPEND_ROWS])
@@ -5006,9 +5301,11 @@ def capi_phase(lgt, hc, base, higgs, text, lat14, it_s3, build):
     g, h = obj.get_gradients(torch.zeros(len(Xp), device=dev), label, None)
     n_leaf = int(card._gbdt.models[0].num_leaves)
     col = torch.as_tensor(leaf[:, :1], dtype=torch.int16, device=dev).contiguous()
+    # (as the refit calls it: the exponents from its own rows)
     r = check_b1_site(hc, col, g.contiguous(), h.contiguous(),
                       torch.ones(len(Xp), dtype=torch.bool, device=dev),
-                      torch.zeros(len(Xp), dtype=torch.int32, device=dev), 1, n_leaf)
+                      torch.zeros(len(Xp), dtype=torch.int32, device=dev), 1, n_leaf,
+                      split=True, own_shift=True)
     log(f"phase 25 capi refit: ok {len(Xp)} rows x {leaf.shape[1]} trees in "
         f"{t_refit * 1e3:.2f} ms; card vs CPU leaf values max|d|={gap:.3g} (bar 1e-6); "
         f"B1 launches={b1_refit} (one a tree)")
@@ -5328,11 +5625,9 @@ def main() -> int:
         f"explicit exponents {r['shift']} ms={r['root_ms']:.4f} "
         f"plain_ms={r['root_plain_ms']:.4f} library_ms={r['root_library_ms']:.4f} "
         f"bound_ms={r['root_bound_ms']:.4f} ({r['root_bound_by']}) bitwise_plain=True; "
-        f"float window pass T={r['T']} W={r['W']} bitwise_plain=True; int8 window "
-        f"pass T={r['Tq']} W={r['Wq']} ms={r['int8_window_ms']:.4f} (gather included), "
-        f"kernel alone ms={r['int8_hist_ms']:.4f} plain_ms={r['int8_hist_plain_ms']:.4f} "
-        f"library_ms={r['int8_hist_library_ms']:.4f} bound_ms={r['int8_hist_bound_ms']:.4f} "
-        f"({r['int8_hist_bound_by']}) bitwise_plain=True")
+        f"float window pass T={r['T']} W={r['W']} bitwise_plain=True bitwise_gathered=True")
+    log(window_line(f"phase 7 kernel B1 int8 window pass N={EPS_N_TRAIN} F={EPS_FEAT}",
+                    r["int8_window"]))
     log(f"phase 7 kernel partition: N={EPS_N_TRAIN} T={r['T']} in-segment={r['in_seg']} "
         f"ms={r['part_ms']:.4f} (events, a Python call) device_ms={r['part_device_ms']:.4f} "
         f"(torch.profiler, {r['part_seen']} calls seen) floor_ms={r['part_floor_ms']:.4f} "
@@ -5612,16 +5907,15 @@ def main() -> int:
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     r = ek
-    for name, pre, launches, per_replay in (
-            ("histogram_multi_epsilon_root", "root", b1_w, 0),
-            ("histogram_multi_quantized_epsilon_window", "int8_hist",
-             i8_launches - st_q["trees"], per_replay_q.get("histogram_multi_quantized", 0))):
-        kernels.append({
-            "name": name, "route": "cuda", "source": src, "replaces": tpu,
-            "launches": launches, "in_graph": per_replay > 0,
-            "launches_per_replay": per_replay, "max_abs_err": 0.0, "ms": r[f"{pre}_ms"],
-            "plain_ms": r[f"{pre}_plain_ms"], "bound_ms": r[f"{pre}_bound_ms"],
-            "bound_by": r[f"{pre}_bound_by"], "library_ms": r[f"{pre}_library_ms"]})
+    kernels.append({
+        "name": "histogram_multi_epsilon_root", "route": "cuda", "source": src,
+        "replaces": tpu, "launches": b1_w, "in_graph": False, "launches_per_replay": 0,
+        "max_abs_err": 0.0, "ms": r["root_ms"], "plain_ms": r["root_plain_ms"],
+        "bound_ms": r["root_bound_ms"], "bound_by": r["root_bound_by"],
+        "library_ms": r["root_library_ms"]})
+    kernels.append(window_entry("histogram_multi_quantized_epsilon_window",
+                                r["int8_window"], i8_launches - st_q["trees"],
+                                per_replay_q.get("histogram_window_quantized", 0)))
     per_replay = per_replay_q.get("partition_segments", 0)
     kernels.append({
         "name": "partition_segments", "route": "cuda",

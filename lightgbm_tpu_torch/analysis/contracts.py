@@ -56,8 +56,8 @@ writes its state in place through ``round_body``); the
 "sharded megakernel" is B3 unfused (``lgbt_round_unfused``) plus the
 exact merge; the merge is the exact fixed-point one (C16), so the
 collective sequences are the port's, not the JAX package's; the
-three-pass round sweeps the bin matrix twice (the window gather, then
-the histogram of the gathered copy), not three times.
+three-pass round sweeps the bin matrix once (B1's window mode reads the
+window's rows through the order), not three times.
 
 Builders import nothing of JAX.  The sharded builders need a process
 group of 4 ranks (trace_audit.py starts one over gloo on the CPU, one
@@ -249,17 +249,20 @@ def _fixture_or(fixture, device, **kw) -> dict:
 # windowed round, single device (ops/treegrow_windowed.py::_round_fused)
 # ---------------------------------------------------------------------------
 
-_THREE_PASS_F32 = {"partition_segments": 1, "histogram_multi": 1}
+_THREE_PASS_F32 = {"partition_segments": 1, "histogram_window": 1}
 # J6 (module docstring; the readings beside each budget in PERF.md section
 # 6): a three-pass round's live bytes grow with its (candidate, feature,
-# bin) cells, the torch split search's gain planes: 126.5 bytes a cell at
-# the Epsilon cell in f32, 121.6 in int8; the floors are the fixtures'
-_SEARCH_F32, _SEARCH_I8 = 127, 122
+# bin) cells, the torch split search's gain planes: 122.3 bytes a cell at
+# the Epsilon cell in f32, 121.7 in int8 (fitted to the card's cell and
+# fixture readings once the window pass read its rows through the order);
+# the floors are the fixtures'.  A merge that scatters the features over
+# R ranks searches 1/R of the cells on each.
+_SEARCH_F32, _SEARCH_I8 = 123, 122
 # the torch split search's per-feature prefix sums: one float64 cast and
 # one cumsum a search (ops/split.py: exact, rounded once to f32); the
 # megakernel's search runs in B3
 _SEARCH_F64 = 2
-_THREE_PASS_I8 = {"partition_segments": 1, "histogram_multi_quantized": 1}
+_THREE_PASS_I8 = {"partition_segments": 1, "histogram_window_quantized": 1}
 
 
 @contract(
@@ -270,13 +273,13 @@ _THREE_PASS_I8 = {"partition_segments": 1, "histogram_multi_quantized": 1}
                 "written in place",
     launches=_THREE_PASS_F32,
     max_f64_ops=_SEARCH_F64,
-    live={"floor": 212 * _KB, "cells": _SEARCH_F32},
+    live={"floor": 38 * _KB, "cells": _SEARCH_F32},
     family="windowed_single",
 )
 def _build_windowed_round_float(device="cpu", fixture=None) -> Target:
     return _windowed_target(_fixture_or(fixture, device),
-                            note="three-pass round: B2 partition, the window "
-                                 "gathered, B1 float window pass")
+                            note="three-pass round: B2 partition, B1 float "
+                                 "window pass through the order")
 
 
 @contract(
@@ -286,7 +289,7 @@ def _build_windowed_round_float(device="cpu", fixture=None) -> Target:
                 "the same contract as the float round",
     launches=_THREE_PASS_I8,
     max_f64_ops=_SEARCH_F64,
-    live={"floor": 218 * _KB, "cells": _SEARCH_I8},
+    live={"floor": 40 * _KB, "cells": _SEARCH_I8},
     family="windowed_single",
 )
 def _build_windowed_round_quantized(device="cpu", fixture=None) -> Target:
@@ -313,17 +316,18 @@ def _build_windowed_round_megakernel(device="cpu", fixture=None) -> Target:
 @contract(
     "windowed_round_three_pass_sweeps",
     description="the three-pass round at the megakernel's W = N fixture: "
-                "J7 counts its two bin-matrix sweeps (the window gather "
-                "(round_cuda.window_histograms' index_select), then B1 over "
-                "the gathered copy) beside the megakernel's one",
+                "J7 counts its one bin-matrix sweep (B1's window mode, "
+                "hist_cuda.histogram_window: the window's rows read through "
+                "the order, no gathered copy) beside the megakernel's one",
     launches=_THREE_PASS_F32,
     max_f64_ops=_SEARCH_F64,
-    # the W = N fixture gathers the whole bin matrix: a larger floor
-    live={"floor": 584 * _KB, "cells": _SEARCH_F32},
+    # the W = N fixture's window rows and slots: a larger floor
+    live={"floor": 218 * _KB, "cells": _SEARCH_F32},
     family="windowed_single",
-    bin_sweeps=2.2,
-    departure="two sweeps, not the JAX round's three: the port gathers the "
-              "window row-major and histograms the copy, with no transpose",
+    bin_sweeps=1.1,
+    departure="one sweep, not the JAX round's three (gather, transpose, "
+              "histogram): B1's window mode reads the window's rows through "
+              "the order, with no copy and no transpose",
 )
 def _build_windowed_round_three_pass_sweeps(device="cpu", fixture=None) -> Target:
     fx = _fixture_or(fixture, device, n=_NS, f=_FS, tile=_TILES)
@@ -357,7 +361,7 @@ _ROUND_SUFFIX = ("pmax@data", "pmin@data")
 # masked psum
 _ELECTION = ("pmax@data", "pmin@data", "psum@data")
 # the carried float window pass, merged and converted once
-_CARRIED = {"partition_segments": 1, "histogram_multi_carry": 1,
+_CARRIED = {"partition_segments": 1, "histogram_window_carry": 1,
             "carry_convert": 1}
 
 
@@ -390,7 +394,7 @@ def _data_sharded_target(device, fixture, merge: str, megakernel: bool = False,
     collectives=_ROUND_PREFIX + _MERGE + _ROUND_SUFFIX,
     launches=_CARRIED,
     max_f64_ops=_SEARCH_F64,
-    live={"floor": 118 * _KB, "cells": _SEARCH_F32},
+    live={"floor": 3 * _KB, "cells": _SEARCH_F32},
     family="windowed_sharded",
     spine=(len(_ROUND_PREFIX), len(_ROUND_SUFFIX)),
     sharded=True,
@@ -411,7 +415,7 @@ def _build_windowed_round_sharded_psum(device="cpu", fixture=None) -> Target:
                  + _ROUND_SUFFIX),
     launches=_CARRIED,
     max_f64_ops=_SEARCH_F64,
-    live={"floor": 97 * _KB, "cells": _SEARCH_F32},
+    live={"floor": 6 * _KB, "cells": _SEARCH_F32 // WORLD},
     family="windowed_sharded",
     spine=(len(_ROUND_PREFIX), len(_ROUND_SUFFIX)),
     sharded=True,
@@ -431,7 +435,7 @@ def _build_windowed_round_sharded_scatter(device="cpu", fixture=None) -> Target:
     collectives=_ROUND_PREFIX + _MERGE + _ROUND_SUFFIX,
     launches={"round_partition_window": 1, "carry_convert": 1},
     max_f64_ops=_SEARCH_F64,
-    live={"floor": 15 * _KB, "cells": _SEARCH_F32},
+    live={"floor": 23 * _KB, "cells": _SEARCH_F32},
     family="windowed_sharded",
     spine=(len(_ROUND_PREFIX), len(_ROUND_SUFFIX)),
     sharded=True,
@@ -485,11 +489,11 @@ def _hier_target(device, fixture, merge: str) -> Target:
                 "and the only histogram-shaped dcn traffic the top-k "
                 "exchange, byte bill pinned",
     collectives=_HIER_PREFIX + _HIER_MERGE + _HIER_VOTE + _HIER_SUFFIX,
-    launches={"partition_segments": 1, "histogram_multi_carry": 1,
+    launches={"partition_segments": 1, "histogram_window_carry": 1,
               "carry_convert": 2},
     # the vote searches the root's and each candidate's elected tables
     max_f64_ops=_SEARCH_F64 * (1 + 2 * _TILE),
-    live={"floor": 150 * _KB, "cells": _SEARCH_F32},
+    live={"floor": 99 * _KB, "cells": _SEARCH_F32},
     family="windowed_hierarchical",
     spine=(len(_HIER_PREFIX), len(_HIER_SUFFIX)),
     sharded=True,
@@ -512,7 +516,7 @@ def _build_windowed_round_hierarchical_psum(device="cpu", fixture=None) -> Targe
                  + _HIER_SUFFIX),
     launches=_CARRIED,
     max_f64_ops=_SEARCH_F64,
-    live={"floor": 106 * _KB, "cells": _SEARCH_F32},
+    live={"floor": 5 * _KB, "cells": _SEARCH_F32 // 2},  # 2 ici ranks
     family="windowed_hierarchical",
     spine=(len(_HIER_PREFIX), len(_HIER_SUFFIX)),
     sharded=True,
@@ -569,7 +573,7 @@ def _2d_target(device, fixture, quantize_bins: int) -> Target:
     collectives=_2D_PREFIX + _MERGE + _2D_ELECTION + _ROUND_SUFFIX,
     launches=_CARRIED,
     max_f64_ops=_SEARCH_F64,
-    live={"floor": 214 * _KB, "cells": _SEARCH_F32},
+    live={"floor": 7 * _KB, "cells": _SEARCH_F32},
     family="windowed_2d",
     spine=(len(_2D_PREFIX), len(_ROUND_SUFFIX)),
     sharded=True,
@@ -587,7 +591,7 @@ def _build_windowed_round_2d_float(device="cpu", fixture=None) -> Target:
     collectives=(_2D_PREFIX + ("psum@data",) + _2D_ELECTION + _ROUND_SUFFIX),
     launches=_THREE_PASS_I8,
     max_f64_ops=_SEARCH_F64,
-    live={"floor": 219 * _KB, "cells": _SEARCH_I8},
+    live={"floor": 8 * _KB, "cells": _SEARCH_I8},
     family="windowed_2d",
     spine=(len(_2D_PREFIX), len(_ROUND_SUFFIX)),
     sharded=True,

@@ -109,9 +109,10 @@ _PY_IMPURE_MODULES = ("time", "random")
 # the port's kernel wrappers (ops/*_cuda.py): a call launches
 _WRAPPER_NAMES = ("histogram_multi", "histogram_multi_quantized",
                   "histogram_multi_carry", "histogram_multi_lanes",
-                  "histogram_multi_quantized_lanes", "partition_segments",
-                  "partition_segments_lanes", "round_megakernel",
-                  "round_partition_window", "window_histograms")
+                  "histogram_multi_quantized_lanes", "histogram_window",
+                  "histogram_window_quantized", "histogram_window_carry",
+                  "partition_segments", "partition_segments_lanes",
+                  "round_megakernel", "round_partition_window")
 # the port's collectives (parallel/collectives.py) and torch.distributed's
 _COLLECTIVES = ("psum", "pmax", "pmin", "psum_scatter", "all_gather",
                 "all_gather_ragged", "broadcast_from", "all_reduce",

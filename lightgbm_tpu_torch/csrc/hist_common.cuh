@@ -7,11 +7,12 @@
 //   direct  (kGather = false)  rows 0..n-1 of the (N, F) bin matrix, each
 //           row's slot from leaf_slot[r] - leaf_base;
 //   gather  (kGather = true)   the round's windows laid end to end in a
-//           flat space of positions, as ops/round_cuda.py::window_rows lays
+//           flat space of positions, as ops/hist_cuda.py::window_rows lays
 //           them: position p of slot s is row order[win_start[s] + p -
 //           off[s]], off the prefix of win_cnt, and positions past W are
 //           dropped.  The small-child windows are read through the
-//           partitioned row order without copying them.
+//           partitioned row order without copying them (B3's window pass,
+//           round.cu, and B1's window mode, hist.cu).
 // Both accumulate per block in shared memory and flush with integer
 // atomics, so the sums do not depend on the order of rows or blocks: a
 // window histogrammed here equals, bit for bit, the same rows gathered into
@@ -57,6 +58,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <map>
+#include <mutex>
+#include <tuple>
 #include <type_traits>
 
 namespace lgbt {
@@ -406,25 +410,52 @@ struct Plan {
 
 // Shared-memory plan and grid of one hist_kernel launch.  A (slot,
 // feature) pair costs bin_stride(B) cells; of the splits (SB slots x FB
-// features) that fit the card's shared memory, the one that reads the
-// fewest bytes a row: every (slot group, feature group) re-reads each row's
-// slot and mask (5 B), and each feature group reads the row's FB bins in
-// 32-B sectors.  Gather mode (one_slot) holds one slot a block.  The grid is
-// one wave of resident blocks (blocks per SM from the occupancy API at the
-// plan's shared memory), or fewer where the call has under kThreads units a
-// block; units_max bounds the positions per group (rows, or W).
+// features) that fit the card's shared memory (less the kernel's static
+// shared memory), the one that reads the fewest bytes a row: every (slot
+// group, feature group) re-reads each row's slot and mask (5 B), and each
+// feature group reads the row's FB bins in 32-B sectors.  Gather mode
+// (one_slot) holds one slot a block.  The grid is one wave of resident
+// blocks (blocks per SM from the occupancy API at the plan's shared
+// memory), or fewer where the call has under kThreads units a block;
+// units_max bounds the positions per group (rows, or W).
+//
+// Everything but the grid depends only on (kernel, device, F, tile, B, the
+// cell size, one_slot, extra shared memory), so it is worked out once per
+// such key and kept in a host table: a launch then costs one cudaGetDevice
+// and a table lookup instead of the device queries, the attribute set and
+// the occupancy query (the small calls' fixed cost, PERF.md A29).
+struct PlanShape {
+  int FB, SB, n_fgroups, n_sgroups;
+  size_t smem;
+  int64_t resident;  // blocks of the card resident at once at that shared memory
+};
+
+using PlanKey = std::tuple<const void*, int, int, int, int, int, bool, size_t>;
+
+inline std::mutex& plan_mutex() {
+  static std::mutex m;
+  return m;
+}
+
+inline std::map<PlanKey, PlanShape>& plan_table() {
+  static std::map<PlanKey, PlanShape> t;
+  return t;
+}
+
 template <class Kernel>
-inline cudaError_t make_plan(Kernel kernel, int64_t units_max, int F, int tile, int B,
-                             int cell_bytes, bool one_slot, size_t extra_smem, Plan* p) {
-  int dev = 0, smem_max = 0, sms = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  e = cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+inline cudaError_t plan_shape(Kernel kernel, int dev, int F, int tile, int B, int cell_bytes,
+                              bool one_slot, size_t extra_smem, PlanShape* p) {
+  int smem_max = 0, sms = 0;
+  cudaError_t e = cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (e != cudaSuccess) return e;
   e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return e;
+  cudaFuncAttributes fa;
+  e = cudaFuncGetAttributes(&fa, kernel);
+  if (e != cudaSuccess) return e;
   const int64_t pair_bytes = (int64_t)bin_stride(B) * cell_bytes;
-  const int64_t pairs = ((int64_t)smem_max - (int64_t)extra_smem) / pair_bytes;
+  const int64_t pairs =
+      ((int64_t)smem_max - (int64_t)fa.sharedSizeBytes - (int64_t)extra_smem) / pair_bytes;
   if (pairs < 1) return cudaErrorInvalidValue;  // one (slot, feature) row does not fit
   const int sb_max = one_slot ? 1 : (int)(pairs < tile ? pairs : tile);
   int64_t best = -1;
@@ -444,15 +475,48 @@ inline cudaError_t make_plan(Kernel kernel, int64_t units_max, int F, int tile, 
     }
   }
   p->smem = (size_t)p->SB * p->FB * pair_bytes + extra_smem;
-  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p->smem);
+  // the kernel's ceiling, not this plan's size: every key of the kernel
+  // shares the attribute, and a smaller ceiling would refuse an earlier
+  // key's launches
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           smem_max - (int)fa.sharedSizeBytes);
   if (e != cudaSuccess) return e;
   int occ = 0;
   e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kernel, kThreads, p->smem);
   if (e != cudaSuccess) return e;
   if (occ < 1) return cudaErrorInvalidConfiguration;
-  const int64_t units = units_max * p->n_fgroups * (one_slot ? 1 : p->n_sgroups);
+  p->resident = (int64_t)sms * occ;
+  return cudaSuccess;
+}
+
+template <class Kernel>
+inline cudaError_t make_plan(Kernel kernel, int64_t units_max, int F, int tile, int B,
+                             int cell_bytes, bool one_slot, size_t extra_smem, Plan* p) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const PlanKey key{reinterpret_cast<const void*>(kernel), dev, F, tile, B, cell_bytes,
+                    one_slot, extra_smem};
+  PlanShape s;
+  {
+    std::lock_guard<std::mutex> lock(plan_mutex());
+    auto it = plan_table().find(key);
+    if (it == plan_table().end()) {
+      e = plan_shape(kernel, dev, F, tile, B, cell_bytes, one_slot, extra_smem, &s);
+      if (e != cudaSuccess) return e;
+      plan_table().emplace(key, s);
+    } else {
+      s = it->second;
+    }
+  }
+  p->FB = s.FB;
+  p->SB = s.SB;
+  p->n_fgroups = s.n_fgroups;
+  p->n_sgroups = s.n_sgroups;
+  p->smem = s.smem;
+  const int64_t wave = s.resident;  // one wave of resident blocks
+  const int64_t units = units_max * s.n_fgroups * (one_slot ? 1 : s.n_sgroups);
   const int64_t wanted = (units + kThreads - 1) / kThreads;
-  const int64_t wave = (int64_t)sms * occ;
   p->blocks = (int)(wanted < 1 ? 1 : (wanted < wave ? wanted : wave));
   return cudaSuccess;
 }

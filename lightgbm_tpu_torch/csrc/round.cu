@@ -53,7 +53,8 @@
 // and positions past W are dropped as the plain version's window_rows drops
 // them.  Sums are the histogram kernel's 64-bit fixed point with the tree's
 // exponents (sg, sh), so left/right equal bit for bit what the three-pass
-// round gets from the histogram kernel on the gathered window.  The split
+// round gets from the histogram kernel's window mode (hist.cu, the same
+// device code).  The split
 // search is one warp per (candidate, feature): each lane sums its run of
 // ceil(B / 32) contiguous bins in float64, one warp scan of the lane totals
 // gives each lane its prefix, and the lane then walks its bins evaluating

@@ -18,13 +18,21 @@ and hess to bfloat16 before the pass, outside the kernel as the JAX package
 builds its payload outside its kernel, and the kernel reads the 2-byte
 values; the sums are the same fixed point.
 
-Two further modes: the lane mode (``histogram_multi_lanes`` and its int8
+A float call is a memset of one scratch, the maxima kernel (where it
+derives its exponents), the accumulation and the conversion (csrc/hist.cu's
+note, "Launches").  The wrappers allocate their scratch and output
+uninitialised: the call zeroes what it sums into.
+
+Three further modes: the lane mode (``histogram_multi_lanes`` and its int8
 twin: L lanes' window histograms over shared bins in one launch, each lane
-through its own row ids and exponents, the booster fleet's) and the carried
+through its own row ids and exponents, the booster fleet's), the carried
 mode (``histogram_multi_carry``: a sweep's chunks added into one
 accumulator the caller keeps, converted to f32 once, the out-of-core spill
-grower's).  Each plain version is the solo plain version's arithmetic:
-looped over the lanes, or its integer sums added.
+grower's) and the window mode (``histogram_window``, ``_quantized`` and
+``_carry``: the three-pass round's windows read through the row order,
+without a (W, F) copy).  Each plain version is the solo plain version's
+arithmetic: looped over the lanes, its integer sums added, or over the
+window's rows gathered (``window_rows``).
 """
 
 from __future__ import annotations
@@ -43,7 +51,8 @@ from ..utils.audit_hooks import audited
 # launch counts of the kernel wrappers and call counts of the plain versions
 _NAMES = ("histogram_multi", "histogram_multi_bf16", "histogram_multi_quantized",
           "histogram_multi_lanes", "histogram_multi_quantized_lanes",
-          "histogram_multi_carry")
+          "histogram_multi_carry", "histogram_window", "histogram_window_bf16",
+          "histogram_window_quantized", "histogram_window_carry")
 launches = dict.fromkeys(_NAMES, 0)
 plain_calls = dict.fromkeys(_NAMES, 0)
 
@@ -90,8 +99,16 @@ def recommended_leaf_tile(num_bins: int, n_features_effective: int,
 def _bind(lib: ctypes.CDLL) -> None:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     for fn in (lib.lgbt_hist_multi_f32, lib.lgbt_hist_multi_bf16):
-        fn.argtypes = [p, p, p, p, p, ll, i, i, i, i, i, p, p, p, p, p, p]
+        fn.argtypes = [p, p, p, p, p, ll, i, i, i, i, i, p, p, p, p]
         fn.restype = i
+    for fn in (lib.lgbt_hist_window_f32, lib.lgbt_hist_window_bf16):
+        fn.argtypes = [p, p, p, p, p, p, p, ll, i, i, i, p, p, p, p]
+        fn.restype = i
+    lib.lgbt_hist_window_i8.argtypes = [p, p, p, p, p, p, p, ll, i, i, i, p, p]
+    lib.lgbt_hist_window_i8.restype = i
+    lib.lgbt_hist_window_f32_carry.argtypes = [p, p, p, p, p, p, p, ll, i, i, i, p, p, p,
+                                               p]
+    lib.lgbt_hist_window_f32_carry.restype = i
     lib.lgbt_hist_multi_i8.argtypes = [p, p, p, p, p, ll, i, i, i, i, p, p]
     lib.lgbt_hist_multi_i8.restype = i
     lib.lgbt_hist_multi_f32_carry.argtypes = [p, p, p, p, p, ll, i, i, i, i, p, p, p,
@@ -107,7 +124,17 @@ def _bind(lib: ctypes.CDLL) -> None:
 LIBRARY = KernelLibrary("hist.cu", _bind)
 
 
-def _check(bins, payload, mask, leaf_slot, payload_dtype, tile, num_bins):
+def _float_scratch(tile: int, f: int, num_bins: int, device,
+                   derive: bool = False) -> torch.Tensor:
+    """A float call's scratch, uninitialised: int64 sums and int32 counts of
+    (tile, F, B) cells, then, where the call derives its exponents, the two
+    maxima words (hist.cu's FloatScratch)."""
+    return torch.empty(tile * f * num_bins * 20 + (8 if derive else 0), dtype=torch.uint8,
+                       device=device)
+
+
+def _check(bins, payload, mask, leaf_slot, payload_dtype, tile, num_bins,
+           slot_name="leaf_slot"):
     if bins.dim() != 2 or bins.dtype != torch.int16:
         raise TypeError(f"bins must be (N, F) int16, got {tuple(bins.shape)} "
                         f"{bins.dtype}")
@@ -115,12 +142,12 @@ def _check(bins, payload, mask, leaf_slot, payload_dtype, tile, num_bins):
     for name, t, dt in (("grad", payload[0], payload_dtype),
                         ("hess", payload[1], payload_dtype),
                         ("mask", mask, torch.bool),
-                        ("leaf_slot", leaf_slot, torch.int32)):
+                        (slot_name, leaf_slot, torch.int32)):
         if t.dtype != dt or t.shape != (n,):
             raise TypeError(f"{name} must be ({n},) {dt}, got "
                             f"{tuple(t.shape)} {t.dtype}")
     for name, t in (("bins", bins), ("grad", payload[0]), ("hess", payload[1]),
-                    ("mask", mask), ("leaf_slot", leaf_slot)):
+                    ("mask", mask), (slot_name, leaf_slot)):
         if t.device != bins.device:
             raise ValueError(f"{name} is on {t.device}, bins on {bins.device}")
         if not t.is_contiguous():
@@ -167,13 +194,11 @@ def histogram_multi(bins, grad, hess, mask, leaf_slot, leaf_base: int,
            torch.bfloat16 if bf16 else torch.float32, tile, num_bins)
     n, f = bins.shape
     dev = bins.device
-    out = torch.zeros((tile, 3, f, num_bins), dtype=torch.float32, device=dev)
     if n == 0:
-        return out
-    absmax = torch.zeros(2, dtype=torch.int32, device=dev)
-    acc64 = torch.zeros((tile, 2, f, num_bins), dtype=torch.int64, device=dev)
-    acc32 = torch.zeros((tile, f, num_bins), dtype=torch.int32, device=dev)
+        return torch.zeros((tile, 3, f, num_bins), dtype=torch.float32, device=dev)
+    out = torch.empty((tile, 3, f, num_bins), dtype=torch.float32, device=dev)
     shift = shift_on(shift, dev)
+    scratch = _float_scratch(tile, f, num_bins, dev, shift is None)
     lib = LIBRARY.lib()
     with torch.cuda.device(dev):
         rc = (lib.lgbt_hist_multi_bf16 if bf16 else lib.lgbt_hist_multi_f32)(
@@ -181,8 +206,7 @@ def histogram_multi(bins, grad, hess, mask, leaf_slot, leaf_base: int,
             leaf_slot.data_ptr(), n, f, int(leaf_base), int(tile),
             int(num_bins), int(n).bit_length(),
             None if shift is None else shift.data_ptr(),
-            absmax.data_ptr(), acc64.data_ptr(), acc32.data_ptr(),
-            out.data_ptr(), stream_ptr(dev))
+            scratch.data_ptr(), out.data_ptr(), stream_ptr(dev))
     name = "histogram_multi_bf16" if bf16 else "histogram_multi"
     LIBRARY.raise_on(rc, name + " kernel")
     count_launch(launches, name)
@@ -201,9 +225,9 @@ def histogram_multi_quantized(bins, grad_q, hess_q, mask, leaf_slot,
            num_bins)
     n, f = bins.shape
     dev = bins.device
-    out = torch.zeros((tile, 3, f, num_bins), dtype=torch.int32, device=dev)
     if n == 0:
-        return out
+        return torch.zeros((tile, 3, f, num_bins), dtype=torch.int32, device=dev)
+    out = torch.empty((tile, 3, f, num_bins), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         rc = LIBRARY.lib().lgbt_hist_multi_i8(
             bins.data_ptr(), grad_q.data_ptr(), hess_q.data_ptr(),
@@ -357,6 +381,161 @@ def histogram_multi_quantized_lanes(bins, grad_q, hess_q, mask, rows, slot,
     LIBRARY.raise_on(rc, "histogram_multi_quantized_lanes kernel")
     count_launch(launches, "histogram_multi_quantized_lanes")
     return out
+
+
+def window_rows(order: torch.Tensor, win_start: torch.Tensor,
+                win_cnt: torch.Tensor, W: int):
+    """The round's windows laid end to end in W slots: row id (int64), slot
+    (int32) and validity of each.  Slot s's rows are order[win_start[s] +
+    i], i < win_cnt[s]; slots past the windows' total are not valid."""
+    dev = order.device
+    T = win_cnt.shape[0]
+    offs = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev),
+                      torch.cumsum(win_cnt.long(), 0)])
+    aw = torch.arange(W, dtype=torch.int64, device=dev)
+    slot_of = (aw[:, None] >= offs[1:][None, :]).sum(1).clamp(0, T - 1)
+    valid = aw < offs[-1]
+    wpos = torch.where(valid, win_start.long()[slot_of] + aw - offs[slot_of], 0)
+    return order[wpos].long(), slot_of.to(torch.int32), valid
+
+
+def _check_window(bins, grad, hess, mask, order, win_start, win_cnt, payload_dtype,
+                  tile, num_bins, W):
+    _check(bins, (grad, hess), mask, order, payload_dtype, tile, num_bins, "order")
+    for name, t in (("win_start", win_start), ("win_cnt", win_cnt)):
+        if t.dtype != torch.int32 or tuple(t.shape) != (tile,):
+            raise TypeError(f"{name} must be ({tile},) int32, got {tuple(t.shape)} "
+                            f"{t.dtype}")
+        if t.device != bins.device or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous on {bins.device}")
+    if W < 1:
+        raise ValueError(f"W must be >= 1, got {W}")
+
+
+@audited("histogram_window")
+def histogram_window(bins, grad, hess, mask, order, win_start, win_cnt, tile: int,
+                     num_bins: int, *, W: int, shift,
+                     precision: str = "f32") -> torch.Tensor:
+    """B1's window mode (the three-pass round's window pass): (tile, 3, F,
+    B) f32 histograms of the windows, slot s over rows order[win_start[s] +
+    i], i < win_cnt[s], the windows laid end to end in W positions (those
+    past W dropped) and each row weighed where mask[row].  Read through the
+    order, with no copy of the window: bit for bit ``histogram_multi`` of
+    the rows ``window_rows`` gathers, with the tree's exponent pair
+    ``shift`` (required: an int32[2] tensor or a pair of ints)."""
+    grad, hess = _payload(grad, hess, precision)
+    if not bins.is_cuda:
+        return histogram_window_plain(bins, grad, hess, mask, order, win_start,
+                                      win_cnt, tile, num_bins, W=W, shift=shift,
+                                      precision=precision)
+    bf16 = precision == "bf16"
+    _check_window(bins, grad, hess, mask, order, win_start, win_cnt,
+                  torch.bfloat16 if bf16 else torch.float32, tile, num_bins, W)
+    f = bins.shape[1]
+    dev = bins.device
+    shift = shift_on(shift, dev)
+    if shift is None:
+        raise TypeError("histogram_window needs the tree's exponent pair (shift)")
+    out = torch.empty((tile, 3, f, num_bins), dtype=torch.float32, device=dev)
+    scratch = _float_scratch(tile, f, num_bins, dev)
+    lib = LIBRARY.lib()
+    with torch.cuda.device(dev):
+        rc = (lib.lgbt_hist_window_bf16 if bf16 else lib.lgbt_hist_window_f32)(
+            bins.data_ptr(), grad.data_ptr(), hess.data_ptr(), mask.data_ptr(),
+            order.data_ptr(), win_start.data_ptr(), win_cnt.data_ptr(), int(W), f,
+            int(tile), int(num_bins), shift.data_ptr(), scratch.data_ptr(),
+            out.data_ptr(), stream_ptr(dev))
+    name = "histogram_window_bf16" if bf16 else "histogram_window"
+    LIBRARY.raise_on(rc, name + " kernel")
+    count_launch(launches, name)
+    return out
+
+
+@audited("histogram_window_quantized")
+def histogram_window_quantized(bins, grad_q, hess_q, mask, order, win_start, win_cnt,
+                               tile: int, num_bins: int, *, W: int) -> torch.Tensor:
+    """B1's int8 window mode: (tile, 3, F, B) int32 exact sums over
+    ``histogram_window``'s rows."""
+    if not bins.is_cuda:
+        return histogram_window_quantized_plain(bins, grad_q, hess_q, mask, order,
+                                                win_start, win_cnt, tile, num_bins, W=W)
+    _check_window(bins, grad_q, hess_q, mask, order, win_start, win_cnt, torch.int8,
+                  tile, num_bins, W)
+    f = bins.shape[1]
+    dev = bins.device
+    out = torch.empty((tile, 3, f, num_bins), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        rc = LIBRARY.lib().lgbt_hist_window_i8(
+            bins.data_ptr(), grad_q.data_ptr(), hess_q.data_ptr(), mask.data_ptr(),
+            order.data_ptr(), win_start.data_ptr(), win_cnt.data_ptr(), int(W), f,
+            int(tile), int(num_bins), out.data_ptr(), stream_ptr(dev))
+    LIBRARY.raise_on(rc, "histogram_window_quantized kernel")
+    count_launch(launches, "histogram_window_quantized")
+    return out
+
+
+@audited("histogram_window_carry")
+def histogram_window_carry(bins, grad, hess, mask, order, win_start, win_cnt,
+                           acc: CarryAccumulator, *, W: int) -> None:
+    """B1's carried window mode (the sharded round's window pass): add the
+    windows' fixed-point sums, ``histogram_window``'s rows with the
+    accumulator's exponent pair, into ``acc`` (tile = len(win_cnt)), for
+    the caller to merge across ranks and convert once."""
+    tile, f, num_bins = acc.shape
+    if not bins.is_cuda:
+        return histogram_window_carry_plain(bins, grad, hess, mask, order, win_start,
+                                            win_cnt, acc, W=W)
+    _check_window(bins, grad, hess, mask, order, win_start, win_cnt, torch.float32,
+                  tile, num_bins, W)
+    if bins.shape[1] != f:
+        raise TypeError(f"bins have {bins.shape[1]} columns, the accumulator {f}")
+    dev = bins.device
+    _check_acc("acc64", acc.acc64, (tile, 2, f, num_bins), torch.int64, dev)
+    _check_acc("acc32", acc.acc32, (tile, f, num_bins), torch.int32, dev)
+    with torch.cuda.device(dev):
+        rc = LIBRARY.lib().lgbt_hist_window_f32_carry(
+            bins.data_ptr(), grad.data_ptr(), hess.data_ptr(), mask.data_ptr(),
+            order.data_ptr(), win_start.data_ptr(), win_cnt.data_ptr(), int(W), f,
+            int(tile), int(num_bins), acc.shift.data_ptr(), acc.acc64.data_ptr(),
+            acc.acc32.data_ptr(), stream_ptr(dev))
+    LIBRARY.raise_on(rc, "histogram_window_carry kernel")
+    count_launch(launches, "histogram_window_carry")
+    return None
+
+
+def _gathered(bins, vals, mask, order, win_start, win_cnt, W):
+    """The window's rows gathered as the plain versions histogram them:
+    (bins, payloads, mask with the positions past the windows masked, slot)."""
+    rows, slot, valid = window_rows(order, win_start, win_cnt, W)
+    return (bins.index_select(0, rows), vals[0][rows], vals[1][rows],
+            mask[rows] & valid, slot)
+
+
+def histogram_window_plain(bins, grad, hess, mask, order, win_start, win_cnt,
+                           tile: int, num_bins: int, *, W: int, shift,
+                           precision: str = "f32") -> torch.Tensor:
+    """histogram_multi's plain arithmetic over the gathered window."""
+    plain_calls["histogram_window_bf16" if precision == "bf16"
+                else "histogram_window"] += 1
+    if shift is None:
+        raise TypeError("histogram_window needs the tree's exponent pair (shift)")
+    b, g, h, m, s = _gathered(bins, (grad, hess), mask, order, win_start, win_cnt, W)
+    return _multi_plain(b, g, h, m, s, 0, tile, num_bins, shift, precision)
+
+
+def histogram_window_quantized_plain(bins, grad_q, hess_q, mask, order, win_start,
+                                     win_cnt, tile: int, num_bins: int, *,
+                                     W: int) -> torch.Tensor:
+    plain_calls["histogram_window_quantized"] += 1
+    b, g, h, m, s = _gathered(bins, (grad_q, hess_q), mask, order, win_start, win_cnt, W)
+    return _quantized_plain(b, g, h, m, s, 0, tile, num_bins)
+
+
+def histogram_window_carry_plain(bins, grad, hess, mask, order, win_start, win_cnt,
+                                 acc: CarryAccumulator, *, W: int) -> None:
+    plain_calls["histogram_window_carry"] += 1
+    b, g, h, m, s = _gathered(bins, (grad, hess), mask, order, win_start, win_cnt, W)
+    carry_sums_plain(b, g, h, m, s, 0, acc)
 
 
 def histogram(bins, grad, hess, mask, num_bins: int) -> torch.Tensor:

@@ -200,6 +200,22 @@ def dcn_merge(h: torch.Tensor, dcn) -> torch.Tensor:
                      dim=1)
 
 
+def _merged(acc, mesh, merge: str, convert: bool):
+    """Carried sums merged across ``mesh``: converted once (merge_carry),
+    or, with ``convert=False``, left in fixed point (pack_fixed)."""
+    if not convert:
+        return pack_fixed(*merge_fixed(acc.acc64, acc.acc32, mesh, merge))
+    return merge_carry(acc.acc64, acc.acc32, acc.shift, mesh, merge)
+
+
+def _f32_payload(grad, hess, precision: str):
+    """The carried passes' f32 payload: with ``precision="bf16"`` grad and
+    hess rounded to bfloat16 first, whose float32 values sum to the same
+    integers as the bf16 pass's."""
+    g, h = hist_cuda._payload(grad, hess, precision)
+    return g.float().contiguous(), h.float().contiguous()
+
+
 def histogram_multi_merged(bins, grad, hess, mask, leaf_slot, leaf_base: int,
                            tile: int, num_bins: int, shift, mesh,
                            merge: str = "psum", precision: str = "f32",
@@ -207,19 +223,13 @@ def histogram_multi_merged(bins, grad, hess, mask, leaf_slot, leaf_base: int,
     """histogram_multi over the rows of every rank: each rank sums its rows
     into B1's carried accumulators (the fixed-point exponents ``shift`` must
     be the global ones, global_shift), the accumulators are merged
-    (merge_carry) and converted once.  ``precision="bf16"``: grad and hess
-    rounded to bfloat16 first, whose float32 values sum to the same
-    integers as the bf16 pass's.  ``convert=False``: the merged sums stay
-    in fixed point (pack_fixed)."""
-    g, h = hist_cuda._payload(grad, hess, precision)
+    (merge_carry) and converted once (``convert=False``: left in fixed
+    point, pack_fixed)."""
     acc = hist_cuda.CarryAccumulator(tile, bins.shape[1], num_bins, shift,
                                      bins.device)
-    hist_cuda.histogram_multi_carry(bins, g.float().contiguous(),
-                                    h.float().contiguous(), mask, leaf_slot,
-                                    leaf_base, acc)
-    if not convert:
-        return pack_fixed(*merge_fixed(acc.acc64, acc.acc32, mesh, merge))
-    return merge_carry(acc.acc64, acc.acc32, acc.shift, mesh, merge)
+    hist_cuda.histogram_multi_carry(bins, *_f32_payload(grad, hess, precision), mask,
+                                    leaf_slot, leaf_base, acc)
+    return _merged(acc, mesh, merge, convert)
 
 
 def histogram_multi_quantized_merged(bins, grad_q, hess_q, mask, leaf_slot,
@@ -228,3 +238,26 @@ def histogram_multi_quantized_merged(bins, grad_q, hess_q, mask, leaf_slot,
     return merge_int(histogram_multi_quantized(bins, grad_q, hess_q, mask,
                                                leaf_slot, leaf_base, tile,
                                                num_bins), mesh, merge)
+
+
+def histogram_window_merged(bins, grad, hess, mask, order, win_start, win_cnt,
+                            tile: int, num_bins: int, *, W: int, shift, mesh,
+                            merge: str = "psum", precision: str = "f32",
+                            convert: bool = True):
+    """The sharded three-pass round's window pass: each rank's windows read
+    through its order into B1's carried accumulators (the carried window
+    mode, hist_cuda.histogram_window_carry, with the global exponents
+    ``shift``), merged and converted as histogram_multi_merged does."""
+    acc = hist_cuda.CarryAccumulator(tile, bins.shape[1], num_bins, shift,
+                                     bins.device)
+    hist_cuda.histogram_window_carry(bins, *_f32_payload(grad, hess, precision), mask,
+                                     order, win_start, win_cnt, acc, W=W)
+    return _merged(acc, mesh, merge, convert)
+
+
+def histogram_window_quantized_merged(bins, grad_q, hess_q, mask, order, win_start,
+                                      win_cnt, tile: int, num_bins: int, *, W: int,
+                                      mesh, merge: str = "psum") -> torch.Tensor:
+    return merge_int(hist_cuda.histogram_window_quantized(
+        bins, grad_q, hess_q, mask, order, win_start, win_cnt, tile, num_bins, W=W),
+        mesh, merge)

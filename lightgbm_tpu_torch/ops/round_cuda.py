@@ -18,8 +18,9 @@ winner's left-bin mask, as the JAX package does outside its kernel.
 
 Dispatch rule: a CUDA tensor launches the kernel or raises; only a tensor
 on the CPU takes the plain version, which is the three-pass round's own
-arithmetic (partition, gathered window through the histogram kernel's plain
-version, subtraction, ops/split.py::gain_plane + reduce_plane_per_feature).
+arithmetic (partition, the window pass's plain version (hist_cuda.
+histogram_window_plain: the gathered window), subtraction, ops/split.py::
+gain_plane + reduce_plane_per_feature).
 Left/right histograms agree bit for bit (same fixed point, same exponents);
 the per-feature bests too where the float64 prefix sums are exact (see
 ops/split.py::gain_plane).
@@ -59,33 +60,6 @@ def _bind(lib: ctypes.CDLL) -> None:
 
 
 LIBRARY = KernelLibrary("round.cu", _bind, extra_flags=["--fmad=false"])
-
-
-def window_rows(order: torch.Tensor, win_start: torch.Tensor,
-                win_cnt: torch.Tensor, W: int):
-    """The round's windows laid end to end in W slots: row id (int64), slot
-    (int32) and validity of each.  Slot s's rows are order[win_start[s] +
-    i], i < win_cnt[s]; slots past the windows' total are not valid."""
-    dev = order.device
-    T = win_cnt.shape[0]
-    offs = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev),
-                      torch.cumsum(win_cnt.long(), 0)])
-    aw = torch.arange(W, dtype=torch.int64, device=dev)
-    slot_of = (aw[:, None] >= offs[1:][None, :]).sum(1).clamp(0, T - 1)
-    valid = aw < offs[-1]
-    wpos = torch.where(valid, win_start.long()[slot_of] + aw - offs[slot_of], 0)
-    return order[wpos].long(), slot_of.to(torch.int32), valid
-
-
-def window_histograms(hist_fn, order, bins, vals, row_mask, win_start, win_cnt,
-                      W: int, T: int, num_bins: int, **kw):
-    """The three-pass round's window pass: the windows' rows gathered into
-    a (W, F) block and histogrammed by ``hist_fn`` (a multi-leaf histogram
-    entry point of ops/hist_cuda.py, with ``vals`` its two payloads), one
-    slot per window."""
-    rows, slot_of, valid = window_rows(order, win_start, win_cnt, W)
-    return hist_fn(bins.index_select(0, rows), vals[0][rows], vals[1][rows],
-                   row_mask[rows] & valid, slot_of, 0, T, num_bins, **kw)
 
 
 def split_window(parent, fresh, small_left):
@@ -227,9 +201,8 @@ def round_megakernel_plain(bins, order, go_left, grad, hess, row_mask,
     T, b = seg_start.shape[0], parent.shape[3]
     sid = segment_ids(seg_start, seg_len, n)
     new_order, _ = stable_partition_ranges(order, sid, seg_start, seg_len, go_left)
-    fresh = window_histograms(hist_cuda.histogram_multi_plain, new_order, bins,
-                              (grad, hess), row_mask, win_start, win_cnt, W, T,
-                              b, shift=shift)
+    fresh = hist_cuda.histogram_window_plain(bins, grad, hess, row_mask, new_order,
+                                             win_start, win_cnt, T, b, W=W, shift=shift)
     left, right = split_window(parent, fresh, small_left)
     gain, ctx = gain_plane(torch.cat([left, right]), cand_tab[0], cand_tab[1],
                            cand_tab[2], num_bins_per_feature,
@@ -300,15 +273,14 @@ def round_partition_window_plain(bins, order, go_left, grad, hess, row_mask,
                                  seg_start, seg_len, n_left, win_start, win_cnt,
                                  *, num_bins: int, W: int, shift):
     """The plain version: round_megakernel_plain's first two phases (the
-    partition, the gathered window through the histogram kernel's plain
-    integer sums), stopped before the conversion."""
+    partition, the window pass's plain integer sums), stopped before the
+    conversion."""
     plain_calls["round_megakernel_unfused"] += 1
     n, f = bins.shape
     T = seg_start.shape[0]
     sid = segment_ids(seg_start, seg_len, n)
     new_order, _ = stable_partition_ranges(order, sid, seg_start, seg_len, go_left)
-    rows, slot_of, valid = window_rows(new_order, win_start, win_cnt, W)
     acc = hist_cuda.CarryAccumulator(T, f, num_bins, shift, bins.device)
-    hist_cuda.carry_sums_plain(bins.index_select(0, rows), grad[rows], hess[rows],
-                               row_mask[rows] & valid, slot_of, 0, acc)
+    hist_cuda.histogram_window_carry_plain(bins, grad, hess, row_mask, new_order,
+                                           win_start, win_cnt, acc, W=W)
     return new_order, acc.acc64, acc.acc32

@@ -61,7 +61,8 @@ from ..utils.guards import NonFiniteError
 from .graphs import RoundGraphs
 from .hist_cuda import histogram_multi_lanes, histogram_multi_quantized_lanes
 from .partition_cuda import MAX_ROWS, partition_segments_lanes
-from .round_cuda import split_window, window_rows
+from .hist_cuda import window_rows
+from .round_cuda import split_window
 from .split import SplitParams
 from .treegrow import TreeArrays
 from .treegrow_windowed import (INFO, _run_fused_rounds, _w_finalize, _w_init,

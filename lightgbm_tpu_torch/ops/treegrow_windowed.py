@@ -17,11 +17,11 @@ host read inside it:
 * either the round megakernel (ops/round_cuda.py: partition, window
   histograms from the row-major bins through the new order, subtraction
   and per-feature split search in one entry point), or the three-pass
-  round: the segment partition (ops/partition_cuda.py), the window rows
-  gathered into a (W, F) block and histogrammed by the multi-leaf kernel
-  (float or int8), subtraction (round_cuda.window_histograms and
-  split_window, which the megakernel's plain version shares) and split
-  search in torch;
+  round: the segment partition (ops/partition_cuda.py), the window pass
+  (the multi-leaf kernel's window mode, float or int8, reading the window
+  rows through the new order: hist_cuda.histogram_window, which the
+  megakernel's plain version shares), subtraction (round_cuda.split_window)
+  and split search in torch;
 * the bookkeeping, and a 6-scalar info vector [admitted splits, window
   rows, fits W, next-window bound, all finite, splits the next round
   admits].
@@ -118,16 +118,17 @@ from ..utils.log import log_warning
 from .graphs import RoundGraphs, copy_into
 from ..parallel import collectives as C
 from .hist_cuda import (CarryAccumulator, fixed_shift_pair, fixed_shift_tensor,
-                        histogram_multi_carry)
+                        histogram_multi_carry, histogram_window,
+                        histogram_window_quantized)
 from .hist_cuda import _payload as hist_cuda_payload
 from .histogram import (dcn_merge, fixed_to_f32, global_shift, histogram_multi,
                         histogram_multi_merged, histogram_multi_quantized,
-                        histogram_multi_quantized_merged, merge_carry, merge_fixed,
+                        histogram_multi_quantized_merged, histogram_window_merged,
+                        histogram_window_quantized_merged, merge_carry, merge_fixed,
                         merge_int, owned_features, pack_fixed, unbundle)
 from .partition import segment_ids
 from .partition_cuda import partition_segments
-from .round_cuda import (round_megakernel, round_partition_window, split_window,
-                         window_histograms)
+from .round_cuda import round_megakernel, round_partition_window, split_window
 from .split import (KMIN_SCORE, BestSplit, SplitParams, find_best_split,
                     leaf_output, select_from_feature_best)
 from .treegrow import (TreeArrays, _empty_best, _put, _set_best, admit,
@@ -311,17 +312,15 @@ def _round_fused(state: WState, bins, grad, hess, gq, hq, quant_scale,
                             num_leaves=num_leaves, num_bins=num_bins,
                             max_depth=max_depth, params=params, leaf_tile=T,
                             fbests=fbests)
-    # ---- three-pass: window gather -> multi-leaf pass -> subtraction ----
-    win = (new_order, bins if efb is None else efb[0])
-    geo = (row_mask, g.win_start, g.win_cnt, W, T, num_bins)
+    # ---- three-pass: window pass through the new order -> subtraction ----
+    wbins = bins if efb is None else efb[0]
+    geo = (row_mask, new_order, g.win_start.to(i32), g.win_cnt.to(i32), T, num_bins)
     if quantize_bins:
-        fresh_h = unbundle(window_histograms(
-            histogram_multi_quantized, *win, (gq, hq), *geo), efb, num_bins
-        ).float() * quant_scale[:, None, None]
+        fresh_h = unbundle(histogram_window_quantized(wbins, gq, hq, *geo, W=W), efb,
+                           num_bins).float() * quant_scale[:, None, None]
     else:
-        fresh_h = unbundle(window_histograms(
-            histogram_multi, *win, (grad, hess), *geo, shift=shift,
-            precision=hist_precision), efb, num_bins)
+        fresh_h = unbundle(histogram_window(wbins, grad, hess, *geo, W=W, shift=shift,
+                                            precision=hist_precision), efb, num_bins)
     left_h, right_h = split_window(g.parent_hists, fresh_h, g.slot_small_left)
     return round_finish(state, g, rows, left_h, right_h, num_bins_pf,
                         missing_bin_pf, feature_mask, cmask, contri,
@@ -360,18 +359,16 @@ def _round_sharded(state: WState, g, bins, grad, hess, gq, hq, quant_scale,
     else:
         new_order, _ = partition_segments(state.order, g.seg_start.to(i32),
                                           g.seg_len_eff.to(i32), g.go_left)
-        geo = (row_mask, g.win_start, g.win_cnt, W, T, num_bins)
+        geo = (row_mask, new_order, g.win_start.to(i32), g.win_cnt.to(i32), T, num_bins)
         if quantize_bins:
-            fresh_h = window_histograms(
-                histogram_multi_quantized_merged, new_order, bins, (gq, hq), *geo,
-                mesh=mesh, merge=merge)
+            fresh_h = histogram_window_quantized_merged(bins, gq, hq, *geo, W=W,
+                                                        mesh=mesh, merge=merge)
             fresh_h = (fresh_h.to(torch.int64) if hier
                        else fresh_h.float() * quant_scale[:, None, None])
         else:
-            fresh_h = window_histograms(
-                histogram_multi_merged, new_order, bins, (grad, hess), *geo,
-                shift=shift, mesh=mesh, merge=merge, precision=hist_precision,
-                convert=not hier)
+            fresh_h = histogram_window_merged(
+                bins, grad, hess, *geo, W=W, shift=shift, mesh=mesh, merge=merge,
+                precision=hist_precision, convert=not hier)
     if hier and sharding.dcn_exhaustive:  # the global window sums, the flat state
         fresh_h = convert(dcn_merge(fresh_h, sharding.dcn_mesh))
         convert = None

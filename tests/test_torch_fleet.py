@@ -24,7 +24,7 @@ from lightgbm_tpu_torch.convert import fleet_from_numpy
 from lightgbm_tpu_torch.obs import metrics as obs
 from lightgbm_tpu_torch.ops import hist_cuda, partition_cuda
 from lightgbm_tpu_torch.ops.partition import segment_ids, stable_partition_ranges
-from lightgbm_tpu_torch.ops.round_cuda import window_histograms, window_rows
+from lightgbm_tpu_torch.ops.hist_cuda import window_rows
 
 PARAMS = {"objective": "binary", "num_leaves": 7, "verbosity": -1,
           "min_data_in_leaf": 5, "seed": 3}
@@ -220,17 +220,18 @@ def test_lane_plain_versions_are_the_solo_plain_versions_looped():
         lanes = hist_cuda.histogram_multi_lanes(bins, grad, hess, mask, rows, slots,
                                                 shift, T, b, precision=prec)
         for l in range(L):
-            solo = window_histograms(hist_cuda.histogram_multi_plain, orders[l], bins,
-                                     (grad[l], hess[l]), mask[l], win_start[l],
-                                     win_cnt[l], w, T, b, shift=shift[l], precision=prec)
+            solo = hist_cuda.histogram_window_plain(bins, grad[l], hess[l], mask[l],
+                                                    orders[l], win_start[l], win_cnt[l],
+                                                    T, b, W=w, shift=shift[l],
+                                                    precision=prec)
             assert torch.equal(lanes[l], solo)
     gq = torch.as_tensor(rng.randint(-8, 9, (L, n)), dtype=torch.int8)
     hq = torch.as_tensor(rng.randint(0, 9, (L, n)), dtype=torch.int8)
     lanes = hist_cuda.histogram_multi_quantized_lanes(bins, gq, hq, mask, rows, slots, T, b)
     for l in range(L):
-        solo = window_histograms(hist_cuda.histogram_multi_quantized_plain, orders[l],
-                                 bins, (gq[l], hq[l]), mask[l], win_start[l], win_cnt[l],
-                                 w, T, b)
+        solo = hist_cuda.histogram_window_quantized_plain(bins, gq[l], hq[l], mask[l],
+                                                          orders[l], win_start[l],
+                                                          win_cnt[l], T, b, W=w)
         assert torch.equal(lanes[l], solo)
     # B2: every lane's partition equals the solo partition of that lane
     order = torch.stack(orders)

@@ -361,16 +361,16 @@ def test_window_edges_match_plain(f, geometry):
     assert torch.equal(ko, po) and torch.equal(kl, pl) and torch.equal(kr, pr)
     for name in kf._fields:
         assert torch.equal(getattr(kf, name), getattr(pf, name)), name
-    rows, _, valid = rc.window_rows(po, args[9], args[10], W)
+    rows, _, valid = hc.window_rows(po, args[9], args[10], W)
     counted = int((args[5][rows] & valid).sum())  # masked rows of the first W positions
-    win = (po, args[0], None, args[5], args[9], args[10], W, 6, 255)
     for kern, plain, vals, extra in (
-            (hc.histogram_multi, hc.histogram_multi_plain, (args[3], args[4]),
+            (hc.histogram_window, hc.histogram_window_plain, (args[3], args[4]),
              dict(shift=(30, 30))),
-            (hc.histogram_multi_quantized, hc.histogram_multi_quantized_plain, quant, {})):
-        wa = win[:2] + (vals,) + win[3:]
-        k = rc.window_histograms(kern, *wa, **extra)
-        assert torch.equal(k, rc.window_histograms(plain, *wa, **extra))
+            (hc.histogram_window_quantized, hc.histogram_window_quantized_plain, quant,
+             {})):
+        wa = (args[0], *vals, args[5], po, args[9], args[10], 6, 255)
+        k = kern(*wa, W=W, **extra)
+        assert torch.equal(k, plain(*wa, W=W, **extra))
         assert int(k[:, 2, 0].sum()) == counted
 
 
@@ -522,7 +522,9 @@ def test_graph_and_eager_trees_are_bitwise_equal(cell):
         assert g_l["histogram_multi"] == trees  # the root passes, eager
     elif cell == "windowed_int8":
         assert g_l["partition_segments"] == rounds + captures
-        assert g_l["histogram_multi_quantized"] == rounds + captures + trees
+        # the window passes in B1's window mode, the root passes direct
+        assert g_l["histogram_window_quantized"] == rounds + captures
+        assert g_l["histogram_multi_quantized"] == trees
     else:
         assert g_l["histogram_multi"] == rounds + captures + trees
         assert all(s["host_syncs"] == 0 for s in g_stats)
@@ -1979,6 +1981,98 @@ def test_refit_site_histogram_matches_plain():
     k = hist_cuda.histogram_multi(*args, 0, 1, leaves)
     p = hist_cuda.histogram_multi(*[a.cpu() for a in args], 0, 1, leaves)
     assert torch.equal(k.cpu(), p)
+
+
+def _small_call_cases(dev, n, f, b, one_bin, seed=0):
+    """B1 direct-call inputs at one slot: random bins, or every row in bin
+    b - 1 (every lane of a warp on one address: the worst contention)."""
+    x = _inputs(dev, n, f, b, 1, seed)
+    if one_bin:
+        x["bins"] = torch.full((n, f), b - 1, dtype=torch.int16, device=dev)
+    x["slot"] = torch.zeros(n, dtype=torch.int32, device=dev)
+    return x
+
+
+@pytest.mark.parametrize("n,f,b,one_bin", [
+    (100_000, 1, 2, False), (100_000, 1, 31, False), (100_000, 1, 255, False),
+    (100_000, 1, 31, True), (1, 1, 31, False), (1, 28, 255, False), (131_072, 28, 255, False),
+    (1024, 1, 1024, False), (1024, 1, 1025, False)])
+def test_small_call_matches_plain(n, f, b, one_bin):
+    """B1's small calls (the refit site's one feature, the spill chunk's
+    shape, n = 1, one block of 1,024 threads over 1,024 and 1,025 cells)
+    bit for bit against the plain version: float with the exponents derived
+    and given, bf16, int8."""
+    dev = _card()
+    x = _small_call_cases(dev, n, f, b, one_bin)
+    args = (x["bins"], x["grad"], x["hess"], x["mask"], x["slot"], 0, 1, b)
+    cpu = [a.cpu() if torch.is_tensor(a) else a for a in args]
+    shift = hc.fixed_shift_tensor(x["grad"], x["hess"])
+    for kw in ({}, {"shift": shift}, {"precision": "bf16"}):
+        pkw = {k: (v.cpu() if torch.is_tensor(v) else v) for k, v in kw.items()}
+        assert torch.equal(hc.histogram_multi(*args, **kw).cpu(),
+                           hc.histogram_multi_plain(*cpu, **pkw)), kw
+    q = (x["bins"], x["gq"], x["hq"], x["mask"], x["slot"], 0, 1, b)
+    assert torch.equal(hc.histogram_multi_quantized(*q).cpu(),
+                       hc.histogram_multi_quantized_plain(*[a.cpu() if torch.is_tensor(a)
+                                                            else a for a in q]))
+
+
+def _window_case(dev, n, f, b, T, W, seed):
+    """Windows at T slots over a stable partition of N rows by leaf: the
+    first window empty, the last one all masked, and their rows past W."""
+    x = _inputs(dev, n, f, b, T, seed)
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed + 1)
+    leaf = torch.randint(0, 2 * T, (n,), generator=g, device=dev)
+    leaf[leaf == 0] = 1  # window 0 empty
+    order = torch.sort(leaf, stable=True).indices.to(torch.int32)
+    cnt = torch.bincount(leaf, minlength=2 * T)[:T].to(torch.int32)
+    start = (torch.cumsum(cnt, 0) - cnt).to(torch.int32)
+    last = order[int(start[-1]):int(start[-1]) + int(cnt[-1])].long()
+    x["mask"][last] = False
+    x.update(order=order, win_start=start, win_cnt=cnt, W=W, T=T)
+    return x
+
+
+@pytest.mark.parametrize("n,f,b,T,frac", [
+    (200_000, 17, 256, 8, 0.5), (200_000, 17, 256, 8, 0.25), (40_000, 17, 256, 8, 0.5),
+    (40_000, 300, 255, 20, 0.5)])
+def test_window_entries_match_the_gathered_route(n, f, b, T, frac):
+    """B1's window mode (float, bf16, int8, carried) bit for bit against its
+    plain version and against the gathered route (window_rows + index_select
+    + the direct kernel), W past and within the windows' rows."""
+    dev = _card()
+    W = int(n * frac)
+    x = _window_case(dev, n, f, b, T, W, seed=T + f)
+    rows, slot, valid = hc.window_rows(x["order"], x["win_start"], x["win_cnt"], W)
+    gm = x["mask"][rows] & valid
+    shift = hc.fixed_shift_tensor(x["grad"], x["hess"])
+    wargs = (x["bins"], x["grad"], x["hess"], x["mask"], x["order"], x["win_start"],
+             x["win_cnt"], T, b)
+    cpu = [a.cpu() if torch.is_tensor(a) else a for a in wargs]
+    for prec in ("f32", "bf16"):
+        k = hc.histogram_window(*wargs, W=W, shift=shift, precision=prec)
+        assert torch.equal(k, hc.histogram_multi(
+            x["bins"].index_select(0, rows), x["grad"][rows], x["hess"][rows], gm, slot, 0,
+            T, b, shift=shift, precision=prec)), prec
+        assert torch.equal(k.cpu(), hc.histogram_window_plain(*cpu, W=W, shift=shift.cpu(),
+                                                              precision=prec)), prec
+    qargs = (x["bins"], x["gq"], x["hq"]) + wargs[3:]
+    k = hc.histogram_window_quantized(*qargs, W=W)
+    assert torch.equal(k, hc.histogram_multi_quantized(
+        x["bins"].index_select(0, rows), x["gq"][rows], x["hq"][rows], gm, slot, 0, T, b))
+    assert torch.equal(k.cpu(), hc.histogram_window_quantized_plain(
+        *[a.cpu() if torch.is_tensor(a) else a for a in qargs], W=W))
+    acc = hc.CarryAccumulator(T, f, b, shift, dev)
+    hc.histogram_window_carry(*wargs[:7], acc, W=W)
+    ref = hc.CarryAccumulator(T, f, b, shift, dev)
+    hc.histogram_multi_carry(x["bins"].index_select(0, rows), x["grad"][rows],
+                             x["hess"][rows], gm, slot, 0, ref)
+    assert torch.equal(acc.acc64, ref.acc64) and torch.equal(acc.acc32, ref.acc32)
+    cacc = hc.CarryAccumulator(T, f, b, shift.cpu(), "cpu")
+    hc.histogram_window_carry_plain(*cpu[:7], cacc, W=W)
+    assert torch.equal(acc.acc64.cpu(), cacc.acc64)
+    assert torch.equal(acc.acc32.cpu(), cacc.acc32)
 
 
 @pytest.mark.parametrize("name", ["windowed_round_megakernel", "windowed_round_quantized",

@@ -23,7 +23,7 @@ from lightgbm_tpu.ops import split as jsplit
 from lightgbm_tpu.ops import treegrow_windowed as jwin
 from lightgbm_tpu.ops.split import SplitParams as JParams
 from lightgbm_tpu.utils import degrade
-from lightgbm_tpu_torch.ops import round_cuda
+from lightgbm_tpu_torch.ops import hist_cuda, round_cuda
 from lightgbm_tpu_torch.ops import split as tsplit
 from lightgbm_tpu_torch.ops import treegrow_windowed as twin
 from lightgbm_tpu_torch.ops.split import SplitParams as TParams
@@ -244,7 +244,7 @@ def test_round_wrapper_checks_inputs():
 
 def test_window_rows_layout():
     order = torch.arange(100, dtype=torch.int32).flip(0)
-    rows, slot, valid = round_cuda.window_rows(
+    rows, slot, valid = hist_cuda.window_rows(
         order, torch.tensor([10, 0, 50]), torch.tensor([3, 0, 2]), 8)
     assert valid.tolist() == [True] * 5 + [False] * 3
     assert rows[:5].tolist() == [89, 88, 87, 49, 48]

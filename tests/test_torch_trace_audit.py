@@ -117,8 +117,10 @@ def test_megakernel_against_three_pass_sweep_pins(by_name):
     mk = by_name["windowed_round_megakernel"].detail["bin_sweeps"]
     tp = by_name["windowed_round_three_pass_sweeps"].detail["bin_sweeps"]
     assert 1.0 <= mk <= CONTRACTS["windowed_round_megakernel"].bin_sweeps
-    assert 2.0 <= tp <= CONTRACTS["windowed_round_three_pass_sweeps"].bin_sweeps
-    assert tp - mk >= 0.9
+    # B1's window mode reads the window through the order: one sweep, as
+    # the megakernel's, where the gathered copy made it two
+    assert 1.0 <= tp <= CONTRACTS["windowed_round_three_pass_sweeps"].bin_sweeps
+    assert abs(tp - mk) <= 0.1
 
 
 def test_sharded_megakernel_keeps_the_merge_protocol(by_name):
