@@ -1,0 +1,16 @@
+"""predict_sum_device_ms_per_call: device milliseconds of the sum (the leaf
+values gathered and added in tree order) a ``predict`` call in the traced
+stretch, from the ``sum_device_ms`` CUDA-event reading of the port's
+``predict.predict`` spans.  Moves predict_rows_s."""
+
+from gbdt_bench.harness.readings import of_kind
+
+SPAN, ATTR = "predict.predict", "sum_device_ms"
+
+
+def read(r):
+    if not of_kind(r, "predict"):
+        return None
+    ms = [s["attrs"][ATTR] for s in r["port_spans"]["stretch"]
+          if s["name"] == SPAN and ATTR in s["attrs"]]
+    return sum(ms) / r["calls"] if ms else None

@@ -59,6 +59,7 @@ from .io.stream import (DEFAULT_CHUNK_ROWS, array_chunks, create_bin_cache,
                         read_cache_shard)
 from .models.gbdt import GBDT, _pre_filter, create_boosting, tree_depth
 from .models.tree import Tree
+from .obs import trace as _trace
 from .ops import predict as predict_ops
 from .utils import checkpoint as _checkpoint
 
@@ -833,9 +834,11 @@ class Booster:
         if model_file is not None:
             model_str = _read_model_file(model_file)
         if model_str is not None:
-            device_type = Config.from_dict(self.params).device_type
-            self._gbdt = GBDT.load_model_from_string(model_str, device_type)
+            cfg = Config.from_dict(self.params)
+            self._gbdt = GBDT.load_model_from_string(model_str, cfg.device_type)
             self.cfg = self._gbdt.cfg
+            if cfg.is_set("trace_file"):  # a loaded model's predicts trace too
+                self.cfg.update({"trace_file": cfg.trace_file})
         elif train_set is not None:
             if not isinstance(train_set, Dataset):
                 raise TypeError("Training data should be Dataset instance")
@@ -1079,21 +1082,26 @@ class Booster:
                     self.predict(csr[lo:lo + chunk], start_iteration, num_iteration,
                                  raw_score, pred_leaf, pred_contrib, **kwargs)
                     for lo in range(0, csr.shape[0], chunk)], axis=0)
-        X = _to_2d_float(data)
-        n_feat = self.num_feature()
-        if (n_feat and X.shape[1] != n_feat
-                and not kwargs.get("predict_disable_shape_check", False)):
-            raise LightGBMError(
-                f"The number of features in data ({X.shape[1]}) is not the same "
-                f"as it was in training data ({n_feat}). You can set "
-                f"predict_disable_shape_check=true to discard this error.")
-        early_stop = {k: kwargs[k] for k in ("pred_early_stop", "pred_early_stop_freq",
-                                             "pred_early_stop_margin") if k in kwargs}
-        return self._gbdt.predict(X, raw_score=raw_score,
-                                  start_iteration=start_iteration,
-                                  num_iteration=num_iteration, pred_leaf=pred_leaf,
-                                  pred_contrib=pred_contrib, early_stop=early_stop,
-                                  mesh=kwargs.get("mesh"))
+        mesh = kwargs.get("mesh")
+        # the call's span opens before the rows are read: their conversion
+        # to float64 is host work the card waits on
+        with self._gbdt.predict_span(raw_score, mesh, pred_leaf, pred_contrib) as call:
+            with _trace.span("predict.rows"):
+                X = _to_2d_float(data)
+            n_feat = self.num_feature()
+            if (n_feat and X.shape[1] != n_feat
+                    and not kwargs.get("predict_disable_shape_check", False)):
+                raise LightGBMError(
+                    f"The number of features in data ({X.shape[1]}) is not the same "
+                    f"as it was in training data ({n_feat}). You can set "
+                    f"predict_disable_shape_check=true to discard this error.")
+            early_stop = {k: kwargs[k] for k in ("pred_early_stop", "pred_early_stop_freq",
+                                                 "pred_early_stop_margin") if k in kwargs}
+            return self._gbdt.predict(X, raw_score=raw_score,
+                                      start_iteration=start_iteration,
+                                      num_iteration=num_iteration, pred_leaf=pred_leaf,
+                                      pred_contrib=pred_contrib, early_stop=early_stop,
+                                      mesh=mesh, call=call)
 
     def predict_sharded(self, data, mesh, **kwargs) -> np.ndarray:
         """``predict`` with its rows split over ``mesh`` (the JAX package's

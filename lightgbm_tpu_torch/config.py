@@ -17,6 +17,7 @@ accepted and kept (LightGBM behavior: warn-and-ignore for unused params).
 from __future__ import annotations
 
 import copy
+import os
 from dataclasses import dataclass, field, fields
 from typing import Any, Dict, List, Optional, Union
 
@@ -713,6 +714,10 @@ class Config:
             out[f.name] = copy.deepcopy(getattr(self, f.name))
         out.update(self.extra)
         return out
+
+    def trace_path(self) -> str:
+        """The run's trace file: ``trace_file=``, else LGBMTPU_TRACE_FILE."""
+        return self.trace_file or os.environ.get("LGBMTPU_TRACE_FILE", "")
 
     @property
     def num_tree_per_iteration(self) -> int:

@@ -293,7 +293,7 @@ def train(
     # write a 6-tree model as snapshot_iter_2
     snapshot_base = booster.current_iteration()
     _trace.configure_request_tracing(cfg.request_tracing, cfg.trace_sample)
-    trace_out = _trace_path(cfg)
+    trace_out = cfg.trace_path()
     if _obs.enabled() and trace_out:
         try:  # the ring's evictions spill next to the trace file
             _trace.enable_spill(trace_out + ".spill.jsonl")
@@ -368,11 +368,6 @@ def _start_endpoint(cfg: Config) -> None:
         log_warning(f"metrics endpoint could not start: {e}")
 
 
-def _trace_path(cfg: Config) -> str:
-    """The run's trace file: ``trace_file=``, else LGBMTPU_TRACE_FILE."""
-    return cfg.trace_file or os.environ.get("LGBMTPU_TRACE_FILE", "")
-
-
 def _finish_run_report(cfg: Config) -> None:
     """End-of-run observability, as the JAX package's: the "Time for X /
     counter = v" report at debug verbosity, the metrics snapshot to
@@ -381,7 +376,7 @@ def _finish_run_report(cfg: Config) -> None:
     each best-effort; then the run's spill sink is disarmed."""
     if not _obs.enabled():
         for name, val in (("metrics_file", cfg.metrics_file),
-                          ("trace_file", _trace_path(cfg))):
+                          ("trace_file", cfg.trace_path())):
             if val:
                 log_warning(f"{name}={val} ignored: telemetry is disabled "
                             "(telemetry=false / LGBMTPU_TELEMETRY=0)")
@@ -396,7 +391,7 @@ def _finish_run_report(cfg: Config) -> None:
             log_warning(f"could not write metrics snapshot to {cfg.metrics_file}: {e}")
         else:
             log_info(f"Metrics snapshot written to {cfg.metrics_file}")
-    trace_out = _trace_path(cfg)
+    trace_out = cfg.trace_path()
     if trace_out:
         try:
             n_spans = _trace.write_trace(trace_out)

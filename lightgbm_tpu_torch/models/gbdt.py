@@ -84,7 +84,7 @@ import re
 import threading
 import time
 from collections import deque
-from typing import Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -115,7 +115,7 @@ from ..parallel.mesh import (DATA_AXIS, current_mesh, make_mesh_2d,
                              make_mesh_hierarchical)
 from ..utils import faults as _faults
 from ..utils import locktrace as _lt
-from ..utils import profiling as _profiling  # noqa: F401  (LGBMTPU_NVTX=1 bridge)
+from ..utils import profiling as _profiling  # noqa: F401  (the profiler span mirror)
 from ..utils import sanitizer as _san
 from ..utils.guards import NonFiniteError
 from ..utils.log import log_warning
@@ -135,6 +135,16 @@ _PREDICT_BUCKET_MIN = 8
 _PINNED_MAX_BYTES = 32 << 20
 # guards the lazy creation of a GBDT's pack lock
 _PACK_LOCK_INIT = threading.Lock()
+
+
+def _predict_entry(raw_score: bool, mesh, pred_leaf: bool = False,
+                   pred_contrib: bool = False) -> str:
+    """The entry a predict call's span and latency label name."""
+    if pred_leaf:
+        return "leaf"
+    if pred_contrib:
+        return "contrib"
+    return "raw" if raw_score else "predict" if mesh is None else "sharded"
 
 
 def _predict_bucket(n: int) -> int:
@@ -173,6 +183,75 @@ class _PinnedBuffers:
 
     def nbytes(self) -> int:
         return sum(b.numel() * b.element_size() for b in self.bufs.values())
+
+
+class _WalkProbe:
+    """The device readings of one traced predict call (``GBDT._traced``).
+    On the card a chain of CUDA events, from the queued upload through the
+    walk and the sum of each chunk to the queued read, splits the call's
+    device time into walk, sum and finish; on either device the walk's
+    useful steps (each (tree, row) pair's leaf depth, from the pack's
+    leaf-depth table: a gather and a sum over each tree's rows a chunk,
+    which on the card needs neither a cast nor a reduction's memset) are
+    counted against the steps walked.  ``close`` queues the counts' copy
+    into pinned memory before the call's one blocking read
+    (``sync_pull``'s ``before_wait``); ``readings``, after that read,
+    waits for nothing."""
+
+    def __init__(self, device: torch.device, leaf_depth: torch.Tensor,
+                 n_chunks: int, pinned: "_PinnedBuffers"):
+        self._cuda = device.type == "cuda"
+        self._leaf_depth = leaf_depth
+        self._useful = torch.empty((n_chunks, leaf_depth.shape[0]), dtype=torch.int64,
+                                   device=device)
+        self._pinned = pinned
+        self._host: Optional[torch.Tensor] = None
+        self._events: List[Tuple[str, torch.cuda.Event]] = []
+        self._chunk = 0
+        self.steps = 0
+        self._mark("start")
+
+    def _mark(self, phase: str) -> None:
+        if self._cuda:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            self._events.append((phase, ev))
+
+    def walked(self, leaf: torch.Tensor, levels: int) -> None:
+        """After a chunk's walk: count its useful steps, close its walk."""
+        self.steps += leaf.numel() * levels
+        torch.sum(torch.gather(self._leaf_depth, 1, leaf), dim=1,
+                  out=self._useful[self._chunk])
+        self._chunk += 1
+        self._mark("walk")
+
+    def summed(self) -> None:
+        self._mark("sum")
+
+    def close(self) -> None:
+        """Once the call's read is queued: queue the useful count's copy,
+        close the finish phase."""
+        host = self._useful
+        if self._cuda:
+            shape = tuple(self._useful.shape)
+            host, _ = self._pinned.get(shape, torch.int64)
+            if host is None:  # past the pinned bound: this call's own
+                host = torch.empty(shape, dtype=torch.int64, pin_memory=True)
+            host.copy_(self._useful, non_blocking=True)
+        self._host = host
+        self._mark("finish")
+
+    def readings(self) -> Dict[str, Any]:
+        useful = int(self._host.sum())  # host memory: the read has landed
+        out: Dict[str, Any] = {
+            "walk_steps": self.steps, "walk_useful_steps": useful,
+            "walk_useful_share": useful / self.steps if self.steps else 0.0}
+        if self._cuda:
+            ms = {"walk": 0.0, "sum": 0.0, "finish": 0.0}
+            for (_, a), (phase, b) in zip(self._events, self._events[1:]):
+                ms[phase] += a.elapsed_time(b)
+            out.update({f"{k}_device_ms": v for k, v in ms.items()})
+        return out
 
 
 def resolve_device(cfg: Config) -> torch.device:
@@ -275,6 +354,29 @@ def tree_depth(tree: Tree) -> int:
         frontier = [int(c) for nd in frontier
                     for c in (tree.left_child[nd], tree.right_child[nd]) if c >= 0]
     return depth
+
+
+def _leaf_depths(trees: List[Tree], width: int) -> np.ndarray:
+    """(T, width) i64: each tree's leaf depths (internal nodes above a
+    leaf; a one-leaf tree's leaf is at 0), a level at a time over every
+    tree at once."""
+    out = np.zeros((len(trees), width), np.int64)
+    lc = np.full((len(trees), max(width - 1, 1)), -1, np.int64)
+    rc = lc.copy()
+    for i, t in enumerate(trees):
+        lc[i, :t.num_internal] = t.left_child[:t.num_internal]
+        rc[i, :t.num_internal] = t.right_child[:t.num_internal]
+    tree = np.array([i for i, t in enumerate(trees) if t.num_internal > 0], np.int64)
+    node = np.zeros_like(tree)
+    depth = 0
+    while tree.size:
+        depth += 1
+        kids = np.concatenate([lc[tree, node], rc[tree, node]])
+        tree = np.concatenate([tree, tree])
+        leaf = kids < 0
+        out[tree[leaf], ~kids[leaf]] = depth
+        tree, node = tree[~leaf], kids[~leaf]
+    return out
 
 
 def _dummy_tree() -> Tree:
@@ -1606,21 +1708,50 @@ class GBDT:
         step = max(1, 2 ** 25 // max(n_trees, 1))
         return [x[i:i + step] for i in range(0, max(x.shape[0], 1), step)]
 
-    def _raw_of(self, s: dict, x: torch.Tensor) -> torch.Tensor:
+    def _raw_of(self, s: dict, x: torch.Tensor,
+                probe: Optional[_WalkProbe] = None) -> torch.Tensor:
         """Raw margins of the device rows ``x`` (f32): (n,) or (n, K) f32
         on the device, the trees' sum in tree order (a random forest's
-        unscaled)."""
+        unscaled).  Each chunk's walk and sum is a ``predict.walk`` and a
+        ``predict.sum`` span; ``probe`` takes the traced call's readings."""
         k = self.num_tree_per_iteration
-        walk = s["walk"]
+        walk = dict(s["walk"])
         n_trees = len(s["trees"])
+        chunks = self._chunks(x, n_trees)
         if s["linear"]:
-            return torch.cat([self._linear_raw(s, xs) for xs in self._chunks(x, n_trees)])
-        if k == 1:
-            fn = predict_ops.predict_raw_values
-        else:
-            def fn(xs, **kw):
-                return predict_ops.predict_raw_multiclass(xs, **kw, k=k)
-        return torch.cat([fn(xs, **walk) for xs in self._chunks(x, n_trees)])
+            return torch.cat([self._linear_raw(s, xs) for xs in chunks])
+        leaf_value = walk.pop("leaf_value")
+        levels = predict_ops.levels(walk["split_feature"], walk["depth"])
+        raws = []
+        for xs in chunks:
+            with _trace.span("predict.walk", levels=levels,
+                             pairs=n_trees * xs.shape[0]):
+                leaf = predict_ops.leaf_index(xs, **walk)
+                if probe is not None:
+                    probe.walked(leaf, levels)
+            with _trace.span("predict.sum",
+                             launches=predict_ops.sum_launches(n_trees, k)):
+                raws.append(predict_ops.leaf_sum(leaf, leaf_value, k))
+                if probe is not None:
+                    probe.summed()
+        return torch.cat(raws)
+
+    def _probe(self, s: dict, x: torch.Tensor) -> _WalkProbe:
+        """A traced call's probe over the rows ``x``; the pack's leaf-depth
+        table is built at its first traced call."""
+        depth = s.get("leaf_depth")
+        if depth is None:
+            width = s["walk"]["leaf_value"].shape[1]
+            depth = s["leaf_depth"] = torch.as_tensor(
+                _leaf_depths(s["trees"], width), device=self.device)
+        return _WalkProbe(self.device, depth,
+                          len(self._chunks(x, len(s["trees"]))), self._pinned)
+
+    def _traced(self) -> bool:
+        """Tracing is on: spans are recorded and a profiler records them, or
+        the run writes a trace file (``trace_file=``)."""
+        return _obs.enabled() and (_trace.mirror_active()
+                                   or bool(self.cfg.trace_path()))
 
     def _linear_raw(self, s: dict, xs: torch.Tensor) -> torch.Tensor:
         """Raw margins of an ensemble with linear trees on the device: the
@@ -1641,69 +1772,77 @@ class GBDT:
         the caller holds the pinned lock until its read is done, which also
         retires these uploads before a buffer is written again.  A rung too
         large to pin goes through two pinned chunk buffers in turns, each
-        written again only after the event behind its last upload."""
-        if self.device.type != "cuda":
-            return torch.as_tensor(np.asarray(X, np.float32), device=self.device)
-        n, f = X.shape
-        src = torch.from_numpy(np.ascontiguousarray(X, dtype=np.float64))
-        buf, _ = self._pinned.get((nb, f), torch.float32)
-        if buf is not None:
-            buf[:n].copy_(src)
-            return buf[:n].to(self.device, non_blocking=True)
-        step = max(1, _PINNED_MAX_BYTES // (4 * f))
-        out = torch.empty((n, f), dtype=torch.float32, device=self.device)
-        events = (torch.cuda.Event(), torch.cuda.Event())
-        for i, lo in enumerate(range(0, n, step)):
-            chunk, _ = self._pinned.get((step, f), torch.float32, slot=1 + i % 2)
-            events[i % 2].synchronize()
-            m = min(step, n - lo)
-            chunk[:m].copy_(src[lo:lo + m])
-            out[lo:lo + m].copy_(chunk[:m], non_blocking=True)
-            events[i % 2].record()
-        return out
+        written again only after the event behind its last upload.  A
+        ``predict.stage`` span (``bytes``: the f32 rows uploaded)."""
+        with _trace.span("predict.stage", bytes=4 * X.size):
+            if self.device.type != "cuda":
+                return torch.as_tensor(np.asarray(X, np.float32), device=self.device)
+            n, f = X.shape
+            src = torch.from_numpy(np.ascontiguousarray(X, dtype=np.float64))
+            buf, _ = self._pinned.get((nb, f), torch.float32)
+            if buf is not None:
+                buf[:n].copy_(src)
+                return buf[:n].to(self.device, non_blocking=True)
+            step = max(1, _PINNED_MAX_BYTES // (4 * f))
+            out = torch.empty((n, f), dtype=torch.float32, device=self.device)
+            events = (torch.cuda.Event(), torch.cuda.Event())
+            for i, lo in enumerate(range(0, n, step)):
+                chunk, _ = self._pinned.get((step, f), torch.float32, slot=1 + i % 2)
+                events[i % 2].synchronize()
+                m = min(step, n - lo)
+                chunk[:m].copy_(src[lo:lo + m])
+                out[lo:lo + m].copy_(chunk[:m], non_blocking=True)
+                events[i % 2].record()
+            return out
 
-    def _pull(self, s: dict, t: torch.Tensor, nb: int) -> Tuple[np.ndarray, bool]:
+    def _pull(self, s: dict, t: torch.Tensor, nb: int,
+              probe: Optional[_WalkProbe] = None) -> Tuple[np.ndarray, bool]:
         """The one blocking read of a prediction: ``t`` into the model's
         pinned output buffer of rung ``nb`` (allocated at the rung's first
         read; pageable memory for a rung too large to pin), copied out as a
-        new array.  Returns (array, warm): warm when the pack ``s`` has
-        served before and no buffer was allocated.  The caller holds the
-        pinned lock."""
+        new array, ``probe``'s readings landing with it.  Returns (array,
+        warm): warm when the pack ``s`` has served before and no buffer was
+        allocated.  The caller holds the pinned lock."""
         served, s["served"] = s["served"], True
         buf, new = None, False
         if self.device.type == "cuda":
             buf, new = self._pinned.get((nb,) + tuple(t.shape[1:]), t.dtype)
+        close = probe.close if probe is not None else None
         if buf is None:
-            return np.array(_san.sync_pull(t)), served
-        return np.array(_san.sync_pull(t, out=buf)), served and not new
+            return np.array(_san.sync_pull(t, before_wait=close)), served
+        return (np.array(_san.sync_pull(t, out=buf, before_wait=close)),
+                served and not new)
 
     def _finish(self, s: dict, raw: torch.Tensor, raw_score: bool, nb: int,
-                scale: float) -> Tuple[np.ndarray, bool]:
+                scale: float, probe: Optional[_WalkProbe] = None
+                ) -> Tuple[np.ndarray, bool]:
         """Margins or converted outputs of the device margins ``raw``, in
         one read (``_pull``): a random forest's tree sum times ``scale`` in
         f64 (as the JAX package scales it on the host: the same IEEE
         products), a raw margin as f64, a converted output in the
-        objective's dtype."""
-        if self.average_output:
-            raw = raw.double() * scale
-            if raw_score or self.objective is None:
-                return self._pull(s, raw, nb)
-            raw = raw.float()
-        elif raw_score or self.objective is None:
-            out, warm = self._pull(s, raw, nb)
-            return out.astype(np.float64), warm
-        return self._pull(s, self.objective.convert_output(raw), nb)
+        objective's dtype.  A ``predict.finish`` span."""
+        with _trace.span("predict.finish"):
+            if self.average_output:
+                raw = raw.double() * scale
+                if raw_score or self.objective is None:
+                    return self._pull(s, raw, nb, probe)
+                raw = raw.float()
+            elif raw_score or self.objective is None:
+                out, warm = self._pull(s, raw, nb, probe)
+                return out.astype(np.float64), warm
+            return self._pull(s, self.objective.convert_output(raw), nb, probe)
 
     def _serve_note(self, entry: str, n: int, t0: float, bucket: int, warm: bool,
-                    trace_ctx=None) -> None:
+                    trace_ctx=None, call=None) -> None:
         """Record one prediction call, after its blocking read (so the time
         covers the device work): requests and rows, and a warm call's
         latency in ``predict_warm_latency_ms`` (labelled by entry and by
         rung too).  A call is cold when it built its pack or its rung's
         buffers; cold calls count as bucket misses and stay out of the
-        reservoirs.  The ``predict.<entry>`` span records the same
-        interval, a child of ``trace_ctx`` when a serving dispatcher gives
-        one."""
+        reservoirs.  ``call``, the call's open ``predict.<entry>`` span,
+        takes rows, rung and warm as attributes; without one a
+        ``predict.<entry>`` span records the same interval, a child of
+        ``trace_ctx`` when a serving dispatcher gives one."""
         if not _obs.enabled():
             return
         dt_ms = (time.perf_counter() - t0) * 1e3
@@ -1718,8 +1857,11 @@ class GBDT:
                                         bucket=bucket)).observe(dt_ms)
         else:
             _obs.counter("predict_bucket_misses_total").inc()
-        _trace.record_span(f"predict.{entry}", dt_ms / 1e3, parent=trace_ctx,
-                           rows=n, bucket=bucket, warm=warm)
+        if call is not None:
+            call.set(rows=n, bucket=bucket, warm=warm)
+        else:
+            _trace.record_span(f"predict.{entry}", dt_ms / 1e3, parent=trace_ctx,
+                               rows=n, bucket=bucket, warm=warm)
 
     def predict_raw(self, X: np.ndarray, start_iteration: int = 0,
                     num_iteration: int = -1) -> torch.Tensor:
@@ -1753,10 +1895,18 @@ class GBDT:
         return (bool(on) and not self.average_output and self.objective is not None
                 and self.objective.name in ("binary", "multiclass", "multiclassova"))
 
+    @staticmethod
+    def predict_span(raw_score: bool = False, mesh=None, pred_leaf: bool = False,
+                     pred_contrib: bool = False):
+        """The span of one predict call, ``predict.<entry>`` (entry: leaf,
+        contrib, raw, sharded or predict)."""
+        return _trace.span("predict." + _predict_entry(raw_score, mesh, pred_leaf,
+                                                       pred_contrib))
+
     def predict(self, X, raw_score: bool = False, start_iteration: int = 0,
                 num_iteration: int = -1, pred_leaf: bool = False,
                 pred_contrib: bool = False,
-                early_stop: Optional[dict] = None, mesh=None) -> np.ndarray:
+                early_stop: Optional[dict] = None, mesh=None, call=None) -> np.ndarray:
         """The JAX package's GBDT.predict.  ``early_stop``: pred_early_stop,
         pred_early_stop_freq and pred_early_stop_margin for this call,
         over the configuration's.  A warm call (its pack cached, its rung
@@ -1764,8 +1914,20 @@ class GBDT:
         launches the traversal and makes one blocking read into the pinned
         output buffer: no ensemble is built on the host.  ``mesh``: the
         margins from ``predict_raw_sharded`` (early stopping, pred_leaf
-        and pred_contrib keep this path)."""
-        X = np.asarray(X, dtype=np.float64)
+        and pred_contrib keep this path).  ``call``: the caller's open
+        ``predict_span``, its rows already float64 (Booster.predict);
+        without it the call opens its own, the rows' conversion a
+        ``predict.rows`` span.  While tracing is on (``_traced``) the call
+        span takes the walk's device readings as attributes."""
+        if call is None:
+            with self.predict_span(raw_score, mesh, pred_leaf, pred_contrib) as call:
+                with _trace.span("predict.rows"):
+                    X = np.asarray(X, dtype=np.float64)
+                return self.predict(
+                    X, raw_score=raw_score, start_iteration=start_iteration,
+                    num_iteration=num_iteration, pred_leaf=pred_leaf,
+                    pred_contrib=pred_contrib, early_stop=early_stop, mesh=mesh,
+                    call=call)
         if pred_leaf:
             return self._predict_leaf(X, start_iteration, num_iteration)
         if pred_contrib:
@@ -1789,11 +1951,18 @@ class GBDT:
         scale = self._pack_scale(s)
         with self._pinned.lock:
             _san.record_predict()
-            raw = (self._raw_of(s, self._stage(X, nb)) if mesh is None
-                   else self._raw_sharded(s, X, mesh))
-            res, warm = self._finish(s, raw, raw_score, nb, scale)
-        self._serve_note("raw" if raw_score else
-                         "predict" if mesh is None else "sharded", n, t0, nb, warm)
+            probe = None
+            if mesh is None:
+                x = self._stage(X, nb)
+                if self._traced():
+                    probe = self._probe(s, x)
+                raw = self._raw_of(s, x, probe)
+            else:
+                raw = self._raw_sharded(s, X, mesh)
+            res, warm = self._finish(s, raw, raw_score, nb, scale, probe)
+            if probe is not None:
+                call.set(**probe.readings())
+        self._serve_note(_predict_entry(raw_score, mesh), n, t0, nb, warm, call=call)
         return res
 
     def predict_raw_sharded(self, X: np.ndarray, mesh, start_iteration: int = 0,

@@ -10,18 +10,21 @@ Spans are named, attributed, nesting host-side intervals:
 
 plus :func:`record_span` for the retroactive form — an interval whose end
 the caller anchors at an **accounted sync point** it already paid for (the
-windowed grower's one-round-behind async info resolve, the predict entry's
-``sync_pull``).  That split embodies the zero-dispatch rule:
+windowed grower's one-round-behind async info resolve, a coalesced
+predict's ``sync_pull``).  That split embodies the zero-dispatch rule:
 
 * opening/closing a span NEVER touches a device value.  A span close that
   performs a fresh host pull to "drain" the queue would add the blocking
-  sync the round-7 protocol removed — jaxlint R10 ``sync-in-span-close``
-  statically bans exactly that, the tracing twin of R9's mistiming class.
+  sync the round-7 protocol removed — the port's lint rule R10
+  ``sync-in-span-close`` (``lightgbm_tpu_torch/analysis``) statically bans
+  exactly that, the tracing twin of R9's mistiming class.
 * consequently a context-manager span measures HOST-CAUSAL wall clock
   (async device work dispatched inside it may still be in flight at
   close).  Spans that must cover device time are recorded retroactively
-  at the next accounted sync (``windowed_round``, ``predict.*``) — the
-  instrumented layers own that anchoring, not this module.
+  at the next accounted sync (``windowed_round``, ``predict.coalesced``),
+  or close only after one (a ``predict.<entry>`` call span, which takes
+  its CUDA-event readings as attributes after the call's one blocking
+  read) — the instrumented layers own that anchoring, not this module.
 
 Finished spans land in a bounded ring (cap :data:`TRACE_RING_CAP`) and
 export as Chrome-trace / Perfetto-loadable JSON (:func:`to_chrome_trace`,
@@ -34,18 +37,21 @@ next to ``trace_file=``) evicted spans append to a bounded JSONL file
 and count ``trace_spans_spilled_total``; past the byte bound, or with no
 sink, they count ``trace_spans_dropped_total`` — the ring can no longer
 lose history without the metrics saying so.  Spilling is pure host IO
-(no device value is ever touched — the jaxlint R10 discipline holds).  The exported file keeps the raw span
+(no device value is ever touched — the R10 discipline holds).  The exported file keeps the raw span
 records under a ``"lgbmtpu"`` key (schema :data:`SCHEMA_TRACE`) so it
 round-trips through the CLI while chrome://tracing and ui.perfetto.dev
 read the standard ``traceEvents`` list.
 
 On-chip correlation: :func:`set_annotation_factory` accepts a callable
 ``(name, attrs) -> context manager`` entered for the body of every
-context-manager span.  ``utils/profiling.py`` installs a
-``jax.profiler.TraceAnnotation``/``StepTraceAnnotation`` factory when
-``LGBMTPU_JAX_PROFILER=1``, lining host spans up with XLA device traces —
-the jax bridge lives in that (jax-importing) layer, never here: this
-module stays stdlib-only like the rest of ``lightgbm_tpu_torch/obs``.
+context-manager span while its gate holds.  ``utils/profiling.py``
+installs ``torch.profiler.record_function`` at import, gated on a
+torch.profiler recording, so every such span is a ``user_annotation`` of
+the profiler's trace, on the clock of its device events; with no profiler
+recording the gate is one call and nothing is entered
+(:func:`mirror_active` tells the instrumented layers which case holds).
+The torch bridge lives in that layer, never here: this module stays
+stdlib-only like the rest of ``lightgbm_tpu_torch/obs``.
 
 Enablement follows the metrics registry (``telemetry=false`` /
 ``LGBMTPU_TELEMETRY=0`` silences spans too); a disabled span is a cheap
@@ -106,6 +112,7 @@ _ids = itertools.count(1)
 _tls = threading.local()
 _annotation_factory: Optional[
     Callable[[str, Dict[str, Any]], ContextManager]] = None
+_annotation_gate: Optional[Callable[[], bool]] = None
 _spill_fh = None
 _spill_path: Optional[str] = None
 _spill_bytes = 0
@@ -185,14 +192,26 @@ def _handle_eviction(evicted: Dict[str, Any]) -> None:
 
 
 def set_annotation_factory(
-        fn: Optional[Callable[[str, Dict[str, Any]], ContextManager]]
-) -> None:
+        fn: Optional[Callable[[str, Dict[str, Any]], ContextManager]],
+        gate: Optional[Callable[[], bool]] = None) -> None:
     """Install (or clear, with None) the device-annotation mirror used by
-    context-manager spans.  The factory must be cheap and must not raise;
-    utils/profiling.py installs the jax.profiler one behind
-    ``LGBMTPU_JAX_PROFILER=1``."""
-    global _annotation_factory
-    _annotation_factory = fn
+    context-manager spans; with ``gate``, a span enters the factory only
+    while ``gate()`` holds.  Factory and gate must be cheap and must not
+    raise; utils/profiling.py installs ``torch.profiler.record_function``,
+    gated on a profiler recording."""
+    global _annotation_factory, _annotation_gate
+    _annotation_factory, _annotation_gate = fn, gate
+
+
+def _live_factory() -> Optional[Callable[[str, Dict[str, Any]], ContextManager]]:
+    fac, gate = _annotation_factory, _annotation_gate
+    return fac if fac is not None and (gate is None or gate()) else None
+
+
+def mirror_active() -> bool:
+    """Whether a span opened now is mirrored into a device trace (a
+    factory is installed and its gate holds: a profiler is recording)."""
+    return _live_factory() is not None
 
 
 def _stack() -> List["Span"]:
@@ -406,7 +425,7 @@ class Span:
                 self.parent_id = st[-1].span_id
                 self.depth = st[-1].depth + 1
         st.append(self)
-        fac = _annotation_factory
+        fac = _live_factory()
         if fac is not None:
             try:
                 self._annotation = fac(self.name, self.attrs)
@@ -417,7 +436,7 @@ class Span:
 
     def __exit__(self, exc_type, exc, tb) -> None:
         # close = read the host clock and append to the ring.  NOTHING
-        # else belongs here — in particular no device pull (jaxlint R10):
+        # else belongs here — in particular no device pull (rule R10):
         # a span that must cover device time is recorded retroactively at
         # an accounted sync via record_span().
         dur = time.perf_counter() - self._t0
@@ -471,11 +490,11 @@ def span(name: str, parent: Optional[TraceContext] = None,
          **attrs: Any):
     """Open a nesting span around a host-side section.  Records a ring
     entry on close; mirrors into the installed device-annotation factory
-    (jax.profiler) when one is set.  ``parent=`` names an explicit parent
-    context (the cross-thread form — REQUIRED when the opener's causal
-    parent lives on another thread's stack; jaxlint R21 polices the
-    serve/continual thread targets); ``links=`` attaches fan-in/fan-out
-    peer contexts."""
+    (torch.profiler's ``record_function``) while its gate holds.
+    ``parent=`` names an explicit parent context (the cross-thread form —
+    REQUIRED when the opener's causal parent lives on another thread's
+    stack; rule R21 polices the serve/continual thread targets);
+    ``links=`` attaches fan-in/fan-out peer contexts."""
     if not _metrics.enabled():
         return _NOOP
     if parent is not None and not parent.sampled:

@@ -8,8 +8,10 @@ traversal).  All rows of all trees advance one level per step through the
 stacked structure-of-arrays trees; decisions are made in f32 against
 thresholds rounded up to f32 (models/gbdt.py::_f32_threshold_upper), as in
 the JAX package, and the per-tree values are summed in tree order.  A walk
-takes as many steps as its deepest tree (``depth``, counted on the host
-from the trees' children), or num_leaves - 1 when it is not given.
+(``leaf_index``) takes as many steps as its deepest tree (``depth``,
+counted on the host from the trees' children; ``levels``), or
+num_leaves - 1 when it is not given; the sum (``leaf_sum``) gathers each
+tree's leaf value and adds the trees one after another.
 Categorical nodes (``cat``: per node a flag, a word base and a word count
 into one flat array of the trees' bitset words) send a value left when
 its C-cast integer is in the node's bitset; NaN, negative and
@@ -26,7 +28,14 @@ import torch
 _K_ZERO = 1e-35  # reference: kZeroThreshold
 
 
-def _leaf_index(
+def levels(split_feature: torch.Tensor, depth: Optional[int] = None) -> int:
+    """Steps a walk over the stacked trees takes: ``depth``, at most the
+    internal nodes' width, at least 1."""
+    m = split_feature.shape[1]
+    return max(m, 1) if depth is None else max(min(depth, m), 1)
+
+
+def leaf_index(
     x: torch.Tensor,  # (N, F) raw features (NaN = missing)
     split_feature: torch.Tensor,  # (T, M) i32
     threshold: torch.Tensor,  # (T, M) f32 — `value <= threshold` -> left
@@ -44,7 +53,7 @@ def _leaf_index(
     0.0; categorical nodes as the module docstring says)."""
     x = x.to(torch.float32)
     n = x.shape[0]
-    t, m = split_feature.shape
+    t = split_feature.shape[0]
     miss_all = torch.isnan(x)
     vals = torch.where(miss_all, 0.0, x)
     tt = torch.arange(t, device=x.device)[:, None]  # (T, 1)
@@ -52,8 +61,7 @@ def _leaf_index(
     # single-leaf trees start at a leaf (~0)
     node = torch.where(num_leaves > 1, 0, -1).long()[:, None].expand(t, n)
     sf, lc, rc = split_feature.long(), left_child.long(), right_child.long()
-    steps = max(m, 1) if depth is None else max(min(depth, m), 1)
-    for _ in range(steps):
+    for _ in range(levels(split_feature, depth)):
         nd = node.clamp_min(0)
         f = sf[tt, nd]  # (T, N)
         v = vals[rows, f]
@@ -84,14 +92,19 @@ def _in_bitset(v, miss, nd, tt, cat) -> torch.Tensor:
     return in_range & (bit == 1)
 
 
+def _leaf_values(leaf: torch.Tensor, leaf_value: torch.Tensor) -> torch.Tensor:
+    """(T, N) f32: each tree's value at its leaf for each row."""
+    tt = torch.arange(leaf.shape[0], device=leaf.device)[:, None]
+    return leaf_value[tt, leaf]
+
+
 def _per_tree_values(x, split_feature, threshold, default_left, missing_type,
                      left_child, right_child, num_leaves, leaf_value,
                      depth=None, cat=None) -> torch.Tensor:
     """(T, N) f32: each tree's leaf value for each row."""
-    leaf = _leaf_index(x, split_feature, threshold, default_left, missing_type,
-                       left_child, right_child, num_leaves, depth, cat)
-    tt = torch.arange(leaf.shape[0], device=x.device)[:, None]
-    return leaf_value[tt, leaf]
+    return _leaf_values(leaf_index(x, split_feature, threshold, default_left,
+                                   missing_type, left_child, right_child,
+                                   num_leaves, depth, cat), leaf_value)
 
 
 def _tree_sum(per_tree: torch.Tensor,
@@ -105,27 +118,41 @@ def _tree_sum(per_tree: torch.Tensor,
     return out
 
 
+def leaf_sum(leaf: torch.Tensor, leaf_value: torch.Tensor, k: int = 1) -> torch.Tensor:
+    """Raw margins from a walk's leaves ``leaf`` (T, N): (N,) f32, or (N,
+    k) f32 for ``k`` classes.  Tree i belongs to class i % k
+    (iteration-major, class-minor), and each class sums its own trees in
+    iteration order, the JAX package's per-row order."""
+    per_tree = _leaf_values(leaf, leaf_value)  # (T, N)
+    if k == 1:
+        return _tree_sum(per_tree)
+    t, n = per_tree.shape
+    return _tree_sum(per_tree.reshape(t // k, k, n)).T
+
+
+def sum_launches(n_trees: int, k: int = 1) -> int:
+    """Device ops ``leaf_sum`` launches: the gather, the zeros and an add
+    an iteration."""
+    return 2 + n_trees // k
+
+
 def predict_raw_values(x, split_feature, threshold, default_left,
                        missing_type, left_child, right_child, num_leaves,
                        leaf_value, depth=None, cat=None) -> torch.Tensor:
     """Raw ensemble margin per row: (N,) f32, the sum over trees of the
     leaf values, in tree order."""
-    return _tree_sum(_per_tree_values(
-        x, split_feature, threshold, default_left, missing_type, left_child,
-        right_child, num_leaves, leaf_value, depth, cat))
+    return leaf_sum(leaf_index(x, split_feature, threshold, default_left,
+                               missing_type, left_child, right_child,
+                               num_leaves, depth, cat), leaf_value)
 
 
 def predict_raw_multiclass(x, split_feature, threshold, default_left,
                            missing_type, left_child, right_child, num_leaves,
                            leaf_value, depth=None, cat=None, *, k: int) -> torch.Tensor:
-    """Multiclass raw margins, (N, k) f32.  Tree i belongs to class i % k
-    (iteration-major, class-minor), and each class sums its own trees in
-    iteration order, the JAX package's per-row order."""
-    per_tree = _per_tree_values(
-        x, split_feature, threshold, default_left, missing_type, left_child,
-        right_child, num_leaves, leaf_value, depth, cat)  # (T, N)
-    t, n = per_tree.shape
-    return _tree_sum(per_tree.reshape(t // k, k, n)).T
+    """Multiclass raw margins, (N, k) f32 (``leaf_sum``'s class order)."""
+    return leaf_sum(leaf_index(x, split_feature, threshold, default_left,
+                               missing_type, left_child, right_child,
+                               num_leaves, depth, cat), leaf_value, k)
 
 
 def predict_raw_window(x, tree_lo: int, split_feature, threshold, default_left,
@@ -157,9 +184,9 @@ def predict_leaf_values(x, split_feature, threshold, default_left,
                         depth=None, cat=None) -> torch.Tensor:
     """Leaf index per (row, tree) on raw values: (N, T) i32, the traversal
     of the value path (reference: the Predictor's leaf-index mode)."""
-    return _leaf_index(x, split_feature, threshold, default_left, missing_type,
-                       left_child, right_child, num_leaves, depth,
-                       cat).T.to(torch.int32)
+    return leaf_index(x, split_feature, threshold, default_left, missing_type,
+                      left_child, right_child, num_leaves, depth,
+                      cat).T.to(torch.int32)
 
 
 def predict_leaf_binned(bins: torch.Tensor,  # (N, F) int

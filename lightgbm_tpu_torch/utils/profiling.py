@@ -4,17 +4,16 @@ Counterpart of lightgbm_tpu/utils/profiling.py, rewritten for torch.
 Reference: the TIMETAG-gated wall-clock tallies in src/treelearner/*.cpp
 (global_timer) and the CLI's "Time for X: Y s" logs.
 
-A timed section is an NVTX range on the card (``torch.cuda.nvtx.range_push``
-/ ``range_pop``, visible in Nsight and in ``torch.profiler`` traces) and a
-span of the obs trace (obs/trace.py).  Device times come from CUDA events
-(:class:`DeviceTimer`); on the CPU there is no device clock, so a span is
-the obs span alone and a timer reads the host clock.  Section tallies live
-in the metrics registry as ``section_seconds.<name>`` histograms, as in
-the JAX package: ``log_timings`` reads and (optionally) clears them.
-
-``LGBMTPU_NVTX=1`` mirrors every context-manager span of obs/trace.py
-into an NVTX range (the JAX package's ``LGBMTPU_JAX_PROFILER=1`` bridge
-into jax.profiler annotations).
+A timed section is a span of the obs trace (obs/trace.py), and every
+context-manager span of that trace is mirrored into torch.profiler's trace
+as a ``record_function`` range (a ``user_annotation`` event, on the clock
+of the card's CUPTI events) while a profiler records: this module installs
+that mirror at import, gated on ``torch._C._autograd._profiler_enabled()``,
+so with no profiler recording a span enters nothing.  Device times come
+from CUDA events (:class:`DeviceTimer`); on the CPU there is no device
+clock, so a timer reads the host clock.  Section tallies live in the
+metrics registry as ``section_seconds.<name>`` histograms, as in the JAX
+package: ``log_timings`` reads and (optionally) clears them.
 """
 
 from __future__ import annotations
@@ -31,37 +30,14 @@ from ..obs import trace as _trace
 from .log import log_info
 
 
-@contextlib.contextmanager
-def annotate(name: str) -> Iterator[None]:
-    """Label the enclosed launches in device traces with an NVTX range (no
-    range without a card)."""
-    if not torch.cuda.is_available():
-        yield
-        return
-    torch.cuda.nvtx.range_push(name)
-    try:
-        yield
-    finally:
-        torch.cuda.nvtx.range_pop()
+def _record_function(name: str, attrs: dict):
+    """obs/trace.py annotation factory: the span's name as a torch.profiler
+    range (its attributes stay on the span's ring record)."""
+    return torch.profiler.record_function(name)
 
 
-def _nvtx_annotation_factory(name: str, attrs: dict):
-    """obs/trace.py annotation factory: a span carrying a ``step`` or
-    ``iteration`` attribute names its range ``name[step]``, so the
-    profiler's timeline lines up with boosting iterations."""
-    step = attrs.get("step", attrs.get("iteration"))
-    return annotate(name if step is None else f"{name}[{int(step)}]")
-
-
-def install_nvtx_annotations() -> None:
-    """Mirror every context-manager span (obs/trace.py) into NVTX ranges.
-    Installed at import when ``LGBMTPU_NVTX=1``; the layers that open
-    spans (models/gbdt.py, engine) import this module."""
-    _trace.set_annotation_factory(_nvtx_annotation_factory)
-
-
-if os.environ.get("LGBMTPU_NVTX") == "1":
-    install_nvtx_annotations()
+_trace.set_annotation_factory(_record_function,
+                              gate=torch._C._autograd._profiler_enabled)
 
 
 @contextlib.contextmanager
@@ -115,7 +91,8 @@ class DeviceTimer:
 @contextlib.contextmanager
 def timed_section(name: str, sync: bool = False) -> Iterator[None]:
     """Host wall-clock tally per section (reference: global_timer's
-    start/stop pairs), as an NVTX range and an obs span.  With sync=True
+    start/stop pairs), as an obs span (a profiler range while a profiler
+    records).  With sync=True
     the section first waits for the card's queued work (and again at its
     end), so the tally covers the section's device work; without it, work
     launched inside may still run when the section closes."""
@@ -124,7 +101,7 @@ def timed_section(name: str, sync: bool = False) -> Iterator[None]:
         torch.cuda.synchronize()
     t0 = time.perf_counter()
     try:
-        with _trace.span(name), annotate(name):
+        with _trace.span(name):
             yield
             if cuda:
                 torch.cuda.synchronize()

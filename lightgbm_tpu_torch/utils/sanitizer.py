@@ -38,7 +38,7 @@ donation counters have no torch meaning and are not carried over
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -103,17 +103,23 @@ def record_predict() -> None:
         _counts["predicts"] += 1
 
 
-def sync_pull(x: torch.Tensor, out: Optional[torch.Tensor] = None) -> np.ndarray:
+def sync_pull(x: torch.Tensor, out: Optional[torch.Tensor] = None,
+              before_wait: Optional[Callable[[], None]] = None) -> np.ndarray:
     """Blocking host read of a device value.  ``out``: a host buffer (pinned
     on the card) of at least x's rows and x's dtype, which receives the
     value; the result is then a view of it, valid until it is written
-    again."""
+    again.  ``before_wait`` runs once the copy is queued and before the
+    host waits (work that lands with this read: no second wait)."""
     with _lock:
         _counts["host_syncs"] += 1
     if out is None:
+        if before_wait is not None:
+            before_wait()
         return x.cpu().numpy()
     dst = out[: x.shape[0]]
     dst.copy_(x, non_blocking=x.is_cuda)
+    if before_wait is not None:
+        before_wait()
     if x.is_cuda:
         torch.cuda.current_stream(x.device).synchronize()
     return dst.numpy()

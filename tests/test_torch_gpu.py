@@ -24,8 +24,9 @@ blocking read, and the windowed grower's three-pass round over bundles.
 The runtime: predict cached (the packed ensemble on the card) == uncached
 bitwise, 1,000 coalesced batches through the serving runtime's pinned
 staging, each bitwise, training in graph mode while a runtime serves
-(thread-local capture), and the probe that global-mode capture fails
-beside a reading thread.
+(thread-local capture), the probe that global-mode capture fails
+beside a reading thread, and a traced predict's walk, sum and finish
+device ms against CUDA events around the whole call.
 
 Tolerances: int8 histograms are exact; float histograms are held to
 1e-5 * (max|hess| + 1), the f32 summation-order bound, though the 64-bit
@@ -1347,6 +1348,38 @@ def test_cached_and_uncached_predict_agree_bitwise():
             g._invalidate_pred_cache("test")
             cold = bst.predict(X[:n], raw_score=raw)
             assert np.array_equal(warm, again) and np.array_equal(warm, cold), (n, raw)
+
+
+def test_traced_predict_splits_its_device_time_by_phase():
+    """A predict under torch.profiler: its ``predict.predict`` span carries
+    the walk, sum and finish device ms, which add up to within 5% of CUDA
+    events taken around the whole call (the card kept busy while the host
+    readies the call, so that interval is device time: the upload, then
+    the phases); the answers are the untraced call's, in one blocking
+    read.  200 trees of 255 leaves over 200,000 rows: two chunks."""
+    from lightgbm_tpu_torch.obs import trace as trc
+    from lightgbm_tpu_torch.utils import sanitizer as san
+
+    _card()
+    bst, X, _, _ = _card_booster(n=200_000, rounds=200, num_leaves=255)
+    want = bst.predict(X)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts):
+        bst.predict(X)  # the first traced call builds the leaf-depth table
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(200_000_000)
+        a.record()
+        with san.DispatchCounter() as c:
+            got = bst.predict(X)
+        b.record()
+        b.synchronize()
+    assert (c.predicts, c.host_syncs) == (1, 1) and np.array_equal(got, want)
+    call = trc.spans("predict.predict")[-1]["attrs"]
+    phases = [call[f"{p}_device_ms"] for p in ("walk", "sum", "finish")]
+    whole = a.elapsed_time(b)
+    assert all(ms > 0 for ms in phases)
+    assert abs(sum(phases) - whole) <= 0.05 * whole, (phases, whole)
+    assert 0 < call["walk_useful_share"] <= 1
 
 
 def test_pinned_buffers_are_the_models_and_bounded_in_bytes(monkeypatch):

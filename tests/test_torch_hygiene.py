@@ -117,8 +117,8 @@ def _picks_device(node) -> bool:
 def test_no_cuda_probe_picks_a_device():
     """Fault C26's pattern: nowhere in the port does torch.cuda.is_available()
     choose a device (``"cuda" if is_available() else "cpu"``, or an ``if``
-    on it that sets one).  The probes left guard NVTX ranges, profiler
-    activities and a synchronize (utils/profiling.py), or raise."""
+    on it that sets one).  The probes left guard profiler activities and a
+    synchronize (utils/profiling.py), or raise."""
     import ast
     hits, probes = [], 0
     for path in sorted(PORT.rglob("*.py")):

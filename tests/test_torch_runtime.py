@@ -4,8 +4,9 @@ stops at the first all-one-leaf iteration), the copied obs/ package (the
 same snapshot renders the same through both CLIs), the windowed round
 loop's telemetry (the same counters and histograms as the JAX package's
 on one fixture), train()'s metrics_file / trace_file / metrics_port and
-the span, event and heartbeat vocabulary, utils/profiling.py (NVTX ranges
-and obs spans; the CPU has no NVTX), the sanitizer's collector and budget,
+the span, event and heartbeat vocabulary, utils/profiling.py (obs spans,
+mirrored into torch.profiler's trace while a profiler records), the
+sanitizer's collector and budget,
 and the copied lock tracer.
 """
 
@@ -147,6 +148,20 @@ def test_obs_cli_renders_a_snapshot_as_the_jax_one(tmp_path, capsys):
         assert "train_boost_rounds_total" in r.stdout
 
 
+def _code_lines(text):
+    """A module's code, docstrings and comments left out, a statement a line."""
+    import ast
+
+    tree = ast.parse(text)
+    for node in ast.walk(tree):
+        body = getattr(node, "body", None)
+        if (isinstance(body, list) and body and isinstance(body[0], ast.Expr)
+                and isinstance(body[0].value, ast.Constant)
+                and isinstance(body[0].value.value, str)):
+            node.body = body[1:] or [ast.Pass()]
+    return ast.unparse(tree).splitlines()
+
+
 def test_obs_modules_are_the_jax_ones_but_for_their_names():
     """obs/, utils/{faults,locktrace,checkpoint}.py and serve/fleet.py are
     copies: line for line the JAX package's once the package name is
@@ -154,15 +169,45 @@ def test_obs_modules_are_the_jax_ones_but_for_their_names():
     the port does not have, two comments reworded) and, in the fleet,
     exactly the four lines of the runtime's torch staging (a batch's
     payload without the row mask, the call that takes it, and the
-    staging buffer a hung replica's replacement gets)."""
+    staging buffer a hung replica's replacement gets).  obs/trace.py's
+    docstrings describe the port's torch.profiler mirror; its code is the
+    JAX package's but for exactly the mirror's gate (the gate beside the
+    factory, ``_live_factory``, ``mirror_active``, and a span's enter
+    asking for the live factory)."""
     fleet_lines = {
         "            g, x_dev, total, nb, skey, pair = payload",
         "                    res = g.predict_coalesced(x_dev, convert=convert,",
         "                self._staging[infl.skey].put(self._new_staging(infl.skey))",
         "                self._return_staging(payload[4], payload[5])",
     }
+    trace_lines = [
+        "_annotation_gate: Optional[Callable[[], bool]] = None",
+        "def set_annotation_factory(fn: Optional[Callable[[str, Dict[str, Any]], "
+        "ContextManager]], gate: Optional[Callable[[], bool]]=None) -> None:",
+        "    global _annotation_factory, _annotation_gate",
+        "    _annotation_factory, _annotation_gate = (fn, gate)",
+        "",
+        "def _live_factory() -> Optional[Callable[[str, Dict[str, Any]], ContextManager]]:",
+        "    fac, gate = (_annotation_factory, _annotation_gate)",
+        "    return fac if fac is not None and (gate is None or gate()) else None",
+        "",
+        "def mirror_active() -> bool:",
+        "    return _live_factory() is not None",
+        "        fac = _live_factory()",
+    ]
+    ja = _code_lines((ROOT / "lightgbm_tpu" / "obs" / "trace.py").read_text())
+    tb = _code_lines((ROOT / "lightgbm_tpu_torch" / "obs" / "trace.py").read_text())
+    ops = difflib.SequenceMatcher(a=ja, b=tb, autojunk=False).get_opcodes()
+    assert [line for tag, _i1, _i2, j1, j2 in ops if tag != "equal"
+            for line in tb[j1:j2]] == trace_lines
+    assert [line for tag, i1, i2, _j1, _j2 in ops if tag != "equal"
+            for line in ja[i1:i2]] == [
+        "def set_annotation_factory(fn: Optional[Callable[[str, Dict[str, Any]], "
+        "ContextManager]]) -> None:",
+        "    global _annotation_factory", "    _annotation_factory = fn",
+        "        fac = _annotation_factory"]
     pairs = [(f"obs/{m}.py", f"obs/{m}.py")
-             for m in ("__init__", "metrics", "trace", "server", "__main__")]
+             for m in ("__init__", "metrics", "server", "__main__")]
     pairs += [(f"utils/{m}.py", f"utils/{m}.py")
               for m in ("faults", "locktrace", "checkpoint")]
     pairs += [("serve/fleet.py", "serve/fleet.py")]
@@ -324,15 +369,15 @@ def test_profiling_spans_timers_and_device_trace(tmp_path):
     t = profiling.DeviceTimer().start()
     t.stop()
     assert t.elapsed_ms() >= 0.0
+    assert not trc.mirror_active()  # no profiler recording: nothing entered
     with profiling.device_trace(str(tmp_path / "prof")):
-        torch.ones(8) * 2
-    assert (tmp_path / "prof" / "trace.json").stat().st_size > 0
-    profiling.install_nvtx_annotations()
-    try:
+        assert trc.mirror_active()
         with trc.span("boost_round", iteration=3):
-            pass  # no card: the NVTX range is a no-op
-    finally:
-        trc.set_annotation_factory(None)
+            torch.ones(8) * 2
+    events = json.loads((tmp_path / "prof" / "trace.json").read_text())["traceEvents"]
+    notes = [e for e in events if e.get("cat") == "user_annotation"]
+    assert [e["name"] for e in notes] == ["boost_round"]
+    assert trc.spans("boost_round")[-1]["attrs"] == {"iteration": 3}
 
 
 def test_sanitizer_collector_and_round_budget():
