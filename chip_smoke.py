@@ -5,7 +5,7 @@
 Needs one CUDA card, nvcc (CUDA_HOME or /usr/local/cuda) and no network.
 Imports no JAX.  Phases, one line each; any failure exits non-zero:
 
-  1. build    compile csrc/hist.cu, partition.cu and round.cu, one nvcc
+  1. build    compile csrc/hist.cu, partition.cu, round.cu and predict.cu, one nvcc
               each, all started together (nvcc -Xptxas -v: registers,
               shared memory, spills), and count each kernel's atomic
               instruction forms in cuobjdump -sass where the toolkit has it;
@@ -99,7 +99,14 @@ Imports no JAX.  Phases, one line each; any failure exits non-zero:
               its chunks, blocking reads and stopped rows, the rows that ran
               every chunk bitwise the full prediction; pred_contrib on 1,000
               rows (host seconds; contributions sum to the margin); refit on
-              the 100,000 held-out rows, card against CPU;
+              the 100,000 held-out rows, card against CPU; then the
+              traversal kernel (csrc/predict.cu) alone at the prediction
+              cell's shapes (``traversal_lines``: 98,557 and 262,144 rows x
+              500 random 255-leaf trees of depth <= 16 x 28 columns, the
+              forest of gbdt_bench/data/forest.py): its device ms, the
+              plain walk + sum's, bitwise, the bound in bytes, the node
+              visits (pairs x leaf depth) and their rate, and the lane
+              efficiency (useful / issued lane-steps, a traced launch);
  15. categ    categorical features on a seeded Criteo-shaped cell (2M train
               + 200k held-out rows, 13 integer counts then 26 categorical
               columns of 3 to 50,000 Zipf-distributed codes, 255 leaves,
@@ -2633,6 +2640,59 @@ def predict_phase(lgt, models):
             f"leaf values max|d|={gap:.3g} held-out auc before {auc(y, bst.predict(X)):.5f} "
             f"after {auc(y, ref.predict(X)):.5f}")
     return lats
+
+
+# the traversal kernel at the prediction cell's shapes (gbdt_bench's traffic
+# predict_calls: its mean call, ROADMAP P1, and its largest)
+TRAVERSAL_ROWS, TRAVERSAL_SEED = (98_557, 262_144), 20261019
+
+
+def traversal_lines(lgt, reps: int = 20) -> dict:
+    """Phase 14's traversal kernel lines: the cell's forest (500 random
+    255-leaf trees of depth <= 16 over Higgs-shaped rows, gbdt_bench/data/
+    forest.py) loaded as model text; at each of TRAVERSAL_ROWS the kernel's
+    device ms a launch (CUDA events over ``reps``), the plain walk + sum's
+    (chunked as GBDT._chunks cuts it), the answers bitwise, the bytes the
+    call needs (rows, nodes and leaf values, answers once) over 3.35 TB/s,
+    the node visits (the rows' leaf depths summed, a traced launch's
+    count) and their rate, and the lane efficiency.  Returns the numbers
+    by row count."""
+    from gbdt_bench.data import forest, tabular
+    from lightgbm_tpu_torch.ops import predict_cuda as pc
+
+    dev = torch.device("cuda", 0)
+    X, _ = tabular.make("higgs_like", max(TRAVERSAL_ROWS), TRAVERSAL_SEED, dev)
+    grown = forest.grow(X[:65_536], 500, 255, TRAVERSAL_SEED, min_rows=7, leaf_scale=0.05,
+                        max_depth=16)
+    bst = lgt.Booster(model_str=forest.model_text(grown, X.shape[1]))
+    g = bst._gbdt
+    walk = g._packed(0, -1)["walk"]
+    pack_bytes = (walk["nodes"].numel() * 4 + walk["leaf_value"].numel() * 4
+                  + walk["num_leaves"].numel() * 4)
+    out = {}
+    for n in TRAVERSAL_ROWS:
+        x = X[:n].contiguous()
+        ms = cuda_ms(lambda: pc.predict_trees(x, walk), reps)
+
+        def plain():
+            return torch.cat([pc.predict_trees_plain(xs, walk)
+                              for xs in g._chunks(x, len(g.models))])
+        plain_ms = cuda_ms(plain, 3, 1)
+        counts = torch.zeros(2, dtype=torch.int64, device=dev)
+        got = pc.predict_trees(x, walk, counts=counts)
+        if not torch.equal(got, plain()):
+            raise AssertionError(f"traversal kernel != plain walk + sum at {n} rows")
+        issued, useful = counts.tolist()
+        need = x.numel() * 4 + pack_bytes + n * 4
+        bound = need / HBM_BYTES_PER_S * 1e3
+        out[n] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, visits=useful,
+                      lane_efficiency=useful / issued)
+        log(f"phase 14 traversal kernel {n} rows x {len(g.models)} trees x {x.shape[1]} "
+            f"features: device_ms={ms:.4f} plain_ms={plain_ms:.3f} bitwise bound_ms={bound:.5f} "
+            f"(bytes {need}) visits={useful} ({useful / (n * len(g.models)):.3f} a pair) "
+            f"visits/s={useful / ms * 1e3:.4g} lane_efficiency={useful / issued:.4f} "
+            f"issued_steps={issued}")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -5424,6 +5484,7 @@ def main() -> int:
     from lightgbm_tpu_torch.ops import cuda_build
     from lightgbm_tpu_torch.ops import hist_cuda as hc
     from lightgbm_tpu_torch.ops import partition_cuda as pc
+    from lightgbm_tpu_torch.ops import predict_cuda
     from lightgbm_tpu_torch.ops import round_cuda as rc
 
     if "jax" in sys.modules or "lightgbm_tpu" in sys.modules:
@@ -5442,7 +5503,7 @@ def main() -> int:
     pool25 = ThreadPoolExecutor(max_workers=1)
     capi_built = pool25.submit(capi_build, tmp25)
     t0 = time.perf_counter()
-    libs = (hc.LIBRARY, pc.LIBRARY, rc.LIBRARY)
+    libs = (hc.LIBRARY, pc.LIBRARY, rc.LIBRARY, predict_cuda.LIBRARY)
     sos = cuda_build.build_all(libs, force=True)
     for lib in libs:
         lib.lib()
@@ -5771,6 +5832,7 @@ def main() -> int:
     t0 = time.perf_counter()
     lat14 = predict_phase(lgt, {"higgs": (text, h_Xte, h_yte),
                                 "lambdarank": rank_model})["higgs"]
+    traversal_lines(lgt)
     log(f"phase 14 predict: ok in {time.perf_counter() - t0:.2f} s")
     del rank_model
     torch.cuda.empty_cache()

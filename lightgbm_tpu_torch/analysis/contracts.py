@@ -105,9 +105,14 @@ class Target:
     # J6's units by size (module docstring): cells, rows, pairs
     sizes: Mapping[str, int] = dataclasses.field(default_factory=dict)
     repeat: int = 1  # the declared launches are a tree's: times the trees
+    # False where the body takes its plain route, which calls no kernel
+    # wrapper (the traversal on the CPU: GBDT._raw_of's chunked walk)
+    kernels: bool = True
 
     def launches(self, c: "Contract") -> dict:
         """The launches ``c`` declares for this body."""
+        if not self.kernels:
+            return {}
         return {k: v * self.repeat for k, v in c.launches.items()}
 
 
@@ -604,13 +609,17 @@ def _build_windowed_round_2d_quantized(device="cpu", fixture=None) -> Target:
 
 
 # ---------------------------------------------------------------------------
-# prediction (ops/predict.py through GBDT._raw_of) and the continual refit
+# prediction (GBDT._raw_of: on the card the traversal kernel,
+# ops/predict_cuda.py::predict_trees, one launch; on the CPU the plain walk
+# and sum of ops/predict.py) and the continual refit
 # ---------------------------------------------------------------------------
 
 _PN, _PF = 128, 8  # bucket rows, features
-# J6: a traversal's temporaries, (tree, row) node, feature and value
+# J6: the plain walk's temporaries, (tree, row) node, feature and value
 # tensors: 68.4 bytes a pair at the Higgs cell, a floor from the fixture
+# (the kernel route holds only its answers)
 _TRAVERSAL_LIVE = {"floor": 8 * _KB, "pairs": 69}
+_TRAVERSAL_LAUNCHES = {"predict_trees": 1}
 
 
 def tiny_booster(device="cpu", objective: str = "binary", num_class: int = 1,
@@ -651,7 +660,7 @@ def _predict_target(gbdt, x: torch.Tensor, convert: bool = False,
     walk = tuple(v for v in s["walk"].values() if torch.is_tensor(v))
     return Target(body, (x, out), fixed=walk, key=("predict", k, convert),
                   note=note or f"{x.shape[0]} rows, {len(s['trees'])} trees",
-                  sizes={"pairs": x.shape[0] * len(s["trees"])})
+                  sizes={"pairs": x.shape[0] * len(s["trees"])}, kernels=x.is_cuda)
 
 
 def _predict_rows(device, fixture, n: int = _PN):
@@ -664,9 +673,11 @@ def _predict_rows(device, fixture, n: int = _PN):
 
 @contract(
     "predict_warm_single",
-    description="warm single-class predict traversal (predict_raw_values "
-                "through GBDT._raw_of) on a bucket-padded batch: no "
+    description="warm single-class predict traversal (GBDT._raw_of: the "
+                "traversal kernel's one launch on the card, the plain walk "
+                "and sum on the CPU) on a bucket-padded batch: no "
                 "collective, no read, no host data inside",
+    launches=_TRAVERSAL_LAUNCHES,
     live=_TRAVERSAL_LIVE,
 )
 def _build_predict_warm_single(device="cpu", fixture=None) -> Target:
@@ -676,9 +687,10 @@ def _build_predict_warm_single(device="cpu", fixture=None) -> Target:
 
 @contract(
     "predict_warm_multiclass",
-    description="warm multiclass predict (predict_raw_multiclass, k = 4): "
-                "every class reduced in the same traversal, no per-class "
-                "loop",
+    description="warm multiclass predict (k = 4): every class reduced in "
+                "the same traversal, one launch of the kernel over a (rows, "
+                "classes) grid on the card, no per-class loop",
+    launches=_TRAVERSAL_LAUNCHES,
     live=_TRAVERSAL_LIVE,
 )
 def _build_predict_warm_multiclass(device="cpu", fixture=None) -> Target:
@@ -689,9 +701,10 @@ def _build_predict_warm_multiclass(device="cpu", fixture=None) -> Target:
 
 @contract(
     "predict_warm_converted",
-    description="converted predict: the traversal and objective."
-                "convert_output in one device body, audited on a real "
-                "binary booster",
+    description="converted predict: the traversal (the kernel's one "
+                "launch on the card) and objective.convert_output in one "
+                "device body, audited on a real binary booster",
+    launches=_TRAVERSAL_LAUNCHES,
     live=_TRAVERSAL_LIVE,
 )
 def _build_predict_warm_converted(device="cpu", fixture=None) -> Target:
@@ -703,8 +716,10 @@ def _build_predict_warm_converted(device="cpu", fixture=None) -> Target:
     "predict_coalesced_bucket",
     description="the serving runtime's coalesced batch (serve/runtime.py -> "
                 "GBDT.predict_coalesced): K requests staged into one rung "
-                "run the SAME traversal as a warm predict, so a serve-owned "
-                "second entry, a collective or an in-body copy fails here",
+                "run the SAME traversal as a warm predict (one kernel "
+                "launch on the card), so a serve-owned second entry, a "
+                "collective or an in-body copy fails here",
+    launches=_TRAVERSAL_LAUNCHES,
     live=_TRAVERSAL_LIVE,
 )
 def _build_predict_coalesced_bucket(device="cpu", fixture=None) -> Target:

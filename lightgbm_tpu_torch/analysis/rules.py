@@ -112,7 +112,7 @@ _WRAPPER_NAMES = ("histogram_multi", "histogram_multi_quantized",
                   "histogram_multi_quantized_lanes", "histogram_window",
                   "histogram_window_quantized", "histogram_window_carry",
                   "partition_segments", "partition_segments_lanes",
-                  "round_megakernel", "round_partition_window")
+                  "round_megakernel", "round_partition_window", "predict_trees")
 # the port's collectives (parallel/collectives.py) and torch.distributed's
 _COLLECTIVES = ("psum", "pmax", "pmin", "psum_scatter", "all_gather",
                 "all_gather_ragged", "broadcast_from", "all_reduce",

@@ -106,7 +106,7 @@ def refit_eligible(gbdt) -> Optional[str]:
 
 def _traverse(gbdt, s, x: torch.Tensor) -> torch.Tensor:
     """(N, T) i64 leaf of every row in every tree of the pack ``s``."""
-    walk = {key: v for key, v in s["walk"].items() if key != "leaf_value"}
+    walk = predict_ops.walk_args(s["walk"])
     return torch.cat([predict_ops.predict_leaf_values(xs, **walk)
                       for xs in gbdt._chunks(x, len(s["trees"]))]).long()
 

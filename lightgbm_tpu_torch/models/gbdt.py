@@ -95,6 +95,7 @@ from ..obs import trace as _trace
 from ..metrics import Metric, create_metrics
 from ..objectives import Objective, create_objective
 from ..ops import predict as predict_ops
+from ..ops import predict_cuda
 from ..ops.hist_cuda import recommended_leaf_tile
 from ..ops.graphs import RoundGraphs
 from ..ops.linear import fit_linear_leaves, predict_linear_rows
@@ -188,22 +189,25 @@ class _PinnedBuffers:
 class _WalkProbe:
     """The device readings of one traced predict call (``GBDT._traced``).
     On the card a chain of CUDA events, from the queued upload through the
-    walk and the sum of each chunk to the queued read, splits the call's
-    device time into walk, sum and finish; on either device the walk's
-    useful steps (each (tree, row) pair's leaf depth, from the pack's
-    leaf-depth table: a gather and a sum over each tree's rows a chunk,
-    which on the card needs neither a cast nor a reduction's memset) are
-    counted against the steps walked.  ``close`` queues the counts' copy
-    into pinned memory before the call's one blocking read
-    (``sync_pull``'s ``before_wait``); ``readings``, after that read,
-    waits for nothing."""
+    walk and the sum to the queued read, splits the call's device time into
+    walk, sum and finish.  The walk's steps: on the card the traversal
+    kernel adds to ``counts`` the lane-steps its warps issued and the rows'
+    leaf depths (``walk_useful_share``: the walk's SIMT efficiency; the sum
+    is inside the kernel, so its phase is empty); on the CPU the plain walk
+    takes ``levels`` steps a pair, and its useful steps (each (tree, row)
+    pair's leaf depth, from the pack's leaf-depth table ``leaf_depth``: a
+    gather and a sum over each tree's rows a chunk) are counted in
+    ``counts`` a chunk.  ``close`` queues the counts' copy into pinned
+    memory before the call's one blocking read (``sync_pull``'s
+    ``before_wait``); ``readings``, after that read, waits for nothing."""
 
-    def __init__(self, device: torch.device, leaf_depth: torch.Tensor,
-                 n_chunks: int, pinned: "_PinnedBuffers"):
+    def __init__(self, device: torch.device, pinned: "_PinnedBuffers",
+                 leaf_depth: Optional[torch.Tensor] = None, n_chunks: int = 0):
         self._cuda = device.type == "cuda"
         self._leaf_depth = leaf_depth
-        self._useful = torch.empty((n_chunks, leaf_depth.shape[0]), dtype=torch.int64,
-                                   device=device)
+        self.counts = (torch.zeros(2, dtype=torch.int64, device=device) if leaf_depth is None
+                       else torch.empty((n_chunks, leaf_depth.shape[0]), dtype=torch.int64,
+                                        device=device))
         self._pinned = pinned
         self._host: Optional[torch.Tensor] = None
         self._events: List[Tuple[str, torch.cuda.Event]] = []
@@ -217,35 +221,41 @@ class _WalkProbe:
             ev.record()
             self._events.append((phase, ev))
 
-    def walked(self, leaf: torch.Tensor, levels: int) -> None:
-        """After a chunk's walk: count its useful steps, close its walk."""
-        self.steps += leaf.numel() * levels
-        torch.sum(torch.gather(self._leaf_depth, 1, leaf), dim=1,
-                  out=self._useful[self._chunk])
-        self._chunk += 1
+    def walked(self, leaf: Optional[torch.Tensor] = None, levels: int = 0) -> None:
+        """After a walk: the plain walk's chunk ``leaf`` counts its useful
+        steps; either closes its walk phase."""
+        if leaf is not None:
+            self.steps += leaf.numel() * levels
+            torch.sum(torch.gather(self._leaf_depth, 1, leaf), dim=1,
+                      out=self.counts[self._chunk])
+            self._chunk += 1
         self._mark("walk")
 
     def summed(self) -> None:
         self._mark("sum")
 
     def close(self) -> None:
-        """Once the call's read is queued: queue the useful count's copy,
-        close the finish phase."""
-        host = self._useful
+        """Once the call's read is queued: queue the counts' copy, close the
+        finish phase."""
+        host = self.counts
         if self._cuda:
-            shape = tuple(self._useful.shape)
+            shape = tuple(self.counts.shape)
             host, _ = self._pinned.get(shape, torch.int64)
             if host is None:  # past the pinned bound: this call's own
                 host = torch.empty(shape, dtype=torch.int64, pin_memory=True)
-            host.copy_(self._useful, non_blocking=True)
+            host.copy_(self.counts, non_blocking=True)
         self._host = host
         self._mark("finish")
 
     def readings(self) -> Dict[str, Any]:
-        useful = int(self._host.sum())  # host memory: the read has landed
+        # host memory: the read has landed
+        if self._leaf_depth is None:
+            steps, useful = int(self._host[0]), int(self._host[1])
+        else:
+            steps, useful = self.steps, int(self._host.sum())
         out: Dict[str, Any] = {
-            "walk_steps": self.steps, "walk_useful_steps": useful,
-            "walk_useful_share": useful / self.steps if self.steps else 0.0}
+            "walk_steps": steps, "walk_useful_steps": useful,
+            "walk_useful_share": useful / steps if steps else 0.0}
         if self._cuda:
             ms = {"walk": 0.0, "sum": 0.0, "finish": 0.0}
             for (_, a), (phase, b) in zip(self._events, self._events[1:]):
@@ -1584,10 +1594,12 @@ class GBDT:
     # ------------------------------------------------------------------
     def _stacked(self, trees: List[Tree], device) -> Dict[str, torch.Tensor]:
         """Stacked structure-of-arrays ensemble for the traversal, with the
-        depth of its deepest tree (the traversal's step count) and, when a
-        tree has categorical nodes, their bitsets (``cat``: per node a
+        depth of its deepest tree (the plain walk's step count), when a
+        tree has categorical nodes their bitsets (``cat``: per node a
         flag, a word base and a word count into the flat words of every
-        tree, as the JAX package stacks them)."""
+        tree, as the JAX package stacks them), the traversal kernel's node
+        table (``nodes``, ops/predict_cuda.py::node_table) and the columns
+        the trees read (``features``)."""
         max_l = max(max(t.num_leaves for t in trees), 2)
         m = max_l - 1
 
@@ -1596,22 +1608,31 @@ class GBDT:
             for i, t in enumerate(trees):
                 a = get(t)
                 out[i, : len(a)] = a
-            return torch.as_tensor(out, device=device)
+            return out
 
-        return dict(
+        host = dict(
             split_feature=pad(lambda t: t.split_feature, np.int32, m),
             threshold=pad(lambda t: _f32_threshold_upper(t.threshold), np.float32, m),
             default_left=pad(lambda t: t.default_left(), bool, m),
             missing_type=pad(
                 lambda t: (t.decision_type.astype(np.int32) >> 2) & 3, np.int32, m),
             left_child=pad(lambda t: t.left_child, np.int32, m, fill=-1),
-            right_child=pad(lambda t: t.right_child, np.int32, m, fill=-1),
+            right_child=pad(lambda t: t.right_child, np.int32, m, fill=-1))
+        cat = _stacked_bitsets(trees, m)
+        nodes = predict_cuda.node_table(**host, cat=cat)
+        walk = {key: torch.as_tensor(v, device=device) for key, v in host.items()}
+        walk.update(
             num_leaves=torch.as_tensor([t.num_leaves for t in trees],
                                        dtype=torch.int32, device=device),
-            leaf_value=pad(lambda t: t.leaf_value, np.float32, max_l),
+            leaf_value=torch.as_tensor(pad(lambda t: t.leaf_value, np.float32, max_l),
+                                       device=device),
             depth=max(tree_depth(t) for t in trees),
-            cat=_stacked_bitsets(trees, m, device),
-        )
+            cat=(None if cat is None
+                 else tuple(torch.as_tensor(a, device=device) for a in cat)),
+            nodes=torch.as_tensor(nodes, device=device),
+            features=max([int(np.max(t.split_feature[:t.num_internal])) + 1
+                          for t in trees if t.num_internal > 0] + [0]))
+        return walk
 
     # -- the packed-ensemble cache (the JAX package's _packed) ----------
     _PACKED_CACHE_CAP = 32  # bounds the early-stop windows' entries etc.
@@ -1712,40 +1733,58 @@ class GBDT:
                 probe: Optional[_WalkProbe] = None) -> torch.Tensor:
         """Raw margins of the device rows ``x`` (f32): (n,) or (n, K) f32
         on the device, the trees' sum in tree order (a random forest's
-        unscaled).  Each chunk's walk and sum is a ``predict.walk`` and a
-        ``predict.sum`` span; ``probe`` takes the traced call's readings."""
+        unscaled).  On the card one launch of the traversal kernel
+        (ops/predict_cuda.py) walks and sums every row, a ``predict.walk``
+        span, and the ``predict.sum`` span after it is empty; on the CPU
+        each chunk's plain walk and sum is a ``predict.walk`` and a
+        ``predict.sum`` span.  ``probe`` takes the traced call's
+        readings."""
         k = self.num_tree_per_iteration
-        walk = dict(s["walk"])
+        walk = s["walk"]
         n_trees = len(s["trees"])
-        chunks = self._chunks(x, n_trees)
         if s["linear"]:
-            return torch.cat([self._linear_raw(s, xs) for xs in chunks])
-        leaf_value = walk.pop("leaf_value")
+            return torch.cat([self._linear_raw(s, xs)
+                              for xs in self._chunks(x, n_trees)])
         levels = predict_ops.levels(walk["split_feature"], walk["depth"])
+        if x.is_cuda:
+            with _trace.span("predict.walk", levels=levels, pairs=n_trees * x.shape[0],
+                             kernel=1):
+                raw = predict_cuda.predict_trees(
+                    x, walk, k, counts=None if probe is None else probe.counts)
+                if probe is not None:
+                    probe.walked()
+            with _trace.span("predict.sum", launches=0):
+                if probe is not None:
+                    probe.summed()
+            return raw
+        args = predict_ops.walk_args(walk)
         raws = []
-        for xs in chunks:
+        for xs in self._chunks(x, n_trees):
             with _trace.span("predict.walk", levels=levels,
                              pairs=n_trees * xs.shape[0]):
-                leaf = predict_ops.leaf_index(xs, **walk)
+                leaf = predict_ops.leaf_index(xs, **args)
                 if probe is not None:
                     probe.walked(leaf, levels)
             with _trace.span("predict.sum",
                              launches=predict_ops.sum_launches(n_trees, k)):
-                raws.append(predict_ops.leaf_sum(leaf, leaf_value, k))
+                raws.append(predict_ops.leaf_sum(leaf, walk["leaf_value"], k))
                 if probe is not None:
                     probe.summed()
         return torch.cat(raws)
 
     def _probe(self, s: dict, x: torch.Tensor) -> _WalkProbe:
-        """A traced call's probe over the rows ``x``; the pack's leaf-depth
-        table is built at its first traced call."""
+        """A traced call's probe over the rows ``x``: on the card the
+        kernel's counts; on the CPU the plain walk's, from the pack's
+        leaf-depth table, built at its first traced call."""
+        if x.is_cuda:
+            return _WalkProbe(self.device, self._pinned)
         depth = s.get("leaf_depth")
         if depth is None:
             width = s["walk"]["leaf_value"].shape[1]
             depth = s["leaf_depth"] = torch.as_tensor(
                 _leaf_depths(s["trees"], width), device=self.device)
-        return _WalkProbe(self.device, depth,
-                          len(self._chunks(x, len(s["trees"]))), self._pinned)
+        return _WalkProbe(self.device, self._pinned, depth,
+                          len(self._chunks(x, len(s["trees"]))))
 
     def _traced(self) -> bool:
         """Tracing is on: spans are recorded and a profiler records them, or
@@ -2049,7 +2088,7 @@ class GBDT:
         if s is None:
             return np.zeros((X.shape[0], 0), dtype=np.int32)
         x = torch.as_tensor(np.asarray(X, np.float32), device=self.device)
-        walk = {key: v for key, v in s["walk"].items() if key != "leaf_value"}
+        walk = predict_ops.walk_args(s["walk"])
         _san.record_predict()
         out = torch.cat([predict_ops.predict_leaf_values(xs, **walk)
                          for xs in self._chunks(x, len(s["trees"]))])
@@ -2097,8 +2136,8 @@ class GBDT:
         for ci in range(n_walk // window):
             act = torch.as_tensor(active, device=self.device)
             if leaves is None:
-                raw_dev = predict_ops.predict_raw_window(
-                    x, ci * window, **s, k=k, window=window, base=raw_dev, active=act)
+                raw_dev = predict_cuda.predict_trees(x, s, k, tree_lo=ci * window,
+                                                     window=window, base=raw_dev, active=act)
             else:
                 acc = raw_dev.reshape(n, k)
                 nxt = _add_trees(trees, x, leaves, ci * window, (ci + 1) * window, k,
@@ -2452,8 +2491,7 @@ def _scaled(v: torch.Tensor, factors) -> torch.Tensor:
 def _leaves_of(xs: torch.Tensor, s: dict) -> torch.Tensor:
     """(N, T) i64: every tree's leaf for every row of ``xs``, from the
     stacked ensemble ``s`` (GBDT._stacked)."""
-    s = {key: v for key, v in s.items() if key != "leaf_value"}
-    return predict_ops.predict_leaf_values(xs, **s).long()
+    return predict_ops.predict_leaf_values(xs, **predict_ops.walk_args(s)).long()
 
 
 def _add_trees(trees: List[Tree], xs: torch.Tensor, leaves: torch.Tensor, lo: int,
@@ -2506,9 +2544,10 @@ def _walk_on(walk: dict, device) -> dict:
     return {k: to(v) for k, v in walk.items()}
 
 
-def _stacked_bitsets(trees: List[Tree], m: int, device) -> Optional[tuple]:
+def _stacked_bitsets(trees: List[Tree], m: int) -> Optional[tuple]:
     """(is_cat, cat_base, cat_nwords) (T, m) and the flat bitset words (W,)
-    of the trees' categorical nodes, or None when no tree has one."""
+    of the trees' categorical nodes, host arrays, or None when no tree has
+    one."""
     if not any(t.num_cat > 0 for t in trees):
         return None
     is_cat = np.zeros((len(trees), m), bool)
@@ -2525,8 +2564,7 @@ def _stacked_bitsets(trees: List[Tree], m: int, device) -> Optional[tuple]:
         words.append(np.asarray(t.cat_threshold, np.int64))
         off += len(t.cat_threshold)
     flat = np.concatenate(words) if off else np.zeros(1, np.int64)
-    return tuple(torch.as_tensor(a, device=device)
-                 for a in (is_cat, base, nwords, flat))
+    return is_cat, base, nwords, flat
 
 
 def _pre_filter(bins: Optional[np.ndarray], binner, md: int, counts=None,

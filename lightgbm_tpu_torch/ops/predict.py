@@ -16,7 +16,11 @@ Categorical nodes (``cat``: per node a flag, a word base and a word count
 into one flat array of the trees' bitset words) send a value left when
 its C-cast integer is in the node's bitset; NaN, negative and
 out-of-range values go right (reference: Tree::CategoricalDecision).
-Nothing here reads the device back.
+Nothing here reads the device back.  On the card the margins (every tree,
+or the early stop's windows) take the traversal kernel instead
+(ops/predict_cuda.py), which makes the same decisions and sums; the walk
+and sum here are its plain version, the CPU's route, and pred_leaf's,
+linear leaves' and the refit's walk on either device.
 """
 
 from __future__ import annotations
@@ -92,19 +96,21 @@ def _in_bitset(v, miss, nd, tt, cat) -> torch.Tensor:
     return in_range & (bit == 1)
 
 
+# the stacked ensemble's entries (GBDT._stacked) that the walk takes
+WALK_KEYS = ("split_feature", "threshold", "default_left", "missing_type",
+             "left_child", "right_child", "num_leaves", "depth", "cat")
+
+
+def walk_args(walk: dict) -> dict:
+    """``leaf_index``'s keyword arguments out of a stacked ensemble, which
+    also holds the leaf values and the kernel's node table."""
+    return {key: walk[key] for key in WALK_KEYS}
+
+
 def _leaf_values(leaf: torch.Tensor, leaf_value: torch.Tensor) -> torch.Tensor:
     """(T, N) f32: each tree's value at its leaf for each row."""
     tt = torch.arange(leaf.shape[0], device=leaf.device)[:, None]
     return leaf_value[tt, leaf]
-
-
-def _per_tree_values(x, split_feature, threshold, default_left, missing_type,
-                     left_child, right_child, num_leaves, leaf_value,
-                     depth=None, cat=None) -> torch.Tensor:
-    """(T, N) f32: each tree's leaf value for each row."""
-    return _leaf_values(leaf_index(x, split_feature, threshold, default_left,
-                                   missing_type, left_child, right_child,
-                                   num_leaves, depth, cat), leaf_value)
 
 
 def _tree_sum(per_tree: torch.Tensor,
@@ -136,42 +142,32 @@ def sum_launches(n_trees: int, k: int = 1) -> int:
     return 2 + n_trees // k
 
 
-def predict_raw_values(x, split_feature, threshold, default_left,
-                       missing_type, left_child, right_child, num_leaves,
-                       leaf_value, depth=None, cat=None) -> torch.Tensor:
-    """Raw ensemble margin per row: (N,) f32, the sum over trees of the
-    leaf values, in tree order."""
-    return leaf_sum(leaf_index(x, split_feature, threshold, default_left,
-                               missing_type, left_child, right_child,
-                               num_leaves, depth, cat), leaf_value)
+def predict_raw_values(x, **walk) -> torch.Tensor:
+    """Raw ensemble margin per row of the stacked trees ``walk``: (N,) f32,
+    the sum over trees of the leaf values, in tree order."""
+    return leaf_sum(leaf_index(x, **walk_args(walk)), walk["leaf_value"])
 
 
-def predict_raw_multiclass(x, split_feature, threshold, default_left,
-                           missing_type, left_child, right_child, num_leaves,
-                           leaf_value, depth=None, cat=None, *, k: int) -> torch.Tensor:
+def predict_raw_multiclass(x, *, k: int, **walk) -> torch.Tensor:
     """Multiclass raw margins, (N, k) f32 (``leaf_sum``'s class order)."""
-    return leaf_sum(leaf_index(x, split_feature, threshold, default_left,
-                               missing_type, left_child, right_child,
-                               num_leaves, depth, cat), leaf_value, k)
+    return leaf_sum(leaf_index(x, **walk_args(walk)), walk["leaf_value"], k)
 
 
-def predict_raw_window(x, tree_lo: int, split_feature, threshold, default_left,
-                       missing_type, left_child, right_child, num_leaves,
-                       leaf_value, depth=None, cat=None, *, k: int, window: int,
-                       base: torch.Tensor, active: torch.Tensor) -> torch.Tensor:
-    """The margins after ``window`` more trees, starting at tree
-    ``tree_lo``: ``base`` ((N,) or (N, k) f32, the margins so far) plus the
-    window's trees, added one after another in the full prediction's order,
-    so a row that runs every window ends bitwise at predict_raw_values /
-    predict_raw_multiclass.  Rows where ``active`` (N,) is false keep
-    ``base`` (prediction early stopping)."""
+def predict_raw_window(x, tree_lo: int, *, k: int, window: int, base: torch.Tensor,
+                       active: torch.Tensor, **walk) -> torch.Tensor:
+    """The margins after ``window`` more trees of the stacked trees
+    ``walk``, starting at tree ``tree_lo``: ``base`` ((N,) or (N, k) f32,
+    the margins so far) plus the window's trees, added one after another
+    in the full prediction's order, so a row that runs every window ends
+    bitwise at predict_raw_values / predict_raw_multiclass.  Rows where
+    ``active`` (N,) is false keep ``base`` (prediction early stopping)."""
     sl = slice(tree_lo, tree_lo + window)
+    args = {key: v[sl] if torch.is_tensor(v) else v
+            for key, v in walk_args(walk).items()}
+    cat = args["cat"]
     if cat is not None:
-        cat = (cat[0][sl], cat[1][sl], cat[2][sl], cat[3])
-    per_tree = _per_tree_values(
-        x, split_feature[sl], threshold[sl], default_left[sl], missing_type[sl],
-        left_child[sl], right_child[sl], num_leaves[sl], leaf_value[sl], depth,
-        cat)
+        args["cat"] = (cat[0][sl], cat[1][sl], cat[2][sl], cat[3])
+    per_tree = _leaf_values(leaf_index(x, **args), walk["leaf_value"][sl])
     n = per_tree.shape[1]
     if k == 1:
         return torch.where(active, _tree_sum(per_tree, base), base)

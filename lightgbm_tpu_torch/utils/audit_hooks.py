@@ -1,7 +1,7 @@
 """Recorder hooks for the trace audit (analysis/trace_audit.py).
 
-The kernel wrappers (ops/hist_cuda.py, partition_cuda.py, round_cuda.py)
-are opaque ctypes calls on the card, and the collectives
+The kernel wrappers (ops/hist_cuda.py, partition_cuda.py, round_cuda.py,
+predict_cuda.py) are opaque ctypes calls on the card, and the collectives
 (parallel/collectives.py) are c10d calls; the audit sees neither at
 torch's dispatcher level.  So each wrapper entry is decorated with
 ``audited(entry)``, and each collective reports itself through

@@ -1352,11 +1352,13 @@ def test_cached_and_uncached_predict_agree_bitwise():
 
 def test_traced_predict_splits_its_device_time_by_phase():
     """A predict under torch.profiler: its ``predict.predict`` span carries
-    the walk, sum and finish device ms, which add up to within 5% of CUDA
-    events taken around the whole call (the card kept busy while the host
-    readies the call, so that interval is device time: the upload, then
-    the phases); the answers are the untraced call's, in one blocking
-    read.  200 trees of 255 leaves over 200,000 rows: two chunks."""
+    the walk, sum and finish device ms, which with the rows' upload add up
+    to within 5% of the call's device interval in the profiler's trace
+    (the card kept busy while the host readies the call, so that interval
+    is device time: the upload, then the phases, to the read's end); the
+    answers are the untraced call's, in one blocking read.  200 trees
+    of 255 leaves over 200,000 rows: one launch of the traversal kernel,
+    which sums as it walks, so the sum phase is empty."""
     from lightgbm_tpu_torch.obs import trace as trc
     from lightgbm_tpu_torch.utils import sanitizer as san
 
@@ -1365,21 +1367,227 @@ def test_traced_predict_splits_its_device_time_by_phase():
     want = bst.predict(X)
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts):
-        bst.predict(X)  # the first traced call builds the leaf-depth table
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        bst.predict(X)
+    with torch.profiler.profile(activities=acts) as prof:
         torch.cuda._sleep(200_000_000)
-        a.record()
         with san.DispatchCounter() as c:
             got = bst.predict(X)
-        b.record()
-        b.synchronize()
+        torch.cuda.synchronize()
     assert (c.predicts, c.host_syncs) == (1, 1) and np.array_equal(got, want)
     call = trc.spans("predict.predict")[-1]["attrs"]
     phases = [call[f"{p}_device_ms"] for p in ("walk", "sum", "finish")]
-    whole = a.elapsed_time(b)
-    assert all(ms > 0 for ms in phases)
-    assert abs(sum(phases) - whole) <= 0.05 * whole, (phases, whole)
+    # the call's device interval from the trace: its first device op (the
+    # upload) to its last (the read), the sleep that keeps the card busy
+    # while the host readies the call left out
+    ops = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA),
+                 key=lambda e: e.time_range.start)
+    ops = ops[next(i for i, e in enumerate(ops) if "HtoD" in e.name):]
+    whole = (ops[-1].time_range.end - ops[0].time_range.start) / 1e3
+    upload = ops[0].time_range.elapsed_us() / 1e3
+    assert phases[0] > 0 and phases[2] > 0 and 0 <= phases[1] <= 0.01 * phases[0]
+    assert abs(sum(phases) + upload - whole) <= 0.05 * whole, (phases, upload, whole)
     assert 0 < call["walk_useful_share"] <= 1
+
+
+# ---------------------------------------------------------------------------
+# the traversal kernel (csrc/predict.cu) against the plain walk and sum
+# ---------------------------------------------------------------------------
+# float32 thresholds, and row values at them, a float32 step above them, at
+# and around the zero threshold 1e-35, signed zeros and NaN
+_THR = np.float32([-1.0, -1e-36, 0.0, 1e-36, 1e-35, 0.5, 2.0])
+_EDGE = np.concatenate([_THR, np.nextafter(_THR, np.float32(np.inf)),
+                        np.float32([np.nan, -0.0, -1e-35, 3.0, -2.0]),
+                        np.nextafter(np.float32([1e-35]), np.float32(0.0))])
+# categorical values: NaN, negative, fractional (truncated), in and out of
+# the bitsets' words, huge and infinite
+_CATS = np.float32([np.nan, -1.0, -5.0, -0.5, 0.0, 1.0, 2.7, 31.0, 32.0, 63.0, 64.0,
+                    100.0, 127.0, 1000.0, 3e9, -3e9, 1e10, np.inf, -np.inf])
+
+
+def _random_trees(rng, n_trees, max_leaves, n_feat, cat_cols=()):
+    """Host trees of random shape (every seventh a one-leaf tree) in
+    LightGBM's numbering, each node's missing type and default side drawn,
+    thresholds from _THR, and with ``cat_cols`` categorical nodes on those
+    columns with bitsets of 1-4 random words."""
+    from lightgbm_tpu_torch.models.tree import Tree
+
+    trees = []
+    for i in range(n_trees):
+        L = 1 if i % 7 == 3 else int(rng.randint(2, max_leaves + 1))
+        M = L - 1
+        left, right = np.zeros(M, np.int32), np.zeros(M, np.int32)
+        above = {0: (-1, 0)}  # leaf -> (its node, side)
+        for node in range(M):
+            leaf = int(rng.choice(sorted(above)))
+            par, side = above.pop(leaf)
+            if par >= 0:
+                (left if side == 0 else right)[par] = node
+            left[node], right[node] = ~leaf, ~(node + 1)
+            above[leaf], above[node + 1] = (node, 0), (node, 1)
+        feat = rng.randint(0, n_feat, M).astype(np.int32)
+        dt = (rng.randint(0, 2, M) << 1) | (rng.randint(0, 3, M) << 2)
+        thr = _THR[rng.randint(0, len(_THR), M)].astype(np.float64)
+        bounds, words = [0], []
+        for j in range(M):
+            if len(cat_cols) and rng.rand() < 0.4:
+                feat[j] = rng.choice(cat_cols)
+                dt[j] |= 1
+                thr[j] = len(bounds) - 1
+                nw = int(rng.randint(1, 5))
+                words.extend(rng.randint(0, 2 ** 32, nw, dtype=np.uint64))
+                bounds.append(bounds[-1] + nw)
+        trees.append(Tree(
+            num_leaves=L, split_feature=feat, threshold=thr, threshold_bin=None,
+            decision_type=dt.astype(np.uint8), split_gain=np.ones(M, np.float32),
+            left_child=left, right_child=right, internal_value=np.zeros(M),
+            internal_weight=np.zeros(M), internal_count=np.zeros(M, np.int64),
+            leaf_value=rng.randn(L), leaf_weight=np.ones(L),
+            leaf_count=np.ones(L, np.int64), num_cat=len(bounds) - 1,
+            cat_boundaries=np.asarray(bounds, np.int32),
+            cat_threshold=np.asarray(words, np.uint32)))
+    return trees
+
+
+def _edge_rows(rng, n, n_feat, cat_cols=()):
+    x = _EDGE[rng.randint(0, len(_EDGE), (n, n_feat))]
+    normal = rng.rand(n, n_feat) < 0.25
+    x[normal] = rng.randn(int(normal.sum())).astype(np.float32)
+    for c in cat_cols:
+        x[:, c] = _CATS[rng.randint(0, len(_CATS), n)]
+    return x
+
+
+def _stacked_on(trees, dev):
+    from lightgbm_tpu_torch.models.gbdt import GBDT
+
+    return GBDT._stacked(None, trees, dev)  # a pack's tables, no booster needed
+
+
+def _plain_on_card(x, walk, k, **window):
+    """The plain walk and sum on the card, a chunk of rows at a time."""
+    from lightgbm_tpu_torch.ops import predict_cuda as pc
+
+    step = max(1, 2 ** 25 // walk["num_leaves"].shape[0])
+    outs = []
+    for lo in range(0, x.shape[0], step):
+        part = {key: v[lo:lo + step] if key in ("base", "active") else v
+                for key, v in window.items()}
+        outs.append(pc.predict_trees_plain(x[lo:lo + step], walk, k, **part))
+    return torch.cat(outs)
+
+
+@pytest.mark.parametrize("k,n,f,cats,leaves", [
+    (1, 1, 28, (), 40), (1, 1000, 28, (), 40), (3, 777, 28, (), 40),
+    (1, 5003, 28, (3, 7), 40), (3, 257, 28, (0,), 40), (1, 4099, 130, (), 40),
+    (3, 1, 130, (5, 129), 40), (1, 2001, 28, (1,), 3000)])
+def test_traversal_kernel_matches_the_plain_walk_and_sum(k, n, f, cats, leaves):
+    """Random trees, one-leaf trees among them, every missing type and
+    default side, thresholds hit exactly and a float32 step above, zero
+    and the zero threshold, categorical bitsets against negative, NaN,
+    huge, infinite and out-of-range values: the kernel's margins are the
+    plain walk's and sum's bit for bit, at row counts off the block size,
+    for 1 and 3 classes, on staged (F 28) and directly read (F 130) rows,
+    with the trees' records in shared memory and, for trees of up to 3,000
+    leaves, read where they lie; one launch a call."""
+    from lightgbm_tpu_torch.ops import predict_cuda as pc
+
+    dev = _card()
+    rng = np.random.RandomState(n + 17 * k + f)
+    trees = _random_trees(rng, (30 if leaves < 100 else 6) * k, leaves, f, cats)
+    walk = _stacked_on(trees, dev)
+    assert (walk["cat"] is not None) == bool(cats)
+    x = torch.as_tensor(_edge_rows(rng, n, f, cats), device=dev)
+    pc.reset_counts()
+    got = pc.predict_trees(x, walk, k)
+    assert pc.launches["predict_trees"] == 1 and pc.plain_calls["predict_trees"] == 0
+    want = _plain_on_card(x, walk, k)
+    assert got.shape == want.shape and torch.equal(got, want)
+    assert torch.equal(pc.predict_trees(x, walk, k), got)  # a second launch, same bits
+    assert pc.launches["predict_trees"] == 2
+
+
+def test_traversal_kernel_on_the_benchmark_forest():
+    """262,144 rows through 500 random 255-leaf trees of depth <= 16, the
+    prediction cell's forest (gbdt_bench/data/forest.py), loaded as model
+    text: the kernel's margins are the plain walk's and sum's bit for bit,
+    and a Booster's predict launches the kernel once a call."""
+    import lightgbm_tpu_torch as lgt
+    from gbdt_bench.data import forest, tabular
+    from lightgbm_tpu_torch.ops import predict_cuda as pc
+
+    dev = _card()
+    X, _ = tabular.make("higgs_like", 262_144, 20261019, dev)
+    grown = forest.grow(X[:65_536], 500, 255, 20261019, min_rows=7, leaf_scale=0.05,
+                        max_depth=16)
+    bst = lgt.Booster(model_str=forest.model_text(grown, X.shape[1]))
+    walk = bst._gbdt._packed(0, -1)["walk"]
+    assert walk["depth"] <= 16 and walk["leaf_value"].shape == (500, 255)
+    x = X.float().contiguous()
+    got = pc.predict_trees(x, walk)
+    assert torch.equal(got, _plain_on_card(x, walk, 1))
+    pc.reset_counts()
+    Xh = X.cpu().numpy()
+    raw = [bst.predict(Xh[:n], raw_score=True) for n in (1, 16_384, 262_144)]
+    assert pc.launches["predict_trees"] == 3
+    assert np.array_equal(raw[-1], got.cpu().numpy().astype(np.float64))
+
+
+@pytest.mark.parametrize("k", [1, 3])
+def test_traversal_kernel_windows_match_the_plain_windows(k):
+    """The early stop's window mode: each window of trees onto the margins
+    so far, rows switched off as the windows go, bitwise the plain
+    predict_raw_window on the card; a row that runs every window ends at
+    the full prediction."""
+    from lightgbm_tpu_torch.ops import predict_cuda as pc
+
+    dev = _card()
+    rng = np.random.RandomState(5 + k)
+    trees = _random_trees(rng, 24 * k, 31, 28, (2,))
+    walk = _stacked_on(trees, dev)
+    n = 3001
+    x = torch.as_tensor(_edge_rows(rng, n, 28, (2,)), device=dev)
+    shape = (n,) if k == 1 else (n, k)
+    base = torch.zeros(shape, dtype=torch.float32, device=dev)
+    active = torch.ones(n, dtype=torch.bool, device=dev)
+    window = 4 * k
+    for lo in range(0, len(trees), window):
+        got = pc.predict_trees(x, walk, k, tree_lo=lo, window=window, base=base,
+                               active=active)
+        want = _plain_on_card(x, walk, k, tree_lo=lo, window=window, base=base,
+                              active=active)
+        assert torch.equal(got, want), lo
+        base = got
+        active = active & torch.as_tensor(rng.rand(n) < 0.8, device=dev)
+    running = active.cpu().numpy()
+    assert 0 < running.sum() < n
+    full = pc.predict_trees(x, walk, k)
+    assert torch.equal(base[active], full[active])
+
+
+def test_traversal_kernel_counts_the_leaf_depths_it_walked():
+    """A traced call's counts: the useful steps are the sum of the leaf
+    depths the plain walk's leaves give; the issued steps are whole warps'
+    (32 lanes a step), at least the useful ones and at most 32 x the warps
+    x the trees x the deepest tree."""
+    from lightgbm_tpu_torch.models.gbdt import _leaf_depths
+    from lightgbm_tpu_torch.ops import predict as tpredict
+    from lightgbm_tpu_torch.ops import predict_cuda as pc
+
+    dev = _card()
+    rng = np.random.RandomState(9)
+    trees = _random_trees(rng, 60, 63, 28, (4,))
+    walk = _stacked_on(trees, dev)
+    n = 10_007
+    x = torch.as_tensor(_edge_rows(rng, n, 28, (4,)), device=dev)
+    counts = torch.zeros(2, dtype=torch.int64, device=dev)
+    got = pc.predict_trees(x, walk, counts=counts)
+    assert torch.equal(got, pc.predict_trees(x, walk))  # counting changes no bit
+    leaf = tpredict.leaf_index(x, **tpredict.walk_args(walk))
+    depth = torch.as_tensor(_leaf_depths(trees, walk["leaf_value"].shape[1]), device=dev)
+    issued, useful = counts.tolist()
+    assert useful == int(torch.gather(depth, 1, leaf).sum())
+    warps = -(-n // 32)
+    assert issued % 32 == 0 and useful <= issued <= 32 * warps * len(trees) * walk["depth"]
 
 
 def test_pinned_buffers_are_the_models_and_bounded_in_bytes(monkeypatch):
